@@ -186,15 +186,25 @@ def phase_sweep(torch, fused, PipelineSpec) -> dict:
     worst = {"span_reduce": 0.0, "onehot_reduce": 0.0}
     cases = {"span_reduce": 0, "onehot_reduce": 0}
     failures = []
-    # (S, B, k, G, sorted group ids -> span layout)
+    # (S, B, k, G, sorted group ids -> span layout); the one-hot cases
+    # (unsorted) cover P % 4 != 0 (P = 63) at G > 1024, the group-chunk
+    # loop (G = 4000), rings that wrap (200,003 rows give each warp of
+    # 132 blocks of 24 about two 32-row tiles of four chunks (P = 64),
+    # some eight steps through its two ring stages) and rows of 26,000
+    # buckets, more than the shared accumulator holds (bucket chunks)
     sizes = ((1000, 5, 3, 7, True), (4097, 12, 5, 37, True),
-             (3001, 7, 9, 61, False), (2050, 13, 4, 4000, False))
+             (3001, 7, 9, 61, False), (2050, 13, 4, 4000, False),
+             (5003, 9, 7, 2500, False), (200_003, 16, 4, 2000, False),
+             (70, 26_000, 1, 3, False))
     rates = ((False, False), (True, False), (True, True))
     for s, b, k, g, sort in sizes:
         p = b * k
         base = rng.normal(100.0, 15.0, (s, p))
         counter = np.cumsum(rng.uniform(1, 50, (s, p)), axis=1)
         counter[s // 3, p // 2:] -= counter[s // 3, p // 2] * 0.9
+        on_card = {False: torch.as_tensor(base, dtype=torch.float32).cuda(),
+                   True: torch.as_tensor(counter,
+                                         dtype=torch.float32).cuda()}
         gids = rng.integers(0, g, s).astype(np.int32)
         if sort:
             gids.sort()
@@ -207,8 +217,7 @@ def phase_sweep(torch, fused, PipelineSpec) -> dict:
                                         num_groups=g, ds_function=ds,
                                         agg_name=agg, rate=rate,
                                         rate_counter=ctr)
-                    vals = torch.as_tensor(counter if ctr else base,
-                                           dtype=torch.float32).cuda()
+                    vals = on_card[ctr]
                     cm, rv = (2.0**32, 5.0) if ctr else \
                         (float(2**64 - 1), 0.0)
                     try:
@@ -291,7 +300,8 @@ def main() -> int:
     log = _cuda_build.library_path().with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill")):
                 print("  ptxas:", line.strip())
 
     print("phase 2: kernels vs plain on the card "

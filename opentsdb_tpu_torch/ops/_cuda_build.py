@@ -34,7 +34,10 @@ _SIGNATURES = {
         _P, _L, _I, _I, _I, _P, _P, _I, _P, _I, _P, _F, _F, _I, _I, _I,
         _P, _P, _P),
     "fused_onehot_reduce": (
-        _P, _L, _I, _I, _I, _P, _I, _P, _F, _F, _I, _I, _I, _P, _P),
+        _P, _L, _I, _I, _I, _P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _P,
+        _P, _P),
+    "fused_onehot_slices": (_L, _I, _I, _I),
+    "fused_onehot_tile": (),
 }
 
 

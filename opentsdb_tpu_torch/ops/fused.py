@@ -13,10 +13,15 @@ bodies become two hand-written CUDA kernels for Hopper
   inside the block and a second small kernel sums the tile partials in
   tile order, so the result is deterministic.
 - :func:`onehot_reduce` replaces ``_kernel`` (pallas_fused.py:241):
-  unsorted group ids, a shared-memory ``[G, B]`` accumulator per block
-  fed by shared atomics, flushed to the output with one global atomic
-  per touched cell. The float atomics make the summation order vary
-  from run to run.
+  unsorted group ids. A persistent block of 768 threads per SM; each
+  warp streams its own 32-row tiles through a two-stage ring of async
+  copies into shared memory, and every lane adds its row's buckets into
+  the block's shared-memory ``[G, B]`` accumulator (or a chunk of it)
+  with shared atomics. Each block writes its partial to one row slice
+  of a ``[slices, G, B]`` scratch tensor, sized by the library's
+  ``fused_onehot_slices``, and a second small kernel sums the slices in
+  order. The shared float atomics make the order of the sums inside a
+  block vary from run to run.
 
 Both kernels run the same per-series transform as the reference's
 ``_tile_transform`` (pallas_fused.py:196): downsample P points to B
@@ -340,12 +345,17 @@ def onehot_reduce(values: torch.Tensor, gids: torch.Tensor,
     _check_cuda(values, gids, inv_dt, spec, k)
     s, p = values.shape
     b = spec.num_buckets
-    out = torch.empty((g, b), dtype=torch.float32, device=values.device)
+    dev = values.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slices = _cuda_build.library().fused_onehot_slices(s, b, g, sms)
+    partials = torch.empty((slices, g, b), dtype=torch.float32, device=dev)
+    out = torch.empty((g, b), dtype=torch.float32, device=dev)
     ds_kind, rate_mode, square = _kernel_flags(spec)
-    _launch("fused_onehot_reduce", values.device,
+    _launch("fused_onehot_reduce", dev,
             values.data_ptr(), s, p, k, b, gids.data_ptr(), g,
             inv_dt.data_ptr(), counter_max, reset_value, ds_kind,
-            rate_mode, square, out.data_ptr())
+            rate_mode, square, sms, dev.index,
+            partials.data_ptr(), out.data_ptr())
     onehot_reduce.launches += 1
     return out
 

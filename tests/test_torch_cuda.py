@@ -26,7 +26,9 @@ def card():
 
 
 def _case(card, ds_fn, agg, rate, counter, allow_span, s=1500, b=7, k=3,
-          g=9):
+          g=9, misalign=False):
+    """``misalign`` puts the value rows at a 4-byte offset from a 16-byte
+    boundary (a contiguous view one float into its buffer)."""
     rng = np.random.default_rng(3)
     p = b * k
     vals = (np.cumsum(rng.uniform(1, 50, (s, p)), axis=1) if counter
@@ -39,6 +41,10 @@ def _case(card, ds_fn, agg, rate, counter, allow_span, s=1500, b=7, k=3,
                         ds_function=ds_fn, agg_name=agg, rate=rate,
                         rate_counter=counter)
     x = torch.as_tensor(vals, dtype=torch.float32, device=card)
+    if misalign:
+        buf = torch.empty(s * p + 1, dtype=torch.float32, device=card)
+        x = buf[1:].view(s, p).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
     cm, rv = (2.0**32, 5.0) if counter else (float(2**64 - 1), 0.0)
     batch = fused.prepare(x, ts, gids, spec, allow_span=allow_span)
     assert (batch.spans is not None) == allow_span
@@ -84,3 +90,50 @@ def test_onehot_group_chunks(card):
     the block walks its rows once per group chunk."""
     _case(card, "sum", "sum", True, False, False, s=3000, b=13, k=2,
           g=4000)
+
+
+def _onehot_tile() -> int:
+    from opentsdb_tpu_torch.ops import _cuda_build
+    return _cuda_build.library().fused_onehot_tile()
+
+
+@pytest.mark.parametrize("d", [None, -1, 1])
+def test_onehot_ragged_tiles(card, d):
+    """S = 1 (below one tile) and a block tile of the kernel less or
+    plus one row: rows past S add nothing."""
+    s = 1 if d is None else _onehot_tile() + d
+    _case(card, "avg", "sum", True, False, False, s=s, b=12, k=5, g=7)
+
+
+@pytest.mark.parametrize("b,k,misalign", [(7, 3, False), (9, 7, False),
+                                          (12, 5, True)])
+def test_onehot_unaligned_rows(card, b, k, misalign):
+    """P % 4 != 0, or a base that is not 16-byte aligned: the ring takes
+    4-byte async copies instead of 16-byte ones."""
+    _case(card, "sum", "sum", True, False, False, s=3001, b=b, k=k,
+          g=1500, misalign=misalign)
+
+
+def test_onehot_ring_wraps(card):
+    """Each warp takes several 32-row tiles of four column chunks (P =
+    64: 20, 20, 20 and a ragged 4), far more steps than its ring has
+    stages: every warp's ring wraps several times."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    s = 4 * sms * _onehot_tile() + 77
+    _case(card, "avg", "sum", True, False, False, s=s, b=16, k=4, g=2000)
+
+
+@pytest.mark.parametrize("g", [1, fused._MAX_GROUPS])
+def test_onehot_group_extremes(card, g):
+    """One group, and the most groups the one-hot layout takes."""
+    _case(card, "avg", "squareSum", True, False, False, s=5000, b=12, k=5,
+          g=g)
+
+
+@pytest.mark.parametrize("b,g", [(13_000, 3), (26_000, 2)])
+def test_onehot_long_rows(card, b, g):
+    """Rows whose buckets crowd the shared accumulator: past 12,928
+    buckets 1/dt stays in global memory and the accumulator holds one
+    group's row; past 25,856 it holds part of one, and the kernel walks
+    the rows once per bucket chunk."""
+    _case(card, "sum", "sum", True, True, False, s=100, b=b, k=1, g=g)

@@ -297,3 +297,29 @@ def test_wrappers_take_plain_version_on_cpu():
                   spec, 4)
     assert (fused.span_reduce.launches,
             fused.onehot_reduce.launches) == before
+
+
+@pytest.mark.parametrize("s,b,k,g", [
+    (1, 12, 5, 7),        # one series, less than a warp tile
+    (767, 12, 5, 7),      # a ragged last block tile of the kernel
+    (769, 12, 5, 7),
+    (301, 7, 3, 1500),    # P = 21: P % 4 != 0, at G > 1024
+    (301, 9, 7, 1500),    # P = 63
+    (200, 16, 4, 9),      # P = 64: column chunks of 20, 20, 20 and 4
+    (300, 12, 5, 1),      # one group
+    (300, 12, 5, 4096),   # the most groups the one-hot layout takes
+    (2000, 12, 5, 2000),  # config 3's B, k and G
+    (8, 1500, 1, 3),      # a long row: many column chunks per tile
+])
+def test_onehot_edges_match_pallas(s, b, k, g):
+    """The one-hot layout at the shapes where its CUDA kernel has edges
+    (tile and chunk remainders, unaligned rows, group extremes) agrees
+    with the reference; the card tests hold the kernel to this plain
+    version at the same shapes."""
+    vals, ts, gids = _data(s, b, k, g, seed=13)
+    got, got_emit, want, want_emit = _both(
+        vals, ts, gids, k, allow_span=False, num_series=s,
+        num_buckets=b, num_groups=g, ds_function="avg", agg_name="sum",
+        rate=True)
+    _assert_close(got, want)
+    np.testing.assert_array_equal(got_emit, want_emit)
