@@ -6,11 +6,15 @@
 1. prints the card (``nvidia-smi``), the torch/CUDA versions and the
    kernel build time (``csrc/fused_pipeline.cu`` is compiled here);
 2. holds each CUDA kernel against its plain PyTorch version on the card
-   over the downsample x aggregator x rate/counter sweep at odd sizes;
+   over the downsample x aggregator x rate/counter sweep at odd sizes
+   (the plain group sums added in float64, ``plain_reduce(exact=True)``;
+   ``plain_ms`` times the float32 plain version the wrappers run on the
+   CPU);
 3. drives the main path at full width (BASELINE config 3: 1M series of
    ``sys.cpu.user`` x 60 points at one a minute, queried as
-   ``sum:5m-avg:rate`` grouped by ``dc`` -> 100 groups, the span kernel,
-   and by ``rack`` -> 2000 groups, the one-hot kernel) through
+   ``sum:5m-avg:rate`` grouped by ``dc`` -> 100 groups, the span kernel
+   reading the rows through the group-sort permutation, and by ``rack``
+   -> 2000 groups, the one-hot kernel) through
    ``TSDB.add_series_points`` and ``TSDB.execute_query``, checks that
    both kernels launched and that the answers match the plain version,
    and prints the time of each stage;
@@ -153,22 +157,23 @@ def compare(got, want, terms) -> float:
 def kernel_vs_plain(fused, spec, values, bucket_ts, gids, k, cm, rv,
                     allow_span: bool):
     """Run the wrapper and the plain version on the same device inputs;
-    check acc, result NaNs and emit. Returns (kernel name, max err)."""
+    check acc, result NaNs and emit. Returns (kernel name, max err,
+    whether the rows were read through a group-sort permutation)."""
     import torch
     batch = fused.prepare(values, bucket_ts, gids, spec,
                           allow_span=allow_span)
     if batch.spans is not None:
         name = "span_reduce"
-        got = fused.span_reduce(batch.values, batch.gids, batch.spans,
-                                batch.group_start, batch.inv_dt, spec, k,
-                                cm, rv)
+        got = fused.span_reduce(batch.values, batch.order, batch.gids,
+                                batch.spans, batch.group_start,
+                                batch.inv_dt, spec, k, cm, rv)
     else:
         name = "onehot_reduce"
         got = fused.onehot_reduce(batch.values, batch.gids, batch.inv_dt,
                                   spec, k, cm, rv)
-    t = fused._transform_plain(batch.values, batch.inv_dt, spec, k, cm, rv)
-    want = fused._group_stage_plain(t, batch.gids, spec.num_groups)
-    terms = fused._group_stage_plain(t.abs(), batch.gids, spec.num_groups)
+    want = fused.plain_reduce(batch, spec, k, cm, rv, exact=True)
+    terms = fused.plain_reduce(batch, spec, k, cm, rv, exact=True,
+                               magnitude=True)
     torch.cuda.synchronize()
     err = compare(got, want, terms)
     res_k, emit_k = fused._finalize(got, batch.sizes, spec)
@@ -176,7 +181,7 @@ def kernel_vs_plain(fused, spec, values, bucket_ts, gids, k, cm, rv,
     check(bool(torch.equal(emit_k, emit_p)), "emit masks differ")
     check(bool(torch.equal(torch.isnan(res_k), torch.isnan(res_p))),
           "result NaN positions differ")
-    return name, err
+    return name, err, batch.order is not None
 
 
 def phase_sweep(torch, fused, PipelineSpec) -> dict:
@@ -185,19 +190,26 @@ def phase_sweep(torch, fused, PipelineSpec) -> dict:
     rng = np.random.default_rng(7)
     worst = {"span_reduce": 0.0, "onehot_reduce": 0.0}
     cases = {"span_reduce": 0, "onehot_reduce": 0}
+    permuted = 0  # span cases whose rows were read through the order
     failures = []
-    # (S, B, k, G, sorted group ids -> span layout); the one-hot cases
-    # (unsorted) cover P % 4 != 0 (P = 63) at G > 1024, the group-chunk
-    # loop (G = 4000), rings that wrap (200,003 rows give each warp of
-    # 132 blocks of 24 about two 32-row tiles of four chunks (P = 64),
-    # some eight steps through its two ring stages) and rows of 26,000
+    # (S, B, k, G, layout): "sorted" ids in the span layout, "span"
+    # unsorted ids in the span layout (rows read through the
+    # permutation; G <= 8 always fits), "onehot" unsorted ids with the
+    # span layout refused. Both unsorted kinds cover P % 4 != 0 (P =
+    # 63) and rings that wrap (200,003 rows give each warp of 132 blocks
+    # of 24 about two 32-row tiles of four chunks (P = 64), some eight
+    # steps through its two ring stages); the one-hot cases also cover
+    # G > 1024, the group-chunk loop (G = 4000) and rows of 26,000
     # buckets, more than the shared accumulator holds (bucket chunks)
-    sizes = ((1000, 5, 3, 7, True), (4097, 12, 5, 37, True),
-             (3001, 7, 9, 61, False), (2050, 13, 4, 4000, False),
-             (5003, 9, 7, 2500, False), (200_003, 16, 4, 2000, False),
-             (70, 26_000, 1, 3, False))
+    sizes = ((1000, 5, 3, 7, "sorted"), (4097, 12, 5, 37, "sorted"),
+             (129, 12, 5, 3, "span"), (3001, 7, 9, 5, "span"),
+             (200_003, 16, 4, 7, "span"),
+             (3001, 7, 9, 61, "onehot"), (2050, 13, 4, 4000, "onehot"),
+             (5003, 9, 7, 2500, "onehot"),
+             (200_003, 16, 4, 2000, "onehot"),
+             (70, 26_000, 1, 3, "onehot"))
     rates = ((False, False), (True, False), (True, True))
-    for s, b, k, g, sort in sizes:
+    for s, b, k, g, layout in sizes:
         p = b * k
         base = rng.normal(100.0, 15.0, (s, p))
         counter = np.cumsum(rng.uniform(1, 50, (s, p)), axis=1)
@@ -206,7 +218,7 @@ def phase_sweep(torch, fused, PipelineSpec) -> dict:
                    True: torch.as_tensor(counter,
                                          dtype=torch.float32).cuda()}
         gids = rng.integers(0, g, s).astype(np.int32)
-        if sort:
+        if layout == "sorted":
             gids.sort()
         ts = np.arange(b, dtype=np.int64) * 60_000 + T0 * 1000
         for ds in sorted(fused._DS_FNS):
@@ -221,18 +233,20 @@ def phase_sweep(torch, fused, PipelineSpec) -> dict:
                     cm, rv = (2.0**32, 5.0) if ctr else \
                         (float(2**64 - 1), 0.0)
                     try:
-                        name, err = kernel_vs_plain(fused, spec, vals, ts,
-                                                    gids, k, cm, rv,
-                                                    allow_span=sort)
+                        name, err, perm = kernel_vs_plain(
+                            fused, spec, vals, ts, gids, k, cm, rv,
+                            allow_span=layout != "onehot")
                     except SmokeFailure as exc:
-                        failures.append(f"S={s} B={b} k={k} G={g} ds={ds}"
-                                        f" agg={agg} rate={rate} "
-                                        f"counter={ctr}: {exc}")
+                        failures.append(f"S={s} B={b} k={k} G={g} "
+                                        f"{layout} ds={ds} agg={agg} "
+                                        f"rate={rate} counter={ctr}: "
+                                        f"{exc}")
                         continue
                     worst[name] = max(worst[name], err)
                     cases[name] += 1
+                    permuted += perm
                     line[name] = max(line.get(name, 0.0), err)
-            print(f"  sweep S={s} B={b} k={k} G={g} ds={ds}: "
+            print(f"  sweep S={s} B={b} k={k} G={g} {layout} ds={ds}: "
                   + ", ".join(f"{n} max_abs_err={e:.3g}"
                               for n, e in line.items()))
     for line in failures:
@@ -242,6 +256,9 @@ def phase_sweep(torch, fused, PipelineSpec) -> dict:
         print(f"  sweep {name}: {cases[name]} cases pass, "
               f"max_abs_err={worst[name]:.6g}")
         check(cases[name] > 0, f"sweep never reached {name}")
+    print(f"  sweep span_reduce through the permutation: {permuted} "
+          "cases")
+    check(permuted > 0, "no sweep case read rows through the order")
     return worst
 
 
@@ -398,18 +415,22 @@ def main() -> int:
         check(k is not None and ok, "config-3 batch left the fused path")
         check(kname == ("span_reduce" if batch.spans is not None
                         else "onehot_reduce"), "unexpected layout")
+        if batch.spans is not None:
+            # config 3's dc ids (i % 100) are unsorted: the span kernel
+            # must read its rows through the permutation, not in place
+            check(batch.order is not None,
+                  "the span batch carries no group-sort permutation")
         res, emit = pipeline.execute_auto(padded, bidx, bts, gids, spec,
                                           None, dtype=torch.float32,
                                           device="cuda")
         check(res.is_cuda and emit.is_cuda, "results are not on cuda")
         cm, rv = float(2**64 - 1), 0.0
-        _, err = kernel_vs_plain(fused, spec, vals, bts, gids, k, cm, rv,
-                                 allow_span=True)
+        _, err, _ = kernel_vs_plain(fused, spec, vals, bts, gids, k, cm,
+                                    rv, allow_span=True)
         # the engine's answer against the plain version's
-        t_plain = fused._transform_plain(batch.values, batch.inv_dt, spec,
-                                         k, cm, rv)
-        acc_p = fused._group_stage_plain(t_plain, batch.gids, g)
-        terms = fused._group_stage_plain(t_plain.abs(), batch.gids, g)
+        acc_p = fused.plain_reduce(batch, spec, k, cm, rv, exact=True)
+        terms = fused.plain_reduce(batch, spec, k, cm, rv, exact=True,
+                                   magnitude=True)
         want, want_emit = fused._finalize(acc_p, batch.sizes, spec)
         rows = answers[m]
         check(len(rows) == g, f"expected {g} groups, got {len(rows)}")
@@ -424,25 +445,27 @@ def main() -> int:
                     + TOL_ABS).all()),
               f"engine answer differs from plain: {diff.max()}")
 
+        # the span path gathers nothing: its device time is the kernel's
         if batch.spans is not None:
             run = (lambda: fused.span_reduce(
-                batch.values, batch.gids, batch.spans, batch.group_start,
-                batch.inv_dt, spec, k, cm, rv))
-            order = torch.as_tensor(fused._sort_order(
-                np.asarray(gids, dtype=np.int32))).cuda()
-            gather_ms = cuda_ms(lambda: vals.index_select(0, order), 10)
+                batch.values, batch.order, batch.gids, batch.spans,
+                batch.group_start, batch.inv_dt, spec, k, cm, rv))
         else:
             run = (lambda: fused.onehot_reduce(
                 batch.values, batch.gids, batch.inv_dt, spec, k, cm, rv))
-            gather_ms = None
         ms = cuda_ms(run, 10)
-        plain_ms = cuda_ms(lambda: fused._group_stage_plain(
-            fused._transform_plain(batch.values, batch.inv_dt, spec, k,
-                                   cm, rv), batch.gids, g), 10)
+        # the plain version as the wrapper runs it for CPU tensors
+        # (float32 sums; the span batch's rows reordered first)
+        plain_ms = cuda_ms(
+            lambda: fused.plain_reduce(batch, spec, k, cm, rv), 10)
         n_s, p = batch.values.shape
+        # values, ids, 1/dt and out; the span kernel also reads its
+        # spans, group starts and the permutation
         nbytes = n_s * p * 4 + n_s * 4 + b * 4 + g * b * 4
         if batch.spans is not None:
             nbytes += batch.spans.numel() * 4 + (g + 1) * 4
+        if batch.order is not None:
+            nbytes += batch.order.numel() * 4
         rate = next(r for key, r in _MEM_RATE if key in name)
         flops = n_s * p + n_s * b * 8
         bound_ms = max(nbytes / rate, flops / F32_PEAK) * 1e3
@@ -451,23 +474,21 @@ def main() -> int:
         e2e_p50 = p50(e2e[m])
         stages = (("plan", plan_t), ("materialize", mat_t),
                   ("assign", assign_t), ("upload", up_t),
-                  ("prepare (host prep + gather)", prep_t),
+                  ("prepare", prep_t),
                   ("kernel+finalize", run_t), ("assemble", asm_t))
         print(f"  {m}: p50 ms: " + ", ".join(
             f"{n} {p50(v) * 1e3:.3f}" for n, v in stages)
             + f"; sum {sum(p50(v) for _, v in stages) * 1e3:.3f}")
-        print(f"  {m}: gather "
-              + (f"{gather_ms:.4f} ms" if gather_ms is not None
-                 else "none (one-hot)")
-              + f", kernel {ms:.4f} ms (bound {bound_ms:.4f} ms at "
+        print(f"  {m}: kernel {ms:.4f} ms, gather_ms null (no gather: "
+              "the device time is the kernel's) (bound "
+              f"{bound_ms:.4f} ms at "
               f"{rate / 1e12:.2f} TB/s), plain {plain_ms:.4f} ms "
               "(CUDA events); end-to-end query p50 "
               f"{e2e_p50 * 1e3:.3f} ms ({n_points / e2e_p50:,.0f} "
               "points/s)")
         report[kname] = {"ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "max_abs_err": err,
-                         "gather_ms": gather_ms}
+                         "max_abs_err": err}
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),

@@ -31,13 +31,14 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # as c_void_p: a bare Python int would be passed as a 32-bit int)
 _SIGNATURES = {
     "fused_span_reduce": (
-        _P, _L, _I, _I, _I, _P, _P, _I, _P, _I, _P, _F, _F, _I, _I, _I,
-        _P, _P, _P),
+        _P, _P, _L, _I, _I, _I, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I,
+        _I, _I, _P, _P, _P),
     "fused_onehot_reduce": (
         _P, _L, _I, _I, _I, _P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _P,
         _P, _P),
     "fused_onehot_slices": (_L, _I, _I, _I),
     "fused_onehot_tile": (),
+    "fused_span_tiles": (_L,),
 }
 
 

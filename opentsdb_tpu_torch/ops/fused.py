@@ -6,12 +6,16 @@ bodies become two hand-written CUDA kernels for Hopper
 (``csrc/fused_pipeline.cu``), each behind a wrapper here:
 
 - :func:`span_reduce` replaces ``_kernel_span`` (pallas_fused.py:270).
-  Rows are gathered into group order first (the port of
-  ``_gather_transpose``, without the transpose, which exists only for
-  the TPU's 128-lane tiling), so a tile of :data:`TILE_S` series covers
-  at most :data:`SPAN_MAX` groups; the kernel reduces each group slot
-  inside the block and a second small kernel sums the tile partials in
-  tile order, so the result is deterministic.
+  The layout is the reference's stable group sort (its
+  ``_gather_transpose``), but the rows are never gathered: the kernel
+  walks 32-row warp tiles of the sorted order and reads each row
+  through the permutation (``FusedBatch.order``), so a tile of
+  :data:`TILE_S` sorted series covers at most :data:`SPAN_MAX` groups.
+  It streams rows through the same per-warp async-copy rings as the
+  one-hot kernel; each warp reduces a finished bucket per group slot
+  with warp shuffles into per-warp-tile partials, and a second small
+  kernel sums each group's partials with a fixed tree, so the result
+  is bitwise the same from launch to launch.
 - :func:`onehot_reduce` replaces ``_kernel`` (pallas_fused.py:241):
   unsorted group ids. A persistent block of 768 threads per SM; each
   warp streams its own 32-row tiles through a two-stage ring of async
@@ -32,10 +36,11 @@ the optional rate ``(t - t_prev) * inv_dt`` with counter rollover and
 bf16 split of the value operand is a TPU matrix-unit workaround and is
 not carried over: the kernels add in float32.
 
-Each wrapper takes its plain PyTorch version (:func:`_transform_plain`
-plus :func:`_group_stage_plain`, the same op order) only when handed
-CPU tensors; for CUDA tensors it launches the kernel or raises. Each
-wrapper counts its launches in a ``launches`` attribute.
+Each wrapper takes its plain PyTorch version (:func:`_plain`:
+:func:`_transform_plain` plus :func:`_group_stage_plain`, the same op
+order) only when handed CPU tensors; for CUDA tensors it launches the
+kernel or raises. Each wrapper counts its launches in a ``launches``
+attribute.
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ _MAX_GROUPS = 4096
 # group-sorted series, and at most _SPAN_GROUP_MAX groups in all
 SPAN_MAX = 8
 _SPAN_GROUP_MAX = 1024
-# series per CUDA block (one per thread); equals kTile in the source
+# sorted series per row of spans; equals kSpanTile in the source
 TILE_S = 128
 
 # csrc/fused_pipeline.cu enums
@@ -119,15 +124,15 @@ _order_cache_bytes = 0
 
 
 def _sort_order(gids: np.ndarray):
-    """Stable group-sort permutation (None = already sorted), memoized
-    on the group-id content digest."""
+    """Stable group-sort permutation as int32 (None = already sorted),
+    memoized on the group-id content digest."""
     global _order_cache_bytes
     key = (array_digest(np.ascontiguousarray(gids)), len(gids))
     with _ORDER_CACHE_LOCK:
         if key in _ORDER_CACHE:
             return _ORDER_CACHE[key]
     order = None if np.all(gids[1:] >= gids[:-1]) else \
-        np.argsort(gids, kind="stable")
+        np.argsort(gids, kind="stable").astype(np.int32)
     nbytes = 0 if order is None else order.nbytes
     with _ORDER_CACHE_LOCK:
         while _ORDER_CACHE and \
@@ -142,9 +147,10 @@ def _sort_order(gids: np.ndarray):
 
 def _span_layout(group_ids: np.ndarray, g: int):
     """Try the group-sorted span layout at the CUDA tile size. Returns
-    (order | None, spans [NT, SPAN_MAX] int32), or None when some tile
-    would cover more than SPAN_MAX groups or there are more than
-    _SPAN_GROUP_MAX groups. Empty slots hold the sentinel ``g``."""
+    (order | None, spans [NT, SPAN_MAX] int32, the group ids in sorted
+    order), or None when some tile would cover more than SPAN_MAX
+    groups or there are more than _SPAN_GROUP_MAX groups. Empty slots
+    hold the sentinel ``g``."""
     if g > _SPAN_GROUP_MAX:
         return None
     gids = np.asarray(group_ids, dtype=np.int32)
@@ -165,26 +171,31 @@ def _span_layout(group_ids: np.ndarray, g: int):
     spans = np.full((nt, SPAN_MAX), g, np.int32)
     r, c = np.nonzero(starts)
     spans[r, slot[r, c]] = gt[r, c]
-    return order, spans
+    return order, spans, gpad[:s]
 
 
 @dataclass
 class FusedBatch:
     """Device arguments of one fused execution (see :func:`prepare`)."""
-    values: torch.Tensor         # [S, P]; group-sorted rows with spans
-    gids: torch.Tensor           # [S] int32 in the row order of values
+    values: torch.Tensor         # [S, P] in the caller's row order
+    gids: torch.Tensor           # [S] int32; in group order with spans
     inv_dt: torch.Tensor         # [B]
     sizes: torch.Tensor          # [G] series per group
     spans: torch.Tensor | None   # [NT, SPAN_MAX] int32 -> span kernel
     group_start: torch.Tensor | None  # [G+1] int32 first sorted row
+    # [S] int32 stable group-sort permutation (row i of the sorted
+    # order is values row order[i]); None when the ids are sorted or
+    # the layout is one-hot
+    order: torch.Tensor | None = None
 
 
 def prepare(values: torch.Tensor, bucket_ts: np.ndarray,
             group_ids: np.ndarray, spec,
             allow_span: bool = True) -> FusedBatch:
-    """Host prep and the group-sort gather (the port of the reference's
-    ``prepare``): picks the span layout when it fits, else the one-hot
-    layout. ``values`` is the [S, P] batch, already on its device."""
+    """Host prep (the port of the reference's ``prepare``): picks the
+    span layout when it fits, else the one-hot layout. ``values`` is the
+    [S, P] batch, already on its device; it is never reordered (the span
+    kernel reads its rows through ``order``)."""
     dev, dtype = values.device, values.dtype
     gids = np.asarray(group_ids, dtype=np.int32)
     sizes = np.bincount(gids, minlength=spec.num_groups)
@@ -195,15 +206,14 @@ def prepare(values: torch.Tensor, bucket_ts: np.ndarray,
     if span is None:
         return FusedBatch(values, torch.as_tensor(gids).to(dev), inv_dt,
                           sizes_t, None, None)
-    order, spans = span
-    if order is not None:
-        values = values.index_select(0, torch.as_tensor(order).to(dev))
-        gids = gids[order]
+    order, spans, sorted_gids = span
     group_start = np.zeros(spec.num_groups + 1, dtype=np.int32)
     np.cumsum(sizes, out=group_start[1:])
-    return FusedBatch(values, torch.as_tensor(gids).to(dev), inv_dt,
-                      sizes_t, torch.as_tensor(spans).to(dev),
-                      torch.as_tensor(group_start).to(dev))
+    return FusedBatch(values, torch.as_tensor(sorted_gids).to(dev),
+                      inv_dt, sizes_t, torch.as_tensor(spans).to(dev),
+                      torch.as_tensor(group_start).to(dev),
+                      None if order is None
+                      else torch.as_tensor(order).to(dev))
 
 
 # -- the plain versions -------------------------------------------------------
@@ -258,6 +268,43 @@ def _group_stage_plain(t: torch.Tensor, gids: torch.Tensor,
     return acc.index_add_(0, gids.long(), t)
 
 
+def _in_group_order(t: torch.Tensor, order) -> torch.Tensor:
+    """Rows of ``t`` in the group order (row i is ``t[order[i]]``), to
+    pair them with the sorted group ids of a span batch."""
+    return t if order is None else t.index_select(0, order.long())
+
+
+def _plain(values, order, gids, inv_dt, spec, k: int, counter_max: float,
+           reset_value: float, exact: bool = False,
+           magnitude: bool = False) -> torch.Tensor:
+    """The plain version of both kernels -> acc [G, B]: the transform,
+    its rows paired with ``gids`` through ``order``, the group sums of t
+    (of |t| with ``magnitude``). The wrappers run it as it is for CPU
+    tensors, in the dtype of ``values``. With ``exact``, the group sums
+    of the same terms are added in float64 and rounded once: the
+    reference the kernels are held to on the card, whose own rounding
+    then does not count against them (a float32 running sum over a
+    group of 28,000 series drifts past the tolerance)."""
+    t = _in_group_order(_transform_plain(values, inv_dt, spec, k,
+                                         counter_max, reset_value), order)
+    if magnitude:
+        t = t.abs()
+    if not exact:
+        return _group_stage_plain(t, gids, spec.num_groups)
+    return _group_stage_plain(t.double(), gids,
+                              spec.num_groups).to(t.dtype)
+
+
+def plain_reduce(batch: FusedBatch, spec, k: int, counter_max: float,
+                 reset_value: float, exact: bool = False,
+                 magnitude: bool = False) -> torch.Tensor:
+    """:func:`_plain` of ``batch`` on its own device: what its kernel's
+    wrapper runs for CPU tensors (``exact`` adds the group sums in
+    float64, the reference on the card)."""
+    return _plain(batch.values, batch.order, batch.gids, batch.inv_dt,
+                  spec, k, counter_max, reset_value, exact, magnitude)
+
+
 # -- the kernel wrappers ------------------------------------------------------
 
 def _kernel_flags(spec) -> tuple[int, int, int]:
@@ -293,38 +340,53 @@ def _launch(fn_name: str, device: torch.device, *args) -> None:
                            f"{lib.fused_error_string(err).decode()}")
 
 
-def span_reduce(values: torch.Tensor, gids: torch.Tensor,
-                spans: torch.Tensor, group_start: torch.Tensor,
-                inv_dt: torch.Tensor, spec, k: int, counter_max: float,
+def span_reduce(values: torch.Tensor, order: torch.Tensor | None,
+                gids: torch.Tensor, spans: torch.Tensor,
+                group_start: torch.Tensor, inv_dt: torch.Tensor, spec,
+                k: int, counter_max: float,
                 reset_value: float) -> torch.Tensor:
     """Group-sorted fused transform + group sum -> acc [G, B].
 
-    ``values`` [S, P] rows in group order, ``gids`` [S] int32 in the
-    same order, ``spans`` [ceil(S/TILE_S), SPAN_MAX] the groups of each
-    tile, ``group_start`` [G+1] each group's first row."""
+    ``values`` [S, P] rows in any order, ``order`` [S] int32 the stable
+    group-sort permutation (None: the rows are in group order),
+    ``gids`` [S] int32 in group order, ``spans`` [ceil(S/TILE_S),
+    SPAN_MAX] the groups of each tile of the sorted order,
+    ``group_start`` [G+1] each group's first sorted row."""
     g = spec.num_groups
     if values.device.type == "cpu":
-        return _group_stage_plain(
-            _transform_plain(values, inv_dt, spec, k, counter_max,
-                             reset_value), gids, g)
+        return _plain(values, order, gids, inv_dt, spec, k, counter_max,
+                      reset_value)
     _check_cuda(values, gids, inv_dt, spec, k)
     s, p = values.shape
-    nt = -(-s // TILE_S)
-    if spans.shape != (nt, SPAN_MAX) or spans.dtype != torch.int32 \
+    dev = values.device
+    if order is not None and (
+            order.dtype != torch.int32 or order.shape != (s,)
+            or not order.is_contiguous() or order.device != dev):
+        raise ValueError("order must be a contiguous int32 [S] tensor on "
+                         "the device of values")
+    if spans.shape != (-(-s // TILE_S), SPAN_MAX) \
+            or spans.dtype != torch.int32 \
             or group_start.shape != (g + 1,) \
             or group_start.dtype != torch.int32:
         raise ValueError("spans must be int32 [NT, SPAN_MAX] and "
                          "group_start int32 [G+1]")
+    for t in (spans, group_start):
+        if not t.is_contiguous() or t.device != dev:
+            raise ValueError("kernel operands must be contiguous and on "
+                             "one device")
     b = spec.num_buckets
-    partials = torch.empty((nt, SPAN_MAX, b), dtype=torch.float32,
-                           device=values.device)
-    out = torch.empty((g, b), dtype=torch.float32, device=values.device)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = _cuda_build.library().fused_span_tiles(s)
+    partials = torch.empty((tiles, SPAN_MAX, b), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((g, b), dtype=torch.float32, device=dev)
     ds_kind, rate_mode, square = _kernel_flags(spec)
-    _launch("fused_span_reduce", values.device,
-            values.data_ptr(), s, p, k, b, gids.data_ptr(),
-            spans.data_ptr(), nt, group_start.data_ptr(), g,
-            inv_dt.data_ptr(), counter_max, reset_value, ds_kind,
-            rate_mode, square, partials.data_ptr(), out.data_ptr())
+    _launch("fused_span_reduce", dev,
+            values.data_ptr(), 0 if order is None else order.data_ptr(),
+            s, p, k, b, gids.data_ptr(), spans.data_ptr(),
+            group_start.data_ptr(), g, inv_dt.data_ptr(), counter_max,
+            reset_value, ds_kind, rate_mode, square, sms, dev.index,
+            partials.data_ptr(), out.data_ptr())
     span_reduce.launches += 1
     return out
 
@@ -339,9 +401,8 @@ def onehot_reduce(values: torch.Tensor, gids: torch.Tensor,
     [G, B]. ``values`` [S, P], ``gids`` [S] int32."""
     g = spec.num_groups
     if values.device.type == "cpu":
-        return _group_stage_plain(
-            _transform_plain(values, inv_dt, spec, k, counter_max,
-                             reset_value), gids, g)
+        return _plain(values, None, gids, inv_dt, spec, k, counter_max,
+                      reset_value)
     _check_cuda(values, gids, inv_dt, spec, k)
     s, p = values.shape
     b = spec.num_buckets
@@ -402,8 +463,9 @@ def run(batch: FusedBatch, spec, k: int, rate_options=None):
         float(2**64 - 1)
     rv = float(rate_options.reset_value) if rate_options else 0.0
     if batch.spans is not None:
-        acc = span_reduce(batch.values, batch.gids, batch.spans,
-                          batch.group_start, batch.inv_dt, spec, k, cm, rv)
+        acc = span_reduce(batch.values, batch.order, batch.gids,
+                          batch.spans, batch.group_start, batch.inv_dt,
+                          spec, k, cm, rv)
     else:
         acc = onehot_reduce(batch.values, batch.gids, batch.inv_dt, spec,
                             k, cm, rv)

@@ -5,6 +5,9 @@ on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Tolerance: per cell ``|kernel - plain| <= 1e-5 * sum|terms| + 1e-6``
 (float32 sums in another order; the one-hot kernel's float atomics
 change the order from run to run); emit masks and NaN positions equal.
+The plain answer adds the float32 terms' group sums in float64
+(``plain_reduce(exact=True)``), so only the kernel's rounding counts.
+The span kernel is deterministic: two launches agree bitwise.
 """
 
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 from opentsdb_tpu_torch.ops import fused
 from opentsdb_tpu_torch.ops.pipeline import PipelineSpec
 from opentsdb_tpu_torch.ops.rate import RateOptions
+from test_torch_span_order import span_tree_sums
 
 pytestmark = pytest.mark.cuda
 
@@ -26,15 +30,21 @@ def card():
 
 
 def _case(card, ds_fn, agg, rate, counter, allow_span, s=1500, b=7, k=3,
-          g=9, misalign=False):
+          g=9, misalign=False, sort=None, spread=False, want_order=None):
     """``misalign`` puts the value rows at a 4-byte offset from a 16-byte
-    boundary (a contiguous view one float into its buffer)."""
+    boundary (a contiguous view one float into its buffer). The group
+    ids are random, or ``(7 i) % g`` with ``spread`` (every group the
+    same size), and sorted when ``sort`` (default: ``allow_span``);
+    ``want_order`` asserts whether the span batch carries a
+    permutation. Returns the batch and its answer."""
     rng = np.random.default_rng(3)
     p = b * k
     vals = (np.cumsum(rng.uniform(1, 50, (s, p)), axis=1) if counter
             else rng.normal(100.0, 15.0, (s, p)))
     gids = rng.integers(0, g, s).astype(np.int32)
-    if allow_span:
+    if spread:
+        gids = ((np.arange(s) * 7) % g).astype(np.int32)
+    if allow_span if sort is None else sort:
         gids.sort()
     ts = np.arange(b, dtype=np.int64) * 60_000
     spec = PipelineSpec(num_series=s, num_buckets=b, num_groups=g,
@@ -48,15 +58,17 @@ def _case(card, ds_fn, agg, rate, counter, allow_span, s=1500, b=7, k=3,
     cm, rv = (2.0**32, 5.0) if counter else (float(2**64 - 1), 0.0)
     batch = fused.prepare(x, ts, gids, spec, allow_span=allow_span)
     assert (batch.spans is not None) == allow_span
+    if want_order is not None:
+        assert (batch.order is not None) == want_order
     before = (fused.span_reduce.launches, fused.onehot_reduce.launches)
     ro = RateOptions(counter=counter, counter_max=cm, reset_value=rv)
     got_res, got_emit = fused.run(batch, spec, k, ro)
     after = (fused.span_reduce.launches, fused.onehot_reduce.launches)
     assert after[0 if allow_span else 1] == \
         before[0 if allow_span else 1] + 1
-    t = fused._transform_plain(batch.values, batch.inv_dt, spec, k, cm, rv)
-    acc = fused._group_stage_plain(t, batch.gids, g)
-    terms = fused._group_stage_plain(t.abs(), batch.gids, g)
+    acc = fused.plain_reduce(batch, spec, k, cm, rv, exact=True)
+    terms = fused.plain_reduce(batch, spec, k, cm, rv, exact=True,
+                               magnitude=True)
     want_res, want_emit = fused._finalize(acc, batch.sizes, spec)
     torch.cuda.synchronize()
     assert torch.equal(got_emit, want_emit)
@@ -66,6 +78,7 @@ def _case(card, ds_fn, agg, rate, counter, allow_span, s=1500, b=7, k=3,
         if agg == "avg" else terms
     err = (got_res - want_res).abs().nan_to_num(0.0)
     assert bool((err <= 1e-5 * scale + 1e-6).all())
+    return batch, got_res
 
 
 @pytest.mark.parametrize("allow_span", [True, False])
@@ -137,3 +150,96 @@ def test_onehot_long_rows(card, b, g):
     group's row; past 25,856 it holds part of one, and the kernel walks
     the rows once per bucket chunk."""
     _case(card, "sum", "sum", True, True, False, s=100, b=b, k=1, g=g)
+
+
+# -- the span kernel reading rows through the group order -----------------
+
+@pytest.mark.parametrize("s", [1, 31, 33, 127, 129])
+def test_span_unsorted_ragged_tiles(card, s):
+    """Unsorted ids in the span layout: the kernel reads each row through
+    the permutation. S below a warp tile, a warp tile (32) and a span
+    tile (128) less or plus one row: rows past S add nothing. (One row
+    is always sorted, so S = 1 carries no permutation.)"""
+    _case(card, "avg", "sum", True, False, True, s=s, b=12, k=5, g=3,
+          sort=False, want_order=s > 1)
+
+
+@pytest.mark.parametrize("b,k,misalign", [(7, 3, False), (7, 9, False),
+                                          (12, 5, True)])
+def test_span_unsorted_unaligned_rows(card, b, k, misalign):
+    """P % 4 != 0 (P = 21, 63), or a base that is not 16-byte aligned:
+    the permuted rows take 4-byte async copies instead of 16-byte
+    ones."""
+    _case(card, "sum", "sum", True, False, True, s=3001, b=b, k=k, g=5,
+          misalign=misalign, sort=False, want_order=True)
+
+
+def test_span_ring_wraps(card):
+    """Each warp takes several 32-row warp tiles of four column chunks
+    (P = 64), far more steps than its ring has stages."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    s = 4 * sms * _onehot_tile() + 77
+    _case(card, "avg", "sum", True, False, True, s=s, b=16, k=4, g=6,
+          sort=False, want_order=True)
+
+
+def test_span_one_group(card):
+    """One group: every id is 0, already sorted, no permutation."""
+    _case(card, "avg", "squareSum", True, False, True, s=5000, b=12, k=5,
+          g=1, sort=False, want_order=False)
+
+
+def test_span_most_groups(card):
+    """The most groups the span layout takes (1024), unsorted, 20 rows
+    each: a 128-row span tile covers up to 8 groups and a warp tile up
+    to 3, so the combine reads many slots per group."""
+    g = fused._SPAN_GROUP_MAX
+    _case(card, "avg", "sum", True, False, True, s=20 * g, b=12, k=5, g=g,
+          spread=True, sort=False, want_order=True)
+
+
+def test_span_sorted_ids_take_no_order(card):
+    """Ids that are already sorted: the kernel reads rows in place."""
+    _case(card, "avg", "sum", True, False, True, s=3001, b=12, k=5, g=9,
+          sort=True, want_order=False)
+
+
+def test_span_deterministic(card):
+    """No atomics in the span kernel or its combine: two launches on one
+    batch give the same bits."""
+    batch, first = _case(card, "avg", "sum", True, False, True, s=70_001,
+                         b=12, k=5, g=37, spread=True, sort=False,
+                         want_order=True)
+    spec = PipelineSpec(num_series=70_001, num_buckets=12, num_groups=37,
+                        ds_function="avg", agg_name="sum", rate=True)
+    again, _ = fused.run(batch, spec, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(first), torch.isnan(again))
+    assert torch.equal(first.nan_to_num(0.0), again.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("ds_fn,rate", [("sum", False), ("avg", True)])
+def test_span_tree_order(card, ds_fn, rate):
+    """The span kernel adds in the order that ``span_tree_sums`` sets
+    out (unsorted ids, groups across warp tiles, a ragged last tile):
+    its group sums equal that order's float32 sums of the plain
+    transform bit for bit."""
+    s, b, k, g = 70_001, 12, 5, 37
+    rng = np.random.default_rng(11)
+    vals = rng.normal(100.0, 15.0, (s, b * k))
+    gids = rng.integers(0, g, s).astype(np.int32)
+    spec = PipelineSpec(num_series=s, num_buckets=b, num_groups=g,
+                        ds_function=ds_fn, agg_name="sum", rate=rate)
+    ts = np.arange(b, dtype=np.int64) * 60_000
+    batch = fused.prepare(torch.as_tensor(vals, dtype=torch.float32,
+                                          device=card), ts, gids, spec)
+    assert batch.spans is not None and batch.order is not None
+    cm, rv = float(2**64 - 1), 0.0
+    acc = fused.span_reduce(batch.values, batch.order, batch.gids,
+                            batch.spans, batch.group_start, batch.inv_dt,
+                            spec, k, cm, rv)
+    t = fused._in_group_order(
+        fused._transform_plain(batch.values.cpu(), batch.inv_dt.cpu(),
+                               spec, k, cm, rv), batch.order.cpu())
+    want = span_tree_sums(t.numpy(), batch.gids.cpu().numpy(), g)
+    np.testing.assert_array_equal(acc.cpu().numpy(), want)

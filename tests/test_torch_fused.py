@@ -323,3 +323,71 @@ def test_onehot_edges_match_pallas(s, b, k, g):
         rate=True)
     _assert_close(got, want)
     np.testing.assert_array_equal(got_emit, want_emit)
+
+
+@pytest.mark.parametrize("sorted_gids,allow", [(False, True), (True, True),
+                                               (False, False)])
+def test_prepare_keeps_row_order(sorted_gids, allow):
+    """prepare never gathers the value matrix: values stay in the
+    caller's row order; a span batch over unsorted ids carries the
+    stable group-sort permutation as int32, a sorted or one-hot batch
+    none."""
+    s, g = 300, 3
+    vals, ts, gids = _data(s, 6, 4, g, seed=19, sorted_gids=sorted_gids)
+    _, spec = _specs(num_series=s, num_buckets=6, num_groups=g,
+                     ds_function="avg", agg_name="sum")
+    x = torch.as_tensor(vals)
+    batch = fused.prepare(x, ts, gids, spec, allow_span=allow)
+    assert batch.values is x
+    assert (batch.spans is not None) == allow
+    if allow and not sorted_gids:
+        assert batch.order.dtype == torch.int32
+        np.testing.assert_array_equal(batch.order.numpy(),
+                                      np.argsort(gids, kind="stable"))
+        np.testing.assert_array_equal(batch.gids.numpy(),
+                                      gids[batch.order.numpy()])
+    else:
+        assert batch.order is None
+        np.testing.assert_array_equal(batch.gids.numpy(), gids)
+
+
+@pytest.mark.parametrize("ds_fn,agg", [("avg", "sum"), ("max", "avg"),
+                                       ("last", "squareSum")])
+def test_plain_reduce_span_matches_pallas(ds_fn, agg):
+    """plain_reduce on a multi-tile span batch with a permutation (300
+    unsorted series, 3 groups) pairs each row with its group: its
+    finalized answer equals the reference's."""
+    s, b, k, g = 300, 6, 4, 3
+    vals, ts, gids = _data(s, b, k, g, seed=23)
+    jspec, tspec = _specs(num_series=s, num_buckets=b, num_groups=g,
+                          ds_function=ds_fn, agg_name=agg, rate=True)
+    want, want_emit = pallas_fused.fused_dense_pipeline(
+        vals, ts, gids, jspec, k, dtype=np.float64)
+    batch = fused.prepare(torch.as_tensor(vals), ts, gids, tspec)
+    assert batch.spans is not None and batch.spans.shape[0] == 3
+    assert batch.order is not None
+    acc = fused.plain_reduce(batch, tspec, k, float(2**64 - 1), 0.0)
+    got, got_emit = fused._finalize(acc, batch.sizes, tspec)
+    _assert_close(got.numpy(), want)
+    np.testing.assert_array_equal(got_emit.numpy(), want_emit)
+
+
+def test_plain_reduce_adds_groups_in_float64():
+    """The kernels' reference on the card (``exact``) adds each group's
+    float32 terms in float64 and rounds once, so over one group of
+    30,000 series it is the correctly rounded sum, whatever order a
+    float32 running sum would take."""
+    s, b, k = 30_000, 2, 1
+    rng = np.random.default_rng(29)
+    vals = rng.normal(100.0, 15.0, (s, b)).astype(np.float32)
+    ts = np.arange(b, dtype=np.int64) * 60_000 + BASE_TS
+    gids = np.zeros(s, np.int32)
+    _, spec = _specs(num_series=s, num_buckets=b, num_groups=1,
+                     ds_function="sum", agg_name="sum")
+    batch = fused.prepare(torch.as_tensor(vals), ts, gids, spec)
+    got = fused.plain_reduce(batch, spec, k, float(2**64 - 1), 0.0,
+                             exact=True)
+    assert got.dtype == torch.float32
+    exact = vals.astype(np.float64).sum(axis=0)
+    np.testing.assert_array_equal(got.numpy()[0],
+                                  exact.astype(np.float32))
