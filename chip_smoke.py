@@ -18,7 +18,18 @@
    ``TSDB.add_series_points`` and ``TSDB.execute_query``, checks that
    both kernels launched and that the answers match the plain version,
    and prints the time of each stage;
-4. prints one JSON line describing each kernel, the card line and, last,
+4. runs the same two queries on the same data at the engine's default
+   keys (the grid path: the store reduces each window to a [S, B] grid,
+   uploaded once and kept in the device cache): cold (caches dropped
+   before each call) and warm p50, the time of each stage, no kernel
+   launched, the answers against the same query run through the port
+   on the CPU in float64, warm against cold, the cache's hits, and the
+   cached grid against a fresh reduction bit for bit;
+5. runs them with ``tsd.query.grid_reduce=false`` and the cache on (the
+   prepared-batch path): warm hits launch the span and one-hot kernels
+   and answer as phase 3 did;
+6. prints one JSON line describing each kernel (its launches are those
+   of phases 3 and 5), the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA card,
@@ -41,8 +52,8 @@ T0 = 1356998400            # aligned to the hour (seconds)
 POINTS = 60                # one hour at one point a minute
 QUERIES = (("sum:5m-avg:rate:sys.cpu.user{dc=*}", "span_reduce"),
            ("sum:5m-avg:rate:sys.cpu.user{rack=*}", "onehot_reduce"))
-# the four keys that put the reference engine on its point path (the
-# port's engine serves only that path, and these are its defaults)
+# the four keys that put the engine on its point path with nothing
+# cached (phase 3); phases 4 and 5 set them back to the defaults
 ENGINE_KEYS = {"tsd.query.grid_reduce": "false",
                "tsd.query.device_cache_mb": "0",
                "tsd.query.host_tail_max_cells": "-1",
@@ -262,6 +273,189 @@ def phase_sweep(torch, fused, PipelineSpec) -> dict:
     return worst
 
 
+def rate_terms(torch, grid64, gids, g: int, bucket_ts):
+    """[G, B] sum over each group's series of (|x_b| + |x_(b-1)|) / dt_b:
+    the magnitude of the terms a summed rate of the grid adds up."""
+    import numpy as np
+    a = np.abs(grid64)
+    per = np.zeros_like(a)
+    per[:, 1:] = (a[:, 1:] + a[:, :-1]) / (np.diff(bucket_ts) / 1000.0)
+    return torch.zeros((g, a.shape[1]), dtype=torch.float64).index_add_(
+        0, torch.as_tensor(np.asarray(gids, dtype=np.int64)),
+        torch.as_tensor(per))
+
+
+def answer_values(rows, g: int, b: int):
+    """The emitted values of a config-3 rate answer as a [G, B - 1]
+    float64 tensor (the rate's first bucket is never emitted)."""
+    import numpy as np
+    import torch
+    check(len(rows) == g, f"expected {g} groups, got {len(rows)}")
+    vals = np.stack([r.dps_arrays[1] for r in rows])
+    check(vals.shape == (g, b - 1), "unexpected result shape")
+    check(bool(np.isfinite(vals).all()), "non-finite results")
+    return torch.as_tensor(vals)
+
+
+def reset_launches(fused) -> None:
+    for w in (fused.span_reduce, fused.onehot_reduce):
+        w.launches = 0
+
+
+def read_launches(fused) -> dict:
+    return {"span_reduce": fused.span_reduce.launches,
+            "onehot_reduce": fused.onehot_reduce.launches}
+
+
+def phase_grid(torch, tsdb, query, profile: bool) -> None:
+    """Phase 4: the grid path at the default engine keys."""
+    import numpy as np
+    from opentsdb_tpu_torch import Config
+    from opentsdb_tpu_torch.ops import downsample as ds_mod
+    from opentsdb_tpu_torch.ops import fused, pipeline
+    from opentsdb_tpu_torch.ops.pipeline import PipelineSpec
+    from opentsdb_tpu_torch.query.engine import grid_cache_key
+    defaults = Config()
+    for key in ENGINE_KEYS:
+        tsdb.config.override_config(key, defaults.get_string(key))
+    store = tsdb.store
+    metric_id = tsdb.uids.metrics.get_id(METRIC)
+    sids = store.series_ids_for_metric(metric_id)
+    reset_launches(fused)
+    runs = {}
+    for m, _ in QUERIES:
+        cold_s = []
+        for _ in range(REPEATS):
+            tsdb.drop_caches()
+            cold, secs = timed(lambda: tsdb.execute_query(query(m)), 1)
+            cold_s += secs
+        cache = tsdb.device_grid_cache
+        hits = cache.hits
+        warm, warm_s = timed(lambda: tsdb.execute_query(query(m)),
+                             REPEATS)
+        check(cache.hits == hits + REPEATS,
+              f"warm grid calls made {cache.hits - hits} cache hits, "
+              f"not {REPEATS}")
+        runs[m] = (cold, warm, cold_s, warm_s)
+    launches = read_launches(fused)
+    print(f"  grid-path launches: {launches}")
+    check(not any(launches.values()), "the grid path launched a kernel")
+    if profile:
+        for m, _ in QUERIES:
+            tsdb.drop_caches()
+            device_share(torch, lambda: tsdb.execute_query(query(m)),
+                         f"{m} grid cold")
+            device_share(torch, lambda: tsdb.execute_query(query(m)),
+                         f"{m} grid warm")
+
+    for m, _ in QUERIES:
+        cold, warm, cold_s, warm_s = runs[m]
+        tq = query(m)
+        sub = tq.queries[0]
+        ds = sub.ds_spec
+        check(sub.aggregator == "sum" and sub.rate,
+              "rate_terms bounds a summed rate only")
+        eng = tsdb.new_query()
+        gb = [tsdb.uids.tag_names.get_id(f.tagk) for f in sub.filters
+              if f.group_by]
+
+        def plan():
+            sel, tag_mat = eng._apply_filters(metric_id, sub, sids)
+            return (sel, tag_mat) + eng._group_ids(tag_mat, gb)
+
+        (sel, tag_mat, gids, g), plan_t = timed(plan, REPEATS)
+        bts = ds_mod.fixed_bucket_edges(tq.start_ms, tq.end_ms,
+                                        ds.interval_ms)
+        b = len(bts)
+
+        def reduce():
+            return pipeline.grid_from_reduce(
+                ds.function, *store.bucket_reduce(
+                    sel, tq.start_ms, tq.end_ms, int(bts[0]),
+                    ds.interval_ms, b))
+
+        (grid64, present), red_t = timed(reduce, REPEATS)
+        (grid, has), up_t = timed(lambda: pipeline.put_grid(
+            grid64, present, torch.float32, "cuda"), REPEATS)
+        spec = PipelineSpec(num_series=len(sel), num_buckets=b,
+                            num_groups=g, ds_function="avg",
+                            agg_name=sub.agg.name, rate=sub.rate)
+        (res, emit), tail_t = timed(lambda: pipeline.execute_grid(
+            grid, has, bts, gids, spec, sub.rate_options), REPEATS)
+        _, asm_t = timed(lambda: eng._build_results(
+            tq, sub, metric_id, sel, tag_mat, gids, g, bts,
+            res.cpu().numpy(), emit.cpu().numpy()), REPEATS)
+        check(res.is_cuda and emit.is_cuda, "results are not on cuda")
+
+        # the same query through the port on the CPU in float64
+        g64, h64 = pipeline.put_grid(grid64, present, torch.float64,
+                                     "cpu")
+        want, want_emit = pipeline.execute_grid(g64, h64, bts, gids, spec,
+                                                sub.rate_options)
+        check(bool(want_emit[:, 1:].all()) and not want_emit[:, 0].any(),
+              "unexpected emit mask")
+        terms = rate_terms(torch, grid64, gids, g, bts)[:, 1:]
+        want = want[:, 1:]
+        err = compare(answer_values(cold, g, b), want, terms)
+        werr = compare(answer_values(warm, g, b),
+                       answer_values(cold, g, b), terms)
+        # the cached grid is the one a fresh reduction uploads
+        hit = tsdb.device_grid_cache.get(
+            grid_cache_key(store, sel, tq.start_ms, tq.end_ms, bts,
+                           ds.interval_ms, ds.function), store.version)
+        check(hit is not None, "no cached grid for the query")
+        (cgrid, chas), _ = hit
+        check(bool(torch.equal(cgrid.view(torch.int32),
+                               grid.view(torch.int32)))
+              and bool(torch.equal(chas, has)),
+              "the cached grid differs from a fresh reduction")
+        if profile:
+            # the upload alone: its copy's share of a cold query
+            device_share(torch, lambda: pipeline.put_grid(
+                grid64, present, torch.float32, "cuda"),
+                f"{m} grid upload")
+        stages = (("plan", plan_t), ("bucket_reduce", red_t),
+                  ("upload", up_t), ("tail", tail_t),
+                  ("assemble", asm_t))
+        print(f"  {m} grid: S={len(sel)} B={b} G={g}; p50 ms: "
+              + ", ".join(f"{n} {p50(v) * 1e3:.3f}" for n, v in stages)
+              + f"; sum {sum(p50(v) for _, v in stages) * 1e3:.3f}")
+        print(f"  {m} grid: end-to-end p50 cold {p50(cold_s) * 1e3:.3f} "
+              f"ms, warm {p50(warm_s) * 1e3:.3f} ms; max_abs_err vs "
+              f"CPU float64 {err:.6g}, warm vs cold {werr:.6g}; cached "
+              "grid equals a fresh one bit for bit")
+
+
+def phase_prepared(torch, tsdb, query, ref3: dict) -> dict:
+    """Phase 5: grid_reduce=false with the device cache on. Returns
+    the warm hits' kernel launches."""
+    from opentsdb_tpu_torch.ops import fused
+    tsdb.config.override_config("tsd.query.grid_reduce", "false")
+    cache = tsdb.device_grid_cache
+    check(cache is not None, "the device cache is off")
+    for m, _ in QUERIES:  # cold: the first call uploads the batch
+        tsdb.execute_query(query(m))
+    hits = cache.hits
+    reset_launches(fused)
+    answers, secs = {}, {}
+    for m, _ in QUERIES:
+        answers[m], secs[m] = timed(lambda: tsdb.execute_query(query(m)),
+                                    REPEATS)
+    launches = read_launches(fused)
+    print(f"  prepared-batch launches: {launches}")
+    check(cache.hits == hits + REPEATS * len(QUERIES),
+          f"warm calls made {cache.hits - hits} cache hits")
+    for m, kname in QUERIES:
+        check(launches[kname] >= REPEATS,
+              f"{kname} did not launch on each warm hit")
+        want, terms = ref3[m]
+        g, b = want.shape[0], want.shape[1] + 1
+        err = compare(answer_values(answers[m], g, b), want, terms)
+        print(f"  {m} prepared: warm p50 {p50(secs[m]) * 1e3:.3f} ms "
+              f"({kname}); max_abs_err vs phase 3's plain {err:.6g}")
+    return launches
+
+
 def make_data(n_series: int):
     import numpy as np
     rng = np.random.default_rng(0)
@@ -345,8 +539,7 @@ def main() -> int:
                        queries=[parse_uri_subquery(m)]).validate()
 
     # the main path: counts reset just before, read just after
-    for w in (fused.span_reduce, fused.onehot_reduce):
-        w.launches = 0
+    reset_launches(fused)
     e2e: dict[str, list[float]] = {}
     answers = {}
     for m, _ in QUERIES:
@@ -357,8 +550,7 @@ def main() -> int:
             answers[m] = tsdb.execute_query(query(m))
             e2e[m].append(time.perf_counter() - t)
         e2e[m] = e2e[m][1:]  # first run is the warm-up
-    launches = {"span_reduce": fused.span_reduce.launches,
-                "onehot_reduce": fused.onehot_reduce.launches}
+    launches = read_launches(fused)
     if args.profile:
         for m, _ in QUERIES:
             device_share(torch, lambda: tsdb.execute_query(query(m)), m)
@@ -366,7 +558,7 @@ def main() -> int:
     for kname, n in launches.items():
         check(n > 0, f"{kname} was never launched on the main path")
 
-    report = {}
+    report, ref3 = {}, {}
     store = tsdb.store
     metric_id = tsdb.uids.metrics.get_id(METRIC)
     sids = store.series_ids_for_metric(metric_id)
@@ -444,6 +636,7 @@ def main() -> int:
         check(bool((diff <= TOL_REL * terms.cpu().numpy()[:, 1:]
                     + TOL_ABS).all()),
               f"engine answer differs from plain: {diff.max()}")
+        ref3[m] = (want.cpu()[:, 1:], terms.cpu()[:, 1:])
 
         # the span path gathers nothing: its device time is the kernel's
         if batch.spans is not None:
@@ -489,6 +682,13 @@ def main() -> int:
         report[kname] = {"ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "max_abs_err": err}
+
+    print(f"phase 4: grid path at the default engine keys, same data "
+          f"(|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    phase_grid(torch, tsdb, query, args.profile)
+    print("phase 5: prepared-batch cache (tsd.query.grid_reduce=false)")
+    for kname, n in phase_prepared(torch, tsdb, query, ref3).items():
+        launches[kname] += n
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),

@@ -16,11 +16,18 @@ already sorted into an empty store is adopted as is (one O(N) check);
 anything else is merged with a stable ``lexsort`` whose stability keeps
 write order among duplicates, so the last write of a (series, ts) pair
 wins. Range reads bisect every selected row at once.
+
+``bucket_reduce`` is the storage-side downsample of the grid path: it
+reduces a window to ``[S, B]`` bucket statistics without gathering the
+points (ref: the native store's ``tss_bucket_reduce``).
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -75,10 +82,11 @@ class MetricIndex:
 
 
 def _row_search(ts: np.ndarray, lo: np.ndarray, hi: np.ndarray,
-                value: int, right: bool) -> np.ndarray:
+                value, right: bool) -> np.ndarray:
     """Vectorized per-row ``searchsorted``: for each row, the first
     index in ``[lo, hi)`` whose timestamp is ``>= value`` (``> value``
-    when ``right``). One bisection step per iteration for all rows."""
+    when ``right``); ``value`` is one timestamp or one per row. One
+    bisection step per iteration for all rows."""
     lo = lo.copy()
     hi = hi.copy()
     last = max(len(ts) - 1, 0)
@@ -91,6 +99,119 @@ def _row_search(ts: np.ndarray, lo: np.ndarray, hi: np.ndarray,
         go = ((v <= value) if right else (v < value)) & active
         lo = np.where(go, mid + 1, lo)
         hi = np.where(active & ~go, mid, hi)
+
+
+def _range_bounds(offsets: np.ndarray, ts: np.ndarray, sids: np.ndarray,
+                  start_ms: int, end_ms: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Per row of ``sids``: the index of its first point in the
+    inclusive ``[start_ms, end_ms]`` and the index past its last."""
+    row_lo, row_hi = offsets[sids], offsets[sids + 1]
+    lo = _row_search(ts, row_lo, row_hi, start_ms, right=False)
+    return lo, _row_search(ts, lo, row_hi, end_ms, right=True)
+
+
+def _row_bounds(ts: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+                edges: np.ndarray) -> np.ndarray:
+    """``[S, K]``: for row i and edge j, the first index in
+    ``[lo[i], hi[i])`` whose timestamp is ``>= edges[j]`` (``hi[i]``
+    when none). The first guess places each row's points evenly between
+    its first and last timestamp, which is exact for a fixed cadence
+    (the product and quotient of integers below 2**53 round exactly);
+    the cells where it misses are bisected."""
+    n = hi - lo
+    last = len(ts) - 1
+    first_t = ts[np.minimum(lo, last)]
+    # rows of fewer than two points get guess lo, which is checked
+    span = ts[np.clip(hi - 1, 0, last)] - first_t
+    span = np.where(span > 0, span, 1).astype(np.float64)
+    x = (edges[None, :] - first_t[:, None]).astype(np.float64)
+    x *= (n - 1)[:, None]
+    x /= span[:, None]
+    np.ceil(x, out=x)
+    np.clip(x, 0, n[:, None], out=x)
+    guess = x.astype(np.int64)
+    guess += lo[:, None]
+    # right when ts[guess - 1] < edge <= ts[guess] inside the row
+    # (guess - 1 may be -1: that read is masked by guess == lo)
+    lo2 = np.broadcast_to(lo[:, None], guess.shape)
+    hi2 = np.broadcast_to(hi[:, None], guess.shape)
+    ok = ts[guess - 1] < edges
+    ok |= guess == lo2
+    up = ts[np.minimum(guess, last)] >= edges
+    up |= guess == hi2
+    ok &= up
+    if not ok.all():
+        miss = np.nonzero(~ok)
+        guess[miss] = _row_search(ts, lo2[miss], hi2[miss],
+                                  np.broadcast_to(edges, guess.shape)
+                                  [miss], right=False)
+    return guess
+
+
+def _reduce_rows(ts: np.ndarray, vals: np.ndarray, lo: np.ndarray,
+                 hi: np.ndarray, edges: np.ndarray, may_hold_nan: bool,
+                 sums: np.ndarray, cnts: np.ndarray,
+                 mins: np.ndarray | None, maxs: np.ndarray | None
+                 ) -> None:
+    """bucket_reduce of one chunk of rows into the given rows of its
+    outputs, which hold the empty-cell values on entry."""
+    s, nb = len(lo), len(edges) - 1
+    some = hi > lo
+    if not some.any():
+        return
+    # bucket j of row i is bounds[i, j] .. bounds[i, j + 1]; an edge at
+    # or before every point of the range is lo, one after all is hi
+    before = edges <= ts[lo[some]].min()
+    after = edges > ts[hi[some] - 1].max()
+    bounds = np.empty((s, nb + 1), dtype=np.int64)
+    bounds[:, before] = lo[:, None]
+    bounds[:, after] = hi[:, None]
+    inner = np.flatnonzero(~before & ~after)
+    if len(inner):
+        bounds[:, inner] = _row_bounds(ts, lo, hi, edges[inner])
+    # the points any bucket of these rows holds lie in vals[first:end];
+    # one more point keeps every bucket's end inside v (but at the end
+    # of the column)
+    first, end = int(bounds[:, 0].min()), int(bounds[:, -1].max())
+    if end <= first:
+        return
+    v = vals[first:min(end + 1, len(vals))]
+    bounds -= first
+    if may_hold_nan:
+        nan = np.isnan(v)
+        valid = np.zeros(len(v) + 1, dtype=np.int64)
+        np.cumsum(~nan, out=valid[1:])
+        cnt = np.diff(valid[bounds], axis=1)
+    else:
+        nan = None
+        cnt = np.diff(bounds, axis=1)
+    filled = cnt > 0
+    cnts[:] = cnt
+    # reduceat reduces v[idx[m]:idx[m + 1]] for each m: over the
+    # flattened bounds that is every bucket, plus one segment from a
+    # row's last edge to the next row's first, which is dropped; empty
+    # buckets are masked. Indices must lie inside v, so a bucket that
+    # ends at the end of the column is reduced on its own.
+    idx = np.minimum(bounds.reshape(-1), len(v) - 1)
+    at_end = np.nonzero(filled & (bounds[:, 1:] == len(v)))
+    for out, ufunc, neutral in ((sums, np.add, 0.0),
+                                (mins, np.minimum, np.inf),
+                                (maxs, np.maximum, -np.inf)):
+        if out is None:
+            continue
+        w = v if nan is None else np.where(nan, neutral, v)
+        red = ufunc.reduceat(w, idx).reshape(s, nb + 1)[:, :-1]
+        for i, j in zip(*at_end):
+            red[i, j] = ufunc.reduce(w[bounds[i, j]:])
+        np.copyto(out, red, where=filled)
+
+
+# (row, bucket) cells of one bucket_reduce work item, and the threads
+# that take them
+_REDUCE_CELLS = 1 << 20
+_REDUCE_THREADS = min(8, os.cpu_count() or 1)
+_INSTANCE_IDS = itertools.count(1)
 
 
 class TimeSeriesStore:
@@ -110,7 +231,21 @@ class TimeSeriesStore:
         self._offsets = np.zeros(1, dtype=np.int64)
         self._ts = np.empty(0, dtype=np.int64)
         self._vals = np.empty(0, dtype=np.float64)
+        # set once a NaN value is written; bucket_reduce then skips
+        # NaNs point by point
+        self._may_hold_nan = False
         self.points_written = 0
+        # beside points_written it versions the store for read-side
+        # caches; the port has no deletes yet, so it stays 0
+        self.mutation_epoch = 0
+        # identity for cache keys: id() could alias a freed store
+        self.instance_id = next(_INSTANCE_IDS)
+
+    @property
+    def version(self) -> tuple[int, int]:
+        """Changes with every write: a cache entry of another version
+        is stale."""
+        return self.points_written, self.mutation_epoch
 
     # -- write path -------------------------------------------------------
 
@@ -169,10 +304,12 @@ class TimeSeriesStore:
                                         val_arr[keep])
         if not len(sid_arr):
             return 0
+        has_nan = bool(np.isnan(val_arr).any())
         with self._lock:
             if int(sid_arr.max()) >= self._num_series:
                 raise IndexError("invalid series id in append")
             self._pending.append((sid_arr, ts_arr, val_arr))
+            self._may_hold_nan |= has_nan
             self.points_written += len(sid_arr)
         return len(sid_arr)
 
@@ -231,10 +368,9 @@ class TimeSeriesStore:
         """Per selected row: (first index in range, end index), plus
         the columns they index, for the inclusive [start, end]."""
         offsets, ts, vals = self._columns()
-        sids = np.asarray(series_ids, dtype=np.int64)
-        row_lo, row_hi = offsets[sids], offsets[sids + 1]
-        lo = _row_search(ts, row_lo, row_hi, start_ms, right=False)
-        hi = _row_search(ts, lo, row_hi, end_ms, right=True)
+        lo, hi = _range_bounds(offsets, ts,
+                               np.asarray(series_ids, dtype=np.int64),
+                               start_ms, end_ms)
         return lo, hi, ts, vals
 
     def count_range(self, series_ids: Sequence[int], start_ms: int,
@@ -262,3 +398,65 @@ class TimeSeriesStore:
         values2d[present] = vals[idx[present]]
         ts2d[present] = ts[idx[present]]
         return PaddedBatch(sids, values2d, ts2d, counts)
+
+    def bucket_reduce(self, series_ids, start_ms: int, end_ms: int,
+                      t0: int, interval_ms: int, nbuckets: int,
+                      want_minmax: bool = False):
+        """Storage-side fixed-interval downsample (ref:
+        ``TimeSeriesStore.bucket_reduce`` and the native
+        ``tss_bucket_reduce``): ``[S, B]`` float64 sums and counts, and
+        min and max on request (else None), of every point in the
+        inclusive ``[start_ms, end_ms]``, bucket ``b = (ts - t0) //
+        interval_ms``. Points with ``b < 0`` or ``b >= nbuckets`` are
+        dropped and stored NaNs skipped; an empty cell holds sum 0,
+        count 0, min +inf and max -inf.
+
+        Rows are sorted, so each bucket's points are one slice of the
+        columns: one search per (row, bucket edge) finds them, and a
+        segmented ``reduceat`` adds them where they lie, without
+        gathering a point. Chunks of rows go to a few threads."""
+        if interval_ms <= 0 or nbuckets <= 0:
+            raise ValueError("interval_ms and nbuckets must be positive")
+        sids = np.asarray(series_ids, dtype=np.int64)
+        order = None
+        if len(sids) > 1 and (np.diff(sids) < 0).any():
+            # rows in column order keep each chunk's slice of the columns,
+            # and the segments reduceat drops, short
+            order = np.argsort(sids, kind="stable")
+            sids = sids[order]
+        offsets, ts, vals = self._columns()
+        # read after the snapshot: a NaN in it set the flag first
+        may_hold_nan = self._may_hold_nan
+        edges = t0 + interval_ms * np.arange(nbuckets + 1, dtype=np.int64)
+        s = len(sids)
+        sums = np.zeros((s, nbuckets))
+        cnts = np.zeros((s, nbuckets))
+        mins = np.full((s, nbuckets), np.inf) if want_minmax else None
+        maxs = np.full((s, nbuckets), -np.inf) if want_minmax else None
+        chunk = max(1, _REDUCE_CELLS // (nbuckets + 1))
+        rows = [slice(i, i + chunk) for i in range(0, s, chunk)]
+
+        def work(r: slice) -> None:
+            lo, hi = _range_bounds(offsets, ts, sids[r], start_ms, end_ms)
+            _reduce_rows(ts, vals, lo, hi, edges, may_hold_nan,
+                         sums[r], cnts[r],
+                         None if mins is None else mins[r],
+                         None if maxs is None else maxs[r])
+
+        if len(rows) > 1:
+            # numpy releases the interpreter lock in these loops
+            with ThreadPoolExecutor(min(len(rows), _REDUCE_THREADS)) as ex:
+                for f in [ex.submit(work, r) for r in rows]:
+                    f.result()
+        elif rows:
+            work(rows[0])
+        out = (sums, cnts, mins, maxs)
+        if order is None:
+            return out
+        unsorted = []
+        for a in out:
+            if a is not None:
+                a, sorted_a = np.empty_like(a), a
+                a[order] = sorted_a
+            unsorted.append(a)
+        return tuple(unsorted)

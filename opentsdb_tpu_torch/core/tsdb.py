@@ -9,6 +9,7 @@ write-ahead log yet, so nothing written survives the process.
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 from opentsdb_tpu_torch.core import tags as tags_mod
 from opentsdb_tpu_torch.core.store import TimeSeriesStore, pad_mask
 from opentsdb_tpu_torch.core.uid import UidRegistry
+from opentsdb_tpu_torch.query.device_cache import DeviceGridCache
 from opentsdb_tpu_torch.utils.config import Config
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -77,6 +79,28 @@ class TSDB:
         self.auto_tagk = self.config.get_bool("tsd.core.auto_create_tagks")
         self.auto_tagv = self.config.get_bool("tsd.core.auto_create_tagvs")
         self.datapoints_added = 0
+        self._device_grid_cache: DeviceGridCache | None = None
+        self._device_cache_lock = threading.Lock()
+
+    @property
+    def device_grid_cache(self) -> DeviceGridCache | None:
+        """The device-resident grid and prepared-batch cache
+        (:mod:`opentsdb_tpu_torch.query.device_cache`), made when first
+        needed at ``tsd.query.device_cache_mb``; None while that key is
+        0 (ref: ``TSDB.device_grid_cache``)."""
+        mb = self.config.get_int("tsd.query.device_cache_mb")
+        if mb <= 0:
+            return None
+        with self._device_cache_lock:
+            if self._device_grid_cache is None:
+                self._device_grid_cache = DeviceGridCache(mb << 20)
+            return self._device_grid_cache
+
+    def drop_caches(self) -> None:
+        """(ref: TSDB.dropCaches) The UID tables are authoritative; the
+        device cache is dropped."""
+        if self._device_grid_cache is not None:
+            self._device_grid_cache.clear()
 
     # -- write path -------------------------------------------------------
 

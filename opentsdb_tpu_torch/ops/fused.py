@@ -46,7 +46,6 @@ attribute.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import threading
 from dataclasses import dataclass
 
@@ -55,6 +54,7 @@ import torch
 
 from opentsdb_tpu_torch.ops import _cuda_build
 from opentsdb_tpu_torch.ops import downsample as ds_mod
+from opentsdb_tpu_torch.query.device_cache import array_digest
 
 _SUM_FNS = frozenset(("sum", "zimsum", "pfsum", "avg"))
 _DS_FNS = _SUM_FNS | {"first", "last", "min", "mimmin", "max", "mimmax",
@@ -106,11 +106,6 @@ def _build_inv_dt(spec, bucket_ts: np.ndarray) -> np.ndarray:
     inv = 1.0 / dt
     inv[0] = 0.0
     return inv
-
-
-def array_digest(arr) -> bytes:
-    """Content fingerprint of an index array (group ids)."""
-    return hashlib.blake2b(memoryview(arr), digest_size=16).digest()
 
 
 # group-sort permutations keyed by group-id content: a repeated

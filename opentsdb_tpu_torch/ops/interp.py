@@ -9,9 +9,12 @@ interpolation mode; outside that range the series contributes nothing
 (stays NaN).
 
 The reference package finds the nearest present cell with a
-``lax.associative_scan``; PyTorch has no such scan, so here it is a
-``cummax`` over the last-valid column index plus a ``gather``, which
-yields the same values.
+``lax.associative_scan``; here it is a running max (min) of the
+last- (next-) valid column index plus a ``gather``, which yields the
+same values. The running max is log2(B) elementwise passes: torch's
+``cummax``/``cummin`` along the innermost axis also compute indices and
+took 10 ms each on a ``[1M, 12]`` int64 grid on an H100, 90% of the
+grid tail.
 """
 
 from __future__ import annotations
@@ -26,12 +29,26 @@ def _gather_at(arrays, idx):
     return tuple(torch.gather(a, -1, safe) for a in arrays)
 
 
+def _running(idx, forward: bool):
+    """Inclusive running max along the last axis (``forward``), or the
+    running min from the end, by doubling; ``idx`` is overwritten."""
+    b = idx.shape[-1]
+    k = 1
+    while k < b:
+        if forward:
+            idx[..., k:] = torch.maximum(idx[..., k:], idx[..., :-k])
+        else:
+            idx[..., :-k] = torch.minimum(idx[..., :-k], idx[..., k:])
+        k *= 2
+    return idx
+
+
 def carry_prev(arrays, mask):
     """For each cell along the last axis: the values of ``arrays`` at
     the nearest PRESENT cell at-or-before it, plus that presence flag."""
     b = mask.shape[-1]
     col = torch.arange(b, device=mask.device).expand_as(mask)
-    idx = torch.where(mask, col, -1).cummax(dim=-1).values
+    idx = _running(torch.where(mask, col, -1), forward=True)
     return _gather_at(arrays, idx) + (idx >= 0,)
 
 
@@ -40,8 +57,7 @@ def carry_next(arrays, mask):
     at-or-after."""
     b = mask.shape[-1]
     col = torch.arange(b, device=mask.device).expand_as(mask)
-    idx = torch.where(mask, col, b).flip(-1).cummin(dim=-1).values \
-        .flip(-1)
+    idx = _running(torch.where(mask, col, b), forward=False)
     return _gather_at(arrays, idx) + (idx < b,)
 
 

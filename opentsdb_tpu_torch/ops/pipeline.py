@@ -1,14 +1,24 @@
 """The query pipeline: downsample -> fill -> rate -> interpolate ->
 aggregate -> group-by over a ``[series, bucket]`` grid, in PyTorch.
 
-Port of ``opentsdb_tpu/ops/pipeline.py`` for the regular-cadence point
-path. ``execute_auto`` takes a row-padded batch; when every row holds
-the same k-per-bucket points it runs the fused CUDA kernels
-(:mod:`opentsdb_tpu_torch.ops.fused`) for complete data and the dense
-PyTorch path (:func:`run_pipeline_dense`) when the data has NaN holes,
-an option the kernels decline, or float64 on CUDA. Irregular layouts
-(the reference's padded-scatter and flat paths) arrive with a later
-slice and raise NotImplementedError.
+Port of ``opentsdb_tpu/ops/pipeline.py`` for two paths:
+
+- the point path: ``prepare_auto`` uploads a row-padded batch as a
+  :class:`PreparedBatch` and ``run_prepared`` runs it; when every row
+  holds the same k-per-bucket points that is the fused CUDA kernels
+  (:mod:`opentsdb_tpu_torch.ops.fused`) for complete data and the dense
+  PyTorch path (:func:`run_pipeline_dense`) when the data has NaN
+  holes, an option the kernels decline, or float64 on CUDA.
+  ``execute_auto`` is the two in one call. Irregular layouts (the
+  reference's padded-scatter and flat paths) arrive with a later slice
+  and raise NotImplementedError.
+- the grid path: the store has already downsampled the window to a
+  ``[S, B]`` grid (``TimeSeriesStore.bucket_reduce``); ``put_grid``
+  uploads it and ``execute_grid`` runs the pipeline's tail on it.
+
+The reference pads every shape up to a geometric bucket
+(``ops/shapes.py``) to bound XLA's compile space. Eager PyTorch
+compiles nothing per shape, so the port runs the true ``(S, B, G)``.
 """
 
 from __future__ import annotations
@@ -182,6 +192,60 @@ def upload(values2d: np.ndarray, dtype: torch.dtype,
     return host.to(device)
 
 
+def run_pipeline_grid(grid, has_data, bucket_ts, group_ids,
+                      ro: RateOptions, spec: PipelineSpec):
+    """Tail entry for a storage-side ``[S, B]`` downsample grid (NaN
+    holes, ``has_data`` marking the cells that held points): fill,
+    rate, interpolate and aggregate, without a per-point upload."""
+    return _finish_pipeline(grid, has_data, bucket_ts, group_ids, ro,
+                            spec)
+
+
+def grid_from_reduce(fn: str, sums: np.ndarray, cnts: np.ndarray,
+                     mins: np.ndarray | None, maxs: np.ndarray | None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """The downsample grid of one function from ``bucket_reduce``'s
+    statistics: (float64 ``[S, B]`` with NaN holes, presence mask)."""
+    present = cnts > 0
+    if fn in ("sum", "zimsum", "pfsum"):
+        grid = sums
+    elif fn == "count":
+        grid = cnts
+    elif fn == "avg":
+        grid = sums / np.maximum(cnts, 1.0)
+    elif fn in ("min", "mimmin"):
+        grid = mins
+    elif fn in ("max", "mimmax"):
+        grid = maxs
+    else:
+        raise ValueError(f"no grid for downsample function {fn!r}")
+    return np.where(present, grid, np.nan), present
+
+
+def put_grid(grid: np.ndarray, has_data: np.ndarray, dtype: torch.dtype,
+             device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Upload a ``[S, B]`` grid in the compute dtype and its presence
+    mask, once: callers cache the device tensors so a repeat skips the
+    host scan and the transfer."""
+    return (upload(grid, dtype, device),
+            torch.from_numpy(np.ascontiguousarray(has_data, dtype=bool))
+            .to(device))
+
+
+def execute_grid(grid, has_data, bucket_ts: np.ndarray,
+                 group_ids: np.ndarray, spec: PipelineSpec,
+                 rate_options: RateOptions | None = None):
+    """Entry over an uploaded ``[S, B]`` grid (:func:`put_grid`) ->
+    (result, emit) tensors on the grid's device, ``[G, B]`` or, for
+    ``emit_raw``, ``[S, B]``."""
+    dev = grid.device
+    return run_pipeline_grid(
+        grid, has_data,
+        torch.as_tensor(device_bucket_ts(bucket_ts)).to(dev),
+        torch.as_tensor(np.asarray(group_ids, dtype=np.int64)).to(dev),
+        rate_options or RateOptions(), spec)
+
+
 def _run_dense_or_fused(values: torch.Tensor, bucket_ts: np.ndarray,
                         group_ids: np.ndarray, spec: PipelineSpec, k: int,
                         ro: RateOptions):
@@ -200,22 +264,65 @@ def _run_dense_or_fused(values: torch.Tensor, bucket_ts: np.ndarray,
         ro, spec, k)
 
 
-def execute_auto(padded, bucket_idx2d: np.ndarray,
-                 bucket_ts: np.ndarray, group_ids: np.ndarray,
-                 spec: PipelineSpec, rate_options: RateOptions | None,
-                 *, dtype: torch.dtype, device):
-    """Host entry over a row-padded batch (``core.store.PaddedBatch``)
-    -> (result [G, B], emit [G, B]) tensors on ``device``. Regular
-    batches run the fused kernels or the dense path; irregular ones
-    raise NotImplementedError (not ported yet)."""
-    ro = rate_options or RateOptions()
-    counts = np.asarray(padded.counts)
-    k = detect_regular_padded(counts, np.asarray(bucket_idx2d),
-                              spec.num_buckets)
+@dataclass(frozen=True)
+class PreparedBatch:
+    """Device-resident upload of one sub-query's point data, ready to
+    run again: the engine caches these so a warm query pays neither the
+    host materialize nor the transfer.
+
+    kind ``dense``: ``arrays = (values2d,)``, ``k`` points per bucket.
+    The reference's ``padded`` and ``flat`` kinds (irregular batches)
+    are not ported yet."""
+    kind: str
+    arrays: tuple
+    k: int | None = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.nbytes for a in self.arrays)
+
+
+def prepare_auto(padded, bucket_idx2d: np.ndarray, spec: PipelineSpec,
+                 *, dtype: torch.dtype, device) -> PreparedBatch:
+    """Layout-detect and upload a row-padded batch
+    (``core.store.PaddedBatch``). Regular batches of the dense
+    downsample functions become a ``dense`` batch; anything else raises
+    NotImplementedError (not ported yet)."""
+    k = detect_regular_padded(np.asarray(padded.counts),
+                              np.asarray(bucket_idx2d), spec.num_buckets)
     if k is None or spec.ds_function not in _DENSE_FNS:
         raise NotImplementedError(
             "only regular-cadence batches (every series with the same "
             "k points per bucket) and the dense downsample functions "
             "are ported yet")
-    values = upload(padded.values2d, dtype, device)
-    return _run_dense_or_fused(values, bucket_ts, group_ids, spec, k, ro)
+    return PreparedBatch("dense", (upload(padded.values2d, dtype,
+                                          device),), k)
+
+
+def run_prepared(prep: PreparedBatch, bucket_ts: np.ndarray,
+                 group_ids: np.ndarray, spec: PipelineSpec,
+                 rate_options: RateOptions | None = None):
+    """Run a (possibly cached) PreparedBatch -> (result [G, B],
+    emit [G, B]) tensors on its device.
+
+    A ``dense`` batch runs :func:`_run_dense_or_fused`, as the cold
+    point path does, so a warm hit on the card launches the same
+    kernels. The reference's ``run_prepared`` runs its dense XLA path
+    instead: the same function with the additions in another order."""
+    if prep.kind != "dense":
+        raise NotImplementedError(
+            f"{prep.kind!r} prepared batches are not ported yet")
+    return _run_dense_or_fused(prep.arrays[0], bucket_ts, group_ids, spec,
+                               prep.k, rate_options or RateOptions())
+
+
+def execute_auto(padded, bucket_idx2d: np.ndarray,
+                 bucket_ts: np.ndarray, group_ids: np.ndarray,
+                 spec: PipelineSpec, rate_options: RateOptions | None,
+                 *, dtype: torch.dtype, device):
+    """Host entry over a row-padded batch (``core.store.PaddedBatch``)
+    -> (result [G, B], emit [G, B]) tensors on ``device``: upload and
+    run, as :func:`prepare_auto` and :func:`run_prepared`."""
+    return run_prepared(prepare_auto(padded, bucket_idx2d, spec,
+                                     dtype=dtype, device=device),
+                        bucket_ts, group_ids, spec, rate_options)

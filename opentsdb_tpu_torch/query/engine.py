@@ -1,21 +1,30 @@
-"""The query engine (ref: ``src/core/TsdbQuery.java:64``), point path.
+"""The query engine (ref: ``src/core/TsdbQuery.java:64``).
 
 Port of ``opentsdb_tpu/query/engine.py``'s ``QueryEngine.run`` ->
-``_run_sub`` for the configuration that reaches the fused kernels:
+``_run_sub``:
 
 1. resolve metric + filters against the UID tables
 2. vectorized series selection over the metric's tag index
 3. group-key construction from group-by tagv ids
-4. materialize the row-padded batch and its time grid: downsample
-   buckets, or the union of distinct timestamps without a downsample
-5. ``ops.pipeline.execute_auto`` on the TSDB's device
+4. the grid path (``tsd.query.grid_reduce``): a fixed-interval
+   downsample of a grid function is reduced storage-side to a
+   ``[S, B]`` grid (``TimeSeriesStore.bucket_reduce``), uploaded once
+   and kept in the TSDB's device cache, and only the pipeline's tail
+   runs on the device (``ops.pipeline.execute_grid``)
+5. otherwise the point path: materialize the row-padded batch and its
+   time grid (downsample buckets, or the union of distinct timestamps
+   without a downsample), upload it as a prepared batch, kept in the
+   device cache when that is on, and run it (``ops.pipeline.
+   run_prepared``: the fused kernels or the dense path)
 6. result assembly with the reference's tags/aggregateTags semantics
 
-The reference engine's other paths are not ported yet: the storage-side
-grid pre-reduction and the device/host/result caches, the host-CPU tail
-and its circuit breaker, time-blocked long ranges, the device mesh,
-rollup tiers, histogram/percentile sub-queries, tsuid sub-queries and
-``delete=true``. Asking for any of them raises NotImplementedError.
+The reference engine's other paths are not ported yet: the host-CPU
+tail and its circuit breaker with its host retries, the host-RAM
+prepared-batch and result caches, time-blocked long ranges, the device
+mesh, rollup tiers, histogram/percentile sub-queries, tsuid sub-queries,
+query limits and ``delete=true``. Asking for any of them raises
+NotImplementedError; a query too large for the grid path takes the
+point path whole.
 """
 
 from __future__ import annotations
@@ -26,18 +35,48 @@ import numpy as np
 
 from opentsdb_tpu_torch.core import store as store_mod
 from opentsdb_tpu_torch.ops import downsample as ds_mod
-from opentsdb_tpu_torch.ops.pipeline import PipelineSpec, execute_auto
+from opentsdb_tpu_torch.ops.pipeline import (PipelineSpec, execute_grid,
+                                             grid_from_reduce,
+                                             prepare_auto, put_grid,
+                                             run_prepared)
 from opentsdb_tpu_torch.query import filters as filters_mod
+from opentsdb_tpu_torch.query.device_cache import array_digest
 from opentsdb_tpu_torch.query.model import (BadRequestError, TSQuery,
                                             TSSubQuery)
 
-# (config key, the value that selects the point path, the missing path)
+# (config key, the value that keeps the engine off a missing path, the
+# missing path)
 _POINT_PATH_KEYS = (
-    ("tsd.query.grid_reduce", "false", "storage-side grid reduction"),
-    ("tsd.query.device_cache_mb", "0", "device batch cache"),
     ("tsd.query.host_tail_max_cells", "-1", "host-CPU tail"),
     ("tsd.query.host_tail_max_cells_linear", "-1", "host-CPU tail"),
 )
+# default [S, B] cell budget of the grid path (~256 MB of float32;
+# ref: ops/blocked.py DEFAULT_CELL_BUDGET)
+DEFAULT_CELL_BUDGET = 1 << 26
+# downsample functions the storage-side reduction serves: linear bucket
+# statistics (sum/count/min/max; avg is sum over count)
+_GRID_FNS = frozenset(("sum", "zimsum", "pfsum", "count", "min",
+                       "mimmin", "max", "mimmax", "avg"))
+
+
+def grid_cache_key(store, sids: np.ndarray, start_ms: int, end_ms: int,
+                   bucket_ts: np.ndarray, interval_ms: int,
+                   fn: str) -> tuple:
+    """Device-cache key of one storage-side reduction (ref:
+    ``_grid_pipeline``'s ``ckey``). The group-by is not part of it:
+    queries over the same series and window share one grid."""
+    return ("grid", store.instance_id,
+            array_digest(np.ascontiguousarray(sids)), start_ms, end_ms,
+            int(bucket_ts[0]), interval_ms, len(bucket_ts), fn)
+
+
+def _agg_class(agg, num_groups: int) -> str | tuple:
+    """The linear/rank class in the prepared-batch key (ref: the
+    single-device ``acls``): a rank-class aggregator's group stage is a
+    sort, and two of its group counts must not share an entry."""
+    if agg.name == "median" or agg.percentile is not None:
+        return ("rank", num_groups)
+    return "lin"
 
 
 class QueryResult:
@@ -163,14 +202,17 @@ class QueryEngine:
     """(ref: TsdbQuery; one instance per TSQuery execution)"""
 
     def __init__(self, tsdb):
-        for key, point_path, missing in _POINT_PATH_KEYS:
-            if tsdb.config.get_string(key) != point_path:
+        config = tsdb.config
+        for key, off, missing in _POINT_PATH_KEYS:
+            if config.get_string(key) != off:
                 raise NotImplementedError(
-                    f"{key}={tsdb.config.get_string(key)} selects the "
-                    f"{missing}, which is not ported yet; the port "
-                    f"serves the point path ({key}={point_path})")
+                    f"{key}={config.get_string(key)} selects the "
+                    f"{missing}, which is not ported yet; set {key}={off}")
         self.tsdb = tsdb
         self._filter_eval = filters_mod.FilterEvaluator(tsdb.uids)
+        self._grid_reduce = config.get_bool("tsd.query.grid_reduce")
+        self._budget = config.get_int("tsd.query.max_device_cells") \
+            or DEFAULT_CELL_BUDGET
 
     def run(self, ts_query: TSQuery) -> list[QueryResult]:
         if ts_query.delete:
@@ -216,6 +258,33 @@ class QueryEngine:
             group_ids = np.arange(len(sids), dtype=np.int32)
             num_groups = len(sids)
 
+        # --- storage-side grid reduction (ref: _grid_pipeline)
+        out = self._grid_pipeline(store, sids, tsq, sub, group_ids,
+                                  num_groups, emit_raw)
+        if out is not None:
+            result, emit, bucket_ts = out
+            if result is None:
+                return []
+            return self._build_results(
+                tsq, sub, metric_id, sids, tag_mat, group_ids,
+                num_groups, bucket_ts, result, emit)
+
+        # --- prepared-batch cache: a warm repeat of the same (store,
+        # series, window, downsample) finds its batch on the device
+        cache = self.tsdb.device_grid_cache
+        if cache is not None:
+            pkey = ("prep", store.instance_id,
+                    array_digest(np.ascontiguousarray(sids)),
+                    tsq.start_ms, tsq.end_ms, sub.downsample or "union",
+                    getattr(sub.ds_spec, "timezone", None),
+                    _agg_class(sub.agg, num_groups))
+            pver = store.version
+            hit = cache.get(pkey, pver)
+            if hit is not None:
+                return self._run_prep_hit(hit, tsq, sub, metric_id, sids,
+                                          tag_mat, group_ids, num_groups,
+                                          emit_raw)
+
         # --- materialize + time grid (row-padded layout)
         padded = store.materialize_padded(sids, tsq.start_ms, tsq.end_ms)
         if padded.num_points == 0:
@@ -247,13 +316,104 @@ class QueryEngine:
             emit_raw=emit_raw,
             complete=grid_complete
             and not (sub.rate and sub.rate_options.drop_resets))
-        result, emit = execute_auto(
-            padded, bucket_idx2d, bucket_ts, group_ids, spec,
-            sub.rate_options, dtype=self.tsdb.dtype,
-            device=self.tsdb.device)
+        prep = prepare_auto(padded, bucket_idx2d, spec,
+                            dtype=self.tsdb.dtype, device=self.tsdb.device)
+        if cache is not None:
+            # complete is a property of the data: a hit keeps it
+            cache.put(pkey, pver, (prep,), {
+                "bucket_ts": bucket_ts, "ds_function": ds_function,
+                "fill_policy": fill_policy, "fill_value": fill_value,
+                "complete": grid_complete})
+        result, emit = run_prepared(prep, bucket_ts, group_ids, spec,
+                                    sub.rate_options)
         return self._build_results(
             tsq, sub, metric_id, sids, tag_mat, group_ids, num_groups,
             bucket_ts, result.cpu().numpy(), emit.cpu().numpy())
+
+    def _run_prep_hit(self, hit, tsq: TSQuery, sub: TSSubQuery,
+                      metric_id: int, sids: np.ndarray,
+                      tag_mat: "TagMatrix", group_ids: np.ndarray,
+                      num_groups: int, emit_raw: bool
+                      ) -> list[QueryResult]:
+        """Serve one sub-query from a warm prepared batch (ref:
+        ``_run_prep_hit``). A failure raises: there is no cold retry."""
+        (prep,), meta = hit
+        bucket_ts = meta["bucket_ts"]
+        spec = PipelineSpec(
+            num_series=len(sids), num_buckets=len(bucket_ts),
+            num_groups=num_groups, ds_function=meta["ds_function"],
+            agg_name=sub.agg.name, fill_policy=meta["fill_policy"],
+            fill_value=meta["fill_value"], rate=sub.rate,
+            rate_counter=sub.rate_options.counter,
+            rate_drop_resets=sub.rate_options.drop_resets,
+            emit_raw=emit_raw,
+            complete=meta["complete"]
+            and not (sub.rate and sub.rate_options.drop_resets))
+        result, emit = run_prepared(prep, bucket_ts, group_ids, spec,
+                                    sub.rate_options)
+        return self._build_results(
+            tsq, sub, metric_id, sids, tag_mat, group_ids, num_groups,
+            bucket_ts, result.cpu().numpy(), emit.cpu().numpy())
+
+    def _grid_eligible(self, sub: TSSubQuery) -> bool:
+        spec = sub.ds_spec
+        return (self._grid_reduce and spec is not None
+                and not spec.run_all and not spec.use_calendar
+                and spec.unit not in ("n", "y")
+                and spec.function in _GRID_FNS and spec.interval_ms > 0)
+
+    def _grid_pipeline(self, store, sids: np.ndarray, tsq: TSQuery,
+                       sub: TSSubQuery, group_ids: np.ndarray,
+                       num_groups: int, emit_raw: bool):
+        """Storage-side downsample (ref: ``_grid_pipeline``): the store
+        reduces the window to the ``[S, B]`` grid, which is uploaded
+        once and cached on the device, and the device runs only the
+        fill/rate/interpolate/aggregate tail. Returns None when the
+        query is not eligible or its grid exceeds the cell budget (the
+        point path takes it), else (result, emit, bucket_ts) with
+        result None when the window holds no point."""
+        if not self._grid_eligible(sub):
+            return None
+        ds_spec = sub.ds_spec
+        bucket_ts = ds_mod.fixed_bucket_edges(
+            tsq.start_ms, tsq.end_ms, ds_spec.interval_ms)
+        b = len(bucket_ts)
+        if len(sids) * b > self._budget:
+            return None
+        fn = ds_spec.function
+        cache = self.tsdb.device_grid_cache
+        hit = None
+        if cache is not None:
+            ckey = grid_cache_key(store, sids, tsq.start_ms, tsq.end_ms,
+                                  bucket_ts, ds_spec.interval_ms, fn)
+            cver = store.version
+            hit = cache.get(ckey, cver)
+        if hit is not None:
+            (grid, has_data), _ = hit
+        else:
+            sums, cnts, mins, maxs = store.bucket_reduce(
+                sids, tsq.start_ms, tsq.end_ms, int(bucket_ts[0]),
+                ds_spec.interval_ms, b,
+                want_minmax=fn in ("min", "mimmin", "max", "mimmax"))
+            if not cnts.any():
+                return None, None, bucket_ts
+            grid, has_data = put_grid(
+                *grid_from_reduce(fn, sums, cnts, mins, maxs),
+                self.tsdb.dtype, self.tsdb.device)
+            if cache is not None:
+                cache.put(ckey, cver, (grid, has_data), {})
+        spec = PipelineSpec(
+            num_series=len(sids), num_buckets=b, num_groups=num_groups,
+            # the tail never reads it: downsampling happened in the store
+            ds_function="avg", agg_name=sub.agg.name,
+            fill_policy=ds_spec.fill_policy,
+            fill_value=ds_spec.fill_value, rate=sub.rate,
+            rate_counter=sub.rate_options.counter,
+            rate_drop_resets=sub.rate_options.drop_resets,
+            emit_raw=emit_raw)
+        result, emit = execute_grid(grid, has_data, bucket_ts, group_ids,
+                                    spec, sub.rate_options)
+        return result.cpu().numpy(), emit.cpu().numpy(), bucket_ts
 
     @staticmethod
     def _union_grid(padded: store_mod.PaddedBatch):

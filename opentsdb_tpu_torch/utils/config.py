@@ -26,12 +26,19 @@ _DEFAULTS: dict[str, str] = {
     # request (the CUDA kernels are float32-only; float64 runs the
     # dense PyTorch path)
     "tsd.torch.dtype": "float32",
-    # The engine serves the point path only. These four keys name the
-    # paths of the reference engine that the port does not have yet;
-    # their defaults select the point path and any other value raises
-    # NotImplementedError when the engine is built.
-    "tsd.query.grid_reduce": "false",
-    "tsd.query.device_cache_mb": "0",
+    # the reference engine's defaults: fixed-interval downsamples of
+    # the grid functions reduce storage-side to a [S, B] grid, and
+    # grids and uploaded point batches stay on the device (LRU, MB;
+    # 0 turns the cache off). grid_reduce=false with the cache at 0 is
+    # the point path with nothing cached.
+    "tsd.query.grid_reduce": "true",
+    "tsd.query.device_cache_mb": "1024",
+    # [S, B] cells above which a query leaves the grid path for the
+    # point path; 0 means 1 << 26 (ref: ops/blocked.py)
+    "tsd.query.max_device_cells": "0",
+    # the reference's host-CPU tail is not ported yet: -1 keeps it off,
+    # and any other value raises NotImplementedError when the engine
+    # is built
     "tsd.query.host_tail_max_cells": "-1",
     "tsd.query.host_tail_max_cells_linear": "-1",
 }
@@ -65,3 +72,9 @@ class Config:
         if val is None:
             return default
         return val.strip().lower() in ("true", "1", "yes")
+
+    def override_config(self, key: str, value: Any) -> None:
+        """Set one key at run time (ref: Config.java:317). The query
+        engine reads its keys per query, and the TSDB its device cache
+        size when the cache is first needed."""
+        self._props[key] = str(value)

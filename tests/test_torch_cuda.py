@@ -243,3 +243,67 @@ def test_span_tree_order(card, ds_fn, rate):
                                spec, k, cm, rv), batch.order.cpu())
     want = span_tree_sums(t.numpy(), batch.gids.cpu().numpy(), g)
     np.testing.assert_array_equal(acc.cpu().numpy(), want)
+
+
+def _card_tsdb(card, **keys):
+    """A TSDB on the card holding 3000 series x 60 points at one a
+    minute (seed 0), tagged dc (i % 100) and rack (i % 1500)."""
+    from opentsdb_tpu_torch import TSDB, Config
+    t = TSDB(Config(**{"tsd.torch.device": str(card),
+                       "tsd.core.auto_create_metrics": "true", **keys}))
+    rng = np.random.default_rng(0)
+    s, p = 3000, 60
+    ts = np.broadcast_to(1356998400 + 60 * np.arange(p), (s, p))
+    t.add_series_points("m", [{"host": f"h{i}", "dc": f"dc{i % 100}",
+                               "rack": f"r{i % 1500}"} for i in range(s)],
+                        ts, rng.normal(100.0, 15.0, (s, p)))
+    return t
+
+
+def _card_query(m):
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    return TSQuery(start="1356998400", end=str(1356998400 + 3599),
+                   queries=[parse_uri_subquery(m)]).validate()
+
+
+@pytest.mark.parametrize("m", ["sum:5m-avg:m{dc=*}",
+                               "sum:10m-max-zero:m{rack=*}",
+                               "avg:1m-sum:m{dc=*}"])
+def test_grid_path_on_card(card, m):
+    """At the defaults the grid path answers on the card as the port
+    does on the CPU in float64 (positive values: 1e-5 relative), with no
+    kernel launched, and a repeat is a cache hit."""
+    from opentsdb_tpu_torch import TSDB, Config
+    t = _card_tsdb(card)
+    cpu = TSDB(Config(**{"tsd.torch.device": "cpu",
+                         "tsd.torch.dtype": "float64"}))
+    cpu.store, cpu.uids = t.store, t.uids
+    before = (fused.span_reduce.launches, fused.onehot_reduce.launches)
+    got = t.execute_query(_card_query(m))
+    warm = t.execute_query(_card_query(m))
+    want = cpu.execute_query(_card_query(m))
+    assert (fused.span_reduce.launches,
+            fused.onehot_reduce.launches) == before
+    assert t.device_grid_cache.hits == 1
+    assert len(got) == len(want) > 0
+    for a, w, b in zip(got, want, warm):
+        np.testing.assert_array_equal(a.dps_arrays[0], w.dps_arrays[0])
+        np.testing.assert_allclose(a.dps_arrays[1], w.dps_arrays[1],
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(b.dps_arrays[1], w.dps_arrays[1],
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_prepared_hit_launches_the_kernel(card):
+    """grid_reduce=false with the cache on: a warm hit runs the span
+    kernel again on the cached batch, and its answer is the cold one
+    bit for bit (the span kernel is deterministic)."""
+    t = _card_tsdb(card, **{"tsd.query.grid_reduce": "false"})
+    q = _card_query("sum:5m-avg:rate:m{dc=*}")
+    cold = t.execute_query(q)
+    n = fused.span_reduce.launches
+    warm = t.execute_query(q)
+    assert fused.span_reduce.launches == n + 1
+    assert t.device_grid_cache.hits == 1
+    for a, b in zip(cold, warm):
+        np.testing.assert_array_equal(a.dps_arrays[1], b.dps_arrays[1])

@@ -1,13 +1,16 @@
 """The port's query path as a whole: the same stored data queried through
 the reference's ``TSDB.execute_query`` and the port's.
 
-The reference TSDB runs with the four keys that put its engine on the
-point path (no storage-side grid reduction, no device batch cache, no
-host-CPU tail), so its queries reach ``execute_auto`` and the Pallas
-kernels (interpret mode on the CPU). Its store and UID tables are
-exported to numpy here, in the test, and loaded into the port with
-``core.state.load_arrays``. Results must agree in metric, tags,
-aggregateTags and dps (float64 on both sides, rtol 1e-9, NaN equal).
+Both TSDBs run with the four keys that put the engine on the point path
+(no storage-side grid reduction, no device batch cache, no host-CPU
+tail), so the reference's queries reach ``execute_auto`` and the Pallas
+kernels (interpret mode on the CPU) and the port's reach its kernel
+wrappers. The grid path and the caches, the port's defaults, are held
+against the reference in ``test_torch_grid.py``. The reference's store
+and UID tables are exported to numpy here, in the test, and loaded into
+the port with ``core.state.load_arrays``. Results must agree in metric,
+tags, aggregateTags and dps (float64 on both sides, rtol 1e-9, NaN
+equal).
 """
 
 import numpy as np
@@ -75,7 +78,7 @@ def _export(jt, metric):
 def engines():
     jt = _write_reference()
     tt = TSDB(Config(**{"tsd.torch.device": "cpu",
-                        "tsd.torch.dtype": "float64"}))
+                        "tsd.torch.dtype": "float64", **ENGINE_KEYS}))
     for metric in ("m", "c", "h"):
         load_arrays(tt, metric, *_export(jt, metric))
     return jt, tt
@@ -199,7 +202,8 @@ def test_ingest_through_facade_matches_load(engines):
     jt, tt = engines
     t2 = TSDB(Config(**{"tsd.torch.device": "cpu",
                         "tsd.torch.dtype": "float64",
-                        "tsd.core.auto_create_metrics": "true"}))
+                        "tsd.core.auto_create_metrics": "true",
+                        **ENGINE_KEYS}))
     tags_list, ts2d, vals, counts = _export(jt, "m")
     groups = []
     for i, tags in enumerate(tags_list[:S // 2]):
@@ -221,7 +225,8 @@ def test_overwrite_and_out_of_order_writes():
     """Duplicate timestamps resolve last-write-wins and out-of-order
     writes read back sorted, as in the reference store."""
     t = TSDB(Config(**{"tsd.torch.device": "cpu",
-                       "tsd.core.auto_create_metrics": "true"}))
+                       "tsd.core.auto_create_metrics": "true",
+                       **ENGINE_KEYS}))
     j = JTSDB(JConfig(**{"tsd.core.auto_create_metrics": "true",
                          "tsd.tpu.platform": "cpu", **ENGINE_KEYS}))
     writes = [(T0 + 120, 3.0), (T0, 1.0), (T0 + 60, 2.0), (T0, 10.0),
@@ -242,11 +247,12 @@ def test_overwrite_and_out_of_order_writes():
 
 
 def test_write_validation():
-    t = TSDB(Config(**{"tsd.torch.device": "cpu"}))
+    t = TSDB(Config(**{"tsd.torch.device": "cpu", **ENGINE_KEYS}))
     with pytest.raises(LookupError):       # auto_create_metrics off
         t.add_point("nope", T0, 1.0, {"host": "a"})
     t2 = TSDB(Config(**{"tsd.torch.device": "cpu",
-                        "tsd.core.auto_create_metrics": "true"}))
+                        "tsd.core.auto_create_metrics": "true",
+                        **ENGINE_KEYS}))
     with pytest.raises(ValueError):
         t2.add_point("m", T0, 1.0, {})
     with pytest.raises(ValueError):
@@ -264,10 +270,63 @@ def test_write_validation():
     ("tsd.query.device_cache_mb", "1024"),
     ("tsd.query.host_tail_max_cells", "0"),
     ("tsd.query.host_tail_max_cells_linear", "0")])
-def test_unported_engine_paths_raise(key, value):
-    t = TSDB(Config(**{"tsd.torch.device": "cpu", key: value}))
-    with pytest.raises(NotImplementedError):
-        t.new_query()
+def test_unported_engine_paths_raise(engines, key, value):
+    """The host-CPU tail is not ported: its keys still raise. The grid
+    path and the device cache are, and answer as the point path does."""
+    jt, tt = engines
+    t = TSDB(Config(**{"tsd.torch.device": "cpu",
+                       "tsd.torch.dtype": "float64",
+                       **ENGINE_KEYS, key: value}))
+    if key.startswith("tsd.query.host_tail"):
+        with pytest.raises(NotImplementedError):
+            t.new_query()
+        return
+    load_arrays(t, "m", *_export(jt, "m"))
+    q = TSQuery.from_json({"start": str(T0), "end": str(T0 + P * 60 - 1),
+                           "queries": [_query_json(
+                               "sum:5m-avg:rate:m{dc=*}")]}).validate()
+    got, want = _rows(t.execute_query(q)), _rows(tt.execute_query(q))
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert g[:4] == w[:4]
+        np.testing.assert_allclose(g[4], w[4], rtol=1e-9)
+
+
+@pytest.mark.parametrize("keys,path", [
+    (ENGINE_KEYS, "point"),
+    ({}, "grid"),
+    ({"tsd.query.grid_reduce": "false"}, "prepared")])
+def test_engine_keys_select_the_path(engines, keys, path, monkeypatch):
+    """Spies on the store and the pipeline show which path a
+    fixed-interval query took, run twice: the point path materializes
+    and uploads each time; the defaults reduce in the store once and
+    then read the cached grid; grid_reduce=false with the cache on
+    materializes once and serves the repeat from the cached batch."""
+    from opentsdb_tpu_torch.query import engine as engine_mod
+    jt, _ = engines
+    t = TSDB(Config(**{"tsd.torch.device": "cpu",
+                       "tsd.torch.dtype": "float64", **keys}))
+    load_arrays(t, "m", *_export(jt, "m"))
+    calls = []
+    for obj, name in ((t.store, "materialize_padded"),
+                      (t.store, "bucket_reduce"),
+                      (engine_mod, "prepare_auto"),
+                      (engine_mod, "run_prepared")):
+        orig = getattr(obj, name)
+        monkeypatch.setattr(obj, name, lambda *a, _n=name, _o=orig, **k:
+                            calls.append(_n) or _o(*a, **k))
+    q = TSQuery.from_json({"start": str(T0), "end": str(T0 + P * 60 - 1),
+                           "queries": [_query_json(
+                               "sum:5m-avg:rate:m{dc=*}")]}).validate()
+    first = _rows(t.execute_query(q))
+    assert first == _rows(t.execute_query(q))
+    assert calls == {
+        "point": ["materialize_padded", "prepare_auto",
+                  "run_prepared"] * 2,
+        "grid": ["bucket_reduce"],
+        "prepared": ["materialize_padded", "prepare_auto",
+                     "run_prepared", "run_prepared"]}[path]
+    assert (t.device_grid_cache is None) == (path == "point")
 
 
 def test_unported_query_features_raise(engines):
