@@ -17,7 +17,8 @@
    -> 2000 groups, the one-hot kernel) through
    ``TSDB.add_series_points`` and ``TSDB.execute_query``, checks that
    both kernels launched and that the answers match the plain version,
-   and prints the time of each stage;
+   prints the time of each stage, and how far repeated launches of each
+   kernel on the same inputs differ from the first;
 4. runs the same two queries on the same data at the engine's default
    keys (the grid path: the store reduces each window to a [S, B] grid,
    uploaded once and kept in the device cache): cold (caches dropped
@@ -27,10 +28,23 @@
    cached grid against a fresh reduction bit for bit;
 5. runs them with ``tsd.query.grid_reduce=false`` and the cache on (the
    prepared-batch path): warm hits launch the span and one-hot kernels
-   and answer as phase 3 did;
-6. prints one JSON line describing each kernel (its launches are those
-   of phases 3 and 5), the card line and, last,
+   and answer as phase 3 did; prints how far two hits of each kernel
+   differ (the one-hot kernel adds with shared atomics);
+6. drives the serve path at the default keys (result cache on, fan-out
+   on 4 threads): the tag-matrix cache (``{dc=*}`` builds it,
+   ``{rack=*}`` hits it), the result cache (a miss, five hits equal to
+   it bit for bit and to the same query with the cache off, then a
+   write that the next call must see), and one TSQuery of both
+   queries, fanned out: at the defaults (grid path) and at
+   ``grid_reduce=false`` with every cache off, where the span and
+   one-hot kernels launch once each from two threads; each sub answers
+   as it does alone;
+7. prints one JSON line describing each kernel (its launches are those
+   of phases 3, 5 and 6), the card line and, last,
    ``{"ok": true, "device": {...}}``.
+
+Phases 3-5 run with the result cache off, so that every call reaches
+the path it measures.
 
 Any failure exits non-zero without the last line. Without a CUDA card,
 or outside a checkout of the repository, it exits 2.
@@ -52,12 +66,16 @@ T0 = 1356998400            # aligned to the hour (seconds)
 POINTS = 60                # one hour at one point a minute
 QUERIES = (("sum:5m-avg:rate:sys.cpu.user{dc=*}", "span_reduce"),
            ("sum:5m-avg:rate:sys.cpu.user{rack=*}", "onehot_reduce"))
-# the four keys that put the engine on its point path with nothing
-# cached (phase 3); phases 4 and 5 set them back to the defaults
+# the keys that put the engine on its point path with nothing cached
+# (phase 3); phases 4 and 5 set all but the result cache back to the
+# defaults, and phase 6 that too
 ENGINE_KEYS = {"tsd.query.grid_reduce": "false",
                "tsd.query.device_cache_mb": "0",
                "tsd.query.host_tail_max_cells": "-1",
-               "tsd.query.host_tail_max_cells_linear": "-1"}
+               "tsd.query.host_tail_max_cells_linear": "-1",
+               "tsd.query.cache.enable": "false"}
+FANOUT_REPEATS = 3         # repeats of each point-path fan-out reading
+REPRO_LAUNCHES = 20        # launches of each kernel's reproducibility reading
 # device memory rate by card name (NVIDIA data sheets), bytes/s
 _MEM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
              ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
@@ -297,6 +315,60 @@ def answer_values(rows, g: int, b: int):
     return torch.as_tensor(vals)
 
 
+def repeat_reading(torch, run) -> tuple[float, bool]:
+    """A kernel's reproducibility across launches, on the same inputs:
+    (max |d| of REPRO_LAUNCHES launches from the first, all of them
+    bit-equal to it)."""
+    first = run()
+    worst, same = 0.0, True
+    for _ in range(REPRO_LAUNCHES - 1):
+        out = run()
+        worst = max(worst, float((out - first).abs().max()))
+        same = same and bool(torch.equal(out, first))
+    return worst, same
+
+
+def same_bits(rows_a, rows_b) -> bool:
+    """Two answers hold the same groups, timestamps and value bits."""
+    import numpy as np
+    return len(rows_a) == len(rows_b) and all(
+        a.tags == b.tags
+        and np.array_equal(a.dps_arrays[0], b.dps_arrays[0])
+        and np.array_equal(a.dps_arrays[1].view(np.int64),
+                           b.dps_arrays[1].view(np.int64))
+        for a, b in zip(rows_a, rows_b))
+
+
+def prod_reading(torch, grid, gids, g: int) -> None:
+    """A reading for the record, not a check: the group stage's
+    fixed-order product (``GroupPlan.prod``, the ``multiply``
+    aggregator) against ``torch.segment_reduce``'s over the same rows
+    in group order: device time, and whether two calls give the same
+    bits."""
+    import numpy as np
+    from opentsdb_tpu_torch.ops.groupby import GroupPlan
+    x = 1.0 + (grid - 100.0) * 1e-5   # near 1: the products stay finite
+    gid_t = torch.as_tensor(np.asarray(gids, dtype=np.int64),
+                            device=grid.device)
+    plan_ms = cuda_ms(lambda: GroupPlan(gid_t, g), 5)
+    plan = GroupPlan(gid_t, g)
+    ours = [plan.prod(x) for _ in range(2)]
+    ours_ms = cuda_ms(lambda: plan.prod(x), 5)
+    xs = x.index_select(0, torch.sort(gid_t, stable=True).indices)
+    lengths = torch.bincount(gid_t, minlength=g)
+    seg = [torch.segment_reduce(xs, "prod", lengths=lengths, axis=0)
+           for _ in range(2)]
+    seg_ms = cuda_ms(lambda: torch.segment_reduce(
+        xs, "prod", lengths=lengths, axis=0), 5)
+    torch.cuda.synchronize()
+    print(f"    group product, G={g}: GroupPlan build {plan_ms:.4f} ms, "
+          f"prod {ours_ms:.4f} ms, two calls bit-equal "
+          f"{bool(torch.equal(ours[0], ours[1]))}; segment_reduce prod "
+          f"{seg_ms:.4f} ms, two calls bit-equal "
+          f"{bool(torch.equal(seg[0], seg[1]))}, max |d| from GroupPlan "
+          f"{float((seg[0] - ours[0]).abs().max())!r}")
+
+
 def reset_launches(fused) -> None:
     for w in (fused.span_reduce, fused.onehot_reduce):
         w.launches = 0
@@ -317,7 +389,8 @@ def phase_grid(torch, tsdb, query, profile: bool) -> None:
     from opentsdb_tpu_torch.query.engine import grid_cache_key
     defaults = Config()
     for key in ENGINE_KEYS:
-        tsdb.config.override_config(key, defaults.get_string(key))
+        if key != "tsd.query.cache.enable":
+            tsdb.config.override_config(key, defaults.get_string(key))
     store = tsdb.store
     metric_id = tsdb.uids.metrics.get_id(METRIC)
     sids = store.series_ids_for_metric(metric_id)
@@ -325,10 +398,15 @@ def phase_grid(torch, tsdb, query, profile: bool) -> None:
     runs = {}
     for m, _ in QUERIES:
         cold_s = []
-        for _ in range(REPEATS):
+        for i in range(REPEATS):
             tsdb.drop_caches()
             cold, secs = timed(lambda: tsdb.execute_query(query(m)), 1)
             cold_s += secs
+            if i == 0:
+                first = cold
+            # the device cache dropped in between: the same bits
+            check(same_bits(cold, first),
+                  f"{m}: two cold grid calls differ in their bits")
         cache = tsdb.device_grid_cache
         hits = cache.hits
         warm, warm_s = timed(lambda: tsdb.execute_query(query(m)),
@@ -397,8 +475,8 @@ def phase_grid(torch, tsdb, query, profile: bool) -> None:
         terms = rate_terms(torch, grid64, gids, g, bts)[:, 1:]
         want = want[:, 1:]
         err = compare(answer_values(cold, g, b), want, terms)
-        werr = compare(answer_values(warm, g, b),
-                       answer_values(cold, g, b), terms)
+        check(same_bits(warm, cold), f"{m}: warm and cold grid answers "
+              "differ in their bits")
         # the cached grid is the one a fresh reduction uploads
         hit = tsdb.device_grid_cache.get(
             grid_cache_key(store, sel, tq.start_ms, tq.end_ms, bts,
@@ -422,13 +500,16 @@ def phase_grid(torch, tsdb, query, profile: bool) -> None:
               + f"; sum {sum(p50(v) for _, v in stages) * 1e3:.3f}")
         print(f"  {m} grid: end-to-end p50 cold {p50(cold_s) * 1e3:.3f} "
               f"ms, warm {p50(warm_s) * 1e3:.3f} ms; max_abs_err vs "
-              f"CPU float64 {err:.6g}, warm vs cold {werr:.6g}; cached "
-              "grid equals a fresh one bit for bit")
+              f"CPU float64 {err:.6g}; {REPEATS} cold calls and the "
+              "warm ones equal bit for bit; cached grid equals a fresh "
+              "one bit for bit")
+        prod_reading(torch, grid, gids, g)
 
 
 def phase_prepared(torch, tsdb, query, ref3: dict) -> dict:
     """Phase 5: grid_reduce=false with the device cache on. Returns
     the warm hits' kernel launches."""
+    import numpy as np
     from opentsdb_tpu_torch.ops import fused
     tsdb.config.override_config("tsd.query.grid_reduce", "false")
     cache = tsdb.device_grid_cache
@@ -438,13 +519,25 @@ def phase_prepared(torch, tsdb, query, ref3: dict) -> dict:
     hits = cache.hits
     reset_launches(fused)
     answers, secs = {}, {}
+    again = {}
     for m, _ in QUERIES:
         answers[m], secs[m] = timed(lambda: tsdb.execute_query(query(m)),
                                     REPEATS)
+        again[m] = tsdb.execute_query(query(m))
     launches = read_launches(fused)
     print(f"  prepared-batch launches: {launches}")
-    check(cache.hits == hits + REPEATS * len(QUERIES),
+    check(cache.hits == hits + (REPEATS + 1) * len(QUERIES),
           f"warm calls made {cache.hits - hits} cache hits")
+    for m, kname in QUERIES:
+        # a reading, not a check, for the one-hot kernel: its shared
+        # float atomics add in no fixed order
+        diff = max(float(np.abs(a.dps_arrays[1] - b.dps_arrays[1]).max())
+                   for a, b in zip(answers[m], again[m]))
+        print(f"  {m} prepared: two warm hits ({kname}) differ by max "
+              f"|d| {diff!r}; bit-equal {same_bits(answers[m], again[m])}")
+        if kname == "span_reduce":
+            check(same_bits(answers[m], again[m]),
+                  "two span_reduce hits differ in their bits")
     for m, kname in QUERIES:
         check(launches[kname] >= REPEATS,
               f"{kname} did not launch on each warm hit")
@@ -454,6 +547,180 @@ def phase_prepared(torch, tsdb, query, ref3: dict) -> dict:
         print(f"  {m} prepared: warm p50 {p50(secs[m]) * 1e3:.3f} ms "
               f"({kname}); max_abs_err vs phase 3's plain {err:.6g}")
     return launches
+
+
+def phase_serve(torch, tsdb, query, ref3: dict, last_tags: dict) -> dict:
+    """Phase 6: the serve path at the default keys (result cache on,
+    fan-out on 4 threads). Returns the kernel launches of its point-path
+    fan-out calls."""
+    import numpy as np
+    from opentsdb_tpu_torch import Config
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.query import engine as engine_mod
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    cfg = tsdb.config
+    defaults = Config()
+
+    def set_keys(**keys):
+        for key in ENGINE_KEYS:
+            cfg.override_config(key, defaults.get_string(key))
+        for key, val in keys.items():
+            cfg.override_config(key, val)
+
+    set_keys()
+    rc = tsdb.result_cache
+    check(rc is not None and tsdb.query_fanout_pool is not None,
+          "the result cache or the fan-out pool is off at the defaults")
+    (dc, _), (rack, kname_rack) = QUERIES
+    store = tsdb.store
+    metric_id = tsdb.uids.metrics.get_id(METRIC)
+    sids = store.series_ids_for_metric(metric_id)
+
+    # -- the tag-matrix cache: builds counted on the class
+    builds = []
+    from_triples = engine_mod.TagMatrix.__dict__["from_triples"]
+    engine_mod.TagMatrix.from_triples = classmethod(
+        lambda cls, s, t: builds.append(len(s))
+        or from_triples.__func__(cls, s, t))
+    try:
+        def plan(m):
+            sub = query(m).queries[0]
+            eng = tsdb.new_query()
+            _, tag_mat = eng._apply_filters(metric_id, sub, sids)
+            return eng._group_ids(tag_mat, [
+                tsdb.uids.tag_names.get_id(f.tagk) for f in sub.filters
+                if f.group_by])
+
+        built_s = []
+        for _ in range(REPEATS):
+            tsdb._tagmat_cache.clear()
+            built_s += timed(lambda: plan(dc), 1)[1]
+        hit_s = timed(lambda: plan(rack), REPEATS)[1]
+        check(len(builds) == REPEATS, "the tag matrix was not reused")
+        tsdb._tagmat_cache.clear()
+        tsdb.drop_caches()
+        n0 = len(builds)
+        dc_s = timed(lambda: tsdb.execute_query(query(dc)), 1)[1]
+        rack_s = timed(lambda: tsdb.execute_query(query(rack)), 1)[1]
+        check(len(builds) - n0 == 1,
+              f"{len(builds) - n0} tag-matrix builds for two queries")
+    finally:
+        engine_mod.TagMatrix.from_triples = from_triples
+    print(f"  tag matrix: plan p50 {p50(built_s) * 1e3:.3f} ms with the "
+          f"matrix built ({dc}), {p50(hit_s) * 1e3:.3f} ms on a hit "
+          f"({rack}); end to end {dc} {dc_s[0] * 1e3:.3f} ms (matrix "
+          f"built, grid cold), then {rack} {rack_s[0] * 1e3:.3f} ms "
+          "(matrix hit, grid hit): 1 build, 1 hit")
+
+    # -- the result cache: a miss, hits equal to it, the same query with
+    # the cache off equal to it
+    rc.clear()
+    h0, m0 = rc.hits, rc.misses
+    miss, miss_s = timed(lambda: tsdb.execute_query(query(dc)), 1)
+    hits, hit_s = [], []
+    for _ in range(REPEATS):
+        rows, secs = timed(lambda: tsdb.execute_query(query(dc)), 1)
+        hits.append(rows)
+        hit_s += secs
+    check((rc.hits - h0, rc.misses - m0) == (REPEATS, 1),
+          f"result cache: {rc.hits - h0} hits, {rc.misses - m0} misses")
+    check(all(same_bits(r, miss) for r in hits),
+          "a result-cache hit differs from its miss")
+    set_keys(**{"tsd.query.cache.enable": "false"})
+    check(same_bits(tsdb.execute_query(query(dc)), miss),
+          "the miss differs from the same query with the cache off")
+    set_keys()
+    print(f"  result cache {dc}: miss {miss_s[0] * 1e3:.3f} ms, hit p50 "
+          f"{p50(hit_s) * 1e3:.3f} ms over {REPEATS}; hits, miss and a "
+          "cache-off call equal bit for bit")
+
+    # -- fan-out: one TSQuery of both queries against each sub alone
+    q0 = query(dc)
+
+    def both():
+        return TSQuery(start=q0.start, end=q0.end, queries=[
+            parse_uri_subquery(m, i) for i, m in
+            enumerate((dc, rack))]).validate()
+
+    def split(rows):
+        idx = [r.sub_query_index for r in rows]
+        check(idx == sorted(idx), "fan-out results out of sub order")
+        return ([r for r in rows if r.sub_query_index == 0],
+                [r for r in rows if r.sub_query_index == 1])
+
+    def uncached(fn):
+        # the result cache emptied, so each call runs the engine
+        def run():
+            rc.clear()
+            return fn()
+        return run
+
+    fan, fan_s = timed(uncached(lambda: tsdb.execute_query(both())),
+                       REPEATS)
+    one_dc, one_dc_s = timed(uncached(
+        lambda: tsdb.execute_query(query(dc))), REPEATS)
+    one_rack, one_rack_s = timed(uncached(
+        lambda: tsdb.execute_query(query(rack))), REPEATS)
+    fan_dc, fan_rack = split(fan)
+    check(same_bits(fan_dc, one_dc) and same_bits(fan_rack, one_rack),
+          "a fanned-out grid sub differs from the sub alone")
+    print(f"  fan-out, grid path (device cache warm): p50 "
+          f"{p50(fan_s) * 1e3:.3f} ms against {p50(one_dc_s) * 1e3:.3f} "
+          f"+ {p50(one_rack_s) * 1e3:.3f} = "
+          f"{(p50(one_dc_s) + p50(one_rack_s)) * 1e3:.3f} ms alone; each "
+          "sub equals itself alone bit for bit")
+
+    set_keys(**{"tsd.query.grid_reduce": "false",
+                "tsd.query.device_cache_mb": "0",
+                "tsd.query.cache.enable": "false"})
+    total = {"span_reduce": 0, "onehot_reduce": 0}
+    fan_s = []
+    for _ in range(FANOUT_REPEATS):
+        # counts set to 0 just before each call and read just after
+        reset_launches(fused)
+        fan, secs = timed(lambda: tsdb.execute_query(both()), 1)
+        n = read_launches(fused)
+        check(n == {"span_reduce": 1, "onehot_reduce": 1},
+              f"a point-path fan-out launched {n}")
+        fan_s += secs
+        for k in total:
+            total[k] += n[k]
+    one_dc, one_dc_s = timed(lambda: tsdb.execute_query(query(dc)),
+                             FANOUT_REPEATS)
+    one_rack, one_rack_s = timed(lambda: tsdb.execute_query(query(rack)),
+                                 FANOUT_REPEATS)
+    fan_dc, fan_rack = split(fan)
+    check(same_bits(fan_dc, one_dc),
+          "the fanned-out span_reduce sub differs from it alone")
+    want, terms = ref3[rack]
+    g, b = want.shape[0], want.shape[1] + 1
+    err = compare(answer_values(fan_rack, g, b),
+                  answer_values(one_rack, g, b), terms)
+    print(f"  fan-out, point path (every cache off): launches {total} "
+          f"over {FANOUT_REPEATS} calls; p50 {p50(fan_s) * 1e3:.3f} ms "
+          f"against {p50(one_dc_s) * 1e3:.3f} + "
+          f"{p50(one_rack_s) * 1e3:.3f} = "
+          f"{(p50(one_dc_s) + p50(one_rack_s)) * 1e3:.3f} ms alone; "
+          f"span_reduce sub equal bit for bit, {kname_rack} sub max "
+          f"|d| {err!r}")
+
+    # -- a write: the next call misses and equals a cache-off call. The
+    # point lands after the last series' last one, inside the window
+    set_keys()
+    before = tsdb.execute_query(query(dc))
+    m0 = rc.misses
+    tsdb.add_point(METRIC, T0 + POINTS * 60 - 30, 1000.0, last_tags)
+    after, after_s = timed(lambda: tsdb.execute_query(query(dc)), 1)
+    check(rc.misses == m0 + 1, "the call after a write was not a miss")
+    check(not same_bits(after, before), "the write changed no answer")
+    set_keys(**{"tsd.query.cache.enable": "false"})
+    check(same_bits(tsdb.execute_query(query(dc)), after),
+          "after a write, the recompute differs from a cache-off call")
+    set_keys()
+    print(f"  result cache after a write: miss {after_s[0] * 1e3:.3f} ms "
+          "(store fold, grid cold), equal bit for bit to a cache-off "
+          "call")
+    return total
 
 
 def make_data(n_series: int):
@@ -647,6 +914,16 @@ def main() -> int:
             run = (lambda: fused.onehot_reduce(
                 batch.values, batch.gids, batch.inv_dt, spec, k, cm, rv))
         ms = cuda_ms(run, 10)
+        repro = {kname: repeat_reading(torch, run)}
+        if batch.spans is not None:
+            # the same rows and groups on the one-hot layout
+            oh = fused.prepare(vals, bts, gids, spec, allow_span=False)
+            repro["onehot_reduce, one-hot layout forced"] = \
+                repeat_reading(torch, lambda: fused.onehot_reduce(
+                    oh.values, oh.gids, oh.inv_dt, spec, k, cm, rv))
+        print(f"  {m}: {REPRO_LAUNCHES} launches against the first: "
+              + "; ".join(f"{n} max |d| {d!r}, bit-equal {same}"
+                          for n, (d, same) in repro.items()))
         # the plain version as the wrapper runs it for CPU tensors
         # (float32 sums; the span batch's rows reordered first)
         plain_ms = cuda_ms(
@@ -683,12 +960,19 @@ def main() -> int:
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "max_abs_err": err}
 
-    print(f"phase 4: grid path at the default engine keys, same data "
+    print(f"phase 4: grid path at the default engine keys but the "
+          "result cache, same data "
           f"(|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
     phase_grid(torch, tsdb, query, args.profile)
     print("phase 5: prepared-batch cache (tsd.query.grid_reduce=false)")
     for kname, n in phase_prepared(torch, tsdb, query, ref3).items():
         launches[kname] += n
+    print("phase 6: the serve path at the default keys (result cache, "
+          "tag-matrix cache, sub-query fan-out)")
+    for kname, n in phase_serve(torch, tsdb, query, ref3,
+                                tags[-1]).items():
+        launches[kname] += n
+    tsdb.shutdown()
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),

@@ -59,6 +59,9 @@ class MetricIndex:
 
     def __init__(self, metric_id: int):
         self.metric_id = metric_id
+        # sub-queries read the index from several threads at once: the
+        # fold of pending parts must happen once
+        self._lock = threading.Lock()
         self._sid_parts: list[np.ndarray] = []
         self._triple_parts: list[np.ndarray] = []
         self._sid_arr = np.empty(0, dtype=np.int64)
@@ -66,19 +69,23 @@ class MetricIndex:
 
     def add_bulk(self, series_ids: np.ndarray,
                  triples: np.ndarray) -> None:
-        self._sid_parts.append(np.asarray(series_ids, dtype=np.int64))
-        self._triple_parts.append(
-            np.asarray(triples, dtype=np.int64).reshape(-1, 3))
+        with self._lock:
+            self._sid_parts.append(np.asarray(series_ids,
+                                              dtype=np.int64))
+            self._triple_parts.append(
+                np.asarray(triples, dtype=np.int64).reshape(-1, 3))
 
     def arrays(self) -> tuple[np.ndarray, np.ndarray]:
-        """(sids[int64 S], tag_triples[int64 T x 3]) snapshot."""
-        if self._sid_parts:
-            self._sid_arr = np.concatenate([self._sid_arr]
-                                           + self._sid_parts)
-            self._tags_arr = np.concatenate([self._tags_arr]
-                                            + self._triple_parts)
-            self._sid_parts, self._triple_parts = [], []
-        return self._sid_arr, self._tags_arr
+        """(sids[int64 S], tag_triples[int64 T x 3]) snapshot; the same
+        array objects until the next write."""
+        with self._lock:
+            if self._sid_parts:
+                self._sid_arr = np.concatenate([self._sid_arr]
+                                               + self._sid_parts)
+                self._tags_arr = np.concatenate([self._tags_arr]
+                                                + self._triple_parts)
+                self._sid_parts, self._triple_parts = [], []
+            return self._sid_arr, self._tags_arr
 
 
 def _row_search(ts: np.ndarray, lo: np.ndarray, hi: np.ndarray,

@@ -5,11 +5,16 @@ device: ``tsd.torch.device`` is ``"cuda"`` unless the caller asks for
 ``"cpu"``, and constructing a TSDB on ``cuda`` raises when no card is
 present. Writes go to the in-memory store only: this port has no
 write-ahead log yet, so nothing written survives the process.
+
+The TSDB also owns the serve path's caches (the device cache, the
+result cache and the per-metric tag matrices) and the sub-query fan-out
+pool; :meth:`TSDB.shutdown` stops the pool.
 """
 
 from __future__ import annotations
 
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 import numpy as np
@@ -19,6 +24,7 @@ from opentsdb_tpu_torch.core import tags as tags_mod
 from opentsdb_tpu_torch.core.store import TimeSeriesStore, pad_mask
 from opentsdb_tpu_torch.core.uid import UidRegistry
 from opentsdb_tpu_torch.query.device_cache import DeviceGridCache
+from opentsdb_tpu_torch.query.result_cache import QueryResultCache
 from opentsdb_tpu_torch.utils.config import Config
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -81,6 +87,17 @@ class TSDB:
         self.datapoints_added = 0
         self._device_grid_cache: DeviceGridCache | None = None
         self._device_cache_lock = threading.Lock()
+        # (store instance, metric id) -> (series count, TagMatrix):
+        # the engine's per-metric tag matrix, rebuilt when the metric
+        # gains a series
+        self._tagmat_cache: dict = {}
+        # the serve-path result cache and the sub-query fan-out pool,
+        # made when first needed
+        self._result_cache: QueryResultCache | None = None
+        self._result_cache_mb = self.config.get_int("tsd.query.cache.mb")
+        self._fanout_pool: ThreadPoolExecutor | None = None
+        self._fanout_workers = self.config.get_int(
+            "tsd.query.fanout.workers")
 
     @property
     def device_grid_cache(self) -> DeviceGridCache | None:
@@ -96,11 +113,52 @@ class TSDB:
                 self._device_grid_cache = DeviceGridCache(mb << 20)
             return self._device_grid_cache
 
+    @property
+    def result_cache(self) -> QueryResultCache | None:
+        """The serve-path result cache
+        (:mod:`opentsdb_tpu_torch.query.result_cache`), or None when it
+        is off. ``tsd.query.cache.enable`` is read on every call, so it
+        can be switched at run time without losing the entries (ref:
+        ``TSDB.result_cache``)."""
+        if self._result_cache_mb <= 0 or not self.config.get_bool(
+                "tsd.query.cache.enable", True):
+            return None
+        with self._device_cache_lock:
+            if self._result_cache is None:
+                self._result_cache = QueryResultCache(
+                    self._result_cache_mb << 20,
+                    shards=self.config.get_int("tsd.query.cache.shards"))
+            return self._result_cache
+
+    @property
+    def query_fanout_pool(self) -> ThreadPoolExecutor | None:
+        """The pool independent sub-queries of one TSQuery run on, or
+        None (serial) at ``tsd.query.fanout.workers=0`` (ref:
+        ``TSDB.query_fanout_pool``)."""
+        if self._fanout_workers <= 0:
+            return None
+        with self._device_cache_lock:
+            if self._fanout_pool is None:
+                self._fanout_pool = ThreadPoolExecutor(
+                    max_workers=self._fanout_workers,
+                    thread_name_prefix="tsd-subq")
+            return self._fanout_pool
+
     def drop_caches(self) -> None:
         """(ref: TSDB.dropCaches) The UID tables are authoritative; the
-        device cache is dropped."""
+        device cache and the result cache are dropped."""
         if self._device_grid_cache is not None:
             self._device_grid_cache.clear()
+        if self._result_cache is not None:
+            self._result_cache.clear()
+
+    def shutdown(self) -> None:
+        """Stop the fan-out pool, waiting for its threads to end (ref:
+        ``TSDB.shutdown``; the port has nothing else to stop)."""
+        with self._device_cache_lock:
+            pool, self._fanout_pool = self._fanout_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
 
     # -- write path -------------------------------------------------------
 

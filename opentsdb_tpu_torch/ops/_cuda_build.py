@@ -11,12 +11,12 @@ loaded with ctypes. Importing this module needs no toolchain; only
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -85,14 +85,23 @@ def build() -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=1)
+# the process's loaded library; sub-queries launch from several
+# threads, and the first two to arrive must not both build or load it
+_LIBRARY: ctypes.CDLL | None = None
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    lib.fused_error_string.argtypes = [ctypes.c_int]
-    lib.fused_error_string.restype = ctypes.c_char_p
-    return lib
+    global _LIBRARY
+    with _LIBRARY_LOCK:
+        if _LIBRARY is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.fused_error_string.argtypes = [ctypes.c_int]
+            lib.fused_error_string.restype = ctypes.c_char_p
+            _LIBRARY = lib
+        return _LIBRARY

@@ -40,7 +40,7 @@ Each wrapper takes its plain PyTorch version (:func:`_plain`:
 :func:`_transform_plain` plus :func:`_group_stage_plain`, the same op
 order) only when handed CPU tensors; for CUDA tensors it launches the
 kernel or raises. Each wrapper counts its launches in a ``launches``
-attribute.
+attribute, under a lock: sub-queries launch from several threads.
 """
 
 from __future__ import annotations
@@ -325,7 +325,12 @@ def _check_cuda(values, gids, inv_dt, spec, k):
                              "one device")
 
 
-def _launch(fn_name: str, device: torch.device, *args) -> None:
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def _launch(fn_name: str, device: torch.device, wrapper, *args) -> None:
+    """Launch one library entry on the calling thread's current stream
+    (PyTorch keeps one per thread) and count it on ``wrapper``."""
     lib = _cuda_build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -333,6 +338,8 @@ def _launch(fn_name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: "
                            f"{lib.fused_error_string(err).decode()}")
+    with _LAUNCHES_LOCK:
+        wrapper.launches += 1
 
 
 def span_reduce(values: torch.Tensor, order: torch.Tensor | None,
@@ -376,13 +383,12 @@ def span_reduce(values: torch.Tensor, order: torch.Tensor | None,
                            device=dev)
     out = torch.empty((g, b), dtype=torch.float32, device=dev)
     ds_kind, rate_mode, square = _kernel_flags(spec)
-    _launch("fused_span_reduce", dev,
+    _launch("fused_span_reduce", dev, span_reduce,
             values.data_ptr(), 0 if order is None else order.data_ptr(),
             s, p, k, b, gids.data_ptr(), spans.data_ptr(),
             group_start.data_ptr(), g, inv_dt.data_ptr(), counter_max,
             reset_value, ds_kind, rate_mode, square, sms, dev.index,
             partials.data_ptr(), out.data_ptr())
-    span_reduce.launches += 1
     return out
 
 
@@ -407,12 +413,11 @@ def onehot_reduce(values: torch.Tensor, gids: torch.Tensor,
     partials = torch.empty((slices, g, b), dtype=torch.float32, device=dev)
     out = torch.empty((g, b), dtype=torch.float32, device=dev)
     ds_kind, rate_mode, square = _kernel_flags(spec)
-    _launch("fused_onehot_reduce", dev,
+    _launch("fused_onehot_reduce", dev, onehot_reduce,
             values.data_ptr(), s, p, k, b, gids.data_ptr(), g,
             inv_dt.data_ptr(), counter_max, reset_value, ds_kind,
             rate_mode, square, sms, dev.index,
             partials.data_ptr(), out.data_ptr())
-    onehot_reduce.launches += 1
     return out
 
 

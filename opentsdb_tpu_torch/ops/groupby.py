@@ -5,10 +5,19 @@
 A group is a segment id per series: after interpolation fill
 (:mod:`opentsdb_tpu_torch.ops.interp`), one segment reduction over axis
 0 of the ``[series, bucket]`` grid aggregates every group and bucket at
-once — ``index_add_`` for the sums, ``scatter_reduce_`` for min, max,
-product and the first/last positions. The order-statistic aggregators
-(median, percentiles) raise NotImplementedError until a later slice
-ports their group stage.
+once.
+
+Sums and products follow a fixed order (:class:`GroupPlan`), so the
+same inputs give the same bits on every call, on the card as on the
+CPU: the rows are taken in a stable group order, each group's rows are
+cut into blocks of :data:`BLOCK`, each block is reduced in float64 by a
+fixed-shape reduction, and the blocks' results are reduced the same way
+until one is left per group, which is rounded once. ``index_add_`` and
+``scatter_reduce_(reduce="prod")`` add with atomics in no fixed order
+on CUDA and are not used for them. Min, max and the first/last
+positions are exact in any order and stay ``scatter_reduce_``. The
+order-statistic aggregators (median, percentiles) raise
+NotImplementedError until a later slice ports their group stage.
 """
 
 from __future__ import annotations
@@ -18,21 +27,108 @@ import torch
 from opentsdb_tpu_torch.ops import aggregators as aggs_mod
 from opentsdb_tpu_torch.ops.interp import fill_gaps
 
-
-def _group_sum(data, group_ids, num_groups: int):
-    """Segment-sum over the series axis: data[S,B] -> [G,B]."""
-    out = data.new_zeros((num_groups,) + tuple(data.shape[1:]))
-    return out.index_add_(0, group_ids, data)
+# the most rows reduced together at one level of a GroupPlan
+BLOCK = 32
 
 
-_EXTREMUM = {"min": ("amin", torch.inf), "max": ("amax", -torch.inf),
-             "prod": ("prod", 1.0)}
+class GroupPlan:
+    """The fixed reduction order of one group vector, built once per
+    query from ``group_ids`` [S] on their device and shared by every
+    group sum and product of the query.
+
+    Level 1 reads each group's rows in a stable group order, ``block``
+    at a time (a group's last block padded with the reduction's
+    identity), and reduces each block with a fixed-shape reduction;
+    each later level does the same over the previous level's block
+    results, until one is left per group. ``block`` is :data:`BLOCK`,
+    or less when the groups are small on average, so that the padding
+    adds at most S rows to a level. The largest group sets the number
+    of levels: reading it is the plan's one host sync. Every other
+    shape is a bound from S and G (a level has at most
+    ``ceil(rows / block) + G`` blocks), so no other count crosses to
+    the host."""
+
+    def __init__(self, group_ids: torch.Tensor, num_groups: int):
+        gids = group_ids.long()
+        self.group_ids = gids
+        self.num_groups = g = num_groups
+        self.num_series = s = gids.shape[0]
+        dev = gids.device
+        # level 1 gathers from the caller's row order through the
+        # stable group sort; later levels from the blocks in place
+        sorted_ids, rows_of = torch.sort(gids, stable=True)
+        ids = torch.arange(g, device=dev)
+        starts = torch.searchsorted(sorted_ids, ids)
+        sizes = torch.searchsorted(sorted_ids, ids, right=True) - starts
+        self.block = b = max(2, min(BLOCK, s // max(g, 1)))
+        largest = int(sizes.max()) if s and g else 0
+        lane = torch.arange(b, device=dev)
+        # (source row [nb * block], valid [nb, block, 1], nb) per level
+        self.levels: list[tuple[torch.Tensor, torch.Tensor, int]] = []
+        n = s
+        while largest > 1:
+            nblk = (sizes + (b - 1)) // b
+            bend = torch.cumsum(nblk, 0)
+            boff = bend - nblk
+            nb = -(-n // b) + g
+            blk = torch.arange(nb, device=dev)
+            # blocks past the last group's fall in it, and hold no row
+            grp = torch.searchsorted(bend, blk, right=True).clamp_(
+                max=g - 1)
+            first = (blk - boff[grp]) * b   # the block's first row
+            valid = lane < (sizes[grp] - first)[:, None]
+            src = ((starts[grp] + first)[:, None] + lane).clamp_(
+                max=n - 1)
+            if rows_of is not None:
+                src = rows_of[src]
+            self.levels.append((src.view(-1), valid[:, :, None], nb))
+            sizes, starts, n, rows_of = nblk, boff, nb, None
+            largest = -(-largest // b)
+        self._has = (sizes > 0)[:, None]
+        final = starts.clamp(max=max(n - 1, 0))
+        if rows_of is not None and s:
+            final = rows_of[final]   # no level: groups of one row
+        self._final = final
+
+    def _reduce(self, data: torch.Tensor, prod: bool) -> torch.Tensor:
+        ident = 1.0 if prod else 0.0
+        cur = data.flatten(1) if data.dim() > 1 else data[:, None]
+        if self.num_series == 0:
+            cur = cur.new_zeros((1, cur.shape[1]))
+        for src, valid, nb in self.levels:
+            blocks = torch.where(
+                valid, cur.index_select(0, src).view(nb, self.block, -1),
+                ident)
+            cur = (blocks.prod(1, dtype=torch.float64) if prod
+                   else blocks.sum(1, dtype=torch.float64))
+        out = torch.where(self._has, cur.index_select(0, self._final),
+                          ident)
+        return out.to(data.dtype).view((self.num_groups,)
+                                       + tuple(data.shape[1:]))
+
+    def sum(self, data: torch.Tensor) -> torch.Tensor:
+        """Fixed-order group sum over the series axis: [S, ...] ->
+        [G, ...], added in float64 and rounded once to data's dtype."""
+        return self._reduce(data, prod=False)
+
+    def sums(self, *arrays: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """:meth:`sum` of several [S, B] arrays of one dtype in one
+        pass, side by side."""
+        out = self.sum(torch.cat(arrays, dim=1))
+        return out.split([a.shape[1] for a in arrays], dim=1)
+
+    def prod(self, data: torch.Tensor) -> torch.Tensor:
+        """Fixed-order group product (1 for an empty group)."""
+        return self._reduce(data, prod=True)
+
+
+_EXTREMUM = {"min": ("amin", torch.inf), "max": ("amax", -torch.inf)}
 
 
 def _group_extremum(data, group_ids, num_groups: int, mode: str):
-    """Non-linear segment reduction (min/max/prod) over the series
-    axis: data[S,B] -> [G,B]. Missing cells are pre-filled by the
-    caller with the reduction's identity; an empty group holds it."""
+    """Min or max over the series axis: data[S,B] -> [G,B]. Missing
+    cells are pre-filled by the caller with the reduction's identity;
+    an empty group holds it. Exact in any order of the reduction."""
     reduce, identity = _EXTREMUM[mode]
     out = data.new_full((num_groups,) + tuple(data.shape[1:]), identity)
     idx = group_ids[:, None].expand_as(data)
@@ -42,15 +138,23 @@ def _group_extremum(data, group_ids, num_groups: int, mode: str):
 def _group_reduce(filled, group_ids, num_groups: int, agg_name: str):
     """Aggregate filled[S,B] into [G,B] per ``agg_name``. NaN = missing."""
     nan = float("nan")
+    plan = GroupPlan(group_ids, num_groups)
+    group_ids = plan.group_ids
     valid = ~torch.isnan(filled)
+    valid_f = valid.to(filled.dtype)
     x0 = torch.where(valid, filled, 0.0)
-    cnt = _group_sum(valid.to(filled.dtype), group_ids, num_groups)
+    if agg_name in ("sum", "zimsum", "pfsum", "avg", "dev"):
+        cnt, total = plan.sums(valid_f, x0)
+    elif agg_name == "squareSum":
+        cnt, total = plan.sums(valid_f, x0 * x0)
+    else:
+        cnt = plan.sum(valid_f)
     any_valid = cnt > 0
 
-    if agg_name in ("sum", "zimsum", "pfsum"):
-        out = _group_sum(x0, group_ids, num_groups)
+    if agg_name in ("sum", "zimsum", "pfsum", "squareSum"):
+        out = total
     elif agg_name == "avg":
-        out = _group_sum(x0, group_ids, num_groups) / cnt.clamp(min=1)
+        out = total / cnt.clamp(min=1)
     elif agg_name == "count":
         out = cnt
     elif agg_name in ("min", "mimmin"):
@@ -66,15 +170,11 @@ def _group_reduce(filled, group_ids, num_groups: int, agg_name: str):
         out = torch.where(torch.isinf(out) & (out < 0), nan, out)
         any_valid = any_valid & ~torch.isnan(out)
     elif agg_name == "multiply":
-        out = _group_extremum(torch.where(valid, filled, 1.0),
-                              group_ids, num_groups, "prod")
-    elif agg_name == "squareSum":
-        out = _group_sum(x0 * x0, group_ids, num_groups)
+        out = plan.prod(torch.where(valid, filled, 1.0))
     elif agg_name == "dev":
-        s1 = _group_sum(x0, group_ids, num_groups)
-        mean = s1 / cnt.clamp(min=1)
+        mean = total / cnt.clamp(min=1)
         centered = torch.where(valid, filled - mean[group_ids], 0.0)
-        m2 = _group_sum(centered * centered, group_ids, num_groups)
+        m2 = plan.sum(centered * centered)
         # population variance (divisor n), see aggregators.agg_dev
         var = m2 / cnt.clamp(min=1)
         out = torch.where(cnt == 1, 0.0, torch.sqrt(var.clamp(min=0.0)))

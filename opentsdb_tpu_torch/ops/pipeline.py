@@ -98,6 +98,7 @@ def _finish_pipeline(grid, has_data, bucket_ts, group_ids,
     agg = aggs_mod.get(spec.agg_name)
     interpolate = spec.fill_policy == ds_mod.FillPolicy.NONE \
         and not spec.complete
+    group_ids = group_ids.long()
     result = gb_mod.group_aggregate(grid, bucket_ts, group_ids, g, agg,
                                     interpolate=interpolate)
 
@@ -107,8 +108,9 @@ def _finish_pipeline(grid, has_data, bucket_ts, group_ids,
     if spec.complete and not spec.rate:
         emit = ones
     elif spec.fill_policy == ds_mod.FillPolicy.NONE:
-        emit = gb_mod._group_sum(has_data.to(grid.dtype), group_ids,
-                                 g) > 0
+        # any series present: a max, exact in any order of the scatter
+        emit = gb_mod._group_extremum(has_data.to(grid.dtype),
+                                      group_ids, g, "max") > 0
     else:
         emit = ones
     return result, emit
@@ -125,7 +127,7 @@ def run_pipeline_dense(values2d, bucket_ts, group_ids, ro: RateOptions,
     downsampling is a reshape reduction over ``[S, B, k]``.
 
     values2d: [S, P] tensor with NaN for missing points, P = B * k;
-    bucket_ts: [B] int64 relative ms; group_ids: [S] int64."""
+    bucket_ts: [B] int64 relative ms; group_ids: [S] integer."""
     s, b, k = spec.num_series, spec.num_buckets, pts_per_bucket
     x = values2d.reshape(s, b, k)
     valid = ~torch.isnan(x)
@@ -242,7 +244,7 @@ def execute_grid(grid, has_data, bucket_ts: np.ndarray,
     return run_pipeline_grid(
         grid, has_data,
         torch.as_tensor(device_bucket_ts(bucket_ts)).to(dev),
-        torch.as_tensor(np.asarray(group_ids, dtype=np.int64)).to(dev),
+        torch.as_tensor(np.asarray(group_ids, dtype=np.int32)).to(dev),
         rate_options or RateOptions(), spec)
 
 
@@ -260,7 +262,7 @@ def _run_dense_or_fused(values: torch.Tensor, bucket_ts: np.ndarray,
     dev = values.device
     return run_pipeline_dense(
         values, torch.as_tensor(device_bucket_ts(bucket_ts)).to(dev),
-        torch.as_tensor(np.asarray(group_ids, dtype=np.int64)).to(dev),
+        torch.as_tensor(np.asarray(group_ids, dtype=np.int32)).to(dev),
         ro, spec, k)
 
 

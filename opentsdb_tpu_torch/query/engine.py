@@ -18,13 +18,19 @@ Port of ``opentsdb_tpu/query/engine.py``'s ``QueryEngine.run`` ->
    run_prepared``: the fused kernels or the dense path)
 6. result assembly with the reference's tags/aggregateTags semantics
 
+Around ``_run_sub`` sit the reference's serve-path mechanisms: the
+sub-queries of one TSQuery fan out onto the TSDB's pool
+(``tsd.query.fanout.workers``), each goes through the result cache
+(``query/result_cache.py``, ``tsd.query.cache.*``), and the per-series
+tag matrix of a metric is kept between queries (``TSDB._tagmat_cache``).
+
 The reference engine's other paths are not ported yet: the host-CPU
 tail and its circuit breaker with its host retries, the host-RAM
-prepared-batch and result caches, time-blocked long ranges, the device
-mesh, rollup tiers, histogram/percentile sub-queries, tsuid sub-queries,
-query limits and ``delete=true``. Asking for any of them raises
-NotImplementedError; a query too large for the grid path takes the
-point path whole.
+prepared-batch cache, the streaming lookup before the result cache,
+time-blocked long ranges, the device mesh, rollup tiers,
+histogram/percentile sub-queries, tsuid sub-queries, query limits and
+``delete=true``. Asking for any of them raises NotImplementedError; a
+query too large for the grid path takes the point path whole.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from opentsdb_tpu_torch.ops.pipeline import (PipelineSpec, execute_grid,
                                              prepare_auto, put_grid,
                                              run_prepared)
 from opentsdb_tpu_torch.query import filters as filters_mod
+from opentsdb_tpu_torch.query import result_cache as rc_mod
 from opentsdb_tpu_torch.query.device_cache import array_digest
 from opentsdb_tpu_torch.query.model import (BadRequestError, TSQuery,
                                             TSSubQuery)
@@ -99,6 +106,24 @@ class QueryResult:
     def dps(self) -> list:
         ts_arr, vals = self.dps_arrays
         return list(zip(ts_arr.tolist(), vals.tolist()))
+
+    def with_sub_index(self, index: int) -> "QueryResult":
+        """A shallow twin carrying another ``sub_query_index``: a result
+        cache hit re-labels shared results when the same sub-query sits
+        at another position of the requesting TSQuery (the cache key
+        leaves the index out)."""
+        if self.sub_query_index == index:
+            return self
+        return QueryResult(self.metric, self.tags, self.aggregated_tags,
+                           self.dps_arrays, self.tsuids, index)
+
+    def cache_copy(self) -> "QueryResult":
+        """Detached twin for the result cache: shares the immutable
+        columnar payload, so a consumer re-binding a field of its copy
+        never changes the cached entry."""
+        return QueryResult(self.metric, self.tags, self.aggregated_tags,
+                           self.dps_arrays, self.tsuids,
+                           self.sub_query_index)
 
     def __repr__(self) -> str:
         return (f"QueryResult(metric={self.metric!r}, "
@@ -217,10 +242,75 @@ class QueryEngine:
     def run(self, ts_query: TSQuery) -> list[QueryResult]:
         if ts_query.delete:
             raise NotImplementedError("delete=true is not ported yet")
+        subs = ts_query.queries
+        if len(subs) > 1:
+            pool = self.tsdb.query_fanout_pool
+            if pool is not None:
+                return self._run_fanout(ts_query, subs, pool)
         results: list[QueryResult] = []
-        for sub in ts_query.queries:
-            results.extend(self._run_sub(ts_query, sub))
+        for sub in subs:
+            results.extend(self._run_sub_cached(ts_query, sub))
         return results
+
+    def _run_fanout(self, tsq: TSQuery, subs,
+                    pool) -> list[QueryResult]:
+        """Run independent sub-queries in parallel and join (ref:
+        ``_run_fanout``). Results concatenate in sub order whatever the
+        completion order. The first sub runs on the calling thread. On
+        an error, the earliest failing sub (in sub order) wins after
+        every sibling has been joined: a running future must not
+        outlive its TSQuery."""
+        futures = [pool.submit(self._run_sub_cached, tsq, sub)
+                   for sub in subs[1:]]
+        results: list[QueryResult] = []
+        first_err: BaseException | None = None
+        try:
+            results.extend(self._run_sub_cached(tsq, subs[0]))
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            first_err = exc
+        for fut in futures:
+            try:
+                out = fut.result()
+            except BaseException as exc:  # noqa: BLE001 - raised below
+                if first_err is None:
+                    first_err = exc
+            else:
+                if first_err is None:
+                    results.extend(out)
+        if first_err is not None:
+            raise first_err
+        return results
+
+    def _run_sub_cached(self, tsq: TSQuery,
+                        sub: TSSubQuery) -> list[QueryResult]:
+        """One sub-query through the result cache (ref:
+        ``_run_sub_cached``): a hit skips the engine; concurrent
+        identical misses share one execution, and a failed one caches
+        nothing."""
+        cache = self.tsdb.result_cache
+        if cache is None:
+            return self._run_sub(tsq, sub)
+        plan = rc_mod.cache_plan(tsq, sub, self.tsdb.config)
+        if plan is None:
+            cache.count_bypass()
+            return self._run_sub(tsq, sub)
+        key, ttl_ms = plan
+        # captured before the compute: a write landing mid-execution
+        # leaves the entry already stale instead of wrongly fresh
+        version = self._sub_version()
+        value, _ = cache.get_or_compute(
+            key, version, lambda: self._run_sub(tsq, sub), ttl_ms)
+        if value and value[0].sub_query_index != sub.index:
+            value = [r.with_sub_index(sub.index) for r in value]
+        return value
+
+    def _sub_version(self) -> tuple:
+        """The version of what a sub-query reads (ref: ``_sub_version``):
+        the port has one store per TSDB and no rollup tiers or
+        annotations, so it is that store's identity and write
+        counters."""
+        store = self.tsdb.store
+        return ("sel", store.instance_id, *store.version)
 
     def _run_sub(self, tsq: TSQuery,
                  sub: TSSubQuery) -> list[QueryResult]:
@@ -446,8 +536,21 @@ class QueryEngine:
 
     def _apply_filters(self, metric_id: int, sub: TSSubQuery,
                        sids: np.ndarray) -> tuple[np.ndarray, TagMatrix]:
-        _, triples = self.tsdb.store.metric_index(metric_id).arrays()
-        tags = TagMatrix.from_triples(sids, triples)
+        store = self.tsdb.store
+        idx_sids, triples = store.metric_index(metric_id).arrays()
+        # per-(store, metric) matrix cache (ref: engine.py:1784): the
+        # index is append-only, so its series count versions the entry;
+        # only the metric's whole series array is cached
+        tm_cache = self.tsdb._tagmat_cache
+        tm_key = (store.instance_id, metric_id)
+        hit = tm_cache.get(tm_key)
+        if hit is not None and hit[0] == len(idx_sids) \
+                and sids is idx_sids:
+            tags = hit[1]
+        else:
+            tags = TagMatrix.from_triples(sids, triples)
+            if sids is idx_sids:
+                tm_cache[tm_key] = (len(idx_sids), tags)
         if sub.filters:
             mask = self._filter_eval.apply(sub.filters, sids, triples)
             sids = sids[mask]

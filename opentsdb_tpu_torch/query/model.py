@@ -71,6 +71,19 @@ class TSSubQuery:
                 # useCalendar -> DownsamplingSpecification.useCalendar)
                 self.ds_spec = replace(self.ds_spec, use_calendar=True)
 
+    def identity_key(self) -> tuple:
+        """Value identity excluding ``index`` (ref: TSSubQuery
+        equals/hashCode), over the fields this port parses."""
+        return (self.aggregator, self.metric, tuple(self.tsuids),
+                self.downsample, self.rate,
+                (self.rate_options.counter,
+                 self.rate_options.counter_max,
+                 self.rate_options.reset_value,
+                 self.rate_options.drop_resets),
+                tuple((f.filter_name, f.tagk, f.filter_expr, f.group_by)
+                      for f in self.filters),
+                self.explicit_tags, tuple(self.percentiles))
+
     @classmethod
     def from_json(cls, obj: dict[str, Any], index: int = 0) -> "TSSubQuery":
         _refuse_pixels(obj)

@@ -41,6 +41,21 @@ _DEFAULTS: dict[str, str] = {
     # is built
     "tsd.query.host_tail_max_cells": "-1",
     "tsd.query.host_tail_max_cells_linear": "-1",
+    # the serve-path result cache (query/result_cache.py): a sharded LRU
+    # of sub-query result groups, keyed on the normalized query and
+    # versioned by the store, so writes invalidate. enable is read per
+    # query; mb = 0 turns it off for the TSDB's life.
+    "tsd.query.cache.enable": "true",
+    "tsd.query.cache.mb": "256",
+    "tsd.query.cache.shards": "8",
+    #   relative-time (end=now) queries may be served up to one
+    #   downsample interval stale, at most ttl_max_s; relative queries
+    #   without a downsample are cached for ttl_relative_s (0: never)
+    "tsd.query.cache.ttl_max_s": "300",
+    "tsd.query.cache.ttl_relative_s": "0",
+    # the sub-queries of one TSQuery run on a pool of this many threads
+    # (0: one after another)
+    "tsd.query.fanout.workers": "4",
 }
 
 
@@ -62,6 +77,14 @@ class Config:
     def get_int(self, key: str, default: int | None = None) -> int:
         try:
             return int(self._props[key])
+        except KeyError:
+            if default is not None:
+                return default
+            raise
+
+    def get_float(self, key: str, default: float | None = None) -> float:
+        try:
+            return float(self._props[key])
         except KeyError:
             if default is not None:
                 return default

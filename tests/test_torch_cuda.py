@@ -7,7 +7,9 @@ Tolerance: per cell ``|kernel - plain| <= 1e-5 * sum|terms| + 1e-6``
 change the order from run to run); emit masks and NaN positions equal.
 The plain answer adds the float32 terms' group sums in float64
 (``plain_reduce(exact=True)``), so only the kernel's rounding counts.
-The span kernel is deterministic: two launches agree bitwise.
+The span kernel is deterministic: two launches agree bitwise, and so
+do two calls of the grid tail, whose group sums follow a fixed order.
+A two-sub query fans out and launches each kernel once.
 """
 
 import numpy as np
@@ -247,10 +249,13 @@ def test_span_tree_order(card, ds_fn, rate):
 
 def _card_tsdb(card, **keys):
     """A TSDB on the card holding 3000 series x 60 points at one a
-    minute (seed 0), tagged dc (i % 100) and rack (i % 1500)."""
+    minute (seed 0), tagged dc (i % 100) and rack (i % 1500). The
+    result cache is off unless ``keys`` turn it on, so that a repeat
+    reaches the engine's paths."""
     from opentsdb_tpu_torch import TSDB, Config
     t = TSDB(Config(**{"tsd.torch.device": str(card),
-                       "tsd.core.auto_create_metrics": "true", **keys}))
+                       "tsd.core.auto_create_metrics": "true",
+                       "tsd.query.cache.enable": "false", **keys}))
     rng = np.random.default_rng(0)
     s, p = 3000, 60
     ts = np.broadcast_to(1356998400 + 60 * np.arange(p), (s, p))
@@ -307,3 +312,60 @@ def test_prepared_hit_launches_the_kernel(card):
     assert t.device_grid_cache.hits == 1
     for a, b in zip(cold, warm):
         np.testing.assert_array_equal(a.dps_arrays[1], b.dps_arrays[1])
+
+
+@pytest.mark.parametrize("g", [100, 2000])
+def test_grid_tail_repeats_bit_for_bit(card, g):
+    """The grid tail at config 3's shape ([1M, 12] float32, group ids
+    i % G) gives the same bits on two calls: its group sums follow a
+    fixed order, with no atomics."""
+    from opentsdb_tpu_torch.ops import pipeline
+    rng = np.random.default_rng(0)
+    s, b = 1_000_000, 12
+    grid = torch.as_tensor(rng.normal(100.0, 15.0, (s, b)),
+                           dtype=torch.float32, device=card)
+    has = torch.ones((s, b), dtype=torch.bool, device=card)
+    bts = np.int64(1356998400_000) + 300_000 * np.arange(b)
+    gids = np.arange(s) % g
+    spec = PipelineSpec(num_series=s, num_buckets=b, num_groups=g,
+                        ds_function="avg", agg_name="sum", rate=True)
+    first, emit = pipeline.execute_grid(grid, has, bts, gids, spec)
+    again, emit2 = pipeline.execute_grid(grid, has, bts, gids, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(emit, emit2)
+
+
+def test_fanout_launches_each_kernel_once(card):
+    """A two-sub TSQuery at grid_reduce=false with both caches off fans
+    out: K1 ({dc=*}, 100 groups) and K2 ({rack=*}, 1500 groups) launch
+    exactly once each, from two threads, and each sub answers as it
+    does alone (K1 bit for bit, K2 within the kernels' tolerance)."""
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    t = _card_tsdb(card, **{"tsd.query.grid_reduce": "false",
+                            "tsd.query.device_cache_mb": "0"})
+    try:
+        ms = ["sum:5m-avg:rate:m{dc=*}", "sum:5m-avg:rate:m{rack=*}"]
+        alone = [t.execute_query(_card_query(m)) for m in ms]
+        before = (fused.span_reduce.launches,
+                  fused.onehot_reduce.launches)
+        both = t.execute_query(TSQuery(
+            start="1356998400", end=str(1356998400 + 3599),
+            queries=[parse_uri_subquery(m) for m in ms]).validate())
+        assert (fused.span_reduce.launches - before[0],
+                fused.onehot_reduce.launches - before[1]) == (1, 1)
+        assert [r.sub_query_index for r in both] == \
+            [0] * len(alone[0]) + [1] * len(alone[1])
+        for r, a in zip(both, alone[0] + alone[1]):
+            assert r.tags == a.tags
+            np.testing.assert_array_equal(r.dps_arrays[0],
+                                          a.dps_arrays[0])
+            if r.sub_query_index == 0:
+                np.testing.assert_array_equal(r.dps_arrays[1],
+                                              a.dps_arrays[1])
+            else:
+                np.testing.assert_allclose(r.dps_arrays[1],
+                                           a.dps_arrays[1], rtol=1e-5,
+                                           atol=1e-6)
+    finally:
+        t.shutdown()

@@ -26,9 +26,11 @@ NO_GRID = {"tsd.query.grid_reduce": "false"}
 
 
 def _tsdb(**extra):
+    # the result cache off, so that a repeat reaches the device cache
     return TSDB(Config(**{"tsd.torch.device": "cpu",
                           "tsd.torch.dtype": "float64",
                           "tsd.core.auto_create_metrics": "true",
+                          "tsd.query.cache.enable": "false",
                           **extra}))
 
 

@@ -1,11 +1,11 @@
 """The port's query path as a whole: the same stored data queried through
 the reference's ``TSDB.execute_query`` and the port's.
 
-Both TSDBs run with the four keys that put the engine on the point path
+Both TSDBs run with the five keys that put the engine on the point path
 (no storage-side grid reduction, no device batch cache, no host-CPU
-tail), so the reference's queries reach ``execute_auto`` and the Pallas
-kernels (interpret mode on the CPU) and the port's reach its kernel
-wrappers. The grid path and the caches, the port's defaults, are held
+tail, no result cache), so the reference's queries reach
+``execute_auto`` and the Pallas kernels (interpret mode on the CPU)
+and the port's reach its kernel wrappers. The grid path and the caches, the port's defaults, are held
 against the reference in ``test_torch_grid.py``. The reference's store
 and UID tables are exported to numpy here, in the test, and loaded into
 the port with ``core.state.load_arrays``. Results must agree in metric,
@@ -25,10 +25,13 @@ from opentsdb_tpu_torch.core.state import load_arrays
 from opentsdb_tpu_torch.ops import fused
 from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
 
+# the result cache off as well: a repeat must reach the engine's paths
+CACHE_OFF = {"tsd.query.cache.enable": "false"}
 ENGINE_KEYS = {"tsd.query.grid_reduce": "false",
                "tsd.query.device_cache_mb": "0",
                "tsd.query.host_tail_max_cells": "-1",
-               "tsd.query.host_tail_max_cells_linear": "-1"}
+               "tsd.query.host_tail_max_cells_linear": "-1",
+               **CACHE_OFF}
 T0 = 1356998400
 S, P = 240, 60
 
@@ -294,8 +297,8 @@ def test_unported_engine_paths_raise(engines, key, value):
 
 @pytest.mark.parametrize("keys,path", [
     (ENGINE_KEYS, "point"),
-    ({}, "grid"),
-    ({"tsd.query.grid_reduce": "false"}, "prepared")])
+    (CACHE_OFF, "grid"),
+    ({"tsd.query.grid_reduce": "false", **CACHE_OFF}, "prepared")])
 def test_engine_keys_select_the_path(engines, keys, path, monkeypatch):
     """Spies on the store and the pipeline show which path a
     fixed-interval query took, run twice: the point path materializes

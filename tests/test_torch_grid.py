@@ -9,8 +9,9 @@
   the ported aggregators: float64 on both sides (conftest enables x64),
   rtol 1e-9 and atol 1e-9 * max|x|, NaN positions and emit masks equal.
 - Whole queries through both ``TSDB.execute_query`` at the reference's
-  defaults (grid reduction and device cache on; the host-CPU tail off
-  on both sides, the reference's result cache off), and with
+  defaults (grid reduction and device cache on; the host-CPU tail and
+  the result cache off on both sides, so a repeat reaches the device
+  cache), and with
   ``grid_reduce=false`` and the cache on, cold and warm: same
   tolerance.
 """
@@ -303,7 +304,8 @@ def _export(jt, metric):
 def _pair(extra: dict):
     jt = _write_reference(extra)
     tt = TSDB(Config(**{"tsd.torch.device": "cpu",
-                        "tsd.torch.dtype": "float64", **extra}))
+                        "tsd.torch.dtype": "float64",
+                        "tsd.query.cache.enable": "false", **extra}))
     for metric in ("m", "c", "h"):
         load_arrays(tt, metric, *_export(jt, metric))
     return jt, tt

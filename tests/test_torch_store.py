@@ -3,6 +3,9 @@ the reference's portable store (``opentsdb_tpu.core.store``) under the
 same writes: ragged series, out-of-order chunks, duplicate timestamps
 (last write wins), and inclusive range reads."""
 
+import sys
+import threading
+
 import numpy as np
 import pytest
 
@@ -65,3 +68,40 @@ def test_metric_index_and_errors():
     with pytest.raises(ValueError):
         t.append_lines([0, 1], [T0], [1.0])
     assert t.append_lines([-1, 0], [T0, T0], [1.0, 2.0]) == 1
+
+
+def test_metric_index_folds_once_under_concurrent_readers():
+    """Sub-queries read a metric's index from several threads while
+    series are added: every series id appears once, however the reads
+    and the writes interleave (more threads than cores, a short switch
+    interval)."""
+    t = TStore()
+    stop = threading.Event()
+    seen_dup = []
+
+    def reader():
+        while not stop.is_set():
+            idx = t.metric_index(7)
+            if idx is not None:
+                sids, _ = idx.arrays()
+                if len(np.unique(sids)) != len(sids):
+                    seen_dup.append(len(sids))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    threads = [threading.Thread(target=reader) for _ in range(16)]
+    try:
+        for th in threads:
+            th.start()
+        for i in range(400):
+            t.get_or_create_series_bulk(7, [((1, i), (2, 0))])
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(10)
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    sids, triples = t.metric_index(7).arrays()
+    assert not seen_dup
+    np.testing.assert_array_equal(sids, np.arange(400))
+    assert len(triples) == 800
