@@ -9,7 +9,8 @@
    over the downsample x aggregator x rate/counter sweep at odd sizes
    (the plain group sums added in float64, ``plain_reduce(exact=True)``;
    ``plain_ms`` times the float32 plain version the wrappers run on the
-   CPU);
+   CPU), and times a plain read (``sum()``) of a [1M, 60] float32
+   matrix, the kernels' input, against the card's memory rate;
 3. drives the main path at full width (BASELINE config 3: 1M series of
    ``sys.cpu.user`` x 60 points at one a minute, queried as
    ``sum:5m-avg:rate`` grouped by ``dc`` -> 100 groups, the span kernel
@@ -17,8 +18,9 @@
    -> 2000 groups, the one-hot kernel) through
    ``TSDB.add_series_points`` and ``TSDB.execute_query``, checks that
    both kernels launched and that the answers match the plain version,
-   prints the time of each stage, and how far repeated launches of each
-   kernel on the same inputs differ from the first;
+   prints the time of each stage, and checks that 20 launches of each
+   kernel on the same inputs give the first one's bits (the one-hot
+   kernel also on the ``dc`` grouping, forced onto its layout);
 4. runs the same two queries on the same data at the engine's default
    keys (the grid path: the store reduces each window to a [S, B] grid,
    uploaded once and kept in the device cache): cold (caches dropped
@@ -27,9 +29,8 @@
    on the CPU in float64, warm against cold, the cache's hits, and the
    cached grid against a fresh reduction bit for bit;
 5. runs them with ``tsd.query.grid_reduce=false`` and the cache on (the
-   prepared-batch path): warm hits launch the span and one-hot kernels
-   and answer as phase 3 did; prints how far two hits of each kernel
-   differ (the one-hot kernel adds with shared atomics);
+   prepared-batch path): warm hits launch the span and one-hot kernels,
+   answer as phase 3 did and equal each other bit for bit;
 6. drives the serve path at the default keys (result cache on, fan-out
    on 4 threads): the tag-matrix cache (``{dc=*}`` builds it,
    ``{rack=*}`` hits it), the result cache (a miss, five hits equal to
@@ -39,12 +40,25 @@
    ``grid_reduce=false`` with every cache off, where the span and
    one-hot kernels launch once each from two threads; each sub answers
    as it does alone;
-7. prints one JSON line describing each kernel (its launches are those
+7. drives the irregular point paths at full width on a fresh TSDB at
+   the default keys but the result cache: config 3's 1M series with
+   each point jittered by 0-9 s and 2% of them dropped (seed 0),
+   queried as ``sum:5m-last:rate`` by ``dc`` (the padded layout),
+   ``p99:5m-median`` by ``rack`` (the flat layout, rank downsample and
+   rank group stage), ``avg:15mc-max`` by ``dc`` in
+   ``America/New_York`` (calendar buckets) and ``sum`` by ``dc`` with
+   no downsample (a union grid of up to 600 timestamps, flat). Each
+   answer is checked against the same query through the port on the
+   CPU in float64, two cold calls and a warm prepared-batch hit must
+   give the same bits, and neither kernel may launch; prints the stage
+   p50s, the peak device memory and, with ``--profile``, the device's
+   idle share;
+8. prints one JSON line describing each kernel (its launches are those
    of phases 3, 5 and 6), the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
-Phases 3-5 run with the result cache off, so that every call reaches
-the path it measures.
+Phases 3-5 and 7 run with the result cache off, so that every call
+reaches the path it measures.
 
 Any failure exits non-zero without the last line. Without a CUDA card,
 or outside a checkout of the repository, it exits 2.
@@ -58,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -74,6 +89,15 @@ ENGINE_KEYS = {"tsd.query.grid_reduce": "false",
                "tsd.query.host_tail_max_cells": "-1",
                "tsd.query.host_tail_max_cells_linear": "-1",
                "tsd.query.cache.enable": "false"}
+# phase 7: (query, time zone, the prepared batch's layout)
+IRREGULAR_QUERIES = (
+    ("sum:5m-last:rate:sys.cpu.user{dc=*}", None, "padded"),
+    ("p99:5m-median:sys.cpu.user{rack=*}", None, "flat"),
+    ("avg:15mc-max:sys.cpu.user{dc=*}", "America/New_York", "padded"),
+    ("sum:sys.cpu.user{dc=*}", None, "flat"))
+JITTER_S = 10              # phase 7: whole seconds of jitter, 0-9
+IRREGULAR_REPEATS = 3      # phase 7: warm hits and repeats per stage
+DROP = 0.02                # phase 7: share of points dropped
 FANOUT_REPEATS = 3         # repeats of each point-path fan-out reading
 REPRO_LAUNCHES = 20        # launches of each kernel's reproducibility reading
 # device memory rate by card name (NVIDIA data sheets), bytes/s
@@ -198,8 +222,9 @@ def kernel_vs_plain(fused, spec, values, bucket_ts, gids, k, cm, rv,
                                 batch.inv_dt, spec, k, cm, rv)
     else:
         name = "onehot_reduce"
-        got = fused.onehot_reduce(batch.values, batch.gids, batch.inv_dt,
-                                  spec, k, cm, rv)
+        got = fused.onehot_reduce(batch.values, batch.order, batch.gids,
+                                  batch.group_start, batch.inv_dt, spec,
+                                  k, cm, rv)
     want = fused.plain_reduce(batch, spec, k, cm, rv, exact=True)
     terms = fused.plain_reduce(batch, spec, k, cm, rv, exact=True,
                                magnitude=True)
@@ -289,6 +314,20 @@ def phase_sweep(torch, fused, PipelineSpec) -> dict:
           "cases")
     check(permuted > 0, "no sweep case read rows through the order")
     return worst
+
+
+def plain_read(torch, rate: float) -> float:
+    """Time a plain read of config 3's [1M, 60] float32 value matrix
+    (``sum()``, by CUDA events) against the card's memory rate; returns
+    its ms."""
+    import numpy as np
+    x = torch.as_tensor(np.random.default_rng(0).normal(
+        100.0, 15.0, (1_000_000, POINTS)), dtype=torch.float32).cuda()
+    ms = cuda_ms(lambda: x.sum(), 20)
+    print(f"  plain read: sum() of [1000000, {POINTS}] float32 "
+          f"({x.numel() * 4 / 1e6:.0f} MB) {ms:.4f} ms = "
+          f"{x.numel() * 4 / ms / 1e9:.3f} TB/s of {rate / 1e12:.2f} TB/s")
+    return ms
 
 
 def rate_terms(torch, grid64, gids, g: int, bucket_ts):
@@ -529,15 +568,12 @@ def phase_prepared(torch, tsdb, query, ref3: dict) -> dict:
     check(cache.hits == hits + (REPEATS + 1) * len(QUERIES),
           f"warm calls made {cache.hits - hits} cache hits")
     for m, kname in QUERIES:
-        # a reading, not a check, for the one-hot kernel: its shared
-        # float atomics add in no fixed order
         diff = max(float(np.abs(a.dps_arrays[1] - b.dps_arrays[1]).max())
                    for a, b in zip(answers[m], again[m]))
         print(f"  {m} prepared: two warm hits ({kname}) differ by max "
               f"|d| {diff!r}; bit-equal {same_bits(answers[m], again[m])}")
-        if kname == "span_reduce":
-            check(same_bits(answers[m], again[m]),
-                  "two span_reduce hits differ in their bits")
+        check(same_bits(answers[m], again[m]),
+              f"two {kname} hits differ in their bits")
     for m, kname in QUERIES:
         check(launches[kname] >= REPEATS,
               f"{kname} did not launch on each warm hit")
@@ -690,8 +726,8 @@ def phase_serve(torch, tsdb, query, ref3: dict, last_tags: dict) -> dict:
     one_rack, one_rack_s = timed(lambda: tsdb.execute_query(query(rack)),
                                  FANOUT_REPEATS)
     fan_dc, fan_rack = split(fan)
-    check(same_bits(fan_dc, one_dc),
-          "the fanned-out span_reduce sub differs from it alone")
+    check(same_bits(fan_dc, one_dc) and same_bits(fan_rack, one_rack),
+          "a fanned-out point-path sub differs from it alone")
     want, terms = ref3[rack]
     g, b = want.shape[0], want.shape[1] + 1
     err = compare(answer_values(fan_rack, g, b),
@@ -701,8 +737,8 @@ def phase_serve(torch, tsdb, query, ref3: dict, last_tags: dict) -> dict:
           f"against {p50(one_dc_s) * 1e3:.3f} + "
           f"{p50(one_rack_s) * 1e3:.3f} = "
           f"{(p50(one_dc_s) + p50(one_rack_s)) * 1e3:.3f} ms alone; "
-          f"span_reduce sub equal bit for bit, {kname_rack} sub max "
-          f"|d| {err!r}")
+          f"both subs equal bit for bit to them alone ({kname_rack} max "
+          f"|d| {err!r})")
 
     # -- a write: the next call misses and equals a cache-off call. The
     # point lands after the last series' last one, inside the window
@@ -732,6 +768,182 @@ def make_data(n_series: int):
     ts2d = np.broadcast_to(ts_row, (n_series, POINTS))
     values = rng.normal(100.0, 15.0, (n_series, POINTS))
     return tags, ts2d, values
+
+
+def make_irregular(n_series: int):
+    """Config 3's series with irregular points: slot j of series i is
+    at ``T0 + 60 j + u`` (``u`` a whole second in 0-9) and is dropped
+    with probability DROP; values ``normal(100, 15)``; seed 0. Returns
+    (tags, ts2d, values2d, counts), each row's points packed left."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    tags = [{"host": f"h{i}", "dc": f"dc{i % 100}",
+             "rack": f"r{i % 2000}"} for i in range(n_series)]
+    shape = (n_series, POINTS)
+    ts = T0 + 60 * np.arange(POINTS, dtype=np.int64) \
+        + rng.integers(0, JITTER_S, shape)
+    values = rng.normal(100.0, 15.0, shape)
+    keep = rng.random(shape) >= DROP
+    # kept slots first, in time order
+    order = np.argsort(~keep, axis=1, kind="stable")
+    counts = keep.sum(axis=1)
+    ts2d = np.take_along_axis(ts, order, axis=1)
+    values2d = np.take_along_axis(values, order, axis=1)
+    pad = np.arange(POINTS)[None, :] >= counts[:, None]
+    ts2d[pad], values2d[pad] = 0, np.nan
+    return tags, ts2d, values2d, counts
+
+
+def phase_irregular(torch, n_series: int, profile: bool) -> None:
+    """Phase 7: the irregular point paths on a fresh TSDB."""
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.ops.pipeline import (prepare_auto,
+                                                 prepare_flat,
+                                                 run_prepared)
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    tsdb = TSDB(Config(**{"tsd.torch.device": "cuda",
+                          "tsd.core.auto_create_metrics": "true",
+                          "tsd.query.cache.enable": "false"}))
+    tags, ts2d, values2d, counts = make_irregular(n_series)
+    check(bool(np.nanmin(values2d) > 0), "phase 7 data holds a value <= 0")
+    t = time.perf_counter()
+    tsdb.add_series_points(METRIC, tags, ts2d, values2d, counts)
+    n_points = int(counts.sum())
+    print(f"  ingest: {n_points} points ({DROP:.0%} of "
+          f"{n_series * POINTS} dropped, jitter 0-{JITTER_S - 1} s) in "
+          f"{time.perf_counter() - t:.3f} s")
+    del tags, ts2d, values2d
+    store = tsdb.store
+    metric_id = tsdb.uids.metrics.get_id(METRIC)
+    sids = store.series_ids_for_metric(metric_id)
+    start, end = str(T0), str(T0 + POINTS * 60 - 1)
+    cache = tsdb.device_grid_cache
+    check(cache is not None, "the device cache is off")
+
+    def query(m, tz):
+        return TSQuery(start=start, end=end, timezone=tz,
+                       queries=[parse_uri_subquery(m)]).validate()
+
+    reset_launches(fused)
+    for m, tz, layout in IRREGULAR_QUERIES:
+        torch.cuda.synchronize()
+        tsdb.drop_caches()
+        torch.cuda.reset_peak_memory_stats()
+        cold, cold_s = timed(lambda: tsdb.execute_query(query(m, tz)), 1)
+        peak = torch.cuda.max_memory_allocated()
+        hits = cache.hits
+        warm, warm_s = timed(lambda: tsdb.execute_query(query(m, tz)),
+                             IRREGULAR_REPEATS)
+        check(cache.hits == hits + IRREGULAR_REPEATS,
+              f"{m}: warm calls made {cache.hits - hits} cache hits")
+        check(same_bits(warm, cold),
+              f"{m}: a warm prepared-batch hit differs from its cold call")
+        tsdb.drop_caches()
+        check(same_bits(tsdb.execute_query(query(m, tz)), cold),
+              f"{m}: two cold calls differ in their bits")
+        if profile:
+            tsdb.drop_caches()
+            device_share(torch, lambda: tsdb.execute_query(query(m, tz)),
+                         f"{m} cold")
+            device_share(torch, lambda: tsdb.execute_query(query(m, tz)),
+                         f"{m} warm")
+
+        # the stages, one by one
+        tq = query(m, tz)
+        sub = tq.queries[0]
+        eng = tsdb.new_query()
+        gb = [tsdb.uids.tag_names.get_id(f.tagk) for f in sub.filters
+              if f.group_by]
+
+        def plan():
+            sel, tag_mat = eng._apply_filters(metric_id, sub, sids)
+            return (sel, tag_mat) + eng._group_ids(tag_mat, gb)
+
+        (sel, tag_mat, gids, g), plan_t = timed(plan, IRREGULAR_REPEATS)
+        points, mat_t = timed(lambda: eng._materialize_points(
+            store, sel, tq), IRREGULAR_REPEATS)
+        grid, grid_t = timed(lambda: eng._time_grid(sub, tq, points),
+                             IRREGULAR_REPEATS)
+        spec = eng._point_spec(sub, len(sel), g, False, grid.bucket_ts,
+                               grid.ds_function, grid.fill_policy,
+                               grid.fill_value, grid.complete)
+        prep, up_t = timed(lambda: eng._prepare_points(grid, spec),
+                           IRREGULAR_REPEATS)
+        # (a cut of the series can fit the union grid in the padded
+        # layout's budget)
+        check(prep.kind == layout or n_series < 1_000_000,
+              f"{m}: the {prep.kind} layout, not {layout}")
+        (res, emit), dev_t = timed(lambda: run_prepared(
+            prep, grid.bucket_ts, gids, spec, sub.rate_options),
+            IRREGULAR_REPEATS)
+        check(res.is_cuda and emit.is_cuda, "results are not on cuda")
+        res_np, emit_np = res.cpu().numpy(), emit.cpu().numpy()
+        rows, asm_t = timed(lambda: eng._build_results(
+            tq, sub, metric_id, sel, tag_mat, gids, g, grid.bucket_ts,
+            res_np, emit_np), IRREGULAR_REPEATS)
+        check(same_bits(rows, cold), f"{m}: the staged run differs from "
+              "the engine's")
+
+        # the same query through the port on the CPU in float64
+        t = time.perf_counter()
+        if grid.padded is not None:
+            cpu_prep = prepare_auto(grid.padded, grid.bucket_idx, spec,
+                                    dtype=torch.float64, device="cpu")
+        else:
+            cpu_prep = prepare_flat(grid.batch.values,
+                                    grid.batch.series_idx, grid.bucket_idx,
+                                    spec, dtype=torch.float64,
+                                    device="cpu")
+        want, want_emit = run_prepared(cpu_prep, grid.bucket_ts, gids,
+                                       spec, sub.rate_options)
+        if spec.rate:
+            # a summed rate's terms: (|x_b| + |x_(b-1)|) / dt_b over the
+            # group's series, from the same sum without the rate
+            a, _ = run_prepared(cpu_prep, grid.bucket_ts, gids,
+                                replace(spec, rate=False),
+                                sub.rate_options)
+            dt = np.diff(grid.bucket_ts) / 1000.0
+            terms = torch.zeros_like(a)
+            terms[:, 1:] = (a[:, 1:].abs() + a[:, :-1].abs()) \
+                / torch.as_tensor(dt)
+        else:
+            # positive values (checked above): no cancellation, so the
+            # answer is the magnitude of its terms
+            terms = want.abs()
+        cpu_s = time.perf_counter() - t
+        del cpu_prep
+        check(bool(np.array_equal(emit_np, want_emit.numpy())),
+              f"{m}: emit masks differ from the CPU float64 port")
+        got = torch.as_tensor(res_np, dtype=torch.float64)
+        shown = torch.as_tensor(emit_np)
+        err = compare(torch.where(shown, got, 0.0),
+                      torch.where(shown, want, 0.0),
+                      torch.where(shown, terms, 0.0))
+        emitted = int(emit_np.sum())
+        check(len(rows) == g and emitted > 0 and bool(np.isfinite(
+            res_np[emit_np]).all()), f"{m}: {len(rows)} groups of {g}, "
+              "or no finite value emitted")
+        stages = (("plan", plan_t), ("materialize", mat_t),
+                  ("assign", grid_t), ("upload", up_t),
+                  ("device", dev_t), ("assemble", asm_t))
+        b = len(grid.bucket_ts)
+        print(f"  {m}: S={len(sel)} B={b} G={g} {prep.kind} layout, "
+              f"{emitted} cells emitted; p50 ms: " + ", ".join(
+                  f"{n} {p50(v) * 1e3:.3f}" for n, v in stages)
+              + f"; sum {sum(p50(v) for _, v in stages) * 1e3:.3f}")
+        print(f"  {m}: end-to-end cold {cold_s[0] * 1e3:.3f} ms, warm "
+              f"p50 {p50(warm_s) * 1e3:.3f} ms; peak device memory "
+              f"{peak / 2**30:.3f} GiB (cold call); max_abs_err vs CPU "
+              f"float64 {err:.6g} ({cpu_s:.1f} s on the CPU); two cold "
+              "calls and the warm hits equal bit for bit")
+        del points, grid, prep, res, emit
+    launches = read_launches(fused)
+    print(f"  irregular-path launches: {launches}")
+    check(not any(launches.values()),
+          "an irregular query launched a fused kernel")
+    tsdb.shutdown()
 
 
 def p50(xs) -> float:
@@ -785,6 +997,8 @@ def main() -> int:
     print("phase 2: kernels vs plain on the card "
           f"(|k - p| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
     phase_sweep(torch, fused, PipelineSpec)
+    rate = next(r for key, r in _MEM_RATE if key in name)
+    read_ms = plain_read(torch, rate)
 
     s = args.series
     print(f"phase 3: main path, {s} series x {POINTS} points"
@@ -912,7 +1126,8 @@ def main() -> int:
                 batch.group_start, batch.inv_dt, spec, k, cm, rv))
         else:
             run = (lambda: fused.onehot_reduce(
-                batch.values, batch.gids, batch.inv_dt, spec, k, cm, rv))
+                batch.values, batch.order, batch.gids, batch.group_start,
+                batch.inv_dt, spec, k, cm, rv))
         ms = cuda_ms(run, 10)
         repro = {kname: repeat_reading(torch, run)}
         if batch.spans is not None:
@@ -920,23 +1135,26 @@ def main() -> int:
             oh = fused.prepare(vals, bts, gids, spec, allow_span=False)
             repro["onehot_reduce, one-hot layout forced"] = \
                 repeat_reading(torch, lambda: fused.onehot_reduce(
-                    oh.values, oh.gids, oh.inv_dt, spec, k, cm, rv))
+                    oh.values, oh.order, oh.gids, oh.group_start,
+                    oh.inv_dt, spec, k, cm, rv))
         print(f"  {m}: {REPRO_LAUNCHES} launches against the first: "
               + "; ".join(f"{n} max |d| {d!r}, bit-equal {same}"
                           for n, (d, same) in repro.items()))
+        for n, (_, same) in repro.items():
+            check(same, f"{n}: {REPRO_LAUNCHES} launches on the same "
+                  "inputs differ in their bits")
         # the plain version as the wrapper runs it for CPU tensors
         # (float32 sums; the span batch's rows reordered first)
         plain_ms = cuda_ms(
             lambda: fused.plain_reduce(batch, spec, k, cm, rv), 10)
         n_s, p = batch.values.shape
-        # values, ids, 1/dt and out; the span kernel also reads its
-        # spans, group starts and the permutation
-        nbytes = n_s * p * 4 + n_s * 4 + b * 4 + g * b * 4
+        # values, ids, 1/dt, group starts and out; the span kernel also
+        # reads its spans, and both the permutation
+        nbytes = n_s * p * 4 + n_s * 4 + b * 4 + (g + 1) * 4 + g * b * 4
         if batch.spans is not None:
-            nbytes += batch.spans.numel() * 4 + (g + 1) * 4
+            nbytes += batch.spans.numel() * 4
         if batch.order is not None:
             nbytes += batch.order.numel() * 4
-        rate = next(r for key, r in _MEM_RATE if key in name)
         flops = n_s * p + n_s * b * 8
         bound_ms = max(nbytes / rate, flops / F32_PEAK) * 1e3
         bound_by = "bytes" if nbytes / rate >= flops / F32_PEAK \
@@ -973,6 +1191,11 @@ def main() -> int:
                                 tags[-1]).items():
         launches[kname] += n
     tsdb.shutdown()
+    del tsdb, tags, ts2d, values
+    print(f"phase 7: irregular data, {s} series x {POINTS} slots"
+          + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
+          + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    phase_irregular(torch, s, args.profile)
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),
@@ -991,7 +1214,9 @@ def main() -> int:
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None,
+            # a plain read of the same [1M, 60] float32 matrix
+            "plain_read_ms": read_ms})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

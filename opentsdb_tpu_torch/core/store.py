@@ -3,8 +3,10 @@
 Keeps the reference store's semantics (``opentsdb_tpu/core/store.py``):
 per-series points sorted on read, duplicate timestamps resolved
 last-write-wins, a per-metric columnar tag index, inclusive
-``[start_ms, end_ms]`` range reads, and the row-padded
-:class:`PaddedBatch` the query engine uploads to the device.
+``[start_ms, end_ms]`` range reads, and the two layouts the query
+engine uploads to the device: the row-padded :class:`PaddedBatch` and
+the flat :class:`PointBatch` (for batches whose row lengths are too
+skewed to pad).
 
 The layout differs. The reference keeps one growable buffer per series
 and walks them in Python on every read, which costs seconds per call at
@@ -36,6 +38,24 @@ import numpy as np
 def pad_mask(counts: np.ndarray, pmax: int) -> np.ndarray:
     """Boolean [S, Pmax] mask of PAD cells (col >= row count)."""
     return np.arange(pmax)[None, :] >= counts[:, None]
+
+
+class PointBatch(NamedTuple):
+    """Flat materialized points of a set of series, in (series, time)
+    order. ``series_idx[i]`` indexes ``series_ids`` (dense 0..S-1), not
+    the global series id, so the device sees a compact series axis."""
+    series_ids: np.ndarray    # int64 [S] global series ids
+    series_idx: np.ndarray    # int32 [N] dense position of each point
+    ts_ms: np.ndarray         # int64 [N]
+    values: np.ndarray        # float64 [N]
+
+    @property
+    def num_series(self) -> int:
+        return len(self.series_ids)
+
+    @property
+    def num_points(self) -> int:
+        return len(self.ts_ms)
 
 
 class PaddedBatch(NamedTuple):
@@ -385,6 +405,22 @@ class TimeSeriesStore:
         """Points per series in [start_ms, end_ms] without copying them."""
         lo, hi, _, _ = self._row_ranges(series_ids, start_ms, end_ms)
         return hi - lo
+
+    def materialize(self, series_ids: Sequence[int], start_ms: int,
+                    end_ms: int) -> PointBatch:
+        """Gather every point of ``series_ids`` in [start_ms, end_ms]
+        into a flat batch (ref: ``TimeSeriesStore.materialize``): each
+        row's slice of the columns, one after another."""
+        sids = np.asarray(series_ids, dtype=np.int64)
+        lo, hi, ts, vals = self._row_ranges(sids, start_ms, end_ms)
+        counts = hi - lo
+        series_idx = np.repeat(np.arange(len(sids), dtype=np.int32),
+                               counts)
+        # point j of row i sits at lo[i] + j
+        first = np.cumsum(counts) - counts
+        idx = np.arange(int(counts.sum()), dtype=np.int64)
+        idx += np.repeat(lo - first, counts)
+        return PointBatch(sids, series_idx, ts[idx], vals[idx])
 
     def materialize_padded(self, series_ids: Sequence[int],
                            start_ms: int, end_ms: int) -> PaddedBatch:

@@ -11,9 +11,10 @@
 // (S*P*4 bytes) plus S group ids (S*4), and does a handful of flops per
 // value, far below the card's flop/byte balance. Both kernels read each
 // value once and keep every intermediate (the open bucket, the previous
-// bucket's value for the rate, the group sums) in registers and shared
-// memory; one thread owns one series and walks its row left to right, so
-// any P and k work with a fixed shared footprint.
+// bucket's value for the rate) in registers; one thread owns one series
+// and walks its row left to right, so any P and k work with a fixed
+// shared footprint. Neither uses an atomic: both are bitwise the same from
+// launch to launch.
 //
 // Both kernels stream rows the same way (the ring machinery below): one
 // persistent block of kBlock = 768 threads (24 warps) per SM. Each warp
@@ -29,8 +30,9 @@
 // 128-bit shared load is served a quarter warp at a time) start in 8
 // different float4 bank groups: no conflicts, and every row start stays
 // 16-byte aligned for the copies. The downsample step is a template on
-// the kind, chosen once per step. What the kernels differ in is where a
-// row's address comes from and what happens when a bucket finishes.
+// the kind, chosen once per step. Both read the rows through the stable
+// group-sort order (below); what they differ in is what happens when a
+// bucket finishes.
 //
 // span (G <= 1024, at most kSpanMax groups per kSpanTile = 128 rows of
 // the stable group-sorted order): the rows are read through the group
@@ -66,29 +68,27 @@
 // x ~1 us / 132 SMs is about 25 KB). Partials: 31,250 x 8 x 12 x 4 B =
 // 12 MB allocated, about 1.6 MB written and read back from L2.
 //
-// one-hot (unsorted group ids, G <= 4096): the accumulator, [G, B] or a
-// chunk of it, lives in shared memory (96,000 B at config 3), so only one
-// block fits an SM, and the loads must be kept in flight by that block
-// itself. What then limits it is the latency of each thread's serial
-// walk of its row (shared read, downsample step, a bucket every k points
-// ending in a shared-atomic loop): on an H100 SXM its time fell with the
-// number of warps per SM, not with the bytes in flight. Hence the ring
-// machinery above, 1/dt read from a shared copy, and:
-//   - shared float atomics into a [g_chunk, b_chunk] chunk of [G, B]
-//     (onehot_plan): as many whole groups as fit beside the rings, or,
-//     when one group's B buckets do not fit, one group and as many
-//     buckets as fit (1/dt then stays in global memory). Each chunk's
-//     rows are cut into `slices` row slices, one block each; a block's
-//     partial of a chunk goes to partials[slice, chunk cells] (no global
-//     atomics, no memset) and onehot_combine sums the slices in order
-//     into out. The partials hold `slices` copies of [G, B], and slices
-//     shrink as chunks grow, so they stay near SMs x the accumulator.
-// Resources at config 3 (S = 1M, P = 60, B = 12, G = 2000): value rings
-// 2 x 768 x 20 x 4 = 122,880 B, group-id rings 2 x 768 x 4 = 6,144 B,
-// 1/dt 48 B, accumulator 2000 x 12 x 4 = 96,000 B: 225,072 B of the
-// 232,448 B a block may take; one chunk, one block (24 warps) per SM,
-// 132 slices. In flight per SM: one 32 x 80 B stage per warp, 61,440 B.
-// Partials: 132 x 24,000 x 4 B = 12.7 MB, read once from L2.
+// one-hot (G <= 4096, any spread of ids over the rows): the span
+// kernel's scheme without its cap of kSpanMax groups per span tile. The
+// rows are read through the same stable group order, so the rows of one
+// group sit in adjacent lanes of a warp tile, which may cover up to 32
+// groups. Each lane's run of equal group ids is found once per warp tile
+// (__match_any_sync: a sorted tile's runs are contiguous lanes). When a
+// bucket finishes, a segmented suffix scan by shuffles (5 steps, each
+// lane adding the lane `off` above it while that lane is in its run)
+// leaves each run's sum in its first lane, which writes it to
+// partials[warp tile, lane, b]. onehot_combine then sums each group over
+// its warp tiles (its first warp tile at the lane of its first row, every
+// later one at lane 0) with a block per group and a fixed tree, as
+// span_combine does. No float atomic anywhere: the order of every
+// addition is fixed by the group ids alone, so the result is bitwise the
+// same from launch to launch. Bytes as the span kernel's (S*P*4 values +
+// S*4 permutation + S*4 sorted ids; 248 MB at config 3, G = 2000).
+// Resources: value rings 122,880 B, id rings (32 group ids a stage and
+// warp) 2 x 24 x 32 x 4 = 6,144 B, 1/dt 48 B: 129,072 B, one block (24
+// warps) per SM. Partials: [ceil(S/32), 32, B] floats allocated (48 MB
+// at config 3), of which only the runs' first lanes are written (about
+// (S/32 + G) x B floats, 1.6 MB) and read back from L2.
 //
 // Plain C interface (loaded with ctypes); every function launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
@@ -115,12 +115,11 @@ constexpr int kPitch = kChunk / 4 % 2 ? kChunk : kChunk + 4;
 constexpr int kBlockWarps = kBlock / 32;
 // shared floats of the value rings
 constexpr int kRingFloats = kStages * kBlock * kPitch;
-// ints per ring stage of the ids: one-hot, a warp tile's group ids;
-// span, its (sorted) group ids and its span tile's kSpanMax slot ids
+// ints per ring stage of the ids: one-hot, a warp tile's (sorted) group
+// ids; span, those and its span tile's kSpanMax slot ids
 constexpr int kOhIds = kWarpTile;
 constexpr int kSpanIds = kWarpTile + kSpanMax;
-// shared bytes of the one-hot value and group-id rings; the accumulator
-// follows
+// shared bytes of the one-hot value and group-id rings; 1/dt follows
 constexpr int kOhRingBytes =
     (kRingFloats + kStages * kBlockWarps * kOhIds) * (int)sizeof(float);
 // shared bytes of the span value and id rings; 1/dt follows
@@ -128,38 +127,10 @@ constexpr int kSpanRingBytes =
     (kRingFloats + kStages * kBlockWarps * kSpanIds) * (int)sizeof(float);
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may take
 constexpr int kCombine = 1024;    // threads per span_combine block
+constexpr int kOhCombine = 256;   // threads per onehot_combine block
 constexpr int kMaxDevices = 64;
 std::atomic<bool> g_onehot_smem_set[kMaxDevices];
 std::atomic<bool> g_span_smem_set[kMaxDevices];
-
-// The one-hot launch plan (see the note at the top): the accumulator's
-// chunk of [G, B], whether 1/dt is in shared memory, the row slices per
-// chunk, the blocks and their dynamic shared bytes.
-struct OhPlan {
-  int g_chunk, b_chunk, inv_shared, slices, blocks;
-  long long n_chunks, smem;
-};
-
-OhPlan onehot_plan(long long S, int B, int G, int sms) {
-  OhPlan p{1, 1, 0, 1, 0, 0, kOhRingBytes};
-  if (B < 1 || G < 1) return p;
-  const long long avail = (kMaxSmem - kOhRingBytes) / 4;  // floats
-  p.inv_shared = 2LL * B <= avail;
-  const long long acc = avail - (p.inv_shared ? B : 0);
-  p.b_chunk = acc >= B ? B : (int)acc;
-  p.g_chunk = acc >= B ? (int)(acc / B < G ? acc / B : G) : 1;
-  p.n_chunks = (long long)((G + p.g_chunk - 1) / p.g_chunk) *
-               ((B + p.b_chunk - 1) / p.b_chunk);
-  const long long tiles = (S + kBlock - 1) / kBlock;
-  const long long per_chunk = sms / p.n_chunks;
-  p.slices = (int)(per_chunk < tiles ? per_chunk : tiles);
-  if (p.slices < 1) p.slices = 1;
-  const long long work = p.slices * p.n_chunks;
-  p.blocks = (int)(work < sms ? work : sms);
-  p.smem = kOhRingBytes +
-           4LL * ((p.inv_shared ? B : 0) + (long long)p.g_chunk * p.b_chunk);
-  return p;
-}
 
 enum DsKind {
   kDsSum = 0, kDsAvg = 1, kDsFirst = 2, kDsLast = 3, kDsMin = 4,
@@ -271,26 +242,13 @@ __device__ __forceinline__ void ring_next(int& jn, int& ci, int nc) {
 }
 
 // Where a warp tile's rows lie in values: row r of the warp tile at
-// row0 starts at base(values, row0, P) + row(r) * P; kShuffle: row()
-// takes the whole warp. One-hot: values row row0 + r.
-struct RowsInPlace {
-  static constexpr bool kShuffle = false;
-  __device__ __forceinline__ void prime(int64_t, int64_t, int) {}
-  __device__ __forceinline__ void begin(int64_t, int64_t, int64_t, int) {}
-  __device__ __forceinline__ const float* base(const float* values,
-                                               int64_t row0, int P) const {
-    return values + row0 * P;
-  }
-  __device__ __forceinline__ int row(int r) const { return r; }
-};
-
-// Span: row r of the warp tile at sorted position row0 is values row
+// sorted position row0 starts at base(values, row0, P) + row(r) * P, and
+// is values row
 // order[row0 + r] (row0 + r when order is null). Lane r holds its row's
 // index, loaded one warp tile ahead (prime loads the first, begin moves
 // to the next and loads the one after), and row() fetches it with a
 // shuffle, so all 32 lanes call it together.
 struct RowsThroughOrder {
-  static constexpr bool kShuffle = true;
   const int* __restrict__ order;
   int idx, next;
 
@@ -320,16 +278,16 @@ struct RowsThroughOrder {
 
 // One lane's copies of a [rows, q] slab of W-byte items (W = 16: float4,
 // W = 4: float) from src0 (the warp tile's rows at the step's first
-// column), consecutive lanes on consecutive items of a row. When row()
-// shuffles, every lane runs every pass. Called with the constant q of a
-// whole chunk, the divisions become shifts.
+// column), consecutive lanes on consecutive items of a row. row()
+// shuffles, so every lane runs every pass. Called with the constant q of
+// a whole chunk, the divisions become shifts.
 template <int W, class Rows>
 __device__ __forceinline__ void ring_copy(float* dst, const float* src0,
                                           const Rows& rows_of, int rows,
                                           int P, int q, int lane) {
   constexpr int kF = W / 4;  // floats per item
   const int n = rows * q;
-  const int end = Rows::kShuffle ? (n + 31) & ~31 : n;
+  const int end = (n + 31) & ~31;
   for (int i = lane; i < end; i += 32) {
     const int r = i / q;
     const int c = (i - r * q) * kF;
@@ -585,88 +543,109 @@ __global__ void __launch_bounds__(kCombine, 1) span_combine_kernel(
   }
 }
 
-// -- one-hot: unsorted rows into a shared accumulator ----------------------
+// -- one-hot: any groups per warp tile, reduced by runs --------------------
 
-// A one-hot warp tile: each lane's cell, its group's row of the block's
-// shared accumulator chunk (null for a row outside this chunk's groups
-// or past S); a finished bucket inside [b0, b0 + bw) is added to it.
-struct OnehotTile {
-  float* sacc;
-  int g0, gw, b0, bw;
-  float* cell;
+// A one-hot warp tile: the lanes of one group form a run (the tile's rows
+// are group-sorted). A finished bucket is reduced per run with a
+// segmented suffix scan in a fixed order of shuffles; the run's first
+// lane holds the run's sum and writes it to its own slot of the tile's
+// partials. Lanes past S carry the id -1 and write nothing.
+struct RunTile {
+  float* __restrict__ partials;
+  int B;
+  float* part;
+  int run_end, lane;
+  bool head;
 
   __device__ __forceinline__ void begin(const RingStep& st, const int* ids,
-                                        int lane) {
-    const int g = lane < st.rows ? ids[lane] - g0 : -1;
-    cell = g >= 0 && g < gw ? sacc + g * bw : nullptr;
+                                        int ln) {
+    lane = ln;
+    const int gid = lane < st.rows ? ids[lane] : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, gid);
+    run_end = 31 - __clz(peers);
+    head = gid >= 0 && __ffs(peers) - 1 == lane;
+    part = partials + st.row0 * B;  // row0 / kWarpTile tiles of 32 x B
   }
   __device__ __forceinline__ void operator()(float t, int b) const {
-    if (cell != nullptr && (unsigned)(b - b0) < (unsigned)bw)
-      atomicAdd(cell + (b - b0), t);
+    float x = t;
+#pragma unroll
+    for (int off = 1; off < kWarpTile; off <<= 1) {
+      const float y = __shfl_down_sync(0xffffffffu, x, off);
+      if (lane + off <= run_end) x += y;
+    }
+    if (head) part[lane * B + b] = x;
   }
 };
 
-// Persistent one-hot group reduce (see the note at the top). Each block
-// takes work items (chunk, slice) in grid stride; for one item, each
-// warp walks its own warp tiles of the slice through its own cp.async
-// ring, lanes add their rows' buckets into the block's shared
-// [g_chunk, b_chunk] accumulator, and the block writes it to the
-// chunk's cells of partials[slice].
+// Persistent one-hot reduce (see the note at the top): each warp streams
+// its warp tiles of the group-sorted order through its ring, reading each
+// row through order, and writes each run's bucket sums to
+// partials[ceil(S/32), 32, B] at the run's first lane.
 __global__ void __launch_bounds__(kBlock, 1) onehot_reduce_kernel(
-    const float* __restrict__ values, int64_t S, Transform tf,
-    const int* __restrict__ gids, int G, OhPlan plan, int vec16,
-    float* __restrict__ partials) {
+    const float* __restrict__ values, const int* __restrict__ order,
+    int64_t S, Transform tf, const int* __restrict__ gids, int inv_shared,
+    int vec16, float* __restrict__ partials) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  float* ring = smem + warp * (kStages * kWarpTile * kPitch);  // this warp's
+  float* ring = smem + warp * (kStages * kWarpTile * kPitch);
   int* gring = (int*)(smem + kRingFloats) + warp * (kStages * kOhIds);
-  // then, if it fits, 1/dt per bucket (read once per bucket by every
-  // row), and the [g_chunk][b_chunk] accumulator
-  float* sinv = smem + kOhRingBytes / (int)sizeof(float);
-  float* sacc = sinv + (plan.inv_shared ? tf.B : 0);
   Transform tfs = tf;
-  if (plan.inv_shared) {
-    tfs.inv_dt = sinv;
+  if (inv_shared) {  // 1/dt, read once per bucket by every row
+    float* sinv = smem + kOhRingBytes / (int)sizeof(float);
     for (int i = tid; i < tf.B; i += kBlock) sinv[i] = tf.inv_dt[i];
+    tfs.inv_dt = sinv;
   }
-  const int n_bc = (tf.B + plan.b_chunk - 1) / plan.b_chunk;
-  const int64_t n_work = plan.n_chunks * plan.slices;
-  for (int64_t w = blockIdx.x; w < n_work; w += gridDim.x) {
-    const int slice = (int)(w % plan.slices);
-    const int chunk = (int)(w / plan.slices);
-    const int g0 = chunk / n_bc * plan.g_chunk;
-    const int b0 = chunk % n_bc * plan.b_chunk;
-    const int gw = min(plan.g_chunk, G - g0);
-    const int bw = min(plan.b_chunk, tf.B - b0);
-    for (int i = tid; i < gw * bw; i += kBlock) sacc[i] = 0.f;
-    __syncthreads();
-    RowsInPlace rows_of;
-    OnehotTile tile{sacc, g0, gw, b0, bw, nullptr};
-    ring_stream(ring, gring, kOhIds, values, gids, nullptr, S, tfs,
-                vec16 != 0, (int64_t)slice * kBlockWarps + warp,
-                (int64_t)plan.slices * kBlockWarps, lane, rows_of, tile);
-    __syncthreads();
-    float* part = partials + ((int64_t)slice * G + g0) * tf.B + b0;
-    for (int i = tid; i < gw * bw; i += kBlock) {
-      const int gi = i / bw;
-      part[(int64_t)gi * tf.B + (i - gi * bw)] = sacc[i];
-    }
-    __syncthreads();  // the rings and sacc are reused by the next item
-  }
+  __syncthreads();
+  RowsThroughOrder rows_of{order, 0, 0};
+  RunTile tile{partials, tf.B, nullptr, -1, lane, false};
+  ring_stream(ring, gring, kOhIds, values, gids, nullptr, S, tfs,
+              vec16 != 0, (int64_t)blockIdx.x * kBlockWarps + warp,
+              (int64_t)gridDim.x * kBlockWarps, lane, rows_of, tile);
 }
 
-// out[i] = sum over slices, in slice order, of partials[slice, i].
-__global__ void onehot_combine_kernel(const float* __restrict__ partials,
-                                      int n_slices, int64_t cells,
-                                      float* __restrict__ out) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= cells) return;
-  float s = 0.f;
-#pragma unroll 8
-  for (int sl = 0; sl < n_slices; ++sl) s += partials[sl * cells + idx];
-  out[idx] = s;
+// out[g, b] = the sum over the warp tiles covering group g (its sorted
+// rows group_start[g] .. group_start[g+1]) of the tile's partial at the
+// lane of g's first row there: lo % 32 in its first tile, 0 in every
+// later one. One block per group; threads are (tile lane, bucket) pairs,
+// each summing every lanes-th tile of one bucket, then a fixed tree over
+// the tile lanes: the same order in every launch.
+__global__ void __launch_bounds__(kOhCombine) onehot_combine_kernel(
+    const float* __restrict__ partials, const int* __restrict__ group_start,
+    int B, float* __restrict__ out) {
+  __shared__ float red[kOhCombine];
+  const int g = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lo = group_start[g];
+  const int hi = group_start[g + 1];
+  const int t0 = lo / kWarpTile;  // S < 2^31: warp tiles fit an int
+  const int t1 = hi > lo ? (hi - 1) / kWarpTile : t0 - 1;
+  const int nb = B < kOhCombine ? B : kOhCombine;  // buckets per pass
+  int lanes = 1;                                   // a power of two
+  while (lanes * 2 * nb <= kOhCombine) lanes *= 2;
+  const int bi = tid % nb;
+  const int tl = tid / nb;
+  for (int b0 = 0; b0 < B; b0 += nb) {
+    const int b = b0 + bi;
+    if (tl < lanes) {
+      float s = 0.f;
+      if (b < B) {
+        for (int t = t0 + tl; t <= t1; t += lanes) {
+          const int slot = t == t0 ? lo - t0 * kWarpTile : 0;
+          s += partials[((int64_t)t * kWarpTile + slot) * B + b];
+        }
+      }
+      red[tl * nb + bi] = s;
+    }
+    __syncthreads();
+    for (int h = lanes / 2; h > 0; h >>= 1) {
+      if (tl < h) red[tl * nb + bi] += red[(tl + h) * nb + bi];
+      __syncthreads();
+    }
+    if (tl == 0 && b < B) out[(int64_t)g * B + b] = red[bi];
+    __syncthreads();  // red is reused by the next pass
+  }
 }
 
 Transform make_transform(int P, int k, int B, const float* inv_dt,
@@ -742,36 +721,32 @@ int fused_span_reduce(const float* values, const int* order, long long S,
   return (int)cudaGetLastError();
 }
 
-// Warp tiles of the span partials: the wrapper allocates
-// partials[tiles, kSpanMax, B] for fused_span_reduce with the same S.
-int fused_span_tiles(long long S) {
+// Warp tiles of the partials of either kernel: the wrapper allocates
+// partials[tiles, kSpanMax, B] for fused_span_reduce, or
+// partials[tiles, 32, B] for fused_onehot_reduce, with the same S.
+int fused_warp_tiles(long long S) {
   return (int)((S + kWarpTile - 1) / kWarpTile);
 }
 
-// Row slices of the one-hot partials: the wrapper allocates
-// partials[slices, G, B] for fused_onehot_reduce with the same S, B, G
-// and SM count.
-int fused_onehot_slices(long long S, int B, int G, int sms) {
-  return onehot_plan(S, B, G, sms).slices;
-}
-
-// Series per one-hot block (one per thread).
+// Series per block (one per thread).
 int fused_onehot_tile() { return kBlock; }
 
-int fused_onehot_reduce(const float* values, long long S, int P, int k,
-                        int B, const int* gids, int G,
-                        const float* inv_dt, float counter_max,
-                        float reset_value, int ds_kind, int rate_mode,
-                        int square, int sms, int device, float* partials,
-                        float* out, void* stream) {
+int fused_onehot_reduce(const float* values, const int* order, long long S,
+                        int P, int k, int B, const int* gids,
+                        const int* group_start, int G, const float* inv_dt,
+                        float counter_max, float reset_value, int ds_kind,
+                        int rate_mode, int square, int sms, int device,
+                        float* partials, float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const long long cells = (long long)G * B;
-  if (cells == 0) return (int)cudaGetLastError();
-  int n_slices = 0;  // no rows: out is all zeros
+  if (G < 1 || B < 1) return (int)cudaGetLastError();
   if (S > 0) {
     if (sms < 1 || device < 0 || device >= kMaxDevices)
       return (int)cudaErrorInvalidValue;
-    const OhPlan plan = onehot_plan(S, B, G, sms);
+    const long long per_block = (long long)kBlockWarps * kWarpTile;
+    const long long need = (S + per_block - 1) / per_block;
+    const int blocks = (int)(need < sms ? need : sms);
+    const int inv_shared = 4LL * B <= kMaxSmem - kOhRingBytes;
+    const int smem = kOhRingBytes + (inv_shared ? 4 * B : 0);
     const cudaError_t err =
         allow_smem(onehot_reduce_kernel, g_onehot_smem_set, device);
     if (err != cudaSuccess) return (int)err;
@@ -779,15 +754,14 @@ int fused_onehot_reduce(const float* values, long long S, int P, int k,
                                         reset_value, ds_kind, rate_mode,
                                         square);
     const int vec16 = P % 4 == 0 && (uintptr_t)values % 16 == 0;
-    onehot_reduce_kernel<<<plan.blocks, kBlock, (int)plan.smem, st>>>(
-        values, S, tf, gids, G, plan, vec16, partials);
+    onehot_reduce_kernel<<<blocks, kBlock, smem, st>>>(
+        values, order, S, tf, gids, inv_shared, vec16, partials);
     const cudaError_t launch = cudaGetLastError();
     if (launch != cudaSuccess) return (int)launch;
-    n_slices = plan.slices;
   }
-  const int threads = 256;
-  onehot_combine_kernel<<<(int)((cells + threads - 1) / threads), threads,
-                          0, st>>>(partials, n_slices, cells, out);
+  // with no rows every group is empty: out is all zeros
+  onehot_combine_kernel<<<G, kOhCombine, 0, st>>>(partials, group_start, B,
+                                                  out);
   return (int)cudaGetLastError();
 }
 

@@ -34,11 +34,10 @@ _SIGNATURES = {
         _P, _P, _L, _I, _I, _I, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I,
         _I, _I, _P, _P, _P),
     "fused_onehot_reduce": (
-        _P, _L, _I, _I, _I, _P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _P,
-        _P, _P),
-    "fused_onehot_slices": (_L, _I, _I, _I),
+        _P, _P, _L, _I, _I, _I, _P, _P, _I, _P, _F, _F, _I, _I, _I, _I,
+        _I, _P, _P, _P),
     "fused_onehot_tile": (),
-    "fused_span_tiles": (_L,),
+    "fused_warp_tiles": (_L,),
 }
 
 

@@ -12,10 +12,9 @@ encodes "no value for this series at this bucket":
 - ``count``: number of non-NaN values (Count.runDouble)
 - ``first``/``last``: first/last entry along the axis with a value
 - ``multiply``: product; ``squareSum``: sum of squares
-
-Median and the percentile family keep their registry entries, but
-their reductions raise NotImplementedError: they arrive with a later
-slice of the port.
+- ``median``: upper median sorted[n // 2] (Median.runDouble)
+- ``p50..p999``: commons-math3 Percentile LEGACY estimation
+- ``ep50r3..ep999r7``: estimation types R_3 / R_7 (PercentileAgg :657)
 """
 
 from __future__ import annotations
@@ -134,9 +133,50 @@ def agg_diff(x, axis=0):
                        torch.where(cnt == 1, torch.zeros_like(d), d))
 
 
-def _not_ported(x, axis=0):
-    raise NotImplementedError(
-        "median and percentile aggregators are not ported yet")
+def _sorted_along(x, axis):
+    """x sorted along ``axis`` with NaN last, and the valid counts."""
+    return (torch.sort(x, dim=axis, stable=True).values,
+            _valid(x).sum(dim=axis))
+
+
+def agg_median(x, axis=0):
+    """Upper median: sorted[n // 2] (ref: Aggregators.Median :397)."""
+    sorted_x, cnt = _sorted_along(x, axis)
+    idx = (cnt // 2).clamp(0, x.shape[axis] - 1)
+    picked = _pick(sorted_x, idx, axis)
+    return torch.where(cnt > 0, picked,
+                       torch.full_like(picked, float("nan")))
+
+
+def percentile_along_axis(x, q: float, estimation: str, axis=0):
+    """Order statistics with commons-math3 estimation semantics.
+
+    ``legacy``: h = q(n+1)/100, clamped to [1, n], linear interpolation;
+    ``r3``: h = ceil(q*n/100 - 0.5), the nearest rank, half down;
+    ``r7``: h = (n-1)q/100 + 1, linear interpolation (numpy 'linear').
+    (ref: Aggregators.PercentileAgg :657 + commons-math3 Percentile)"""
+    s = x.shape[axis]
+    sorted_x, cnt = _sorted_along(x, axis)
+    n = cnt.to(x.dtype)
+    p = q / 100.0
+    if estimation == "legacy":
+        h = p * (n + 1)
+    elif estimation == "r3":
+        h = torch.ceil(p * n - 0.5)
+    elif estimation == "r7":
+        h = (n - 1) * p + 1
+    else:
+        raise ValueError(f"unknown estimation type {estimation!r}")
+    h = torch.minimum(h.clamp(min=1.0), n.clamp(min=1.0))
+    h_floor = torch.floor(h)
+    frac = h - h_floor
+    lo_idx = (h_floor.long() - 1).clamp(0, s - 1)
+    hi_idx = torch.minimum(lo_idx + 1, (cnt - 1).clamp(min=0)) \
+        .clamp(0, s - 1)
+    lo = _pick(sorted_x, lo_idx, axis)
+    hi = _pick(sorted_x, hi_idx, axis)
+    out = lo + frac * (hi - lo)
+    return torch.where(n > 0, out, torch.full_like(out, float("nan")))
 
 
 @dataclass(frozen=True)
@@ -152,8 +192,19 @@ class Aggregator:
         return self.reduce(x, axis=axis)
 
     @property
+    def is_percentile(self) -> bool:
+        return self.percentile is not None
+
+    @property
     def is_none(self) -> bool:
         return self.name == "none"
+
+
+def _make_percentile(name: str, q: float, estimation: str) -> Aggregator:
+    def reduce(x, axis=0, _q=q, _e=estimation):
+        return percentile_along_axis(x, _q, _e, axis=axis)
+    return Aggregator(name, Interpolation.LERP, reduce,
+                      percentile=q, estimation=estimation)
 
 
 def _agg_none(x, axis=0):
@@ -175,7 +226,7 @@ PFSUM = _register(Aggregator("pfsum", Interpolation.PREV, agg_sum))
 MIN = _register(Aggregator("min", Interpolation.LERP, agg_min))
 MAX = _register(Aggregator("max", Interpolation.LERP, agg_max))
 AVG = _register(Aggregator("avg", Interpolation.LERP, agg_avg))
-MEDIAN = _register(Aggregator("median", Interpolation.LERP, _not_ported))
+MEDIAN = _register(Aggregator("median", Interpolation.LERP, agg_median))
 NONE = _register(Aggregator("none", Interpolation.ZIM, _agg_none))
 MULTIPLY = _register(Aggregator("multiply", Interpolation.LERP,
                                 agg_multiply))
@@ -194,12 +245,9 @@ LAST = _register(Aggregator("last", Interpolation.ZIM, agg_last))
 
 for _q, _name in ((99.9, "p999"), (99.0, "p99"), (95.0, "p95"),
                   (90.0, "p90"), (75.0, "p75"), (50.0, "p50")):
-    _register(Aggregator(_name, Interpolation.LERP, _not_ported,
-                         percentile=_q, estimation="legacy"))
+    _register(_make_percentile(_name, _q, "legacy"))
     for _est in ("r3", "r7"):
-        _register(Aggregator(f"e{_name}{_est}", Interpolation.LERP,
-                             _not_ported, percentile=_q,
-                             estimation=_est))
+        _register(_make_percentile(f"e{_name}{_est}", _q, _est))
 
 
 def get(name: str) -> Aggregator:

@@ -17,15 +17,16 @@ bodies become two hand-written CUDA kernels for Hopper
   kernel sums each group's partials with a fixed tree, so the result
   is bitwise the same from launch to launch.
 - :func:`onehot_reduce` replaces ``_kernel`` (pallas_fused.py:241):
-  unsorted group ids. A persistent block of 768 threads per SM; each
-  warp streams its own 32-row tiles through a two-stage ring of async
-  copies into shared memory, and every lane adds its row's buckets into
-  the block's shared-memory ``[G, B]`` accumulator (or a chunk of it)
-  with shared atomics. Each block writes its partial to one row slice
-  of a ``[slices, G, B]`` scratch tensor, sized by the library's
-  ``fused_onehot_slices``, and a second small kernel sums the slices in
-  order. The shared float atomics make the order of the sums inside a
-  block vary from run to run.
+  more than :data:`_SPAN_GROUP_MAX` groups, or groups too spread for
+  the span layout. It is the span kernel's scheme without the cap of
+  :data:`SPAN_MAX` groups per tile: the rows are read through the same
+  stable group-sort permutation, so a group's rows sit in adjacent
+  lanes of a 32-row warp tile; each finished bucket is reduced per run
+  of equal ids by a segmented scan of warp shuffles in a fixed order,
+  the run's first lane writes it to a ``[ceil(S/32), 32, B]`` scratch
+  tensor, and a second small kernel sums each group's warp tiles with a
+  fixed tree. No float atomic: the result is bitwise the same from
+  launch to launch.
 
 Both kernels run the same per-series transform as the reference's
 ``_tile_transform`` (pallas_fused.py:196): downsample P points to B
@@ -69,6 +70,8 @@ SPAN_MAX = 8
 _SPAN_GROUP_MAX = 1024
 # sorted series per row of spans; equals kSpanTile in the source
 TILE_S = 128
+# rows per warp tile, a one-hot partial's slots; kWarpTile in the source
+WARP_TILE = 32
 
 # csrc/fused_pipeline.cu enums
 _DS_KIND = {"sum": 0, "zimsum": 0, "pfsum": 0, "avg": 1, "first": 2,
@@ -173,14 +176,14 @@ def _span_layout(group_ids: np.ndarray, g: int):
 class FusedBatch:
     """Device arguments of one fused execution (see :func:`prepare`)."""
     values: torch.Tensor         # [S, P] in the caller's row order
-    gids: torch.Tensor           # [S] int32; in group order with spans
+    gids: torch.Tensor           # [S] int32, in group order
     inv_dt: torch.Tensor         # [B]
     sizes: torch.Tensor          # [G] series per group
-    spans: torch.Tensor | None   # [NT, SPAN_MAX] int32 -> span kernel
-    group_start: torch.Tensor | None  # [G+1] int32 first sorted row
+    spans: torch.Tensor | None   # [NT, SPAN_MAX] int32 -> span kernel;
+    #                              None -> one-hot kernel
+    group_start: torch.Tensor    # [G+1] int32 first sorted row
     # [S] int32 stable group-sort permutation (row i of the sorted
-    # order is values row order[i]); None when the ids are sorted or
-    # the layout is one-hot
+    # order is values row order[i]); None when the ids are sorted
     order: torch.Tensor | None = None
 
 
@@ -188,24 +191,27 @@ def prepare(values: torch.Tensor, bucket_ts: np.ndarray,
             group_ids: np.ndarray, spec,
             allow_span: bool = True) -> FusedBatch:
     """Host prep (the port of the reference's ``prepare``): picks the
-    span layout when it fits, else the one-hot layout. ``values`` is the
-    [S, P] batch, already on its device; it is never reordered (the span
-    kernel reads its rows through ``order``)."""
+    span layout when it fits, else the one-hot layout. Both read the
+    rows in the stable group order. ``values`` is the [S, P] batch,
+    already on its device; it is never reordered (the kernels read its
+    rows through ``order``)."""
     dev, dtype = values.device, values.dtype
     gids = np.asarray(group_ids, dtype=np.int32)
     sizes = np.bincount(gids, minlength=spec.num_groups)
     inv_dt = torch.as_tensor(_build_inv_dt(spec, bucket_ts),
                              dtype=dtype).to(dev)
     sizes_t = torch.as_tensor(sizes, dtype=dtype).to(dev)
-    span = _span_layout(gids, spec.num_groups) if allow_span else None
-    if span is None:
-        return FusedBatch(values, torch.as_tensor(gids).to(dev), inv_dt,
-                          sizes_t, None, None)
-    order, spans, sorted_gids = span
     group_start = np.zeros(spec.num_groups + 1, dtype=np.int32)
     np.cumsum(sizes, out=group_start[1:])
+    span = _span_layout(gids, spec.num_groups) if allow_span else None
+    if span is None:
+        order = _sort_order(gids) if len(gids) else None
+        sorted_gids, spans = gids if order is None else gids[order], None
+    else:
+        order, spans, sorted_gids = span
+        spans = torch.as_tensor(spans).to(dev)
     return FusedBatch(values, torch.as_tensor(sorted_gids).to(dev),
-                      inv_dt, sizes_t, torch.as_tensor(spans).to(dev),
+                      inv_dt, sizes_t, spans,
                       torch.as_tensor(group_start).to(dev),
                       None if order is None
                       else torch.as_tensor(order).to(dev))
@@ -325,6 +331,19 @@ def _check_cuda(values, gids, inv_dt, spec, k):
                              "one device")
 
 
+def _check_order(order, group_start, s: int, g: int, dev) -> None:
+    if order is not None and (
+            order.dtype != torch.int32 or order.shape != (s,)
+            or not order.is_contiguous() or order.device != dev):
+        raise ValueError("order must be a contiguous int32 [S] tensor on "
+                         "the device of values")
+    if group_start.shape != (g + 1,) or group_start.dtype != torch.int32 \
+            or not group_start.is_contiguous() \
+            or group_start.device != dev:
+        raise ValueError("group_start must be a contiguous int32 [G+1] "
+                         "tensor on the device of values")
+
+
 _LAUNCHES_LOCK = threading.Lock()
 
 
@@ -361,24 +380,15 @@ def span_reduce(values: torch.Tensor, order: torch.Tensor | None,
     _check_cuda(values, gids, inv_dt, spec, k)
     s, p = values.shape
     dev = values.device
-    if order is not None and (
-            order.dtype != torch.int32 or order.shape != (s,)
-            or not order.is_contiguous() or order.device != dev):
-        raise ValueError("order must be a contiguous int32 [S] tensor on "
-                         "the device of values")
+    _check_order(order, group_start, s, g, dev)
     if spans.shape != (-(-s // TILE_S), SPAN_MAX) \
-            or spans.dtype != torch.int32 \
-            or group_start.shape != (g + 1,) \
-            or group_start.dtype != torch.int32:
-        raise ValueError("spans must be int32 [NT, SPAN_MAX] and "
-                         "group_start int32 [G+1]")
-    for t in (spans, group_start):
-        if not t.is_contiguous() or t.device != dev:
-            raise ValueError("kernel operands must be contiguous and on "
-                             "one device")
+            or spans.dtype != torch.int32 or not spans.is_contiguous() \
+            or spans.device != dev:
+        raise ValueError("spans must be a contiguous int32 [NT, SPAN_MAX] "
+                         "tensor on the device of values")
     b = spec.num_buckets
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = _cuda_build.library().fused_span_tiles(s)
+    tiles = _cuda_build.library().fused_warp_tiles(s)
     partials = torch.empty((tiles, SPAN_MAX, b), dtype=torch.float32,
                            device=dev)
     out = torch.empty((g, b), dtype=torch.float32, device=dev)
@@ -395,29 +405,36 @@ def span_reduce(values: torch.Tensor, order: torch.Tensor | None,
 span_reduce.launches = 0
 
 
-def onehot_reduce(values: torch.Tensor, gids: torch.Tensor,
+def onehot_reduce(values: torch.Tensor, order: torch.Tensor | None,
+                  gids: torch.Tensor, group_start: torch.Tensor,
                   inv_dt: torch.Tensor, spec, k: int, counter_max: float,
                   reset_value: float) -> torch.Tensor:
-    """Fused transform + group sum over unsorted group ids -> acc
-    [G, B]. ``values`` [S, P], ``gids`` [S] int32."""
+    """Fused transform + group sum over any number of groups per tile
+    -> acc [G, B]. ``values`` [S, P] rows in any order, ``order`` [S]
+    int32 the stable group-sort permutation (None: the rows are in
+    group order), ``gids`` [S] int32 in group order, ``group_start``
+    [G+1] each group's first sorted row."""
     g = spec.num_groups
     if values.device.type == "cpu":
-        return _plain(values, None, gids, inv_dt, spec, k, counter_max,
+        return _plain(values, order, gids, inv_dt, spec, k, counter_max,
                       reset_value)
     _check_cuda(values, gids, inv_dt, spec, k)
     s, p = values.shape
-    b = spec.num_buckets
     dev = values.device
+    _check_order(order, group_start, s, g, dev)
+    b = spec.num_buckets
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    slices = _cuda_build.library().fused_onehot_slices(s, b, g, sms)
-    partials = torch.empty((slices, g, b), dtype=torch.float32, device=dev)
+    tiles = _cuda_build.library().fused_warp_tiles(s)
+    partials = torch.empty((tiles, WARP_TILE, b), dtype=torch.float32,
+                           device=dev)
     out = torch.empty((g, b), dtype=torch.float32, device=dev)
     ds_kind, rate_mode, square = _kernel_flags(spec)
     _launch("fused_onehot_reduce", dev, onehot_reduce,
-            values.data_ptr(), s, p, k, b, gids.data_ptr(), g,
+            values.data_ptr(), 0 if order is None else order.data_ptr(),
+            s, p, k, b, gids.data_ptr(), group_start.data_ptr(), g,
             inv_dt.data_ptr(), counter_max, reset_value, ds_kind,
-            rate_mode, square, sms, dev.index,
-            partials.data_ptr(), out.data_ptr())
+            rate_mode, square, sms, dev.index, partials.data_ptr(),
+            out.data_ptr())
     return out
 
 
@@ -467,8 +484,9 @@ def run(batch: FusedBatch, spec, k: int, rate_options=None):
                           batch.spans, batch.group_start, batch.inv_dt,
                           spec, k, cm, rv)
     else:
-        acc = onehot_reduce(batch.values, batch.gids, batch.inv_dt, spec,
-                            k, cm, rv)
+        acc = onehot_reduce(batch.values, batch.order, batch.gids,
+                            batch.group_start, batch.inv_dt, spec, k, cm,
+                            rv)
     return _finalize(acc, batch.sizes, spec)
 
 

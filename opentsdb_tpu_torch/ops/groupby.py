@@ -7,17 +7,18 @@ A group is a segment id per series: after interpolation fill
 0 of the ``[series, bucket]`` grid aggregates every group and bucket at
 once.
 
-Sums and products follow a fixed order (:class:`GroupPlan`), so the
+Every reduction follows a fixed order (:class:`GroupPlan`), so the
 same inputs give the same bits on every call, on the card as on the
 CPU: the rows are taken in a stable group order, each group's rows are
-cut into blocks of :data:`BLOCK`, each block is reduced in float64 by a
-fixed-shape reduction, and the blocks' results are reduced the same way
-until one is left per group, which is rounded once. ``index_add_`` and
-``scatter_reduce_(reduce="prod")`` add with atomics in no fixed order
-on CUDA and are not used for them. Min, max and the first/last
-positions are exact in any order and stay ``scatter_reduce_``. The
-order-statistic aggregators (median, percentiles) raise
-NotImplementedError until a later slice ports their group stage.
+cut into blocks of :data:`BLOCK`, each block is reduced by a
+fixed-shape reduction (sums and products in float64), and the blocks'
+results are reduced the same way until one is left per group, which is
+rounded once. ``index_add_`` and ``scatter_reduce_`` add with atomics
+in no fixed order on CUDA and are not used: even a min or max by
+atomics could return either of -0.0 and +0.0. The order-statistic
+aggregators (median, percentiles) sort each bucket's column by (group,
+value) with two stable sorts and pick ranks at the plan's group
+starts, as the reference's ``lax.sort`` does.
 """
 
 from __future__ import annotations
@@ -60,6 +61,8 @@ class GroupPlan:
         ids = torch.arange(g, device=dev)
         starts = torch.searchsorted(sorted_ids, ids)
         sizes = torch.searchsorted(sorted_ids, ids, right=True) - starts
+        # [G] each group's first row in the stable group order
+        self.group_starts = starts
         self.block = b = max(2, min(BLOCK, s // max(g, 1)))
         largest = int(sizes.max()) if s and g else 0
         lane = torch.arange(b, device=dev)
@@ -90,8 +93,8 @@ class GroupPlan:
             final = rows_of[final]   # no level: groups of one row
         self._final = final
 
-    def _reduce(self, data: torch.Tensor, prod: bool) -> torch.Tensor:
-        ident = 1.0 if prod else 0.0
+    def _reduce(self, data: torch.Tensor, mode: str) -> torch.Tensor:
+        reduce, ident, wide = _MODES[mode]
         cur = data.flatten(1) if data.dim() > 1 else data[:, None]
         if self.num_series == 0:
             cur = cur.new_zeros((1, cur.shape[1]))
@@ -99,8 +102,8 @@ class GroupPlan:
             blocks = torch.where(
                 valid, cur.index_select(0, src).view(nb, self.block, -1),
                 ident)
-            cur = (blocks.prod(1, dtype=torch.float64) if prod
-                   else blocks.sum(1, dtype=torch.float64))
+            cur = (getattr(blocks, reduce)(1, dtype=torch.float64) if wide
+                   else getattr(blocks, reduce)(1))
         out = torch.where(self._has, cur.index_select(0, self._final),
                           ident)
         return out.to(data.dtype).view((self.num_groups,)
@@ -109,7 +112,7 @@ class GroupPlan:
     def sum(self, data: torch.Tensor) -> torch.Tensor:
         """Fixed-order group sum over the series axis: [S, ...] ->
         [G, ...], added in float64 and rounded once to data's dtype."""
-        return self._reduce(data, prod=False)
+        return self._reduce(data, "sum")
 
     def sums(self, *arrays: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """:meth:`sum` of several [S, B] arrays of one dtype in one
@@ -119,27 +122,32 @@ class GroupPlan:
 
     def prod(self, data: torch.Tensor) -> torch.Tensor:
         """Fixed-order group product (1 for an empty group)."""
-        return self._reduce(data, prod=True)
+        return self._reduce(data, "prod")
+
+    def min(self, data: torch.Tensor) -> torch.Tensor:
+        """Group minimum (+inf for an empty group); missing cells are
+        pre-filled by the caller with +inf."""
+        return self._reduce(data, "min")
+
+    def max(self, data: torch.Tensor) -> torch.Tensor:
+        """Group maximum (-inf for an empty group)."""
+        return self._reduce(data, "max")
 
 
-_EXTREMUM = {"min": ("amin", torch.inf), "max": ("amax", -torch.inf)}
+# mode -> (tensor reduction, identity, reduced in float64)
+_MODES = {"sum": ("sum", 0.0, True), "prod": ("prod", 1.0, True),
+          "min": ("amin", torch.inf, False),
+          "max": ("amax", -torch.inf, False)}
 
 
-def _group_extremum(data, group_ids, num_groups: int, mode: str):
-    """Min or max over the series axis: data[S,B] -> [G,B]. Missing
-    cells are pre-filled by the caller with the reduction's identity;
-    an empty group holds it. Exact in any order of the reduction."""
-    reduce, identity = _EXTREMUM[mode]
-    out = data.new_full((num_groups,) + tuple(data.shape[1:]), identity)
-    idx = group_ids[:, None].expand_as(data)
-    return out.scatter_reduce_(0, idx, data, reduce=reduce)
-
-
-def _group_reduce(filled, group_ids, num_groups: int, agg_name: str):
-    """Aggregate filled[S,B] into [G,B] per ``agg_name``. NaN = missing."""
+def _group_reduce(filled, group_ids, num_groups: int, agg_name: str,
+                  plan: GroupPlan | None = None):
+    """Aggregate filled[S,B] into [G,B] per ``agg_name``. NaN = missing.
+    ``plan`` is the :class:`GroupPlan` of ``group_ids``, built here when
+    not given."""
     nan = float("nan")
-    plan = GroupPlan(group_ids, num_groups)
-    group_ids = plan.group_ids
+    if plan is None:
+        plan = GroupPlan(group_ids, num_groups)
     valid = ~torch.isnan(filled)
     valid_f = valid.to(filled.dtype)
     x0 = torch.where(valid, filled, 0.0)
@@ -158,61 +166,102 @@ def _group_reduce(filled, group_ids, num_groups: int, agg_name: str):
     elif agg_name == "count":
         out = cnt
     elif agg_name in ("min", "mimmin"):
-        out = _group_extremum(torch.where(valid, filled, torch.inf),
-                              group_ids, num_groups, "min")
+        out = plan.min(torch.where(valid, filled, torch.inf))
         out = torch.where(torch.isinf(out) & (out > 0), nan, out)
         # mimmin holes filled with +inf are valid contributions; a
         # group where *everything* is +inf has no real data
         any_valid = any_valid & ~torch.isnan(out)
     elif agg_name in ("max", "mimmax"):
-        out = _group_extremum(torch.where(valid, filled, -torch.inf),
-                              group_ids, num_groups, "max")
+        out = plan.max(torch.where(valid, filled, -torch.inf))
         out = torch.where(torch.isinf(out) & (out < 0), nan, out)
         any_valid = any_valid & ~torch.isnan(out)
     elif agg_name == "multiply":
         out = plan.prod(torch.where(valid, filled, 1.0))
     elif agg_name == "dev":
         mean = total / cnt.clamp(min=1)
-        centered = torch.where(valid, filled - mean[group_ids], 0.0)
+        centered = torch.where(valid, filled - mean[plan.group_ids], 0.0)
         m2 = plan.sum(centered * centered)
         # population variance (divisor n), see aggregators.agg_dev
         var = m2 / cnt.clamp(min=1)
         out = torch.where(cnt == 1, 0.0, torch.sqrt(var.clamp(min=0.0)))
     elif agg_name in ("first", "last", "diff"):
+        # row positions as float64 (exact): the first and last present
+        # row of each group and bucket
         s = filled.shape[0]
-        pos = torch.arange(s, device=filled.device)[:, None] \
-            .expand_as(filled)
-        idx = group_ids[:, None].expand_as(filled)
-        first_pos = pos.new_full(cnt.shape, s).scatter_reduce_(
-            0, idx, torch.where(valid, pos, s), reduce="amin")
-        last_pos = pos.new_full(cnt.shape, -1).scatter_reduce_(
-            0, idx, torch.where(valid, pos, -1), reduce="amax")
-        first_val = torch.gather(filled, 0, first_pos.clamp(0, s - 1))
-        last_val = torch.gather(filled, 0, last_pos.clamp(0, s - 1))
+        pos = torch.arange(s, device=filled.device,
+                           dtype=torch.float64)[:, None]
+        first_pos = plan.min(torch.where(valid, pos, torch.inf))
+        last_pos = plan.max(torch.where(valid, pos, -torch.inf))
+        first_val = torch.gather(filled, 0,
+                                 first_pos.clamp(0, s - 1).long())
+        last_val = torch.gather(filled, 0, last_pos.clamp(0, s - 1).long())
         if agg_name == "first":
             out = first_val
         elif agg_name == "last":
             out = last_val
         else:  # diff: exactly one value -> 0 (ref: Aggregators.Diff)
             out = torch.where(cnt == 1, 0.0, last_val - first_val)
-    elif aggs_mod.exists(agg_name):
-        raise NotImplementedError(
-            f"group aggregator {agg_name!r} (median/percentile) is not "
-            "ported yet")
     else:
-        raise ValueError(f"unsupported group aggregator {agg_name}")
+        agg = aggs_mod.get(agg_name)
+        if agg_name == "median":
+            q, est = 50.0, "median"
+        elif agg.is_percentile:
+            q, est = agg.percentile, agg.estimation
+        else:
+            raise ValueError(f"unsupported group aggregator {agg_name}")
+        out = _group_rank(filled, cnt, plan, q, est)
     return torch.where(any_valid, out, nan)
 
 
+def _group_rank(filled, cnt, plan: GroupPlan, q: float, est: str):
+    """Order statistics per (group, bucket): each column sorted by
+    (group, value), NaN last within a group, by a stable sort by value
+    and then a stable sort by group (the reference's two-key
+    ``lax.sort``), and ranks picked at the plan's group starts."""
+    s = filled.shape[0]
+    by_value = torch.sort(filled, dim=0, stable=True).indices
+    by_group = torch.sort(plan.group_ids[by_value], dim=0,
+                          stable=True).indices
+    sorted_vals = torch.gather(filled, 0, by_value.gather(0, by_group))
+    n = cnt  # [G, B] valid counts
+    p = q / 100.0
+    if est == "median":
+        h = torch.floor(n / 2) + 1
+    elif est == "legacy":
+        h = torch.minimum((p * (n + 1)).clamp(min=1.0), n.clamp(min=1.0))
+    elif est == "r3":
+        h = torch.floor(torch.minimum(torch.ceil(p * n - 0.5).clamp(min=1.0),
+                                      n.clamp(min=1.0)))
+    elif est == "r7":
+        h = torch.minimum(((n - 1) * p + 1).clamp(min=1.0),
+                          n.clamp(min=1.0))
+    else:
+        raise ValueError(f"unknown estimation {est!r}")
+    h_floor = torch.floor(h)
+    frac = (h - h_floor) if est in ("legacy", "r7") \
+        else torch.zeros_like(h)
+    lo_off = (h_floor.long() - 1).clamp(min=0)
+    max_off = (n.long() - 1).clamp(min=0)
+    hi_off = torch.minimum(lo_off + 1, max_off)
+    starts = plan.group_starts[:, None]
+    lo_row = (starts + torch.minimum(lo_off, max_off)).clamp(0, s - 1)
+    hi_row = (starts + hi_off).clamp(0, s - 1)
+    lo = torch.gather(sorted_vals, 0, lo_row)
+    hi = torch.gather(sorted_vals, 0, hi_row)
+    return lo + frac * (hi - lo)
+
+
 def group_aggregate(grid, bucket_ts, group_ids, num_groups: int,
-                    agg: aggs_mod.Aggregator, interpolate: bool = True):
+                    agg: aggs_mod.Aggregator, interpolate: bool = True,
+                    plan: GroupPlan | None = None):
     """The reference's SpanGroup.iterator + AggregationIterator pass:
     interpolation fill per the aggregator's mode, then one segmented
-    reduction over the series axis. grid[S,B] -> [G,B].
+    reduction over the series axis. grid[S,B] -> [G,B]. ``plan`` is the
+    :class:`GroupPlan` of ``group_ids``, built here when not given.
 
     ``interpolate=False`` for NAN/NULL downsample fill policies: the
     reference emits explicit NaN points there, so the merge loop skips
     the NaN value instead of interpolating across a gap."""
     filled = (fill_gaps(grid, bucket_ts, agg.interpolation.value)
               if interpolate else grid)
-    return _group_reduce(filled, group_ids, num_groups, agg.name)
+    return _group_reduce(filled, group_ids, num_groups, agg.name, plan)

@@ -4,14 +4,23 @@ aggregate -> group-by over a ``[series, bucket]`` grid, in PyTorch.
 Port of ``opentsdb_tpu/ops/pipeline.py`` for two paths:
 
 - the point path: ``prepare_auto`` uploads a row-padded batch as a
-  :class:`PreparedBatch` and ``run_prepared`` runs it; when every row
-  holds the same k-per-bucket points that is the fused CUDA kernels
-  (:mod:`opentsdb_tpu_torch.ops.fused`) for complete data and the dense
-  PyTorch path (:func:`run_pipeline_dense`) when the data has NaN
-  holes, an option the kernels decline, or float64 on CUDA.
-  ``execute_auto`` is the two in one call. Irregular layouts (the
-  reference's padded-scatter and flat paths) arrive with a later slice
-  and raise NotImplementedError.
+  :class:`PreparedBatch` and ``run_prepared`` runs it, in one of three
+  layouts, as the reference picks them:
+
+  - ``dense``: every row holds the same k-per-bucket points. The fused
+    CUDA kernels (:mod:`opentsdb_tpu_torch.ops.fused`) run complete
+    data, and the dense PyTorch path (:func:`run_pipeline_dense`) data
+    with NaN holes, an option the kernels decline, or float64 on CUDA;
+  - ``padded``: irregular rows (jittered or dropped points) of a
+    :data:`~.downsample.PADDED_FNS` function within the
+    :data:`_PADDED_EINSUM_MAX_CELLS` budget, downsampled by
+    :func:`.downsample.bucketize_padded` (:func:`run_pipeline_padded`);
+  - ``flat``: anything else (the rank downsample functions, a union
+    grid of many timestamps, a skewed batch the engine materialized
+    flat), a point batch sorted by (series, time) downsampled by
+    segmented reductions (:func:`run_pipeline`).
+
+  ``execute_auto`` and ``execute`` are upload and run in one call.
 - the grid path: the store has already downsampled the window to a
   ``[S, B]`` grid (``TimeSeriesStore.bucket_reduce``); ``put_grid``
   uploads it and ``execute_grid`` runs the pipeline's tail on it.
@@ -28,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from opentsdb_tpu_torch.core.store import pad_mask
 from opentsdb_tpu_torch.ops import aggregators as aggs_mod
 from opentsdb_tpu_torch.ops import downsample as ds_mod
 from opentsdb_tpu_torch.ops import fused
@@ -98,9 +108,9 @@ def _finish_pipeline(grid, has_data, bucket_ts, group_ids,
     agg = aggs_mod.get(spec.agg_name)
     interpolate = spec.fill_policy == ds_mod.FillPolicy.NONE \
         and not spec.complete
-    group_ids = group_ids.long()
+    plan = gb_mod.GroupPlan(group_ids, g)
     result = gb_mod.group_aggregate(grid, bucket_ts, group_ids, g, agg,
-                                    interpolate=interpolate)
+                                    interpolate=interpolate, plan=plan)
 
     # emission: fill NONE emits the union of the group's series' buckets;
     # any other policy emits every bucket (FillingDownsampler)
@@ -108,9 +118,8 @@ def _finish_pipeline(grid, has_data, bucket_ts, group_ids,
     if spec.complete and not spec.rate:
         emit = ones
     elif spec.fill_policy == ds_mod.FillPolicy.NONE:
-        # any series present: a max, exact in any order of the scatter
-        emit = gb_mod._group_extremum(has_data.to(grid.dtype),
-                                      group_ids, g, "max") > 0
+        # any series present
+        emit = plan.max(has_data.to(grid.dtype)) > 0
     else:
         emit = ones
     return result, emit
@@ -156,6 +165,61 @@ def run_pipeline_dense(values2d, bucket_ts, group_ids, ro: RateOptions,
                             spec)
 
 
+def run_pipeline(values, series_idx, bucket_idx, bucket_ts, group_ids,
+                 ro: RateOptions, spec: PipelineSpec):
+    """Flat path: values [N], series_idx [N], bucket_idx [N] (sorted
+    by series, then time), bucket_ts [B] int64 relative ms, group_ids
+    [S] -> (result [G, B] or [S, B], emit mask of the same shape)."""
+    grid, cnt = ds_mod.bucketize(values, series_idx, bucket_idx,
+                                 spec.num_series, spec.num_buckets,
+                                 spec.ds_function)
+    return _finish_pipeline(grid, cnt > 0, bucket_ts, group_ids, ro, spec)
+
+
+def run_pipeline_padded(values2d, bucket_idx2d, bucket_ts, group_ids,
+                        ro: RateOptions, spec: PipelineSpec):
+    """Irregular data in the row-padded layout: values2d [S, Pmax]
+    NaN-padded, bucket_idx2d [S, Pmax] with -1 for pads; downsampled
+    without a scatter (:func:`.downsample.bucketize_padded`), then the
+    shared fill/rate/interpolate/aggregate tail."""
+    grid, cnt = ds_mod.bucketize_padded(values2d, bucket_idx2d,
+                                        spec.num_buckets,
+                                        spec.ds_function)
+    return _finish_pipeline(grid, cnt > 0, bucket_ts, group_ids, ro, spec)
+
+
+def detect_dense(num_series: int, num_buckets: int,
+                 series_idx: np.ndarray, bucket_idx: np.ndarray,
+                 ds_function: str) -> int | None:
+    """Regular-cadence check on a flat batch: every series contributes
+    the same P points in the same bucket pattern, each bucket exactly
+    k = P / B consecutive points. Returns k, or None."""
+    if ds_function not in _DENSE_FNS:
+        return None
+    n = len(series_idx)
+    if num_series == 0 or n == 0 or n % num_series != 0:
+        return None
+    p = n // num_series
+    if p % num_buckets != 0:
+        return None
+    k = p // num_buckets
+    sgrid = series_idx.reshape(num_series, p)
+    if not (sgrid == np.arange(num_series,
+                               dtype=sgrid.dtype)[:, None]).all():
+        return None
+    bgrid = bucket_idx.reshape(num_series, p)
+    expected = np.repeat(np.arange(num_buckets, dtype=bgrid.dtype), k)
+    if not (bgrid == expected[None, :]).all():
+        return None
+    return k
+
+
+# the reference's traffic budget for its padded [S, Pmax, B] compare;
+# the port reduces each bucket's band of columns instead, but takes the
+# same layout decisions
+_PADDED_EINSUM_MAX_CELLS = 2 * 10**9
+
+
 def detect_regular_padded(counts: np.ndarray, bucket_idx2d: np.ndarray,
                           num_buckets: int) -> int | None:
     """Regular-cadence check on the padded layout: every row full to the
@@ -177,11 +241,32 @@ def detect_regular_padded(counts: np.ndarray, bucket_idx2d: np.ndarray,
     return k
 
 
+def flatten_padded(values2d: np.ndarray, bucket_idx2d: np.ndarray,
+                   counts: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Padded -> flat (values, series_idx, bucket_idx), in (series,
+    time) order."""
+    mask = ~pad_mask(counts, values2d.shape[1])
+    series_idx = np.repeat(np.arange(values2d.shape[0], dtype=np.int32),
+                           counts.astype(np.int64))
+    return (values2d[mask], series_idx,
+            bucket_idx2d[mask].astype(np.int32))
+
+
 def device_bucket_ts(bucket_ts: np.ndarray) -> np.ndarray:
     """Bucket timestamps as int64 ms offsets from the first bucket: the
     kernels only use timestamp differences, which stay exact."""
     rel = np.asarray(bucket_ts, dtype=np.int64)
     return rel - rel[0] if len(rel) else rel
+
+
+def _query_operands(bucket_ts: np.ndarray, group_ids: np.ndarray,
+                    device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-query operands on ``device``: relative bucket times and
+    int32 group ids."""
+    return (torch.as_tensor(device_bucket_ts(bucket_ts)).to(device),
+            torch.as_tensor(np.asarray(group_ids, dtype=np.int32))
+            .to(device))
 
 
 def upload(values2d: np.ndarray, dtype: torch.dtype,
@@ -240,11 +325,8 @@ def execute_grid(grid, has_data, bucket_ts: np.ndarray,
     """Entry over an uploaded ``[S, B]`` grid (:func:`put_grid`) ->
     (result, emit) tensors on the grid's device, ``[G, B]`` or, for
     ``emit_raw``, ``[S, B]``."""
-    dev = grid.device
     return run_pipeline_grid(
-        grid, has_data,
-        torch.as_tensor(device_bucket_ts(bucket_ts)).to(dev),
-        torch.as_tensor(np.asarray(group_ids, dtype=np.int32)).to(dev),
+        grid, has_data, *_query_operands(bucket_ts, group_ids, grid.device),
         rate_options or RateOptions(), spec)
 
 
@@ -259,11 +341,9 @@ def _run_dense_or_fused(values: torch.Tensor, bucket_ts: np.ndarray,
         return fused.fused_dense_pipeline(
             values, np.asarray(bucket_ts), np.asarray(group_ids), spec, k,
             rate_options=ro)
-    dev = values.device
     return run_pipeline_dense(
-        values, torch.as_tensor(device_bucket_ts(bucket_ts)).to(dev),
-        torch.as_tensor(np.asarray(group_ids, dtype=np.int32)).to(dev),
-        ro, spec, k)
+        values, *_query_operands(bucket_ts, group_ids, values.device), ro,
+        spec, k)
 
 
 @dataclass(frozen=True)
@@ -272,9 +352,10 @@ class PreparedBatch:
     run again: the engine caches these so a warm query pays neither the
     host materialize nor the transfer.
 
-    kind ``dense``: ``arrays = (values2d,)``, ``k`` points per bucket.
-    The reference's ``padded`` and ``flat`` kinds (irregular batches)
-    are not ported yet."""
+    kind ``dense``: ``arrays = (values2d,)``, ``k`` points per bucket;
+    kind ``padded``: ``arrays = (values2d, bucket_idx2d)``;
+    kind ``flat``: ``arrays = (values, series_idx, bucket_idx)``, the
+    points in (series, time) order."""
     kind: str
     arrays: tuple
     k: int | None = None
@@ -287,18 +368,51 @@ class PreparedBatch:
 def prepare_auto(padded, bucket_idx2d: np.ndarray, spec: PipelineSpec,
                  *, dtype: torch.dtype, device) -> PreparedBatch:
     """Layout-detect and upload a row-padded batch
-    (``core.store.PaddedBatch``). Regular batches of the dense
-    downsample functions become a ``dense`` batch; anything else raises
-    NotImplementedError (not ported yet)."""
-    k = detect_regular_padded(np.asarray(padded.counts),
-                              np.asarray(bucket_idx2d), spec.num_buckets)
-    if k is None or spec.ds_function not in _DENSE_FNS:
-        raise NotImplementedError(
-            "only regular-cadence batches (every series with the same "
-            "k points per bucket) and the dense downsample functions "
-            "are ported yet")
-    return PreparedBatch("dense", (upload(padded.values2d, dtype,
-                                          device),), k)
+    (``core.store.PaddedBatch``), with the reference's rules: regular
+    batches of the dense downsample functions become ``dense``;
+    irregular ones of a :data:`~.downsample.PADDED_FNS` function within
+    :data:`_PADDED_EINSUM_MAX_CELLS` become ``padded``; anything else
+    is flattened to ``flat``."""
+    values2d = np.asarray(padded.values2d)
+    counts = np.asarray(padded.counts)
+    bucket_idx2d = np.asarray(bucket_idx2d)
+    k = detect_regular_padded(counts, bucket_idx2d, spec.num_buckets)
+    if k is not None and spec.ds_function in _DENSE_FNS:
+        return PreparedBatch("dense", (upload(values2d, dtype, device),),
+                             k)
+    cells = values2d.shape[0] * values2d.shape[1] * spec.num_buckets
+    if ds_mod.padded_supported(spec.ds_function, spec.num_buckets) \
+            and cells <= _PADDED_EINSUM_MAX_CELLS:
+        return PreparedBatch("padded", (
+            upload(values2d, dtype, device),
+            upload(bucket_idx2d, torch.int32, device)))
+    return prepare_flat(*flatten_padded(values2d, bucket_idx2d, counts),
+                        spec, dtype=dtype, device=device)
+
+
+def prepare_flat(values: np.ndarray, series_idx: np.ndarray,
+                 bucket_idx: np.ndarray, spec: PipelineSpec, *,
+                 dtype: torch.dtype, device) -> PreparedBatch:
+    """Layout-detect and upload a flat point batch: ``dense`` when it
+    is regular (:func:`detect_dense`), else ``flat``. A batch that is
+    not in (series, time) order is put in it first by a stable sort
+    (the points of one bucket keep their order)."""
+    values = np.asarray(values)
+    series_idx = np.asarray(series_idx)
+    bucket_idx = np.asarray(bucket_idx)
+    k = detect_dense(spec.num_series, spec.num_buckets, series_idx,
+                     bucket_idx, spec.ds_function)
+    if k is not None:
+        return PreparedBatch("dense", (upload(
+            values.reshape(spec.num_series, -1), dtype, device),), k)
+    seg = series_idx.astype(np.int64) * spec.num_buckets + bucket_idx
+    if len(seg) > 1 and (seg[1:] < seg[:-1]).any():
+        order = np.argsort(seg, kind="stable")
+        values, series_idx, bucket_idx = (values[order], series_idx[order],
+                                          bucket_idx[order])
+    return PreparedBatch("flat", (upload(values, dtype, device),
+                                  upload(series_idx, torch.int32, device),
+                                  upload(bucket_idx, torch.int32, device)))
 
 
 def run_prepared(prep: PreparedBatch, bucket_ts: np.ndarray,
@@ -311,11 +425,30 @@ def run_prepared(prep: PreparedBatch, bucket_ts: np.ndarray,
     point path does, so a warm hit on the card launches the same
     kernels. The reference's ``run_prepared`` runs its dense XLA path
     instead: the same function with the additions in another order."""
-    if prep.kind != "dense":
-        raise NotImplementedError(
-            f"{prep.kind!r} prepared batches are not ported yet")
-    return _run_dense_or_fused(prep.arrays[0], bucket_ts, group_ids, spec,
-                               prep.k, rate_options or RateOptions())
+    ro = rate_options or RateOptions()
+    if prep.kind == "dense":
+        return _run_dense_or_fused(prep.arrays[0], bucket_ts, group_ids,
+                                   spec, prep.k, ro)
+    bts, gids = _query_operands(bucket_ts, group_ids,
+                                prep.arrays[0].device)
+    if prep.kind == "padded":
+        return run_pipeline_padded(*prep.arrays, bts, gids, ro, spec)
+    if prep.kind == "flat":
+        return run_pipeline(*prep.arrays, bts, gids, ro, spec)
+    raise ValueError(f"unknown prepared batch kind {prep.kind!r}")
+
+
+def execute(batch_values: np.ndarray, series_idx: np.ndarray,
+            bucket_idx: np.ndarray, bucket_ts: np.ndarray,
+            group_ids: np.ndarray, spec: PipelineSpec,
+            rate_options: RateOptions | None, *, dtype: torch.dtype,
+            device):
+    """Host entry over a flat point batch -> (result, emit) tensors on
+    ``device``: upload and run, as :func:`prepare_flat` and
+    :func:`run_prepared`."""
+    return run_prepared(prepare_flat(batch_values, series_idx, bucket_idx,
+                                     spec, dtype=dtype, device=device),
+                        bucket_ts, group_ids, spec, rate_options)
 
 
 def execute_auto(padded, bucket_idx2d: np.ndarray,

@@ -11,11 +11,13 @@ Port of ``opentsdb_tpu/query/engine.py``'s ``QueryEngine.run`` ->
    ``[S, B]`` grid (``TimeSeriesStore.bucket_reduce``), uploaded once
    and kept in the TSDB's device cache, and only the pipeline's tail
    runs on the device (``ops.pipeline.execute_grid``)
-5. otherwise the point path: materialize the row-padded batch and its
-   time grid (downsample buckets, or the union of distinct timestamps
-   without a downsample), upload it as a prepared batch, kept in the
-   device cache when that is on, and run it (``ops.pipeline.
-   run_prepared``: the fused kernels or the dense path)
+5. otherwise the point path: materialize the window's points, row-padded
+   or, when the rows' lengths are too skewed to pad, flat; build their
+   time grid (downsample buckets, fixed or calendar, or the union of
+   distinct timestamps without a downsample); upload them as a prepared
+   batch, kept in the device cache when that is on, and run it
+   (``ops.pipeline.run_prepared``: the fused kernels or the dense path
+   for regular data, the padded or flat path for irregular data)
 6. result assembly with the reference's tags/aggregateTags semantics
 
 Around ``_run_sub`` sit the reference's serve-path mechanisms: the
@@ -35,6 +37,7 @@ query too large for the grid path takes the point path whole.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
@@ -43,8 +46,8 @@ from opentsdb_tpu_torch.core import store as store_mod
 from opentsdb_tpu_torch.ops import downsample as ds_mod
 from opentsdb_tpu_torch.ops.pipeline import (PipelineSpec, execute_grid,
                                              grid_from_reduce,
-                                             prepare_auto, put_grid,
-                                             run_prepared)
+                                             prepare_auto, prepare_flat,
+                                             put_grid, run_prepared)
 from opentsdb_tpu_torch.query import filters as filters_mod
 from opentsdb_tpu_torch.query import result_cache as rc_mod
 from opentsdb_tpu_torch.query.device_cache import array_digest
@@ -64,6 +67,12 @@ DEFAULT_CELL_BUDGET = 1 << 26
 # statistics (sum/count/min/max; avg is sum over count)
 _GRID_FNS = frozenset(("sum", "zimsum", "pfsum", "count", "min",
                        "mimmin", "max", "mimmax", "avg"))
+# the padded layout's limits (ref: engine.py:371-373): a batch whose
+# S * Pmax exceeds both 4x its points and 10M cells (one long series
+# among many short ones), or 500M cells at all, is materialized flat
+_PADDED_SKEW_FACTOR = 4
+_PADDED_MIN_CELLS = 10_000_000
+_PADDED_ABS_MAX_CELLS = 500_000_000
 
 
 def grid_cache_key(store, sids: np.ndarray, start_ms: int, end_ms: int,
@@ -84,6 +93,23 @@ def _agg_class(agg, num_groups: int) -> str | tuple:
     if agg.name == "median" or agg.percentile is not None:
         return ("rank", num_groups)
     return "lin"
+
+
+@dataclass
+class PointGrid:
+    """One sub-query's materialized points and their time grid: a
+    row-padded batch with ``bucket_idx`` [S, Pmax] (-1 pads), or a flat
+    batch with ``bucket_idx`` [N]; the bucket times and the downsample
+    that the pipeline runs over them."""
+    padded: store_mod.PaddedBatch | None
+    batch: store_mod.PointBatch | None
+    bucket_idx: np.ndarray
+    bucket_ts: np.ndarray
+    ds_function: str
+    fill_policy: ds_mod.FillPolicy
+    fill_value: float
+    # every (series, bucket) cell holds a value: a property of the data
+    complete: bool
 
 
 class QueryResult:
@@ -367,6 +393,9 @@ class QueryEngine:
                     array_digest(np.ascontiguousarray(sids)),
                     tsq.start_ms, tsq.end_ms, sub.downsample or "union",
                     getattr(sub.ds_spec, "timezone", None),
+                    # the query-level useCalendar aligns the same
+                    # downsample string to other buckets
+                    getattr(sub.ds_spec, "use_calendar", False),
                     _agg_class(sub.agg, num_groups))
             pver = store.version
             hit = cache.get(pkey, pver)
@@ -375,50 +404,99 @@ class QueryEngine:
                                           tag_mat, group_ids, num_groups,
                                           emit_raw)
 
-        # --- materialize + time grid (row-padded layout)
-        padded = store.materialize_padded(sids, tsq.start_ms, tsq.end_ms)
-        if padded.num_points == 0:
+        # --- materialize + time grid
+        points = self._materialize_points(store, sids, tsq)
+        if points.num_points == 0:
             return []
-        grid_complete = False
-        if sub.ds_spec is not None:
-            ds_function = sub.ds_spec.function
-            fill_policy = sub.ds_spec.fill_policy
-            fill_value = sub.ds_spec.fill_value
-            bucket_idx2d, bucket_ts = ds_mod.assign_buckets_padded(
-                padded.ts2d, padded.counts, sub.ds_spec, tsq.start_ms,
-                tsq.end_ms)
-        else:
-            # union-of-timestamps grid: every distinct input timestamp
-            # is an output point, like the reference's merge iterator
-            ds_function = "sum"  # one point per (series, ts) after dedupe
-            fill_policy = ds_mod.FillPolicy.NONE
-            fill_value = float("nan")
-            bucket_idx2d, bucket_ts, grid_complete = \
-                self._union_grid(padded)
+        grid = self._time_grid(sub, tsq, points)
+        spec = self._point_spec(sub, len(sids), num_groups, emit_raw,
+                                grid.bucket_ts, grid.ds_function,
+                                grid.fill_policy, grid.fill_value,
+                                grid.complete)
+        prep = self._prepare_points(grid, spec)
+        if cache is not None:
+            cache.put(pkey, pver, (prep,), {
+                "bucket_ts": grid.bucket_ts,
+                "ds_function": grid.ds_function,
+                "fill_policy": grid.fill_policy,
+                "fill_value": grid.fill_value, "complete": grid.complete})
+        result, emit = run_prepared(prep, grid.bucket_ts, group_ids, spec,
+                                    sub.rate_options)
+        return self._build_results(
+            tsq, sub, metric_id, sids, tag_mat, group_ids, num_groups,
+            grid.bucket_ts, result.cpu().numpy(), emit.cpu().numpy())
 
-        spec = PipelineSpec(
-            num_series=len(sids), num_buckets=len(bucket_ts),
+    @staticmethod
+    def _materialize_points(store, sids: np.ndarray, tsq: TSQuery):
+        """The window's points, row-padded unless the rows' lengths are
+        too skewed (ref: the padded/flat choice of ``_run_sub``): a
+        ``PaddedBatch`` or a flat ``PointBatch``."""
+        counts = store.count_range(sids, tsq.start_ms, tsq.end_ms)
+        total = int(counts.sum())
+        cells = len(sids) * (int(counts.max()) if len(counts) else 0)
+        if total > 0 and cells <= max(_PADDED_SKEW_FACTOR * total,
+                                      _PADDED_MIN_CELLS) \
+                and cells <= _PADDED_ABS_MAX_CELLS:
+            return store.materialize_padded(sids, tsq.start_ms, tsq.end_ms)
+        return store.materialize(sids, tsq.start_ms, tsq.end_ms)
+
+    def _time_grid(self, sub: TSSubQuery, tsq: TSQuery,
+                   points) -> PointGrid:
+        """Bucket the points of ``points`` (a ``PaddedBatch`` or a
+        ``PointBatch``): the downsample's fixed or calendar buckets, or
+        without a downsample the union of distinct timestamps, one
+        point per (series, timestamp)."""
+        padded = points if isinstance(points, store_mod.PaddedBatch) \
+            else None
+        batch = None if padded is not None else points
+        complete = False
+        if sub.ds_spec is not None:
+            ds = sub.ds_spec
+            if padded is not None:
+                bidx, bts = ds_mod.assign_buckets_padded(
+                    padded.ts2d, padded.counts, ds, tsq.start_ms,
+                    tsq.end_ms)
+            else:
+                bidx, bts = ds_mod.assign_buckets(batch.ts_ms, ds,
+                                                  tsq.start_ms, tsq.end_ms)
+            return PointGrid(padded, batch, bidx, bts, ds.function,
+                             ds.fill_policy, ds.fill_value, complete)
+        if padded is not None:
+            bidx, bts, complete = self._union_grid(padded)
+        else:
+            bts, bidx = np.unique(batch.ts_ms, return_inverse=True)
+            bidx = bidx.astype(np.int32)
+        return PointGrid(padded, batch, bidx, bts, "sum",
+                         ds_mod.FillPolicy.NONE, float("nan"), complete)
+
+    @staticmethod
+    def _point_spec(sub: TSSubQuery, num_series: int, num_groups: int,
+                    emit_raw: bool, bucket_ts: np.ndarray,
+                    ds_function: str, fill_policy, fill_value: float,
+                    complete: bool) -> PipelineSpec:
+        return PipelineSpec(
+            num_series=num_series, num_buckets=len(bucket_ts),
             num_groups=num_groups, ds_function=ds_function,
             agg_name=sub.agg.name, fill_policy=fill_policy,
             fill_value=fill_value, rate=sub.rate,
             rate_counter=sub.rate_options.counter,
             rate_drop_resets=sub.rate_options.drop_resets,
             emit_raw=emit_raw,
-            complete=grid_complete
+            # drop_resets punches holes per series after the downsample
+            complete=complete
             and not (sub.rate and sub.rate_options.drop_resets))
-        prep = prepare_auto(padded, bucket_idx2d, spec,
-                            dtype=self.tsdb.dtype, device=self.tsdb.device)
-        if cache is not None:
-            # complete is a property of the data: a hit keeps it
-            cache.put(pkey, pver, (prep,), {
-                "bucket_ts": bucket_ts, "ds_function": ds_function,
-                "fill_policy": fill_policy, "fill_value": fill_value,
-                "complete": grid_complete})
-        result, emit = run_prepared(prep, bucket_ts, group_ids, spec,
-                                    sub.rate_options)
-        return self._build_results(
-            tsq, sub, metric_id, sids, tag_mat, group_ids, num_groups,
-            bucket_ts, result.cpu().numpy(), emit.cpu().numpy())
+
+    def _prepare_points(self, grid: PointGrid, spec: PipelineSpec):
+        """Upload a sub-query's points as a prepared batch in the
+        layout the reference would pick (``prepare_auto`` or
+        ``prepare_flat``)."""
+        dev, dtype = self.tsdb.device, self.tsdb.dtype
+        if grid.padded is not None:
+            return prepare_auto(grid.padded, grid.bucket_idx, spec,
+                                dtype=dtype, device=dev)
+        return prepare_flat(grid.batch.values, grid.batch.series_idx,
+                            grid.bucket_idx, spec, dtype=dtype,
+                            device=dev)
 
     def _run_prep_hit(self, hit, tsq: TSQuery, sub: TSSubQuery,
                       metric_id: int, sids: np.ndarray,
@@ -429,16 +507,10 @@ class QueryEngine:
         ``_run_prep_hit``). A failure raises: there is no cold retry."""
         (prep,), meta = hit
         bucket_ts = meta["bucket_ts"]
-        spec = PipelineSpec(
-            num_series=len(sids), num_buckets=len(bucket_ts),
-            num_groups=num_groups, ds_function=meta["ds_function"],
-            agg_name=sub.agg.name, fill_policy=meta["fill_policy"],
-            fill_value=meta["fill_value"], rate=sub.rate,
-            rate_counter=sub.rate_options.counter,
-            rate_drop_resets=sub.rate_options.drop_resets,
-            emit_raw=emit_raw,
-            complete=meta["complete"]
-            and not (sub.rate and sub.rate_options.drop_resets))
+        spec = self._point_spec(sub, len(sids), num_groups, emit_raw,
+                                bucket_ts, meta["ds_function"],
+                                meta["fill_policy"], meta["fill_value"],
+                                meta["complete"])
         result, emit = run_prepared(prep, bucket_ts, group_ids, spec,
                                     sub.rate_options)
         return self._build_results(

@@ -1,17 +1,18 @@
 """Tag-value filters (ref: ``src/query/filter/TagVFilter.java`` and
 subclasses).
 
-The filter types ported so far: ``literal_or``,
-``not_literal_or``, ``wildcard`` and ``iwildcard`` (plus their
-case-insensitive literal twins), with the ``type(expr)`` shorthand and
-the old-style tag-map conversion (``*`` -> iwildcard group-by, ``a|b``
--> literal_or group-by, exact value -> literal_or non-grouping; ref
-TagVFilter.tagsToFilters). ``regexp`` and ``not_key`` arrive with a
-later slice and raise NotImplementedError.
+All the reference's filter types: ``literal_or``, ``iliteral_or``,
+``not_literal_or``, ``not_iliteral_or``, ``wildcard``, ``iwildcard``,
+``regexp`` and ``not_key``, with the ``type(expr)`` shorthand and the
+old-style tag-map conversion (``*`` -> iwildcard group-by, ``a|b`` ->
+literal_or group-by, exact value -> literal_or non-grouping; ref
+TagVFilter.tagsToFilters).
 
 Evaluation is vectorized: a filter resolves the set of matching tagv
 UIDs once over the distinct values of the metric, then the series mask
-is a numpy ``isin`` over the metric's columnar tag index.
+is a numpy ``isin`` over the metric's columnar tag index. ``not_key``
+matches the series that lack its key (``match_absent`` and not
+``includes_present``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from typing import Sequence
 import numpy as np
 
 _FILTER_RE = re.compile(r"^(\w+)\((.*)\)$", re.DOTALL)
-_NOT_PORTED = ("regexp", "not_key")
 
 
 class TagVFilter:
@@ -44,6 +44,16 @@ class TagVFilter:
 
     def match_value(self, value: str) -> bool:
         raise NotImplementedError
+
+    @property
+    def match_absent(self) -> bool:
+        """True when series *lacking* the tag key match (not_key)."""
+        return False
+
+    @property
+    def includes_present(self) -> bool:
+        """True when series having the key may match."""
+        return True
 
     def __repr__(self) -> str:
         return (f"{self.filter_name}(tagk={self.tagk}, "
@@ -114,21 +124,55 @@ class TagVIWildcardFilter(TagVWildcardFilter):
     case_insensitive = True
 
 
+class TagVRegexFilter(TagVFilter):
+    """``regexp(pattern)``, matched from the start of the value (ref:
+    TagVRegexFilter.java:28)."""
+    filter_name = "regexp"
+
+    def post_init(self) -> None:
+        self._regex = re.compile(self.filter_expr)
+
+    def match_value(self, value: str) -> bool:
+        return self._regex.match(value) is not None
+
+
+class TagVNotKeyFilter(TagVFilter):
+    """Matches the series that do NOT have the tag key at all (ref:
+    TagVNotKeyFilter.java:10). Cannot group by."""
+    filter_name = "not_key"
+
+    def post_init(self) -> None:
+        if self.filter_expr:
+            raise ValueError(
+                "Filter value must be null or empty for not_key")
+        if self.group_by:
+            raise ValueError("cannot group by with a not_key filter")
+
+    def match_value(self, value: str) -> bool:
+        return False
+
+    @property
+    def match_absent(self) -> bool:
+        return True
+
+    @property
+    def includes_present(self) -> bool:
+        return False
+
+
 _FILTER_TYPES: dict[str, type[TagVFilter]] = {
     cls.filter_name: cls for cls in (
         TagVLiteralOrFilter, TagVILiteralOrFilter, TagVNotLiteralOrFilter,
-        TagVNotILiteralOrFilter, TagVWildcardFilter, TagVIWildcardFilter)
+        TagVNotILiteralOrFilter, TagVWildcardFilter, TagVIWildcardFilter,
+        TagVRegexFilter, TagVNotKeyFilter)
 }
 
 
 def _filter_class(ftype: str) -> type[TagVFilter]:
     cls = _FILTER_TYPES.get(ftype)
-    if cls is not None:
-        return cls
-    if ftype in _NOT_PORTED:
-        raise NotImplementedError(
-            f"filter type {ftype!r} is not ported yet")
-    raise ValueError(f"Unrecognized filter type: {ftype}")
+    if cls is None:
+        raise ValueError(f"Unrecognized filter type: {ftype}")
+    return cls
 
 
 def get_filter(tagk: str, expr: str, group_by: bool = False) -> TagVFilter:
@@ -192,8 +236,10 @@ class FilterEvaluator:
             try:
                 kid = self._uids.tag_names.get_id(tagk)
             except LookupError:
-                # unknown tag key: no series can match a value filter
-                return np.zeros(len(sids), dtype=bool)
+                # unknown tag key: only not_key filters can match
+                if not all(f.match_absent for f in flist):
+                    return np.zeros(len(sids), dtype=bool)
+                continue
             rows = tag_triples[tag_triples[:, 1] == kid]
             has_key = np.zeros(len(sids), dtype=bool)
             series_tagv = np.full(len(sids), -1, dtype=np.int64)
@@ -204,7 +250,12 @@ class FilterEvaluator:
             has_key[pos] = True
             series_tagv[pos] = rows[valid, 2]
             cand = np.unique(series_tagv[has_key])
+            # same-key filters AND together like the reference's per-key
+            # chain (all must pass)
             for f in flist:
-                matched = self.matching_tagv_ids(f, cand)
-                keep &= has_key & np.isin(series_tagv, matched)
+                if f.match_absent and not f.includes_present:
+                    keep &= ~has_key
+                else:
+                    matched = self.matching_tagv_ids(f, cand)
+                    keep &= has_key & np.isin(series_tagv, matched)
         return keep

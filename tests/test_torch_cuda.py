@@ -3,13 +3,13 @@ card. Marked ``cuda``: each test skips when no card is present and runs
 on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 
 Tolerance: per cell ``|kernel - plain| <= 1e-5 * sum|terms| + 1e-6``
-(float32 sums in another order; the one-hot kernel's float atomics
-change the order from run to run); emit masks and NaN positions equal.
+(float32 sums in another order); emit masks and NaN positions equal.
 The plain answer adds the float32 terms' group sums in float64
 (``plain_reduce(exact=True)``), so only the kernel's rounding counts.
-The span kernel is deterministic: two launches agree bitwise, and so
-do two calls of the grid tail, whose group sums follow a fixed order.
-A two-sub query fans out and launches each kernel once.
+Both kernels are deterministic: each adds in the order that
+``test_torch_span_order`` sets out, bit for bit, and 20 launches agree
+bitwise; so do two calls of the grid tail, whose group sums follow a
+fixed order. A two-sub query fans out and launches each kernel once.
 """
 
 import numpy as np
@@ -19,7 +19,7 @@ import torch
 from opentsdb_tpu_torch.ops import fused
 from opentsdb_tpu_torch.ops.pipeline import PipelineSpec
 from opentsdb_tpu_torch.ops.rate import RateOptions
-from test_torch_span_order import span_tree_sums
+from test_torch_span_order import onehot_run_sums, span_tree_sums
 
 pytestmark = pytest.mark.cuda
 
@@ -101,8 +101,8 @@ def test_kernel_counter_rate(card, allow_span):
 
 
 def test_onehot_group_chunks(card):
-    """G * B * 4 above the one-hot kernel's shared accumulator budget:
-    the block walks its rows once per group chunk."""
+    """4000 groups of under one row each on average: most warp tiles
+    hold many runs, and many groups are empty."""
     _case(card, "sum", "sum", True, False, False, s=3000, b=13, k=2,
           g=4000)
 
@@ -147,10 +147,9 @@ def test_onehot_group_extremes(card, g):
 
 @pytest.mark.parametrize("b,g", [(13_000, 3), (26_000, 2)])
 def test_onehot_long_rows(card, b, g):
-    """Rows whose buckets crowd the shared accumulator: past 12,928
-    buckets 1/dt stays in global memory and the accumulator holds one
-    group's row; past 25,856 it holds part of one, and the kernel walks
-    the rows once per bucket chunk."""
+    """Rows of many buckets: past 25,856 buckets 1/dt does not fit
+    beside the rings and stays in global memory; the combine takes the
+    buckets in passes of 256."""
     _case(card, "sum", "sum", True, True, False, s=100, b=b, k=1, g=g)
 
 
@@ -247,6 +246,59 @@ def test_span_tree_order(card, ds_fn, rate):
     np.testing.assert_array_equal(acc.cpu().numpy(), want)
 
 
+@pytest.mark.parametrize("ds_fn,rate", [("sum", False), ("avg", True)])
+def test_onehot_tree_order(card, ds_fn, rate):
+    """The one-hot kernel adds in the order that ``onehot_run_sums``
+    sets out (2000 unsorted groups, several runs to a warp tile, groups
+    across warp tiles, a ragged last tile): its group sums equal that
+    order's float32 sums of the plain transform bit for bit."""
+    s, b, k, g = 70_001, 12, 5, 2000
+    rng = np.random.default_rng(13)
+    vals = rng.normal(100.0, 15.0, (s, b * k))
+    gids = rng.integers(0, g, s).astype(np.int32)
+    spec = PipelineSpec(num_series=s, num_buckets=b, num_groups=g,
+                        ds_function=ds_fn, agg_name="sum", rate=rate)
+    ts = np.arange(b, dtype=np.int64) * 60_000
+    batch = fused.prepare(torch.as_tensor(vals, dtype=torch.float32,
+                                          device=card), ts, gids, spec)
+    assert batch.spans is None and batch.order is not None
+    cm, rv = float(2**64 - 1), 0.0
+    acc = fused.onehot_reduce(batch.values, batch.order, batch.gids,
+                              batch.group_start, batch.inv_dt, spec, k,
+                              cm, rv)
+    t = fused._in_group_order(
+        fused._transform_plain(batch.values.cpu(), batch.inv_dt.cpu(),
+                               spec, k, cm, rv), batch.order.cpu())
+    want = onehot_run_sums(t.numpy(), batch.gids.cpu().numpy(), g)
+    np.testing.assert_array_equal(acc.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("grouping", ["rack", "dc"])
+def test_onehot_deterministic(card, grouping):
+    """20 launches of the one-hot kernel on one batch give the same
+    bits: 2000 unsorted groups (config 3's ``rack``: i % 2000), and the
+    ``dc`` grouping (i % 100, thousands of rows of one group in a block)
+    forced onto the one-hot layout."""
+    s, b, k = 400_000, 12, 5
+    g = 2000 if grouping == "rack" else 100
+    rng = np.random.default_rng(0)
+    vals = torch.as_tensor(rng.normal(100.0, 15.0, (s, b * k)),
+                           dtype=torch.float32, device=card)
+    gids = (np.arange(s) % g).astype(np.int32)
+    spec = PipelineSpec(num_series=s, num_buckets=b, num_groups=g,
+                        ds_function="avg", agg_name="sum", rate=True)
+    ts = np.arange(b, dtype=np.int64) * 300_000
+    batch = fused.prepare(vals, ts, gids, spec, allow_span=False)
+    assert batch.spans is None
+    cm, rv = float(2**64 - 1), 0.0
+    runs = [fused.onehot_reduce(batch.values, batch.order, batch.gids,
+                                batch.group_start, batch.inv_dt, spec, k,
+                                cm, rv) for _ in range(20)]
+    torch.cuda.synchronize()
+    for r in runs[1:]:
+        assert torch.equal(r.view(torch.int32), runs[0].view(torch.int32))
+
+
 def _card_tsdb(card, **keys):
     """A TSDB on the card holding 3000 series x 60 points at one a
     minute (seed 0), tagged dc (i % 100) and rack (i % 1500). The
@@ -340,7 +392,7 @@ def test_fanout_launches_each_kernel_once(card):
     """A two-sub TSQuery at grid_reduce=false with both caches off fans
     out: K1 ({dc=*}, 100 groups) and K2 ({rack=*}, 1500 groups) launch
     exactly once each, from two threads, and each sub answers as it
-    does alone (K1 bit for bit, K2 within the kernels' tolerance)."""
+    does alone, bit for bit."""
     from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
     t = _card_tsdb(card, **{"tsd.query.grid_reduce": "false",
                             "tsd.query.device_cache_mb": "0"})
@@ -360,12 +412,82 @@ def test_fanout_launches_each_kernel_once(card):
             assert r.tags == a.tags
             np.testing.assert_array_equal(r.dps_arrays[0],
                                           a.dps_arrays[0])
-            if r.sub_query_index == 0:
-                np.testing.assert_array_equal(r.dps_arrays[1],
-                                              a.dps_arrays[1])
-            else:
-                np.testing.assert_allclose(r.dps_arrays[1],
-                                           a.dps_arrays[1], rtol=1e-5,
-                                           atol=1e-6)
+            np.testing.assert_array_equal(r.dps_arrays[1],
+                                          a.dps_arrays[1])
     finally:
         t.shutdown()
+
+
+def _irregular_card_tsdb(card):
+    """A TSDB on the card holding 3000 series of jittered points (0-9 s)
+    with 2% dropped (seed 0), tagged as ``_card_tsdb``'s, at the
+    default keys but the result cache; and a CPU float64 TSDB reading
+    the same store and UIDs."""
+    from opentsdb_tpu_torch import TSDB, Config
+    t = TSDB(Config(**{"tsd.torch.device": str(card),
+                       "tsd.core.auto_create_metrics": "true",
+                       "tsd.query.cache.enable": "false"}))
+    rng = np.random.default_rng(0)
+    s, p = 3000, 60
+    ts = 1356998400 + 60 * np.arange(p) + rng.integers(0, 10, (s, p))
+    vals = rng.normal(100.0, 15.0, (s, p))
+    keep = rng.random((s, p)) >= 0.02
+    order = np.argsort(~keep, axis=1, kind="stable")
+    counts = keep.sum(axis=1)
+    t.add_series_points("m", [{"host": f"h{i}", "dc": f"dc{i % 100}",
+                               "rack": f"r{i % 1500}"} for i in range(s)],
+                        np.take_along_axis(ts, order, axis=1),
+                        np.take_along_axis(vals, order, axis=1), counts)
+    cpu = TSDB(Config(**{"tsd.torch.device": "cpu",
+                         "tsd.torch.dtype": "float64",
+                         "tsd.query.cache.enable": "false"}))
+    cpu.store, cpu.uids = t.store, t.uids
+    return t, cpu
+
+
+@pytest.mark.parametrize("m,tz,kind", [
+    ("sum:5m-last:rate:m{dc=*}", None, "padded"),
+    ("avg:10m-squareSum:m{rack=*}", None, "padded"),
+    ("p99:5m-median:m{rack=*}", None, "flat"),
+    ("ep95r7:5m-p90:m{dc=*}", None, "flat"),
+    ("avg:15mc-max:m{dc=*}", "America/New_York", "padded"),
+    ("sum:m{dc=*}", None, "padded")])
+def test_irregular_paths_on_card(card, m, tz, kind, monkeypatch):
+    """The padded, flat (rank) and calendar paths on the card answer as
+    the port on the CPU in float64 (positive values: 1e-5 relative to
+    the largest value of the row), launch neither fused kernel, and two
+    calls with the cache dropped give the same bits, as does a warm
+    prepared-batch hit."""
+    from opentsdb_tpu_torch.query import engine as engine_mod
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    t, cpu = _irregular_card_tsdb(card)
+    kinds = []
+    orig = engine_mod.run_prepared
+    monkeypatch.setattr(engine_mod, "run_prepared", lambda prep, *a, **k:
+                        kinds.append(prep.kind) or orig(prep, *a, **k))
+
+    def q():
+        return TSQuery(start="1356998400", end=str(1356998400 + 3599),
+                       timezone=tz,
+                       queries=[parse_uri_subquery(m)]).validate()
+
+    before = (fused.span_reduce.launches, fused.onehot_reduce.launches)
+    got = t.execute_query(q())
+    warm = t.execute_query(q())
+    t.drop_caches()
+    again = t.execute_query(q())
+    assert (fused.span_reduce.launches,
+            fused.onehot_reduce.launches) == before
+    assert kinds[0] == kind and t.device_grid_cache is not None
+    want = cpu.execute_query(q())
+    assert len(got) == len(want) > 0
+    for a, w, b, c in zip(got, want, warm, again):
+        assert a.tags == w.tags
+        np.testing.assert_array_equal(a.dps_arrays[0], w.dps_arrays[0])
+        scale = np.abs(w.dps_arrays[1]).max()
+        np.testing.assert_allclose(a.dps_arrays[1], w.dps_arrays[1],
+                                   rtol=1e-5, atol=1e-5 * scale)
+        for other in (b, c):
+            np.testing.assert_array_equal(
+                a.dps_arrays[1].view(np.int64),
+                other.dps_arrays[1].view(np.int64))

@@ -7,8 +7,9 @@ tail, no result cache), so the reference's queries reach
 ``execute_auto`` and the Pallas kernels (interpret mode on the CPU)
 and the port's reach its kernel wrappers. The grid path and the caches, the port's defaults, are held
 against the reference in ``test_torch_grid.py``. The reference's store
-and UID tables are exported to numpy here, in the test, and loaded into
-the port with ``core.state.load_arrays``. Results must agree in metric,
+and UID tables are exported to numpy in the tests
+(``torch_pair.export``) and loaded into the port with
+``core.state.load_arrays``. Results must agree in metric,
 tags, aggregateTags and dps (float64 on both sides, rtol 1e-9, NaN
 equal).
 """
@@ -24,6 +25,7 @@ from opentsdb_tpu_torch import TSDB, Config
 from opentsdb_tpu_torch.core.state import load_arrays
 from opentsdb_tpu_torch.ops import fused
 from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+from torch_pair import export as _export, rows as _rows
 
 # the result cache off as well: a repeat must reach the engine's paths
 CACHE_OFF = {"tsd.query.cache.enable": "false"}
@@ -60,23 +62,6 @@ def _write_reference():
     return jt
 
 
-def _export(jt, metric):
-    """One metric of a reference TSDB as plain arrays: series in
-    creation order, each tag dict in tag-key UID order."""
-    mid = jt.uids.metrics.get_id(metric)
-    sids = jt.store.series_ids_for_metric(mid)
-    _, triples = jt.store.metric_index(mid).arrays()
-    tags_list = []
-    for sid in sids:
-        rows = triples[triples[:, 0] == sid]
-        rows = rows[np.argsort(rows[:, 1])]
-        tags_list.append({jt.uids.tag_names.get_name(int(k)):
-                          jt.uids.tag_values.get_name(int(v))
-                          for _, k, v in rows})
-    padded = jt.store.materialize_padded(sids, 0, 2**62)
-    return tags_list, padded.ts2d, padded.values2d, padded.counts
-
-
 @pytest.fixture(scope="module")
 def engines():
     jt = _write_reference()
@@ -85,12 +70,6 @@ def engines():
     for metric in ("m", "c", "h"):
         load_arrays(tt, metric, *_export(jt, metric))
     return jt, tt
-
-
-def _rows(results):
-    return [(r.metric, r.tags, sorted(r.aggregated_tags),
-             [t for t, _ in r.dps], [v for _, v in r.dps])
-            for r in results]
 
 
 def _run_both(engines, query: dict):
@@ -333,13 +312,17 @@ def test_engine_keys_select_the_path(engines, keys, path, monkeypatch):
 
 
 def test_unported_query_features_raise(engines):
+    """What is still not ported raises NotImplementedError; a ``p99``
+    aggregator, which raised before the rank aggregators' port, now
+    answers as the reference does."""
     _, tt = engines
+    _run_both(engines, {"start": str(T0), "end": str(T0 + P * 60 - 1),
+                        "queries": [{"aggregator": "p99",
+                                     "metric": "m"}]})
     for query in (
             {"start": str(T0), "queries": [{"aggregator": "sum",
                                             "metric": "m"}],
              "delete": True},
-            {"start": str(T0), "queries": [{"aggregator": "p99",
-                                            "metric": "m"}]},
             {"start": str(T0), "queries": [{"aggregator": "sum",
                                             "metric": "m",
                                             "percentiles": [99.0]}]},

@@ -329,9 +329,9 @@ def test_onehot_edges_match_pallas(s, b, k, g):
                                                (False, False)])
 def test_prepare_keeps_row_order(sorted_gids, allow):
     """prepare never gathers the value matrix: values stay in the
-    caller's row order; a span batch over unsorted ids carries the
-    stable group-sort permutation as int32, a sorted or one-hot batch
-    none."""
+    caller's row order; a span or one-hot batch over unsorted ids
+    carries the stable group-sort permutation as int32 (both kernels
+    read their rows through it), a batch of sorted ids none."""
     s, g = 300, 3
     vals, ts, gids = _data(s, 6, 4, g, seed=19, sorted_gids=sorted_gids)
     _, spec = _specs(num_series=s, num_buckets=6, num_groups=g,
@@ -340,7 +340,7 @@ def test_prepare_keeps_row_order(sorted_gids, allow):
     batch = fused.prepare(x, ts, gids, spec, allow_span=allow)
     assert batch.values is x
     assert (batch.spans is not None) == allow
-    if allow and not sorted_gids:
+    if not sorted_gids:
         assert batch.order.dtype == torch.int32
         np.testing.assert_array_equal(batch.order.numpy(),
                                       np.argsort(gids, kind="stable"))

@@ -35,6 +35,7 @@ from opentsdb_tpu_torch.ops import fused
 from opentsdb_tpu_torch.ops import pipeline as tpipe
 from opentsdb_tpu_torch.ops import rate as trate
 from opentsdb_tpu_torch.query.model import TSQuery
+from torch_pair import export as _export, rows as _rows
 
 T0 = 1356998400
 BASE_MS = T0 * 1000
@@ -286,21 +287,6 @@ def _write_reference(extra: dict):
     return jt
 
 
-def _export(jt, metric):
-    mid = jt.uids.metrics.get_id(metric)
-    sids = jt.store.series_ids_for_metric(mid)
-    _, triples = jt.store.metric_index(mid).arrays()
-    tags_list = []
-    for sid in sids:
-        rows = triples[triples[:, 0] == sid]
-        rows = rows[np.argsort(rows[:, 1])]
-        tags_list.append({jt.uids.tag_names.get_name(int(k)):
-                          jt.uids.tag_values.get_name(int(v))
-                          for _, k, v in rows})
-    padded = jt.store.materialize_padded(sids, 0, 2**62)
-    return tags_list, padded.ts2d, padded.values2d, padded.counts
-
-
 def _pair(extra: dict):
     jt = _write_reference(extra)
     tt = TSDB(Config(**{"tsd.torch.device": "cpu",
@@ -321,12 +307,6 @@ def defaults():
 def no_grid():
     """Both TSDBs with grid_reduce=false and the device cache on."""
     return _pair({"tsd.query.grid_reduce": "false"})
-
-
-def _rows(results):
-    return [(r.metric, r.tags, sorted(r.aggregated_tags),
-             [t for t, _ in r.dps], [v for _, v in r.dps])
-            for r in results]
 
 
 def _assert_same_rows(a, b):

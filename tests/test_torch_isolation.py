@@ -108,7 +108,8 @@ def test_cuda_wrappers_refuse_other_devices():
     gids = torch.zeros(2, dtype=torch.int32, device="meta")
     inv = torch.empty(2, device="meta")
     with pytest.raises(ValueError):
-        fused.onehot_reduce(meta, gids, inv, spec, 2, 1.0, 0.0)
+        fused.onehot_reduce(meta, None, gids, gids, inv, spec, 2, 1.0,
+                            0.0)
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):

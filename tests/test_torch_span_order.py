@@ -1,13 +1,16 @@
-"""The span kernel's order of additions, and why its reference on the
-card adds in float64 (CPU; the port only, no JAX).
+"""The span and one-hot kernels' orders of additions, and why their
+reference on the card adds in float64 (CPU; the port only, no JAX).
 
 ``span_tree_sums`` adds float32 terms in the order of
 ``csrc/fused_pipeline.cu``'s span kernel: a 5-step shuffle tree over
 each 32-row warp tile of the sorted order (rows of other groups add
 0), then ``span_combine_kernel``'s per-group pass (tile lane ``l`` adds
 every ``lanes``-th warp tile from 0 in order, then a halving tree over
-the lanes). ``tests/test_torch_cuda.py`` holds the kernel to it bit for
-bit on the card.
+the lanes). ``onehot_run_sums`` does the same for the one-hot kernel:
+a segmented suffix scan of shuffles over each run of one group in a
+warp tile, then ``onehot_combine_kernel``'s per-group pass.
+``tests/test_torch_cuda.py`` holds each kernel to its order bit for bit
+on the card.
 
 The data below are the draws of ``chip_smoke.py``'s sweep (seed 7) up
 to its 200,003-row size with 7 unsorted groups of about 28,600 series
@@ -34,6 +37,69 @@ CM, RV = float(2**64 - 1), 0.0
 S, B, K, G = 200_003, 16, 4, 7
 WARP_TILE = 32     # rows per warp tile of the span kernel
 COMBINE = 1024     # threads per span_combine_kernel block
+OH_COMBINE = 256   # threads per onehot_combine_kernel block
+
+
+def _lane_tree(parts: np.ndarray, b: int, threads: int) -> np.ndarray:
+    """A combine kernel's sum of one group's warp-tile partials [T, B]:
+    tile lane ``l`` adds every ``lanes``-th partial from 0 in order,
+    then a halving tree over the lanes."""
+    nb = min(b, threads)
+    lanes = 1
+    while lanes * 2 * nb <= threads:
+        lanes *= 2
+    m = -(-len(parts) // lanes)
+    pad = np.zeros((m * lanes, b), np.float32)
+    pad[:len(parts)] = parts
+    acc = np.zeros((lanes, b), np.float32)
+    for row in pad.reshape(m, lanes, b):
+        acc = acc + row
+    h = lanes
+    while h > 1:
+        h //= 2
+        acc = acc[:h] + acc[h:2 * h]
+    return acc[0]
+
+
+def onehot_run_sums(t: np.ndarray, gids: np.ndarray,
+                    g: int) -> np.ndarray:
+    """acc [G, B] float32: the group sums of ``t`` [S, B] float32 (rows
+    in group order, ``gids`` sorted) in the one-hot kernel's order. In
+    each warp tile, lane L of a run ending at lane E adds, for off = 1,
+    2, 4, 8, 16, the value of lane L + off while L + off <= E; the
+    run's first lane keeps the run's sum."""
+    s, b = t.shape
+    nt = -(-s // WARP_TILE)
+    x = np.zeros((nt * WARP_TILE, b), np.float32)
+    x[:s] = t
+    x = x.reshape(nt, WARP_TILE, b)
+    gp = np.full(nt * WARP_TILE, -1, np.int64)
+    gp[:s] = gids
+    gp = gp.reshape(nt, WARP_TILE)
+    lane = np.arange(WARP_TILE)
+    run_end = np.empty_like(gp)
+    run_end[:, -1] = WARP_TILE - 1
+    for j in range(WARP_TILE - 2, -1, -1):
+        run_end[:, j] = np.where(gp[:, j] == gp[:, j + 1],
+                                 run_end[:, j + 1], j)
+    off = 1
+    while off < WARP_TILE:
+        y = np.zeros_like(x)
+        y[:, :WARP_TILE - off] = x[:, off:]
+        take = (lane[None, :] + off <= run_end)[:, :, None]
+        x = np.where(take, x + y, x)
+        off *= 2
+    starts = np.searchsorted(gids, np.arange(g + 1))
+    out = np.zeros((g, b), np.float32)
+    for gi in range(g):
+        lo, hi = starts[gi], starts[gi + 1]
+        if hi == lo:
+            continue
+        t0, t1 = lo // WARP_TILE, (hi - 1) // WARP_TILE
+        parts = x[t0:t1 + 1, 0].copy()
+        parts[0] = x[t0, lo - t0 * WARP_TILE]
+        out[gi] = _lane_tree(parts, b, OH_COMBINE)
+    return out
 
 
 def span_tree_sums(t: np.ndarray, gids: np.ndarray, g: int) -> np.ndarray:
@@ -45,10 +111,6 @@ def span_tree_sums(t: np.ndarray, gids: np.ndarray, g: int) -> np.ndarray:
     tp[:s] = t
     gp = np.full(nt * WARP_TILE, -1, np.int64)
     gp[:s] = gids
-    nb = min(b, COMBINE)
-    lanes = 1
-    while lanes * 2 * nb <= COMBINE:
-        lanes *= 2
     starts = np.searchsorted(gids, np.arange(g + 1))
     out = np.zeros((g, b), np.float32)
     for gi in range(g):
@@ -63,18 +125,7 @@ def span_tree_sums(t: np.ndarray, gids: np.ndarray, g: int) -> np.ndarray:
         while w > 1:  # __shfl_down_sync by 16, 8, 4, 2, 1
             w //= 2
             x = x[:, :w] + x[:, w:2 * w]
-        part = x[:, 0]
-        m = -(-len(part) // lanes)
-        pad = np.zeros((m * lanes, b), np.float32)
-        pad[:len(part)] = part
-        acc = np.zeros((lanes, b), np.float32)
-        for row in pad.reshape(m, lanes, b):
-            acc = acc + row
-        h = lanes
-        while h > 1:
-            h //= 2
-            acc = acc[:h] + acc[h:2 * h]
-        out[gi] = acc[0]
+        out[gi] = _lane_tree(x[:, 0], b, COMBINE)
     return out
 
 
@@ -157,3 +208,28 @@ def test_span_wrapper_cpu_is_the_plain_version():
                             batch.spans, batch.group_start, batch.inv_dt,
                             spec, K, CM, RV)
     assert torch.equal(got, fused.plain_reduce(batch, spec, K, CM, RV))
+
+
+@pytest.mark.parametrize("g", [7, 2000])
+def test_onehot_run_order_sides_with_exact(g):
+    """The one-hot kernel's order (runs of one group in a warp tile,
+    then a fixed tree over the tiles) stays within a tenth of the
+    tolerance of the float64 group sums, at 7 large groups and at 2000
+    groups of about 100 rows, several to a warp tile."""
+    base, _, _ = _sweep_data()
+    rng = np.random.default_rng(31)
+    gids = rng.integers(0, g, S).astype(np.int32)
+    spec = PipelineSpec(num_series=S, num_buckets=B, num_groups=g,
+                        ds_function="avg", agg_name="sum")
+    ts = np.arange(B, dtype=np.int64) * 60_000 + 1_356_998_400_000
+    batch = fused.prepare(torch.as_tensor(base, dtype=torch.float32), ts,
+                          gids, spec, allow_span=False)
+    assert batch.spans is None and batch.order is not None
+    t = fused._in_group_order(
+        fused._transform_plain(batch.values, batch.inv_dt, spec, K, CM, RV),
+        batch.order)
+    runs = onehot_run_sums(t.numpy(), batch.gids.numpy(), g)
+    exact = fused.plain_reduce(batch, spec, K, CM, RV, exact=True).numpy()
+    terms = fused.plain_reduce(batch, spec, K, CM, RV, exact=True,
+                               magnitude=True).numpy()
+    assert bool((np.abs(runs - exact) <= 0.1 * TOL_REL * terms).all())
