@@ -53,8 +53,21 @@
    give the same bits, and neither kernel may launch; prints the stage
    p50s, the peak device memory and, with ``--profile``, the device's
    idle share;
-8. prints one JSON line describing each kernel (its launches are those
-   of phases 3, 5 and 6), the card line and, last,
+8. the front end (run after phase 5, on phase 3's TSDB and keys,
+   before phase 6 writes a point that makes one series irregular):
+   the port's ``TSDServer`` in process on an ephemeral port, driven
+   over sockets. (a) ``/api/query`` by POST and GET for both queries,
+   one K1 or K2 launch per call, each answer equal to
+   ``execute_query``'s through the port's serializer bit for bit and
+   to phase 3's float64 reference; HTTP p50 beside the direct p50 and
+   the serializer's time. (b) The same at the default keys: a miss,
+   then result-cache hits. (d) 8 concurrent clients of (a). (e) An
+   unported endpoint answers 501, a bad aggregator 400. (c) 1M points
+   by ``/api/put`` in 1000-point bodies over 4 kept-alive connections
+   and 200k telnet ``put`` lines, points/s of each, and an exact
+   read-back of both by ``/api/query``. The server must stop cleanly;
+9. prints one JSON line describing each kernel (its launches are those
+   of phases 3, 5, 8 and 6), the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Phases 3-5 and 7 run with the result cache off, so that every call
@@ -759,6 +772,295 @@ def phase_serve(torch, tsdb, query, ref3: dict, last_tags: dict) -> dict:
     return total
 
 
+# phase 8: the front end (HTTP and telnet on one port)
+FE_REPEATS = 5             # HTTP calls per query in (a), 1 POST + 4 GET
+FE_DIRECT = 3              # direct execute_query calls per query in (a)
+FE_CLIENTS = 8             # concurrent HTTP clients in (d)
+PUT_SERIES, PUT_STEPS = 1000, 1000       # (c): 1M points by /api/put
+PUT_BODY_SERIES, PUT_BODY_STEPS = 100, 10  # 1000 points per body
+PUT_CONNS = 4
+TEL_SERIES, TEL_STEPS = 200, 1000        # (c): 200k telnet put lines
+
+
+def _sub_json(m: str) -> dict:
+    """The JSON form of one URI sub-query."""
+    from opentsdb_tpu_torch.query.model import parse_uri_subquery
+    sub = parse_uri_subquery(m)
+    return {"aggregator": sub.aggregator, "metric": sub.metric,
+            "downsample": sub.downsample, "rate": sub.rate,
+            "filters": [f.to_json() for f in sub.filters]}
+
+
+def _http(conn, method: str, path: str, body: bytes | None = None):
+    """One request on a kept-alive http.client connection: (status,
+    body, seconds)."""
+    t = time.perf_counter()
+    conn.request(method, path, body=body,
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    return resp.status, data, time.perf_counter() - t
+
+
+def _fe_values(rows, g: int, b: int):
+    """[G, B - 1] float64 values of a parsed config-3 rate answer."""
+    import torch
+    check(len(rows) == g, f"expected {g} groups, got {len(rows)}")
+    vals = [list(r["dps"].values()) for r in rows]
+    check(all(len(v) == b - 1 for v in vals), "unexpected result shape")
+    return torch.tensor(vals, dtype=torch.float64)
+
+
+def phase_front_end(torch, tsdb, query, ref3: dict,
+                    profile: bool) -> dict:
+    """Phase 8: the port's TSD server in process on an ephemeral port
+    over phase 3's TSDB and keys, driven over real sockets. Returns the
+    kernel launches of its HTTP queries in (a) and (d)."""
+    import http.client
+    import socket
+    import threading
+    import urllib.parse
+    from opentsdb_tpu_torch import Config
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.tsd.json_serializer import HttpJsonSerializer
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+    cfg, defaults = tsdb.config, Config()
+
+    def set_keys(keys: dict) -> None:
+        for key in ENGINE_KEYS:
+            cfg.override_config(key, keys.get(key,
+                                              defaults.get_string(key)))
+
+    set_keys(ENGINE_KEYS)
+    ser = HttpJsonSerializer()
+    q0 = query(QUERIES[0][0])
+    start, end = q0.start, q0.end
+    st = ServerThread(tsdb, host="127.0.0.1", port=0).start()
+    print(f"  server on 127.0.0.1:{st.port} (ephemeral), keys of phase 3")
+    total = {"span_reduce": 0, "onehot_reduce": 0}
+
+    def connect():
+        return http.client.HTTPConnection("127.0.0.1", st.port,
+                                          timeout=600)
+
+    def post_body(m: str) -> bytes:
+        return json.dumps({"start": start, "end": end,
+                           "queries": [_sub_json(m)]}).encode()
+
+    def get_path(m: str) -> str:
+        return "/api/query?" + urllib.parse.urlencode(
+            {"start": start, "end": end, "m": m})
+
+    try:
+        # (a) POST and GET of each query: one launch of its kernel each
+        expected = {}
+        conn = connect()
+        for m, kname in QUERIES:
+            other = next(k for _, k in QUERIES if k != kname)
+            direct_s = []
+            for _ in range(FE_DIRECT):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                rows = tsdb.execute_query(query(m))
+                direct_s.append(time.perf_counter() - t)
+            ser_s = timed(lambda: ser.format_query(query(m), rows),
+                          REPEATS)[1]
+            want = json.loads(ser.format_query(query(m), rows))
+            expected[m] = want
+            http_s = []
+            for i in range(FE_REPEATS):
+                reset_launches(fused)
+                if i == 0:
+                    status, body, secs = _http(conn, "POST", "/api/query",
+                                               post_body(m))
+                else:
+                    status, body, secs = _http(conn, "GET", get_path(m))
+                n = read_launches(fused)
+                check(status == 200, f"{m}: HTTP {status}: {body[:300]!r}")
+                check(n == {kname: 1, other: 0},
+                      f"{m}: an HTTP query launched {n}")
+                total[kname] += 1
+                check(json.loads(body) == want,
+                      f"{m}: the HTTP answer differs from execute_query's")
+                http_s.append(secs)
+            if profile:
+                reset_launches(fused)
+                device_share(torch, lambda: _http(conn, "GET", get_path(m)),
+                             f"HTTP GET {m}")
+                total[kname] += read_launches(fused)[kname]
+            wv, terms = ref3[m]
+            err = compare(_fe_values(want, wv.shape[0], wv.shape[1] + 1),
+                          wv, terms)
+            print(f"  (a) {m}: HTTP p50 {p50(http_s) * 1e3:.3f} ms over "
+                  f"{FE_REPEATS} (1 POST, {FE_REPEATS - 1} GET), direct "
+                  f"execute_query p50 {p50(direct_s) * 1e3:.3f} ms over "
+                  f"{FE_DIRECT}, serializer p50 {p50(ser_s) * 1e3:.3f} ms "
+                  f"({len(body)} bytes); one {kname} launch per call; "
+                  f"answers equal execute_query's bit for bit, max |d| "
+                  f"vs phase 3's float64 reference {err!r}")
+
+        # (b) the default grid and result-cache keys: a miss, then hits
+        set_keys({})
+        for m, _ in QUERIES:
+            status, miss, miss_s = _http(conn, "GET", get_path(m))
+            check(status == 200, f"{m}: HTTP {status}")
+            hit_s = []
+            for _ in range(REPEATS):
+                status, body, secs = _http(conn, "GET", get_path(m))
+                check(status == 200 and body == miss,
+                      f"{m}: a result-cache hit differs from its miss")
+                hit_s.append(secs)
+            wv, terms = ref3[m]
+            err = compare(_fe_values(json.loads(miss), wv.shape[0],
+                                     wv.shape[1] + 1), wv, terms)
+            print(f"  (b) {m} at the default keys: HTTP miss "
+                  f"{miss_s * 1e3:.3f} ms, result-cache hit p50 "
+                  f"{p50(hit_s) * 1e3:.3f} ms over {REPEATS}; hits equal "
+                  f"the miss byte for byte, max |d| vs phase 3's "
+                  f"reference {err!r}")
+        set_keys(ENGINE_KEYS)
+        conn.close()
+
+        # (d) concurrent clients of (a)
+        lat, bad = [], []
+        lock = threading.Lock()
+
+        def client(i: int) -> None:
+            m = QUERIES[i % 2][0]
+            c = connect()
+            try:
+                status, body, secs = _http(c, "POST", "/api/query",
+                                           post_body(m))
+                ok = status == 200 and json.loads(body) == expected[m]
+            finally:
+                c.close()
+            with lock:
+                lat.append(secs)
+                if not ok:
+                    bad.append((m, status))
+
+        reset_launches(fused)
+        t = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(FE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t
+        n = read_launches(fused)
+        check(not bad, f"concurrent answers wrong: {bad}")
+        half = FE_CLIENTS // 2
+        check(n == {"span_reduce": half, "onehot_reduce": half},
+              f"{FE_CLIENTS} concurrent queries launched {n}")
+        for k in total:
+            total[k] += n[k]
+        lat.sort()
+        p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+        print(f"  (d) {FE_CLIENTS} concurrent clients: every answer "
+              f"equal to (a)'s; p50 {p50(lat) * 1e3:.3f} ms, p99 "
+              f"{p99 * 1e3:.3f} ms, wall {wall * 1e3:.3f} ms; launches {n}")
+
+        # (e) an unported endpoint and a bad aggregator
+        conn = connect()
+        status, body, _ = _http(conn, "GET", "/api/search/lookup?m=x")
+        check(status == 501 and b"not ported yet" in body,
+              f"an unported endpoint answered {status}")
+        status, body, _ = _http(conn, "GET", get_path(
+            f"nope:{METRIC}{{dc=*}}"))
+        check(status == 400 and b"No such aggregator" in body,
+              f"a bad aggregator answered {status}")
+        conn.close()
+        print("  (e) /api/search/lookup: 501 (not ported yet); a bad "
+              "aggregator: 400")
+
+        # (c) writes: /api/put over kept-alive connections, then telnet
+        put_metric, tel_metric = "sys.fe.put", "sys.fe.tel"
+
+        def put_bodies(c: int):
+            for k in range(c, (PUT_SERIES // PUT_BODY_SERIES)
+                           * (PUT_STEPS // PUT_BODY_STEPS), PUT_CONNS):
+                s0 = (k % (PUT_SERIES // PUT_BODY_SERIES)) * PUT_BODY_SERIES
+                j0 = (k // (PUT_SERIES // PUT_BODY_SERIES)) * PUT_BODY_STEPS
+                yield json.dumps([
+                    {"metric": put_metric, "timestamp": T0 + 60 * j,
+                     "value": (i * 7 + j) % 100_000,
+                     "tags": {"host": f"p{i}"}}
+                    for i in range(s0, s0 + PUT_BODY_SERIES)
+                    for j in range(j0, j0 + PUT_BODY_STEPS)]).encode()
+
+        bodies = [list(put_bodies(c)) for c in range(PUT_CONNS)]
+        fails = []
+
+        def putter(c: int) -> None:
+            cn = connect()
+            try:
+                for b in bodies[c]:
+                    status, data, _ = _http(cn, "POST", "/api/put", b)
+                    if status != 204:
+                        fails.append((status, data[:200]))
+            finally:
+                cn.close()
+
+        t = time.perf_counter()
+        threads = [threading.Thread(target=putter, args=(c,))
+                   for c in range(PUT_CONNS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        put_s = time.perf_counter() - t
+        check(not fails, f"puts failed: {fails[:3]}")
+        n_put = PUT_SERIES * PUT_STEPS
+        lines = "".join(
+            f"put {tel_metric} {T0 + 60 * j} {(i * 3 + j) % 100_000} "
+            f"host=t{i}\n" for j in range(TEL_STEPS)
+            for i in range(TEL_SERIES)).encode()
+        t = time.perf_counter()
+        with socket.create_connection(("127.0.0.1", st.port), 600) as sk:
+            sk.sendall(lines + b"version\nexit\n")
+            out = b""
+            while chunk := sk.recv(65536):
+                out += chunk
+        tel_s = time.perf_counter() - t
+        check(out.decode().startswith("opentsdb_tpu_torch version")
+              and out.count(b"\n") == 1,
+              f"telnet answered more than the version: {out[:300]!r}")
+        n_tel = TEL_SERIES * TEL_STEPS
+        print(f"  (c) /api/put: {n_put} points in {n_put // 1000} bodies "
+              f"of 1000 over {PUT_CONNS} kept-alive connections, "
+              f"{put_s:.3f} s ({n_put / put_s:,.0f} points/s); telnet: "
+              f"{n_tel} put lines on one connection, {tel_s:.3f} s "
+              f"({n_tel / tel_s:,.0f} points/s)")
+        conn = connect()
+        for metric, series, steps, prefix, mul in (
+                (put_metric, PUT_SERIES, PUT_STEPS, "p", 7),
+                (tel_metric, TEL_SERIES, TEL_STEPS, "t", 3)):
+            path = "/api/query?" + urllib.parse.urlencode(
+                {"start": T0, "end": T0 + 60 * steps - 1,
+                 "m": f"none:{metric}{{host=*}}"})
+            status, body, secs = _http(conn, "GET", path)
+            check(status == 200, f"read-back of {metric}: HTTP {status}")
+            rows = json.loads(body)
+            check(len(rows) == series, f"{metric}: {len(rows)} series")
+            for r in rows:
+                i = int(r["tags"]["host"][1:])
+                want = {str(T0 + 60 * j): (i * mul + j) % 100_000
+                        for j in range(steps)}
+                check(r["dps"] == want, f"{metric} host {i} differs")
+            print(f"  (c) read-back of {metric} by /api/query: "
+                  f"{series * steps} points exact, {secs * 1e3:.3f} ms "
+                  "(the first after the writes folds the store)")
+        conn.close()
+    finally:
+        st.stop()
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith(("tsd-query", "tsd-http", "tsd-server"))]
+    check(not left, f"threads left after the server stopped: {left}")
+    print(f"  server stopped cleanly; HTTP-path launches {total}")
+    return total
+
+
 def make_data(n_series: int):
     import numpy as np
     rng = np.random.default_rng(0)
@@ -1184,6 +1486,13 @@ def main() -> int:
     phase_grid(torch, tsdb, query, args.profile)
     print("phase 5: prepared-batch cache (tsd.query.grid_reduce=false)")
     for kname, n in phase_prepared(torch, tsdb, query, ref3).items():
+        launches[kname] += n
+    # phase 8 runs here, on phase 3's data before phase 6 writes a point
+    # that makes one series irregular (the kernels need regular rows)
+    print("phase 8: the front end on the card (TSDServer, HTTP and "
+          "telnet over sockets)")
+    for kname, n in phase_front_end(torch, tsdb, query, ref3,
+                                    args.profile).items():
         launches[kname] += n
     print("phase 6: the serve path at the default keys (result cache, "
           "tag-matrix cache, sub-query fan-out)")

@@ -6,7 +6,9 @@ kernels are hand-written CUDA C++ under ``csrc/``. Entry points run on
 the card unless the caller passes ``tsd.torch.device=cpu``.
 """
 
-from opentsdb_tpu_torch.core.tsdb import TSDB
-from opentsdb_tpu_torch.utils.config import Config
+__version__ = "0.1.0"
 
-__all__ = ["TSDB", "Config"]
+from opentsdb_tpu_torch.core.tsdb import TSDB  # noqa: E402
+from opentsdb_tpu_torch.utils.config import Config  # noqa: E402
+
+__all__ = ["TSDB", "Config", "__version__"]

@@ -274,6 +274,10 @@ class TimeSeriesStore:
         is stale."""
         return self.points_written, self.mutation_epoch
 
+    def collect_stats(self, collector) -> None:
+        collector.record("storage.series.count", self._num_series)
+        collector.record("storage.points.written", self.points_written)
+
     # -- write path -------------------------------------------------------
 
     def get_or_create_series(self, metric_id: int,

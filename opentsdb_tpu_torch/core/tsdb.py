@@ -7,13 +7,15 @@ present. Writes go to the in-memory store only: this port has no
 write-ahead log yet, so nothing written survives the process.
 
 The TSDB also owns the serve path's caches (the device cache, the
-result cache and the per-metric tag matrices) and the sub-query fan-out
-pool; :meth:`TSDB.shutdown` stops the pool.
+result cache and the per-metric tag matrices), the sub-query fan-out
+pool (:meth:`TSDB.shutdown` stops it), the query limits, and the stats
+registry the front end reads (``/api/stats``, telnet ``stats``).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
@@ -24,7 +26,10 @@ from opentsdb_tpu_torch.core import tags as tags_mod
 from opentsdb_tpu_torch.core.store import TimeSeriesStore, pad_mask
 from opentsdb_tpu_torch.core.uid import UidRegistry
 from opentsdb_tpu_torch.query.device_cache import DeviceGridCache
+from opentsdb_tpu_torch.query.limits import QueryLimitOverride
 from opentsdb_tpu_torch.query.result_cache import QueryResultCache
+from opentsdb_tpu_torch.stats.stats import (ServePayloadStats,
+                                            StatsCollectorRegistry)
 from opentsdb_tpu_torch.utils.config import Config
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -85,6 +90,15 @@ class TSDB:
         self.auto_tagk = self.config.get_bool("tsd.core.auto_create_tagks")
         self.auto_tagv = self.config.get_bool("tsd.core.auto_create_tagvs")
         self.datapoints_added = 0
+        self.start_time = time.time()
+        # per-metric byte / data-point caps the engine checks after
+        # each scan (ref: TSDB.query_limits)
+        self.query_limits = QueryLimitOverride(self.config)
+        self.stats = StatsCollectorRegistry()
+        # response bytes and serialization time of /api/query, fed by
+        # the HTTP handler
+        self.payload_stats = ServePayloadStats()
+        self.stats.register(self.payload_stats)
         self._device_grid_cache: DeviceGridCache | None = None
         self._device_cache_lock = threading.Lock()
         # (store instance, metric id) -> (series count, TagMatrix):
@@ -160,6 +174,26 @@ class TSDB:
         if pool is not None:
             pool.shutdown(wait=True)
 
+    # -- suggest and stats (ref: TSDB.java:1762-1846, collectStats :753)
+
+    def suggest_metrics(self, search: str = "", max_results: int = 25):
+        return self.uids.metrics.suggest(search, max_results)
+
+    def suggest_tag_names(self, search: str = "", max_results: int = 25):
+        return self.uids.tag_names.suggest(search, max_results)
+
+    def suggest_tag_values(self, search: str = "", max_results: int = 25):
+        return self.uids.tag_values.suggest(search, max_results)
+
+    def collect_stats(self, collector) -> None:
+        self.uids.metrics.collect_stats(collector)
+        self.uids.tag_names.collect_stats(collector)
+        self.uids.tag_values.collect_stats(collector)
+        self.store.collect_stats(collector)
+        collector.record("datapoints.added", self.datapoints_added)
+        collector.record("uptime.seconds",
+                         int(time.time() - self.start_time))
+
     # -- write path -------------------------------------------------------
 
     def _resolve_uids(self, metric: str,
@@ -191,7 +225,13 @@ class TSDB:
     def add_point(self, metric: str, timestamp: int, value: int | float,
                   tags: dict[str, str]) -> int:
         """Write one datapoint; returns the series id
-        (ref: TSDB.addPoint :1012/:1057/:1097)."""
+        (ref: TSDB.addPoint :1012/:1057/:1097). The timestamp is checked
+        first, with the reference's per-point messages."""
+        self._check_writable()
+        if timestamp <= 0:
+            raise ValueError(f"invalid timestamp {timestamp}")
+        if timestamp >= (1 << 32) and timestamp > (1 << 47):
+            raise ValueError(f"timestamp out of range: {timestamp}")
         return self.add_points(metric, [timestamp], [float(value)], tags)
 
     def add_points(self, metric: str, timestamps, values,

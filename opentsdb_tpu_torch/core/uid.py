@@ -7,6 +7,7 @@ dictionary guarded by a lock. id 0 is never assigned.
 
 from __future__ import annotations
 
+import bisect
 import threading
 from typing import Iterable
 
@@ -53,6 +54,8 @@ class UniqueId:
         self._name_to_id: dict[str, int] = {}
         self._id_to_name: dict[int, str] = {}
         self._max_id = 0
+        # sorted names for suggest, rebuilt after an assignment
+        self._sorted_names: list[str] | None = None
 
     def get_id(self, name: str) -> int:
         with self._lock:
@@ -95,9 +98,35 @@ class UniqueId:
                 f"{self.kind} are assigned")
         self._max_id += 1
         uid = self._max_id
+        self._sorted_names = None
         self._name_to_id[name] = uid
         self._id_to_name[uid] = name
         return uid
+
+    def suggest(self, search: str, max_results: int = 25) -> list[str]:
+        """Names starting with ``search``, sorted, at most
+        ``max_results`` of them (ref: UniqueId.suggest, a prefix scan
+        of the sorted name column family)."""
+        with self._lock:
+            names = self._sorted_names
+            if names is None:
+                names = self._sorted_names = sorted(self._name_to_id)
+            lo = bisect.bisect_left(names, search)
+            out = []
+            for n in names[lo:lo + max_results]:
+                if not n.startswith(search):
+                    break
+                out.append(n)
+        return out
+
+    def collect_stats(self, collector) -> None:
+        """(ref: UniqueId cache-size / ids-used / ids-available)"""
+        with self._lock:
+            size, used = len(self._name_to_id), self._max_id
+        collector.record("uid.cache-size", size, kind=self.kind)
+        collector.record("uid.ids-used", used, kind=self.kind)
+        collector.record("uid.ids-available",
+                         self.max_possible_id - used, kind=self.kind)
 
     def int_to_uid(self, uid: int) -> bytes:
         return uid.to_bytes(self.width, "big")

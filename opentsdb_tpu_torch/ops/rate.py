@@ -53,6 +53,11 @@ class RateOptions:
         return cls(counter=counter, counter_max=counter_max,
                    reset_value=reset, drop_resets=drop)
 
+    def to_json(self) -> dict:
+        return {"counter": self.counter, "counterMax": self.counter_max,
+                "resetValue": self.reset_value,
+                "dropResets": self.drop_resets}
+
 
 def _rate_kernel(grid, bucket_ts, counter: bool, counter_max: float,
                  reset_value: float, drop_resets: bool):

@@ -26,17 +26,23 @@ sub-queries of one TSQuery fan out onto the TSDB's pool
 (``query/result_cache.py``, ``tsd.query.cache.*``), and the per-series
 tag matrix of a metric is kept between queries (``TSDB._tagmat_cache``).
 
+Every path that scans checks the TSDB's query limits
+(``query/limits.py``) with the count of points it read, and records
+its scan in the request's ``QueryStats`` when the caller passes one
+(the ``/api/query`` handler does).
+
 The reference engine's other paths are not ported yet: the host-CPU
 tail and its circuit breaker with its host retries, the host-RAM
 prepared-batch cache, the streaming lookup before the result cache,
 time-blocked long ranges, the device mesh, rollup tiers,
-histogram/percentile sub-queries, tsuid sub-queries, query limits and
+histogram/percentile sub-queries, tsuid sub-queries and
 ``delete=true``. Asking for any of them raises NotImplementedError; a
 query too large for the grid path takes the point path whole.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -53,6 +59,7 @@ from opentsdb_tpu_torch.query import result_cache as rc_mod
 from opentsdb_tpu_torch.query.device_cache import array_digest
 from opentsdb_tpu_torch.query.model import (BadRequestError, TSQuery,
                                             TSSubQuery)
+from opentsdb_tpu_torch.stats.stats import QueryStat, QueryStats
 
 # (config key, the value that keeps the engine off a missing path, the
 # missing path)
@@ -132,6 +139,12 @@ class QueryResult:
     def dps(self) -> list:
         ts_arr, vals = self.dps_arrays
         return list(zip(ts_arr.tolist(), vals.tolist()))
+
+    @property
+    def num_dps(self) -> int:
+        """Point count without materializing ``dps``: the serializer
+        takes its columnar formatter by it."""
+        return len(self.dps_arrays[0])
 
     def with_sub_index(self, index: int) -> "QueryResult":
         """A shallow twin carrying another ``sub_query_index``: a result
@@ -264,10 +277,14 @@ class QueryEngine:
         self._grid_reduce = config.get_bool("tsd.query.grid_reduce")
         self._budget = config.get_int("tsd.query.max_device_cells") \
             or DEFAULT_CELL_BUDGET
+        # the request's QueryStats, set by run(); None records nothing
+        self._stats: QueryStats | None = None
 
-    def run(self, ts_query: TSQuery) -> list[QueryResult]:
+    def run(self, ts_query: TSQuery,
+            stats: QueryStats | None = None) -> list[QueryResult]:
         if ts_query.delete:
             raise NotImplementedError("delete=true is not ported yet")
+        self._stats = stats
         subs = ts_query.queries
         if len(subs) > 1:
             pool = self.tsdb.query_fanout_pool
@@ -324,8 +341,13 @@ class QueryEngine:
         # captured before the compute: a write landing mid-execution
         # leaves the entry already stale instead of wrongly fresh
         version = self._sub_version()
-        value, _ = cache.get_or_compute(
+        value, outcome = cache.get_or_compute(
             key, version, lambda: self._run_sub(tsq, sub), ttl_ms)
+        stats = self._stats
+        if stats and outcome != rc_mod.MISS:
+            stats.add_stat(
+                QueryStat.RESULT_CACHE_HIT if outcome == rc_mod.HIT
+                else QueryStat.RESULT_CACHE_COALESCED, 1)
         if value and value[0].sub_query_index != sub.index:
             value = [r.with_sub_index(sub.index) for r in value]
         return value
@@ -340,6 +362,8 @@ class QueryEngine:
 
     def _run_sub(self, tsq: TSQuery,
                  sub: TSSubQuery) -> list[QueryResult]:
+        t0 = time.monotonic()
+        stats = self._stats
         if sub.percentiles:
             raise NotImplementedError(
                 "percentile sub-queries are not ported yet")
@@ -355,11 +379,19 @@ class QueryEngine:
         sids = store.series_ids_for_metric(metric_id)
         if len(sids) == 0:
             return []
+        if stats:
+            stats.add_stat(QueryStat.ROWS_PRE_FILTER, len(sids))
 
         # --- filters -> series mask (ref: findSpans post-scan filters)
         sids, tag_mat = self._apply_filters(metric_id, sub, sids)
         if len(sids) == 0:
             return []
+        if stats:
+            stats.add_stat(QueryStat.STRING_TO_UID_TIME,
+                           (time.monotonic() - t0) * 1e3)
+            stats.add_stat(QueryStat.ROWS_POST_FILTER, len(sids))
+            stats.add_stat(QueryStat.UID_PAIRS_RESOLVED,
+                           int((tag_mat.vids >= 0).sum()))
 
         # --- group construction (ref: GroupByAndAggregateCB :916)
         gb_kids = []
@@ -405,8 +437,15 @@ class QueryEngine:
                                           emit_raw)
 
         # --- materialize + time grid
+        t1 = time.monotonic()
         points = self._materialize_points(store, sids, tsq)
-        if points.num_points == 0:
+        num_points = points.num_points
+        self._record_scan((time.monotonic() - t1) * 1e3, num_points,
+                          len(sids))
+        # byte / data-point guardrails (ref: SaltScanner budget
+        # enforcement through QueryLimitOverride)
+        self.tsdb.query_limits.check(sub.metric, num_points)
+        if num_points == 0:
             return []
         grid = self._time_grid(sub, tsq, points)
         spec = self._point_spec(sub, len(sids), num_groups, emit_raw,
@@ -419,12 +458,18 @@ class QueryEngine:
                 "bucket_ts": grid.bucket_ts,
                 "ds_function": grid.ds_function,
                 "fill_policy": grid.fill_policy,
-                "fill_value": grid.fill_value, "complete": grid.complete})
+                "fill_value": grid.fill_value, "complete": grid.complete,
+                "num_points": num_points})
+        t2 = time.monotonic()
         result, emit = run_prepared(prep, grid.bucket_ts, group_ids, spec,
                                     sub.rate_options)
+        result, emit = result.cpu().numpy(), emit.cpu().numpy()
+        if stats:
+            stats.add_stat(QueryStat.COMPUTE_TIME,
+                           (time.monotonic() - t2) * 1e3)
         return self._build_results(
             tsq, sub, metric_id, sids, tag_mat, group_ids, num_groups,
-            grid.bucket_ts, result.cpu().numpy(), emit.cpu().numpy())
+            grid.bucket_ts, result, emit)
 
     @staticmethod
     def _materialize_points(store, sids: np.ndarray, tsq: TSQuery):
@@ -507,15 +552,24 @@ class QueryEngine:
         ``_run_prep_hit``). A failure raises: there is no cold retry."""
         (prep,), meta = hit
         bucket_ts = meta["bucket_ts"]
+        num_points = meta["num_points"]
+        self.tsdb.query_limits.check(sub.metric, num_points)
+        t2 = time.monotonic()
         spec = self._point_spec(sub, len(sids), num_groups, emit_raw,
                                 bucket_ts, meta["ds_function"],
                                 meta["fill_policy"], meta["fill_value"],
                                 meta["complete"])
         result, emit = run_prepared(prep, bucket_ts, group_ids, spec,
                                     sub.rate_options)
+        result, emit = result.cpu().numpy(), emit.cpu().numpy()
+        stats = self._stats
+        if stats:
+            stats.add_stat(QueryStat.DPS_POST_FILTER, num_points)
+            stats.add_stat(QueryStat.COMPUTE_TIME,
+                           (time.monotonic() - t2) * 1e3)
         return self._build_results(
             tsq, sub, metric_id, sids, tag_mat, group_ids, num_groups,
-            bucket_ts, result.cpu().numpy(), emit.cpu().numpy())
+            bucket_ts, result, emit)
 
     def _grid_eligible(self, sub: TSSubQuery) -> bool:
         spec = sub.ds_spec
@@ -550,20 +604,29 @@ class QueryEngine:
                                   bucket_ts, ds_spec.interval_ms, fn)
             cver = store.version
             hit = cache.get(ckey, cver)
+        t1 = time.monotonic()
         if hit is not None:
-            (grid, has_data), _ = hit
+            (grid, has_data), meta = hit
+            num_points = meta["num_points"]
         else:
             sums, cnts, mins, maxs = store.bucket_reduce(
                 sids, tsq.start_ms, tsq.end_ms, int(bucket_ts[0]),
                 ds_spec.interval_ms, b,
                 want_minmax=fn in ("min", "mimmin", "max", "mimmax"))
-            if not cnts.any():
-                return None, None, bucket_ts
+            num_points = int(cnts.sum())
+        self._record_scan((time.monotonic() - t1) * 1e3, num_points,
+                          len(sids))
+        self.tsdb.query_limits.check(sub.metric, num_points)
+        if num_points == 0:
+            return None, None, bucket_ts
+        if hit is None:
             grid, has_data = put_grid(
                 *grid_from_reduce(fn, sums, cnts, mins, maxs),
                 self.tsdb.dtype, self.tsdb.device)
             if cache is not None:
-                cache.put(ckey, cver, (grid, has_data), {})
+                cache.put(ckey, cver, (grid, has_data),
+                          {"num_points": num_points})
+        t2 = time.monotonic()
         spec = PipelineSpec(
             num_series=len(sids), num_buckets=b, num_groups=num_groups,
             # the tail never reads it: downsampling happened in the store
@@ -575,7 +638,30 @@ class QueryEngine:
             emit_raw=emit_raw)
         result, emit = execute_grid(grid, has_data, bucket_ts, group_ids,
                                     spec, sub.rate_options)
-        return result.cpu().numpy(), emit.cpu().numpy(), bucket_ts
+        result, emit = result.cpu().numpy(), emit.cpu().numpy()
+        if self._stats:
+            self._stats.add_stat(QueryStat.COMPUTE_TIME,
+                                 (time.monotonic() - t2) * 1e3)
+        return result, emit, bucket_ts
+
+    def _record_scan(self, ms: float, num_points: int, n_rows: int
+                     ) -> None:
+        """Storage-scan stat points (ref: the per-scanner stats block,
+        QueryStats.java:137-151): "storage" is the host column store, a
+        column is a stored point, a row a series."""
+        stats = self._stats
+        if not stats:
+            return
+        stats.add_stat(QueryStat.MATERIALIZE_TIME, ms)
+        stats.add_stat(QueryStat.QUERY_SCAN_TIME, ms)
+        stats.add_stat(QueryStat.HBASE_TIME, ms)
+        stats.add_stat(QueryStat.DPS_POST_FILTER, num_points)
+        stats.add_stat(QueryStat.COLUMNS_FROM_STORAGE, num_points)
+        stats.add_stat(QueryStat.ROWS_FROM_STORAGE, n_rows)
+        # 17 bytes per stored point, the reference's count (int64 ts +
+        # float64 value + int flag)
+        stats.add_stat(QueryStat.BYTES_FROM_STORAGE, num_points * 17)
+        stats.add_stat(QueryStat.SUCCESSFUL_SCAN, 1)
 
     @staticmethod
     def _union_grid(padded: store_mod.PaddedBatch):

@@ -55,6 +55,10 @@ class TagVFilter:
         """True when series having the key may match."""
         return True
 
+    def to_json(self) -> dict:
+        return {"tagk": self.tagk, "filter": self.filter_expr,
+                "type": self.filter_name, "groupBy": self.group_by}
+
     def __repr__(self) -> str:
         return (f"{self.filter_name}(tagk={self.tagk}, "
                 f"filter={self.filter_expr}, group_by={self.group_by})")
@@ -203,6 +207,36 @@ def tags_to_filters(tags: dict[str, str]) -> list[TagVFilter]:
              "regexp("))
         out.append(get_filter(tagk, expr, group_by=group_by))
     return out
+
+
+def filter_types() -> dict[str, dict]:
+    """Metadata for ``/api/config/filters`` (ref: RpcManager)."""
+    docs = {
+        "literal_or": ("Accepts one or more exact values and matches if "
+                       "the series contains any of them. Case sensitive.",
+                       "host=literal_or(web01|web02)"),
+        "iliteral_or": ("Accepts one or more exact values and matches if "
+                        "the series contains any of them. Case insensitive.",
+                        "host=iliteral_or(web01|web02)"),
+        "not_literal_or": ("Accepts one or more exact values and matches "
+                           "if the series does NOT contain any of them. "
+                           "Case sensitive.", "host=not_literal_or(web01)"),
+        "not_iliteral_or": ("Accepts one or more exact values and matches "
+                            "if the series does NOT contain any of them. "
+                            "Case insensitive.",
+                            "host=not_iliteral_or(web01)"),
+        "wildcard": ("Performs pre, post and in-fix glob matching of "
+                     "values. Case sensitive.", "host=wildcard(web*)"),
+        "iwildcard": ("Performs pre, post and in-fix glob matching of "
+                      "values. Case insensitive.", "host=iwildcard(web*)"),
+        "regexp": ("Provides full, POSIX compliant regular expression "
+                   "using the built in Java Pattern class.",
+                   "host=regexp(.*)"),
+        "not_key": ("Skips any time series with the given tag key, "
+                    "regardless of the value.", "host=not_key()"),
+    }
+    return {name: {"description": d, "examples": e}
+            for name, (d, e) in docs.items()}
 
 
 class FilterEvaluator:

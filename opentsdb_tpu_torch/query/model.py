@@ -111,6 +111,23 @@ class TSSubQuery:
             percentiles=[float(p) for p in obj.get("percentiles") or []],
             index=index)
 
+    def to_json(self) -> dict[str, Any]:
+        """(ref: TSSubQuery serialization for ``showQuery``)"""
+        return {
+            "aggregator": self.aggregator,
+            "metric": self.metric,
+            "tsuids": self.tsuids or None,
+            "downsample": self.downsample,
+            "rate": self.rate,
+            "rateOptions": (self.rate_options.to_json()
+                            if self.rate else None),
+            "filters": [f.to_json() for f in self.filters],
+            "explicitTags": self.explicit_tags,
+            "index": self.index,
+            **({"percentiles": list(self.percentiles)}
+               if self.percentiles else {}),
+        }
+
 
 @dataclass
 class TSQuery:
@@ -119,8 +136,15 @@ class TSQuery:
     end: str | None = None
     queries: list[TSSubQuery] = field(default_factory=list)
     timezone: str | None = None
+    # annotations are not ported (the port has no ``meta/``): both
+    # flags are parsed and echoed, and no result carries any
+    no_annotations: bool = False
+    global_annotations: bool = False
     ms_resolution: bool = False
     show_tsuids: bool = False
+    show_summary: bool = False
+    show_stats: bool = False
+    show_query: bool = False
     delete: bool = False
     use_calendar: bool = False
     # populated during validation
@@ -150,6 +174,21 @@ class TSQuery:
             sub.validate(self.timezone, self.use_calendar)
         return self
 
+    def dedupe_queries(self) -> "TSQuery":
+        """Collapse duplicate sub-queries, first occurrence wins. Only
+        the URI form does this (ref: QueryRpc.parseQuery :617 rebuilds
+        through a LinkedHashSet); POST bodies keep duplicates."""
+        seen: set = set()
+        deduped = []
+        for sub in self.queries:
+            key = sub.identity_key()
+            if key in seen:
+                continue
+            seen.add(key)
+            deduped.append(sub)
+        self.queries = deduped
+        return self
+
     @classmethod
     def from_json(cls, obj: dict[str, Any]) -> "TSQuery":
         if not isinstance(obj, dict):
@@ -167,12 +206,28 @@ class TSQuery:
             queries=[TSSubQuery.from_json(q, i)
                      for i, q in enumerate(raw_queries)],
             timezone=obj.get("timezone"),
+            no_annotations=bool(obj.get("noAnnotations", False)),
+            global_annotations=bool(obj.get("globalAnnotations", False)),
             ms_resolution=bool(obj.get("msResolution")
                                or obj.get("ms", False)),
             show_tsuids=bool(obj.get("showTSUIDs", False)),
+            show_summary=bool(obj.get("showSummary", False)),
+            show_stats=bool(obj.get("showStats", False)),
+            show_query=bool(obj.get("showQuery", False)),
             delete=bool(obj.get("delete", False)),
             use_calendar=bool(obj.get("useCalendar", False)),
         )
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "start": self.start, "end": self.end,
+            "timezone": self.timezone,
+            "queries": [q.to_json() for q in self.queries],
+            "noAnnotations": self.no_annotations,
+            "globalAnnotations": self.global_annotations,
+            "msResolution": self.ms_resolution,
+            "showTSUIDs": self.show_tsuids,
+        }
 
 
 def parse_uri_subquery(spec: str, index: int = 0) -> TSSubQuery:
@@ -221,3 +276,38 @@ def parse_uri_subquery(spec: str, index: int = 0) -> TSSubQuery:
         sub.filters.extend(filters_mod.tags_to_filters(
             dict(pairs(m.group(2)))))
     return sub
+
+
+def parse_uri_query(params: dict[str, list[str]]) -> TSQuery:
+    """Parse ``/api/query?start=...&m=...`` URI params (ref:
+    QueryRpc.parseQuery). The ``tsuids=`` sub-queries and the
+    ``downsample=<N>px`` pixel budget are not ported yet and raise
+    NotImplementedError."""
+    def first(key, default=None):
+        vals = params.get(key)
+        return vals[0] if vals else default
+
+    if params.get("tsuids"):
+        raise NotImplementedError(
+            "tsuid sub-queries are not ported yet")
+    if first("downsample") is not None:
+        raise NotImplementedError(
+            "pixel-budget output reduction is not ported yet")
+    queries = [parse_uri_subquery(spec, i)
+               for i, spec in enumerate(params.get("m", []))]
+    return TSQuery(
+        start=first("start", ""),
+        end=first("end"),
+        queries=queries,
+        timezone=first("tz"),
+        use_calendar=first("use_calendar",
+                           first("useCalendar", "false"))
+        in ("true", ""),
+        no_annotations=first("no_annotations", "false") == "true",
+        global_annotations=first("global_annotations", "false") == "true",
+        ms_resolution=first("ms", first("ms_resolution", "false"))
+        in ("true", ""),
+        show_tsuids=first("show_tsuids", "false") == "true",
+        show_summary=first("show_summary", "false") == "true",
+        show_query=first("show_query", "false") == "true",
+    )

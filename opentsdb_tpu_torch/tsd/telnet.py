@@ -1,0 +1,174 @@
+"""Telnet line protocol (ref: ``src/tsd/TelnetRpc.java`` and
+RpcManager's telnet command table: put, rollup, histogram, stats,
+version, dropcaches, help, exit, diediedie).
+
+Commands return response text, empty when there is nothing to say: a
+successful ``put`` is silent, as PutDataPointRpc.java:129 writes back
+only errors. ``rollup`` and ``histogram`` answer an error line until
+the port has rollups and histograms.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from opentsdb_tpu_torch.core import tags as tags_mod
+from opentsdb_tpu_torch.tsd.http_api import version_info
+
+
+class TelnetServerShutdown(Exception):
+    """Raised by ``diediedie`` to stop the whole TSD."""
+
+
+class TelnetCloseConnection(Exception):
+    """Raised by ``exit`` to close this connection."""
+
+
+class TelnetRouter:
+    def __init__(self, tsdb):
+        self.tsdb = tsdb
+        self.commands: dict[str, Callable[[list[str]], str]] = {}
+        if tsdb.mode in ("rw", "wo"):
+            self.commands["put"] = self._cmd_put
+            self.commands["rollup"] = self._cmd_unported
+            self.commands["histogram"] = self._cmd_unported
+        self.commands.update({
+            "stats": self._cmd_stats,
+            "version": self._cmd_version,
+            "dropcaches": self._cmd_dropcaches,
+            "help": self._cmd_help,
+            "exit": self._cmd_exit,
+            "diediedie": self._cmd_die,
+        })
+
+    def execute(self, line: str) -> str:
+        words = line.split()
+        if not words:
+            return ""
+        cmd = self.commands.get(words[0])
+        if cmd is None:
+            return f"error: unknown command: {words[0]}"
+        return cmd(words)
+
+    def execute_lines(self, lines: list[str]
+                      ) -> tuple[list[str], Exception | None]:
+        """Process a burst of complete lines: consecutive ``put``
+        commands decode as one columnar batch (:meth:`put_lines`), the
+        rest run in input order. Returns ``(responses, deferred)``
+        where ``deferred`` is a close or shutdown raised by a line of
+        the burst; the caller writes the earlier lines' responses
+        before honouring it."""
+        responses: list[str] = []
+        run: list[str] = []
+
+        def flush_run() -> None:
+            if run:
+                responses.extend(self.put_lines(run))
+                run.clear()
+
+        batch_put = "put" in self.commands
+        for line in lines:
+            words = line.split()
+            if batch_put and words and words[0] == "put":
+                run.append(line)
+                continue
+            flush_run()
+            try:
+                r = self.execute(line)
+            except (TelnetCloseConnection, TelnetServerShutdown) as e:
+                return responses, e
+            if r:
+                responses.append(r)
+        flush_run()
+        return responses, None
+
+    def put_lines(self, lines: list[str]) -> list[str]:
+        """Columnar decode of a run of ``put`` lines: each line's words
+        go through the scalar parse, the good points are grouped by
+        series and land through ``TSDB.add_point_groups`` (one store
+        append per series instead of one per line). A line that fails
+        its parse or its write answers exactly what the scalar ``put``
+        answers for it. Returns the error responses (successes are
+        silent)."""
+        errors: dict[int, str] = {}     # line index -> error line
+        groups: dict[tuple, tuple] = {}
+        for i, line in enumerate(lines):
+            words = line.split()
+            if len(words) < 5:
+                errors[i] = self._cmd_put(words)
+                continue
+            try:
+                metric, ts, value, tags = self._parse_put_words(words)
+            except Exception as e:  # noqa: BLE001 - per-line report
+                errors[i] = f"put: {type(e).__name__}: {e}"
+                continue
+            key = (metric, tuple(sorted(tags.items())))
+            g = groups.get(key)
+            if g is None:
+                g = groups[key] = (metric, tags, [], [], [])
+            g[2].append(i)
+            g[3].append(ts)
+            g[4].append(value)
+
+        def on_error(i: int, e: Exception) -> None:
+            errors[i] = f"put: {type(e).__name__}: {e}"
+
+        self.tsdb.add_point_groups(groups.values(), on_error=on_error)
+        return [errors[i] for i in sorted(errors)]
+
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _parse_put_words(words: list[str]
+                         ) -> tuple[str, int, int | float, dict]:
+        """The scalar parse of one ``put`` line."""
+        metric = words[1]
+        ts = int(words[2])
+        # strict: int()/float() leniency (underscores, whitespace,
+        # unicode digits) would store another number than was sent
+        value = tags_mod.parse_put_value(words[3], allow_special=True)
+        tags = dict(tags_mod.parse(w) for w in words[4:])
+        return metric, ts, value, tags
+
+    def _cmd_put(self, words: list[str]) -> str:
+        """``put <metric> <timestamp> <value> <tagk=tagv> [...]``
+        (ref: PutDataPointRpc.execute :129)"""
+        if len(words) < 5:
+            return ("put: illegal argument: not enough arguments "
+                    f"(need least 4, got {len(words) - 1})")
+        try:
+            metric, ts, value, tags = self._parse_put_words(words)
+            self.tsdb.add_point(metric, ts, value, tags)
+            return ""  # silent on success
+        except Exception as e:  # noqa: BLE001 - the error line is the answer
+            return f"put: {type(e).__name__}: {e}"
+
+    def _cmd_unported(self, words: list[str]) -> str:
+        what = {"rollup": "rollups", "histogram":
+                "histograms and percentile sub-queries"}[words[0]]
+        return (f"{words[0]}: not ported yet (ROADMAP Queue 1, "
+                f"{what})")
+
+    def _cmd_stats(self, words: list[str]) -> str:
+        collector = self.tsdb.stats.collect()
+        self.tsdb.collect_stats(collector)
+        return "\n".join(collector.lines())
+
+    def _cmd_version(self, words: list[str]) -> str:
+        info = version_info()
+        return (f"opentsdb_tpu_torch version [{info['version']}] built "
+                f"from revision {info['short_revision']}")
+
+    def _cmd_dropcaches(self, words: list[str]) -> str:
+        self.tsdb.drop_caches()
+        return "Caches dropped."
+
+    def _cmd_help(self, words: list[str]) -> str:
+        return "available commands: " + " ".join(sorted(self.commands))
+
+    def _cmd_exit(self, words: list[str]) -> str:
+        raise TelnetCloseConnection()
+
+    def _cmd_die(self, words: list[str]) -> str:
+        """(ref: RpcManager DieDieDie)"""
+        raise TelnetServerShutdown()

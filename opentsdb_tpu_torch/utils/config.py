@@ -15,6 +15,31 @@ _DEFAULTS: dict[str, str] = {
     "tsd.core.auto_create_tagks": "true",
     "tsd.core.auto_create_tagvs": "true",
     "tsd.mode": "rw",  # rw | ro | wo (ref: TSDB.java:103)
+    # the TSD front end (tsd/server.py, tsd/http_api.py): one port for
+    # HTTP and telnet; 0 binds an ephemeral port the server reports
+    "tsd.network.port": "4242",
+    "tsd.network.bind": "0.0.0.0",
+    "tsd.network.backlog": "3072",
+    "tsd.network.reuse_address": "true",
+    "tsd.http.request.enable_chunked": "false",
+    "tsd.http.request.max_chunk": "1048576",
+    "tsd.http.request.cors_domains": "",
+    "tsd.http.request.cors_headers": (
+        "Authorization, Content-Type, Accept, Origin, User-Agent, DNT, "
+        "Cache-Control, X-Mx-ReqToken, Keep-Alive, X-Requested-With, "
+        "If-Modified-Since"),
+    "tsd.http.show_stack_trace": "false",
+    # ms a query may take before the server answers 504; 0: no limit
+    "tsd.query.timeout": "0",
+    "tsd.query.allow_simultaneous_duplicates": "true",
+    # per-metric scan caps (query/limits.py); 0 turns a cap off
+    "tsd.query.limits.bytes.default": "0",
+    "tsd.query.limits.data_points.default": "0",
+    # query load shedding: a structured 503 + Retry-After past these
+    # in-flight / queued counts (0: unlimited)
+    "tsd.query.admission.max_inflight": "0",
+    "tsd.query.admission.max_queue": "0",
+    "tsd.query.admission.retry_after_s": "1",
     "tsd.storage.uid.width.metric": "3",
     "tsd.storage.uid.width.tagk": "3",
     "tsd.storage.uid.width.tagv": "3",
@@ -101,3 +126,9 @@ class Config:
         engine reads its keys per query, and the TSDB its device cache
         size when the cache is first needed."""
         self._props[key] = str(value)
+
+    def dump_configuration(self) -> dict[str, str]:
+        """All properties for ``/api/config``, secrets redacted as the
+        reference redacts passwords."""
+        return {k: "********" if "pass" in k.lower() else v
+                for k, v in sorted(self._props.items())}

@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``opentsdb_tpu_torch`` nor
 ``chip_smoke.py`` imports ``jax`` or the JAX package, the package
-imports with both made unimportable, its entry points refuse to fall
-back to the CPU when a card is asked for and absent, and the kernel
+imports with both made unimportable, its entry points (``TSDB`` and
+the TSD command line) refuse to fall back to the CPU when a card is
+asked for and absent, and the kernel
 build module imports without a CUDA toolchain."""
 
 import ast
@@ -75,6 +76,23 @@ def test_default_device_is_cuda():
     with pytest.raises(ValueError):
         TSDB(Config(**{"tsd.torch.device": "cpu",
                        "tsd.torch.dtype": "float16"}))
+
+
+def test_tsd_refuses_cuda_without_a_card():
+    """The TSD entry point asked for the card (its default, and
+    explicitly) on a machine without one exits non-zero with the device
+    error, before it listens: it never serves on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal needs none")
+    for extra in ([], ["--tsd.torch.device=cuda"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "opentsdb_tpu_torch.tools.cli", "tsd",
+             "--tsd.network.port=0", "--tsd.network.bind=127.0.0.1",
+             *extra], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        assert out.returncode != 0
+        assert "no CUDA device is available" in out.stderr
+        assert "TSD listening" not in out.stdout
 
 
 def test_cuda_build_imports_without_nvcc(tmp_path):
