@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py [--series N] [--profile]
 
-1. prints the card (``nvidia-smi``), the torch/CUDA versions and the
-   kernel build time (``csrc/fused_pipeline.cu`` is compiled here);
+1. prints the card (``nvidia-smi``), the host CPU, the torch/CUDA
+   versions and the build times of the kernels (``csrc/fused_pipeline.cu``
+   with nvcc) and of the native store (``csrc/tsdbstore.cc`` with g++),
+   compiled here at the same time;
 2. holds each CUDA kernel against its plain PyTorch version on the card
    over the downsample x aggregator x rate/counter sweep at odd sizes
    (the plain group sums added in float64, ``plain_reduce(exact=True)``;
@@ -66,12 +68,28 @@
    by ``/api/put`` in 1000-point bodies over 4 kept-alive connections
    and 200k telnet ``put`` lines, points/s of each, and an exact
    read-back of both by ``/api/query``. The server must stop cleanly;
-9. prints one JSON line describing each kernel (its launches are those
-   of phases 3, 5, 8 and 6), the card line and, last,
+9. the storage backends A/B: config 3's data (1M series, seed 0) into
+   two fresh TSDBs, ``tsd.storage.backend=native`` then ``memory``,
+   each: (a) ``add_series_points`` ingest and the first read after it;
+   (b) the p50 of 3 calls of ``count_range``, ``materialize``,
+   ``materialize_padded`` and a 5m ``bucket_reduce`` over all 1M
+   series; (c) both queries on phase 3's keys (the point path, K1 and
+   K2 launching) and, caches dropped, at the default keys (the grid
+   path), each with the engine's stage table (plan, scan, compute,
+   rest) and checked against phase 3's float64 reference; (d) series 0
+   rewritten at a timestamp before its last point, then the cold
+   ``{dc=*}`` point-path query; (e) 200k import lines by
+   ``TSDB.import_buffer`` (native only) and by the telnet burst path,
+   read back. The backends' materialized points must be equal bit for
+   bit, their ``bucket_reduce`` sums within 1e-12 relative, and their
+   point-path answers (also after the rewrite) equal bit for bit;
+10. prints one JSON line describing each kernel (its launches are those
+   of phases 3, 5, 8, 6 and 9), the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
-Phases 3-5 and 7 run with the result cache off, so that every call
-reaches the path it measures.
+Phases 3-8 run on the default store, the native one. Phases 3-5, 7 and
+9 run with the result cache off, so that every call reaches the path it
+measures.
 
 Any failure exits non-zero without the last line. Without a CUDA card,
 or outside a checkout of the repository, it exits 2.
@@ -81,9 +99,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -136,6 +156,28 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def host_cpu() -> str:
+    """The host CPU: ``lscpu``'s model name where it is installed, and
+    the vendor, family, model and stepping of ``/proc/cpuinfo``."""
+    import shutil
+    said = []
+    if shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=60).stdout
+        said += [f"lscpu model name {line.split(':', 1)[1].strip()!r}"
+                 for line in out.splitlines()
+                 if line.startswith("Model name:")]
+    first = Path("/proc/cpuinfo").read_text().strip().split("\n\n")[0]
+    fields = dict(line.split(":", 1) for line in first.splitlines()
+                  if ":" in line)
+    fields = {k.strip(): v.strip() for k, v in fields.items()}
+    said.append("/proc/cpuinfo " + ", ".join(
+        f"{k} {fields[k]!r}" for k in ("vendor_id", "model name",
+                                       "cpu family", "model", "stepping")
+        if k in fields))
+    return "; ".join(said)
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -832,7 +874,8 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
                                               defaults.get_string(key)))
 
     set_keys(ENGINE_KEYS)
-    ser = HttpJsonSerializer()
+    # the router's serializer: the native dps formatter on this store
+    ser = HttpJsonSerializer.for_tsdb(tsdb)
     q0 = query(QUERIES[0][0])
     start, end = q0.start, q0.end
     st = ServerThread(tsdb, host="127.0.0.1", port=0).start()
@@ -1050,7 +1093,7 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
                 check(r["dps"] == want, f"{metric} host {i} differs")
             print(f"  (c) read-back of {metric} by /api/query: "
                   f"{series * steps} points exact, {secs * 1e3:.3f} ms "
-                  "(the first after the writes folds the store)")
+                  "(the first read after the writes)")
         conn.close()
     finally:
         st.stop()
@@ -1248,6 +1291,199 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
     tsdb.shutdown()
 
 
+BACKEND_REPEATS = 3        # phase 9: calls per p50 reading
+IMPORT_SERIES, IMPORT_STEPS = 200, 1000  # phase 9 (e): 200k import lines
+
+
+def _stats_run(tsdb, tq):
+    """One query through the engine with a ``QueryStats``: (rows, wall
+    seconds, the engine's stage times in ms by stat name)."""
+    from opentsdb_tpu_torch.stats.stats import QueryStats
+    stats = QueryStats(query=tq)
+    t = time.perf_counter()
+    rows = tsdb.new_query().run(tq, stats)
+    secs = time.perf_counter() - t
+    stats.mark_complete()
+    return rows, secs, dict(stats.stats)
+
+
+def _stage_line(secs: list, stats: list) -> str:
+    """The p50 of each of the engine's stages and of the whole call:
+    plan (filters and tag matrix), scan (the store's read: materialize
+    or bucket_reduce), compute (the device pipeline and its download)
+    and the rest (time grid, prepare, upload, assembly)."""
+    names = (("plan", "stringToUidTime"), ("scan", "materializeTime"),
+             ("compute", "computeTime"))
+    cols = {n: [st.get(k, 0.0) for st in stats] for n, k in names}
+    cols["rest"] = [sec * 1e3 - sum(st.get(k, 0.0) for _, k in names)
+                    for sec, st in zip(secs, stats)]
+    return ", ".join(f"{n} {p50(v):.3f}" for n, v in cols.items()) \
+        + f"; end-to-end {p50(secs) * 1e3:.3f}"
+
+
+def phase_backends(torch, n_series: int, query, ref3: dict) -> dict:
+    """Phase 9: the storage backends A/B on config 3's data, one fresh
+    TSDB each. Returns the kernel launches of its point-path queries."""
+    import gc
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.tsd.telnet import TelnetRouter
+    t_phase = time.perf_counter()
+    tags, ts2d, values = make_data(n_series)
+    n_points = n_series * POINTS
+    start_ms, end_ms = T0 * 1000, (T0 + POINTS * 60 - 1) * 1000
+    defaults = Config()
+    grid_keys = {k: defaults.get_string(k) for k in ENGINE_KEYS}
+    grid_keys["tsd.query.cache.enable"] = "false"
+    imports = [f"{T0 + 60 * j} {(i * 5 + j) % 100_000} host=m{i}"
+               for j in range(IMPORT_STEPS) for i in range(IMPORT_SERIES)]
+    buf = "".join(f"sys.imp {x}\n" for x in imports).encode()
+    puts = [f"put sys.tel {x}" for x in imports]
+    launches = {"span_reduce": 0, "onehot_reduce": 0}
+    out: dict = {}
+    for backend in ("native", "memory"):
+        tsdb = TSDB(Config(**{"tsd.torch.device": "cuda",
+                              "tsd.core.auto_create_metrics": "true",
+                              "tsd.storage.backend": backend,
+                              **ENGINE_KEYS}))
+        check(tsdb.store.backend == backend, f"not a {backend} store")
+        store, res = tsdb.store, {}
+        out[backend] = res
+        # (a) ingest
+        t = time.perf_counter()
+        tsdb.add_series_points(METRIC, tags, ts2d, values)
+        ingest_s = time.perf_counter() - t
+        sids = store.series_ids_for_metric(tsdb.uids.metrics.get_id(METRIC))
+        # (b) the store's reads over every series
+        t = time.perf_counter()
+        counts = store.count_range(sids, start_ms, end_ms)
+        first_s = time.perf_counter() - t
+        check(len(sids) == n_series and bool((counts == POINTS).all()),
+              f"{backend}: the store holds the wrong points")
+        reads = {
+            "count_range": lambda: store.count_range(sids, start_ms,
+                                                     end_ms),
+            "materialize": lambda: store.materialize(sids, start_ms,
+                                                     end_ms),
+            "materialize_padded": lambda: store.materialize_padded(
+                sids, start_ms, end_ms),
+            "bucket_reduce 5m": lambda: store.bucket_reduce(
+                sids, start_ms, end_ms, start_ms, 300_000, POINTS // 5)}
+        read_s = {}
+        for name, fn in reads.items():
+            secs = []
+            for _ in range(BACKEND_REPEATS):
+                t = time.perf_counter()
+                res[name] = fn()
+                secs.append(time.perf_counter() - t)
+            read_s[name] = p50(secs)
+        print(f"  {backend} (a) ingest: {ingest_s:.3f} s "
+              f"({n_points / ingest_s:,.0f} points/s, add_series_points); "
+              f"first read after it (count_range) {first_s * 1e3:.3f} ms")
+        print(f"  {backend} (b) store reads over {n_series} series, p50 of "
+              f"{BACKEND_REPEATS} in ms: " + ", ".join(
+                  f"{n} {v * 1e3:.3f}" for n, v in read_s.items()))
+        # (c) both queries on the point path and, cold, on the grid path
+        for path, keys in (("point", ENGINE_KEYS), ("grid", grid_keys)):
+            for key, val in keys.items():
+                tsdb.config.override_config(key, val)
+            for m, kname in QUERIES:
+                secs, stats = [], []
+                reset_launches(fused)
+                for i in range(BACKEND_REPEATS + (path == "point")):
+                    tsdb.drop_caches()
+                    rows, sec, st = _stats_run(tsdb, query(m))
+                    if path == "grid" or i > 0:   # the point path warms up
+                        secs.append(sec)
+                        stats.append(st)
+                n = read_launches(fused)
+                if path == "point":
+                    check(n[kname] > 0, f"{backend}: {m} launched no "
+                          f"{kname} on the point path")
+                    for k in launches:
+                        launches[k] += n[k]
+                else:
+                    check(not any(n.values()),
+                          f"{backend}: the grid path launched {n}")
+                wv, terms = ref3[m]
+                err = compare(answer_values(rows, wv.shape[0],
+                                            wv.shape[1] + 1), wv, terms)
+                res[path, m] = rows
+                print(f"  {backend} (c) {m} {path} path, p50 of "
+                      f"{len(secs)} in ms: {_stage_line(secs, stats)}; "
+                      f"launches {n}; max |d| vs phase 3's reference "
+                      f"{err!r}")
+        # (d) one out-of-order write, then the cold point-path query
+        for key, val in ENGINE_KEYS.items():
+            tsdb.config.override_config(key, val)
+        tsdb.add_point(METRIC, T0 + 600, 1000.0, tags[0])
+        m = QUERIES[0][0]
+        res["rewrite"], sec, st = _stats_run(tsdb, query(m))
+        print(f"  {backend} (d) series 0 rewritten at T0+600 s (before "
+              f"its last point), then {m} on the point path: "
+              f"{sec * 1e3:.3f} ms (scan {st['materializeTime']:.3f} ms)")
+        # (e) a burst of import lines: TSDB.import_buffer on the native
+        # store, and the telnet burst path of each store
+        if backend == "native":
+            t = time.perf_counter()
+            written, errors = tsdb.import_buffer(buf)
+            imp_s = time.perf_counter() - t
+            check(written == len(imports) and not errors,
+                  f"import_buffer wrote {written}: {errors[:3]}")
+            said = (f"import_buffer {len(imports)} lines {imp_s:.3f} s "
+                    f"({len(imports) / imp_s:,.0f} lines/s); ")
+        else:
+            said = "import_buffer needs the native store; "
+        t = time.perf_counter()
+        answers = TelnetRouter(tsdb).put_lines(puts)
+        tel_s = time.perf_counter() - t
+        check(not answers, f"telnet puts answered {answers[:3]}")
+        for metric in ("sys.tel", "sys.imp")[:2 if backend == "native"
+                                             else 1]:
+            got = store.count_range(store.series_ids_for_metric(
+                tsdb.uids.metrics.get_id(metric)), 0, 2**62)
+            check(len(got) == IMPORT_SERIES
+                  and bool((got == IMPORT_STEPS).all()),
+                  f"{backend}: {metric} read back wrong")
+        print(f"  {backend} (e) {said}telnet put_lines of the same "
+              f"{len(puts)} lines {tel_s:.3f} s ({len(puts) / tel_s:,.0f} "
+              "lines/s); every point read back")
+        tsdb.shutdown()
+        del tsdb, store
+        gc.collect()
+        if backend == "memory":
+            nat = out["native"]
+            for name in ("materialize", "materialize_padded"):
+                for a, b in zip(res[name], nat[name]):
+                    check(a.dtype == b.dtype and np.array_equal(
+                        a.view(np.int64) if a.dtype == np.float64 else a,
+                        b.view(np.int64) if b.dtype == np.float64 else b),
+                        f"{name}: the backends differ")
+            red = "bucket_reduce 5m"
+            (sm, cm, _, _), (sn, cn, _, _) = res[red], nat[red]
+            check(np.array_equal(cm, cn), "bucket_reduce counts differ")
+            rel = float((np.abs(sm - sn)
+                         / np.where(sn == 0, 1.0, np.abs(sn))).max())
+            check(rel <= 1e-12, f"bucket_reduce sums differ by {rel!r}")
+            for m, _ in QUERIES:
+                check(same_bits(res["point", m], nat["point", m]),
+                      f"{m}: the backends' point-path answers differ")
+            grid_d = max(float(np.abs(
+                np.stack([r.dps_arrays[1] for r in res["grid", m]])
+                - np.stack([r.dps_arrays[1] for r in nat["grid", m]])
+            ).max()) for m, _ in QUERIES)
+            check(same_bits(res["rewrite"], nat["rewrite"]),
+                  "the answers after the rewrite differ")
+            print("  backends: materialize and materialize_padded equal "
+                  f"bit for bit; bucket_reduce counts equal, sums within "
+                  f"{rel!r} relative; point-path answers equal bit for "
+                  f"bit (also after the rewrite); grid-path answers "
+                  f"within {grid_d!r} of each other")
+    print(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def p50(xs) -> float:
     return statistics.median(xs)
 
@@ -1274,6 +1510,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
     from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.native import _build as _native_build
     from opentsdb_tpu_torch.ops import _cuda_build, fused
     from opentsdb_tpu_torch.ops import downsample as ds_mod
     from opentsdb_tpu_torch.ops import pipeline
@@ -1285,10 +1522,31 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    print(f"host cpu: {host_cpu()}, {os.cpu_count()} logical CPUs")
+    # the native store's g++ build runs while nvcc builds the kernels
+    native_s: list = []
+    native_err: list = []
+
+    def build_native() -> None:
+        t = time.perf_counter()
+        try:
+            _native_build.library()
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            native_err.append(e)
+        native_s.append(time.perf_counter() - t)
+
+    g_plus_plus = threading.Thread(target=build_native)
+    g_plus_plus.start()
     t = time.perf_counter()
     _cuda_build.library()
     print(f"kernel build+load: {time.perf_counter() - t:.3f} s "
           f"({_cuda_build.library_path().name})")
+    g_plus_plus.join()
+    if native_err:
+        raise native_err[0]
+    print(f"native store build+load: {native_s[0]:.3f} s "
+          f"({_native_build.library_path().name}, "
+          f"{_native_build.compiler()} {' '.join(_native_build.CXX_FLAGS)})")
     log = _cuda_build.library_path().with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
@@ -1308,6 +1566,10 @@ def main() -> int:
     tsdb = TSDB(Config(**{"tsd.torch.device": "cuda",
                           "tsd.core.auto_create_metrics": "true",
                           **ENGINE_KEYS}))
+    check(tsdb.store.backend == "native",
+          "phases 3-8 run on the default store, the native one")
+    print(f"  store: tsd.storage.backend={tsdb.store.backend} (the "
+          "default)")
     tags, ts2d, values = make_data(s)
     t = time.perf_counter()
     tsdb.add_series_points(METRIC, tags, ts2d, values)
@@ -1505,6 +1767,11 @@ def main() -> int:
           + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
           + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
     phase_irregular(torch, s, args.profile)
+    print(f"phase 9: storage backends A/B, {s} series x {POINTS} points"
+          + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
+          + ", tsd.storage.backend=native then memory")
+    for kname, n in phase_backends(torch, s, query, ref3).items():
+        launches[kname] += n
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),

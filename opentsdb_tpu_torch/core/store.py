@@ -246,7 +246,11 @@ class TimeSeriesStore:
 
     One lock guards series creation, pending writes and the fold into
     the CSR columns. Published column arrays are replaced, never
-    mutated in place, so a reader's snapshot stays valid."""
+    mutated in place, so a reader's snapshot stays valid. It keeps no
+    per-point integer flag: the writes' ``is_int`` is accepted and
+    dropped."""
+
+    backend = "memory"
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -314,13 +318,13 @@ class TimeSeriesStore:
         return out
 
     def append_many(self, series_id: int, ts_ms: np.ndarray,
-                    values: np.ndarray) -> None:
+                    values: np.ndarray, is_int=False) -> None:
         """Append many points of one series."""
         ts = np.asarray(ts_ms, dtype=np.int64)
         self.append_lines(np.full(len(ts), series_id, dtype=np.int64),
                           ts, values)
 
-    def append_lines(self, sids, ts_ms, values) -> int:
+    def append_lines(self, sids, ts_ms, values, is_int=None) -> int:
         """Columnar scatter-append: element i lands on series
         ``sids[i]`` (ref: ``TimeSeriesStore.append_lines``; negative
         sids skip)."""

@@ -3,8 +3,11 @@
 Owns the UID registry and the store, and is where a caller picks the
 device: ``tsd.torch.device`` is ``"cuda"`` unless the caller asks for
 ``"cpu"``, and constructing a TSDB on ``cuda`` raises when no card is
-present. Writes go to the in-memory store only: this port has no
-write-ahead log yet, so nothing written survives the process.
+present. Writes go to the store that ``tsd.storage.backend`` names
+(the native C++ store by default, or the memory store) and to nothing
+else: this port has no write-ahead log yet, so nothing written survives
+the process. On the native store, :meth:`TSDB.import_buffer` takes
+whole bursts of import lines through one native parse.
 
 The TSDB also owns the serve path's caches (the device cache, the
 result cache and the per-metric tag matrices), the sub-query fan-out
@@ -14,6 +17,7 @@ registry the front end reads (``/api/stats``, telnet ``stats``).
 
 from __future__ import annotations
 
+import heapq
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -23,8 +27,12 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.core import tags as tags_mod
-from opentsdb_tpu_torch.core.store import TimeSeriesStore, pad_mask
-from opentsdb_tpu_torch.core.uid import UidRegistry
+from opentsdb_tpu_torch.core.store import pad_mask
+from opentsdb_tpu_torch.core.uid import (FailedToAssignUniqueIdError,
+                                         UidRegistry)
+from opentsdb_tpu_torch.native.store_backend import (IMPORT_ERRORS,
+                                                     make_store,
+                                                     parse_import_buffer)
 from opentsdb_tpu_torch.query.device_cache import DeviceGridCache
 from opentsdb_tpu_torch.query.limits import QueryLimitOverride
 from opentsdb_tpu_torch.query.result_cache import QueryResultCache
@@ -83,7 +91,8 @@ class TSDB:
                 "tsd.storage.uid.width.metric"),
             tagk_width=self.config.get_int("tsd.storage.uid.width.tagk"),
             tagv_width=self.config.get_int("tsd.storage.uid.width.tagv"))
-        self.store = TimeSeriesStore()
+        # raises when the native library does not build (no fallback)
+        self.store = make_store(self.config)
         self.mode = self.config.get_string("tsd.mode")
         self.auto_metric = self.config.get_bool(
             "tsd.core.auto_create_metrics")
@@ -232,21 +241,28 @@ class TSDB:
             raise ValueError(f"invalid timestamp {timestamp}")
         if timestamp >= (1 << 32) and timestamp > (1 << 47):
             raise ValueError(f"timestamp out of range: {timestamp}")
-        return self.add_points(metric, [timestamp], [float(value)], tags)
+        return self.add_points(metric, [timestamp], [float(value)], tags,
+                               is_int=[type(value) is int])
 
     def add_points(self, metric: str, timestamps, values,
-                   tags: dict[str, str]) -> int:
+                   tags: dict[str, str], is_int=None) -> int:
         """Bulk write many points of ONE series; returns the series id.
-        The whole batch is validated before anything is written."""
+        The whole batch is validated before anything is written.
+        ``is_int`` is one integer flag or one per point (by default,
+        whether the values' dtype is an integer one); the native store
+        keeps them."""
         self._check_writable()
-        vals = np.asarray(values, dtype=np.float64)
+        raw = np.asarray(values)
+        vals = raw.astype(np.float64)
         if np.shape(timestamps) != vals.shape or vals.ndim != 1:
             raise ValueError("timestamps/values must be equal-length 1-D")
         ts_ms = normalize_timestamps(timestamps)
         tags_mod.check_metric_and_tags(metric, tags)
+        if is_int is None:
+            is_int = np.issubdtype(raw.dtype, np.integer)
         metric_id, (tag_ids,) = self._resolve_uids(metric, [tags])
         sid = self.store.get_or_create_series(metric_id, tag_ids)
-        self.store.append_many(sid, ts_ms, vals)
+        self.store.append_many(sid, ts_ms, vals, is_int)
         self.datapoints_added += len(ts_ms)
         return sid
 
@@ -262,7 +278,8 @@ class TSDB:
         written = 0
         for metric, tags, refs, ts_list, raw in groups:
             try:
-                self.add_points(metric, ts_list, raw, tags)
+                self.add_points(metric, ts_list, raw, tags,
+                                is_int=[type(v) is int for v in raw])
                 written += len(ts_list)
             except (ValueError, TypeError, LookupError, PermissionError):
                 for j in range(len(ts_list)):
@@ -288,7 +305,9 @@ class TSDB:
         store takes one append. Returns the series ids."""
         self._check_writable()
         ts2d = np.asarray(ts2d, dtype=np.int64)
-        values2d = np.asarray(values2d, dtype=np.float64)
+        values2d = np.asarray(values2d)
+        is_int = np.issubdtype(values2d.dtype, np.integer)
+        values2d = values2d.astype(np.float64, copy=False)
         if ts2d.shape != values2d.shape or ts2d.ndim != 2 \
                 or len(tags_list) != ts2d.shape[0]:
             raise ValueError("ts2d/values2d must be [S, P] with one "
@@ -318,9 +337,100 @@ class TSDB:
         else:
             point_sids = np.broadcast_to(sids[:, None],
                                          ts2d.shape)[sids_rows]
-        self.store.append_lines(point_sids, ts_ms, val_flat)
+        self.store.append_lines(point_sids, ts_ms, val_flat, is_int)
         self.datapoints_added += len(ts_ms)
         return sids
+
+    def _import_series(self, line: bytes) -> int:
+        """The series id of one import line's metric and tags, created
+        (with its UIDs) when new."""
+        text = line.decode("utf-8")
+        # the parser splits on spaces and tabs only
+        words = [w for w in text.replace("\t", " ").split(" ") if w]
+        metric = words[0]
+        tags = dict(w.partition("=")[::2] for w in words[3:])
+        if not text.isascii():
+            # the parser passes UTF-8 bytes through; names are checked
+            # letter by letter here
+            tags_mod.check_metric_and_tags(metric, tags)
+        metric_id, (tag_ids,) = self._resolve_uids(metric, [tags])
+        return self.store.get_or_create_series(metric_id, tag_ids)
+
+    def import_buffer(self, buf: bytes, on_error=None
+                      ) -> tuple[int, list[str]]:
+        """Columnar write of import lines (``metric ts value tagk=tagv
+        ...``, one per line; ref: ``TSDB.import_buffer``). One native
+        pass parses the buffer and labels each line with its series;
+        each distinct series resolves its UIDs once, from its first
+        line; the points land by ``append_lines``.
+
+        Everything happens in line order: a series resolves when the
+        walk reaches its first line, so new UIDs are assigned as a
+        line-at-a-time writer would assign them, and a failing line
+        (rejected by the parser, or of a series that fails to resolve)
+        is reported through ``on_error(lineno, exc)`` only after every
+        line before it has landed, so a caller may write it another way
+        there. Blank and comment lines are skipped. Returns (points
+        written, error strings). Needs the native store."""
+        self._check_writable()
+        if self.store.backend != "native":
+            raise RuntimeError("import_buffer parses with the native "
+                               "store's library: it needs "
+                               "tsd.storage.backend=native")
+        parsed = parse_import_buffer(buf)
+        gids, errs = parsed.group_ids, parsed.errors
+        ts_ms = np.where(parsed.ts >= (1 << 32), parsed.ts,
+                         parsed.ts * 1000)
+        gsid = np.full(parsed.num_groups, -1, dtype=np.int64)
+        errors: list[str] = []
+        done = written = 0
+
+        def land(upto: int) -> None:
+            """Append the lines from the last stop up to ``upto``."""
+            nonlocal done, written
+            lo, done = done, upto + 1
+            if upto > lo:
+                g = gids[lo:upto]
+                written += self.store.append_lines(
+                    np.where(g >= 0, gsid[np.maximum(g, 0)], -1),
+                    ts_ms[lo:upto], parsed.values[lo:upto],
+                    parsed.is_int[lo:upto])
+
+        def fail(i: int, exc: Exception) -> None:
+            land(i)
+            errors.append(f"line {i + 1}: {exc}")
+            if on_error is not None:
+                on_error(i + 1, exc)
+
+        # the walk stops at each failing line and each series' first
+        # line, in line order (a heap: a series that fails to resolve
+        # adds its later lines)
+        valid = np.flatnonzero(gids >= 0)
+        uniq, pos = np.unique(gids[valid], return_index=True)
+        firsts = np.full(parsed.num_groups, -1, dtype=np.int64)
+        firsts[uniq] = valid[pos]
+        stops = np.union1d(np.flatnonzero(errs > 0), firsts[uniq]).tolist()
+        failed: dict[int, Exception] = {}
+        while stops:
+            i = heapq.heappop(stops)
+            code, g = int(errs[i]), int(gids[i])
+            if code > 0:
+                fail(i, ValueError(IMPORT_ERRORS[code]))
+            elif g in failed:
+                fail(i, failed[g])
+            else:
+                try:
+                    gsid[g] = self._import_series(parsed.rep_lines[g])
+                except (ValueError, LookupError,
+                        FailedToAssignUniqueIdError) as e:
+                    failed[g] = e
+                    for j in (np.flatnonzero(gids[i + 1:] == g)
+                              + i + 1).tolist():
+                        heapq.heappush(stops, j)
+                    fail(i, e)
+        land(len(gids))
+        self.datapoints_added += written
+        return written, errors
 
     # -- query path -------------------------------------------------------
 

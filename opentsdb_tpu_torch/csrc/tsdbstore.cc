@@ -1,0 +1,1052 @@
+// Native host column store of the PyTorch port (opentsdb_tpu_torch).
+//
+// The port's default storage engine (tsd.storage.backend=native), with
+// the C ABI and the semantics of the JAX package's native store, so the
+// two libraries can be held against each other function by function:
+// append-optimized per-series column buffers with a lazy, per-series
+// stable sort and last-write-wins dedupe, a directory under a shared
+// lock, threaded range passes (count, fill, bucket reduce) over the
+// selected series, the bulk import-line parser and the JSON dps
+// formatter. Series identity (metric + tags -> sid) and the tag index
+// stay in Python (native/store_backend.py).
+//
+// Host code: no CUDA. C ABI (ctypes-friendly), no exceptions across
+// the boundary. Built at first use by native/_build.py:
+//   g++ -O3 -march=native -shared -fPIC -std=c++17 -pthread
+//       tsdbstore.cc -o _build/tsdbstore_<hash>.so
+
+#include <algorithm>
+#include <atomic>
+#include <charconv>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <limits>
+#include <mutex>
+#include <shared_mutex>
+#include <string>
+#include <thread>
+#include <unordered_map>
+#include <vector>
+
+namespace {
+
+struct SeriesBuffer {
+  std::vector<int64_t> ts;
+  std::vector<double> vals;
+  std::vector<uint8_t> is_int;
+  bool sorted = true;
+  std::mutex mu;
+
+  void append(int64_t t, double v, uint8_t ii) {
+    std::lock_guard<std::mutex> lock(mu);
+    if (sorted && !ts.empty() && t <= ts.back()) sorted = false;
+    ts.push_back(t);
+    vals.push_back(v);
+    is_int.push_back(ii);
+  }
+
+  void append_many(int64_t n, const int64_t* t, const double* v,
+                   const uint8_t* ii) {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int64_t i = 0; i < n; ++i) {
+      if (sorted && !ts.empty() && t[i] <= ts.back()) sorted = false;
+      ts.push_back(t[i]);
+      vals.push_back(v[i]);
+      is_int.push_back(ii ? ii[i] : 0);
+    }
+  }
+
+  // Sort by timestamp, last-write-wins dedupe (matches the Python
+  // SeriesBuffer and the reference's fix_duplicates semantics).
+  void ensure_sorted_locked() {
+    if (sorted) return;
+    const size_t n = ts.size();
+    std::vector<uint32_t> order(n);
+    for (size_t i = 0; i < n; ++i) order[i] = (uint32_t)i;
+    std::stable_sort(order.begin(), order.end(),
+                     [&](uint32_t a, uint32_t b) { return ts[a] < ts[b]; });
+    std::vector<int64_t> nts;
+    std::vector<double> nvals;
+    std::vector<uint8_t> nint;
+    nts.reserve(n);
+    nvals.reserve(n);
+    nint.reserve(n);
+    for (size_t i = 0; i < n; ++i) {
+      uint32_t idx = order[i];
+      if (!nts.empty() && nts.back() == ts[idx]) {
+        nvals.back() = vals[idx];  // last write wins
+        nint.back() = is_int[idx];
+      } else {
+        nts.push_back(ts[idx]);
+        nvals.push_back(vals[idx]);
+        nint.push_back(is_int[idx]);
+      }
+    }
+    ts.swap(nts);
+    vals.swap(nvals);
+    is_int.swap(nint);
+    sorted = true;
+  }
+
+  // [lo, hi] inclusive range bounds after sorting.
+  void range_bounds(int64_t start_ms, int64_t end_ms, int64_t* lo,
+                    int64_t* hi) {
+    std::lock_guard<std::mutex> lock(mu);
+    ensure_sorted_locked();
+    *lo = std::lower_bound(ts.begin(), ts.end(), start_ms) - ts.begin();
+    *hi = std::upper_bound(ts.begin(), ts.end(), end_ms) - ts.begin();
+  }
+};
+
+struct Store {
+  // The directory vector REALLOCATES on growth, so every indexing
+  // access holds the shared lock; the SeriesBuffer objects themselves
+  // are heap-stable for the store's lifetime, so captured pointers
+  // stay valid after the lock drops (each buffer has its own mutex).
+  std::vector<SeriesBuffer*> series;
+  std::shared_mutex dir_mu;
+  std::atomic<int64_t> points_written{0};
+
+  // nullptr on a bad sid.
+  SeriesBuffer* lookup(int64_t sid) {
+    std::shared_lock<std::shared_mutex> lock(dir_mu);
+    if (sid < 0 || sid >= (int64_t)series.size()) return nullptr;
+    return series[sid];
+  }
+
+  // Validate + capture all pointers under ONE shared lock (the
+  // threaded bulk paths). Returns false on any bad sid.
+  bool snapshot(const int64_t* sids, int64_t n,
+                std::vector<SeriesBuffer*>* out) {
+    std::shared_lock<std::shared_mutex> lock(dir_mu);
+    out->resize(n);
+    for (int64_t i = 0; i < n; ++i) {
+      if (sids[i] < 0 || sids[i] >= (int64_t)series.size())
+        return false;
+      (*out)[i] = series[sids[i]];
+    }
+    return true;
+  }
+
+  ~Store() {
+    for (auto* s : series) delete s;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+void* tss_create() { return new Store(); }
+
+void tss_destroy(void* h) { delete static_cast<Store*>(h); }
+
+// Returns the new series id. Series identity (metric+tags -> sid) is
+// managed by the Python wrapper; this just allocates the buffer.
+int64_t tss_add_series(void* h) {
+  Store* s = static_cast<Store*>(h);
+  std::unique_lock<std::shared_mutex> lock(s->dir_mu);
+  s->series.push_back(new SeriesBuffer());
+  return (int64_t)s->series.size() - 1;
+}
+
+// Bulk allocation: n new contiguous series ids, one lock take.
+// Returns the first new id.
+int64_t tss_add_series_n(void* h, int64_t n) {
+  Store* s = static_cast<Store*>(h);
+  std::unique_lock<std::shared_mutex> lock(s->dir_mu);
+  int64_t first = (int64_t)s->series.size();
+  s->series.reserve(s->series.size() + (size_t)n);
+  for (int64_t i = 0; i < n; ++i) s->series.push_back(new SeriesBuffer());
+  return first;
+}
+
+int64_t tss_series_count(void* h) {
+  Store* s = static_cast<Store*>(h);
+  std::shared_lock<std::shared_mutex> lock(s->dir_mu);
+  return (int64_t)s->series.size();
+}
+
+int tss_append(void* h, int64_t sid, int64_t ts_ms, double value,
+               int is_int) {
+  Store* s = static_cast<Store*>(h);
+  SeriesBuffer* buf = s->lookup(sid);
+  if (!buf) return -1;
+  buf->append(ts_ms, value, (uint8_t)is_int);
+  s->points_written.fetch_add(1, std::memory_order_relaxed);
+  return 0;
+}
+
+int tss_append_many(void* h, int64_t sid, int64_t n, const int64_t* ts,
+                    const double* vals, const uint8_t* is_int) {
+  Store* s = static_cast<Store*>(h);
+  SeriesBuffer* buf = s->lookup(sid);
+  if (!buf) return -1;
+  buf->append_many(n, ts, vals, is_int);
+  s->points_written.fetch_add(n, std::memory_order_relaxed);
+  return 0;
+}
+
+int64_t tss_points_written(void* h) {
+  return static_cast<Store*>(h)->points_written.load();
+}
+
+// fsck in-place repair (ref: Fsck.java:99-119 repairing bad values /
+// timestamps in storage): drop points whose timestamp falls outside
+// [min_ts, max_ts], and — when drop_nonfinite — points whose value is
+// NaN/Inf. Returns the number of points removed, or -1 on a bad sid.
+int64_t tss_repair_series(void* h, int64_t sid, int64_t min_ts,
+                          int64_t max_ts, int drop_nonfinite) {
+  Store* s = static_cast<Store*>(h);
+  SeriesBuffer* buf = s->lookup(sid);
+  if (!buf) return -1;
+  std::lock_guard<std::mutex> lock(buf->mu);
+  buf->ensure_sorted_locked();
+  const size_t n = buf->ts.size();
+  size_t w = 0;
+  for (size_t i = 0; i < n; ++i) {
+    bool ok = buf->ts[i] >= min_ts && buf->ts[i] <= max_ts;
+    if (ok && drop_nonfinite && !std::isfinite(buf->vals[i])) ok = false;
+    if (ok) {
+      if (w != i) {
+        buf->ts[w] = buf->ts[i];
+        buf->vals[w] = buf->vals[i];
+        buf->is_int[w] = buf->is_int[i];
+      }
+      ++w;
+    }
+  }
+  buf->ts.resize(w);
+  buf->vals.resize(w);
+  buf->is_int.resize(w);
+  return (int64_t)(n - w);
+}
+
+// fsck in-place repair: overwrite the value stored at an exact
+// timestamp. Returns 0 on success, -1 on a bad sid, -2 when no point
+// has that timestamp.
+int tss_patch_value(void* h, int64_t sid, int64_t ts_ms, double value,
+                    int is_int) {
+  Store* s = static_cast<Store*>(h);
+  SeriesBuffer* buf = s->lookup(sid);
+  if (!buf) return -1;
+  std::lock_guard<std::mutex> lock(buf->mu);
+  buf->ensure_sorted_locked();
+  auto it = std::lower_bound(buf->ts.begin(), buf->ts.end(), ts_ms);
+  if (it == buf->ts.end() || *it != ts_ms) return -2;
+  size_t i = it - buf->ts.begin();
+  buf->vals[i] = value;
+  buf->is_int[i] = (uint8_t)is_int;
+  return 0;
+}
+
+// Bulk grid write (the rollup job's output path): for every row i,
+// append the mask-selected cells of grid[i, :] (shared bucket_ts
+// columns) onto series sids[i]. Threaded over rows; one lock take per
+// row instead of per cell. Returns the number of points written, or
+// -1 on any invalid sid.
+int64_t tss_append_grid(void* h, const int64_t* sids, int64_t nsids,
+                        const int64_t* bucket_ts, int64_t nbuckets,
+                        const double* grid, const uint8_t* mask,
+                        int threads) {
+  Store* s = static_cast<Store*>(h);
+  std::vector<SeriesBuffer*> bufs;
+  if (!s->snapshot(sids, nsids, &bufs)) return -1;
+  if (threads < 1) threads = 1;
+  std::atomic<int64_t> next{0};
+  std::atomic<int64_t> total{0};
+  auto worker = [&]() {
+    int64_t local = 0;
+    for (;;) {
+      int64_t i = next.fetch_add(1);
+      if (i >= nsids) break;
+      SeriesBuffer* buf = bufs[i];
+      const double* row = grid + i * nbuckets;
+      const uint8_t* m = mask + i * nbuckets;
+      std::lock_guard<std::mutex> lock(buf->mu);
+      for (int64_t b = 0; b < nbuckets; ++b) {
+        if (!m[b]) continue;
+        if (buf->sorted && !buf->ts.empty() &&
+            bucket_ts[b] <= buf->ts.back())
+          buf->sorted = false;
+        buf->ts.push_back(bucket_ts[b]);
+        buf->vals.push_back(row[b]);
+        buf->is_int.push_back(0);
+        ++local;
+      }
+    }
+    total.fetch_add(local);
+  };
+  std::vector<std::thread> pool;
+  for (int t = 1; t < threads; ++t) pool.emplace_back(worker);
+  worker();
+  for (auto& t : pool) t.join();
+  s->points_written.fetch_add(total.load());
+  return total.load();
+}
+
+int64_t tss_series_length(void* h, int64_t sid) {
+  Store* s = static_cast<Store*>(h);
+  SeriesBuffer* buf = s->lookup(sid);
+  if (!buf) return -1;
+  std::lock_guard<std::mutex> lock(buf->mu);
+  buf->ensure_sorted_locked();
+  return (int64_t)buf->ts.size();
+}
+
+// Remove points with start_ms <= ts <= end_ms from one series; returns
+// the number deleted (ref: TsdbQuery delete=true issuing
+// DeleteRequests per scanned row). -1 on a bad sid.
+int64_t tss_delete_range(void* h, int64_t sid, int64_t start_ms,
+                         int64_t end_ms) {
+  Store* s = static_cast<Store*>(h);
+  SeriesBuffer* buf = s->lookup(sid);
+  if (!buf) return -1;
+  std::lock_guard<std::mutex> lock(buf->mu);
+  buf->ensure_sorted_locked();
+  auto lo = std::lower_bound(buf->ts.begin(), buf->ts.end(), start_ms);
+  auto hi = std::upper_bound(buf->ts.begin(), buf->ts.end(), end_ms);
+  int64_t n = hi - lo;
+  if (n > 0) {
+    buf->vals.erase(buf->vals.begin() + (lo - buf->ts.begin()),
+                    buf->vals.begin() + (hi - buf->ts.begin()));
+    buf->is_int.erase(buf->is_int.begin() + (lo - buf->ts.begin()),
+                      buf->is_int.begin() + (hi - buf->ts.begin()));
+    buf->ts.erase(lo, hi);
+  }
+  return n;
+}
+
+// Copy one series' sorted columns into caller-provided arrays of
+// capacity `cap` (from a prior tss_series_length call). Returns the
+// number of elements actually copied — concurrent appends between the
+// two calls can grow the buffer past cap (copy truncates) and
+// concurrent deletes/dedupes can shrink it (caller trims to the
+// return value); never writes past cap. -1 on a bad sid.
+int64_t tss_read_series(void* h, int64_t sid, int64_t cap,
+                        int64_t* ts_out, double* vals_out,
+                        uint8_t* int_out) {
+  Store* s = static_cast<Store*>(h);
+  SeriesBuffer* buf = s->lookup(sid);
+  if (!buf) return -1;
+  std::lock_guard<std::mutex> lock(buf->mu);
+  buf->ensure_sorted_locked();
+  int64_t n = (int64_t)buf->ts.size();
+  if (n > cap) n = cap;
+  if (n > 0) {
+    std::memcpy(ts_out, buf->ts.data(), n * sizeof(int64_t));
+    std::memcpy(vals_out, buf->vals.data(), n * sizeof(double));
+    if (int_out) std::memcpy(int_out, buf->is_int.data(), n);
+  }
+  return n;
+}
+
+// Phase 1 of materialize: per-series point counts within
+// [start_ms, end_ms] (inclusive). Parallel over a thread pool — the
+// reference's per-salt-bucket scanner fan-out.
+int tss_count_range(void* h, const int64_t* sids, int64_t nsids,
+                    int64_t start_ms, int64_t end_ms,
+                    int64_t* counts_out, int threads) {
+  Store* s = static_cast<Store*>(h);
+  std::vector<SeriesBuffer*> bufs;
+  if (!s->snapshot(sids, nsids, &bufs)) return -1;
+  if (threads < 1) threads = 1;
+  std::atomic<int64_t> next{0};
+  auto worker = [&]() {
+    for (;;) {
+      int64_t i = next.fetch_add(1);
+      if (i >= nsids) break;
+      int64_t lo, hi;
+      bufs[i]->range_bounds(start_ms, end_ms, &lo, &hi);
+      counts_out[i] = hi - lo;
+    }
+  };
+  std::vector<std::thread> pool;
+  for (int t = 1; t < threads; ++t) pool.emplace_back(worker);
+  worker();
+  for (auto& th : pool) th.join();
+  return 0;
+}
+
+// Phase 2: fill flat output arrays. offsets[i] must hold the exclusive
+// prefix sum of the phase-1 counts and counts[i] the phase-1 count
+// itself: the copy is capped at counts[i] so appends that land between
+// the two phases can never overflow the caller's buffers (they are
+// picked up by the next query). series_idx_out gets the *dense*
+// position i (0..nsids-1), matching PointBatch.
+int tss_fill_range(void* h, const int64_t* sids, int64_t nsids,
+                   int64_t start_ms, int64_t end_ms,
+                   const int64_t* offsets, const int64_t* counts,
+                   int64_t* ts_out, double* vals_out,
+                   int32_t* series_idx_out, int threads) {
+  Store* s = static_cast<Store*>(h);
+  std::vector<SeriesBuffer*> bufs;
+  if (!s->snapshot(sids, nsids, &bufs)) return -1;
+  if (threads < 1) threads = 1;
+  std::atomic<int64_t> next{0};
+  auto worker = [&]() {
+    for (;;) {
+      int64_t i = next.fetch_add(1);
+      if (i >= nsids) break;
+      SeriesBuffer* buf = bufs[i];
+      std::lock_guard<std::mutex> lock(buf->mu);
+      buf->ensure_sorted_locked();
+      int64_t lo =
+          std::lower_bound(buf->ts.begin(), buf->ts.end(), start_ms) -
+          buf->ts.begin();
+      int64_t hi =
+          std::upper_bound(buf->ts.begin(), buf->ts.end(), end_ms) -
+          buf->ts.begin();
+      int64_t off = offsets[i];
+      int64_t n = hi - lo;
+      if (n > counts[i]) n = counts[i];
+      if (n > 0) {
+        std::memcpy(ts_out + off, buf->ts.data() + lo,
+                    n * sizeof(int64_t));
+        std::memcpy(vals_out + off, buf->vals.data() + lo,
+                    n * sizeof(double));
+        std::fill(series_idx_out + off, series_idx_out + off + n,
+                  (int32_t)i);
+      }
+      // fewer points than counted (concurrent repair/delete): pad the
+      // remainder with NaN placeholders the compute path skips
+      for (int64_t j = n < 0 ? 0 : n; j < counts[i]; ++j) {
+        ts_out[off + j] = start_ms;
+        vals_out[off + j] = std::numeric_limits<double>::quiet_NaN();
+        series_idx_out[off + j] = (int32_t)i;
+      }
+    }
+  };
+  std::vector<std::thread> pool;
+  for (int t = 1; t < threads; ++t) pool.emplace_back(worker);
+  worker();
+  for (auto& th : pool) th.join();
+  return 0;
+}
+
+// Fused range-scan + fixed-interval downsample pre-reduction: for
+// each series i, every point with start_ms <= ts <= end_ms lands in
+// bucket b = (ts - t0) / interval_ms (caller guarantees t0 <= start_ms
+// and the last bucket covers end_ms), accumulating sum / count / min /
+// max. Outputs are [nsids, nbuckets] row-major; cells with count 0
+// hold sum 0, min +inf, max -inf (the Python wrapper NaN-fills).
+// NaN stored values are skipped, matching the device bucketize's NaN
+// guard (ref: Aggregators.runDouble skipping NaN). min_out/max_out may
+// be null when the caller only needs sum/count. Threaded over series.
+// Returns -1 on a bad sid, else 0.
+//
+// This removes the [N]-point materialize + host->device upload for
+// simple-function downsamples: the device receives S*B cells instead
+// of N points (60x smaller for 1m data in 1h buckets) and starts at
+// the grid stage of the pipeline.
+int tss_bucket_reduce(void* h, const int64_t* sids, int64_t nsids,
+                      int64_t start_ms, int64_t end_ms, int64_t t0,
+                      int64_t interval_ms, int64_t nbuckets,
+                      double* sum_out, double* cnt_out, double* min_out,
+                      double* max_out, int threads) {
+  Store* s = static_cast<Store*>(h);
+  std::vector<SeriesBuffer*> bufs;
+  if (!s->snapshot(sids, nsids, &bufs)) return -1;
+  if (interval_ms <= 0 || nbuckets <= 0) return -1;
+  if (threads < 1) threads = 1;
+  std::atomic<int64_t> next{0};
+  const double inf = std::numeric_limits<double>::infinity();
+  auto worker = [&]() {
+    for (;;) {
+      int64_t i = next.fetch_add(1);
+      if (i >= nsids) break;
+      double* srow = sum_out + i * nbuckets;
+      double* crow = cnt_out + i * nbuckets;
+      double* mnrow = min_out ? min_out + i * nbuckets : nullptr;
+      double* mxrow = max_out ? max_out + i * nbuckets : nullptr;
+      for (int64_t b = 0; b < nbuckets; ++b) {
+        srow[b] = 0.0;
+        crow[b] = 0.0;
+        if (mnrow) mnrow[b] = inf;
+        if (mxrow) mxrow[b] = -inf;
+      }
+      SeriesBuffer* buf = bufs[i];
+      std::lock_guard<std::mutex> lock(buf->mu);
+      buf->ensure_sorted_locked();
+      int64_t lo =
+          std::lower_bound(buf->ts.begin(), buf->ts.end(), start_ms) -
+          buf->ts.begin();
+      int64_t hi =
+          std::upper_bound(buf->ts.begin(), buf->ts.end(), end_ms) -
+          buf->ts.begin();
+      // timestamps are sorted: resolve each bucket's point range with
+      // a binary search, then accumulate over a fixed-bound inner loop
+      // the compiler can vectorize (no per-point divide or
+      // data-dependent exit). The NaN guard is a branchless blend.
+      const int64_t* tsd = buf->ts.data();
+      const double* vd = buf->vals.data();
+      int64_t p = lo;
+      while (p < hi) {
+        // floor division (C++ '/' truncates toward zero): a point just
+        // below t0 must be DROPPED like the Python twin's '//' does,
+        // not folded into bucket 0
+        int64_t d = tsd[p] - t0;
+        int64_t b = d >= 0 ? d / interval_ms : -1;
+        if (b < 0) {  // cannot happen when t0 <= start_ms; be safe
+          ++p;
+          continue;
+        }
+        if (b >= nbuckets) break;
+        int64_t bucket_end = t0 + (b + 1) * interval_ms;
+        int64_t pe =
+            std::lower_bound(tsd + p, tsd + hi, bucket_end) - tsd;
+        double sum = 0.0, cnt = 0.0;
+        if (mnrow) {
+          double mn = inf, mx = -inf;
+          for (int64_t q = p; q < pe; ++q) {
+            double v = vd[q];
+            bool ok = v == v;
+            sum += ok ? v : 0.0;
+            cnt += ok ? 1.0 : 0.0;
+            mn = (ok && v < mn) ? v : mn;
+            mx = (ok && v > mx) ? v : mx;
+          }
+          mnrow[b] = mn;
+          mxrow[b] = mx;
+        } else {
+          for (int64_t q = p; q < pe; ++q) {
+            double v = vd[q];
+            bool ok = v == v;
+            sum += ok ? v : 0.0;
+            cnt += ok ? 1.0 : 0.0;
+          }
+        }
+        srow[b] = sum;
+        crow[b] = cnt;
+        p = pe;
+      }
+    }
+  };
+  std::vector<std::thread> pool;
+  for (int t = 1; t < threads; ++t) pool.emplace_back(worker);
+  worker();
+  for (auto& th : pool) th.join();
+  return 0;
+}
+
+}  // extern "C"
+
+namespace {
+
+// Charset the reference allows in metric/tag names and values
+// (Tags.validateString: alphanumerics plus -_./ and unicode letters
+// via Character.isLetter). Bytes >= 0x80 (UTF-8 sequences) pass here;
+// the Python side re-validates non-ASCII names precisely.
+inline bool valid_name_char(unsigned char c) {
+  return (c >= 'a' && c <= 'z') || (c >= 'A' && c <= 'Z') ||
+         (c >= '0' && c <= '9') || c == '-' || c == '_' || c == '.' ||
+         c == '/' || c >= 0x80;
+}
+
+inline bool valid_name(const char* p, int64_t n) {
+  if (n <= 0) return false;
+  for (int64_t i = 0; i < n; ++i)
+    if (!valid_name_char((unsigned char)p[i])) return false;
+  return true;
+}
+
+// One thread's share of the import parse: lines in [pos, limit) of
+// the buffer, writing per-line outputs at global line index
+// line_base.., building a LOCAL group table (keys + first-line byte
+// ranges). Local group ids are remapped to global ids after the merge.
+struct LocalGroups {
+  std::unordered_map<std::string, int64_t> map;
+  std::vector<int64_t> rep_off, rep_len;
+};
+
+void parse_import_range(const char* buf, int64_t pos, int64_t limit,
+                        int64_t line_base, int64_t* ts_out,
+                        double* val_out, uint8_t* int_out,
+                        int64_t* group_out, int32_t* err_out,
+                        LocalGroups* lg) {
+  std::string key;
+  key.reserve(256);
+  std::string prev_key;
+  int64_t prev_gid = -1;
+  struct Tok {
+    const char* p;
+    int64_t n;
+  };
+  int64_t line = line_base;
+  const int64_t kMaxTs = (int64_t)1 << 47;
+  while (pos < limit) {
+    int64_t eol = pos;
+    while (eol < limit && buf[eol] != '\n') ++eol;
+    int64_t lstart = pos;
+    int64_t lend = eol;
+    if (lend > lstart && buf[lend - 1] == '\r') --lend;
+    pos = eol + 1;
+    int64_t i = line++;
+    ts_out[i] = 0;
+    val_out[i] = 0.0;
+    int_out[i] = 0;
+    group_out[i] = -1;
+    err_out[i] = 0;
+    // tokenize on runs of space/tab
+    Tok toks[16];
+    int ntok = 0;
+    int64_t q = lstart;
+    bool overflow = false;
+    while (q < lend) {
+      while (q < lend && (buf[q] == ' ' || buf[q] == '\t')) ++q;
+      if (q >= lend) break;
+      int64_t t0 = q;
+      while (q < lend && buf[q] != ' ' && buf[q] != '\t') ++q;
+      if (ntok < 16) {
+        toks[ntok].p = buf + t0;
+        toks[ntok].n = q - t0;
+        ++ntok;
+      } else {
+        overflow = true;
+      }
+    }
+    // blank or comment: first NON-SPACE char decides, so indented
+    // comments skip like the line.strip().startswith('#') fallback
+    {
+      int64_t fs = lstart;
+      while (fs < lend && (buf[fs] == ' ' || buf[fs] == '\t')) ++fs;
+      if (fs >= lend || buf[fs] == '#') {
+        err_out[i] = -1;
+        continue;
+      }
+    }
+    if (ntok == 0) {
+      err_out[i] = -1;
+      continue;
+    }
+    if (ntok < 4 || overflow) {
+      err_out[i] = ntok < 4 ? 1 : 4;
+      continue;
+    }
+    if (!valid_name(toks[0].p, toks[0].n)) {
+      err_out[i] = 5;
+      continue;
+    }
+    // timestamp: plain digits (seconds or epoch-ms)
+    {
+      int64_t ts = 0;
+      bool ok = toks[1].n > 0 && toks[1].n < 15;
+      for (int64_t c = 0; ok && c < toks[1].n; ++c) {
+        char ch = toks[1].p[c];
+        if (ch < '0' || ch > '9') ok = false;
+        else ts = ts * 10 + (ch - '0');
+      }
+      if (!ok || ts <= 0 || ts > kMaxTs) {
+        err_out[i] = 2;
+        continue;
+      }
+      ts_out[i] = ts;
+    }
+    // value: inline integer fast path, strtod for the rest
+    {
+      const char* vp = toks[2].p;
+      int64_t vn = toks[2].n;
+      int64_t st = (vn && (vp[0] == '-' || vp[0] == '+')) ? 1 : 0;
+      bool neg = vn && vp[0] == '-';
+      bool isint = vn - st > 0 && vn - st < 19;
+      int64_t acc = 0;
+      for (int64_t c = st; isint && c < vn; ++c) {
+        char ch = vp[c];
+        if (ch < '0' || ch > '9') isint = false;
+        else acc = acc * 10 + (ch - '0');
+      }
+      if (isint) {
+        val_out[i] = neg ? -(double)acc : (double)acc;
+        int_out[i] = 1;
+      } else {
+        // decimal float shape only: strtod alone would accept 'nan',
+        // 'inf', and hex floats, which the reference (and the NaN-as-
+        // missing engine sentinel) must reject
+        bool shape_ok = vn > 0 && vn < 64;
+        for (int64_t c = 0; shape_ok && c < vn; ++c) {
+          char ch = vp[c];
+          if (!((ch >= '0' && ch <= '9') || ch == '.' || ch == '+' ||
+                ch == '-' || ch == 'e' || ch == 'E'))
+            shape_ok = false;
+        }
+        if (!shape_ok) {
+          err_out[i] = 3;
+          continue;
+        }
+        char tmp[64];
+        std::memcpy(tmp, vp, vn);
+        tmp[vn] = 0;
+        char* end = nullptr;
+        double v = std::strtod(tmp, &end);
+        if (end != tmp + vn || v != v) {
+          err_out[i] = 3;
+          continue;
+        }
+        val_out[i] = v;
+        int_out[i] = 0;
+      }
+    }
+    // tags: validate k=v, sort for a canonical key
+    int ntags = ntok - 3;
+    if (ntags > 8) {  // the reference's hard tag cap (Const.java:28)
+      err_out[i] = 4;
+      continue;
+    }
+    Tok* tags = toks + 3;
+    bool bad = false;
+    for (int t = 0; t < ntags && !bad; ++t) {
+      const char* eq =
+          (const char*)memchr(tags[t].p, '=', (size_t)tags[t].n);
+      if (!eq || eq == tags[t].p ||
+          eq == tags[t].p + tags[t].n - 1) {
+        err_out[i] = 4;
+        bad = true;
+        break;
+      }
+      if (!valid_name(tags[t].p, eq - tags[t].p) ||
+          !valid_name(eq + 1, tags[t].p + tags[t].n - eq - 1)) {
+        err_out[i] = 5;
+        bad = true;
+      }
+    }
+    if (bad) continue;
+    std::sort(tags, tags + ntags, [](const Tok& a, const Tok& b) {
+      int c = std::memcmp(a.p, b.p, (size_t)std::min(a.n, b.n));
+      return c < 0 || (c == 0 && a.n < b.n);
+    });
+    key.assign(toks[0].p, (size_t)toks[0].n);
+    for (int t = 0; t < ntags; ++t) {
+      key.push_back(' ');
+      key.append(tags[t].p, (size_t)tags[t].n);
+    }
+    // import files overwhelmingly write one series' points in runs
+    // (scan --import emits them that way): the previous line's key
+    // skips the hash lookup for the common case
+    int64_t gid;
+    if (prev_gid >= 0 && key == prev_key) {
+      gid = prev_gid;
+    } else {
+      auto it = lg->map.find(key);
+      if (it == lg->map.end()) {
+        gid = (int64_t)lg->map.size();
+        lg->map.emplace(key, gid);
+        lg->rep_off.push_back(lstart);
+        lg->rep_len.push_back(lend - lstart);
+      } else {
+        gid = it->second;
+      }
+      prev_key = key;
+      prev_gid = gid;
+    }
+    group_out[i] = gid;
+  }
+}
+
+// Shortest-round-trip double formatting, portable to libstdc++ < 11:
+// gcc-10 hosts ship INTEGER std::to_chars only, so the double call is
+// ambiguous among the integer overloads (the build failed outright
+// there until this guard). Feature-test the floating-point overload;
+// without it, walk %.*g precisions until strtod round-trips — the
+// same shortest-digits contract to_chars guarantees by construction,
+// so the emitted text parses to the identical double either way (the
+// exponent spelling may differ: "1e16" vs "1e+16" — both valid JSON).
+inline char* fmt_double_chars(char* p, char* end, double v) {
+#if defined(__cpp_lib_to_chars) && __cpp_lib_to_chars >= 201611L
+  return std::to_chars(p, end, v).ptr;
+#else
+  char tmp[40];
+  // three-step walk, not 1..17 (this path serves every large
+  // response on gcc-10 hosts, so it must stay near to_chars speed):
+  // %g strips trailing zeros, so %.15g already prints "human" values
+  // (0.1, 42.5) at their shortest and round-trips most doubles; 16
+  // covers the next band; 17 round-trips everything by construction
+  // (no verify needed). A precision-p print that round-trips implies
+  // the shortest form needs <= p digits, so this walk reproduces the
+  // shortest text (and Python repr) for practical value populations.
+  int n = 0;
+  for (int prec = 15; prec <= 17; ++prec) {
+    n = std::snprintf(tmp, sizeof tmp, "%.*g", prec, v);
+    if (prec == 17 || (n > 0 && n < (int)sizeof tmp &&
+                       std::strtod(tmp, nullptr) == v))
+      break;
+  }
+  if (n <= 0 || n > end - p) return p;  // caller reserves headroom
+  for (int i = 0; i < n; ++i)  // locale hardening: ',' decimal point
+    if (tmp[i] == ',') tmp[i] = '.';
+  std::memcpy(p, tmp, n);
+  return p + n;
+#endif
+}
+
+}  // namespace
+
+extern "C" {
+
+// 1 when doubles format through real std::to_chars (libstdc++ >= 11),
+// 0 on the snprintf round-trip fallback (gcc-10 hosts). The Python
+// serializer prefers its own columnar bulk formatter over a slow
+// native one — the fallback's strtod verification makes it ~2x the
+// cost of the pure-Python path, inverting the reason the native
+// formatter exists.
+int64_t tss_fmt_fast() {
+#if defined(__cpp_lib_to_chars) && __cpp_lib_to_chars >= 201611L
+  return 1;
+#else
+  return 0;
+#endif
+}
+
+// JSON-format a series' datapoints: entries joined by ',' with no
+// surrounding braces (the Python serializer owns the envelope).
+// seconds != 0 emits ts/1000 (the query's ms_resolution choice);
+// as_arrays != 0 emits "[ts,val]" rows instead of "\"ts\":val".
+// Value forms match the Python serializer's _format_value: NaN ->
+// "NaN" (quoted), +/-inf -> quoted Infinity, integral |v| < 2^53 ->
+// integer digits, else shortest round-trip (std::to_chars) with a
+// ".0" float marker when the digits carry no '.'/'e' — byte-identical
+// to Python repr except the exponent-style choice at |v| >= 1e16
+// (both forms parse to the same double).
+// Returns bytes written, or -1 if cap is too small.
+// Why native: Python pays ~1.3us per point building response JSON;
+// a 3M-point response costs 4s of serialization on one core. This
+// loop does it ~20x faster.
+int64_t tss_format_dps(const int64_t* ts_ms, const double* vals,
+                       int64_t n, int seconds, int as_arrays,
+                       char* out, int64_t cap) {
+  char* p = out;
+  char* end = out + cap;
+  const double kMaxInt = 9007199254740992.0;  // 2^53
+  for (int64_t i = 0; i < n; ++i) {
+    if (end - p < 64) return -1;
+    if (i) *p++ = ',';
+    int64_t t = seconds ? ts_ms[i] / 1000 : ts_ms[i];
+    if (as_arrays) {
+      *p++ = '[';
+      auto r = std::to_chars(p, end, t);
+      p = r.ptr;
+      *p++ = ',';
+    } else {
+      *p++ = '"';
+      auto r = std::to_chars(p, end, t);
+      p = r.ptr;
+      *p++ = '"';
+      *p++ = ':';
+    }
+    double v = vals[i];
+    if (v != v) {
+      std::memcpy(p, "\"NaN\"", 5);
+      p += 5;
+    } else if (v == std::numeric_limits<double>::infinity()) {
+      std::memcpy(p, "\"Infinity\"", 10);
+      p += 10;
+    } else if (v == -std::numeric_limits<double>::infinity()) {
+      std::memcpy(p, "\"-Infinity\"", 11);
+      p += 11;
+    } else if (v > -kMaxInt && v < kMaxInt &&
+               v == (double)(int64_t)v) {
+      // range-guard BEFORE the int64 cast: converting an
+      // unrepresentable double is UB
+      auto r = std::to_chars(p, end, (int64_t)v);
+      p = r.ptr;
+    } else {
+      char* start = p;
+      p = fmt_double_chars(p, end, v);
+      // Python repr always marks floats (".0" or an exponent);
+      // integral doubles >= 2^53 would otherwise print bare digits
+      bool marked = false;
+      for (char* q = start; q < p; ++q)
+        if (*q == '.' || *q == 'e' || *q == 'E') marked = true;
+      if (!marked) {
+        *p++ = '.';
+        *p++ = '0';
+      }
+    }
+    if (as_arrays) *p++ = ']';
+  }
+  return p - out;
+}
+
+// Count '\n' + 1 (array sizing for tss_parse_import without a Python
+// bytes.count pass).
+int64_t tss_count_lines(const char* buf, int64_t len) {
+  int64_t n = 1;
+  const char* p = buf;
+  const char* end = buf + len;
+  while ((p = (const char*)memchr(p, '\n', end - p)) != nullptr) {
+    ++n;
+    ++p;
+  }
+  return n;
+}
+
+// Scatter-append: line i appends (ts_ms[i], vals[i], ints[i]) onto
+// series sids[i]; sids[i] < 0 skips the line (parse errors / rejected
+// groups). One call lands a whole parsed import buffer — the per-group
+// Python loop with one ctypes call per series cost ~3 s per 10M points
+// at 50k series. Returns the number appended, -1 on a bad sid.
+int64_t tss_append_lines(void* h, const int64_t* sids, int64_t n,
+                         const int64_t* ts_ms, const double* vals,
+                         const uint8_t* ints) {
+  Store* s = static_cast<Store*>(h);
+  int64_t written = 0;
+  SeriesBuffer* buf = nullptr;
+  int64_t cur = -2;  // current locked-in sid (runs are the common case)
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t sid = sids[i];
+    if (sid < 0) continue;
+    if (sid != cur) {
+      SeriesBuffer* nb = s->lookup(sid);
+      if (buf) buf->mu.unlock();
+      if (!nb) {
+        s->points_written.fetch_add(written);
+        return -1;
+      }
+      nb->mu.lock();
+      buf = nb;
+      cur = sid;
+    }
+    if (buf->sorted && !buf->ts.empty() && ts_ms[i] <= buf->ts.back())
+      buf->sorted = false;
+    buf->ts.push_back(ts_ms[i]);
+    buf->vals.push_back(vals[i]);
+    buf->is_int.push_back(ints ? ints[i] : 0);
+    ++written;
+  }
+  if (buf) buf->mu.unlock();
+  s->points_written.fetch_add(written);
+  return written;
+}
+
+// Bulk text-import parser (the reference's TextImporter line format:
+// "metric ts value tagk=tagv [tagk=tagv ...]"). Parallel over
+// newline-aligned byte chunks:
+//   per line i: ts_out[i] (raw, seconds or ms as written), val_out[i],
+//   int_out[i] (the value token had integer form), err_out[i]
+//   (0 = ok, -1 = blank/comment, >0 = error code), group_out[i] =
+//   id of the line's distinct (metric, sorted tags) key or -1.
+// rep_off/rep_len[g] give the byte range of group g's first line so
+// the caller can parse metric/tag STRINGS once per distinct series
+// (UID resolution is per-series, not per-point).
+// Error codes: 1 too few fields (a tag is required, like the
+// reference), 2 bad timestamp, 3 bad value, 4 malformed tag or too
+// many tags, 5 invalid character.
+// Returns the number of distinct groups, or -1 if group capacity
+// (max_groups) was exceeded. nlines_out gets the number of lines seen
+// (caller sizes arrays by tss_count_lines, which is always enough).
+int64_t tss_parse_import(const char* buf, int64_t len, int64_t* ts_out,
+                         double* val_out, uint8_t* int_out,
+                         int64_t* group_out, int32_t* err_out,
+                         int64_t* rep_off, int64_t* rep_len,
+                         int64_t max_groups, int64_t* nlines_out,
+                         int threads) {
+  if (threads < 1) threads = 1;
+  // chunk boundaries aligned to line starts
+  std::vector<int64_t> starts;
+  starts.push_back(0);
+  for (int t = 1; t < threads; ++t) {
+    int64_t pos = len * t / threads;
+    const char* nl =
+        (const char*)memchr(buf + pos, '\n', (size_t)(len - pos));
+    int64_t aligned = nl ? (nl - buf) + 1 : len;
+    // aligned == len would create an empty final chunk whose
+    // "trailing line without newline" credit (below) belongs to the
+    // chunk that actually owns the final bytes — skip it.
+    if (aligned > starts.back() && aligned < len) starts.push_back(aligned);
+  }
+  starts.push_back(len);
+  int nchunks = (int)starts.size() - 1;
+  // per-chunk line counts -> global line bases
+  std::vector<int64_t> nlines(nchunks), base(nchunks);
+  {
+    std::atomic<int> next{0};
+    auto worker = [&]() {
+      for (;;) {
+        int c = next.fetch_add(1);
+        if (c >= nchunks) break;
+        int64_t cnt = 0;
+        const char* p = buf + starts[c];
+        const char* e = buf + starts[c + 1];
+        // each line ends with '\n' except possibly the buffer's last
+        while ((p = (const char*)memchr(p, '\n', e - p)) != nullptr) {
+          ++cnt;
+          ++p;
+        }
+        if (c == nchunks - 1 && len > 0 && buf[len - 1] != '\n')
+          ++cnt;  // trailing line without newline
+        nlines[c] = cnt;
+      }
+    };
+    std::vector<std::thread> pool;
+    for (int t = 1; t < threads; ++t) pool.emplace_back(worker);
+    worker();
+    for (auto& th : pool) th.join();
+  }
+  int64_t total_lines = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    base[c] = total_lines;
+    total_lines += nlines[c];
+  }
+  *nlines_out = total_lines;
+  // parse each chunk with a local group table
+  std::vector<LocalGroups> locals(nchunks);
+  {
+    std::atomic<int> next{0};
+    auto worker = [&]() {
+      for (;;) {
+        int c = next.fetch_add(1);
+        if (c >= nchunks) break;
+        parse_import_range(buf, starts[c], starts[c + 1], base[c],
+                           ts_out, val_out, int_out, group_out,
+                           err_out, &locals[c]);
+      }
+    };
+    std::vector<std::thread> pool;
+    for (int t = 1; t < threads; ++t) pool.emplace_back(worker);
+    worker();
+    for (auto& th : pool) th.join();
+  }
+  // merge local tables into the global numbering and remap gids
+  std::unordered_map<std::string, int64_t> global;
+  std::vector<std::vector<int64_t>> remap(nchunks);
+  for (int c = 0; c < nchunks; ++c) {
+    remap[c].resize(locals[c].map.size());
+    for (auto& kv : locals[c].map) {
+      auto it = global.find(kv.first);
+      int64_t gid;
+      if (it == global.end()) {
+        gid = (int64_t)global.size();
+        if (gid >= max_groups) return -1;
+        global.emplace(kv.first, gid);
+        rep_off[gid] = locals[c].rep_off[kv.second];
+        rep_len[gid] = locals[c].rep_len[kv.second];
+      } else {
+        gid = it->second;
+      }
+      remap[c][kv.second] = gid;
+    }
+  }
+  {
+    // local gid -> global gid, every chunk (the merge renumbers in
+    // hash-iteration order even for a single chunk)
+    std::atomic<int> next{0};
+    auto worker = [&]() {
+      for (;;) {
+        int c = next.fetch_add(1);
+        if (c >= nchunks) break;
+        for (int64_t i = base[c]; i < base[c] + nlines[c]; ++i)
+          if (group_out[i] >= 0)
+            group_out[i] = remap[c][group_out[i]];
+      }
+    };
+    std::vector<std::thread> pool;
+    for (int t = 1; t < threads; ++t) pool.emplace_back(worker);
+    worker();
+    for (auto& th : pool) th.join();
+  }
+  return (int64_t)global.size();
+}
+
+}  // extern "C"

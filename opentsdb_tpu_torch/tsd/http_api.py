@@ -201,7 +201,7 @@ class HttpRpcRouter:
 
     def __init__(self, tsdb):
         self.tsdb = tsdb
-        self.serializer = HttpJsonSerializer()
+        self.serializer = HttpJsonSerializer.for_tsdb(tsdb)
         self.serializers: dict[str, Any] = {
             self.serializer.shortname: self.serializer}
         mode = tsdb.mode

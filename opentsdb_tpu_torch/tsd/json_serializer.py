@@ -6,10 +6,18 @@ epoch-seconds strings (or ms when msResolution), errors wrap in
 ``{"error": {code, message, details}}``, put responses report
 ``{success, failed, errors[]}``.
 
-Results of at least ``_BULK_MIN_DPS`` points format their ``dps``
-straight from the engine's numpy columns (:func:`format_dps_columnar`);
-smaller ones take the per-point path. Both emit the same text. The
-port has no annotations yet (``meta/`` is not ported), so no result
+Results of at least ``_NATIVE_FMT_MIN_DPS`` points format their
+``dps`` straight from the engine's numpy columns: through the native
+store library's formatter (``native.store_backend.format_dps``) when
+the TSDB's backend is native and the library formats doubles through
+``std::to_chars``, as the reference does, else through
+:func:`format_dps_columnar`; smaller ones take the per-point path. The
+choice is made once, from the backend (:meth:`HttpJsonSerializer.
+for_tsdb`). The columnar and per-point paths emit Python's ``repr``
+of each float; the native formatter emits the shortest of its fixed and
+exponent forms (``1e-04`` for ``0.0001``, ``12345678901234568.0`` for
+``1.2345678901234568e+16``), the same double, and the reference's bytes.
+The port has no annotations yet (``meta/`` is not ported), so no result
 carries any.
 """
 
@@ -20,6 +28,9 @@ import math
 from typing import Any
 
 import numpy as np
+
+from opentsdb_tpu_torch.native.store_backend import (format_dps,
+                                                     format_dps_is_fast)
 
 
 class HttpSerializer:
@@ -113,12 +124,26 @@ def _dedupe_seconds(ts_arr, vals):
 class HttpJsonSerializer(HttpSerializer):
     """(ref: HttpJsonSerializer.java:69)"""
 
-    # results with at least this many points take the columnar
-    # formatter (the reference's crossover for its bulk path)
-    _BULK_MIN_DPS = 8
+    # results with at least this many points take the bulk formatter
+    # (the reference's crossover for its native path)
+    _NATIVE_FMT_MIN_DPS = 8
     # dps entries per streamed chunk: bounds the largest in-memory piece
     # even when one aggregated series carries millions of points
     _STREAM_SLAB_DPS = 50_000
+
+    def __init__(self, format_dps=None):
+        # the bulk dps formatter: format_dps_columnar's signature
+        self._format_dps = format_dps or format_dps_columnar
+
+    @classmethod
+    def for_tsdb(cls, tsdb) -> "HttpJsonSerializer":
+        """The serializer of ``tsdb``'s front end: the native formatter
+        when the TSDB's store is native and the library formats doubles
+        through ``std::to_chars`` (ref: ``_native_fmt``), else the
+        columnar one."""
+        if tsdb.store.backend == "native" and format_dps_is_fast():
+            return cls(format_dps)
+        return cls()
 
     def parse_put(self, body: bytes) -> list[dict[str, Any]]:
         """One datapoint object or an array of them (ref: parsePutV1)."""
@@ -168,7 +193,7 @@ class HttpJsonSerializer(HttpSerializer):
     def _bulk_columns(self, r, ms: bool, as_arrays: bool):
         """The result's columns for the bulk formatter, same-second
         deduped for the seconds map form; None below the bulk size."""
-        if r.num_dps < self._BULK_MIN_DPS:
+        if r.num_dps < self._NATIVE_FMT_MIN_DPS:
             return None
         ts_arr, vals = r.dps_arrays
         if not as_arrays and not ms:
@@ -179,7 +204,7 @@ class HttpJsonSerializer(HttpSerializer):
         """The dps map or array body."""
         cols = self._bulk_columns(r, ms, as_arrays)
         if cols is not None:
-            inner = format_dps_columnar(*cols, not ms, as_arrays)
+            inner = self._format_dps(*cols, not ms, as_arrays)
             return (b"[" + inner + b"]") if as_arrays else \
                 (b"{" + inner + b"}")
         if as_arrays:
@@ -234,8 +259,8 @@ class HttpJsonSerializer(HttpSerializer):
                 for lo in range(0, len(ts_all), self._STREAM_SLAB_DPS):
                     hi = lo + self._STREAM_SLAB_DPS
                     yield (b"" if lo == 0 else b",") + \
-                        format_dps_columnar(ts_all[lo:hi], val_all[lo:hi],
-                                            not ms, as_arrays)
+                        self._format_dps(ts_all[lo:hi], val_all[lo:hi],
+                                         not ms, as_arrays)
             else:
                 body = self._dps_body(r, ms, as_arrays)
                 yield body[1:-1]

@@ -83,13 +83,24 @@ class TelnetRouter:
         return responses, None
 
     def put_lines(self, lines: list[str]) -> list[str]:
-        """Columnar decode of a run of ``put`` lines: each line's words
-        go through the scalar parse, the good points are grouped by
-        series and land through ``TSDB.add_point_groups`` (one store
-        append per series instead of one per line). A line that fails
-        its parse or its write answers exactly what the scalar ``put``
-        answers for it. Returns the error responses (successes are
-        silent)."""
+        """Columnar decode of a run of ``put`` lines. Returns the error
+        responses (successes are silent), each exactly what the scalar
+        ``put`` answers for its line.
+
+        On the native store a burst of more than one line goes through
+        ``TSDB.import_buffer`` (ref: ``TelnetRouter._put_lines_run``):
+        the payloads, which are import lines once the command word is
+        stripped, parse in one native pass and land by one append, and
+        each line the parser rejects replays through the scalar ``put``
+        at its place in the burst, after the lines before it have
+        landed. So UIDs are assigned, and duplicate timestamps resolved,
+        in line order, as for a client sending one line at a time.
+
+        On the memory store each line's words go through the scalar
+        parse, and the good points are grouped by series and land
+        through ``TSDB.add_point_groups``."""
+        if len(lines) > 1 and self.tsdb.store.backend == "native":
+            return self._put_lines_native(lines)
         errors: dict[int, str] = {}     # line index -> error line
         groups: dict[tuple, tuple] = {}
         for i, line in enumerate(lines):
@@ -115,6 +126,29 @@ class TelnetRouter:
 
         self.tsdb.add_point_groups(groups.values(), on_error=on_error)
         return [errors[i] for i in sorted(errors)]
+
+    def _put_lines_native(self, lines: list[str]) -> list[str]:
+        bodies = []
+        for ln in lines:
+            parts = ln.split(None, 1)
+            body = parts[1] if len(parts) > 1 else ""
+            if not body.strip() or body.lstrip().startswith("#"):
+                # the parser skips a blank or comment line without an
+                # error, but such a put must answer one: one token makes
+                # the parser reject it (too few fields), so it replays
+                body = "-"
+            bodies.append(body)
+        out: list[str] = []
+
+        def replay(lineno: int, exc: Exception) -> None:
+            r = self._cmd_put(lines[lineno - 1].split())
+            if r:
+                out.append(r)
+
+        self.tsdb.import_buffer(
+            ("\n".join(bodies) + "\n").encode("utf-8", "replace"),
+            on_error=replay)
+        return out
 
     # ------------------------------------------------------------------
 

@@ -40,6 +40,12 @@ _DEFAULTS: dict[str, str] = {
     "tsd.query.admission.max_inflight": "0",
     "tsd.query.admission.max_queue": "0",
     "tsd.query.admission.retry_after_s": "1",
+    # where the points live (native/store_backend.py): "native" (the
+    # default, as in the reference) is the C++ store of
+    # csrc/tsdbstore.cc, built with g++ at first use; "memory" is the
+    # numpy CSR store of core/store.py. A native store that does not
+    # build raises: there is no fallback to the memory store.
+    "tsd.storage.backend": "native",
     "tsd.storage.uid.width.metric": "3",
     "tsd.storage.uid.width.tagk": "3",
     "tsd.storage.uid.width.tagv": "3",

@@ -4,7 +4,9 @@ streamed responses, load shedding (503 + Retry-After), the query
 timeout (504), gzip, CORS, the idle reaper, and a clean stop that
 leaves no worker thread behind. Every server is stopped in a fixture
 finalizer, so a failing test leaves no ``tsd-query``/``tsd-subq``
-thread for the test files after it."""
+thread for the test files after it. The thread checks count only the
+threads started since the fixture began: other test files of the same
+process may leave pools of their own alive."""
 
 import gzip
 import http.client
@@ -28,16 +30,20 @@ T0 = 1356998400
 POOLS = ("tsd-query", "tsd-subq", "tsd-http", "tsd-server")
 
 
-def _pool_threads() -> list[str]:
+def _pool_threads(baseline: set) -> list[str]:
+    """Names of the live pool threads that are not in ``baseline``."""
     return [t.name for t in threading.enumerate()
-            if t.name.startswith(POOLS)]
+            if t.name.startswith(POOLS) and t not in baseline]
 
 
 @pytest.fixture
 def serve():
     """Factory: a started server over a fresh CPU TSDB with ``keys``;
-    every server is stopped (and its threads joined) at teardown."""
+    every server is stopped (and its threads joined) at teardown, and no
+    pool thread started since the fixture began may be left.
+    ``serve.baseline`` is the set of threads alive before it."""
     started = []
+    baseline = set(threading.enumerate())
 
     def make(**keys) -> ServerThread:
         tsdb = TSDB(Config(**{"tsd.torch.device": "cpu",
@@ -47,10 +53,11 @@ def serve():
         started.append(st)
         return st
 
+    make.baseline = baseline
     yield make
     for st in started:
         st.stop()
-    assert not _pool_threads()
+    assert not _pool_threads(baseline)
 
 
 def _http(st, method, path, body=None, headers=None):
@@ -327,7 +334,8 @@ def test_diediedie_stops_cleanly(serve, how):
                 {"aggregator": "sum", "metric": "a.m"},
                 {"aggregator": "sum", "metric": "b.m"}]}).encode())
     assert status == 200
-    assert any(n.startswith("tsd-subq") for n in _pool_threads())
+    assert any(n.startswith("tsd-subq")
+               for n in _pool_threads(serve.baseline))
     if how == "http":
         status, _, body = _http(st, "GET", "/diediedie")
         assert status == 200 and b"shutting down" in body
@@ -336,7 +344,7 @@ def test_diediedie_stops_cleanly(serve, how):
             b"Cleanup complete, shutting down.\n"
     st._thread.join(30)
     assert not st._thread.is_alive()
-    assert not _pool_threads()
+    assert not _pool_threads(serve.baseline)
 
 
 def test_cli_tsd_serves_and_stops_on_sigterm(tmp_path):

@@ -1,7 +1,10 @@
-"""The port's columnar store (``opentsdb_tpu_torch.core.store``) against
-the reference's portable store (``opentsdb_tpu.core.store``) under the
-same writes: ragged series, out-of-order chunks, duplicate timestamps
-(last write wins), and inclusive range reads."""
+"""The port's two stores, each test a case of both backends: the
+columnar memory store (``opentsdb_tpu_torch.core.store``) and the native
+store (``opentsdb_tpu_torch.native.store_backend``), against the
+reference's portable store (``opentsdb_tpu.core.store``) under the same
+writes: ragged series, out-of-order chunks, duplicate timestamps (last
+write wins), and inclusive range reads. ``test_torch_native_store.py``
+holds the native store against the reference's native one."""
 
 import sys
 import threading
@@ -10,14 +13,21 @@ import numpy as np
 import pytest
 
 from opentsdb_tpu.core.store import TimeSeriesStore as JStore
-from opentsdb_tpu_torch.core.store import TimeSeriesStore as TStore
+from opentsdb_tpu_torch.core.store import TimeSeriesStore
+from opentsdb_tpu_torch.native.store_backend import NativeTimeSeriesStore
 
 T0 = 1_356_998_400_000
+BACKENDS = {"memory": TimeSeriesStore, "native": NativeTimeSeriesStore}
+backends = pytest.mark.parametrize("backend", sorted(BACKENDS))
 
 
-def _fill(seed: int):
+def TStore(backend: str):
+    return BACKENDS[backend]()
+
+
+def _fill(seed: int, backend: str):
     rng = np.random.default_rng(seed)
-    j, t = JStore(num_shards=4), TStore()
+    j, t = JStore(num_shards=4), TStore(backend)
     tags = [((1, i), (2, i % 3)) for i in range(25)]
     js = j.get_or_create_series_bulk(7, tags)
     ts_ = t.get_or_create_series_bulk(7, tags)
@@ -36,12 +46,13 @@ def _fill(seed: int):
     return j, t, js
 
 
+@backends
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("lo,hi", [(0, 2**62), (T0 + 100_000, T0 + 300_000),
                                    (T0 + 250_500, T0 + 250_999),
                                    (T0 + 499_000, T0 + 499_000)])
-def test_range_reads_match_reference(seed, lo, hi):
-    j, t, sids = _fill(seed)
+def test_range_reads_match_reference(seed, lo, hi, backend):
+    j, t, sids = _fill(seed, backend)
     sel = sids[::2][::-1]          # a subset, out of order
     np.testing.assert_array_equal(t.count_range(sel, lo, hi),
                                   j.count_range(sel, lo, hi))
@@ -53,8 +64,9 @@ def test_range_reads_match_reference(seed, lo, hi):
     assert tp.num_points == jp.num_points
 
 
-def test_metric_index_and_errors():
-    t = TStore()
+@backends
+def test_metric_index_and_errors(backend):
+    t = TStore(backend)
     a = t.get_or_create_series_bulk(1, [((5, 9),), ((5, 8), (6, 1))])
     b = t.get_or_create_series(1, ((6, 1), (5, 8)))   # same tag set
     assert b == a[1]
@@ -70,12 +82,13 @@ def test_metric_index_and_errors():
     assert t.append_lines([-1, 0], [T0, T0], [1.0, 2.0]) == 1
 
 
-def test_metric_index_folds_once_under_concurrent_readers():
+@backends
+def test_metric_index_folds_once_under_concurrent_readers(backend):
     """Sub-queries read a metric's index from several threads while
     series are added: every series id appears once, however the reads
     and the writes interleave (more threads than cores, a short switch
     interval)."""
-    t = TStore()
+    t = TStore(backend)
     stop = threading.Event()
     seen_dup = []
 
