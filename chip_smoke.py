@@ -83,8 +83,25 @@
    read back. The backends' materialized points must be equal bit for
    bit, their ``bucket_reduce`` sums within 1e-12 relative, and their
    point-path answers (also after the rewrite) equal bit for bit;
-10. prints one JSON line describing each kernel (its launches are those
-   of phases 3, 5, 8, 6 and 9), the card line and, last,
+10. durability (``tsd.storage.data_dir``, the WAL at ``fsync=always``,
+   on the native store, the point path with the result cache off), in
+   a fresh directory on the local disk (its filesystem and free bytes
+   printed; fewer than 8 GiB free fails): (a) config 3 by
+   ``add_series_points`` with the WAL (seconds, WAL bytes, records and
+   fsyncs, against phase 9's native ingest); (b) 1M points by
+   ``/api/put`` in 1000-point bodies with the WAL (points/s against
+   phase 8's, fsyncs per body); (c) a child process writes config 3
+   with the WAL, acknowledges and is SIGKILLed; a TSDB on its
+   directory recovers (snapshot load and WAL replay timed apart),
+   must read back every point, and answers ``{dc=*}`` and ``{rack=*}``
+   with one K1 or K2 launch each, bit for bit as (a)'s TSDB that never
+   died; (d) ``flush()`` (seconds, snapshot bytes, segments truncated),
+   a restart from the snapshot alone with the same answers, then one
+   out-of-order point on series 0 by a killed child process, read back
+   after the restart and in the rewritten answer, equal to (a)'s TSDB
+   after the same write;
+11. prints one JSON line describing each kernel (its launches are those
+   of phases 3, 5, 8, 6, 9 and 10), the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Phases 3-8 run on the default store, the native one. Phases 3-5, 7 and
@@ -139,6 +156,8 @@ _MEM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
 F32_PEAK = 67e12           # float32 FLOP/s outside the tensor cores
 TOL_REL, TOL_ABS = 1e-5, 1e-6
 REPEATS = 5                # warm repeats per timed stage
+# readings of one phase that a later one prints beside its own
+READINGS: dict[str, float] = {}
 
 
 class SmokeFailure(RuntimeError):
@@ -853,6 +872,49 @@ def _fe_values(rows, g: int, b: int):
     return torch.tensor(vals, dtype=torch.float64)
 
 
+def put_points(port: int, metric: str) -> float:
+    """PUT_SERIES x PUT_STEPS points of ``metric`` by ``/api/put`` in
+    1000-point bodies over PUT_CONNS kept-alive connections; the
+    seconds it took. Host i's point j is ``(i * 7 + j) % 100000``."""
+    import http.client
+    n_series_bodies = PUT_SERIES // PUT_BODY_SERIES
+
+    def put_bodies(c: int):
+        for k in range(c, n_series_bodies * (PUT_STEPS // PUT_BODY_STEPS),
+                       PUT_CONNS):
+            s0 = (k % n_series_bodies) * PUT_BODY_SERIES
+            j0 = (k // n_series_bodies) * PUT_BODY_STEPS
+            yield json.dumps([
+                {"metric": metric, "timestamp": T0 + 60 * j,
+                 "value": (i * 7 + j) % 100_000, "tags": {"host": f"p{i}"}}
+                for i in range(s0, s0 + PUT_BODY_SERIES)
+                for j in range(j0, j0 + PUT_BODY_STEPS)]).encode()
+
+    bodies = [list(put_bodies(c)) for c in range(PUT_CONNS)]
+    fails = []
+
+    def putter(c: int) -> None:
+        cn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            for b in bodies[c]:
+                status, data, _ = _http(cn, "POST", "/api/put", b)
+                if status != 204:
+                    fails.append((status, data[:200]))
+        finally:
+            cn.close()
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=putter, args=(c,))
+               for c in range(PUT_CONNS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    secs = time.perf_counter() - t
+    check(not fails, f"puts failed: {fails[:3]}")
+    return secs
+
+
 def phase_front_end(torch, tsdb, query, ref3: dict,
                     profile: bool) -> dict:
     """Phase 8: the port's TSD server in process on an ephemeral port
@@ -1019,42 +1081,9 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
 
         # (c) writes: /api/put over kept-alive connections, then telnet
         put_metric, tel_metric = "sys.fe.put", "sys.fe.tel"
-
-        def put_bodies(c: int):
-            for k in range(c, (PUT_SERIES // PUT_BODY_SERIES)
-                           * (PUT_STEPS // PUT_BODY_STEPS), PUT_CONNS):
-                s0 = (k % (PUT_SERIES // PUT_BODY_SERIES)) * PUT_BODY_SERIES
-                j0 = (k // (PUT_SERIES // PUT_BODY_SERIES)) * PUT_BODY_STEPS
-                yield json.dumps([
-                    {"metric": put_metric, "timestamp": T0 + 60 * j,
-                     "value": (i * 7 + j) % 100_000,
-                     "tags": {"host": f"p{i}"}}
-                    for i in range(s0, s0 + PUT_BODY_SERIES)
-                    for j in range(j0, j0 + PUT_BODY_STEPS)]).encode()
-
-        bodies = [list(put_bodies(c)) for c in range(PUT_CONNS)]
-        fails = []
-
-        def putter(c: int) -> None:
-            cn = connect()
-            try:
-                for b in bodies[c]:
-                    status, data, _ = _http(cn, "POST", "/api/put", b)
-                    if status != 204:
-                        fails.append((status, data[:200]))
-            finally:
-                cn.close()
-
-        t = time.perf_counter()
-        threads = [threading.Thread(target=putter, args=(c,))
-                   for c in range(PUT_CONNS)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        put_s = time.perf_counter() - t
-        check(not fails, f"puts failed: {fails[:3]}")
+        put_s = put_points(st.port, put_metric)
         n_put = PUT_SERIES * PUT_STEPS
+        READINGS["put_points_per_s"] = n_put / put_s
         lines = "".join(
             f"put {tel_metric} {T0 + 60 * j} {(i * 3 + j) % 100_000} "
             f"host=t{i}\n" for j in range(TEL_STEPS)
@@ -1354,6 +1383,7 @@ def phase_backends(torch, n_series: int, query, ref3: dict) -> dict:
         t = time.perf_counter()
         tsdb.add_series_points(METRIC, tags, ts2d, values)
         ingest_s = time.perf_counter() - t
+        READINGS[f"{backend}_ingest_s"] = ingest_s
         sids = store.series_ids_for_metric(tsdb.uids.metrics.get_id(METRIC))
         # (b) the store's reads over every series
         t = time.perf_counter()
@@ -1481,6 +1511,270 @@ def phase_backends(torch, n_series: int, query, ref3: dict) -> dict:
                   f"bit (also after the rewrite); grid-path answers "
                   f"within {grid_d!r} of each other")
     print(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+DURABLE_MIN_FREE = 8 << 30    # phase 10: bytes the data dirs need free
+WRITER_TIMEOUT_S = 600        # phase 10: a writer's wait for its ack
+# phase 10's writer: a child process on a data_dir that writes, prints
+# "acked" once every write is acknowledged, and waits to be killed
+WRITER = """
+import json, sys, time
+root, mode, n = sys.argv[1], sys.argv[2], int(sys.argv[3])
+sys.path.insert(0, root)
+import chip_smoke
+from opentsdb_tpu_torch import TSDB, Config
+t = TSDB(Config(**json.loads(sys.argv[4])))
+tags, ts2d, values = chip_smoke.make_data(n)
+if mode == "config3":
+    t.add_series_points(chip_smoke.METRIC, tags, ts2d, values)
+    print("acked", n * chip_smoke.POINTS, flush=True)
+else:
+    t.add_point(chip_smoke.METRIC, chip_smoke.T0 + 600, 1000.0, tags[0])
+    print("acked 1", flush=True)
+time.sleep(3600)
+"""
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def filesystem(path: Path) -> str:
+    """The type and mount point of the filesystem holding ``path``."""
+    path, mount, fstype = str(path.resolve()) + "/", "/", "?"
+    for line in Path("/proc/mounts").read_text().splitlines():
+        parts = line.split()
+        if len(parts) > 2 and path.startswith(parts[1].rstrip("/") + "/") \
+                and len(parts[1]) >= len(mount):
+            mount, fstype = parts[1], parts[2]
+    return f"{fstype} mounted on {mount}"
+
+
+def kill_writer(mode: str, n: int, keys: dict, log: Path) -> float:
+    """Run WRITER in ``mode`` as a child process, wait for its
+    acknowledgement, then SIGKILL it (no flush, no shutdown). Returns
+    the seconds from its start to the acknowledgement."""
+    import signal
+    t = time.perf_counter()
+    got: list = []
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", WRITER, str(ROOT), mode, str(n),
+             json.dumps(keys)], stdout=subprocess.PIPE, stderr=err,
+            cwd=ROOT)
+        try:
+            reader = threading.Thread(target=lambda: got.append(
+                proc.stdout.readline().decode()), daemon=True)
+            reader.start()
+            reader.join(WRITER_TIMEOUT_S)
+            acked_s = time.perf_counter() - t
+        finally:
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+            proc.stdout.close()
+    line = got[0] if got else ""
+    check(line.startswith("acked"), f"the {mode} writer died before its "
+          f"acknowledgement: {log.read_text()[-2000:]}")
+    check(proc.returncode == -signal.SIGKILL,
+          f"the writer ended with {proc.returncode}, not by SIGKILL")
+    return acked_s
+
+
+def phase_durability(torch, n_series: int, query, ref3: dict) -> dict:
+    """Phase 10: durability at config 3 with tsd.storage.data_dir (the
+    WAL at fsync=always, snapshots) on the native store, on the point
+    path with the result cache off. Returns the kernel launches of its
+    queries."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="tsd-durability-"))
+    free = shutil.disk_usage(root).free
+    print(f"  data dirs under {root}: {filesystem(root)}, {free} bytes "
+          "free")
+    check(free >= DURABLE_MIN_FREE,
+          f"{free} bytes free, fewer than {DURABLE_MIN_FREE}")
+    base = {"tsd.torch.device": "cuda",
+            "tsd.core.auto_create_metrics": "true",
+            "tsd.storage.wal.fsync": "always", **ENGINE_KEYS}
+
+    def keys(d: Path) -> dict:
+        return {**base, "tsd.storage.data_dir": str(d)}
+
+    launches = {"span_reduce": 0, "onehot_reduce": 0}
+    n_points = n_series * POINTS
+    open_dbs: list = []
+
+    def durable(d: Path):
+        t = TSDB(Config(**keys(d)))
+        open_dbs.append(t)
+        return t
+
+    def crash(t) -> None:
+        """Drop a TSDB without a flush: its log closes as a kill's
+        would leave it."""
+        t.wal.close()
+        open_dbs.remove(t)
+
+    def one_query(t, m: str, kname: str, what: str):
+        """Run ``m`` on ``t``; it must launch ``kname`` once and the
+        other kernel never."""
+        other = next(k for _, k in QUERIES if k != kname)
+        reset_launches(fused)
+        tq = time.perf_counter()
+        rows = t.execute_query(query(m))
+        secs = time.perf_counter() - tq
+        n = read_launches(fused)
+        check(n == {kname: 1, other: 0},
+              f"{what}: {m} launched {n}, not one {kname}")
+        launches[kname] += 1
+        print(f"  {what}: {m} {secs * 1e3:.3f} ms, one {kname} launch")
+        return rows
+
+    def run_queries(t, what: str) -> dict:
+        return {m: one_query(t, m, kname, what) for m, kname in QUERIES}
+
+    try:
+        tags, ts2d, values = make_data(n_series)
+        # (a) ingest with the WAL on; this TSDB never dies
+        ref = durable(root / "a")
+        t = time.perf_counter()
+        ref.add_series_points(METRIC, tags, ts2d, values)
+        ingest_s = time.perf_counter() - t
+        w = ref.wal
+        no_wal = READINGS.get("native_ingest_s")
+        print(f"  (a) ingest with the WAL: {ingest_s:.3f} s "
+              f"({n_points / ingest_s:,.0f} points/s, add_series_points, "
+              f"fsync=always); WAL {dir_bytes(root / 'a' / 'wal')} bytes, "
+              f"{w.last_seq()} records, {w.group_syncs} fsyncs; "
+              + (f"{ingest_s / no_wal:.3f}x phase 9's native ingest "
+                 f"without a WAL ({no_wal:.3f} s)" if no_wal else
+                 "phase 9's ingest not measured"))
+        before = run_queries(ref, "(a) never died")
+        for m, _ in QUERIES:
+            wv, terms = ref3[m]
+            compare(answer_values(before[m], wv.shape[0], wv.shape[1] + 1),
+                    wv, terms)
+
+        # (b) /api/put with the WAL on
+        put_db = durable(root / "b")
+        st = ServerThread(put_db, host="127.0.0.1", port=0).start()
+        try:
+            put_s = put_points(st.port, "sys.wal.put")
+            syncs = put_db.wal.group_syncs
+            got = put_db.store.count_range(put_db.store.series_ids_for_metric(
+                put_db.uids.metrics.get_id("sys.wal.put")), 0, 2**62)
+        finally:
+            st.stop()        # shuts the TSDB down: a flush
+            open_dbs.remove(put_db)
+        n_put, n_bodies = PUT_SERIES * PUT_STEPS, \
+            PUT_SERIES * PUT_STEPS // (PUT_BODY_SERIES * PUT_BODY_STEPS)
+        check(len(got) == PUT_SERIES and int(got.sum()) == n_put,
+              f"/api/put with the WAL: {int(got.sum())} points read back")
+        plain = READINGS.get("put_points_per_s")
+        print(f"  (b) /api/put with the WAL: {n_put} points in {n_bodies} "
+              f"bodies over {PUT_CONNS} connections, {put_s:.3f} s "
+              f"({n_put / put_s:,.0f} points/s"
+              + (f", {n_put / put_s / plain:.3f}x phase 8's "
+                 f"{plain:,.0f} without a WAL" if plain else "")
+              + f"); {syncs} fsyncs, {syncs / n_bodies:.3f} per body; "
+              "every point read back")
+        del put_db
+        shutil.rmtree(root / "b")
+
+        # (c) a child writes config 3 with the WAL, is killed, recovers
+        acked_s = kill_writer("config3", n_series, keys(root / "c"),
+                              root / "writer-c.log")
+        print(f"  (c) writer process acknowledged {n_points} points after "
+              f"{acked_s:.3f} s, then SIGKILL (no flush); WAL "
+              f"{dir_bytes(root / 'c' / 'wal')} bytes")
+        t = time.perf_counter()
+        rec = durable(root / "c")
+        rec_s = time.perf_counter() - t
+        r = rec.recovery
+        sids = rec.store.series_ids_for_metric(rec.uids.metrics.get_id(
+            METRIC))
+        got = int(rec.store.count_range(sids, 0, 2**62).sum())
+        print(f"  (c) time to recover: {rec_s:.3f} s (snapshot load "
+              f"{r['load_s']:.3f} s, WAL replay {r['replay_s']:.3f} s, "
+              f"{r['points_replayed']} points replayed); {got} points "
+              f"read back in {len(sids)} series")
+        check(got == n_points and len(sids) == n_series,
+              f"recovered {got} points in {len(sids)} series, not "
+              f"{n_points} in {n_series}")
+        after = run_queries(rec, "(c) recovered")
+        for m, _ in QUERIES:
+            check(same_bits(after[m], before[m]),
+                  f"{m}: the recovered answer differs from the one that "
+                  "never died")
+        print("  (c) both answers equal the never-killed TSDB's bit for "
+              "bit")
+
+        # (d) snapshot, restart from it alone, then one more point
+        segs = len(list((root / "c" / "wal").glob("wal-*.log")))
+        t = time.perf_counter()
+        rec.flush()
+        flush_s = time.perf_counter() - t
+        left = len(list((root / "c" / "wal").glob("wal-*.log")))
+        snap = dir_bytes(root / "c") - dir_bytes(root / "c" / "wal")
+        print(f"  (d) flush: {flush_s:.3f} s, snapshot {snap} bytes "
+              f"(points.npz {(root / 'c/data/points.npz').stat().st_size}),"
+              f" {segs - left} of {segs} WAL segments truncated")
+        crash(rec)
+        del rec
+        gc.collect()
+        t = time.perf_counter()
+        snap_db = durable(root / "c")
+        open_s = time.perf_counter() - t
+        check(snap_db.recovery["points_replayed"] == 0,
+              "the restart after the flush replayed points")
+        print(f"  (d) restart from the snapshot alone: {open_s:.3f} s "
+              f"(load {snap_db.recovery['load_s']:.3f} s)")
+        reload = run_queries(snap_db, "(d) snapshot")
+        for m, _ in QUERIES:
+            check(same_bits(reload[m], before[m]),
+                  f"{m}: the answer after the snapshot reload differs")
+        crash(snap_db)
+        del snap_db
+        gc.collect()
+        acked_s = kill_writer("point", 1, keys(root / "c"),
+                              root / "writer-d.log")
+        t = time.perf_counter()
+        tail = durable(root / "c")
+        tail_s = time.perf_counter() - t
+        check(tail.recovery["points_replayed"] == 1,
+              f"replayed {tail.recovery['points_replayed']} points, not 1")
+        ts0, v0, _ = tail.store.series_points(0)
+        at = np.flatnonzero(ts0 == (T0 + 600) * 1000)
+        check(len(at) == 1 and v0[at[0]] == 1000.0 and len(ts0) == POINTS,
+              "the point written after the flush was not read back")
+        m, kname = QUERIES[0]
+        rows = one_query(tail, m, kname, "(d) snapshot plus tail")
+        ref.add_point(METRIC, T0 + 600, 1000.0, tags[0])
+        check(same_bits(rows, one_query(ref, m, kname,
+                                        "(d) never died, same write")),
+              f"{m}: the rewritten answer differs from the never-killed "
+              "TSDB's after the same write")
+        check(not same_bits(rows, before[m]), "the rewrite changed nothing")
+        print(f"  (d) one out-of-order point on series 0 by a writer "
+              f"process (acknowledged after {acked_s:.3f} s), SIGKILL, "
+              f"restart {tail_s:.3f} s (load "
+              f"{tail.recovery['load_s']:.3f} s, replay "
+              f"{tail.recovery['replay_s']:.3f} s): the point read back, "
+              f"and {m} equals the never-killed TSDB's after the same "
+              "write bit for bit")
+    finally:
+        for t in open_dbs:
+            t.wal.close()
+        open_dbs.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1771,6 +2065,11 @@ def main() -> int:
           + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
           + ", tsd.storage.backend=native then memory")
     for kname, n in phase_backends(torch, s, query, ref3).items():
+        launches[kname] += n
+    print(f"phase 10: durability, {s} series x {POINTS} points"
+          + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
+          + ", tsd.storage.data_dir on the native store")
+    for kname, n in phase_durability(torch, s, query, ref3).items():
         launches[kname] += n
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",

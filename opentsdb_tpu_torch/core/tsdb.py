@@ -4,10 +4,19 @@ Owns the UID registry and the store, and is where a caller picks the
 device: ``tsd.torch.device`` is ``"cuda"`` unless the caller asks for
 ``"cpu"``, and constructing a TSDB on ``cuda`` raises when no card is
 present. Writes go to the store that ``tsd.storage.backend`` names
-(the native C++ store by default, or the memory store) and to nothing
-else: this port has no write-ahead log yet, so nothing written survives
-the process. On the native store, :meth:`TSDB.import_buffer` takes
-whole bursts of import lines through one native parse.
+(the native C++ store by default, or the memory store). On the native
+store, :meth:`TSDB.import_buffer` takes whole bursts of import lines
+through one native parse.
+
+With ``tsd.storage.data_dir`` set (native store only), writes are
+durable as in the reference: construction loads the directory's
+snapshot (:mod:`~opentsdb_tpu_torch.core.persist`) and replays its
+write-ahead log (:mod:`~opentsdb_tpu_torch.core.wal`,
+``tsd.storage.wal.enable``, on by default), every write path logs
+under one WAL batch scope and syncs once before it returns,
+:meth:`TSDB.flush` snapshots and truncates the log, and
+:meth:`TSDB.shutdown` flushes and closes it. Without a data_dir
+nothing written survives the process.
 
 The TSDB also owns the serve path's caches (the device cache, the
 result cache and the per-metric tag matrices), the sub-query fan-out
@@ -17,7 +26,10 @@ registry the front end reads (``/api/stats``, telnet ``stats``).
 
 from __future__ import annotations
 
+import contextlib
 import heapq
+import logging
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -26,10 +38,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from opentsdb_tpu_torch.core import persist
 from opentsdb_tpu_torch.core import tags as tags_mod
 from opentsdb_tpu_torch.core.store import pad_mask
 from opentsdb_tpu_torch.core.uid import (FailedToAssignUniqueIdError,
                                          UidRegistry)
+from opentsdb_tpu_torch.core.wal import WriteAheadLog
 from opentsdb_tpu_torch.native.store_backend import (IMPORT_ERRORS,
                                                      make_store,
                                                      parse_import_buffer)
@@ -39,8 +53,12 @@ from opentsdb_tpu_torch.query.result_cache import QueryResultCache
 from opentsdb_tpu_torch.stats.stats import (ServePayloadStats,
                                             StatsCollectorRegistry)
 from opentsdb_tpu_torch.utils.config import Config
+from opentsdb_tpu_torch.utils.faults import (FaultInjector, RetryPolicy,
+                                             call_with_retries)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# points per WAL record of a bulk write (25 bytes each)
+_WAL_LINES = 1 << 22
 
 
 def resolve_device(config: Config) -> torch.device:
@@ -121,6 +139,75 @@ class TSDB:
         self._fanout_pool: ThreadPoolExecutor | None = None
         self._fanout_workers = self.config.get_int(
             "tsd.query.fanout.workers")
+        # fault injection for the WAL and the snapshot flush (armed by
+        # tsd.faults.* keys; one dict miss per site when disarmed)
+        self.faults = FaultInjector(self.config)
+        self.stats.register(self.faults)
+        self.data_dir = self.config.get_string("tsd.storage.data_dir")
+        self.wal: WriteAheadLog | None = None
+        self._wal_applied_seq = 0
+        # what the last start recovered: seconds of the snapshot load
+        # and of the WAL replay, and the points the replay applied
+        self.recovery = {"load_s": 0.0, "replay_s": 0.0,
+                         "points_replayed": 0}
+        if self.data_dir:
+            self._open_data_dir()
+
+    def _open_data_dir(self) -> None:
+        """Load the snapshot, then open the WAL and replay what the
+        snapshot does not cover (ref: TSDB.__init__)."""
+        if self.store.backend != "native":
+            raise ValueError(
+                "tsd.storage.data_dir needs tsd.storage.backend=native: "
+                f"the {self.store.backend} store drops the per-point "
+                "integer flag that the snapshot and WAL formats carry")
+        t = time.perf_counter()
+        persist.load_store(self, self.data_dir)
+        self.recovery["load_s"] = time.perf_counter() - t
+        cfg = self.config
+        if not cfg.get_bool("tsd.storage.wal.enable", True):
+            return
+        wal = WriteAheadLog(
+            os.path.join(self.data_dir, "wal"),
+            fsync_mode=cfg.get_string("tsd.storage.wal.fsync", "always"),
+            segment_bytes=cfg.get_int("tsd.storage.wal.segment_mb",
+                                      64) << 20,
+            interval_ms=cfg.get_int("tsd.storage.wal.fsync_interval_ms",
+                                    200),
+            faults=self.faults,
+            retry=RetryPolicy.from_config(cfg, "tsd.storage.wal.retry"),
+            resync_ms=cfg.get_int("tsd.storage.wal.resync_interval_ms"),
+            group_window_ms=self._wal_group_window_ms(),
+            group_max_records=cfg.get_int(
+                "tsd.storage.wal.group_max_records"),
+            group_max_bytes=cfg.get_int("tsd.storage.wal.group_max_bytes"))
+        self.stats.register(wal)
+        # the snapshot's series keep their numbering on load
+        wal.seed_known("data", self.store.num_series())
+        t = time.perf_counter()
+        try:
+            recovered = wal.replay(self, self._wal_applied_seq)
+        except BaseException:
+            wal.close()     # no thread of a TSDB that did not start
+            raise
+        self.recovery["replay_s"] = time.perf_counter() - t
+        self.recovery["points_replayed"] = recovered
+        if recovered:
+            logging.getLogger("tsdb").info(
+                "WAL replay recovered %d points", recovered)
+        self.wal = wal
+
+    def _wal_group_window_ms(self) -> int:
+        """``tsd.storage.wal.group_window_ms``; "" (the default) means 0,
+        or 2 ms on a cluster shard, where concurrent writers make a
+        commit window pay (ref: TSDB._wal_group_window_ms). An explicit
+        value, 0 included, wins."""
+        raw = self.config.get_string("tsd.storage.wal.group_window_ms",
+                                     "").strip()
+        if raw:
+            return int(raw)
+        role = self.config.get_string("tsd.cluster.role", "").strip()
+        return 2 if role == "shard" else 0
 
     @property
     def device_grid_cache(self) -> DeviceGridCache | None:
@@ -175,13 +262,33 @@ class TSDB:
         if self._result_cache is not None:
             self._result_cache.clear()
 
+    def flush(self) -> None:
+        """Snapshot the store into the data_dir under the
+        ``tsd.storage.flush.retry`` policy, then delete the WAL segments
+        the snapshot covers (ref: ``TSDB.flush``). Nothing without a
+        data_dir."""
+        if not self.data_dir:
+            return
+        wal_seq = call_with_retries(
+            lambda: persist.save_store(self, self.data_dir),
+            RetryPolicy.from_config(self.config, "tsd.storage.flush.retry"),
+            retryable=(OSError,),
+            on_retry=lambda attempt, exc: logging.getLogger(
+                "tsdb").warning("snapshot flush failed (attempt %d: %s); "
+                                "retrying", attempt, exc))
+        if self.wal is not None:
+            self.wal.truncate(wal_seq)
+
     def shutdown(self) -> None:
-        """Stop the fan-out pool, waiting for its threads to end (ref:
-        ``TSDB.shutdown``; the port has nothing else to stop)."""
+        """Flush, stop the fan-out pool (waiting for its threads to
+        end), then close the WAL (ref: ``TSDB.shutdown``)."""
+        self.flush()
         with self._device_cache_lock:
             pool, self._fanout_pool = self._fanout_pool, None
         if pool is not None:
             pool.shutdown(wait=True)
+        if self.wal is not None:
+            self.wal.close()
 
     # -- suggest and stats (ref: TSDB.java:1762-1846, collectStats :753)
 
@@ -203,16 +310,37 @@ class TSDB:
         collector.record("uptime.seconds",
                          int(time.time() - self.start_time))
 
+    def assign_uid(self, kind: str, name: str) -> int:
+        """Assign a UID explicitly (``/api/uid/assign``, ``tsdb
+        mkmetric``); logged to the WAL (ref: ``TSDB.assign_uid``)."""
+        tags_mod.validate_string(f"{kind} name", name)
+        uid = self.uids.by_kind(kind).assign_id(name)
+        if self.wal is not None:
+            self.wal.log_uid(kind, name)
+            self.wal.sync()
+        return uid
+
     # -- write path -------------------------------------------------------
 
+    def _wal_scope(self):
+        """One request's WAL batch scope: its records land as one framed
+        write and its syncs as one group-committed fsync at scope exit
+        (:meth:`WriteAheadLog.batch`); nothing without a WAL."""
+        if self.wal is None:
+            return contextlib.nullcontext()
+        return self.wal.batch()
+
     def _resolve_uids(self, metric: str,
-                      tags_list: Sequence[dict[str, str]]
+                      tags_list: Sequence[dict[str, str]],
+                      create: bool = False
                       ) -> tuple[int, list[list[tuple[int, int]]]]:
         """UIDs of one metric and of many series' tags. New names are
         assigned in the order a per-point write would meet them
-        (series order, then each series' tag order)."""
+        (series order, then each series' tag order). ``create`` assigns
+        missing names whatever the auto-create keys say (WAL replay: the
+        write they belong to was acknowledged)."""
         def ids(registry, names, auto):
-            return (registry.get_or_create_ids(names) if auto
+            return (registry.get_or_create_ids(names) if auto or create
                     else [registry.get_id(n) for n in names])
 
         metric_id = ids(self.uids.metrics, [metric], self.auto_metric)[0]
@@ -263,6 +391,13 @@ class TSDB:
         metric_id, (tag_ids,) = self._resolve_uids(metric, [tags])
         sid = self.store.get_or_create_series(metric_id, tag_ids)
         self.store.append_many(sid, ts_ms, vals, is_int)
+        if self.wal is not None:
+            # joins an enclosing request's scope (add_point_groups')
+            with self.wal.batch():
+                self.wal.ensure_series("data", sid, metric, tags)
+                self.wal.log_points("data", sid, ts_ms, vals, np.broadcast_to(
+                    np.asarray(is_int, dtype=np.uint8), ts_ms.shape))
+                self.wal.sync()
         self.datapoints_added += len(ts_ms)
         return sid
 
@@ -276,21 +411,25 @@ class TSDB:
         errors stay per-point (ref: TSDB.add_point_groups)."""
         errors: list[str] = []
         written = 0
-        for metric, tags, refs, ts_list, raw in groups:
-            try:
-                self.add_points(metric, ts_list, raw, tags,
-                                is_int=[type(v) is int for v in raw])
-                written += len(ts_list)
-            except (ValueError, TypeError, LookupError, PermissionError):
-                for j in range(len(ts_list)):
-                    try:
-                        self.add_point(metric, ts_list[j], raw[j], tags)
-                        written += 1
-                    except (ValueError, TypeError, LookupError,
-                            PermissionError) as e:
-                        errors.append(f"{metric} @{ts_list[j]}: {e}")
-                        if on_error is not None:
-                            on_error(refs[j], e)
+        # the whole request commits as one WAL write and one fsync
+        with self._wal_scope():
+            for metric, tags, refs, ts_list, raw in groups:
+                try:
+                    self.add_points(metric, ts_list, raw, tags,
+                                    is_int=[type(v) is int for v in raw])
+                    written += len(ts_list)
+                except (ValueError, TypeError, LookupError,
+                        PermissionError):
+                    for j in range(len(ts_list)):
+                        try:
+                            self.add_point(metric, ts_list[j], raw[j],
+                                           tags)
+                            written += 1
+                        except (ValueError, TypeError, LookupError,
+                                PermissionError) as e:
+                            errors.append(f"{metric} @{ts_list[j]}: {e}")
+                            if on_error is not None:
+                                on_error(refs[j], e)
         return written, errors
 
     def add_series_points(self, metric: str,
@@ -338,12 +477,22 @@ class TSDB:
             point_sids = np.broadcast_to(sids[:, None],
                                          ts2d.shape)[sids_rows]
         self.store.append_lines(point_sids, ts_ms, val_flat, is_int)
+        if self.wal is not None:
+            with self.wal.batch():
+                for sid, tags in zip(sids.tolist(), tags_list):
+                    self.wal.ensure_series("data", sid, metric, tags)
+                for lo in range(0, len(ts_ms), _WAL_LINES):
+                    hi = min(lo + _WAL_LINES, len(ts_ms))
+                    self.wal.log_lines("data", point_sids[lo:hi],
+                                       ts_ms[lo:hi], val_flat[lo:hi],
+                                       np.full(hi - lo, is_int, np.uint8))
+                self.wal.sync()
         self.datapoints_added += len(ts_ms)
         return sids
 
-    def _import_series(self, line: bytes) -> int:
-        """The series id of one import line's metric and tags, created
-        (with its UIDs) when new."""
+    def _import_series(self, line: bytes) -> tuple[int, str, dict]:
+        """The series id, metric and tags of one import line's series,
+        created (with its UIDs) when new."""
         text = line.decode("utf-8")
         # the parser splits on spaces and tabs only
         words = [w for w in text.replace("\t", " ").split(" ") if w]
@@ -354,9 +503,10 @@ class TSDB:
             # letter by letter here
             tags_mod.check_metric_and_tags(metric, tags)
         metric_id, (tag_ids,) = self._resolve_uids(metric, [tags])
-        return self.store.get_or_create_series(metric_id, tag_ids)
+        return (self.store.get_or_create_series(metric_id, tag_ids),
+                metric, tags)
 
-    def import_buffer(self, buf: bytes, on_error=None
+    def import_buffer(self, buf: bytes, on_error=None, durable: bool = True
                       ) -> tuple[int, list[str]]:
         """Columnar write of import lines (``metric ts value tagk=tagv
         ...``, one per line; ref: ``TSDB.import_buffer``). One native
@@ -369,8 +519,12 @@ class TSDB:
         line-at-a-time writer would assign them, and a failing line
         (rejected by the parser, or of a series that fails to resolve)
         is reported through ``on_error(lineno, exc)`` only after every
-        line before it has landed, so a caller may write it another way
-        there. Blank and comment lines are skipped. Returns (points
+        line before it has landed and been logged, so a caller may write
+        it another way there. Blank and comment lines are skipped.
+        With a WAL the lines are logged as the reference logs them (the
+        new series' records, then one record of every line) under one
+        batch scope and one sync; ``durable=False`` leaves them out of
+        the log (the reference's ``setDurable(false)``). Returns (points
         written, error strings). Needs the native store."""
         self._check_writable()
         if self.store.backend != "native":
@@ -382,24 +536,43 @@ class TSDB:
         ts_ms = np.where(parsed.ts >= (1 << 32), parsed.ts,
                          parsed.ts * 1000)
         gsid = np.full(parsed.num_groups, -1, dtype=np.int64)
+        gnames: list = [None] * parsed.num_groups
+        unlogged: list[int] = []    # groups resolved since the last log
+        wal = self.wal if durable else None
         errors: list[str] = []
-        done = written = 0
+        done = written = logged = 0
+
+        def line_sids(lo: int, hi: int) -> np.ndarray:
+            g = gids[lo:hi]
+            return np.where(g >= 0, gsid[np.maximum(g, 0)], -1)
 
         def land(upto: int) -> None:
             """Append the lines from the last stop up to ``upto``."""
             nonlocal done, written
             lo, done = done, upto + 1
             if upto > lo:
-                g = gids[lo:upto]
                 written += self.store.append_lines(
-                    np.where(g >= 0, gsid[np.maximum(g, 0)], -1),
-                    ts_ms[lo:upto], parsed.values[lo:upto],
-                    parsed.is_int[lo:upto])
+                    line_sids(lo, upto), ts_ms[lo:upto],
+                    parsed.values[lo:upto], parsed.is_int[lo:upto])
+
+        def log(upto: int) -> None:
+            """Log the lines not yet logged before ``upto``, after the
+            records of the series resolved so far."""
+            nonlocal logged
+            lo, logged = logged, upto
+            for g in sorted(unlogged):
+                wal.ensure_series("data", int(gsid[g]), *gnames[g])
+            unlogged.clear()
+            wal.log_lines("data", line_sids(lo, upto), ts_ms[lo:upto],
+                          parsed.values[lo:upto], parsed.is_int[lo:upto])
 
         def fail(i: int, exc: Exception) -> None:
             land(i)
             errors.append(f"line {i + 1}: {exc}")
             if on_error is not None:
+                if wal is not None and (line_sids(logged, i) >= 0).any():
+                    # what on_error writes must follow these lines
+                    log(i + 1)
                 on_error(i + 1, exc)
 
         # the walk stops at each failing line and each series' first
@@ -411,24 +584,32 @@ class TSDB:
         firsts[uniq] = valid[pos]
         stops = np.union1d(np.flatnonzero(errs > 0), firsts[uniq]).tolist()
         failed: dict[int, Exception] = {}
-        while stops:
-            i = heapq.heappop(stops)
-            code, g = int(errs[i]), int(gids[i])
-            if code > 0:
-                fail(i, ValueError(IMPORT_ERRORS[code]))
-            elif g in failed:
-                fail(i, failed[g])
-            else:
-                try:
-                    gsid[g] = self._import_series(parsed.rep_lines[g])
-                except (ValueError, LookupError,
-                        FailedToAssignUniqueIdError) as e:
-                    failed[g] = e
-                    for j in (np.flatnonzero(gids[i + 1:] == g)
-                              + i + 1).tolist():
-                        heapq.heappush(stops, j)
-                    fail(i, e)
-        land(len(gids))
+        with self._wal_scope():
+            while stops:
+                i = heapq.heappop(stops)
+                code, g = int(errs[i]), int(gids[i])
+                if code > 0:
+                    fail(i, ValueError(IMPORT_ERRORS[code]))
+                elif g in failed:
+                    fail(i, failed[g])
+                else:
+                    try:
+                        sid, metric, tags = self._import_series(
+                            parsed.rep_lines[g])
+                        gsid[g], gnames[g] = sid, (metric, tags)
+                        unlogged.append(g)
+                    except (ValueError, LookupError,
+                            FailedToAssignUniqueIdError) as e:
+                        failed[g] = e
+                        for j in (np.flatnonzero(gids[i + 1:] == g)
+                                  + i + 1).tolist():
+                            heapq.heappush(stops, j)
+                        fail(i, e)
+            land(len(gids))
+            if wal is not None and parsed.num_groups:
+                if logged < len(gids):
+                    log(len(gids))
+                wal.sync()
         self.datapoints_added += written
         return written, errors
 

@@ -91,6 +91,33 @@ class UniqueId:
                            else self._assign_locked(name))
         return out
 
+    def assign_id(self, name: str) -> int:
+        """Explicit assignment (``/api/uid/assign``, ``tsdb mkmetric``):
+        fails when the name already has a UID (ref: UniqueId.assign_id)."""
+        with self._lock:
+            if name in self._name_to_id:
+                raise FailedToAssignUniqueIdError(
+                    f"Name already exists with UID: "
+                    f"{self.int_to_uid(self._name_to_id[name]).hex()}")
+            return self._assign_locked(name)
+
+    def items(self) -> list[tuple[str, int]]:
+        """(name, UID) pairs in assignment order."""
+        with self._lock:
+            return list(self._name_to_id.items())
+
+    def max_id(self) -> int:
+        with self._lock:
+            return self._max_id
+
+    def load(self, name_to_id: dict[str, int], max_id: int) -> None:
+        """Replace the table with a snapshot's (core/persist.py)."""
+        with self._lock:
+            self._name_to_id = dict(name_to_id)
+            self._id_to_name = {i: n for n, i in name_to_id.items()}
+            self._max_id = max_id
+            self._sorted_names = None
+
     def _assign_locked(self, name: str) -> int:
         if self._max_id >= self.max_possible_id:
             raise FailedToAssignUniqueIdError(
@@ -141,6 +168,15 @@ class UidRegistry:
         self.metrics = UniqueId("metric", metric_width)
         self.tag_names = UniqueId("tagk", tagk_width)
         self.tag_values = UniqueId("tagv", tagv_width)
+
+    def by_kind(self, kind: str) -> UniqueId:
+        if kind in ("metric", "metrics"):
+            return self.metrics
+        if kind == "tagk":
+            return self.tag_names
+        if kind == "tagv":
+            return self.tag_values
+        raise ValueError(f"unknown UID kind {kind!r}")
 
     def tsuid(self, metric_id: int, tags: Iterable[tuple[int, int]]) -> bytes:
         """TSUID bytes = metric uid + (tagk uid + tagv uid) sorted by tagk."""

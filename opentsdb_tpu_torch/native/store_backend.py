@@ -61,6 +61,8 @@ class NativeTimeSeriesStore:
         # one lock for series creation and the tag index
         self._lock = threading.Lock()
         self._key_to_sid: dict[tuple, int] = {}
+        # (metric id, sorted tag UID pairs) of each series, by id
+        self._keys: list[tuple] = []
         self._num_series = 0
         self._metric_index: dict[int, MetricIndex] = {}
         # bumped by every destructive operation (delete, repair, patch):
@@ -130,6 +132,7 @@ class NativeTimeSeriesStore:
                         f"native series directory at {first}, expected "
                         f"{self._num_series}")
                 self._key_to_sid.update(new_keys)
+                self._keys.extend(new_keys)
                 self._num_series += len(new_keys)
                 idx = self._metric_index.get(metric_id)
                 if idx is None:
@@ -277,6 +280,42 @@ class NativeTimeSeriesStore:
         got = max(int(self._lib.tss_read_series(
             self._h, series_id, n, _ptr(ts), _ptr(vals), _ptr(ints))), 0)
         return ts[:got], vals[:got], ints[:got].astype(bool)
+
+    def series_identities(self) -> list[tuple[int, tuple]]:
+        """(metric id, sorted (tagk, tagv) UID pairs) of every series,
+        by series id."""
+        with self._lock:
+            return list(self._keys)
+
+    def read_all(self) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray]:
+        """Every series' points, sorted, back to back in series order:
+        (counts int64 [S], ts int64, values float64, is_int uint8). Two
+        foreign calls per series and no array per series (the snapshot's
+        read)."""
+        lib, h = self._lib, self._h
+        n = self._num_series
+        counts = np.fromiter((lib.tss_series_length(h, sid)
+                              for sid in range(n)), np.int64, n)
+        total = int(counts.sum())
+        ts = np.empty(total, dtype=np.int64)
+        vals = np.empty(total, dtype=np.float64)
+        ints = np.empty(total, dtype=np.uint8)
+        bt, bv, bi = ts.ctypes.data, vals.ctypes.data, ints.ctypes.data
+        slots = counts.copy()
+        off = 0
+        for sid, c in enumerate(slots.tolist()):
+            # a concurrent delete can shorten a series after its length
+            # was read: keep what was copied
+            counts[sid] = max(int(lib.tss_read_series(
+                h, sid, c, bt + 8 * off, bv + 8 * off, bi + off)), 0)
+            off += c
+        if int(counts.sum()) < total:
+            rel = np.arange(total) - np.repeat(np.cumsum(slots) - slots,
+                                               slots)
+            keep = rel < np.repeat(counts, slots)
+            ts, vals, ints = ts[keep], vals[keep], ints[keep]
+        return counts, ts, vals, ints
 
     def count_range(self, series_ids: Sequence[int], start_ms: int,
                     end_ms: int) -> np.ndarray:

@@ -98,9 +98,19 @@ class TelnetRouter:
 
         On the memory store each line's words go through the scalar
         parse, and the good points are grouped by series and land
-        through ``TSDB.add_point_groups``."""
-        if len(lines) > 1 and self.tsdb.store.backend == "native":
-            return self._put_lines_native(lines)
+        through ``TSDB.add_point_groups``.
+
+        With a WAL the whole burst, replayed lines included, commits as
+        one WAL write and one group-committed fsync before the answers
+        go out."""
+        with self.tsdb._wal_scope():
+            if len(lines) > 1 and self.tsdb.store.backend == "native":
+                return self._put_lines_native(lines)
+            return self._put_lines_scalar(lines)
+
+    def _put_lines_scalar(self, lines: list[str]) -> list[str]:
+        """Each line through the scalar parse, the good points grouped
+        by series into one ``add_point_groups``."""
         errors: dict[int, str] = {}     # line index -> error line
         groups: dict[tuple, tuple] = {}
         for i, line in enumerate(lines):

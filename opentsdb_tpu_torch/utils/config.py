@@ -46,6 +46,31 @@ _DEFAULTS: dict[str, str] = {
     # numpy CSR store of core/store.py. A native store that does not
     # build raises: there is no fallback to the memory store.
     "tsd.storage.backend": "native",
+    # durability (core/persist.py, core/wal.py): a non-empty data_dir
+    # loads its snapshot and replays its write-ahead log at start, logs
+    # every write before it is acknowledged, and snapshots on flush and
+    # shutdown. The WAL's enable (true), fsync (always | interval |
+    # never), fsync_interval_ms (200) and segment_mb (64) keys take
+    # their defaults in TSDB, as in the reference.
+    "tsd.storage.data_dir": "",
+    #   the WAL's write and fsync retry ladder; when it runs out the
+    #   WAL degrades (wal.degraded in the stats) instead of failing
+    #   writes, and probes again every resync_interval_ms
+    "tsd.storage.wal.retry.attempts": "4",
+    "tsd.storage.wal.retry.base_ms": "5",
+    "tsd.storage.wal.retry.deadline_ms": "2000",
+    "tsd.storage.wal.resync_interval_ms": "1000",
+    #   group commit: the fsync leader may hold a commit window of
+    #   this many ms for concurrent writers, cut short by the caps
+    #   below or by a quiet log. "" is 0, or 2 when
+    #   tsd.cluster.role=shard (TSDB._wal_group_window_ms)
+    "tsd.storage.wal.group_window_ms": "",
+    "tsd.storage.wal.group_max_records": "4096",
+    "tsd.storage.wal.group_max_bytes": "4194304",
+    #   the snapshot flush's retry ladder
+    "tsd.storage.flush.retry.attempts": "3",
+    "tsd.storage.flush.retry.base_ms": "20",
+    "tsd.storage.flush.retry.deadline_ms": "10000",
     "tsd.storage.uid.width.metric": "3",
     "tsd.storage.uid.width.tagk": "3",
     "tsd.storage.uid.width.tagv": "3",
@@ -126,6 +151,10 @@ class Config:
         if val is None:
             return default
         return val.strip().lower() in ("true", "1", "yes")
+
+    def __iter__(self):
+        """(key, value) pairs of every property."""
+        return iter(list(self._props.items()))
 
     def override_config(self, key: str, value: Any) -> None:
         """Set one key at run time (ref: Config.java:317). The query

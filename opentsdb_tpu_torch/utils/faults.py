@@ -1,0 +1,216 @@
+"""Deterministic fault injection and retry with backoff (ref:
+``opentsdb_tpu/utils/faults.py``), as far as the write-ahead log and
+the snapshot flush use them.
+
+- :class:`FaultInjector`: injection points armed through ``Config``
+  keys ``tsd.faults.<site>_<knob>`` (knob: ``error_rate``,
+  ``error_count``, ``error_once``, ``latency_ms``) or :meth:`arm`. The
+  sites are the WAL's (``wal.append``, ``wal.fsync``) and the snapshot
+  flush (``store.flush``). An error rate is a counted schedule (call
+  ``i`` fails iff ``floor(i * r)`` advances), never a coin flip, so a
+  failure reproduces.
+- :class:`RetryPolicy` and :func:`call_with_retries`: bounded
+  exponential backoff under a wall-clock deadline.
+
+The reference's other sites and its ``CircuitBreaker`` belong to
+subsystems the port has not ported yet (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Callable
+
+KNOWN_SITES: frozenset[str] = frozenset({
+    "wal.fsync",          # core/wal.py fsync leader
+    "wal.append",         # core/wal.py framed write
+    "store.flush",        # core/persist.py snapshot flush
+})
+
+
+class InjectedFault(OSError):
+    """A failure raised by an armed fault point. An OSError, so an
+    injected disk fault takes the path a real fsync or write failure
+    takes."""
+
+
+@dataclass
+class FaultPoint:
+    """One armed injection site and its schedule."""
+
+    name: str
+    error_rate: float = 0.0   # fail call i iff floor(i*r) advances
+    error_count: int = 0      # fail the first N calls, then succeed
+    latency_ms: float = 0.0   # added to every call at this site
+    calls: int = 0
+    injected: int = 0
+
+    def scheduled(self, n: int) -> bool:
+        """Whether call ``n`` (1-based) fails: a function of the count
+        alone, so a retried call advances the schedule."""
+        if self.error_count and n <= self.error_count:
+            return True
+        if self.error_rate > 0:
+            return math.floor(n * self.error_rate) \
+                > math.floor((n - 1) * self.error_rate)
+        return False
+
+
+class FaultInjector:
+    """The armed :class:`FaultPoint` s, from ``tsd.faults.<site>_<knob>``
+    keys (the separator before the knob may be ``_`` or ``.``). With
+    nothing armed, :meth:`check` is one dict miss."""
+
+    PREFIX = "tsd.faults."
+    _KNOBS = ("error_rate", "error_count", "error_once", "latency_ms")
+
+    def __init__(self, config: Any = None):
+        self._lock = threading.Lock()
+        self._sites: dict[str, FaultPoint] = {}
+        if config is not None:
+            self.configure(config)
+
+    def configure(self, config) -> None:
+        for key, val in config:
+            if not key.startswith(self.PREFIX):
+                continue
+            rest = key[len(self.PREFIX):]
+            for knob in self._KNOBS:
+                if rest.endswith(knob) and len(rest) > len(knob) \
+                        and rest[-len(knob) - 1] in "._":
+                    site = rest[:-len(knob) - 1]
+                    break
+            else:
+                continue
+            if site not in KNOWN_SITES:
+                # a typo would arm nothing: say so, but come up
+                logging.getLogger("faults").warning(
+                    "config key %r arms unknown fault site %r; known "
+                    "sites: %s", key, site, ", ".join(sorted(KNOWN_SITES)))
+            point = self._sites.setdefault(site, FaultPoint(site))
+            if knob == "error_rate":
+                point.error_rate = float(val)
+            elif knob == "error_count":
+                point.error_count = int(val)
+            elif knob == "error_once":
+                if str(val).strip().lower() in ("true", "1", "yes"):
+                    point.error_count = max(point.error_count, 1)
+            else:
+                point.latency_ms = float(val)
+
+    def arm(self, site: str, *, error_rate: float = 0.0,
+            error_count: int = 0, latency_ms: float = 0.0) -> FaultPoint:
+        """Arm ``site`` (tests); an unknown site raises, so a typo
+        cannot test nothing."""
+        if site not in KNOWN_SITES:
+            raise ValueError(f"unknown fault site {site!r}; known sites: "
+                             f"{', '.join(sorted(KNOWN_SITES))}")
+        with self._lock:
+            point = self._sites[site] = FaultPoint(
+                site, error_rate=error_rate, error_count=error_count,
+                latency_ms=latency_ms)
+            return point
+
+    def disarm(self, site: str | None = None) -> None:
+        with self._lock:
+            if site is None:
+                self._sites.clear()
+            else:
+                self._sites.pop(site, None)
+
+    @property
+    def armed(self) -> bool:
+        return bool(self._sites)
+
+    def check(self, site: str) -> None:
+        """Apply the site's armed behaviour to this call: sleep its
+        latency, then raise :class:`InjectedFault` if the call is on
+        the failure schedule."""
+        point = self._sites.get(site)
+        if point is None:
+            return
+        with self._lock:
+            point.calls += 1
+            n = point.calls
+            fail = point.scheduled(n)
+            if fail:
+                point.injected += 1
+        if point.latency_ms > 0:
+            time.sleep(point.latency_ms / 1000.0)
+        if fail:
+            raise InjectedFault(f"injected fault at {site!r} (call {n})")
+
+    def collect_stats(self, collector) -> None:
+        for point in list(self._sites.values()):
+            collector.record("faults.calls", point.calls, site=point.name)
+            collector.record("faults.injected", point.injected,
+                             site=point.name)
+
+    def health_info(self) -> dict[str, Any]:
+        with self._lock:
+            return {"armed": bool(self._sites), "sites": {
+                p.name: {"error_rate": p.error_rate,
+                         "error_count": p.error_count,
+                         "latency_ms": p.latency_ms, "calls": p.calls,
+                         "injected": p.injected}
+                for p in self._sites.values()}}
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Bounded exponential backoff: at most ``attempts`` tries and at
+    most ``deadline_ms`` of wall clock, whichever ends first;
+    ``attempts=1`` means no retry."""
+
+    attempts: int = 1
+    base_ms: float = 5.0
+    max_ms: float = 1000.0
+    deadline_ms: float = 0.0  # 0: bounded by attempts only
+    multiplier: float = 2.0
+
+    @classmethod
+    def from_config(cls, config, prefix: str, attempts: int = 1,
+                    base_ms: float = 5.0, max_ms: float = 1000.0,
+                    deadline_ms: float = 0.0) -> "RetryPolicy":
+        """Read ``<prefix>.attempts``, ``.base_ms``, ``.max_ms`` and
+        ``.deadline_ms``."""
+        return cls(
+            attempts=config.get_int(f"{prefix}.attempts", attempts),
+            base_ms=config.get_float(f"{prefix}.base_ms", base_ms),
+            max_ms=config.get_float(f"{prefix}.max_ms", max_ms),
+            deadline_ms=config.get_float(f"{prefix}.deadline_ms",
+                                         deadline_ms))
+
+
+def call_with_retries(fn: Callable[[], Any],
+                      policy: RetryPolicy | None = None,
+                      retryable: tuple = (OSError,),
+                      on_retry: Callable[[int, Exception], None]
+                      | None = None,
+                      sleep: Callable[[float], None] = time.sleep,
+                      clock: Callable[[], float] = time.monotonic) -> Any:
+    """Call ``fn`` under ``policy``. Exceptions outside ``retryable``,
+    and the last failure, propagate unchanged."""
+    policy = policy or RetryPolicy()
+    start = clock()
+    delay_ms = max(policy.base_ms, 0.0)
+    attempt = 0
+    while True:
+        attempt += 1
+        try:
+            return fn()
+        except retryable as exc:
+            if attempt >= max(policy.attempts, 1):
+                raise
+            if policy.deadline_ms and \
+                    (clock() - start) * 1000.0 + delay_ms \
+                    > policy.deadline_ms:
+                raise
+            if on_retry is not None:
+                on_retry(attempt, exc)
+            sleep(delay_ms / 1000.0)
+            delay_ms = min(delay_ms * policy.multiplier, policy.max_ms)

@@ -46,7 +46,8 @@ from opentsdb_tpu_torch.native import _build
 from opentsdb_tpu_torch.native import store_backend as native
 from opentsdb_tpu_torch.query.model import TSQuery
 from opentsdb_tpu_torch.tsd.http_api import HttpRequest, HttpRpcRouter
-from torch_pair import ENGINE_KEYS, GRID_ON, T0, assert_rows_close, rows
+from torch_pair import (ENGINE_KEYS, GRID_ON, T0, assert_rows_close,
+                        jax_native_library, rows)
 
 ROOT = Path(__file__).resolve().parent.parent
 MS = T0 * 1000
@@ -55,11 +56,11 @@ SUM_RTOL = 1e-12           # bucket_reduce sums, memory against native
 
 
 def _jstore():
-    try:
-        return jnative.NativeTimeSeriesStore()
-    except jnative.NativeBuildError as exc:
-        pytest.skip(f"the JAX package's native store does not build: "
-                    f"{exc}")
+    if jax_native_library() is None:
+        pytest.skip("no C++ compiler on this host: the JAX package's "
+                    "native store cannot be built")
+    # a library that fails to load fails the test
+    return jnative.NativeTimeSeriesStore()
 
 
 def _bits(a) -> np.ndarray:
@@ -752,3 +753,43 @@ def test_library_name_tracks_source_flags_compiler_and_cpu(monkeypatch,
             m.setattr(_build, name, value)
             assert _build.library_path() != base
     assert _build.library_path() == base
+
+
+# -- the tests' private build of the JAX package's library --------------------
+
+def test_private_build_flags_match_the_reference():
+    """``torch_pair`` compiles the JAX package's source with a copy of
+    its flags: each copied flag must still be in its build function."""
+    import inspect
+
+    import torch_pair
+    src = inspect.getsource(jnative.build_library)
+    for flag in (torch_pair.JAX_CXX, *torch_pair.JAX_CXX_FLAGS):
+        assert f'"{flag}"' in src, flag
+
+
+def test_jax_library_is_the_private_build():
+    """A process that imports ``torch_pair`` first loads the JAX
+    package's library from the private, atomically renamed build,
+    never the file the JAX package compiles in place. (In a pytest
+    worker a JAX test module may have loaded it before ``torch_pair``
+    was imported; the check runs in a fresh process.)"""
+    if jax_native_library() is None:
+        pytest.skip("no C++ compiler on this host: the JAX package's "
+                    "native store cannot be built")
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(ROOT / "tests")!r})
+        import torch_pair
+        from opentsdb_tpu.native import store_backend as jnative
+        lib = torch_pair.jax_native_library()
+        jnative.NativeTimeSeriesStore()
+        maps = open("/proc/self/maps").read()
+        print(lib.parent == torch_pair.BUILD_DIR,
+              lib.name.startswith("jax_tsdbstore_"),
+              jnative._LIB_PATH == str(lib), str(lib) in maps,
+              "opentsdb_tpu/native/libtsdbstore" in maps)
+    """)
+    out = _run(code, env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True", "True", "True", "True", "False"]

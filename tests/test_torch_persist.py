@@ -1,0 +1,202 @@
+"""The port's snapshots (``opentsdb_tpu_torch/core/persist.py``)
+against the JAX package's (``opentsdb_tpu/core/persist.py``, format 1),
+on the CPU.
+
+- Byte compatibility: the same writes (``tests/test_torch_wal.py``'s
+  ``write_all``, from a seed) flushed by both packages give equal
+  ``uids.json``, ``data/series.json`` and ``META.json`` bytes, and
+  ``data/points.npz`` arrays equal bit for bit.
+- Cross-reading: a directory either package wrote (a snapshot plus an
+  unflushed WAL tail, the log closed without a flush) opens in the
+  other, with the points equal bit for bit and each package's answer
+  equal to the one it gives on its own directory.
+- The snapshot's refusals: rollup tiers, histograms, annotations, meta
+  or trees with an entry raise, naming the ROADMAP item; the empty
+  files the reference writes load.
+- Flush and shutdown: the flush retry policy, a flush without a
+  data_dir, shutdown's flush.
+"""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from test_torch_wal import (T0, answers, assert_same_series, jtsdb, ptsdb,
+                            same_bits, segments, series_of, write_all)
+
+from opentsdb_tpu_torch.core import persist
+from opentsdb_tpu_torch.utils.faults import InjectedFault
+
+FILES = ("uids.json", "data/series.json", "META.json")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_snapshot_bytes_equal_reference(tmp_path, seed):
+    j, p = jtsdb(tmp_path / "j"), ptsdb(tmp_path / "p")
+    for t in (j, p):
+        write_all(t, seed)
+        t.flush()
+    for name in FILES:
+        want = (tmp_path / "j" / name).read_bytes()
+        assert (tmp_path / "p" / name).read_bytes() == want, name
+    jz = np.load(tmp_path / "j" / "data" / "points.npz")
+    pz = np.load(tmp_path / "p" / "data" / "points.npz")
+    assert sorted(jz.files) == sorted(pz.files) == ["ints", "ts", "vals"]
+    for name in jz.files:
+        assert jz[name].dtype == pz[name].dtype
+        np.testing.assert_array_equal(
+            pz[name].view(np.int64) if name == "vals" else pz[name],
+            jz[name].view(np.int64) if name == "vals" else jz[name])
+    # the flush truncated both logs alike
+    assert [s.name for s in segments(tmp_path / "j")] == \
+        [s.name for s in segments(tmp_path / "p")]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_snapshot_plus_tail_cross_reads(tmp_path, writer):
+    make_w, make_r = (jtsdb, ptsdb) if writer == "jax" else (ptsdb, jtsdb)
+    for d, make in ((tmp_path / "theirs", make_w),
+                    (tmp_path / "mine", make_r)):
+        t = make(d)
+        write_all(t, 7)
+        t.flush()
+        # an unflushed tail: out of order, a new series, a new metric
+        t.add_point("w.a", T0 + 30, 4.5, {"host": "h0"})
+        t.add_points("w.e", T0 + 60 * np.arange(3), np.arange(3) * 2,
+                     {"host": "h9"})
+        t.wal.close()
+        if d.name == "theirs":
+            w = t
+    r = make_r(tmp_path / "theirs")
+    own = make_r(tmp_path / "mine")
+    assert_same_series(series_of(r), series_of(w))
+    assert_same_series(series_of(r), series_of(own))
+    same_bits(answers(r), answers(own))
+
+
+def test_empty_reference_files_load(tmp_path):
+    """A JAX snapshot with rollups on holds empty rollup stores and the
+    empty histogram, annotation and meta files: the port opens it."""
+    j = jtsdb(tmp_path, **{"tsd.rollups.enable": "true"})
+    j.add_point("m", T0, 1, {"h": "a"})
+    j.flush()
+    names = {p.name for p in tmp_path.iterdir()}
+    assert {"annotations.json", "histograms.json", "meta.json"} <= names
+    assert any(n.startswith("rollup-") for n in names)
+    t = ptsdb(tmp_path)
+    assert t.store.series_points(0)[1].tolist() == [1.0]
+
+
+def _refused(d: Path, name: str):
+    """Give the snapshot in ``d`` one entry of an unported subsystem."""
+    if name == "rollup":
+        (d / "rollup-1m-sum").mkdir()
+        (d / "rollup-1m-sum" / "series.json").write_text(json.dumps(
+            [{"metric": 1, "tags": [[1, 1]], "offset": 0, "count": 1}]))
+        return "rollups"
+    rest = "the rest, with no device compute"
+    docs = {
+        "histograms-v2": ("histograms.json", {"v": 2, "series": {
+            "0": {"metric": 1, "tags": []}}, "arenas": []},
+            "histograms and percentile sub-queries"),
+        "histograms-v1": ("histograms.json", [{"metric": 1, "tags": [],
+                                               "points": []}],
+                          "histograms and percentile sub-queries"),
+        "annotations": ("annotations.json", [{"tsuid": "",
+                                              "startTime": T0}], rest),
+        "meta": ("meta.json", {"ts_counters": {"00": 1}, "uid_meta": [],
+                               "ts_meta": []}, rest),
+        "trees": ("trees.json", [{"treeId": 1}], rest)}
+    fname, doc, item = docs[name]
+    (d / fname).write_text(json.dumps(doc))
+    return item
+
+
+@pytest.mark.parametrize("name", ["rollup", "histograms-v2",
+                                  "histograms-v1", "annotations", "meta",
+                                  "trees"])
+def test_snapshot_refuses_unported_entries(tmp_path, name):
+    t = ptsdb(tmp_path)
+    t.add_point("m", T0, 1, {"h": "a"})
+    t.shutdown()
+    item = _refused(tmp_path, name)
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1, {item}"):
+        ptsdb(tmp_path)
+
+
+def test_snapshot_keeps_series_ids_flags_and_uids(tmp_path):
+    t = ptsdb(tmp_path)
+    write_all(t, 4)
+    want = {sid: t.store.series_points(sid)
+            for sid in range(t.store.num_series())}
+    ids = t.store.series_identities()
+    t.shutdown()
+    assert not segments(tmp_path)       # shutdown flushed and truncated
+    t2 = ptsdb(tmp_path)
+    assert t2.recovery["points_replayed"] == 0
+    assert t2.store.series_identities() == ids
+    for sid, (ts, vals, ints) in want.items():
+        got = t2.store.series_points(sid)
+        np.testing.assert_array_equal(got[0], ts)
+        np.testing.assert_array_equal(got[1].view(np.int64),
+                                      vals.view(np.int64))
+        np.testing.assert_array_equal(got[2], ints)
+    for kind in ("metric", "tagk", "tagv"):
+        a, b = t.uids.by_kind(kind), t2.uids.by_kind(kind)
+        assert a.items() == b.items() and a.max_id() == b.max_id()
+
+
+def test_load_gathers_runs_stored_out_of_order(tmp_path):
+    """An index whose runs are not back to back in its order (a valid
+    format-1 file) loads each series' own points."""
+    t = ptsdb(tmp_path)
+    t.add_points("m", [T0, T0 + 1], [1.0, 2.0], {"h": "a"})
+    t.add_points("m", [T0, T0 + 1, T0 + 2], [3.0, 4.0, 5.0], {"h": "b"})
+    t.shutdown()
+    d = tmp_path / "data"
+    index = json.loads((d / "series.json").read_text())
+    z = np.load(d / "points.npz")
+    # store series b's run first
+    order = np.r_[2:5, 0:2]
+    index[0]["offset"], index[1]["offset"] = 3, 0
+    (d / "series.json").write_text(json.dumps(index))
+    np.savez_compressed(d / "points.npz", ts=z["ts"][order],
+                        vals=z["vals"][order], ints=z["ints"][order])
+    t2 = ptsdb(tmp_path)
+    assert t2.store.series_points(0)[1].tolist() == [1.0, 2.0]
+    assert t2.store.series_points(1)[1].tolist() == [3.0, 4.0, 5.0]
+
+
+@pytest.mark.parametrize("failures,ok", [(2, True), (5, False)])
+def test_flush_retries_under_its_policy(tmp_path, failures, ok):
+    """``tsd.storage.flush.retry`` (3 attempts by default) absorbs two
+    injected failures of the snapshot; five exhaust it and raise."""
+    t = ptsdb(tmp_path, **{"tsd.faults.store.flush_error_count":
+                           str(failures),
+                           "tsd.storage.flush.retry.base_ms": "1"})
+    t.add_point("m", T0, 1, {"h": "a"})
+    if ok:
+        t.flush()
+        assert (tmp_path / "META.json").exists()
+        assert not segments(tmp_path)
+    else:
+        with pytest.raises(InjectedFault):
+            t.flush()
+        assert not (tmp_path / "META.json").exists()
+        assert segments(tmp_path)        # the log still holds the point
+    assert t.faults.health_info()["sites"]["store.flush"]["calls"] == \
+        (failures + 1 if ok else 3)
+
+
+def test_flush_without_data_dir_writes_nothing(tmp_path, monkeypatch):
+    from opentsdb_tpu_torch import TSDB, Config
+    t = TSDB(Config(**{"tsd.torch.device": "cpu",
+                       "tsd.core.auto_create_metrics": "true"}))
+    t.add_point("m", T0, 1, {"h": "a"})
+    monkeypatch.setattr(persist, "save_store", None)   # must not run
+    t.flush()
+    t.shutdown()
+    assert t.wal is None and not list(tmp_path.iterdir())

@@ -33,6 +33,11 @@ from opentsdb_tpu_torch.query import result_cache as rc_mod
 from opentsdb_tpu_torch.query.engine import QueryEngine, TagMatrix
 from opentsdb_tpu_torch.query.model import TSQuery
 from opentsdb_tpu_torch.query.result_cache import QueryResultCache
+from torch_pair import jax_native_library
+
+# the JAX TSDBs below use the JAX package's native store: take the
+# tests' private build of its library
+jax_native_library()
 
 BASE = 1356998400
 

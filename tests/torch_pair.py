@@ -6,16 +6,109 @@ series), and a whole-query comparison of the two.
 Tolerance (as ``test_torch_pipeline.py``): float64 on both sides,
 rtol 1e-9 and atol 1e-9 * max|x|; NaN positions, timestamps, tags and
 aggregateTags equal.
+
+Importing this module points the JAX package's native store at a
+library built privately for the tests (:func:`jax_native_library`):
+every ``tests/test_torch_*.py`` that builds a JAX ``TSDB`` or uses
+``opentsdb_tpu.native`` imports it first.
 """
+
+import fcntl
+import hashlib
+import inspect
+import os
+import platform
+import subprocess
+import tempfile
+from pathlib import Path
 
 import numpy as np
 
-from opentsdb_tpu import TSDB as JTSDB
-from opentsdb_tpu import Config as JConfig
-from opentsdb_tpu.query.model import TSQuery as JQuery
-from opentsdb_tpu_torch import TSDB, Config
-from opentsdb_tpu_torch.core.state import load_arrays
-from opentsdb_tpu_torch.query.model import TSQuery
+from opentsdb_tpu.native import store_backend as jnative
+
+# the JAX package's build flags (opentsdb_tpu/native/store_backend.py,
+# build_library); a test holds each to that function's source
+JAX_CXX = "g++"
+JAX_CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+                 "-pthread")
+BUILD_DIR = Path(__file__).resolve().parent.parent / \
+    "opentsdb_tpu_torch" / "_build"
+_JAX_LIBRARY: Path | None = None
+
+
+def _cpu_id() -> bytes:
+    """The first processor's entry of /proc/cpuinfo without the lines
+    that change while it runs (``-march=native`` depends on the CPU)."""
+    try:
+        first = Path("/proc/cpuinfo").read_text().strip().split("\n\n")[0]
+    except OSError:
+        first = ""
+    return "\n".join([platform.machine()] + [
+        ln for ln in first.splitlines()
+        if not ln.lower().startswith(("cpu mhz", "bogomips"))]).encode()
+
+
+def jax_native_library() -> Path | None:
+    """Build the JAX package's ``tsdbstore.cc`` with its flags into a
+    private file and point ``opentsdb_tpu.native.store_backend`` at it.
+
+    The JAX package compiles in place (``g++ ... -o libtsdbstore.so``)
+    and loads any file newer than its sources, so parallel test workers
+    can load a file another worker is still writing, and a failed load
+    stays cached for the process. Here the library is compiled into a
+    temporary file and renamed into ``opentsdb_tpu_torch/_build/
+    jax_tsdbstore_<hash>.so`` (the hash covers the source, the flags,
+    the compiler's version and the CPU), under an ``flock`` so one
+    worker builds and the others wait. Once per process; None when the
+    host has no C++ compiler (the tests that need the library skip).
+    """
+    global _JAX_LIBRARY
+    if _JAX_LIBRARY is not None:
+        return _JAX_LIBRARY
+    src = Path(jnative._SRC)
+    try:
+        version = subprocess.run([JAX_CXX, "--version"], capture_output=True,
+                                 check=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    digest = hashlib.sha256(b"\0".join((
+        src.read_bytes(), " ".join(JAX_CXX_FLAGS).encode(), version,
+        _cpu_id()))).hexdigest()[:16]
+    out = BUILD_DIR / f"jax_tsdbstore_{digest}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "jax_tsdbstore.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                subprocess.run([JAX_CXX, *JAX_CXX_FLAGS, str(src), "-o", tmp],
+                               capture_output=True, check=True, timeout=600)
+                os.replace(tmp, out)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        # the JAX package rebuilds (in place) a library older than its
+        # sources: keep this one newer
+        newest = max(src.stat().st_mtime,
+                     Path(inspect.getsourcefile(jnative)).stat().st_mtime)
+        if out.stat().st_mtime < newest:
+            os.utime(out)
+    if jnative._lib is None:
+        jnative._LIB_PATH = str(out)
+        jnative._build_error = None
+    _JAX_LIBRARY = out
+    return out
+
+
+jax_native_library()
+
+from opentsdb_tpu import TSDB as JTSDB  # noqa: E402
+from opentsdb_tpu import Config as JConfig  # noqa: E402
+from opentsdb_tpu.query.model import TSQuery as JQuery  # noqa: E402
+from opentsdb_tpu_torch import TSDB, Config  # noqa: E402
+from opentsdb_tpu_torch.core.state import load_arrays  # noqa: E402
+from opentsdb_tpu_torch.query.model import TSQuery  # noqa: E402
 
 T0 = 1356998400            # an hour boundary, seconds
 # the point path with nothing cached and no result cache, on both sides
