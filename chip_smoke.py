@@ -51,10 +51,14 @@
    ``America/New_York`` (calendar buckets) and ``sum`` by ``dc`` with
    no downsample (a union grid of up to 600 timestamps, flat). Each
    answer is checked against the same query through the port on the
-   CPU in float64, two cold calls and a warm prepared-batch hit must
-   give the same bits, and neither kernel may launch; prints the stage
-   p50s, the peak device memory and, with ``--profile``, the device's
-   idle share;
+   CPU in float64 over a tenth of its groups (each with all of its
+   series), two cold calls and the warm calls (prepared-batch hits)
+   must give the same bits, and neither kernel may launch; prints
+   the stage p50s, the peak device memory and, with ``--profile``, the
+   device's idle share. The union grid's S x B exceeds the cell budget
+   at full width: it streams in time blocks (no prepared batch, one
+   warm call, each stage timed once), and its staged unblocked run
+   must equal it bit for bit, both peaks printed;
 8. the front end (run after phase 5, on phase 3's TSDB and keys,
    before phase 6 writes a point that makes one series irregular):
    the port's ``TSDServer`` in process on an ephemeral port, driven
@@ -68,15 +72,17 @@
    by ``/api/put`` in 1000-point bodies over 4 kept-alive connections
    and 200k telnet ``put`` lines, points/s of each, and an exact
    read-back of both by ``/api/query``. The server must stop cleanly;
-9. the storage backends A/B: config 3's data (1M series, seed 0) into
-   two fresh TSDBs, ``tsd.storage.backend=native`` then ``memory``,
+9. the storage backends A/B: a quarter of config 3's series (250k,
+   seed 0; ``STORE_CUT``, for the run's time limit) into two fresh
+   TSDBs, ``tsd.storage.backend=native`` then ``memory``,
    each: (a) ``add_series_points`` ingest and the first read after it;
    (b) the p50 of 3 calls of ``count_range``, ``materialize``,
    ``materialize_padded`` and a 5m ``bucket_reduce`` over all 1M
    series; (c) both queries on phase 3's keys (the point path, K1 and
    K2 launching) and, caches dropped, at the default keys (the grid
    path), each with the engine's stage table (plan, scan, compute,
-   rest) and checked against phase 3's float64 reference; (d) series 0
+   rest) and checked against a float64 numpy reference of the same
+   data (:func:`config3_reference`); (d) series 0
    rewritten at a timestamp before its last point, then the cold
    ``{dc=*}`` point-path query; (e) 200k import lines by
    ``TSDB.import_buffer`` (native only) and by the telnet burst path,
@@ -84,13 +90,14 @@
    bit, their ``bucket_reduce`` sums within 1e-12 relative, and their
    point-path answers (also after the rewrite) equal bit for bit;
 10. durability (``tsd.storage.data_dir``, the WAL at ``fsync=always``,
-   on the native store, the point path with the result cache off), in
-   a fresh directory on the local disk (its filesystem and free bytes
-   printed; fewer than 8 GiB free fails): (a) config 3 by
+   on the native store, the point path with the result cache off), on
+   phase 9's quarter of config 3's series, in a fresh directory under
+   ``$TMPDIR`` (its filesystem and free bytes printed; fewer than 8 GiB
+   free fails): (a) the series by
    ``add_series_points`` with the WAL (seconds, WAL bytes, records and
    fsyncs, against phase 9's native ingest); (b) 1M points by
    ``/api/put`` in 1000-point bodies with the WAL (points/s against
-   phase 8's, fsyncs per body); (c) a child process writes config 3
+   phase 8's, fsyncs per body); (c) a child process writes the series
    with the WAL, acknowledges and is SIGKILLed; a TSDB on its
    directory recovers (snapshot load and WAL replay timed apart),
    must read back every point, and answers ``{dc=*}`` and ``{rack=*}``
@@ -100,13 +107,30 @@
    out-of-order point on series 0 by a killed child process, read back
    after the restart and in the rewritten answer, equal to (a)'s TSDB
    after the same write;
-11. prints one JSON line describing each kernel (its launches are those
-   of phases 3, 5, 8, 6, 9 and 10), the card line and, last,
-   ``{"ok": true, "device": {...}}``.
+11. blocked long ranges: a fresh TSDB on the native store at the
+   default keys but the result cache, holding config 3's 1M series
+   over two hours (120 points a minute apart, 2% dropped, seed 0, no
+   jitter), queried as ``sum:1m-avg:rate`` by ``dc`` (the rate carry
+   crosses the block edge) and ``avg:1m-avg`` by ``rack`` (LERP's prev
+   and next carries, 2000 groups). S x B exceeds the cell budget, so
+   the grid path declines and the point path streams 2 blocks: the
+   blocked counters must move and neither kernel launch, two cold calls
+   must give the same bits, the answer must equal the unblocked point
+   path's (``tsd.query.max_device_cells=268435456``,
+   ``grid_reduce=false``) bit for bit and the port on the CPU in
+   float64 at phase 7's tolerance; prints both device peaks (the
+   blocked one must be the lower), the stage times (plan, materialize,
+   assign, flatten, the host split into blocks, pass 1, pass 2,
+   assemble) and, with ``--profile``, the device's idle share;
+12. prints the run's wall time, one JSON line describing each kernel
+   (its launches are those of phases 3, 5, 8, 6, 9 and 10; phase 11
+   launches neither), the card line and, last, ``{"ok": true,
+   "device": {...}}``. Each phase's header says how far into the run
+   it starts.
 
-Phases 3-8 run on the default store, the native one. Phases 3-5, 7 and
-9 run with the result cache off, so that every call reaches the path it
-measures.
+Phases 3-8 and 11 run on the default store, the native one. Phases
+3-5, 7, 9 and 11 run with the result cache off, so that every call
+reaches the path it measures.
 
 Any failure exits non-zero without the last line. Without a CUDA card,
 or outside a checkout of the repository, it exits 2.
@@ -148,6 +172,7 @@ IRREGULAR_QUERIES = (
 JITTER_S = 10              # phase 7: whole seconds of jitter, 0-9
 IRREGULAR_REPEATS = 3      # phase 7: warm hits and repeats per stage
 DROP = 0.02                # phase 7: share of points dropped
+CPU64_SHARE = 10           # phase 7: 1 in 10 groups held to the CPU float64
 FANOUT_REPEATS = 3         # repeats of each point-path fan-out reading
 REPRO_LAUNCHES = 20        # launches of each kernel's reproducibility reading
 # device memory rate by card name (NVIDIA data sheets), bytes/s
@@ -156,6 +181,9 @@ _MEM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
 F32_PEAK = 67e12           # float32 FLOP/s outside the tensor cores
 TOL_REL, TOL_ABS = 1e-5, 1e-6
 REPEATS = 5                # warm repeats per timed stage
+# phases 9 and 10 hold a quarter of the series: at config 3's full 1M
+# they took 400 of the run's 1200 s (PERF.md section 4)
+STORE_CUT = 4
 # readings of one phase that a later one prints beside its own
 READINGS: dict[str, float] = {}
 
@@ -426,6 +454,42 @@ def answer_values(rows, g: int, b: int):
     check(vals.shape == (g, b - 1), "unexpected result shape")
     check(bool(np.isfinite(vals).all()), "non-finite results")
     return torch.as_tensor(vals)
+
+
+def config3_reference(values) -> dict:
+    """Each of QUERIES over :func:`make_data`'s ``values`` in float64
+    with numpy: ``{m: (tag key, tag value prefix, [G, B - 1] answer,
+    [G, B - 1] sum|terms|)}``, row i the group whose tag value ends in
+    i."""
+    import numpy as np
+    n = values.shape[0]
+    avg = values.reshape(n, POINTS // 5, 5).mean(axis=2)
+    per = {"rate": np.diff(avg, axis=1) / 300.0,
+           "terms": (np.abs(avg[:, 1:]) + np.abs(avg[:, :-1])) / 300.0}
+    out = {}
+    for m, _ in QUERIES:
+        key, prefix, mod = ("dc", "dc", 100) if "{dc=*}" in m \
+            else ("rack", "r", 2000)
+        gid = np.arange(n) % mod
+        g = min(n, mod)
+        want, terms = (np.stack([np.bincount(gid, x[:, j], minlength=g)
+                                 for j in range(x.shape[1])], axis=1)
+                       for x in (per["rate"], per["terms"]))
+        out[m] = (key, prefix, want, terms)
+    return out
+
+
+def held_to_reference(rows, ref) -> float:
+    """Max |got - want| of a config-3 rate answer against its
+    :func:`config3_reference` entry; raises past the tolerance."""
+    import torch
+    key, prefix, want, terms = ref
+    idx = [int(r.tags[key][len(prefix):]) for r in rows]
+    check(sorted(idx) == list(range(len(want))),
+          f"{len(idx)} groups in the answer, not {len(want)}")
+    got = answer_values(rows, len(idx), want.shape[1] + 1)
+    return compare(got, torch.as_tensor(want[idx]),
+                   torch.as_tensor(terms[idx]))
 
 
 def repeat_reading(torch, run) -> tuple[float, bool]:
@@ -1168,14 +1232,92 @@ def make_irregular(n_series: int):
     return tags, ts2d, values2d, counts
 
 
+def against_cpu64(torch, m: str, grid, spec, gids, rate_options,
+                  res_np, emit_np, groups: int | None = None
+                  ) -> tuple[float, float]:
+    """Hold an answer (``res_np``, ``emit_np``, [G, B]) against the same
+    query run through the port's unblocked point path on the CPU in
+    float64, at |got - want| <= TOL_REL * sum|terms| + TOL_ABS. With
+    ``groups``, only groups ``0..groups-1`` are held, each over all of
+    its series on the query's own time grid (a group's answer depends on
+    its series alone). Returns (max |got - want| over the emitted cells,
+    CPU seconds)."""
+    import numpy as np
+    from opentsdb_tpu_torch.ops.pipeline import (prepare_auto,
+                                                 prepare_flat,
+                                                 run_prepared)
+    t = time.perf_counter()
+    gids = np.asarray(gids)
+    padded, bucket_idx = grid.padded, grid.bucket_idx
+    if padded is None:
+        values, series_idx = grid.batch.values, grid.batch.series_idx
+    if groups is not None and groups < spec.num_groups:
+        keep = gids < groups
+        gids = gids[keep]
+        spec = replace(spec, num_series=len(gids), num_groups=groups)
+        res_np, emit_np = res_np[:groups], emit_np[:groups]
+        if padded is not None:
+            padded = padded._replace(
+                series_ids=padded.series_ids[keep],
+                values2d=padded.values2d[keep], ts2d=padded.ts2d[keep],
+                counts=padded.counts[keep])
+            bucket_idx = bucket_idx[keep]
+        else:
+            at = keep[series_idx]
+            rank = (np.cumsum(keep) - 1).astype(np.int32)
+            values, series_idx, bucket_idx = (
+                values[at], rank[series_idx[at]], bucket_idx[at])
+    if padded is not None:
+        cpu_prep = prepare_auto(padded, bucket_idx, spec,
+                                dtype=torch.float64, device="cpu")
+    else:
+        cpu_prep = prepare_flat(values, series_idx, bucket_idx, spec,
+                                dtype=torch.float64, device="cpu")
+    want, want_emit = run_prepared(cpu_prep, grid.bucket_ts, gids, spec,
+                                   rate_options)
+    if spec.rate:
+        # a summed rate's terms: (|x_b| + |x_(b-1)|) / dt_b over the
+        # group's series, from the same sum without the rate
+        a, _ = run_prepared(cpu_prep, grid.bucket_ts, gids,
+                            replace(spec, rate=False), rate_options)
+        dt = np.diff(grid.bucket_ts) / 1000.0
+        terms = torch.zeros_like(a)
+        terms[:, 1:] = (a[:, 1:].abs() + a[:, :-1].abs()) \
+            / torch.as_tensor(dt)
+    else:
+        # positive values (checked by the callers): no cancellation, so
+        # the answer is the magnitude of its terms
+        terms = want.abs()
+    cpu_s = time.perf_counter() - t
+    del cpu_prep
+    check(bool(np.array_equal(emit_np, want_emit.numpy())),
+          f"{m}: emit masks differ from the CPU float64 port")
+    got = torch.as_tensor(res_np, dtype=torch.float64)
+    shown = torch.as_tensor(emit_np)
+    err = compare(torch.where(shown, got, 0.0),
+                  torch.where(shown, want, 0.0),
+                  torch.where(shown, terms, 0.0))
+    return err, cpu_s
+
+
+def reset_blocked() -> None:
+    from opentsdb_tpu_torch.ops.blocked import execute_blocked
+    execute_blocked.runs = execute_blocked.blocks = 0
+
+
+def read_blocked() -> tuple[int, int]:
+    """(blocked runs, blocks) since the last :func:`reset_blocked`."""
+    from opentsdb_tpu_torch.ops.blocked import execute_blocked
+    return execute_blocked.runs, execute_blocked.blocks
+
+
 def phase_irregular(torch, n_series: int, profile: bool) -> None:
     """Phase 7: the irregular point paths on a fresh TSDB."""
     import numpy as np
     from opentsdb_tpu_torch import TSDB, Config
     from opentsdb_tpu_torch.ops import fused
-    from opentsdb_tpu_torch.ops.pipeline import (prepare_auto,
-                                                 prepare_flat,
-                                                 run_prepared)
+    from opentsdb_tpu_torch.ops.blocked import pick_block_buckets
+    from opentsdb_tpu_torch.ops.pipeline import run_prepared
     from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
     tsdb = TSDB(Config(**{"tsd.torch.device": "cuda",
                           "tsd.core.auto_create_metrics": "true",
@@ -1205,15 +1347,24 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
         torch.cuda.synchronize()
         tsdb.drop_caches()
         torch.cuda.reset_peak_memory_stats()
+        reset_blocked()
         cold, cold_s = timed(lambda: tsdb.execute_query(query(m, tz)), 1)
         peak = torch.cuda.max_memory_allocated()
+        # an S x B over the cell budget (the union grid at full width)
+        # streams in time blocks and makes no prepared batch: its warm
+        # calls run it again, once, and each staged stage runs once
+        runs, blocks = read_blocked()
         hits = cache.hits
+        repeats = 1 if runs else IRREGULAR_REPEATS
         warm, warm_s = timed(lambda: tsdb.execute_query(query(m, tz)),
-                             IRREGULAR_REPEATS)
-        check(cache.hits == hits + IRREGULAR_REPEATS,
+                             repeats)
+        check(cache.hits == hits + (0 if runs else repeats),
               f"{m}: warm calls made {cache.hits - hits} cache hits")
+        check(read_blocked() == (runs * (1 + repeats),
+                                 blocks * (1 + repeats)),
+              f"{m}: the warm calls left the cold call's path")
         check(same_bits(warm, cold),
-              f"{m}: a warm prepared-batch hit differs from its cold call")
+              f"{m}: a warm call differs from its cold call")
         tsdb.drop_caches()
         check(same_bits(tsdb.execute_query(query(m, tz)), cold),
               f"{m}: two cold calls differ in their bits")
@@ -1235,66 +1386,54 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
             sel, tag_mat = eng._apply_filters(metric_id, sub, sids)
             return (sel, tag_mat) + eng._group_ids(tag_mat, gb)
 
-        (sel, tag_mat, gids, g), plan_t = timed(plan, IRREGULAR_REPEATS)
+        (sel, tag_mat, gids, g), plan_t = timed(plan, repeats)
         points, mat_t = timed(lambda: eng._materialize_points(
-            store, sel, tq), IRREGULAR_REPEATS)
+            store, sel, tq), repeats)
         grid, grid_t = timed(lambda: eng._time_grid(sub, tq, points),
-                             IRREGULAR_REPEATS)
+                             repeats)
         spec = eng._point_spec(sub, len(sel), g, False, grid.bucket_ts,
                                grid.ds_function, grid.fill_policy,
                                grid.fill_value, grid.complete)
+        b = len(grid.bucket_ts)
+        bb = pick_block_buckets(len(sel), b, eng._budget)
+        check(bool(runs) == (len(sel) * b > eng._budget)
+              and blocks == runs * -(-b // bb),
+              f"{m}: {runs} blocked runs of {blocks} blocks at S x B = "
+              f"{len(sel) * b}, budget {eng._budget}")
+        # the staged run takes the unblocked point path
+        torch.cuda.reset_peak_memory_stats()
         prep, up_t = timed(lambda: eng._prepare_points(grid, spec),
-                           IRREGULAR_REPEATS)
+                           repeats)
         # (a cut of the series can fit the union grid in the padded
         # layout's budget)
         check(prep.kind == layout or n_series < 1_000_000,
               f"{m}: the {prep.kind} layout, not {layout}")
         (res, emit), dev_t = timed(lambda: run_prepared(
             prep, grid.bucket_ts, gids, spec, sub.rate_options),
-            IRREGULAR_REPEATS)
+            repeats)
+        staged_peak = torch.cuda.max_memory_allocated()
         check(res.is_cuda and emit.is_cuda, "results are not on cuda")
         res_np, emit_np = res.cpu().numpy(), emit.cpu().numpy()
         rows, asm_t = timed(lambda: eng._build_results(
             tq, sub, metric_id, sel, tag_mat, gids, g, grid.bucket_ts,
-            res_np, emit_np), IRREGULAR_REPEATS)
+            res_np, emit_np), repeats)
         check(same_bits(rows, cold), f"{m}: the staged run differs from "
               "the engine's")
+        if runs:
+            check(peak < staged_peak, f"{m}: the blocked run's peak is "
+                  "not below the unblocked run's")
+            print(f"  {m}: blocked ({runs} run of {blocks} blocks of "
+                  f"{bb} buckets) peak device memory "
+                  f"{peak / 2**30:.3f} GiB; the staged unblocked run "
+                  f"{staged_peak / 2**30:.3f} GiB (35.284 GiB when the "
+                  "default keys ran it unblocked on an H100 80GB HBM3); "
+                  "equal bit for bit")
 
-        # the same query through the port on the CPU in float64
-        t = time.perf_counter()
-        if grid.padded is not None:
-            cpu_prep = prepare_auto(grid.padded, grid.bucket_idx, spec,
-                                    dtype=torch.float64, device="cpu")
-        else:
-            cpu_prep = prepare_flat(grid.batch.values,
-                                    grid.batch.series_idx, grid.bucket_idx,
-                                    spec, dtype=torch.float64,
-                                    device="cpu")
-        want, want_emit = run_prepared(cpu_prep, grid.bucket_ts, gids,
-                                       spec, sub.rate_options)
-        if spec.rate:
-            # a summed rate's terms: (|x_b| + |x_(b-1)|) / dt_b over the
-            # group's series, from the same sum without the rate
-            a, _ = run_prepared(cpu_prep, grid.bucket_ts, gids,
-                                replace(spec, rate=False),
-                                sub.rate_options)
-            dt = np.diff(grid.bucket_ts) / 1000.0
-            terms = torch.zeros_like(a)
-            terms[:, 1:] = (a[:, 1:].abs() + a[:, :-1].abs()) \
-                / torch.as_tensor(dt)
-        else:
-            # positive values (checked above): no cancellation, so the
-            # answer is the magnitude of its terms
-            terms = want.abs()
-        cpu_s = time.perf_counter() - t
-        del cpu_prep
-        check(bool(np.array_equal(emit_np, want_emit.numpy())),
-              f"{m}: emit masks differ from the CPU float64 port")
-        got = torch.as_tensor(res_np, dtype=torch.float64)
-        shown = torch.as_tensor(emit_np)
-        err = compare(torch.where(shown, got, 0.0),
-                      torch.where(shown, want, 0.0),
-                      torch.where(shown, terms, 0.0))
+        # the float64 reference on the CPU: a tenth of the groups
+        held = max(1, g // CPU64_SHARE)
+        err, cpu_s = against_cpu64(torch, m, grid, spec, gids,
+                                   sub.rate_options, res_np, emit_np,
+                                   held)
         emitted = int(emit_np.sum())
         check(len(rows) == g and emitted > 0 and bool(np.isfinite(
             res_np[emit_np]).all()), f"{m}: {len(rows)} groups of {g}, "
@@ -1302,7 +1441,6 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
         stages = (("plan", plan_t), ("materialize", mat_t),
                   ("assign", grid_t), ("upload", up_t),
                   ("device", dev_t), ("assemble", asm_t))
-        b = len(grid.bucket_ts)
         print(f"  {m}: S={len(sel)} B={b} G={g} {prep.kind} layout, "
               f"{emitted} cells emitted; p50 ms: " + ", ".join(
                   f"{n} {p50(v) * 1e3:.3f}" for n, v in stages)
@@ -1310,8 +1448,9 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
         print(f"  {m}: end-to-end cold {cold_s[0] * 1e3:.3f} ms, warm "
               f"p50 {p50(warm_s) * 1e3:.3f} ms; peak device memory "
               f"{peak / 2**30:.3f} GiB (cold call); max_abs_err vs CPU "
-              f"float64 {err:.6g} ({cpu_s:.1f} s on the CPU); two cold "
-              "calls and the warm hits equal bit for bit")
+              f"float64 {err:.6g} over groups 0-{held - 1} of {g} "
+              f"({cpu_s:.1f} s on the CPU); two cold "
+              "calls and the warm calls equal bit for bit")
         del points, grid, prep, res, emit
     launches = read_launches(fused)
     print(f"  irregular-path launches: {launches}")
@@ -1350,7 +1489,7 @@ def _stage_line(secs: list, stats: list) -> str:
         + f"; end-to-end {p50(secs) * 1e3:.3f}"
 
 
-def phase_backends(torch, n_series: int, query, ref3: dict) -> dict:
+def phase_backends(torch, n_series: int, query) -> dict:
     """Phase 9: the storage backends A/B on config 3's data, one fresh
     TSDB each. Returns the kernel launches of its point-path queries."""
     import gc
@@ -1360,6 +1499,7 @@ def phase_backends(torch, n_series: int, query, ref3: dict) -> dict:
     from opentsdb_tpu_torch.tsd.telnet import TelnetRouter
     t_phase = time.perf_counter()
     tags, ts2d, values = make_data(n_series)
+    refs = config3_reference(values)
     n_points = n_series * POINTS
     start_ms, end_ms = T0 * 1000, (T0 + POINTS * 60 - 1) * 1000
     defaults = Config()
@@ -1436,13 +1576,11 @@ def phase_backends(torch, n_series: int, query, ref3: dict) -> dict:
                 else:
                     check(not any(n.values()),
                           f"{backend}: the grid path launched {n}")
-                wv, terms = ref3[m]
-                err = compare(answer_values(rows, wv.shape[0],
-                                            wv.shape[1] + 1), wv, terms)
+                err = held_to_reference(rows, refs[m])
                 res[path, m] = rows
                 print(f"  {backend} (c) {m} {path} path, p50 of "
                       f"{len(secs)} in ms: {_stage_line(secs, stats)}; "
-                      f"launches {n}; max |d| vs phase 3's reference "
+                      f"launches {n}; max |d| vs the float64 reference "
                       f"{err!r}")
         # (d) one out-of-order write, then the cold point-path query
         for key, val in ENGINE_KEYS.items():
@@ -1581,7 +1719,7 @@ def kill_writer(mode: str, n: int, keys: dict, log: Path) -> float:
     return acked_s
 
 
-def phase_durability(torch, n_series: int, query, ref3: dict) -> dict:
+def phase_durability(torch, n_series: int, query) -> dict:
     """Phase 10: durability at config 3 with tsd.storage.data_dir (the
     WAL at fsync=always, snapshots) on the native store, on the point
     path with the result cache off. Returns the kernel launches of its
@@ -1657,10 +1795,9 @@ def phase_durability(torch, n_series: int, query, ref3: dict) -> dict:
                  f"without a WAL ({no_wal:.3f} s)" if no_wal else
                  "phase 9's ingest not measured"))
         before = run_queries(ref, "(a) never died")
+        refs = config3_reference(values)
         for m, _ in QUERIES:
-            wv, terms = ref3[m]
-            compare(answer_values(before[m], wv.shape[0], wv.shape[1] + 1),
-                    wv, terms)
+            held_to_reference(before[m], refs[m])
 
         # (b) /api/put with the WAL on
         put_db = durable(root / "b")
@@ -1778,6 +1915,162 @@ def phase_durability(torch, n_series: int, query, ref3: dict) -> dict:
     return launches
 
 
+LONG_POINTS = 120          # phase 11: two hours at one point a minute
+LONG_QUERIES = (
+    ("sum:1m-avg:rate:sys.cpu.user{dc=*}", "the rate carry"),
+    ("avg:1m-avg:sys.cpu.user{rack=*}", "LERP's prev and next carries"))
+UNBLOCKED_CELLS = "268435456"   # phase 11: a budget past S x B
+
+
+def make_long(n_series: int):
+    """Config 3's series over two hours: slot j of series i is at
+    ``T0 + 60 j``, dropped with probability DROP; values
+    ``normal(100, 15)``; seed 0. Returns (tags, ts2d, values2d,
+    counts), each row's points packed left."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    tags = [{"host": f"h{i}", "dc": f"dc{i % 100}",
+             "rack": f"r{i % 2000}"} for i in range(n_series)]
+    shape = (n_series, LONG_POINTS)
+    values = rng.normal(100.0, 15.0, shape)
+    keep = rng.random(shape) >= DROP
+    order = np.argsort(~keep, axis=1, kind="stable")
+    counts = keep.sum(axis=1)
+    ts2d = np.broadcast_to(T0 + 60 * np.arange(LONG_POINTS, dtype=np.int64),
+                           shape)
+    ts2d = np.take_along_axis(ts2d, order, axis=1)
+    values2d = np.take_along_axis(values, order, axis=1)
+    pad = np.arange(LONG_POINTS)[None, :] >= counts[:, None]
+    ts2d[pad], values2d[pad] = 0, np.nan
+    return tags, ts2d, values2d, counts
+
+
+def phase_long(torch, n_series: int, profile: bool) -> None:
+    """Phase 11: long ranges streamed in time blocks on a fresh TSDB."""
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.ops.blocked import pick_block_buckets
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    t_phase = time.perf_counter()
+    tsdb = TSDB(Config(**{"tsd.torch.device": "cuda",
+                          "tsd.core.auto_create_metrics": "true",
+                          "tsd.query.cache.enable": "false"}))
+    tags, ts2d, values2d, counts = make_long(n_series)
+    check(bool(np.nanmin(values2d) > 0), "phase 11 data holds a value <= 0")
+    t = time.perf_counter()
+    tsdb.add_series_points(METRIC, tags, ts2d, values2d, counts)
+    n_points = int(counts.sum())
+    print(f"  ingest: {n_points} points ({DROP:.0%} of "
+          f"{n_series * LONG_POINTS} dropped, no jitter) in "
+          f"{time.perf_counter() - t:.3f} s")
+    del tags, ts2d, values2d, counts
+    store = tsdb.store
+    metric_id = tsdb.uids.metrics.get_id(METRIC)
+    sids = store.series_ids_for_metric(metric_id)
+    start, end = str(T0), str(T0 + LONG_POINTS * 60 - 1)
+    keys = tsdb.config
+
+    def query(m):
+        return TSQuery(start=start, end=end,
+                       queries=[parse_uri_subquery(m)]).validate()
+
+    def cold(m):
+        tsdb.drop_caches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows, secs = timed(lambda: tsdb.execute_query(query(m)), 1)
+        return rows, secs[0], torch.cuda.max_memory_allocated()
+
+    for m, carry in LONG_QUERIES:
+        reset_blocked()
+        reset_launches(fused)
+        rows, cold_s, peak = cold(m)
+        runs, blocks = read_blocked()
+        launches = read_launches(fused)
+        rows2, cold2_s, _ = cold(m)
+        check(same_bits(rows2, rows), f"{m}: two cold calls differ in "
+              "their bits")
+        # the same query unblocked: the budget raised past S x B, and
+        # the grid path off (it would add in another order)
+        keys.override_config("tsd.query.max_device_cells", UNBLOCKED_CELLS)
+        keys.override_config("tsd.query.grid_reduce", "false")
+        whole, whole_s, whole_peak = cold(m)
+        keys.override_config("tsd.query.max_device_cells", "0")
+        keys.override_config("tsd.query.grid_reduce", "true")
+        tsdb.drop_caches()
+        check(read_blocked() == (2 * runs, 2 * blocks),
+              f"{m}: the unblocked run streamed in blocks")
+        check(same_bits(whole, rows), f"{m}: blocked and unblocked runs "
+              "differ in their bits")
+        if profile:
+            tsdb.drop_caches()
+            device_share(torch, lambda: tsdb.execute_query(query(m)),
+                         f"{m} blocked cold")
+
+        # the stages, one by one
+        tq = query(m)
+        sub = tq.queries[0]
+        eng = tsdb.new_query()
+        gb = [tsdb.uids.tag_names.get_id(f.tagk) for f in sub.filters
+              if f.group_by]
+        (sel, tag_mat), plan_t = timed(
+            lambda: eng._apply_filters(metric_id, sub, sids), 1)
+        gids, g = eng._group_ids(tag_mat, gb)
+        points, mat_t = timed(lambda: eng._materialize_points(
+            store, sel, tq), 1)
+        grid, grid_t = timed(lambda: eng._time_grid(sub, tq, points), 1)
+        b = len(grid.bucket_ts)
+        bb = pick_block_buckets(len(sel), b, eng._budget)
+        spec = eng._point_spec(sub, len(sel), g, False, grid.bucket_ts,
+                               grid.ds_function, grid.fill_policy,
+                               grid.fill_value, grid.complete)
+        stages: dict = {}
+        (res_np, emit_np), run_t = timed(lambda: eng._run_blocked(
+            grid, gids, spec, sub.rate_options, stages), 1)
+        rows3, asm_t = timed(lambda: eng._build_results(
+            tq, sub, metric_id, sel, tag_mat, gids, g, grid.bucket_ts,
+            res_np, emit_np), 1)
+        check(same_bits(rows3, rows), f"{m}: the staged run differs from "
+              "the engine's")
+        check(runs == 1 and blocks == -(-b // bb) == 2
+              and len(sel) * b > eng._budget
+              or n_series < 1_000_000 and runs == blocks == 0,
+              f"{m}: {runs} blocked runs of {blocks} blocks at S x B = "
+              f"{len(sel) * b}, budget {eng._budget}")
+        check(not any(launches.values()), f"{m}: launched {launches}")
+        check(peak < whole_peak or not runs, f"{m}: the blocked peak "
+              f"{peak} is not below the unblocked {whole_peak}")
+        err, cpu_s = against_cpu64(torch, m, grid, spec, gids,
+                                   sub.rate_options, res_np, emit_np)
+        emitted = int(emit_np.sum())
+        check(len(rows) == g and emitted > 0 and bool(np.isfinite(
+            res_np[emit_np]).all()), f"{m}: {len(rows)} groups of {g}, "
+              "or no finite value emitted")
+        flatten = run_t[0] - sum(stages.values())
+        staged = (("plan", plan_t[0]), ("materialize", mat_t[0]),
+                  ("assign", grid_t[0]), ("flatten", flatten),
+                  ("host split", stages["split"]),
+                  ("pass 1", stages["pass1"]),
+                  ("pass 2", stages["pass2"]), ("assemble", asm_t[0]))
+        print(f"  {m} ({carry}): S={len(sel)} B={b} G={g}, {runs} blocked "
+              f"run of {blocks} blocks of {bb} buckets (budget "
+              f"{eng._budget} cells), {emitted} cells emitted; no kernel "
+              "launched")
+        print(f"  {m}: stages ms: " + ", ".join(
+            f"{n} {v * 1e3:.3f}" for n, v in staged)
+            + f"; sum {sum(v for _, v in staged) * 1e3:.3f}")
+        print(f"  {m}: end-to-end cold {cold_s * 1e3:.3f} / "
+              f"{cold2_s * 1e3:.3f} ms blocked, {whole_s * 1e3:.3f} ms "
+              f"unblocked; peak device memory {peak / 2**30:.3f} GiB "
+              f"blocked, {whole_peak / 2**30:.3f} GiB unblocked; blocked "
+              "equal to unblocked and to itself bit for bit; max_abs_err "
+              f"vs CPU float64 {err:.6g} ({cpu_s:.1f} s on the CPU)")
+        del points, grid, res_np, emit_np, rows, rows2, rows3, whole
+    tsdb.shutdown()
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
 def p50(xs) -> float:
     return statistics.median(xs)
 
@@ -1792,6 +2085,10 @@ def main() -> int:
                     "torch.profiler and print the device's busy and "
                     "idle share of it")
     args = ap.parse_args()
+    t_run = time.perf_counter()
+
+    def header(text: str) -> None:
+        print(f"{text} [{time.perf_counter() - t_run:.1f} s into the run]")
 
     import torch
     if not torch.cuda.is_available():
@@ -1848,15 +2145,15 @@ def main() -> int:
                                        "spill")):
                 print("  ptxas:", line.strip())
 
-    print("phase 2: kernels vs plain on the card "
-          f"(|k - p| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    header("phase 2: kernels vs plain on the card "
+           f"(|k - p| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
     phase_sweep(torch, fused, PipelineSpec)
     rate = next(r for key, r in _MEM_RATE if key in name)
     read_ms = plain_read(torch, rate)
 
     s = args.series
-    print(f"phase 3: main path, {s} series x {POINTS} points"
-          + ("" if s == 1_000_000 else " (CUT from 1,000,000)"))
+    header(f"phase 3: main path, {s} series x {POINTS} points"
+           + ("" if s == 1_000_000 else " (CUT from 1,000,000)"))
     tsdb = TSDB(Config(**{"tsd.torch.device": "cuda",
                           "tsd.core.auto_create_metrics": "true",
                           **ENGINE_KEYS}))
@@ -2036,41 +2333,45 @@ def main() -> int:
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "max_abs_err": err}
 
-    print(f"phase 4: grid path at the default engine keys but the "
-          "result cache, same data "
-          f"(|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    header(f"phase 4: grid path at the default engine keys but the "
+           "result cache, same data "
+           f"(|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
     phase_grid(torch, tsdb, query, args.profile)
-    print("phase 5: prepared-batch cache (tsd.query.grid_reduce=false)")
+    header("phase 5: prepared-batch cache (tsd.query.grid_reduce=false)")
     for kname, n in phase_prepared(torch, tsdb, query, ref3).items():
         launches[kname] += n
     # phase 8 runs here, on phase 3's data before phase 6 writes a point
     # that makes one series irregular (the kernels need regular rows)
-    print("phase 8: the front end on the card (TSDServer, HTTP and "
-          "telnet over sockets)")
+    header("phase 8: the front end on the card (TSDServer, HTTP and "
+           "telnet over sockets)")
     for kname, n in phase_front_end(torch, tsdb, query, ref3,
                                     args.profile).items():
         launches[kname] += n
-    print("phase 6: the serve path at the default keys (result cache, "
-          "tag-matrix cache, sub-query fan-out)")
+    header("phase 6: the serve path at the default keys (result cache, "
+           "tag-matrix cache, sub-query fan-out)")
     for kname, n in phase_serve(torch, tsdb, query, ref3,
                                 tags[-1]).items():
         launches[kname] += n
     tsdb.shutdown()
     del tsdb, tags, ts2d, values
-    print(f"phase 7: irregular data, {s} series x {POINTS} slots"
-          + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
-          + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    header(f"phase 7: irregular data, {s} series x {POINTS} slots"
+           + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
+           + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
     phase_irregular(torch, s, args.profile)
-    print(f"phase 9: storage backends A/B, {s} series x {POINTS} points"
-          + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
-          + ", tsd.storage.backend=native then memory")
-    for kname, n in phase_backends(torch, s, query, ref3).items():
+    cut = max(1, s // STORE_CUT)
+    header(f"phase 9: storage backends A/B, {cut} series x {POINTS} "
+           "points (CUT from 1,000,000), tsd.storage.backend=native then "
+           "memory")
+    for kname, n in phase_backends(torch, cut, query).items():
         launches[kname] += n
-    print(f"phase 10: durability, {s} series x {POINTS} points"
-          + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
-          + ", tsd.storage.data_dir on the native store")
-    for kname, n in phase_durability(torch, s, query, ref3).items():
+    header(f"phase 10: durability, {cut} series x {POINTS} points (CUT "
+           "from 1,000,000), tsd.storage.data_dir on the native store")
+    for kname, n in phase_durability(torch, cut, query).items():
         launches[kname] += n
+    header(f"phase 11: blocked long ranges, {s} series x {LONG_POINTS} "
+           "points" + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
+           + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    phase_long(torch, s, args.profile)
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),
@@ -2092,6 +2393,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             # a plain read of the same [1M, 60] float32 matrix
             "plain_read_ms": read_ms})
+    print(f"run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

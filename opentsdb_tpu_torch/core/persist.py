@@ -6,12 +6,23 @@ A snapshot is the UID tables (``uids.json``), the series index
 run of points) and the point columns (``data/points.npz``: ``ts``
 int64 ms, ``vals`` float64 and ``ints`` bool, the per-point integer
 flag), and last ``META.json`` with ``wal_applied_seq``, the WAL
-sequence the snapshot covers. Each file is written under a temporary
-name and renamed. :func:`save_store` runs on ``TSDB.flush`` and
-``TSDB.shutdown``, :func:`load_store` when a TSDB starts; the WAL then
-replays what the snapshot does not cover. The files are the
-reference's, byte for byte for the same writes, so either package
-opens the other's directory.
+sequence the snapshot covers. :func:`save_store` runs on
+``TSDB.flush`` and ``TSDB.shutdown``, :func:`load_store` when a TSDB
+starts; the WAL then replays what the snapshot does not cover. The
+files are the reference's, byte for byte for the same writes, so
+either package opens the other's directory.
+
+The four files change together or not at all. A save stages each
+file beside its target (``<name>.staged``), fsyncs them and their
+directories, writes the commit marker ``SNAPSHOT.commit`` (the renames
+and the WAL sequence), renames the staged files into place, fsyncs the
+directories and removes the marker. A load first settles a save that
+stopped half way: with a marker it finishes the renames (roll
+forward), without one it deletes the staged files (roll back; the old
+snapshot is whole and the WAL was not truncated, since ``TSDB.flush``
+truncates only after the save). A series index whose runs do not fit
+the point columns, which the reference's in-place ``points.npz``
+write can leave, is refused, never served in part.
 
 The reference's snapshot also holds rollup tiers, histograms,
 annotations, meta and trees, which the port has not ported: their
@@ -24,32 +35,58 @@ from __future__ import annotations
 
 import json
 import os
-import tempfile
+import threading
 
 import numpy as np
 
 _FORMAT_VERSION = 1
 
 
+MARKER = "SNAPSHOT.commit"
+STAGED = ".staged"
+# one save at a time in this process: the staged names are fixed
+_SAVE_LOCK = threading.Lock()
+
+
 def save_store(tsdb, data_dir: str) -> int:
-    """Write a full snapshot. Returns the WAL sequence it covers,
-    captured before the content, so a concurrent write can only be
-    covered twice (replay tolerates that), never lost."""
+    """Write a full snapshot, all four files at once (module docstring).
+    Returns the WAL sequence it covers, captured before the content, so
+    a concurrent write can only be covered twice (replay tolerates
+    that), never lost."""
     tsdb.faults.check("store.flush")
     wal_seq = tsdb.wal.last_seq() if tsdb.wal is not None else 0
-    os.makedirs(data_dir, exist_ok=True)
-    _save_uids(tsdb.uids, data_dir)
-    _save_timeseries(tsdb.store, os.path.join(data_dir, "data"))
-    meta = {"format": _FORMAT_VERSION,
-            "points_written": tsdb.store.points_written,
-            "wal_applied_seq": wal_seq}
-    _atomic_write(os.path.join(data_dir, "META.json"),
-                  json.dumps(meta).encode())
+    data = os.path.join(data_dir, "data")
+    with _SAVE_LOCK:
+        os.makedirs(data, exist_ok=True)
+        # finish a swap an earlier attempt left half done before staging
+        # over its files: its marker must never name a new, partial file
+        _settle(data_dir)
+        index, write_points = _timeseries_payload(tsdb.store)
+        meta = {"format": _FORMAT_VERSION,
+                "points_written": tsdb.store.points_written,
+                "wal_applied_seq": wal_seq}
+        targets = []
+        for path, write in (
+                (os.path.join(data_dir, "uids.json"),
+                 _bytes_writer(_uids_doc(tsdb.uids))),
+                (os.path.join(data, "series.json"), _bytes_writer(index)),
+                (os.path.join(data, "points.npz"), write_points),
+                (os.path.join(data_dir, "META.json"),
+                 _bytes_writer(json.dumps(meta).encode()))):
+            _stage(path, write)
+            targets.append(path)
+        _fsync_dir(data)
+        _fsync_dir(data_dir)
+        _write_marker(data_dir, targets, wal_seq)
+        _finish(data_dir, targets)
     return wal_seq
 
 
 def load_store(tsdb, data_dir: str) -> bool:
     """Load a snapshot into a fresh TSDB; False when there is none."""
+    if os.path.isdir(data_dir):
+        with _SAVE_LOCK:
+            _settle(data_dir)
     meta_path = os.path.join(data_dir, "META.json")
     if not os.path.isfile(meta_path):
         return False
@@ -62,6 +99,75 @@ def load_store(tsdb, data_dir: str) -> bool:
     _load_uids(tsdb.uids, data_dir)
     _load_timeseries(tsdb.store, os.path.join(data_dir, "data"))
     return True
+
+
+# -- the atomic swap ---------------------------------------------------------
+
+def _bytes_writer(data: bytes):
+    return lambda fh: fh.write(data)
+
+
+def _stage(path: str, write) -> None:
+    """Call ``write(file)`` on ``path + STAGED`` and fsync it."""
+    with open(path + STAGED, "wb") as fh:
+        write(fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+
+
+def _fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _write_marker(data_dir: str, targets: list[str], wal_seq: int) -> None:
+    """The commit point: once ``SNAPSHOT.commit`` is whole on disk, the
+    staged files are the snapshot."""
+    doc = {"renames": [[os.path.relpath(t + STAGED, data_dir),
+                        os.path.relpath(t, data_dir)] for t in targets],
+           "wal_applied_seq": wal_seq}
+    path = os.path.join(data_dir, MARKER)
+    _stage(path, _bytes_writer(json.dumps(doc).encode()))
+    os.replace(path + STAGED, path)
+    _fsync_dir(data_dir)
+
+
+def _finish(data_dir: str, targets: list[str]) -> None:
+    """Rename every staged file still there into place, then remove
+    the marker (steps 4-6 of a save, and the roll forward of a load)."""
+    for target in targets:
+        if os.path.exists(target + STAGED):
+            os.replace(target + STAGED, target)
+        elif not os.path.exists(target):
+            raise ValueError(
+                f"{os.path.join(data_dir, MARKER)} names {target}, but "
+                "neither it nor its staged copy exists")
+    for directory in sorted({os.path.dirname(t) for t in targets}):
+        _fsync_dir(directory)
+    os.unlink(os.path.join(data_dir, MARKER))
+    _fsync_dir(data_dir)
+
+
+def _settle(data_dir: str) -> None:
+    """Finish a save that reached its marker (roll forward); delete
+    the staged files of one that did not (roll back)."""
+    marker = os.path.join(data_dir, MARKER)
+    if os.path.isfile(marker):
+        doc = _json(marker)
+        _finish(data_dir, [os.path.join(data_dir, final)
+                           for _, final in doc["renames"]])
+    for directory in (data_dir, os.path.join(data_dir, "data")):
+        if not os.path.isdir(directory):
+            continue
+        stray = [name for name in os.listdir(directory)
+                 if name.endswith(STAGED)]
+        for name in stray:
+            os.unlink(os.path.join(directory, name))
+        if stray:
+            _fsync_dir(directory)
 
 
 def _json(path: str):
@@ -102,33 +208,14 @@ def _refuse_unported(data_dir: str) -> None:
                         f"{item})" for what, item in held))
 
 
-def _atomic_write(path: str, data: bytes) -> None:
-    _atomic_write_with(path, lambda fh: fh.write(data))
-
-
-def _atomic_write_with(path: str, write) -> None:
-    """Call ``write(file)`` on a temporary file beside ``path``, then
-    rename it over ``path``."""
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path))
-    try:
-        with os.fdopen(fd, "wb") as fh:
-            write(fh)
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
-
-
-def _save_uids(uids, data_dir: str) -> None:
+def _uids_doc(uids) -> bytes:
     doc = {}
     for kind in ("metric", "tagk", "tagv"):
         registry = uids.by_kind(kind)
         doc[kind] = {"width": registry.width,
                      "max_id": registry.max_id(),
                      "names": dict(registry.items())}
-    _atomic_write(os.path.join(data_dir, "uids.json"),
-                  json.dumps(doc).encode())
+    return json.dumps(doc).encode()
 
 
 def _load_uids(uids, data_dir: str) -> None:
@@ -143,8 +230,8 @@ def _load_uids(uids, data_dir: str) -> None:
             int(entry.get("max_id", 0)))
 
 
-def _save_timeseries(store, directory: str) -> None:
-    os.makedirs(directory, exist_ok=True)
+def _timeseries_payload(store):
+    """``series.json``'s bytes and a writer of ``points.npz``."""
     counts, ts, vals, ints = store.read_all()
     offsets = np.cumsum(counts) - counts
     index = [{"metric": metric_id, "tags": [list(p) for p in tags],
@@ -152,12 +239,9 @@ def _save_timeseries(store, directory: str) -> None:
              for (metric_id, tags), o, c in zip(
                  store.series_identities(), offsets.tolist(),
                  counts.tolist())]
-    _atomic_write(os.path.join(directory, "series.json"),
-                  json.dumps(index).encode())
-    _atomic_write_with(
-        os.path.join(directory, "points.npz"),
+    return json.dumps(index).encode(), \
         lambda fh: np.savez_compressed(fh, ts=ts, vals=vals,
-                                       ints=ints.astype(bool)))
+                                       ints=ints.astype(bool))
 
 
 def _load_timeseries(store, directory: str) -> None:
@@ -168,6 +252,19 @@ def _load_timeseries(store, directory: str) -> None:
     npz = np.load(os.path.join(directory, "points.npz"))
     all_ts, all_vals, all_ints = npz["ts"], npz["vals"], npz["ints"]
     n = len(index)
+    counts = np.fromiter((e["count"] for e in index), np.int64, n)
+    offsets = np.fromiter((e["offset"] for e in index), np.int64, n)
+    total, held = int(counts.sum()), len(all_ts)
+    if (len(all_vals) != held or len(all_ints) != held or total != held
+            or (n and (offsets.min() < 0
+                       or int((offsets + counts).max()) > held))):
+        # a torn swap of the two files (the reference writes points.npz
+        # in place): serve none of it rather than part
+        raise ValueError(
+            f"torn snapshot: {index_path} indexes {total} points, but "
+            f"{os.path.join(directory, 'points.npz')} holds {held} "
+            f"(ts {len(all_ts)}, vals {len(all_vals)}, ints "
+            f"{len(all_ints)})")
     # series in index order, one bulk creation per run of one metric,
     # so a series gets the id it had when the snapshot was written
     sids = np.empty(n, dtype=np.int64)
@@ -180,16 +277,10 @@ def _load_timeseries(store, directory: str) -> None:
             metric_id, [[tuple(p) for p in e["tags"]]
                         for e in index[lo:hi]])
         lo = hi
-    counts = np.fromiter((e["count"] for e in index), np.int64, n)
-    offsets = np.fromiter((e["offset"] for e in index), np.int64, n)
     starts = np.cumsum(counts) - counts
-    total = int(counts.sum())
-    if np.array_equal(offsets, starts):
-        # the runs lie back to back in index order, as save_store
+    if not np.array_equal(offsets, starts):
+        # the runs are not back to back in index order, as save_store
         # writes them
-        all_ts, all_vals, all_ints = (a[:total] for a in
-                                      (all_ts, all_vals, all_ints))
-    else:
         pos = np.repeat(offsets - starts, counts) + np.arange(total)
         all_ts, all_vals, all_ints = all_ts[pos], all_vals[pos], \
             all_ints[pos]

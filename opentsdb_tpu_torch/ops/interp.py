@@ -69,7 +69,18 @@ def shift_prev(arrays, fill_values):
         for a, fv in zip(arrays, fill_values))
 
 
-def fill_gaps(grid, bucket_ts, mode: str):
+def under_carry(local, carry):
+    """Per cell of ``local`` (``[S, B]`` arrays, their presence last):
+    the local values where present, else the series' ``carry`` (``[S]``
+    vectors, their presence last): the nearest present cell outside
+    this block of buckets (:mod:`.blocked`)."""
+    *vals, has = local
+    *cvals, cp = carry
+    return tuple(torch.where(has, v, c[:, None])
+                 for v, c in zip(vals, cvals)) + (has | cp[:, None],)
+
+
+def fill_gaps(grid, bucket_ts, mode: str, carries=None):
     """Fill NaN holes of ``grid[S,B]`` per interpolation ``mode``.
 
     - ``lerp``: linear interpolation against ``bucket_ts`` between each
@@ -79,6 +90,12 @@ def fill_gaps(grid, bucket_ts, mode: str):
       valid (type extremes, used by mimmin/mimmax); NaN outside.
     - ``prev``: repeat previous valid value (pfsum); NaN before the
       first valid cell.
+
+    ``carries`` = (prev, next), each ``(values [S], int64 times [S],
+    present [S])``: the nearest present cell of each series before and
+    after ``grid``'s buckets, when ``grid`` is one time block of a
+    longer range; a hole with no present cell of its own on that side
+    takes the carry.
     """
     nan = float("nan")
     mask = ~torch.isnan(grid)
@@ -88,12 +105,19 @@ def fill_gaps(grid, bucket_ts, mode: str):
     gz = torch.where(mask, grid, 0.0)
     if mode == Interpolation.PREV.value:
         prev_val, has_prev = carry_prev((gz,), mask)
+        if carries is not None:
+            pv, _, pp = carries[0]
+            prev_val, has_prev = under_carry((prev_val, has_prev),
+                                             (pv, pp))
         return torch.where(mask, grid,
                            torch.where(has_prev, prev_val, nan))
 
     ts_row = bucket_ts[None, :].expand_as(grid)
     v0, t0, has0 = carry_prev((gz, ts_row), mask)
     v1, t1, has1 = carry_next((gz, ts_row), mask)
+    if carries is not None:
+        v0, t0, has0 = under_carry((v0, t0, has0), carries[0])
+        v1, t1, has1 = under_carry((v1, t1, has1), carries[1])
     in_range = has0 & has1
     if mode in (Interpolation.MAX.value, Interpolation.MIN.value):
         extreme = torch.inf if mode == Interpolation.MAX.value \

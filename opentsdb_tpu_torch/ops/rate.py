@@ -22,7 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
-from opentsdb_tpu_torch.ops.interp import carry_prev, shift_prev
+from opentsdb_tpu_torch.ops.interp import carry_prev, shift_prev, under_carry
 
 
 @dataclass(frozen=True)
@@ -60,9 +60,14 @@ class RateOptions:
 
 
 def _rate_kernel(grid, bucket_ts, counter: bool, counter_max: float,
-                 reset_value: float, drop_resets: bool):
+                 reset_value: float, drop_resets: bool, carry=None):
     """grid [S, B] (NaN = absent), bucket_ts [B] int64 relative ms ->
-    per-second rates, NaN where a cell has no present predecessor."""
+    per-second rates, NaN where a cell has no present predecessor.
+
+    ``carry`` = (values [S], int64 times [S], present [S]): each series'
+    last present cell before ``grid``'s buckets, when ``grid`` is one
+    time block of a longer range; a cell with no present predecessor of
+    its own in the block takes it."""
     nan = float("nan")
     mask = ~torch.isnan(grid)
     t_cur = bucket_ts[None, :]
@@ -70,6 +75,9 @@ def _rate_kernel(grid, bucket_ts, counter: bool, counter_max: float,
     gz = torch.where(mask, grid, 0.0)
     pv, pt, pp = carry_prev((gz, ts_row), mask)
     v_prev, t_prev, has_prev = shift_prev((pv, pt, pp), (0.0, 0, False))
+    if carry is not None:
+        v_prev, t_prev, has_prev = under_carry((v_prev, t_prev, has_prev),
+                                               carry)
     # integer timestamp differences before the float cast: exact
     dt_sec = (t_cur - t_prev).to(grid.dtype) / 1000.0
     dt_sec = torch.where(dt_sec > 0, dt_sec, 1.0)

@@ -491,3 +491,36 @@ def test_irregular_paths_on_card(card, m, tz, kind, monkeypatch):
             np.testing.assert_array_equal(
                 a.dps_arrays[1].view(np.int64),
                 other.dps_arrays[1].view(np.int64))
+
+
+@pytest.mark.parametrize("agg,rate", [("sum", True), ("avg", False),
+                                      ("p95", False), ("dev", True),
+                                      ("mimmax", False)])
+def test_blocked_equals_unblocked_on_card(card, agg, rate):
+    """Time blocks on the card give the unblocked flat path's bits:
+    carries keep int64 times and each block's group sums follow the
+    same fixed order."""
+    from opentsdb_tpu_torch.ops import blocked
+    from opentsdb_tpu_torch.ops.pipeline import execute
+    rng = np.random.default_rng(5)
+    s, b, g = 3000, 40, 37
+    sidx, bidx = np.nonzero(rng.random((s, b)) < 0.6)
+    reps = rng.integers(1, 4, len(sidx))        # 1-3 points a cell
+    sidx = np.repeat(sidx, reps).astype(np.int32)
+    bidx = np.repeat(bidx, reps).astype(np.int32)
+    vals = rng.normal(100.0, 15.0, len(sidx))
+    bts = np.arange(b, dtype=np.int64) * 60_000
+    gids = rng.integers(0, g, s).astype(np.int32)
+    spec = PipelineSpec(num_series=s, num_buckets=b, num_groups=g,
+                        ds_function="avg", agg_name=agg, rate=rate)
+    whole, whole_emit = execute(vals, sidx, bidx, bts, gids, spec,
+                                RateOptions(), dtype=torch.float32,
+                                device=card)
+    runs = blocked.execute_blocked.runs
+    part, part_emit = blocked.execute_blocked(
+        vals, sidx, bidx, bts, gids, spec, RateOptions(),
+        dtype=torch.float32, device=card, block_buckets=7)
+    assert blocked.execute_blocked.runs == runs + 1
+    np.testing.assert_array_equal(part.view(np.int32),
+                                  whole.cpu().numpy().view(np.int32))
+    np.testing.assert_array_equal(part_emit, whole_emit.cpu().numpy())

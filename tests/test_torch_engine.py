@@ -335,3 +335,24 @@ def test_unported_query_features_raise(engines):
         TSQuery.from_json({"start": str(T0), "pixels": 100,
                            "queries": []})
     assert torch.device("cpu") == tt.device
+
+
+@pytest.mark.parametrize("case", ["window_ms", "jittered", "one",
+                                  "empty", "wide_span", "repeated"])
+def test_distinct_timestamps_equal_np_unique(case):
+    """The union grid's distinct timestamps (a bitmap over a short span,
+    a sort over a long one) are ``np.unique``'s, with its inverse."""
+    from opentsdb_tpu_torch.query.engine import _distinct
+    rng = np.random.default_rng(7)
+    ts = {"window_ms": T0 * 1000 + 60_000 * rng.integers(0, 60, 5000),
+          "jittered": T0 * 1000 + rng.integers(0, 3_600_000, 20_000),
+          "one": np.array([T0 * 1000]),
+          "empty": np.array([], dtype=np.int64),
+          "wide_span": rng.integers(0, 1 << 45, 3000),
+          "repeated": np.full(50, -5)}[case].astype(np.int64)
+    got_ts, got_inv = _distinct(ts)
+    want_ts, want_inv = np.unique(ts, return_inverse=True)
+    assert got_ts.dtype == want_ts.dtype
+    np.testing.assert_array_equal(got_ts, want_ts)
+    assert got_inv.dtype == np.int32
+    np.testing.assert_array_equal(got_inv, want_inv)

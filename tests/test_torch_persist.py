@@ -15,9 +15,16 @@ on the CPU.
   files the reference writes load.
 - Flush and shutdown: the flush retry policy, a flush without a
   data_dir, shutdown's flush.
+- The atomic swap: a save crashed after each of its steps (each staged
+  file, the commit marker, each rename, the marker's removal) leaves a
+  directory from which a reopened TSDB reads back every acknowledged
+  point, each in its own series; a series index whose runs do not fit
+  the point columns, with no marker, is refused by name.
 """
 
 import json
+import os
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -200,3 +207,122 @@ def test_flush_without_data_dir_writes_nothing(tmp_path, monkeypatch):
     t.flush()
     t.shutdown()
     assert t.wal is None and not list(tmp_path.iterdir())
+
+
+# -- the atomic swap ---------------------------------------------------------
+
+class Crash(BaseException):
+    """The process dies here: no retry ladder catches it."""
+
+
+def _run1(t, phase):
+    hosts = ("a",) if phase == 0 else ("b",)
+    for h in hosts:
+        t.add_points("m", T0 + 60 * np.arange(10), np.arange(10.0) + ord(h),
+                     {"host": h})
+
+
+def _run2(t, phase):
+    if phase == 0:
+        for h in ("a", "b"):
+            t.add_points("m", T0 + 60 * np.arange(10),
+                         np.arange(10.0) + ord(h), {"host": h})
+    else:
+        t.add_points("m", T0 + 60 * np.arange(10, 15),
+                     np.arange(10.0, 15.0) + 100, {"host": "a"})
+
+
+RUNS = {"run1": _run1, "run2": _run2}
+# each step of a save: the four staged files, the marker staged, the
+# marker in place, each rename, the marker removed (the WAL untruncated)
+CRASH_POINTS = ([f"stage:{k}" for k in range(1, 6)] + ["marker"]
+                + [f"rename:{k}" for k in range(1, 5)] + ["saved"])
+
+
+def _crash_at(monkeypatch, t, point):
+    kind, _, k = point.partition(":")
+    calls = {"n": 0}
+
+    def after(real, counted=lambda *a: True):
+        def wrapped(*args):
+            out = real(*args)
+            if counted(*args):
+                calls["n"] += 1
+                if calls["n"] == int(k or 1):
+                    raise Crash(point)
+            return out
+        return wrapped
+
+    if kind == "stage":
+        monkeypatch.setattr(persist, "_stage", after(persist._stage))
+    elif kind == "marker":
+        monkeypatch.setattr(persist, "_write_marker",
+                            after(persist._write_marker))
+    elif kind == "rename":
+        monkeypatch.setattr(persist.os, "replace", after(
+            os.replace, lambda src, dst: not dst.endswith(persist.MARKER)))
+    else:
+        monkeypatch.setattr(t.wal, "truncate", after(lambda seq: None))
+
+
+@pytest.mark.parametrize("point", CRASH_POINTS)
+@pytest.mark.parametrize("run", sorted(RUNS))
+def test_crashed_save_reads_every_point_back(tmp_path, monkeypatch, run,
+                                             point):
+    write = RUNS[run]
+    t = ptsdb(tmp_path / "d")
+    write(t, 0)
+    t.flush()
+    write(t, 1)
+    with monkeypatch.context() as m:
+        _crash_at(m, t, point)
+        with pytest.raises(Crash):
+            t.flush()
+    t.wal.close()                       # the process is gone
+    staged = [p.name for p in (tmp_path / "d").rglob("*.staged")]
+    marker = (tmp_path / "d" / persist.MARKER).exists()
+    assert marker == (point.startswith("rename") or point == "marker")
+    assert bool(staged) == (point not in ("rename:4", "saved"))
+    want = ptsdb(tmp_path / "w")
+    write(want, 0)
+    write(want, 1)
+    got = ptsdb(tmp_path / "d")
+    assert not list((tmp_path / "d").rglob("*.staged"))
+    assert not (tmp_path / "d" / persist.MARKER).exists()
+    assert_same_series(series_of(got), series_of(want))
+    # the settled directory is a whole snapshot again, which the
+    # reference opens
+    got.shutdown()
+    assert_same_series(series_of(jtsdb(tmp_path / "d")), series_of(want))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("run", sorted(RUNS))
+def test_torn_reference_style_snapshot_is_refused(tmp_path, run, writer):
+    """The second flush's ``uids.json`` and ``series.json`` beside the
+    first flush's ``points.npz`` and ``META.json``, with the WAL as it
+    was before the second flush and no marker: the reference's in-place
+    ``points.npz`` write can leave it. The port names both files and
+    both totals and serves nothing."""
+    d, keep = tmp_path / "d", tmp_path / "keep"
+    t = (jtsdb if writer == "jax" else ptsdb)(d)
+    write = RUNS[run]
+    write(t, 0)
+    t.flush()
+    keep.mkdir()
+    shutil.copy(d / "data" / "points.npz", keep)
+    shutil.copy(d / "META.json", keep)
+    write(t, 1)
+    shutil.copytree(d / "wal", keep / "wal")
+    t.flush()
+    t.wal.close()
+    shutil.copy(keep / "points.npz", d / "data" / "points.npz")
+    shutil.copy(keep / "META.json", d / "META.json")
+    shutil.rmtree(d / "wal")
+    shutil.copytree(keep / "wal", d / "wal")
+    new_total = {"run1": 20, "run2": 25}[run]
+    old_total = {"run1": 10, "run2": 20}[run]
+    with pytest.raises(ValueError, match=(
+            rf"torn snapshot: .*series\.json indexes {new_total} points, "
+            rf"but .*points\.npz holds {old_total}")):
+        ptsdb(d)
