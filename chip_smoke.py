@@ -122,11 +122,34 @@
    blocked one must be the lower), the stage times (plan, materialize,
    assign, flatten, the host split into blocks, pass 1, pass 2,
    assemble) and, with ``--profile``, the device's idle share;
-12. prints the run's wall time, one JSON line describing each kernel
-   (its launches are those of phases 3, 5, 8, 6, 9 and 10; phase 11
-   launches neither), the card line and, last, ``{"ok": true,
-   "device": {...}}``. Each phase's header says how far into the run
-   it starts.
+12. histograms, BASELINE config 4 (``bench_e2e.py:253-282``), on a
+   fresh TSDB at the default keys but the result cache: (a) 1M series of
+   ``sys.lat.hist`` (``host=h<i>``, ``dc=dc<i%100>``) x 1 point (the
+   depth cut from 2 points a minute apart), 64 buckets on ``np.logspace(0, 4, 65)``, counts
+   ``integers(0, 50)`` from seed 3, by ``add_histogram_batch`` in batches
+   of 25,000 (ingest seconds and points/s); (b) Q1 ``sum`` with
+   ``percentiles [99, 99.9]`` (one group, one timestamp, every merged
+   bucket past 2^24) and Q2 the same by ``dc`` at ``5m-sum`` (100
+   groups): two cold calls and the warm p50 of 5 (device-cache hits),
+   the answers equal to a float64 numpy reference of the same counts
+   bit for bit, the same bits on every call, neither kernel launched,
+   the counts float64 on the card, the stages of one cold call (plan,
+   arena slice, window rows, upload, segments, merge, percentiles,
+   emit) and, with ``--profile``, the device's idle share; (c) ``merge_histograms`` and
+   ``percentiles_from_merged`` timed by CUDA events beside a plain read
+   of the [1M, 64] float64 counts, printed on the ``histogram`` line;
+   (d) ``sum:5m-avg`` percentiles [50, 99] over 10k scalar series x 60
+   ``lognormal(3, 0.8)`` points (seed 0) by the sketch fold, each within
+   alpha of the exact order statistic, two calls the same bits; (e) 10k
+   of (a)'s points by ``/api/histogram`` and one telnet ``histogram``
+   line to the TSD server with the WAL on, Q1 by HTTP equal to
+   ``execute_query`` and the reference, the same bits after a restart
+   from the WAL alone and from the snapshot;
+13. prints the run's wall time, the ``histogram`` line, one JSON line
+   describing each kernel (its launches are those of phases 3, 5, 8, 6,
+   9 and 10; phases 11 and 12 launch neither), the card line and, last,
+   ``{"ok": true, "device": {...}}``. Each phase's header says how far
+   into the run it starts.
 
 Phases 3-8 and 11 run on the default store, the native one. Phases
 3-5, 7, 9 and 11 run with the result cache off, so that every call
@@ -179,6 +202,8 @@ REPRO_LAUNCHES = 20        # launches of each kernel's reproducibility reading
 _MEM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
              ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 F32_PEAK = 67e12           # float32 FLOP/s outside the tensor cores
+# float64 FLOP/s outside the tensor cores (NVIDIA's H100 SXM data sheet)
+F64_PEAK = 34e12
 TOL_REL, TOL_ABS = 1e-5, 1e-6
 REPEATS = 5                # warm repeats per timed stage
 # phases 9 and 10 hold a quarter of the series: at config 3's full 1M
@@ -2071,6 +2096,456 @@ def phase_long(torch, n_series: int, profile: bool) -> None:
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 12: BASELINE config 4, histograms and percentile sub-queries
+HIST_METRIC = "sys.lat.hist"
+HIST_BUCKETS = 64
+# per series, a minute apart: config 4's depth, cut from 2 so that the
+# phase fits its 150 s (the per-series write path took 141 s for 2M
+# points on the card's host)
+HIST_POINTS = 1
+HIST_BATCH = 25_000        # points per add_histogram_batch (bench_e2e.py)
+HIST_QS = (99.0, 99.9)
+HIST_WINDOW = (T0, T0 + 299)         # one 5-minute bucket
+SKETCH_SERIES, SKETCH_POINTS = 10_000, 60   # (d)
+HIST_FE_SERIES = 10_000 // HIST_POINTS   # (e): 10k points by /api/histogram
+HIST_FE_BODY = 1000        # points per /api/histogram body
+
+
+def hist_percentiles(merged, bounds, qs):
+    """[Q, S] percentiles of float64 merged counts [S, NB] in numpy: the
+    reference's ``percentiles_from_counts``, written out here."""
+    import numpy as np
+    totals = merged.sum(axis=1)
+    cum = np.cumsum(merged, axis=1)
+    mids = (bounds[:-1] + bounds[1:]) / 2.0
+    out = np.empty((len(qs), len(merged)))
+    for qi, q in enumerate(qs):
+        idx = np.sum(cum < (totals * (q / 100.0))[:, None], axis=1)
+        out[qi] = np.where(totals > 0,
+                           mids[np.clip(idx, 0, len(mids) - 1)], 0.0)
+    return out
+
+
+def hist_blobs(counts_be, prefix: bytes) -> list:
+    """One codec blob per row of big-endian u64 counts (no under or
+    overflow)."""
+    tail = bytes(16)
+    return [prefix + row.tobytes() + tail for row in counts_be]
+
+
+def hist_rows(rows, metric: str) -> dict:
+    """{(q, dc tag or None): (timestamps, values)} of an answer."""
+    import numpy as np
+    out = {}
+    for r in rows:
+        check(r.metric.startswith(f"{metric}_pct_"),
+              f"unexpected row {r.metric}")
+        q = float(r.metric.rsplit("_", 1)[1])
+        ts, vals = r.dps_arrays
+        out[(q, r.tags.get("dc"))] = (np.asarray(ts).tolist(),
+                                      np.asarray(vals, dtype=np.float64))
+    return out
+
+
+def rows_bits(rows) -> list:
+    import numpy as np
+    return [(r.metric, r.tags, sorted(r.aggregated_tags),
+             np.asarray(r.dps_arrays[0]).tolist(),
+             np.asarray(r.dps_arrays[1]).view(np.int64).tolist())
+            for r in rows]
+
+
+def phase_histograms(torch, n_series: int, profile: bool) -> dict:
+    """Phase 12: BASELINE config 4 (p99/p999 over 1M histogram series)
+    on the card. Returns the ``histogram`` line's readings."""
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.ops import histogram_kernels as hk
+    from opentsdb_tpu_torch.query import histogram_engine as he
+    from opentsdb_tpu_torch.query.model import TSQuery
+    t_phase = time.perf_counter()
+    keys = {"tsd.torch.device": "cuda",
+            "tsd.core.auto_create_metrics": "true",
+            "tsd.query.cache.enable": "false"}
+
+    # (a) data: point j of series i is counts[j, i] (seed 3, point 0
+    # drawn as bench_e2e.py draws its one point)
+    bounds = np.logspace(0, 4, HIST_BUCKETS + 1)
+    rng = np.random.default_rng(3)
+    counts = rng.integers(0, 50, (HIST_POINTS, n_series, HIST_BUCKETS))
+    counts_be = counts.astype(">u8")
+    prefix = (b"\x01" + np.array([HIST_BUCKETS + 1], ">u2").tobytes()
+              + bounds.astype(">f8").tobytes())
+    tags = [{"host": f"h{i}", "dc": f"dc{i % 100}"} for i in range(n_series)]
+    tsdb = TSDB(Config(**keys))
+    n_points = HIST_POINTS * n_series
+    ingest_s = blob_s = 0.0
+    for j in range(HIST_POINTS):
+        for lo in range(0, n_series, HIST_BATCH):
+            hi = min(lo + HIST_BATCH, n_series)
+            t = time.perf_counter()
+            blobs = hist_blobs(counts_be[j, lo:hi], prefix)
+            batch = [(HIST_METRIC, T0 + 60 * j, b, tags[i])
+                     for i, b in zip(range(lo, hi), blobs)]
+            t1 = time.perf_counter()
+            written, errors = tsdb.add_histogram_batch(batch)
+            ingest_s += time.perf_counter() - t1
+            blob_s += t1 - t
+            check(written == hi - lo and not errors,
+                  f"histogram batch wrote {written}: {errors[:3]}")
+    print(f"  (a) ingest: {n_points} points of {n_series} series x "
+          f"{HIST_POINTS}, {HIST_BUCKETS} buckets, by add_histogram_batch "
+          f"in batches of {HIST_BATCH}: {ingest_s:.3f} s "
+          f"({n_points / ingest_s:,.0f} points/s; building the blobs "
+          f"{blob_s:.3f} s more)")
+
+    # the float64 numpy reference of both queries
+    t = time.perf_counter()
+    q1_merged = counts.sum(axis=1).astype(np.float64)    # [HIST_POINTS, NB]
+    dc = np.arange(n_series) % 100
+    q2_merged = np.stack([np.bincount(dc, weights=counts[:, :, b].sum(
+        axis=0).astype(np.float64), minlength=100)
+        for b in range(HIST_BUCKETS)], axis=1)                  # [100, NB]
+    want = {"Q1": hist_percentiles(q1_merged, bounds, HIST_QS),
+            "Q2": hist_percentiles(q2_merged, bounds, HIST_QS)}
+    big = int((q1_merged > 2 ** 24).sum())
+    print(f"  numpy float64 reference: {time.perf_counter() - t:.3f} s; "
+          f"Q1's merged buckets past 2^24: {big} of {q1_merged.size}; "
+          f"merged totals {q1_merged.sum(axis=1).astype(np.int64).tolist()}")
+
+    def tsq(ds: str | None, group: bool):
+        sub = {"aggregator": "sum", "metric": HIST_METRIC,
+               "percentiles": list(HIST_QS)}
+        if ds:
+            sub["downsample"] = ds
+        if group:
+            sub["filters"] = [{"type": "wildcard", "tagk": "dc",
+                               "filter": "*", "groupBy": True}]
+        return TSQuery.from_json({"start": str(HIST_WINDOW[0]),
+                                  "end": str(HIST_WINDOW[1]),
+                                  "queries": [sub]}).validate()
+
+    queries = {"Q1": tsq(None, False), "Q2": tsq("5m-sum", True)}
+
+    def held(name: str, rows) -> None:
+        got = hist_rows(rows, HIST_METRIC)
+        w = want[name]
+        if name == "Q1":
+            check(len(got) == len(HIST_QS), f"Q1: {len(got)} rows")
+            for qi, q in enumerate(HIST_QS):
+                ts, vals = got[(q, None)]
+                check(ts == [(T0 + 60 * j) * 1000
+                             for j in range(HIST_POINTS)],
+                      f"Q1 timestamps {ts}")
+                check(vals.view(np.int64).tolist()
+                      == w[qi].view(np.int64).tolist(),
+                      f"Q1 p{q}: {vals.tolist()} != {w[qi].tolist()}")
+        else:
+            check(len(got) == len(HIST_QS) * 100, f"Q2: {len(got)} rows")
+            for qi, q in enumerate(HIST_QS):
+                for g in range(100):
+                    ts, vals = got[(q, f"dc{g}")]
+                    check(ts == [T0 * 1000] and vals.view(np.int64)[0]
+                          == w[qi, g:g + 1].view(np.int64)[0],
+                          f"Q2 p{q} dc{g}: {vals.tolist()} != "
+                          f"{w[qi, g]!r}")
+
+    readings = {}
+    calls_total = dict.fromkeys(hk.CALLS, 0)
+    for name, q in queries.items():
+        reset_launches(fused)
+        calls0 = dict(hk.CALLS)
+        colds, cold_rows = [], []
+        for _ in range(2):
+            tsdb.drop_caches()
+            (rows,), secs = timed(lambda: [tsdb.execute_query(q)], 1)
+            colds.append(secs[0])
+            cold_rows.append(rows_bits(rows))
+        held(name, rows)
+        warm_rows, warm_s = timed(lambda: tsdb.execute_query(q), REPEATS)
+        n = read_launches(fused)
+        calls = {k: hk.CALLS[k] - calls0[k] for k in calls0}
+        check(not any(n.values()), f"{name}: a kernel launched {n}")
+        check(cold_rows[0] == cold_rows[1] == rows_bits(warm_rows),
+              f"{name}: cold and warm calls differ in their bits")
+        check(calls == {"merge_histograms": 2 + REPEATS,
+                        "percentiles_from_merged": 2 + REPEATS},
+              f"{name}: the device functions ran {calls}")
+        for k, v in calls.items():
+            calls_total[k] += v
+        entry = next(e for k, e in tsdb.device_grid_cache._entries.items()
+                     if k[0] == "hist")
+        check(entry[1][0].is_cuda and entry[1][0].dtype == torch.float64,
+              "the cached counts are not float64 on the card")
+        readings[name] = {"cold_ms": [c * 1e3 for c in colds],
+                          "warm_p50_ms": p50(warm_s) * 1e3}
+        print(f"  (b) {name} {q.queries[0].downsample or 'no downsample'}"
+              f"{' {dc=*}' if name == 'Q2' else ''}: cold "
+              + " / ".join(f"{c * 1e3:.3f}" for c in colds)
+              + f" ms, warm p50 {p50(warm_s) * 1e3:.3f} ms over {REPEATS} "
+              f"(device-cache hits); {len(rows)} rows bit-equal to the "
+              "numpy float64 reference, cold and warm calls the same "
+              f"bits; K1/K2 launches {n}; device calls {calls}")
+        if profile:
+            tsdb.drop_caches()
+            device_share(torch, lambda: tsdb.execute_query(q),
+                         f"{name} cold")
+            device_share(torch, lambda: tsdb.execute_query(q),
+                         f"{name} warm")
+        hist_stages(torch, tsdb, q, name)
+
+    # (c) the device functions on the card, against a plain read
+    counts_dev = entry[1][0]
+    n_rows = counts_dev.shape[0]
+    meta = entry[2]
+    seg, _, ts_out, _ = he.segments(
+        queries["Q1"], queries["Q1"].queries[0],
+        np.zeros(n_series, dtype=np.int32), 1, meta["point_sidx"],
+        meta["point_ts"])
+    seg_dev = torch.from_numpy(seg).cuda()
+    nseg = len(ts_out)
+    mids = torch.from_numpy(hk.bucket_mids(bounds)).cuda()
+    merged = hk.merge_histograms(counts_dev, seg_dev, nseg)
+    rate = next(r for key, r in _MEM_RATE
+                if key in torch.cuda.get_device_name(0))
+    merge_ms = cuda_ms(lambda: hk.merge_histograms(counts_dev, seg_dev,
+                                                   nseg), 10)
+    pct_ms = cuda_ms(lambda: hk.percentiles_from_merged(merged, mids,
+                                                        HIST_QS), 10)
+    read_ms = cuda_ms(lambda: counts_dev.sum(), 10)
+    merge_bytes = counts_dev.numel() * 8 + n_rows * 8 + merged.numel() * 8
+    merge_flops = counts_dev.numel()
+    merge_bound = max(merge_bytes / rate, merge_flops / F64_PEAK) * 1e3
+    pct_bytes = merged.numel() * 8 + mids.numel() * 8 + \
+        len(HIST_QS) * nseg * 8
+    pct_flops = merged.numel() * (2 + len(HIST_QS))
+    pct_bound = max(pct_bytes / rate, pct_flops / F64_PEAK) * 1e3
+    hist_line = [
+        {"name": "merge_histograms", "route": "torch",
+         "source": "opentsdb_tpu_torch/ops/histogram_kernels.py",
+         "replaces": "opentsdb_tpu/ops/histogram_kernels.py:24 (XLA)",
+         "calls": calls_total["merge_histograms"], "ms": merge_ms,
+         "bound_ms": merge_bound,
+         "bound_by": "bytes" if merge_bytes / rate >=
+         merge_flops / F64_PEAK else "operations",
+         "plain_read_ms": read_ms, "rows": n_rows, "segments": nseg},
+        {"name": "percentiles_from_merged", "route": "torch",
+         "source": "opentsdb_tpu_torch/ops/histogram_kernels.py",
+         "replaces": "opentsdb_tpu/ops/histogram_kernels.py:36 (XLA)",
+         "calls": calls_total["percentiles_from_merged"], "ms": pct_ms,
+         "bound_ms": pct_bound,
+         "bound_by": "bytes" if pct_bytes / rate >= pct_flops / F64_PEAK
+         else "operations", "segments": nseg}]
+    print(f"  (c) merge_histograms [{n_rows}, {HIST_BUCKETS}] float64 -> "
+          f"{nseg} segments: {merge_ms:.4f} ms (bound {merge_bound:.4f} "
+          f"ms, {merge_bytes} bytes at {rate / 1e12:.2f} TB/s); "
+          f"percentiles_from_merged: {pct_ms:.4f} ms (bound "
+          f"{pct_bound:.6f} ms); plain read (sum()) of the counts "
+          f"{read_ms:.4f} ms (CUDA events, 10 calls)")
+    del counts_dev, merged, seg_dev
+    tsdb.shutdown()
+    del tsdb
+
+    # (d) percentiles on a scalar metric: the sketch fold, host only
+    sketch_percentiles(n_series)
+
+    # (e) the front end and durability
+    hist_front_end(counts, bounds, prefix, tags, keys)
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return {"functions": hist_line, **readings}
+
+
+def hist_stages(torch, tsdb, q, name: str) -> None:
+    """One cold call of ``q`` by the histogram engine's stages, each
+    timed with a device synchronize: plan, arena slice, window rows,
+    upload, segments, merge, percentiles, emit."""
+    from opentsdb_tpu_torch.ops import histogram_kernels as hk
+    from opentsdb_tpu_torch.query import histogram_engine as he
+    sub = q.queries[0]
+    secs = {}
+
+    def stage(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[label] = (time.perf_counter() - t) * 1e3
+        return r
+
+    metric_id, sids, tag_mat, gids, g = stage(
+        "plan", lambda: he.plan_subquery(tsdb, tsdb.histogram_store, sub))
+    active = stage("arena slice", lambda: he.arena_slice(
+        tsdb, q, metric_id, sids))
+    bounds, rows, psidx, pts = stage(
+        "window rows", lambda: he.window_rows(active[0], sids))
+    counts = stage("upload", lambda: he.upload(rows, tsdb.device))
+    seg, _, ts_out, present = stage("segments", lambda: he.segments(
+        q, sub, gids, g, psidx, pts))
+    merged = stage("merge", lambda: hk.merge_histograms(
+        counts, torch.from_numpy(seg).cuda(), g * len(ts_out)))
+    pcts = stage("percentiles", lambda: hk.percentiles_from_merged(
+        merged, torch.from_numpy(hk.bucket_mids(bounds)).cuda(),
+        sub.percentiles).cpu().numpy())
+    stage("emit", lambda: he._emit_groups(
+        tsdb, q, sub, tag_mat, gids, g, ts_out, present,
+        pcts.reshape(len(sub.percentiles), g, len(ts_out))))
+    print(f"  {name} stages, ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items())
+        + f"; sum {sum(secs.values()):.3f}")
+
+
+def sketch_percentiles(n_series: int) -> None:
+    """(d): percentiles of a scalar metric by the sketch fold (host)."""
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.query.model import TSQuery
+    from opentsdb_tpu_torch.sketch.query import documented_alpha
+    s = min(SKETCH_SERIES, n_series)
+    rng = np.random.default_rng(0)
+    vals = rng.lognormal(3.0, 0.8, (s, SKETCH_POINTS))
+    ts2d = np.broadcast_to(T0 + 60 * np.arange(SKETCH_POINTS), vals.shape)
+    t = TSDB(Config(**{"tsd.torch.device": "cuda",
+                       "tsd.core.auto_create_metrics": "true",
+                       "tsd.query.cache.enable": "false"}))
+    t.add_series_points("sys.lat", [{"host": f"h{i}"} for i in range(s)],
+                        ts2d, vals)
+    q = TSQuery.from_json({
+        "start": str(T0), "end": str(T0 + 60 * SKETCH_POINTS - 1),
+        "queries": [{"aggregator": "sum", "metric": "sys.lat",
+                     "downsample": "5m-avg",
+                     "percentiles": [50.0, 99.0]}]}).validate()
+    secs = []
+    tt = time.perf_counter()
+    rows = t.execute_query(q)
+    secs.append(time.perf_counter() - tt)
+    tt = time.perf_counter()
+    rows2 = t.execute_query(q)
+    secs.append(time.perf_counter() - tt)
+    check(rows_bits(rows) == rows_bits(rows2),
+          "(d) two sketch calls differ in their bits")
+    alpha = documented_alpha(t)
+    cell = np.arange(SKETCH_POINTS) // 5
+    worst = 0.0
+    check(len(rows) == 2, f"(d) {len(rows)} rows")
+    for r, qv in zip(rows, (50.0, 99.0)):
+        ts, got = r.dps_arrays
+        check(len(ts) == SKETCH_POINTS // 5, f"(d) {len(ts)} buckets")
+        for k in range(len(ts)):
+            pts = np.sort(vals[:, cell == k].ravel())
+            exact = pts[int(np.floor(qv / 100 * (len(pts) - 1)))]
+            rel = abs(got[k] - exact) / abs(exact)
+            worst = max(worst, rel)
+            check(rel <= alpha, f"(d) p{qv} bucket {k}: {got[k]!r} vs "
+                  f"exact {exact!r}, relative {rel!r} > alpha {alpha}")
+    print(f"  (d) sketch fold, sum:5m-avg percentiles [50, 99] over {s} "
+          f"series x {SKETCH_POINTS} points: "
+          + " / ".join(f"{x * 1e3:.3f}" for x in secs)
+          + f" ms (two calls, the same bits); worst relative error "
+          f"against the exact order statistic {worst!r} <= alpha {alpha}")
+    t.shutdown()
+
+
+def hist_front_end(counts, bounds, prefix: bytes, tags, keys: dict) -> None:
+    """(e): config 4's first points by ``/api/histogram`` and one telnet
+    ``histogram`` line to the TSD server with the WAL on; the query by
+    HTTP equal to ``execute_query``; the same bits after a restart from
+    the WAL alone and from the snapshot."""
+    import base64
+    import http.client
+    import shutil
+    import socket
+    import tempfile
+    import urllib.parse
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.query.model import TSQuery
+    from opentsdb_tpu_torch.tsd.json_serializer import HttpJsonSerializer
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+    n = min(HIST_FE_SERIES, counts.shape[1] - 1)
+    root = Path(tempfile.mkdtemp(prefix="tsd-histograms-"))
+    d, crashed = root / "d", root / "wal-only"
+    dkeys = {**keys, "tsd.storage.data_dir": str(d),
+             "tsd.storage.wal.fsync": "always"}
+    counts_be = counts.astype(">u8")
+    dps = [{"metric": HIST_METRIC, "timestamp": T0 + 60 * j,
+            "value": base64.b64encode(b).decode(), "tags": tags[i]}
+           for j in range(HIST_POINTS)
+           for i, b in zip(range(n), hist_blobs(counts_be[j, :n], prefix))]
+    tel_blob = hist_blobs(counts_be[0, n:n + 1], prefix)[0]
+    line = (f"histogram {HIST_METRIC} {T0} "
+            f"{base64.b64encode(tel_blob).decode()} host={tags[n]['host']} "
+            f"dc={tags[n]['dc']}\n").encode()
+    q = TSQuery.from_json({
+        "start": str(HIST_WINDOW[0]), "end": str(HIST_WINDOW[1]),
+        "queries": [{"aggregator": "sum", "metric": HIST_METRIC,
+                     "percentiles": list(HIST_QS)}]}).validate()
+    merged = counts[:, :n].sum(axis=1).astype(np.float64)
+    merged[0] += counts[0, n]
+    want = hist_percentiles(merged, bounds, HIST_QS)
+    tsdb = TSDB(Config(**dkeys))
+    st = ServerThread(tsdb, host="127.0.0.1", port=0).start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", st.port, timeout=600)
+        t = time.perf_counter()
+        for lo in range(0, len(dps), HIST_FE_BODY):
+            status, body, _ = _http(conn, "POST", "/api/histogram?summary",
+                                    json.dumps(dps[lo:lo + HIST_FE_BODY])
+                                    .encode())
+            check(status == 200 and json.loads(body) == {
+                "success": min(HIST_FE_BODY, len(dps) - lo), "failed": 0},
+                f"/api/histogram: HTTP {status}: {body[:300]!r}")
+        put_s = time.perf_counter() - t
+        with socket.create_connection(("127.0.0.1", st.port), 600) as sk:
+            sk.sendall(line + b"version\nexit\n")
+            out = b""
+            while chunk := sk.recv(65536):
+                out += chunk
+        check(out.decode().startswith("opentsdb_tpu_torch version")
+              and out.count(b"\n") == 1,
+              f"telnet answered more than the version: {out[:300]!r}")
+        status, body, http_s = _http(
+            conn, "GET", "/api/query?" + urllib.parse.urlencode({
+                "start": HIST_WINDOW[0], "end": HIST_WINDOW[1],
+                "m": f"sum:percentile[99, 99.9]:{HIST_METRIC}"}))
+        check(status == 200, f"/api/query: HTTP {status}: {body[:300]!r}")
+        rows = tsdb.execute_query(q)
+        ser = HttpJsonSerializer.for_tsdb(tsdb)
+        check(json.loads(body) == json.loads(ser.format_query(q, rows)),
+              "the HTTP answer differs from execute_query's")
+        got = hist_rows(rows, HIST_METRIC)
+        for qi, qv in enumerate(HIST_QS):
+            check(got[(qv, None)][1].view(np.int64).tolist()
+                  == want[qi].view(np.int64).tolist(),
+                  f"(e) p{qv}: {got[(qv, None)][1].tolist()} != "
+                  f"{want[qi].tolist()}")
+        base = rows_bits(rows)
+        # a copy of the directory while the server runs: what a kill
+        # leaves (every acknowledged write is in the fsynced log)
+        shutil.copytree(d, crashed)
+        conn.close()
+    finally:
+        st.stop()                 # shuts the TSDB down: flush, snapshot
+    print(f"  (e) {len(dps)} points by /api/histogram in bodies of "
+          f"{HIST_FE_BODY} with the WAL (fsync=always), {put_s:.3f} s "
+          f"({len(dps) / put_s:,.0f} points/s), and one telnet histogram "
+          f"line; HTTP query {http_s * 1e3:.3f} ms, equal to "
+          "execute_query's and to the numpy float64 reference")
+    for label, path in (("the WAL alone", crashed), ("the snapshot", d)):
+        t = time.perf_counter()
+        r = TSDB(Config(**{**dkeys, "tsd.storage.data_dir": str(path)}))
+        load_s = time.perf_counter() - t
+        snap = (path / "histograms.json").exists()
+        check(snap == (path == d), f"{label}: histograms.json {snap}")
+        check(rows_bits(r.execute_query(q)) == base,
+              f"the restart from {label} answers other bits")
+        print(f"  (e) restart from {label}: {load_s:.3f} s (load "
+              f"{r.recovery['load_s']:.3f}, replay "
+              f"{r.recovery['replay_s']:.3f} s), the same bits")
+        r.wal.close()
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def p50(xs) -> float:
     return statistics.median(xs)
 
@@ -2372,6 +2847,10 @@ def main() -> int:
            "points" + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
            + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
     phase_long(torch, s, args.profile)
+    header(f"phase 12: histograms, BASELINE config 4, {s} series x "
+           f"{HIST_POINTS} point (depth CUT from 2) x {HIST_BUCKETS} "
+           "buckets" + ("" if s == 1_000_000 else " (CUT from 1,000,000)"))
+    hist = phase_histograms(torch, s, args.profile)
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),
@@ -2394,6 +2873,7 @@ def main() -> int:
             # a plain read of the same [1M, 60] float32 matrix
             "plain_read_ms": read_ms})
     print(f"run: {time.perf_counter() - t_run:.1f} s")
+    print(json.dumps({"histogram": hist}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

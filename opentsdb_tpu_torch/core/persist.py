@@ -3,16 +3,18 @@
 
 A snapshot is the UID tables (``uids.json``), the series index
 (``data/series.json``: each series' metric UID, tag UID pairs and its
-run of points) and the point columns (``data/points.npz``: ``ts``
-int64 ms, ``vals`` float64 and ``ints`` bool, the per-point integer
-flag), and last ``META.json`` with ``wal_applied_seq``, the WAL
-sequence the snapshot covers. :func:`save_store` runs on
-``TSDB.flush`` and ``TSDB.shutdown``, :func:`load_store` when a TSDB
-starts; the WAL then replays what the snapshot does not cover. The
-files are the reference's, byte for byte for the same writes, so
-either package opens the other's directory.
+run of points), the point columns (``data/points.npz``: ``ts`` int64
+ms, ``vals`` float64 and ``ints`` bool, the per-point integer flag),
+the histogram points (``histograms.json``: each histogram series'
+identity and each arena's columns, base64, format v2; the v1 format of
+one blob per point loads too), and last ``META.json`` with
+``wal_applied_seq``, the WAL sequence the snapshot covers.
+:func:`save_store` runs on ``TSDB.flush`` and ``TSDB.shutdown``,
+:func:`load_store` when a TSDB starts; the WAL then replays what the
+snapshot does not cover. The files are the reference's, byte for byte
+for the same writes, so either package opens the other's directory.
 
-The four files change together or not at all. A save stages each
+The five files change together or not at all. A save stages each
 file beside its target (``<name>.staged``), fsyncs them and their
 directories, writes the commit marker ``SNAPSHOT.commit`` (the renames
 and the WAL sequence), renames the staged files into place, fsyncs the
@@ -24,15 +26,15 @@ truncates only after the save). A series index whose runs do not fit
 the point columns, which the reference's in-place ``points.npz``
 write can leave, is refused, never served in part.
 
-The reference's snapshot also holds rollup tiers, histograms,
-annotations, meta and trees, which the port has not ported: their
-files load when they are empty (the reference writes them so), and a
-snapshot with any entry in them is refused, naming the ROADMAP Queue 1
-item that ports it.
+The reference's snapshot also holds rollup tiers, annotations, meta and
+trees, which the port has not ported: their files load when they are
+empty (the reference writes them so), and a snapshot with any entry in
+them is refused, naming the ROADMAP Queue 1 item that ports it.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import threading
@@ -49,12 +51,18 @@ _SAVE_LOCK = threading.Lock()
 
 
 def save_store(tsdb, data_dir: str) -> int:
-    """Write a full snapshot, all four files at once (module docstring).
-    Returns the WAL sequence it covers, captured before the content, so
-    a concurrent write can only be covered twice (replay tolerates
-    that), never lost."""
+    """Write a full snapshot, all five files at once (module docstring).
+    Returns the WAL sequence it covers, captured before the scalar
+    content, so a concurrent scalar write can only be covered twice
+    (replay keeps the last write of a timestamp), never lost. The
+    histogram arenas are read with the sequence, under the histogram
+    lock that a histogram write logs under: replay adds a histogram
+    point to its arena, so none may be both in the snapshot and past
+    its sequence."""
     tsdb.faults.check("store.flush")
-    wal_seq = tsdb.wal.last_seq() if tsdb.wal is not None else 0
+    with tsdb._histogram_lock:
+        wal_seq = tsdb.wal.last_seq() if tsdb.wal is not None else 0
+        hist_cols = _histogram_columns(tsdb)
     data = os.path.join(data_dir, "data")
     with _SAVE_LOCK:
         os.makedirs(data, exist_ok=True)
@@ -71,6 +79,8 @@ def save_store(tsdb, data_dir: str) -> int:
                  _bytes_writer(_uids_doc(tsdb.uids))),
                 (os.path.join(data, "series.json"), _bytes_writer(index)),
                 (os.path.join(data, "points.npz"), write_points),
+                (os.path.join(data_dir, "histograms.json"),
+                 _bytes_writer(_histograms_doc(tsdb, hist_cols))),
                 (os.path.join(data_dir, "META.json"),
                  _bytes_writer(json.dumps(meta).encode()))):
             _stage(path, write)
@@ -98,6 +108,7 @@ def load_store(tsdb, data_dir: str) -> bool:
     tsdb._wal_applied_seq = int(meta.get("wal_applied_seq", 0))
     _load_uids(tsdb.uids, data_dir)
     _load_timeseries(tsdb.store, os.path.join(data_dir, "data"))
+    _load_histograms(tsdb, data_dir)
     return True
 
 
@@ -185,13 +196,6 @@ def _refuse_unported(data_dir: str) -> None:
                 and _json(full):
             held.append((f"rollup store {name}", "rollups"))
     rest = "the rest, with no device compute"
-    path = os.path.join(data_dir, "histograms.json")
-    if os.path.isfile(path):
-        doc = _json(path)
-        if doc if isinstance(doc, list) else (doc.get("series")
-                                              or doc.get("arenas")):
-            held.append(("histograms",
-                         "histograms and percentile sub-queries"))
     path = os.path.join(data_dir, "annotations.json")
     if os.path.isfile(path) and _json(path):
         held.append(("annotations", rest))
@@ -287,3 +291,92 @@ def _load_timeseries(store, directory: str) -> None:
     if n:
         store.append_lines(np.repeat(sids, counts), all_ts, all_vals,
                            all_ints)
+
+
+def _b64(arr: np.ndarray) -> str:
+    return base64.b64encode(np.ascontiguousarray(arr).tobytes()).decode()
+
+
+def _histogram_columns(tsdb) -> list[tuple]:
+    """Each arena's stable snapshot views, ``(metric id, bounds, ts,
+    sid, rows, under, over)``; the caller holds the histogram lock, and
+    the base64 work runs outside it, so writes do not wait for a
+    flush."""
+    return [(mid, sub.bounds, *sub.snapshot(), sub.under[:sub.n],
+             sub.over[:sub.n])
+            for mid, arena in tsdb._histogram_arenas.items()
+            for sub in arena.groups.values()]
+
+
+def _histograms_doc(tsdb, columns: list[tuple]) -> bytes:
+    """``histograms.json``'s bytes (ref: ``_save_histograms``, format
+    v2): each histogram series' identity, and each arena's columns
+    (:func:`_histogram_columns`) as base64 of the raw int64/float64
+    buffers."""
+    arenas = []
+    seen_sids: set[int] = set()
+    for mid, bounds, ts, sid, rows, under, over in columns:
+        arenas.append({"metric": mid, "bounds": list(bounds),
+                       "n": int(len(ts)), "ts": _b64(ts), "sid": _b64(sid),
+                       "rows": _b64(rows), "under": _b64(under),
+                       "over": _b64(over)})
+        seen_sids.update(int(s) for s in np.unique(sid))
+    series = {}
+    for s in sorted(seen_sids):
+        rec = tsdb.histogram_store.series(s)
+        series[str(s)] = {"metric": rec.metric_id,
+                          "tags": [list(p) for p in rec.tags]}
+    return json.dumps({"v": 2, "series": series, "arenas": arenas}).encode()
+
+
+def _load_histograms(tsdb, data_dir: str) -> None:
+    """Load ``histograms.json`` (ref: ``_load_histograms``): v2 recreates
+    the series first (an old id -> new id map) and appends each arena's
+    columns in bulk; the v1 legacy list holds one blob per point."""
+    from opentsdb_tpu_torch.core.histogram import HistogramArena
+    path = os.path.join(data_dir, "histograms.json")
+    if not os.path.isfile(path):
+        return
+    doc = _json(path)
+    if isinstance(doc, list):
+        for entry in doc:
+            for ts, blob in entry["points"]:
+                hist = tsdb.histogram_manager.decode(base64.b64decode(blob))
+                sid = tsdb.histogram_store.get_or_create_series(
+                    entry["metric"], [tuple(p) for p in entry["tags"]])
+                arena = tsdb._histogram_arenas.setdefault(
+                    entry["metric"], HistogramArena())
+                arena.append(int(ts), sid, hist)
+        return
+    sid_map: dict[int, int] = {}
+    for old_sid, ident in doc.get("series", {}).items():
+        sid_map[int(old_sid)] = tsdb.histogram_store.get_or_create_series(
+            ident["metric"], [tuple(p) for p in ident["tags"]])
+    if sid_map:
+        old_ids = np.fromiter(sid_map, dtype=np.int64, count=len(sid_map))
+        lut = np.zeros(int(old_ids.max()) + 1, dtype=np.int64)
+        lut[old_ids] = np.fromiter(sid_map.values(), dtype=np.int64,
+                                   count=len(sid_map))
+
+    def column(raw: str, dtype, n: int):
+        return np.frombuffer(base64.b64decode(raw), dtype=dtype)[:n]
+
+    for entry in doc.get("arenas", []):
+        n = int(entry["n"])
+        nb = max(1, len(entry["bounds"]) - 1)
+        ts = column(entry["ts"], np.int64, n)
+        sid = column(entry["sid"], np.int64, n)
+        # the under/overflow columns may be absent or empty
+        under, over = (column(entry[k], np.int64, n) if entry.get(k)
+                       else None for k in ("under", "over"))
+        rows = np.frombuffer(base64.b64decode(entry["rows"]),
+                             dtype=np.float64).reshape(-1, nb)[:n]
+        arena = tsdb._histogram_arenas.setdefault(entry["metric"],
+                                                  HistogramArena())
+        key = tuple(entry["bounds"])
+        sub = arena.groups.get(key)
+        if sub is None:
+            sub = arena.groups[key] = HistogramArena._Sub(key, nb)
+        sub.append_many(ts, lut[sid] if len(sid) else sid, rows, under,
+                        over)
+        arena.total_points += n

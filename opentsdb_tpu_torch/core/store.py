@@ -241,6 +241,12 @@ _REDUCE_THREADS = min(8, os.cpu_count() or 1)
 _INSTANCE_IDS = itertools.count(1)
 
 
+class SeriesIdentity(NamedTuple):
+    """A series' metric UID and its (tagk, tagv) UID pairs, sorted."""
+    metric_id: int
+    tags: tuple
+
+
 class TimeSeriesStore:
     """In-memory storage engine: all series of all metrics.
 
@@ -255,6 +261,8 @@ class TimeSeriesStore:
     def __init__(self):
         self._lock = threading.Lock()
         self._key_to_sid: dict[tuple, int] = {}
+        # sid -> (metric id, sorted tag pairs)
+        self._keys: list[tuple] = []
         self._num_series = 0
         self._metric_index: dict[int, MetricIndex] = {}
         self._pending: list[tuple[np.ndarray, np.ndarray,
@@ -305,6 +313,7 @@ class TimeSeriesStore:
                     sid = self._num_series
                     self._num_series += 1
                     self._key_to_sid[key] = sid
+                    self._keys.append(key)
                     new_sids.append(sid)
                     new_rows.extend((sid, k, v) for k, v in key[1])
                 out[i] = sid
@@ -391,6 +400,13 @@ class TimeSeriesStore:
 
     def metric_index(self, metric_id: int) -> MetricIndex | None:
         return self._metric_index.get(metric_id)
+
+    def series(self, series_id: int) -> SeriesIdentity:
+        """The identity of one series (ref: ``TimeSeriesStore.series``'s
+        ``metric_id`` and ``tags``); IndexError for an unknown id."""
+        if series_id < 0:
+            raise IndexError(f"no series {series_id}")
+        return SeriesIdentity(*self._keys[series_id])
 
     def series_ids_for_metric(self, metric_id: int) -> np.ndarray:
         idx = self._metric_index.get(metric_id)

@@ -40,7 +40,9 @@ import torch
 
 from opentsdb_tpu_torch.core import persist
 from opentsdb_tpu_torch.core import tags as tags_mod
-from opentsdb_tpu_torch.core.store import pad_mask
+from opentsdb_tpu_torch.core.histogram import (HistogramArena,
+                                               HistogramCodecManager)
+from opentsdb_tpu_torch.core.store import TimeSeriesStore, pad_mask
 from opentsdb_tpu_torch.core.uid import (FailedToAssignUniqueIdError,
                                          UidRegistry)
 from opentsdb_tpu_torch.core.wal import WriteAheadLog
@@ -57,6 +59,8 @@ from opentsdb_tpu_torch.utils.faults import (FaultInjector, RetryPolicy,
                                              call_with_retries)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# the bits of a timestamp above the seconds range (ref: Const.SECOND_MASK)
+_SECOND_MASK = 0xFFFFFFFF00000000
 # points per WAL record of a bulk write (25 bytes each)
 _WAL_LINES = 1 << 22
 
@@ -80,6 +84,13 @@ def resolve_dtype(config: Config) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported tsd.torch.dtype {name!r}")
     return _DTYPES[name]
+
+
+def _to_ms(timestamp: int) -> int:
+    """A second or millisecond timestamp in milliseconds (ref:
+    ``codec.to_ms``: an int with a bit set above the low 32 is in ms;
+    a float raises TypeError there, and here)."""
+    return timestamp if timestamp & _SECOND_MASK else timestamp * 1000
 
 
 def normalize_timestamps(ts) -> np.ndarray:
@@ -143,6 +154,15 @@ class TSDB:
         # tsd.faults.* keys; one dict miss per site when disarmed)
         self.faults = FaultInjector(self.config)
         self.stats.register(self.faults)
+        # histogram points (ref: TSDB.java:125-135): the codecs, an
+        # index of the histogram series (a memory store that holds no
+        # points), and per metric a columnar arena of the points; the
+        # version moves with every histogram write (read-side caches)
+        self.histogram_manager = HistogramCodecManager(self.config)
+        self.histogram_store = TimeSeriesStore()
+        self._histogram_arenas: dict[int, HistogramArena] = {}
+        self._histogram_lock = threading.Lock()
+        self._histogram_version = 0
         self.data_dir = self.config.get_string("tsd.storage.data_dir")
         self.wal: WriteAheadLog | None = None
         self._wal_applied_seq = 0
@@ -489,6 +509,142 @@ class TSDB:
                 self.wal.sync()
         self.datapoints_added += len(ts_ms)
         return sids
+
+    # -- histogram points (ref: TSDB.add_histogram_batch :847,
+    #    add_histogram_point :920) ---------------------------------------
+
+    @staticmethod
+    def _check_timestamp(timestamp: int) -> None:
+        """(ref: TSDB.java:1274 checkTimestampAndTags)"""
+        if timestamp <= 0:
+            raise ValueError(f"invalid timestamp {timestamp}")
+        if timestamp >= (1 << 32) and timestamp > (1 << 47):
+            raise ValueError(f"timestamp out of range: {timestamp}")
+
+    def _arena_append(self, landed: list) -> None:
+        """Append histogram points to the arenas, one bulk append per
+        (metric, bounds) class, move the version and log the points to
+        the WAL, all under one take of the histogram lock. ``landed``
+        holds ``(metric_id, sid, ts_ms, hist, record)`` per point, in
+        order; ``record`` is the ``(metric, tags, ts, blob)`` to log, or
+        None. A snapshot reads the WAL sequence and the arenas under the
+        same lock (:func:`persist.save_store`), so a point is either in
+        the snapshot and covered by its sequence, or in neither: replay
+        never adds a point to an arena twice."""
+        classes: dict[tuple, list] = {}
+        for p in landed:
+            classes.setdefault((p[0], p[3].bounds_key()), []).append(p)
+        appends = []
+        for (mid, key), pts in classes.items():
+            rows = np.array([p[3].counts for p in pts],
+                            dtype=np.float64).reshape(len(pts), -1)
+            appends.append((mid, key, (
+                np.array([p[2] for p in pts], dtype=np.int64),
+                np.array([p[1] for p in pts], dtype=np.int64), rows,
+                np.array([p[3].underflow for p in pts], dtype=np.int64),
+                np.array([p[3].overflow for p in pts], dtype=np.int64))))
+        with self._histogram_lock:
+            for mid, key, cols in appends:
+                arena = self._histogram_arenas.get(mid)
+                if arena is None:
+                    arena = self._histogram_arenas[mid] = HistogramArena()
+                sub = arena.groups.get(key)
+                if sub is None:
+                    sub = arena.groups[key] = HistogramArena._Sub(
+                        key, max(1, len(key) - 1))
+                sub.append_many(*cols)
+                arena.total_points += len(cols[0])
+            self._histogram_version += 1
+            if self.wal is not None:
+                for *_p, record in landed:
+                    if record is not None:
+                        self.wal.log_histogram(*record)
+                # records an enclosing batch scope holds take their
+                # sequence numbers now, under the lock
+                self.wal.flush_batch()
+
+    def add_histogram_batch(self, points, on_error=None
+                            ) -> tuple[int, list[str]]:
+        """Bulk write ``(metric, timestamp, raw_blob, tags)`` histogram
+        points, grouped by series so names are checked and UIDs
+        resolved once per series (ref: ``add_histogram_batch``). A
+        group checks its names, then each point's timestamp and blob,
+        before it touches the UID tables: a group with no valid point
+        makes no UID and no series. A failing point is reported through
+        ``on_error(index, exc)``. The valid points land in one arena
+        append with their WAL records (:meth:`_arena_append`), and the
+        WAL syncs once. Returns (points written, error strings)."""
+        groups: dict[tuple, list] = {}
+        errors: list[str] = []
+        landed: list[tuple] = []
+
+        def fail(idx: int, metric: str, ts, e: Exception) -> None:
+            errors.append(f"{metric} @{ts}: {e}")
+            if on_error is not None:
+                on_error(idx, e)
+
+        for i, (metric, ts, blob, tags) in enumerate(points):
+            key = (metric, tuple(sorted(tags.items())))
+            groups.setdefault(key, []).append((i, ts, blob, tags))
+        with self._wal_scope():
+            for (metric, _), items in groups.items():
+                tags = items[0][3]
+                try:
+                    tags_mod.check_metric_and_tags(metric, tags)
+                except Exception as e:  # noqa: BLE001 - the group's error
+                    for idx, ts, _b, _t in items:
+                        fail(idx, metric, ts, e)
+                    continue
+                valid = []
+                for idx, ts, blob, _t in items:
+                    try:
+                        self._check_timestamp(ts)
+                        valid.append((idx, ts, blob, _to_ms(ts),
+                                      self.histogram_manager.decode(blob)))
+                    except Exception as e:  # noqa: BLE001 - a point's
+                        fail(idx, metric, ts, e)
+                if not valid:
+                    continue
+                try:
+                    metric_id, (tag_ids,) = self._resolve_uids(metric,
+                                                               [tags])
+                    sid = self.histogram_store.get_or_create_series(
+                        metric_id, tag_ids)
+                except Exception as e:  # noqa: BLE001 - the group's
+                    for idx, ts, _b, _tm, _h in valid:
+                        fail(idx, metric, ts, e)
+                    continue
+                landed.extend((metric_id, sid, ts_ms, hist,
+                               (metric, tags, ts, blob))
+                              for _idx, ts, blob, ts_ms, hist in valid)
+            if landed:
+                self._arena_append(landed)
+                if self.wal is not None:
+                    self.wal.sync()
+        self.datapoints_added += len(landed)
+        return len(landed), errors
+
+    def add_histogram_point(self, metric: str, timestamp: int,
+                            raw_blob: bytes, tags: dict[str, str],
+                            _wal: bool = True, create: bool = False) -> int:
+        """Write one encoded histogram point; returns its series id (ref:
+        TSDB.java:1132). Names, timestamp and blob are checked before
+        any UID is made. ``create`` makes missing names whatever the
+        auto-create keys say (WAL replay: the write was
+        acknowledged)."""
+        tags_mod.check_metric_and_tags(metric, tags)
+        self._check_timestamp(timestamp)
+        hist = self.histogram_manager.decode(raw_blob)
+        metric_id, (tag_ids,) = self._resolve_uids(metric, [tags],
+                                                   create=create)
+        sid = self.histogram_store.get_or_create_series(metric_id, tag_ids)
+        record = (metric, tags, timestamp, raw_blob) if _wal else None
+        self._arena_append([(metric_id, sid, _to_ms(timestamp), hist,
+                             record)])
+        if record is not None and self.wal is not None:
+            self.wal.sync()
+        self.datapoints_added += 1
+        return sid
 
     def _import_series(self, line: bytes) -> tuple[int, str, dict]:
         """The series id, metric and tags of one import line's series,

@@ -35,14 +35,22 @@ other's log:
   probe retries every ``resync_ms``.
 - :meth:`WriteAheadLog.truncate` after a snapshot deletes the segments
   it covers; the snapshot's ``wal_applied_seq`` makes replay skip what
-  it holds. Replaying a record twice is harmless: the store keeps the
-  last write of a timestamp and series resolution is idempotent.
+  it holds. Replaying a scalar record twice is harmless: the store
+  keeps the last write of a timestamp and series resolution is
+  idempotent.
 
-The port's stores are the data store only, and it writes no
-annotation or histogram record: replay refuses ``T_ANNOT``,
-``T_ANNOT_DEL``, ``T_HIST`` and the rollup stores' records (``preagg``,
-``tier:*``), naming the ROADMAP Queue 1 item that ports them, rather
-than drop them. Single writer: one TSDB owns a data_dir at a time.
+``T_HIST`` holds one histogram point (its metric, tag names and
+timestamp as JSON, then the codec blob); replay writes it again through
+``TSDB.add_histogram_point``. A histogram point adds to its arena, so
+it must not be replayed over a snapshot that holds it: the writer logs
+it under the TSDB's histogram lock (:meth:`WriteAheadLog.flush_batch`
+lands a batch scope's records there), and a snapshot reads the
+sequence and the arenas under the same lock. The port's scalar stores are the data
+store only, and it writes no annotation record: replay refuses
+``T_ANNOT``, ``T_ANNOT_DEL`` and the rollup stores' records
+(``preagg``, ``tier:*``), naming the ROADMAP Queue 1 item that ports
+them, rather than drop them. Single writer: one TSDB owns a data_dir at
+a time.
 """
 
 from __future__ import annotations
@@ -72,7 +80,7 @@ T_LINES = 3       # bin: kind | n i32 | sids i64[n] ts i64[n] f64[n] u8[n]
 T_UID = 4         # json {"kind", "name"}
 T_ANNOT = 5       # json annotation doc (+"tsuid"); not written here
 T_ANNOT_DEL = 6   # json {"tsuid", "start"}; not written here
-T_HIST = 7        # json {"m", "t", "ts"} \n blob bytes; not written here
+T_HIST = 7        # json {"m", "t", "ts"} \n blob bytes
 
 # records the reference writes for subsystems the port has not ported,
 # by the ROADMAP Queue 1 item that ports them
@@ -80,8 +88,6 @@ _UNPORTED = {
     T_ANNOT: ("an annotation", "the rest, with no device compute"),
     T_ANNOT_DEL: ("an annotation delete",
                   "the rest, with no device compute"),
-    T_HIST: ("a histogram point",
-             "histograms and percentile sub-queries"),
 }
 
 _KIND = struct.Struct("<B")     # kind string length prefix
@@ -332,23 +338,39 @@ class WriteAheadLog:
             self._commit_batch(b)
 
     def _commit_batch(self, b: _WalBatch) -> None:
-        if b.records:
-            try:
-                last = self._append_batch(b.records)
-            except RuntimeError:
-                # closed mid-request (a shutdown race): the store writes
-                # happened, so shed the records loudly instead of
-                # raising from the scope's exit
-                log.warning("wal closed mid-batch; %d record(s) shed",
-                            len(b.records))
-                self.append_dropped += len(b.records)
-                return
-            if last >= 0 and b.known:
-                self._known.update(b.known)
-        else:
-            last = None
+        last = self._land(b)
         if b.sync_wanted and last != -1:
             self.sync(upto=last)
+
+    def _land(self, b: _WalBatch) -> int | None:
+        """Write a batch's buffered records and empty its buffer. The
+        last record's sequence number, -1 when they were shed, None
+        when there were none."""
+        if not b.records:
+            return None
+        records, known = b.records, b.known
+        b.records, b.nbytes, b.known = [], 0, set()
+        try:
+            last = self._append_batch(records)
+        except RuntimeError:
+            # closed mid-request (a shutdown race): the store writes
+            # happened, so shed the records loudly instead of raising
+            # from the scope's exit
+            log.warning("wal closed mid-batch; %d record(s) shed",
+                        len(records))
+            self.append_dropped += len(records)
+            return -1
+        if last >= 0 and known:
+            self._known.update(known)
+        return last
+
+    def flush_batch(self) -> None:
+        """Write the records this thread's :meth:`batch` scope holds so
+        far, so they take their sequence numbers now; the scope's fsync
+        still waits for its exit. Nothing outside a scope."""
+        b = getattr(self._tls, "batch", None)
+        if b is not None:
+            self._land(b)
 
     def _append_json(self, rtype: int, doc: dict) -> int:
         return self._append(rtype, json.dumps(doc).encode())
@@ -395,6 +417,14 @@ class WriteAheadLog:
 
     def log_uid(self, kind: str, name: str) -> None:
         self._append_json(T_UID, {"kind": kind, "name": name})
+
+    def log_histogram(self, metric: str, tags: dict[str, str],
+                      ts: int, blob: bytes) -> None:
+        """One histogram point: ``ts`` as the writer gave it (seconds or
+        ms), the codec blob as it came."""
+        head = json.dumps({"m": metric, "t": sorted(tags.items()),
+                           "ts": ts}).encode()
+        self._append(T_HIST, head + b"\n" + blob)
 
     def sync(self, upto: int | None = None) -> None:
         """Block until the caller's records are on disk (group commit;
@@ -773,6 +803,13 @@ class WriteAheadLog:
             doc = json.loads(payload)
             tsdb.uids.by_kind(doc["kind"]).get_or_create_id(doc["name"])
             return 0
+        if rtype == T_HIST:
+            head, _, blob = payload.partition(b"\n")
+            doc = json.loads(head)
+            tsdb.add_histogram_point(doc["m"], doc["ts"], blob,
+                                     dict(doc["t"]), _wal=False,
+                                     create=True)
+            return 1
         if rtype in _UNPORTED:
             what, item = _UNPORTED[rtype]
             raise UnportedRecordError(

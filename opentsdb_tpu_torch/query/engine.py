@@ -38,9 +38,14 @@ its scan in the request's ``QueryStats`` when the caller passes one
 The reference engine's other paths are not ported yet: the host-CPU
 tail and its circuit breaker with its host retries, the host-RAM
 prepared-batch cache, the streaming lookup before the result cache,
-the device mesh, rollup tiers, histogram/percentile sub-queries, tsuid
-sub-queries and ``delete=true``. Asking for any of them raises
-NotImplementedError.
+the device mesh, rollup tiers, tsuid sub-queries and ``delete=true``.
+Asking for any of them raises NotImplementedError.
+
+A sub-query with ``percentiles`` takes its own path (``_run_sub``'s
+first branch, as in the reference): the exact merge over the
+histogram arenas (:mod:`~opentsdb_tpu_torch.query.histogram_engine`)
+and, for a scalar metric, the sketch fold
+(:mod:`opentsdb_tpu_torch.sketch.query`).
 """
 
 from __future__ import annotations
@@ -269,6 +274,28 @@ def compact_row_labels(mat: np.ndarray) -> tuple[np.ndarray, int]:
     return labels.astype(np.int32), count
 
 
+def _common_tags(tags: TagMatrix, members: np.ndarray, uids
+                 ) -> tuple[dict[str, str], list[str]]:
+    """SpanGroup tag semantics for ONE group (ref: ``_common_tags``; the
+    percentile paths' emission): ``tags`` are the k=v pairs every member
+    series shares, ``aggregateTags`` the keys every member holds with
+    differing values; a key some member lacks vanishes."""
+    sub = tags.vids[members]
+    out_tags: dict[str, str] = {}
+    agg_tags: list[str] = []
+    for j, kid in enumerate(tags.kids):
+        col = sub[:, j]
+        lo = int(col.min()) if len(col) else -1
+        if lo < 0:
+            continue
+        kname = uids.tag_names.get_name(int(kid))
+        if lo == int(col.max()):
+            out_tags[kname] = uids.tag_values.get_name(lo)
+        else:
+            agg_tags.append(kname)
+    return out_tags, agg_tags
+
+
 class _UidNameCache:
     """Memoized UID->name lookups for result assembly."""
 
@@ -361,7 +388,7 @@ class QueryEngine:
         key, ttl_ms = plan
         # captured before the compute: a write landing mid-execution
         # leaves the entry already stale instead of wrongly fresh
-        version = self._sub_version()
+        version = self._sub_version(sub)
         value, outcome = cache.get_or_compute(
             key, version, lambda: self._run_sub(tsq, sub), ttl_ms)
         stats = self._stats
@@ -373,21 +400,40 @@ class QueryEngine:
             value = [r.with_sub_index(sub.index) for r in value]
         return value
 
-    def _sub_version(self) -> tuple:
+    def _sub_version(self, sub: TSSubQuery) -> tuple:
         """The version of what a sub-query reads (ref: ``_sub_version``):
         the port has one store per TSDB and no rollup tiers or
-        annotations, so it is that store's identity and write
-        counters."""
-        store = self.tsdb.store
+        annotations, so it is that store's identity and write counters.
+        A percentile sub-query reads the histogram arenas and, through
+        the sketch path, the scalar store: their write counters too."""
+        t = self.tsdb
+        store = t.store
+        if sub.percentiles:
+            return ("hist", t._histogram_version,
+                    *t.histogram_store.version, store.instance_id,
+                    *store.version)
         return ("sel", store.instance_id, *store.version)
+
+    def _run_percentiles(self, tsq: TSQuery,
+                         sub: TSSubQuery) -> list[QueryResult]:
+        """A percentile sub-query (ref: ``_run_sub``'s percentile
+        branch): the sketch rows (a scalar metric's, when
+        ``tsd.sketch.enable``), then the histogram arena's rows. With no
+        cold zone one side is always empty, so the reference's splice
+        of the two by group is the other side."""
+        from opentsdb_tpu_torch.query.histogram_engine import \
+            run_histogram_subquery
+        from opentsdb_tpu_torch.sketch.query import run_sketch_percentiles
+        sk_rows = run_sketch_percentiles(self.tsdb, tsq, sub)
+        hist_rows = run_histogram_subquery(self.tsdb, tsq, sub)
+        return sk_rows or hist_rows
 
     def _run_sub(self, tsq: TSQuery,
                  sub: TSSubQuery) -> list[QueryResult]:
         t0 = time.monotonic()
         stats = self._stats
         if sub.percentiles:
-            raise NotImplementedError(
-                "percentile sub-queries are not ported yet")
+            return self._run_percentiles(tsq, sub)
         if sub.tsuids:
             raise NotImplementedError("tsuid sub-queries are not ported yet")
         uids = self.tsdb.uids

@@ -4,8 +4,9 @@
 Validation semantics follow ``TSQuery.validateAndSetQuery``: start time
 required, aggregator required per sub-query, one of metric|tsuids
 required, times normalized to ms, end defaulting to now. The
-pixel-budget keys of the reference's model are not ported yet and
-raise NotImplementedError.
+pixel-budget keys and ``sketchPartials`` (a cluster router's request)
+of the reference's model are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -194,6 +195,9 @@ class TSQuery:
         if not isinstance(obj, dict):
             raise BadRequestError("query must be a JSON object")
         _refuse_pixels(obj)
+        if obj.get("sketchPartials"):
+            from opentsdb_tpu_torch.sketch.query import PARTIALS_NOT_PORTED
+            raise NotImplementedError(PARTIALS_NOT_PORTED)
         raw_queries = obj.get("queries") or []
         if not isinstance(raw_queries, list) or not all(
                 isinstance(q, dict) for q in raw_queries):
@@ -232,9 +236,9 @@ class TSQuery:
 
 def parse_uri_subquery(spec: str, index: int = 0) -> TSSubQuery:
     """Parse the URI form
-    ``agg:[interval-ds:][rate[{...}]:][explicit_tags:]metric{tags}[{filters}]``
-    (ref: QueryRpc.parseMTypeSubQuery). The percentile section of the
-    URI form is not ported yet and raises NotImplementedError."""
+    ``agg:[interval-ds:][rate[{...}]:][explicit_tags:][percentile[..]:]metric{tags}[{filters}]``
+    (ref: QueryRpc.parseMTypeSubQuery), with the histogram section
+    ``percentile[...]`` (or ``percentiles[...]``)."""
     parts = spec.split(":")
     if len(parts) < 2:
         raise BadRequestError(f"Invalid parameter m={spec!r}")
@@ -246,8 +250,28 @@ def parse_uri_subquery(spec: str, index: int = 0) -> TSSubQuery:
         elif middle == "explicit_tags":
             sub.explicit_tags = True
         elif middle.lower().startswith("percentile"):
-            raise NotImplementedError(
-                "percentile sub-queries are not ported yet")
+            # percentile[98,99.9] (ref: QueryRpc.parsePercentiles
+            # :887-903, tolerant of spaces)
+            pm = re.match(r"^percentiles?\s*\[\s*([^\]]*?)\s*\]$",
+                          middle, re.IGNORECASE)
+            if not pm:
+                raise BadRequestError(
+                    f"Malformatted percentile query parameter: "
+                    f"{middle!r}")
+            try:
+                sub.percentiles = [float(p)
+                                   for p in pm.group(1).split(",")
+                                   if p.strip()]
+            except ValueError:
+                raise BadRequestError(
+                    f"Malformatted percentile query parameter: "
+                    f"{middle!r}") from None
+            if not sub.percentiles:
+                # 'percentile[]' must not become a query without
+                # percentiles (ref: parsePercentiles rejects it)
+                raise BadRequestError(
+                    f"Malformatted percentile query parameter: "
+                    f"{middle!r}")
         elif middle:
             sub.downsample = middle
     # metric{groupby-tags}{filter-tags}

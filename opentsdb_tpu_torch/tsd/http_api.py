@@ -6,6 +6,7 @@ responses; :mod:`opentsdb_tpu_torch.tsd.server` feeds it from asyncio
 sockets and tests call it directly.
 
 Endpoints (mode-gated rw/ro/wo as RpcManager :274-327): ``/api/put``,
+``/api/histogram``,
 ``/api/query`` (GET URI form, POST JSON, ``arrays``), ``/api/suggest``,
 ``/api/aggregators``, ``/api/config`` (+``/filters``),
 ``/api/dropcaches``, ``/api/serializers``, ``/api/version``,
@@ -25,6 +26,7 @@ failed query on another device.
 
 from __future__ import annotations
 
+import base64
 import json
 import platform
 import re
@@ -50,7 +52,6 @@ from opentsdb_tpu_torch.tsd.json_serializer import HttpJsonSerializer
 
 # ROADMAP Queue 1 items by the subsystems they port
 _STREAMING = "streaming and warmup"
-_HISTOGRAMS = "histograms and percentile sub-queries"
 _ROLLUPS = "rollups"
 _REST = "the rest, with no device compute"
 
@@ -68,7 +69,6 @@ UNPORTED: dict[str, tuple[str, str]] = {
     "annotations": (_REST, "meta/ (annotations)"),
     "tree": (_REST, "tree/"),
     "rollup": (_ROLLUPS, "rollup/"),
-    "histogram": (_HISTOGRAMS, "core/histogram.py"),
     "health": (_REST, "obs/ (health)"),
     "trace": (_REST, "obs/ (request tracing)"),
     "profile": (_REST, "obs/ (sampling profiler)"),
@@ -215,6 +215,7 @@ class HttpRpcRouter:
         # write RPCs (not registered in read-only mode, RpcManager:327)
         if mode in ("rw", "wo"):
             self._routes["put"] = self._handle_put
+            self._routes["histogram"] = self._handle_histogram
         self._routes.update({
             "aggregators": self._handle_aggregators,
             "config": self._handle_config,
@@ -226,7 +227,7 @@ class HttpRpcRouter:
         # the reference's mode gating holds for the unported endpoints
         # too: a route the mode would not register stays a 404
         read_only = {"search", "uid", "annotation", "annotations", "tree"}
-        write_only = {"rollup", "histogram"}
+        write_only = {"rollup"}
         for name in UNPORTED:
             if "/" in name or (name in read_only and mode == "wo") or \
                     (name in write_only and mode == "ro"):
@@ -422,6 +423,39 @@ class HttpRpcRouter:
             400 if failed else 200,
             request.serializer.format_put(success, failed, errors,
                                           details))
+
+    def _handle_histogram(self, request: HttpRequest, rest) -> HttpResponse:
+        """(ref: HistogramDataPointRpc.java; ``_handle_histogram``) A put
+        body whose values are base64 codec blobs, written through
+        ``TSDB.add_histogram_batch``: a bad point fails alone and the
+        good points of the body land."""
+        if request.method != "POST":
+            raise HttpError(405, "Method not allowed")
+        points = request.serializer.parse_put(request.body)
+        errors: list[dict] = []
+        parsed: list[tuple] = []
+        dps: list[dict] = []
+        for dp in points:
+            try:
+                parsed.append((dp["metric"], int(dp["timestamp"]),
+                               base64.b64decode(dp["value"]),
+                               dp.get("tags") or {}))
+                dps.append(dp)
+            except Exception as e:  # noqa: BLE001 - a per-point error
+                errors.append({"datapoint": dp, "error": str(e)})
+
+        def on_error(i: int, e: Exception) -> None:
+            errors.append({"datapoint": dps[i], "error": str(e)})
+
+        success, _ = self.tsdb.add_histogram_batch(parsed,
+                                                   on_error=on_error)
+        if errors and not request.flag("details") \
+                and not request.flag("summary"):
+            raise HttpError(400, "One or more data points had errors")
+        return HttpResponse(
+            400 if errors else 200,
+            request.serializer.format_put(success, len(errors), errors,
+                                          request.flag("details")))
 
     # -- read path -----------------------------------------------------
 

@@ -4,12 +4,13 @@ version, dropcaches, help, exit, diediedie).
 
 Commands return response text, empty when there is nothing to say: a
 successful ``put`` is silent, as PutDataPointRpc.java:129 writes back
-only errors. ``rollup`` and ``histogram`` answer an error line until
-the port has rollups and histograms.
+only errors, and so is ``histogram``. ``rollup`` answers an error line
+until the port has rollups.
 """
 
 from __future__ import annotations
 
+import base64
 from typing import Callable
 
 from opentsdb_tpu_torch.core import tags as tags_mod
@@ -31,7 +32,7 @@ class TelnetRouter:
         if tsdb.mode in ("rw", "wo"):
             self.commands["put"] = self._cmd_put
             self.commands["rollup"] = self._cmd_unported
-            self.commands["histogram"] = self._cmd_unported
+            self.commands["histogram"] = self._cmd_histogram
         self.commands.update({
             "stats": self._cmd_stats,
             "version": self._cmd_version,
@@ -188,10 +189,24 @@ class TelnetRouter:
             return f"put: {type(e).__name__}: {e}"
 
     def _cmd_unported(self, words: list[str]) -> str:
-        what = {"rollup": "rollups", "histogram":
-                "histograms and percentile sub-queries"}[words[0]]
+        what = {"rollup": "rollups"}[words[0]]
         return (f"{words[0]}: not ported yet (ROADMAP Queue 1, "
                 f"{what})")
+
+    def _cmd_histogram(self, words: list[str]) -> str:
+        """``histogram <metric> <timestamp> <base64-blob> <tagk=tagv>...``
+        (ref: HistogramDataPointRpc); silent on success."""
+        if len(words) < 5:
+            return "histogram: illegal argument: not enough arguments"
+        try:
+            metric = words[1]
+            ts = int(words[2])
+            blob = base64.b64decode(words[3])
+            tags = dict(tags_mod.parse(w) for w in words[4:])
+            self.tsdb.add_histogram_point(metric, ts, blob, tags)
+            return ""
+        except Exception as e:  # noqa: BLE001 - the error line is the answer
+            return f"histogram: {type(e).__name__}: {e}"
 
     def _cmd_stats(self, words: list[str]) -> str:
         collector = self.tsdb.stats.collect()

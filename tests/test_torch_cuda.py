@@ -10,6 +10,8 @@ Both kernels are deterministic: each adds in the order that
 ``test_torch_span_order`` sets out, bit for bit, and 20 launches agree
 bitwise; so do two calls of the grid tail, whose group sums follow a
 fixed order. A two-sub query fans out and launches each kernel once.
+The histogram merge and ranks (float64, no kernel) equal the CPU's bit
+for bit, and a percentile query keeps its counts on the card.
 """
 
 import numpy as np
@@ -524,3 +526,73 @@ def test_blocked_equals_unblocked_on_card(card, agg, rate):
     np.testing.assert_array_equal(part.view(np.int32),
                                   whole.cpu().numpy().view(np.int32))
     np.testing.assert_array_equal(part_emit, whole_emit.cpu().numpy())
+
+
+@pytest.mark.parametrize("n,nb,nseg", [(101, 64, 10), (20_000, 64, 3)])
+def test_histogram_merge_on_card_equals_cpu(card, n, nb, nseg):
+    """The histogram merge and ranks on the card equal the CPU's bit for
+    bit, on every call (float64 integer sums, exact in any order), with
+    merged counts past 2^24 in the second case."""
+    from opentsdb_tpu_torch.ops import histogram_kernels as hk
+    rng = np.random.default_rng(5)
+    counts = rng.integers(0, 5000, (n, nb)).astype(np.float64)
+    seg = rng.integers(0, nseg, n)
+    bounds = np.logspace(0, 4, nb + 1)
+    qs = [50.0, 99.0, 99.9]
+    want = hk.histogram_percentile_pipeline(counts, seg, nseg, bounds, qs,
+                                            device="cpu")
+    for _ in range(3):
+        got = hk.histogram_percentile_pipeline(counts, seg, nseg, bounds,
+                                               qs, device=card)
+        np.testing.assert_array_equal(got.view(np.int64),
+                                      want.view(np.int64))
+    merged = hk.merge_histograms(torch.from_numpy(counts).to(card),
+                                 torch.from_numpy(seg).to(card), nseg)
+    assert merged.is_cuda and merged.dtype == torch.float64
+
+
+def test_histogram_query_on_card(card):
+    """A percentile sub-query on a TSDB on the card: the counts stay on
+    the card as float64, neither kernel launches, and the answer equals
+    the same query on the CPU bit for bit, cold and warm."""
+    import struct
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.query.model import TSQuery
+    rng = np.random.default_rng(6)
+    bounds = np.logspace(0, 3, 9)
+    pts = []
+    for i in range(300):
+        for j in range(3):
+            blob = (b"\x01" + struct.pack(">H", 9)
+                    + struct.pack(">9d", *bounds)
+                    + struct.pack(">8Q", *rng.integers(0, 50, 8).tolist())
+                    + struct.pack(">QQ", 0, 0))
+            pts.append(("lat", 1356998400 + 60 * j, blob,
+                        {"host": f"h{i}", "dc": f"dc{i % 7}"}))
+    q = {"start": "1356998400", "end": "1356998699", "queries": [{
+        "aggregator": "sum", "metric": "lat", "percentiles": [50, 99.9],
+        "downsample": "1m-sum",
+        "filters": [{"type": "wildcard", "tagk": "dc", "filter": "*",
+                     "groupBy": True}]}]}
+    answers = {}
+    for dev in ("cpu", "cuda"):
+        t = TSDB(Config(**{"tsd.torch.device": dev,
+                           "tsd.core.auto_create_metrics": "true",
+                           "tsd.query.cache.enable": "false"}))
+        t.add_histogram_batch(pts)
+        fused.span_reduce.launches = fused.onehot_reduce.launches = 0
+        runs = [[(r.metric, r.tags, r.dps_arrays[0].tolist(),
+                  r.dps_arrays[1].view(np.int64).tolist())
+                 for r in t.execute_query(TSQuery.from_json(q).validate())]
+                for _ in range(2)]
+        assert runs[0] == runs[1] and runs[0]
+        assert fused.span_reduce.launches == fused.onehot_reduce.launches \
+            == 0
+        if dev == "cuda":
+            (entry,) = [e for k, e in t.device_grid_cache._entries.items()
+                        if k[0] == "hist"]
+            assert entry[1][0].is_cuda and entry[1][0].dtype == \
+                torch.float64
+        answers[dev] = runs[0]
+        t.shutdown()
+    assert answers["cuda"] == answers["cpu"]

@@ -314,7 +314,8 @@ def test_engine_keys_select_the_path(engines, keys, path, monkeypatch):
 def test_unported_query_features_raise(engines):
     """What is still not ported raises NotImplementedError; a ``p99``
     aggregator, which raised before the rank aggregators' port, now
-    answers as the reference does."""
+    answers as the reference does (percentile sub-queries too, held in
+    ``test_torch_histogram.py`` and ``test_torch_sketch.py``)."""
     _, tt = engines
     _run_both(engines, {"start": str(T0), "end": str(T0 + P * 60 - 1),
                         "queries": [{"aggregator": "p99",
@@ -323,9 +324,6 @@ def test_unported_query_features_raise(engines):
             {"start": str(T0), "queries": [{"aggregator": "sum",
                                             "metric": "m"}],
              "delete": True},
-            {"start": str(T0), "queries": [{"aggregator": "sum",
-                                            "metric": "m",
-                                            "percentiles": [99.0]}]},
             {"start": str(T0), "queries": [{"aggregator": "sum",
                                             "tsuids": ["000001"]}]}):
         with pytest.raises(NotImplementedError):

@@ -10,16 +10,18 @@ on the CPU.
   unflushed WAL tail, the log closed without a flush) opens in the
   other, with the points equal bit for bit and each package's answer
   equal to the one it gives on its own directory.
-- The snapshot's refusals: rollup tiers, histograms, annotations, meta
-  or trees with an entry raise, naming the ROADMAP item; the empty
-  files the reference writes load.
+- The snapshot's refusals: rollup tiers, annotations, meta or trees
+  with an entry raise, naming the ROADMAP item; the empty files the
+  reference writes load (histograms load:
+  ``tests/test_torch_histogram.py``).
 - Flush and shutdown: the flush retry policy, a flush without a
   data_dir, shutdown's flush.
-- The atomic swap: a save crashed after each of its steps (each staged
-  file, the commit marker, each rename, the marker's removal) leaves a
-  directory from which a reopened TSDB reads back every acknowledged
-  point, each in its own series; a series index whose runs do not fit
-  the point columns, with no marker, is refused by name.
+- The atomic swap of the five files: a save crashed after each of its
+  steps (each staged file, the commit marker, each rename, the marker's
+  removal) leaves a directory from which a reopened TSDB reads back
+  every acknowledged point and histogram point, each in its own series;
+  a series index whose runs do not fit the point columns, with no
+  marker, is refused by name.
 """
 
 import json
@@ -30,6 +32,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from test_torch_histogram import blob, hist_state
 from test_torch_wal import (T0, answers, assert_same_series, jtsdb, ptsdb,
                             same_bits, segments, series_of, write_all)
 
@@ -105,12 +108,6 @@ def _refused(d: Path, name: str):
         return "rollups"
     rest = "the rest, with no device compute"
     docs = {
-        "histograms-v2": ("histograms.json", {"v": 2, "series": {
-            "0": {"metric": 1, "tags": []}}, "arenas": []},
-            "histograms and percentile sub-queries"),
-        "histograms-v1": ("histograms.json", [{"metric": 1, "tags": [],
-                                               "points": []}],
-                          "histograms and percentile sub-queries"),
         "annotations": ("annotations.json", [{"tsuid": "",
                                               "startTime": T0}], rest),
         "meta": ("meta.json", {"ts_counters": {"00": 1}, "uid_meta": [],
@@ -121,8 +118,7 @@ def _refused(d: Path, name: str):
     return item
 
 
-@pytest.mark.parametrize("name", ["rollup", "histograms-v2",
-                                  "histograms-v1", "annotations", "meta",
+@pytest.mark.parametrize("name", ["rollup", "annotations", "meta",
                                   "trees"])
 def test_snapshot_refuses_unported_entries(tmp_path, name):
     t = ptsdb(tmp_path)
@@ -220,6 +216,8 @@ def _run1(t, phase):
     for h in hosts:
         t.add_points("m", T0 + 60 * np.arange(10), np.arange(10.0) + ord(h),
                      {"host": h})
+        t.add_histogram_point("hm", T0, blob(np.arange(8) + ord(h)),
+                              {"host": h})
 
 
 def _run2(t, phase):
@@ -227,16 +225,20 @@ def _run2(t, phase):
         for h in ("a", "b"):
             t.add_points("m", T0 + 60 * np.arange(10),
                          np.arange(10.0) + ord(h), {"host": h})
+        t.add_histogram_batch([("hm", T0 + 60 * k, blob(np.arange(8) + k),
+                                {"host": "a"}) for k in range(3)])
     else:
         t.add_points("m", T0 + 60 * np.arange(10, 15),
                      np.arange(10.0, 15.0) + 100, {"host": "a"})
+        t.add_histogram_point("hm", T0 + 600, blob(np.arange(8) * 3),
+                              {"host": "a"})
 
 
 RUNS = {"run1": _run1, "run2": _run2}
-# each step of a save: the four staged files, the marker staged, the
+# each step of a save: the five staged files, the marker staged, the
 # marker in place, each rename, the marker removed (the WAL untruncated)
-CRASH_POINTS = ([f"stage:{k}" for k in range(1, 6)] + ["marker"]
-                + [f"rename:{k}" for k in range(1, 5)] + ["saved"])
+CRASH_POINTS = ([f"stage:{k}" for k in range(1, 7)] + ["marker"]
+                + [f"rename:{k}" for k in range(1, 6)] + ["saved"])
 
 
 def _crash_at(monkeypatch, t, point):
@@ -282,7 +284,7 @@ def test_crashed_save_reads_every_point_back(tmp_path, monkeypatch, run,
     staged = [p.name for p in (tmp_path / "d").rglob("*.staged")]
     marker = (tmp_path / "d" / persist.MARKER).exists()
     assert marker == (point.startswith("rename") or point == "marker")
-    assert bool(staged) == (point not in ("rename:4", "saved"))
+    assert bool(staged) == (point not in ("rename:5", "saved"))
     want = ptsdb(tmp_path / "w")
     write(want, 0)
     write(want, 1)
@@ -290,10 +292,13 @@ def test_crashed_save_reads_every_point_back(tmp_path, monkeypatch, run,
     assert not list((tmp_path / "d").rglob("*.staged"))
     assert not (tmp_path / "d" / persist.MARKER).exists()
     assert_same_series(series_of(got), series_of(want))
+    assert hist_state(got) == hist_state(want) != {}
     # the settled directory is a whole snapshot again, which the
     # reference opens
     got.shutdown()
-    assert_same_series(series_of(jtsdb(tmp_path / "d")), series_of(want))
+    ref = jtsdb(tmp_path / "d")
+    assert_same_series(series_of(ref), series_of(want))
+    assert hist_state(ref) == hist_state(want)
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

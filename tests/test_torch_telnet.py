@@ -133,7 +133,7 @@ def test_commands(pair):
     assert isinstance(exc, TelnetCloseConnection) and len(resp) == 1
 
 
-@pytest.mark.parametrize("cmd", ["rollup", "histogram"])
+@pytest.mark.parametrize("cmd", ["rollup"])
 def test_unported_commands(pair, cmd):
     _, tt = pair
     line = TelnetRouter(tt).execute(f"{cmd} 1m:sum m {T0} 1 host=a")

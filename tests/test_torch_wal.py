@@ -10,12 +10,12 @@ against the JAX package's (``opentsdb_tpu/core/wal.py``), on the CPU.
   replays in the other; the stores' points are equal bit for bit and
   each package answers a query on the other's directory with the bits
   it gives on its own.
-- The cases of ``tests/test_wal.py`` that need no histogram, rollup or
-  annotation, and every case of ``tests/test_wal_torn_tail.py``, on the
-  port.
+- The cases of ``tests/test_wal.py`` that need no rollup or annotation,
+  and every case of ``tests/test_wal_torn_tail.py``, on the port
+  (histogram records: ``tests/test_torch_histogram.py``).
 - Refusals: a log holding a record of a subsystem the port lacks
-  (histograms, annotations, rollup stores) raises, naming the ROADMAP
-  item; the memory store with a data_dir raises.
+  (annotations, rollup stores) raises, naming the ROADMAP item; the
+  memory store with a data_dir raises.
 """
 
 import os
@@ -463,9 +463,7 @@ def test_log_stays_appendable_after_repair(tmp_path):
 def _reference_record(w, kind: str) -> None:
     """One record of a subsystem the port lacks, written by the JAX
     package's WAL."""
-    if kind == "histogram":
-        w.log_histogram("hm", {"h": "a"}, T0 * 1000, b"\x00\x01")
-    elif kind == "annotation":
+    if kind == "annotation":
         w.log_annotation({"tsuid": "", "startTime": T0,
                           "description": "deploy"})
     elif kind == "annotation-delete":
@@ -476,7 +474,6 @@ def _reference_record(w, kind: str) -> None:
 
 
 @pytest.mark.parametrize("kind,item", [
-    ("histogram", "histograms and percentile sub-queries"),
     ("annotation", "the rest, with no device compute"),
     ("annotation-delete", "the rest, with no device compute"),
     ("preagg", "rollups"),
