@@ -145,15 +145,41 @@
    line to the TSD server with the WAL on, Q1 by HTTP equal to
    ``execute_query`` and the reference, the same bits after a restart
    from the WAL alone and from the snapshot;
-13. prints the run's wall time, the ``histogram`` line, one JSON line
-   describing each kernel (its launches are those of phases 3, 5, 8, 6,
-   9 and 10; phases 11 and 12 launch neither), the card line and, last,
-   ``{"ok": true, "device": {...}}``. Each phase's header says how far
-   into the run it starts.
+13. rollups, BASELINE config 5 (``bench_e2e.py:287-337``), on a fresh
+   TSDB on the native store with ``tsd.rollups.enable`` (tiers 1m and
+   1h) at the default keys but the result cache: (a) 100k series of
+   ``sys.cpu.user`` (config 3's tags) x 3600 points a second apart,
+   ``normal(100, 15)`` from seed 5, by ``add_series_points`` and
+   ``append_grid``; ``run_rollup_job`` over the hour by the storage
+   route (the default) and then, on fresh tiers, with
+   ``tsd.rollups.job.device=true`` (seconds, raw points/s, points
+   written per tier, the device calls; with ``--profile`` the device
+   route's idle share); the two routes' tiers equal (1h sums within
+   1e-12) and a 1-in-100 sample equal to numpy float64; (b) on the
+   storage route's tiers, ``sum:5m-avg:rate{dc=*}`` (the avg path),
+   ``sum:5m-sum:rate`` by ``dc`` and ``rack`` with ``grid_reduce=false``
+   and ``device_cache_mb=0`` (K1 and K2 on the 1m sum tier, each also
+   held to its plain version), ``max:1h-max{rack=*}`` and
+   ``sum:5m-count{dc=*}``: two cold calls and the warm p50 of 5, the
+   same bits on every call, the stages of one cold call, the tier
+   points read, each answer held to the same query with
+   ``ROLLUP_RAW``, to the port on the CPU in float64 and to numpy
+   float64 (maxes and counts exactly the raw answer); the job's tile,
+   the coarsen and the avg divide timed by CUDA events beside a bound
+   and a plain read, printed on the ``rollup`` line; (c) tier and
+   pre-aggregate points by ``/api/rollup`` and one telnet ``rollup``
+   line to the TSD server with the WAL on (points/s), read back
+   exactly, and the same after a restart from the WAL alone and from
+   the snapshot;
+14. prints the run's wall time, the ``histogram`` and ``rollup`` lines,
+   one JSON line describing each kernel (its launches are those of
+   phases 3, 5, 8, 6, 9, 10 and 13; phases 11 and 12 launch neither),
+   the card line and, last, ``{"ok": true, "device": {...}}``. Each
+   phase's header says how far into the run it starts.
 
-Phases 3-8 and 11 run on the default store, the native one. Phases
-3-5, 7, 9 and 11 run with the result cache off, so that every call
-reaches the path it measures.
+Phases 3-8, 11 and 13 run on the default store, the native one. Phases
+3-5, 7, 9, 11, 12 and 13 run with the result cache off, so that every
+call reaches the path it measures.
 
 Any failure exits non-zero without the last line. Without a CUDA card,
 or outside a checkout of the repository, it exits 2.
@@ -311,7 +337,7 @@ def device_share(torch, fn, label: str) -> None:
     print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / wall_us:.4f}; top device ops: " + ", ".join(
-              f"{e.key} {e.self_device_time_total / 1e3:.3f} ms"
+              f"{e.key[:72]} {e.self_device_time_total / 1e3:.3f} ms"
               for e in top))
 
 
@@ -2546,6 +2572,598 @@ def hist_front_end(counts, bounds, prefix: bytes, tags, keys: dict) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+ROLLUP_SERIES = 100_000    # phase 13: BASELINE config 5's series
+ROLLUP_POINTS = 3600       # phase 13: one hour at one point a second
+ROLLUP_CHUNK = 2_000       # phase 13: series per ingest call
+ROLLUP_SAMPLE = 100        # phase 13 (a): 1 in 100 series held to numpy
+ROLLUP_FE_HOSTS = 100      # phase 13 (c): hosts of the /api/rollup points
+ROLLUP_FE_MINUTES = 45     # (c): 1m sum and count cells per host
+ROLLUP_FE_HOURS = 10       # (c): 1h max cells per host
+ROLLUP_FE_PREAGG = 1_000   # (c): pre-aggregates by /api/rollup
+ROLLUP_FE_BODY = 1_000     # (c): points per /api/rollup body
+ROLLUP_FE_METRIC = "rollup.fe"
+# phase 13 (b): the point path with nothing cached, for the kernels
+POINT_KEYS = {"tsd.query.grid_reduce": "false",
+              "tsd.query.device_cache_mb": "0"}
+# phase 13 (b): (query, keys beyond the defaults, the kernel it launches)
+ROLLUP_QUERIES = (
+    ("sum:5m-avg:rate:sys.cpu.user{dc=*}", {}, None),
+    ("sum:5m-sum:rate:sys.cpu.user{dc=*}", POINT_KEYS, "span_reduce"),
+    ("sum:5m-sum:rate:sys.cpu.user{rack=*}", POINT_KEYS, "onehot_reduce"),
+    ("max:1h-max:sys.cpu.user{rack=*}", {}, None),
+    ("sum:5m-count:sys.cpu.user{dc=*}", {}, None))
+
+
+def rollup_query(m: str, usage: str | None = None,
+                 hours: int = 1):
+    """The TSQuery of ``m`` over phase 13's hour (or ``hours`` from
+    it), with a rollupUsage."""
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    sub = parse_uri_subquery(m)
+    if usage:
+        sub.rollup_usage = usage
+    return TSQuery(start=str(T0), end=str(T0 + 3600 * hours - 1),
+                   queries=[sub]).validate()
+
+
+def preagg_points(tsdb) -> dict:
+    """The preagg store's points by tag names: (timestamps, values)."""
+    store = tsdb.rollup_store.preagg_store()
+    out = {}
+    for mid in store.metric_ids():
+        for sid in store.series_ids_for_metric(mid):
+            tags = tuple(sorted((tsdb.uids.tag_names.get_name(k),
+                                 tsdb.uids.tag_values.get_name(v))
+                                for k, v in store.series(int(sid)).tags))
+            b = store.materialize([int(sid)], 0, 2 ** 62)
+            out[tags] = (b.ts_ms.tolist(), b.values.tolist())
+    return out
+
+
+def counting(mod, name: str, calls: dict):
+    """Wrap ``mod.name`` so that each call on a CUDA tensor adds one to
+    ``calls[name]``; returns the function to put back."""
+    real = getattr(mod, name)
+
+    def wrapped(*args, **kw):
+        if args[0].is_cuda:
+            calls[name] = calls.get(name, 0) + 1
+        return real(*args, **kw)
+
+    setattr(mod, name, wrapped)
+    return real
+
+
+def rollup_reference(m1: dict, n: int) -> dict:
+    """Each of ROLLUP_QUERIES over the float64 per-minute statistics of
+    the raw points (``m1``, [S, 60] each): ``{m: (tag key, tag value
+    prefix, [G, B'] answer, [G, B'] sum|terms|)}``."""
+    import numpy as np
+    s5 = m1["sum"].reshape(n, 12, 5).sum(axis=2)
+    out = {}
+    for m, _, _ in ROLLUP_QUERIES:
+        key, prefix, mod = ("dc", "dc", 100) if "{dc=*}" in m \
+            else ("rack", "r", 2000)
+        gid = np.arange(n) % mod
+        g = min(n, mod)
+
+        def grouped(x):
+            return np.stack([np.bincount(gid, x[:, j], minlength=g)
+                             for j in range(x.shape[1])], axis=1)
+
+        if ":rate:" in m:
+            x = s5 / 300.0 if "5m-avg" in m else s5
+            want = grouped(np.diff(x, axis=1) / 300.0)
+            terms = grouped((np.abs(x[:, 1:]) + np.abs(x[:, :-1])) / 300.0)
+        elif "1h-max" in m:
+            want = np.full((g, 1), -np.inf)
+            np.maximum.at(want[:, 0], gid, m1["max"].max(axis=1))
+            terms = np.abs(want)
+        else:
+            want = grouped(np.full((n, 12), 300.0))
+            terms = want
+        out[m] = (key, prefix, want, terms)
+    return out
+
+
+def rows_by_group(rows, key: str, prefix: str, g: int):
+    """A tier answer's rows as a [G, B'] float64 array, row i the group
+    whose tag value ends in i, and the rows' timestamps."""
+    import numpy as np
+    idx = [int(r.tags[key][len(prefix):]) for r in rows]
+    check(sorted(idx) == list(range(g)),
+          f"{len(idx)} groups in the answer, not {g}")
+    vals = np.empty((g, len(rows[0].dps_arrays[1])))
+    for i, r in zip(idx, rows):
+        check(len(r.dps_arrays[1]) == vals.shape[1], "ragged answer")
+        vals[i] = r.dps_arrays[1]
+    check(bool(np.isfinite(vals).all()), "non-finite results")
+    return vals, [r.dps_arrays[0].tolist() for r in rows]
+
+
+def tier_kernel_vs_plain(torch, tsdb, store, m: str) -> tuple[str, float]:
+    """The query's batch over the tier ``store`` through its kernel and
+    the plain version on the card (phase 3's check)."""
+    from opentsdb_tpu_torch.ops import downsample as ds_mod
+    from opentsdb_tpu_torch.ops import fused, pipeline
+    from opentsdb_tpu_torch.ops.pipeline import PipelineSpec
+    tq = rollup_query(m)
+    sub = tq.queries[0]
+    eng = tsdb.new_query()
+    mid = tsdb.uids.metrics.get_id(METRIC)
+    sel, tag_mat = eng._apply_filters(
+        mid, sub, store.series_ids_for_metric(mid), store)
+    gb = [tsdb.uids.tag_names.get_id(f.tagk) for f in sub.filters
+          if f.group_by]
+    gids, g = eng._group_ids(tag_mat, gb)
+    padded = store.materialize_padded(sel, tq.start_ms, tq.end_ms)
+    bidx, bts = ds_mod.assign_buckets_padded(
+        padded.ts2d, padded.counts, sub.ds_spec, tq.start_ms, tq.end_ms)
+    k = pipeline.detect_regular_padded(padded.counts, bidx, len(bts))
+    check(k == 5, f"{m}: the tier's batch is not 5 cells a bucket ({k})")
+    spec = PipelineSpec(num_series=len(sel), num_buckets=len(bts),
+                        num_groups=g, ds_function="sum", agg_name="sum",
+                        rate=True)
+    vals = pipeline.upload(padded.values2d, torch.float32, "cuda")
+    name, err, _ = kernel_vs_plain(fused, spec, vals, bts, gids, k,
+                                   float(2**64 - 1), 0.0, allow_span=True)
+    return name, err
+
+
+def phase_rollups(torch, n_series: int, profile: bool):
+    """Phase 13: BASELINE config 5 (the rollup job) and queries on its
+    tiers. Returns (the kernels' launches, the ``rollup`` line)."""
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.native.store_backend import make_store
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.ops.pipeline import (PipelineSpec,
+                                                 execute_avg_divide)
+    from opentsdb_tpu_torch.query import engine as engine_mod
+    from opentsdb_tpu_torch.rollup import job as rjob
+    from opentsdb_tpu_torch.rollup.store import RollupStore
+    t_phase = time.perf_counter()
+    keys = {"tsd.torch.device": "cuda",
+            "tsd.core.auto_create_metrics": "true",
+            "tsd.rollups.enable": "true",
+            "tsd.query.cache.enable": "false"}
+    tsdb = TSDB(Config(**keys))
+    check(tsdb.store.backend == "native",
+          "phase 13 runs on the default store, the native one")
+    n, p = n_series, ROLLUP_POINTS
+    t0_ms, end_ms = T0 * 1000, T0 * 1000 + p * 1000 - 1
+    ts_ms = t0_ms + 1000 * np.arange(p, dtype=np.int64)
+    tags = [{"host": f"h{i}", "dc": f"dc{i % 100}", "rack": f"r{i % 2000}"}
+            for i in range(n)]
+
+    # (a) data, seed 5, with a float64 per-minute reference (each
+    # minute added in time order) and the sampled series' raw points
+    rng = np.random.default_rng(5)
+    m1 = {k: np.empty((n, p // 60)) for k in ("sum", "min", "max")}
+    sample = np.arange(0, n, ROLLUP_SAMPLE)
+    sample_vals = np.empty((len(sample), p))
+    sids = np.empty(n, dtype=np.int64)
+    mask = np.ones((ROLLUP_CHUNK, p - 1), dtype=bool)
+    gen_s = ingest_s = 0.0
+    for lo in range(0, n, ROLLUP_CHUNK):
+        hi = min(lo + ROLLUP_CHUNK, n)
+        t = time.perf_counter()
+        vals = rng.normal(100.0, 15.0, (hi - lo, p))
+        x = vals.reshape(hi - lo, p // 60, 60)
+        acc = np.zeros((hi - lo, p // 60))
+        for j in range(60):
+            acc += x[:, :, j]
+        m1["sum"][lo:hi], m1["min"][lo:hi], m1["max"][lo:hi] = \
+            acc, x.min(axis=2), x.max(axis=2)
+        at = sample[(sample >= lo) & (sample < hi)]
+        sample_vals[at // ROLLUP_SAMPLE] = vals[at - lo]
+        t1 = time.perf_counter()
+        # the series and their first point by the bulk write, the rest
+        # of the hour by append_grid (bench_e2e.py:300-318)
+        sids[lo:hi] = tsdb.add_series_points(
+            METRIC, tags[lo:hi], np.full((hi - lo, 1), T0, np.int64),
+            vals[:, :1])
+        tsdb.store.append_grid(sids[lo:hi], ts_ms[1:], vals[:, 1:],
+                               mask[:hi - lo])
+        ingest_s += time.perf_counter() - t1
+        gen_s += t1 - t
+    del vals, x
+    n_raw = n * p
+    check(tsdb.store.points_written == n_raw,
+          f"{tsdb.store.points_written} raw points written, not {n_raw}")
+    check(np.array_equal(sids, np.arange(n)), "unexpected raw series ids")
+    print(f"  (a) ingest: {n} series x {p} points ({n_raw:,} raw points, "
+          f"1 h at 1 s, normal(100, 15) seed 5) by add_series_points + "
+          f"append_grid in chunks of {ROLLUP_CHUNK}: {ingest_s:.3f} s "
+          f"({n_raw / ingest_s:,.0f} points/s; drawing the data and the "
+          f"numpy reference {gen_s:.3f} s more)")
+
+    # (a) the job by both routes, on fresh tiers each
+    want_written = {"1m": n * 60 * 4, "1h": n * 4}
+    stores, calls = {}, {}
+    for route, device in (("storage", "false"), ("device", "true")):
+        tsdb.config.override_config("tsd.rollups.job.device", device)
+        tsdb.rollup_store = RollupStore(tsdb.rollup_config,
+                                        lambda: make_store(tsdb.config))
+        reals = [counting(rjob, f, calls)
+                 for f in ("_rollup_tile_dense", "_rollup_tile", "_coarsen")]
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            written = rjob.run_rollup_job(tsdb, t0_ms, end_ms, ["1m", "1h"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        finally:
+            for f, real in zip(("_rollup_tile_dense", "_rollup_tile",
+                                "_coarsen"), reals):
+                setattr(rjob, f, real)
+        check(written == want_written,
+              f"{route} route wrote {written}, not {want_written}")
+        stores[route] = tsdb.rollup_store
+        print(f"  (a) job, {route} route (tsd.rollups.job.device="
+              f"{device}): {secs:.3f} s ({n_raw / secs:,.0f} raw points/s); "
+              f"written {written}; device calls "
+              f"{calls if device == 'true' else {}}")
+        READINGS[f"rollup_job_{route}_s"] = secs
+    check(calls.get("_rollup_tile_dense", 0) > 0
+          and calls.get("_rollup_tile", 0) == 0
+          and calls["_coarsen"] == calls["_rollup_tile_dense"],
+          f"the device route's tiles ran {calls}")
+    if profile:
+        tsdb.rollup_store = RollupStore(tsdb.rollup_config,
+                                        lambda: make_store(tsdb.config))
+        device_share(torch, lambda: rjob.run_rollup_job(
+            tsdb, t0_ms, end_ms, ["1m", "1h"]), "job, device route")
+    tsdb.config.override_config("tsd.rollups.job.device", "false")
+
+    # the routes' tiers: the same series, timestamps, counts, mins and
+    # maxes bit for bit, 1m sums bit for bit (both add in time order),
+    # 1h sums within 1e-12 (numpy's pairwise order on the host)
+    worst = 0.0
+    for (iv, agg), a in stores["storage"].tiers():
+        b = stores["device"].tier(iv, agg)
+        check(a.series_identities() == b.series_identities(),
+              f"{iv}:{agg}: the routes' series differ")
+        ca, ta, va, _ = a.read_all()
+        cb, tb, vb, _ = b.read_all()
+        check(np.array_equal(ca, cb) and np.array_equal(ta, tb),
+              f"{iv}:{agg}: the routes' points differ")
+        if agg == "sum" and iv == "1h":
+            rel = np.abs(va - vb) / np.abs(va)
+            worst = float(rel.max())
+            check(worst <= 1e-12, f"1h sums differ by {worst!r} relative")
+        else:
+            check(np.array_equal(va.view(np.int64), vb.view(np.int64)),
+                  f"{iv}:{agg}: the routes' values differ in their bits")
+    print("  (a) the routes' tiers: the same series, timestamps, counts, "
+          "mins, maxes and 1m sums bit for bit (both add each minute in "
+          f"time order); 1h sums within {worst!r} relative (<= 1e-12)")
+    del stores["device"]
+    tsdb.rollup_store = stores.pop("storage")
+
+    # (a) a 1-in-100 sample against numpy, at the same bounds
+    rs = tsdb.rollup_store
+    for iv, width in (("1m", 60), ("1h", 3600)):
+        x = sample_vals.reshape(len(sample), p // width, width)
+        want = {"count": np.full(x.shape[:2], float(width)),
+                "min": x.min(axis=2), "max": x.max(axis=2)}
+        if iv == "1m":
+            acc = np.zeros(x.shape[:2])
+            for j in range(width):
+                acc += x[:, :, j]
+            want["sum"] = acc
+        else:
+            want["sum"] = x.sum(axis=2)
+        for agg, w in want.items():
+            store = rs.tier(iv, agg)
+            check(all(store.series(int(s)).tags
+                      == tsdb.store.series(int(s)).tags for s in sample[:50]),
+                  f"{iv}:{agg}: tier series out of the raw order")
+            batch = store.materialize(sample, t0_ms, end_ms)
+            got = batch.values.reshape(len(sample), -1)
+            check(np.array_equal(batch.ts_ms.reshape(got.shape)[0],
+                                 t0_ms + width * 1000
+                                 * np.arange(got.shape[1])),
+                  f"{iv}:{agg}: tier timestamps")
+            if agg == "sum" and iv == "1h":
+                check(bool(np.allclose(got, w, rtol=1e-12, atol=0)),
+                      "1h sums differ from numpy")
+            else:
+                check(np.array_equal(got.view(np.int64), w.view(np.int64)),
+                      f"{iv}:{agg}: the tier differs from numpy")
+    print(f"  (a) {len(sample)} sampled series (1 in {ROLLUP_SAMPLE}) "
+          "against numpy float64 of their raw points: 1m sum/count/min/max "
+          "and 1h count/min/max bit for bit, 1h sums within 1e-12")
+
+    # (b) queries on the storage route's tiers
+    cpu = TSDB(Config(**{**keys, "tsd.torch.device": "cpu",
+                         "tsd.torch.dtype": "float64"}))
+    # the port on the CPU in float64 over the same UIDs and stores
+    cpu.uids, cpu.store = tsdb.uids, tsdb.store
+    cpu.rollup_config, cpu.rollup_store = tsdb.rollup_config, rs
+    refs = rollup_reference(m1, n)
+    launches = {"span_reduce": 0, "onehot_reduce": 0}
+    div_calls = {}
+    real_div = counting(engine_mod, "execute_avg_divide", div_calls)
+    readings = {}
+    try:
+        for m, extra, kname in ROLLUP_QUERIES:
+            key, prefix, want, terms = refs[m]
+            g = want.shape[0]
+            tq = rollup_query(m)
+            for k_, v_ in extra.items():
+                tsdb.config.override_config(k_, v_)
+            reset_launches(fused)
+            colds, bits = [], []
+            for _ in range(2):
+                tsdb.drop_caches()
+                (rows,), secs = timed(lambda: [tsdb.execute_query(tq)], 1)
+                colds.append(secs[0])
+                bits.append(rows)
+            warm_rows, warm_s = timed(lambda: tsdb.execute_query(tq),
+                                      REPEATS)
+            n_l = read_launches(fused)
+            tsdb.drop_caches()
+            _, st_secs, st = _stats_run(tsdb, tq)
+            for k_ in extra:
+                tsdb.config.override_config(k_, Config().get_string(k_))
+            read_pts = int(st.get("dpsPostFilter", 0))
+            if kname is None:
+                check(not any(n_l.values()), f"{m}: a kernel launched {n_l}")
+            else:
+                other = next(k for k in n_l if k != kname)
+                check(n_l[kname] == 2 + REPEATS and n_l[other] == 0,
+                      f"{m}: launches {n_l}")
+                for k_, v_ in n_l.items():
+                    launches[k_] += v_
+            check(same_bits(bits[0], bits[1])
+                  and same_bits(bits[0], warm_rows),
+                  f"{m}: the calls differ in their bits")
+            got, ts_got = rows_by_group(bits[0], key, prefix, g)
+            check(got.shape == want.shape, f"{m}: shape {got.shape}")
+            tier_pts = n * (120 if "5m-avg" in m else 60)
+            if "1h-max" in m:
+                tier_pts = n
+            check(read_pts == tier_pts,
+                  f"{m}: read {read_pts} points, not the tier's {tier_pts}")
+            # the same query over the raw points, and the CPU float64 port
+            raw_rows = tsdb.execute_query(rollup_query(m, "ROLLUP_RAW"))
+            raw, ts_raw = rows_by_group(raw_rows, key, prefix, g)
+            cpu64, ts_cpu = rows_by_group(cpu.execute_query(tq), key,
+                                          prefix, g)
+            check(ts_got == ts_raw == ts_cpu, f"{m}: timestamps differ")
+            errs = {}
+            for name, other_v in (("raw", raw), ("cpu64", cpu64),
+                                  ("numpy", want)):
+                errs[name] = compare(torch.as_tensor(got),
+                                     torch.as_tensor(other_v),
+                                     torch.as_tensor(terms))
+            if ":rate:" not in m:
+                # maxes and counts: exactly the raw answer
+                check(np.array_equal(got, raw), f"{m}: differs from raw")
+            if "5m-count" in m:
+                check(bool((got == 300.0 * (n // 100)).all()),
+                      f"{m}: a cell is not 300 x the group's series")
+            readings[m] = {"cold_ms": [c * 1e3 for c in colds],
+                           "warm_p50_ms": p50(warm_s) * 1e3}
+            keys_said = (" (grid_reduce=false, device_cache_mb=0)"
+                         if extra else "")
+            print(f"  (b) {m}{keys_said}: cold "
+                  + " / ".join(f"{c * 1e3:.3f}" for c in colds)
+                  + f" ms, warm p50 {p50(warm_s) * 1e3:.3f} ms over "
+                  f"{REPEATS}; read {read_pts:,} tier points; launches "
+                  f"{n_l}; max |got - want| against ROLLUP_RAW "
+                  f"{errs['raw']!r}, the CPU float64 port "
+                  f"{errs['cpu64']!r}, numpy float64 {errs['numpy']!r}; "
+                  "two cold calls and the warm calls the same bits")
+            print(f"  (b) {m} stages of one cold call (ms): "
+                  + _stage_line([st_secs], [st]))
+            if profile:
+                tsdb.drop_caches()
+                device_share(torch, lambda: tsdb.execute_query(tq),
+                             f"{m} cold")
+    finally:
+        setattr(engine_mod, "execute_avg_divide", real_div)
+    check(div_calls.get("execute_avg_divide", 0) > 0,
+          "the avg path never divided on the device")
+    for m, _, kname in ROLLUP_QUERIES:
+        if kname is not None:
+            name, err = tier_kernel_vs_plain(torch, tsdb, rs.tier("1m", "sum"),
+                                             m)
+            check(name == kname, f"{m}: {name} ran, not {kname}")
+            print(f"  (b) {m}: {kname} against its plain version on the "
+                  f"1m sum tier's batch, max |k - p| {err!r}")
+
+    # (b) the device functions by CUDA events, at the phase's shapes
+    rate = next(r for key_, r in _MEM_RATE
+                if key_ in torch.cuda.get_device_name(0))
+    # a tile of the job's shape: its chunk of series (a 6 h window at
+    # one point a second) x the hour's points
+    rows_t = min(n, rjob._TILE_CELL_BUDGET // (360 * 60))
+    tile_in = torch.from_numpy(np.random.default_rng(6).normal(
+        100.0, 15.0, (rows_t, p))).cuda()
+    grids = rjob._rollup_tile_dense(tile_in, 60, 60)
+    tile_ms = cuda_ms(lambda: rjob._rollup_tile_dense(tile_in, 60, 60), 10)
+    coarse_ms = cuda_ms(lambda: rjob._coarsen(grids, 0, 60, 1), 10)
+    tile_read = cuda_ms(lambda: tile_in.sum(), 10)
+    grid_read = cuda_ms(lambda: grids.sum(), 10)
+    tile_bytes = tile_in.numel() * 8 + grids.numel() * 8
+    tile_ops = tile_in.numel() * 6
+    coarse_bytes = grids.numel() * 8 + grids.numel() // 60 * 8
+    coarse_ops = grids.numel() * 3
+    tsdb.drop_caches()
+    tsdb.execute_query(rollup_query(ROLLUP_QUERIES[0][0]))
+    gs, gc = next(e for k_, e in tsdb.device_grid_cache._entries.items()
+                  if k_[0] == "avgdiv")[1]
+    s_, b_ = gs.shape
+    gids = np.arange(s_, dtype=np.int32) % 100
+    bts = t0_ms + 300_000 * np.arange(b_, dtype=np.int64)
+    spec = PipelineSpec(num_series=s_, num_buckets=b_, num_groups=100,
+                        ds_function="avg", agg_name="sum", rate=True)
+    div_ms = cuda_ms(lambda: execute_avg_divide(gs, gc, bts, gids, spec),
+                     10)
+    div_read = cuda_ms(lambda: (gs.sum(), gc.sum()), 10)
+    div_bytes = 2 * gs.numel() * gs.element_size() + s_ * 4 + 100 * b_ * 5
+    div_ops = gs.numel() * 8
+    line = []
+    for name, replaces, calls_n, ms, nbytes, ops, read, peak, shape in (
+            ("_rollup_tile_dense", "opentsdb_tpu/rollup/job.py:56 (XLA)",
+             calls.get("_rollup_tile_dense", 0), tile_ms, tile_bytes,
+             tile_ops, tile_read, F64_PEAK, [rows_t, p]),
+            ("_coarsen", "opentsdb_tpu/rollup/job.py:79 (XLA)",
+             calls.get("_coarsen", 0), coarse_ms, coarse_bytes, coarse_ops,
+             grid_read, F64_PEAK, list(grids.shape)),
+            ("execute_avg_divide",
+             "opentsdb_tpu/ops/pipeline.py:358 (XLA)",
+             div_calls.get("execute_avg_divide", 0), div_ms, div_bytes,
+             div_ops, div_read, F32_PEAK, [s_, b_])):
+        bound = max(nbytes / rate, ops / peak) * 1e3
+        line.append({"name": name, "route": "torch",
+                     "source": "opentsdb_tpu_torch/" + (
+                         "ops/pipeline.py" if "divide" in name
+                         else "rollup/job.py"),
+                     "replaces": replaces, "calls": calls_n, "ms": ms,
+                     "bound_ms": bound,
+                     "bound_by": "bytes" if nbytes / rate >= ops / peak
+                     else "operations", "plain_read_ms": read,
+                     "shape": shape})
+        print(f"  (b) {name} {shape}: {ms:.4f} ms (bound {bound:.4f} ms, "
+              f"{nbytes} bytes at {rate / 1e12:.2f} TB/s), plain read "
+              f"{read:.4f} ms (CUDA events, 10 calls); {calls_n} calls "
+              "on the phase's path")
+    del gs, gc, grids, tile_in
+    cpu.shutdown()
+    tsdb.shutdown()
+    del tsdb, cpu, rs
+
+    # (c) writes by /api/rollup and telnet, then restarts
+    rollup_front_end(keys)
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return launches, {"functions": line, **readings}
+
+
+def rollup_front_end(keys: dict) -> None:
+    """(c): tier and pre-aggregate points by ``/api/rollup`` and one
+    telnet ``rollup`` line to the TSD server with the WAL on; read back
+    by HTTP queries and the preagg store, exactly; the same bits after
+    a restart from the WAL alone and from the snapshot."""
+    import http.client
+    import shutil
+    import socket
+    import tempfile
+    import urllib.parse
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.tsd.json_serializer import HttpJsonSerializer
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+    root = Path(tempfile.mkdtemp(prefix="tsd-rollups-"))
+    d, crashed = root / "d", root / "wal-only"
+    dkeys = {**keys, "tsd.storage.data_dir": str(d),
+             "tsd.storage.wal.fsync": "always"}
+    hosts, mins, hours = ROLLUP_FE_HOSTS, ROLLUP_FE_MINUTES, ROLLUP_FE_HOURS
+    mf = ROLLUP_FE_METRIC
+
+    def tier_dp(i, ts, value, interval, agg):
+        return {"metric": mf, "timestamp": ts, "value": value,
+                "tags": {"host": f"fe{i}", "dc": f"dc{i % 10}"},
+                "interval": interval, "aggregator": agg}
+
+    dps = ([tier_dp(i, T0 + 60 * j, i * 1000 + j, "1m", "sum")
+            for i in range(hosts) for j in range(mins)]
+           + [tier_dp(i, T0 + 60 * j, 60, "1m", "count")
+              for i in range(hosts) for j in range(mins)]
+           + [tier_dp(i, T0 + 3600 * h, i * 100 + h, "1h", "max")
+              for i in range(hosts) for h in range(hours)])
+    pre = [{"metric": mf, "timestamp": T0 + 60 * (k // 10), "value": k,
+            "tags": {"dc": f"dc{k % 10}"}, "groupByAggregator": "sum"}
+           for k in range(ROLLUP_FE_PREAGG)]
+    line = (f"rollup 1m:sum {mf} {T0 + 60 * mins} 7 host=fe0 dc=dc0\n"
+            ).encode()
+    queries = {m: rollup_query(m) for m in (
+        f"sum:1m-sum:{mf}{{host=*}}", f"sum:1m-count:{mf}{{dc=*}}")}
+    queries[f"max:1h-max:{mf}{{host=*}}"] = rollup_query(
+        f"max:1h-max:{mf}{{host=*}}", hours=hours)
+    tsdb = TSDB(Config(**dkeys))
+    st = ServerThread(tsdb, host="127.0.0.1", port=0).start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", st.port, timeout=600)
+        body_pts = dps + pre
+        t = time.perf_counter()
+        for lo in range(0, len(body_pts), ROLLUP_FE_BODY):
+            chunk = body_pts[lo:lo + ROLLUP_FE_BODY]
+            status, body, _ = _http(conn, "POST", "/api/rollup?summary",
+                                    json.dumps(chunk).encode())
+            check(status == 200 and json.loads(body) == {
+                "success": len(chunk), "failed": 0},
+                f"/api/rollup: HTTP {status}: {body[:300]!r}")
+        put_s = time.perf_counter() - t
+        with socket.create_connection(("127.0.0.1", st.port), 600) as sk:
+            sk.sendall(line + b"version\nexit\n")
+            out = b""
+            while chunk_b := sk.recv(65536):
+                out += chunk_b
+        check(out.decode().startswith("opentsdb_tpu_torch version")
+              and out.count(b"\n") == 1,
+              f"telnet answered more than the version: {out[:300]!r}")
+        ser = HttpJsonSerializer.for_tsdb(tsdb)
+        base = {}
+        for m, q in queries.items():
+            status, body, http_s = _http(
+                conn, "GET", "/api/query?" + urllib.parse.urlencode({
+                    "start": q.start, "end": q.end, "m": m}))
+            check(status == 200, f"/api/query: HTTP {status}: {body[:300]!r}")
+            rows = tsdb.execute_query(q)
+            check(json.loads(body) == json.loads(ser.format_query(q, rows)),
+                  f"{m}: the HTTP answer differs from execute_query's")
+            base[m] = rows
+        # exactly what was written
+        sums = {r.tags["host"]: r.dps_arrays[1].tolist()
+                for r in base[f"sum:1m-sum:{mf}{{host=*}}"]}
+        check(sums == {f"fe{i}": [i * 1000 + j for j in range(mins)]
+                       + ([7] if i == 0 else []) for i in range(hosts)},
+              "the 1m sums read back differ from those written")
+        for r in base[f"sum:1m-count:{mf}{{dc=*}}"]:
+            check(r.dps_arrays[1].tolist() == [600.0] * mins,
+                  f"1m counts read back {r.dps_arrays[1][:5]}")
+        maxes = {r.tags["host"]: r.dps_arrays[1].tolist()
+                 for r in base[f"max:1h-max:{mf}{{host=*}}"]}
+        check(maxes == {f"fe{i}": [i * 100 + h for h in range(hours)]
+                        for i in range(hosts)},
+              "the 1h maxes read back differ from those written")
+        pre_want = preagg_points(tsdb)
+        check(pre_want == {
+            (("_aggregate", "SUM"), ("dc", f"dc{d}")): (
+                [(T0 + 60 * j) * 1000 for j in range(ROLLUP_FE_PREAGG // 10)],
+                [float(10 * j + d) for j in range(ROLLUP_FE_PREAGG // 10)])
+            for d in range(10)}, "the preagg store holds other points")
+        shutil.copytree(d, crashed)
+        conn.close()
+    finally:
+        st.stop()
+    print(f"  (c) {len(dps)} tier points (1m sum and count, 1h max) and "
+          f"{len(pre)} pre-aggregates by /api/rollup in bodies of "
+          f"{ROLLUP_FE_BODY} with the WAL (fsync=always): {put_s:.3f} s "
+          f"({len(body_pts) / put_s:,.0f} points/s), and one telnet rollup "
+          "line; the HTTP answers equal to execute_query's and to what "
+          "was written")
+    for label, path in (("the WAL alone", crashed), ("the snapshot", d)):
+        t = time.perf_counter()
+        r = TSDB(Config(**{**dkeys, "tsd.storage.data_dir": str(path)}))
+        load_s = time.perf_counter() - t
+        snap = (path / "rollup-1m-sum").is_dir()
+        check(snap == (path == d), f"{label}: rollup-1m-sum/ {snap}")
+        for m, q in queries.items():
+            check(same_bits(r.execute_query(q), base[m]),
+                  f"{m}: the restart from {label} answers other bits")
+        check(preagg_points(r) == pre_want,
+              f"the preagg store after the restart from {label}")
+        print(f"  (c) restart from {label}: {load_s:.3f} s (load "
+              f"{r.recovery['load_s']:.3f}, replay "
+              f"{r.recovery['replay_s']:.3f} s), the same bits")
+        r.shutdown()
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def p50(xs) -> float:
     return statistics.median(xs)
 
@@ -2851,6 +3469,14 @@ def main() -> int:
            f"{HIST_POINTS} point (depth CUT from 2) x {HIST_BUCKETS} "
            "buckets" + ("" if s == 1_000_000 else " (CUT from 1,000,000)"))
     hist = phase_histograms(torch, s, args.profile)
+    rn = min(ROLLUP_SERIES, s)
+    header(f"phase 13: rollups, BASELINE config 5, {rn} series x "
+           f"{ROLLUP_POINTS} points at 1 s"
+           + ("" if rn == ROLLUP_SERIES else " (CUT from 100,000)")
+           + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    rollup_launches, rollup = phase_rollups(torch, rn, args.profile)
+    for kname, n in rollup_launches.items():
+        launches[kname] += n
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),
@@ -2874,6 +3500,7 @@ def main() -> int:
             "plain_read_ms": read_ms})
     print(f"run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"histogram": hist}))
+    print(json.dumps({"rollup": rollup}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

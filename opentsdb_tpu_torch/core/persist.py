@@ -7,14 +7,19 @@ run of points), the point columns (``data/points.npz``: ``ts`` int64
 ms, ``vals`` float64 and ``ints`` bool, the per-point integer flag),
 the histogram points (``histograms.json``: each histogram series'
 identity and each arena's columns, base64, format v2; the v1 format of
-one blob per point loads too), and last ``META.json`` with
-``wal_applied_seq``, the WAL sequence the snapshot covers.
+one blob per point loads too), with rollups on each rollup store in a
+directory of its own laid out as ``data/`` (``rollup-<interval>-<agg>/``
+per tier, ``rollup-preagg/``), and last ``META.json`` with
+``wal_applied_seq``, the WAL sequence the snapshot covers. A tier the
+rollup config no longer holds is skipped at load, and with rollups off
+the ``rollup-*`` directories are left unread and in place, as the
+reference leaves them.
 :func:`save_store` runs on ``TSDB.flush`` and ``TSDB.shutdown``,
 :func:`load_store` when a TSDB starts; the WAL then replays what the
 snapshot does not cover. The files are the reference's, byte for byte
 for the same writes, so either package opens the other's directory.
 
-The five files change together or not at all. A save stages each
+The files change together or not at all. A save stages each
 file beside its target (``<name>.staged``), fsyncs them and their
 directories, writes the commit marker ``SNAPSHOT.commit`` (the renames
 and the WAL sequence), renames the staged files into place, fsyncs the
@@ -26,8 +31,8 @@ truncates only after the save). A series index whose runs do not fit
 the point columns, which the reference's in-place ``points.npz``
 write can leave, is refused, never served in part.
 
-The reference's snapshot also holds rollup tiers, annotations, meta and
-trees, which the port has not ported: their files load when they are
+The reference's snapshot also holds annotations, meta and trees, which
+the port has not ported: their files load when they are
 empty (the reference writes them so), and a snapshot with any entry in
 them is refused, naming the ROADMAP Queue 1 item that ports it.
 """
@@ -36,13 +41,16 @@ from __future__ import annotations
 
 import base64
 import json
+import logging
 import os
 import threading
 
 import numpy as np
 
 _FORMAT_VERSION = 1
+ROLLUP_PREFIX = "rollup-"
 
+log = logging.getLogger("persist")
 
 MARKER = "SNAPSHOT.commit"
 STAGED = ".staged"
@@ -50,8 +58,22 @@ STAGED = ".staged"
 _SAVE_LOCK = threading.Lock()
 
 
+def _rollup_dirs(tsdb, data_dir: str) -> list[tuple[str, object]]:
+    """(directory, store) of each rollup store: ``rollup-<interval>-
+    <agg>/`` per tier made so far and ``rollup-preagg/`` (ref:
+    ``save_store``); none with rollups off."""
+    rollups = tsdb.rollup_store
+    if rollups is None:
+        return []
+    out = [(os.path.join(data_dir, f"{ROLLUP_PREFIX}{interval}-{agg}"), st)
+           for (interval, agg), st in rollups.tiers()]
+    out.append((os.path.join(data_dir, f"{ROLLUP_PREFIX}preagg"),
+                rollups.preagg_store()))
+    return out
+
+
 def save_store(tsdb, data_dir: str) -> int:
-    """Write a full snapshot, all five files at once (module docstring).
+    """Write a full snapshot, all its files at once (module docstring).
     Returns the WAL sequence it covers, captured before the scalar
     content, so a concurrent scalar write can only be covered twice
     (replay keeps the last write of a timestamp), never lost. The
@@ -73,20 +95,28 @@ def save_store(tsdb, data_dir: str) -> int:
         meta = {"format": _FORMAT_VERSION,
                 "points_written": tsdb.store.points_written,
                 "wal_applied_seq": wal_seq}
+        files = [(os.path.join(data_dir, "uids.json"),
+                  _bytes_writer(_uids_doc(tsdb.uids))),
+                 (os.path.join(data, "series.json"), _bytes_writer(index)),
+                 (os.path.join(data, "points.npz"), write_points),
+                 (os.path.join(data_dir, "histograms.json"),
+                  _bytes_writer(_histograms_doc(tsdb, hist_cols)))]
+        dirs = [data]
+        for directory, store in _rollup_dirs(tsdb, data_dir):
+            os.makedirs(directory, exist_ok=True)
+            r_index, r_write = _timeseries_payload(store)
+            files += [(os.path.join(directory, "series.json"),
+                       _bytes_writer(r_index)),
+                      (os.path.join(directory, "points.npz"), r_write)]
+            dirs.append(directory)
+        files.append((os.path.join(data_dir, "META.json"),
+                      _bytes_writer(json.dumps(meta).encode())))
         targets = []
-        for path, write in (
-                (os.path.join(data_dir, "uids.json"),
-                 _bytes_writer(_uids_doc(tsdb.uids))),
-                (os.path.join(data, "series.json"), _bytes_writer(index)),
-                (os.path.join(data, "points.npz"), write_points),
-                (os.path.join(data_dir, "histograms.json"),
-                 _bytes_writer(_histograms_doc(tsdb, hist_cols))),
-                (os.path.join(data_dir, "META.json"),
-                 _bytes_writer(json.dumps(meta).encode()))):
+        for path, write in files:
             _stage(path, write)
             targets.append(path)
-        _fsync_dir(data)
-        _fsync_dir(data_dir)
+        for directory in dirs + [data_dir]:
+            _fsync_dir(directory)
         _write_marker(data_dir, targets, wal_seq)
         _finish(data_dir, targets)
     return wal_seq
@@ -109,7 +139,31 @@ def load_store(tsdb, data_dir: str) -> bool:
     _load_uids(tsdb.uids, data_dir)
     _load_timeseries(tsdb.store, os.path.join(data_dir, "data"))
     _load_histograms(tsdb, data_dir)
+    if tsdb.rollup_store is not None:
+        _load_rollups(tsdb.rollup_store, data_dir)
     return True
+
+
+def _load_rollups(rollups, data_dir: str) -> None:
+    """Load each ``rollup-*`` directory into its store (ref:
+    ``load_store``). A tier the config no longer holds is skipped, with
+    a log line, as the reference skips it. With rollups off the caller
+    leaves the directories unread and in place."""
+    for name in sorted(os.listdir(data_dir)):
+        full = os.path.join(data_dir, name)
+        if not (name.startswith(ROLLUP_PREFIX) and os.path.isdir(full)):
+            continue
+        rest = name[len(ROLLUP_PREFIX):]
+        if rest == "preagg":
+            _load_timeseries(rollups.preagg_store(), full)
+            continue
+        interval, _, agg = rest.rpartition("-")
+        try:
+            store = rollups.tier(interval, agg)
+        except ValueError as e:
+            log.warning("snapshot: %s skipped: %s", full, e)
+            continue
+        _load_timeseries(store, full)
 
 
 # -- the atomic swap ---------------------------------------------------------
@@ -170,7 +224,11 @@ def _settle(data_dir: str) -> None:
         doc = _json(marker)
         _finish(data_dir, [os.path.join(data_dir, final)
                            for _, final in doc["renames"]])
-    for directory in (data_dir, os.path.join(data_dir, "data")):
+    rollup_dirs = [os.path.join(data_dir, name) for name in
+                   (os.listdir(data_dir) if os.path.isdir(data_dir) else ())
+                   if name.startswith(ROLLUP_PREFIX)]
+    for directory in [data_dir, os.path.join(data_dir, "data")] + \
+            sorted(rollup_dirs):
         if not os.path.isdir(directory):
             continue
         stray = [name for name in os.listdir(directory)
@@ -190,11 +248,6 @@ def _refuse_unported(data_dir: str) -> None:
     """Raise when the snapshot holds an entry of a subsystem the port
     lacks; the empty files the reference writes pass."""
     held = []
-    for name in sorted(os.listdir(data_dir)):
-        full = os.path.join(data_dir, name, "series.json")
-        if name.startswith("rollup-") and os.path.isfile(full) \
-                and _json(full):
-            held.append((f"rollup store {name}", "rollups"))
     rest = "the rest, with no device compute"
     path = os.path.join(data_dir, "annotations.json")
     if os.path.isfile(path) and _json(path):

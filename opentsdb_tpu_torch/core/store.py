@@ -326,12 +326,36 @@ class TimeSeriesStore:
                              np.asarray(new_rows, dtype=np.int64))
         return out
 
+    def append(self, series_id: int, ts_ms: int, value: float,
+               is_int: bool = False) -> None:
+        self.append_lines([series_id], [ts_ms], [value])
+
     def append_many(self, series_id: int, ts_ms: np.ndarray,
                     values: np.ndarray, is_int=False) -> None:
         """Append many points of one series."""
         ts = np.asarray(ts_ms, dtype=np.int64)
         self.append_lines(np.full(len(ts), series_id, dtype=np.int64),
                           ts, values)
+
+    def append_grid(self, series_ids, bucket_ts, grid, mask) -> int:
+        """Bulk write of one ``[S, B]`` grid: the cells of row i that
+        ``mask`` selects land on ``series_ids[i]`` at ``bucket_ts`` (ref:
+        ``TimeSeriesStore.append_grid``; the rollup job's output
+        path), in one scatter-append."""
+        sids = np.asarray(series_ids, dtype=np.int64)
+        mask = np.asarray(mask, dtype=bool)
+        grid = np.asarray(grid, dtype=np.float64)
+        if grid.shape != (len(sids), len(bucket_ts)) or \
+                mask.shape != grid.shape:
+            raise ValueError("grid and mask must be [len(series_ids), "
+                             "len(bucket_ts)]")
+        if len(sids) and (int(sids.min()) < 0
+                          or int(sids.max()) >= self._num_series):
+            raise IndexError("invalid series id in append_grid")
+        return self.append_lines(
+            np.broadcast_to(sids[:, None], grid.shape)[mask],
+            np.broadcast_to(np.asarray(bucket_ts, dtype=np.int64),
+                            grid.shape)[mask], grid[mask])
 
     def append_lines(self, sids, ts_ms, values, is_int=None) -> int:
         """Columnar scatter-append: element i lands on series
@@ -398,6 +422,11 @@ class TimeSeriesStore:
 
     # -- read path --------------------------------------------------------
 
+    def metric_ids(self) -> list[int]:
+        """Every metric with a series, in the order of its first one."""
+        with self._lock:
+            return list(self._metric_index)
+
     def metric_index(self, metric_id: int) -> MetricIndex | None:
         return self._metric_index.get(metric_id)
 
@@ -407,6 +436,10 @@ class TimeSeriesStore:
         if series_id < 0:
             raise IndexError(f"no series {series_id}")
         return SeriesIdentity(*self._keys[series_id])
+
+    def total_points(self) -> int:
+        offsets, _, _ = self._columns()
+        return int(offsets[-1])
 
     def series_ids_for_metric(self, metric_id: int) -> np.ndarray:
         idx = self._metric_index.get(metric_id)

@@ -50,8 +50,11 @@ from opentsdb_tpu_torch.native.store_backend import (IMPORT_ERRORS,
                                                      make_store,
                                                      parse_import_buffer)
 from opentsdb_tpu_torch.query.device_cache import DeviceGridCache
+from opentsdb_tpu_torch.query.engine import refuse_unported_keys
 from opentsdb_tpu_torch.query.limits import QueryLimitOverride
 from opentsdb_tpu_torch.query.result_cache import QueryResultCache
+from opentsdb_tpu_torch.rollup.config import RollupConfig
+from opentsdb_tpu_torch.rollup.store import RollupStore
 from opentsdb_tpu_torch.stats.stats import (ServePayloadStats,
                                             StatsCollectorRegistry)
 from opentsdb_tpu_torch.utils.config import Config
@@ -113,6 +116,7 @@ class TSDB:
 
     def __init__(self, config: Config | None = None):
         self.config = config or Config()
+        refuse_unported_keys(self.config)
         self.device = resolve_device(self.config)
         self.dtype = resolve_dtype(self.config)
         self.uids = UidRegistry(
@@ -163,6 +167,17 @@ class TSDB:
         self._histogram_arenas: dict[int, HistogramArena] = {}
         self._histogram_lock = threading.Lock()
         self._histogram_version = 0
+        # rollup tiers (ref: TSDB.java:170-185), their stores made by the
+        # raw store's factory (the native store by default)
+        self.rollup_config: RollupConfig | None = None
+        self.rollup_store: RollupStore | None = None
+        self.agg_tag_key = self.config.get_string("tsd.rollups.agg_tag_key")
+        if self.config.get_bool("tsd.rollups.enable"):
+            path = self.config.get_string("tsd.rollups.config")
+            self.rollup_config = (RollupConfig.from_file(path) if path
+                                  else RollupConfig.default())
+            self.rollup_store = RollupStore(
+                self.rollup_config, lambda: make_store(self.config))
         self.data_dir = self.config.get_string("tsd.storage.data_dir")
         self.wal: WriteAheadLog | None = None
         self._wal_applied_seq = 0
@@ -204,6 +219,11 @@ class TSDB:
         self.stats.register(wal)
         # the snapshot's series keep their numbering on load
         wal.seed_known("data", self.store.num_series())
+        if self.rollup_store is not None:
+            wal.seed_known("preagg",
+                           self.rollup_store.preagg_store().num_series())
+            for (interval, agg), store in self.rollup_store.tiers():
+                wal.seed_known(f"tier:{interval}:{agg}", store.num_series())
         t = time.perf_counter()
         try:
             recovered = wal.replay(self, self._wal_applied_seq)
@@ -218,16 +238,12 @@ class TSDB:
         self.wal = wal
 
     def _wal_group_window_ms(self) -> int:
-        """``tsd.storage.wal.group_window_ms``; "" (the default) means 0,
-        or 2 ms on a cluster shard, where concurrent writers make a
-        commit window pay (ref: TSDB._wal_group_window_ms). An explicit
-        value, 0 included, wins."""
+        """``tsd.storage.wal.group_window_ms``; "" (the default) means 0
+        (ref: TSDB._wal_group_window_ms, whose 2 ms on a cluster shard
+        the port cannot reach: ``tsd.cluster.role`` is refused)."""
         raw = self.config.get_string("tsd.storage.wal.group_window_ms",
                                      "").strip()
-        if raw:
-            return int(raw)
-        role = self.config.get_string("tsd.cluster.role", "").strip()
-        return 2 if role == "shard" else 0
+        return int(raw) if raw else 0
 
     @property
     def device_grid_cache(self) -> DeviceGridCache | None:
@@ -281,6 +297,36 @@ class TSDB:
             self._device_grid_cache.clear()
         if self._result_cache is not None:
             self._result_cache.clear()
+
+    def serve_version(self) -> tuple:
+        """The version of every store a query can read (ref:
+        ``TSDB.serve_version``): the raw store, the histograms and the
+        rollup tiers with the preagg store. A write or a delete to any
+        of them changes it."""
+        parts = [*self.store.version, self._histogram_version,
+                 *self.histogram_store.version]
+        if self.rollup_store is not None:
+            parts.append(self.rollup_store.version())
+        return tuple(parts)
+
+    def memory_info(self) -> dict:
+        """Footprint by store (ref: ``TSDB.memory_info``): series,
+        points and bytes of the raw store and of each rollup store that
+        reports them (the native store does), and their totals."""
+        stores = [("raw", self.store)]
+        if self.rollup_store is not None:
+            stores.append(("rollup:preagg", self.rollup_store.preagg_store()))
+            stores += [(f"rollup:{interval}:{agg}", store) for
+                       (interval, agg), store in self.rollup_store.tiers()]
+        out = {name: store.memory_info() for name, store in stores
+               if hasattr(store, "memory_info")}
+        totals = {"resident_bytes": 0, "live_bytes": 0, "dead_bytes": 0,
+                  "series": 0, "points": 0}
+        for info in out.values():
+            for k in totals:
+                totals[k] += info.get(k, 0)
+        out["total"] = totals
+        return out
 
     def flush(self) -> None:
         """Snapshot the store into the data_dir under the
@@ -509,6 +555,48 @@ class TSDB:
                 self.wal.sync()
         self.datapoints_added += len(ts_ms)
         return sids
+
+    def add_aggregate_point(self, metric: str, timestamp: int,
+                            value: int | float, tags: dict[str, str],
+                            is_groupby: bool, interval: str | None,
+                            rollup_agg: str | None,
+                            groupby_agg: str | None = None) -> int:
+        """Write one rollup or pre-aggregated point; returns its series
+        id in the store it went to (ref: ``TSDB.add_aggregate_point``,
+        TSDB.java:1320-1418). A pre-aggregate (``is_groupby``) is tagged
+        with its group-by aggregator under ``tsd.rollups.agg_tag_key``;
+        with no ``interval`` it goes to the preagg store, else to the
+        tier of ``interval`` and ``rollup_agg``."""
+        if self.rollup_store is None:
+            raise RuntimeError("rollups are not enabled "
+                               "(tsd.rollups.enable=false)")
+        tags = dict(tags)
+        if is_groupby:
+            agg = (groupby_agg or rollup_agg or "").upper()
+            if not agg:
+                raise ValueError("missing group-by aggregator")
+            tags[self.agg_tag_key] = agg
+        tags_mod.check_metric_and_tags(metric, tags)
+        metric_id, (tag_ids,) = self._resolve_uids(metric, [tags])
+        ts_ms, value = _to_ms(timestamp), float(value)
+        if interval is None:
+            kind = "preagg"
+            sid = self.rollup_store.add_preagg_point(metric_id, tag_ids,
+                                                     ts_ms, value)
+        else:
+            if rollup_agg is None:
+                raise ValueError("missing rollup aggregator")
+            kind = f"tier:{interval}:{rollup_agg.lower()}"
+            sid = self.rollup_store.add_point(interval, rollup_agg,
+                                              metric_id, tag_ids, ts_ms,
+                                              value)
+        if self.wal is not None:
+            with self.wal.batch():
+                self.wal.ensure_series(kind, sid, metric, tags)
+                self.wal.log_point(kind, sid, ts_ms, value, False)
+                self.wal.sync()
+        self.datapoints_added += 1
+        return sid
 
     # -- histogram points (ref: TSDB.add_histogram_batch :847,
     #    add_histogram_point :920) ---------------------------------------

@@ -45,12 +45,14 @@ timestamp as JSON, then the codec blob); replay writes it again through
 it must not be replayed over a snapshot that holds it: the writer logs
 it under the TSDB's histogram lock (:meth:`WriteAheadLog.flush_batch`
 lands a batch scope's records there), and a snapshot reads the
-sequence and the arenas under the same lock. The port's scalar stores are the data
-store only, and it writes no annotation record: replay refuses
-``T_ANNOT``, ``T_ANNOT_DEL`` and the rollup stores' records
-(``preagg``, ``tier:*``), naming the ROADMAP Queue 1 item that ports
-them, rather than drop them. Single writer: one TSDB owns a data_dir at
-a time.
+sequence and the arenas under the same lock. The scalar stores are the
+data store and, with rollups on, the rollup stores (kinds ``preagg`` and
+``tier:<interval>:<agg>``); a rollup record replayed with rollups off
+raises, naming ``tsd.rollups.enable``, where the reference drops it.
+The port writes no annotation record: replay refuses ``T_ANNOT`` and
+``T_ANNOT_DEL``, naming the ROADMAP Queue 1 item that ports them,
+rather than drop them. Single writer: one TSDB owns a data_dir at a
+time.
 """
 
 from __future__ import annotations
@@ -738,12 +740,23 @@ class WriteAheadLog:
 
     @staticmethod
     def _store_for(tsdb, kind: str):
+        """The store of a record's kind (ref: ``_store_for``): ``data``,
+        ``preagg`` or ``tier:<interval>:<agg>``. A rollup record with
+        rollups off, or of a tier the config no longer holds, raises
+        (the reference logs the error and drops the record)."""
         if kind == "data":
             return tsdb.store
         if kind == "preagg" or kind.startswith("tier:"):
-            raise UnportedRecordError(
-                f"the WAL holds a record of the rollup store {kind!r}; "
-                "rollups are not ported yet (ROADMAP Queue 1, rollups)")
+            rollups = tsdb.rollup_store
+            if rollups is None:
+                raise ValueError(
+                    f"the WAL holds a record of the rollup store {kind!r}, "
+                    "but rollups are off: set tsd.rollups.enable=true to "
+                    "replay it")
+            if kind == "preagg":
+                return rollups.preagg_store()
+            _, interval, agg = kind.split(":", 2)
+            return rollups.tier(interval, agg)
         raise ValueError(f"unknown wal store kind {kind!r}")
 
     def _apply_series(self, tsdb, payloads: list[bytes],

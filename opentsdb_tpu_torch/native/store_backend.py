@@ -29,7 +29,7 @@ import numpy as np
 
 from opentsdb_tpu_torch.core.store import (_INSTANCE_IDS, MetricIndex,
                                            PaddedBatch, PointBatch,
-                                           TimeSeriesStore)
+                                           SeriesIdentity, TimeSeriesStore)
 from opentsdb_tpu_torch.native._build import NativeBuildError, library
 
 __all__ = ["IMPORT_ERRORS", "NativeBuildError", "NativeTimeSeriesStore",
@@ -256,8 +256,20 @@ class NativeTimeSeriesStore:
 
     # -- read path --------------------------------------------------------
 
+    def metric_ids(self) -> list[int]:
+        """Every metric with a series, in the order of its first one."""
+        with self._lock:
+            return list(self._metric_index)
+
     def metric_index(self, metric_id: int) -> MetricIndex | None:
         return self._metric_index.get(metric_id)
+
+    def series(self, series_id: int) -> SeriesIdentity:
+        """The identity of one series (the memory store's ``series``);
+        IndexError for an unknown id."""
+        if not 0 <= series_id < self._num_series:
+            raise IndexError(f"no series {series_id}")
+        return SeriesIdentity(*self._keys[series_id])
 
     def series_ids_for_metric(self, metric_id: int) -> np.ndarray:
         idx = self._metric_index.get(metric_id)

@@ -23,7 +23,9 @@ Port of ``opentsdb_tpu/ops/pipeline.py`` for two paths:
   ``execute_auto`` and ``execute`` are upload and run in one call.
 - the grid path: the store has already downsampled the window to a
   ``[S, B]`` grid (``TimeSeriesStore.bucket_reduce``); ``put_grid``
-  uploads it and ``execute_grid`` runs the pipeline's tail on it.
+  uploads it and ``execute_grid`` runs the pipeline's tail on it;
+  ``execute_avg_divide`` runs the same tail on the quotient of a rollup
+  sum tier's grid and its count tier's (an ``avg`` from the tiers).
 
 The reference pads every shape up to a geometric bucket
 (``ops/shapes.py``) to bound XLA's compile space. Eager PyTorch
@@ -327,6 +329,39 @@ def execute_grid(grid, has_data, bucket_ts: np.ndarray,
     ``emit_raw``, ``[S, B]``."""
     return run_pipeline_grid(
         grid, has_data, *_query_operands(bucket_ts, group_ids, grid.device),
+        rate_options or RateOptions(), spec)
+
+
+def avg_divide_grid(grid_sum, grid_cnt):
+    """The rollup average (ref: ``avg_divide_grid``): SUM-tier cells
+    over COUNT-tier cells where both tiers hold a cell, NaN elsewhere
+    (ref: RollupSpan's agg-prefixed sum and count qualifiers). Returns
+    (grid, valid)."""
+    valid = ~torch.isnan(grid_sum) & ~torch.isnan(grid_cnt) & (grid_cnt > 0)
+    grid = torch.where(valid, grid_sum / torch.where(valid, grid_cnt, 1.0),
+                       torch.nan)
+    return grid, valid
+
+
+def run_pipeline_avg_div(grid_sum, grid_cnt, bucket_ts, group_ids,
+                         ro: RateOptions, spec: PipelineSpec):
+    """Tail entry of the avg-rollup path (ref: ``run_pipeline_avg_div``):
+    the divide, then the fill/rate/interpolate/aggregate chain, with
+    both ``[S, B]`` grids on the device."""
+    grid, valid = avg_divide_grid(grid_sum, grid_cnt)
+    return _finish_pipeline(grid, valid, bucket_ts, group_ids, ro, spec)
+
+
+def execute_avg_divide(grid_sum, grid_cnt, bucket_ts: np.ndarray,
+                       group_ids: np.ndarray, spec: PipelineSpec,
+                       rate_options: RateOptions | None = None):
+    """Entry over the sum and count tiers' ``[S, B]`` grids, NaN where a
+    tier holds no cell, both on one device (ref: ``execute_avg_divide``)
+    -> (result, emit) tensors there, ``[G, B]`` or, for ``emit_raw``,
+    ``[S, B]``."""
+    return run_pipeline_avg_div(
+        grid_sum, grid_cnt,
+        *_query_operands(bucket_ts, group_ids, grid_sum.device),
         rate_options or RateOptions(), spec)
 
 

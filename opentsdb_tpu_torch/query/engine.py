@@ -24,6 +24,15 @@ Port of ``opentsdb_tpu/query/engine.py``'s ``QueryEngine.run`` ->
    no prepared batch
 7. result assembly with the reference's tags/aggregateTags semantics
 
+With rollups on (``tsd.rollups.enable``), step 1 picks the store first
+(``_select_store``, ref: TsdbQuery's rollup best match and
+``ROLLUP_USAGE``): a downsample whose interval a tier divides is read
+from that tier's store, ``count`` as the sum of the stored counts, and
+``avg`` as the sum tier over the count tier (``_avg_rollup_pipeline``:
+both reduced in the store, divided on the device by
+``ops.pipeline.execute_avg_divide``). Every later step, the filters and
+the caches included, follows the selected store.
+
 Around ``_run_sub`` sit the reference's serve-path mechanisms: the
 sub-queries of one TSQuery fan out onto the TSDB's pool
 (``tsd.query.fanout.workers``), each goes through the result cache
@@ -38,8 +47,8 @@ its scan in the request's ``QueryStats`` when the caller passes one
 The reference engine's other paths are not ported yet: the host-CPU
 tail and its circuit breaker with its host retries, the host-RAM
 prepared-batch cache, the streaming lookup before the result cache,
-the device mesh, rollup tiers, tsuid sub-queries and ``delete=true``.
-Asking for any of them raises NotImplementedError.
+the device mesh, the lifecycle's stitched tier views, tsuid sub-queries
+and ``delete=true``. Asking for any of them raises NotImplementedError.
 
 A sub-query with ``percentiles`` takes its own path (``_run_sub``'s
 first branch, as in the reference): the exact merge over the
@@ -55,17 +64,20 @@ from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from opentsdb_tpu_torch.core import store as store_mod
 from opentsdb_tpu_torch.ops import downsample as ds_mod
 from opentsdb_tpu_torch.ops.blocked import (DEFAULT_CELL_BUDGET,
                                             execute_blocked,
                                             pick_block_buckets)
-from opentsdb_tpu_torch.ops.pipeline import (PipelineSpec, execute_grid,
-                                             flatten_padded,
+from opentsdb_tpu_torch.ops.pipeline import (PipelineSpec,
+                                             execute_avg_divide,
+                                             execute_grid, flatten_padded,
                                              grid_from_reduce,
                                              prepare_auto, prepare_flat,
-                                             put_grid, run_prepared)
+                                             put_grid, run_prepared,
+                                             upload)
 from opentsdb_tpu_torch.query import filters as filters_mod
 from opentsdb_tpu_torch.query import result_cache as rc_mod
 from opentsdb_tpu_torch.query.device_cache import array_digest
@@ -79,6 +91,37 @@ _POINT_PATH_KEYS = (
     ("tsd.query.host_tail_max_cells", "-1", "host-CPU tail"),
     ("tsd.query.host_tail_max_cells_linear", "-1", "host-CPU tail"),
 )
+# keys that turn on a subsystem the port has not ported, checked when a
+# TSDB is built (refuse_unported_keys): (config key, its default, the
+# subsystem, the ROADMAP Queue 1 item that ports it)
+_REST = "the rest, with no device compute"
+_UNPORTED_SUBSYSTEM_KEYS = (
+    ("tsd.lifecycle.enable", "false", "the data lifecycle", _REST),
+    ("tsd.cluster.role", "", "the sharded cluster", _REST),
+    ("tsd.core.meta.enable_realtime_ts", "false", "TSMeta tracking",
+     _REST),
+    ("tsd.core.meta.enable_realtime_uid", "false", "UIDMeta tracking",
+     _REST),
+    ("tsd.core.meta.enable_tsuid_incrementing", "false",
+     "TSMeta counters", _REST),
+    ("tsd.core.meta.enable_tsuid_tracking", "false", "TSMeta tracking",
+     _REST),
+    ("tsd.core.tree.enable_processing", "false", "tree processing", _REST),
+)
+
+
+def refuse_unported_keys(config) -> None:
+    """Raise NotImplementedError when a key turns on a subsystem the
+    port lacks, rather than serve as if it were off."""
+    for key, default, what, item in _UNPORTED_SUBSYSTEM_KEYS:
+        value = config.get_string(key, default).strip()
+        on = config.get_bool(key) if default == "false" else value != default
+        if on:
+            raise NotImplementedError(
+                f"{key}={value} turns on {what}, which is not ported yet "
+                f"(ROADMAP Queue 1, {item}); leave {key} at {default!r}")
+
+
 # downsample functions the storage-side reduction serves: linear bucket
 # statistics (sum/count/min/max; avg is sum over count)
 _GRID_FNS = frozenset(("sum", "zimsum", "pfsum", "count", "min",
@@ -213,13 +256,16 @@ class TagMatrix:
         self.vids = vids        # int64 [S, K]; -1 = key absent
 
     @classmethod
-    def from_triples(cls, sids: np.ndarray,
-                     triples: np.ndarray) -> "TagMatrix":
+    def from_triples(cls, sids: np.ndarray, triples: np.ndarray,
+                     kids: np.ndarray | None = None) -> "TagMatrix":
         """Build from the metric index's (sid, kid, vid) rows; triples
-        for sids outside ``sids`` are ignored."""
+        for sids outside ``sids`` are ignored. ``kids`` (sorted, a
+        superset of the triples' keys) fixes the columns, by default the
+        triples' distinct keys."""
         sids = np.asarray(sids, dtype=np.int64)
-        kids = (np.unique(triples[:, 1]) if len(triples)
-                else np.empty(0, dtype=np.int64))
+        if kids is None:
+            kids = (np.unique(triples[:, 1]) if len(triples)
+                    else np.empty(0, dtype=np.int64))
         vids = np.full((len(sids), len(kids)), -1, dtype=np.int64)
         if len(triples) and len(sids) and len(kids):
             order = np.argsort(sids, kind="stable")
@@ -272,6 +318,29 @@ def compact_row_labels(mat: np.ndarray) -> tuple[np.ndarray, int]:
             u2, labels = np.unique(labels, return_inverse=True)
             count = len(u2)
     return labels.astype(np.int32), count
+
+
+def _match_series_by_tags(src_store, dst_store, sids: np.ndarray,
+                          metric_id: int) -> np.ndarray:
+    """For each series id of ``src_store`` in ``sids``, the id of the
+    series of ``dst_store`` with the same metric and tags, or -1 (ref:
+    ``_match_series_by_tags``; the avg path aligns the count tier to the
+    sum tier so). Both tag matrices are built over the union of the two
+    stores' tag keys, so equal rows mean equal tag sets."""
+    dst_sids = dst_store.series_ids_for_metric(metric_id)
+    if len(dst_sids) == 0 or len(sids) == 0:
+        return np.full(len(sids), -1, dtype=np.int64)
+    _, src_triples = src_store.metric_index(metric_id).arrays()
+    _, dst_triples = dst_store.metric_index(metric_id).arrays()
+    kids = np.union1d(src_triples[:, 1], dst_triples[:, 1])
+    a = TagMatrix.from_triples(sids, src_triples, kids).vids
+    b = TagMatrix.from_triples(dst_sids, dst_triples, kids).vids
+    labels, _ = compact_row_labels(np.concatenate([a, b], axis=0))
+    la, lb = labels[:len(a)], labels[len(a):]
+    order = np.argsort(lb, kind="stable")
+    lb_sorted = lb[order]
+    pos = np.minimum(np.searchsorted(lb_sorted, la), len(lb_sorted) - 1)
+    return np.where(lb_sorted[pos] == la, dst_sids[order[pos]], -1)
 
 
 def _common_tags(tags: TagMatrix, members: np.ndarray, uids
@@ -402,17 +471,71 @@ class QueryEngine:
 
     def _sub_version(self, sub: TSSubQuery) -> tuple:
         """The version of what a sub-query reads (ref: ``_sub_version``):
-        the port has one store per TSDB and no rollup tiers or
-        annotations, so it is that store's identity and write counters.
-        A percentile sub-query reads the histogram arenas and, through
-        the sketch path, the scalar store: their write counters too."""
+        the identity and write counters of the stores its plan selects,
+        not the whole TSDB's, so an answer from a rollup tier keeps its
+        cache entry while raw writes stream in. Selection is made again
+        on every lookup, so a write that changes it (the first point of
+        an empty tier) changes the version. The avg path may still move
+        to the raw store when over budget: its version covers both. A
+        percentile sub-query reads the histogram arenas and, through the
+        sketch path, the scalar store. When selection itself fails, the
+        whole TSDB's version (the query raises the same error)."""
         t = self.tsdb
-        store = t.store
         if sub.percentiles:
             return ("hist", t._histogram_version,
-                    *t.histogram_store.version, store.instance_id,
-                    *store.version)
-        return ("sel", store.instance_id, *store.version)
+                    *t.histogram_store.version, t.store.instance_id,
+                    *t.store.version)
+        try:
+            store, _mid, _sids, cnt_store, _fn = self._select_store(sub)
+        except (BadRequestError, ValueError):
+            return ("all", t.serve_version())
+        parts = ["sel", store.instance_id, *store.version]
+        if cnt_store is not None:
+            parts += [cnt_store.instance_id, *cnt_store.version,
+                      t.store.instance_id, *t.store.version]
+        return tuple(parts)
+
+    def _select_store(self, sub: TSSubQuery):
+        """Pick the raw store or a rollup tier (ref: ``_select_store``;
+        TsdbQuery's best match :143-150 with the ROLLUP_USAGE fallback
+        :750). Returns ``(store, metric_id, sids, count_store,
+        ds_function)``: ``count_store`` is the count tier when an
+        ``avg`` downsample is answered as sum tier over count tier, and
+        ``ds_function`` replaces the downsample function where the
+        tier's cells already carry the statistic (a ``count`` over the
+        count tier sums the stored counts, ref: Downsampler.java:213),
+        else None. With no lifecycle, a tier is its plain store."""
+        try:
+            metric_id = self.tsdb.uids.metrics.get_id(sub.metric)
+        except LookupError:
+            raise NoSuchMetricError(
+                f"No such name for 'metrics': '{sub.metric}'") from None
+        raw = store = self.tsdb.store
+        cnt_store = ds_function = None
+        usage = (sub.rollup_usage or "ROLLUP_NOFALLBACK").upper()
+        rollups = self.tsdb.rollup_store
+        ds = sub.ds_spec
+        if rollups is not None and ds is not None and not ds.run_all \
+                and usage != "ROLLUP_RAW":
+            tier = self.tsdb.rollup_config.best_match(ds.interval_ms)
+            fn = ds.function
+            if tier is None:
+                pass
+            elif fn in ("sum", "count", "min", "max"):
+                if rollups.has_data(tier.interval, fn):
+                    store = rollups.tier(tier.interval, fn)
+                    if fn == "count":
+                        ds_function = "sum"
+            elif fn == "avg" and rollups.has_data(tier.interval, "sum") \
+                    and rollups.has_data(tier.interval, "count"):
+                store = rollups.tier(tier.interval, "sum")
+                cnt_store = rollups.tier(tier.interval, "count")
+        sids = store.series_ids_for_metric(metric_id)
+        if store is not raw and len(sids) == 0 and \
+                usage in ("ROLLUP_FALLBACK", "ROLLUP_FALLBACK_RAW"):
+            store, cnt_store, ds_function = raw, None, None
+            sids = raw.series_ids_for_metric(metric_id)
+        return store, metric_id, sids, cnt_store, ds_function
 
     def _run_percentiles(self, tsq: TSQuery,
                          sub: TSSubQuery) -> list[QueryResult]:
@@ -437,20 +560,25 @@ class QueryEngine:
         if sub.tsuids:
             raise NotImplementedError("tsuid sub-queries are not ported yet")
         uids = self.tsdb.uids
-        store = self.tsdb.store
-        try:
-            metric_id = uids.metrics.get_id(sub.metric)
-        except LookupError:
-            raise NoSuchMetricError(
-                f"No such name for 'metrics': '{sub.metric}'") from None
-        sids = store.series_ids_for_metric(metric_id)
+        store, metric_id, sids, cnt_store, ds_function = \
+            self._select_store(sub)
+        if cnt_store is not None:
+            # the sum/count divide holds [S, B] whole: an oversized range
+            # reads raw data instead (the point path streams it), when
+            # raw data exists (tiers may outlive their raw source)
+            b_est = ((tsq.end_ms - tsq.start_ms)
+                     // max(sub.ds_spec.interval_ms, 1)) + 2
+            if len(sids) * b_est > self._budget:
+                raw_sids = self.tsdb.store.series_ids_for_metric(metric_id)
+                if len(raw_sids):
+                    store, sids, cnt_store = self.tsdb.store, raw_sids, None
         if len(sids) == 0:
             return []
         if stats:
             stats.add_stat(QueryStat.ROWS_PRE_FILTER, len(sids))
 
         # --- filters -> series mask (ref: findSpans post-scan filters)
-        sids, tag_mat = self._apply_filters(metric_id, sub, sids)
+        sids, tag_mat = self._apply_filters(metric_id, sub, sids, store)
         if len(sids) == 0:
             return []
         if stats:
@@ -473,9 +601,19 @@ class QueryEngine:
             group_ids = np.arange(len(sids), dtype=np.int32)
             num_groups = len(sids)
 
+        # --- avg from the sum and count tiers (ref: _avg_rollup_pipeline)
+        if cnt_store is not None:
+            out = self._avg_rollup_pipeline(store, cnt_store, metric_id,
+                                            sids, tsq, sub, group_ids,
+                                            num_groups, emit_raw)
+            if out is None:
+                return []
+            return self._build_results(tsq, sub, metric_id, sids, tag_mat,
+                                       group_ids, num_groups, *out)
+
         # --- storage-side grid reduction (ref: _grid_pipeline)
         out = self._grid_pipeline(store, sids, tsq, sub, group_ids,
-                                  num_groups, emit_raw)
+                                  num_groups, emit_raw, ds_function)
         if out is not None:
             result, emit, bucket_ts = out
             if result is None:
@@ -514,7 +652,7 @@ class QueryEngine:
         self.tsdb.query_limits.check(sub.metric, num_points)
         if num_points == 0:
             return []
-        grid = self._time_grid(sub, tsq, points)
+        grid = self._time_grid(sub, tsq, points, ds_function)
         spec = self._point_spec(sub, len(sids), num_groups, emit_raw,
                                 grid.bucket_ts, grid.ds_function,
                                 grid.fill_policy, grid.fill_value,
@@ -564,10 +702,11 @@ class QueryEngine:
             return store.materialize_padded(sids, tsq.start_ms, tsq.end_ms)
         return store.materialize(sids, tsq.start_ms, tsq.end_ms)
 
-    def _time_grid(self, sub: TSSubQuery, tsq: TSQuery,
-                   points) -> PointGrid:
+    def _time_grid(self, sub: TSSubQuery, tsq: TSQuery, points,
+                   ds_function: str | None = None) -> PointGrid:
         """Bucket the points of ``points`` (a ``PaddedBatch`` or a
-        ``PointBatch``): the downsample's fixed or calendar buckets, or
+        ``PointBatch``): the downsample's fixed or calendar buckets,
+        reduced by ``ds_function`` when given (a rollup tier's), or
         without a downsample the union of distinct timestamps, one
         point per (series, timestamp)."""
         padded = points if isinstance(points, store_mod.PaddedBatch) \
@@ -583,8 +722,9 @@ class QueryEngine:
             else:
                 bidx, bts = ds_mod.assign_buckets(batch.ts_ms, ds,
                                                   tsq.start_ms, tsq.end_ms)
-            return PointGrid(padded, batch, bidx, bts, ds.function,
-                             ds.fill_policy, ds.fill_value, complete)
+            return PointGrid(padded, batch, bidx, bts,
+                             ds_function or ds.function, ds.fill_policy,
+                             ds.fill_value, complete)
         if padded is not None:
             bidx, bts, complete = self._union_grid(padded)
         else:
@@ -676,11 +816,13 @@ class QueryEngine:
 
     def _grid_pipeline(self, store, sids: np.ndarray, tsq: TSQuery,
                        sub: TSSubQuery, group_ids: np.ndarray,
-                       num_groups: int, emit_raw: bool):
+                       num_groups: int, emit_raw: bool,
+                       ds_function: str | None = None):
         """Storage-side downsample (ref: ``_grid_pipeline``): the store
-        reduces the window to the ``[S, B]`` grid, which is uploaded
-        once and cached on the device, and the device runs only the
-        fill/rate/interpolate/aggregate tail. Returns None when the
+        reduces the window to the ``[S, B]`` grid of the downsample
+        function (or of ``ds_function``, a rollup tier's), which is
+        uploaded once and cached on the device, and the device runs only
+        the fill/rate/interpolate/aggregate tail. Returns None when the
         query is not eligible or its grid exceeds the cell budget (the
         point path takes it), else (result, emit, bucket_ts) with
         result None when the window holds no point."""
@@ -692,7 +834,7 @@ class QueryEngine:
         b = len(bucket_ts)
         if len(sids) * b > self._budget:
             return None
-        fn = ds_spec.function
+        fn = ds_function or ds_spec.function
         cache = self.tsdb.device_grid_cache
         hit = None
         if cache is not None:
@@ -740,6 +882,110 @@ class QueryEngine:
                                  (time.monotonic() - t2) * 1e3)
         return result, emit, bucket_ts
 
+    def _avg_rollup_pipeline(self, sum_store, cnt_store, metric_id: int,
+                             sids: np.ndarray, tsq: TSQuery,
+                             sub: TSSubQuery, group_ids: np.ndarray,
+                             num_groups: int, emit_raw: bool):
+        """An ``avg`` downsample from the rollup tiers (ref:
+        ``_avg_rollup_pipeline``): the bucketed sum tier over the
+        bucketed count tier, the true weighted average and not a mean of
+        the tiers' averages (ref: RollupSpan reading the sum and count
+        qualifiers of one row). A fixed interval reduces both tiers in
+        the store and keeps both grids in the device cache; any other
+        downsample materializes the tiers' points and buckets them on
+        the device. The divide and the pipeline's tail run on the
+        TSDB's device. Returns (bucket_ts, result, emit), or None when
+        the window holds no point."""
+        t1 = time.monotonic()
+        dev, dtype = self.tsdb.device, self.tsdb.dtype
+        start, end = tsq.start_ms, tsq.end_ms
+        ds = sub.ds_spec
+
+        def align():
+            """The count tier's series of each sum tier series (-1: none)
+            and the rows that have one; a cache hit needs neither."""
+            csids = _match_series_by_tags(sum_store, cnt_store, sids,
+                                          metric_id)
+            return csids, np.flatnonzero(csids >= 0)
+
+        fixed = (not ds.run_all and not ds.use_calendar
+                 and ds.unit not in ("n", "y") and ds.interval_ms > 0)
+        if fixed:
+            bucket_ts = ds_mod.fixed_bucket_edges(start, end, ds.interval_ms)
+            s, b = len(sids), len(bucket_ts)
+            t0_ms = int(bucket_ts[0])
+            cache = self.tsdb.device_grid_cache
+            hit = None
+            if cache is not None:
+                ckey = ("avgdiv", sum_store.instance_id,
+                        cnt_store.instance_id,
+                        array_digest(np.ascontiguousarray(sids)), start, end,
+                        t0_ms, ds.interval_ms, b)
+                cver = (*sum_store.version, *cnt_store.version)
+                hit = cache.get(ckey, cver)
+            if hit is not None:
+                (gs, gc), meta = hit
+                num_points = meta["num_points"]
+            else:
+                csids, present = align()
+                sum_s, cnt_s, _, _ = sum_store.bucket_reduce(
+                    sids, start, end, t0_ms, ds.interval_ms, b)
+                sum_c, cnt_c = np.zeros((s, b)), np.zeros((s, b))
+                if len(present):
+                    sum_c[present], cnt_c[present], _, _ = \
+                        cnt_store.bucket_reduce(csids[present], start, end,
+                                                t0_ms, ds.interval_ms, b)
+                num_points = int(cnt_s.sum() + cnt_c.sum())
+                sum_s[cnt_s == 0] = np.nan
+                sum_c[cnt_c == 0] = np.nan
+                gs, gc = upload(sum_s, dtype, dev), upload(sum_c, dtype, dev)
+                if cache is not None and num_points:
+                    cache.put(ckey, cver, (gs, gc),
+                              {"num_points": num_points})
+        else:
+            csids, present = align()
+            batch_s = sum_store.materialize(sids, start, end)
+            batch_c = cnt_store.materialize(csids[present], start, end)
+            num_points = batch_s.num_points + batch_c.num_points
+        self._record_scan((time.monotonic() - t1) * 1e3, num_points,
+                          len(sids))
+        self.tsdb.query_limits.check(sub.metric, num_points)
+        if num_points == 0:
+            return None
+        t2 = time.monotonic()
+        if not fixed:
+            if batch_s.num_points == 0:
+                return None
+            bidx_s, bucket_ts = ds_mod.assign_buckets(batch_s.ts_ms, ds,
+                                                      start, end)
+            bidx_c, _ = ds_mod.assign_buckets(batch_c.ts_ms, ds, start, end)
+            s, b = len(sids), len(bucket_ts)
+
+            def grid_of(values, series_idx, bucket_idx):
+                return ds_mod.bucketize(
+                    upload(values, dtype, dev),
+                    torch.from_numpy(series_idx.astype(np.int32)).to(dev),
+                    torch.from_numpy(bucket_idx.astype(np.int32)).to(dev),
+                    s, b, "sum")[0]
+
+            gs = grid_of(batch_s.values, batch_s.series_idx, bidx_s)
+            gc = grid_of(batch_c.values, present[batch_c.series_idx],
+                         bidx_c)
+        spec = PipelineSpec(
+            num_series=s, num_buckets=b, num_groups=num_groups,
+            ds_function="avg", agg_name=sub.agg.name,
+            fill_policy=ds.fill_policy, fill_value=ds.fill_value,
+            rate=sub.rate, rate_counter=sub.rate_options.counter,
+            rate_drop_resets=sub.rate_options.drop_resets,
+            emit_raw=emit_raw)
+        result, emit = execute_avg_divide(gs, gc, bucket_ts, group_ids, spec,
+                                          sub.rate_options)
+        result, emit = result.cpu().numpy(), emit.cpu().numpy()
+        if self._stats:
+            self._stats.add_stat(QueryStat.COMPUTE_TIME,
+                                 (time.monotonic() - t2) * 1e3)
+        return bucket_ts, result, emit
+
     def _record_scan(self, ms: float, num_points: int, n_rows: int
                      ) -> None:
         """Storage-scan stat points (ref: the per-scanner stats block,
@@ -780,8 +1026,11 @@ class QueryEngine:
         return bucket_idx2d, bucket_ts, False
 
     def _apply_filters(self, metric_id: int, sub: TSSubQuery,
-                       sids: np.ndarray) -> tuple[np.ndarray, TagMatrix]:
-        store = self.tsdb.store
+                       sids: np.ndarray, store=None
+                       ) -> tuple[np.ndarray, TagMatrix]:
+        """The series of ``sids`` (ids of ``store``, by default the raw
+        store) that pass the sub-query's filters, and their tags."""
+        store = store if store is not None else self.tsdb.store
         idx_sids, triples = store.metric_index(metric_id).arrays()
         # per-(store, metric) matrix cache (ref: engine.py:1784): the
         # index is append-only, so its series count versions the entry;

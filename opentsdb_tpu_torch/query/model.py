@@ -44,6 +44,9 @@ class TSSubQuery:
     filters: list[filters_mod.TagVFilter] = field(default_factory=list)
     explicit_tags: bool = False
     percentiles: list[float] = field(default_factory=list)
+    # ROLLUP_NOFALLBACK | ROLLUP_RAW | ROLLUP_FALLBACK |
+    # ROLLUP_FALLBACK_RAW (ref: RollupQuery ROLLUP_USAGE)
+    rollup_usage: str = "ROLLUP_NOFALLBACK"
     index: int = 0
     # populated during validation
     agg: aggs_mod.Aggregator | None = None
@@ -83,7 +86,8 @@ class TSSubQuery:
                  self.rate_options.drop_resets),
                 tuple((f.filter_name, f.tagk, f.filter_expr, f.group_by)
                       for f in self.filters),
-                self.explicit_tags, tuple(self.percentiles))
+                self.explicit_tags, tuple(self.percentiles),
+                self.rollup_usage)
 
     @classmethod
     def from_json(cls, obj: dict[str, Any], index: int = 0) -> "TSSubQuery":
@@ -110,6 +114,7 @@ class TSSubQuery:
             filters=filters,
             explicit_tags=bool(obj.get("explicitTags", False)),
             percentiles=[float(p) for p in obj.get("percentiles") or []],
+            rollup_usage=obj.get("rollupUsage", "ROLLUP_NOFALLBACK"),
             index=index)
 
     def to_json(self) -> dict[str, Any]:
@@ -125,6 +130,8 @@ class TSSubQuery:
             "filters": [f.to_json() for f in self.filters],
             "explicitTags": self.explicit_tags,
             "index": self.index,
+            **({"rollupUsage": self.rollup_usage}
+               if self.rollup_usage != "ROLLUP_NOFALLBACK" else {}),
             **({"percentiles": list(self.percentiles)}
                if self.percentiles else {}),
         }

@@ -6,7 +6,7 @@ responses; :mod:`opentsdb_tpu_torch.tsd.server` feeds it from asyncio
 sockets and tests call it directly.
 
 Endpoints (mode-gated rw/ro/wo as RpcManager :274-327): ``/api/put``,
-``/api/histogram``,
+``/api/rollup``, ``/api/histogram``,
 ``/api/query`` (GET URI form, POST JSON, ``arrays``), ``/api/suggest``,
 ``/api/aggregators``, ``/api/config`` (+``/filters``),
 ``/api/dropcaches``, ``/api/serializers``, ``/api/version``,
@@ -52,7 +52,6 @@ from opentsdb_tpu_torch.tsd.json_serializer import HttpJsonSerializer
 
 # ROADMAP Queue 1 items by the subsystems they port
 _STREAMING = "streaming and warmup"
-_ROLLUPS = "rollups"
 _REST = "the rest, with no device compute"
 
 # endpoint -> the ROADMAP Queue 1 item that ports it: /api/<name>, or
@@ -68,7 +67,6 @@ UNPORTED: dict[str, tuple[str, str]] = {
     "annotation": (_REST, "meta/ (annotations)"),
     "annotations": (_REST, "meta/ (annotations)"),
     "tree": (_REST, "tree/"),
-    "rollup": (_ROLLUPS, "rollup/"),
     "health": (_REST, "obs/ (health)"),
     "trace": (_REST, "obs/ (request tracing)"),
     "profile": (_REST, "obs/ (sampling profiler)"),
@@ -215,6 +213,7 @@ class HttpRpcRouter:
         # write RPCs (not registered in read-only mode, RpcManager:327)
         if mode in ("rw", "wo"):
             self._routes["put"] = self._handle_put
+            self._routes["rollup"] = self._handle_rollup
             self._routes["histogram"] = self._handle_histogram
         self._routes.update({
             "aggregators": self._handle_aggregators,
@@ -227,10 +226,8 @@ class HttpRpcRouter:
         # the reference's mode gating holds for the unported endpoints
         # too: a route the mode would not register stays a 404
         read_only = {"search", "uid", "annotation", "annotations", "tree"}
-        write_only = {"rollup"}
         for name in UNPORTED:
-            if "/" in name or (name in read_only and mode == "wo") or \
-                    (name in write_only and mode == "ro"):
+            if "/" in name or (name in read_only and mode == "wo"):
                 continue
             self._routes[name] = self._unported(name)
         # set by TSDServer so HTTP diediedie can request shutdown
@@ -423,6 +420,43 @@ class HttpRpcRouter:
             400 if failed else 200,
             request.serializer.format_put(success, failed, errors,
                                           details))
+
+    def _handle_rollup(self, request: HttpRequest, rest) -> HttpResponse:
+        """(ref: RollupDataPointRpc.java:227; ``_handle_rollup``) A put
+        body whose points also carry ``interval`` and ``aggregator``
+        (a tier point) or ``groupByAggregator`` (a pre-aggregate), each
+        written by ``TSDB.add_aggregate_point``: a bad point fails alone.
+        The body's WAL records commit as one write and one fsync."""
+        if request.method != "POST":
+            raise HttpError(405, "Method not allowed")
+        points = request.serializer.parse_put(request.body)
+        success = 0
+        errors: list[dict] = []
+        with self.tsdb._wal_scope():
+            for dp in points:
+                try:
+                    value = dp["value"]
+                    if isinstance(value, str):
+                        value = float(parse_put_value(value,
+                                                      allow_special=True))
+                    self.tsdb.add_aggregate_point(
+                        dp["metric"], int(dp["timestamp"]), value,
+                        dp.get("tags") or {},
+                        bool(dp.get("groupByAggregator")
+                             or dp.get("isGroupBy")),
+                        dp.get("interval"), dp.get("aggregator"),
+                        dp.get("groupByAggregator"))
+                    success += 1
+                except Exception as e:  # noqa: BLE001 - a per-point error
+                    errors.append({"datapoint": dp, "error": str(e)})
+        if errors and not request.flag("details") \
+                and not request.flag("summary"):
+            raise HttpError(400, "One or more data points had errors",
+                            "; ".join(e["error"] for e in errors[:5]))
+        return HttpResponse(
+            400 if errors else 200,
+            request.serializer.format_put(success, len(errors), errors,
+                                          request.flag("details")))
 
     def _handle_histogram(self, request: HttpRequest, rest) -> HttpResponse:
         """(ref: HistogramDataPointRpc.java; ``_handle_histogram``) A put

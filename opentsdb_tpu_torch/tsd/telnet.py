@@ -4,8 +4,7 @@ version, dropcaches, help, exit, diediedie).
 
 Commands return response text, empty when there is nothing to say: a
 successful ``put`` is silent, as PutDataPointRpc.java:129 writes back
-only errors, and so is ``histogram``. ``rollup`` answers an error line
-until the port has rollups.
+only errors, and so are ``rollup`` and ``histogram``.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ class TelnetRouter:
         self.commands: dict[str, Callable[[list[str]], str]] = {}
         if tsdb.mode in ("rw", "wo"):
             self.commands["put"] = self._cmd_put
-            self.commands["rollup"] = self._cmd_unported
+            self.commands["rollup"] = self._cmd_rollup
             self.commands["histogram"] = self._cmd_histogram
         self.commands.update({
             "stats": self._cmd_stats,
@@ -188,10 +187,30 @@ class TelnetRouter:
         except Exception as e:  # noqa: BLE001 - the error line is the answer
             return f"put: {type(e).__name__}: {e}"
 
-    def _cmd_unported(self, words: list[str]) -> str:
-        what = {"rollup": "rollups"}[words[0]]
-        return (f"{words[0]}: not ported yet (ROADMAP Queue 1, "
-                f"{what})")
+    def _cmd_rollup(self, words: list[str]) -> str:
+        """``rollup <interval>:<agg>[:<groupby_agg>] <metric> <ts> <value>
+        <tagk=tagv> [...]``, or ``rollup <groupby_agg> ...`` for a
+        pre-aggregate alone (ref: RollupDataPointRpc's telnet format,
+        ``_cmd_rollup``); silent on success."""
+        if len(words) < 6:
+            return "rollup: illegal argument: not enough arguments"
+        try:
+            spec = words[1].split(":")
+            if len(spec) == 1:
+                interval, agg, gb_agg, is_gb = None, None, spec[0], True
+            elif len(spec) == 2:
+                interval, agg, gb_agg, is_gb = spec[0], spec[1], None, False
+            else:
+                interval, agg, gb_agg, is_gb = spec[0], spec[1], spec[2], True
+            metric = words[2]
+            ts = int(words[3])
+            value = tags_mod.parse_put_value(words[4], allow_special=True)
+            tags = dict(tags_mod.parse(w) for w in words[5:])
+            self.tsdb.add_aggregate_point(metric, ts, value, tags, is_gb,
+                                          interval, agg, gb_agg)
+            return ""
+        except Exception as e:  # noqa: BLE001 - the error line is the answer
+            return f"rollup: {type(e).__name__}: {e}"
 
     def _cmd_histogram(self, words: list[str]) -> str:
         """``histogram <metric> <timestamp> <base64-blob> <tagk=tagv>...``

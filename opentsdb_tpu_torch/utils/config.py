@@ -62,8 +62,8 @@ _DEFAULTS: dict[str, str] = {
     "tsd.storage.wal.resync_interval_ms": "1000",
     #   group commit: the fsync leader may hold a commit window of
     #   this many ms for concurrent writers, cut short by the caps
-    #   below or by a quiet log. "" is 0, or 2 when
-    #   tsd.cluster.role=shard (TSDB._wal_group_window_ms)
+    #   below or by a quiet log. "" is 0 (the reference's 2 on a
+    #   cluster shard needs tsd.cluster.role, which is refused)
     "tsd.storage.wal.group_window_ms": "",
     "tsd.storage.wal.group_max_records": "4096",
     "tsd.storage.wal.group_max_bytes": "4194304",
@@ -112,6 +112,19 @@ _DEFAULTS: dict[str, str] = {
     # the sub-queries of one TSQuery run on a pool of this many threads
     # (0: one after another)
     "tsd.query.fanout.workers": "4",
+    # rollup tiers (rollup/, ref: TSDB.java:170-185): config is a JSON
+    # file of tiers ("" = 1m at a 1d row span and 1h at 1y); agg_tag_key
+    # tags a pre-aggregate point with its group-by aggregator
+    "tsd.rollups.enable": "false",
+    "tsd.rollups.config": "",
+    "tsd.rollups.tag_raw": "false",
+    "tsd.rollups.agg_tag_key": "_aggregate",
+    "tsd.rollups.raw_agg_tag_value": "RAW",
+    "tsd.rollups.block_derived": "true",
+    # tsd.rollups.job.device (unset, as in the reference: false) picks
+    # the rollup job's route: false reduces in the store
+    # (tss_bucket_reduce) and coarsens on the host, true runs the tiles
+    # in PyTorch on tsd.torch.device (rollup/job.py)
 }
 
 

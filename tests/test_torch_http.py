@@ -465,6 +465,107 @@ def test_put_get_rejected(fresh_routers):
     compare("bytes", got, want, {})
 
 
+# -- rollup points (/api/rollup) ---------------------------------------
+
+ROLLUP_ON = {"tsd.rollups.enable": "true"}
+
+
+def _rdp(ts=T0, value=60, interval="1m", agg="sum", host="a", **extra):
+    dp = {"metric": "roll.m", "timestamp": ts, "value": value,
+          "tags": {"host": host}, "interval": interval, "aggregator": agg}
+    dp.update(extra)
+    return {k: v for k, v in dp.items() if v is not None}
+
+
+ROLLUP_PUTS = [
+    ("tier", [_rdp(agg="SUM")], {}),
+    ("batch-details",
+     [_rdp(ts=T0 + 60 * i, value=i * 60, agg=a, host=h)
+      for i in range(10) for a in ("sum", "count") for h in ("a", "b")]
+     + [_rdp(interval="9m")], {"details": "true"}),
+    ("summary", [_rdp(), _rdp(ts=T0 + 60, value=2.5, agg="max")],
+     {"summary": "true"}),
+    ("errors-no-details", [_rdp(), _rdp(agg=None), _rdp(agg="p99")], {}),
+    ("string-values", [_rdp(value="4.5"), _rdp(ts=T0 + 60, value="1_0"),
+                       _rdp(ts=T0 + 120, value="nan"),
+                       _rdp(ts=T0 + 180, value=" 3")], {"details": ""}),
+    ("preagg", [_rdp(interval=None, agg=None, groupByAggregator="sum"),
+                _rdp(groupByAggregator="max", agg="count"),
+                _rdp(interval=None, agg=None, isGroupBy=True)],
+     {"details": ""}),
+    ("missing-fields", [{"metric": "roll.m", "timestamp": T0,
+                         "interval": "1m", "aggregator": "sum"},
+                        {"timestamp": T0, "value": 1, "tags": {"h": "a"},
+                         "interval": "1m", "aggregator": "sum"},
+                        _rdp(ts=None)], {"details": ""}),
+    ("bad-timestamps", [_rdp(ts="abc"), _rdp(ts=(T0 + 30) * 1000),
+                        _rdp(ts=str(T0 + 600))], {"details": ""}),
+    ("bad-names", [_rdp(host="bad v!"), {**_rdp(), "metric": "bad m!"},
+                   {**_rdp(), "tags": {}}], {"details": ""}),
+    ("single-object", _rdp(value=3), {"summary": ""}),
+    ("not-json", b"{nope", {}),
+    ("empty-body", b"", {}),
+]
+
+
+@pytest.fixture
+def rollup_routers():
+    jt, tt = make_pair({**ENGINE_KEYS, **ROLLUP_ON}, {})
+    yield JRouter(jt), HttpRpcRouter(tt)
+    close_pair(jt, tt)
+
+
+@pytest.mark.parametrize("pid,body,params", ROLLUP_PUTS,
+                         ids=[p[0] for p in ROLLUP_PUTS])
+def test_rollup_put(rollup_routers, pid, body, params):
+    """``/api/rollup``: the same status and body as the reference's,
+    then the tiers read back through both."""
+    jr, pr = rollup_routers
+    got, want = send_both(jr, pr, "POST", "/api/rollup", body, **params)
+    compare("bytes", got, want, params)
+    for m in ("sum:1m-sum:roll.m{host=*}", "sum:1m-avg:roll.m",
+              "max:1h-max:roll.m{host=*}", "sum:5m-count:roll.m"):
+        got, want = send_both(jr, pr, "GET", "/api/query", start=T0 - 1,
+                              end=T0 + 3600, m=m, ms="true")
+        assert got.status == want.status
+        if want.status != 200:
+            assert got.body == want.body
+        else:
+            assert_query_close(json.loads(got.body), json.loads(want.body))
+
+
+@pytest.mark.parametrize("method", ["GET", "PUT"])
+def test_rollup_put_method(rollup_routers, method):
+    got, want = send_both(*rollup_routers, method, "/api/rollup",
+                          [_rdp()])
+    compare("bytes", got, want, {})
+
+
+def test_rollup_put_with_rollups_off(fresh_routers):
+    """Rollups off: each point fails with the reference's error."""
+    got, want = send_both(*fresh_routers, "POST", "/api/rollup",
+                          [_rdp(), _rdp(agg="count")], details="")
+    compare("bytes", got, want, {})
+    assert b"rollups are not enabled" in got.body
+
+
+def test_rollup_put_is_one_wal_write(tmp_path):
+    """A body's records land as one WAL write with one fsync."""
+    from opentsdb_tpu_torch import TSDB, Config
+    t = TSDB(Config(**{**COMMON, **ROLLUP_ON,
+                       "tsd.storage.data_dir": str(tmp_path)}))
+    # armed with a schedule that never fails: a counter of fsyncs
+    t.faults.arm("wal.fsync")
+    site = t.faults._sites["wal.fsync"]
+    before = site.calls
+    body = [_rdp(ts=T0 + 60 * i) for i in range(50)]
+    resp = HttpRpcRouter(t).handle(HttpRequest(
+        method="POST", path="/api/rollup", body=json.dumps(body).encode()))
+    assert resp.status == 200
+    assert site.calls - before == 1
+    t.shutdown()
+
+
 # -- what is not ported -------------------------------------------------
 
 def _unported_paths():

@@ -10,10 +10,14 @@ on the CPU.
   unflushed WAL tail, the log closed without a flush) opens in the
   other, with the points equal bit for bit and each package's answer
   equal to the one it gives on its own directory.
-- The snapshot's refusals: rollup tiers, annotations, meta or trees
-  with an entry raise, naming the ROADMAP item; the empty files the
-  reference writes load (histograms load:
-  ``tests/test_torch_histogram.py``).
+- The snapshot's refusals: annotations, meta or trees with an entry
+  raise, naming the ROADMAP item; the empty files the reference writes
+  load (histograms load: ``tests/test_torch_histogram.py``).
+- Rollup stores: the ``rollup-*`` directories equal the reference's
+  for the same writes and cross-read; a tier the config no longer holds
+  is skipped, and with rollups off the directories are left in place;
+  the crash-after-each-step test again with the rollup stores' files
+  in the swap.
 - Flush and shutdown: the flush retry policy, a flush without a
   data_dir, shutdown's flush.
 - The atomic swap of the five files: a save crashed after each of its
@@ -33,8 +37,9 @@ import numpy as np
 import pytest
 
 from test_torch_histogram import blob, hist_state
-from test_torch_wal import (T0, answers, assert_same_series, jtsdb, ptsdb,
-                            same_bits, segments, series_of, write_all)
+from test_torch_wal import (ROLLUPS, T0, answers, assert_same_series,
+                            jtsdb, ptsdb, rollup_state, same_bits, segments,
+                            series_of, write_all, write_rollups)
 
 from opentsdb_tpu_torch.core import persist
 from opentsdb_tpu_torch.utils.faults import InjectedFault
@@ -121,10 +126,20 @@ def _refused(d: Path, name: str):
 @pytest.mark.parametrize("name", ["rollup", "annotations", "meta",
                                   "trees"])
 def test_snapshot_refuses_unported_entries(tmp_path, name):
+    """Entries of an unported subsystem are refused by name. Rollup
+    stores are ported: with rollups off their directories are left
+    unread and in place, as the reference leaves them."""
     t = ptsdb(tmp_path)
     t.add_point("m", T0, 1, {"h": "a"})
     t.shutdown()
     item = _refused(tmp_path, name)
+    if item == "rollups":
+        t = ptsdb(tmp_path)
+        assert t.rollup_store is None
+        assert t.store.series_points(0)[1].tolist() == [1.0]
+        t.shutdown()
+        assert (tmp_path / "rollup-1m-sum" / "series.json").is_file()
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1, {item}"):
         ptsdb(tmp_path)
@@ -331,3 +346,140 @@ def test_torn_reference_style_snapshot_is_refused(tmp_path, run, writer):
             rf"torn snapshot: .*series\.json indexes {new_total} points, "
             rf"but .*points\.npz holds {old_total}")):
         ptsdb(d)
+
+
+# -- rollup stores in the snapshot -----------------------------------------
+
+def _rollup_files(d: Path) -> list:
+    return sorted(str(p.relative_to(d)) for p in d.glob("rollup-*/*"))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rollup_snapshot_bytes_equal_reference(tmp_path, seed):
+    """The same rollup writes flushed by both packages: the same
+    ``rollup-*`` directories, ``series.json`` bytes and ``points.npz``
+    arrays."""
+    j = jtsdb(tmp_path / "j", **ROLLUPS)
+    p = ptsdb(tmp_path / "p", **ROLLUPS)
+    for t in (j, p):
+        write_rollups(t, seed)
+        t.flush()
+    names = _rollup_files(tmp_path / "j")
+    assert names == _rollup_files(tmp_path / "p") and len(names) == 8
+    for name in names:
+        a, b = tmp_path / "j" / name, tmp_path / "p" / name
+        if name.endswith(".json"):
+            assert b.read_bytes() == a.read_bytes(), name
+            continue
+        jz, pz = np.load(a), np.load(b)
+        assert sorted(jz.files) == sorted(pz.files)
+        for k in jz.files:
+            np.testing.assert_array_equal(
+                pz[k].view(np.int64) if k == "vals" else pz[k],
+                jz[k].view(np.int64) if k == "vals" else jz[k])
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_rollup_snapshot_cross_reads(tmp_path, writer):
+    """A snapshot with rollup stores plus a WAL tail of rollup records
+    opens in the other package with every store bit for bit."""
+    make_w, make_r = (jtsdb, ptsdb) if writer == "jax" else (ptsdb, jtsdb)
+    w = make_w(tmp_path, **ROLLUPS)
+    write_rollups(w, 5)
+    w.flush()
+    w.add_aggregate_point("r.m", T0 + 900, 3.0, {"host": "z"}, False, "1h",
+                          "min")
+    want = rollup_state(w)
+    w.wal.close()
+    r = make_r(tmp_path, **ROLLUPS)
+    assert rollup_state(r) == want
+
+
+def test_unconfigured_tier_dir_is_skipped(tmp_path, caplog):
+    """A ``rollup-*`` directory of a tier the config no longer holds is
+    skipped with a log line (the reference skips it silently); the
+    other stores load."""
+    p = ptsdb(tmp_path, **ROLLUPS)
+    write_rollups(p, 6)
+    p.shutdown()
+    want = {k: v for k, v in rollup_state(p).items()
+            if not k[0].startswith("1h:")}
+    cfg = tmp_path / "tiers.json"
+    cfg.write_text('[{"interval": "1m"}]')
+    extra = {**ROLLUPS, "tsd.rollups.config": str(cfg)}
+    with caplog.at_level("WARNING", logger="persist"):
+        t = ptsdb(tmp_path, **extra)
+    assert rollup_state(t) == want
+    assert any("rollup-1h-max skipped" in r.getMessage()
+               for r in caplog.records)
+    ref = jtsdb(tmp_path, **extra)
+    assert rollup_state(ref) == want
+
+
+def test_rollup_dirs_left_in_place_with_rollups_off(tmp_path):
+    p = ptsdb(tmp_path, **ROLLUPS)
+    write_rollups(p, 7)
+    p.shutdown()
+    want = rollup_state(p)
+    before = _rollup_files(tmp_path)
+    t = ptsdb(tmp_path)
+    assert t.rollup_store is None
+    t.add_point("m", T0, 1.0, {"h": "a"})
+    t.shutdown()
+    assert _rollup_files(tmp_path) == before
+    assert rollup_state(ptsdb(tmp_path, **ROLLUPS)) == want
+
+
+def _rollup_run(t, phase):
+    _run1(t, phase)
+    hosts = ("a",) if phase == 0 else ("b", "c")
+    for h in hosts:
+        for j in range(3):
+            t.add_aggregate_point("r.m", T0 + 60 * j, float(j + ord(h)),
+                                  {"host": h}, False, "1m", "sum")
+    if phase == 0:
+        t.add_aggregate_point("r.m", T0, 2.0, {"dc": "x"}, True, None, None,
+                              "sum")
+    else:
+        t.add_aggregate_point("r.m", T0, 4.0, {"host": "a"}, False, "1h",
+                              "count")
+
+
+# with rollups on, the second flush stages uids, data's two files,
+# histograms, the 1h count, 1m sum and preagg stores' two files each,
+# and META: 11 files, then the marker
+ROLLUP_CRASH_POINTS = ([f"stage:{k}" for k in range(1, 13)] + ["marker"]
+                       + [f"rename:{k}" for k in range(1, 12)] + ["saved"])
+
+
+@pytest.mark.parametrize("point", ROLLUP_CRASH_POINTS)
+def test_crashed_save_with_rollups_reads_every_point_back(tmp_path,
+                                                          monkeypatch,
+                                                          point):
+    """The atomic swap covers the rollup stores' files: a save crashed
+    after any step leaves a directory from which every acknowledged raw,
+    histogram and rollup point reads back, in the port and in the
+    reference."""
+    t = ptsdb(tmp_path / "d", **ROLLUPS)
+    _rollup_run(t, 0)
+    t.flush()
+    _rollup_run(t, 1)
+    with monkeypatch.context() as m:
+        _crash_at(m, t, point)
+        with pytest.raises(Crash):
+            t.flush()
+    t.wal.close()
+    staged = list((tmp_path / "d").rglob("*.staged"))
+    assert bool(staged) == (point not in ("rename:11", "saved"))
+    want = ptsdb(tmp_path / "w", **ROLLUPS)
+    _rollup_run(want, 0)
+    _rollup_run(want, 1)
+    got = ptsdb(tmp_path / "d", **ROLLUPS)
+    assert not list((tmp_path / "d").rglob("*.staged"))
+    assert not (tmp_path / "d" / persist.MARKER).exists()
+    assert_same_series(series_of(got), series_of(want))
+    assert rollup_state(got) == rollup_state(want) != {}
+    assert hist_state(got) == hist_state(want)
+    got.shutdown()
+    ref = jtsdb(tmp_path / "d", **ROLLUPS)
+    assert rollup_state(ref) == rollup_state(want)

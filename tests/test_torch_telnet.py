@@ -135,9 +135,14 @@ def test_commands(pair):
 
 @pytest.mark.parametrize("cmd", ["rollup"])
 def test_unported_commands(pair, cmd):
-    _, tt = pair
-    line = TelnetRouter(tt).execute(f"{cmd} 1m:sum m {T0} 1 host=a")
-    assert line.startswith(f"{cmd}: not ported yet (ROADMAP Queue 1")
+    """``rollup`` was the last unported command: with rollups off it
+    answers the reference's error line."""
+    jt, tt = pair
+    line = f"{cmd} 1m:sum m {T0} 1 host=a"
+    got = TelnetRouter(tt).execute(line)
+    assert got == JTelnet(jt).execute(line) == (
+        "rollup: RuntimeError: rollups are not enabled "
+        "(tsd.rollups.enable=false)")
 
 
 def test_read_only_has_no_put():
@@ -145,3 +150,52 @@ def test_read_only_has_no_put():
     t = TSDB(Config(**{"tsd.torch.device": "cpu", "tsd.mode": "ro"}))
     assert TelnetRouter(t).execute(f"put m {T0} 1 h=a") == \
         "error: unknown command: put"
+
+
+# -- rollup lines ----------------------------------------------------------
+
+GOOD_ROLLUP = (
+    [f"rollup 1m:{agg} roll.m {T0 + 60 * j} {v} host=h{i}"
+     for i in range(2) for j in range(10)
+     for agg, v in (("sum", 60 * j + i), ("count", 60))]
+    + [f"rollup 1h:MAX roll.m {T0} 7.5 host=h0",
+       f"rollup sum roll.m {T0} 5 dc=x",
+       f"rollup 1m:sum:max roll.m {T0 + 60} 6 dc=x",
+       f"rollup 1m:sum roll.m {T0 + 120} nan host=h1"])
+BAD_ROLLUP = [
+    "rollup",
+    f"rollup 1m:sum roll.m {T0} 1",
+    f"rollup 9m:sum roll.m {T0} 1 host=a",
+    f"rollup 1m:p99 roll.m {T0} 1 host=a",
+    f"rollup 1m:sum roll.m abc 1 host=a",
+    f"rollup 1m:sum roll.m {T0} 1_0 host=a",
+    f"rollup 1m:sum roll.m {T0} x host=a",
+    f"rollup 1m:sum bad! {T0} 1 host=a",
+    f"rollup 1m:sum roll.m {T0} 1 hosta",
+    f"rollup 1m:sum roll.m {T0} 1 host=a=b",
+]
+
+
+@pytest.fixture(params=["engine", "grid"])
+def rollup_pair(request):
+    keys = {"engine": ENGINE_KEYS, "grid": GRID_ON}[request.param]
+    jt, tt = make_pair({**keys, "tsd.rollups.enable": "true"}, {})
+    yield jt, tt
+    close_pair(jt, tt)
+
+
+def test_rollup_lines(rollup_pair):
+    """Each ``rollup`` line answers what the reference answers (silent
+    on success), by line and by burst, and the tiers read back alike."""
+    jt, tt = rollup_pair
+    jr, pr = JTelnet(jt), TelnetRouter(tt)
+    lines = GOOD_ROLLUP + BAD_ROLLUP
+    want = [jr.execute(ln) for ln in lines]
+    assert [pr.execute(ln) for ln in lines] == want
+    assert not any(want[:len(GOOD_ROLLUP)])
+    assert all(want[len(GOOD_ROLLUP):])
+    resp, exc = pr.execute_lines(lines)
+    assert exc is None and resp == [w for w in want if w]
+    for m in ("sum:1m-sum:roll.m{host=*}", "sum:2m-avg:roll.m{host=*}",
+              "max:1h-max:roll.m", "sum:1m-count:roll.m"):
+        _query_both(jt, tt, m)

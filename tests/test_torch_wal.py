@@ -14,8 +14,11 @@ against the JAX package's (``opentsdb_tpu/core/wal.py``), on the CPU.
   and every case of ``tests/test_wal_torn_tail.py``, on the port
   (histogram records: ``tests/test_torch_histogram.py``).
 - Refusals: a log holding a record of a subsystem the port lacks
-  (annotations, rollup stores) raises, naming the ROADMAP item; the
-  memory store with a data_dir raises.
+  (annotations) raises, naming the ROADMAP item; a rollup store's
+  record with rollups off raises, naming the key (the reference drops
+  it: ROADMAP Queue 3); the memory store with a data_dir raises.
+- Rollup records (``preagg``, ``tier:*``): the same bytes as the
+  reference's, replayed by either package, after a snapshot too.
 """
 
 import os
@@ -479,11 +482,19 @@ def _reference_record(w, kind: str) -> None:
     ("preagg", "rollups"),
     ("tier:1m:sum", "rollups")])
 def test_replay_refuses_unported_records(tmp_path, kind, item):
+    """A record of a subsystem the port lacks is refused by name; a
+    rollup store's record (ported) with rollups off is refused naming
+    the key that turns them on (ROADMAP Queue 3: the reference drops
+    it)."""
     w = jwal.WriteAheadLog(str(tmp_path / "wal"), fsync_mode="never")
     w.ensure_series("data", 0, "m", {"h": "a"})
     w.log_point("data", 0, T0 * 1000, 1.0, False)
     _reference_record(w, kind)
     w.close()
+    if item == "rollups":
+        with pytest.raises(ValueError, match="set tsd.rollups.enable=true"):
+            ptsdb(tmp_path)
+        return
     with pytest.raises(twal.UnportedRecordError,
                        match=f"ROADMAP Queue 1, {item}"):
         ptsdb(tmp_path)
@@ -521,3 +532,123 @@ def test_replay_creates_uids_whatever_the_auto_create_keys(tmp_path):
     p = ptsdb(tmp_path / "p", **strict)
     assert p.recovery["points_replayed"] == 3
     assert _sum(p, "m") == {T0: 0.0, T0 + 1: 1.0, T0 + 2: 2.0}
+
+
+# -- rollup stores' records (kinds preagg and tier:<interval>:<agg>) ----------
+
+ROLLUPS = {"tsd.rollups.enable": "true"}
+
+
+def write_rollups(t, seed: int) -> None:
+    """Tier and pre-aggregate points through ``add_aggregate_point``:
+    two tiers of one interval, a second interval, a preagg point and a
+    pre-aggregate in a tier, int and float values, a duplicate."""
+    rng = np.random.default_rng(seed)
+    for h in ("a", "b"):
+        for j in range(5):
+            t.add_aggregate_point("r.m", T0 + 60 * j,
+                                  float(rng.normal(100, 5)), {"host": h},
+                                  False, "1m", "sum")
+            t.add_aggregate_point("r.m", T0 + 60 * j, 60, {"host": h},
+                                  False, "1m", "count")
+        t.add_aggregate_point("r.m", T0, float(rng.normal()), {"host": h},
+                              False, "1h", "MAX")
+    t.add_aggregate_point("r.m", T0, 5.0, {"dc": "x"}, True, None, None,
+                          "sum")
+    t.add_aggregate_point("r.m", T0 + 60, 6, {"dc": "x"}, True, "1m", "sum",
+                          "max")
+    t.add_aggregate_point("r.m", T0, 1.5, {"host": "a"}, False, "1m", "sum")
+
+
+def rollup_state(t) -> dict:
+    """Every rollup store series' points, keyed by the store, metric
+    and tag names; values as their bits."""
+    rs = t.rollup_store
+    stores = [("preagg", rs.preagg_store())] + [
+        (f"{iv}:{agg}", st) for (iv, agg), st in sorted(rs._tiers.items())]
+    out = {}
+    for kind, st in stores:
+        for mid in st.metric_ids():
+            for sid in st.series_ids_for_metric(mid):
+                rec = st.series(int(sid))
+                b = st.materialize([int(sid)], 0, 2 ** 62)
+                key = (kind, t.uids.metrics.get_name(mid), tuple(sorted(
+                    (t.uids.tag_names.get_name(k),
+                     t.uids.tag_values.get_name(v)) for k, v in rec.tags)))
+                out[key] = (b.ts_ms.tolist(),
+                            b.values.view(np.int64).tolist())
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rollup_wal_bytes_equal_reference(tmp_path, seed):
+    j = jtsdb(tmp_path / "j", **ROLLUPS)
+    p = ptsdb(tmp_path / "p", **ROLLUPS)
+    for t in (j, p):
+        write_rollups(t, seed)
+    js, ps = segments(tmp_path / "j"), segments(tmp_path / "p")
+    assert [a.read_bytes() for a in js] == [b.read_bytes() for b in ps]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_rollup_records_cross_replay(tmp_path, writer):
+    """A log of rollup records, closed without a flush, replays in
+    either package into the same stores bit for bit."""
+    make_w, make_r = (jtsdb, ptsdb) if writer == "jax" else (ptsdb, jtsdb)
+    w = make_w(tmp_path / "theirs", **ROLLUPS)
+    write_rollups(w, 3)
+    write_all(w, 3)
+    want = rollup_state(w)
+    assert len(want) == 8
+    w.wal.close()
+    r = make_r(tmp_path / "theirs", **ROLLUPS)
+    assert rollup_state(r) == want
+    assert_same_series(series_of(r), series_of(w))
+    own = make_r(tmp_path / "mine", **ROLLUPS)
+    write_rollups(own, 3)
+    assert rollup_state(own) == want
+
+
+def test_rollup_records_after_a_snapshot(tmp_path):
+    """The snapshot's tier series keep their numbering (seed_known), so
+    a tail of records on them replays onto the same series."""
+    p = ptsdb(tmp_path, **ROLLUPS)
+    write_rollups(p, 4)
+    p.flush()
+    p.add_aggregate_point("r.m", T0 + 600, 9.0, {"host": "a"}, False, "1m",
+                          "sum")
+    p.add_aggregate_point("r.m", T0 + 600, 2.0, {"host": "c"}, False, "1m",
+                          "sum")
+    want = rollup_state(p)
+    p.wal.close()
+    assert rollup_state(ptsdb(tmp_path, **ROLLUPS)) == want
+    assert rollup_state(jtsdb(tmp_path, **ROLLUPS)) == want
+
+
+def test_rollup_record_with_rollups_off_diverges(tmp_path):
+    """ROADMAP Queue 3: a tier or preagg record replayed with rollups
+    off. The reference logs the error and drops the record (its data
+    point is gone); the port raises, naming the key."""
+    w = ptsdb(tmp_path / "d", **ROLLUPS)
+    w.add_point("m", T0, 1.0, {"h": "a"})
+    w.add_aggregate_point("m", T0, 60.0, {"h": "a"}, False, "1m", "sum")
+    w.wal.close()
+    ref = jtsdb(tmp_path / "d")
+    assert ref.rollup_store is None
+    assert ref.store.total_points() == 1
+    with pytest.raises(ValueError, match="rollup store 'tier:1m:sum', but "
+                       "rollups are off: set tsd.rollups.enable=true"):
+        ptsdb(tmp_path / "d")
+
+
+def test_tier_record_of_an_unconfigured_tier_raises(tmp_path):
+    """A tier the rollup config no longer holds: the port raises (the
+    reference drops the record, as above)."""
+    w = ptsdb(tmp_path, **ROLLUPS)
+    w.add_aggregate_point("m", T0, 1.0, {"h": "a"}, False, "1h", "sum")
+    w.wal.close()
+    cfg = tmp_path / "tiers.json"
+    cfg.write_text('[{"interval": "1m"}]')
+    with pytest.raises(ValueError, match="no rollup tier for interval "
+                       "'1h'"):
+        ptsdb(tmp_path, **ROLLUPS, **{"tsd.rollups.config": str(cfg)})

@@ -132,8 +132,16 @@ class TestGroupCommitWindow:
         ("", "7", 7.0)])
     def test_group_window_follows_the_role(self, tmp_path, role, raw,
                                            want):
-        t = ptsdb(tmp_path, **{"tsd.cluster.role": role,
-                               "tsd.storage.wal.group_window_ms": raw})
+        """The reference's window is ``want`` ms; a shard role (the
+        cluster, not ported) is refused when the TSDB is built."""
+        keys = {"tsd.cluster.role": role,
+                "tsd.storage.wal.group_window_ms": raw}
+        if role:
+            with pytest.raises(NotImplementedError,
+                               match="tsd.cluster.role=shard"):
+                ptsdb(tmp_path, **keys)
+            return
+        t = ptsdb(tmp_path, **keys)
         assert t.wal.health_info()["group_window_ms"] == want
         t.wal.close()
 
