@@ -147,8 +147,9 @@
    from the WAL alone and from the snapshot;
 13. rollups, BASELINE config 5 (``bench_e2e.py:287-337``), on a fresh
    TSDB on the native store with ``tsd.rollups.enable`` (tiers 1m and
-   1h) at the default keys but the result cache: (a) 100k series of
-   ``sys.cpu.user`` (config 3's tags) x 3600 points a second apart,
+   1h) at the default keys but the result cache: (a) 50k series (CUT
+   from config 5's 100k) of ``sys.cpu.user`` (config 3's tags) x 3600
+   points a second apart,
    ``normal(100, 15)`` from seed 5, by ``add_series_points`` and
    ``append_grid``; ``run_rollup_job`` over the hour by the storage
    route (the default) and then, on fresh tiers, with
@@ -171,15 +172,50 @@
    line to the TSD server with the WAL on (points/s), read back
    exactly, and the same after a restart from the WAL alone and from
    the snapshot;
-14. prints the run's wall time, the ``histogram`` and ``rollup`` lines,
-   one JSON line describing each kernel (its launches are those of
-   phases 3, 5, 8, 6, 9, 10 and 13; phases 11 and 12 launch neither),
-   the card line and, last, ``{"ok": true, "device": {...}}``. Each
-   phase's header says how far into the run it starts.
+14. continuous queries and the server warmup, the live dashboard of
+   ``bench_e2e.py:335-431`` (``bench_live``) at config 5's width: a
+   fresh TSDB on the native store at the default keys but the result
+   cache, 100k series of ``sys.cpu.user`` (config 3's tags) x 600
+   points a second apart (CUT from ``bench_live``'s 1800),
+   ``normal(100, 10)`` from seed 11, by
+   ``append_grid``, the 1,000 hosts of ``dc2`` silent for 3 minutes
+   halfway. Standing queries over the 10 minutes: (a) ``sum:1m-avg``
+   by ``dc`` and ``avg:1m-max`` by ``rack`` (both filter on both
+   keys, so they share one partial), (b) 16 copies of (a)'s first,
+   (c) ``sum:1m-sum`` sliding 5m and hopping 5m/2m, (d) sessions at a
+   2m gap over ``dc2``, (e) p99 and p99.9 over ``dc1``. 2 rounds (CUT
+   from 5) of live traffic (500 ``add_point``, 10,000 points by
+   ``/api/put`` and 1,000 telnet lines each); after every round (a)
+   and (b) pulled by ``execute_query`` and HTTP are served from the
+   windows
+   (``serve_hits``, ``streamingHit``) and equal the batch engine on
+   the grid path and, over the first 5 minutes, on the point path
+   (K1 by ``dc``, K2 by ``rack``, launches counted); (c) and (d)'s
+   ``/result`` equal a numpy float64 fold of the raw points; (e)
+   equals the batch sketch path bit for bit; an SSE subscriber over a
+   socket gets its snapshot and a ``windows`` event per round (push
+   latency). Then ``stream.fold`` armed once (a shed, a rebuild),
+   persistently (the breaker opens, pulls shed equal to batch,
+   ``/result`` 503 with Retry-After, no 500) and disarmed (the probe
+   closes it); the tail's device time, the refresh p50 against the
+   full recompute, ``add_point`` p50 with 0, 10 and 50 standing
+   queries, fold seconds for 1 query and 16 sharing a partial, and
+   the ring's bytes; last, 10k series snapshotted into a data_dir and
+   ``tools/cli.py tsd`` started on it twice, with ``tsd.tpu.warmup``
+   on (its class count and seconds) and off, the first ``/api/query``
+   timed after each. Prints the ``streaming`` line;
+15. prints the run's wall time, the ``histogram``, ``rollup`` and
+   ``streaming`` lines, one JSON line describing each kernel (its
+   launches are those of phases 3, 5, 8, 6, 9, 10, 13 and 14; phases
+   11 and 12 launch neither), the card line and, last, ``{"ok": true,
+   "device": {...}}``. Each phase's header says how far into the run
+   it starts.
 
-Phases 3-8, 11 and 13 run on the default store, the native one. Phases
-3-5, 7, 9, 11, 12 and 13 run with the result cache off, so that every
-call reaches the path it measures.
+Phases 3-8, 11, 13 and 14 run on the default store, the native one.
+Phases 3-5, 7, 9, 11, 12, 13 and 14 run with the result cache off, so
+that every call reaches the path it measures. The phases that start a
+TSD server in process pin ``tsd.tpu.warmup=false``, so that no warmup
+runs on the card while they time it.
 
 Any failure exits non-zero without the last line. Without a CUDA card,
 or outside a checkout of the repository, it exits 2.
@@ -949,6 +985,8 @@ def phase_serve(torch, tsdb, query, ref3: dict, last_tags: dict) -> dict:
 
 
 # phase 8: the front end (HTTP and telnet on one port)
+# phase 8's repeats and volumes, CUT for the run's time limit (from 5
+# HTTP and 3 direct calls, 8 clients and 1M points)
 FE_REPEATS = 5             # HTTP calls per query in (a), 1 POST + 4 GET
 FE_DIRECT = 3              # direct execute_query calls per query in (a)
 FE_CLIENTS = 8             # concurrent HTTP clients in (d)
@@ -1055,7 +1093,7 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
     ser = HttpJsonSerializer.for_tsdb(tsdb)
     q0 = query(QUERIES[0][0])
     start, end = q0.start, q0.end
-    st = ServerThread(tsdb, host="127.0.0.1", port=0).start()
+    st = serve_pinned(ServerThread, tsdb)
     print(f"  server on 127.0.0.1:{st.port} (ephemeral), keys of phase 3")
     total = {"span_reduce": 0, "onehot_reduce": 0}
 
@@ -1852,7 +1890,7 @@ def phase_durability(torch, n_series: int, query) -> dict:
 
         # (b) /api/put with the WAL on
         put_db = durable(root / "b")
-        st = ServerThread(put_db, host="127.0.0.1", port=0).start()
+        st = serve_pinned(ServerThread, put_db)
         try:
             put_s = put_points(st.port, "sys.wal.put")
             syncs = put_db.wal.group_syncs
@@ -2510,7 +2548,7 @@ def hist_front_end(counts, bounds, prefix: bytes, tags, keys: dict) -> None:
     merged[0] += counts[0, n]
     want = hist_percentiles(merged, bounds, HIST_QS)
     tsdb = TSDB(Config(**dkeys))
-    st = ServerThread(tsdb, host="127.0.0.1", port=0).start()
+    st = serve_pinned(ServerThread, tsdb)
     try:
         conn = http.client.HTTPConnection("127.0.0.1", st.port, timeout=600)
         t = time.perf_counter()
@@ -2572,7 +2610,7 @@ def hist_front_end(counts, bounds, prefix: bytes, tags, keys: dict) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
-ROLLUP_SERIES = 100_000    # phase 13: BASELINE config 5's series
+ROLLUP_SERIES = 50_000     # phase 13: CUT from config 5's 100,000
 ROLLUP_POINTS = 3600       # phase 13: one hour at one point a second
 ROLLUP_CHUNK = 2_000       # phase 13: series per ingest call
 ROLLUP_SAMPLE = 100        # phase 13 (a): 1 in 100 series held to numpy
@@ -3084,7 +3122,7 @@ def rollup_front_end(keys: dict) -> None:
     queries[f"max:1h-max:{mf}{{host=*}}"] = rollup_query(
         f"max:1h-max:{mf}{{host=*}}", hours=hours)
     tsdb = TSDB(Config(**dkeys))
-    st = ServerThread(tsdb, host="127.0.0.1", port=0).start()
+    st = serve_pinned(ServerThread, tsdb)
     try:
         conn = http.client.HTTPConnection("127.0.0.1", st.port, timeout=600)
         body_pts = dps + pre
@@ -3164,8 +3202,807 @@ def rollup_front_end(keys: dict) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 14: continuous queries (streaming/) and the server warmup, the
+# live dashboard of bench_e2e.py:335-431 (bench_live) at config 5's width
+LIVE_SERIES = 100_000      # bench_live's 5,000 raised to config 5's width
+LIVE_SPAN_S = 600          # 10 minutes at 1 s, CUT from bench_live's 30
+LIVE_CHUNK = 10_000        # series per append_grid
+LIVE_ROUNDS = 2            # CUT from 5, for the run's time limit
+LIVE_TICK_HOSTS = 500      # add_point per round (bench_live)
+LIVE_PUT_POINTS = 10_000   # /api/put per round, past buffer_points
+LIVE_PUT_BODY = 1_000
+LIVE_TEL_LINES = 1_000     # telnet put per round
+LIVE_PREFIX_S = 300        # the point-path comparison's window
+LIVE_GAP_S = (300, 480)    # dc2's hosts write nothing in [5 m, 8 m)
+LIVE_SHARED = 16           # (b): copies of (a)'s first query
+LIVE_WARM_SERIES = 10_000  # the warmup's data_dir
+LIVE_WARM_SPAN_S = 300
+LIVE_TAX_TICKS = 2_000     # add_point calls per ingest-tax reading
+LIVE_FOLD_POINTS = 240_000  # points folded per fold-seconds reading
+LIVE_BREAKER_RESET_MS = 1000
+
+
+def live_query(agg: str, ds: str, filters: list, window=None,
+               pct=None, end_s: int = LIVE_SPAN_S) -> dict:
+    """One standing query's JSON over [T0, T0 + end_s)."""
+    sub = {"metric": METRIC, "aggregator": agg, "downsample": ds,
+           "filters": filters}
+    if pct:
+        sub["percentiles"] = pct
+    q = {"start": T0 * 1000, "end": (T0 + end_s) * 1000 - 1,
+         "queries": [sub]}
+    if window:
+        q["window"] = window
+    return q
+
+
+def _wild(tagk: str, group_by: bool) -> dict:
+    return {"type": "wildcard", "tagk": tagk, "filter": "*",
+            "groupBy": group_by}
+
+
+def _lit(tagk: str, value: str) -> dict:
+    return {"type": "literal_or", "tagk": tagk, "filter": value,
+            "groupBy": False}
+
+
+def live_tags(i: int) -> dict:
+    return {"host": f"h{i}", "dc": f"dc{i % 100}", "rack": f"r{i % 2000}"}
+
+
+def streamed_close(got, want, what: str) -> float:
+    """Result groups of two runs of one query: the same groups and
+    timestamps, values within TOL_REL * |want| + TOL_ABS (every term of
+    these sums and maxes is positive, so |want| is their sum|terms|).
+    Returns the max |got - want|."""
+    import numpy as np
+    gm = {tuple(sorted(r.tags.items())): r.dps_arrays for r in got}
+    wm = {tuple(sorted(r.tags.items())): r.dps_arrays for r in want}
+    check(gm.keys() == wm.keys() and len(wm) > 0,
+          f"{what}: groups differ ({len(gm)} against {len(wm)})")
+    worst = 0.0
+    for key, (wt, wv) in wm.items():
+        gt, gv = gm[key]
+        check(np.array_equal(gt, wt), f"{what}: timestamps differ")
+        check(bool(np.array_equal(np.isnan(gv), np.isnan(wv))),
+              f"{what}: NaN positions differ")
+        err = np.abs(np.nan_to_num(gv - wv))
+        bad = err > TOL_REL * np.abs(np.nan_to_num(wv)) + TOL_ABS
+        check(not bad.any(), f"{what}: {key} differs, max |d| "
+              f"{float(err.max())!r}")
+        worst = max(worst, float(err.max(initial=0.0)))
+    return worst
+
+
+class SseReader(threading.Thread):
+    """Reads one event stream over a socket and records the arrival of
+    every event by type."""
+
+    def __init__(self, port: int, path: str):
+        import socket
+        super().__init__(name="smoke-sse-reader", daemon=True)
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=600)
+        self.sock.sendall(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n"
+                          "Accept-Encoding: gzip\r\n\r\n".encode())
+        self.cond = threading.Condition()
+        self.arrivals: list[tuple[str, float]] = []
+        self.head = b""
+        self.error = None
+
+    def run(self) -> None:
+        buf = b""
+        try:
+            while True:
+                chunk = self.sock.recv(1 << 16)
+                if not chunk:
+                    return
+                now = time.perf_counter()
+                buf += chunk
+                if not self.head and b"\r\n\r\n" in buf:
+                    self.head, buf = buf.split(b"\r\n\r\n", 1)
+                while b"\n\n" in buf:
+                    block, buf = buf.split(b"\n\n", 1)
+                    for line in block.split(b"\n"):
+                        if line.startswith(b"event: "):
+                            with self.cond:
+                                self.arrivals.append(
+                                    (line[7:].decode(), now))
+                                self.cond.notify_all()
+        except OSError as e:
+            self.error = e
+
+    def wait_count(self, event: str, n: int, timeout: float = 60.0):
+        deadline = time.perf_counter() + timeout
+        with self.cond:
+            while sum(e == event for e, _ in self.arrivals) < n:
+                left = deadline - time.perf_counter()
+                check(left > 0, f"no {event} event {n} over SSE")
+                self.cond.wait(left)
+            return [t for e, t in self.arrivals if e == event][n - 1]
+
+    def close(self) -> None:
+        import socket
+        # shutdown wakes the reader's recv; close alone would not
+        self.sock.shutdown(socket.SHUT_RDWR)
+        self.sock.close()
+        self.join(30)
+
+
+def live_oracles(minute_sums, dc2_sums, dc2_counts):
+    """The windowed views' float64 answers from per-minute sums of the
+    raw points: (sliding 5m, hopping 5m/2m) of the total, and each dc2
+    series' sessions at a 2m gap, {host index: {edge ms: sum}}."""
+    import numpy as np
+    edges = T0 * 1000 + 60_000 * np.arange(LIVE_SPAN_S // 60)
+    k = 5
+    sliding = {int(e): float(minute_sums[max(0, i - k + 1):i + 1].sum())
+               for i, e in enumerate(edges)}
+    hopping = {e: v for e, v in sliding.items() if e % 120_000 == 0}
+    sessions = {}
+    for idx in dc2_sums:
+        present = np.flatnonzero(dc2_counts[idx] > 0)
+        out, first = {}, None
+        for j, b in enumerate(present):
+            if j == 0 or edges[b] - edges[present[j - 1]] > 120_000:
+                first = int(edges[b])
+                out[first] = 0.0
+            out[first] += float(dc2_sums[idx][b])
+        sessions[idx] = out
+    return sliding, hopping, sessions
+
+
+def warm_server_first_query(data_dir: Path, warm: bool) -> dict:
+    """Start ``tools/cli.py tsd`` on ``data_dir`` in a subprocess,
+    wait for its listening line (and, with warmup on, its warmup line),
+    time the first ``/api/query``, and kill it."""
+    import http.client
+    import re
+    import signal
+    cmd = [sys.executable, "-m", "opentsdb_tpu_torch.tools.cli", "tsd",
+           "--tsd.network.port=0", "--tsd.network.bind=127.0.0.1",
+           f"--tsd.storage.data_dir={data_dir}",
+           f"--tsd.tpu.warmup={'true' if warm else 'false'}"]
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines: dict[str, list] = {"out": [], "err": []}
+    cond = threading.Condition()
+
+    def pump(stream, key):
+        for line in stream:
+            with cond:
+                lines[key].append((time.perf_counter(), line.rstrip()))
+                cond.notify_all()
+
+    readers = [threading.Thread(target=pump, args=(proc.stdout, "out"),
+                                daemon=True),
+               threading.Thread(target=pump, args=(proc.stderr, "err"),
+                                daemon=True)]
+    for r in readers:
+        r.start()
+
+    def wait_for(key: str, pattern: str, timeout: float = 300.0):
+        deadline = time.perf_counter() + timeout
+        with cond:
+            while True:
+                for t, line in lines[key]:
+                    m = re.search(pattern, line)
+                    if m:
+                        return t, m
+                left = deadline - time.perf_counter()
+                if left <= 0 or proc.poll() is not None:
+                    raise SmokeFailure(
+                        f"no {pattern!r} from the TSD: "
+                        + " | ".join(ln for _, ln in lines["err"][-5:]))
+                cond.wait(min(left, 1.0))
+
+    try:
+        t_listen, m = wait_for("out", r"TSD listening on \S+:(\d+)")
+        port = int(m.group(1))
+        out = {"listen_s": t_listen - t_start}
+        if warm:
+            t_warm, m = wait_for("err", r"warmup: (\d+) classes in "
+                                 r"([0-9.]+)s")
+            out["classes"] = int(m.group(1))
+            out["warmup_s"] = float(m.group(2))
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        status, data, secs = _http(
+            conn, "GET", f"/api/query?start={T0}&end="
+            f"{T0 + LIVE_WARM_SPAN_S - 1}&m=sum:1m-avg:{METRIC}%7Bdc=*%7D")
+        conn.close()
+        check(status == 200, f"first query answered {status}")
+        rows = json.loads(data)
+        check(len(rows) == 100 and all(len(r["dps"]) == 5 for r in rows),
+              "the first query's answer has the wrong shape")
+        out["first_query_s"] = secs
+        return out
+    finally:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(60)
+        for r in readers:
+            r.join(10)
+
+
+def phase_streaming(torch, n_series: int, profile: bool):
+    """Phase 14: continuous queries and the server warmup on the card.
+    Returns (the kernels' launches, the ``streaming`` line)."""
+    import http.client
+    import shutil
+    import socket
+    import tempfile
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.ops.pipeline import (PipelineSpec, execute_grid,
+                                                 put_grid)
+    from opentsdb_tpu_torch.query.model import TSQuery
+    from opentsdb_tpu_torch.stats.stats import QueryStat, QueryStats
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+    t_phase = time.perf_counter()
+    n, p = n_series, LIVE_SPAN_S
+    end_ms = (T0 + p) * 1000 - 1
+    keys = {"tsd.torch.device": "cuda",
+            "tsd.core.auto_create_metrics": "true",
+            "tsd.query.cache.enable": "false",
+            "tsd.tpu.warmup": "false",
+            # publishes come from the explicit pumps below and the
+            # measured flushes, as in bench_live
+            "tsd.streaming.publish_min_interval_ms": "1000000000",
+            "tsd.streaming.heartbeat_s": "60",
+            "tsd.streaming.breaker.reset_timeout_ms":
+                str(LIVE_BREAKER_RESET_MS)}
+    tsdb = TSDB(Config(**keys))
+    check(tsdb.store.backend == "native",
+          "phase 14 runs on the default store, the native one")
+    reg = tsdb.streaming
+
+    # data: normal(100, 10) from seed 11 by append_grid; dc2's hosts
+    # leave a 3-minute gap; per-minute sums kept for the oracles
+    rng = np.random.default_rng(11)
+    ts_grid = T0 * 1000 + 1000 * np.arange(p, dtype=np.int64)
+    mid = tsdb.uids.metrics.get_or_create_id(METRIC)
+    minute_sums = np.zeros(p // 60)
+    dc2 = {}
+    gen_s = ingest_s = 0.0
+    vmin = np.inf
+    for lo in range(0, n, LIVE_CHUNK):
+        hi = min(lo + LIVE_CHUNK, n)
+        t = time.perf_counter()
+        vals = rng.normal(100.0, 10.0, (hi - lo, p))
+        mask = np.ones((hi - lo, p), dtype=bool)
+        rows = np.arange(lo, hi)
+        gap_rows = np.flatnonzero(rows % 100 == 2)
+        mask[gap_rows, LIVE_GAP_S[0]:LIVE_GAP_S[1]] = False
+        vmin = min(vmin, float(vals.min()))
+        mv = np.where(mask, vals, 0.0).reshape(hi - lo, p // 60, 60)
+        per_minute = mv.sum(axis=2)
+        minute_sums += per_minute.sum(axis=0)
+        counts = mask.reshape(hi - lo, p // 60, 60).sum(axis=2)
+        for r in gap_rows:
+            dc2[int(lo + r)] = [per_minute[r].copy(), counts[r].copy()]
+        _, tag_ids = tsdb._resolve_uids(
+            METRIC, [live_tags(i) for i in range(lo, hi)])
+        t1 = time.perf_counter()
+        sids = tsdb.store.get_or_create_series_bulk(mid, tag_ids)
+        tsdb.store.append_grid(sids, ts_grid, vals, mask)
+        ingest_s += time.perf_counter() - t1
+        gen_s += t1 - t
+    del vals, mask, mv
+    check(vmin > 0, "phase 14 data holds a value <= 0")
+    n_raw = tsdb.store.points_written
+    print(f"  ingest: {n} series x {p} points at 1 s ({n_raw:,} points; "
+          f"normal(100, 10) seed 11; dc2's 1,000 hosts silent in "
+          f"[{LIVE_GAP_S[0]}, {LIVE_GAP_S[1]}) s) by append_grid in "
+          f"chunks of {LIVE_CHUNK}: {ingest_s:.3f} s "
+          f"({n_raw / ingest_s:,.0f} points/s; drawing the data "
+          f"{gen_s:.3f} s more)")
+
+    # the standing queries, all over [T0, T0 + 30 min)
+    qa1 = live_query("sum", "1m-avg", [_wild("dc", True),
+                                        _wild("rack", False)])
+    # max as the group aggregator has no kernel (K1 and K2 sum groups),
+    # so (a)'s second query aggregates its 1m-max by avg
+    qa2 = live_query("avg", "1m-max", [_wild("rack", True),
+                                        _wild("dc", False)])
+    qc_s = live_query("sum", "1m-sum", [],
+                      window={"type": "sliding", "size": "5m"})
+    qc_h = live_query("sum", "1m-sum", [],
+                      window={"type": "hopping", "size": "5m",
+                              "slide": "2m"})
+    qd = live_query("none", "1m-sum", [_lit("dc", "dc2")],
+                    window={"type": "session", "gap": "2m"})
+    qe = live_query("sum", "1m-avg", [_lit("dc", "dc1")],
+                    pct=[99.0, 99.9])
+    boot = {}
+    cqs = {}
+    for name, q in (("a1", qa1), ("a2", qa2), ("c_sliding", qc_s),
+                    ("c_hopping", qc_h), ("d", qd), ("e", qe)):
+        t = time.perf_counter()
+        cqs[name] = reg.register(q, now_ms=end_ms)
+        boot[name] = time.perf_counter() - t
+    t = time.perf_counter()
+    for i in range(LIVE_SHARED):
+        reg.register({**qa1, "id": f"b{i}"}, now_ms=end_ms)
+    boot["b"] = time.perf_counter() - t
+    shared = cqs["a1"].plans[0].shared
+    check(cqs["a2"].plans[0].shared is shared and len(shared.views)
+          == 2 + LIVE_SHARED, "(a) and (b) do not share one partial")
+    check(cqs["c_hopping"].plans[0].shared is
+          cqs["c_sliding"].plans[0].shared,
+          "(c)'s sliding and hopping views do not share one partial")
+    print(f"  registration (bootstrap by bucket_reduce, s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in boot.items())
+          + f"; {len(reg._partials)} shared partials for "
+          f"{len(reg.list())} standing queries; ring "
+          f"{reg.fold_bytes():,} bytes")
+
+    def tsq_of(q):
+        return TSQuery.from_json(q).validate()
+
+    def batch(q, **over):
+        """The port's batch engine: streaming off, the result cache off
+        (this TSDB's keys), the other keys as given."""
+        saved = {"tsd.streaming.serve": tsdb.config.get_string(
+            "tsd.streaming.serve", "true"),
+            **{k: tsdb.config.get_string(k) for k in over}}
+        tsdb.config.override_config("tsd.streaming.serve", "false")
+        for k, v in over.items():
+            tsdb.config.override_config(k, v)
+        try:
+            return tsdb.execute_query(tsq_of(q))
+        finally:
+            for k, v in saved.items():
+                tsdb.config.override_config(k, v)
+
+    def pulled(q):
+        """One pull through execute_query, served from the windows."""
+        hits, fb = reg.serve_hits, reg.serve_fallbacks
+        stats = QueryStats("smoke", tsq_of(q))
+        out = tsdb.new_query().run(tsq_of(q), stats)
+        stats.mark_complete()
+        check(reg.serve_hits == hits + 1 and reg.serve_fallbacks == fb,
+              "a pull was not served from the windows")
+        check(stats.stats.get(QueryStat.STREAMING_HIT.value) == 1,
+              "streamingHit is not in the query stats")
+        return out
+
+    st = serve_pinned(ServerThread, tsdb)
+    conn = http.client.HTTPConnection("127.0.0.1", st.port, timeout=600)
+    tel = socket.create_connection(("127.0.0.1", st.port), timeout=600)
+    sse = SseReader(st.port,
+                    f"/api/query/continuous/{cqs['a1'].id}/stream")
+    sse.start()
+    sse.wait_count("snapshot", 1)
+    check(b"text/event-stream" in sse.head
+          and b"chunked" in sse.head.lower()
+          and b"content-encoding" not in sse.head.lower(),
+          "the event stream is not chunked text/event-stream, or gzipped")
+
+    def http_pull(q):
+        hits = reg.serve_hits
+        status, data, secs = _http(conn, "POST", "/api/query",
+                                   json.dumps(q).encode())
+        check(status == 200, f"an HTTP pull answered {status}")
+        check(reg.serve_hits == hits + 1,
+              "an HTTP pull was not served from the windows")
+        return json.loads(data), secs
+
+    def result_rows(cq):
+        status, data, _ = _http(conn, "GET",
+                                f"/api/query/continuous/{cq.id}/result")
+        check(status == 200, f"/result answered {status}")
+        return json.loads(data)
+
+    dc2_rows = sorted(dc2)
+    dc2_sums = {i: dc2[i][0] for i in dc2_rows}
+    dc2_counts = {i: dc2[i][1] for i in dc2_rows}
+    prefix = {m: live_query(q["queries"][0]["aggregator"],
+                            q["queries"][0]["downsample"],
+                            q["queries"][0]["filters"],
+                            end_s=LIVE_PREFIX_S)
+              for m, q in (("a1", qa1), ("a2", qa2))}
+    incr, full, push, http_s, point_launches = [], [], [], [], {}
+    worst = {"grid": 0.0, "point": 0.0, "windows": 0.0}
+    put_s = tel_s = tick_s = 0.0
+    # seconds by step, summed over the rounds
+    step_s = dict.fromkeys(("(a) pulls", "(a) HTTP pulls", "(a) grid batch",
+                            "(a) point pulls + batch", "(c)(d) /result",
+                            "(e) pull", "(e) batch"), 0.0)
+    t_rounds = time.perf_counter()
+    for r in range(LIVE_ROUNDS):
+        # live traffic: one point per tick host by add_point, a burst by
+        # /api/put past buffer_points and one by telnet put, at
+        # timestamps the grid does not hold
+        base = (T0 + p - 60 + 10 * r) * 1000
+        t = time.perf_counter()
+        for j in range(LIVE_TICK_HOSTS):
+            tsdb.add_point(METRIC, base + 500, 100.0 + r, live_tags(j))
+        tick_s += time.perf_counter() - t
+        t = time.perf_counter()
+        for lo in range(0, LIVE_PUT_POINTS, LIVE_PUT_BODY):
+            body = json.dumps([
+                {"metric": METRIC, "timestamp": base + 250,
+                 "value": 50.0 + j % 7, "tags": live_tags(j)}
+                for j in range(lo, lo + LIVE_PUT_BODY)]).encode()
+            status, data, _ = _http(conn, "POST", "/api/put", body)
+            check(status == 204, f"/api/put answered {status}: {data[:200]}")
+        put_s += time.perf_counter() - t
+        t = time.perf_counter()
+        # telnet put is silent: a "version" after the burst answers once
+        # every line before it has been written and offered to the taps
+        tel.sendall(("".join(
+            f"put {METRIC} {base + 750} {20.0 + j % 3} "
+            + " ".join(f"{k}={v}" for k, v in live_tags(j).items()) + "\n"
+            for j in range(LIVE_PUT_POINTS,
+                           LIVE_PUT_POINTS + LIVE_TEL_LINES))
+            + "version\n").encode())
+        got_tel = b""
+        while b"built from revision" not in got_tel:
+            chunk = tel.recv(1 << 16)
+            check(bool(chunk), "the telnet connection closed")
+            got_tel += chunk
+        check(got_tel.startswith(b"opentsdb_tpu_torch version"),
+              f"a telnet put answered {got_tel[:200]!r}")
+        # (and one more point a round, the SSE reading's)
+        want_pts = n_raw + r + (r + 1) * (LIVE_TICK_HOSTS
+                                          + LIVE_PUT_POINTS + LIVE_TEL_LINES)
+        tel_s += time.perf_counter() - t
+        check(tsdb.store.points_written == want_pts,
+              f"{tsdb.store.points_written} points, not {want_pts}")
+        # the oracles' inputs: every live point of the round
+        b = (base // 1000 - T0) // 60
+        minute_sums[b] += sum(100.0 + r for _ in range(LIVE_TICK_HOSTS))
+        minute_sums[b] += sum(50.0 + j % 7 for j in range(LIVE_PUT_POINTS))
+        minute_sums[b] += sum(20.0 + j % 3 for j in range(
+            LIVE_PUT_POINTS, LIVE_PUT_POINTS + LIVE_TEL_LINES))
+        for j in dc2_rows:
+            if j < LIVE_TICK_HOSTS:
+                dc2_sums[j][b] += 100.0 + r
+                dc2_counts[j][b] += 1
+            if j < LIVE_PUT_POINTS:
+                dc2_sums[j][b] += 50.0 + j % 7
+                dc2_counts[j][b] += 1
+            elif j < LIVE_PUT_POINTS + LIVE_TEL_LINES:
+                dc2_sums[j][b] += 20.0 + j % 3
+                dc2_counts[j][b] += 1
+
+        # (a) and (b): pulls by execute_query and HTTP, then the batch
+        # engine on the grid path (the full recompute) and, over the
+        # first minutes, on the point path (K1 by dc, K2 by rack)
+        for m, q in (("a1", qa1), ("a2", qa2)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = pulled(q)
+            secs = time.perf_counter() - t
+            step_s["(a) pulls"] += secs
+            if m == "a1":
+                incr.append(secs)
+            rows, secs = http_pull(q)
+            http_s.append(secs)
+            step_s["(a) HTTP pulls"] += secs
+            hv = {tuple(sorted(x["tags"].items())):
+                  np.array(list(x["dps"].values()), dtype=np.float64)
+                  for x in rows}
+            check(len(hv) == len(got), "the HTTP pull's groups differ")
+            for res in got:
+                # the serializer prints each float32 value's shortest
+                # repr, which reads back within a float32 ulp
+                hvals = hv[tuple(sorted(res.tags.items()))]
+                check(bool(np.allclose(hvals, res.dps_arrays[1],
+                                       rtol=2 ** -23, atol=0)),
+                      "the HTTP pull differs from execute_query's")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            want = batch(q)
+            secs = time.perf_counter() - t
+            step_s["(a) grid batch"] += secs
+            if m == "a1":
+                full.append(secs)
+            worst["grid"] = max(worst["grid"], streamed_close(
+                got, want, f"({m}) grid, round {r}"))
+            t = time.perf_counter()
+            got_pre = pulled(prefix[m])
+            reset_launches(fused)
+            want_pre = batch(prefix[m], **{
+                "tsd.query.grid_reduce": "false",
+                "tsd.query.device_cache_mb": "0"})
+            for kname, k in read_launches(fused).items():
+                point_launches[kname] = point_launches.get(kname, 0) + k
+            step_s["(a) point pulls + batch"] += time.perf_counter() - t
+            worst["point"] = max(worst["point"], streamed_close(
+                got_pre, want_pre, f"({m}) point path"))
+        # (c) and (d): the windowed views' /result against numpy
+        t = time.perf_counter()
+        sliding, hopping, sessions = live_oracles(
+            minute_sums, dc2_sums, dc2_counts)
+        for cq, want in ((cqs["c_sliding"], sliding),
+                         (cqs["c_hopping"], hopping)):
+            rows = result_rows(cq)
+            check(len(rows) == 1, "a (c) view answered other than one row")
+            got = {int(k): v for k, v in rows[0]["dps"].items()}
+            check(set(got) == set(want), f"{cq.id}: edges differ")
+            for e, v in want.items():
+                err = abs(got[e] - v)
+                check(err <= TOL_REL * abs(v) + TOL_ABS,
+                      f"{cq.id} at {e}: {got[e]!r} against {v!r}")
+                worst["windows"] = max(worst["windows"], err / abs(v))
+        rows = result_rows(cqs["d"])
+        check(len(rows) == len(dc2_rows), "(d) rows differ")
+        for row in rows:
+            i = int(row["tags"]["host"][1:])
+            got = {int(k): v for k, v in row["dps"].items()
+                   if v is not None}
+            want = sessions[i]
+            check(set(got) == set(want), f"(d) h{i}: sessions differ")
+            for e, v in want.items():
+                check(abs(got[e] - v) <= TOL_REL * abs(v) + TOL_ABS,
+                      f"(d) h{i} at {e}: {got[e]!r} against {v!r}")
+        step_s["(c)(d) /result"] += time.perf_counter() - t
+        # (e): the sketch channel against the batch sketch path
+        t = time.perf_counter()
+        got = pulled(qe)
+        step_s["(e) pull"] += time.perf_counter() - t
+        t = time.perf_counter()
+        want = batch(qe)
+        step_s["(e) batch"] += time.perf_counter() - t
+        check(len(got) == 2 and [
+            (x.metric, x.tags, x.dps_arrays[0].tolist(),
+             x.dps_arrays[1].tobytes()) for x in got] == [
+            (x.metric, x.tags, x.dps_arrays[0].tolist(),
+             x.dps_arrays[1].tobytes()) for x in want],
+              "(e) percentiles differ from the batch sketch path's bits")
+        # SSE: one write, one pump of (a)'s first query, one frame
+        n_win = sum(e == "windows" for e, _ in sse.arrivals)
+        t = time.perf_counter()
+        tsdb.add_point(METRIC, base + 900, 1.0, live_tags(0))
+        reg.pump(cqs["a1"], force=True)
+        push.append(sse.wait_count("windows", n_win + 1) - t)
+    rounds_s = time.perf_counter() - t_rounds
+    check(point_launches.get("span_reduce", 0) >= LIVE_ROUNDS
+          and point_launches.get("onehot_reduce", 0) >= LIVE_ROUNDS,
+          f"the point path did not launch both kernels: {point_launches}")
+    n_live = LIVE_ROUNDS * (LIVE_TICK_HOSTS + LIVE_PUT_POINTS
+                            + LIVE_TEL_LINES)
+    print(f"  {LIVE_ROUNDS} rounds in {rounds_s:.3f} s: each "
+          f"{LIVE_TICK_HOSTS} add_point ({tick_s / LIVE_ROUNDS:.3f} s), "
+          f"{LIVE_PUT_POINTS} points by /api/put in "
+          f"{LIVE_PUT_POINTS // LIVE_PUT_BODY} bodies "
+          f"({LIVE_PUT_POINTS * LIVE_ROUNDS / put_s:,.0f} points/s) and "
+          f"{LIVE_TEL_LINES} telnet lines ({tel_s / LIVE_ROUNDS:.3f} s to "
+          f"land); {n_live:,} live points, all read back; fold workers "
+          f"drained {reg.workers.drains} times")
+    print("  per round, s: " + ", ".join(
+        f"{k} {v / LIVE_ROUNDS:.3f}" for k, v in step_s.items()))
+    print(f"  pulls: serve_hits {reg.serve_hits}, serve_fallbacks "
+          f"{reg.serve_fallbacks}; (a)/(b) equal to the grid path (max "
+          f"|d| {worst['grid']!r}) and over the first "
+          f"{LIVE_PREFIX_S // 60} minutes to the point path (max |d| "
+          f"{worst['point']!r}; launches {point_launches}); (c) sliding "
+          "and hopping equal to numpy float64 (max rel "
+          f"{worst['windows']:.3g}),"
+          f" (d) {len(dc2_rows)} series' sessions equal, (e) bit for bit")
+    incr_p50, full_p50 = p50(incr), p50(full)
+    print(f"  refresh p50: incremental {incr_p50 * 1e3:.3f} ms against "
+          f"full recompute {full_p50 * 1e3:.3f} ms, "
+          f"{full_p50 / incr_p50:.2f}x (bench_live asks for 10x or "
+          f"more; reported, not gated); HTTP pull p50 "
+          f"{p50(http_s) * 1e3:.3f} ms")
+    print(f"  SSE: 1 snapshot, {sum(e == 'windows' for e, _ in sse.arrivals)}"
+          f" windows events; push p50 {p50(push) * 1e3:.3f} ms (write to "
+          "delivered frame)")
+    # where one pull of (a)'s first query goes, its serve taken stage
+    # by stage after a write (an unchanged ring reuses the cached tail
+    # and does no device work at all); the tail's device time; and,
+    # with --profile, one pull's device idle share
+    view = cqs["a1"].plans[0]
+    tsq_a1 = tsq_of(qa1)
+    stages = {}
+    tsdb.add_point(METRIC, (T0 + p - 5) * 1000 + 50, 3.0, live_tags(2))
+    t = time.perf_counter()
+    reg._drain_group(shared)
+    stages["drain"] = time.perf_counter() - t
+    with shared.lock:
+        t = time.perf_counter()
+        grid, present, edges, _ = view.grid_for(T0 * 1000, end_ms)
+        stages["windows to grid"] = time.perf_counter() - t
+        tag_mat, gids, g, _gb = view._groups_locked()
+        t = time.perf_counter()
+        result, emit = view._tail_locked(edges, grid, present, gids, g,
+                                         False)
+        stages["upload + tail + download"] = time.perf_counter() - t
+        t = time.perf_counter()
+        tsdb.new_query()._build_results(
+            tsq_a1, tsq_a1.queries[0], shared.metric_id,
+            np.asarray(shared._sids, dtype=np.int64), tag_mat, gids, g,
+            edges, result, emit)
+        stages["assemble"] = time.perf_counter() - t
+    print("  one pull's stages, ms: " + ", ".join(
+        f"{k} {v * 1e3:.3f}" for k, v in stages.items()))
+    dgrid, dhas = put_grid(grid, present, tsdb.dtype, tsdb.device)
+    spec = PipelineSpec(num_series=grid.shape[0], num_buckets=len(edges),
+                        num_groups=g, ds_function="avg", agg_name="sum")
+    tail_ms = cuda_ms(lambda: execute_grid(dgrid, dhas, edges, gids, spec),
+                      10)
+    print(f"  the tail on the card ([{grid.shape[0]}, {len(edges)}] -> "
+          f"[{g}, {len(edges)}]): {tail_ms:.4f} ms (CUDA events)")
+    if profile:
+        tsdb.add_point(METRIC, (T0 + p - 5) * 1000 + 60, 3.0,
+                       live_tags(3))
+        device_share(torch, lambda: pulled(qa1), "(a) pull after a write")
+
+    # faults: one fold failure, then a persistent one, then healing
+    tsdb.faults.arm("stream.fold", error_count=1)
+    tsdb.add_point(METRIC, (T0 + p - 5) * 1000 + 100, 7.0, live_tags(1))
+    fe0, fb0, rb0 = reg.fold_errors, reg.serve_fallbacks, reg.rebuilds
+    shed = tsdb.execute_query(tsq_of(qa1))
+    check(reg.fold_errors == fe0 + 1 and reg.serve_fallbacks == fb0 + 1,
+          "an armed stream.fold did not shed the pull")
+    streamed_close(shed, batch(qa1), "(a) shed once")
+    got = pulled(qa1)
+    check(reg.rebuilds == rb0 + 1, "the pull after a fold fault did not "
+          "rebuild")
+    streamed_close(got, batch(qa1), "(a) after the rebuild")
+    tsdb.faults.arm("stream.fold", error_rate=1.0)
+    statuses = []
+    for i in range(4):
+        tsdb.add_point(METRIC, (T0 + p - 5) * 1000 + 200 + i, 7.0,
+                       live_tags(1))
+        status, data, _ = _http(conn, "POST", "/api/query",
+                                json.dumps(qa1).encode())
+        statuses.append(status)
+    check(reg.breaker.state == reg.breaker.OPEN,
+          f"the breaker did not trip: {reg.breaker.state}")
+    want = batch(qa1)
+    wv = {tuple(sorted(x.tags.items())): x.dps_arrays[1] for x in want}
+    for x in json.loads(data):
+        check(np.array_equal(np.array(list(x["dps"].values())),
+                             wv[tuple(sorted(x["tags"].items()))]),
+              "a shed pull differs from the batch answer")
+    conn.request("GET", "/api/query/continuous/"
+                 f"{cqs['c_sliding'].id}/result")
+    resp = conn.getresponse()
+    retry_after = resp.getheader("Retry-After")
+    err = json.loads(resp.read())["error"]
+    statuses.append(resp.status)
+    check(resp.status == 503 and err["code"] == 503 and retry_after,
+          f"/result answered {resp.status} (Retry-After {retry_after}) "
+          "with the breaker open")
+    check(500 not in statuses, f"a 500 while degraded: {statuses}")
+    tsdb.faults.disarm("stream.fold")
+    time.sleep(LIVE_BREAKER_RESET_MS / 1000 + 0.2)
+    got = pulled(qa1)
+    check(reg.breaker.state == reg.breaker.CLOSED,
+          "the probe did not close the breaker")
+    streamed_close(got, batch(qa1), "(a) after the breaker closed")
+    check(len(result_rows(cqs["c_sliding"])) == 1, "(c) after healing")
+    print(f"  faults: stream.fold once -> 1 pull shed, then rebuilt, "
+          f"equal; persistently -> breaker open after "
+          f"{reg.breaker.trips} trip(s), pulls shed equal to batch, "
+          f"/result 503 with Retry-After {retry_after}, statuses "
+          f"{statuses}; disarmed -> closed after {LIVE_BREAKER_RESET_MS} "
+          f"ms, equal; fold_errors {reg.fold_errors}, rebuilds "
+          f"{reg.rebuilds}")
+    ring = reg.fold_bytes()
+    conn.close()
+    tel.close()
+    sse.close()
+    st.stop()       # stops the fold workers and shuts the TSDB down
+    check(not any(th.name.startswith("tsd-stream-fold-")
+                  for th in threading.enumerate()),
+          "a fold worker outlived its TSDB")
+    del tsdb, grid, dgrid, dhas
+
+    # the write path's tax: add_point p50 with 0, 10 and 50 standing
+    # queries (no WAL: the tap alone), and fold seconds for 1 query
+    # against 16 sharing one partial (bench_e2e.py:433-590)
+    def small(**extra):
+        return TSDB(Config(**{"tsd.torch.device": "cuda",
+                              "tsd.core.auto_create_metrics": "true",
+                              "tsd.tpu.warmup": "false", **extra}))
+    fns = ["1m-sum", "1m-avg", "1m-max", "1m-min", "1m-count",
+           "2m-sum", "2m-avg", "2m-max", "2m-min", "2m-count"]
+    aggs = ["sum", "avg", "max", "min", "sum"]
+
+    def tax_q(i):
+        return {"start": T0 * 1000, "end": (T0 + p) * 1000 - 1,
+                "queries": [{"metric": "sys.tax", "aggregator":
+                             aggs[i % 5], "downsample": fns[i % 10]}]}
+    tax = {}
+    for n_cq in (0, 10, 50):
+        t_db = small()
+        for i in range(n_cq):
+            t_db.streaming.register(tax_q(i), now_ms=end_ms)
+        secs = []
+        for i in range(LIVE_TAX_TICKS):
+            t = time.perf_counter()
+            t_db.add_point("sys.tax", T0 + i % p, 1.0, {"host": f"h{i % 8}"})
+            secs.append(time.perf_counter() - t)
+        tax[n_cq] = p50(secs) * 1e6
+        t_db.shutdown()
+    fold_s = {}
+    for n_cq in (1, LIVE_SHARED):
+        t_db = small(**{"tsd.streaming.workers.count": "0",
+                        "tsd.streaming.buffer_points": str(1 << 30),
+                        "tsd.streaming.workers.max_pending_points":
+                            str(1 << 30)})
+        for i in range(n_cq):
+            t_db.streaming.register({**tax_q(0), "id": f"f{i}"},
+                                    now_ms=end_ms)
+        per = LIVE_FOLD_POINTS // 64
+        ts = T0 * 1000 + np.arange(per, dtype=np.int64) * (p * 1000 // per)
+        t_db.add_series_points("sys.tax", [{"host": f"h{i}"}
+                                           for i in range(64)],
+                               np.tile(ts, (64, 1)),
+                               rng.normal(100, 10, (64, per)))
+        groups = list(t_db.streaming._partials)
+        check(len(groups) == 1, "the fold readings' queries do not share")
+        t = time.perf_counter()
+        for g_ in groups:
+            t_db.streaming._drain_group(g_)
+        fold_s[n_cq] = time.perf_counter() - t
+        check(groups[0].points_folded == LIVE_FOLD_POINTS,
+              "the fold reading folded another count of points")
+        t_db.shutdown()
+    print(f"  add_point p50 (no WAL) with 0 / 10 / 50 standing queries: "
+          f"{tax[0]:.1f} / {tax[10]:.1f} / {tax[50]:.1f} us "
+          f"({tax[50] / tax[0]:.2f}x at 50); fold of "
+          f"{LIVE_FOLD_POINTS:,} points for 1 query {fold_s[1]:.4f} s, "
+          f"for {LIVE_SHARED} sharing one partial "
+          f"{fold_s[LIVE_SHARED]:.4f} s")
+
+    # warmup: a data_dir of 10k series, the TSD started twice on it
+    root = Path(tempfile.mkdtemp(prefix="tsd-warmup-"))
+    w_db = TSDB(Config(**{"tsd.torch.device": "cuda",
+                          "tsd.core.auto_create_metrics": "true",
+                          "tsd.storage.data_dir": str(root)}))
+    ws, wp = LIVE_WARM_SERIES, LIVE_WARM_SPAN_S
+    w_db.add_series_points(
+        METRIC, [live_tags(i) for i in range(ws)],
+        np.tile(T0 + np.arange(wp, dtype=np.int64), (ws, 1)),
+        rng.normal(100, 10, (ws, wp)))
+    t = time.perf_counter()
+    w_db.shutdown()     # the snapshot
+    snap_s = time.perf_counter() - t
+    warm = warm_server_first_query(root, True)
+    cold = warm_server_first_query(root, False)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  warmup ({ws} series x {wp} points in a data_dir, snapshot "
+          f"{snap_s:.3f} s; tools/cli.py tsd in a subprocess): on, "
+          f"{warm['classes']} classes in {warm['warmup_s']:.1f} s, first "
+          f"/api/query {warm['first_query_s'] * 1e3:.3f} ms; off, first "
+          f"/api/query {cold['first_query_s'] * 1e3:.3f} ms (listening "
+          f"after {warm['listen_s']:.1f} / {cold['listen_s']:.1f} s)")
+    check(warm["classes"] > 0, "the warmup ran no class")
+    line = {
+        "series": n, "points": n_raw, "rounds": LIVE_ROUNDS,
+        "live_points": n_live, "ingest_s": ingest_s,
+        "bootstrap_s": boot, "incremental_p50_ms": incr_p50 * 1e3,
+        "full_p50_ms": full_p50 * 1e3,
+        "refresh_speedup": full_p50 / incr_p50,
+        "http_pull_p50_ms": p50(http_s) * 1e3,
+        "sse_push_p50_ms": p50(push) * 1e3,
+        "tail_ms": tail_ms, "ring_bytes": ring,
+        "add_point_p50_us": {str(k): v for k, v in tax.items()},
+        "fold_s": {str(k): v for k, v in fold_s.items()},
+        "warmup": {"classes": warm["classes"],
+                   "warmup_s": warm["warmup_s"],
+                   "first_query_ms_warm": warm["first_query_s"] * 1e3,
+                   "first_query_ms_cold": cold["first_query_s"] * 1e3},
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"  phase 14: {line['phase_s']:.1f} s")
+    return point_launches, line
+
+
 def p50(xs) -> float:
     return statistics.median(xs)
+
+
+def serve_pinned(server_thread, tsdb):
+    """Start the TSD server on ``tsdb`` with ``tsd.tpu.warmup=false``:
+    a phase that times the server keeps the warmup off the card."""
+    tsdb.config.override_config("tsd.tpu.warmup", "false")
+    return server_thread(tsdb, host="127.0.0.1", port=0).start()
 
 
 def main() -> int:
@@ -3471,11 +4308,19 @@ def main() -> int:
     hist = phase_histograms(torch, s, args.profile)
     rn = min(ROLLUP_SERIES, s)
     header(f"phase 13: rollups, BASELINE config 5, {rn} series x "
-           f"{ROLLUP_POINTS} points at 1 s"
-           + ("" if rn == ROLLUP_SERIES else " (CUT from 100,000)")
+           f"{ROLLUP_POINTS} points at 1 s (CUT from 100,000)"
            + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
     rollup_launches, rollup = phase_rollups(torch, rn, args.profile)
     for kname, n in rollup_launches.items():
+        launches[kname] += n
+    ln = min(LIVE_SERIES, s)
+    header(f"phase 14: continuous queries and warmup, {ln} series x "
+           f"{LIVE_SPAN_S} points at 1 s (CUT from 1800), {LIVE_ROUNDS} "
+           "rounds (CUT from 5)"
+           + ("" if ln == LIVE_SERIES else " (series CUT from 100,000)")
+           + f" (|got - want| <= {TOL_REL}*|want| + {TOL_ABS})")
+    live_launches, streaming = phase_streaming(torch, ln, args.profile)
+    for kname, n in live_launches.items():
         launches[kname] += n
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
@@ -3501,6 +4346,7 @@ def main() -> int:
     print(f"run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"histogram": hist}))
     print(json.dumps({"rollup": rollup}))
+    print(json.dumps({"streaming": streaming}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,13 +20,18 @@ nothing written survives the process.
 
 The TSDB also owns the serve path's caches (the device cache, the
 result cache and the per-metric tag matrices), the sub-query fan-out
-pool (:meth:`TSDB.shutdown` stops it), the query limits, and the stats
-registry the front end reads (``/api/stats``, telnet ``stats``).
+pool (:meth:`TSDB.shutdown` stops it), the query limits, the stats
+registry the front end reads (``/api/stats``, telnet ``stats``), and
+the continuous-query registry (:attr:`TSDB.streaming`, made at first
+use). Every raw write path offers its acknowledged points to that
+registry after the write (and its WAL sync) is done, under a
+:class:`TapGate` that a partial's re-seed holds alone.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import heapq
 import logging
 import os
@@ -66,6 +71,77 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _SECOND_MASK = 0xFFFFFFFF00000000
 # points per WAL record of a bulk write (25 bytes each)
 _WAL_LINES = 1 << 22
+
+
+class TapGate:
+    """Orders the raw writes against the continuous queries' re-seeds.
+
+    A write holds the gate, shared, from before its points reach the
+    store until after it has offered them to the registry; a partial's
+    bootstrap holds it alone while it clears its buffers and scans the
+    store. So a scan never sees a point whose offer is still to come
+    (it would be folded twice), and never misses one whose offer it has
+    thrown away. Writes wait while a re-seed scans. A thread inside a
+    write enters again freely (``add_point_groups`` calls
+    ``add_points``), and cannot seal the gate."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._writers = 0
+        self._sealed = False
+        self._local = threading.local()
+
+    def in_write(self) -> bool:
+        return getattr(self._local, "depth", 0) > 0
+
+    def enter(self) -> None:
+        depth = getattr(self._local, "depth", 0)
+        if not depth:
+            with self._cond:
+                while self._sealed:
+                    self._cond.wait()
+                self._writers += 1
+        self._local.depth = depth + 1
+
+    def leave(self) -> None:
+        depth = self._local.depth - 1
+        self._local.depth = depth
+        if not depth:
+            with self._cond:
+                self._writers -= 1
+                if self._sealed and not self._writers:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def sealed(self):
+        """Wait for the writes in flight to finish, and keep new ones
+        out until the block ends."""
+        if self.in_write():
+            raise RuntimeError("a write cannot re-seed a partial")
+        with self._cond:
+            while self._sealed:
+                self._cond.wait()
+            self._sealed = True
+            while self._writers:
+                self._cond.wait()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._sealed = False
+                self._cond.notify_all()
+
+
+def _tapped(write):
+    """A raw write path: it runs under the TSDB's :class:`TapGate`."""
+    @functools.wraps(write)
+    def gated(self, *args, **kwargs):
+        self.tap_gate.enter()
+        try:
+            return write(self, *args, **kwargs)
+        finally:
+            self.tap_gate.leave()
+    return gated
 
 
 def resolve_device(config: Config) -> torch.device:
@@ -185,6 +261,16 @@ class TSDB:
         # and of the WAL replay, and the points the replay applied
         self.recovery = {"load_s": 0.0, "replay_s": 0.0,
                          "points_replayed": 0}
+        # the continuous-query registry (streaming/), made at first use
+        # by the ``streaming`` property: the write paths' tap reads this
+        # attribute, one read per write while no query is registered
+        self._streaming = None
+        self.tap_gate = TapGate()
+        # errors of post-write hooks (the streaming tap), by hook: a
+        # hook never fails a write that already happened
+        self.hook_errors: dict[str, int] = {}
+        # set by tsd/warmup.py's thread: a stopping server stops it
+        self._warmup_stop: threading.Event | None = None
         if self.data_dir:
             self._open_data_dir()
 
@@ -290,13 +376,61 @@ class TSDB:
                     thread_name_prefix="tsd-subq")
             return self._fanout_pool
 
+    @property
+    def streaming(self):
+        """The continuous-query registry
+        (:mod:`opentsdb_tpu_torch.streaming.registry`), made at first
+        use, or None while ``tsd.streaming.enable`` is false (ref:
+        ``TSDB.streaming``)."""
+        if not self.config.get_bool("tsd.streaming.enable", True):
+            return None
+        if self._streaming is None:
+            with self._device_cache_lock:
+                if self._streaming is None:
+                    from opentsdb_tpu_torch.streaming.registry import \
+                        ContinuousQueryRegistry
+                    reg = ContinuousQueryRegistry(self)
+                    self.stats.register(reg)
+                    self._streaming = reg
+        return self._streaming
+
+    def _tap(self, offer, *args) -> None:
+        """Offer acknowledged points to the continuous queries. They are
+        in the store and the WAL already, so a failure never fails the
+        write (ref: ``TSDB._run_hook``): it is counted (``hooks.errors``,
+        hook ``stream.tap``) and logged, and every partial is marked for
+        rebuild, since some may now lack the points; the next pull
+        re-seeds from the store."""
+        try:
+            offer(*args)
+        except Exception:  # noqa: BLE001 - the write is acknowledged
+            self._streaming.invalidate()
+            n = self.hook_errors.get("stream.tap", 0) + 1
+            self.hook_errors["stream.tap"] = n
+            if n <= 5 or n % 1000 == 0:
+                logging.getLogger("tsdb").exception(
+                    "stream.tap hook failed (%d so far); the write "
+                    "itself succeeded, the partials rebuild", n)
+
+    def _tap_lines(self, metric_id: int, sids: np.ndarray,
+                   ts_ms: np.ndarray, values: np.ndarray) -> None:
+        """Offer acknowledged points of one metric, of any series, to
+        the continuous queries (one chunk per shared partial)."""
+        if self._streaming is not None and len(ts_ms):
+            self._tap(self._streaming.offer_lines, metric_id, sids,
+                      ts_ms, values)
+
     def drop_caches(self) -> None:
         """(ref: TSDB.dropCaches) The UID tables are authoritative; the
-        device cache and the result cache are dropped."""
+        device cache and the result cache are dropped, and the
+        continuous queries' partials rebuild from the store at their
+        next serve."""
         if self._device_grid_cache is not None:
             self._device_grid_cache.clear()
         if self._result_cache is not None:
             self._result_cache.clear()
+        if self._streaming is not None:
+            self._streaming.invalidate()
 
     def serve_version(self) -> tuple:
         """The version of every store a query can read (ref:
@@ -346,9 +480,14 @@ class TSDB:
             self.wal.truncate(wal_seq)
 
     def shutdown(self) -> None:
-        """Flush, stop the fan-out pool (waiting for its threads to
+        """Stop a running warmup, flush, stop the continuous queries'
+        fold workers and the fan-out pool (waiting for their threads to
         end), then close the WAL (ref: ``TSDB.shutdown``)."""
+        if self._warmup_stop is not None:
+            self._warmup_stop.set()
         self.flush()
+        if self._streaming is not None:
+            self._streaming.shutdown()
         with self._device_cache_lock:
             pool, self._fanout_pool = self._fanout_pool, None
         if pool is not None:
@@ -373,6 +512,8 @@ class TSDB:
         self.uids.tag_values.collect_stats(collector)
         self.store.collect_stats(collector)
         collector.record("datapoints.added", self.datapoints_added)
+        for hook, n in sorted(self.hook_errors.items()):
+            collector.record("hooks.errors", n, hook=hook)
         collector.record("uptime.seconds",
                          int(time.time() - self.start_time))
 
@@ -425,6 +566,7 @@ class TSDB:
         if self.mode == "ro":
             raise PermissionError("TSD is in read-only mode")
 
+    @_tapped
     def add_point(self, metric: str, timestamp: int, value: int | float,
                   tags: dict[str, str]) -> int:
         """Write one datapoint; returns the series id
@@ -435,9 +577,16 @@ class TSDB:
             raise ValueError(f"invalid timestamp {timestamp}")
         if timestamp >= (1 << 32) and timestamp > (1 << 47):
             raise ValueError(f"timestamp out of range: {timestamp}")
-        return self.add_points(metric, [timestamp], [float(value)], tags,
-                               is_int=[type(value) is int])
+        metric_id, sid, ts_ms, vals = self._write_series(
+            metric, [timestamp], [float(value)], tags,
+            [type(value) is int])
+        if self._streaming is not None:
+            # the scalar tap: a tuple append, no numpy per point
+            self._tap(self._streaming.offer, metric_id, sid,
+                      int(ts_ms[0]), float(vals[0]))
+        return sid
 
+    @_tapped
     def add_points(self, metric: str, timestamps, values,
                    tags: dict[str, str], is_int=None) -> int:
         """Bulk write many points of ONE series; returns the series id.
@@ -446,6 +595,17 @@ class TSDB:
         whether the values' dtype is an integer one); the native store
         keeps them."""
         self._check_writable()
+        metric_id, sid, ts_ms, vals = self._write_series(
+            metric, timestamps, values, tags, is_int)
+        if self._streaming is not None:
+            self._tap_lines(metric_id, np.full(len(ts_ms), sid, np.int64),
+                            ts_ms, vals)
+        return sid
+
+    def _write_series(self, metric: str, timestamps, values,
+                      tags: dict[str, str], is_int):
+        """The write of :meth:`add_points`, logged and synced; returns
+        (metric id, series id, timestamps in ms, float64 values)."""
         raw = np.asarray(values)
         vals = raw.astype(np.float64)
         if np.shape(timestamps) != vals.shape or vals.ndim != 1:
@@ -465,7 +625,7 @@ class TSDB:
                     np.asarray(is_int, dtype=np.uint8), ts_ms.shape))
                 self.wal.sync()
         self.datapoints_added += len(ts_ms)
-        return sid
+        return metric_id, sid, ts_ms, vals
 
     def add_point_groups(self, groups, on_error=None
                          ) -> tuple[int, list[str]]:
@@ -498,6 +658,7 @@ class TSDB:
                                 on_error(refs[j], e)
         return written, errors
 
+    @_tapped
     def add_series_points(self, metric: str,
                           tags_list: Sequence[dict[str, str]],
                           ts2d: np.ndarray, values2d: np.ndarray,
@@ -554,6 +715,7 @@ class TSDB:
                                        np.full(hi - lo, is_int, np.uint8))
                 self.wal.sync()
         self.datapoints_added += len(ts_ms)
+        self._tap_lines(metric_id, point_sids, ts_ms, val_flat)
         return sids
 
     def add_aggregate_point(self, metric: str, timestamp: int,
@@ -734,9 +896,9 @@ class TSDB:
         self.datapoints_added += 1
         return sid
 
-    def _import_series(self, line: bytes) -> tuple[int, str, dict]:
+    def _import_series(self, line: bytes) -> tuple[int, str, dict, int]:
         """The series id, metric and tags of one import line's series,
-        created (with its UIDs) when new."""
+        created (with its UIDs) when new, and the metric's id."""
         text = line.decode("utf-8")
         # the parser splits on spaces and tabs only
         words = [w for w in text.replace("\t", " ").split(" ") if w]
@@ -748,8 +910,9 @@ class TSDB:
             tags_mod.check_metric_and_tags(metric, tags)
         metric_id, (tag_ids,) = self._resolve_uids(metric, [tags])
         return (self.store.get_or_create_series(metric_id, tag_ids),
-                metric, tags)
+                metric, tags, metric_id)
 
+    @_tapped
     def import_buffer(self, buf: bytes, on_error=None, durable: bool = True
                       ) -> tuple[int, list[str]]:
         """Columnar write of import lines (``metric ts value tagk=tagv
@@ -780,6 +943,7 @@ class TSDB:
         ts_ms = np.where(parsed.ts >= (1 << 32), parsed.ts,
                          parsed.ts * 1000)
         gsid = np.full(parsed.num_groups, -1, dtype=np.int64)
+        gmid = np.full(parsed.num_groups, -1, dtype=np.int64)
         gnames: list = [None] * parsed.num_groups
         unlogged: list[int] = []    # groups resolved since the last log
         wal = self.wal if durable else None
@@ -838,9 +1002,10 @@ class TSDB:
                     fail(i, failed[g])
                 else:
                     try:
-                        sid, metric, tags = self._import_series(
+                        sid, metric, tags, mid = self._import_series(
                             parsed.rep_lines[g])
                         gsid[g], gnames[g] = sid, (metric, tags)
+                        gmid[g] = mid
                         unlogged.append(g)
                     except (ValueError, LookupError,
                             FailedToAssignUniqueIdError) as e:
@@ -855,6 +1020,16 @@ class TSDB:
                     log(len(gids))
                 wal.sync()
         self.datapoints_added += written
+        if self._streaming is not None and written:
+            # the landed lines, by metric (a line of a failed series or
+            # one the parser rejected has sid -1 and did not land)
+            sids = line_sids(0, len(gids))
+            landed = np.flatnonzero((sids >= 0) & (errs == 0))
+            mids = gmid[gids[landed]]
+            for mid in np.unique(mids).tolist():
+                rows = landed[mids == mid]
+                self._tap_lines(mid, sids[rows], ts_ms[rows],
+                                parsed.values[rows])
         return written, errors
 
     # -- query path -------------------------------------------------------

@@ -35,9 +35,12 @@ the caches included, follows the selected store.
 
 Around ``_run_sub`` sit the reference's serve-path mechanisms: the
 sub-queries of one TSQuery fan out onto the TSDB's pool
-(``tsd.query.fanout.workers``), each goes through the result cache
-(``query/result_cache.py``, ``tsd.query.cache.*``), and the per-series
-tag matrix of a metric is kept between queries (``TSDB._tagmat_cache``).
+(``tsd.query.fanout.workers``), each asks the continuous-query registry
+first (``streaming/``: a registered tumbling query answers its window
+from maintained partials, the tail alone on the device) and then goes
+through the result cache (``query/result_cache.py``,
+``tsd.query.cache.*``), and the per-series tag matrix of a metric is
+kept between queries (``TSDB._tagmat_cache``).
 
 Every path that scans checks the TSDB's query limits
 (``query/limits.py``) with the count of points it read, and records
@@ -45,10 +48,10 @@ its scan in the request's ``QueryStats`` when the caller passes one
 (the ``/api/query`` handler does).
 
 The reference engine's other paths are not ported yet: the host-CPU
-tail and its circuit breaker with its host retries, the host-RAM
-prepared-batch cache, the streaming lookup before the result cache,
-the device mesh, the lifecycle's stitched tier views, tsuid sub-queries
-and ``delete=true``. Asking for any of them raises NotImplementedError.
+tail and its device circuit breaker with its host retries, the
+host-RAM prepared-batch cache, the device mesh (``tsd.query.mesh``),
+the lifecycle's stitched tier views, tsuid sub-queries and
+``delete=true``. Asking for any of them raises NotImplementedError.
 
 A sub-query with ``percentiles`` takes its own path (``_run_sub``'s
 first branch, as in the reference): the exact merge over the
@@ -120,6 +123,56 @@ def refuse_unported_keys(config) -> None:
             raise NotImplementedError(
                 f"{key}={value} turns on {what}, which is not ported yet "
                 f"(ROADMAP Queue 1, {item}); leave {key} at {default!r}")
+    spec = config.get_string("tsd.query.mesh", "")
+    # a typo raises ValueError here, as at the reference's boot
+    shape = parse_mesh_spec(spec)
+    if shape is None or (shape == "auto" and _visible_devices(config) <= 1):
+        return
+    raise NotImplementedError(
+        f"tsd.query.mesh={spec} turns on the query mesh, which is not "
+        f"ported yet (ROADMAP Queue 1, the mesh); leave tsd.query.mesh "
+        f"at '' (or 'auto' with one device)")
+
+
+def _visible_devices(config) -> int:
+    """Devices a query mesh could span: the cards, or 1 on the CPU."""
+    if config.get_string("tsd.torch.device").startswith("cpu"):
+        return 1
+    return torch.cuda.device_count()
+
+
+def parse_mesh_spec(spec: str) -> tuple[int, int] | str | None:
+    """Validate a ``tsd.query.mesh`` value without touching devices
+    (ref: ``parallel/mesh.py::parse_mesh_spec``): ``(n_series,
+    n_time)``, ``"auto"``, or None for off; ValueError for a typo."""
+    spec = (spec or "").strip().lower()
+    if not spec:
+        return None
+    if spec == "auto":
+        return "auto"
+    n_series = n_time = 1
+    for part in spec.split(","):
+        axis, _, n = part.partition(":")
+        axis = axis.strip()
+        if axis not in ("series", "time"):
+            raise ValueError(
+                f"unknown mesh axis {axis!r} in tsd.query.mesh={spec!r} "
+                "(expected 'auto' or 'series:N[,time:M]')")
+        try:
+            count = int(n)
+        except ValueError:
+            raise ValueError(
+                f"bad device count {n!r} for axis {axis!r} in "
+                f"tsd.query.mesh={spec!r}") from None
+        if count < 1:
+            raise ValueError(
+                f"axis {axis!r} needs >= 1 device in "
+                f"tsd.query.mesh={spec!r}")
+        if axis == "series":
+            n_series = count
+        else:
+            n_time = count
+    return n_series, n_time
 
 
 # downsample functions the storage-side reduction serves: linear bucket
@@ -289,6 +342,16 @@ class TagMatrix:
             return self.vids[:, j]
         return None
 
+    @classmethod
+    def from_pairs(cls, tag_tuples) -> "TagMatrix":
+        """Build from per-series ((kid, vid), ...) tuples (small paths:
+        the continuous queries' members)."""
+        rows = [(i, kid, vid) for i, tags in enumerate(tag_tuples)
+                for kid, vid in tags]
+        triples = (np.asarray(rows, dtype=np.int64).reshape(-1, 3)
+                   if rows else np.empty((0, 3), dtype=np.int64))
+        return cls.from_triples(np.arange(len(tag_tuples)), triples)
+
     def select(self, mask_or_idx) -> "TagMatrix":
         return TagMatrix(self.kids, self.vids[mask_or_idx])
 
@@ -443,10 +506,24 @@ class QueryEngine:
 
     def _run_sub_cached(self, tsq: TSQuery,
                         sub: TSSubQuery) -> list[QueryResult]:
-        """One sub-query through the result cache (ref:
-        ``_run_sub_cached``): a hit skips the engine; concurrent
-        identical misses share one execution, and a failed one caches
-        nothing."""
+        """One sub-query through the streaming lookup, then the result
+        cache (ref: ``_run_sub_cached``). A registered tumbling
+        continuous query answers its window from the maintained
+        partials, fresher than any cache entry. The registry's own
+        sheds (a failed rebuild, an open breaker, an unaligned end, a
+        window outside the horizon) are its None; any exception out of
+        it, a failure of the tail on the device included, propagates:
+        the reference answers from the batch engine there, the port
+        does not (ROADMAP Queue 3). Then a result-cache hit skips the
+        engine; concurrent identical misses share one execution, and a
+        failed one caches nothing."""
+        streaming = self.tsdb._streaming
+        if streaming is not None and not tsq.delete:
+            served = streaming.try_serve(tsq, sub, self)
+            if served is not None:
+                if self._stats:
+                    self._stats.add_stat(QueryStat.STREAMING_HIT, 1)
+                return served
         cache = self.tsdb.result_cache
         if cache is None:
             return self._run_sub(tsq, sub)

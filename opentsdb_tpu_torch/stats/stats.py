@@ -169,6 +169,9 @@ class QueryStat(Enum):
     # serve-path result cache outcomes
     RESULT_CACHE_HIT = "resultCacheHit"
     RESULT_CACHE_COALESCED = "resultCacheCoalesced"
+    # served from a continuous query's maintained windows (streaming/):
+    # no store scan, the tail alone
+    STREAMING_HIT = "streamingHit"
     # response body bytes written for this query
     PAYLOAD_BYTES = "payloadBytes"
 

@@ -1,0 +1,165 @@
+"""Per-tag session partials: millions of sessions, one scatter (ref:
+``opentsdb_tpu/streaming/eventtime/sessions.py``).
+
+A session window ``{"type": "session", "gap": "2m", "by": "user"}``
+asks for one session timeline PER VALUE of one tag — the
+millions-of-users scenario. Keying the shared ring by series would
+explode rows to (users x every other tag combination) and stitch
+each user's sessions across rows at serve time; instead
+:class:`SessionPartial` keys its rows by the ``by`` tag's VALUE id:
+
+- every member series maps to the row of its ``user`` value, so the
+  per-batch fold stays the SAME single columnar scatter the base
+  partial runs — N series belonging to one user simply collide into
+  one row, which is exactly the per-user aggregate the session
+  semantics want;
+- ``_tag_pairs`` holds one ``(kid, vid)`` pair per row, so the
+  existing group/serve machinery (TagMatrix, group-by, result
+  assembly) sees a perfectly ordinary membership where each "series"
+  IS one user;
+- bootstrap scans ALL member series and scatter-combines their
+  per-series grids into the user rows (sums add, extremes fold), so
+  a freshly registered CQ answers identically to the folds that
+  follow;
+- gap-close is driven by the watermark:
+  :meth:`~opentsdb_tpu_torch.streaming.plan.SharedPartial.session_stats`
+  closes a row's session once the watermark passes its last active
+  bucket by more than the gap, and the completeness marker carries
+  the open/closed counts.
+
+Session-by-tag partials never share with generic views (the registry
+builds their identity key from the session tag too), never tier-seed
+(sessions are a live-window surface; pre-boundary history is not
+stitched into user rows), and refuse percentile views (the sketch
+channel is per-series).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from opentsdb_tpu_torch.streaming.plan import SharedPartial
+
+
+class SessionPartial(SharedPartial):
+    """A :class:`SharedPartial` whose rows are tag values, not
+    series (see module docstring). ``_sids`` holds one
+    representative series per row purely for the result-assembly
+    surface (tsuids/annotations are never requested on this path);
+    ``_member_sids`` remembers every admitted series for re-seeds."""
+
+    def __init__(self, tsdb, metric: str, filters: list,
+                 interval_ms: int, n_windows: int, by_tag: str):
+        super().__init__(tsdb, metric, filters, interval_ms,
+                         n_windows)
+        self.by_tag = by_tag
+        self._by_kid: int | None = None
+        self._vid_rows: dict[int, int] = {}   # tag value id -> row
+        self._member_sids: list[int] = []
+
+    def _session_kid(self) -> int | None:
+        if self._by_kid is None:
+            try:
+                self._by_kid = self.tsdb.uids.tag_names.get_id(
+                    self.by_tag)
+            except LookupError:
+                # the tag key has no UID yet, so no series can carry
+                # it either; retried on the next admit
+                return None
+        return self._by_kid
+
+    def _reset_members_locked(self) -> None:
+        super()._reset_members_locked()
+        self._vid_rows.clear()
+        self._member_sids = []
+
+    def _seed_tier_views(self):
+        return None  # sessions seed from the raw store only
+
+    def _admit_locked(self, sid: int,
+                      check_filters: bool = True) -> int:
+        slot = self._slots.get(sid)
+        if slot is not None:
+            return slot
+        rec = self.tsdb.store.series(sid)
+        if self.metric_id is None:
+            try:
+                self.metric_id = self.tsdb.uids.metrics.get_id(
+                    self.metric)
+            except LookupError:
+                return -1
+        if rec.metric_id != self.metric_id:
+            self._slots[sid] = -1
+            return -1
+        if check_filters and self.filters:
+            triples = (np.asarray(
+                [(sid, k, v) for k, v in rec.tags],
+                dtype=np.int64).reshape(-1, 3)
+                if rec.tags else np.empty((0, 3), dtype=np.int64))
+            mask = self._filter_eval.apply(
+                self.filters, np.asarray([sid], dtype=np.int64),
+                triples)
+            if not bool(mask[0]):
+                self._slots[sid] = -1
+                return -1
+        kid = self._session_kid()
+        vid = None
+        if kid is not None:
+            for k, v in rec.tags:
+                if k == kid:
+                    vid = v
+                    break
+        if vid is None:
+            # a series without the session tag can never join a
+            # session (tags are series identity: this is permanent)
+            self._slots[sid] = -1
+            return -1
+        row = self._vid_rows.get(vid)
+        if row is None:
+            row = len(self._sids)
+            self._grow_to(row + 1)
+            self._vid_rows[vid] = row
+            self._sids.append(sid)            # representative only
+            self._tag_pairs.append(((kid, vid),))
+            self.member_seq += 1
+        self._slots[sid] = row
+        self._member_sids.append(sid)
+        return row
+
+    def _seed_scan(self, cols: np.ndarray, start_edge: int, iv: int,
+                   w: int, seeded) -> None:
+        """Scan EVERY member series, then scatter-combine the
+        per-series grids into the user rows — sums/counts add,
+        extremes fold — so the seeded ring equals what folding the
+        same points would have produced (same ops, same cells)."""
+        if not self._member_sids:
+            return
+        sid_arr = np.asarray(self._member_sids, dtype=np.int64)
+        span_end = int(start_edge + w * iv - 1)
+        sums, cnts, mins, maxs = self.tsdb.store.bucket_reduce(
+            sid_arr, int(start_edge), span_end, int(start_edge), iv,
+            w, want_minmax=True)
+        rows = np.asarray(
+            [self._slots[int(s)] for s in self._member_sids],
+            dtype=np.int64)
+        self._grow_to(len(self._sids))
+        present = cnts > 0
+        rr = np.repeat(rows, w)
+        cc = np.tile(cols, len(rows))
+        np.add.at(self._sum, (rr, cc), sums.reshape(-1))
+        np.add.at(self._cnt, (rr, cc), cnts.reshape(-1))
+        np.minimum.at(self._min, (rr, cc),
+                      np.where(present, mins, np.inf).reshape(-1))
+        np.maximum.at(self._max, (rr, cc),
+                      np.where(present, maxs, -np.inf).reshape(-1))
+        self.bootstrap_points += int(cnts.sum())
+
+    def info(self):
+        out = super().info()
+        out["sessionBy"] = self.by_tag
+        out["sessionRows"] = len(self._vid_rows)
+        out["memberSeries"] = len(self._member_sids)
+        return out
+
+
+__all__ = ["SessionPartial"]

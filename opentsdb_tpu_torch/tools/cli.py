@@ -8,8 +8,10 @@
 ``tsd`` starts the TSD server (HTTP and telnet on one port) over a TSDB
 on the card; ``--tsd.torch.device=cpu`` runs it on the CPU instead.
 ``--tsd.network.port=0`` binds an ephemeral port. The server prints
-``TSD listening on HOST:PORT`` once it is bound and stops cleanly on
-SIGINT, SIGTERM, telnet ``diediedie`` or HTTP ``/diediedie``.
+``TSD listening on HOST:PORT`` once it is bound, logs to stderr (the
+warmup's ``warmup: N classes in S s`` among its lines) and stops
+cleanly on SIGINT, SIGTERM, telnet ``diediedie`` or HTTP
+``/diediedie``.
 
 ``rollup`` runs the rollup job over ``[START, END]`` (any time the
 query API takes: unix seconds or ms, ``yyyy/MM/dd-HH:mm:ss``,
@@ -22,6 +24,7 @@ subcommands are not ported yet and exit non-zero.
 from __future__ import annotations
 
 import asyncio
+import logging
 import signal
 import sys
 
@@ -63,6 +66,11 @@ def cmd_tsd(config: Config, args: list[str]) -> int:
     from opentsdb_tpu_torch.core.tsdb import TSDB
     from opentsdb_tpu_torch.tsd.server import TSDServer
 
+    # the server's log lines (the warmup's class count among them) go
+    # to stderr
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: "
+                        "%(message)s")
     tsdb = TSDB(config)
     server = TSDServer(tsdb)
 

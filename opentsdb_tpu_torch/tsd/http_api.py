@@ -7,7 +7,10 @@ sockets and tests call it directly.
 
 Endpoints (mode-gated rw/ro/wo as RpcManager :274-327): ``/api/put``,
 ``/api/rollup``, ``/api/histogram``,
-``/api/query`` (GET URI form, POST JSON, ``arrays``), ``/api/suggest``,
+``/api/query`` (GET URI form, POST JSON, ``arrays``),
+``/api/query/continuous`` (standing queries: register, list, inspect,
+``/result``, ``/deltas``, the ``/stream`` of Server-Sent Events,
+delete), ``/api/suggest``,
 ``/api/aggregators``, ``/api/config`` (+``/filters``),
 ``/api/dropcaches``, ``/api/serializers``, ``/api/version``,
 ``/api/stats`` (+``/query``, ``/jvm``, ``/threads``,
@@ -18,10 +21,11 @@ naming the ROADMAP item that ports it (:data:`UNPORTED`); a path the
 reference does not know answers 404.
 
 Exceptions map to statuses as the reference's router does: 400 for bad
-requests, 413 for a query over its limits, 501 for what is not ported,
-and 500 (with a stack trace only under ``tsd.http.show_stack_trace``)
-for anything else, a device error included. Nothing here retries a
-failed query on another device.
+requests, 413 for a query over its limits, 503 with ``Retry-After`` for
+a deliberate degraded refusal (``DegradedError``), 501 for what is not
+ported, and 500 (with a stack trace only under
+``tsd.http.show_stack_trace``) for anything else, a device error
+included. Nothing here retries a failed query on another device.
 """
 
 from __future__ import annotations
@@ -48,10 +52,11 @@ from opentsdb_tpu_torch.query.limits import QueryLimitExceeded
 from opentsdb_tpu_torch.query.model import (BadRequestError, TSQuery,
                                             parse_uri_query)
 from opentsdb_tpu_torch.stats.stats import QueryStat, QueryStats
+from opentsdb_tpu_torch.streaming.sse import sse_stream
 from opentsdb_tpu_torch.tsd.json_serializer import HttpJsonSerializer
+from opentsdb_tpu_torch.utils.faults import DegradedError
 
-# ROADMAP Queue 1 items by the subsystems they port
-_STREAMING = "streaming and warmup"
+# the ROADMAP Queue 1 item that ports what is left
 _REST = "the rest, with no device compute"
 
 # endpoint -> the ROADMAP Queue 1 item that ports it: /api/<name>, or
@@ -59,7 +64,6 @@ _REST = "the rest, with no device compute"
 # paths outside /api
 UNPORTED: dict[str, tuple[str, str]] = {
     "query/last": (_REST, "meta/ (last data points)"),
-    "query/continuous": (_STREAMING, "streaming/"),
     "query/exp": (_REST, "the expression endpoint"),
     "query/gexp": (_REST, "the expression endpoint"),
     "search": (_REST, "search/"),
@@ -289,6 +293,13 @@ class HttpRpcRouter:
             # an over-budget scan is a condition the client can fix
             return HttpResponse(413, request.serializer.format_error(
                 413, str(e)))
+        except DegradedError as e:
+            # a deliberate refusal of a degraded path (partials known to
+            # be stale, an open breaker): 503 + Retry-After, never a 500
+            resp = HttpResponse(503, request.serializer.format_error(
+                503, str(e)))
+            resp.headers["Retry-After"] = str(e.retry_after_s)
+            return resp
         except NotImplementedError as e:
             return HttpResponse(501, request.serializer.format_error(
                 501, str(e) or "not implemented"))
@@ -498,6 +509,8 @@ class HttpRpcRouter:
         sub = rest[0] if rest else ""
         if f"query/{sub}" in UNPORTED:
             raise _not_ported(f"query/{sub}")
+        if sub == "continuous":
+            return self._handle_query_continuous(request, rest[1:])
         if request.method == "POST":
             obj = request.serializer.parse_query(request.body)
             tsq = TSQuery.from_json(obj)
@@ -560,6 +573,88 @@ class HttpRpcRouter:
             if not streamed:
                 stats.mark_complete()
         return HttpResponse(200, body)
+
+    def _handle_query_continuous(self, request: HttpRequest,
+                                 rest) -> HttpResponse:
+        """Continuous (standing) queries (ref:
+        ``_handle_query_continuous``; :mod:`opentsdb_tpu_torch.streaming`):
+
+        - ``POST /api/query/continuous``: register (a TSQuery body, an
+          optional ``id``, ``window`` and ``watermark``); 400 when the
+          query cannot be maintained incrementally.
+        - ``GET /api/query/continuous``: the registered queries.
+        - ``GET /api/query/continuous/<id>``: one query with its plans.
+        - ``GET .../<id>/result``: the current windowed results (drains
+          pending folds first; 503 while its partials are known stale).
+        - ``GET .../<id>/deltas``: one incremental update batch.
+        - ``GET .../<id>/stream``: Server-Sent Events, a ``snapshot``
+          then ``windows`` events; ``Last-Event-ID`` (or
+          ``?last_event_id=``) resumes.
+        - ``DELETE /api/query/continuous/<id>``: deregister.
+
+        The reference's tenant fold budget (its control plane) and its
+        router mode (its cluster) are not ported (ROADMAP Queue 1, the
+        rest, with no device compute)."""
+        registry = self.tsdb.streaming
+        if registry is None:
+            raise HttpError(400, "Continuous queries are disabled",
+                            "set tsd.streaming.enable = true")
+        if not rest:
+            if request.method == "POST":
+                cq = registry.register(request.json_object())
+                return HttpResponse(
+                    200, json.dumps(cq.describe()).encode())
+            if request.method == "GET":
+                return HttpResponse(200, json.dumps(
+                    [cq.describe() for cq in registry.list()]).encode())
+            raise HttpError(405, "Method not allowed")
+        cid = rest[0]
+        what = rest[1] if len(rest) > 1 else ""
+        if what in ("result", "deltas", "stream") \
+                and request.method != "GET":
+            raise HttpError(405, "Method not allowed")
+        if what in ("result", "deltas", "stream") \
+                or request.method == "GET":
+            cq = registry.get(cid)
+            if cq is None:
+                raise HttpError(
+                    404, f"No continuous query with id {cid!r}")
+        if what == "result":
+            return HttpResponse(200, json.dumps(
+                registry.current_results(cq)).encode())
+        if what == "deltas":
+            return HttpResponse(200, json.dumps(
+                registry.delta_updates(cq)).encode())
+        if what == "stream":
+            # browsers send Last-Event-ID on reconnect; a non-integer
+            # id is ignored (a full snapshot), never a 400
+            raw_id = request.headers.get(
+                "last-event-id", request.param("last_event_id"))
+            try:
+                last_event_id = int(raw_id) if raw_id else None
+            except ValueError:
+                last_event_id = None
+            resp = HttpResponse(
+                200, b"",
+                body_iter=sse_stream(
+                    registry, cq,
+                    max_lifetime_s=self.tsdb.config.get_float(
+                        "tsd.streaming.sse.max_lifetime_s", 0.0),
+                    last_event_id=last_event_id),
+                content_type="text/event-stream; charset=UTF-8")
+            resp.headers["Cache-Control"] = "no-cache"
+            # an SSE stream is single-use by construction
+            resp.close_connection = True
+            return resp
+        if request.method == "GET":
+            return HttpResponse(
+                200, json.dumps(cq.describe(verbose=True)).encode())
+        if request.method == "DELETE":
+            if not registry.delete(cid):
+                raise HttpError(
+                    404, f"No continuous query with id {cid!r}")
+            return HttpResponse(204)
+        raise HttpError(405, "Method not allowed")
 
     def _record_serialization(self, stats: QueryStats, t_ser: float,
                               nbytes: int) -> None:

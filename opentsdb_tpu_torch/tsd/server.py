@@ -9,8 +9,15 @@ a first token that looks like an HTTP method makes the connection HTTP
 
 The event loop never touches the device: queries run on a bounded
 ``tsd-query`` pool (``tsd.query.workers``), every other request and the
-telnet commands on a ``tsd-http`` pool. :meth:`TSDServer.stop` closes
-the listener, joins both pools and shuts the TSDB down.
+telnet commands on a ``tsd-http`` pool. A continuous query's event
+stream (``text/event-stream``) is written with no query timeout, no
+gzip and no buffering, chunked, and closes its connection; its frames
+are produced on the loop's default executor, and a client that goes
+away closes the stream's generator. :meth:`TSDServer.start` starts the
+continuous queries' fold workers and the warmup thread
+(:mod:`~opentsdb_tpu_torch.tsd.warmup`); :meth:`TSDServer.stop` stops
+the warmup, ends the event streams, closes the listener, joins both
+pools and the warmup thread, and shuts the TSDB down.
 :class:`ServerThread` runs a server on a thread of its own with its own
 loop, for callers that are not asyncio programs.
 """
@@ -33,6 +40,7 @@ from opentsdb_tpu_torch.tsd.http_api import (HttpRequest, HttpResponse,
 from opentsdb_tpu_torch.tsd.telnet import (TelnetCloseConnection,
                                            TelnetRouter,
                                            TelnetServerShutdown)
+from opentsdb_tpu_torch.tsd.warmup import start_warmup_thread
 
 LOG = logging.getLogger("tsd.server")
 
@@ -201,6 +209,7 @@ class TSDServer:
         self._server: asyncio.AbstractServer | None = None
         self._shutdown = asyncio.Event()
         self._loop: asyncio.AbstractEventLoop | None = None
+        self._warmup_thread: threading.Thread | None = None
 
     # -- life cycle ----------------------------------------------------
 
@@ -212,6 +221,15 @@ class TSDServer:
             reuse_address=self.tsdb.config.get_bool(
                 "tsd.network.reuse_address"))
         self.port = self._server.sockets[0].getsockname()[1]
+        # load the libraries and run the warm set on the query device
+        # in the background (tsd.tpu.warmup), so the first query of
+        # each class does not pay for it
+        self._warmup_thread = start_warmup_thread(self.tsdb)
+        # the fold workers start now rather than in the first ingest
+        # burst that crosses the drain threshold
+        streaming = self.tsdb.streaming
+        if streaming is not None and streaming.workers.enabled:
+            streaming.workers.start()
         LOG.info("Ready to serve on %s:%s", self.host, self.port)
 
     async def serve_forever(self) -> None:
@@ -221,8 +239,15 @@ class TSDServer:
         await self.stop()
 
     async def stop(self) -> None:
-        """Close the listener, wait (at most 10 s) for open connections,
-        join both worker pools, and shut the TSDB down."""
+        """Stop the warmup between classes and end the event streams,
+        close the listener, wait (at most 10 s) for open connections,
+        join both worker pools and the warmup thread, and shut the TSDB
+        down."""
+        if self.tsdb._warmup_stop is not None:
+            self.tsdb._warmup_stop.set()
+        if self.tsdb._streaming is not None:
+            # deregistering ends every stream with its "end" event
+            self.tsdb._streaming.shutdown()
         if self._server is not None:
             self._server.close()
             try:
@@ -235,6 +260,10 @@ class TSDServer:
         # worker outlives the server
         self._query_pool.shutdown(wait=True, cancel_futures=True)
         self._http_pool.shutdown(wait=True, cancel_futures=True)
+        th = self._warmup_thread
+        if th is not None and th.is_alive():
+            await asyncio.get_running_loop().run_in_executor(
+                None, th.join, 30)
         self.tsdb.shutdown()
 
     def request_shutdown(self) -> None:
@@ -485,11 +514,15 @@ class TSDServer:
                 remote=f"{peer[0]}:{peer[1]}" if peer else "")
             response = await self._respond(request, t0)
             self._apply_cors(request, response)
-            await self._apply_gzip(request, response)
+            # an event stream is long-lived by design, and gzip would
+            # hold its events in the compressor: no deadline, no gzip
+            is_sse = response.content_type.startswith("text/event-stream")
+            if not is_sse:
+                await self._apply_gzip(request, response)
             if response.close_connection:
                 keep_alive = False
             deadline = (t0 + self.query_timeout_ms / 1000.0
-                        if self.query_timeout_ms > 0
+                        if self.query_timeout_ms > 0 and not is_sse
                         and response.body_iter is not None else None)
             await self._write_response(writer, response, version,
                                        keep_alive, deadline=deadline)
@@ -621,13 +654,24 @@ class TSDServer:
                               version: str, keep_alive: bool,
                               deadline: float | None = None) -> None:
         loop = asyncio.get_running_loop()
+        is_sse = response.content_type.startswith("text/event-stream")
         if response.body_iter is not None and version != "HTTP/1.1":
-            # chunked transfer needs 1.1: older clients get one body,
-            # joined on the http pool (serialization is CPU work)
-            it = response.body_iter
-            response.body = await loop.run_in_executor(
-                self._http_pool, b"".join, it)
-            response.body_iter = None
+            if is_sse:
+                # an event stream never ends by itself, so it cannot be
+                # joined into one body: it needs chunked transfer
+                response.body_iter.close()
+                response = _structured_error(
+                    400, "Event streams require HTTP/1.1")
+                response.close_connection = True
+                keep_alive = False
+            else:
+                # chunked transfer needs 1.1: older clients get one
+                # body, joined on the http pool (serialization is CPU
+                # work)
+                it = response.body_iter
+                response.body = await loop.run_in_executor(
+                    self._http_pool, b"".join, it)
+                response.body_iter = None
         writer.write(self._head(response, version, keep_alive))
         if response.body_iter is None:
             writer.write(response.body)
@@ -635,26 +679,41 @@ class TSDServer:
             return
         # stream bounded chunks; the generator (the JSON serialization)
         # advances on the http pool so other connections keep being
-        # served, and drain applies backpressure
+        # served, and drain applies backpressure. An event stream's
+        # generator waits for its events on the default executor, so a
+        # quiet stream holds none of the http pool's workers
+        pool = None if is_sse else self._http_pool
         it = iter(response.body_iter)
         sentinel = object()
-        while True:
-            if deadline is not None and time.monotonic() > deadline:
-                # past the query timeout mid-stream: abort (headers are
-                # sent; an unterminated chunked body is the signal)
-                LOG.warning("query stream exceeded tsd.query.timeout; "
-                            "aborting")
-                raise ConnectionResetError("stream timeout")
-            chunk = await loop.run_in_executor(self._http_pool, next, it,
-                                               sentinel)
-            if chunk is sentinel:
-                break
-            if chunk:
-                writer.write(f"{len(chunk):x}\r\n".encode() + chunk
-                             + b"\r\n")
-                await self._on_client(writer.drain())
-        writer.write(b"0\r\n\r\n")
-        await self._on_client(writer.drain())
+        fut = None
+        try:
+            while True:
+                if deadline is not None and time.monotonic() > deadline:
+                    # past the query timeout mid-stream: abort (headers
+                    # are sent; an unterminated chunked body says so)
+                    LOG.warning("query stream exceeded tsd.query.timeout;"
+                                " aborting")
+                    raise ConnectionResetError("stream timeout")
+                fut = loop.run_in_executor(pool, next, it, sentinel)
+                chunk = await fut
+                if chunk is sentinel:
+                    break
+                if chunk:
+                    writer.write(f"{len(chunk):x}\r\n".encode() + chunk
+                                 + b"\r\n")
+                    await self._on_client(writer.drain())
+            writer.write(b"0\r\n\r\n")
+            await self._on_client(writer.drain())
+        finally:
+            # a client that went away closes the generator (an event
+            # stream then leaves its query's subscribers); one still
+            # inside next() is closed when that call returns
+            close = getattr(it, "close", None)
+            if close is not None:
+                if fut is None or fut.done():
+                    close()
+                else:
+                    fut.add_done_callback(lambda _f: close())
 
 
 class ServerThread:

@@ -125,6 +125,24 @@ _DEFAULTS: dict[str, str] = {
     # the rollup job's route: false reduces in the store
     # (tss_bucket_reduce) and coarsens on the host, true runs the tiles
     # in PyTorch on tsd.torch.device (rollup/job.py)
+    # continuous queries (streaming/): the fold workers' count (0 folds
+    # inline at the drain threshold) and backlog cap per shared partial
+    # (past it the backlog is dropped and the partial rebuilds at its
+    # next serve), and the SSE Last-Event-ID replay depth (0: no
+    # resume). As in the reference, the other keys read call-site
+    # defaults and do not show in /api/config:
+    #   tsd.streaming.enable (true), .serve (true), .max_queries (64),
+    #   .max_windows (2880), .buffer_points (4096), .queue_events (256),
+    #   .heartbeat_s (5), .publish_min_interval_ms (200),
+    #   .sse.max_lifetime_s (0: unbounded),
+    #   .breaker.failure_threshold (3), .breaker.reset_timeout_ms
+    #   (30000); tsd.query.mesh ("": off; only "" and "auto" on one
+    #   device are accepted until the mesh is ported); the server warmup
+    #   (tsd/warmup.py) tsd.tpu.warmup (true), .buckets (""), .budget_s
+    #   (600), .percentiles (true)
+    "tsd.streaming.resume_events": "64",
+    "tsd.streaming.workers.count": "2",
+    "tsd.streaming.workers.max_pending_points": "262144",
 }
 
 

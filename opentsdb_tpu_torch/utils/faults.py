@@ -1,19 +1,27 @@
-"""Deterministic fault injection and retry with backoff (ref:
-``opentsdb_tpu/utils/faults.py``), as far as the write-ahead log and
-the snapshot flush use them.
+"""Deterministic fault injection, retry with backoff and the circuit
+breaker (ref: ``opentsdb_tpu/utils/faults.py``), as far as the
+write-ahead log, the snapshot flush and the continuous queries use
+them.
 
 - :class:`FaultInjector`: injection points armed through ``Config``
   keys ``tsd.faults.<site>_<knob>`` (knob: ``error_rate``,
   ``error_count``, ``error_once``, ``latency_ms``) or :meth:`arm`. The
-  sites are the WAL's (``wal.append``, ``wal.fsync``) and the snapshot
-  flush (``store.flush``). An error rate is a counted schedule (call
-  ``i`` fails iff ``floor(i * r)`` advances), never a coin flip, so a
-  failure reproduces.
+  sites are the WAL's (``wal.append``, ``wal.fsync``), the snapshot
+  flush (``store.flush``) and the continuous queries' (``stream.fold``,
+  ``stream.worker``, ``stream.watermark``). An error rate is a counted
+  schedule (call ``i`` fails iff ``floor(i * r)`` advances), never a
+  coin flip, so a failure reproduces.
 - :class:`RetryPolicy` and :func:`call_with_retries`: bounded
   exponential backoff under a wall-clock deadline.
+- :class:`CircuitBreaker` (closed -> open -> half-open) and
+  :class:`DegradedError`, the refusal the HTTP layer answers with a
+  structured 503 and ``Retry-After``. The streaming registry uses the
+  breaker in its shedding mode: while it is open, pulls go to the batch
+  engine and ``/result`` answers 503.
 
-The reference's other sites and its ``CircuitBreaker`` belong to
-subsystems the port has not ported yet (ROADMAP Queue 1).
+The reference's other sites, and its engine's device breaker with its
+host retries, belong to subsystems the port has not ported yet
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ KNOWN_SITES: frozenset[str] = frozenset({
     "wal.fsync",          # core/wal.py fsync leader
     "wal.append",         # core/wal.py framed write
     "store.flush",        # core/persist.py snapshot flush
+    "stream.fold",        # streaming/registry.py incremental fold
+    "stream.worker",      # streaming/workers.py off-path drain
+    "stream.watermark",   # streaming/eventtime/watermark.py marker
 })
 
 
@@ -36,6 +47,17 @@ class InjectedFault(OSError):
     """A failure raised by an armed fault point. An OSError, so an
     injected disk fault takes the path a real fsync or write failure
     takes."""
+
+
+class DegradedError(RuntimeError):
+    """The serve path is degraded and refuses this request on purpose
+    (an open breaker, partials known to be stale). The HTTP layer
+    answers it with a structured 503 and ``Retry-After``, never a
+    500."""
+
+    def __init__(self, message: str, retry_after_s: int = 1):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
 
 
 @dataclass
@@ -214,3 +236,111 @@ def call_with_retries(fn: Callable[[], Any],
                 on_retry(attempt, exc)
             sleep(delay_ms / 1000.0)
             delay_ms = min(delay_ms * policy.multiplier, policy.max_ms)
+
+
+class CircuitBreaker:
+    """Consecutive-failure circuit breaker (closed -> open ->
+    half-open; ref: ``CircuitBreaker``). :meth:`blocking` is the
+    read-only check: True while OPEN and inside the reset window.
+    :meth:`allow` is the gate and owns the state machine: past the reset
+    window it admits exactly one probe (half-open); the probe's
+    :meth:`record_success` closes the breaker, :meth:`record_failure`
+    opens it again, and other calls while the probe runs are refused."""
+
+    CLOSED = "closed"
+    OPEN = "open"
+    HALF_OPEN = "half_open"
+    _STATE_VALUES = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
+
+    def __init__(self, name: str, failure_threshold: int = 5,
+                 reset_timeout_ms: float = 30000.0,
+                 clock: Callable[[], float] = time.monotonic):
+        self.name = name
+        self.failure_threshold = max(int(failure_threshold), 1)
+        self.reset_timeout_ms = float(reset_timeout_ms)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = self.CLOSED
+        self._opened_at = 0.0
+        self._probe_inflight = False
+        self.failures = 0       # consecutive
+        self.total_failures = 0
+        self.trips = 0
+        self.recoveries = 0
+        # the reference counts host re-answers of the engine's device
+        # breaker here; the port has no host retry, so it stays 0
+        self.fallbacks = 0
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def blocking(self) -> bool:
+        """OPEN and still inside the reset window; changes nothing."""
+        with self._lock:
+            return self._state == self.OPEN and \
+                (self._clock() - self._opened_at) * 1000.0 \
+                < self.reset_timeout_ms
+
+    def allow(self) -> bool:
+        """The gate: call once per guarded operation."""
+        with self._lock:
+            if self._state == self.CLOSED:
+                return True
+            if self._state == self.OPEN:
+                if (self._clock() - self._opened_at) * 1000.0 \
+                        >= self.reset_timeout_ms:
+                    self._state = self.HALF_OPEN
+                    self._probe_inflight = True
+                    return True
+                return False
+            # HALF_OPEN: one probe at a time
+            if self._probe_inflight:
+                return False
+            self._probe_inflight = True
+            return True
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self._probe_inflight = False
+            self.failures += 1
+            self.total_failures += 1
+            if self._state == self.HALF_OPEN or (
+                    self._state == self.CLOSED
+                    and self.failures >= self.failure_threshold):
+                if self._state != self.OPEN:
+                    self.trips += 1
+                self._state = self.OPEN
+                self._opened_at = self._clock()
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._probe_inflight = False
+            self.failures = 0
+            if self._state != self.CLOSED:
+                self._state = self.CLOSED
+                self.recoveries += 1
+
+    def collect_stats(self, collector) -> None:
+        with self._lock:
+            state_val = self._STATE_VALUES[self._state]
+        collector.record("breaker.state", state_val, breaker=self.name)
+        collector.record("breaker.failures", self.total_failures,
+                         breaker=self.name)
+        collector.record("breaker.trips", self.trips, breaker=self.name)
+        collector.record("breaker.fallbacks", self.fallbacks,
+                         breaker=self.name)
+
+    def health_info(self) -> dict[str, Any]:
+        with self._lock:
+            return {
+                "state": self._state,
+                "consecutive_failures": self.failures,
+                "total_failures": self.total_failures,
+                "failure_threshold": self.failure_threshold,
+                "trips": self.trips,
+                "recoveries": self.recoveries,
+                "fallbacks": self.fallbacks,
+                "reset_timeout_ms": self.reset_timeout_ms,
+            }
