@@ -204,18 +204,45 @@
    ``tools/cli.py tsd`` started on it twice, with ``tsd.tpu.warmup``
    on (its class count and seconds) and off, the first ``/api/query``
    timed after each. Prints the ``streaming`` line;
-15. prints the run's wall time, the ``histogram``, ``rollup`` and
-   ``streaming`` lines, one JSON line describing each kernel (its
-   launches are those of phases 3, 5, 8, 6, 9, 10, 13 and 14; phases
-   11 and 12 launch neither), the card line and, last, ``{"ok": true,
-   "device": {...}}``. Each phase's header says how far into the run
-   it starts.
+15. dashboard surfaces (run after phase 6, on phase 3's TSDB before it
+   goes, and on one small TSDB built by ``append_grid`` at the default
+   keys but the result cache): (a) the host tail's default budgets: a
+   ``sum`` and a ``p99`` query (``1m-avg`` over an hour at one point a
+   minute, B = 60) at the S just under and just over each budget (the
+   linear 2^23 cells: 131,072 / 131,073 series; the rank 2^20 cells:
+   16,384 / 16,385; the rank 2^25 cells x groups: 31 / 32 groups over
+   16k series), each at its default placement and pinned the other
+   way, p50 of 5 and the tail's time (``computeTime``), the grid's
+   device checked, every answer held to a float64 numpy reference and
+   the two placements to each other; (b) the device breaker on the
+   card (threshold 2, a 1 s window): two injected ``device.compile``
+   failures answered 500 and counted, then 503 with Retry-After and no
+   dispatch, and after the window the probe closes it; (c)
+   ``/api/query/exp`` ``a / b * 100`` (``sum:5m-avg:rate`` over
+   ``sum:5m-max:rate`` by ``dc``) and ``/gexp`` ``scale(...,100)`` over
+   config 3 on the point path, K1 launching for each sub-query, held to
+   numpy over float64 sub-results; (d) an M4 pixel budget (300) over
+   64 raw series of an hour at 1 s, each row's kept set equal to
+   ``naive_m4_reference``; (e) a tsuid sub-query of 100 config-3
+   series (a kernel launch, held to numpy) and a ``delete=true`` over
+   10 minutes of one series by ``POST /api/query``, read back. Prints
+   ``phase 15: N s``;
+16. prints the run's wall time, the ``histogram``, ``rollup``,
+   ``streaming`` and ``surfaces`` lines, one JSON line describing each
+   kernel (its launches are those of phases 3, 5, 8, 6, 15, 9, 10, 13
+   and 14; phases 11 and 12 launch neither), the card line and, last,
+   ``{"ok": true, "device": {...}}``. Each phase's header says how far
+   into the run it starts.
 
-Phases 3-8, 11, 13 and 14 run on the default store, the native one.
-Phases 3-5, 7, 9, 11, 12, 13 and 14 run with the result cache off, so
-that every call reaches the path it measures. The phases that start a
-TSD server in process pin ``tsd.tpu.warmup=false``, so that no warmup
-runs on the card while they time it.
+Phases 3-8, 11, 13, 14 and 15 run on the default store, the native
+one. Phases 3-5, 7, 9, 11, 12, 13, 14 and 15 run with the result cache
+off, so that every call reaches the path it measures. Every phase
+before 15 pins the host tail off (``HOST_TAIL_OFF``), so that each
+kernel launch and device tail it times stays on the card, and prints
+where ``host_tail_for_dims`` would place its queries at the default
+budgets. The phases that start a TSD server in process pin
+``tsd.tpu.warmup=false``, so that no warmup runs on the card while they
+time it.
 
 Any failure exits non-zero without the last line. Without a CUDA card,
 or outside a checkout of the repository, it exits 2.
@@ -240,13 +267,21 @@ T0 = 1356998400            # aligned to the hour (seconds)
 POINTS = 60                # one hour at one point a minute
 QUERIES = (("sum:5m-avg:rate:sys.cpu.user{dc=*}", "span_reduce"),
            ("sum:5m-avg:rate:sys.cpu.user{rack=*}", "onehot_reduce"))
+# the host tail off: at the default budgets (tsd.query.host_tail_max_*
+# = 0) a query whose padded [S, B] is small runs its tail on the host
+# CPU, and phases 9, 10, 13 and 14 and the warmup would leave the card.
+# Every phase before phase 15 pins the host tail off on its TSDB, so
+# that each kernel launch and device tail it times stays on the card,
+# and prints where the defaults would place its queries (placement());
+# phase 15 (a) measures both sides of the default budgets
+HOST_TAIL_OFF = {"tsd.query.host_tail_max_cells": "-1",
+                 "tsd.query.host_tail_max_cells_linear": "-1"}
 # the keys that put the engine on its point path with nothing cached
-# (phase 3); phases 4 and 5 set all but the result cache back to the
-# defaults, and phase 6 that too
+# (phase 3); phases 4 and 5 set all but the result cache and the host
+# tail back to the defaults, and phase 6 that too (engine_defaults())
 ENGINE_KEYS = {"tsd.query.grid_reduce": "false",
                "tsd.query.device_cache_mb": "0",
-               "tsd.query.host_tail_max_cells": "-1",
-               "tsd.query.host_tail_max_cells_linear": "-1",
+               **HOST_TAIL_OFF,
                "tsd.query.cache.enable": "false"}
 # phase 7: (query, time zone, the prepared batch's layout)
 IRREGULAR_QUERIES = (
@@ -277,6 +312,31 @@ READINGS: dict[str, float] = {}
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def engine_defaults():
+    """The engine keys' defaults as the phases before 15 run them: the
+    reference's, but the host tail off (HOST_TAIL_OFF)."""
+    from opentsdb_tpu_torch import Config
+    return Config(**HOST_TAIL_OFF)
+
+
+def placement(label: str, s: int, b: int, g: int, agg: str = "sum",
+              emit_raw: bool = False) -> bool:
+    """Print where ``host_tail_for_dims`` places a query's tail of true
+    dims (S, B, G) at the default budgets and as the phase runs it (the
+    host tail off); returns True where the defaults would place it on
+    the host."""
+    from opentsdb_tpu_torch import Config
+    from opentsdb_tpu_torch.query.engine import host_tail_for_dims
+    host = host_tail_for_dims(Config(), s, b, g, emit_raw, agg) \
+        is not None
+    pinned = host_tail_for_dims(engine_defaults(), s, b, g, emit_raw, agg)
+    print(f"  placement {label} [S={s}, B={b}, G={g}, {agg}]: "
+          f"{'host' if host else 'card'} at the default budgets; "
+          f"{'host' if pinned is not None else 'card'} as run "
+          "(host tail pinned off)")
+    return host
 
 
 def check(cond: bool, what: str) -> None:
@@ -651,7 +711,7 @@ def phase_grid(torch, tsdb, query, profile: bool) -> None:
     from opentsdb_tpu_torch.ops import fused, pipeline
     from opentsdb_tpu_torch.ops.pipeline import PipelineSpec
     from opentsdb_tpu_torch.query.engine import grid_cache_key
-    defaults = Config()
+    defaults = engine_defaults()
     for key in ENGINE_KEYS:
         if key != "tsd.query.cache.enable":
             tsdb.config.override_config(key, defaults.get_string(key))
@@ -820,7 +880,7 @@ def phase_serve(torch, tsdb, query, ref3: dict, last_tags: dict) -> dict:
     from opentsdb_tpu_torch.query import engine as engine_mod
     from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
     cfg = tsdb.config
-    defaults = Config()
+    defaults = engine_defaults()
 
     def set_keys(**keys):
         for key in ENGINE_KEYS:
@@ -1081,7 +1141,7 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
     from opentsdb_tpu_torch.ops import fused
     from opentsdb_tpu_torch.tsd.json_serializer import HttpJsonSerializer
     from opentsdb_tpu_torch.tsd.server import ServerThread
-    cfg, defaults = tsdb.config, Config()
+    cfg, defaults = tsdb.config, engine_defaults()
 
     def set_keys(keys: dict) -> None:
         for key in ENGINE_KEYS:
@@ -1410,7 +1470,8 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
     from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
     tsdb = TSDB(Config(**{"tsd.torch.device": "cuda",
                           "tsd.core.auto_create_metrics": "true",
-                          "tsd.query.cache.enable": "false"}))
+                          "tsd.query.cache.enable": "false",
+                          **HOST_TAIL_OFF}))
     tags, ts2d, values2d, counts = make_irregular(n_series)
     check(bool(np.nanmin(values2d) > 0), "phase 7 data holds a value <= 0")
     t = time.perf_counter()
@@ -1591,7 +1652,7 @@ def phase_backends(torch, n_series: int, query) -> dict:
     refs = config3_reference(values)
     n_points = n_series * POINTS
     start_ms, end_ms = T0 * 1000, (T0 + POINTS * 60 - 1) * 1000
-    defaults = Config()
+    defaults = engine_defaults()
     grid_keys = {k: defaults.get_string(k) for k in ENGINE_KEYS}
     grid_keys["tsd.query.cache.enable"] = "false"
     imports = [f"{T0 + 60 * j} {(i * 5 + j) % 100_000} host=m{i}"
@@ -2044,7 +2105,8 @@ def phase_long(torch, n_series: int, profile: bool) -> None:
     t_phase = time.perf_counter()
     tsdb = TSDB(Config(**{"tsd.torch.device": "cuda",
                           "tsd.core.auto_create_metrics": "true",
-                          "tsd.query.cache.enable": "false"}))
+                          "tsd.query.cache.enable": "false",
+                          **HOST_TAIL_OFF}))
     tags, ts2d, values2d, counts = make_long(n_series)
     check(bool(np.nanmin(values2d) > 0), "phase 11 data holds a value <= 0")
     t = time.perf_counter()
@@ -2231,7 +2293,7 @@ def phase_histograms(torch, n_series: int, profile: bool) -> dict:
     t_phase = time.perf_counter()
     keys = {"tsd.torch.device": "cuda",
             "tsd.core.auto_create_metrics": "true",
-            "tsd.query.cache.enable": "false"}
+            "tsd.query.cache.enable": "false", **HOST_TAIL_OFF}
 
     # (a) data: point j of series i is counts[j, i] (seed 3, point 0
     # drawn as bench_e2e.py draws its one point)
@@ -2471,7 +2533,8 @@ def sketch_percentiles(n_series: int) -> None:
     ts2d = np.broadcast_to(T0 + 60 * np.arange(SKETCH_POINTS), vals.shape)
     t = TSDB(Config(**{"tsd.torch.device": "cuda",
                        "tsd.core.auto_create_metrics": "true",
-                       "tsd.query.cache.enable": "false"}))
+                       "tsd.query.cache.enable": "false",
+                       **HOST_TAIL_OFF}))
     t.add_series_points("sys.lat", [{"host": f"h{i}"} for i in range(s)],
                         ts2d, vals)
     q = TSQuery.from_json({
@@ -2764,7 +2827,7 @@ def phase_rollups(torch, n_series: int, profile: bool):
     keys = {"tsd.torch.device": "cuda",
             "tsd.core.auto_create_metrics": "true",
             "tsd.rollups.enable": "true",
-            "tsd.query.cache.enable": "false"}
+            "tsd.query.cache.enable": "false", **HOST_TAIL_OFF}
     tsdb = TSDB(Config(**keys))
     check(tsdb.store.backend == "native",
           "phase 13 runs on the default store, the native one")
@@ -3362,7 +3425,8 @@ def warm_server_first_query(data_dir: Path, warm: bool) -> dict:
     cmd = [sys.executable, "-m", "opentsdb_tpu_torch.tools.cli", "tsd",
            "--tsd.network.port=0", "--tsd.network.bind=127.0.0.1",
            f"--tsd.storage.data_dir={data_dir}",
-           f"--tsd.tpu.warmup={'true' if warm else 'false'}"]
+           f"--tsd.tpu.warmup={'true' if warm else 'false'}",
+           *(f"--{k}={v}" for k, v in HOST_TAIL_OFF.items())]
     t_start = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -3444,7 +3508,7 @@ def phase_streaming(torch, n_series: int, profile: bool):
     end_ms = (T0 + p) * 1000 - 1
     keys = {"tsd.torch.device": "cuda",
             "tsd.core.auto_create_metrics": "true",
-            "tsd.query.cache.enable": "false",
+            "tsd.query.cache.enable": "false", **HOST_TAIL_OFF,
             "tsd.tpu.warmup": "false",
             # publishes come from the explicit pumps below and the
             # measured flushes, as in bench_live
@@ -3899,7 +3963,8 @@ def phase_streaming(torch, n_series: int, profile: bool):
     def small(**extra):
         return TSDB(Config(**{"tsd.torch.device": "cuda",
                               "tsd.core.auto_create_metrics": "true",
-                              "tsd.tpu.warmup": "false", **extra}))
+                              "tsd.tpu.warmup": "false", **HOST_TAIL_OFF,
+                              **extra}))
     fns = ["1m-sum", "1m-avg", "1m-max", "1m-min", "1m-count",
            "2m-sum", "2m-avg", "2m-max", "2m-min", "2m-count"]
     aggs = ["sum", "avg", "max", "min", "sum"]
@@ -3992,6 +4057,429 @@ def phase_streaming(torch, n_series: int, profile: bool):
         "phase_s": time.perf_counter() - t_phase}
     print(f"  phase 14: {line['phase_s']:.1f} s")
     return point_launches, line
+
+
+# phase 15: dashboard surfaces on phase 3's TSDB (config 3) and one small
+# TSDB built by append_grid: the host tail's budget edges, the device
+# breaker, /api/query/exp and /gexp, a pixel budget, tsuids and delete
+EDGE_SERIES = 131_073      # (a): one past the linear budget's edge at B=60
+EDGE_POINTS = 60           # (a): an hour at one point a minute, 1m-avg
+# (a): (label, query, S, G): at B = 60 (64 padded) the linear budget
+# 2^23 cells holds 131,072 padded series, the rank budget 2^20 cells
+# 16,384, and 2^25 cells x groups 32 padded groups at 16,384 series (31
+# groups bucket to 32, 32 to 40)
+EDGE_CASES = (
+    ("linear 2^23 cells, under", "sum:1m-avg:edge.m{}{lin=a}",
+     131_072, 1),
+    ("linear 2^23 cells, over", "sum:1m-avg:edge.m", 131_073, 1),
+    ("rank 2^20 cells, under", "p99:1m-avg:edge.m{}{rank=a}", 16_384, 1),
+    ("rank 2^20 cells, over", "p99:1m-avg:edge.m{}{rank=a|b}", 16_385, 1),
+    ("rank 2^25 cells x groups, under",
+     "p99:1m-avg:edge.m{grp=*}{rank=a,grp=not_literal_or(g31)}",
+     15_872, 31),
+    ("rank 2^25 cells x groups, over", "p99:1m-avg:edge.m{grp=*}{rank=a}",
+     16_384, 32))
+# (a): budgets far past any query, to pin a tail on the host
+HOST_PINNED = {"tsd.query.host_tail_max_cells": str(1 << 40),
+               "tsd.query.host_tail_max_cellgroups": str(1 << 50),
+               "tsd.query.host_tail_max_cells_linear": str(1 << 40)}
+SURF_BREAKER_RESET_MS = 1000   # (b): the small TSDB's reset window
+SURF_WINDOW = (T0, T0 + 3299)  # (c), (e): 11 buckets of 5 m, clear of
+#                                phase 6's late point on the last series
+PX_SERIES = 64             # (d): raw series of an hour at one point a second
+PX_POINTS = 3600
+PX_BUDGET = 300            # (d): pixels of the chart
+TSUID_SERIES = 100         # (e): tsuids of one sub-query
+# (c), (e): calls per p50 over config 3 (an /exp call runs two point-path
+# queries over 1M series, 4-5 s; REPEATS would take 35 s of the 60)
+SURF_REPEATS = 3
+DELETE_S = 600             # (e): the deleted range's seconds
+
+
+def legacy_percentile(x, q: float):
+    """Column order statistic of ``x`` [n, B] with commons-math3's
+    legacy estimation (h = q(n+1)/100 clamped to [1, n], linear between
+    ranks), in float64: the p99 aggregator's semantics."""
+    import numpy as np
+    srt = np.sort(np.asarray(x, dtype=np.float64), axis=0)
+    n = srt.shape[0]
+    h = min(max(q / 100.0 * (n + 1), 1.0), float(n))
+    lo = int(np.floor(h))
+    frac = h - lo
+    hi = min(lo, n - 1)
+    return srt[lo - 1] + frac * (srt[hi] - srt[lo - 1])
+
+
+def config3_window(values, ds: str, key: str, buckets: int):
+    """``sum:5m-<ds>:rate`` by ``key`` (dc: i % 100) over the first
+    ``buckets`` 5-minute buckets of :func:`make_data`'s ``values`` in
+    float64: ([100, B - 1] answer, [100, B - 1] sum|terms|)."""
+    import numpy as np
+    n = values.shape[0]
+    win = values[:, :buckets * 5].reshape(n, buckets, 5)
+    cell = win.mean(axis=2) if ds == "avg" else win.max(axis=2)
+    rate = np.diff(cell, axis=1) / 300.0
+    terms = (np.abs(cell[:, 1:]) + np.abs(cell[:, :-1])) / 300.0
+    gid = np.arange(n) % 100
+    return tuple(np.stack([np.bincount(gid, x[:, j], minlength=100)
+                           for j in range(x.shape[1])], axis=1)
+                 for x in (rate, terms))
+
+
+def phase_surfaces(torch, tsdb, values, query) -> dict:
+    """Phase 15: dashboard surfaces. (a) the host tail at its default
+    budgets on a small TSDB: a sum and a p99 query at the S just under
+    and just over each budget, each at its default placement and pinned
+    the other way; (b) the device breaker on the card; (c)
+    ``/api/query/exp`` and ``/gexp`` over config 3 sub-queries that run
+    K1 on phase 3's TSDB; (d) an M4 pixel budget over raw series of an
+    hour at 1 s; (e) a tsuid sub-query of 100 tsuids on phase 3's TSDB
+    and a ``delete=true`` over a range, read back. Returns the kernel
+    launches of (c) and (e)."""
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.ops import visual_downsample as vd
+    from opentsdb_tpu_torch.query import engine as engine_mod
+    from opentsdb_tpu_torch.query.engine import host_tail_for_dims
+    from opentsdb_tpu_torch.query.model import (TSQuery,
+                                                parse_uri_subquery)
+    from opentsdb_tpu_torch.stats.stats import QueryStats
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest, HttpRpcRouter
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    # the small TSDB at the defaults but the result cache, with a short
+    # breaker window for (b) and deletes allowed for (e)
+    small = TSDB(Config(**{
+        "tsd.torch.device": "cuda", "tsd.core.auto_create_metrics": "true",
+        "tsd.query.cache.enable": "false", "tsd.tpu.warmup": "false",
+        "tsd.query.breaker.failure_threshold": "2",
+        "tsd.query.breaker.reset_timeout_ms": str(SURF_BREAKER_RESET_MS),
+        "tsd.http.query.allow_delete": "true"}))
+    rng = np.random.default_rng(15)
+    t = time.perf_counter()
+    n, p = EDGE_SERIES, EDGE_POINTS
+    edge_vals = rng.normal(100.0, 15.0, (n, p))
+    tags = [{"host": f"h{i}", "lin": "a" if i < n - 1 else "b",
+             "rank": "a" if i < 16_384 else ("b" if i == 16_384 else "c"),
+             "grp": f"g{i % 32}"} for i in range(n)]
+    mid = small.uids.metrics.get_or_create_id("edge.m")
+    _, tag_ids = small._resolve_uids("edge.m", tags)
+    sids = small.store.get_or_create_series_bulk(mid, tag_ids)
+    small.store.append_grid(sids, T0 * 1000 + 60_000 * np.arange(p),
+                            edge_vals, np.ones((n, p), dtype=bool))
+    px_vals = 100.0 + np.cumsum(rng.normal(0.0, 1.0, (PX_SERIES, PX_POINTS)),
+                                axis=1)
+    pmid = small.uids.metrics.get_or_create_id("px.raw")
+    _, ptags = small._resolve_uids("px.raw", [{"host": f"h{i}"}
+                                              for i in range(PX_SERIES)])
+    psids = small.store.get_or_create_series_bulk(pmid, ptags)
+    px_ts = T0 * 1000 + 1000 * np.arange(PX_POINTS)
+    small.store.append_grid(psids, px_ts, px_vals,
+                            np.ones(px_vals.shape, dtype=bool))
+    print(f"  small TSDB: edge.m {n} series x {p} points at 1 m and px.raw "
+          f"{PX_SERIES} x {PX_POINTS} at 1 s by append_grid "
+          f"({small.store.points_written:,} points, normal(100, 15) and a "
+          f"random walk from seed 15): {time.perf_counter() - t:.3f} s")
+    window = (str(T0), str(T0 + p * 60 - 1))
+
+    # (a) the budget edges: default placement and pinned the other way
+    grids: list = []
+    real_grid = engine_mod.execute_grid
+    engine_mod.execute_grid = lambda g, *a, **k: (
+        grids.append(g.device.type), real_grid(g, *a, **k))[1]
+    try:
+        for label, m, s_want, g_want in EDGE_CASES:
+            sub = parse_uri_subquery(m)
+            tq = TSQuery(start=window[0], end=window[1],
+                         queries=[sub]).validate()
+            sel = np.ones(n, dtype=bool)
+            for f in sub.filters:
+                col = np.array([tg[f.tagk] for tg in tags])
+                if f.filter_name == "literal_or":
+                    sel &= np.isin(col, f.filter_expr.split("|"))
+                elif f.filter_name == "not_literal_or":
+                    sel &= ~np.isin(col, f.filter_expr.split("|"))
+            rows_i = np.flatnonzero(sel)
+            check(len(rows_i) == s_want, f"{label}: {len(rows_i)} series")
+            grp = (np.array([int(tags[i]["grp"][1:]) for i in rows_i])
+                   if g_want > 1 else np.zeros(len(rows_i), dtype=int))
+            keys_g = sorted(set(grp.tolist()))
+            check(len(keys_g) == g_want, f"{label}: {len(keys_g)} groups")
+            x = edge_vals[rows_i]
+            if sub.agg.name == "sum":
+                want = np.stack([x[grp == k].sum(axis=0) for k in keys_g])
+                tol = TOL_REL * np.stack([np.abs(x[grp == k]).sum(axis=0)
+                                          for k in keys_g]) + TOL_ABS
+            else:
+                want = np.stack([legacy_percentile(x[grp == k], 99.0)
+                                 for k in keys_g])
+                tol = TOL_REL * np.abs(want) + TOL_ABS
+            host = host_tail_for_dims(Config(), s_want, p, g_want, False,
+                                      sub.agg.name) is not None
+            check(host == label.endswith("under"),
+                  f"{label}: placed on the {'host' if host else 'card'}")
+            res = {}
+            for how, pin in (("default", {}),
+                             ("pinned", HOST_TAIL_OFF if host
+                              else HOST_PINNED)):
+                on_host = host if how == "default" else not host
+                for k_, v_ in pin.items():
+                    small.config.override_config(k_, v_)
+                grids.clear()
+                rows = small.execute_query(tq)      # warm-up
+                e2e, tails = [], []
+                for _ in range(REPEATS):
+                    rows, secs, st = _stats_run(small, tq)
+                    e2e.append(secs)
+                    tails.append(st.get("computeTime", 0.0))
+                for k_ in pin:
+                    small.config.override_config(k_,
+                                                 Config().get_string(k_))
+                check(set(grids) == {"cpu" if on_host else "cuda"},
+                      f"{label} {how}: the tail ran on {set(grids)}")
+                check(len(rows) == g_want, f"{label}: {len(rows)} rows")
+                got = np.stack([r.dps_arrays[1] for r in sorted(
+                    rows, key=lambda r: int(r.tags.get("grp", "g0")[1:]))])
+                check(got.shape == want.shape, f"{label}: {got.shape}")
+                err = np.abs(got - want)
+                check(bool((err <= tol).all()),
+                      f"{label} {how}: max |d| {err.max()!r} past the "
+                      "tolerance")
+                res[how] = (got, p50(e2e), p50(tails), on_host, err.max())
+            a, b = res["default"][0], res["pinned"][0]
+            check(bool((np.abs(a - b) <= 2 * tol).all()),
+                  f"{label}: default and pinned answers differ")
+            d, q = res["default"], res["pinned"]
+            print(f"  (a) {label}: {m} S={s_want} B={p} G={g_want}: "
+                  f"{'host' if d[3] else 'card'} by default p50 "
+                  f"{d[1] * 1e3:.3f} ms (tail {d[2]:.3f} ms), "
+                  f"{'host' if q[3] else 'card'} pinned p50 "
+                  f"{q[1] * 1e3:.3f} ms (tail {q[2]:.3f} ms); "
+                  f"max |d| vs numpy float64 {d[4]!r} / {q[4]!r}")
+            out.setdefault("edges", []).append({
+                "case": label, "series": s_want, "groups": g_want,
+                "default": "host" if d[3] else "card",
+                "default_ms": d[1] * 1e3, "default_tail_ms": d[2],
+                "pinned_ms": q[1] * 1e3, "pinned_tail_ms": q[2]})
+    finally:
+        engine_mod.execute_grid = real_grid
+
+    # (b) the breaker on the card: failures answered 500 and counted,
+    # past the threshold a 503 with Retry-After and no dispatch, the
+    # probe closes it after the reset window
+    router = HttpRpcRouter(small)
+    params = {"start": [window[0]], "end": [window[1]],
+              "m": ["sum:1m-avg:edge.m"]}
+
+    def get():
+        t0 = time.perf_counter()
+        r = router.handle(HttpRequest("GET", "/api/query", dict(params)))
+        return r, time.perf_counter() - t0
+
+    br = small.device_breaker
+    small.faults.arm("device.compile", error_count=2)
+    site = small.faults._sites["device.compile"]
+    codes = [get()[0].status for _ in range(2)]
+    check(codes == [500, 500] and br.total_failures == 2,
+          f"(b) failures answered {codes}, counted {br.total_failures}")
+    check(br.state == br.OPEN, f"(b) breaker {br.state} after 2 failures")
+    calls = site.calls
+    shed = [get() for _ in range(REPEATS)]
+    check(all(r.status == 503 and r.headers.get("Retry-After")
+              for r, _ in shed), "(b) an open breaker did not answer 503 "
+          "with Retry-After")
+    check(site.calls == calls, "(b) a shed query reached the device")
+    time.sleep(SURF_BREAKER_RESET_MS / 1000 + 0.2)
+    probe, probe_s = get()
+    check(probe.status == 200 and br.state == br.CLOSED
+          and br.recoveries == 1, f"(b) the probe answered "
+          f"{probe.status}, breaker {br.state}")
+    out["breaker_503_ms"] = p50([s for _, s in shed]) * 1e3
+    print(f"  (b) breaker: 2 injected device.compile failures answered "
+          f"500 and counted; then {REPEATS} queries 503 with Retry-After "
+          f"{shed[0][0].headers['Retry-After']} s, no dispatch, p50 "
+          f"{out['breaker_503_ms']:.3f} ms; after "
+          f"{SURF_BREAKER_RESET_MS} ms the probe answered 200 in "
+          f"{probe_s * 1e3:.3f} ms and closed the breaker")
+
+    # (c) /api/query/exp and /gexp over config-3 sub-queries on K1
+    for k_, v_ in ENGINE_KEYS.items():
+        tsdb.config.override_config(k_, v_)
+    r3 = HttpRpcRouter(tsdb)
+    nb = (SURF_WINDOW[1] - SURF_WINDOW[0] + 1) // 300
+    a_ref, a_terms = config3_window(values, "avg", "dc", nb)
+    b_ref, b_terms = config3_window(values, "max", "dc", nb)
+    body = {"time": {"start": str(SURF_WINDOW[0]),
+                     "end": str(SURF_WINDOW[1]), "aggregator": "sum",
+                     "downsampler": {"interval": "5m", "aggregator": "avg"},
+                     "rate": True},
+            "filters": [{"id": "f", "tags": [{"type": "wildcard",
+                                              "tagk": "dc", "filter": "*",
+                                              "groupBy": True}]}],
+            "metrics": [{"id": "a", "metric": METRIC, "filter": "f"},
+                        {"id": "b", "metric": METRIC, "filter": "f",
+                         "downsampler": {"interval": "5m",
+                                         "aggregator": "max"}}],
+            "expressions": [{"id": "e", "expr": "a / b * 100"}],
+            "outputs": [{"id": "e"}]}
+    raw = json.dumps(body).encode()
+    reset_launches(fused)
+    exp_s = []
+    for _ in range(SURF_REPEATS):
+        t0 = time.perf_counter()
+        resp = r3.handle(HttpRequest("POST", "/api/query/exp", body=raw))
+        exp_s.append(time.perf_counter() - t0)
+        check(resp.status == 200, f"(c) /exp answered {resp.status}: "
+              f"{resp.body[:300]!r}")
+    exp_launch = read_launches(fused)
+    check(exp_launch["span_reduce"] == 2 * SURF_REPEATS,
+          f"(c) /exp launched {exp_launch}, not K1 twice a call")
+    o = json.loads(resp.body)["outputs"][0]
+    cols = [int(mm["commonTags"]["dc"][2:]) for mm in o["meta"][1:]]
+    check(sorted(cols) == list(range(100)), "(c) /exp lost a dc")
+    got = np.array([[np.nan if v is None else v for v in row[1:]]
+                    for row in o["dps"]], dtype=np.float64).T[
+        np.argsort(cols)]
+    want = a_ref / b_ref * 100.0
+    ta, tb = TOL_REL * a_terms + TOL_ABS, TOL_REL * b_terms + TOL_ABS
+    tol = 1.01 * 100.0 * (ta / np.abs(b_ref)
+                          + np.abs(a_ref) * tb / b_ref ** 2)
+    check(got.shape == want.shape, f"(c) /exp shape {got.shape}")
+    err = np.abs(got - want)
+    check(bool((err <= tol).all()), f"(c) /exp max |d| {err.max()!r}")
+    out["exp_p50_ms"] = p50(exp_s) * 1e3
+    reset_launches(fused)
+    gq = {"exp": [f"scale(sum:5m-avg:rate:{METRIC}{{dc=*}},100)"],
+          "start": [str(SURF_WINDOW[0])], "end": [str(SURF_WINDOW[1])]}
+    gexp_s = []
+    for _ in range(SURF_REPEATS):
+        t0 = time.perf_counter()
+        gresp = r3.handle(HttpRequest("GET", "/api/query/gexp", gq))
+        gexp_s.append(time.perf_counter() - t0)
+        check(gresp.status == 200, f"(c) /gexp answered {gresp.status}")
+    gexp_launch = read_launches(fused)
+    check(gexp_launch["span_reduce"] == SURF_REPEATS,
+          f"(c) /gexp launched {gexp_launch}")
+    grows = json.loads(gresp.body)
+    gidx = [int(r["tags"]["dc"][2:]) for r in grows]
+    gvals = np.array([list(r["dps"].values()) for r in grows])[
+        np.argsort(gidx)]
+    gerr = np.abs(gvals - 100.0 * a_ref)
+    check(bool((gerr <= 100.0 * ta).all()),
+          f"(c) /gexp max |d| {gerr.max()!r}")
+    print(f"  (c) /api/query/exp 'a / b * 100' (a sum:5m-avg:rate, b "
+          f"sum:5m-max:rate, by dc, {nb} buckets): p50 "
+          f"{out['exp_p50_ms']:.3f} ms of {SURF_REPEATS}, K1 launched "
+          f"{exp_launch['span_reduce']} times, max |d| vs numpy float64 "
+          f"{err.max()!r}; /gexp scale(...,100): p50 "
+          f"{p50(gexp_s) * 1e3:.3f} ms, K1 {gexp_launch['span_reduce']}, "
+          f"max |d| {gerr.max()!r}")
+
+    # (d) an M4 pixel budget over raw series of an hour at 1 s
+    def px_query(agg: str, px: int):
+        obj = {"start": str(T0), "end": str(T0 + PX_POINTS - 1),
+               "queries": [{"aggregator": agg, "metric": "px.raw",
+                            "filters": [{"type": "wildcard",
+                                         "tagk": "host", "filter": "*",
+                                         "groupBy": True}]}]}
+        if px:
+            obj["queries"][0]["pixels"] = px
+        return TSQuery.from_json(obj).validate()
+
+    (full,), full_s = timed(lambda: [small.execute_query(
+        px_query("none", 0))], REPEATS)
+    (red,), red_s = timed(lambda: [small.execute_query(
+        px_query("none", PX_BUDGET))], REPEATS)
+    check(len(full) == len(red) == PX_SERIES, "(d) rows lost")
+    kept_pts = 0
+    for f_row, r_row in zip(full, red):
+        ts, v = f_row.dps_arrays
+        naive = vd.naive_m4_reference(ts, v, np.ones(len(ts), dtype=bool),
+                                      T0 * 1000, (T0 + PX_POINTS - 1) * 1000,
+                                      PX_BUDGET)
+        idx = np.searchsorted(ts, r_row.dps_arrays[0])
+        check(set(idx.tolist()) == naive and bool(
+            np.array_equal(r_row.dps_arrays[1].view(np.int64),
+                           v[idx].view(np.int64))),
+              f"(d) {f_row.tags}: M4 kept set differs from the naive "
+              "reference")
+        kept_pts += len(idx)
+    grid_v = np.stack([r.dps_arrays[1] for r in full])
+    _, m4_s = timed(lambda: vd.keep_mask(
+        grid_v, np.ones(grid_v.shape, dtype=bool), full[0].dps_arrays[0],
+        T0 * 1000, (T0 + PX_POINTS - 1) * 1000, PX_BUDGET, "m4"), REPEATS)
+    out["m4_ms"] = p50(m4_s) * 1e3
+    print(f"  (d) none:px.raw{{host=*}} pixels={PX_BUDGET}: "
+          f"{kept_pts:,} of {PX_SERIES * PX_POINTS:,} points kept, every "
+          f"row's kept set equal to naive_m4_reference and its values bit "
+          f"for bit; query p50 {p50(red_s) * 1e3:.3f} ms against "
+          f"{p50(full_s) * 1e3:.3f} ms at full resolution; the M4 pass "
+          f"over [{PX_SERIES}, {PX_POINTS}] {out['m4_ms']:.3f} ms")
+
+    # (e) 100 tsuids on phase 3's TSDB (K1), then a delete=true, read back
+    store = tsdb.store
+    mid3 = tsdb.uids.metrics.get_id(METRIC)
+    n3 = values.shape[0]
+    rows_t = [(9973 * k) % n3 for k in range(TSUID_SERIES)]
+    all_sids = store.series_ids_for_metric(mid3)
+    tsuids = [tsdb.uids.tsuid(mid3, store.series(int(all_sids[i])).tags)
+              .hex().upper() for i in rows_t]
+    tq = TSQuery.from_json({
+        "start": str(SURF_WINDOW[0]), "end": str(SURF_WINDOW[1]),
+        "queries": [{"aggregator": "sum", "tsuids": tsuids,
+                     "downsample": "5m-avg", "rate": True}]}).validate()
+    reset_launches(fused)
+    (trows,), tsuid_s = timed(lambda: [tsdb.execute_query(tq)],
+                              SURF_REPEATS)
+    tl = read_launches(fused)
+    check(sum(tl.values()) == SURF_REPEATS,
+          f"(e) tsuid query launched {tl}")
+    check(len(trows) == 1 and sorted(trows[0].tsuids) == sorted(tsuids),
+          "(e) the tsuid answer names other series")
+    sub_v = values[rows_t, :nb * 5].reshape(TSUID_SERIES, nb, 5).mean(2)
+    t_want = (np.diff(sub_v, axis=1) / 300.0).sum(axis=0)
+    t_terms = ((np.abs(sub_v[:, 1:]) + np.abs(sub_v[:, :-1])) / 300.0) \
+        .sum(axis=0)
+    t_err = np.abs(trows[0].dps_arrays[1] - t_want)
+    check(bool((t_err <= TOL_REL * t_terms + TOL_ABS).all()),
+          f"(e) tsuid answer max |d| {t_err.max()!r}")
+    # the delete: host h0 of px.raw over its first 10 minutes
+    dbody = json.dumps({"start": str(T0), "end": str(T0 + DELETE_S - 1),
+                        "delete": True, "queries": [{
+                            "aggregator": "sum", "metric": "px.raw",
+                            "tags": {"host": "h0"}}]}).encode()
+    h0 = np.array([psids[0]])
+    before = small.store.count_range(psids, T0 * 1000,
+                                     (T0 + PX_POINTS) * 1000)
+    dresp = router.handle(HttpRequest("POST", "/api/query", body=dbody))
+    check(dresp.status == 200, f"(e) delete answered {dresp.status}")
+    dvals = np.array(list(json.loads(dresp.body)[0]["dps"].values()))
+    check(bool(np.allclose(dvals, px_vals[0, :DELETE_S], rtol=TOL_REL,
+                           atol=TOL_ABS)), "(e) the delete's answer is not "
+          "the points it removed")
+    after = small.store.count_range(psids, T0 * 1000,
+                                    (T0 + PX_POINTS) * 1000)
+    check(int(small.store.count_range(h0, T0 * 1000,
+                                      (T0 + DELETE_S) * 1000 - 1)[0]) == 0
+          and int(after[0]) == PX_POINTS - DELETE_S
+          and bool(np.array_equal(after[1:], before[1:])),
+          f"(e) read back after the delete: {after[:3]}")
+    again = small.execute_query(TSQuery.from_json(
+        {**json.loads(dbody), "delete": False}).validate())
+    check(again == [], "(e) the deleted range still answers")
+    print(f"  (e) {TSUID_SERIES} tsuids of config 3 (sum:5m-avg:rate): p50 "
+          f"{p50(tsuid_s) * 1e3:.3f} ms, launches {tl}, max |d| vs numpy "
+          f"float64 {t_err.max()!r}; delete=true of px.raw h0 over "
+          f"{DELETE_S} s by POST /api/query answered its {len(dvals)} "
+          f"points, then h0 holds {int(after[0])} of {int(before[0])}, "
+          "the other series unchanged, the range answers nothing")
+    small.shutdown()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 15: {out['phase_s']:.1f} s")
+    return {k: exp_launch[k] + gexp_launch[k] + tl[k]
+            for k in exp_launch}, out
 
 
 def p50(xs) -> float:
@@ -4103,6 +4591,10 @@ def main() -> int:
     def query(m: str):
         return TSQuery(start=start, end=end,
                        queries=[parse_uri_subquery(m)]).validate()
+
+    # phases 3-6, 8 and 15 (c)/(e) query this data: config 3's dims
+    for m, _ in QUERIES:
+        placement(m, s, POINTS // 5, min(s, 100 if "{dc=*}" in m else 2000))
 
     # the main path: counts reset just before, read just after
     reset_launches(fused)
@@ -4282,16 +4774,31 @@ def main() -> int:
     for kname, n in phase_serve(torch, tsdb, query, ref3,
                                 tags[-1]).items():
         launches[kname] += n
+    # phase 15 runs here, on phase 3's TSDB before it goes
+    header("phase 15: dashboard surfaces (the host tail's budget edges, "
+           "the device breaker, /api/query/exp and /gexp, a pixel budget, "
+           f"tsuids and delete) (|got - want| <= {TOL_REL}*sum|terms| + "
+           f"{TOL_ABS})")
+    surf_launches, surfaces = phase_surfaces(torch, tsdb, values, query)
+    for kname, n in surf_launches.items():
+        launches[kname] += n
     tsdb.shutdown()
     del tsdb, tags, ts2d, values
     header(f"phase 7: irregular data, {s} series x {POINTS} slots"
            + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
            + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    for m, _tz, _kind in IRREGULAR_QUERIES:
+        b_irr = 4 if "15mc" in m else (12 if "5m-" in m else POINTS * 10)
+        placement(m, s, b_irr, min(s, 100 if "{dc=*}" in m else 2000),
+                  m.split(":")[0])
     phase_irregular(torch, s, args.profile)
     cut = max(1, s // STORE_CUT)
     header(f"phase 9: storage backends A/B, {cut} series x {POINTS} "
            "points (CUT from 1,000,000), tsd.storage.backend=native then "
            "memory")
+    for m, _ in QUERIES:   # phases 9 and 10
+        placement(m, cut, POINTS // 5,
+                  min(cut, 100 if "{dc=*}" in m else 2000))
     for kname, n in phase_backends(torch, cut, query).items():
         launches[kname] += n
     header(f"phase 10: durability, {cut} series x {POINTS} points (CUT "
@@ -4301,6 +4808,9 @@ def main() -> int:
     header(f"phase 11: blocked long ranges, {s} series x {LONG_POINTS} "
            "points" + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
            + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    for m, _carry in LONG_QUERIES:
+        placement(m + " (blocked before placement)", s, LONG_POINTS,
+                  min(s, 100 if "{dc=*}" in m else 2000))
     phase_long(torch, s, args.profile)
     header(f"phase 12: histograms, BASELINE config 4, {s} series x "
            f"{HIST_POINTS} point (depth CUT from 2) x {HIST_BUCKETS} "
@@ -4310,6 +4820,9 @@ def main() -> int:
     header(f"phase 13: rollups, BASELINE config 5, {rn} series x "
            f"{ROLLUP_POINTS} points at 1 s (CUT from 100,000)"
            + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    for m, _extra, _k in ROLLUP_QUERIES:
+        placement(m, rn, 1 if "1h-" in m else 12,
+                  min(rn, 100 if "{dc=*}" in m else 2000), m.split(":")[0])
     rollup_launches, rollup = phase_rollups(torch, rn, args.profile)
     for kname, n in rollup_launches.items():
         launches[kname] += n
@@ -4319,6 +4832,12 @@ def main() -> int:
            "rounds (CUT from 5)"
            + ("" if ln == LIVE_SERIES else " (series CUT from 100,000)")
            + f" (|got - want| <= {TOL_REL}*|want| + {TOL_ABS})")
+    placement("a continuous query's tail by dc", ln, LIVE_SPAN_S // 60,
+              min(ln, 100))
+    placement("a continuous query's tail by rack", ln, LIVE_SPAN_S // 60,
+              min(ln, 2000))
+    for b_w in (60, 288):
+        placement("a warm class", LIVE_WARM_SERIES, b_w, 100)
     live_launches, streaming = phase_streaming(torch, ln, args.profile)
     for kname, n in live_launches.items():
         launches[kname] += n
@@ -4347,6 +4866,7 @@ def main() -> int:
     print(json.dumps({"histogram": hist}))
     print(json.dumps({"rollup": rollup}))
     print(json.dumps({"streaming": streaming}))
+    print(json.dumps({"surfaces": surfaces}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

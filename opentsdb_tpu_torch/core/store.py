@@ -275,7 +275,7 @@ class TimeSeriesStore:
         self._may_hold_nan = False
         self.points_written = 0
         # beside points_written it versions the store for read-side
-        # caches; the port has no deletes yet, so it stays 0
+        # caches; a delete bumps it
         self.mutation_epoch = 0
         # identity for cache keys: id() could alias a freed store
         self.instance_id = next(_INSTANCE_IDS)
@@ -414,6 +414,35 @@ class TimeSeriesStore:
         offsets = np.zeros(n_series + 1, dtype=np.int64)
         np.cumsum(counts, out=offsets[1:])
         self._offsets, self._ts, self._vals = offsets, ts, vals
+
+    def delete_range(self, series_ids, start_ms: int, end_ms: int) -> int:
+        """Remove the points in the inclusive ``[start_ms, end_ms]`` of
+        each series (ref: ``TimeSeriesStore.delete_range``); returns how
+        many went. The columns are replaced, not changed in place, so a
+        reader's snapshot stays valid."""
+        sids = np.unique(np.asarray(series_ids, dtype=np.int64))
+        with self._lock:
+            if len(sids) and (int(sids[0]) < 0
+                              or int(sids[-1]) >= self._num_series):
+                raise IndexError("invalid series id in delete_range")
+            self._fold_locked()
+            offsets, ts, vals = self._offsets, self._ts, self._vals
+            lo, hi = _range_bounds(offsets, ts, sids, start_ms, end_ms)
+            gone = hi - lo
+            total = int(gone.sum())
+            if total == 0:
+                return 0
+            keep = np.ones(len(ts), dtype=bool)
+            first = np.repeat(lo - (np.cumsum(gone) - gone), gone)
+            keep[first + np.arange(total)] = False
+            counts = np.diff(offsets)
+            counts[sids] -= gone
+            new_offsets = np.zeros_like(offsets)
+            np.cumsum(counts, out=new_offsets[1:])
+            self._offsets, self._ts, self._vals = \
+                new_offsets, ts[keep], vals[keep]
+            self.mutation_epoch += 1
+            return total
 
     def _columns(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         with self._lock:

@@ -63,8 +63,8 @@ from opentsdb_tpu_torch.rollup.store import RollupStore
 from opentsdb_tpu_torch.stats.stats import (ServePayloadStats,
                                             StatsCollectorRegistry)
 from opentsdb_tpu_torch.utils.config import Config
-from opentsdb_tpu_torch.utils.faults import (FaultInjector, RetryPolicy,
-                                             call_with_retries)
+from opentsdb_tpu_torch.utils.faults import (CircuitBreaker, FaultInjector,
+                                             RetryPolicy, call_with_retries)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 # the bits of a timestamp above the seconds range (ref: Const.SECOND_MASK)
@@ -219,6 +219,10 @@ class TSDB:
         self.stats.register(self.payload_stats)
         self._device_grid_cache: DeviceGridCache | None = None
         self._device_cache_lock = threading.Lock()
+        # the host-RAM twin for host-placed prepared batches: a pool
+        # apart, so host entries never evict the card's grids
+        self._host_prep_cache: DeviceGridCache | None = None
+        self._host_cache_mb = self.config.get_int("tsd.query.host_cache_mb")
         # (store instance, metric id) -> (series count, TagMatrix):
         # the engine's per-metric tag matrix, rebuilt when the metric
         # gains a series
@@ -234,6 +238,23 @@ class TSDB:
         # tsd.faults.* keys; one dict miss per site when disarmed)
         self.faults = FaultInjector(self.config)
         self.stats.register(self.faults)
+        # the device pipeline's breaker (ref: TSDB.device_breaker), in
+        # its shedding mode only: the reference's host re-answer of a
+        # failed query is a fallback the port does not have
+        if self.config.get_bool("tsd.query.degraded.host_fallback"):
+            raise ValueError(
+                "tsd.query.degraded.host_fallback=true re-answers a failed "
+                "device query on the host; the port has no fallback after "
+                "a failure (an open breaker answers 503): set it to false")
+        threshold = self.config.get_int(
+            "tsd.query.breaker.failure_threshold")
+        self.device_breaker: CircuitBreaker | None = None
+        if threshold > 0:
+            self.device_breaker = CircuitBreaker(
+                "device.pipeline", failure_threshold=threshold,
+                reset_timeout_ms=self.config.get_int(
+                    "tsd.query.breaker.reset_timeout_ms"))
+            self.stats.register(self.device_breaker)
         # histogram points (ref: TSDB.java:125-135): the codecs, an
         # index of the histogram series (a memory store that holds no
         # points), and per metric a columnar arena of the points; the
@@ -346,6 +367,21 @@ class TSDB:
             return self._device_grid_cache
 
     @property
+    def host_prep_cache(self) -> DeviceGridCache | None:
+        """The host-RAM prepared-batch cache of host-placed queries
+        (ref: ``TSDB.host_prep_cache``), made when first needed at
+        ``tsd.query.host_cache_mb``; None while that key is 0."""
+        if self._host_cache_mb <= 0:
+            return None
+        with self._device_cache_lock:
+            if self._host_prep_cache is None:
+                self._host_prep_cache = DeviceGridCache(
+                    self._host_cache_mb << 20,
+                    stat_prefix="query.hostcache")
+                self.stats.register(self._host_prep_cache)
+            return self._host_prep_cache
+
+    @property
     def result_cache(self) -> QueryResultCache | None:
         """The serve-path result cache
         (:mod:`opentsdb_tpu_torch.query.result_cache`), or None when it
@@ -422,11 +458,13 @@ class TSDB:
 
     def drop_caches(self) -> None:
         """(ref: TSDB.dropCaches) The UID tables are authoritative; the
-        device cache and the result cache are dropped, and the
-        continuous queries' partials rebuild from the store at their
-        next serve."""
+        device cache, its host-RAM twin and the result cache are
+        dropped, and the continuous queries' partials rebuild from the
+        store at their next serve."""
         if self._device_grid_cache is not None:
             self._device_grid_cache.clear()
+        if self._host_prep_cache is not None:
+            self._host_prep_cache.clear()
         if self._result_cache is not None:
             self._result_cache.clear()
         if self._streaming is not None:

@@ -63,6 +63,14 @@ class PipelineSpec:
     rate_counter: bool = False
     rate_drop_resets: bool = False
     emit_raw: bool = False    # agg 'none': emit per-series, skip group stage
+    # True when the engine placed this tail on the host CPU (ref:
+    # ``PipelineSpec.host``, the host-tail path): its tensors are CPU
+    # tensors, so every kernel wrapper takes its plain version. The
+    # reference switches its group stage to segment ops there (its
+    # device one is a one-hot contraction); the port's group stage is
+    # the fixed-order segment reduction of ``GroupPlan`` on every
+    # device, so the flag selects no other code in the tail
+    host: bool = False
     # True when the CALLER verified every (series, bucket) cell holds a
     # real value: cross-series interpolation and the per-group emission
     # reduction are provably no-ops and are skipped.
@@ -90,6 +98,8 @@ def apply_fill_policy(grid, has_data, spec: PipelineSpec):
 
 def _finish_pipeline(grid, has_data, bucket_ts, group_ids,
                      ro: RateOptions, spec: PipelineSpec):
+    if spec.host and grid.device.type != "cpu":
+        raise ValueError(f"a host-placed tail got a {grid.device} grid")
     g, b = spec.num_groups, spec.num_buckets
     grid, has_data = apply_fill_policy(grid, has_data, spec)
 

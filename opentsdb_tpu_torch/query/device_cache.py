@@ -27,10 +27,14 @@ def array_digest(arr) -> bytes:
 
 class DeviceGridCache:
     """LRU of device tensors keyed by (reduction params, store
-    version)."""
+    version). The host-RAM prepared-batch pool of host-placed queries
+    is one too (``TSDB.host_prep_cache``), with its own
+    ``stat_prefix``."""
 
-    def __init__(self, max_bytes: int):
+    def __init__(self, max_bytes: int,
+                 stat_prefix: str = "query.devicecache"):
         self.max_bytes = max_bytes
+        self.stat_prefix = stat_prefix
         self._lock = threading.Lock()
         # key -> (version, arrays: tuple, meta: dict, nbytes: int)
         self._entries: OrderedDict[Any, tuple] = OrderedDict()
@@ -79,3 +83,9 @@ class DeviceGridCache:
         with self._lock:
             self._entries.clear()
             self.nbytes = 0
+
+    def collect_stats(self, collector) -> None:
+        collector.record(f"{self.stat_prefix}.bytes", self.nbytes)
+        collector.record(f"{self.stat_prefix}.entries", len(self._entries))
+        collector.record(f"{self.stat_prefix}.hits", self.hits)
+        collector.record(f"{self.stat_prefix}.misses", self.misses)

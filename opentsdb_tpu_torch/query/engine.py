@@ -47,11 +47,32 @@ Every path that scans checks the TSDB's query limits
 its scan in the request's ``QueryStats`` when the caller passes one
 (the ``/api/query`` handler does).
 
-The reference engine's other paths are not ported yet: the host-CPU
-tail and its device circuit breaker with its host retries, the
-host-RAM prepared-batch cache, the device mesh (``tsd.query.mesh``),
-the lifecycle's stitched tier views, tsuid sub-queries and
-``delete=true``. Asking for any of them raises NotImplementedError.
+Placement (ref: ``host_tail_device``): before any device call, the
+grid, point and avg paths decide from the query's padded ``[S, B]``
+(and, for median and the percentiles, its groups) and the
+``tsd.query.host_tail_max_*`` keys alone whether the pipeline's tail
+runs on the host CPU or on the TSDB's device. A host-placed tail runs
+the kernels' plain versions on CPU tensors, and its prepared batches
+go to the host-RAM pool (``TSDB.host_prep_cache``), never the device
+cache. It is chosen by size, never as a retry after a failure.
+
+Every device dispatch runs under the TSDB's device breaker
+(``tsd.query.breaker.*``, ``_run_device``) in its shedding mode: a
+failure is counted and raised; an open breaker refuses a query that
+would touch the device with ``DegradedError`` (503 with Retry-After)
+before any device call, and its half-open probe closes it on success.
+The reference's host re-answer of a failed query, and its cold re-run
+of a failed warm hit, are fallbacks the port does not have.
+
+A sub-query may name its series by tsuid (``_tsuid_store``), and a
+``delete=true`` query removes the points it read once its compute
+succeeded (sub-queries then run one after another). A pixel budget
+(``pixels``/``pixelFn``, ``ops/visual_downsample.py``) reduces each
+emitted row last, at result assembly.
+
+The reference engine's device mesh (``tsd.query.mesh``) and the
+lifecycle's stitched tier views are not ported yet: their keys raise
+NotImplementedError when a TSDB is built.
 
 A sub-query with ``percentiles`` takes its own path (``_run_sub``'s
 first branch, as in the reference): the exact merge over the
@@ -70,7 +91,10 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.core import store as store_mod
+from opentsdb_tpu_torch.ops import aggregators as aggs_mod
 from opentsdb_tpu_torch.ops import downsample as ds_mod
+from opentsdb_tpu_torch.ops import visual_downsample as vd
+from opentsdb_tpu_torch.ops.shapes import shape_bucket
 from opentsdb_tpu_torch.ops.blocked import (DEFAULT_CELL_BUDGET,
                                             execute_blocked,
                                             pick_block_buckets)
@@ -85,15 +109,19 @@ from opentsdb_tpu_torch.query import filters as filters_mod
 from opentsdb_tpu_torch.query import result_cache as rc_mod
 from opentsdb_tpu_torch.query.device_cache import array_digest
 from opentsdb_tpu_torch.query.model import (BadRequestError, TSQuery,
-                                            TSSubQuery)
+                                            TSSubQuery, effective_pixels)
 from opentsdb_tpu_torch.stats.stats import QueryStat, QueryStats
+from opentsdb_tpu_torch.utils.faults import DegradedError
 
-# (config key, the value that keeps the engine off a missing path, the
-# missing path)
-_POINT_PATH_KEYS = (
-    ("tsd.query.host_tail_max_cells", "-1", "host-CPU tail"),
-    ("tsd.query.host_tail_max_cells_linear", "-1", "host-CPU tail"),
-)
+# the host CPU, where a host-placed tail runs
+HOST = torch.device("cpu")
+# default padded [S, B] cells under which the tail of a median or
+# percentile query runs on the host (ref: HOST_TAIL_DEFAULT_CELLS),
+# and its cap on cells x groups (its group stage sorts per group)
+HOST_TAIL_DEFAULT_CELLS = 1 << 20
+HOST_TAIL_DEFAULT_CELLGROUPS = 1 << 25
+# the linear aggregators' cells-only budget (segment reductions)
+HOST_TAIL_DEFAULT_CELLS_LINEAR = 1 << 23
 # keys that turn on a subsystem the port has not ported, checked when a
 # TSDB is built (refuse_unported_keys): (config key, its default, the
 # subsystem, the ROADMAP Queue 1 item that ports it)
@@ -132,6 +160,57 @@ def refuse_unported_keys(config) -> None:
         f"tsd.query.mesh={spec} turns on the query mesh, which is not "
         f"ported yet (ROADMAP Queue 1, the mesh); leave tsd.query.mesh "
         f"at '' (or 'auto' with one device)")
+
+
+def _rank_class_agg(agg_name: str) -> bool:
+    """Median and the percentiles: the group stage sorts, it is not a
+    segment reduction (ref: ``_rank_class_agg``). An unknown name is
+    taken as rank class, the conservative budget."""
+    if agg_name == "median":
+        return True
+    try:
+        return aggs_mod.get(agg_name).is_percentile
+    except KeyError:
+        return True
+
+
+def host_tail_device(config, padded_cells: int, padded_groups: int = 1,
+                     linear_agg: bool = False) -> torch.device | None:
+    """The host CPU for a small query's tail, or None for the TSDB's
+    device (ref: ``host_tail_device``). A linear aggregator's tail goes
+    to the host below ``tsd.query.host_tail_max_cells_linear`` padded
+    cells; a rank-class one below ``tsd.query.host_tail_max_cells``
+    cells and ``tsd.query.host_tail_max_cellgroups`` cells x groups.
+    0 means the default budget, -1 never. The dims are shape-bucketed
+    (:func:`host_tail_for_dims`), so the warmup places a class as the
+    engine will."""
+    if linear_agg:
+        limit = config.get_int("tsd.query.host_tail_max_cells_linear", 0) \
+            or HOST_TAIL_DEFAULT_CELLS_LINEAR
+        if limit < 0 or padded_cells > limit:
+            return None
+        return HOST
+    limit = config.get_int("tsd.query.host_tail_max_cells", 0) \
+        or HOST_TAIL_DEFAULT_CELLS
+    glimit = config.get_int("tsd.query.host_tail_max_cellgroups", 0) \
+        or HOST_TAIL_DEFAULT_CELLGROUPS
+    if limit < 0 or glimit < 0 or padded_cells > limit \
+            or padded_cells * max(padded_groups, 1) > glimit:
+        return None
+    return HOST
+
+
+def host_tail_for_dims(config, s: int, b: int, num_groups: int,
+                       emit_raw: bool = False,
+                       agg_name: str = "p99") -> torch.device | None:
+    """:func:`host_tail_device` from a query's true dims: the one place
+    they are shape-bucketed, shared by the engine and the warmup (ref:
+    ``host_tail_for_dims``). ``emit_raw`` has no group stage (factor
+    1); ``agg_name`` picks the linear or the rank-class budget."""
+    return host_tail_device(
+        config, shape_bucket(s) * shape_bucket(b),
+        1 if emit_raw else shape_bucket(num_groups + 1),
+        linear_agg=not _rank_class_agg(agg_name))
 
 
 def _visible_devices(config) -> int:
@@ -222,6 +301,13 @@ def _distinct(ts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     present[off] = True
     slot = np.cumsum(present, dtype=np.int32) - 1
     return np.flatnonzero(present).astype(ts.dtype) + lo, slot[off]
+
+
+def _host(out) -> tuple[np.ndarray, np.ndarray]:
+    """A tail's (result, emit) tensors as host arrays; the copy waits
+    for the device, so a device error surfaces here."""
+    result, emit = out
+    return result.cpu().numpy(), emit.cpu().numpy()
 
 
 @dataclass
@@ -447,11 +533,6 @@ class QueryEngine:
 
     def __init__(self, tsdb):
         config = tsdb.config
-        for key, off, missing in _POINT_PATH_KEYS:
-            if config.get_string(key) != off:
-                raise NotImplementedError(
-                    f"{key}={config.get_string(key)} selects the "
-                    f"{missing}, which is not ported yet; set {key}={off}")
         self.tsdb = tsdb
         self._filter_eval = filters_mod.FilterEvaluator(tsdb.uids)
         self._grid_reduce = config.get_bool("tsd.query.grid_reduce")
@@ -460,13 +541,65 @@ class QueryEngine:
         # the request's QueryStats, set by run(); None records nothing
         self._stats: QueryStats | None = None
 
+    # -- the device breaker, in its shedding mode --------------------
+
+    def _device_degraded(self) -> bool:
+        """True while the device breaker is open inside its reset window
+        (ref: ``_device_degraded``); read-only: the half-open probe
+        belongs to :meth:`_run_device`'s gate."""
+        breaker = self.tsdb.device_breaker
+        return breaker is not None and breaker.blocking()
+
+    def _tail_device(self, s: int, b: int, num_groups: int,
+                     emit_raw: bool, agg_name: str) -> torch.device | None:
+        """:func:`host_tail_for_dims`, decided before any device call
+        (ref: ``_tail_device``). An open breaker refuses the query with
+        ``DegradedError``, as the reference does with
+        ``tsd.query.degraded.host_fallback=false``: the port never pins
+        a query to the host because the device failed."""
+        if self._device_degraded():
+            raise DegradedError(
+                "device pipeline circuit breaker is open and host "
+                "fallback is disabled (tsd.query.degraded.host_fallback)")
+        return host_tail_for_dims(self.tsdb.config, s, b, num_groups,
+                                  emit_raw, agg_name)
+
+    def _run_device(self, compute, on_device: bool = True):
+        """Run a tail under the device breaker (ref: ``_run_device`` with
+        ``tsd.query.degraded.host_fallback=false``). ``compute`` must
+        return host arrays, so an asynchronous device error surfaces
+        inside it. An open breaker raises ``DegradedError`` and
+        ``compute`` never runs; a failure is counted and raised; a
+        success closes a half-open breaker. A host-placed tail
+        (``on_device=False``) bypasses the breaker: a host success says
+        nothing of the device."""
+        if not on_device:
+            return compute()
+        breaker = self.tsdb.device_breaker
+        if breaker is not None and not breaker.allow():
+            raise DegradedError(
+                "device pipeline circuit breaker is open and this query "
+                "has no host fallback")
+        try:
+            self.tsdb.faults.check("device.compile")
+            out = compute()
+        except Exception:
+            if breaker is not None:
+                breaker.record_failure()
+            raise
+        if breaker is not None:
+            breaker.record_success()
+        return out
+
+    # ---------------------------------------------------------------
+
     def run(self, ts_query: TSQuery,
             stats: QueryStats | None = None) -> list[QueryResult]:
-        if ts_query.delete:
-            raise NotImplementedError("delete=true is not ported yet")
         self._stats = stats
         subs = ts_query.queries
-        if len(subs) > 1:
+        if len(subs) > 1 and not ts_query.delete:
+            # delete=true stays serial (ref): a sub's delete_range
+            # removes points a parallel sibling may still be reading
             pool = self.tsdb.query_fanout_pool
             if pool is not None:
                 return self._run_fanout(ts_query, subs, pool)
@@ -581,7 +714,10 @@ class QueryEngine:
         ``ds_function`` replaces the downsample function where the
         tier's cells already carry the statistic (a ``count`` over the
         count tier sums the stored counts, ref: Downsampler.java:213),
-        else None. With no lifecycle, a tier is its plain store."""
+        else None. With no lifecycle, a tier is its plain store. A
+        tsuid sub-query reads the raw store (:meth:`_tsuid_store`)."""
+        if sub.tsuids:
+            return self._tsuid_store(sub)
         try:
             metric_id = self.tsdb.uids.metrics.get_id(sub.metric)
         except LookupError:
@@ -614,6 +750,38 @@ class QueryEngine:
             sids = raw.series_ids_for_metric(metric_id)
         return store, metric_id, sids, cnt_store, ds_function
 
+    def _tsuid_store(self, sub: TSSubQuery):
+        """Resolve a sub-query's tsuid hex strings to raw-store series
+        (ref: ``_tsuid_store``): each is the metric UID then (tagk, tagv)
+        UID pairs at the TSDB's widths. All must name one metric
+        (else 400); a tsuid with no series is skipped. Returns what
+        :meth:`_select_store` returns, the metric of the first tsuid."""
+        uids = self.tsdb.uids
+        store = self.tsdb.store
+        mw = uids.metrics.width
+        kw, vw = uids.tag_names.width, uids.tag_values.width
+        sids = []
+        metric_id = metric_name = None
+        for tsuid in sub.tsuids:
+            raw = bytes.fromhex(tsuid)
+            mid = int.from_bytes(raw[:mw], "big")
+            tags = []
+            for pos in range(mw, len(raw), kw + vw):
+                tags.append((int.from_bytes(raw[pos:pos + kw], "big"),
+                             int.from_bytes(raw[pos + kw:pos + kw + vw],
+                                            "big")))
+            name = uids.metrics.get_name(mid)
+            if metric_name is None:
+                metric_id, metric_name = mid, name
+            elif name != metric_name:
+                raise BadRequestError(
+                    "Multiple metrics in the same tsuid query")
+            sid = store._key_to_sid.get((mid, tuple(sorted(tags))))
+            if sid is not None:
+                sids.append(sid)
+        return (store, metric_id, np.asarray(sids, dtype=np.int64), None,
+                None)
+
     def _run_percentiles(self, tsq: TSQuery,
                          sub: TSSubQuery) -> list[QueryResult]:
         """A percentile sub-query (ref: ``_run_sub``'s percentile
@@ -625,8 +793,15 @@ class QueryEngine:
             run_histogram_subquery
         from opentsdb_tpu_torch.sketch.query import run_sketch_percentiles
         sk_rows = run_sketch_percentiles(self.tsdb, tsq, sub)
-        hist_rows = run_histogram_subquery(self.tsdb, tsq, sub)
-        return sk_rows or hist_rows
+        rows = sk_rows or run_histogram_subquery(self.tsdb, tsq, sub)
+        # the pixel budget applies to the assembled rows, as to every
+        # other producer's (ref: the post-assembly pass over row.dps)
+        px, px_fn = effective_pixels(tsq, sub)
+        if px and not tsq.delete:
+            for row in rows:
+                row.dps_arrays = vd.reduce_arrays(
+                    *row.dps_arrays, tsq.start_ms, tsq.end_ms, px, px_fn)
+        return rows
 
     def _run_sub(self, tsq: TSQuery,
                  sub: TSSubQuery) -> list[QueryResult]:
@@ -634,8 +809,6 @@ class QueryEngine:
         stats = self._stats
         if sub.percentiles:
             return self._run_percentiles(tsq, sub)
-        if sub.tsuids:
-            raise NotImplementedError("tsuid sub-queries are not ported yet")
         uids = self.tsdb.uids
         store, metric_id, sids, cnt_store, ds_function = \
             self._select_store(sub)
@@ -689,8 +862,9 @@ class QueryEngine:
                                        group_ids, num_groups, *out)
 
         # --- storage-side grid reduction (ref: _grid_pipeline)
-        out = self._grid_pipeline(store, sids, tsq, sub, group_ids,
-                                  num_groups, emit_raw, ds_function)
+        out = self._grid_pipeline(store, metric_id, sids, tsq, sub,
+                                  group_ids, num_groups, emit_raw,
+                                  ds_function)
         if out is not None:
             result, emit, bucket_ts = out
             if result is None:
@@ -699,9 +873,11 @@ class QueryEngine:
                 tsq, sub, metric_id, sids, tag_mat, group_ids,
                 num_groups, bucket_ts, result, emit)
 
-        # --- prepared-batch cache: a warm repeat of the same (store,
-        # series, window, downsample) finds its batch on the device
+        # --- prepared-batch caches: a warm repeat of the same (store,
+        # series, window, downsample) finds its batch on the device, or
+        # in the host-RAM pool when its tail was host-placed
         cache = self.tsdb.device_grid_cache
+        pkey = pver = None
         if cache is not None:
             pkey = ("prep", store.instance_id,
                     array_digest(np.ascontiguousarray(sids)),
@@ -712,11 +888,18 @@ class QueryEngine:
                     getattr(sub.ds_spec, "use_calendar", False),
                     _agg_class(sub.agg, num_groups))
             pver = store.version
-            hit = cache.get(pkey, pver)
+            # an open breaker skips the device pool (a hit would run on
+            # the failing device); the host pool's hits stay valid
+            hit = None if self._device_degraded() \
+                else cache.get(pkey, pver)
+            if hit is None:
+                hcache = self.tsdb.host_prep_cache
+                if hcache is not None:
+                    hit = hcache.get(pkey, pver)
             if hit is not None:
-                return self._run_prep_hit(hit, tsq, sub, metric_id, sids,
-                                          tag_mat, group_ids, num_groups,
-                                          emit_raw)
+                return self._run_prep_hit(hit, store, tsq, sub, metric_id,
+                                          sids, tag_mat, group_ids,
+                                          num_groups, emit_raw)
 
         # --- materialize + time grid
         t1 = time.monotonic()
@@ -726,44 +909,67 @@ class QueryEngine:
                           len(sids))
         # byte / data-point guardrails (ref: SaltScanner budget
         # enforcement through QueryLimitOverride)
-        self.tsdb.query_limits.check(sub.metric, num_points)
+        self.tsdb.query_limits.check(self._metric_name(sub, metric_id),
+                                     num_points)
         if num_points == 0:
             return []
         grid = self._time_grid(sub, tsq, points, ds_function)
+        b = len(grid.bucket_ts)
+        # the blocked verdict comes first: an over-budget range never
+        # lands on the host (ref)
+        blocked = not emit_raw and len(sids) * b > self._budget
+        host_dev = None if blocked else self._tail_device(
+            len(sids), b, num_groups, emit_raw, sub.agg.name)
         spec = self._point_spec(sub, len(sids), num_groups, emit_raw,
                                 grid.bucket_ts, grid.ds_function,
                                 grid.fill_policy, grid.fill_value,
-                                grid.complete)
-        if not emit_raw and len(sids) * len(grid.bucket_ts) > self._budget:
+                                grid.complete, host=host_dev is not None)
+        t2 = time.monotonic()
+        if blocked:
             # a long range streams in time blocks (ref: the use_blocked
             # verdict): no prepared batch is made or cached
-            t2 = time.monotonic()
-            result, emit = self._run_blocked(grid, group_ids, spec,
-                                             sub.rate_options)
-            if stats:
-                stats.add_stat(QueryStat.COMPUTE_TIME,
-                               (time.monotonic() - t2) * 1e3)
-            return self._build_results(
-                tsq, sub, metric_id, sids, tag_mat, group_ids, num_groups,
-                grid.bucket_ts, result, emit)
-        prep = self._prepare_points(grid, spec)
-        if cache is not None:
-            cache.put(pkey, pver, (prep,), {
-                "bucket_ts": grid.bucket_ts,
-                "ds_function": grid.ds_function,
-                "fill_policy": grid.fill_policy,
-                "fill_value": grid.fill_value, "complete": grid.complete,
-                "num_points": num_points})
-        t2 = time.monotonic()
-        result, emit = run_prepared(prep, grid.bucket_ts, group_ids, spec,
-                                    sub.rate_options)
-        result, emit = result.cpu().numpy(), emit.cpu().numpy()
+            result, emit = self._run_device(lambda: self._run_blocked(
+                grid, group_ids, spec, sub.rate_options))
+        else:
+            meta = {"bucket_ts": grid.bucket_ts,
+                    "ds_function": grid.ds_function,
+                    "fill_policy": grid.fill_policy,
+                    "fill_value": grid.fill_value,
+                    "complete": grid.complete, "num_points": num_points,
+                    "host": host_dev is not None}
+            # a host-placed batch goes to the host-RAM pool, never the
+            # device cache
+            pool = self.tsdb.host_prep_cache if host_dev is not None \
+                else cache
+
+            def compute():
+                prep = self._prepare_points(grid, spec, host_dev)
+                if pool is not None and pkey is not None:
+                    pool.put(pkey, pver, (prep,), meta)
+                return _host(run_prepared(prep, grid.bucket_ts, group_ids,
+                                          spec, sub.rate_options))
+
+            result, emit = self._run_device(compute,
+                                            on_device=host_dev is None)
         if stats:
             stats.add_stat(QueryStat.COMPUTE_TIME,
                            (time.monotonic() - t2) * 1e3)
+        self._delete_read(tsq, store, sids)
         return self._build_results(
             tsq, sub, metric_id, sids, tag_mat, group_ids, num_groups,
             grid.bucket_ts, result, emit)
+
+    @staticmethod
+    def _delete_read(tsq: TSQuery, store, sids: np.ndarray) -> None:
+        """``delete=true``: remove the window's points of the series
+        the query read, once its compute succeeded (ref: the
+        scanned-and-deleted semantics; the answer still carries them).
+        The reference deletes before the cold paths' dispatch; here a
+        failed dispatch deletes nothing. No WAL record is written, as
+        in the reference: the delete is durable from the next snapshot
+        on (ROADMAP Queue 3)."""
+        if tsq.delete:
+            store.delete_range(sids, tsq.start_ms, tsq.end_ms)
 
     @staticmethod
     def _materialize_points(store, sids: np.ndarray, tsq: TSQuery):
@@ -813,7 +1019,7 @@ class QueryEngine:
     def _point_spec(sub: TSSubQuery, num_series: int, num_groups: int,
                     emit_raw: bool, bucket_ts: np.ndarray,
                     ds_function: str, fill_policy, fill_value: float,
-                    complete: bool) -> PipelineSpec:
+                    complete: bool, host: bool = False) -> PipelineSpec:
         return PipelineSpec(
             num_series=num_series, num_buckets=len(bucket_ts),
             num_groups=num_groups, ds_function=ds_function,
@@ -821,7 +1027,7 @@ class QueryEngine:
             fill_value=fill_value, rate=sub.rate,
             rate_counter=sub.rate_options.counter,
             rate_drop_resets=sub.rate_options.drop_resets,
-            emit_raw=emit_raw,
+            emit_raw=emit_raw, host=host,
             # drop_resets punches holes per series after the downsample
             complete=complete
             and not (sub.rate and sub.rate_options.drop_resets))
@@ -844,11 +1050,13 @@ class QueryEngine:
             block_buckets=pick_block_buckets(
                 spec.num_series, spec.num_buckets, self._budget))
 
-    def _prepare_points(self, grid: PointGrid, spec: PipelineSpec):
+    def _prepare_points(self, grid: PointGrid, spec: PipelineSpec,
+                        device=None):
         """Upload a sub-query's points as a prepared batch in the
         layout the reference would pick (``prepare_auto`` or
-        ``prepare_flat``)."""
-        dev, dtype = self.tsdb.device, self.tsdb.dtype
+        ``prepare_flat``), to ``device`` (the host for a host-placed
+        tail) or else the TSDB's device."""
+        dev, dtype = device or self.tsdb.device, self.tsdb.dtype
         if grid.padded is not None:
             return prepare_auto(grid.padded, grid.bucket_idx, spec,
                                 dtype=dtype, device=dev)
@@ -856,33 +1064,43 @@ class QueryEngine:
                             grid.bucket_idx, spec, dtype=dtype,
                             device=dev)
 
-    def _run_prep_hit(self, hit, tsq: TSQuery, sub: TSSubQuery,
+    def _run_prep_hit(self, hit, store, tsq: TSQuery, sub: TSSubQuery,
                       metric_id: int, sids: np.ndarray,
                       tag_mat: "TagMatrix", group_ids: np.ndarray,
                       num_groups: int, emit_raw: bool
                       ) -> list[QueryResult]:
-        """Serve one sub-query from a warm prepared batch (ref:
-        ``_run_prep_hit``). A failure raises: there is no cold retry."""
+        """Serve one sub-query from a warm prepared batch of either pool
+        (ref: ``_run_prep_hit``). A failure raises: the reference
+        re-runs a failed warm hit cold, which is a fallback the port
+        does not have."""
         (prep,), meta = hit
         bucket_ts = meta["bucket_ts"]
         num_points = meta["num_points"]
-        self.tsdb.query_limits.check(sub.metric, num_points)
+        self.tsdb.query_limits.check(self._metric_name(sub, metric_id),
+                                     num_points)
         t2 = time.monotonic()
         spec = self._point_spec(sub, len(sids), num_groups, emit_raw,
                                 bucket_ts, meta["ds_function"],
                                 meta["fill_policy"], meta["fill_value"],
-                                meta["complete"])
-        result, emit = run_prepared(prep, bucket_ts, group_ids, spec,
-                                    sub.rate_options)
-        result, emit = result.cpu().numpy(), emit.cpu().numpy()
+                                meta["complete"], host=meta["host"])
+        result, emit = self._run_device(
+            lambda: _host(run_prepared(prep, bucket_ts, group_ids, spec,
+                                       sub.rate_options)),
+            on_device=not spec.host)
+        # stats and the delete only after the dispatch succeeded
         stats = self._stats
         if stats:
             stats.add_stat(QueryStat.DPS_POST_FILTER, num_points)
             stats.add_stat(QueryStat.COMPUTE_TIME,
                            (time.monotonic() - t2) * 1e3)
+        self._delete_read(tsq, store, sids)
         return self._build_results(
             tsq, sub, metric_id, sids, tag_mat, group_ids, num_groups,
             bucket_ts, result, emit)
+
+    def _metric_name(self, sub: TSSubQuery, metric_id: int) -> str:
+        """The sub-query's metric, or the one its tsuids name."""
+        return sub.metric or self.tsdb.uids.metrics.get_name(metric_id)
 
     def _grid_eligible(self, sub: TSSubQuery) -> bool:
         spec = sub.ds_spec
@@ -891,17 +1109,18 @@ class QueryEngine:
                 and spec.unit not in ("n", "y")
                 and spec.function in _GRID_FNS and spec.interval_ms > 0)
 
-    def _grid_pipeline(self, store, sids: np.ndarray, tsq: TSQuery,
-                       sub: TSSubQuery, group_ids: np.ndarray,
+    def _grid_pipeline(self, store, metric_id: int, sids: np.ndarray,
+                       tsq: TSQuery, sub: TSSubQuery, group_ids: np.ndarray,
                        num_groups: int, emit_raw: bool,
                        ds_function: str | None = None):
         """Storage-side downsample (ref: ``_grid_pipeline``): the store
         reduces the window to the ``[S, B]`` grid of the downsample
-        function (or of ``ds_function``, a rollup tier's), which is
-        uploaded once and cached on the device, and the device runs only
-        the fill/rate/interpolate/aggregate tail. Returns None when the
-        query is not eligible or its grid exceeds the cell budget (the
-        point path takes it), else (result, emit, bucket_ts) with
+        function (or of ``ds_function``, a rollup tier's), and only the
+        fill/rate/interpolate/aggregate tail runs, on the host CPU when
+        the grid is small (:meth:`_tail_device`), else on the device,
+        where the grid is uploaded once and cached. Returns None when
+        the query is not eligible or its grid exceeds the cell budget
+        (the point path takes it), else (result, emit, bucket_ts) with
         result None when the window holds no point."""
         if not self._grid_eligible(sub):
             return None
@@ -912,7 +1131,11 @@ class QueryEngine:
         if len(sids) * b > self._budget:
             return None
         fn = ds_function or ds_spec.function
-        cache = self.tsdb.device_grid_cache
+        host_dev = self._tail_device(len(sids), b, num_groups, emit_raw,
+                                     sub.agg.name)
+        # a host tail skips the device cache: its store re-scan is
+        # cheap, and host entries must not evict the card's grids
+        cache = self.tsdb.device_grid_cache if host_dev is None else None
         hit = None
         if cache is not None:
             ckey = grid_cache_key(store, sids, tsq.start_ms, tsq.end_ms,
@@ -931,16 +1154,11 @@ class QueryEngine:
             num_points = int(cnts.sum())
         self._record_scan((time.monotonic() - t1) * 1e3, num_points,
                           len(sids))
-        self.tsdb.query_limits.check(sub.metric, num_points)
+        self.tsdb.query_limits.check(self._metric_name(sub, metric_id),
+                                     num_points)
         if num_points == 0:
+            self._delete_read(tsq, store, sids)
             return None, None, bucket_ts
-        if hit is None:
-            grid, has_data = put_grid(
-                *grid_from_reduce(fn, sums, cnts, mins, maxs),
-                self.tsdb.dtype, self.tsdb.device)
-            if cache is not None:
-                cache.put(ckey, cver, (grid, has_data),
-                          {"num_points": num_points})
         t2 = time.monotonic()
         spec = PipelineSpec(
             num_series=len(sids), num_buckets=b, num_groups=num_groups,
@@ -950,13 +1168,27 @@ class QueryEngine:
             fill_value=ds_spec.fill_value, rate=sub.rate,
             rate_counter=sub.rate_options.counter,
             rate_drop_resets=sub.rate_options.drop_resets,
-            emit_raw=emit_raw)
-        result, emit = execute_grid(grid, has_data, bucket_ts, group_ids,
-                                    spec, sub.rate_options)
-        result, emit = result.cpu().numpy(), emit.cpu().numpy()
+            emit_raw=emit_raw, host=host_dev is not None)
+
+        def compute():
+            if hit is not None:
+                dgrid, dhas = grid, has_data
+            else:
+                dgrid, dhas = put_grid(
+                    *grid_from_reduce(fn, sums, cnts, mins, maxs),
+                    self.tsdb.dtype, host_dev or self.tsdb.device)
+                if cache is not None:
+                    cache.put(ckey, cver, (dgrid, dhas),
+                              {"num_points": num_points})
+            return _host(execute_grid(dgrid, dhas, bucket_ts, group_ids,
+                                      spec, sub.rate_options))
+
+        result, emit = self._run_device(compute,
+                                        on_device=host_dev is None)
         if self._stats:
             self._stats.add_stat(QueryStat.COMPUTE_TIME,
                                  (time.monotonic() - t2) * 1e3)
+        self._delete_read(tsq, store, sids)
         return result, emit, bucket_ts
 
     def _avg_rollup_pipeline(self, sum_store, cnt_store, metric_id: int,
@@ -968,22 +1200,28 @@ class QueryEngine:
         bucketed count tier, the true weighted average and not a mean of
         the tiers' averages (ref: RollupSpan reading the sum and count
         qualifiers of one row). A fixed interval reduces both tiers in
-        the store and keeps both grids in the device cache; any other
-        downsample materializes the tiers' points and buckets them on
-        the device. The divide and the pipeline's tail run on the
-        TSDB's device. Returns (bucket_ts, result, emit), or None when
-        the window holds no point."""
+        the store; its divide and tail run on the host CPU when the grid
+        is small (:meth:`_tail_device`), else on the device, which keeps
+        both grids in its cache. Any other downsample materializes the
+        tiers' points and buckets them on the device. Returns
+        (bucket_ts, result, emit), or None when the window holds no
+        point."""
         t1 = time.monotonic()
-        dev, dtype = self.tsdb.device, self.tsdb.dtype
+        dtype = self.tsdb.dtype
         start, end = tsq.start_ms, tsq.end_ms
         ds = sub.ds_spec
+        host_dev = None
+        csids = present = None
 
         def align():
             """The count tier's series of each sum tier series (-1: none)
             and the rows that have one; a cache hit needs neither."""
-            csids = _match_series_by_tags(sum_store, cnt_store, sids,
-                                          metric_id)
-            return csids, np.flatnonzero(csids >= 0)
+            nonlocal csids, present
+            if csids is None:
+                csids = _match_series_by_tags(sum_store, cnt_store, sids,
+                                              metric_id)
+                present = np.flatnonzero(csids >= 0)
+            return csids, present
 
         fixed = (not ds.run_all and not ds.use_calendar
                  and ds.unit not in ("n", "y") and ds.interval_ms > 0)
@@ -991,7 +1229,11 @@ class QueryEngine:
             bucket_ts = ds_mod.fixed_bucket_edges(start, end, ds.interval_ms)
             s, b = len(sids), len(bucket_ts)
             t0_ms = int(bucket_ts[0])
-            cache = self.tsdb.device_grid_cache
+            host_dev = self._tail_device(s, b, num_groups, emit_raw,
+                                         sub.agg.name)
+            # a host tail skips the device cache (see _grid_pipeline)
+            cache = self.tsdb.device_grid_cache if host_dev is None \
+                else None
             hit = None
             if cache is not None:
                 ckey = ("avgdiv", sum_store.instance_id,
@@ -1015,10 +1257,6 @@ class QueryEngine:
                 num_points = int(cnt_s.sum() + cnt_c.sum())
                 sum_s[cnt_s == 0] = np.nan
                 sum_c[cnt_c == 0] = np.nan
-                gs, gc = upload(sum_s, dtype, dev), upload(sum_c, dtype, dev)
-                if cache is not None and num_points:
-                    cache.put(ckey, cver, (gs, gc),
-                              {"num_points": num_points})
         else:
             csids, present = align()
             batch_s = sum_store.materialize(sids, start, end)
@@ -1026,42 +1264,67 @@ class QueryEngine:
             num_points = batch_s.num_points + batch_c.num_points
         self._record_scan((time.monotonic() - t1) * 1e3, num_points,
                           len(sids))
-        self.tsdb.query_limits.check(sub.metric, num_points)
-        if num_points == 0:
+        self.tsdb.query_limits.check(self._metric_name(sub, metric_id),
+                                     num_points)
+        if num_points == 0 or (not fixed and batch_s.num_points == 0):
+            self._delete_avg(tsq, sum_store, cnt_store, sids, align)
             return None
         t2 = time.monotonic()
+        dev = host_dev or self.tsdb.device
         if not fixed:
-            if batch_s.num_points == 0:
-                return None
             bidx_s, bucket_ts = ds_mod.assign_buckets(batch_s.ts_ms, ds,
                                                       start, end)
             bidx_c, _ = ds_mod.assign_buckets(batch_c.ts_ms, ds, start, end)
             s, b = len(sids), len(bucket_ts)
-
-            def grid_of(values, series_idx, bucket_idx):
-                return ds_mod.bucketize(
-                    upload(values, dtype, dev),
-                    torch.from_numpy(series_idx.astype(np.int32)).to(dev),
-                    torch.from_numpy(bucket_idx.astype(np.int32)).to(dev),
-                    s, b, "sum")[0]
-
-            gs = grid_of(batch_s.values, batch_s.series_idx, bidx_s)
-            gc = grid_of(batch_c.values, present[batch_c.series_idx],
-                         bidx_c)
         spec = PipelineSpec(
             num_series=s, num_buckets=b, num_groups=num_groups,
             ds_function="avg", agg_name=sub.agg.name,
             fill_policy=ds.fill_policy, fill_value=ds.fill_value,
             rate=sub.rate, rate_counter=sub.rate_options.counter,
             rate_drop_resets=sub.rate_options.drop_resets,
-            emit_raw=emit_raw)
-        result, emit = execute_avg_divide(gs, gc, bucket_ts, group_ids, spec,
-                                          sub.rate_options)
-        result, emit = result.cpu().numpy(), emit.cpu().numpy()
+            emit_raw=emit_raw, host=host_dev is not None)
+
+        def compute():
+            if not fixed:
+                def grid_of(values, series_idx, bucket_idx):
+                    return ds_mod.bucketize(
+                        upload(values, dtype, dev),
+                        torch.from_numpy(series_idx.astype(np.int32))
+                        .to(dev),
+                        torch.from_numpy(bucket_idx.astype(np.int32))
+                        .to(dev), s, b, "sum")[0]
+
+                dgs = grid_of(batch_s.values, batch_s.series_idx, bidx_s)
+                dgc = grid_of(batch_c.values, present[batch_c.series_idx],
+                              bidx_c)
+            elif hit is not None:
+                dgs, dgc = gs, gc
+            else:
+                dgs, dgc = upload(sum_s, dtype, dev), upload(sum_c, dtype,
+                                                             dev)
+                if cache is not None:
+                    cache.put(ckey, cver, (dgs, dgc),
+                              {"num_points": num_points})
+            return _host(execute_avg_divide(dgs, dgc, bucket_ts, group_ids,
+                                            spec, sub.rate_options))
+
+        result, emit = self._run_device(compute,
+                                        on_device=host_dev is None)
         if self._stats:
             self._stats.add_stat(QueryStat.COMPUTE_TIME,
                                  (time.monotonic() - t2) * 1e3)
+        self._delete_avg(tsq, sum_store, cnt_store, sids, align)
         return bucket_ts, result, emit
+
+    @staticmethod
+    def _delete_avg(tsq: TSQuery, sum_store, cnt_store, sids: np.ndarray,
+                    align) -> None:
+        """``delete=true`` on the avg path: both tiers' points of the
+        window (ref: the sum and the aligned count series)."""
+        if tsq.delete:
+            csids, present = align()
+            sum_store.delete_range(sids, tsq.start_ms, tsq.end_ms)
+            cnt_store.delete_range(csids[present], tsq.start_ms, tsq.end_ms)
 
     def _record_scan(self, ms: float, num_points: int, n_rows: int
                      ) -> None:
@@ -1108,20 +1371,28 @@ class QueryEngine:
         """The series of ``sids`` (ids of ``store``, by default the raw
         store) that pass the sub-query's filters, and their tags."""
         store = store if store is not None else self.tsdb.store
-        idx_sids, triples = store.metric_index(metric_id).arrays()
-        # per-(store, metric) matrix cache (ref: engine.py:1784): the
-        # index is append-only, so its series count versions the entry;
-        # only the metric's whole series array is cached
-        tm_cache = self.tsdb._tagmat_cache
-        tm_key = (store.instance_id, metric_id)
-        hit = tm_cache.get(tm_key)
-        if hit is not None and hit[0] == len(idx_sids) \
-                and sids is idx_sids:
-            tags = hit[1]
-        else:
+        if sub.tsuids:
+            # a tsuid query names few series: read their identities
+            rows = [(int(sid), kid, vid) for sid in sids
+                    for kid, vid in store.series(int(sid)).tags]
+            triples = (np.asarray(rows, dtype=np.int64).reshape(-1, 3)
+                       if rows else np.empty((0, 3), dtype=np.int64))
             tags = TagMatrix.from_triples(sids, triples)
-            if sids is idx_sids:
-                tm_cache[tm_key] = (len(idx_sids), tags)
+        else:
+            idx_sids, triples = store.metric_index(metric_id).arrays()
+            # per-(store, metric) matrix cache (ref: engine.py:1784):
+            # the index is append-only, so its series count versions
+            # the entry; only the metric's whole series array is cached
+            tm_cache = self.tsdb._tagmat_cache
+            tm_key = (store.instance_id, metric_id)
+            hit = tm_cache.get(tm_key)
+            if hit is not None and hit[0] == len(idx_sids) \
+                    and sids is idx_sids:
+                tags = hit[1]
+            else:
+                tags = TagMatrix.from_triples(sids, triples)
+                if sids is idx_sids:
+                    tm_cache[tm_key] = (len(idx_sids), tags)
         if sub.filters:
             mask = self._filter_eval.apply(sub.filters, sids, triples)
             sids = sids[mask]
@@ -1169,6 +1440,17 @@ class QueryEngine:
         uids = self.tsdb.uids
         out: list[QueryResult] = []
         emit = emit.astype(bool)
+        # the pixel budget: the last stage, a keep mask over what the
+        # pipeline emitted (ref: the visual_downsample pass), keyed off
+        # the requesting sub-query
+        px, px_fn = effective_pixels(tsq, sub)
+        if px and not tsq.delete:
+            keep = vd.keep_mask(np.asarray(result), emit,
+                                np.asarray(bucket_ts), tsq.start_ms,
+                                tsq.end_ms, px, px_fn)
+            if keep is not None:
+                emit = emit & keep
+        metric = self._metric_name(sub, metric_id)
         bucket_ts = np.asarray(bucket_ts, dtype=np.int64)
         ts_out = (bucket_ts if tsq.ms_resolution
                   else (bucket_ts // 1000) * 1000)
@@ -1212,11 +1494,11 @@ class QueryEngine:
                 else:
                     agg_tags.append(kname(int(tags.kids[j])))
             tsuids = []
-            if tsq.show_tsuids:
+            if tsq.show_tsuids or sub.tsuids:
                 tsuids = [uids.tsuid(metric_id, tags.tags_of(m))
                           .hex().upper() for m in members]
             out.append(QueryResult(
-                metric=sub.metric, tags=g_tags, aggregated_tags=agg_tags,
+                metric=metric, tags=g_tags, aggregated_tags=agg_tags,
                 dps_arrays=(e_ts[lo_e:hi_e], e_vals[lo_e:hi_e]),
                 tsuids=tsuids, sub_query_index=sub.index))
         return out

@@ -3,10 +3,11 @@
 
 Validation semantics follow ``TSQuery.validateAndSetQuery``: start time
 required, aggregator required per sub-query, one of metric|tsuids
-required, times normalized to ms, end defaulting to now. The
-pixel-budget keys and ``sketchPartials`` (a cluster router's request)
-of the reference's model are not ported yet and raise
-NotImplementedError.
+required, times normalized to ms, end defaulting to now. A pixel
+budget (``pixels``/``pixelFn``, the URI's ``downsample=<N>px``) rides
+beside each sub-query's identity (``effective_pixels``). The
+reference's ``sketchPartials`` (a cluster router's request) is not
+ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,10 +27,53 @@ class BadRequestError(ValueError):
     """400-level query errors (ref: src/tsd/BadRequestException.java)."""
 
 
-def _refuse_pixels(obj: dict) -> None:
-    if obj.get("pixels") or obj.get("pixelFn"):
-        raise NotImplementedError(
-            "pixel-budget output reduction is not ported yet")
+def _validate_pixels(raw, where: str) -> int:
+    """A pixel budget: a positive integer up to ``MAX_PIXELS``, 0 or
+    absent for none; 400 on anything else (ref: ``_validate_pixels``,
+    strict: a typo must not pass as "no reduction")."""
+    from opentsdb_tpu_torch.ops.visual_downsample import MAX_PIXELS
+    if raw is None or raw == 0:
+        return 0
+    if isinstance(raw, (bool, float)) or not isinstance(raw, (int, str)):
+        raise BadRequestError(f"Invalid {where}: {raw!r} "
+                              "(want a positive integer pixel count)")
+    if isinstance(raw, str) and (
+            not (raw.isascii() and raw.isdigit())
+            or (len(raw) > 1 and raw[0] == "0")):
+        # int() would take underscores and unicode digits; a leading
+        # zero is taken as a typo
+        raise BadRequestError(
+            f"Invalid {where}: {raw!r} "
+            "(want a positive integer pixel count)")
+    px = int(raw)
+    if px == 0:
+        return 0
+    if px < 0 or px > MAX_PIXELS:
+        raise BadRequestError(
+            f"Invalid {where}: {raw!r} (want 0..{MAX_PIXELS})")
+    return px
+
+
+def _validate_pixel_fn(raw, where: str) -> str:
+    from opentsdb_tpu_torch.ops.visual_downsample import PIXEL_FNS
+    if not raw:
+        return ""
+    fn = str(raw).lower()
+    if fn not in PIXEL_FNS:
+        raise BadRequestError(
+            f"Invalid {where}: {raw!r} "
+            f"(supported: {', '.join(PIXEL_FNS)})")
+    return fn
+
+
+def effective_pixels(tsq, sub) -> tuple[int, str]:
+    """The pixel budget a sub-query's output is reduced under (ref:
+    ``effective_pixels``): the sub-query's own wins over the query's;
+    the operator defaults to M4. (0, fn) means none."""
+    from opentsdb_tpu_torch.ops.visual_downsample import DEFAULT_PIXEL_FN
+    px = sub.pixels or tsq.pixels
+    fn = sub.pixel_fn or tsq.pixel_fn or DEFAULT_PIXEL_FN
+    return (px, fn) if px else (0, fn)
 
 
 @dataclass
@@ -48,6 +92,10 @@ class TSSubQuery:
     # ROLLUP_FALLBACK_RAW (ref: RollupQuery ROLLUP_USAGE)
     rollup_usage: str = "ROLLUP_NOFALLBACK"
     index: int = 0
+    # the pixel budget (ops/visual_downsample.py): 0 inherits the
+    # query's; fn "" inherits it, or the default (m4)
+    pixels: int = 0
+    pixel_fn: str = ""
     # populated during validation
     agg: aggs_mod.Aggregator | None = None
     ds_spec: DownsamplingSpecification | None = None
@@ -56,6 +104,8 @@ class TSSubQuery:
                  use_calendar: bool = False) -> None:
         if not self.aggregator:
             raise BadRequestError("Missing the aggregation function")
+        self.pixels = _validate_pixels(self.pixels, "pixels")
+        self.pixel_fn = _validate_pixel_fn(self.pixel_fn, "pixelFn")
         try:
             self.agg = aggs_mod.get(self.aggregator)
         except KeyError as e:
@@ -91,7 +141,6 @@ class TSSubQuery:
 
     @classmethod
     def from_json(cls, obj: dict[str, Any], index: int = 0) -> "TSSubQuery":
-        _refuse_pixels(obj)
         filters = [filters_mod.build_filter(f)
                    for f in obj.get("filters", [])]
         if obj.get("tags"):
@@ -115,6 +164,8 @@ class TSSubQuery:
             explicit_tags=bool(obj.get("explicitTags", False)),
             percentiles=[float(p) for p in obj.get("percentiles") or []],
             rollup_usage=obj.get("rollupUsage", "ROLLUP_NOFALLBACK"),
+            pixels=obj.get("pixels") or 0,
+            pixel_fn=obj.get("pixelFn") or "",
             index=index)
 
     def to_json(self) -> dict[str, Any]:
@@ -134,6 +185,8 @@ class TSSubQuery:
                if self.rollup_usage != "ROLLUP_NOFALLBACK" else {}),
             **({"percentiles": list(self.percentiles)}
                if self.percentiles else {}),
+            **({"pixels": self.pixels} if self.pixels else {}),
+            **({"pixelFn": self.pixel_fn} if self.pixel_fn else {}),
         }
 
 
@@ -155,6 +208,10 @@ class TSQuery:
     show_query: bool = False
     delete: bool = False
     use_calendar: bool = False
+    # the query-level pixel budget (``downsample=<N>px[-<fn>]`` in the
+    # URI, ``pixels``/``pixelFn`` in JSON); a sub-query's own wins
+    pixels: int = 0
+    pixel_fn: str = ""
     # populated during validation
     start_ms: int = 0
     end_ms: int = 0
@@ -177,6 +234,8 @@ class TSQuery:
                 "end time must be greater than the start time")
         if not self.queries:
             raise BadRequestError("Missing queries")
+        self.pixels = _validate_pixels(self.pixels, "downsample pixels")
+        self.pixel_fn = _validate_pixel_fn(self.pixel_fn, "pixelFn")
         for i, sub in enumerate(self.queries):
             sub.index = i
             sub.validate(self.timezone, self.use_calendar)
@@ -189,7 +248,9 @@ class TSQuery:
         seen: set = set()
         deduped = []
         for sub in self.queries:
-            key = sub.identity_key()
+            # two sub-queries that differ only in their pixel budget
+            # are not duplicates (the budget is outside identity_key)
+            key = (sub.identity_key(), sub.pixels, sub.pixel_fn)
             if key in seen:
                 continue
             seen.add(key)
@@ -201,7 +262,6 @@ class TSQuery:
     def from_json(cls, obj: dict[str, Any]) -> "TSQuery":
         if not isinstance(obj, dict):
             raise BadRequestError("query must be a JSON object")
-        _refuse_pixels(obj)
         if obj.get("sketchPartials"):
             from opentsdb_tpu_torch.sketch.query import PARTIALS_NOT_PORTED
             raise NotImplementedError(PARTIALS_NOT_PORTED)
@@ -227,6 +287,8 @@ class TSQuery:
             show_query=bool(obj.get("showQuery", False)),
             delete=bool(obj.get("delete", False)),
             use_calendar=bool(obj.get("useCalendar", False)),
+            pixels=obj.get("pixels") or 0,
+            pixel_fn=obj.get("pixelFn") or "",
         )
 
     def to_json(self) -> dict[str, Any]:
@@ -238,6 +300,8 @@ class TSQuery:
             "globalAnnotations": self.global_annotations,
             "msResolution": self.ms_resolution,
             "showTSUIDs": self.show_tsuids,
+            **({"pixels": self.pixels} if self.pixels else {}),
+            **({"pixelFn": self.pixel_fn} if self.pixel_fn else {}),
         }
 
 
@@ -309,23 +373,54 @@ def parse_uri_subquery(spec: str, index: int = 0) -> TSSubQuery:
     return sub
 
 
+def parse_uri_tsuid_subquery(spec: str, index: int = 0) -> TSSubQuery:
+    """Parse the URI form ``agg:[interval-ds:][rate:]tsuid1,tsuid2``
+    (ref: QueryRpc.parseTsuidTypeSubQuery)."""
+    parts = spec.split(":")
+    if len(parts) < 2 or len(parts) > 5:
+        raise BadRequestError(f"Invalid parameter tsuids={spec!r}")
+    sub = TSSubQuery(aggregator=parts[0], index=index)
+    for middle in parts[1:-1]:
+        if middle.startswith("rate"):
+            sub.rate = True
+            sub.rate_options = RateOptions.parse(middle)
+        elif middle:
+            sub.downsample = middle
+    sub.tsuids = [t.strip().upper() for t in parts[-1].split(",")
+                  if t.strip()]
+    if not sub.tsuids:
+        raise BadRequestError(f"Invalid parameter tsuids={spec!r}")
+    return sub
+
+
+def parse_uri_pixels(spec: str) -> tuple[int, str]:
+    """Parse ``downsample=<N>px[-<fn>]`` (``1500px``,
+    ``800px-minmaxlttb``); anything else is a 400, not a silent no-op
+    (ref: ``parse_uri_pixels``)."""
+    m = re.match(r"^(\d+)px(?:-([a-z0-9]+))?$", spec.strip().lower())
+    if not m:
+        raise BadRequestError(
+            f"Invalid downsample parameter: {spec!r} "
+            "(want <pixels>px or <pixels>px-<m4|minmaxlttb>)")
+    return (_validate_pixels(m.group(1), "downsample pixels"),
+            _validate_pixel_fn(m.group(2), "downsample pixel fn"))
+
+
 def parse_uri_query(params: dict[str, list[str]]) -> TSQuery:
     """Parse ``/api/query?start=...&m=...`` URI params (ref:
-    QueryRpc.parseQuery). The ``tsuids=`` sub-queries and the
-    ``downsample=<N>px`` pixel budget are not ported yet and raise
-    NotImplementedError."""
+    QueryRpc.parseQuery)."""
     def first(key, default=None):
         vals = params.get(key)
         return vals[0] if vals else default
 
-    if params.get("tsuids"):
-        raise NotImplementedError(
-            "tsuid sub-queries are not ported yet")
-    if first("downsample") is not None:
-        raise NotImplementedError(
-            "pixel-budget output reduction is not ported yet")
-    queries = [parse_uri_subquery(spec, i)
-               for i, spec in enumerate(params.get("m", []))]
+    # tsuid sub-queries come first, as in the reference, so mixed
+    # tsuids= and m= requests keep its output indices
+    queries = [parse_uri_tsuid_subquery(spec, i)
+               for i, spec in enumerate(params.get("tsuids", []))]
+    queries += [parse_uri_subquery(spec, len(queries) + i)
+                for i, spec in enumerate(params.get("m", []))]
+    pixels, pixel_fn = (parse_uri_pixels(first("downsample"))
+                        if first("downsample") is not None else (0, ""))
     return TSQuery(
         start=first("start", ""),
         end=first("end"),
@@ -341,4 +436,6 @@ def parse_uri_query(params: dict[str, list[str]]) -> TSQuery:
         show_tsuids=first("show_tsuids", "false") == "true",
         show_summary=first("show_summary", "false") == "true",
         show_query=first("show_query", "false") == "true",
+        pixels=pixels,
+        pixel_fn=pixel_fn,
     )

@@ -36,8 +36,7 @@ Sharded LRU bounded by an estimated byte budget
 
 Left out, because the port has no such subsystem yet: the key's
 annotation flags (``no_annotations``, ``global_annotations``), its
-``sketch_partials`` flag, its pixel budget (``effective_pixels``; the
-port refuses pixels) and its cluster replica selection
+``sketch_partials`` flag and its cluster replica selection
 (``sel_cache_key``); the per-tenant ``insert_gate``; and
 ``collect_stats``/``health_info``, which come with ``stats/``.
 """
@@ -102,8 +101,11 @@ def cache_plan(tsq, sub, config) -> tuple[tuple, float] | None:
                   int(tsq.end_ms // ttl_ms))
     else:
         window = (tsq.start_ms, tsq.end_ms)
+    # the pixel budget shapes the result groups, so a full-resolution
+    # entry never serves a pixel-budgeted request (ref)
+    from opentsdb_tpu_torch.query.model import effective_pixels
     key = (window, tsq.timezone, tsq.use_calendar, tsq.ms_resolution,
-           tsq.show_tsuids, sub.identity_key())
+           tsq.show_tsuids, sub.identity_key(), effective_pixels(tsq, sub))
     return key, ttl_ms
 
 

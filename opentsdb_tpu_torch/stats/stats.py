@@ -172,8 +172,10 @@ class QueryStat(Enum):
     # served from a continuous query's maintained windows (streaming/):
     # no store scan, the tail alone
     STREAMING_HIT = "streamingHit"
-    # response body bytes written for this query
+    # response body bytes written for this query, and the pixel budget
+    # its output was reduced under (0: full resolution)
     PAYLOAD_BYTES = "payloadBytes"
+    DOWNSAMPLE_PIXELS = "downsamplePixels"
 
 
 # time-based stats that get the reference's derived max*/avg* twins in

@@ -20,10 +20,10 @@ Two layers:
   session-gap — view-time combines over the tumbling partials, the
   same sum/count/min/max decomposition the rollup tiers use), then
   runs ONLY the existing fill/rate/interpolate/aggregate tail
-  (:func:`opentsdb_tpu_torch.ops.pipeline.execute_grid`) on the TSDB's
-  query device, where the batch engine runs the same tail (the
-  reference pins it to the host CPU; the port has no host tail yet,
-  ROADMAP Queue 1, the host tail). Tumbling views
+  (:func:`opentsdb_tpu_torch.ops.pipeline.execute_grid`) where the
+  batch engine would place the same tail: on the host CPU under the
+  host-tail budget, else on the TSDB's query device (the reference pins
+  it to the host CPU whatever its size). Tumbling views
   stay value-identical to a cold batch ``/api/query`` over the same
   bucket-aligned range; sliding/session views are push/fetch
   surfaces (they are not expressible as a plain TSQuery).
@@ -54,6 +54,7 @@ from opentsdb_tpu_torch.ops import stream_fold
 from opentsdb_tpu_torch.ops.pipeline import (PipelineSpec, execute_grid,
                                              grid_from_reduce, put_grid)
 from opentsdb_tpu_torch.query import filters as filters_mod
+from opentsdb_tpu_torch.query.engine import host_tail_for_dims
 from opentsdb_tpu_torch.query.model import BadRequestError, TSSubQuery
 from opentsdb_tpu_torch.utils import datetime_util
 
@@ -1068,8 +1069,8 @@ class PlanView:
     def serve(self, tsq, sub: TSSubQuery, engine) -> list | None:
         """Answer one request from the maintained windows: drain is
         the caller's job (registry), here the grid derives from the
-        shared partials and ONLY the pipeline tail runs, on the TSDB's
-        query device. Returns result groups, [] for genuinely-empty,
+        shared partials and ONLY the pipeline tail runs, placed as the
+        batch engine's grid tail. Returns result groups, [] for genuinely-empty,
         or None when this view cannot serve the window. A failure of
         the tail raises: nothing here answers another way."""
         if self.sub.percentiles:
@@ -1148,11 +1149,14 @@ class PlanView:
     def _tail_locked(self, edges, grid, present, group_ids,
                      num_groups: int, emit_raw: bool):
         """fill/rate/interpolate/aggregate over the derived grid: the
-        batch engine's grid tail, uploaded with :func:`put_grid` to the
-        TSDB's query device in its compute dtype and run by
-        :func:`execute_grid`, with the engine's spec normalisation
-        (the reference pins this tail to the host CPU backend). Cached
-        per (fold, membership, window)."""
+        batch engine's grid tail, uploaded with :func:`put_grid` in the
+        TSDB's compute dtype and run by :func:`execute_grid`, with the
+        engine's spec normalisation. It is placed as the batch engine
+        places a grid tail of these dims (``host_tail_for_dims``): on
+        the host CPU under the host-tail budget, else on the TSDB's
+        query device (the reference pins this tail to its host CPU
+        backend whatever its size). Cached per (fold, membership,
+        window)."""
         shared = self.shared
         key = (shared.fold_seq, shared.member_seq, int(edges[0]),
                len(edges))
@@ -1161,6 +1165,8 @@ class PlanView:
             return cached[1]
         sub = self.sub
         t = shared.tsdb
+        host_dev = host_tail_for_dims(t.config, grid.shape[0], len(edges),
+                                      num_groups, emit_raw, sub.agg.name)
         spec = PipelineSpec(
             num_series=grid.shape[0], num_buckets=len(edges),
             num_groups=num_groups,
@@ -1171,8 +1177,8 @@ class PlanView:
             fill_value=sub.ds_spec.fill_value, rate=sub.rate,
             rate_counter=sub.rate_options.counter,
             rate_drop_resets=sub.rate_options.drop_resets,
-            emit_raw=emit_raw)
-        dgrid, dhas = put_grid(grid, present, t.dtype, t.device)
+            emit_raw=emit_raw, host=host_dev is not None)
+        dgrid, dhas = put_grid(grid, present, t.dtype, host_dev or t.device)
         result, emit = execute_grid(dgrid, dhas, edges, group_ids, spec,
                                     sub.rate_options)
         out = (result.cpu().numpy(), emit.cpu().numpy().astype(bool))

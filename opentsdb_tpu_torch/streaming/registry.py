@@ -961,14 +961,19 @@ class ContinuousQueryRegistry:
         changed (snapshot=True serves everything). Shared by the SSE
         publish path and the router's delta-drain pull
         (:meth:`delta_updates`) so a drained batch carries exactly
-        what a local subscriber would have seen. (The reference
-        publishes whole frames for a pixel-budgeted query; the port
-        refuses pixel budgets: ROADMAP Queue 1, the rest.)"""
+        what a local subscriber would have seen."""
+        from opentsdb_tpu_torch.query.model import effective_pixels
         updates: list[dict] = []
         for view, sub in zip(cq.plans, tsq.queries):
             changed = None if snapshot else set(view.take_changed())
             if changed is not None and not changed:
                 continue
+            if changed is not None and effective_pixels(tsq, sub)[0]:
+                # a pixel-budgeted standing query (ref): a fold can move
+                # the M4/LTTB selection (a new point displaces a pixel's
+                # min or max), so dirty-window deltas cannot describe
+                # the reduced series; publish the whole reduced frame
+                changed = None
             if changed is not None:
                 # map fold-dirty base buckets to the output buckets
                 # this view's window re-emits (sliding fans each fold

@@ -7,7 +7,10 @@ sockets and tests call it directly.
 
 Endpoints (mode-gated rw/ro/wo as RpcManager :274-327): ``/api/put``,
 ``/api/rollup``, ``/api/histogram``,
-``/api/query`` (GET URI form, POST JSON, ``arrays``),
+``/api/query`` (GET URI form, POST JSON, ``arrays``, tsuids, pixel
+budgets, ``delete`` under ``tsd.http.query.allow_delete``),
+``/api/query/exp`` and ``/gexp`` (expressions,
+``query/expression/``),
 ``/api/query/continuous`` (standing queries: register, list, inspect,
 ``/result``, ``/deltas``, the ``/stream`` of Server-Sent Events,
 delete), ``/api/suggest``,
@@ -50,6 +53,7 @@ from opentsdb_tpu_torch.ops import aggregators as aggs_mod
 from opentsdb_tpu_torch.query import filters as filters_mod
 from opentsdb_tpu_torch.query.limits import QueryLimitExceeded
 from opentsdb_tpu_torch.query.model import (BadRequestError, TSQuery,
+                                            effective_pixels,
                                             parse_uri_query)
 from opentsdb_tpu_torch.stats.stats import QueryStat, QueryStats
 from opentsdb_tpu_torch.streaming.sse import sse_stream
@@ -64,8 +68,6 @@ _REST = "the rest, with no device compute"
 # paths outside /api
 UNPORTED: dict[str, tuple[str, str]] = {
     "query/last": (_REST, "meta/ (last data points)"),
-    "query/exp": (_REST, "the expression endpoint"),
-    "query/gexp": (_REST, "the expression endpoint"),
     "search": (_REST, "search/"),
     "uid": (_REST, "meta/ (UID assign, rename, UID and TS meta)"),
     "annotation": (_REST, "meta/ (annotations)"),
@@ -511,6 +513,11 @@ class HttpRpcRouter:
             raise _not_ported(f"query/{sub}")
         if sub == "continuous":
             return self._handle_query_continuous(request, rest[1:])
+        if sub in ("exp", "gexp"):
+            from opentsdb_tpu_torch.query.expression.endpoint import (
+                handle_exp, handle_gexp)
+            return (handle_exp if sub == "exp" else handle_gexp)(
+                self, request)
         if request.method == "POST":
             obj = request.serializer.parse_query(request.body)
             tsq = TSQuery.from_json(obj)
@@ -531,12 +538,18 @@ class HttpRpcRouter:
             request.remote, tsq,
             allow_duplicates=self.tsdb.config.get_bool(
                 "tsd.query.allow_simultaneous_duplicates", True))
+        # the widest pixel budget of the request (ref: the stats'
+        # downsamplePixels; 0 = full resolution)
+        px = max((effective_pixels(tsq, s)[0] for s in tsq.queries),
+                 default=0)
         show_summary = tsq.show_summary or request.flag("show_summary")
         show_stats = tsq.show_stats or request.flag("show_stats")
         as_arrays = request.flag("arrays")
         streamed = False
         try:
             results = self.tsdb.new_query().run(tsq, stats)
+            if px:
+                stats.add_stat(QueryStat.DOWNSAMPLE_PIXELS, px)
             t_ser = time.monotonic()
             total_dps = sum(r.num_dps for r in results)
             stats.add_stat(QueryStat.EMITTED_DPS, total_dps)

@@ -12,14 +12,17 @@ thread started by the TSD server (``tsd.tpu.warmup``, true by default):
 
 1. it loads the libraries, building them where needed (the CUDA one
    only when the query device is a card);
-2. it runs every class the reference would compile once on the query
-   device, on zeros: each resident store's (S, B, G) combination from
+2. it runs every class the reference would compile once, on zeros:
+   each resident store's (S, B, G) combination from
    :func:`warmup_shapes`, times the reference's aggregator specs
    ({sum, avg} x {plain, rate}, and p95/p99 under
    ``tsd.tpu.warmup.percentiles``), plus the ``none`` aggregator's
-   per-series class;
-3. it runs the avg-divide tail (``execute_avg_divide``) where the sum
-   and count tiers of a rollup interval are resident.
+   per-series class. Each runs where the engine would place it
+   (``query/engine.py::host_tail_for_dims``, the same function): on the
+   host CPU under the host-tail budget, else on the query device;
+3. it runs the avg-divide tail (``execute_avg_divide``), placed as the
+   linear class, where the sum and count tiers of a rollup interval
+   are resident.
 
 (The reference also compiles its histogram percentile programs; the
 port's histogram path runs PyTorch functions with no compile to warm,
@@ -28,7 +31,8 @@ so it runs none of them here.)
 The reference buckets S and G into shape classes (``ops/shapes``)
 because its compiled programs are keyed on shapes. The port's programs
 are not, so it takes S and G as they are: :func:`warmup_shapes` is the
-reference's class list before its bucketing.
+reference's class list before its bucketing; only the placement
+buckets them, inside ``host_tail_for_dims``.
 
 ``tsd.tpu.warmup.buckets`` adds series counts to warm,
 ``tsd.tpu.warmup.budget_s`` bounds the run (0: no bound), and
@@ -121,19 +125,29 @@ def load_libraries(tsdb) -> None:
         _cuda_build.library()
 
 
-def _agg_specs(s: int, b: int, g: int, pct: bool):
+def _agg_specs(tsdb, s: int, b: int, g: int, pct: bool):
+    """(spec, device) of each warm class: placed by the engine's own
+    ``host_tail_for_dims`` (ref: ``dev_lin``, ``dev_pct``,
+    ``dev_raw``)."""
     from opentsdb_tpu_torch.ops.pipeline import PipelineSpec
+    from opentsdb_tpu_torch.query.engine import host_tail_for_dims
+    cfg = tsdb.config
+
+    def placed(agg_name: str, emit_raw: bool = False, **kw):
+        host = host_tail_for_dims(cfg, s, b, g, emit_raw, agg_name)
+        return (PipelineSpec(num_series=s, num_buckets=b, num_groups=g,
+                             ds_function="avg", agg_name=agg_name,
+                             emit_raw=emit_raw, host=host is not None,
+                             **kw), host or tsdb.device)
+
     for agg in ("sum", "avg"):
         for rate in (False, True):
-            yield PipelineSpec(num_series=s, num_buckets=b, num_groups=g,
-                               ds_function="avg", agg_name=agg, rate=rate)
+            yield placed(agg, rate=rate)
     if pct:
         for agg in ("p95", "p99"):
-            yield PipelineSpec(num_series=s, num_buckets=b, num_groups=g,
-                               ds_function="avg", agg_name=agg)
+            yield placed(agg)
     # the aggregator "none" class: per series, no group stage
-    yield PipelineSpec(num_series=s, num_buckets=b, num_groups=g,
-                       ds_function="avg", agg_name="sum", emit_raw=True)
+    yield placed("sum", emit_raw=True)
 
 
 def _avg_divide_resident(tsdb) -> bool:
@@ -161,7 +175,7 @@ def run_warmup(tsdb) -> int:
     budget_s = cfg.get_int("tsd.tpu.warmup.budget_s", 600)
     stop = tsdb._warmup_stop
     avg_div = _avg_divide_resident(tsdb)
-    dev, dtype = tsdb.device, tsdb.dtype
+    dtype = tsdb.dtype
     ran = 0
 
     def halt() -> bool:
@@ -177,21 +191,26 @@ def run_warmup(tsdb) -> int:
     for s, b, g in warmup_shapes(tsdb):
         if halt():
             return ran
-        grid, has = put_grid(np.zeros((s, b)), np.zeros((s, b), bool),
-                             dtype, dev)
+        grids = {}
         bts = np.arange(b, dtype=np.int64) * 60_000
         gids = np.zeros(s, dtype=np.int32)
-        specs = list(_agg_specs(s, b, g, pct))
-        for spec in specs:
+        specs = list(_agg_specs(tsdb, s, b, g, pct))
+        for spec, where in specs:
             if halt():
                 return ran
+            if where not in grids:
+                grids[where] = put_grid(np.zeros((s, b)),
+                                        np.zeros((s, b), bool), dtype,
+                                        where)
+            grid, has = grids[where]
             # .cpu() waits for the device, as a query's answer does
             execute_grid(grid, has, bts, gids, spec)[0].cpu()
             ran += 1
         if avg_div:
-            for spec in specs[:4:2]:      # sum and avg, plain
+            for spec, where in specs[:4:2]:      # sum and avg, plain
                 if halt():
                     return ran
+                grid = grids[where][0]
                 execute_avg_divide(grid, grid, bts, gids, spec)[0].cpu()
                 ran += 1
     log.info("warmup: %d classes in %.1fs", ran, time.monotonic() - t0)

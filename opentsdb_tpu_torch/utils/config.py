@@ -92,11 +92,30 @@ _DEFAULTS: dict[str, str] = {
     # [S, B] cells above which a query leaves the grid path for the
     # point path; 0 means 1 << 26 (ref: ops/blocked.py)
     "tsd.query.max_device_cells": "0",
-    # the reference's host-CPU tail is not ported yet: -1 keeps it off,
-    # and any other value raises NotImplementedError when the engine
+    # host-tail placement budgets (query/engine.py::host_tail_device):
+    # a query whose padded [S, B] falls under its budget runs the
+    # pipeline's tail on the host CPU, chosen before any device call,
+    # by size alone. 0 = the built-in default (2^20 cells and 2^25
+    # cells x groups for median/percentiles, 2^23 cells for the linear
+    # aggregators), -1 = never on the host
+    "tsd.query.host_tail_max_cells": "0",
+    "tsd.query.host_tail_max_cellgroups": "0",
+    "tsd.query.host_tail_max_cells_linear": "0",
+    # host-RAM prepared-batch cache of host-placed queries (MB; 0 off):
+    # a pool apart from the device cache, so host entries never evict
+    # the card's grids
+    "tsd.query.host_cache_mb": "512",
+    # the device pipeline's circuit breaker (0 failures: no breaker):
+    # a device failure is counted and raised; past the threshold the
+    # breaker opens and queries answer 503 with Retry-After, touching
+    # no device, until the reset window lets one probe through
+    "tsd.query.breaker.failure_threshold": "5",
+    "tsd.query.breaker.reset_timeout_ms": "30000",
+    # the reference re-answers a failed device query on its host (true
+    # there by default); the port never gives way to another path after
+    # a failure, so only false is accepted: true raises when the TSDB
     # is built
-    "tsd.query.host_tail_max_cells": "-1",
-    "tsd.query.host_tail_max_cells_linear": "-1",
+    "tsd.query.degraded.host_fallback": "false",
     # the serve-path result cache (query/result_cache.py): a sharded LRU
     # of sub-query result groups, keyed on the normalized query and
     # versioned by the store, so writes invalidate. enable is read per

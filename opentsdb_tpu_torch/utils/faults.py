@@ -7,21 +7,24 @@ them.
   keys ``tsd.faults.<site>_<knob>`` (knob: ``error_rate``,
   ``error_count``, ``error_once``, ``latency_ms``) or :meth:`arm`. The
   sites are the WAL's (``wal.append``, ``wal.fsync``), the snapshot
-  flush (``store.flush``) and the continuous queries' (``stream.fold``,
-  ``stream.worker``, ``stream.watermark``). An error rate is a counted
+  flush (``store.flush``), the continuous queries' (``stream.fold``,
+  ``stream.worker``, ``stream.watermark``) and the query engine's
+  device dispatch (``device.compile``). An error rate is a counted
   schedule (call ``i`` fails iff ``floor(i * r)`` advances), never a
   coin flip, so a failure reproduces.
 - :class:`RetryPolicy` and :func:`call_with_retries`: bounded
   exponential backoff under a wall-clock deadline.
 - :class:`CircuitBreaker` (closed -> open -> half-open) and
   :class:`DegradedError`, the refusal the HTTP layer answers with a
-  structured 503 and ``Retry-After``. The streaming registry uses the
-  breaker in its shedding mode: while it is open, pulls go to the batch
-  engine and ``/result`` answers 503.
+  structured 503 and ``Retry-After``. The streaming registry and the
+  query engine's device breaker (``device.pipeline``) use it in its
+  shedding mode only: while it is open, pulls go to the batch engine
+  and ``/result`` answers 503, and a query that would touch the device
+  answers 503. The reference's host re-answer of a failed device query
+  is a fallback, which the port does not have.
 
-The reference's other sites, and its engine's device breaker with its
-host retries, belong to subsystems the port has not ported yet
-(ROADMAP Queue 1).
+The reference's other sites belong to subsystems the port has not
+ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ KNOWN_SITES: frozenset[str] = frozenset({
     "stream.fold",        # streaming/registry.py incremental fold
     "stream.worker",      # streaming/workers.py off-path drain
     "stream.watermark",   # streaming/eventtime/watermark.py marker
+    "device.compile",     # query/engine.py device pipeline dispatch
 })
 
 

@@ -24,6 +24,9 @@ from opentsdb_tpu_torch.ops.rate import RateOptions
 from test_torch_span_order import onehot_run_sums, span_tree_sums
 
 pytestmark = pytest.mark.cuda
+# the host tail off: every engine tail on the card
+HOST_TAIL_OFF = {"tsd.query.host_tail_max_cells": "-1",
+                 "tsd.query.host_tail_max_cells_linear": "-1"}
 
 
 @pytest.fixture
@@ -305,11 +308,14 @@ def _card_tsdb(card, **keys):
     """A TSDB on the card holding 3000 series x 60 points at one a
     minute (seed 0), tagged dc (i % 100) and rack (i % 1500). The
     result cache is off unless ``keys`` turn it on, so that a repeat
-    reaches the engine's paths."""
+    reaches the engine's paths, and the host tail is off: at its
+    default budgets these small queries' tails would run on the host,
+    and these tests hold the card's paths."""
     from opentsdb_tpu_torch import TSDB, Config
     t = TSDB(Config(**{"tsd.torch.device": str(card),
                        "tsd.core.auto_create_metrics": "true",
-                       "tsd.query.cache.enable": "false", **keys}))
+                       "tsd.query.cache.enable": "false",
+                       **HOST_TAIL_OFF, **keys}))
     rng = np.random.default_rng(0)
     s, p = 3000, 60
     ts = np.broadcast_to(1356998400 + 60 * np.arange(p), (s, p))
@@ -423,12 +429,14 @@ def test_fanout_launches_each_kernel_once(card):
 def _irregular_card_tsdb(card):
     """A TSDB on the card holding 3000 series of jittered points (0-9 s)
     with 2% dropped (seed 0), tagged as ``_card_tsdb``'s, at the
-    default keys but the result cache; and a CPU float64 TSDB reading
-    the same store and UIDs."""
+    default keys but the result cache and the host tail (off, so that
+    the tails run on the card); and a CPU float64 TSDB reading the same
+    store and UIDs."""
     from opentsdb_tpu_torch import TSDB, Config
     t = TSDB(Config(**{"tsd.torch.device": str(card),
                        "tsd.core.auto_create_metrics": "true",
-                       "tsd.query.cache.enable": "false"}))
+                       "tsd.query.cache.enable": "false",
+                       **HOST_TAIL_OFF}))
     rng = np.random.default_rng(0)
     s, p = 3000, 60
     ts = 1356998400 + 60 * np.arange(p) + rng.integers(0, 10, (s, p))
@@ -596,3 +604,45 @@ def test_histogram_query_on_card(card):
         answers[dev] = runs[0]
         t.shutdown()
     assert answers["cuda"] == answers["cpu"]
+
+
+@pytest.mark.parametrize("m,grid_reduce", [("sum:5m-avg:rate:m{dc=*}", "true"),
+                                           ("sum:5m-avg:rate:m{dc=*}", "false"),
+                                           ("p99:5m-max:m{dc=*}", "true")])
+def test_host_tail_keeps_small_tails_off_the_card(card, m, grid_reduce,
+                                                  monkeypatch):
+    """At the default budgets a small query's tail runs on the host CPU
+    of a card TSDB: its grid or batch is a CPU tensor, no kernel
+    launches, nothing enters the device cache, and the answer equals the
+    same query with the host tail off, on the card (1e-5 relative)."""
+    from opentsdb_tpu_torch.query import engine as engine_mod
+    seen = []
+    for name in ("execute_grid", "run_prepared"):
+        orig = getattr(engine_mod, name)
+
+        def spy(x, *a, _o=orig, **k):
+            t = x if isinstance(x, torch.Tensor) else x.arrays[0]
+            seen.append(t.device.type)
+            return _o(x, *a, **k)
+        monkeypatch.setattr(engine_mod, name, spy)
+    keys = {"tsd.query.grid_reduce": grid_reduce}
+    on = _card_tsdb(card, **keys)
+    off = _card_tsdb(card, **keys)
+    for k in HOST_TAIL_OFF:     # _card_tsdb pins them: back to defaults
+        on.config.override_config(k, "0")
+    before = (fused.span_reduce.launches, fused.onehot_reduce.launches)
+    got = on.execute_query(_card_query(m))
+    assert seen == ["cpu"] and len(on.device_grid_cache) == 0
+    assert (fused.span_reduce.launches,
+            fused.onehot_reduce.launches) == before
+    seen.clear()
+    want = off.execute_query(_card_query(m))
+    assert seen == ["cuda"]
+    assert len(got) == len(want) > 0
+    for a, w in zip(got, want):
+        assert a.tags == w.tags
+        np.testing.assert_array_equal(a.dps_arrays[0], w.dps_arrays[0])
+        np.testing.assert_allclose(a.dps_arrays[1], w.dps_arrays[1],
+                                   rtol=1e-5, atol=1e-6)
+    on.shutdown()
+    off.shutdown()

@@ -26,11 +26,15 @@ NO_GRID = {"tsd.query.grid_reduce": "false"}
 
 
 def _tsdb(**extra):
-    # the result cache off, so that a repeat reaches the device cache
+    # the result cache off, so that a repeat reaches the device cache,
+    # and the host tail off, so that these small queries' tails are
+    # device-placed (as the reference's tests/test_device_cache.py pins)
     return TSDB(Config(**{"tsd.torch.device": "cpu",
                           "tsd.torch.dtype": "float64",
                           "tsd.core.auto_create_metrics": "true",
                           "tsd.query.cache.enable": "false",
+                          "tsd.query.host_tail_max_cells": "-1",
+                          "tsd.query.host_tail_max_cells_linear": "-1",
                           **extra}))
 
 

@@ -29,11 +29,12 @@ from torch_pair import export as _export, rows as _rows
 
 # the result cache off as well: a repeat must reach the engine's paths
 CACHE_OFF = {"tsd.query.cache.enable": "false"}
+# the host tail off: every tail on the TSDB's device
+HOST_TAIL_OFF = {"tsd.query.host_tail_max_cells": "-1",
+                 "tsd.query.host_tail_max_cells_linear": "-1"}
 ENGINE_KEYS = {"tsd.query.grid_reduce": "false",
                "tsd.query.device_cache_mb": "0",
-               "tsd.query.host_tail_max_cells": "-1",
-               "tsd.query.host_tail_max_cells_linear": "-1",
-               **CACHE_OFF}
+               **HOST_TAIL_OFF, **CACHE_OFF}
 T0 = 1356998400
 S, P = 240, 60
 
@@ -253,16 +254,14 @@ def test_write_validation():
     ("tsd.query.host_tail_max_cells", "0"),
     ("tsd.query.host_tail_max_cells_linear", "0")])
 def test_unported_engine_paths_raise(engines, key, value):
-    """The host-CPU tail is not ported: its keys still raise. The grid
-    path and the device cache are, and answer as the point path does."""
+    """Every engine path these keys select is ported: the grid path, the
+    device cache and, since the host-tail keys left -1, the host tail
+    (its default budgets place this query's tail on the host). Each
+    answers as the reference's point path does."""
     jt, tt = engines
     t = TSDB(Config(**{"tsd.torch.device": "cpu",
                        "tsd.torch.dtype": "float64",
                        **ENGINE_KEYS, key: value}))
-    if key.startswith("tsd.query.host_tail"):
-        with pytest.raises(NotImplementedError):
-            t.new_query()
-        return
     load_arrays(t, "m", *_export(jt, "m"))
     q = TSQuery.from_json({"start": str(T0), "end": str(T0 + P * 60 - 1),
                            "queries": [_query_json(
@@ -276,14 +275,18 @@ def test_unported_engine_paths_raise(engines, key, value):
 
 @pytest.mark.parametrize("keys,path", [
     (ENGINE_KEYS, "point"),
-    (CACHE_OFF, "grid"),
-    ({"tsd.query.grid_reduce": "false", **CACHE_OFF}, "prepared")])
+    ({**CACHE_OFF, **HOST_TAIL_OFF}, "grid"),
+    ({"tsd.query.grid_reduce": "false", **CACHE_OFF}, "prepared"),
+    (CACHE_OFF, "host-grid")])
 def test_engine_keys_select_the_path(engines, keys, path, monkeypatch):
     """Spies on the store and the pipeline show which path a
     fixed-interval query took, run twice: the point path materializes
-    and uploads each time; the defaults reduce in the store once and
-    then read the cached grid; grid_reduce=false with the cache on
-    materializes once and serves the repeat from the cached batch."""
+    and uploads each time; the grid path on the device reduces in the
+    store once and then reads the cached grid; at the defaults this
+    small grid's tail is host-placed, which skips the device cache and
+    reduces in the store again; grid_reduce=false with the cache on
+    materializes once and serves the repeat from the cached batch (the
+    host pool's, for this small query)."""
     from opentsdb_tpu_torch.query import engine as engine_mod
     jt, _ = engines
     t = TSDB(Config(**{"tsd.torch.device": "cpu",
@@ -306,32 +309,50 @@ def test_engine_keys_select_the_path(engines, keys, path, monkeypatch):
         "point": ["materialize_padded", "prepare_auto",
                   "run_prepared"] * 2,
         "grid": ["bucket_reduce"],
+        "host-grid": ["bucket_reduce"] * 2,
         "prepared": ["materialize_padded", "prepare_auto",
                      "run_prepared", "run_prepared"]}[path]
     assert (t.device_grid_cache is None) == (path == "point")
 
 
 def test_unported_query_features_raise(engines):
-    """What is still not ported raises NotImplementedError; a ``p99``
-    aggregator, which raised before the rank aggregators' port, now
-    answers as the reference does (percentile sub-queries too, held in
-    ``test_torch_histogram.py`` and ``test_torch_sketch.py``)."""
-    _, tt = engines
-    _run_both(engines, {"start": str(T0), "end": str(T0 + P * 60 - 1),
+    """The query features that raised NotImplementedError before their
+    port answer as the reference does: a ``p99`` aggregator (the rank
+    aggregators), a pixel budget, tsuid sub-queries and ``delete=true``
+    (the last on a fresh pair, with the window read back from both)."""
+    jt, tt = engines
+    end = str(T0 + P * 60 - 1)
+    _run_both(engines, {"start": str(T0), "end": end,
                         "queries": [{"aggregator": "p99",
                                      "metric": "m"}]})
-    for query in (
-            {"start": str(T0), "queries": [{"aggregator": "sum",
-                                            "metric": "m"}],
-             "delete": True},
-            {"start": str(T0), "queries": [{"aggregator": "sum",
-                                            "tsuids": ["000001"]}]}):
-        with pytest.raises(NotImplementedError):
-            tt.execute_query(TSQuery.from_json(query).validate(
-                now_ms=(T0 + 3600) * 1000))
-    with pytest.raises(NotImplementedError):
-        TSQuery.from_json({"start": str(T0), "pixels": 100,
-                           "queries": []})
+    _run_both(engines, {"start": str(T0), "end": end, "pixels": 12,
+                        "queries": [{"aggregator": "sum", "metric": "m",
+                                     "tags": {"dc": "*"}}]})
+    tsuids = []
+    for db in (jt, tt):
+        uids = db.uids
+        mid = uids.metrics.get_id("m")
+        tsuids.append([uids.tsuid(mid, [
+            (uids.tag_names.get_id(k), uids.tag_values.get_id(v))
+            for k, v in (("host", f"web{i:03d}"), ("dc", f"dc{i % 6}"),
+                         ("rack", f"r{i % 40}"))]).hex().upper()
+            for i in (3, 5, 11)])
+    assert tsuids[0] == tsuids[1]
+    got = _run_both(engines, {"start": str(T0), "end": end, "queries": [
+        {"aggregator": "sum", "tsuids": tsuids[0]}]})
+    assert got[0][0] == "m"
+    dj = _write_reference()
+    dt = TSDB(Config(**{"tsd.torch.device": "cpu",
+                        "tsd.torch.dtype": "float64", **ENGINE_KEYS}))
+    load_arrays(dt, "m", *_export(dj, "m"))
+    delete = {"start": str(T0), "end": end, "delete": True, "queries": [
+        {"aggregator": "sum", "metric": "m", "tags": {"dc": "dc1"}}]}
+    _run_both((dj, dt), delete)
+    after = _run_both((dj, dt), {"start": str(T0), "end": end, "queries": [
+        {"aggregator": "sum", "metric": "m", "tags": {"dc": "*"}}]})
+    assert [r[1]["dc"] for r in after] == ["dc0", "dc2", "dc3", "dc4",
+                                           "dc5"]
+    dj.shutdown()
     assert torch.device("cpu") == tt.device
 
 

@@ -291,7 +291,8 @@ def _pair(extra: dict):
     jt = _write_reference(extra)
     tt = TSDB(Config(**{"tsd.torch.device": "cpu",
                         "tsd.torch.dtype": "float64",
-                        "tsd.query.cache.enable": "false", **extra}))
+                        "tsd.query.cache.enable": "false",
+                        **HOST_TAIL_OFF, **extra}))
     for metric in ("m", "c", "h"):
         load_arrays(tt, metric, *_export(jt, metric))
     return jt, tt

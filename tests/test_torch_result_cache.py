@@ -582,22 +582,39 @@ class TestWaiterReadAfterWrite:
 class TestDeleteQueriesStaySerial:
     def test_multi_sub_delete_raises_before_fanout_or_cache(
             self, tsdbs, monkeypatch):
+        """A multi-sub ``delete=true`` query runs its subs one after
+        another, bypasses the result cache and answers as the reference
+        (each sub reads the window, then deletes it: the second sub
+        finds nothing); without delete the subs fan out."""
         t = tsdbs()
         _seed(t)
+        jt = JTSDB(JConfig(**{"tsd.core.auto_create_metrics": "true",
+                              "tsd.tpu.platform": "cpu"}))
+        _seed(jt)
 
         def no_fanout(*a, **k):
             raise AssertionError("delete query took the fan-out path")
 
         monkeypatch.setattr(QueryEngine, "_run_fanout", no_fanout)
-        tsq = TSQuery.from_json({
-            "start": BASE * 1000, "end": (BASE + 2999) * 1000,
-            "queries": [{"metric": "m", "aggregator": "sum"},
-                        {"metric": "m", "aggregator": "max"}]
-        }).validate()
-        tsq.delete = True
-        with pytest.raises(NotImplementedError):
-            t.execute_query(tsq)
-        assert t._result_cache is None  # no cache lookup was made
+        body = {"start": BASE * 1000, "end": (BASE + 2999) * 1000,
+                "delete": True,
+                "queries": [{"metric": "m", "aggregator": "sum"},
+                            {"metric": "m", "aggregator": "max"}]}
+        tsq = TSQuery.from_json(body).validate()
+        try:
+            got = t.execute_query(tsq)
+            want = jt.execute_query(JQuery.from_json(body).validate())
+        finally:
+            jt.shutdown()
+        assert [(r.metric, r.sub_query_index) for r in got] == \
+            [(r.metric, r.sub_query_index) for r in want] == [("m", 0)]
+        np.testing.assert_array_equal(got[0].dps_arrays[0],
+                                      [ts for ts, _ in want[0].dps])
+        np.testing.assert_allclose(got[0].dps_arrays[1],
+                                   [v for _, v in want[0].dps], rtol=1e-6)
+        # both subs bypassed the cache: no entry was made
+        assert t.result_cache.bypasses == 2
+        assert t.result_cache.total_entries == 0
         # non-delete multi-sub queries still fan out
         tsq.delete = False
         with pytest.raises(AssertionError, match="fan-out"):

@@ -428,10 +428,9 @@ def test_unaligned_end_past_the_newest_point_sheds(pair):
 
 
 def test_delete_invalidates_maintained_windows(pair):
-    """Partials cannot unfold removed points: a store delete bumps its
-    mutation epoch and the next pull rebuilds before serving. (The
-    reference test deletes by a ``delete=true`` query, which the port
-    does not have; ``delete_range`` is the store call under it.)"""
+    """Partials cannot unfold removed points: a ``delete=true`` query
+    bumps the store's mutation epoch and the next pull rebuilds before
+    serving (as the reference test)."""
     p = pair()
     q = qobj(agg="sum", ds="1m-sum")
     after = []
@@ -440,9 +439,9 @@ def test_delete_invalidates_maintained_windows(pair):
         register(t, q)
         before = run(t, q)
         assert t.streaming.serve_hits == 1
-        mid = t.uids.metrics.get_id("s.m")
-        t.store.delete_range(t.store.series_ids_for_metric(mid),
-                             BASE_MS, BASE_MS + 300_000)
+        dq = qobj(start=BASE_MS, end=BASE_MS + 300_000)
+        dq["delete"] = True
+        run(t, dq)
         after.append(run(t, q))
         assert t.streaming.rebuilds == 1
         assert t.streaming.serve_hits == 2
@@ -478,21 +477,23 @@ def test_same_identity_survivor_keeps_serving_after_delete(pair):
 
 
 def test_delete_query_never_reaches_streaming(pair):
-    """The reference runs a ``delete=true`` query past the streaming
-    lookup; the port refuses it (not ported) before any lookup. Neither
-    serves it from the windows."""
+    """Both packages run a ``delete=true`` query past the streaming
+    lookup: the batch engine answers it (the same rows in both) and
+    deletes what it read, so the next pull rebuilds and finds nothing
+    of the window."""
     p = pair(**{"tsd.http.query.allow_delete": "true"})
     q = dict(qobj())
     q["delete"] = True
+    answers, pulls = [], []
     for t in p.both:
         ingest(t, SERIES[:1], BASE, 20, seed=8)
         register(t, qobj())
-        if is_port(t):
-            with pytest.raises(NotImplementedError):
-                run(t, q)
-        else:
-            run(t, q)
+        answers.append(run(t, q))
         assert t.streaming.serve_hits == 0
+        pulls.append(run(t, qobj()))
+        assert t.streaming.rebuilds == 1
+    assert_value_identical(answers[1], answers[0])
+    assert answers[0] and not pulls[0] and not pulls[1]
 
 
 def test_streaming_hit_in_query_stats(port):
