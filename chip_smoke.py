@@ -114,22 +114,29 @@
    crosses the block edge) and ``avg:1m-avg`` by ``rack`` (LERP's prev
    and next carries, 2000 groups). S x B exceeds the cell budget, so
    the grid path declines and the point path streams 2 blocks: the
-   blocked counters must move and neither kernel launch, two cold calls
-   must give the same bits, the answer must equal the unblocked point
-   path's (``tsd.query.max_device_cells=268435456``,
+   blocked counters must move and neither kernel launch, a cold call
+   and the staged run (a second blocked run) must give the same bits
+   (a second cold call was CUT for the run's time), the answer must
+   equal the unblocked point path's
+   (``tsd.query.max_device_cells=268435456``,
    ``grid_reduce=false``) bit for bit and the port on the CPU in
-   float64 at phase 7's tolerance; prints both device peaks (the
+   float64 at phase 7's tolerance over a tenth of its groups (each with
+   all of its series; CUT from all groups for the run's time); prints
+   both device peaks (the
    blocked one must be the lower), the stage times (plan, materialize,
    assign, flatten, the host split into blocks, pass 1, pass 2,
    assemble) and, with ``--profile``, the device's idle share;
 12. histograms, BASELINE config 4 (``bench_e2e.py:253-282``), on a
-   fresh TSDB at the default keys but the result cache: (a) 1M series of
-   ``sys.lat.hist`` (``host=h<i>``, ``dc=dc<i%100>``) x 1 point (the
-   depth cut from 2 points a minute apart), 64 buckets on ``np.logspace(0, 4, 65)``, counts
+   fresh TSDB at the default keys but the result cache: (a) 250k series
+   (``HIST_CUT``: CUT from config 4's 1M for the run's time)
+   of ``sys.lat.hist`` (``host=h<i>``, ``dc=dc<i%100>``) x 1 point (the
+   depth cut from 2 points a minute apart), 64 buckets on
+   ``np.logspace(0, 4, 65)``, counts
    ``integers(0, 50)`` from seed 3, by ``add_histogram_batch`` in batches
    of 25,000 (ingest seconds and points/s); (b) Q1 ``sum`` with
-   ``percentiles [99, 99.9]`` (one group, one timestamp, every merged
-   bucket past 2^24) and Q2 the same by ``dc`` at ``5m-sum`` (100
+   ``percentiles [99, 99.9]`` (one group, one timestamp; at 1M series
+   every merged bucket passed 2^24) and Q2 the same by ``dc`` at
+   ``5m-sum`` (100
    groups): two cold calls and the warm p50 of 5 (device-cache hits),
    the answers equal to a float64 numpy reference of the same counts
    bit for bit, the same bits on every call, neither kernel launched,
@@ -137,7 +144,7 @@
    arena slice, window rows, upload, segments, merge, percentiles,
    emit) and, with ``--profile``, the device's idle share; (c) ``merge_histograms`` and
    ``percentiles_from_merged`` timed by CUDA events beside a plain read
-   of the [1M, 64] float64 counts, printed on the ``histogram`` line;
+   of the [250k, 64] float64 counts, printed on the ``histogram`` line;
    (d) ``sum:5m-avg`` percentiles [50, 99] over 10k scalar series x 60
    ``lognormal(3, 0.8)`` points (seed 0) by the sketch fold, each within
    alpha of the exact order statistic, two calls the same bits; (e) 10k
@@ -227,16 +234,46 @@
    series (a kernel launch, held to numpy) and a ``delete=true`` over
    10 minutes of one series by ``POST /api/query``, read back. Prints
    ``phase 15: N s``;
-16. prints the run's wall time, the ``histogram``, ``rollup``,
-   ``streaming`` and ``surfaces`` lines, one JSON line describing each
-   kernel (its launches are those of phases 3, 5, 8, 6, 15, 9, 10, 13
-   and 14; phases 11 and 12 launch neither), the card line and, last,
+16. the query mesh on one card (run after phase 15, on phase 3's store
+   before its TSDB goes): facades over that store with
+   ``tsd.query.mesh`` at ``series:4`` and at ``series:2,time:2``, each
+   drawn from ``mesh_devices=[cuda:0] * 4`` (4 virtual shards on the
+   one card: the sharded code's answers, no multi-card scaling), at the
+   default keys but the result cache, over the first 11 buckets of 5 m
+   (clear of phase 6's write). ``sum:5m-avg:rate`` by ``dc`` and by
+   ``rack`` go through (a) the sharded point path
+   (``grid_reduce=false``): two cold calls and a prepared-batch hit,
+   (b) the sharded grid path: two cold calls and a grid-cache hit, all
+   bit-equal (one cold call by ``rack`` in (a) and (b)), and (c) the
+   sharded blocked path (``tsd.query.max_device_cells=1000000``, the
+   budget scaled by the 4 shards: 3 blocks; by ``dc`` on the first
+   shape, by ``rack`` on the second); each answer held to a float64
+   numpy reference at phase 3's tolerance, its emit mask equal to the
+   single-card path's (phase 3's TSDB on the same window), its stage
+   times printed. (d) A ``p99`` by ``dc`` (the histogram estimator)
+   within 2 x range / 512 of the exact order statistic, and (e) a
+   ``multiply`` over a TSDB of config 3's first 8 series (the
+   all-gather path) within 1e-5 relative. (f) Two child processes on
+   the card, each with a timeout of its own, joined on gloo at an
+   ephemeral ``tsd.mesh.coordinator`` with ``series:2,time:2`` over
+   ``[cuda:0] * 2`` each (the time axis across the processes), each
+   holding phase 9's quarter of the series, started first and run
+   beside (a)-(e) (their times share the host's CPUs): both give the
+   same bits, held to numpy and to the single-card path's values and
+   emit masks.
+   Neither kernel runs inside a shard, as in the reference. Prints
+   ``phase 16: N s``;
+17. prints the run's wall time, the ``histogram``, ``rollup``,
+   ``streaming``, ``surfaces`` and ``mesh`` lines, one JSON line
+   describing each kernel (its launches are those of phases 3, 5, 8,
+   6, 15, 9, 10, 13 and 14; phases 11, 12 and 16 launch neither on
+   their paths), the card line and, last,
    ``{"ok": true, "device": {...}}``. Each phase's header says how far
    into the run it starts.
 
-Phases 3-8, 11, 13, 14 and 15 run on the default store, the native
-one. Phases 3-5, 7, 9, 11, 12, 13, 14 and 15 run with the result cache
-off, so that every call reaches the path it measures. Every phase
+Phases 3-8, 11, 13, 14, 15 and 16 run on the default store, the native
+one. Phases 3-5, 7, 9, 11, 12, 13, 14, 15 and 16 run with the result
+cache off, so that every call reaches the path it measures. Every phase
 before 15 pins the host tail off (``HOST_TAIL_OFF``), so that each
 kernel launch and device tail it times stays on the card, and prints
 where ``host_tail_for_dims`` would place its queries at the default
@@ -254,6 +291,7 @@ import argparse
 import json
 import os
 import statistics
+import shutil
 import subprocess
 import sys
 import threading
@@ -292,7 +330,7 @@ IRREGULAR_QUERIES = (
 JITTER_S = 10              # phase 7: whole seconds of jitter, 0-9
 IRREGULAR_REPEATS = 3      # phase 7: warm hits and repeats per stage
 DROP = 0.02                # phase 7: share of points dropped
-CPU64_SHARE = 10           # phase 7: 1 in 10 groups held to the CPU float64
+CPU64_SHARE = 10           # phases 7, 11: 1 in 10 groups held to CPU float64
 FANOUT_REPEATS = 3         # repeats of each point-path fan-out reading
 REPRO_LAUNCHES = 20        # launches of each kernel's reproducibility reading
 # device memory rate by card name (NVIDIA data sheets), bytes/s
@@ -2139,9 +2177,6 @@ def phase_long(torch, n_series: int, profile: bool) -> None:
         rows, cold_s, peak = cold(m)
         runs, blocks = read_blocked()
         launches = read_launches(fused)
-        rows2, cold2_s, _ = cold(m)
-        check(same_bits(rows2, rows), f"{m}: two cold calls differ in "
-              "their bits")
         # the same query unblocked: the budget raised past S x B, and
         # the grid path off (it would add in another order)
         keys.override_config("tsd.query.max_device_cells", UNBLOCKED_CELLS)
@@ -2150,7 +2185,7 @@ def phase_long(torch, n_series: int, profile: bool) -> None:
         keys.override_config("tsd.query.max_device_cells", "0")
         keys.override_config("tsd.query.grid_reduce", "true")
         tsdb.drop_caches()
-        check(read_blocked() == (2 * runs, 2 * blocks),
+        check(read_blocked() == (runs, blocks),
               f"{m}: the unblocked run streamed in blocks")
         check(same_bits(whole, rows), f"{m}: blocked and unblocked runs "
               "differ in their bits")
@@ -2182,6 +2217,8 @@ def phase_long(torch, n_series: int, profile: bool) -> None:
         rows3, asm_t = timed(lambda: eng._build_results(
             tq, sub, metric_id, sel, tag_mat, gids, g, grid.bucket_ts,
             res_np, emit_np), 1)
+        # the staged run is the second blocked run of the query: the
+        # two must give the same bits
         check(same_bits(rows3, rows), f"{m}: the staged run differs from "
               "the engine's")
         check(runs == 1 and blocks == -(-b // bb) == 2
@@ -2192,8 +2229,11 @@ def phase_long(torch, n_series: int, profile: bool) -> None:
         check(not any(launches.values()), f"{m}: launched {launches}")
         check(peak < whole_peak or not runs, f"{m}: the blocked peak "
               f"{peak} is not below the unblocked {whole_peak}")
+        # the float64 reference on the CPU: a tenth of the groups, as in
+        # phase 7 (CUT from all of them: 76 s of a 931 s run on one H100)
         err, cpu_s = against_cpu64(torch, m, grid, spec, gids,
-                                   sub.rate_options, res_np, emit_np)
+                                   sub.rate_options, res_np, emit_np,
+                                   max(1, g // CPU64_SHARE))
         emitted = int(emit_np.sum())
         check(len(rows) == g and emitted > 0 and bool(np.isfinite(
             res_np[emit_np]).all()), f"{m}: {len(rows)} groups of {g}, "
@@ -2211,13 +2251,13 @@ def phase_long(torch, n_series: int, profile: bool) -> None:
         print(f"  {m}: stages ms: " + ", ".join(
             f"{n} {v * 1e3:.3f}" for n, v in staged)
             + f"; sum {sum(v for _, v in staged) * 1e3:.3f}")
-        print(f"  {m}: end-to-end cold {cold_s * 1e3:.3f} / "
-              f"{cold2_s * 1e3:.3f} ms blocked, {whole_s * 1e3:.3f} ms "
-              f"unblocked; peak device memory {peak / 2**30:.3f} GiB "
-              f"blocked, {whole_peak / 2**30:.3f} GiB unblocked; blocked "
-              "equal to unblocked and to itself bit for bit; max_abs_err "
+        print(f"  {m}: end-to-end cold {cold_s * 1e3:.3f} ms blocked, "
+              f"{whole_s * 1e3:.3f} ms unblocked; peak device memory "
+              f"{peak / 2**30:.3f} GiB blocked, {whole_peak / 2**30:.3f} "
+              "GiB unblocked; blocked equal to unblocked and to its staged "
+              "run bit for bit; max_abs_err "
               f"vs CPU float64 {err:.6g} ({cpu_s:.1f} s on the CPU)")
-        del points, grid, res_np, emit_np, rows, rows2, rows3, whole
+        del points, grid, res_np, emit_np, rows, rows3, whole
     tsdb.shutdown()
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
@@ -2229,6 +2269,9 @@ HIST_BUCKETS = 64
 # phase fits its 150 s (the per-series write path took 141 s for 2M
 # points on the card's host)
 HIST_POINTS = 1
+# phase 12 holds a quarter of config 4's 1M series: at 1M its ingest
+# took 116 s of a 1133 s run on one H100, past the run's 900 s
+HIST_CUT = 4
 HIST_BATCH = 25_000        # points per add_histogram_batch (bench_e2e.py)
 HIST_QS = (99.0, 99.9)
 HIST_WINDOW = (T0, T0 + 299)         # one 5-minute bucket
@@ -2282,8 +2325,9 @@ def rows_bits(rows) -> list:
 
 
 def phase_histograms(torch, n_series: int, profile: bool) -> dict:
-    """Phase 12: BASELINE config 4 (p99/p999 over 1M histogram series)
-    on the card. Returns the ``histogram`` line's readings."""
+    """Phase 12: BASELINE config 4 (p99/p999 over histogram series, a
+    quarter of its 1M) on the card. Returns the ``histogram`` line's
+    readings."""
     import numpy as np
     from opentsdb_tpu_torch import TSDB, Config
     from opentsdb_tpu_torch.ops import fused
@@ -4111,17 +4155,18 @@ def legacy_percentile(x, q: float):
 
 
 def config3_window(values, ds: str, key: str, buckets: int):
-    """``sum:5m-<ds>:rate`` by ``key`` (dc: i % 100) over the first
-    ``buckets`` 5-minute buckets of :func:`make_data`'s ``values`` in
-    float64: ([100, B - 1] answer, [100, B - 1] sum|terms|)."""
+    """``sum:5m-<ds>:rate`` by ``key`` (dc: i % 100, rack: i % 2000) over
+    the first ``buckets`` 5-minute buckets of :func:`make_data`'s
+    ``values`` in float64: ([G, B - 1] answer, [G, B - 1] sum|terms|)."""
     import numpy as np
     n = values.shape[0]
+    groups = 100 if key == "dc" else 2000
     win = values[:, :buckets * 5].reshape(n, buckets, 5)
     cell = win.mean(axis=2) if ds == "avg" else win.max(axis=2)
     rate = np.diff(cell, axis=1) / 300.0
     terms = (np.abs(cell[:, 1:]) + np.abs(cell[:, :-1])) / 300.0
-    gid = np.arange(n) % 100
-    return tuple(np.stack([np.bincount(gid, x[:, j], minlength=100)
+    gid = np.arange(n) % groups
+    return tuple(np.stack([np.bincount(gid, x[:, j], minlength=groups)
                            for j in range(x.shape[1])], axis=1)
                  for x in (rate, terms))
 
@@ -4482,6 +4527,363 @@ def phase_surfaces(torch, tsdb, values, query) -> dict:
             for k in exp_launch}, out
 
 
+MESH_SHAPES = ("series:4", "series:2,time:2")
+MESH_SHARDS = 4            # phase 16: virtual shards, the one card 4 times
+MESH_WINDOW = (T0, T0 + 3299)   # 11 buckets of 5 m, clear of phase 6's write
+MESH_BUCKETS = 11
+# (d): at 1M series a 4-shard mesh scales the budget to 4M cells, so
+# blocks of 4 of the 11 buckets: 3 blocks
+MESH_BLOCK_CELLS = "1000000"
+MESH_FEW = 8               # (e): series of the multiply query
+MESH_CHILD_TIMEOUT_S = 300  # (f): each child's own limit
+MESH_CACHE_MB = "4096"     # (a)-(c): room for a cut 1M x 55-point batch
+
+MESH_WORKER = """
+import json, sys, time
+t0 = time.perf_counter()
+root, pid, port, n, out = sys.argv[1], int(sys.argv[2]), sys.argv[3], \\
+    int(sys.argv[4]), sys.argv[5]
+sys.path.insert(0, root)
+import torch
+import chip_smoke as cs
+from opentsdb_tpu_torch import TSDB, Config
+from opentsdb_tpu_torch.parallel import distributed
+from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+
+card = torch.device("cuda", 0)
+t = TSDB(Config(**{
+    "tsd.torch.device": "cuda", "tsd.core.auto_create_metrics": "true",
+    **cs.ENGINE_KEYS, "tsd.tpu.warmup": "false",
+    "tsd.mesh.coordinator": f"127.0.0.1:{port}",
+    "tsd.mesh.num_processes": "2", "tsd.mesh.process_id": str(pid),
+    "tsd.mesh.init_timeout": "120", "tsd.query.mesh": "series:2,time:2"}),
+    mesh_devices=[card] * 2)
+assert distributed.process_count() == 2
+assert t.query_mesh.local_time == [pid], t.query_mesh.local_time
+join_s = time.perf_counter() - t0
+tags, ts2d, values = cs.make_data(n)
+t1 = time.perf_counter()
+t.add_series_points(cs.METRIC, tags, ts2d, values)
+ingest_s = time.perf_counter() - t1
+single = TSDB(Config(**{"tsd.torch.device": "cuda", **cs.ENGINE_KEYS}))
+single.store, single.uids = t.store, t.uids
+res = {"join_s": join_s, "ingest_s": ingest_s, "queries": {}}
+for m, _ in cs.QUERIES:
+    tq = TSQuery(start=str(cs.MESH_WINDOW[0]), end=str(cs.MESH_WINDOW[1]),
+                 queries=[parse_uri_subquery(m)]).validate()
+    t1 = time.perf_counter()
+    rows = t.execute_query(tq)
+    res["queries"][m] = {
+        "s": time.perf_counter() - t1,
+        "mesh": [[r.tags, r.dps_arrays[0].tolist(),
+                  r.dps_arrays[1].tolist()] for r in rows],
+        "single": [[r.tags, r.dps_arrays[0].tolist(),
+                    r.dps_arrays[1].tolist()]
+                   for r in single.execute_query(tq)]}
+res["total_s"] = time.perf_counter() - t0
+with open(out, "w") as f:
+    json.dump(res, f)
+print("child", pid, "done", flush=True)
+"""
+
+
+def mesh_reference(values, m: str):
+    """A config-3 query over :data:`MESH_WINDOW` in float64 with numpy:
+    (tag key, tag value prefix, [G, B - 1] answer, [G, B - 1] sum|terms|)
+    as :func:`held_to_reference` reads it."""
+    key, prefix = ("dc", "dc") if "{dc=*}" in m else ("rack", "r")
+    return (key, prefix) + config3_window(values, "avg", key, MESH_BUCKETS)
+
+
+def emits_equal(rows_a, rows_b) -> bool:
+    """Two answers hold the same groups and timestamps: their emit masks
+    are equal."""
+    import numpy as np
+    return len(rows_a) == len(rows_b) and all(
+        a.tags == b.tags and np.array_equal(a.dps_arrays[0],
+                                            b.dps_arrays[0])
+        for a, b in zip(rows_a, rows_b))
+
+
+def start_mesh_children(n: int) -> tuple:
+    """Phase 16 (f): start two processes on the one card, to join on
+    gloo, each holding ``n`` series of config 3 and a
+    ``series:2,time:2`` mesh over ``[cuda:0] * 2``. Returns what
+    :func:`finish_mesh_children` reads."""
+    import socket
+    import tempfile
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tmp = Path(tempfile.mkdtemp(prefix="mesh16-"))
+    script = tmp / "child.py"
+    script.write_text(MESH_WORKER)
+    outs = [tmp / f"out{i}.json" for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(ROOT), str(i), str(port), str(n),
+         str(outs[i])], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    return procs, outs, time.perf_counter()
+
+
+def finish_mesh_children(started: tuple) -> list:
+    """Wait for the children of :func:`start_mesh_children`, each under
+    its own timeout from its start (past it every child is killed and
+    the phase fails). Returns each child's answers and times."""
+    procs, outs, t0 = started
+    logs = []
+    for p in procs:
+        left = MESH_CHILD_TIMEOUT_S - (time.perf_counter() - t0)
+        try:
+            logs.append(p.communicate(timeout=max(left, 1.0))[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.communicate()
+            raise SmokeFailure(f"(f) a child ran past "
+                               f"{MESH_CHILD_TIMEOUT_S} s and was killed")
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0,
+              f"(f) a child exited {p.returncode}: {log[-3000:]}")
+    kids = [json.loads(o.read_text()) for o in outs]
+    shutil.rmtree(outs[0].parent, ignore_errors=True)
+    return kids
+
+
+def phase_mesh(torch, tsdb, values, profile: bool = False) -> dict:
+    """Phase 16: the query mesh on one card. Facades over phase 3's
+    store with ``tsd.query.mesh`` at ``series:4`` and
+    ``series:2,time:2`` over ``[cuda:0] * 4``: (a) the sharded point
+    path (``grid_reduce=false``), cold calls and a prepared-batch hit;
+    (b) the sharded grid path, two cold calls and a grid-cache hit;
+    (c) the sharded blocked path in 3 blocks; each for both group-bys,
+    held to the float64 numpy reference at phase 3's tolerance, with the
+    single-card path's emit masks; (d) a p99 (histogram estimator)
+    and (e) a multiply (all-gather) query over a few series; (f) two
+    processes on the card
+    joined on gloo with the time axis across them. With ``profile``,
+    the device's idle share of a cold point and grid call by ``dc``
+    per shape. Returns the ``mesh`` JSON line's readings."""
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.parallel import sharded_pipeline as sp
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    t_phase = time.perf_counter()
+    n = values.shape[0]
+    card = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    start, end = str(MESH_WINDOW[0]), str(MESH_WINDOW[1])
+
+    def query(m: str):
+        return TSQuery(start=start, end=end,
+                       queries=[parse_uri_subquery(m)]).validate()
+
+    def facade(shape: str, keys: dict):
+        f = TSDB(Config(**{"tsd.torch.device": "cuda",
+                           "tsd.query.cache.enable": "false",
+                           "tsd.tpu.warmup": "false",
+                           "tsd.query.mesh": shape, **keys}),
+                 mesh_devices=[card] * MESH_SHARDS)
+        f.store, f.uids = tsdb.store, tsdb.uids
+        return f
+
+    # (f) starts first and runs beside (a)-(e): the times of both share
+    # the host's CPUs
+    cut = max(1, n // STORE_CUT)
+    children = start_mesh_children(cut)
+    t = time.perf_counter()
+    refs = {m: mesh_reference(values, m) for m, _ in QUERIES}
+    print(f"  window {start}..{end} ({MESH_BUCKETS} buckets of 5 m, clear "
+          f"of phase 6's write); float64 numpy references "
+          f"{time.perf_counter() - t:.3f} s")
+    # the single-card path on the same window: phase 3's TSDB and keys
+    single = {}
+    for m, _ in QUERIES:
+        single[m], secs, st = _stats_run(tsdb, query(m))
+        err = held_to_reference(single[m], refs[m])
+        print(f"  single card {m}: {_stage_line([secs], [st])} ms; max |d| "
+              f"vs float64 {err!r}")
+    out: dict = {"shards": MESH_SHARDS, "card": name, "series": n,
+                 "shapes": {}}
+    point_keys = {**ENGINE_KEYS, "tsd.query.device_cache_mb": MESH_CACHE_MB}
+    grid_keys = {**HOST_TAIL_OFF,
+                 "tsd.query.device_cache_mb": MESH_CACHE_MB}
+    blocked_keys = {**ENGINE_KEYS,
+                    "tsd.query.max_device_cells": MESH_BLOCK_CELLS}
+    for shape in MESH_SHAPES:
+        point, grid = facade(shape, point_keys), facade(shape, grid_keys)
+        blocked = facade(shape, blocked_keys)
+        shape_out = out["shapes"][shape] = {}
+        for m, _ in QUERIES:
+            tq = query(m)
+            row: dict = {}
+            # (a) the point path: cold calls (two by dc), then the hit
+            runs0 = sp.run_sharded_device.runs
+            cold = []
+            for _ in range(2 if "{dc=*}" in m else 1):
+                point.drop_caches()
+                cold.append(_stats_run(point, tq))
+            hits0 = point.device_grid_cache.hits
+            warm = _stats_run(point, tq)
+            check(point.device_grid_cache.hits == hits0 + 1,
+                  f"(a) {shape} {m}: the repeat missed the device cache")
+            check(sp.run_sharded_device.runs == runs0 + len(cold) + 1,
+                  f"(a) {shape} {m}: the sharded point step did not run")
+            check(same_bits(cold[0][0], cold[-1][0]),
+                  f"(a) {shape} {m}: two cold calls differ in their bits")
+            check(same_bits(cold[0][0], warm[0]),
+                  f"(a) {shape} {m}: the prepared-batch hit differs")
+            row["point_err"] = held_to_reference(cold[0][0], refs[m])
+            check(emits_equal(cold[0][0], single[m]),
+                  f"(a) {shape} {m}: emit masks differ from one card's")
+            row["point_cold_s"] = [c[1] for c in cold]
+            row["prepared_hit_s"] = warm[1]
+            point_rows = cold[0][0]
+            cold_line = _stage_line([c[1] for c in cold],
+                                    [c[2] for c in cold])
+            print(f"  {shape} (a) point {m}: cold {cold_line} ms; "
+                  f"prepared hit {warm[1] * 1e3:.3f} ms; {len(cold)} cold "
+                  f"call(s) and the hit bit-equal; max |d| vs float64 "
+                  f"{row['point_err']!r}; emit masks = one card's")
+            # (b) the grid path: cold calls (two by dc), then the
+            # cached grid
+            runs0 = sp.run_sharded_grid.runs
+            cold = []
+            for _ in range(2 if "{dc=*}" in m else 1):
+                grid.drop_caches()
+                cold.append(_stats_run(grid, tq))
+            warm = _stats_run(grid, tq)
+            check(sp.run_sharded_grid.runs == runs0 + len(cold) + 1,
+                  f"(b) {shape} {m}: the sharded grid step did not run")
+            check(same_bits(cold[0][0], cold[-1][0])
+                  and same_bits(cold[0][0], warm[0]),
+                  f"(b) {shape} {m}: cold, cold and warm differ")
+            row["grid_err"] = held_to_reference(cold[0][0], refs[m])
+            check(emits_equal(cold[0][0], single[m]),
+                  f"(b) {shape} {m}: emit masks differ from one card's")
+            row["grid_cold_s"] = [c[1] for c in cold]
+            row["grid_warm_s"] = warm[1]
+            cold_line = _stage_line([c[1] for c in cold],
+                                    [c[2] for c in cold])
+            print(f"  {shape} (b) grid {m}: cold {cold_line} ms; "
+                  f"warm {warm[1] * 1e3:.3f} ms; bit-equal; max |d| vs "
+                  f"float64 {row['grid_err']!r}")
+            shape_out[m] = row
+            # (c) the blocked path: by dc on the first shape, by rack on
+            # the second
+            if ("{dc=*}" in m) != (shape == MESH_SHAPES[0]):
+                continue
+            b0 = sp.execute_blocked_sharded.blocks
+            rows, secs, st = _stats_run(blocked, tq)
+            row["blocks"] = sp.execute_blocked_sharded.blocks - b0
+            check(2 <= row["blocks"] <= 3,
+                  f"(c) {shape} {m}: {row['blocks']} blocks, not 2-3")
+            row["blocked_err"] = held_to_reference(rows, refs[m])
+            check(emits_equal(rows, single[m]),
+                  f"(c) {shape} {m}: emit masks differ from one card's")
+            row["blocked_s"] = secs
+            print(f"  {shape} (c) blocked {m}: {row['blocks']} blocks, "
+                  f"{_stage_line([secs], [st])} ms; max |d| vs float64 "
+                  f"{row['blocked_err']!r}; bit-equal to (a) "
+                  f"{same_bits(rows, point_rows)}")
+        if profile:
+            m = QUERIES[0][0]
+            tq = query(m)
+            for f, path in ((point, "point"), (grid, "grid")):
+                f.drop_caches()
+                device_share(torch, lambda: f.execute_query(tq),
+                             f"{shape} {path} cold {m}")
+        # (d) p99 by dc on the grid path: the histogram estimator
+        cells = values[:, :MESH_BUCKETS * 5].reshape(
+            n, MESH_BUCKETS, 5).mean(axis=2)
+        m = "p99:5m-avg:sys.cpu.user{dc=*}"
+        rows, secs, _ = _stats_run(grid, query(m))
+        idx = [int(r.tags["dc"][2:]) for r in rows]
+        check(sorted(idx) == list(range(min(n, 100))),
+              f"(d) {shape}: {len(idx)} groups")
+        worst = 0.0
+        for r, g in zip(rows, idx):
+            mine = cells[g::100]
+            exact = legacy_percentile(mine, 99.0)
+            bound = 2.0 * (mine.max(axis=0) - mine.min(axis=0)) \
+                / sp.PERCENTILE_BINS + TOL_ABS
+            d = np.abs(r.dps_arrays[1] - exact)
+            check(bool((d <= bound).all()),
+                  f"(d) {shape} p99 dc{g}: |d| {d.max()!r} past the "
+                  f"estimator's bound {bound.min()!r}")
+            worst = max(worst, float(d.max()))
+        print(f"  {shape} (d) {m}: {secs * 1e3:.3f} ms cold on the grid "
+              f"path; max |d| vs the exact float64 order statistic "
+              f"{worst!r}, within 2 x range / {sp.PERCENTILE_BINS}")
+        out["shapes"][shape]["p99"] = {"s": secs, "max_abs_err": worst}
+        # (e) multiply on the point path, over a TSDB of config 3's
+        # first few series (a product of 1M values overflows)
+        few = TSDB(Config(**{"tsd.torch.device": "cuda",
+                             "tsd.core.auto_create_metrics": "true",
+                             "tsd.tpu.warmup": "false",
+                             "tsd.query.mesh": shape, **ENGINE_KEYS}),
+                   mesh_devices=[card] * MESH_SHARDS)
+        few.add_series_points(METRIC, *make_data(MESH_FEW))
+        m = "multiply:5m-avg:sys.cpu.user"
+        runs0 = sp.run_sharded_device.runs
+        rows, secs, _ = _stats_run(few, query(m))
+        check(sp.run_sharded_device.runs == runs0 + 1,
+              f"(e) {shape}: the sharded point step did not run")
+        few.shutdown()
+        want = np.prod(cells[:MESH_FEW], axis=0)
+        check(len(rows) == 1, f"(e) {shape}: {len(rows)} groups")
+        rel = float(np.max(np.abs(rows[0].dps_arrays[1] - want) / want))
+        check(rel <= TOL_REL, f"(e) {shape} multiply: relative error "
+              f"{rel!r}")
+        print(f"  {shape} (e) {m} over {MESH_FEW} series: "
+              f"{secs * 1e3:.3f} ms; max relative |d| vs float64 {rel!r}")
+        out["shapes"][shape]["multiply"] = {"s": secs, "max_rel_err": rel}
+        for f in (point, grid, blocked):
+            f.shutdown()
+
+    # (f) two processes on the card, the time axis across them
+    kids = finish_mesh_children(children)
+    kid_s = time.perf_counter() - children[2]
+    sub_vals = values[:cut]
+    for m, _ in QUERIES:
+        a, b = (k["queries"][m] for k in kids)
+        check(a["mesh"] == b["mesh"],
+              f"(f) {m}: the two processes' answers differ")
+        key, prefix, want, terms = mesh_reference(sub_vals, m)
+        got = np.asarray([r[2] for r in a["mesh"]])
+        idx = [int(r[0][key][len(prefix):]) for r in a["mesh"]]
+        check(sorted(idx) == list(range(len(want))),
+              f"(f) {m}: {len(idx)} groups")
+        err = compare(torch.as_tensor(got), torch.as_tensor(want[idx]),
+                      torch.as_tensor(terms[idx]))
+        check([r[:2] for r in a["mesh"]] == [r[:2] for r in a["single"]],
+              f"(f) {m}: emit masks differ from the single-card path's")
+        one = compare(torch.as_tensor(got),
+                      torch.as_tensor(np.asarray([r[2] for r in
+                                                  a["single"]])),
+                      torch.as_tensor(terms[idx]))
+        print(f"  (f) {m}: 2 processes x series:2,time:2 on [cuda:0] * 2 "
+              f"each, {cut} series (STORE_CUT): the processes' answers "
+              f"bit-equal; cold {a['s']:.3f} and {b['s']:.3f} s; max |d| "
+              f"vs float64 "
+              f"{err!r}, vs the single-card path {one!r}")
+    print(f"  (f) children (run beside (a)-(e)): join "
+          f"{kids[0]['join_s']:.3f}/{kids[1]['join_s']:.3f} s, ingest "
+          f"{kids[0]['ingest_s']:.3f}/{kids[1]['ingest_s']:.3f} s, whole "
+          f"child {kids[0]['total_s']:.3f}/{kids[1]['total_s']:.3f} s; "
+          f"collected {kid_s:.3f} s after their start")
+    out["two_process"] = {"series": cut,
+                          "child_s": [k["total_s"] for k in kids],
+                          "query_s": {m: [k["queries"][m]["s"]
+                                          for k in kids]
+                                      for m, _ in QUERIES}}
+    print(f"  {MESH_SHARDS} shards on one {name}, no multi-card scaling "
+          "shown")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 16: {out['phase_s']:.1f} s")
+    return out
+
+
 def p50(xs) -> float:
     return statistics.median(xs)
 
@@ -4782,6 +5184,13 @@ def main() -> int:
     surf_launches, surfaces = phase_surfaces(torch, tsdb, values, query)
     for kname, n in surf_launches.items():
         launches[kname] += n
+    # phase 16 runs here too, on phase 3's store before the TSDB goes
+    header(f"phase 16: the query mesh on one card, {MESH_SHARDS} virtual "
+           f"shards ({' and '.join(MESH_SHAPES)} over [cuda:0] x "
+           f"{MESH_SHARDS}), {s} series x {MESH_BUCKETS} buckets"
+           + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
+           + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    mesh = phase_mesh(torch, tsdb, values, args.profile)
     tsdb.shutdown()
     del tsdb, tags, ts2d, values
     header(f"phase 7: irregular data, {s} series x {POINTS} slots"
@@ -4812,10 +5221,11 @@ def main() -> int:
         placement(m + " (blocked before placement)", s, LONG_POINTS,
                   min(s, 100 if "{dc=*}" in m else 2000))
     phase_long(torch, s, args.profile)
-    header(f"phase 12: histograms, BASELINE config 4, {s} series x "
-           f"{HIST_POINTS} point (depth CUT from 2) x {HIST_BUCKETS} "
-           "buckets" + ("" if s == 1_000_000 else " (CUT from 1,000,000)"))
-    hist = phase_histograms(torch, s, args.profile)
+    hn = max(1, s // HIST_CUT)
+    header(f"phase 12: histograms, BASELINE config 4, {hn} series (CUT "
+           f"from 1,000,000) x {HIST_POINTS} point (depth CUT from 2) x "
+           f"{HIST_BUCKETS} buckets")
+    hist = phase_histograms(torch, hn, args.profile)
     rn = min(ROLLUP_SERIES, s)
     header(f"phase 13: rollups, BASELINE config 5, {rn} series x "
            f"{ROLLUP_POINTS} points at 1 s (CUT from 100,000)"
@@ -4867,6 +5277,7 @@ def main() -> int:
     print(json.dumps({"rollup": rollup}))
     print(json.dumps({"streaming": streaming}))
     print(json.dumps({"surfaces": surfaces}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

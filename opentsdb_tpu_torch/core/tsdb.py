@@ -26,6 +26,13 @@ the continuous-query registry (:attr:`TSDB.streaming`, made at first
 use). Every raw write path offers its acknowledged points to that
 registry after the write (and its WAL sync) is done, under a
 :class:`TapGate` that a partial's re-seed holds alone.
+
+With ``tsd.query.mesh`` set, the TSDB builds its query mesh
+(:attr:`TSDB.query_mesh`, :mod:`opentsdb_tpu_torch.parallel`) from the
+device list the caller gives (``mesh_devices``); a shape the list
+cannot hold raises ValueError. With ``tsd.mesh.coordinator`` set, it
+first joins the multi-process rendezvous
+(:func:`~opentsdb_tpu_torch.parallel.distributed.initialize_from_config`).
 """
 
 from __future__ import annotations
@@ -54,6 +61,8 @@ from opentsdb_tpu_torch.core.wal import WriteAheadLog
 from opentsdb_tpu_torch.native.store_backend import (IMPORT_ERRORS,
                                                      make_store,
                                                      parse_import_buffer)
+from opentsdb_tpu_torch.parallel import distributed
+from opentsdb_tpu_torch.parallel.mesh import default_devices, mesh_from_spec
 from opentsdb_tpu_torch.query.device_cache import DeviceGridCache
 from opentsdb_tpu_torch.query.engine import refuse_unported_keys
 from opentsdb_tpu_torch.query.limits import QueryLimitOverride
@@ -190,16 +199,34 @@ def normalize_timestamps(ts) -> np.ndarray:
 class TSDB:
     """(ref: src/core/TSDB.java:87)"""
 
-    def __init__(self, config: Config | None = None):
+    def __init__(self, config: Config | None = None,
+                 mesh_devices: Sequence | None = None):
+        """``mesh_devices`` is the device list a query mesh
+        (``tsd.query.mesh``) is drawn from: by default the visible cards,
+        or the CPU when ``tsd.torch.device`` is ``cpu``. It may name a
+        device more than once (virtual shards on one device)."""
         self.config = config or Config()
         refuse_unported_keys(self.config)
+        # the multi-process rendezvous comes before any device touch
+        # (ref: TSDB.__init__ with tsd.mesh.coordinator)
+        distributed.initialize_from_config(self.config)
         self.device = resolve_device(self.config)
         self.dtype = resolve_dtype(self.config)
+        # the query mesh (ref: TSDB.query_mesh), built here so that a
+        # shape the device list cannot hold raises now: there is no
+        # single-device fallback
+        if mesh_devices is None:
+            mesh_devices = [self.device] if self.device.type == "cpu" \
+                else default_devices()
+        self._query_mesh = mesh_from_spec(
+            self.config.get_string("tsd.query.mesh", ""), mesh_devices)
         self.uids = UidRegistry(
             metric_width=self.config.get_int(
                 "tsd.storage.uid.width.metric"),
             tagk_width=self.config.get_int("tsd.storage.uid.width.tagk"),
-            tagv_width=self.config.get_int("tsd.storage.uid.width.tagv"))
+            tagv_width=self.config.get_int("tsd.storage.uid.width.tagv"),
+            random_metrics=self.config.get_bool(
+                "tsd.core.uid.random_metrics"))
         # raises when the native library does not build (no fallback)
         self.store = make_store(self.config)
         self.mode = self.config.get_string("tsd.mode")
@@ -351,6 +378,15 @@ class TSDB:
         raw = self.config.get_string("tsd.storage.wal.group_window_ms",
                                      "").strip()
         return int(raw) if raw else 0
+
+    @property
+    def query_mesh(self):
+        """The ('series', 'time') device mesh ``/api/query`` runs on,
+        from ``tsd.query.mesh`` (:mod:`opentsdb_tpu_torch.parallel`), or
+        None for the single-device pipeline (ref: ``TSDB.query_mesh``,
+        the mesh that replaces SaltScanner.java:70's 20-way scan
+        fan-out)."""
+        return self._query_mesh
 
     @property
     def device_grid_cache(self) -> DeviceGridCache | None:

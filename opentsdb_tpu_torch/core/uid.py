@@ -2,12 +2,17 @@
 
 (ref: ``src/uid/UniqueId.java``) Monotonically increasing ids per kind,
 width-limited, assignment-is-idempotent, on top of a process-local
-dictionary guarded by a lock. id 0 is never assigned.
+dictionary guarded by a lock. id 0 is never assigned. With
+``random_ids`` (``tsd.core.uid.random_metrics`` for metrics; ref:
+``RandomUniqueId.java``) a new name takes a random id instead, from an
+RNG seeded as the reference's, so the same names in the same order get
+the same ids.
 """
 
 from __future__ import annotations
 
 import bisect
+import random
 import threading
 from typing import Iterable
 
@@ -42,18 +47,24 @@ class FailedToAssignUniqueIdError(RuntimeError):
 class UniqueId:
     """One UID dictionary for one kind ('metric' | 'tagk' | 'tagv')."""
 
-    def __init__(self, kind: str, width: int = 3):
+    def __init__(self, kind: str, width: int = 3,
+                 random_ids: bool = False):
         if kind not in UID_KINDS:
             raise ValueError(f"unknown UID kind {kind!r}")
         if not 1 <= width <= 8:
             raise ValueError(f"invalid UID width {width}")
         self.kind = kind
         self.width = width
+        self.random_ids = random_ids
         self.max_possible_id = (1 << (8 * width)) - 1
         self._lock = threading.Lock()
         self._name_to_id: dict[str, int] = {}
         self._id_to_name: dict[int, str] = {}
         self._max_id = 0
+        # the reference's seed: the same names in the same order get
+        # the same random ids
+        self._rng = random.Random(0xC0FFEE)
+        self.random_id_collisions = 0
         # sorted names for suggest, rebuilt after an assignment
         self._sorted_names: list[str] | None = None
 
@@ -119,12 +130,25 @@ class UniqueId:
             self._sorted_names = None
 
     def _assign_locked(self, name: str) -> int:
-        if self._max_id >= self.max_possible_id:
-            raise FailedToAssignUniqueIdError(
-                f"all {self.max_possible_id} UIDs of kind "
-                f"{self.kind} are assigned")
-        self._max_id += 1
-        uid = self._max_id
+        if self.random_ids:
+            # ref: RandomUniqueId.java, a random id, retried on a
+            # collision
+            for _ in range(10):
+                cand = self._rng.randint(1, self.max_possible_id)
+                if cand not in self._id_to_name:
+                    uid = cand
+                    break
+                self.random_id_collisions += 1
+            else:
+                raise FailedToAssignUniqueIdError(
+                    f"could not find a free random UID for '{name}'")
+        else:
+            if self._max_id >= self.max_possible_id:
+                raise FailedToAssignUniqueIdError(
+                    f"all {self.max_possible_id} UIDs of kind "
+                    f"{self.kind} are assigned")
+            self._max_id += 1
+            uid = self._max_id
         self._sorted_names = None
         self._name_to_id[name] = uid
         self._id_to_name[uid] = name
@@ -150,6 +174,8 @@ class UniqueId:
         """(ref: UniqueId cache-size / ids-used / ids-available)"""
         with self._lock:
             size, used = len(self._name_to_id), self._max_id
+        collector.record("uid.random-id-collisions",
+                         self.random_id_collisions, kind=self.kind)
         collector.record("uid.cache-size", size, kind=self.kind)
         collector.record("uid.ids-used", used, kind=self.kind)
         collector.record("uid.ids-available",
@@ -164,8 +190,10 @@ class UidRegistry:
 
     def __init__(self, metric_width: int = const.METRICS_WIDTH,
                  tagk_width: int = const.TAG_NAME_WIDTH,
-                 tagv_width: int = const.TAG_VALUE_WIDTH):
-        self.metrics = UniqueId("metric", metric_width)
+                 tagv_width: int = const.TAG_VALUE_WIDTH,
+                 random_metrics: bool = False):
+        self.metrics = UniqueId("metric", metric_width,
+                                random_ids=random_metrics)
         self.tag_names = UniqueId("tagk", tagk_width)
         self.tag_values = UniqueId("tagv", tagv_width)
 

@@ -70,9 +70,19 @@ succeeded (sub-queries then run one after another). A pixel budget
 (``pixels``/``pixelFn``, ``ops/visual_downsample.py``) reduces each
 emitted row last, at result assembly.
 
-The reference engine's device mesh (``tsd.query.mesh``) and the
-lifecycle's stitched tier views are not ported yet: their keys raise
-NotImplementedError when a TSDB is built.
+With a query mesh (``tsd.query.mesh``, ``TSDB.query_mesh``; ref: the
+reference's mesh branches), each path runs its tail over the
+('series', 'time') mesh of :mod:`opentsdb_tpu_torch.parallel` instead
+of one device: the grid path on cut, cached grids
+(``run_sharded_grid``), the point path on cut point batches whose
+device copies the prepared-batch cache keeps (``run_sharded_device``),
+a long range in time blocks that keep the mesh
+(``execute_blocked_sharded``, its cell budget scaled by the mesh where
+the reduction's memory allows), and the avg path's tail after a divide
+on the host (``_mesh_execute``). A cache entry made with a mesh never
+serves a query without one, nor the other way round, and a mesh query
+never takes the host tail. The lifecycle's stitched tier views are not
+ported yet: their keys raise NotImplementedError when a TSDB is built.
 
 A sub-query with ``percentiles`` takes its own path (``_run_sub``'s
 first branch, as in the reference): the exact merge over the
@@ -99,12 +109,15 @@ from opentsdb_tpu_torch.ops.blocked import (DEFAULT_CELL_BUDGET,
                                             execute_blocked,
                                             pick_block_buckets)
 from opentsdb_tpu_torch.ops.pipeline import (PipelineSpec,
+                                             avg_divide_grid,
                                              execute_avg_divide,
                                              execute_grid, flatten_padded,
                                              grid_from_reduce,
                                              prepare_auto, prepare_flat,
                                              put_grid, run_prepared,
                                              upload)
+from opentsdb_tpu_torch.parallel import sharded_pipeline as sharded
+from opentsdb_tpu_torch.parallel.mesh import parse_mesh_spec
 from opentsdb_tpu_torch.query import filters as filters_mod
 from opentsdb_tpu_torch.query import result_cache as rc_mod
 from opentsdb_tpu_torch.query.device_cache import array_digest
@@ -138,12 +151,30 @@ _UNPORTED_SUBSYSTEM_KEYS = (
     ("tsd.core.meta.enable_tsuid_tracking", "false", "TSMeta tracking",
      _REST),
     ("tsd.core.tree.enable_processing", "false", "tree processing", _REST),
+    ("tsd.core.authentication.enable", "false", "authentication", _REST),
+)
+# plugin slots the port does not load (ref: TSDB.initialize_plugins,
+# the command line's tsd.startup and tsd.rpc, the HTTP router's
+# tsd.http.rpc): (key prefix, the slot). A slot is on when
+# <prefix>.enable is true and <prefix>.plugin names a class (ref:
+# utils/plugin.py::load_plugin_instances)
+_UNPORTED_PLUGIN_SLOTS = (
+    ("tsd.rtpublisher", "the realtime publisher"),
+    ("tsd.search", "the search plugin"),
+    ("tsd.core.storage_exception_handler",
+     "the storage exception handler"),
+    ("tsd.core.write_filter", "the write filters"),
+    ("tsd.uid.filter", "the UID filter"),
+    ("tsd.core.meta.cache", "the meta cache"),
+    ("tsd.startup", "the startup plugin"),
+    ("tsd.rpc", "the RPC plugins"),
+    ("tsd.http.rpc", "the HTTP RPC plugins"),
 )
 
 
 def refuse_unported_keys(config) -> None:
-    """Raise NotImplementedError when a key turns on a subsystem the
-    port lacks, rather than serve as if it were off."""
+    """Raise NotImplementedError when a key turns on a subsystem or a
+    plugin slot the port lacks, rather than serve as if it were off."""
     for key, default, what, item in _UNPORTED_SUBSYSTEM_KEYS:
         value = config.get_string(key, default).strip()
         on = config.get_bool(key) if default == "false" else value != default
@@ -151,15 +182,15 @@ def refuse_unported_keys(config) -> None:
             raise NotImplementedError(
                 f"{key}={value} turns on {what}, which is not ported yet "
                 f"(ROADMAP Queue 1, {item}); leave {key} at {default!r}")
-    spec = config.get_string("tsd.query.mesh", "")
+    for prefix, what in _UNPORTED_PLUGIN_SLOTS:
+        plugin = config.get_string(f"{prefix}.plugin", "").strip()
+        if config.get_bool(f"{prefix}.enable") and plugin:
+            raise NotImplementedError(
+                f"{prefix}.enable=true with {prefix}.plugin={plugin} loads "
+                f"{what}, which is not ported yet (ROADMAP Queue 1, "
+                f"{_REST}); leave {prefix}.enable at 'false'")
     # a typo raises ValueError here, as at the reference's boot
-    shape = parse_mesh_spec(spec)
-    if shape is None or (shape == "auto" and _visible_devices(config) <= 1):
-        return
-    raise NotImplementedError(
-        f"tsd.query.mesh={spec} turns on the query mesh, which is not "
-        f"ported yet (ROADMAP Queue 1, the mesh); leave tsd.query.mesh "
-        f"at '' (or 'auto' with one device)")
+    parse_mesh_spec(config.get_string("tsd.query.mesh", ""))
 
 
 def _rank_class_agg(agg_name: str) -> bool:
@@ -213,47 +244,6 @@ def host_tail_for_dims(config, s: int, b: int, num_groups: int,
         linear_agg=not _rank_class_agg(agg_name))
 
 
-def _visible_devices(config) -> int:
-    """Devices a query mesh could span: the cards, or 1 on the CPU."""
-    if config.get_string("tsd.torch.device").startswith("cpu"):
-        return 1
-    return torch.cuda.device_count()
-
-
-def parse_mesh_spec(spec: str) -> tuple[int, int] | str | None:
-    """Validate a ``tsd.query.mesh`` value without touching devices
-    (ref: ``parallel/mesh.py::parse_mesh_spec``): ``(n_series,
-    n_time)``, ``"auto"``, or None for off; ValueError for a typo."""
-    spec = (spec or "").strip().lower()
-    if not spec:
-        return None
-    if spec == "auto":
-        return "auto"
-    n_series = n_time = 1
-    for part in spec.split(","):
-        axis, _, n = part.partition(":")
-        axis = axis.strip()
-        if axis not in ("series", "time"):
-            raise ValueError(
-                f"unknown mesh axis {axis!r} in tsd.query.mesh={spec!r} "
-                "(expected 'auto' or 'series:N[,time:M]')")
-        try:
-            count = int(n)
-        except ValueError:
-            raise ValueError(
-                f"bad device count {n!r} for axis {axis!r} in "
-                f"tsd.query.mesh={spec!r}") from None
-        if count < 1:
-            raise ValueError(
-                f"axis {axis!r} needs >= 1 device in "
-                f"tsd.query.mesh={spec!r}")
-        if axis == "series":
-            n_series = count
-        else:
-            n_time = count
-    return n_series, n_time
-
-
 # downsample functions the storage-side reduction serves: linear bucket
 # statistics (sum/count/min/max; avg is sum over count)
 _GRID_FNS = frozenset(("sum", "zimsum", "pfsum", "count", "min",
@@ -268,19 +258,27 @@ _PADDED_ABS_MAX_CELLS = 500_000_000
 
 def grid_cache_key(store, sids: np.ndarray, start_ms: int, end_ms: int,
                    bucket_ts: np.ndarray, interval_ms: int,
-                   fn: str) -> tuple:
+                   fn: str, mesh=None) -> tuple:
     """Device-cache key of one storage-side reduction (ref:
     ``_grid_pipeline``'s ``ckey``). The group-by is not part of it:
-    queries over the same series and window share one grid."""
+    queries over the same series and window share one grid. The mesh
+    is: its entry holds the grid cut over that mesh."""
     return ("grid", store.instance_id,
             array_digest(np.ascontiguousarray(sids)), start_ms, end_ms,
-            int(bucket_ts[0]), interval_ms, len(bucket_ts), fn)
+            int(bucket_ts[0]), interval_ms, len(bucket_ts), fn, mesh)
 
 
-def _agg_class(agg, num_groups: int) -> str | tuple:
-    """The linear/rank class in the prepared-batch key (ref: the
-    single-device ``acls``): a rank-class aggregator's group stage is a
-    sort, and two of its group counts must not share an entry."""
+def _agg_class(agg, num_groups: int, mesh=None) -> str | tuple:
+    """The aggregator's class in the prepared-batch key (ref: ``acls``).
+    On one device, the linear/rank class: a rank-class aggregator's
+    group stage is a sort, and two of its group counts must not share
+    an entry. Under a mesh, the memory class of its cross-shard
+    reduction (``agg_mesh_class``), with the group count for the
+    histogram class: the blocked verdict scales the budget by it, and
+    a hit must imply the cold path's (unblocked) branch."""
+    if mesh is not None:
+        cls = sharded.agg_mesh_class(agg.name)
+        return ("pct", num_groups) if cls == "pct" else cls
     if agg.name == "median" or agg.percentile is not None:
         return ("rank", num_groups)
     return "lin"
@@ -876,6 +874,7 @@ class QueryEngine:
         # --- prepared-batch caches: a warm repeat of the same (store,
         # series, window, downsample) finds its batch on the device, or
         # in the host-RAM pool when its tail was host-placed
+        mesh = self.tsdb.query_mesh
         cache = self.tsdb.device_grid_cache
         pkey = pver = None
         if cache is not None:
@@ -885,8 +884,8 @@ class QueryEngine:
                     getattr(sub.ds_spec, "timezone", None),
                     # the query-level useCalendar aligns the same
                     # downsample string to other buckets
-                    getattr(sub.ds_spec, "use_calendar", False),
-                    _agg_class(sub.agg, num_groups))
+                    getattr(sub.ds_spec, "use_calendar", False), mesh,
+                    _agg_class(sub.agg, num_groups, mesh))
             pver = store.version
             # an open breaker skips the device pool (a hit would run on
             # the failing device); the host pool's hits stay valid
@@ -897,9 +896,9 @@ class QueryEngine:
                 if hcache is not None:
                     hit = hcache.get(pkey, pver)
             if hit is not None:
-                return self._run_prep_hit(hit, store, tsq, sub, metric_id,
-                                          sids, tag_mat, group_ids,
-                                          num_groups, emit_raw)
+                return self._run_prep_hit(hit, mesh, store, tsq, sub,
+                                          metric_id, sids, tag_mat,
+                                          group_ids, num_groups, emit_raw)
 
         # --- materialize + time grid
         t1 = time.monotonic()
@@ -916,27 +915,56 @@ class QueryEngine:
         grid = self._time_grid(sub, tsq, points, ds_function)
         b = len(grid.bucket_ts)
         # the blocked verdict comes first: an over-budget range never
-        # lands on the host (ref)
-        blocked = not emit_raw and len(sids) * b > self._budget
-        host_dev = None if blocked else self._tail_device(
-            len(sids), b, num_groups, emit_raw, sub.agg.name)
+        # lands on the host (ref). A mesh raises the budget only where
+        # every device truly holds S_loc x B_loc cells (mesh_scale)
+        mesh_scale = mesh.size if mesh is not None and \
+            sharded.mesh_memory_safe(sub.agg.name, num_groups, b) else 1
+        blocked = not emit_raw and len(sids) * b > self._budget * mesh_scale
+        # a mesh query never takes the host tail (ref)
+        host_dev = None if blocked or mesh is not None else \
+            self._tail_device(len(sids), b, num_groups, emit_raw,
+                              sub.agg.name)
         spec = self._point_spec(sub, len(sids), num_groups, emit_raw,
                                 grid.bucket_ts, grid.ds_function,
                                 grid.fill_policy, grid.fill_value,
                                 grid.complete, host=host_dev is not None)
+        meta = {"bucket_ts": grid.bucket_ts,
+                "ds_function": grid.ds_function,
+                "fill_policy": grid.fill_policy,
+                "fill_value": grid.fill_value,
+                "complete": grid.complete, "num_points": num_points,
+                "host": host_dev is not None}
         t2 = time.monotonic()
         if blocked:
             # a long range streams in time blocks (ref: the use_blocked
-            # verdict): no prepared batch is made or cached
+            # verdict), over the mesh when there is one: no prepared
+            # batch is made or cached
             result, emit = self._run_device(lambda: self._run_blocked(
-                grid, group_ids, spec, sub.rate_options))
+                grid, group_ids, spec, sub.rate_options, mesh=mesh,
+                budget=self._budget * mesh_scale))
+        elif mesh is not None:
+            # the point batch cut over the ('series', 'time') mesh (ref:
+            # the salt-scanner fan-out and merge as collectives); the
+            # cut device arrays but the per-query group ids are cached,
+            # so a warm repeat skips the materialize and the upload
+            def mesh_compute():
+                sbatch = sharded.prepare_sharded_batch(
+                    *self._flat_points(grid), grid.bucket_ts, group_ids,
+                    spec.num_series, spec.num_groups, mesh.shape["series"],
+                    mesh.shape["time"])
+                margs = sharded.sharded_device_args(mesh, sbatch,
+                                                    self.tsdb.dtype)
+                if cache is not None and pkey is not None:
+                    cache.put(pkey, pver, margs[:4], {
+                        **meta, "s_loc": sbatch.s_loc,
+                        "b_loc": sbatch.b_loc,
+                        "s_pad": sbatch.s_loc * mesh.shape["series"]})
+                return sharded.run_sharded_device(
+                    mesh, spec, margs, sbatch.s_loc, sbatch.b_loc,
+                    num_groups, sub.rate_options)
+
+            result, emit = self._run_device(mesh_compute)
         else:
-            meta = {"bucket_ts": grid.bucket_ts,
-                    "ds_function": grid.ds_function,
-                    "fill_policy": grid.fill_policy,
-                    "fill_value": grid.fill_value,
-                    "complete": grid.complete, "num_points": num_points,
-                    "host": host_dev is not None}
             # a host-placed batch goes to the host-RAM pool, never the
             # device cache
             pool = self.tsdb.host_prep_cache if host_dev is not None \
@@ -1032,23 +1060,36 @@ class QueryEngine:
             complete=complete
             and not (sub.rate and sub.rate_options.drop_resets))
 
-    def _run_blocked(self, grid: PointGrid, group_ids: np.ndarray,
-                     spec: PipelineSpec, rate_options, stages=None):
-        """Stream the points of ``grid`` in time blocks of at most the
-        cell budget (``ops.blocked.execute_blocked``) -> host (result,
-        emit). A padded batch is flattened first."""
+    @staticmethod
+    def _flat_points(grid: PointGrid
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The points of ``grid`` as a flat (values, series_idx,
+        bucket_idx) batch in (series, time) order; a padded batch is
+        flattened."""
         if grid.padded is not None:
-            values, series_idx, bucket_idx = flatten_padded(
-                grid.padded.values2d, grid.bucket_idx, grid.padded.counts)
-        else:
-            values, series_idx, bucket_idx = (
-                grid.batch.values, grid.batch.series_idx, grid.bucket_idx)
+            return flatten_padded(grid.padded.values2d, grid.bucket_idx,
+                                  grid.padded.counts)
+        return grid.batch.values, grid.batch.series_idx, grid.bucket_idx
+
+    def _run_blocked(self, grid: PointGrid, group_ids: np.ndarray,
+                     spec: PipelineSpec, rate_options, stages=None,
+                     mesh=None, budget: int | None = None):
+        """Stream the points of ``grid`` in time blocks of at most
+        ``budget`` cells (by default the cell budget) -> host (result,
+        emit): over ``mesh`` when given
+        (``parallel.sharded_pipeline.execute_blocked_sharded``), else on
+        the TSDB's device (``ops.blocked.execute_blocked``)."""
+        bb = pick_block_buckets(spec.num_series, spec.num_buckets,
+                                budget or self._budget)
+        if mesh is not None:
+            return sharded.execute_blocked_sharded(
+                mesh, *self._flat_points(grid), grid.bucket_ts, group_ids,
+                spec, rate_options, dtype=self.tsdb.dtype,
+                block_buckets=bb)
         return execute_blocked(
-            values, series_idx, bucket_idx, grid.bucket_ts, group_ids,
+            *self._flat_points(grid), grid.bucket_ts, group_ids,
             spec, rate_options, dtype=self.tsdb.dtype,
-            device=self.tsdb.device, stages=stages,
-            block_buckets=pick_block_buckets(
-                spec.num_series, spec.num_buckets, self._budget))
+            device=self.tsdb.device, stages=stages, block_buckets=bb)
 
     def _prepare_points(self, grid: PointGrid, spec: PipelineSpec,
                         device=None):
@@ -1064,16 +1105,17 @@ class QueryEngine:
                             grid.bucket_idx, spec, dtype=dtype,
                             device=dev)
 
-    def _run_prep_hit(self, hit, store, tsq: TSQuery, sub: TSSubQuery,
-                      metric_id: int, sids: np.ndarray,
+    def _run_prep_hit(self, hit, mesh, store, tsq: TSQuery,
+                      sub: TSSubQuery, metric_id: int, sids: np.ndarray,
                       tag_mat: "TagMatrix", group_ids: np.ndarray,
                       num_groups: int, emit_raw: bool
                       ) -> list[QueryResult]:
         """Serve one sub-query from a warm prepared batch of either pool
-        (ref: ``_run_prep_hit``). A failure raises: the reference
-        re-runs a failed warm hit cold, which is a fallback the port
-        does not have."""
-        (prep,), meta = hit
+        (ref: ``_run_prep_hit``); under ``mesh`` the entry is the cut
+        point batch, and only the per-query group ids upload. A failure
+        raises: the reference re-runs a failed warm hit cold, which is a
+        fallback the port does not have."""
+        cached, meta = hit
         bucket_ts = meta["bucket_ts"]
         num_points = meta["num_points"]
         self.tsdb.query_limits.check(self._metric_name(sub, metric_id),
@@ -1083,10 +1125,21 @@ class QueryEngine:
                                 bucket_ts, meta["ds_function"],
                                 meta["fill_policy"], meta["fill_value"],
                                 meta["complete"], host=meta["host"])
-        result, emit = self._run_device(
-            lambda: _host(run_prepared(prep, bucket_ts, group_ids, spec,
-                                       sub.rate_options)),
-            on_device=not spec.host)
+        if mesh is not None:
+            def mesh_compute():
+                gids = sharded.sharded_grid_gids(mesh, group_ids,
+                                                 meta["s_pad"], num_groups)
+                return sharded.run_sharded_device(
+                    mesh, spec, tuple(cached) + (gids,), meta["s_loc"],
+                    meta["b_loc"], num_groups, sub.rate_options)
+
+            result, emit = self._run_device(mesh_compute)
+        else:
+            (prep,) = cached
+            result, emit = self._run_device(
+                lambda: _host(run_prepared(prep, bucket_ts, group_ids, spec,
+                                           sub.rate_options)),
+                on_device=not spec.host)
         # stats and the delete only after the dispatch succeeded
         stats = self._stats
         if stats:
@@ -1118,10 +1171,11 @@ class QueryEngine:
         function (or of ``ds_function``, a rollup tier's), and only the
         fill/rate/interpolate/aggregate tail runs, on the host CPU when
         the grid is small (:meth:`_tail_device`), else on the device,
-        where the grid is uploaded once and cached. Returns None when
-        the query is not eligible or its grid exceeds the cell budget
-        (the point path takes it), else (result, emit, bucket_ts) with
-        result None when the window holds no point."""
+        where the grid is uploaded once and cached; under a mesh, over
+        the mesh on the grid cut and cached there, never on the host.
+        Returns None when the query is not eligible or its grid exceeds
+        the cell budget (the point path takes it), else (result, emit,
+        bucket_ts) with result None when the window holds no point."""
         if not self._grid_eligible(sub):
             return None
         ds_spec = sub.ds_spec
@@ -1131,20 +1185,21 @@ class QueryEngine:
         if len(sids) * b > self._budget:
             return None
         fn = ds_function or ds_spec.function
-        host_dev = self._tail_device(len(sids), b, num_groups, emit_raw,
-                                     sub.agg.name)
+        mesh = self.tsdb.query_mesh
+        host_dev = None if mesh is not None else self._tail_device(
+            len(sids), b, num_groups, emit_raw, sub.agg.name)
         # a host tail skips the device cache: its store re-scan is
         # cheap, and host entries must not evict the card's grids
         cache = self.tsdb.device_grid_cache if host_dev is None else None
         hit = None
         if cache is not None:
             ckey = grid_cache_key(store, sids, tsq.start_ms, tsq.end_ms,
-                                  bucket_ts, ds_spec.interval_ms, fn)
+                                  bucket_ts, ds_spec.interval_ms, fn, mesh)
             cver = store.version
             hit = cache.get(ckey, cver)
         t1 = time.monotonic()
         if hit is not None:
-            (grid, has_data), meta = hit
+            cached, meta = hit
             num_points = meta["num_points"]
         else:
             sums, cnts, mins, maxs = store.bucket_reduce(
@@ -1172,7 +1227,7 @@ class QueryEngine:
 
         def compute():
             if hit is not None:
-                dgrid, dhas = grid, has_data
+                dgrid, dhas = cached
             else:
                 dgrid, dhas = put_grid(
                     *grid_from_reduce(fn, sums, cnts, mins, maxs),
@@ -1182,6 +1237,31 @@ class QueryEngine:
                               {"num_points": num_points})
             return _host(execute_grid(dgrid, dhas, bucket_ts, group_ids,
                                       spec, sub.rate_options))
+
+        def mesh_compute():
+            # the grid tail straight on the mesh (no flatten back to
+            # points); the cut grids are cached, the group ids are not
+            if hit is not None:
+                data_args = cached
+                s_loc, b_loc, s_pad = (meta["s_loc"], meta["b_loc"],
+                                       meta["s_pad"])
+            else:
+                data_args, s_loc, b_loc, s_pad = \
+                    sharded.prepare_sharded_grid(
+                        mesh, *grid_from_reduce(fn, sums, cnts, mins, maxs),
+                        bucket_ts, self.tsdb.dtype)
+                if cache is not None:
+                    cache.put(ckey, cver, data_args,
+                              {"num_points": num_points, "s_loc": s_loc,
+                               "b_loc": b_loc, "s_pad": s_pad})
+            gids = sharded.sharded_grid_gids(mesh, group_ids, s_pad,
+                                             num_groups)
+            return sharded.run_sharded_grid(
+                mesh, spec, tuple(data_args) + (gids,), s_loc, b_loc,
+                num_groups, sub.rate_options)
+
+        if mesh is not None:
+            compute = mesh_compute
 
         result, emit = self._run_device(compute,
                                         on_device=host_dev is None)
@@ -1203,11 +1283,13 @@ class QueryEngine:
         the store; its divide and tail run on the host CPU when the grid
         is small (:meth:`_tail_device`), else on the device, which keeps
         both grids in its cache. Any other downsample materializes the
-        tiers' points and buckets them on the device. Returns
-        (bucket_ts, result, emit), or None when the window holds no
-        point."""
+        tiers' points and buckets them on the device. Under a mesh the
+        divide runs on the host and the tail over the mesh, uncached.
+        Returns (bucket_ts, result, emit), or None when the window holds
+        no point."""
         t1 = time.monotonic()
         dtype = self.tsdb.dtype
+        mesh = self.tsdb.query_mesh
         start, end = tsq.start_ms, tsq.end_ms
         ds = sub.ds_spec
         host_dev = None
@@ -1229,11 +1311,13 @@ class QueryEngine:
             bucket_ts = ds_mod.fixed_bucket_edges(start, end, ds.interval_ms)
             s, b = len(sids), len(bucket_ts)
             t0_ms = int(bucket_ts[0])
-            host_dev = self._tail_device(s, b, num_groups, emit_raw,
-                                         sub.agg.name)
-            # a host tail skips the device cache (see _grid_pipeline)
-            cache = self.tsdb.device_grid_cache if host_dev is None \
-                else None
+            # a mesh query never takes the host tail (ref)
+            host_dev = None if mesh is not None else self._tail_device(
+                s, b, num_groups, emit_raw, sub.agg.name)
+            # a host tail skips the device cache (see _grid_pipeline),
+            # and so does the mesh's host-side divide
+            cache = self.tsdb.device_grid_cache \
+                if mesh is None and host_dev is None else None
             hit = None
             if cache is not None:
                 ckey = ("avgdiv", sum_store.instance_id,
@@ -1284,19 +1368,38 @@ class QueryEngine:
             rate_drop_resets=sub.rate_options.drop_resets,
             emit_raw=emit_raw, host=host_dev is not None)
 
+        def tier_grids():
+            """The two tiers' points bucketed on the device (a
+            downsample the store does not reduce)."""
+            def grid_of(values, series_idx, bucket_idx):
+                return ds_mod.bucketize(
+                    upload(values, dtype, dev),
+                    torch.from_numpy(series_idx.astype(np.int32)).to(dev),
+                    torch.from_numpy(bucket_idx.astype(np.int32)).to(dev),
+                    s, b, "sum")[0]
+
+            return (grid_of(batch_s.values, batch_s.series_idx, bidx_s),
+                    grid_of(batch_c.values, present[batch_c.series_idx],
+                            bidx_c))
+
+        def mesh_compute():
+            # the divide on the host, then the tail over the mesh with
+            # one point per present cell (bucketizing a one-point cell
+            # gives the cell back exactly)
+            if fixed:
+                gs, gc = torch.from_numpy(sum_s), torch.from_numpy(sum_c)
+            else:
+                gs, gc = (g.cpu() for g in tier_grids())
+            avg, valid = avg_divide_grid(gs, gc)
+            sidx2, bidx2 = np.nonzero(valid.numpy())
+            return self._mesh_execute(
+                mesh, spec, avg.numpy()[sidx2, bidx2],
+                sidx2.astype(np.int32), bidx2.astype(np.int32), bucket_ts,
+                group_ids, sub.rate_options)
+
         def compute():
             if not fixed:
-                def grid_of(values, series_idx, bucket_idx):
-                    return ds_mod.bucketize(
-                        upload(values, dtype, dev),
-                        torch.from_numpy(series_idx.astype(np.int32))
-                        .to(dev),
-                        torch.from_numpy(bucket_idx.astype(np.int32))
-                        .to(dev), s, b, "sum")[0]
-
-                dgs = grid_of(batch_s.values, batch_s.series_idx, bidx_s)
-                dgc = grid_of(batch_c.values, present[batch_c.series_idx],
-                              bidx_c)
+                dgs, dgc = tier_grids()
             elif hit is not None:
                 dgs, dgc = gs, gc
             else:
@@ -1308,13 +1411,29 @@ class QueryEngine:
             return _host(execute_avg_divide(dgs, dgc, bucket_ts, group_ids,
                                             spec, sub.rate_options))
 
-        result, emit = self._run_device(compute,
-                                        on_device=host_dev is None)
+        result, emit = self._run_device(
+            compute if mesh is None else mesh_compute,
+            on_device=host_dev is None)
         if self._stats:
             self._stats.add_stat(QueryStat.COMPUTE_TIME,
                                  (time.monotonic() - t2) * 1e3)
         self._delete_avg(tsq, sum_store, cnt_store, sids, align)
         return bucket_ts, result, emit
+
+    def _mesh_execute(self, mesh, spec: PipelineSpec, values: np.ndarray,
+                      series_idx: np.ndarray, bucket_idx: np.ndarray,
+                      bucket_ts: np.ndarray, group_ids: np.ndarray,
+                      rate_options):
+        """Run one sub-query's compute over the mesh (ref:
+        ``_mesh_execute``; the series axis as the salt buckets,
+        SaltScanner.java:70, the time axis as long-range blocking) ->
+        host (result, emit)."""
+        batch = sharded.prepare_sharded_batch(
+            values, series_idx, bucket_idx, bucket_ts, group_ids,
+            spec.num_series, spec.num_groups, mesh.shape["series"],
+            mesh.shape["time"])
+        return sharded.run_sharded(mesh, spec, batch, rate_options,
+                                   dtype=self.tsdb.dtype)
 
     @staticmethod
     def _delete_avg(tsq: TSQuery, sum_store, cnt_store, sids: np.ndarray,

@@ -24,6 +24,13 @@ thread started by the TSD server (``tsd.tpu.warmup``, true by default):
    linear class, where the sum and count tiers of a rollup interval
    are resident.
 
+With a query mesh (``tsd.query.mesh``), step 2 runs each class's
+aggregator specs through the mesh's grid step instead
+(``parallel.sharded_pipeline.run_sharded_grid`` over a cut grid of
+zeros), as the reference warms its sharded programs; a mesh query never
+takes the host tail, and the reference warms neither the ``none`` class
+nor the avg divide there, so neither runs.
+
 (The reference also compiles its histogram percentile programs; the
 port's histogram path runs PyTorch functions with no compile to warm,
 so it runs none of them here.)
@@ -188,12 +195,16 @@ def run_warmup(tsdb) -> int:
             return True
         return False
 
+    mesh = tsdb.query_mesh
     for s, b, g in warmup_shapes(tsdb):
         if halt():
             return ran
         grids = {}
         bts = np.arange(b, dtype=np.int64) * 60_000
         gids = np.zeros(s, dtype=np.int32)
+        if mesh is not None:
+            ran += _warm_mesh_class(tsdb, mesh, s, b, g, pct, halt)
+            continue
         specs = list(_agg_specs(tsdb, s, b, g, pct))
         for spec, where in specs:
             if halt():
@@ -214,6 +225,34 @@ def run_warmup(tsdb) -> int:
                 execute_avg_divide(grid, grid, bts, gids, spec)[0].cpu()
                 ran += 1
     log.info("warmup: %d classes in %.1fs", ran, time.monotonic() - t0)
+    return ran
+
+
+def _warm_mesh_class(tsdb, mesh, s: int, b: int, g: int, pct: bool,
+                     halt) -> int:
+    """One (S, B, G) class through the mesh's grid step: one cut grid
+    of zeros, shared by the aggregator specs ({sum, avg} x {plain,
+    rate}, and p95/p99 with ``pct``), none placed on the host. Returns
+    the number of specs run."""
+    from opentsdb_tpu_torch.ops.pipeline import PipelineSpec
+    from opentsdb_tpu_torch.parallel.sharded_pipeline import (
+        prepare_sharded_grid, run_sharded_grid, sharded_grid_gids)
+    args, s_loc, b_loc, s_pad = prepare_sharded_grid(
+        mesh, np.zeros((s, b)), np.zeros((s, b), dtype=bool),
+        np.arange(b, dtype=np.int64) * 60_000, tsdb.dtype)
+    dgids = sharded_grid_gids(mesh, np.zeros(s, dtype=np.int32), s_pad, g)
+    aggs = [(agg, rate) for agg in ("sum", "avg") for rate in (False, True)]
+    if pct:
+        aggs += [("p95", False), ("p99", False)]
+    ran = 0
+    for agg, rate in aggs:
+        if halt():
+            break
+        spec = PipelineSpec(num_series=s, num_buckets=b, num_groups=g,
+                            ds_function="avg", agg_name=agg, rate=rate)
+        # host arrays: the copy waits for the device, as a query's does
+        run_sharded_grid(mesh, spec, (*args, dgids), s_loc, b_loc, g)
+        ran += 1
     return ran
 
 

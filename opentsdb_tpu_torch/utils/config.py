@@ -155,10 +155,13 @@ _DEFAULTS: dict[str, str] = {
     #   .heartbeat_s (5), .publish_min_interval_ms (200),
     #   .sse.max_lifetime_s (0: unbounded),
     #   .breaker.failure_threshold (3), .breaker.reset_timeout_ms
-    #   (30000); tsd.query.mesh ("": off; only "" and "auto" on one
-    #   device are accepted until the mesh is ported); the server warmup
-    #   (tsd/warmup.py) tsd.tpu.warmup (true), .buckets (""), .budget_s
-    #   (600), .percentiles (true)
+    #   (30000); the server warmup (tsd/warmup.py) tsd.tpu.warmup
+    #   (true), .buckets (""), .budget_s (600), .percentiles (true);
+    #   the query mesh (parallel/): tsd.query.mesh ("": off; "auto" or
+    #   "series:N[,time:M]" over TSDB(mesh_devices=...)) and the
+    #   multi-process rendezvous (parallel/distributed.py):
+    #   tsd.mesh.coordinator ("": one process; host:port of process 0),
+    #   .num_processes (0), .process_id (-1), .init_timeout (120 s)
     "tsd.streaming.resume_events": "64",
     "tsd.streaming.workers.count": "2",
     "tsd.streaming.workers.max_pending_points": "262144",

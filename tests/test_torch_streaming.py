@@ -26,6 +26,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import torch_pair  # noqa: F401 - the JAX package's private native build
 from opentsdb_tpu import TSDB as JTSDB
@@ -1237,21 +1238,28 @@ def test_breaker_state_machine_matches_the_reference():
 # -- tsd.query.mesh is checked at construction --------------------------------
 
 @pytest.mark.parametrize("spec,outcome", [
-    ("", None), ("auto", None), ("series:2", NotImplementedError),
-    ("series:1,time:2", NotImplementedError), ("seires:2", ValueError)])
+    ("", None), ("auto", None), ("series:2", "past the devices"),
+    ("series:1,time:2", "past the devices"), ("seires:2", ValueError)])
 def test_query_mesh_key_is_checked(spec, outcome):
     """The reference parses ``tsd.query.mesh`` at boot (a typo raises
-    ValueError); the port does the same, and refuses every value that
-    turns a mesh on until the mesh is ported. ``""`` and ``"auto"``
-    on one device leave it off."""
+    ValueError); the port does the same. ``""`` and ``"auto"`` on one
+    device leave the mesh off. A shape past the device list (here the
+    one CPU) raises ValueError in the port, where the reference degrades
+    to one device (ROADMAP Queue 3 item 16); the same shape over a
+    device list that holds it builds the mesh."""
     cfg = Config(**{**T_KEYS, "tsd.query.mesh": spec})
     if outcome is None:
-        TSDB(cfg).shutdown()
+        t = TSDB(cfg)
+        assert t.query_mesh is None
+        t.shutdown()
         return
-    with pytest.raises(outcome) as exc:
+    with pytest.raises(ValueError) as exc:
         TSDB(cfg)
-    if outcome is NotImplementedError:
-        assert "ROADMAP Queue 1, the mesh" in str(exc.value)
+    if outcome == "past the devices":
+        assert "1 available" in str(exc.value)
+        t = TSDB(cfg, mesh_devices=[torch.device("cpu")] * 2)
+        assert t.query_mesh.size == 2
+        t.shutdown()
     else:
         with pytest.raises(ValueError):
             JTSDB(JConfig(**{**J_KEYS, "tsd.query.mesh": spec}))
