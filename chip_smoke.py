@@ -52,8 +52,10 @@
    no downsample (a union grid of up to 600 timestamps, flat). Each
    answer is checked against the same query through the port on the
    CPU in float64 over a tenth of its groups (each with all of its
-   series), two cold calls and the warm calls (prepared-batch hits)
-   must give the same bits, and neither kernel may launch; prints
+   series), two cold calls and the warm calls (prepared-batch hits;
+   2 with each stage timed twice, ``IRREGULAR_REPEATS``, CUT from 3
+   for the run's time) must give the same bits, and neither kernel may
+   launch; prints
    the stage p50s, the peak device memory and, with ``--profile``, the
    device's idle share. The union grid's S x B exceeds the cell budget
    at full width: it streams in time blocks (no prepared batch, one
@@ -263,11 +265,40 @@
    emit masks.
    Neither kernel runs inside a shard, as in the reference. Prints
    ``phase 16: N s``;
-17. prints the run's wall time, the ``histogram``, ``rollup``,
-   ``streaming``, ``surfaces`` and ``mesh`` lines, one JSON line
-   describing each kernel (its launches are those of phases 3, 5, 8,
-   6, 15, 9, 10, 13 and 14; phases 11, 12 and 16 launch neither on
-   their paths), the card line and, last,
+17. the operator surface (run after phase 16; (a) and (b) on phase 3's
+   TSDB before it goes): (a) 100 annotations on ``dc0`` series and 2
+   global ones by ``POST /api/annotation/bulk``, then
+   ``sum:5m-avg:rate`` by ``dc`` over phase 15's 11 buckets on the
+   point path, cold, with the notes and with ``noAnnotations``
+   (``OPS_COLD`` calls each, one K1 launch a call): values and emit
+   masks bit-equal, ``dc0`` carrying its members' notes in member order
+   (each the store's ``range``), every group the 2 global ones; (b)
+   p50 of 5 of ``/api/query/last`` over the 10k ``dc0`` series (each
+   the store's last point), ``/api/search/lookup`` and
+   ``/api/uid/assign`` of 100 names; (c) on fresh TSDBs, the write path
+   with every hook on (realtime TSMeta and UIDMeta tracking, a
+   two-level tree filed in realtime, a counting realtime publisher, a
+   write filter, a UID whitelist: ``chip_smoke.CountingPublisher`` and
+   ``SkipFilter`` by dotted path) against the same writes with none:
+   100k series x 1 point by ``add_series_points`` (per-series hooks)
+   and 1k of them x 60 points by one telnet burst (``import_buffer``,
+   each line one ``add_point`` with the hooks on), points/s of each; 100k TSMetas, 100k tree leaves
+   and every point published; (d) a running ``TSDServer`` with
+   ``tsd.core.authentication.enable``: 401 without credentials, 403 for
+   a reader's ``/api/put``, 200 for a writer's, telnet ``auth_fail`` and
+   ``auth_success``, and the p50 of 20 authenticated ``/api/query``
+   calls against the same on a server without authentication; (e) a
+   ``data_dir`` on the memory store and one on the native store: 5k
+   series of ints and 5k of floats, 101 notes, their TSMetas and a
+   tree; a flush; as many points and notes more; the log closed without
+   a flush: a reopened TSDB holds every point, its integer flag and
+   every note, and the snapshot's meta documents and tree. Prints each
+   stage and ``phase 17: N s``;
+18. prints the run's wall time, the ``histogram``, ``rollup``,
+   ``streaming``, ``surfaces``, ``mesh`` and ``ops`` lines, one JSON
+   line describing each kernel (its launches are those of phases 3, 5,
+   8, 6, 15, 17, 9, 10, 13 and 14; phases 11, 12 and 16 launch neither
+   on their paths), the card line and, last,
    ``{"ok": true, "device": {...}}``. Each phase's header says how far
    into the run it starts.
 
@@ -288,6 +319,7 @@ or outside a checkout of the repository, it exits 2.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -328,7 +360,10 @@ IRREGULAR_QUERIES = (
     ("avg:15mc-max:sys.cpu.user{dc=*}", "America/New_York", "padded"),
     ("sum:sys.cpu.user{dc=*}", None, "flat"))
 JITTER_S = 10              # phase 7: whole seconds of jitter, 0-9
-IRREGULAR_REPEATS = 3      # phase 7: warm hits and repeats per stage
+# phase 7: warm hits and repeats per stage, CUT from 3: a whole run
+# took 906.6 s on one H100 (phase 7 127.2 s), and a repeat of its three
+# unblocked queries' warm call and stages costs 3.1-4.5 s each
+IRREGULAR_REPEATS = 2
 DROP = 0.02                # phase 7: share of points dropped
 CPU64_SHARE = 10           # phases 7, 11: 1 in 10 groups held to CPU float64
 FANOUT_REPEATS = 3         # repeats of each point-path fan-out reading
@@ -1319,7 +1354,7 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
 
         # (e) an unported endpoint and a bad aggregator
         conn = connect()
-        status, body, _ = _http(conn, "GET", "/api/search/lookup?m=x")
+        status, body, _ = _http(conn, "GET", "/api/health")
         check(status == 501 and b"not ported yet" in body,
               f"an unported endpoint answered {status}")
         status, body, _ = _http(conn, "GET", get_path(
@@ -1327,7 +1362,7 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
         check(status == 400 and b"No such aggregator" in body,
               f"a bad aggregator answered {status}")
         conn.close()
-        print("  (e) /api/search/lookup: 501 (not ported yet); a bad "
+        print("  (e) /api/health: 501 (not ported yet); a bad "
               "aggregator: 400")
 
         # (c) writes: /api/put over kept-alive connections, then telnet
@@ -4884,6 +4919,496 @@ def phase_mesh(torch, tsdb, values, profile: bool = False) -> dict:
     return out
 
 
+# phase 17: the operator surface on the card (authentication, the plugin
+# slots, annotations, meta, search and trees)
+OPS_NOTES = 100            # (a): notes on {dc=dc0} series, beside 2 global
+OPS_COLD = 2               # (a): cold calls per p50, each 2.2-2.7 s at
+#                            1M on one H100 (phase 17's budget is 45 s)
+OPS_READS = 5              # (b): calls per p50
+OPS_ASSIGN = 100           # (b): names per /api/uid/assign call
+OPS_HOOK_SERIES = 100_000  # (c): series x 1 point by add_series_points
+OPS_BURST_SERIES = 1_000   # (c): series x OPS_BURST_POINTS by telnet
+#                            (with hooks on each line is one add_point,
+#                            ~20k lines/s on the host: 10k series would
+#                            take ~30 s of the phase's 45)
+OPS_BURST_POINTS = 60
+OPS_AUTH_CALLS = 20        # (d): calls per p50
+OPS_DUR_SERIES = 5_000     # (e): series per metric, per backend (5k
+#                            take about 2.5 s a backend on one H100)
+OPS_DUR_POINTS = 10
+
+
+class CountingPublisher:
+    """Phase 17 (c)'s realtime publisher (``tsd.rtpublisher.plugin =
+    chip_smoke.CountingPublisher``): counts what it is handed."""
+
+    def initialize(self, tsdb) -> None:
+        self.points = 0
+
+    def publish_data_point(self, metric, timestamp, value, tags,
+                           tsuid) -> None:
+        self.points += 1
+
+    def shutdown(self) -> None:
+        pass
+
+
+class SkipFilter:
+    """Phase 17 (c)'s write filter (``tsd.core.write_filter.plugin =
+    chip_smoke.SkipFilter``): turns away metrics under ``blocked.``."""
+
+    def allow_data_point(self, metric, timestamp, value, tags) -> bool:
+        return not metric.startswith("blocked.")
+
+
+def ops_keys(hooks: bool) -> dict:
+    """Phase 17 (c)'s TSDB keys: every write hook on, or none."""
+    keys = {"tsd.torch.device": "cuda",
+            "tsd.core.auto_create_metrics": "true", **ENGINE_KEYS}
+    if hooks:
+        keys.update({
+            "tsd.core.meta.enable_realtime_ts": "true",
+            "tsd.core.meta.enable_realtime_uid": "true",
+            "tsd.core.tree.enable_processing": "true",
+            "tsd.rtpublisher.enable": "true",
+            "tsd.rtpublisher.plugin": "chip_smoke.CountingPublisher",
+            "tsd.core.write_filter.enable": "true",
+            "tsd.core.write_filter.plugin": "chip_smoke.SkipFilter",
+            "tsd.uid.filter.enable": "true",
+            "tsd.uid.filter.plugin":
+                "opentsdb_tpu_torch.plugins.UniqueIdWhitelistFilter",
+            "tsd.uidfilter.metric_patterns": r"^ops\."})
+    return keys
+
+
+def ops_write(tsdb, hooks: bool) -> tuple[float, float]:
+    """Phase 17 (c)'s writes: OPS_HOOK_SERIES series x 1 point by
+    ``add_series_points`` (per-series hooks), then the first
+    OPS_BURST_SERIES of them x OPS_BURST_POINTS by one telnet burst
+    (``import_buffer``, per-point hooks); seconds of each."""
+    import numpy as np
+    from opentsdb_tpu_torch.tree.tree import TreeRule, tree_manager
+    from opentsdb_tpu_torch.tsd.telnet import TelnetRouter
+    if hooks:
+        tree = tree_manager(tsdb).create_tree("by dc and host")
+        tree.set_rule(TreeRule(level=0, type="TAGK", field="dc"))
+        tree.set_rule(TreeRule(level=1, type="TAGK", field="host"))
+    rng = np.random.default_rng(17)
+    n = OPS_HOOK_SERIES
+    tags = [{"host": f"h{i}", "dc": f"dc{i % 100}", "rack": f"r{i % 2000}"}
+            for i in range(n)]
+    t = time.perf_counter()
+    tsdb.add_series_points("ops.hooked", tags, np.full((n, 1), T0),
+                           rng.normal(100.0, 15.0, (n, 1)))
+    series_s = time.perf_counter() - t
+    vals = rng.normal(100.0, 15.0, (OPS_BURST_SERIES, OPS_BURST_POINTS))
+    lines = [f"put ops.hooked {T0 + 60 * (j + 1)} {vals[i, j]:.6f} "
+             f"host=h{i} dc=dc{i % 100} rack=r{i % 2000}"
+             for i in range(OPS_BURST_SERIES)
+             for j in range(OPS_BURST_POINTS)]
+    t = time.perf_counter()
+    out, deferred = TelnetRouter(tsdb).execute_lines(lines)
+    burst_s = time.perf_counter() - t
+    check(out == [] and deferred is None,
+          f"(c) the telnet burst answered {out[:3]}")
+    return series_s, burst_s
+
+
+def ops_durable(root: Path, backend: str) -> dict:
+    """Phase 17 (e) on one store: points (ints and floats), notes, the
+    meta documents and a tree; a flush; more points and notes; the log
+    closed without a flush; a reopened TSDB must hold every point, flag
+    and note, and the snapshot's meta and tree."""
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.meta.annotation import Annotation
+    from opentsdb_tpu_torch.tree.tree import TreeRule, tree_manager
+    keys = {"tsd.torch.device": "cuda", "tsd.core.auto_create_metrics":
+            "true", "tsd.storage.backend": backend,
+            "tsd.storage.data_dir": str(root / backend),
+            "tsd.core.meta.enable_realtime_ts": "true",
+            "tsd.core.meta.enable_realtime_uid": "true",
+            "tsd.core.tree.enable_processing": "true", **ENGINE_KEYS}
+    n, p = OPS_DUR_SERIES, OPS_DUR_POINTS
+    rng = np.random.default_rng(23)
+    tags = [{"host": f"h{i}", "dc": f"dc{i % 100}"} for i in range(n)]
+    ts = T0 + 60 * np.arange(2 * p, dtype=np.int64)
+    ints = rng.integers(-1000, 1000, (n, 2 * p))
+    floats = rng.normal(0.0, 1e3, (n, 2 * p))
+    t = time.perf_counter()
+    w = TSDB(Config(**keys))
+    tree = tree_manager(w).create_tree("durable")
+    tree.set_rule(TreeRule(level=0, type="TAGK", field="dc"))
+    tree.set_rule(TreeRule(level=1, type="METRIC"))
+
+    def write(half: slice, k0: int) -> None:
+        ts2d = np.broadcast_to(ts[half], (n, p))
+        w.add_series_points("ops.ints", tags, ts2d, ints[:, half])
+        w.add_series_points("ops.floats", tags, ts2d, floats[:, half])
+        for k in range(k0, k0 + 50):
+            w.annotations.store(Annotation(
+                w.uids.tsuid(w.uids.metrics.get_id("ops.ints"), sorted(
+                    (w.uids.tag_names.get_id(a), w.uids.tag_values.get_id(b))
+                    for a, b in tags[k].items())).hex().upper(),
+                int(ts[k % (2 * p)]), 0, f"note {k}"))
+        w.annotations.store(Annotation("", T0 + k0, 0, f"global {k0}"))
+
+    write(slice(0, p), 0)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    w.flush()
+    flush_s = time.perf_counter() - t
+    flushed = ({k: m.to_json() for k, m in w.meta.ts_meta.items()},
+               [tr.to_json() for tr in tree_manager(w).all_trees()])
+    write(slice(p, 2 * p), 50)
+    w.annotations.delete("", T0)
+    w.wal.close()                       # the process is gone
+    t = time.perf_counter()
+    r = TSDB(Config(**keys))
+    reopen_s = time.perf_counter() - t
+
+    def points(db) -> dict:
+        c, ts_, vals, flags = db.store.read_all()
+        return {"counts": c.tolist(), "ts": ts_.tobytes(),
+                "vals": vals.tobytes(), "ints": flags.tobytes()}
+
+    def notes(db) -> list:
+        return sorted((k, a.start_time, a.description)
+                      for k, d in db.annotations._by_tsuid.items()
+                      for a in d.values())
+
+    got = points(r)
+    check(got == points(w), f"(e) {backend}: the reopened points differ")
+    check(bytes(got["ints"]).count(1) == n * 2 * p,
+          f"(e) {backend}: the integer flags did not come back")
+    check(notes(r) == notes(w) and len(notes(r)) == 101,
+          f"(e) {backend}: the notes differ ({len(notes(r))})")
+    check(({k: m.to_json() for k, m in r.meta.ts_meta.items()},
+           [tr.to_json() for tr in tree_manager(r).all_trees()]) == flushed
+          and len(flushed[0]) == 2 * n,
+          f"(e) {backend}: the meta documents or the tree differ")
+    r.shutdown()
+    return {"write_s": write_s, "flush_s": flush_s, "reopen_s": reopen_s,
+            "points": 2 * n * 2 * p,
+            "replayed": r.recovery["points_replayed"]}
+
+
+def phase_ops(torch, tsdb, values, tags, fused) -> tuple[dict, dict]:
+    """Phase 17: the operator surface. (a) an annotated query on phase
+    3's TSDB (K1), (b) the reads, (c) the write path with every hook on,
+    (d) authentication on a running server, (e) the durability of the
+    new state on both stores. Returns (K1 launches of (a), the
+    ``ops`` line)."""
+    import http.client
+    import socket
+    import tempfile
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.query.model import TSQuery
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest, HttpRpcRouter
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+    from opentsdb_tpu_torch.tree.tree import tree_manager
+    t_phase = time.perf_counter()
+    out: dict = {}
+    for k_, v_ in ENGINE_KEYS.items():
+        tsdb.config.override_config(k_, v_)
+    router = HttpRpcRouter(tsdb)
+    uids = tsdb.uids
+    mid = uids.metrics.get_id(METRIC)
+    s = len(tags)
+
+    def tsuid_of(i: int) -> str:
+        return uids.tsuid(mid, sorted(
+            (uids.tag_names.get_id(k), uids.tag_values.get_id(v))
+            for k, v in tags[i].items())).hex().upper()
+
+    # (a) 100 notes on dc0 series (i = 0, 100, ...) and 2 global, by one
+    # POST /api/annotation/bulk; then the {dc=*} query, cold, with and
+    # without them
+    noted = list(range(0, min(s, 100 * OPS_NOTES), 100))
+    lo, hi = SURF_WINDOW
+    notes = [{"tsuid": tsuid_of(i), "startTime": lo + 60 * (j % 50),
+              "description": f"deploy {j}"} for j, i in enumerate(noted)]
+    notes += [{"startTime": lo + 30, "description": "global 0"},
+              {"startTime": hi - 30, "endTime": hi, "description":
+               "global 1"}]
+    t = time.perf_counter()
+    resp = router.handle(HttpRequest("POST", "/api/annotation/bulk",
+                                     body=json.dumps(notes).encode()))
+    bulk_ms = (time.perf_counter() - t) * 1e3
+    check(resp.status == 200 and len(json.loads(resp.body)) == len(notes),
+          f"(a) /api/annotation/bulk answered {resp.status}")
+
+    def annotated(no: bool) -> dict:
+        return {"start": str(lo), "end": str(hi), "noAnnotations": no,
+                "globalAnnotations": not no, "queries": [{
+                    "aggregator": "sum", "metric": METRIC,
+                    "downsample": "5m-avg", "rate": True,
+                    "filters": [{"type": "wildcard", "tagk": "dc",
+                                 "filter": "*", "groupBy": True}]}]}
+
+    runs: dict = {False: [], True: []}
+    rows: dict = {}
+    k1 = 0
+    for _ in range(OPS_COLD):
+        for no in (True, False):
+            reset_launches(fused)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rows[no] = tsdb.execute_query(
+                TSQuery.from_json(annotated(no)).validate())
+            runs[no].append(time.perf_counter() - t)
+            n_l = read_launches(fused)
+            check(n_l == {"span_reduce": 1, "onehot_reduce": 0},
+                  f"(a) a cold call launched {n_l}, not K1 once")
+            k1 += 1
+    with_n, without_n = rows[False], rows[True]
+    check(len(with_n) == len(without_n) == min(s, 100),
+          "(a) the group counts differ")
+    for a, b in zip(with_n, without_n):
+        check(a.tags == b.tags and all(
+            np.array_equal(np.asarray(x).view(np.int64),
+                           np.asarray(y).view(np.int64))
+            for x, y in zip(a.dps_arrays, b.dps_arrays)),
+            "(a) values or emit mask moved with the annotations")
+        check(b.annotations == [] and b.global_annotations == [],
+              "(a) noAnnotations carried notes")
+        check([g.description for g in a.global_annotations] ==
+              ["global 0", "global 1"], "(a) the global notes differ")
+    by_dc = {r.tags["dc"]: r for r in with_n}
+    want = [(tsuid_of(i), lo + 60 * (j % 50)) for j, i in enumerate(noted)]
+    got = [(n.tsuid, n.start_time) for n in by_dc["dc0"].annotations]
+    check(got == want, "(a) dc0's notes are not its members' in order")
+    check(all(tsdb.annotations.range(ts_, lo, hi)[0].start_time == st
+              for ts_, st in want), "(a) the store's range differs")
+    check(all(not r.annotations for d, r in by_dc.items() if d != "dc0"),
+          "(a) a group without notes carried some")
+    reset_launches(fused)
+    body = json.loads(router.handle(HttpRequest(
+        "POST", "/api/query", body=json.dumps(annotated(False)).encode())
+    ).body)
+    torch.cuda.synchronize()
+    n_l = read_launches(fused)
+    check(n_l == {"span_reduce": 1, "onehot_reduce": 0},
+          f"(a) POST /api/query launched {n_l}, not K1 once")
+    k1 += n_l["span_reduce"]
+    head = next(g for g in body if g["tags"]["dc"] == "dc0")
+    check(len(head["annotations"]) == len(noted)
+          and len(head["globalAnnotations"]) == 2,
+          "(a) the serialized head lost its notes")
+    out["annotated_ms"] = p50(runs[False]) * 1e3
+    out["plain_ms"] = p50(runs[True]) * 1e3
+    print(f"  (a) {len(notes)} notes by /api/annotation/bulk in "
+          f"{bulk_ms:.3f} ms; sum:5m-avg:rate{{dc=*}} over {s} series, "
+          f"cold p50 of {OPS_COLD}: annotated {out['annotated_ms']:.1f} ms "
+          f"against noAnnotations {out['plain_ms']:.1f} ms (+"
+          f"{out['annotated_ms'] - out['plain_ms']:.1f} ms), one K1 launch "
+          "a call; values and emit mask bit-equal; dc0 carries its "
+          f"{len(noted)} notes in member order, every group the 2 global")
+
+    # (b) the reads: /api/query/last over dc0, /api/search/lookup,
+    # /api/uid/assign
+    reads: dict = {"last": [], "lookup": [], "assign": []}
+    n_dc0 = len(range(0, s, 100))
+    for c in range(OPS_READS):
+        t = time.perf_counter()
+        resp = router.handle(HttpRequest("GET", "/api/query/last", {
+            "timeseries": [f"{METRIC}{{dc=dc0}}"], "resolve": [""]}))
+        reads["last"].append(time.perf_counter() - t)
+        check(resp.status == 200, f"(b) /api/query/last {resp.status}")
+        last = json.loads(resp.body)
+        t = time.perf_counter()
+        resp = router.handle(HttpRequest("GET", "/api/search/lookup", {
+            "m": [f"{METRIC}{{dc=dc0}}"]}))
+        reads["lookup"].append(time.perf_counter() - t)
+        found = json.loads(resp.body)
+        check(resp.status == 200 and found["totalResults"] == n_dc0
+              and len(found["results"]) == min(25, n_dc0),
+              f"(b) /api/search/lookup answered {resp.status}")
+        t = time.perf_counter()
+        resp = router.handle(HttpRequest(
+            "POST", "/api/uid/assign", body=json.dumps({
+                "metric": [f"ops.assign.{c}.{k}"
+                           for k in range(OPS_ASSIGN)]}).encode()))
+        reads["assign"].append(time.perf_counter() - t)
+        check(resp.status == 200 and len(json.loads(resp.body)["metric"])
+              == OPS_ASSIGN, f"(b) /api/uid/assign answered {resp.status}")
+    check(len(last) == n_dc0, f"(b) {len(last)} last points")
+    for pt in last:
+        i = int(pt["tags"]["host"][1:])
+        if i == s - 1:
+            continue                    # phase 6's late point
+        v = float(values[i, -1])
+        check(pt["timestamp"] == (T0 + 60 * (POINTS - 1)) * 1000
+              and pt["value"] == (str(int(v)) if v.is_integer()
+                                  else str(v)),
+              f"(b) series {i}'s last point {pt}")
+    for k, v in reads.items():
+        out[f"{k}_ms"] = p50(v) * 1e3
+    print(f"  (b) p50 of {OPS_READS}: /api/query/last over {n_dc0} series "
+          f"{out['last_ms']:.3f} ms (each the store's last point); "
+          f"/api/search/lookup {METRIC}{{dc=dc0}} {out['lookup_ms']:.3f} "
+          f"ms ({n_dc0} found); /api/uid/assign of {OPS_ASSIGN} metrics "
+          f"{out['assign_ms']:.3f} ms")
+
+    # (c) the write path with every hook on against none
+    off_db = TSDB(Config(**ops_keys(False)))
+    off = ops_write(off_db, False)
+    on_db = TSDB(Config(**ops_keys(True)))
+    on = ops_write(on_db, True)
+    written = OPS_HOOK_SERIES + OPS_BURST_SERIES * OPS_BURST_POINTS
+    check(on_db.datapoints_added == off_db.datapoints_added == written,
+          f"(c) {on_db.datapoints_added} points written")
+    check(on_db.rt_publisher.points == written,
+          f"(c) the publisher saw {on_db.rt_publisher.points}")
+    check(len(on_db.meta.ts_meta) == OPS_HOOK_SERIES,
+          f"(c) {len(on_db.meta.ts_meta)} TSMetas")
+    root_b = tree_manager(on_db).all_trees()[0].root
+    leaves = sum(len(b.leaves) for b in root_b.branches.values())
+    check(leaves == OPS_HOOK_SERIES, f"(c) {leaves} tree leaves")
+    check(on_db.hook_errors == {}, f"(c) hook errors {on_db.hook_errors}")
+    check(on_db.meta.ts_counters[tsuid_of_db(on_db, 0)] ==
+          1 + OPS_BURST_POINTS, "(c) a TSMeta's count differs")
+    out.update({"series_on_s": on[0], "series_off_s": off[0],
+                "burst_on_s": on[1], "burst_off_s": off[1]})
+    print(f"  (c) {OPS_HOOK_SERIES} series x 1 point by add_series_points: "
+          f"hooks on {on[0]:.3f} s ({OPS_HOOK_SERIES / on[0]:,.0f} "
+          f"points/s) against off {off[0]:.3f} s "
+          f"({OPS_HOOK_SERIES / off[0]:,.0f}), x{on[0] / off[0]:.1f}; "
+          f"{OPS_BURST_SERIES} x {OPS_BURST_POINTS} by a telnet burst: on "
+          f"{on[1]:.3f} s ({OPS_BURST_SERIES * OPS_BURST_POINTS / on[1]:,.0f}"
+          f" points/s) against off {off[1]:.3f} s "
+          f"({OPS_BURST_SERIES * OPS_BURST_POINTS / off[1]:,.0f}), "
+          f"x{on[1] / off[1]:.1f}; {len(on_db.meta.ts_meta)} TSMetas, "
+          f"{leaves} tree leaves, {on_db.rt_publisher.points} points "
+          "published, no hook error")
+    on_db.shutdown()
+    off_db.shutdown()
+    del on_db, off_db
+
+    # (d) authentication on a running server, against one without it
+    def sha(pw: str) -> str:
+        import hashlib
+        return hashlib.sha256(pw.encode()).hexdigest()
+
+    users = {"tsd.core.authentication.users":
+             f"reader:{sha('r')}:ro,writer:{sha('w')}:rw",
+             "tsd.core.authentication.roles":
+             "ro:http_query,rw:http_query|http_put|telnet_put"}
+    auth_keys = {"tsd.torch.device": "cuda",
+                 "tsd.core.auto_create_metrics": "true", **ENGINE_KEYS}
+
+    def basic(user: str, pw: str) -> dict:
+        import base64
+        return {"Authorization": "Basic " + base64.b64encode(
+            f"{user}:{pw}".encode()).decode(),
+            "Content-Type": "application/json"}
+
+    put = json.dumps([{"metric": "ops.auth", "timestamp": T0 + 60 * k,
+                       "value": k, "tags": {"host": f"h{k % 10}"}}
+                      for k in range(600)]).encode()
+    qpath = f"/api/query?start={T0}&end={T0 + 3599}&m=sum:1m-avg:ops.auth"
+
+    def talk(st, method, path, body=None, headers=None):
+        conn = http.client.HTTPConnection("127.0.0.1", st.port, timeout=60)
+        try:
+            conn.request(method, path, body=body, headers=headers or {})
+            r = conn.getresponse()
+            return r.status, r.read()
+        finally:
+            conn.close()
+
+    def telnet(st, text: str, lines: int) -> list:
+        with socket.create_connection(("127.0.0.1", st.port), 60) as sk:
+            sk.sendall(text.encode())
+            got = b""
+            while got.count(b"\n") < lines:
+                chunk = sk.recv(65536)
+                if not chunk:
+                    break
+                got += chunk
+        return got.decode().splitlines()
+
+    def query_p50(st, headers) -> tuple:
+        conn = http.client.HTTPConnection("127.0.0.1", st.port, timeout=60)
+        secs = []
+        try:
+            for _ in range(OPS_AUTH_CALLS + 1):
+                t = time.perf_counter()
+                conn.request("GET", qpath, headers=headers)
+                r = conn.getresponse()
+                body = r.read()
+                secs.append(time.perf_counter() - t)
+                check(r.status == 200, f"(d) /api/query {r.status}")
+        finally:
+            conn.close()
+        return p50(secs[1:]), body
+
+    st_auth = serve_pinned(ServerThread, TSDB(Config(**{
+        **auth_keys, **users, "tsd.core.authentication.enable": "true"})))
+    st_open = serve_pinned(ServerThread, TSDB(Config(**auth_keys)))
+    try:
+        check(talk(st_auth, "GET", "/api/version")[0] == 401,
+              "(d) no credentials did not answer 401")
+        check(talk(st_auth, "POST", "/api/put", put,
+                   basic("reader", "r"))[0] == 403,
+              "(d) a reader's put did not answer 403")
+        code, body = talk(st_auth, "POST", "/api/put?summary", put,
+                          basic("writer", "w"))
+        check(code == 200 and json.loads(body)["success"] == 600,
+              f"(d) a writer's put answered {code}")
+        check(talk(st_open, "POST", "/api/put", put,
+                   {"Content-Type": "application/json"})[0] == 204,
+              "(d) the open server's put failed")
+        lines = telnet(st_auth, "auth writer nope\nauth writer w\n"
+                       f"put ops.telnet {T0} 1 host=t\nversion\nexit\n", 3)
+        check(lines[:2] == ["auth_fail", "auth_success"]
+              and "version" in lines[2], f"(d) telnet answered {lines}")
+        authed, a_body = query_p50(st_auth, basic("reader", "r"))
+        opened, o_body = query_p50(st_open, {})
+        check(json.loads(a_body)[0]["dps"] == json.loads(o_body)[0]["dps"],
+              "(d) the authenticated answer differs")
+    finally:
+        st_auth.stop()
+        st_open.stop()
+    out["auth_query_ms"] = authed * 1e3
+    out["open_query_ms"] = opened * 1e3
+    print(f"  (d) a running server with tsd.core.authentication.enable: "
+          f"401 with no credentials, 403 for a reader's put, 200 for a "
+          f"writer's; telnet auth_fail then auth_success; /api/query p50 "
+          f"of {OPS_AUTH_CALLS} authenticated {out['auth_query_ms']:.3f} ms "
+          f"against {out['open_query_ms']:.3f} ms without authentication "
+          f"({(authed - opened) * 1e6:+.1f} us)")
+
+    # (e) the durability of the new state on both stores
+    root = Path(tempfile.mkdtemp(prefix="tsd-operator-"))
+    try:
+        for backend in ("memory", "native"):
+            d = ops_durable(root, backend)
+            out[f"durable_{backend}"] = d
+            print(f"  (e) {backend} store: {d['points']} points (ints and "
+                  f"floats), 101 notes, {2 * OPS_DUR_SERIES} TSMetas and a "
+                  f"tree: write {d['write_s']:.3f} s, flush "
+                  f"{d['flush_s']:.3f} s, reopen without a flush "
+                  f"{d['reopen_s']:.3f} s ({d['replayed']} points "
+                  "replayed); every point, flag and note back, the "
+                  "snapshot's meta and tree")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 17: {out['phase_s']:.1f} s")
+    return {"span_reduce": k1, "onehot_reduce": 0}, out
+
+
+def tsuid_of_db(tsdb, i: int) -> str:
+    """Phase 17 (c): the TSUID of ``ops.hooked`` series i."""
+    u = tsdb.uids
+    return u.tsuid(u.metrics.get_id("ops.hooked"), sorted(
+        (u.tag_names.get_id(k), u.tag_values.get_id(v)) for k, v in
+        {"host": f"h{i}", "dc": f"dc{i % 100}",
+         "rack": f"r{i % 2000}"}.items())).hex().upper()
+
+
 def p50(xs) -> float:
     return statistics.median(xs)
 
@@ -5191,8 +5716,18 @@ def main() -> int:
            + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
            + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
     mesh = phase_mesh(torch, tsdb, values, args.profile)
+    # phase 17 runs here too: (a) and (b) on phase 3's TSDB
+    header(f"phase 17: the operator surface (annotations, lookups, the "
+           f"write hooks, authentication, durability of the new state), "
+           f"{s} series")
+    ops_launches, ops = phase_ops(torch, tsdb, values, tags, fused)
+    for kname, n in ops_launches.items():
+        launches[kname] += n
     tsdb.shutdown()
     del tsdb, tags, ts2d, values
+    # the routers of phases 8-17 hold phase 3's TSDB in reference
+    # cycles: free it, and phase 17's TSDBs, before phase 7 times
+    gc.collect()
     header(f"phase 7: irregular data, {s} series x {POINTS} slots"
            + ("" if s == 1_000_000 else " (CUT from 1,000,000)")
            + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
@@ -5278,6 +5813,7 @@ def main() -> int:
     print(json.dumps({"streaming": streaming}))
     print(json.dumps({"surfaces": surfaces}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"ops": ops}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

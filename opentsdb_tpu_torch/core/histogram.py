@@ -20,10 +20,13 @@ reference does.
 
 from __future__ import annotations
 
+import json
 import struct
 from typing import Sequence
 
 import numpy as np
+
+from opentsdb_tpu_torch.utils.plugin import load_class
 
 
 class SimpleHistogram:
@@ -278,19 +281,20 @@ class SimpleHistogramCodec(HistogramCodec):
 
 class HistogramCodecManager:
     """id -> codec registry (ref: HistogramCodecManager.java:47). The
-    built-in simple codec is always registered at id 1. The reference
-    loads codec plugin classes named by ``tsd.core.histograms.config``;
-    the port has no plugin loader, and a non-empty key raises."""
+    built-in simple codec is always registered at id 1; the codec
+    plugins come from ``tsd.core.histograms.config``, a JSON map of
+    ``{"dotted.CodecClass": id}``, as in the reference."""
 
     def __init__(self, config=None):
         self._by_id: dict[int, HistogramCodec] = {}
         self.register(SimpleHistogramCodec())
-        if config is not None and config.get_string(
-                "tsd.core.histograms.config", ""):
-            raise NotImplementedError(
-                "tsd.core.histograms.config names histogram codec "
-                "plugins, which are not ported yet (ROADMAP Queue 1, "
-                "the rest, with no device compute)")
+        spec = config.get_string("tsd.core.histograms.config", "") \
+            if config is not None else ""
+        if spec:
+            for path, codec_id in json.loads(spec).items():
+                codec = load_class(path)()
+                codec.id = int(codec_id)
+                self.register(codec)
 
     def register(self, codec: HistogramCodec) -> None:
         self._by_id[codec.id] = codec

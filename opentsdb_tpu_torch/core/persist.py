@@ -7,9 +7,14 @@ run of points), the point columns (``data/points.npz``: ``ts`` int64
 ms, ``vals`` float64 and ``ints`` bool, the per-point integer flag),
 the histogram points (``histograms.json``: each histogram series'
 identity and each arena's columns, base64, format v2; the v1 format of
-one blob per point loads too), with rollups on each rollup store in a
-directory of its own laid out as ``data/`` (``rollup-<interval>-<agg>/``
-per tier, ``rollup-preagg/``), and last ``META.json`` with
+one blob per point loads too), the annotations (``annotations.json``:
+each note's JSON document with its ``tsuid``), the TSMeta and UIDMeta
+documents with the per-series counters (``meta.json``), the tree
+definitions with their rules (``trees.json``, once a tree manager
+exists; the branches are rebuilt by filing), with rollups on each
+rollup store in a directory of its own laid out as ``data/``
+(``rollup-<interval>-<agg>/`` per tier, ``rollup-preagg/``), and last
+``META.json`` with
 ``wal_applied_seq``, the WAL sequence the snapshot covers. A tier the
 rollup config no longer holds is skipped at load, and with rollups off
 the ``rollup-*`` directories are left unread and in place, as the
@@ -31,15 +36,15 @@ truncates only after the save). A series index whose runs do not fit
 the point columns, which the reference's in-place ``points.npz``
 write can leave, is refused, never served in part.
 
-The reference's snapshot also holds annotations, meta and trees, which
-the port has not ported: their files load when they are
-empty (the reference writes them so), and a snapshot with any entry in
-them is refused, naming the ROADMAP Queue 1 item that ports it.
+The reference writes the annotation, meta and tree files in place; the
+port stages them with the rest, so they change with the snapshot or
+not at all.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import json
 import logging
 import os
@@ -100,7 +105,14 @@ def save_store(tsdb, data_dir: str) -> int:
                  (os.path.join(data, "series.json"), _bytes_writer(index)),
                  (os.path.join(data, "points.npz"), write_points),
                  (os.path.join(data_dir, "histograms.json"),
-                  _bytes_writer(_histograms_doc(tsdb, hist_cols)))]
+                  _bytes_writer(_histograms_doc(tsdb, hist_cols))),
+                 (os.path.join(data_dir, "annotations.json"),
+                  _bytes_writer(_annotations_doc(tsdb.annotations))),
+                 (os.path.join(data_dir, "meta.json"),
+                  _bytes_writer(_meta_doc(tsdb.meta)))]
+        if tsdb._tree_manager is not None:
+            files.append((os.path.join(data_dir, "trees.json"),
+                          _bytes_writer(_trees_doc(tsdb._tree_manager))))
         dirs = [data]
         for directory, store in _rollup_dirs(tsdb, data_dir):
             os.makedirs(directory, exist_ok=True)
@@ -134,13 +146,15 @@ def load_store(tsdb, data_dir: str) -> bool:
         meta = json.load(fh)
     if meta.get("format") != _FORMAT_VERSION:
         raise ValueError(f"unsupported snapshot format {meta.get('format')}")
-    _refuse_unported(data_dir)
     tsdb._wal_applied_seq = int(meta.get("wal_applied_seq", 0))
     _load_uids(tsdb.uids, data_dir)
     _load_timeseries(tsdb.store, os.path.join(data_dir, "data"))
-    _load_histograms(tsdb, data_dir)
     if tsdb.rollup_store is not None:
         _load_rollups(tsdb.rollup_store, data_dir)
+    _load_annotations(tsdb.annotations, data_dir)
+    _load_histograms(tsdb, data_dir)
+    _load_meta(tsdb.meta, data_dir)
+    _load_trees(tsdb, data_dir)
     return True
 
 
@@ -244,25 +258,76 @@ def _json(path: str):
         return json.load(fh)
 
 
-def _refuse_unported(data_dir: str) -> None:
-    """Raise when the snapshot holds an entry of a subsystem the port
-    lacks; the empty files the reference writes pass."""
-    held = []
-    rest = "the rest, with no device compute"
+def _annotations_doc(annotations) -> bytes:
+    """``annotations.json``'s bytes (ref: ``_save_annotations``)."""
+    with annotations._lock:
+        doc = [note.to_json() | {"tsuid": tsuid}
+               for tsuid, by_time in annotations._by_tsuid.items()
+               for note in by_time.values()]
+    return json.dumps(doc).encode()
+
+
+def _load_annotations(annotations, data_dir: str) -> None:
+    from opentsdb_tpu_torch.meta.annotation import Annotation
     path = os.path.join(data_dir, "annotations.json")
-    if os.path.isfile(path) and _json(path):
-        held.append(("annotations", rest))
+    if os.path.isfile(path):
+        for obj in _json(path):
+            annotations.store(Annotation.from_json(obj), _wal=False)
+
+
+def _meta_doc(meta) -> bytes:
+    """``meta.json``'s bytes (ref: ``_save_meta``): the counters, the
+    UIDMeta documents with their keys, the TSMeta documents."""
+    with meta._lock:
+        doc = {"ts_counters": dict(meta.ts_counters),
+               "uid_meta": [dataclasses.asdict(v) | {"_key": list(k)}
+                            for k, v in meta.uid_meta.items()],
+               "ts_meta": [dataclasses.asdict(v)
+                           for v in meta.ts_meta.values()]}
+    return json.dumps(doc).encode()
+
+
+def _load_meta(meta, data_dir: str) -> None:
+    from opentsdb_tpu_torch.meta.meta_store import TSMeta, UIDMeta
     path = os.path.join(data_dir, "meta.json")
-    if os.path.isfile(path) and any(_json(path).values()):
-        held.append(("TSMeta and UIDMeta", rest))
+    if not os.path.isfile(path):
+        return
+    doc = _json(path)
+    with meta._lock:
+        for e in doc.get("uid_meta", []):
+            key = tuple(e.pop("_key"))
+            meta.uid_meta[key] = UIDMeta(**e)
+        for e in doc.get("ts_meta", []):
+            metric = e.pop("metric", None)
+            tags = e.pop("tags", None) or []
+            t = TSMeta(**e)
+            t.metric = UIDMeta(**metric) if metric else None
+            t.tags = [UIDMeta(**x) for x in tags]
+            meta.ts_meta[t.tsuid] = t
+        meta.ts_counters.update(doc.get("ts_counters", {}))
+
+
+def _trees_doc(manager) -> bytes:
+    """``trees.json``'s bytes (ref: ``_save_trees``): each tree's
+    definition and rules."""
+    return json.dumps([t.to_json() for t in manager.all_trees()]).encode()
+
+
+def _load_trees(tsdb, data_dir: str) -> None:
+    from opentsdb_tpu_torch.tree.tree import Tree, TreeRule, tree_manager
     path = os.path.join(data_dir, "trees.json")
-    if os.path.isfile(path) and _json(path):
-        held.append(("trees", rest))
-    if held:
-        raise NotImplementedError(
-            f"the snapshot in {data_dir} holds "
-            + "; ".join(f"{what}, not ported yet (ROADMAP Queue 1, "
-                        f"{item})" for what, item in held))
+    if not os.path.isfile(path):
+        return
+    mgr = tree_manager(tsdb)
+    with mgr._lock:
+        for obj in _json(path):
+            tree = Tree(int(obj["treeId"]))
+            tree.update(obj, overwrite=True)
+            tree.created = int(obj.get("created", 0))
+            for robj in obj.get("rules", []):
+                tree.set_rule(TreeRule.from_json(robj))
+            mgr.trees[tree.tree_id] = tree
+            mgr._next_id = max(mgr._next_id, tree.tree_id)
 
 
 def _uids_doc(uids) -> bytes:

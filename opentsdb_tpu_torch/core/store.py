@@ -252,9 +252,10 @@ class TimeSeriesStore:
 
     One lock guards series creation, pending writes and the fold into
     the CSR columns. Published column arrays are replaced, never
-    mutated in place, so a reader's snapshot stays valid. It keeps no
-    per-point integer flag: the writes' ``is_int`` is accepted and
-    dropped."""
+    mutated in place, so a reader's snapshot stays valid. Beside each
+    point it keeps the integer flag the writes give (``is_int``), which
+    the snapshot and WAL formats carry; a duplicate timestamp keeps the
+    last write's value and flag."""
 
     backend = "memory"
 
@@ -265,11 +266,12 @@ class TimeSeriesStore:
         self._keys: list[tuple] = []
         self._num_series = 0
         self._metric_index: dict[int, MetricIndex] = {}
-        self._pending: list[tuple[np.ndarray, np.ndarray,
+        self._pending: list[tuple[np.ndarray, np.ndarray, np.ndarray,
                                   np.ndarray]] = []
         self._offsets = np.zeros(1, dtype=np.int64)
         self._ts = np.empty(0, dtype=np.int64)
         self._vals = np.empty(0, dtype=np.float64)
+        self._ints = np.empty(0, dtype=bool)
         # set once a NaN value is written; bucket_reduce then skips
         # NaNs point by point
         self._may_hold_nan = False
@@ -285,6 +287,9 @@ class TimeSeriesStore:
         """Changes with every write: a cache entry of another version
         is stale."""
         return self.points_written, self.mutation_epoch
+
+    def num_series(self) -> int:
+        return self._num_series
 
     def collect_stats(self, collector) -> None:
         collector.record("storage.series.count", self._num_series)
@@ -328,14 +333,15 @@ class TimeSeriesStore:
 
     def append(self, series_id: int, ts_ms: int, value: float,
                is_int: bool = False) -> None:
-        self.append_lines([series_id], [ts_ms], [value])
+        self.append_lines([series_id], [ts_ms], [value], [is_int])
 
     def append_many(self, series_id: int, ts_ms: np.ndarray,
                     values: np.ndarray, is_int=False) -> None:
-        """Append many points of one series."""
+        """Append many points of one series; ``is_int`` is one flag or
+        one per point."""
         ts = np.asarray(ts_ms, dtype=np.int64)
         self.append_lines(np.full(len(ts), series_id, dtype=np.int64),
-                          ts, values)
+                          ts, values, is_int)
 
     def append_grid(self, series_ids, bucket_ts, grid, mask) -> int:
         """Bulk write of one ``[S, B]`` grid: the cells of row i that
@@ -360,23 +366,27 @@ class TimeSeriesStore:
     def append_lines(self, sids, ts_ms, values, is_int=None) -> int:
         """Columnar scatter-append: element i lands on series
         ``sids[i]`` (ref: ``TimeSeriesStore.append_lines``; negative
-        sids skip)."""
+        sids skip). ``is_int`` is one flag or one per element (None:
+        all False)."""
         sid_arr = np.asarray(sids, dtype=np.int64).reshape(-1)
         ts_arr = np.asarray(ts_ms, dtype=np.int64).reshape(-1)
         val_arr = np.asarray(values, dtype=np.float64).reshape(-1)
         if not len(sid_arr) == len(ts_arr) == len(val_arr):
             raise ValueError("sids/timestamps/values lengths differ")
+        int_arr = np.broadcast_to(
+            np.asarray(False if is_int is None else is_int, dtype=bool),
+            sid_arr.shape).copy()
         keep = sid_arr >= 0
         if not keep.all():
-            sid_arr, ts_arr, val_arr = (sid_arr[keep], ts_arr[keep],
-                                        val_arr[keep])
+            sid_arr, ts_arr, val_arr, int_arr = (
+                sid_arr[keep], ts_arr[keep], val_arr[keep], int_arr[keep])
         if not len(sid_arr):
             return 0
         has_nan = bool(np.isnan(val_arr).any())
         with self._lock:
             if int(sid_arr.max()) >= self._num_series:
                 raise IndexError("invalid series id in append")
-            self._pending.append((sid_arr, ts_arr, val_arr))
+            self._pending.append((sid_arr, ts_arr, val_arr, int_arr))
             self._may_hold_nan |= has_nan
             self.points_written += len(sid_arr)
         return len(sid_arr)
@@ -390,13 +400,14 @@ class TimeSeriesStore:
         parts = self._pending
         self._pending = []
         if len(self._ts) == 0 and len(parts) == 1:
-            sid, ts, vals = parts[0]
+            sid, ts, vals, ints = parts[0]
         else:
             old_sid = np.repeat(np.arange(len(old_counts),
                                           dtype=np.int64), old_counts)
             sid = np.concatenate([old_sid] + [p[0] for p in parts])
             ts = np.concatenate([self._ts] + [p[1] for p in parts])
             vals = np.concatenate([self._vals] + [p[2] for p in parts])
+            ints = np.concatenate([self._ints] + [p[3] for p in parts])
         if len(sid) > 1:
             dsid = np.diff(sid)
             in_order = ((dsid > 0) | ((dsid == 0) & (np.diff(ts) > 0))
@@ -405,15 +416,18 @@ class TimeSeriesStore:
                 # stable: equal (sid, ts) keep write order, so the
                 # last element of each run is the last write
                 order = np.lexsort((ts, sid))
-                sid, ts, vals = sid[order], ts[order], vals[order]
+                sid, ts, vals, ints = (sid[order], ts[order], vals[order],
+                                       ints[order])
                 last = np.ones(len(sid), dtype=bool)
                 last[:-1] = (sid[1:] != sid[:-1]) | (ts[1:] != ts[:-1])
                 if not last.all():
-                    sid, ts, vals = sid[last], ts[last], vals[last]
+                    sid, ts, vals, ints = (sid[last], ts[last], vals[last],
+                                           ints[last])
         counts = np.bincount(sid, minlength=n_series)
         offsets = np.zeros(n_series + 1, dtype=np.int64)
         np.cumsum(counts, out=offsets[1:])
-        self._offsets, self._ts, self._vals = offsets, ts, vals
+        self._offsets, self._ts, self._vals, self._ints = \
+            offsets, ts, vals, ints
 
     def delete_range(self, series_ids, start_ms: int, end_ms: int) -> int:
         """Remove the points in the inclusive ``[start_ms, end_ms]`` of
@@ -439,8 +453,8 @@ class TimeSeriesStore:
             counts[sids] -= gone
             new_offsets = np.zeros_like(offsets)
             np.cumsum(counts, out=new_offsets[1:])
-            self._offsets, self._ts, self._vals = \
-                new_offsets, ts[keep], vals[keep]
+            self._offsets, self._ts, self._vals, self._ints = \
+                new_offsets, ts[keep], vals[keep], self._ints[keep]
             self.mutation_epoch += 1
             return total
 
@@ -465,6 +479,34 @@ class TimeSeriesStore:
         if series_id < 0:
             raise IndexError(f"no series {series_id}")
         return SeriesIdentity(*self._keys[series_id])
+
+    def series_identities(self) -> list[tuple[int, tuple]]:
+        """(metric id, sorted (tagk, tagv) UID pairs) of every series,
+        by series id."""
+        with self._lock:
+            return list(self._keys)
+
+    def series_points(self, series_id: int
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """All points of one series, sorted: (ts int64, values float64,
+        is_int bool)."""
+        if not 0 <= series_id < self._num_series:
+            raise IndexError(f"no such series {series_id}")
+        with self._lock:
+            self._fold_locked()
+            lo, hi = self._offsets[series_id], self._offsets[series_id + 1]
+            return (self._ts[lo:hi].copy(), self._vals[lo:hi].copy(),
+                    self._ints[lo:hi].copy())
+
+    def read_all(self) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray]:
+        """Every series' points, sorted, back to back in series order:
+        (counts int64 [S], ts int64, values float64, is_int uint8), as
+        the native store's ``read_all`` (the snapshot's read)."""
+        with self._lock:
+            self._fold_locked()
+            return (np.diff(self._offsets), self._ts, self._vals,
+                    self._ints.astype(np.uint8))
 
     def total_points(self) -> int:
         offsets, _, _ = self._columns()

@@ -56,6 +56,23 @@ def parse(tag: str) -> tuple[str, str]:
     return tag[:eq], tag[eq + 1:]
 
 
+def parse_with_metric(arg: str) -> tuple[str, dict[str, str]]:
+    """Parse ``metric{tag=value,...}`` (ref: Tags.parseWithMetric)."""
+    brace = arg.find("{")
+    if brace < 0:
+        return arg, {}
+    if not arg.endswith("}"):
+        raise ValueError(f"missing '}}' in {arg!r}")
+    metric = arg[:brace]
+    tags: dict[str, str] = {}
+    body = arg[brace + 1:-1].strip()
+    if body:
+        for part in body.split(","):
+            k, v = parse(part.strip())
+            tags[k] = v
+    return metric, tags
+
+
 def check_tag_count(metric: str, tags: dict[str, str]) -> None:
     """The tag-count half of :func:`check_metric_and_tags`."""
     if not tags:

@@ -8,8 +8,8 @@ present. Writes go to the store that ``tsd.storage.backend`` names
 store, :meth:`TSDB.import_buffer` takes whole bursts of import lines
 through one native parse.
 
-With ``tsd.storage.data_dir`` set (native store only), writes are
-durable as in the reference: construction loads the directory's
+With ``tsd.storage.data_dir`` set, writes are durable as in the
+reference, on either store: construction loads the directory's
 snapshot (:mod:`~opentsdb_tpu_torch.core.persist`) and replays its
 write-ahead log (:mod:`~opentsdb_tpu_torch.core.wal`,
 ``tsd.storage.wal.enable``, on by default), every write path logs
@@ -17,6 +17,18 @@ under one WAL batch scope and syncs once before it returns,
 :meth:`TSDB.flush` snapshots and truncates the log, and
 :meth:`TSDB.shutdown` flushes and closes it. Without a data_dir
 nothing written survives the process.
+
+The TSDB holds the annotations (:attr:`TSDB.annotations`), the TSMeta
+and UIDMeta documents (:attr:`TSDB.meta`) and the trees
+(:func:`~opentsdb_tpu_torch.tree.tree.tree_manager`), and loads the
+plugin slots and the authenticator when it is built
+(:meth:`TSDB.initialize_plugins`). The write filters and the UID
+filter run before a point is written; the meta tracking, the external
+meta cache and the realtime publisher run after it is durable, through
+:meth:`TSDB._run_hook`, which counts a hook's failure and never fails
+the write. A write filter, the publisher or the meta cache is a
+per-point hook: the writes of many points then call it once per
+point.
 
 The TSDB also owns the serve path's caches (the device cache, the
 result cache and the per-metric tag matrices), the sub-query fan-out
@@ -58,6 +70,8 @@ from opentsdb_tpu_torch.core.store import TimeSeriesStore, pad_mask
 from opentsdb_tpu_torch.core.uid import (FailedToAssignUniqueIdError,
                                          UidRegistry)
 from opentsdb_tpu_torch.core.wal import WriteAheadLog
+from opentsdb_tpu_torch.meta.annotation import AnnotationStore
+from opentsdb_tpu_torch.meta.meta_store import MetaStore
 from opentsdb_tpu_torch.native.store_backend import (IMPORT_ERRORS,
                                                      make_store,
                                                      parse_import_buffer)
@@ -74,12 +88,26 @@ from opentsdb_tpu_torch.stats.stats import (ServePayloadStats,
 from opentsdb_tpu_torch.utils.config import Config
 from opentsdb_tpu_torch.utils.faults import (CircuitBreaker, FaultInjector,
                                              RetryPolicy, call_with_retries)
+from opentsdb_tpu_torch.utils.plugin import load_plugin_instances
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 # the bits of a timestamp above the seconds range (ref: Const.SECOND_MASK)
 _SECOND_MASK = 0xFFFFFFFF00000000
 # points per WAL record of a bulk write (25 bytes each)
 _WAL_LINES = 1 << 22
+
+
+class PartialWriteError(Exception):
+    """A write of many points landed ``written`` of them before one
+    failed (ref: ``PartialWriteError``): raised by the per-point hook
+    path of :meth:`TSDB.add_points`, so a caller replays only the rest.
+    The hooks already ran for the landed points and are not
+    idempotent."""
+
+    def __init__(self, written: int, cause: Exception):
+        super().__init__(str(cause))
+        self.written = written
+        self.cause = cause
 
 
 class TapGate:
@@ -314,22 +342,42 @@ class TSDB:
         # attribute, one read per write while no query is registered
         self._streaming = None
         self.tap_gate = TapGate()
-        # errors of post-write hooks (the streaming tap), by hook: a
-        # hook never fails a write that already happened
+        # errors of post-write hooks, by hook (``_run_hook``; the
+        # streaming tap, ``_tap``): a hook never fails a write that
+        # already happened
         self.hook_errors: dict[str, int] = {}
         # set by tsd/warmup.py's thread: a stopping server stops it
         self._warmup_stop: threading.Event | None = None
+        # annotations, TSMeta/UIDMeta and trees (meta/, tree/); the
+        # tree manager is made at first use (tree.tree.tree_manager)
+        self.annotations = AnnotationStore()
+        self.meta = MetaStore(self)
+        self._tree_manager = None
+        # plugin slots (ref: TSDB.java:146-167), loaded by
+        # initialize_plugins at the end of construction
+        self.rt_publisher = None
+        self.search_plugin = None
+        self.storage_exception_handler = None
+        self.write_filters: list = []
+        self.uid_filter = None
+        self.meta_cache = None
+        self.authentication = None
+        # any per-point hook on: the writes of many points call them
+        # point by point (set by initialize_plugins)
+        self._point_hooks = False
         if self.data_dir:
             self._open_data_dir()
+        try:
+            self.initialize_plugins()
+        except BaseException:
+            if self.wal is not None:
+                self.wal.close()    # no thread of a TSDB that did not start
+            raise
 
     def _open_data_dir(self) -> None:
         """Load the snapshot, then open the WAL and replay what the
-        snapshot does not cover (ref: TSDB.__init__)."""
-        if self.store.backend != "native":
-            raise ValueError(
-                "tsd.storage.data_dir needs tsd.storage.backend=native: "
-                f"the {self.store.backend} store drops the per-point "
-                "integer flag that the snapshot and WAL formats carry")
+        snapshot does not cover (ref: TSDB.__init__). Both stores keep
+        the per-point integer flag the formats carry."""
         t = time.perf_counter()
         persist.load_store(self, self.data_dir)
         self.recovery["load_s"] = time.perf_counter() - t
@@ -370,6 +418,61 @@ class TSDB:
             logging.getLogger("tsdb").info(
                 "WAL replay recovered %d points", recovered)
         self.wal = wal
+        self.annotations.wal = wal
+
+    def initialize_plugins(self) -> None:
+        """Load the plugin slots and the authenticator (ref:
+        ``TSDB.initialize_plugins``, TSDB.java initializePlugins :390).
+        The TSDB calls it when it is built, so no configured slot is
+        left unloaded. A slot loads when
+        ``<prefix>.enable`` is true and ``<prefix>.plugin`` names a
+        class (:func:`~opentsdb_tpu_torch.utils.plugin.
+        load_plugin_instances`); a class that does not import raises
+        here, and the TSDB is not built."""
+        cfg = self.config
+        self.rt_publisher = load_plugin_instances(
+            cfg, "tsd.rtpublisher", single=True, init_arg=self)
+        self.search_plugin = load_plugin_instances(
+            cfg, "tsd.search", single=True, init_arg=self)
+        self.storage_exception_handler = load_plugin_instances(
+            cfg, "tsd.core.storage_exception_handler", single=True,
+            init_arg=self)
+        # a filter may opt out of the per-point call
+        # (ref: WriteableDataPointFilterPlugin.filterDataPoints)
+        self.write_filters = [
+            f for f in load_plugin_instances(
+                cfg, "tsd.core.write_filter", init_arg=self)
+            if not hasattr(f, "filter_data_points")
+            or f.filter_data_points()]
+        self.uid_filter = load_plugin_instances(
+            cfg, "tsd.uid.filter", single=True, init_arg=self)
+        self.meta_cache = load_plugin_instances(
+            cfg, "tsd.core.meta.cache", single=True, init_arg=self)
+        if cfg.get_bool("tsd.core.authentication.enable"):
+            from opentsdb_tpu_torch.auth.simple import SimpleAuthentication
+            self.authentication = SimpleAuthentication(cfg)
+        self._point_hooks = bool(self.write_filters
+                                 or self.rt_publisher is not None
+                                 or self.meta_cache is not None)
+
+    def _run_hook(self, name: str, fn, *args) -> None:
+        """Run one post-write hook (the meta tracking, the external meta
+        cache, the realtime publisher, the tree filing). The point is
+        durable when it runs, so a failure must not fail the write: the
+        client would retry a write that happened. It is counted
+        (``hooks.errors`` in /api/stats, by hook) and logged, as the
+        reference's ``_run_hook`` does; the write goes on. This is the
+        reference's contract for hooks, not a fallback of a device
+        path."""
+        try:
+            fn(*args)
+        except Exception:  # noqa: BLE001 - the write is acknowledged
+            n = self.hook_errors.get(name, 0) + 1
+            self.hook_errors[name] = n
+            if n <= 5 or n % 1000 == 0:
+                logging.getLogger("tsdb").exception(
+                    "%s hook failed (%d so far); the write itself "
+                    "succeeded", name, n)
 
     def _wal_group_window_ms(self) -> int:
         """``tsd.storage.wal.group_window_ms``; "" (the default) means 0
@@ -508,11 +611,11 @@ class TSDB:
 
     def serve_version(self) -> tuple:
         """The version of every store a query can read (ref:
-        ``TSDB.serve_version``): the raw store, the histograms and the
-        rollup tiers with the preagg store. A write or a delete to any
-        of them changes it."""
+        ``TSDB.serve_version``): the raw store, the histograms, the
+        annotations and the rollup tiers with the preagg store. A write
+        or a delete to any of them changes it."""
         parts = [*self.store.version, self._histogram_version,
-                 *self.histogram_store.version]
+                 *self.histogram_store.version, self.annotations.version]
         if self.rollup_store is not None:
             parts.append(self.rollup_store.version())
         return tuple(parts)
@@ -556,7 +659,8 @@ class TSDB:
     def shutdown(self) -> None:
         """Stop a running warmup, flush, stop the continuous queries'
         fold workers and the fan-out pool (waiting for their threads to
-        end), then close the WAL (ref: ``TSDB.shutdown``)."""
+        end), close the WAL, then shut the realtime publisher and the
+        search plugin down (ref: ``TSDB.shutdown``)."""
         if self._warmup_stop is not None:
             self._warmup_stop.set()
         self.flush()
@@ -568,6 +672,10 @@ class TSDB:
             pool.shutdown(wait=True)
         if self.wal is not None:
             self.wal.close()
+        if self.rt_publisher is not None:
+            self.rt_publisher.shutdown()
+        if self.search_plugin is not None:
+            self.search_plugin.shutdown()
 
     # -- suggest and stats (ref: TSDB.java:1762-1846, collectStats :753)
 
@@ -619,7 +727,11 @@ class TSDB:
         assigned in the order a per-point write would meet them
         (series order, then each series' tag order). ``create`` assigns
         missing names whatever the auto-create keys say (WAL replay: the
-        write they belong to was acknowledged)."""
+        write they belong to was acknowledged). With a UID filter, names
+        resolve one at a time (:meth:`_resolve_uids_filtered`)."""
+        if self.uid_filter is not None and not create:
+            return self._resolve_uids_filtered(metric, tags_list)
+
         def ids(registry, names, auto):
             return (registry.get_or_create_ids(names) if auto or create
                     else [registry.get_id(n) for n in names])
@@ -636,29 +748,107 @@ class TSDB:
             pos += len(tags)
         return metric_id, out
 
+    def _resolve_uids_filtered(self, metric: str,
+                               tags_list: Sequence[dict[str, str]]
+                               ) -> tuple[int, list[list[tuple[int, int]]]]:
+        """:meth:`_resolve_uids` under the UID filter (ref:
+        ``_resolve_write_uids``, UniqueIdFilterPlugin.allowUIDAssignment):
+        name by name in the order a per-point write meets them, the
+        filter asked before a new name gets a UID. A name it rejects
+        raises FailedToAssignUniqueIdError; the names before it keep
+        theirs."""
+        def resolve(registry, kind: str, name: str, auto: bool,
+                    tags: dict) -> int:
+            if not auto:
+                return registry.get_id(name)
+            if not registry.has_name(name) and \
+                    not self.uid_filter.allow_uid_assignment(
+                        kind, name, metric, tags):
+                raise FailedToAssignUniqueIdError(
+                    f"UID filter rejected assignment of {kind} {name!r}")
+            return registry.get_or_create_id(name)
+
+        metric_id = resolve(self.uids.metrics, "metric", metric,
+                            self.auto_metric,
+                            tags_list[0] if tags_list else {})
+        out = []
+        for tags in tags_list:
+            out.append([(resolve(self.uids.tag_names, "tagk", k,
+                                 self.auto_tagk, tags),
+                         resolve(self.uids.tag_values, "tagv", v,
+                                 self.auto_tagv, tags))
+                        for k, v in tags.items()])
+        return metric_id, out
+
     def _check_writable(self) -> None:
         if self.mode == "ro":
             raise PermissionError("TSD is in read-only mode")
 
     @_tapped
     def add_point(self, metric: str, timestamp: int, value: int | float,
-                  tags: dict[str, str]) -> int:
-        """Write one datapoint; returns the series id
-        (ref: TSDB.addPoint :1012/:1057/:1097). The timestamp is checked
-        first, with the reference's per-point messages."""
+                  tags: dict[str, str], durable: bool = True) -> int:
+        """Write one datapoint; returns the series id, or -1 when a write
+        filter turned it away (ref: TSDB.addPoint :1012/:1057/:1097).
+        The timestamp is checked first, with the reference's per-point
+        messages, then the names, then the write filters.
+        ``durable=False`` leaves the point out of the WAL (the
+        reference's ``setDurable(false)``)."""
         self._check_writable()
         if timestamp <= 0:
             raise ValueError(f"invalid timestamp {timestamp}")
         if timestamp >= (1 << 32) and timestamp > (1 << 47):
             raise ValueError(f"timestamp out of range: {timestamp}")
+        if self.write_filters:
+            tags_mod.check_metric_and_tags(metric, tags)
+            if not self._allowed(metric, timestamp, value, tags):
+                return -1
         metric_id, sid, ts_ms, vals = self._write_series(
             metric, [timestamp], [float(value)], tags,
-            [type(value) is int])
+            [type(value) is int], durable=durable)
         if self._streaming is not None:
             # the scalar tap: a tuple append, no numpy per point
             self._tap(self._streaming.offer, metric_id, sid,
                       int(ts_ms[0]), float(vals[0]))
+        if self._point_hooks or self.meta.track_ts:
+            tag_ids = self.store.series(sid).tags
+            self._series_hooks(metric_id, tag_ids, sid, 1)
+            if self._point_hooks:
+                self._point_hook(self.uids.tsuid(metric_id, tag_ids),
+                                 metric, timestamp, value, tags)
         return sid
+
+    def _allowed(self, metric: str, timestamp: int, value,
+                 tags: dict[str, str]) -> bool:
+        """Whether every write filter lets the point through (ref:
+        ``allow_data_point``, TSDB.java:1262)."""
+        for filt in self.write_filters:
+            allow = getattr(filt, "allow_data_point", filt)
+            if not allow(metric, timestamp, value, tags):
+                return False
+        return True
+
+    def _series_hooks(self, metric_id: int, tag_ids, sid: int,
+                      count: int) -> None:
+        """The meta hook of ``count`` points written to one series: the
+        built-in TSMeta tracking, unless an external meta cache takes
+        its place (ref: TSDB.java:1225-1245)."""
+        if self.meta_cache is None and self.meta.track_ts:
+            self._run_hook("meta", self.meta.on_datapoint, metric_id,
+                           tag_ids, sid, count)
+
+    def _point_hook(self, tsuid: bytes, metric: str, timestamp: int,
+                    value, tags: dict[str, str]) -> None:
+        """The per-point hooks of one written point: the external meta
+        cache's counter and the realtime publisher (ref: add_point's
+        hooks), each through :meth:`_run_hook`."""
+        if self.meta_cache is not None:
+            self._run_hook("meta_cache",
+                           self.meta_cache.increment_and_get_counter,
+                           tsuid)
+        if self.rt_publisher is not None:
+            self._run_hook("rt_publisher",
+                           self.rt_publisher.publish_data_point,
+                           metric, timestamp, value, tags, tsuid)
 
     @_tapped
     def add_points(self, metric: str, timestamps, values,
@@ -666,20 +856,55 @@ class TSDB:
         """Bulk write many points of ONE series; returns the series id.
         The whole batch is validated before anything is written.
         ``is_int`` is one integer flag or one per point (by default,
-        whether the values' dtype is an integer one); the native store
-        keeps them."""
+        whether the values' dtype is an integer one); both stores keep
+        them. With a per-point hook on, the points go one by one
+        through :meth:`add_point` (ref: ``add_points``), under one WAL
+        scope; a failure raises :class:`PartialWriteError` with the
+        count that landed."""
         self._check_writable()
+        if self._point_hooks:
+            return self._add_points_hooked(metric, timestamps, values,
+                                           tags, is_int)
         metric_id, sid, ts_ms, vals = self._write_series(
             metric, timestamps, values, tags, is_int)
         if self._streaming is not None:
             self._tap_lines(metric_id, np.full(len(ts_ms), sid, np.int64),
                             ts_ms, vals)
+        if self.meta.track_ts:
+            self._series_hooks(metric_id, self.store.series(sid).tags, sid,
+                               len(ts_ms))
+        return sid
+
+    def _add_points_hooked(self, metric: str, timestamps, values,
+                           tags: dict[str, str], is_int) -> int:
+        """:meth:`add_points` with a per-point hook on: the batch is
+        validated whole, then each point is one :meth:`add_point`."""
+        raw = np.asarray(values)
+        if np.shape(timestamps) != raw.shape or raw.ndim != 1:
+            raise ValueError("timestamps/values must be equal-length 1-D")
+        normalize_timestamps(timestamps)
+        tags_mod.check_metric_and_tags(metric, tags)
+        if is_int is None:
+            is_int = np.issubdtype(raw.dtype, np.integer)
+        flags = np.broadcast_to(np.asarray(is_int, dtype=bool), raw.shape)
+        sid = -1
+        done = 0
+        with self._wal_scope():
+            for t, v, f in zip(np.asarray(timestamps).tolist(),
+                               raw.tolist(), flags.tolist()):
+                try:
+                    sid = self.add_point(metric, int(t),
+                                         int(v) if f else float(v), tags)
+                except Exception as e:  # noqa: BLE001 - reported below
+                    raise PartialWriteError(done, e) from e
+                done += 1
         return sid
 
     def _write_series(self, metric: str, timestamps, values,
-                      tags: dict[str, str], is_int):
-        """The write of :meth:`add_points`, logged and synced; returns
-        (metric id, series id, timestamps in ms, float64 values)."""
+                      tags: dict[str, str], is_int, durable: bool = True):
+        """The write of :meth:`add_points`, logged (unless not
+        ``durable``) and synced; returns (metric id, series id,
+        timestamps in ms, float64 values)."""
         raw = np.asarray(values)
         vals = raw.astype(np.float64)
         if np.shape(timestamps) != vals.shape or vals.ndim != 1:
@@ -691,7 +916,7 @@ class TSDB:
         metric_id, (tag_ids,) = self._resolve_uids(metric, [tags])
         sid = self.store.get_or_create_series(metric_id, tag_ids)
         self.store.append_many(sid, ts_ms, vals, is_int)
-        if self.wal is not None:
+        if self.wal is not None and durable:
             # joins an enclosing request's scope (add_point_groups')
             with self.wal.batch():
                 self.wal.ensure_series("data", sid, metric, tags)
@@ -711,6 +936,20 @@ class TSDB:
         errors stay per-point (ref: TSDB.add_point_groups)."""
         errors: list[str] = []
         written = 0
+
+        def replay(metric, tags, refs, ts_list, raw, first: int) -> None:
+            nonlocal written
+            for j in range(first, len(ts_list)):
+                try:
+                    # a point a write filter turns away counts as
+                    # written, as in the reference
+                    self.add_point(metric, ts_list[j], raw[j], tags)
+                    written += 1
+                except Exception as e:  # noqa: BLE001 - a point's error
+                    errors.append(f"{metric} @{ts_list[j]}: {e}")
+                    if on_error is not None:
+                        on_error(refs[j], e)
+
         # the whole request commits as one WAL write and one fsync
         with self._wal_scope():
             for metric, tags, refs, ts_list, raw in groups:
@@ -718,18 +957,21 @@ class TSDB:
                     self.add_points(metric, ts_list, raw, tags,
                                     is_int=[type(v) is int for v in raw])
                     written += len(ts_list)
-                except (ValueError, TypeError, LookupError,
-                        PermissionError):
-                    for j in range(len(ts_list)):
-                        try:
-                            self.add_point(metric, ts_list[j], raw[j],
-                                           tags)
-                            written += 1
-                        except (ValueError, TypeError, LookupError,
-                                PermissionError) as e:
-                            errors.append(f"{metric} @{ts_list[j]}: {e}")
-                            if on_error is not None:
-                                on_error(refs[j], e)
+                except PartialWriteError as pe:
+                    # the hooked loop landed pe.written points and the
+                    # next failed after its hooks may have run: it is
+                    # not retried (hooks are not idempotent), the rest
+                    # replay point by point
+                    k = pe.written
+                    written += k
+                    errors.append(f"{metric} @{ts_list[k]}: {pe.cause}")
+                    if on_error is not None:
+                        on_error(refs[k], pe.cause)
+                    replay(metric, tags, refs, ts_list, raw, k + 1)
+                except Exception:  # noqa: BLE001 - replayed per point
+                    # nothing landed: every point on its own, so the good
+                    # ones land and each error maps to its point
+                    replay(metric, tags, refs, ts_list, raw, 0)
         return written, errors
 
     @_tapped
@@ -742,7 +984,13 @@ class TSDB:
         ``ts2d``/``values2d`` (its first ``counts[i]`` cells, or all of
         them) goes to the series tagged ``tags_list[i]``. Each distinct
         tag string is validated once, UIDs resolve in one pass, and the
-        store takes one append. Returns the series ids."""
+        store takes one append. Returns the series ids.
+
+        The hooks run per series and per point: the write filters ask
+        for each point before anything is written (a row they empty
+        makes no series, and its id is -1), the meta tracking counts
+        each series' points once, and the meta cache and the realtime
+        publisher see each point."""
         self._check_writable()
         ts2d = np.asarray(ts2d, dtype=np.int64)
         values2d = np.asarray(values2d)
@@ -770,6 +1018,28 @@ class TSDB:
             ts_flat, val_flat = ts2d[present], values2d[present]
             sids_rows = present
         ts_ms = normalize_timestamps(ts_flat)
+        rows = None
+        if self.write_filters:
+            present = np.ones(ts2d.shape, dtype=bool) if sids_rows is None \
+                else sids_rows.copy()
+            for i, j in zip(*np.nonzero(present)):
+                v = float(values2d[i, j])
+                present[i, j] = self._allowed(
+                    metric, int(ts2d[i, j]), int(v) if is_int else v,
+                    tags_list[i])
+            n_rows = ts2d.shape[0]
+            if not present.any(axis=1).all():
+                rows = np.flatnonzero(present.any(axis=1))
+                if not len(rows):
+                    # nothing passed: no UID and no series is made
+                    return np.full(n_rows, -1, dtype=np.int64)
+                tags_list = [tags_list[i] for i in rows.tolist()]
+                ts2d, values2d, present = ts2d[rows], values2d[rows], \
+                    present[rows]
+            sids_rows = present
+            ts_flat, val_flat = ts2d[present], values2d[present]
+            ts_ms = normalize_timestamps(ts_flat) if len(ts_flat) \
+                else ts_flat
         metric_id, tag_ids = self._resolve_uids(metric, tags_list)
         sids = self.store.get_or_create_series_bulk(metric_id, tag_ids)
         if sids_rows is None:
@@ -790,6 +1060,26 @@ class TSDB:
                 self.wal.sync()
         self.datapoints_added += len(ts_ms)
         self._tap_lines(metric_id, point_sids, ts_ms, val_flat)
+        if self._point_hooks or self.meta.track_ts:
+            per_row = np.full(len(sids), ts2d.shape[1], dtype=np.int64) \
+                if sids_rows is None else sids_rows.sum(axis=1)
+            for i, sid in enumerate(sids.tolist()):
+                if not per_row[i]:
+                    continue        # a row with no point writes none
+                self._series_hooks(metric_id, tag_ids[i], sid,
+                                   int(per_row[i]))
+                if not self._point_hooks:
+                    continue
+                tsuid = self.uids.tsuid(metric_id, tag_ids[i])
+                cells = slice(None) if sids_rows is None else sids_rows[i]
+                for t, v in zip(ts2d[i][cells].tolist(),
+                                values2d[i][cells].tolist()):
+                    self._point_hook(tsuid, metric, t,
+                                     int(v) if is_int else v, tags_list[i])
+        if rows is not None:
+            out = np.full(n_rows, -1, dtype=np.int64)
+            out[rows] = sids
+            return out
         return sids
 
     def add_aggregate_point(self, metric: str, timestamp: int,
@@ -802,7 +1092,9 @@ class TSDB:
         TSDB.java:1320-1418). A pre-aggregate (``is_groupby``) is tagged
         with its group-by aggregator under ``tsd.rollups.agg_tag_key``;
         with no ``interval`` it goes to the preagg store, else to the
-        tier of ``interval`` and ``rollup_agg``."""
+        tier of ``interval`` and ``rollup_agg``. The realtime publisher
+        sees it (``publish_aggregate_point``, RTPublisher.java's
+        publishAggregatePoint)."""
         if self.rollup_store is None:
             raise RuntimeError("rollups are not enabled "
                                "(tsd.rollups.enable=false)")
@@ -832,6 +1124,11 @@ class TSDB:
                 self.wal.log_point(kind, sid, ts_ms, value, False)
                 self.wal.sync()
         self.datapoints_added += 1
+        if self.rt_publisher is not None:
+            self._run_hook("rt_publisher",
+                           self.rt_publisher.publish_aggregate_point,
+                           metric, timestamp, value, tags,
+                           self.uids.tsuid(metric_id, tag_ids))
         return sid
 
     # -- histogram points (ref: TSDB.add_histogram_batch :847,
@@ -897,7 +1194,9 @@ class TSDB:
         makes no UID and no series. A failing point is reported through
         ``on_error(index, exc)``. The valid points land in one arena
         append with their WAL records (:meth:`_arena_append`), and the
-        WAL syncs once. Returns (points written, error strings)."""
+        WAL syncs once; then the realtime publisher sees each
+        (``publish_histogram_point``). Returns (points written, error
+        strings)."""
         groups: dict[tuple, list] = {}
         errors: list[str] = []
         landed: list[tuple] = []
@@ -946,7 +1245,19 @@ class TSDB:
                 if self.wal is not None:
                     self.wal.sync()
         self.datapoints_added += len(landed)
+        for metric_id, sid, _ts, _h, record in landed:
+            self._publish_histogram(metric_id, sid, record)
         return len(landed), errors
+
+    def _publish_histogram(self, metric_id: int, sid: int, record) -> None:
+        """The realtime publisher's hook of one written histogram point
+        ``record`` = (metric, tags, timestamp, blob)."""
+        if self.rt_publisher is not None:
+            metric, tags, ts, blob = record
+            self._run_hook(
+                "rt_publisher", self.rt_publisher.publish_histogram_point,
+                metric, ts, blob, tags, self.uids.tsuid(
+                    metric_id, self.histogram_store.series(sid).tags))
 
     def add_histogram_point(self, metric: str, timestamp: int,
                             raw_blob: bytes, tags: dict[str, str],
@@ -968,11 +1279,13 @@ class TSDB:
         if record is not None and self.wal is not None:
             self.wal.sync()
         self.datapoints_added += 1
+        if record is not None:
+            self._publish_histogram(metric_id, sid, record)
         return sid
 
-    def _import_series(self, line: bytes) -> tuple[int, str, dict, int]:
-        """The series id, metric and tags of one import line's series,
-        created (with its UIDs) when new, and the metric's id."""
+    @staticmethod
+    def _import_names(line: bytes) -> tuple[str, dict]:
+        """The metric and tags of one import line."""
         text = line.decode("utf-8")
         # the parser splits on spaces and tabs only
         words = [w for w in text.replace("\t", " ").split(" ") if w]
@@ -982,6 +1295,12 @@ class TSDB:
             # the parser passes UTF-8 bytes through; names are checked
             # letter by letter here
             tags_mod.check_metric_and_tags(metric, tags)
+        return metric, tags
+
+    def _import_series(self, line: bytes) -> tuple[int, str, dict, int]:
+        """The series id, metric and tags of one import line's series,
+        created (with its UIDs) when new, and the metric's id."""
+        metric, tags = self._import_names(line)
         metric_id, (tag_ids,) = self._resolve_uids(metric, [tags])
         return (self.store.get_or_create_series(metric_id, tag_ids),
                 metric, tags, metric_id)
@@ -1006,13 +1325,20 @@ class TSDB:
         new series' records, then one record of every line) under one
         batch scope and one sync; ``durable=False`` leaves them out of
         the log (the reference's ``setDurable(false)``). Returns (points
-        written, error strings). Needs the native store."""
+        written, error strings). Needs the native store.
+
+        With a per-point hook on, each line is one :meth:`add_point`
+        instead (the reference's ``use_hooks`` path,
+        :meth:`_import_hooked`); with meta tracking alone, each series'
+        landed lines are counted once."""
         self._check_writable()
         if self.store.backend != "native":
             raise RuntimeError("import_buffer parses with the native "
                                "store's library: it needs "
                                "tsd.storage.backend=native")
         parsed = parse_import_buffer(buf)
+        if self._point_hooks:
+            return self._import_hooked(parsed, on_error, durable)
         gids, errs = parsed.group_ids, parsed.errors
         ts_ms = np.where(parsed.ts >= (1 << 32), parsed.ts,
                          parsed.ts * 1000)
@@ -1104,6 +1430,48 @@ class TSDB:
                 rows = landed[mids == mid]
                 self._tap_lines(mid, sids[rows], ts_ms[rows],
                                 parsed.values[rows])
+        if self.meta.track_ts and written:
+            # each series' landed lines, counted once (ref: the bulk
+            # path's meta hook)
+            landed = gids[(line_sids(0, len(gids)) >= 0) & (errs == 0)]
+            counts = np.bincount(landed, minlength=parsed.num_groups)
+            for g in np.flatnonzero(counts).tolist():
+                sid = int(gsid[g])
+                self._series_hooks(int(gmid[g]),
+                                   self.store.series(sid).tags, sid,
+                                   int(counts[g]))
+        return written, errors
+
+    def _import_hooked(self, parsed, on_error, durable: bool
+                       ) -> tuple[int, list[str]]:
+        """:meth:`import_buffer` with a per-point hook on: each line, in
+        line order, is one :meth:`add_point` under one WAL scope (ref:
+        ``use_hooks``). A line a write filter turns away counts as
+        written, as in the reference."""
+        errors: list[str] = []
+        names: dict[int, tuple] = {}    # each series' metric and tags
+        written = 0
+        values = parsed.values.tolist()
+        with self._wal_scope():
+            for i, (code, g, t, f) in enumerate(zip(
+                    parsed.errors.tolist(), parsed.group_ids.tolist(),
+                    parsed.ts.tolist(), parsed.is_int.tolist())):
+                if code == 0 and g < 0:
+                    continue            # a blank or comment line
+                try:
+                    if code > 0:
+                        raise ValueError(IMPORT_ERRORS[code])
+                    if g not in names:
+                        names[g] = self._import_names(parsed.rep_lines[g])
+                    metric, tags = names[g]
+                    self.add_point(metric, t,
+                                   int(values[i]) if f else values[i],
+                                   tags, durable=durable)
+                    written += 1
+                except Exception as e:  # noqa: BLE001 - the line's error
+                    errors.append(f"line {i + 1}: {e}")
+                    if on_error is not None:
+                        on_error(i + 1, e)
         return written, errors
 
     # -- query path -------------------------------------------------------

@@ -75,12 +75,33 @@ class UniqueId:
             raise NoSuchUniqueName(self.kind, name)
         return uid
 
-    def get_name(self, uid: int) -> str:
+    def get_name(self, uid: int | bytes) -> str:
+        """The name of a UID, given as an int or as its bytes (whose
+        error then names the UID in hex, as the reference's does)."""
+        iid = self.uid_to_int(uid) if isinstance(uid, bytes) else uid
         with self._lock:
-            name = self._id_to_name.get(uid)
+            name = self._id_to_name.get(iid)
         if name is None:
-            raise NoSuchUniqueId(self.kind, uid)
+            raise NoSuchUniqueId(self.kind, uid.hex()
+                                 if isinstance(uid, bytes) else uid)
         return name
+
+    def has_name(self, name: str) -> bool:
+        with self._lock:
+            return name in self._name_to_id
+
+    def rename(self, old_name: str, new_name: str) -> None:
+        """(ref: UniqueId.java rename; ``/api/uid/rename``)"""
+        with self._lock:
+            if old_name not in self._name_to_id:
+                raise NoSuchUniqueName(self.kind, old_name)
+            if new_name in self._name_to_id:
+                raise FailedToAssignUniqueIdError(
+                    f"cannot rename to existing name '{new_name}'")
+            uid = self._name_to_id.pop(old_name)
+            self._name_to_id[new_name] = uid
+            self._id_to_name[uid] = new_name
+            self._sorted_names = None
 
     def get_or_create_id(self, name: str) -> int:
         """(ref: UniqueId.java:596-625, getOrCreateId :865)"""
@@ -183,6 +204,12 @@ class UniqueId:
 
     def int_to_uid(self, uid: int) -> bytes:
         return uid.to_bytes(self.width, "big")
+
+    def uid_to_int(self, uid: bytes) -> int:
+        if len(uid) != self.width:
+            raise ValueError(
+                f"wrong UID length {len(uid)}, expected {self.width}")
+        return int.from_bytes(uid, "big")
 
 
 class UidRegistry:

@@ -49,10 +49,10 @@ sequence and the arenas under the same lock. The scalar stores are the
 data store and, with rollups on, the rollup stores (kinds ``preagg`` and
 ``tier:<interval>:<agg>``); a rollup record replayed with rollups off
 raises, naming ``tsd.rollups.enable``, where the reference drops it.
-The port writes no annotation record: replay refuses ``T_ANNOT`` and
-``T_ANNOT_DEL``, naming the ROADMAP Queue 1 item that ports them,
-rather than drop them. Single writer: one TSDB owns a data_dir at a
-time.
+``T_ANNOT`` holds an annotation's JSON document (with its ``tsuid``)
+and ``T_ANNOT_DEL`` a delete (``tsuid``, ``start``); replay stores or
+deletes them without logging again. Single writer: one TSDB owns a
+data_dir at a time.
 """
 
 from __future__ import annotations
@@ -69,6 +69,7 @@ import zlib
 
 import numpy as np
 
+from opentsdb_tpu_torch.meta.annotation import Annotation
 from opentsdb_tpu_torch.utils.faults import call_with_retries
 
 log = logging.getLogger("wal")
@@ -80,25 +81,13 @@ T_SERIES = 1      # json {"k": kind, "sid": int, "m": name, "t": [[k,v]..]}
 T_POINTS = 2      # bin: kind | sid i64 | n i32 | ts i64[n] f64[n] u8[n]
 T_LINES = 3       # bin: kind | n i32 | sids i64[n] ts i64[n] f64[n] u8[n]
 T_UID = 4         # json {"kind", "name"}
-T_ANNOT = 5       # json annotation doc (+"tsuid"); not written here
-T_ANNOT_DEL = 6   # json {"tsuid", "start"}; not written here
+T_ANNOT = 5       # json annotation doc (+"tsuid")
+T_ANNOT_DEL = 6   # json {"tsuid", "start"}
 T_HIST = 7        # json {"m", "t", "ts"} \n blob bytes
-
-# records the reference writes for subsystems the port has not ported,
-# by the ROADMAP Queue 1 item that ports them
-_UNPORTED = {
-    T_ANNOT: ("an annotation", "the rest, with no device compute"),
-    T_ANNOT_DEL: ("an annotation delete",
-                  "the rest, with no device compute"),
-}
 
 _KIND = struct.Struct("<B")     # kind string length prefix
 _SID_N = struct.Struct("<qi")   # sid, count
 _N = struct.Struct("<i")        # count
-
-
-class UnportedRecordError(NotImplementedError):
-    """The log holds a record of a subsystem the port lacks."""
 
 
 def _pack_kind(kind: str) -> bytes:
@@ -419,6 +408,12 @@ class WriteAheadLog:
 
     def log_uid(self, kind: str, name: str) -> None:
         self._append_json(T_UID, {"kind": kind, "name": name})
+
+    def log_annotation(self, doc: dict) -> None:
+        self._append_json(T_ANNOT, doc)
+
+    def log_annotation_delete(self, tsuid: str, start: int) -> None:
+        self._append_json(T_ANNOT_DEL, {"tsuid": tsuid, "start": start})
 
     def log_histogram(self, metric: str, tags: dict[str, str],
                       ts: int, blob: bytes) -> None:
@@ -823,11 +818,14 @@ class WriteAheadLog:
                                      dict(doc["t"]), _wal=False,
                                      create=True)
             return 1
-        if rtype in _UNPORTED:
-            what, item = _UNPORTED[rtype]
-            raise UnportedRecordError(
-                f"the WAL holds {what} (record seq={seq}, type {rtype}); "
-                f"it is not ported yet (ROADMAP Queue 1, {item})")
+        if rtype == T_ANNOT:
+            tsdb.annotations.store(Annotation.from_json(json.loads(payload)),
+                                   _wal=False)
+            return 0
+        if rtype == T_ANNOT_DEL:
+            doc = json.loads(payload)
+            tsdb.annotations.delete(doc["tsuid"], doc["start"], _wal=False)
+            return 0
         raise ValueError(f"wal: unknown record type {rtype} at seq={seq}")
 
 

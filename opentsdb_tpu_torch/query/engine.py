@@ -22,7 +22,10 @@ Port of ``opentsdb_tpu/query/engine.py``'s ``QueryEngine.run`` ->
    cell budget (``tsd.query.max_device_cells``), the point path streams
    it in time blocks instead (``ops.blocked.execute_blocked``), with
    no prepared batch
-7. result assembly with the reference's tags/aggregateTags semantics
+7. result assembly with the reference's tags/aggregateTags semantics,
+   and each group's annotations (those of its member series in the
+   query's range, unless ``noAnnotations``) and, with
+   ``globalAnnotations``, the global ones
 
 With rollups on (``tsd.rollups.enable``), step 1 picks the store first
 (``_select_store``, ref: TsdbQuery's rollup best match and
@@ -142,39 +145,12 @@ _REST = "the rest, with no device compute"
 _UNPORTED_SUBSYSTEM_KEYS = (
     ("tsd.lifecycle.enable", "false", "the data lifecycle", _REST),
     ("tsd.cluster.role", "", "the sharded cluster", _REST),
-    ("tsd.core.meta.enable_realtime_ts", "false", "TSMeta tracking",
-     _REST),
-    ("tsd.core.meta.enable_realtime_uid", "false", "UIDMeta tracking",
-     _REST),
-    ("tsd.core.meta.enable_tsuid_incrementing", "false",
-     "TSMeta counters", _REST),
-    ("tsd.core.meta.enable_tsuid_tracking", "false", "TSMeta tracking",
-     _REST),
-    ("tsd.core.tree.enable_processing", "false", "tree processing", _REST),
-    ("tsd.core.authentication.enable", "false", "authentication", _REST),
-)
-# plugin slots the port does not load (ref: TSDB.initialize_plugins,
-# the command line's tsd.startup and tsd.rpc, the HTTP router's
-# tsd.http.rpc): (key prefix, the slot). A slot is on when
-# <prefix>.enable is true and <prefix>.plugin names a class (ref:
-# utils/plugin.py::load_plugin_instances)
-_UNPORTED_PLUGIN_SLOTS = (
-    ("tsd.rtpublisher", "the realtime publisher"),
-    ("tsd.search", "the search plugin"),
-    ("tsd.core.storage_exception_handler",
-     "the storage exception handler"),
-    ("tsd.core.write_filter", "the write filters"),
-    ("tsd.uid.filter", "the UID filter"),
-    ("tsd.core.meta.cache", "the meta cache"),
-    ("tsd.startup", "the startup plugin"),
-    ("tsd.rpc", "the RPC plugins"),
-    ("tsd.http.rpc", "the HTTP RPC plugins"),
 )
 
 
 def refuse_unported_keys(config) -> None:
-    """Raise NotImplementedError when a key turns on a subsystem or a
-    plugin slot the port lacks, rather than serve as if it were off."""
+    """Raise NotImplementedError when a key turns on a subsystem the
+    port lacks, rather than serve as if it were off."""
     for key, default, what, item in _UNPORTED_SUBSYSTEM_KEYS:
         value = config.get_string(key, default).strip()
         on = config.get_bool(key) if default == "false" else value != default
@@ -182,13 +158,6 @@ def refuse_unported_keys(config) -> None:
             raise NotImplementedError(
                 f"{key}={value} turns on {what}, which is not ported yet "
                 f"(ROADMAP Queue 1, {item}); leave {key} at {default!r}")
-    for prefix, what in _UNPORTED_PLUGIN_SLOTS:
-        plugin = config.get_string(f"{prefix}.plugin", "").strip()
-        if config.get_bool(f"{prefix}.enable") and plugin:
-            raise NotImplementedError(
-                f"{prefix}.enable=true with {prefix}.plugin={plugin} loads "
-                f"{what}, which is not ported yet (ROADMAP Queue 1, "
-                f"{_REST}); leave {prefix}.enable at 'false'")
     # a typo raises ValueError here, as at the reference's boot
     parse_mesh_spec(config.get_string("tsd.query.mesh", ""))
 
@@ -329,17 +298,22 @@ class QueryResult:
     """One output group — the analogue of one ``DataPoints`` object."""
 
     __slots__ = ("metric", "tags", "aggregated_tags", "tsuids",
-                 "sub_query_index", "dps_arrays")
+                 "sub_query_index", "dps_arrays", "annotations",
+                 "global_annotations")
 
     def __init__(self, metric: str, tags: dict, aggregated_tags: list,
                  dps_arrays: tuple, tsuids: list | None = None,
-                 sub_query_index: int = 0):
+                 sub_query_index: int = 0, annotations: list | None = None,
+                 global_annotations: list | None = None):
         self.metric = metric
         self.tags = tags
         self.aggregated_tags = aggregated_tags
         self.dps_arrays = dps_arrays    # (ts_ms int64 [N], values [N])
         self.tsuids = tsuids if tsuids is not None else []
         self.sub_query_index = sub_query_index
+        self.annotations = annotations if annotations is not None else []
+        self.global_annotations = global_annotations \
+            if global_annotations is not None else []
 
     @property
     def dps(self) -> list:
@@ -360,7 +334,8 @@ class QueryResult:
         if self.sub_query_index == index:
             return self
         return QueryResult(self.metric, self.tags, self.aggregated_tags,
-                           self.dps_arrays, self.tsuids, index)
+                           self.dps_arrays, self.tsuids, index,
+                           self.annotations, self.global_annotations)
 
     def cache_copy(self) -> "QueryResult":
         """Detached twin for the result cache: shares the immutable
@@ -368,7 +343,8 @@ class QueryResult:
         never changes the cached entry."""
         return QueryResult(self.metric, self.tags, self.aggregated_tags,
                            self.dps_arrays, self.tsuids,
-                           self.sub_query_index)
+                           self.sub_query_index, self.annotations,
+                           self.global_annotations)
 
     def __repr__(self) -> str:
         return (f"QueryResult(metric={self.metric!r}, "
@@ -687,17 +663,20 @@ class QueryEngine:
         to the raw store when over budget: its version covers both. A
         percentile sub-query reads the histogram arenas and, through the
         sketch path, the scalar store. When selection itself fails, the
-        whole TSDB's version (the query raises the same error)."""
+        whole TSDB's version (the query raises the same error). Results
+        carry annotations, so every version holds the annotation
+        store's (ref: ``_sub_version``'s ``ann``)."""
         t = self.tsdb
+        ann = t.annotations.version
         if sub.percentiles:
             return ("hist", t._histogram_version,
                     *t.histogram_store.version, t.store.instance_id,
-                    *t.store.version)
+                    *t.store.version, ann)
         try:
             store, _mid, _sids, cnt_store, _fn = self._select_store(sub)
         except (BadRequestError, ValueError):
             return ("all", t.serve_version())
-        parts = ["sel", store.instance_id, *store.version]
+        parts = ["sel", ann, store.instance_id, *store.version]
         if cnt_store is not None:
             parts += [cnt_store.instance_id, *cnt_store.version,
                       t.store.instance_id, *t.store.version]
@@ -886,6 +865,8 @@ class QueryEngine:
                     # downsample string to other buckets
                     getattr(sub.ds_spec, "use_calendar", False), mesh,
                     _agg_class(sub.agg, num_groups, mesh))
+            # no annotation version (ref: ``pver``): a hit rebuilds its
+            # results through _build_results, which reads the notes anew
             pver = store.version
             # an open breaker skips the device pool (a hit would run on
             # the failing device); the host pool's hits stay valid
@@ -1551,6 +1532,54 @@ class QueryEngine:
             mat[:, j] = col if col is not None else -1
         return compact_row_labels(mat)
 
+    def _annotated_members(self, metric_id: int, tags: TagMatrix,
+                           group_ids: np.ndarray) -> dict[int, list[str]]:
+        """The hex TSUIDs of the members that carry annotations, by
+        group, each group's in member order (ref: ``_build_results``,
+        which looks each member's TSUID up). Found from the annotated
+        TSUIDs, not from every member: each is decoded to its tag pairs,
+        hashed as a row of ``tags`` would be, matched in one pass over
+        the rows and checked pair by pair."""
+        uids = self.tsdb.uids
+        mw, kw, vw = (uids.metrics.width, uids.tag_names.width,
+                      uids.tag_values.width)
+        kids = tags.kids
+        # one odd 64-bit multiplier per tag key column
+        mult = (np.arange(len(kids), dtype=np.uint64) * np.uint64(
+            0x9E3779B97F4A7C15) + np.uint64(0x632BE59BD9B4E019)) \
+            | np.uint64(1)
+        wanted: dict[int, tuple] = {}
+        for tsuid in self.tsdb.annotations.tsuids():
+            raw = bytes.fromhex(tsuid)
+            if int.from_bytes(raw[:mw], "big") != metric_id:
+                continue
+            pairs = tuple(sorted(
+                (int.from_bytes(raw[p:p + kw], "big"),
+                 int.from_bytes(raw[p + kw:p + kw + vw], "big"))
+                for p in range(mw, len(raw), kw + vw)))
+            cols = np.searchsorted(kids, [k for k, _ in pairs])
+            if any(c >= len(kids) or kids[c] != k
+                   for c, (k, _) in zip(cols.tolist(), pairs)):
+                continue
+            h = 0
+            for c, (_, v) in zip(cols.tolist(), pairs):
+                h = (h + (v + 1) * int(mult[c])) & 0xFFFFFFFFFFFFFFFF
+            wanted.setdefault(h, []).append((pairs, tsuid))
+        if not wanted:
+            return {}
+        with np.errstate(over="ignore"):
+            row_h = ((tags.vids + 1).astype(np.uint64)
+                     * mult[None, :]).sum(axis=1, dtype=np.uint64)
+        rows = np.flatnonzero(np.isin(row_h, np.fromiter(
+            wanted, dtype=np.uint64, count=len(wanted))))
+        out: dict[int, list[str]] = {}
+        for r in rows.tolist():
+            pairs = tuple(sorted(tags.tags_of(r)))
+            for want, tsuid in wanted[int(row_h[r])]:
+                if want == pairs:
+                    out.setdefault(int(group_ids[r]), []).append(tsuid)
+        return out
+
     def _build_results(self, tsq: TSQuery, sub: TSSubQuery,
                        metric_id: int, sids: np.ndarray, tags: TagMatrix,
                        group_ids: np.ndarray, num_groups: int,
@@ -1570,6 +1599,12 @@ class QueryEngine:
             if keep is not None:
                 emit = emit & keep
         metric = self._metric_name(sub, metric_id)
+        notes = self.tsdb.annotations
+        start_s, end_s = tsq.start_ms // 1000, tsq.end_ms // 1000
+        noted = self._annotated_members(metric_id, tags, group_ids) \
+            if not tsq.no_annotations and notes.has_any() else {}
+        global_annotations = notes.global_range(start_s, end_s) \
+            if tsq.global_annotations else []
         bucket_ts = np.asarray(bucket_ts, dtype=np.int64)
         ts_out = (bucket_ts if tsq.ms_resolution
                   else (bucket_ts // 1000) * 1000)
@@ -1616,8 +1651,13 @@ class QueryEngine:
             if tsq.show_tsuids or sub.tsuids:
                 tsuids = [uids.tsuid(metric_id, tags.tags_of(m))
                           .hex().upper() for m in members]
+            annotations = []
+            for tsuid in noted.get(gid, ()):
+                annotations.extend(notes.range(tsuid, start_s, end_s))
             out.append(QueryResult(
                 metric=metric, tags=g_tags, aggregated_tags=agg_tags,
                 dps_arrays=(e_ts[lo_e:hi_e], e_vals[lo_e:hi_e]),
-                tsuids=tsuids, sub_query_index=sub.index))
+                tsuids=tsuids, sub_query_index=sub.index,
+                annotations=annotations,
+                global_annotations=global_annotations))
         return out

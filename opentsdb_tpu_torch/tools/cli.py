@@ -61,28 +61,42 @@ def parse_common_args(argv: list[str]) -> tuple[Config, list[str]]:
 
 
 def cmd_tsd(config: Config, args: list[str]) -> int:
-    """(ref: TSDMain.java:71) Builds the TSDB first, so a card asked
-    for and absent fails here, before anything listens."""
+    """(ref: TSDMain.java:71) The startup plugin (``tsd.startup``) is
+    initialized with the config before the TSDB exists; then the TSDB
+    is built, its plugin slots with it, so a card asked for and absent,
+    or a plugin that does not load, fails here, before anything
+    listens; then the RPC plugins (``tsd.rpc``) start. Once the socket
+    is bound the startup plugin's ``set_ready(tsdb)`` runs; at the end
+    the RPC plugins and the startup plugin shut down."""
     from opentsdb_tpu_torch.core.tsdb import TSDB
     from opentsdb_tpu_torch.tsd.server import TSDServer
+    from opentsdb_tpu_torch.utils.plugin import load_plugin_instances
 
     # the server's log lines (the warmup's class count among them) go
     # to stderr
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                         "%(message)s")
+    startup = load_plugin_instances(config, "tsd.startup", single=True)
     tsdb = TSDB(config)
     server = TSDServer(tsdb)
+    rpc_plugins = load_plugin_instances(config, "tsd.rpc", init_arg=tsdb)
 
     async def main():
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.add_signal_handler(sig, server.request_shutdown)
         await server.start()
+        if startup is not None:
+            startup.set_ready(tsdb)
         print(f"TSD listening on {server.host}:{server.port}", flush=True)
         await server.serve_forever()
 
     asyncio.run(main())
+    for plugin in rpc_plugins:
+        plugin.shutdown()
+    if startup is not None:
+        startup.shutdown()
     return 0
 
 

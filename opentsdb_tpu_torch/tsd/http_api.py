@@ -13,7 +13,12 @@ budgets, ``delete`` under ``tsd.http.query.allow_delete``),
 ``query/expression/``),
 ``/api/query/continuous`` (standing queries: register, list, inspect,
 ``/result``, ``/deltas``, the ``/stream`` of Server-Sent Events,
-delete), ``/api/suggest``,
+delete), ``/api/query/last``, ``/api/suggest``, ``/api/search``
+(``/lookup``, and the search plugin's own types),
+``/api/annotation`` (+``/bulk``), ``/api/annotations``, ``/api/uid``
+(``/assign``, ``/rename``, ``/uidmeta``, ``/tsmeta``), ``/api/tree``
+(:mod:`opentsdb_tpu_torch.tree.rpc`), ``/plugin/<path>`` (the
+``tsd.http.rpc`` plugins),
 ``/api/aggregators``, ``/api/config`` (+``/filters``),
 ``/api/dropcaches``, ``/api/serializers``, ``/api/version``,
 ``/api/stats`` (+``/query``, ``/jvm``, ``/threads``,
@@ -22,6 +27,16 @@ aliases. Every other endpoint of the reference's surface needs a
 subsystem the port does not have yet and answers a structured 501
 naming the ROADMAP item that ports it (:data:`UNPORTED`); a path the
 reference does not know answers 404.
+
+The wire format is the JSON serializer unless
+``tsd.http.serializer.plugin`` names another class, which is
+registered under its ``shortname`` and made the default
+(``?serializer=<shortname>`` picks one per request). With
+authentication on, the server sets ``request.auth`` and each RPC checks
+its permission (403): ``/api/put``, ``/api/rollup`` and
+``/api/histogram`` need HTTP_PUT, every ``/api/query`` endpoint
+HTTP_QUERY, and ``/api/uid/assign`` the CREATE_* of each kind it
+assigns.
 
 Exceptions map to statuses as the reference's router does: 400 for bad
 requests, 413 for a query over its limits, 503 with ``Retry-After`` for
@@ -48,17 +63,25 @@ from typing import Any, Callable
 import numpy as np
 
 from opentsdb_tpu_torch import __version__
+from opentsdb_tpu_torch.auth.simple import Permissions
+from opentsdb_tpu_torch.core import tags as tags_mod
 from opentsdb_tpu_torch.core.tags import parse_put_value
+from opentsdb_tpu_torch.core.uid import FailedToAssignUniqueIdError
+from opentsdb_tpu_torch.meta.annotation import Annotation
+from opentsdb_tpu_torch.meta.meta_store import MetaStore, UIDMeta
 from opentsdb_tpu_torch.ops import aggregators as aggs_mod
 from opentsdb_tpu_torch.query import filters as filters_mod
 from opentsdb_tpu_torch.query.limits import QueryLimitExceeded
 from opentsdb_tpu_torch.query.model import (BadRequestError, TSQuery,
                                             effective_pixels,
                                             parse_uri_query)
+from opentsdb_tpu_torch.search.lookup import (last_data_points,
+                                              time_series_lookup)
 from opentsdb_tpu_torch.stats.stats import QueryStat, QueryStats
 from opentsdb_tpu_torch.streaming.sse import sse_stream
 from opentsdb_tpu_torch.tsd.json_serializer import HttpJsonSerializer
 from opentsdb_tpu_torch.utils.faults import DegradedError
+from opentsdb_tpu_torch.utils.plugin import load_class, load_plugin_instances
 
 # the ROADMAP Queue 1 item that ports what is left
 _REST = "the rest, with no device compute"
@@ -67,12 +90,6 @@ _REST = "the rest, with no device compute"
 # "stats/<name>" and "query/<name>" for sub-endpoints, or "/<name>" for
 # paths outside /api
 UNPORTED: dict[str, tuple[str, str]] = {
-    "query/last": (_REST, "meta/ (last data points)"),
-    "search": (_REST, "search/"),
-    "uid": (_REST, "meta/ (UID assign, rename, UID and TS meta)"),
-    "annotation": (_REST, "meta/ (annotations)"),
-    "annotations": (_REST, "meta/ (annotations)"),
-    "tree": (_REST, "tree/"),
     "health": (_REST, "obs/ (health)"),
     "trace": (_REST, "obs/ (request tracing)"),
     "profile": (_REST, "obs/ (sampling profiler)"),
@@ -87,7 +104,6 @@ UNPORTED: dict[str, tuple[str, str]] = {
     "/s": (_REST, "static files"),
     "/metrics": (_REST, "obs/ (OpenMetrics exposition)"),
     "/logs": (_REST, "the /logs ring buffer"),
-    "/plugin": (_REST, "plugins"),
 }
 
 
@@ -108,6 +124,7 @@ class HttpRequest:
     body: bytes = b""
     remote: str = ""
     serializer: Any = None  # set by the router (?serializer= choice)
+    auth: Any = None  # the AuthState when authentication is on
 
     def param(self, key: str, default: str | None = None) -> str | None:
         vals = self.params.get(key)
@@ -123,10 +140,10 @@ class HttpRequest:
         v = self.params[key][0]
         return v in ("", "true", "1", "yes")
 
-    def json_object(self, default: dict | None = None) -> dict:
-        """The body as a JSON object; anything else, valid-JSON scalars
-        included, is a clean 400 (ref: the reference wraps every body
-        parse failure in BadRequestException)."""
+    def _json_body(self, expected: type, noun: str, default):
+        """The body as JSON of one container type; anything else,
+        valid-JSON scalars included, is a clean 400 (ref: the reference
+        wraps every body parse failure in BadRequestException)."""
         if not self.body:
             if default is not None:
                 return default
@@ -136,11 +153,17 @@ class HttpRequest:
         except Exception as exc:  # noqa: BLE001 - any parse error is a 400
             raise BadRequestError(
                 f"Unable to parse JSON body: {exc}") from None
-        if not isinstance(obj, dict):
+        if not isinstance(obj, expected):
             raise BadRequestError(
-                f"Request body must be a JSON object, got "
+                f"Request body must be a JSON {noun}, got "
                 f"{type(obj).__name__}")
         return obj
+
+    def json_object(self, default: dict | None = None) -> dict:
+        return self._json_body(dict, "object", default)
+
+    def json_array(self, default: list | None = None) -> list:
+        return self._json_body(list, "array", default)
 
 
 def as_int(value, name: str, default: int = 0) -> int:
@@ -205,9 +228,21 @@ class HttpRpcRouter:
 
     def __init__(self, tsdb):
         self.tsdb = tsdb
-        self.serializer = HttpJsonSerializer.for_tsdb(tsdb)
+        default_json = HttpJsonSerializer.for_tsdb(tsdb)
         self.serializers: dict[str, Any] = {
-            self.serializer.shortname: self.serializer}
+            default_json.shortname: default_json}
+        self.serializer = default_json
+        ser_path = tsdb.config.get_string("tsd.http.serializer.plugin", "")
+        if ser_path:
+            # registered under its shortname and made the default (ref:
+            # the shortname registry, HttpSerializer.java:93)
+            cls = load_class(ser_path)
+            plugin_ser = cls.for_tsdb(tsdb) \
+                if isinstance(cls, type) and issubclass(
+                    cls, HttpJsonSerializer) \
+                and cls.__init__ is HttpJsonSerializer.__init__ else cls()
+            self.serializers[plugin_ser.shortname] = plugin_ser
+            self.serializer = plugin_ser
         mode = tsdb.mode
         self._routes: dict[str, Callable] = {}
         # read RPCs (not registered in write-only mode, RpcManager:274)
@@ -215,6 +250,11 @@ class HttpRpcRouter:
             self._routes.update({
                 "query": self._handle_query,
                 "suggest": self._handle_suggest,
+                "search": self._handle_search,
+                "uid": self._handle_uid,
+                "annotation": self._handle_annotation,
+                "annotations": self._handle_annotations,
+                "tree": self._handle_tree,
             })
         # write RPCs (not registered in read-only mode, RpcManager:327)
         if mode in ("rw", "wo"):
@@ -229,15 +269,17 @@ class HttpRpcRouter:
             "stats": self._handle_stats,
             "version": self._handle_version,
         })
-        # the reference's mode gating holds for the unported endpoints
-        # too: a route the mode would not register stays a 404
-        read_only = {"search", "uid", "annotation", "annotations", "tree"}
         for name in UNPORTED:
-            if "/" in name or (name in read_only and mode == "wo"):
-                continue
-            self._routes[name] = self._unported(name)
+            if "/" not in name:
+                self._routes[name] = self._unported(name)
         # set by TSDServer so HTTP diediedie can request shutdown
         self.server = None
+        # /plugin/<path> endpoints (ref: HttpRpcPlugin.java:40,
+        # RpcManager tsd.http.rpc.plugins :153)
+        self.http_rpc_plugins: dict[str, Any] = {
+            plugin.path().strip("/"): plugin
+            for plugin in load_plugin_instances(
+                tsdb.config, "tsd.http.rpc", init_arg=tsdb)}
         self.start_time = time.time()
 
     @staticmethod
@@ -348,6 +390,12 @@ class HttpRpcRouter:
             endpoint, rest = parts[0], parts[1:]
         elif f"/{parts[0]}" in UNPORTED:
             raise _not_ported(f"/{parts[0]}")
+        elif parts[0] == "plugin":
+            plugin = self.http_rpc_plugins.get("/".join(parts[1:]))
+            if plugin is None:
+                raise HttpError(404, f"No HTTP RPC plugin at /{path}",
+                                "The requested endpoint was not found")
+            return plugin.execute(self.tsdb, request)
         elif parts[0] == "favicon.ico":
             # (ref: the static favicon, else an empty 204)
             return HttpResponse(204)
@@ -376,11 +424,36 @@ class HttpRpcRouter:
 
     # -- write path ----------------------------------------------------
 
+    @staticmethod
+    def _check_permission(request: HttpRequest, perm) -> None:
+        """403 when the request's AuthState lacks ``perm`` (ref: the
+        Permissions gating of the RPC handlers)."""
+        if request.auth is not None and \
+                not request.auth.has_permission(perm):
+            raise HttpError(403, "Permission denied",
+                            f"{perm.name} is not granted")
+
+    def _put_error_sink(self, errors: list) -> Callable:
+        """The per-point error sink of a put: the error goes into the
+        response, and a storage failure also to the storage exception
+        handler (ref: ``_put_error_sink``, PutDataPointRpc's requeue); a
+        bad point (an unknown name, a filter's veto, a bad value) would
+        fail the same way again and is not handed on."""
+        def sink(dp: dict, e: Exception) -> None:
+            errors.append({"datapoint": dp, "error": str(e)})
+            seh = self.tsdb.storage_exception_handler
+            if seh is not None and not isinstance(
+                    e, (ValueError, LookupError,
+                        FailedToAssignUniqueIdError)):
+                seh.handle_error(dp, e)
+        return sink
+
     def _handle_put(self, request: HttpRequest, rest) -> HttpResponse:
         """(ref: PutDataPointRpc.java:272) Decode the body, validate and
         group it into per-series columns in one pass, then write the
         groups through ``TSDB.add_point_groups``: a bad point fails
         alone and the good points of the body land."""
+        self._check_permission(request, Permissions.HTTP_PUT)
         if request.method != "POST":
             raise HttpError(405, "Method not allowed",
                             "The HTTP method is not permitted")
@@ -417,11 +490,8 @@ class HttpRpcRouter:
             except ValueError as e:
                 errors.append({"datapoint": dp, "error": str(e)})
 
-        def on_error(dp: dict, e: Exception) -> None:
-            errors.append({"datapoint": dp, "error": str(e)})
-
-        success, _ = self.tsdb.add_point_groups(groups.values(),
-                                                on_error=on_error)
+        success, _ = self.tsdb.add_point_groups(
+            groups.values(), on_error=self._put_error_sink(errors))
         failed = len(errors)
         if not details and not summary:
             if failed:
@@ -439,7 +509,10 @@ class HttpRpcRouter:
         body whose points also carry ``interval`` and ``aggregator``
         (a tier point) or ``groupByAggregator`` (a pre-aggregate), each
         written by ``TSDB.add_aggregate_point``: a bad point fails alone.
-        The body's WAL records commit as one write and one fsync."""
+        The body's WAL records commit as one write and one fsync. It
+        needs HTTP_PUT, as ``/api/put`` (RollupDataPointRpc extends
+        PutDataPointRpc)."""
+        self._check_permission(request, Permissions.HTTP_PUT)
         if request.method != "POST":
             raise HttpError(405, "Method not allowed")
         points = request.serializer.parse_put(request.body)
@@ -475,7 +548,9 @@ class HttpRpcRouter:
         """(ref: HistogramDataPointRpc.java; ``_handle_histogram``) A put
         body whose values are base64 codec blobs, written through
         ``TSDB.add_histogram_batch``: a bad point fails alone and the
-        good points of the body land."""
+        good points of the body land. It needs HTTP_PUT, as ``/api/put``
+        (HistogramDataPointRpc extends PutDataPointRpc)."""
+        self._check_permission(request, Permissions.HTTP_PUT)
         if request.method != "POST":
             raise HttpError(405, "Method not allowed")
         points = request.serializer.parse_put(request.body)
@@ -507,10 +582,12 @@ class HttpRpcRouter:
     # -- read path -----------------------------------------------------
 
     def _handle_query(self, request: HttpRequest, rest) -> HttpResponse:
-        """(ref: QueryRpc.java:89-128)"""
+        """(ref: QueryRpc.java:89-128) Every sub-endpoint needs
+        HTTP_QUERY."""
+        self._check_permission(request, Permissions.HTTP_QUERY)
         sub = rest[0] if rest else ""
-        if f"query/{sub}" in UNPORTED:
-            raise _not_ported(f"query/{sub}")
+        if sub == "last":
+            return self._handle_query_last(request)
         if sub == "continuous":
             return self._handle_query_continuous(request, rest[1:])
         if sub in ("exp", "gexp"):
@@ -669,6 +746,36 @@ class HttpRpcRouter:
             return HttpResponse(204)
         raise HttpError(405, "Method not allowed")
 
+    def _handle_query_last(self, request: HttpRequest) -> HttpResponse:
+        """(ref: QueryRpc.java:346 /api/query/last via TSUIDQuery) The
+        last point of each series the specs name. The reference's
+        router-mode scatter has no counterpart: ``tsd.cluster.role`` is
+        refused when the TSDB is built."""
+        if request.method == "POST":
+            obj = request.json_object(default={})
+            specs = obj.get("queries", [])
+            if not isinstance(specs, list) or not all(
+                    isinstance(q, dict) for q in specs):
+                raise HttpError(
+                    400, "queries must be an array of objects")
+            for q in specs:
+                ts = q.get("tsuids")
+                if ts is not None and (not isinstance(ts, list)
+                                       or not all(isinstance(x, str)
+                                                  for x in ts)):
+                    raise HttpError(
+                        400, "tsuids must be a list of strings")
+            back_scan = as_int(obj.get("backScan"), "backScan")
+            resolve = bool(obj.get("resolveNames", False))
+        else:
+            specs = [{"uri": m} for m in request.params.get(
+                "timeseries", [])]
+            back_scan = int(request.param("back_scan", "0"))
+            resolve = request.flag("resolve")
+        points = last_data_points(self.tsdb, specs, back_scan, resolve)
+        return HttpResponse(200,
+                            request.serializer.format_last_points(points))
+
     def _record_serialization(self, stats: QueryStats, t_ser: float,
                               nbytes: int) -> None:
         ser_ms = (time.monotonic() - t_ser) * 1e3
@@ -710,6 +817,357 @@ class HttpRpcRouter:
         else:
             names = self.tsdb.suggest_tag_values(q, max_results)
         return HttpResponse(200, request.serializer.format_suggest(names))
+
+    # -- search (ref: SearchRpc.java) ----------------------------------
+
+    def _handle_search(self, request: HttpRequest, rest) -> HttpResponse:
+        """(ref: SearchRpc.java) ``/api/search/lookup`` walks the store's
+        tag index (TimeSeriesLookup.java:83); any other type goes to the
+        search plugin, a 400 without one."""
+        sub = rest[0] if rest else ""
+        if sub == "lookup":
+            if request.method == "POST":
+                obj = request.json_object(default={})
+                metric = obj.get("metric") or ""
+                if not isinstance(metric, str):
+                    raise HttpError(400, "metric must be a string")
+                raw_tags = obj.get("tags") or []
+                if not isinstance(raw_tags, list) or not all(
+                        isinstance(t, dict) for t in raw_tags):
+                    raise HttpError(
+                        400, "tags must be a list of {key, value}")
+                tags = [(t.get("key"), t.get("value"))
+                        for t in raw_tags]
+                limit = as_int(obj.get("limit"), "limit", 25)
+                use_meta = bool(obj.get("useMeta", False))
+            else:
+                m = request.param("m", "") or ""
+                metric, tag_map = tags_mod.parse_with_metric(m) \
+                    if m else ("", {})
+                tags = list(tag_map.items())
+                limit = int(request.param("limit", "25"))
+                use_meta = request.flag("use_meta")
+            results = time_series_lookup(self.tsdb, metric, tags, limit,
+                                         use_meta)
+            return HttpResponse(200,
+                                request.serializer.format_search(results))
+        if self.tsdb.search_plugin is None:
+            raise BadRequestError(
+                "Searching is not enabled on this TSD")
+        obj = request.json_object(default={})
+        results = self.tsdb.search_plugin.execute_query(sub, obj)
+        return HttpResponse(200, request.serializer.format_search(results))
+
+    # -- annotations (ref: AnnotationRpc.java) --------------------------
+
+    def _handle_annotation(self, request: HttpRequest, rest
+                           ) -> HttpResponse:
+        """One note: GET by ``tsuid`` and ``start_time``, POST merges
+        into an existing note, PUT replaces it, DELETE removes it;
+        ``/bulk`` edits many. A write is indexed by the search plugin."""
+        if rest and rest[0] == "bulk":
+            return self._handle_annotation_bulk(request)
+        store = self.tsdb.annotations
+        if request.method == "GET":
+            tsuid = request.param("tsuid", "") or ""
+            start = int(request.param("start_time", "0"))
+            note = store.get(tsuid.upper() if tsuid else "", start)
+            if note is None:
+                raise HttpError(404,
+                                "Unable to locate annotation in storage")
+            return HttpResponse(200,
+                                request.serializer.format_annotation(note))
+        if request.method in ("POST", "PUT"):
+            note = Annotation.from_json(request.json_object(default={}))
+            note.tsuid = note.tsuid.upper()
+            existing = store.get(note.tsuid, note.start_time)
+            if request.method == "POST" and existing is not None:
+                # POST merges into the stored note (ref: AnnotationRpc
+                # syncToStorage)
+                if not note.description:
+                    note.description = existing.description
+                if not note.notes:
+                    note.notes = existing.notes
+                if not note.end_time:
+                    note.end_time = existing.end_time
+                note.custom = {**existing.custom, **note.custom}
+            store.store(note)
+            if self.tsdb.search_plugin is not None:
+                self.tsdb.search_plugin.index_annotation(note)
+            return HttpResponse(200,
+                                request.serializer.format_annotation(note))
+        if request.method == "DELETE":
+            tsuid = (request.param("tsuid", "") or "").upper()
+            start = int(request.param("start_time", "0"))
+            note = store.get(tsuid, start)
+            if note is None or not store.delete(tsuid, start):
+                raise HttpError(404,
+                                "Unable to locate annotation in storage")
+            if self.tsdb.search_plugin is not None:
+                self.tsdb.search_plugin.delete_annotation(note)
+            return HttpResponse(204)
+        raise HttpError(405, "Method not allowed")
+
+    def _handle_annotation_bulk(self, request: HttpRequest) -> HttpResponse:
+        store = self.tsdb.annotations
+        if request.method in ("POST", "PUT"):
+            objs = request.json_array(default=[])
+            if not all(isinstance(o, dict) for o in objs):
+                raise HttpError(
+                    400, "Each annotation must be an object")
+            notes = []
+            for obj in objs:
+                note = Annotation.from_json(obj)
+                note.tsuid = note.tsuid.upper()
+                store.store(note)
+                notes.append(note)
+            return HttpResponse(
+                200, request.serializer.format_annotations(notes))
+        if request.method == "DELETE":
+            obj = request.json_object(default={})
+            tsuids = obj.get("tsuids")
+            if obj.get("global"):
+                tsuids = [""]
+            elif not tsuids:
+                # ref: Annotation.deleteRange needs tsuids or global
+                raise HttpError(
+                    400, "Please supply either the global flag or tsuids")
+            if not isinstance(tsuids, list) or not all(
+                    isinstance(t, str) for t in tsuids):
+                raise HttpError(400, "tsuids must be a list of strings")
+            start = as_int(obj.get("startTime"), "startTime")
+            end = as_int(obj.get("endTime"), "endTime", int(time.time()))
+            obj["totalDeleted"] = store.delete_range(
+                [t.upper() for t in tsuids], start, end)
+            return HttpResponse(200, json.dumps(obj).encode())
+        raise HttpError(405, "Method not allowed")
+
+    def _handle_annotations(self, request: HttpRequest, rest
+                            ) -> HttpResponse:
+        """The global notes in a range (ref: AnnotationRpc); bulk edits
+        go to /api/annotation/bulk."""
+        if request.method != "GET":
+            raise HttpError(405, "Method not allowed",
+                            "Use /api/annotation/bulk for bulk edits")
+        start = as_int(request.param("start_time"), "start_time")
+        end = as_int(request.param("end_time"), "end_time",
+                     int(time.time()))
+        notes = self.tsdb.annotations.global_range(start, end)
+        return HttpResponse(200,
+                            request.serializer.format_annotations(notes))
+
+    # -- uid (ref: UniqueIdRpc.java) -----------------------------------
+
+    def _handle_uid(self, request: HttpRequest, rest) -> HttpResponse:
+        sub = rest[0] if rest else ""
+        if sub == "assign":
+            return self._uid_assign(request)
+        if sub == "rename":
+            return self._uid_rename(request)
+        if sub == "uidmeta":
+            return self._uid_meta(request)
+        if sub == "tsmeta":
+            return self._ts_meta(request)
+        raise HttpError(404, "Endpoint not found",
+                        f"/api/uid/{sub} is not a valid endpoint")
+
+    def _uid_assign(self, request: HttpRequest) -> HttpResponse:
+        """Assign UIDs to names of each kind; a name that fails is
+        reported in ``<kind>_errors`` and the answer is a 400. Every
+        requested kind's CREATE_* permission is checked before any
+        assignment (ref: Permissions.java:27)."""
+        if request.method == "POST":
+            obj = request.json_object(default={})
+        else:
+            obj = {k: (request.param(k) or "").split(",")
+                   for k in ("metric", "tagk", "tagv")
+                   if request.has_param(k)}
+            unknown = [k for k in request.params
+                       if k not in ("metric", "tagk", "tagv",
+                                    "serializer", "jsonp")]
+            if unknown:
+                # a misspelt kind would assign nothing (ref:
+                # TestUniqueIdRpc.assignQsTypo -> 400)
+                raise HttpError(
+                    400, f"Unknown parameter(s): {unknown}",
+                    "Recognized types: metric, tagk, tagv")
+        if not any(obj.get(k) for k in ("metric", "tagk", "tagv")):
+            raise HttpError(
+                400, "Missing values to assign UIDs",
+                "Supply metric, tagk and/or tagv name lists")
+        create_perm = {"metric": Permissions.CREATE_METRIC,
+                       "tagk": Permissions.CREATE_TAGK,
+                       "tagv": Permissions.CREATE_TAGV}
+        for kind in ("metric", "tagk", "tagv"):
+            if obj.get(kind):
+                self._check_permission(request, create_perm[kind])
+        response: dict[str, Any] = {}
+        had_error = False
+        for kind in ("metric", "tagk", "tagv"):
+            names = obj.get(kind) or []
+            if isinstance(names, str):
+                names = [names]
+            if not isinstance(names, list) or not all(
+                    isinstance(n, str) for n in names):
+                raise HttpError(
+                    400, f"{kind} must be a name or list of names")
+            good: dict[str, str] = {}
+            bad: dict[str, str] = {}
+            registry = self.tsdb.uids.by_kind(kind)
+            for name in names:
+                try:
+                    uid = self.tsdb.assign_uid(kind, name)
+                    good[name] = registry.int_to_uid(uid).hex().upper()
+                except Exception as e:  # noqa: BLE001 - a name's error
+                    bad[name] = str(e)
+                    had_error = True
+            if names:
+                response[kind] = good
+                if bad:
+                    response[f"{kind}_errors"] = bad
+        return HttpResponse(400 if had_error else 200,
+                            request.serializer.format_uid_assign(response))
+
+    def _uid_rename(self, request: HttpRequest) -> HttpResponse:
+        obj = request.json_object(default={}) \
+            if request.method == "POST" else \
+            {k: request.param(k) for k in ("metric", "tagk", "tagv",
+                                           "name")}
+        new_name = obj.get("name") or ""
+        if not new_name:
+            raise BadRequestError("Missing 'name' parameter")
+        for kind in ("metric", "tagk", "tagv"):
+            old = obj.get(kind)
+            if old:
+                try:
+                    self.tsdb.uids.by_kind(kind).rename(old, new_name)
+                    return HttpResponse(200, json.dumps(
+                        {"result": "true"}).encode())
+                except Exception as e:  # noqa: BLE001 - the answer
+                    return HttpResponse(400, json.dumps(
+                        {"result": "false", "error": str(e)}).encode())
+        raise BadRequestError("Missing uid type/name to rename")
+
+    def _uid_meta(self, request: HttpRequest) -> HttpResponse:
+        """UIDMeta: GET (a skeleton document for a UID without one),
+        POST merges, PUT replaces (304 when nothing changed), DELETE
+        (ref: UniqueIdRpc.java:179-226)."""
+        meta_store = self.tsdb.meta
+        if request.method == "GET":
+            uid = (request.param("uid", "") or "").upper()
+            kind = (request.param("type", "") or "").lower()
+            meta = meta_store.get_uid_meta(kind, uid)
+            if meta is None:
+                try:
+                    name = self.tsdb.uids.by_kind(kind).get_name(
+                        bytes.fromhex(uid))
+                except Exception:  # noqa: BLE001 - any bad UID is a 404
+                    raise HttpError(
+                        404, "Could not find the requested UID") from None
+                meta = UIDMeta(uid=uid, type=kind.upper(), name=name)
+            return HttpResponse(200, json.dumps(meta.to_json()).encode())
+        fields = self._meta_request_fields(request)
+        uid = (fields.get("uid") or request.param("uid", "")
+               or "").upper()
+        kind = (fields.get("type") or request.param("type", "")
+                or "").lower()
+        if not uid or kind not in ("metric", "tagk", "tagv"):
+            raise BadRequestError("Missing/invalid uid or type")
+        if request.method in ("POST", "PUT"):
+            try:
+                meta = meta_store.sync_uid_meta(
+                    kind, uid, fields, request.method == "PUT")
+            except MetaStore.NotModified:
+                return HttpResponse(304, b"")
+            except LookupError:
+                raise HttpError(
+                    404, "Could not find the requested UID") from None
+            return HttpResponse(200, json.dumps(meta.to_json()).encode())
+        if request.method == "DELETE":
+            meta_store.delete_uid_meta(kind, uid)
+            return HttpResponse(204, b"")
+        raise HttpError(405, "Method not allowed")
+
+    @staticmethod
+    def _meta_request_fields(request: HttpRequest) -> dict:
+        """The body's JSON, or the query-string form of the same fields
+        (ref: parseUIDMetaQS / parseTSMetaQS)."""
+        if request.body:
+            return request.json_object()
+        out = {}
+        for key in ("uid", "type", "tsuid", "m", "displayName",
+                    "display_name", "description", "notes", "units",
+                    "dataType", "retention", "max", "min"):
+            val = request.param(key)
+            if val is not None:
+                out["displayName" if key == "display_name"
+                    else key] = val
+        return out
+
+    def _ts_meta(self, request: HttpRequest) -> HttpResponse:
+        """TSMeta by ``tsuid`` or ``m=metric{tagk=tagv,...}``
+        (``create=true`` makes the document): GET, POST merges, PUT
+        replaces, DELETE."""
+        meta_store = self.tsdb.meta
+        if request.method == "GET":
+            tsuid = (request.param("tsuid", "") or "").upper()
+            meta = meta_store.get_ts_meta(tsuid)
+            if meta is None:
+                raise HttpError(
+                    404, "Could not find Timeseries meta data")
+            return HttpResponse(200, json.dumps(meta.to_json()).encode())
+        fields = self._meta_request_fields(request)
+        tsuid = (fields.get("tsuid") or request.param("tsuid", "")
+                 or "").upper()
+        create = False
+        if not tsuid:
+            mspec = fields.get("m") or request.param("m")
+            if not mspec:
+                raise BadRequestError("Missing tsuid or m parameter")
+            try:
+                tsuid = self._tsuid_for_metric(mspec)
+            except LookupError as e:
+                # an unknown name in the spec is the client's error
+                raise HttpError(404, str(e)) from None
+            create = (fields.get("create") or request.param(
+                "create", "") or "") in ("true", True)
+        if request.method in ("POST", "PUT"):
+            try:
+                meta = meta_store.sync_ts_meta(
+                    tsuid, fields, request.method == "PUT",
+                    create=create)
+            except MetaStore.NotModified:
+                return HttpResponse(304, b"")
+            except LookupError as e:
+                raise HttpError(404, str(e)) from None
+            return HttpResponse(200, json.dumps(meta.to_json()).encode())
+        if request.method == "DELETE":
+            meta_store.delete_ts_meta(tsuid)
+            return HttpResponse(204, b"")
+        raise HttpError(405, "Method not allowed")
+
+    def _tsuid_for_metric(self, mspec: str) -> str:
+        """``metric{tagk=tagv,...}`` -> its TSUID in hex
+        (ref: UniqueIdRpc.getTSUIDForMetric)."""
+        m = re.match(r"^([^{]+)(?:\{([^}]*)\})?$", mspec.strip())
+        if not m:
+            raise BadRequestError(f"Invalid metric spec {mspec!r}")
+        uids = self.tsdb.uids
+        metric_id = uids.metrics.get_id(m.group(1))
+        tag_ids = []
+        for pair in (m.group(2) or "").split(","):
+            if not pair:
+                continue
+            k, _, v = pair.partition("=")
+            tag_ids.append((uids.tag_names.get_id(k.strip()),
+                            uids.tag_values.get_id(v.strip())))
+        return uids.tsuid(metric_id, sorted(tag_ids)).hex().upper()
+
+    # -- tree (ref: TreeRpc.java) --------------------------------------
+
+    def _handle_tree(self, request: HttpRequest, rest) -> HttpResponse:
+        from opentsdb_tpu_torch.tree.rpc import handle_tree_request
+        return handle_tree_request(self, request, rest)
 
     # -- monitoring ----------------------------------------------------
 

@@ -17,8 +17,9 @@ for_tsdb`). The columnar and per-point paths emit Python's ``repr``
 of each float; the native formatter emits the shortest of its fixed and
 exponent forms (``1e-04`` for ``0.0001``, ``12345678901234568.0`` for
 ``1.2345678901234568e+16``), the same double, and the reference's bytes.
-The port has no annotations yet (``meta/`` is not ported), so no result
-carries any.
+A result's annotations ride its head as ``annotations`` (unless the
+query asks ``noAnnotations``) and ``globalAnnotations`` (when it asks
+for them), as the reference writes them.
 """
 
 from __future__ import annotations
@@ -166,7 +167,9 @@ class HttpJsonSerializer(HttpSerializer):
 
     def _result_head(self, ts_query, r) -> bytes:
         """Everything before "dps", serialized; ends with ``b'}'``."""
-        if not (ts_query.show_query or r.tsuids):
+        notes = not ts_query.no_annotations and r.annotations
+        global_notes = ts_query.global_annotations and r.global_annotations
+        if not (ts_query.show_query or r.tsuids or notes or global_notes):
             # the common head: metric and tag names pass
             # tags.validate_string, so no JSON escaping is needed and
             # one f-string beats json.dumps per group
@@ -188,6 +191,11 @@ class HttpJsonSerializer(HttpSerializer):
             obj["query"] = ts_query.queries[r.sub_query_index].to_json()
         if r.tsuids:
             obj["tsuids"] = r.tsuids
+        if notes:
+            obj["annotations"] = [a.to_json() for a in r.annotations]
+        if global_notes:
+            obj["globalAnnotations"] = [a.to_json()
+                                        for a in r.global_annotations]
         return self._dump(obj)
 
     def _bulk_columns(self, r, ms: bool, as_arrays: bool):
@@ -297,11 +305,26 @@ class HttpJsonSerializer(HttpSerializer):
     def format_dropcaches(self, response: dict[str, str]) -> bytes:
         return self._dump(response)
 
+    def format_annotation(self, note) -> bytes:
+        return self._dump(note.to_json())
+
+    def format_annotations(self, notes: list) -> bytes:
+        return self._dump([n.to_json() for n in notes])
+
+    def format_uid_assign(self, response: dict) -> bytes:
+        return self._dump(response)
+
     def format_stats(self, stats: list[dict]) -> bytes:
         return self._dump(stats)
 
     def format_query_stats(self, obj: dict) -> bytes:
         return self._dump(obj)
+
+    def format_search(self, results: dict) -> bytes:
+        return self._dump(results)
+
+    def format_last_points(self, points: list[dict]) -> bytes:
+        return self._dump(points)
 
     def _dump(self, obj: Any) -> bytes:
         return json.dumps(obj, separators=(",", ":")).encode("utf-8")

@@ -18,6 +18,14 @@ continuous queries' fold workers and the warmup thread
 (:mod:`~opentsdb_tpu_torch.tsd.warmup`); :meth:`TSDServer.stop` stops
 the warmup, ends the event streams, closes the listener, joins both
 pools and the warmup thread, and shuts the TSDB down.
+
+With authentication on (``TSDB.authentication``), the first exchange
+of a telnet connection must be ``auth <user> <password>``, answered
+``auth_success`` or ``auth_fail`` (ref: AuthenticationChannelHandler
+.java:50), and the state it returns gates the connection's writes; an
+HTTP request without valid Basic credentials is answered 401 before
+any handler runs, except a CORS preflight, which browsers send without
+credentials; a valid one rides the request as ``request.auth``.
 :class:`ServerThread` runs a server on a thread of its own with its own
 loop, for callers that are not asyncio programs.
 """
@@ -35,6 +43,7 @@ import time
 import urllib.parse
 import zlib
 
+from opentsdb_tpu_torch.auth.simple import AuthStatus
 from opentsdb_tpu_torch.tsd.http_api import (HttpRequest, HttpResponse,
                                              HttpRpcRouter)
 from opentsdb_tpu_torch.tsd.telnet import (TelnetCloseConnection,
@@ -46,7 +55,8 @@ LOG = logging.getLogger("tsd.server")
 
 _HTTP_METHODS = (b"GET ", b"POST", b"PUT ", b"DELE", b"HEAD", b"OPTI",
                  b"PATC")
-_REASONS = {200: "OK", 204: "No Content", 400: "Bad Request",
+_REASONS = {200: "OK", 204: "No Content", 304: "Not Modified",
+            400: "Bad Request", 401: "Unauthorized", 403: "Forbidden",
             404: "Not Found", 405: "Method Not Allowed",
             413: "Request Entity Too Large",
             500: "Internal Server Error", 501: "Not Implemented",
@@ -341,6 +351,9 @@ class TSDServer:
     async def _serve_telnet(self, first: bytes, reader, writer) -> None:
         buffer = first
         loop = asyncio.get_running_loop()
+        auth = self.tsdb.authentication
+        authed = auth is None
+        auth_state = None
         while True:
             if buffer.find(b"\n") < 0:
                 chunk = await self._on_client(reader.read(65536))
@@ -353,8 +366,25 @@ class TSDServer:
             raw, _, buffer = buffer.rpartition(b"\n")
             lines = [ln.rstrip(b"\r").decode("utf-8", "replace")
                      for ln in raw.split(b"\n")]
+            idx = 0
+            while not authed and idx < len(lines):
+                # the first exchange must be auth (ref:
+                # AuthenticationChannelHandler.java:50)
+                words = lines[idx].split()
+                idx += 1
+                state = auth.authenticate_telnet(words) \
+                    if words and words[0] == "auth" else None
+                if state is not None and state.status == AuthStatus.SUCCESS:
+                    authed, auth_state = True, state
+                    writer.write(b"auth_success\n")
+                else:
+                    writer.write(b"auth_fail\n")
+                await self._on_client(writer.drain())
+            if idx >= len(lines):
+                continue
             responses, deferred = await loop.run_in_executor(
-                self._http_pool, self.telnet_router.execute_lines, lines)
+                self._http_pool, self.telnet_router.execute_lines,
+                lines[idx:], auth_state)
             if responses:
                 writer.write("\n".join(responses).encode() + b"\n")
                 await self._on_client(writer.drain())
@@ -533,7 +563,17 @@ class TSDServer:
         (admission-controlled, under ``tsd.query.timeout``), the rest
         on the http pool. Feeds the latency histograms."""
         if request.method == "OPTIONS":
+            # a preflight carries no credentials: it bypasses auth
             return self._cors_preflight(request)
+        auth = self.tsdb.authentication
+        if auth is not None:
+            state = auth.authenticate_http(request.headers)
+            if state.status != AuthStatus.SUCCESS:
+                return HttpResponse(
+                    401, b'{"error":{"code":401,"message":'
+                    b'"Authentication required"}}',
+                    headers={"WWW-Authenticate": 'Basic realm="opentsdb"'})
+            request.auth = state
         loop = asyncio.get_running_loop()
         endpoint = _api_endpoint(urllib.parse.unquote(request.path))
         is_query = endpoint in ("query", "q")

@@ -4,7 +4,10 @@ version, dropcaches, help, exit, diediedie).
 
 Commands return response text, empty when there is nothing to say: a
 successful ``put`` is silent, as PutDataPointRpc.java:129 writes back
-only errors, and so are ``rollup`` and ``histogram``.
+only errors, and so are ``rollup`` and ``histogram``. With
+authentication on, the connection's AuthState (``auth``) must grant
+TELNET_PUT for ``put``, ``rollup`` and ``histogram`` (ref:
+Permissions.java:26); the other commands are not gated.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import base64
 from typing import Callable
 
+from opentsdb_tpu_torch.auth.simple import Permissions
 from opentsdb_tpu_torch.core import tags as tags_mod
 from opentsdb_tpu_torch.tsd.http_api import version_info
 
@@ -41,16 +45,19 @@ class TelnetRouter:
             "diediedie": self._cmd_die,
         })
 
-    def execute(self, line: str) -> str:
+    def execute(self, line: str, auth=None) -> str:
         words = line.split()
         if not words:
             return ""
         cmd = self.commands.get(words[0])
         if cmd is None:
             return f"error: unknown command: {words[0]}"
+        if auth is not None and words[0] in ("put", "rollup", "histogram") \
+                and not auth.has_permission(Permissions.TELNET_PUT):
+            return f"{words[0]}: permission denied (TELNET_PUT not granted)"
         return cmd(words)
 
-    def execute_lines(self, lines: list[str]
+    def execute_lines(self, lines: list[str], auth=None
                       ) -> tuple[list[str], Exception | None]:
         """Process a burst of complete lines: consecutive ``put``
         commands decode as one columnar batch (:meth:`put_lines`), the
@@ -63,7 +70,7 @@ class TelnetRouter:
 
         def flush_run() -> None:
             if run:
-                responses.extend(self.put_lines(run))
+                responses.extend(self.put_lines(run, auth=auth))
                 run.clear()
 
         batch_put = "put" in self.commands
@@ -74,7 +81,7 @@ class TelnetRouter:
                 continue
             flush_run()
             try:
-                r = self.execute(line)
+                r = self.execute(line, auth=auth)
             except (TelnetCloseConnection, TelnetServerShutdown) as e:
                 return responses, e
             if r:
@@ -82,7 +89,7 @@ class TelnetRouter:
         flush_run()
         return responses, None
 
-    def put_lines(self, lines: list[str]) -> list[str]:
+    def put_lines(self, lines: list[str], auth=None) -> list[str]:
         """Columnar decode of a run of ``put`` lines. Returns the error
         responses (successes are silent), each exactly what the scalar
         ``put`` answers for its line.
@@ -102,7 +109,11 @@ class TelnetRouter:
 
         With a WAL the whole burst, replayed lines included, commits as
         one WAL write and one group-committed fsync before the answers
-        go out."""
+        go out. Without TELNET_PUT in ``auth`` every line is denied."""
+        if auth is not None and \
+                not auth.has_permission(Permissions.TELNET_PUT):
+            return ["put: permission denied (TELNET_PUT not granted)"] \
+                * len(lines)
         with self.tsdb._wal_scope():
             if len(lines) > 1 and self.tsdb.store.backend == "native":
                 return self._put_lines_native(lines)

@@ -8,8 +8,10 @@ them.
   ``error_count``, ``error_once``, ``latency_ms``) or :meth:`arm`. The
   sites are the WAL's (``wal.append``, ``wal.fsync``), the snapshot
   flush (``store.flush``), the continuous queries' (``stream.fold``,
-  ``stream.worker``, ``stream.watermark``) and the query engine's
-  device dispatch (``device.compile``). An error rate is a counted
+  ``stream.worker``, ``stream.watermark``), the query engine's
+  device dispatch (``device.compile``), and the meta and tree write
+  paths (``meta.store``, ``tree.store``), which the write path's hook
+  guard counts without failing the write. An error rate is a counted
   schedule (call ``i`` fails iff ``floor(i * r)`` advances), never a
   coin flip, so a failure reproduces.
 - :class:`RetryPolicy` and :func:`call_with_retries`: bounded
@@ -44,6 +46,8 @@ KNOWN_SITES: frozenset[str] = frozenset({
     "stream.worker",      # streaming/workers.py off-path drain
     "stream.watermark",   # streaming/eventtime/watermark.py marker
     "device.compile",     # query/engine.py device pipeline dispatch
+    "meta.store",         # meta/meta_store.py write paths
+    "tree.store",         # tree/tree.py filing path
 })
 
 

@@ -150,9 +150,31 @@ def test_codec_manager_errors_equal_reference():
         assert (type(te.value), str(te.value)) == \
             (type(je.value), str(je.value))
     assert tm.encode(tm.decode(good)) == good
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        thist.HistogramCodecManager(Config(**{
-            "tsd.core.histograms.config": '{"x.Codec": 2}'}))
+    # a codec plugin (tsd.core.histograms.config) loads in both, under
+    # its id, and a class that does not import raises the same error
+    key = "tsd.core.histograms.config"
+    jm = jhist.HistogramCodecManager(JConfig(**{
+        key: '{"test_torch_histogram.RefCodec": 2}'}))
+    tm = thist.HistogramCodecManager(Config(**{
+        key: '{"test_torch_histogram.PortCodec": 2}'}))
+    hist = tm.decode(good)
+    assert tm.encode(hist, 2) == jm.encode(jm.decode(good), 2) \
+        == b"\x02" + good[1:]
+    assert tm.decode(b"\x02" + good[1:]).counts == hist.counts
+    with pytest.raises(ImportError) as je:
+        jhist.HistogramCodecManager(JConfig(**{key: '{"x.Codec": 2}'}))
+    with pytest.raises(ImportError) as te:
+        thist.HistogramCodecManager(Config(**{key: '{"x.Codec": 2}'}))
+    assert (type(te.value), str(te.value)) == \
+        (type(je.value), str(je.value))
+
+
+class RefCodec(jhist.SimpleHistogramCodec):
+    """A codec plugin of the reference, by dotted path."""
+
+
+class PortCodec(thist.SimpleHistogramCodec):
+    """The same codec plugin of the port."""
 
 
 @pytest.mark.parametrize("case", ["uniform", "lengths", "bounds", "codec",

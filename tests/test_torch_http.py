@@ -571,7 +571,7 @@ def test_rollup_put_is_one_wal_write(tmp_path):
 def _unported_paths():
     for name in http_api.UNPORTED:
         if name.startswith("/"):
-            yield f"{name}/x" if name in ("/s", "/plugin") else name
+            yield f"{name}/x" if name == "/s" else name
         else:
             yield f"/api/{name}"
 

@@ -10,9 +10,11 @@ on the CPU.
   unflushed WAL tail, the log closed without a flush) opens in the
   other, with the points equal bit for bit and each package's answer
   equal to the one it gives on its own directory.
-- The snapshot's refusals: annotations, meta or trees with an entry
-  raise, naming the ROADMAP item; the empty files the reference writes
-  load (histograms load: ``tests/test_torch_histogram.py``).
+- Annotations, meta and trees: a reference snapshot holding them loads
+  into the port equal to the reference's own load; the empty files the
+  reference writes load (histograms load:
+  ``tests/test_torch_histogram.py``; both directions in
+  ``tests/test_torch_memory_durability.py``).
 - Rollup stores: the ``rollup-*`` directories equal the reference's
   for the same writes and cross-read; a tier the config no longer holds
   is skipped, and with rollups off the directories are left in place;
@@ -20,10 +22,11 @@ on the CPU.
   in the swap.
 - Flush and shutdown: the flush retry policy, a flush without a
   data_dir, shutdown's flush.
-- The atomic swap of the five files: a save crashed after each of its
-  steps (each staged file, the commit marker, each rename, the marker's
-  removal) leaves a directory from which a reopened TSDB reads back
-  every acknowledged point and histogram point, each in its own series;
+- The atomic swap of the seven files (the annotations' and the meta's
+  among them): a save crashed after each of its steps (each staged
+  file, the commit marker, each rename, the marker's removal) leaves a
+  directory from which a reopened TSDB reads back every acknowledged
+  point, histogram point and annotation, each in its own series;
   a series index whose runs do not fit the point columns, with no
   marker, is refused by name.
 """
@@ -42,6 +45,7 @@ from test_torch_wal import (ROLLUPS, T0, answers, assert_same_series,
                             series_of, write_all, write_rollups)
 
 from opentsdb_tpu_torch.core import persist
+from opentsdb_tpu_torch.meta.annotation import Annotation
 from opentsdb_tpu_torch.utils.faults import InjectedFault
 
 FILES = ("uids.json", "data/series.json", "META.json")
@@ -104,45 +108,64 @@ def test_empty_reference_files_load(tmp_path):
     assert t.store.series_points(0)[1].tolist() == [1.0]
 
 
-def _refused(d: Path, name: str):
-    """Give the snapshot in ``d`` one entry of an unported subsystem."""
-    if name == "rollup":
-        (d / "rollup-1m-sum").mkdir()
-        (d / "rollup-1m-sum" / "series.json").write_text(json.dumps(
-            [{"metric": 1, "tags": [[1, 1]], "offset": 0, "count": 1}]))
-        return "rollups"
-    rest = "the rest, with no device compute"
-    docs = {
-        "annotations": ("annotations.json", [{"tsuid": "",
-                                              "startTime": T0}], rest),
-        "meta": ("meta.json", {"ts_counters": {"00": 1}, "uid_meta": [],
-                               "ts_meta": []}, rest),
-        "trees": ("trees.json", [{"treeId": 1}], rest)}
-    fname, doc, item = docs[name]
-    (d / fname).write_text(json.dumps(doc))
-    return item
+def _reference_entries(d: Path, name: str) -> None:
+    """The reference's snapshot in ``d`` with entries of ``name``."""
+    keys = {"tsd.core.meta.enable_realtime_ts": "true",
+            "tsd.core.meta.enable_realtime_uid": "true"} \
+        if name == "meta" else {}
+    j = jtsdb(d, **keys)
+    j.add_point("m", T0, 1, {"h": "a"})
+    if name == "annotations":
+        from opentsdb_tpu.meta.annotation import Annotation as JNote
+        j.annotations.store(JNote("", T0, 0, "deploy", "n", {"k": "v"}))
+        tsuid = j.uids.tsuid(1, [(1, 1)]).hex().upper()
+        j.annotations.store(JNote(tsuid, T0 + 60, T0 + 90, "spike"))
+    elif name == "trees":
+        from opentsdb_tpu.tree.tree import TreeRule, tree_manager
+        tree = tree_manager(j).create_tree("by metric", "d")
+        tree.set_rule(TreeRule(type="METRIC", separator="."))
+        tree.set_rule(TreeRule(level=1, type="TAGK", field="h"))
+    j.shutdown()
+
+
+def _entries_of(t, name: str):
+    """What a TSDB of either package loaded of ``name``."""
+    if name == "annotations":
+        return sorted((tsuid, a.start_time, a.end_time, a.description,
+                       a.notes, a.custom)
+                      for tsuid, by_time in t.annotations._by_tsuid.items()
+                      for a in by_time.values())
+    if name == "meta":
+        return ({k: v.to_json() for k, v in t.meta.ts_meta.items()},
+                {k: v.to_json() for k, v in t.meta.uid_meta.items()},
+                dict(t.meta.ts_counters))
+    return [tree.to_json() for tree in t._tree_manager.all_trees()]
 
 
 @pytest.mark.parametrize("name", ["rollup", "annotations", "meta",
                                   "trees"])
 def test_snapshot_refuses_unported_entries(tmp_path, name):
-    """Entries of an unported subsystem are refused by name. Rollup
-    stores are ported: with rollups off their directories are left
-    unread and in place, as the reference leaves them."""
-    t = ptsdb(tmp_path)
-    t.add_point("m", T0, 1, {"h": "a"})
-    t.shutdown()
-    item = _refused(tmp_path, name)
-    if item == "rollups":
+    """No longer refused: a reference snapshot with annotations, meta
+    documents or trees loads into the port equal to the reference's own
+    load of it. Rollup stores: with rollups off their directories are
+    left unread and in place, as the reference leaves them."""
+    if name == "rollup":
+        t = ptsdb(tmp_path)
+        t.add_point("m", T0, 1, {"h": "a"})
+        t.shutdown()
+        (tmp_path / "rollup-1m-sum").mkdir()
+        (tmp_path / "rollup-1m-sum" / "series.json").write_text(
+            json.dumps([{"metric": 1, "tags": [[1, 1]], "offset": 0,
+                         "count": 1}]))
         t = ptsdb(tmp_path)
         assert t.rollup_store is None
         assert t.store.series_points(0)[1].tolist() == [1.0]
         t.shutdown()
         assert (tmp_path / "rollup-1m-sum" / "series.json").is_file()
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1, {item}"):
-        ptsdb(tmp_path)
+    _reference_entries(tmp_path, name)
+    got = _entries_of(ptsdb(tmp_path), name)
+    assert got and got == _entries_of(jtsdb(tmp_path), name)
 
 
 def test_snapshot_keeps_series_ids_flags_and_uids(tmp_path):
@@ -226,6 +249,20 @@ class Crash(BaseException):
     """The process dies here: no retry ladder catches it."""
 
 
+def _note(t, phase: int) -> None:
+    """A global annotation per phase, in either package, through its
+    store (logged to the WAL)."""
+    cls = Annotation
+    if type(t).__module__.startswith("opentsdb_tpu."):
+        from opentsdb_tpu.meta.annotation import Annotation as cls
+    t.annotations.store(cls("", T0 + phase, 0, f"phase {phase}"))
+
+
+def notes_state(t) -> list:
+    return [(a.start_time, a.description)
+            for a in t.annotations.global_range(0, 2 * T0)]
+
+
 def _run1(t, phase):
     hosts = ("a",) if phase == 0 else ("b",)
     for h in hosts:
@@ -233,6 +270,7 @@ def _run1(t, phase):
                      {"host": h})
         t.add_histogram_point("hm", T0, blob(np.arange(8) + ord(h)),
                               {"host": h})
+    _note(t, phase)
 
 
 def _run2(t, phase):
@@ -247,13 +285,15 @@ def _run2(t, phase):
                      np.arange(10.0, 15.0) + 100, {"host": "a"})
         t.add_histogram_point("hm", T0 + 600, blob(np.arange(8) * 3),
                               {"host": "a"})
+    _note(t, phase)
 
 
 RUNS = {"run1": _run1, "run2": _run2}
-# each step of a save: the five staged files, the marker staged, the
-# marker in place, each rename, the marker removed (the WAL untruncated)
-CRASH_POINTS = ([f"stage:{k}" for k in range(1, 7)] + ["marker"]
-                + [f"rename:{k}" for k in range(1, 6)] + ["saved"])
+# each step of a save: the seven staged files (uids, data's two,
+# histograms, annotations, meta, META), the marker staged, the marker
+# in place, each rename, the marker removed (the WAL untruncated)
+CRASH_POINTS = ([f"stage:{k}" for k in range(1, 9)] + ["marker"]
+                + [f"rename:{k}" for k in range(1, 8)] + ["saved"])
 
 
 def _crash_at(monkeypatch, t, point):
@@ -299,7 +339,7 @@ def test_crashed_save_reads_every_point_back(tmp_path, monkeypatch, run,
     staged = [p.name for p in (tmp_path / "d").rglob("*.staged")]
     marker = (tmp_path / "d" / persist.MARKER).exists()
     assert marker == (point.startswith("rename") or point == "marker")
-    assert bool(staged) == (point not in ("rename:5", "saved"))
+    assert bool(staged) == (point not in ("rename:7", "saved"))
     want = ptsdb(tmp_path / "w")
     write(want, 0)
     write(want, 1)
@@ -308,12 +348,14 @@ def test_crashed_save_reads_every_point_back(tmp_path, monkeypatch, run,
     assert not (tmp_path / "d" / persist.MARKER).exists()
     assert_same_series(series_of(got), series_of(want))
     assert hist_state(got) == hist_state(want) != {}
+    assert notes_state(got) == notes_state(want) != []
     # the settled directory is a whole snapshot again, which the
     # reference opens
     got.shutdown()
     ref = jtsdb(tmp_path / "d")
     assert_same_series(series_of(ref), series_of(want))
     assert hist_state(ref) == hist_state(want)
+    assert notes_state(ref) == notes_state(want)
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
@@ -446,10 +488,10 @@ def _rollup_run(t, phase):
 
 
 # with rollups on, the second flush stages uids, data's two files,
-# histograms, the 1h count, 1m sum and preagg stores' two files each,
-# and META: 11 files, then the marker
-ROLLUP_CRASH_POINTS = ([f"stage:{k}" for k in range(1, 13)] + ["marker"]
-                       + [f"rename:{k}" for k in range(1, 12)] + ["saved"])
+# histograms, annotations, meta, the 1h count, 1m sum and preagg
+# stores' two files each, and META: 13 files, then the marker
+ROLLUP_CRASH_POINTS = ([f"stage:{k}" for k in range(1, 15)] + ["marker"]
+                       + [f"rename:{k}" for k in range(1, 14)] + ["saved"])
 
 
 @pytest.mark.parametrize("point", ROLLUP_CRASH_POINTS)
@@ -470,7 +512,7 @@ def test_crashed_save_with_rollups_reads_every_point_back(tmp_path,
             t.flush()
     t.wal.close()
     staged = list((tmp_path / "d").rglob("*.staged"))
-    assert bool(staged) == (point not in ("rename:11", "saved"))
+    assert bool(staged) == (point not in ("rename:13", "saved"))
     want = ptsdb(tmp_path / "w", **ROLLUPS)
     _rollup_run(want, 0)
     _rollup_run(want, 1)
@@ -480,6 +522,7 @@ def test_crashed_save_with_rollups_reads_every_point_back(tmp_path,
     assert_same_series(series_of(got), series_of(want))
     assert rollup_state(got) == rollup_state(want) != {}
     assert hist_state(got) == hist_state(want)
+    assert notes_state(got) == notes_state(want) != []
     got.shutdown()
     ref = jtsdb(tmp_path / "d", **ROLLUPS)
     assert rollup_state(ref) == rollup_state(want)

@@ -756,6 +756,19 @@ def test_rollup_usage_is_part_of_the_cache_key():
     ("tsd.core.meta.enable_tsuid_tracking", "true"),
     ("tsd.core.tree.enable_processing", "true")])
 def test_unported_subsystem_keys_refused(key, value):
+    """Lifecycle and cluster keys still raise; the meta and tree keys
+    (ported) start a TSDB that tracks as the JAX package's does."""
+    if key.startswith(("tsd.core.meta.", "tsd.core.tree.")):
+        keys = {key: value, "tsd.core.auto_create_metrics": "true"}
+        t = TSDB(Config(**{"tsd.torch.device": "cpu", **keys}))
+        j = JTSDB(JConfig(**{"tsd.tpu.platform": "cpu", **keys}))
+        for x in (t, j):
+            x.add_point("m", 1356998400, 1, {"h": "a"})
+        assert (t.meta.track_ts, t.meta.track_uid, len(t.meta.ts_meta),
+                dict(t.meta.ts_counters)) == \
+            (j.meta.track_ts, j.meta.track_uid, len(j.meta.ts_meta),
+             dict(j.meta.ts_counters))
+        return
     with pytest.raises(NotImplementedError,
                        match=f"{key}={value} .*not ported yet \\(ROADMAP "
                        "Queue 1, the rest, with no device compute\\)"):

@@ -13,10 +13,11 @@ against the JAX package's (``opentsdb_tpu/core/wal.py``), on the CPU.
 - The cases of ``tests/test_wal.py`` that need no rollup or annotation,
   and every case of ``tests/test_wal_torn_tail.py``, on the port
   (histogram records: ``tests/test_torch_histogram.py``).
-- Refusals: a log holding a record of a subsystem the port lacks
-  (annotations) raises, naming the ROADMAP item; a rollup store's
-  record with rollups off raises, naming the key (the reference drops
-  it: ROADMAP Queue 3); the memory store with a data_dir raises.
+- Annotation records (``T_ANNOT``, ``T_ANNOT_DEL``) the reference wrote
+  replay in the port as in the reference; a rollup store's record with
+  rollups off raises, naming the key (the reference drops it: ROADMAP
+  Queue 3); the memory store keeps a data_dir's points and flags
+  (``tests/test_torch_memory_durability.py``).
 - Rollup records (``preagg``, ``tier:*``): the same bytes as the
   reference's, replayed by either package, after a snapshot too.
 """
@@ -482,10 +483,10 @@ def _reference_record(w, kind: str) -> None:
     ("preagg", "rollups"),
     ("tier:1m:sum", "rollups")])
 def test_replay_refuses_unported_records(tmp_path, kind, item):
-    """A record of a subsystem the port lacks is refused by name; a
-    rollup store's record (ported) with rollups off is refused naming
-    the key that turns them on (ROADMAP Queue 3: the reference drops
-    it)."""
+    """An annotation record (ported) replays as the reference replays
+    it; a rollup store's record (ported) with rollups off is refused
+    naming the key that turns them on (ROADMAP Queue 3: the reference
+    drops it)."""
     w = jwal.WriteAheadLog(str(tmp_path / "wal"), fsync_mode="never")
     w.ensure_series("data", 0, "m", {"h": "a"})
     w.log_point("data", 0, T0 * 1000, 1.0, False)
@@ -495,14 +496,31 @@ def test_replay_refuses_unported_records(tmp_path, kind, item):
         with pytest.raises(ValueError, match="set tsd.rollups.enable=true"):
             ptsdb(tmp_path)
         return
-    with pytest.raises(twal.UnportedRecordError,
-                       match=f"ROADMAP Queue 1, {item}"):
-        ptsdb(tmp_path)
+    p = ptsdb(tmp_path)
+    p.wal.close()
+    j = jtsdb(tmp_path)
+    notes, want = ([(a.tsuid, a.start_time, a.description)
+                    for a in t.annotations.global_range(0, T0 * 2)]
+                   for t in (p, j))
+    assert notes == want
+    assert notes == ([("", T0, "deploy")] if kind == "annotation" else [])
+    assert p.annotations.version == j.annotations.version
+    assert_same_series(series_of(p), series_of(j))
 
 
 def test_memory_backend_with_data_dir_raises(tmp_path):
-    with pytest.raises(ValueError, match="integer flag"):
-        ptsdb(tmp_path, **{"tsd.storage.backend": "memory"})
+    """No longer raises: the memory store keeps the integer flag, so a
+    data_dir holds its points and flags as the native store's does."""
+    t = ptsdb(tmp_path, **{"tsd.storage.backend": "memory"})
+    assert t.store.backend == "memory"
+    t.add_points("m", T0 + np.arange(3), [1, 2, 3], {"h": "a"})
+    t.add_point("m", T0 + 5, 2.5, {"h": "a"})
+    t.wal.close()
+    got = ptsdb(tmp_path, **{"tsd.storage.backend": "memory"})
+    want = jtsdb(tmp_path)
+    assert_same_series(series_of(got), series_of(want))
+    ts, vals, ints = got.store.series_points(0)
+    assert ints.tolist() == [True, True, True, False]
     # without a data_dir the memory store stays a choice
     TSDB(Config(**{"tsd.torch.device": "cpu",
                    "tsd.storage.backend": "memory"}))
