@@ -52,8 +52,8 @@
    no downsample (a union grid of up to 600 timestamps, flat). Each
    answer is checked against the same query through the port on the
    CPU in float64 over a tenth of its groups (each with all of its
-   series), two cold calls and the warm calls (prepared-batch hits;
-   2 with each stage timed twice, ``IRREGULAR_REPEATS``, CUT from 3
+   series), two cold calls and the warm call (a prepared-batch hit;
+   1 with each stage timed once, ``IRREGULAR_REPEATS``, CUT from 3
    for the run's time) must give the same bits, and neither kernel may
    launch; prints
    the stage p50s, the peak device memory and, with ``--profile``, the
@@ -97,9 +97,10 @@
    ``$TMPDIR`` (its filesystem and free bytes printed; fewer than 8 GiB
    free fails): (a) the series by
    ``add_series_points`` with the WAL (seconds, WAL bytes, records and
-   fsyncs, against phase 9's native ingest); (b) 1M points by
-   ``/api/put`` in 1000-point bodies with the WAL (points/s against
-   phase 8's, fsyncs per body); (c) a child process writes the series
+   fsyncs, against phase 9's native ingest); (b) 100k points by
+   ``/api/put`` in 1000-point bodies with the WAL (CUT from 1M for the
+   run's time, ``DURABLE_PUT_STEPS``; points/s against phase 8's,
+   fsyncs per body); (c) a child process writes the series
    with the WAL, acknowledges and is SIGKILLed; a TSDB on its
    directory recovers (snapshot load and WAL replay timed apart),
    must read back every point, and answers ``{dc=*}`` and ``{rack=*}``
@@ -294,17 +295,51 @@
    a flush: a reopened TSDB holds every point, its integer flag and
    every note, and the snapshot's meta documents and tree. Prints each
    stage and ``phase 17: N s``;
-18. prints the run's wall time, the ``histogram``, ``rollup``,
-   ``streaming``, ``surfaces``, ``mesh`` and ``ops`` lines, one JSON
-   line describing each kernel (its launches are those of phases 3, 5,
-   8, 6, 15, 17, 9, 10, 13 and 14; phases 11, 12 and 16 launch neither
-   on their paths), the card line and, last,
+18. the data lifecycle, BASELINE config 5's shape (run after phase 14,
+   on fresh TSDBs on the native store with ``tsd.rollups.enable``,
+   tiers 1m and 1h, a ``tsd.storage.data_dir`` and the result cache
+   off): 20k series (CUT from 100k) of ``sys.cpu.user`` (config 3's
+   tags) x 2 h at one point a second (CUT from 24 h; 144M points) from
+   ``T0 + 2 m``, ``normal(100, 15)`` from seed 18, by
+   ``add_series_points`` and ``append_grid``. (a) The policy by ``POST
+   /api/lifecycle`` (``demoteAfter`` and ``spillAfter`` in seconds from
+   the wall clock, so that the 1h-floored boundaries land at ``T0 + 2
+   h`` and ``T0 + 1 h``) and one ``POST /api/lifecycle/sweep``: its
+   seconds and report, the demoted count equal to the raw points
+   before the boundary, the tier points equal to the plain rollup's,
+   a sample of the RAM tier's 1m sums equal to numpy bit for bit. The
+   zones are then cold ``[T0 + 2 m, T0 + 1 h)``, RAM tier ``[T0 + 1 h,
+   T0 + 2 h)`` and raw ``[T0 + 2 h, T0 + 2 h 2 m)``. (b)
+   ``sum:1m-sum`` by ``dc`` and by ``rack`` on the point path
+   (``grid_reduce=false``, ``device_cache_mb=0``): over the demoted 118
+   minutes (one cell a bucket: K1 and K2, one launch a call, cold and
+   warm, each kernel held to its plain version on the stitched batch)
+   and over the whole 2 h (irregular rows: the padded or flat path, no
+   kernel), each answer held to a float64 numpy reference of the raw
+   points, the zones' read times printed; (c) the whole 2 h at the
+   default keys (the grid path, each zone's ``bucket_reduce``) and the
+   cold zone alone on the point path (K1); (d) shutdown (a flush) and a
+   reopen of the data_dir (the snapshot, ``lifecycle.json``, the cold
+   manifest): (b)'s history queries bit-equal; (f) on the reopened
+   TSDB, ``tsd.faults.coldstore.read_error_count=1``: ``POST
+   /api/query`` over the cold zone answers a structured 503 with
+   ``Retry-After`` and no rows, the next one answers in full; (e) on a
+   TSDB of its own with the sketch tier on and 1h demotion: p99 by hour
+   over 1k series x 2 h at 10 s across the three sketch zones (cold
+   segment blobs, RAM sketch cells, the raw tail), each within alpha
+   of the exact order statistic, bit-equal after a flush and a reopen
+   (``sketches.bin``). Prints each stage and ``phase 18: N s``;
+19. prints the run's wall time, the ``histogram``, ``rollup``,
+   ``streaming``, ``surfaces``, ``mesh``, ``ops`` and ``lifecycle``
+   lines, one JSON line describing each kernel (its launches are those
+   of phases 3, 5, 8, 6, 15, 17, 9, 10, 13, 14 and 18; phases 11, 12 and
+   16 launch neither on their paths), the card line and, last,
    ``{"ok": true, "device": {...}}``. Each phase's header says how far
    into the run it starts.
 
-Phases 3-8, 11, 13, 14, 15 and 16 run on the default store, the native
-one. Phases 3-5, 7, 9, 11, 12, 13, 14, 15 and 16 run with the result
-cache off, so that every call reaches the path it measures. Every phase
+Phases 3-8, 11, 13, 14, 15, 16 and 18 run on the default store, the
+native one. Phases 3-5, 7, 9, 11, 12, 13, 14, 15, 16 and 18 run with the
+result cache off, so that every call reaches the path it measures. Every phase
 before 15 pins the host tail off (``HOST_TAIL_OFF``), so that each
 kernel launch and device tail it times stays on the card, and prints
 where ``host_tail_for_dims`` would place its queries at the default
@@ -363,7 +398,7 @@ JITTER_S = 10              # phase 7: whole seconds of jitter, 0-9
 # phase 7: warm hits and repeats per stage, CUT from 3: a whole run
 # took 906.6 s on one H100 (phase 7 127.2 s), and a repeat of its three
 # unblocked queries' warm call and stages costs 3.1-4.5 s each
-IRREGULAR_REPEATS = 2
+IRREGULAR_REPEATS = 1
 DROP = 0.02                # phase 7: share of points dropped
 CPU64_SHARE = 10           # phases 7, 11: 1 in 10 groups held to CPU float64
 FANOUT_REPEATS = 3         # repeats of each point-path fan-out reading
@@ -1126,6 +1161,9 @@ FE_CLIENTS = 8             # concurrent HTTP clients in (d)
 PUT_SERIES, PUT_STEPS = 1000, 1000       # (c): 1M points by /api/put
 PUT_BODY_SERIES, PUT_BODY_STEPS = 100, 10  # 1000 points per body
 PUT_CONNS = 4
+# phase 10 (b): 100k points by /api/put with the WAL, CUT from 1M for
+# the run's time (phase 18 added; ROADMAP's chip_smoke.py notes)
+DURABLE_PUT_STEPS = 100
 TEL_SERIES, TEL_STEPS = 200, 1000        # (c): 200k telnet put lines
 
 
@@ -1158,15 +1196,15 @@ def _fe_values(rows, g: int, b: int):
     return torch.tensor(vals, dtype=torch.float64)
 
 
-def put_points(port: int, metric: str) -> float:
-    """PUT_SERIES x PUT_STEPS points of ``metric`` by ``/api/put`` in
+def put_points(port: int, metric: str, steps: int = PUT_STEPS) -> float:
+    """PUT_SERIES x ``steps`` points of ``metric`` by ``/api/put`` in
     1000-point bodies over PUT_CONNS kept-alive connections; the
     seconds it took. Host i's point j is ``(i * 7 + j) % 100000``."""
     import http.client
     n_series_bodies = PUT_SERIES // PUT_BODY_SERIES
 
     def put_bodies(c: int):
-        for k in range(c, n_series_bodies * (PUT_STEPS // PUT_BODY_STEPS),
+        for k in range(c, n_series_bodies * (steps // PUT_BODY_STEPS),
                        PUT_CONNS):
             s0 = (k % n_series_bodies) * PUT_BODY_SERIES
             j0 = (k // n_series_bodies) * PUT_BODY_STEPS
@@ -2026,15 +2064,15 @@ def phase_durability(torch, n_series: int, query) -> dict:
         put_db = durable(root / "b")
         st = serve_pinned(ServerThread, put_db)
         try:
-            put_s = put_points(st.port, "sys.wal.put")
+            put_s = put_points(st.port, "sys.wal.put", DURABLE_PUT_STEPS)
             syncs = put_db.wal.group_syncs
             got = put_db.store.count_range(put_db.store.series_ids_for_metric(
                 put_db.uids.metrics.get_id("sys.wal.put")), 0, 2**62)
         finally:
             st.stop()        # shuts the TSDB down: a flush
             open_dbs.remove(put_db)
-        n_put, n_bodies = PUT_SERIES * PUT_STEPS, \
-            PUT_SERIES * PUT_STEPS // (PUT_BODY_SERIES * PUT_BODY_STEPS)
+        n_put = PUT_SERIES * DURABLE_PUT_STEPS
+        n_bodies = n_put // (PUT_BODY_SERIES * PUT_BODY_STEPS)
         check(len(got) == PUT_SERIES and int(got.sum()) == n_put,
               f"/api/put with the WAL: {int(got.sum())} points read back")
         plain = READINGS.get("put_points_per_s")
@@ -5400,6 +5438,473 @@ def phase_ops(torch, tsdb, values, tags, fused) -> tuple[dict, dict]:
     return {"span_reduce": k1, "onehot_reduce": 0}, out
 
 
+LC_SERIES = 20_000         # phase 18: config 5's shape, CUT from 100,000
+LC_SPAN_S = 7200           # two hours at one point a second (CUT from 24 h)
+LC_START = T0 + 120        # the data: [T0 + 2 m, T0 + 2 h 2 m)
+LC_CHUNK = 2_000           # series per ingest call
+LC_END_S = LC_START + LC_SPAN_S
+# the boundaries, each floored to the coarsest demoted tier (1h):
+# cold [start, T0+1h) | RAM tier [T0+1h, T0+2h) | raw [T0+2h, end), 58,
+# 60 and 2 minutes. A raw tail of an hour (demote_after=1h) would leave
+# 72M raw points for the snapshot of (d) to flush and reload, about ten
+# times the 7.3M values that take 14 s here; the 1h floor puts a cold
+# zone of half the demoted history only at an hour's boundary
+LC_DEMOTE_B = (T0 + 7200) * 1000
+LC_SPILL_B = (T0 + 3600) * 1000
+# the policy's demote_after and spill_after are set by POST
+# /api/lifecycle relative to the wall clock (the sweep's now), so that
+# now - demote_after and now - spill_after fall half an hour past the
+# boundaries above
+LC_KEYS = {"tsd.rollups.enable": "true", "tsd.lifecycle.enable": "true",
+           "tsd.lifecycle.demote_tiers": "1m,1h",
+           # (d) flushes once; a flush after the sweep as well would
+           # write the same snapshot twice
+           "tsd.lifecycle.flush_after_sweep": "false",
+           # the sketch tier is (e)'s, on a TSDB of its own: folding
+           # the demoted points into per-minute sketch cells is host
+           # work of minutes at this width, past the phase's time
+           # (opentsdb_tpu_torch/tools/sweep_rate.py times it)
+           "tsd.sketch.enable": "false"}
+LC_QUERIES = (("sum:1m-sum:sys.cpu.user{dc=*}", "span_reduce"),
+              ("sum:1m-sum:sys.cpu.user{rack=*}", "onehot_reduce"))
+LC_SKETCH_SERIES = 1_000   # (e): series of the sketch-zone metric
+LC_SKETCH_STEP_S = 10      # (e): one point each 10 s
+LC_SKETCH_QS = (99.0,)
+
+
+def lc_policy() -> dict:
+    """The policy body of (a): demote_after and spill_after as seconds
+    from the wall clock to half an hour past each boundary."""
+    now_s = int(time.time())
+    return {"policies": [{
+        "metric": "*", "demoteTiers": ["1m", "1h"],
+        "demoteAfter": f"{now_s - (LC_DEMOTE_B // 1000 + 1800)}s",
+        "spillAfter": f"{now_s - (LC_SPILL_B // 1000 + 1800)}s"}]}
+
+
+def lc_query(m: str, start_s: int, end_s: int):
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    return TSQuery(start=str(start_s), end=str(end_s),
+                   queries=[parse_uri_subquery(m)]).validate()
+
+
+def lc_grouped(x, key: str):
+    """[S, B] per-series values summed into [G, B] by ``dc`` (i % 100)
+    or ``rack`` (i % 2000)."""
+    import numpy as np
+    mod = min(x.shape[0], 100 if key == "dc" else 2000)
+    gid = np.arange(x.shape[0]) % mod
+    return np.stack([np.bincount(gid, x[:, j], minlength=mod)
+                     for j in range(x.shape[1])], axis=1)
+
+
+def lc_held(rows, key: str, want, terms, what: str) -> float:
+    """The rows against the float64 reference at phase 3's tolerance;
+    returns the worst |got - want| / (sum|terms| + 1)."""
+    import numpy as np
+    prefix = "dc" if key == "dc" else "r"
+    got, _ = rows_by_group(rows, key, prefix, want.shape[0])
+    check(got.shape == want.shape, f"{what}: shape {got.shape}, not "
+          f"{want.shape}")
+    diff = np.abs(got - want)
+    check(bool((diff <= TOL_REL * terms + TOL_ABS).all()),
+          f"{what}: differs from the float64 reference by "
+          f"{float((diff / (terms + 1)).max())!r}")
+    return float((diff / (terms + 1)).max())
+
+
+def phase_lifecycle(torch, fused, n_series: int) -> tuple[dict, dict]:
+    """Phase 18: the data lifecycle. Returns (the kernels' launches,
+    the ``lifecycle`` line)."""
+    import tempfile
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.lifecycle.stitch import StitchedStore
+    from opentsdb_tpu_torch.ops import downsample as ds_mod
+    from opentsdb_tpu_torch.ops import pipeline
+    from opentsdb_tpu_torch.ops.pipeline import PipelineSpec
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest, HttpRpcRouter
+    t_phase = time.perf_counter()
+    out: dict = {}
+    launches = {"span_reduce": 0, "onehot_reduce": 0}
+    root = Path(tempfile.mkdtemp(prefix="tsd-lifecycle-"))
+    keys = {"tsd.torch.device": "cuda",
+            "tsd.core.auto_create_metrics": "true",
+            "tsd.query.cache.enable": "false",
+            "tsd.storage.data_dir": str(root / "main"),
+            **HOST_TAIL_OFF, **LC_KEYS}
+    point = {**keys, **POINT_KEYS}
+    n, p = n_series, LC_SPAN_S
+    try:
+        tsdb = TSDB(Config(**point))
+        check(tsdb.store.backend == "native",
+              "phase 18 runs on the default store, the native one")
+        # data, seed 18: config 3's tags, normal(100, 15) at 1 s, with
+        # float64 per-minute sums, each minute added in time order; every
+        # value is positive (checked), so the sums are also the sums of
+        # |x| the tolerance scales by
+        rng = np.random.default_rng(18)
+        tags = [{"host": f"h{i}", "dc": f"dc{i % 100}",
+                 "rack": f"r{i % 2000}"} for i in range(n)]
+        ts_ms = (LC_START + np.arange(p, dtype=np.int64)) * 1000
+        m1 = np.empty((n, p // 60))
+        mask = np.ones((LC_CHUNK, p - 1), dtype=bool)
+        gen_s = ingest_s = 0.0
+        for lo in range(0, n, LC_CHUNK):
+            hi = min(lo + LC_CHUNK, n)
+            t = time.perf_counter()
+            vals = rng.normal(100.0, 15.0, (hi - lo, p))
+            x = vals.reshape(hi - lo, p // 60, 60)
+            check(float(vals.min()) > 0, "a drawn value is not positive")
+            acc = np.zeros((hi - lo, p // 60))
+            for j in range(60):
+                acc += x[:, :, j]
+            m1[lo:hi] = acc
+            t1 = time.perf_counter()
+            sids = tsdb.add_series_points(
+                METRIC, tags[lo:hi], np.full((hi - lo, 1), LC_START,
+                                             np.int64), vals[:, :1])
+            tsdb.store.append_grid(sids, ts_ms[1:], vals[:, 1:],
+                                   mask[:hi - lo])
+            ingest_s += time.perf_counter() - t1
+            gen_s += t1 - t
+        del vals, x
+        check(tsdb.store.points_written == n * p, "raw points written")
+        print(f"  ingest: {n} series x {p} points ({n * p:,} raw points, "
+              f"2 h at 1 s from {LC_START}, normal(100, 15) seed 18) by "
+              f"add_series_points + append_grid: {ingest_s:.3f} s "
+              f"({n * p / ingest_s:,.0f} points/s; drawing the data and "
+              f"the numpy reference {gen_s:.3f} s more)")
+        mid = tsdb.uids.metrics.get_id(METRIC)
+        all_sids = tsdb.store.series_ids_for_metric(mid)
+        before = int(tsdb.store.count_range(all_sids, 1,
+                                            LC_DEMOTE_B - 1).sum())
+
+        # (a) the policy by POST /api/lifecycle, one sweep by POST
+        # /api/lifecycle/sweep
+        router = HttpRpcRouter(tsdb)
+        policy = lc_policy()
+        resp = router.handle(HttpRequest(
+            method="POST", path="/api/lifecycle",
+            body=json.dumps(policy).encode()))
+        check(resp.status == 200, f"(a) the policy answered {resp.status}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        resp = router.handle(HttpRequest(method="POST",
+                                         path="/api/lifecycle/sweep"))
+        sweep_s = time.perf_counter() - t
+        check(resp.status == 200, f"(a) sweep answered {resp.status}")
+        rep = json.loads(resp.body)
+        print(f"  (a) POST /api/lifecycle {json.dumps(policy)}; POST "
+              f"/api/lifecycle/sweep: {sweep_s:.3f} s; report "
+              f"{json.dumps(rep)}")
+        check("error" not in rep, f"(a) the sweep failed: {rep}")
+        check(rep["demoted"] == before == n * (LC_DEMOTE_B // 1000
+                                               - LC_START),
+              f"(a) demoted {rep['demoted']}, raw points before the "
+              f"boundary {before}")
+        # the plain rollup of [start, boundary): a 1m cell per minute
+        # and a 1h cell per hour touched, each of the four statistics
+        n_1m = (LC_DEMOTE_B // 1000 - LC_START) // 60
+        n_1h = len({(s // 3600) for s in range(LC_START,
+                                               LC_DEMOTE_B // 1000)})
+        check(rep["tierPointsWritten"] == n * (n_1m + n_1h) * 4,
+              f"(a) tier points {rep['tierPointsWritten']}, the plain "
+              f"rollup's {n * (n_1m + n_1h) * 4}")
+        n_cold = (LC_SPILL_B // 1000 - LC_START) // 60
+        check(rep["spilled"] == n * (n_cold + 1),
+              f"(a) spilled {rep['spilled']}, not {n * (n_cold + 1)}")
+        check(tsdb.lifecycle.demote_boundary(mid) == LC_DEMOTE_B,
+              "(a) demotion boundary")
+        cold = tsdb.lifecycle.coldstore
+        check(cold.spill_boundary(METRIC) == LC_SPILL_B,
+              "(a) spill boundary")
+        out.update(sweep_s=sweep_s, demoted=rep["demoted"],
+                   tier_points=rep["tierPointsWritten"],
+                   spilled=rep["spilled"], cold_bytes=cold.cold_bytes())
+        # a sample of the RAM tier's 1m sums against numpy, bit for bit
+        tier = tsdb.rollup_store.tier("1m", "sum")
+        sample = np.arange(0, n, 200)
+        tb = tier.materialize(sample, LC_SPILL_B, LC_DEMOTE_B - 1)
+        want = m1[sample, n_cold:n_1m]
+        check(np.array_equal(tb.values.reshape(want.shape).view(np.int64),
+                             want.view(np.int64)),
+              "(a) the RAM tier's 1m sums differ from numpy")
+
+        def zones(store, sub, start_ms, end_ms):
+            """Seconds of the stitched view's cold, tier and raw reads."""
+            sel, _ = tsdb.new_query()._apply_filters(
+                mid, sub, store.series_ids_for_metric(mid), store)
+            cold_rng, tier_rng, raw_rng = store._split(start_ms, end_ms)
+            out_s = []
+            t = time.perf_counter()
+            if cold_rng is not None:
+                store.cold.materialize(sel, *cold_rng)
+            out_s.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            if tier_rng is not None:
+                tsids = store._tier_sids(sel)
+                store.tier.materialize(tsids[tsids >= 0], *tier_rng)
+            out_s.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            if raw_rng is not None:
+                store.raw.materialize(sel, *raw_rng)
+            out_s.append(time.perf_counter() - t)
+            return out_s
+
+        def run(t_db, m, start_s, end_s, what):
+            reset_launches(fused)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rows = t_db.execute_query(lc_query(m, start_s, end_s))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            return rows, secs, read_launches(fused)
+
+        hist_end = LC_DEMOTE_B // 1000 - 1
+        whole_end = LC_END_S - 1
+        cold_end = LC_SPILL_B // 1000 - 1
+        answers = {}
+        # (b) the point path over the stitched view
+        for m, kname in LC_QUERIES:
+            key = "dc" if "{dc=*}" in m else "rack"
+            other = "onehot_reduce" if kname == "span_reduce" \
+                else "span_reduce"
+            tq = lc_query(m, LC_START, hist_end)
+            store = tsdb.new_query()._select_store(tq.queries[0])[0]
+            check(isinstance(store, StitchedStore)
+                  and store.cold is not None,
+                  f"(b) {m}: the engine did not select the stitched view")
+            secs = []
+            for call in ("cold", "warm"):
+                rows, s_, n_l = run(tsdb, m, LC_START, hist_end, call)
+                secs.append(s_)
+                check(n_l == {kname: 1, other: 0},
+                      f"(b) {m} history, {call}: launches {n_l}")
+                launches[kname] += 1
+            answers[("hist", m)] = rows
+            err = lc_held(rows, key, lc_grouped(m1[:, :n_1m], key),
+                          lc_grouped(m1[:, :n_1m], key), f"(b) {m}")
+            # the kernel against its plain version on the stitched batch
+            sub = tq.queries[0]
+            eng = tsdb.new_query()
+            sel, tag_mat = eng._apply_filters(
+                mid, sub, store.series_ids_for_metric(mid), store)
+            gids, g = eng._group_ids(
+                tag_mat, [tsdb.uids.tag_names.get_id(key)])
+            padded = store.materialize_padded(sel, tq.start_ms, tq.end_ms)
+            bidx, bts = ds_mod.assign_buckets_padded(
+                padded.ts2d, padded.counts, sub.ds_spec, tq.start_ms,
+                tq.end_ms)
+            k = pipeline.detect_regular_padded(padded.counts, bidx,
+                                               len(bts))
+            check(k == 1, f"(b) {m}: the stitched history is not one cell "
+                  f"a bucket ({k})")
+            spec = PipelineSpec(num_series=len(sel), num_buckets=len(bts),
+                                num_groups=g, ds_function="sum",
+                                agg_name="sum")
+            vals = pipeline.upload(padded.values2d, torch.float32, "cuda")
+            name, kerr, _ = kernel_vs_plain(fused, spec, vals, bts, gids,
+                                            k, float(2**64 - 1), 0.0,
+                                            allow_span=True)
+            check(name == kname, f"(b) {m}: {name} on the stitched batch")
+            z = zones(store, sub, tq.start_ms, tq.end_ms)
+            print(f"  (b) {m} over the demoted {n_1m} min (cold {n_cold}"
+                  f" + RAM tier {n_1m - n_cold} cells a series, the point "
+                  f"path): cold "
+                  f"{secs[0] * 1e3:.1f} ms, warm {secs[1] * 1e3:.1f} ms, "
+                  f"one {kname} launch a call; zone reads cold "
+                  f"{z[0] * 1e3:.1f} ms, tier {z[1] * 1e3:.1f} ms; "
+                  f"{kname} on the stitched batch against its plain "
+                  f"version max |d| {kerr!r}; against numpy float64 "
+                  f"worst {err!r} of sum|terms|")
+            out[f"b_{key}_cold_ms"] = secs[0] * 1e3
+            out[f"b_{key}_warm_ms"] = secs[1] * 1e3
+            # the whole 2 h: 60 raw points a bucket after the boundary,
+            # one cell before it: irregular rows, no kernel
+            rows, s_, n_l = run(tsdb, m, LC_START, whole_end, "whole")
+            check(n_l == {kname: 0, other: 0},
+                  f"(b) {m} whole: launches {n_l}")
+            answers[("whole", m)] = rows
+            err = lc_held(rows, key, lc_grouped(m1, key),
+                          lc_grouped(m1, key), f"(b) {m} whole")
+            z = zones(store, sub, LC_START * 1000, LC_END_S * 1000 - 1)
+            print(f"  (b) {m} over the whole 2 h (three zones, irregular "
+                  f"rows: the padded/flat path, no kernel): "
+                  f"{s_ * 1e3:.1f} ms; zone reads cold {z[0] * 1e3:.1f} "
+                  f"ms, tier {z[1] * 1e3:.1f} ms, raw {z[2] * 1e3:.1f} ms;"
+                  f" against numpy float64 worst {err!r} of sum|terms|")
+            out[f"b_{key}_whole_ms"] = s_ * 1e3
+            out[f"zones_{key}_ms"] = [x * 1e3 for x in z]
+
+        # (c) the grid path at the default keys, and the cold zone alone
+        for k_, v_ in POINT_KEYS.items():
+            tsdb.config.override_config(k_, engine_defaults().get_string(k_))
+        m, kname = LC_QUERIES[0]
+        rows, s_, n_l = run(tsdb, m, LC_START, whole_end, "grid")
+        check(n_l == {"span_reduce": 0, "onehot_reduce": 0},
+              f"(c) grid launches {n_l}")
+        for k_, v_ in POINT_KEYS.items():
+            tsdb.config.override_config(k_, v_)
+        err = lc_held(rows, "dc", lc_grouped(m1, "dc"),
+                      lc_grouped(m1, "dc"), "(c) grid")
+        rows_c, s_c, n_c = run(tsdb, m, LC_START, cold_end, "cold zone")
+        check(n_c == {"span_reduce": 1, "onehot_reduce": 0},
+              f"(c) cold-zone launches {n_c}")
+        launches["span_reduce"] += 1
+        err_c = lc_held(rows_c, "dc", lc_grouped(m1[:, :n_cold], "dc"),
+                        lc_grouped(m1[:, :n_cold], "dc"), "(c) cold zone")
+        print(f"  (c) {m} whole 2 h at the default keys (the grid path, "
+              f"each zone's bucket_reduce): {s_ * 1e3:.1f} ms, worst "
+              f"{err!r}; over the cold zone alone ([{LC_START}, "
+              f"{cold_end}], the point path, one span_reduce launch): "
+              f"{s_c * 1e3:.1f} ms, worst {err_c!r}")
+        out["c_grid_ms"], out["c_cold_ms"] = s_ * 1e3, s_c * 1e3
+
+        # (d) flush, reopen, the same bits
+        t = time.perf_counter()
+        tsdb.shutdown()
+        flush_s = time.perf_counter() - t
+        del router, tsdb
+        gc.collect()
+        t = time.perf_counter()
+        tsdb = TSDB(Config(**point))
+        open_s = time.perf_counter() - t
+        mid = tsdb.uids.metrics.get_id(METRIC)
+        check(tsdb.lifecycle.demote_boundary(mid) == LC_DEMOTE_B
+              and tsdb.lifecycle.coldstore.spill_boundary(METRIC)
+              == LC_SPILL_B, "(d) boundaries after the reopen")
+        for m, kname in LC_QUERIES:
+            rows, s_, n_l = run(tsdb, m, LC_START, hist_end, "reopened")
+            check(n_l[kname] == 1, f"(d) {m}: launches {n_l}")
+            launches[kname] += 1
+            check(rows_bits(rows) == rows_bits(answers[("hist", m)]),
+                  f"(d) {m}: the reopened answer differs in its bits")
+        print(f"  (d) shutdown (flush) {flush_s:.3f} s; reopen "
+              f"{open_s:.3f} s (snapshot, lifecycle.json, the cold "
+              "manifest); both history queries bit-equal to (b), one "
+              "launch each")
+        out["flush_s"], out["reopen_s"] = flush_s, open_s
+
+        # (f) an armed coldstore.read: a 503, then the full answer
+        tsdb.faults.configure([("tsd.faults.coldstore.read_error_count",
+                                "1")])
+        router = HttpRpcRouter(tsdb)
+        m, kname = LC_QUERIES[0]
+        body = json.dumps({"start": LC_START, "end": cold_end, "queries": [
+            {"metric": METRIC, "aggregator": "sum", "downsample": "1m-sum",
+             "filters": [{"type": "wildcard", "tagk": "dc", "filter": "*",
+                          "groupBy": True}]}]}).encode()
+        reset_launches(fused)
+        t = time.perf_counter()
+        r1 = router.handle(HttpRequest(method="POST", path="/api/query",
+                                       body=body))
+        s1 = time.perf_counter() - t
+        check(r1.status == 503 and r1.headers.get("Retry-After"),
+              f"(f) a failed cold read answered {r1.status}")
+        check(json.loads(r1.body)["error"]["code"] == 503,
+              "(f) the 503 is not structured")
+        t = time.perf_counter()
+        r2 = router.handle(HttpRequest(method="POST", path="/api/query",
+                                       body=body))
+        s2 = time.perf_counter() - t
+        check(r2.status == 200, f"(f) the next query answered {r2.status}")
+        n_f = read_launches(fused)
+        launches["span_reduce"] += n_f["span_reduce"]
+        got = {tuple(sorted(d["tags"].items())): d["dps"]
+               for d in json.loads(r2.body)}
+        check(len(got) == min(n, 100) and all(len(v) == n_cold
+                                      for v in got.values()),
+              "(f) the next answer is not whole")
+        print(f"  (f) tsd.faults.coldstore.read_error_count=1: 503 with "
+              f"Retry-After in {s1 * 1e3:.1f} ms, no rows; the next query "
+              f"200 in {s2 * 1e3:.1f} ms, {len(got)} groups x {n_cold} "
+              f"buckets; read errors "
+              f"{tsdb.lifecycle.coldstore.read_errors}")
+        tsdb.shutdown()
+        del tsdb, router
+        gc.collect()
+
+        # (e) percentiles over the three sketch zones
+        out.update(lifecycle_sketch_zones(torch, root / "sketch"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 18: {out['phase_s']:.1f} s")
+    return launches, out
+
+
+def lifecycle_sketch_zones(torch, data_dir: Path) -> dict:
+    """(e): a 1k-series metric demoted into the 1h tier with the sketch
+    tier on: p99 by hour across the cold sketch blobs, the RAM sketch
+    cells and the raw tail, within alpha of the exact order statistic,
+    the same bits after a flush and a reopen (``sketches.bin``)."""
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.query.model import TSQuery
+    from opentsdb_tpu_torch.sketch.query import documented_alpha
+    keys = {"tsd.torch.device": "cuda",
+            "tsd.core.auto_create_metrics": "true",
+            "tsd.query.cache.enable": "false",
+            "tsd.storage.data_dir": str(data_dir), **HOST_TAIL_OFF,
+            **LC_KEYS, "tsd.lifecycle.demote_tiers": "1h",
+            "tsd.lifecycle.demote_after": "30m",
+            "tsd.lifecycle.spill_after": "1h",
+            "tsd.sketch.enable": "true"}
+    n = LC_SKETCH_SERIES
+    p = LC_SPAN_S // LC_SKETCH_STEP_S
+    rng = np.random.default_rng(19)
+    vals = rng.lognormal(3.0, 0.7, (n, p))
+    ts = LC_START + LC_SKETCH_STEP_S * np.arange(p, dtype=np.int64)
+    t = TSDB(Config(**keys))
+    t.add_series_points("sys.lat.lc", [{"host": f"h{i}"}
+                                       for i in range(n)],
+                        np.broadcast_to(ts, (n, p)), vals)
+    tt = time.perf_counter()
+    # now half an hour past the demotion boundary: the boundaries of
+    # (a)-(d)
+    rep = t.lifecycle.sweep(now_ms=LC_DEMOTE_B + 1800_000)
+    sweep_s = time.perf_counter() - tt
+    check("error" not in rep and rep["spilled"] > 0,
+          f"(e) the sweep: {rep}")
+    q = TSQuery.from_json({
+        "start": str(T0), "end": str(LC_END_S - 1),
+        "queries": [{"aggregator": "sum", "metric": "sys.lat.lc",
+                     "downsample": "1h-avg",
+                     "percentiles": list(LC_SKETCH_QS)}]}).validate()
+    tt = time.perf_counter()
+    rows = t.execute_query(q)
+    q_s = time.perf_counter() - tt
+    alpha = documented_alpha(t)
+    hour = ts // 3600
+    check(len(rows) == 1, f"(e) {len(rows)} rows")
+    got_ts, got = rows[0].dps_arrays
+    check(len(got_ts) == 3, f"(e) {len(got_ts)} buckets, not the three "
+          "zones' hours")
+    worst = 0.0
+    for k, h in enumerate(sorted(set(hour.tolist()))):
+        pts = np.sort(vals[:, hour == h].ravel())
+        exact = pts[int(np.floor(LC_SKETCH_QS[0] / 100 * (len(pts) - 1)))]
+        rel = abs(got[k] - exact) / abs(exact)
+        worst = max(worst, rel)
+        check(rel <= alpha, f"(e) hour {h}: {got[k]!r} vs exact "
+              f"{exact!r}, relative {rel!r} > alpha {alpha}")
+    t.shutdown()
+    t2 = TSDB(Config(**keys))
+    again = t2.execute_query(q)
+    check(rows_bits(again) == rows_bits(rows),
+          "(e) the reopened answer differs in its bits (sketches.bin)")
+    t2.shutdown()
+    print(f"  (e) p99 by hour over {n} series x {p} points at "
+          f"{LC_SKETCH_STEP_S} s (cold sketch blobs, RAM sketch cells, "
+          f"raw tail): sweep {sweep_s:.3f} s ({rep['demoted']} demoted, "
+          f"{rep['spilled']} spilled), query {q_s * 1e3:.1f} ms; worst "
+          f"relative error against the exact order statistic {worst!r} "
+          f"<= alpha {alpha}; the same bits after a reopen")
+    return {"e_sweep_s": sweep_s, "e_query_ms": q_s * 1e3,
+            "e_worst_rel": worst}
+
+
 def tsuid_of_db(tsdb, i: int) -> str:
     """Phase 17 (c): the TSUID of ``ops.hooked`` series i."""
     u = tsdb.uids
@@ -5786,6 +6291,16 @@ def main() -> int:
     live_launches, streaming = phase_streaming(torch, ln, args.profile)
     for kname, n in live_launches.items():
         launches[kname] += n
+    cn = min(LC_SERIES, s)
+    header(f"phase 18: the data lifecycle, BASELINE config 5's shape, {cn} "
+           f"series x {LC_SPAN_S} points at 1 s (CUT from 100,000 x 24 h)"
+           f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+    for m, _ in LC_QUERIES:
+        placement(m, cn, (LC_DEMOTE_B // 1000 - LC_START) // 60,
+                  min(cn, 100 if "{dc=*}" in m else 2000))
+    lc_launches, lifecycle = phase_lifecycle(torch, fused, cn)
+    for kname, n in lc_launches.items():
+        launches[kname] += n
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),
@@ -5814,6 +6329,7 @@ def main() -> int:
     print(json.dumps({"surfaces": surfaces}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"ops": ops}))
+    print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -232,6 +232,32 @@ class HistogramArena:
                    hist.underflow, hist.overflow)
         self.total_points += 1
 
+    def purge_before(self, cutoff_ms: int) -> int:
+        """Drop every point with ``ts < cutoff_ms`` (ref:
+        ``HistogramArena.purge_before``; the lifecycle's retention).
+        Run it under the owning TSDB's ``_histogram_lock``: the kept
+        rows go to new arrays, so snapshots taken before stay whole.
+        Returns the points removed."""
+        removed = 0
+        for key in list(self.groups):
+            sub = self.groups[key]
+            keep = sub.ts[:sub.n] >= cutoff_ms
+            kept = int(keep.sum())
+            if kept == sub.n:
+                continue
+            removed += sub.n - kept
+            if kept == 0:
+                del self.groups[key]
+                continue
+            sub.ts = sub.ts[:sub.n][keep].copy()
+            sub.sid = sub.sid[:sub.n][keep].copy()
+            sub.rows = sub.rows[:sub.n][keep].copy()
+            sub.under = sub.under[:sub.n][keep].copy()
+            sub.over = sub.over[:sub.n][keep].copy()
+            sub.n = kept
+        self.total_points -= removed
+        return removed
+
 
 class HistogramCodec:
     """Codec ABI (ref: ``HistogramDataPointCodec.java``)."""

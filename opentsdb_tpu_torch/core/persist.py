@@ -48,6 +48,7 @@ import dataclasses
 import json
 import logging
 import os
+import tempfile
 import threading
 
 import numpy as np
@@ -192,6 +193,24 @@ def _stage(path: str, write) -> None:
         write(fh)
         fh.flush()
         os.fsync(fh.fileno())
+
+
+def atomic_write(path: str, data: bytes) -> None:
+    """Write ``data`` to ``path`` through a fsynced temporary file in the
+    same directory and one rename (ref: ``_atomic_write``): a reader sees
+    the old file or the new, never a torn one. The lifecycle's
+    ``lifecycle.json``, the cold manifest and ``sketches.bin`` use it."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".")
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
 
 
 def _fsync_dir(path: str) -> None:

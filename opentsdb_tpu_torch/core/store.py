@@ -72,6 +72,27 @@ class PaddedBatch(NamedTuple):
         return int(self.counts.sum())
 
 
+def padded_from_batch(batch: PointBatch) -> PaddedBatch:
+    """Row-pad a flat :class:`PointBatch` whose points are grouped by
+    series and time-ascending within one (ref: ``padded_from_batch``):
+    the padded form of the read views that merge several stores (the
+    lifecycle's stitched view, the cold segments)."""
+    s = len(batch.series_ids)
+    counts = np.bincount(batch.series_idx, minlength=s).astype(np.int64) \
+        if s else np.empty(0, dtype=np.int64)
+    pmax = max(1, int(counts.max())) if s else 1
+    values2d = np.full((s, pmax), np.nan)
+    ts2d = np.zeros((s, pmax), dtype=np.int64)
+    if batch.num_points:
+        row_starts = np.zeros(s, dtype=np.int64)
+        np.cumsum(counts[:-1], out=row_starts[1:])
+        col = np.arange(batch.num_points, dtype=np.int64) \
+            - np.repeat(row_starts, counts)
+        values2d[batch.series_idx, col] = batch.values
+        ts2d[batch.series_idx, col] = batch.ts_ms
+    return PaddedBatch(batch.series_ids, values2d, ts2d, counts)
+
+
 class MetricIndex:
     """Per-metric columnar tag index: (series_id, tagk_id, tagv_id)
     triples, so a tag filter evaluates as numpy set operations over
@@ -239,6 +260,8 @@ def _reduce_rows(ts: np.ndarray, vals: np.ndarray, lo: np.ndarray,
 _REDUCE_CELLS = 1 << 20
 _REDUCE_THREADS = min(8, os.cpu_count() or 1)
 _INSTANCE_IDS = itertools.count(1)
+# first_timestamps of a series with no point
+FIRST_TS_NONE = np.iinfo(np.int64).max
 
 
 class SeriesIdentity(NamedTuple):
@@ -258,6 +281,10 @@ class TimeSeriesStore:
     last write's value and flag."""
 
     backend = "memory"
+    # the scan fault site (ref: ``fault_site``): the owning TSDB sets the
+    # injector; the rollup tier and preagg stores check "rollup.store"
+    fault_injector = None
+    fault_site = "store"
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -528,6 +555,17 @@ class TimeSeriesStore:
                                start_ms, end_ms)
         return lo, hi, ts, vals
 
+    def first_timestamps(self, series_ids) -> np.ndarray:
+        """Each series' oldest timestamp (int64; ``FIRST_TS_NONE`` for a
+        series with no point)."""
+        sids = np.asarray(series_ids, dtype=np.int64)
+        offsets, ts, _ = self._columns()
+        lo, hi = offsets[sids], offsets[sids + 1]
+        out = np.full(len(sids), FIRST_TS_NONE, dtype=np.int64)
+        some = hi > lo
+        out[some] = ts[lo[some]]
+        return out
+
     def count_range(self, series_ids: Sequence[int], start_ms: int,
                     end_ms: int) -> np.ndarray:
         """Points per series in [start_ms, end_ms] without copying them."""
@@ -539,6 +577,8 @@ class TimeSeriesStore:
         """Gather every point of ``series_ids`` in [start_ms, end_ms]
         into a flat batch (ref: ``TimeSeriesStore.materialize``): each
         row's slice of the columns, one after another."""
+        if self.fault_injector is not None:
+            self.fault_injector.check(self.fault_site)
         sids = np.asarray(series_ids, dtype=np.int64)
         lo, hi, ts, vals = self._row_ranges(sids, start_ms, end_ms)
         counts = hi - lo
@@ -555,6 +595,8 @@ class TimeSeriesStore:
         """Gather every point of ``series_ids`` in [start_ms, end_ms]
         into the row-padded layout (ref:
         ``TimeSeriesStore.materialize_padded``)."""
+        if self.fault_injector is not None:
+            self.fault_injector.check(self.fault_site)
         sids = np.asarray(series_ids, dtype=np.int64)
         lo, hi, ts, vals = self._row_ranges(sids, start_ms, end_ms)
         counts = hi - lo
@@ -586,6 +628,8 @@ class TimeSeriesStore:
         columns: one search per (row, bucket edge) finds them, and a
         segmented ``reduceat`` adds them where they lie, without
         gathering a point. Chunks of rows go to a few threads."""
+        if self.fault_injector is not None:
+            self.fault_injector.check(self.fault_site)
         if interval_ms <= 0 or nbuckets <= 0:
             raise ValueError("interval_ms and nbuckets must be positive")
         sids = np.asarray(series_ids, dtype=np.int64)

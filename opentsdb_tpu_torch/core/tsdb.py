@@ -255,8 +255,13 @@ class TSDB:
             tagv_width=self.config.get_int("tsd.storage.uid.width.tagv"),
             random_metrics=self.config.get_bool(
                 "tsd.core.uid.random_metrics"))
+        # fault injection (armed by tsd.faults.* keys; one dict miss per
+        # site when disarmed): the WAL, the snapshot flush, the store
+        # scans and the lifecycle check it
+        self.faults = FaultInjector(self.config)
         # raises when the native library does not build (no fallback)
         self.store = make_store(self.config)
+        self.store.fault_injector = self.faults
         self.mode = self.config.get_string("tsd.mode")
         self.auto_metric = self.config.get_bool(
             "tsd.core.auto_create_metrics")
@@ -268,6 +273,7 @@ class TSDB:
         # each scan (ref: TSDB.query_limits)
         self.query_limits = QueryLimitOverride(self.config)
         self.stats = StatsCollectorRegistry()
+        self.stats.register(self.faults)
         # response bytes and serialization time of /api/query, fed by
         # the HTTP handler
         self.payload_stats = ServePayloadStats()
@@ -289,10 +295,6 @@ class TSDB:
         self._fanout_pool: ThreadPoolExecutor | None = None
         self._fanout_workers = self.config.get_int(
             "tsd.query.fanout.workers")
-        # fault injection for the WAL and the snapshot flush (armed by
-        # tsd.faults.* keys; one dict miss per site when disarmed)
-        self.faults = FaultInjector(self.config)
-        self.stats.register(self.faults)
         # the device pipeline's breaker (ref: TSDB.device_breaker), in
         # its shedding mode only: the reference's host re-answer of a
         # failed query is a fallback the port does not have
@@ -329,7 +331,8 @@ class TSDB:
             self.rollup_config = (RollupConfig.from_file(path) if path
                                   else RollupConfig.default())
             self.rollup_store = RollupStore(
-                self.rollup_config, lambda: make_store(self.config))
+                self.rollup_config, lambda: make_store(self.config),
+                fault_injector=self.faults)
         self.data_dir = self.config.get_string("tsd.storage.data_dir")
         self.wal: WriteAheadLog | None = None
         self._wal_applied_seq = 0
@@ -341,6 +344,9 @@ class TSDB:
         # by the ``streaming`` property: the write paths' tap reads this
         # attribute, one read per write while no query is registered
         self._streaming = None
+        # the data lifecycle (lifecycle/), made at first use by the
+        # ``lifecycle`` property when tsd.lifecycle.enable is true
+        self._lifecycle = None
         self.tap_gate = TapGate()
         # errors of post-write hooks, by hook (``_run_hook``; the
         # streaming tap, ``_tap``): a hook never fails a write that
@@ -569,6 +575,44 @@ class TSDB:
                     self._streaming = reg
         return self._streaming
 
+    @property
+    def lifecycle(self):
+        """The data-lifecycle manager
+        (:mod:`opentsdb_tpu_torch.lifecycle.manager`), made at first use,
+        or None while ``tsd.lifecycle.enable`` is false, the default
+        (ref: ``TSDB.lifecycle``). The query engine asks it for the
+        stitched tier views; the server starts its sweeper."""
+        if not self.config.get_bool("tsd.lifecycle.enable", False):
+            return None
+        if self._lifecycle is None:
+            with self._device_cache_lock:
+                if self._lifecycle is None:
+                    from opentsdb_tpu_torch.lifecycle.manager import \
+                        LifecycleManager
+                    lc = LifecycleManager(self)
+                    self.stats.register(lc)
+                    self._lifecycle = lc
+        return self._lifecycle
+
+    def purge_histograms_before(self, metric_id: int,
+                                cutoff_ms: int) -> int:
+        """Drop one metric's histogram points older than ``cutoff_ms``
+        and move the histogram version and the histogram store's epoch,
+        so every read-side cache drops them (ref:
+        ``TSDB.purge_histograms_before``; the lifecycle's retention and
+        histogram spill). Returns the points removed."""
+        with self._histogram_lock:
+            arena = self._histogram_arenas.get(metric_id)
+            if arena is None:
+                return 0
+            removed = arena.purge_before(cutoff_ms)
+            if removed:
+                if not arena.groups:
+                    del self._histogram_arenas[metric_id]
+                self._histogram_version += 1
+                self.histogram_store.mutation_epoch += 1
+        return removed
+
     def _tap(self, offer, *args) -> None:
         """Offer acknowledged points to the continuous queries. They are
         in the store and the WAL already, so a failure never fails the
@@ -657,12 +701,15 @@ class TSDB:
             self.wal.truncate(wal_seq)
 
     def shutdown(self) -> None:
-        """Stop a running warmup, flush, stop the continuous queries'
-        fold workers and the fan-out pool (waiting for their threads to
-        end), close the WAL, then shut the realtime publisher and the
-        search plugin down (ref: ``TSDB.shutdown``)."""
+        """Stop a running warmup and the lifecycle's sweeper, flush,
+        stop the continuous queries' fold workers and the fan-out pool
+        (waiting for their threads to end), close the WAL, then shut the
+        realtime publisher and the search plugin down (ref:
+        ``TSDB.shutdown``)."""
         if self._warmup_stop is not None:
             self._warmup_stop.set()
+        if self._lifecycle is not None:
+            self._lifecycle.stop()
         self.flush()
         if self._streaming is not None:
             self._streaming.shutdown()
@@ -693,6 +740,10 @@ class TSDB:
         self.uids.tag_names.collect_stats(collector)
         self.uids.tag_values.collect_stats(collector)
         self.store.collect_stats(collector)
+        lc = self._lifecycle
+        cold = lc.coldstore if lc is not None else None
+        collector.record("storage.cold_bytes",
+                         cold.cold_bytes() if cold is not None else 0)
         collector.record("datapoints.added", self.datapoints_added)
         for hook, n in sorted(self.hook_errors.items()):
             collector.record("hooks.errors", n, hook=hook)

@@ -27,9 +27,10 @@ from typing import Sequence
 
 import numpy as np
 
-from opentsdb_tpu_torch.core.store import (_INSTANCE_IDS, MetricIndex,
-                                           PaddedBatch, PointBatch,
-                                           SeriesIdentity, TimeSeriesStore)
+from opentsdb_tpu_torch.core.store import (_INSTANCE_IDS, FIRST_TS_NONE,
+                                           MetricIndex, PaddedBatch,
+                                           PointBatch, SeriesIdentity,
+                                           TimeSeriesStore)
 from opentsdb_tpu_torch.native._build import NativeBuildError, library
 
 __all__ = ["IMPORT_ERRORS", "NativeBuildError", "NativeTimeSeriesStore",
@@ -54,6 +55,9 @@ class NativeTimeSeriesStore:
     ``NativeTimeSeriesStore``)."""
 
     backend = "native"
+    # the scan fault site, as on the memory store
+    fault_injector = None
+    fault_site = "store"
 
     def __init__(self):
         self._lib = library()
@@ -329,6 +333,23 @@ class NativeTimeSeriesStore:
             ts, vals, ints = ts[keep], vals[keep], ints[keep]
         return counts, ts, vals, ints
 
+    def first_timestamps(self, series_ids) -> np.ndarray:
+        """Each series' oldest timestamp (int64; ``FIRST_TS_NONE`` for a
+        series with no point): one read of one point per series."""
+        sids = _i64(series_ids)
+        out = np.full(len(sids), FIRST_TS_NONE, dtype=np.int64)
+        ts, val, flag = (np.empty(1, dtype=np.int64),
+                         np.empty(1, dtype=np.float64),
+                         np.empty(1, dtype=np.uint8))
+        for i, sid in enumerate(sids.tolist()):
+            got = self._lib.tss_read_series(self._h, sid, 1, _ptr(ts),
+                                            _ptr(val), _ptr(flag))
+            if got < 0:
+                raise IndexError(f"no such series {sid}")
+            if got:
+                out[i] = ts[0]
+        return out
+
     def count_range(self, series_ids: Sequence[int], start_ms: int,
                     end_ms: int) -> np.ndarray:
         """Points per series in the inclusive ``[start_ms, end_ms]``."""
@@ -354,6 +375,8 @@ class NativeTimeSeriesStore:
                     end_ms: int) -> PointBatch:
         """Every point of ``series_ids`` in ``[start_ms, end_ms]``, row
         after row: one count pass, then one fill pass."""
+        if self.fault_injector is not None:
+            self.fault_injector.check(self.fault_site)
         sids = _i64(series_ids)
         counts = self.count_range(sids, start_ms, end_ms)
         offsets = np.cumsum(counts) - counts
@@ -370,6 +393,8 @@ class NativeTimeSeriesStore:
                            end_ms: int) -> PaddedBatch:
         """The row-padded layout: the fill pass writes row i at offset
         ``i * Pmax`` of NaN-filled values and zero timestamps."""
+        if self.fault_injector is not None:
+            self.fault_injector.check(self.fault_site)
         sids = _i64(series_ids)
         counts = self.count_range(sids, start_ms, end_ms)
         pmax = max(1, int(counts.max())) if len(sids) else 1
@@ -392,6 +417,8 @@ class NativeTimeSeriesStore:
         nbuckets`` are dropped and NaNs skipped; an empty cell holds sum
         0, count 0, min +inf and max -inf. Each bucket is added in time
         order."""
+        if self.fault_injector is not None:
+            self.fault_injector.check(self.fault_site)
         if interval_ms <= 0 or nbuckets <= 0:
             raise ValueError("interval_ms and nbuckets must be positive")
         sids = _i64(series_ids)

@@ -84,14 +84,17 @@ a long range in time blocks that keep the mesh
 the reduction's memory allows), and the avg path's tail after a divide
 on the host (``_mesh_execute``). A cache entry made with a mesh never
 serves a query without one, nor the other way round, and a mesh query
-never takes the host tail. The lifecycle's stitched tier views are not
-ported yet: their keys raise NotImplementedError when a TSDB is built.
+never takes the host tail. After a lifecycle demotion, a tier-eligible
+sub-query selects the stitched view of cold segments, tier history and
+raw tail (:mod:`opentsdb_tpu_torch.lifecycle.stitch`) in place of the
+tier store, so every path above reads it.
 
 A sub-query with ``percentiles`` takes its own path (``_run_sub``'s
 first branch, as in the reference): the exact merge over the
 histogram arenas (:mod:`~opentsdb_tpu_torch.query.histogram_engine`)
-and, for a scalar metric, the sketch fold
-(:mod:`opentsdb_tpu_torch.sketch.query`).
+and the sketch fold (:mod:`opentsdb_tpu_torch.sketch.query`), a
+scalar metric's three sketch zones or a histogram metric's spilled
+history, spliced by group.
 """
 
 from __future__ import annotations
@@ -143,7 +146,6 @@ HOST_TAIL_DEFAULT_CELLS_LINEAR = 1 << 23
 # subsystem, the ROADMAP Queue 1 item that ports it)
 _REST = "the rest, with no device compute"
 _UNPORTED_SUBSYSTEM_KEYS = (
-    ("tsd.lifecycle.enable", "false", "the data lifecycle", _REST),
     ("tsd.cluster.role", "", "the sharded cluster", _REST),
 )
 
@@ -669,9 +671,18 @@ class QueryEngine:
         t = self.tsdb
         ann = t.annotations.version
         if sub.percentiles:
-            return ("hist", t._histogram_version,
-                    *t.histogram_store.version, t.store.instance_id,
-                    *t.store.version, ann)
+            parts = ["hist", t._histogram_version,
+                     *t.histogram_store.version, t.store.instance_id,
+                     *t.store.version, ann]
+            # the sketch path also reads the sketch tier and, through
+            # it, the cold segments (ref: the sketch key parts)
+            lc = t.lifecycle
+            if lc is not None and lc.sketches is not None:
+                cold = lc.coldstore
+                parts += [lc.sketches.cells_folded,
+                          lc.sketches.cells_spilled,
+                          cold.mutation_epoch if cold is not None else 0]
+            return tuple(parts)
         try:
             store, _mid, _sids, cnt_store, _fn = self._select_store(sub)
         except (BadRequestError, ValueError):
@@ -691,8 +702,11 @@ class QueryEngine:
         ``ds_function`` replaces the downsample function where the
         tier's cells already carry the statistic (a ``count`` over the
         count tier sums the stored counts, ref: Downsampler.java:213),
-        else None. With no lifecycle, a tier is its plain store. A
-        tsuid sub-query reads the raw store (:meth:`_tsuid_store`)."""
+        else None. A tier of a metric the lifecycle demoted is its
+        stitched view (:meth:`_maybe_stitch`); while the metric's first
+        demotion is in flight, the raw store, which still holds every
+        point. A tsuid sub-query reads the raw store
+        (:meth:`_tsuid_store`)."""
         if sub.tsuids:
             return self._tsuid_store(sub)
         try:
@@ -705,27 +719,56 @@ class QueryEngine:
         usage = (sub.rollup_usage or "ROLLUP_NOFALLBACK").upper()
         rollups = self.tsdb.rollup_store
         ds = sub.ds_spec
+        lc = self.tsdb.lifecycle
+        lc_pin_raw = lc is not None and \
+            lc.first_demotion_in_flight(metric_id)
         if rollups is not None and ds is not None and not ds.run_all \
-                and usage != "ROLLUP_RAW":
+                and usage != "ROLLUP_RAW" and not lc_pin_raw:
             tier = self.tsdb.rollup_config.best_match(ds.interval_ms)
             fn = ds.function
+
+            def has_cold() -> bool:
+                # cold segments are tier data: a tier whose RAM store
+                # was spilled empty still wins selection (asked only
+                # when the RAM tier holds nothing)
+                return lc is not None and lc.has_cold(metric_id,
+                                                      tier.interval)
             if tier is None:
                 pass
             elif fn in ("sum", "count", "min", "max"):
-                if rollups.has_data(tier.interval, fn):
-                    store = rollups.tier(tier.interval, fn)
+                if rollups.has_data(tier.interval, fn) or has_cold():
+                    store = self._maybe_stitch(
+                        rollups.tier(tier.interval, fn), metric_id,
+                        tier.interval, fn)
                     if fn == "count":
                         ds_function = "sum"
-            elif fn == "avg" and rollups.has_data(tier.interval, "sum") \
-                    and rollups.has_data(tier.interval, "count"):
-                store = rollups.tier(tier.interval, "sum")
-                cnt_store = rollups.tier(tier.interval, "count")
+            elif fn == "avg" and (rollups.has_data(tier.interval, "sum")
+                                  or has_cold()) \
+                    and (rollups.has_data(tier.interval, "count")
+                         or has_cold()):
+                store = self._maybe_stitch(
+                    rollups.tier(tier.interval, "sum"), metric_id,
+                    tier.interval, "sum")
+                cnt_store = self._maybe_stitch(
+                    rollups.tier(tier.interval, "count"), metric_id,
+                    tier.interval, "count")
         sids = store.series_ids_for_metric(metric_id)
         if store is not raw and len(sids) == 0 and \
                 usage in ("ROLLUP_FALLBACK", "ROLLUP_FALLBACK_RAW"):
             store, cnt_store, ds_function = raw, None, None
             sids = raw.series_ids_for_metric(metric_id)
         return store, metric_id, sids, cnt_store, ds_function
+
+    def _maybe_stitch(self, tier_store, metric_id: int, interval: str,
+                      agg: str):
+        """The lifecycle's stitched view of a selected tier store when
+        the metric has a demotion boundary, else the tier store itself
+        (ref: ``_maybe_stitch``)."""
+        lc = self.tsdb.lifecycle
+        if lc is None:
+            return tier_store
+        return lc.stitched(metric_id, interval, agg, tier_store) \
+            or tier_store
 
     def _tsuid_store(self, sub: TSSubQuery):
         """Resolve a sub-query's tsuid hex strings to raw-store series
@@ -762,15 +805,17 @@ class QueryEngine:
     def _run_percentiles(self, tsq: TSQuery,
                          sub: TSSubQuery) -> list[QueryResult]:
         """A percentile sub-query (ref: ``_run_sub``'s percentile
-        branch): the sketch rows (a scalar metric's, when
-        ``tsd.sketch.enable``), then the histogram arena's rows. With no
-        cold zone one side is always empty, so the reference's splice
-        of the two by group is the other side."""
+        branch): the histogram arena's rows spliced by group with the
+        sketch rows (a scalar metric's three zones, or a histogram
+        metric's spilled history; ``tsd.sketch.enable``)."""
         from opentsdb_tpu_torch.query.histogram_engine import \
             run_histogram_subquery
-        from opentsdb_tpu_torch.sketch.query import run_sketch_percentiles
+        from opentsdb_tpu_torch.sketch.query import (merge_pct_rows,
+                                                     run_sketch_percentiles)
         sk_rows = run_sketch_percentiles(self.tsdb, tsq, sub)
-        rows = sk_rows or run_histogram_subquery(self.tsdb, tsq, sub)
+        rows = run_histogram_subquery(self.tsdb, tsq, sub)
+        if sk_rows is not None:
+            rows = merge_pct_rows(rows, sk_rows)
         # the pixel budget applies to the assembled rows, as to every
         # other producer's (ref: the post-assembly pass over row.dps)
         px, px_fn = effective_pixels(tsq, sub)

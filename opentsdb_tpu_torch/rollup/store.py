@@ -5,7 +5,10 @@ One store per (tier, aggregator) and one for pre-aggregated points,
 each made by the same factory as the raw store (``make_store``: the
 native C++ store by default). They are written by
 ``TSDB.add_aggregate_point`` (``/api/rollup``, telnet ``rollup``) and
-by the rollup job (:mod:`opentsdb_tpu_torch.rollup.job`).
+by the rollup job (:mod:`opentsdb_tpu_torch.rollup.job`). Their scans
+check the ``rollup.store`` fault site (ref: ``RollupStore._new_store``),
+so a degraded tier is armed and seen apart from the raw store; a tier
+made when first written is wired the moment it exists.
 """
 
 from __future__ import annotations
@@ -17,17 +20,25 @@ from opentsdb_tpu_torch.rollup.config import RollupConfig
 
 
 class RollupStore:
-    def __init__(self, config: RollupConfig, store_factory: Callable):
+    def __init__(self, config: RollupConfig, store_factory: Callable,
+                 fault_injector=None):
         self.config = config
         self._factory = store_factory
+        self.fault_injector = fault_injector
         # guards the tiers dict: writers make tiers when first written
         # while query threads copy it for the serve version
         self._tiers_lock = threading.Lock()
         # (interval, agg) -> store; a handful, fixed by the config
         self._tiers: dict[tuple[str, str], object] = {}
-        self._preagg = store_factory()
+        self._preagg = self._new_store()
         # (interval, agg) -> (mutation_epoch, points_written, has data)
         self._has_data_cache: dict[tuple[str, str], tuple] = {}
+
+    def _new_store(self):
+        store = self._factory()
+        store.fault_injector = self.fault_injector
+        store.fault_site = "rollup.store"
+        return store
 
     def tier(self, interval: str, agg: str):
         """The store of one (interval, aggregator), made when first
@@ -45,7 +56,7 @@ class RollupStore:
             with self._tiers_lock:
                 store = self._tiers.get(key)
                 if store is None:
-                    store = self._tiers[key] = self._factory()
+                    store = self._tiers[key] = self._new_store()
         return store
 
     def tiers(self) -> list[tuple[tuple[str, str], object]]:

@@ -29,11 +29,13 @@ Two layers:
   surfaces (they are not expressible as a plain TSQuery).
 
 Bootstrap seeds the ring with one ``bucket_reduce`` pass over the raw
-store. The reference also seeds demoted history from the rollup and
-cold tiers of its lifecycle; the port has no lifecycle yet (ROADMAP
-Queue 1, the rest, with no device compute), so :meth:`SharedPartial.
-_seed_tier_views` finds nothing to seed from and the raw store is all
-there is.
+store. When the horizon reaches behind the metric's lifecycle demotion
+boundary and a rollup tier nests in the base interval, the
+pre-boundary part comes channel-wise from the stitched tier views
+(cold segments, RAM tier, raw tail; :meth:`SharedPartial.
+_seed_tier_views`), and folds drop later backfills behind that
+boundary (stitched batch reads ignore them too). The sketch channel
+seeds from the three sketch zones the same way.
 
 Windows live in a ring of ``n_windows`` columns keyed by
 ``(bucket_ts // interval) % n_windows``; a point landing in a newer
@@ -66,6 +68,8 @@ DECOMPOSABLE_DS = frozenset(("sum", "zimsum", "pfsum", "count", "min",
                              "mimmin", "max", "mimmax", "avg"))
 
 _GROW = 64  # initial / doubling row capacity for the partial arrays
+# the per-statistic tier stores a tier seed reads
+_TIER_AGGS = ("sum", "count", "min", "max")
 
 WINDOW_KINDS = ("tumbling", "sliding", "hopping", "session")
 
@@ -277,9 +281,14 @@ class SharedPartial:
         self._pending_scalars: list[tuple] = []
         self.pending_points = 0
         self.needs_rebuild = False
-        # the reference seeds demoted history from the lifecycle's
-        # tiers; with no lifecycle a partial is never tier-seeded
+        # when the horizon holds history behind the metric's demotion
+        # boundary and a tier interval nests in the base interval,
+        # bootstrap seeds the pre-boundary part from the stitched tier
+        # views; folds then drop pre-boundary backfills (stitched batch
+        # reads ignore them too)
         self.tier_seeded = False
+        self.seed_boundary_ms = 0
+        self._seed_interval: str | None = None
         # the read-set's mutation epochs at bootstrap: deletes,
         # repairs and lifecycle sweeps bump them, and partials cannot
         # "unfold" removed points — the registry forces a rebuild on
@@ -319,11 +328,21 @@ class SharedPartial:
     # ------------------------------------------------------------------
 
     def _epoch_now(self) -> tuple:
-        """Mutation epoch of what this partial was seeded from: the raw
-        store (both port stores count deletes and repairs in
-        ``mutation_epoch``; the reference adds its lifecycle's tier and
-        cold stores when tier-seeded)."""
-        return (self.tsdb.store.mutation_epoch,)
+        """Mutation epochs of everything this partial was seeded from:
+        the raw store always, and the cold store and the four per-stat
+        tier stores when tier-seeded (a cold quarantine or a tier delete
+        forces a rebuild as a raw one does)."""
+        parts = [self.tsdb.store.mutation_epoch]
+        if self.tier_seeded and self._seed_interval is not None:
+            lc = self.tsdb.lifecycle
+            cold = lc.coldstore if lc is not None else None
+            parts.append(cold.mutation_epoch if cold is not None else 0)
+            rs = self.tsdb.rollup_store
+            if rs is not None:
+                for agg in _TIER_AGGS:
+                    parts.append(rs.tier(self._seed_interval,
+                                         agg).mutation_epoch)
+        return tuple(parts)
 
     def epoch_changed(self) -> bool:
         return self.store_epoch != self._epoch_now()
@@ -333,10 +352,36 @@ class SharedPartial:
     # ------------------------------------------------------------------
 
     def _seed_tier_views(self):
-        """The reference's per-stat stitched tier views to seed demoted
-        history from; None, since the port has no lifecycle (and so no
-        demotion boundary)."""
-        return None
+        """``({stat: stitched view}, boundary, interval)`` to seed from,
+        or None when the horizon holds no demoted history or no
+        configured tier nests in the base interval (those windows keep
+        shedding to the batch engine; ref: ``_seed_tier_views``)."""
+        t = self.tsdb
+        lc = t.lifecycle
+        rs = t.rollup_store
+        if lc is None or rs is None or self.metric_id is None:
+            return None
+        boundary = lc.demote_boundary(self.metric_id)
+        if not boundary or self.covered_from_ms >= boundary:
+            return None
+        best = None
+        for iv in t.rollup_config.intervals:
+            if iv.interval_ms <= self.interval_ms \
+                    and self.interval_ms % iv.interval_ms == 0 \
+                    and boundary % iv.interval_ms == 0:
+                # the coarsest nesting tier: fewest cells to reduce
+                if best is None or iv.interval_ms > best.interval_ms:
+                    best = iv
+        if best is None:
+            return None
+        views = {}
+        for agg in _TIER_AGGS:
+            st = lc.stitched(self.metric_id, best.interval, agg,
+                             rs.tier(best.interval, agg))
+            if st is None:
+                return None
+            views[agg] = st
+        return views, boundary, best.interval
 
     def _reset_members_locked(self) -> None:
         """Clear membership for a re-seed (caller holds ``lock``);
@@ -351,14 +396,27 @@ class SharedPartial:
         members (caller holds ``lock``; membership was just rebuilt).
         Subclasses that key rows by something other than series
         (per-tag session partials) override the scatter. ``seeded`` is
-        what :meth:`_seed_tier_views` found: None in the port."""
+        what :meth:`_seed_tier_views` found."""
         if not len(self._sids):
             return
         sid_arr = np.asarray(self._sids, dtype=np.int64)
         span_end = int(start_edge + w * iv - 1)
-        sums, cnts, mins, maxs = self.tsdb.store.bucket_reduce(
-            sid_arr, int(start_edge), span_end, int(start_edge), iv, w,
-            want_minmax=True)
+        if seeded is not None:
+            # channel-wise tier seed: each stitched view combines its
+            # cold, tier and raw-tail parts over the same bucket grid,
+            # so sums of sums, counts of counts and extremes of
+            # extremes are exact
+            views = seeded[0]
+            grid = (sid_arr, int(start_edge), span_end, int(start_edge),
+                    iv, w)
+            sums = views["sum"].bucket_reduce(*grid)[0]
+            cnts = views["count"].bucket_reduce(*grid)[0]
+            mins = views["min"].bucket_reduce(*grid, want_minmax=True)[2]
+            maxs = views["max"].bucket_reduce(*grid, want_minmax=True)[3]
+        else:
+            sums, cnts, mins, maxs = self.tsdb.store.bucket_reduce(
+                sid_arr, int(start_edge), span_end, int(start_edge), iv,
+                w, want_minmax=True)
         s = len(sid_arr)
         self._grow_to(s)
         self._sum[:s, cols] = sums
@@ -372,7 +430,9 @@ class SharedPartial:
                   n_windows: int | None = None) -> None:
         """Seed the window ring from the store: one fused
         ``bucket_reduce`` pass over the horizon produces exactly the
-        sum/count/min/max partials the folds maintain afterwards.
+        sum/count/min/max partials the folds maintain afterwards. When
+        demoted history falls inside the horizon, the stitched tier
+        views supply it channel-wise (see module docstring).
 
         Seals the TSDB's ``tap_gate`` first, so that no write is
         between its store append and its offer while the buffers
@@ -413,6 +473,9 @@ class SharedPartial:
             self.sketch_from_ms = int(start_edge)
             self.covered_from_ms = int(start_edge)
             self.max_ts_ms = int(now_ms)
+            self.tier_seeded = False
+            self.seed_boundary_ms = 0
+            self._seed_interval = None
             uids = self.tsdb.uids
             try:
                 self.metric_id = uids.metrics.get_id(self.metric)
@@ -426,6 +489,10 @@ class SharedPartial:
             # scan leaves the partial already-stale, never wrongly
             # fresh
             seeded = self._seed_tier_views()
+            if seeded is not None:
+                self.tier_seeded = True
+                self.seed_boundary_ms = seeded[1]
+                self._seed_interval = seeded[2]
             self.store_epoch = self._epoch_now()
             store = self.tsdb.store
             sids = store.series_ids_for_metric(self.metric_id)
@@ -510,22 +577,62 @@ class SharedPartial:
 
     def _seed_sketch_locked(self, start_edge: int,
                             span_end: int) -> None:
-        """Seed the sketch channel over the horizon through the
-        vectorized fold of the raw points. The reference first reads
-        the demoted and spilled sketch zones (``sketch_zone_read``);
-        with no lifecycle that read has no items and leaves the whole
-        range as the raw tail, which is what this folds."""
+        """Seed the sketch channel over the horizon (ref:
+        ``_seed_sketch_locked``): demoted and spilled history through
+        the three-zone sketch read (exact when the sketch tier's cell
+        interval nests in the base interval), the raw tail through the
+        vectorized fold. When demoted history cannot seed exactly,
+        ``sketch_from_ms`` moves to the demotion boundary, so a
+        percentile serve before it sheds to the batch engine."""
+        from opentsdb_tpu_torch.lifecycle.stitch import sketch_zone_read
+        t = self.tsdb
+        iv, w = self.interval_ms, self.n_windows
         self._sketch = {}
         self.sketch_from_ms = int(start_edge)
-        if len(self._sids):
-            batch = self.tsdb.store.materialize(
-                np.asarray(self._sids, dtype=np.int64), int(start_edge),
-                int(span_end))
-            if batch.num_points:
-                self._fold_sketch_points(
-                    np.asarray(batch.series_idx, dtype=np.int64),
-                    np.asarray(batch.ts_ms, dtype=np.int64),
-                    np.asarray(batch.values, dtype=np.float64))
+        items, raw_rng, cold_ok = sketch_zone_read(
+            t, self.metric, self.metric_id, int(start_edge),
+            int(span_end))
+        lc = t.lifecycle
+        demote_b = lc.demote_boundary(self.metric_id) \
+            if lc is not None else 0
+        sketches = lc.sketches if lc is not None else None
+        cell_ms = sketches.cell_ms(self.metric) \
+            if sketches is not None else 0
+        nests = bool(cell_ms) and iv % cell_ms == 0
+        if demote_b > start_edge and not (nests and cold_ok):
+            self.sketch_from_ms = int(demote_b)
+            items = []
+        if items:
+            uids = t.uids
+            pos: dict[tuple, int] = {}
+            for slot, pairs in enumerate(self._tag_pairs):
+                try:
+                    pos[tuple(sorted(
+                        (uids.tag_names.get_name(k),
+                         uids.tag_values.get_name(v))
+                        for k, v in pairs))] = slot
+                except LookupError:
+                    continue
+            for names, cts, sk in items:
+                slot = pos.get(tuple(names))
+                if slot is None or cts < self.sketch_from_ms:
+                    continue
+                b = cts - cts % iv
+                c = int((b // iv) % w)
+                if self.win_ts[c] != b:
+                    continue
+                self._merge_sketch_cell(slot, c, sk.copy())
+        if raw_rng is not None:
+            lo = max(int(raw_rng[0]), self.sketch_from_ms)
+            hi = min(int(raw_rng[1]), int(span_end))
+            if lo <= hi and len(self._sids):
+                sid_arr = np.asarray(self._sids, dtype=np.int64)
+                batch = t.store.materialize(sid_arr, lo, hi)
+                if batch.num_points:
+                    self._fold_sketch_points(
+                        np.asarray(batch.series_idx, dtype=np.int64),
+                        np.asarray(batch.ts_ms, dtype=np.int64),
+                        np.asarray(batch.values, dtype=np.float64))
 
     def sketch_items_for(self, start_ms: int, end_ms: int):
         """Live ``(slot, bucket_ts, sketch)`` triples whose base
@@ -684,8 +791,19 @@ class SharedPartial:
             ts = ts_ms[keep]
             vals = values[keep]
             bucket = ts - ts % iv
-            # (the reference drops pre-boundary backfills of a
-            # tier-seeded partial here; the port's never is)
+            if self.tier_seeded and self.seed_boundary_ms:
+                # pre-boundary backfills are invisible to stitched batch
+                # reads; folding them would serve them once: drop and
+                # count
+                pre = bucket < self.seed_boundary_ms
+                if pre.any():
+                    self.preboundary_dropped += int(pre.sum())
+                    live0 = ~pre
+                    slots, ts = slots[live0], ts[live0]
+                    vals, bucket = vals[live0], bucket[live0]
+                    if not len(bucket):
+                        self.folds += 1
+                        return
             if self.lateness_ms > 0:
                 # event-time watermark as it stood BEFORE this drain
                 # pass: a watermark is only emitted after the events
@@ -858,6 +976,7 @@ class SharedPartial:
                 "backpressureDropped": self.backpressure_dropped,
                 "bootstrapPoints": self.bootstrap_points,
                 "tierSeeded": self.tier_seeded,
+                "seedBoundaryMs": self.seed_boundary_ms,
                 "needsRebuild": self.needs_rebuild,
                 "sketchChannel": self.want_sketch,
                 "sketchFromMs": self.sketch_from_ms,

@@ -41,9 +41,10 @@ Results serve three ways:
   current windowed results (the only pull surface for sliding /
   session windows, which no plain TSQuery can express).
 
-Bootstrap seeds partials from the raw store. (The reference also
-seeds demoted history from its lifecycle's tiers; the port has no
-lifecycle yet.)
+Bootstrap seeds partials from the raw store, and demoted history from
+the lifecycle's stitched tier views where a tier nests in the base
+interval; a partial that cannot be tier-seeded sheds windows before
+the demotion boundary to the batch engine.
 
 Degradation: serve-path folds/rebuilds run under the ``stream.fold``
 fault site, worker drains additionally under ``stream.worker``, both
@@ -212,8 +213,7 @@ class ContinuousQueryRegistry:
         self.rebuilds = 0
         self.backpressure_drops = 0
         self.backpressure_events = 0
-        # bootstraps seeded from the lifecycle's tiers: always 0 in the
-        # port, which has no lifecycle (exported as the reference does)
+        # bootstraps seeded from the lifecycle's tiers
         self.tier_seeded_bootstraps = 0
         self.sse_shed = 0
         self.sse_events = 0
@@ -390,7 +390,9 @@ class ContinuousQueryRegistry:
                                 # channel on the rebuild below (or
                                 # lazily at first serve)
                                 group.enable_sketch()
-                            group.ensure_horizon(needed, anchor_ms)
+                            if group.ensure_horizon(needed, anchor_ms) \
+                                    and group.tier_seeded:
+                                self.tier_seeded_bootstraps += 1
                     if group is None:
                         if window.by_tag:
                             group = SessionPartial(
@@ -406,6 +408,8 @@ class ContinuousQueryRegistry:
                         if sub.percentiles:
                             group.want_sketch = True
                         group.bootstrap(anchor_ms)
+                        if group.tier_seeded:
+                            self.tier_seeded_bootstraps += 1
                         new_groups.append(group)
                     view = PlanView(group, sub, need_w, window)
                     views.append(view)
@@ -712,6 +716,8 @@ class ContinuousQueryRegistry:
             return False
         group.needs_rebuild = False
         self.rebuilds += 1
+        if group.tier_seeded:
+            self.tier_seeded_bootstraps += 1
         if br is not None:
             br.record_success()
         return True
@@ -743,8 +749,18 @@ class ContinuousQueryRegistry:
         relative = _is_relative(tsq.start) or _is_relative(tsq.end)
         if not relative and tsq.start_ms % iv:
             return None
-        # (the reference sheds here a window that starts before its
-        # lifecycle's demotion boundary; the port has no lifecycle)
+        # a partial seeded from the stitched tiers covers history
+        # before the demotion boundary exactly; one that is NOT
+        # tier-seeded (no nesting tier) never saw it: shed those
+        # windows to the batch engine, whose stitched store serves them
+        # (percentile views carry their own coverage boundary,
+        # sketch_from_ms, checked inside the serve)
+        lc = self.tsdb.lifecycle
+        if lc is not None and not sub.percentiles \
+                and not group.tier_seeded and \
+                tsq.start_ms < lc.demote_boundary_for(sub.metric):
+            self.serve_fallbacks += 1
+            return None
         # deletes/repairs/sweeps bump the read-set's mutation epochs;
         # partials cannot unfold removed points, so a mismatch forces
         # a rebuild before anything is served (this also covers

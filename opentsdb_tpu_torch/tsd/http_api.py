@@ -20,7 +20,8 @@ delete), ``/api/query/last``, ``/api/suggest``, ``/api/search``
 (:mod:`opentsdb_tpu_torch.tree.rpc`), ``/plugin/<path>`` (the
 ``tsd.http.rpc`` plugins),
 ``/api/aggregators``, ``/api/config`` (+``/filters``),
-``/api/dropcaches``, ``/api/serializers``, ``/api/version``,
+``/api/dropcaches``, ``/api/lifecycle`` (+``/sweep``; the data
+lifecycle), ``/api/serializers``, ``/api/version``,
 ``/api/stats`` (+``/query``, ``/jvm``, ``/threads``,
 ``/region_clients``), ``/diediedie``, and the legacy unversioned
 aliases. Every other endpoint of the reference's surface needs a
@@ -95,7 +96,6 @@ UNPORTED: dict[str, tuple[str, str]] = {
     "profile": (_REST, "obs/ (sampling profiler)"),
     "cluster": (_REST, "cluster/"),
     "control": (_REST, "control/"),
-    "lifecycle": (_REST, "lifecycle/ and coldstore/"),
     "stats/raw": (_REST, "obs/ (raw histogram snapshots)"),
     "stats/fleet": (_REST, "cluster/ (fleet stats)"),
     "stats/query_shapes": (_REST, "obs/ (query-shape log)"),
@@ -265,6 +265,7 @@ class HttpRpcRouter:
             "aggregators": self._handle_aggregators,
             "config": self._handle_config,
             "dropcaches": self._handle_dropcaches,
+            "lifecycle": self._handle_lifecycle,
             "serializers": self._handle_serializers,
             "stats": self._handle_stats,
             "version": self._handle_version,
@@ -1201,6 +1202,37 @@ class HttpRpcRouter:
         self.tsdb.drop_caches()
         return HttpResponse(200, request.serializer.format_dropcaches(
             {"status": "200", "message": "Caches dropped"}))
+
+    def _handle_lifecycle(self, request: HttpRequest, rest
+                          ) -> HttpResponse:
+        """The data lifecycle's admin surface (ref: ``_handle_lifecycle``):
+
+        - ``GET /api/lifecycle``: policies, demotion and spill
+          boundaries, sweep counters;
+        - ``POST``/``PUT /api/lifecycle``: replace the policy table
+          (``{"policies": [{"metric": "*", "retention": "90d",
+          "demoteAfter": "6h", "demoteTiers": ["1m"]}, ...]}``);
+        - ``POST /api/lifecycle/sweep``: run one sweep and answer its
+          report (the sweeper thread runs on
+          ``tsd.lifecycle.interval_s``)."""
+        lc = self.tsdb.lifecycle
+        if lc is None:
+            raise HttpError(400, "Data lifecycle is disabled",
+                            "set tsd.lifecycle.enable = true")
+        if rest and rest[0] == "sweep":
+            if request.method != "POST":
+                raise HttpError(405, "Method not allowed",
+                                "POST runs one sweep")
+            return HttpResponse(200, json.dumps(lc.sweep()).encode())
+        if rest:
+            raise HttpError(404, f"Endpoint not found: "
+                            f"/api/lifecycle/{rest[0]}")
+        if request.method == "GET":
+            return HttpResponse(200, json.dumps(lc.describe()).encode())
+        if request.method in ("POST", "PUT"):
+            lc.update_policies(request.json_object())
+            return HttpResponse(200, json.dumps(lc.describe()).encode())
+        raise HttpError(405, "Method not allowed")
 
     def _handle_stats(self, request: HttpRequest, rest) -> HttpResponse:
         """(ref: StatsRpc.java; /api/stats + /query /jvm /threads

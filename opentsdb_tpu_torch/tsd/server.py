@@ -14,8 +14,8 @@ stream (``text/event-stream``) is written with no query timeout, no
 gzip and no buffering, chunked, and closes its connection; its frames
 are produced on the loop's default executor, and a client that goes
 away closes the stream's generator. :meth:`TSDServer.start` starts the
-continuous queries' fold workers and the warmup thread
-(:mod:`~opentsdb_tpu_torch.tsd.warmup`); :meth:`TSDServer.stop` stops
+continuous queries' fold workers, the warmup thread
+(:mod:`~opentsdb_tpu_torch.tsd.warmup`) and the lifecycle's sweeper; :meth:`TSDServer.stop` stops
 the warmup, ends the event streams, closes the listener, joins both
 pools and the warmup thread, and shuts the TSDB down.
 
@@ -240,6 +240,12 @@ class TSDServer:
         streaming = self.tsdb.streaming
         if streaming is not None and streaming.workers.enabled:
             streaming.workers.start()
+        # the lifecycle's sweeper thread (ref: the server's start); no
+        # thread at tsd.lifecycle.interval_s <= 0 (sweeps by POST
+        # /api/lifecycle/sweep only). TSDB.shutdown stops it.
+        lifecycle = self.tsdb.lifecycle
+        if lifecycle is not None:
+            lifecycle.start()
         LOG.info("Ready to serve on %s:%s", self.host, self.port)
 
     async def serve_forever(self) -> None:

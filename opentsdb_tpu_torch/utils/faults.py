@@ -7,13 +7,20 @@ them.
   keys ``tsd.faults.<site>_<knob>`` (knob: ``error_rate``,
   ``error_count``, ``error_once``, ``latency_ms``) or :meth:`arm`. The
   sites are the WAL's (``wal.append``, ``wal.fsync``), the snapshot
-  flush (``store.flush``), the continuous queries' (``stream.fold``,
-  ``stream.worker``, ``stream.watermark``), the query engine's
-  device dispatch (``device.compile``), and the meta and tree write
-  paths (``meta.store``, ``tree.store``), which the write path's hook
-  guard counts without failing the write. An error rate is a counted
-  schedule (call ``i`` fails iff ``floor(i * r)`` advances), never a
-  coin flip, so a failure reproduces.
+  flush (``store.flush``), the store scans (``store`` on the raw
+  stores, ``rollup.store`` on the tier and preagg stores), the
+  continuous queries' (``stream.fold``, ``stream.worker``,
+  ``stream.watermark``), the query engine's device dispatch
+  (``device.compile``), the meta and tree write paths (``meta.store``,
+  ``tree.store``), which the write path's hook guard counts without
+  failing the write, and the data lifecycle's (``lifecycle.sweep``,
+  ``lifecycle.demote``, ``lifecycle.histogram``, ``sketch.fold``,
+  ``coldstore.read``, ``coldstore.write``). A key that names a site of
+  the reference's cluster or control plane, which the port lacks,
+  raises NotImplementedError; a key that names no site at all warns.
+  An error rate is a counted schedule (call ``i`` fails iff
+  ``floor(i * r)`` advances), never a coin flip, so a failure
+  reproduces.
 - :class:`RetryPolicy` and :func:`call_with_retries`: bounded
   exponential backoff under a wall-clock deadline.
 - :class:`CircuitBreaker` (closed -> open -> half-open) and
@@ -23,10 +30,13 @@ them.
   shedding mode only: while it is open, pulls go to the batch engine
   and ``/result`` answers 503, and a query that would touch the device
   answers 503. The reference's host re-answer of a failed device query
-  is a fallback, which the port does not have.
+  is a fallback, which the port does not have. The lifecycle's sweep
+  breaker skips sweeps while open; its cold read breaker makes a read
+  of the cold segments answer 503 while open, where the reference
+  serves the rest of the history.
 
-The reference's other sites belong to subsystems the port has not
-ported yet (ROADMAP Queue 1).
+The reference's ``cluster.*`` and ``control.*`` sites belong to
+subsystems the port has not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -41,14 +51,29 @@ from typing import Any, Callable
 KNOWN_SITES: frozenset[str] = frozenset({
     "wal.fsync",          # core/wal.py fsync leader
     "wal.append",         # core/wal.py framed write
+    "store",              # store scan path (memory and native stores)
     "store.flush",        # core/persist.py snapshot flush
+    "device.compile",     # query/engine.py device pipeline dispatch
+    "rollup.store",       # rollup tier and preagg store scans
+    "coldstore.read",     # coldstore/store.py segment reads
+    "coldstore.write",    # coldstore/store.py segment spill
+    "tree.store",         # tree/tree.py filing path
+    "meta.store",         # meta/meta_store.py write paths
     "stream.fold",        # streaming/registry.py incremental fold
     "stream.worker",      # streaming/workers.py off-path drain
     "stream.watermark",   # streaming/eventtime/watermark.py marker
-    "device.compile",     # query/engine.py device pipeline dispatch
-    "meta.store",         # meta/meta_store.py write paths
-    "tree.store",         # tree/tree.py filing path
+    "lifecycle.sweep",    # lifecycle/manager.py whole sweep
+    "lifecycle.demote",   # lifecycle/manager.py demotion fold
+    "lifecycle.histogram",  # lifecycle/manager.py histogram retention
+    "sketch.fold",        # ops/sketch_fold.py demote-time sketch fold
 })
+
+# the reference's sites of subsystems the port has not ported yet: a
+# key that arms one is refused, since nothing here would check it
+UNPORTED_SITE_PREFIXES: dict[str, str] = {
+    "cluster.": "cluster/",
+    "control.": "control/",
+}
 
 
 class InjectedFault(OSError):
@@ -116,6 +141,13 @@ class FaultInjector:
                     break
             else:
                 continue
+            for prefix, what in UNPORTED_SITE_PREFIXES.items():
+                if site.startswith(prefix):
+                    raise NotImplementedError(
+                        f"config key {key!r} arms the fault site "
+                        f"{site!r} of {what}, which is not ported yet "
+                        "(ROADMAP Queue 1, the rest, with no device "
+                        "compute); remove the key")
             if site not in KNOWN_SITES:
                 # a typo would arm nothing: say so, but come up
                 logging.getLogger("faults").warning(

@@ -9,7 +9,9 @@ The plain answer adds the float32 terms' group sums in float64
 Both kernels are deterministic: each adds in the order that
 ``test_torch_span_order`` sets out, bit for bit, and 20 launches agree
 bitwise; so do two calls of the grid tail, whose group sums follow a
-fixed order. A two-sub query fans out and launches each kernel once.
+fixed order. A two-sub query fans out and launches each kernel once,
+and a query over demoted history reads the lifecycle's stitched view
+through each kernel.
 The histogram merge and ranks (float64, no kernel) equal the CPU's bit
 for bit, and a percentile query keeps its counts on the card.
 """
@@ -372,6 +374,43 @@ def test_prepared_hit_launches_the_kernel(card):
     assert t.device_grid_cache.hits == 1
     for a, b in zip(cold, warm):
         np.testing.assert_array_equal(a.dps_arrays[1], b.dps_arrays[1])
+
+
+@pytest.mark.parametrize("m,kernel", [
+    ("sum:1m-sum:m{dc=*}", "span_reduce"),
+    ("sum:1m-sum:m{rack=*}", "onehot_reduce")])
+def test_stitched_history_launches_the_kernel(card, m, kernel):
+    """After a lifecycle demotion into the 1m tiers, a query over the
+    demoted hour reads the stitched view (tier cells, one a bucket) on
+    the point path: K1 by ``dc``, K2 by ``rack``, one launch each, and
+    the answer is the CPU's in float64 over the same stores (1e-5
+    relative, as the other card tests)."""
+    from opentsdb_tpu_torch import TSDB, Config
+    keys = {"tsd.query.grid_reduce": "false",
+            "tsd.query.device_cache_mb": "0",
+            "tsd.rollups.enable": "true", "tsd.lifecycle.enable": "true",
+            "tsd.lifecycle.demote_after": "30m",
+            "tsd.lifecycle.demote_tiers": "1m"}
+    t = _card_tsdb(card, **keys)
+    rep = t.lifecycle.sweep(now_ms=(1356998400 + 3600) * 1000)
+    assert rep["demoted"] > 0
+    cpu = TSDB(Config(**{"tsd.torch.device": "cpu",
+                         "tsd.torch.dtype": "float64", **keys}))
+    cpu.store, cpu.uids, cpu.rollup_store = (t.store, t.uids,
+                                             t.rollup_store)
+    cpu.lifecycle._boundaries = dict(t.lifecycle._boundaries)
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    q = TSQuery(start="1356998400", end=str(1356998400 + 1799),
+                queries=[parse_uri_subquery(m)]).validate()
+    n = getattr(fused, kernel).launches
+    got = t.execute_query(q)
+    assert getattr(fused, kernel).launches == n + 1
+    want = cpu.execute_query(q)
+    assert len(got) == len(want) > 0
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(a.dps_arrays[0], w.dps_arrays[0])
+        np.testing.assert_allclose(a.dps_arrays[1], w.dps_arrays[1],
+                                   rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("g", [100, 2000])

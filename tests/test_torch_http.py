@@ -596,6 +596,33 @@ def test_unported_endpoint_answers_501(port_router, path):
     assert "ROADMAP Queue 1" in err["message"]
 
 
+@pytest.mark.parametrize("method,path", [
+    ("GET", "/api/lifecycle"), ("POST", "/api/lifecycle/sweep"),
+    ("GET", "/api/lifecycle/sweep"), ("GET", "/api/v1/lifecycle")])
+def test_lifecycle_endpoint_equals_reference(method, path):
+    """``/api/lifecycle`` is ported: with the lifecycle off both routers
+    answer the same 400, with it on the same document (the sweep
+    report's clock left out)."""
+    from opentsdb_tpu import TSDB as JT, Config as JC
+    from opentsdb_tpu_torch import TSDB, Config
+    for keys in ({}, {"tsd.lifecycle.enable": "true",
+                      "tsd.lifecycle.retention": "1d"}):
+        answers = []
+        for router, req in (
+                (JRouter(JT(JC(**{"tsd.tpu.platform": "cpu", **keys}))),
+                 JRequest),
+                (HttpRpcRouter(TSDB(Config(**{"tsd.torch.device": "cpu",
+                                              **keys}))), HttpRequest)):
+            resp = router.handle(req(method=method, path=path))
+            doc = json.loads(resp.body)
+            for part in (doc, doc.get("counters", {})):
+                for clock in ("durationMs", "lastSweepDurationMs",
+                              "lastSweepTime"):
+                    part.pop(clock, None)
+            answers.append((resp.status, doc))
+        assert answers[1] == answers[0]
+
+
 def test_mode_gating():
     """A read-only TSD does not route puts; a write-only one does not
     route queries (404, as the reference)."""

@@ -756,8 +756,24 @@ def test_rollup_usage_is_part_of_the_cache_key():
     ("tsd.core.meta.enable_tsuid_tracking", "true"),
     ("tsd.core.tree.enable_processing", "true")])
 def test_unported_subsystem_keys_refused(key, value):
-    """Lifecycle and cluster keys still raise; the meta and tree keys
-    (ported) start a TSDB that tracks as the JAX package's does."""
+    """Cluster keys still raise; the meta and tree keys (ported) start a
+    TSDB that tracks as the JAX package's does, and the lifecycle key
+    (ported) one whose lifecycle describes itself as the JAX package's
+    does."""
+    if key == "tsd.lifecycle.enable":
+        keys = {key: value, "tsd.core.auto_create_metrics": "true",
+                "tsd.rollups.enable": "true",
+                "tsd.lifecycle.demote_after": "1h"}
+        t = TSDB(Config(**{"tsd.torch.device": "cpu", **keys}))
+        j = JTSDB(JConfig(**{"tsd.tpu.platform": "cpu", **keys}))
+        docs = []
+        for x in (t, j):
+            x.add_point("m", 1356998400, 1, {"h": "a"})
+            doc = x.lifecycle.describe()
+            doc["counters"].pop("lastSweepTime")
+            docs.append(doc)
+        assert docs[0] == docs[1]
+        return
     if key.startswith(("tsd.core.meta.", "tsd.core.tree.")):
         keys = {key: value, "tsd.core.auto_create_metrics": "true"}
         t = TSDB(Config(**{"tsd.torch.device": "cpu", **keys}))

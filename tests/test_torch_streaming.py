@@ -540,10 +540,8 @@ def test_register_list_get_delete(pair):
     for k in ("id", "query", "intervalMs", "windows", "series",
               "windowSpec", "sharedPlan", "foldBytes"):
         assert docs[1][k] == docs[0][k], k
-    # the port has no lifecycle: its plan info leaves out the
-    # reference's seedBoundaryMs, and says the rest alike
+    # the plan info (seedBoundaryMs included) says the same
     jplan_info, tplan_info = docs[0]["plans"][0], docs[1]["plans"][0]
-    jplan_info.pop("seedBoundaryMs")
     assert tplan_info == jplan_info
 
 
