@@ -51,8 +51,8 @@
    ``America/New_York`` (calendar buckets) and ``sum`` by ``dc`` with
    no downsample (a union grid of up to 600 timestamps, flat). Each
    answer is checked against the same query through the port on the
-   CPU in float64 over a tenth of its groups (each with all of its
-   series), two cold calls and the warm call (a prepared-batch hit;
+   CPU in float64 over a twentieth of its groups (each with all of its
+   series; ``CPU64_SHARE``, CUT from a tenth), two cold calls and the warm call (a prepared-batch hit;
    1 with each stage timed once, ``IRREGULAR_REPEATS``, CUT from 3
    for the run's time) must give the same bits, and neither kernel may
    launch; prints
@@ -70,7 +70,8 @@
    to phase 3's float64 reference; HTTP p50 beside the direct p50 and
    the serializer's time. (b) The same at the default keys: a miss,
    then result-cache hits. (d) 8 concurrent clients of (a). (e) An
-   unported endpoint answers 501, a bad aggregator 400. (c) 1M points
+   unported endpoint answers 501, a bad aggregator 400. (c) 250k points
+   (CUT from 1M for the run's time, ``PUT_STEPS``)
    by ``/api/put`` in 1000-point bodies over 4 kept-alive connections
    and 200k telnet ``put`` lines, points/s of each, and an exact
    read-back of both by ``/api/query``. The server must stop cleanly;
@@ -123,15 +124,17 @@
    equal the unblocked point path's
    (``tsd.query.max_device_cells=268435456``,
    ``grid_reduce=false``) bit for bit and the port on the CPU in
-   float64 at phase 7's tolerance over a tenth of its groups (each with
-   all of its series; CUT from all groups for the run's time); prints
+   float64 at phase 7's tolerance over a twentieth of its groups (each
+   with all of its series; CUT from all groups, then a tenth, for the
+   run's time); prints
    both device peaks (the
    blocked one must be the lower), the stage times (plan, materialize,
    assign, flatten, the host split into blocks, pass 1, pass 2,
    assemble) and, with ``--profile``, the device's idle share;
 12. histograms, BASELINE config 4 (``bench_e2e.py:253-282``), on a
-   fresh TSDB at the default keys but the result cache: (a) 250k series
-   (``HIST_CUT``: CUT from config 4's 1M for the run's time)
+   fresh TSDB at the default keys but the result cache: (a) 125k series
+   (``HIST_CUT``: CUT from config 4's 1M, to 250k then 125k, for the
+   run's time)
    of ``sys.lat.hist`` (``host=h<i>``, ``dc=dc<i%100>``) x 1 point (the
    depth cut from 2 points a minute apart), 64 buckets on
    ``np.logspace(0, 4, 65)``, counts
@@ -147,7 +150,7 @@
    arena slice, window rows, upload, segments, merge, percentiles,
    emit) and, with ``--profile``, the device's idle share; (c) ``merge_histograms`` and
    ``percentiles_from_merged`` timed by CUDA events beside a plain read
-   of the [250k, 64] float64 counts, printed on the ``histogram`` line;
+   of the [125k, 64] float64 counts, printed on the ``histogram`` line;
    (d) ``sum:5m-avg`` percentiles [50, 99] over 10k scalar series x 60
    ``lognormal(3, 0.8)`` points (seed 0) by the sketch fold, each within
    alpha of the exact order statistic, two calls the same bits; (e) 10k
@@ -193,8 +196,8 @@
    by ``dc`` and ``avg:1m-max`` by ``rack`` (both filter on both
    keys, so they share one partial), (b) 16 copies of (a)'s first,
    (c) ``sum:1m-sum`` sliding 5m and hopping 5m/2m, (d) sessions at a
-   2m gap over ``dc2``, (e) p99 and p99.9 over ``dc1``. 2 rounds (CUT
-   from 5) of live traffic (500 ``add_point``, 10,000 points by
+   2m gap over ``dc2``, (e) p99 and p99.9 over ``dc1``. 1 round (CUT
+   from 5, then 2) of live traffic (500 ``add_point``, 10,000 points by
    ``/api/put`` and 1,000 telnet lines each); after every round (a)
    and (b) pulled by ``execute_query`` and HTTP are served from the
    windows
@@ -329,13 +332,41 @@
    segment blobs, RAM sketch cells, the raw tail), each within alpha
    of the exact order statistic, bit-equal after a flush and a reopen
    (``sketches.bin``). Prints each stage and ``phase 18: N s``;
-19. prints the run's wall time, the ``histogram``, ``rollup``,
-   ``streaming``, ``surfaces``, ``mesh``, ``ops`` and ``lifecycle``
-   lines, one JSON line describing each kernel (its launches are those
-   of phases 3, 5, 8, 6, 15, 17, 9, 10, 13, 14 and 18; phases 11, 12 and
-   16 launch neither on their paths), the card line and, last,
-   ``{"ok": true, "device": {...}}``. Each phase's header says how far
-   into the run it starts.
+19. observability and the control plane. (a) and (b) run after phase 17
+   on phase 3's TSDB while a ``TSDServer`` serves it, with
+   ``tsd.trace.sample=1`` and phase 3's keys, over phase 15's window
+   (clear of phase 6's write): (a) ``POST /api/query`` of both queries,
+   one K1 or K2 launch inside each; ``GET /api/trace/<id>``: the tree
+   ``tests/test_torch_trace.py`` gives for the request (``query.http``
+   with its shape tags over the admission, plan, execute, assemble and
+   serialize stages), the answer held to a float64 numpy reference, and
+   ``query.execute`` at least the kernel's CUDA-event time (phase 3);
+   the stage p50s; the tracing tax: 200 result-cache hits and a
+   100k-point ``/api/put`` each with the tracer on and off. (b)
+   ``/metrics`` (ms, bytes, every line a valid sample, ``# EOF``
+   last), ``/api/health``, ``/api/stats/raw``, ``/api/profile``
+   (the ``query`` role present) and ``/logs``. (c)-(e) run after phase
+   18 on a TSDB of their own: 100k series x 10 min at 1 s (seed 19,
+   ending a minute before the wall clock) by ``append_grid``, a
+   data_dir for the shape log, ``tsd.control.enable`` with ticks by
+   request only, tenant QoS at ``max_inflight`` 4 and
+   ``tsd.stats.self_interval=1``: (c) one dashboard query over
+   ``15m-ago`` pulled 8 times, ``POST /api/control/tick`` registers its
+   ``auto-*`` continuous query, the next pull is served by the registry
+   (``query.streaming_lookup`` in its trace), equal byte for byte to a
+   hand-registered query of the same body and to the engine's K1
+   answer over the data's buckets within the tolerance; (d) 16 noisy
+   clients and one victim for 3 s: the noisy tenant's tenant 503s
+   with ``Retry-After``, none for the victim, its p50 and p99; (e) the
+   pump's ``tsd.datapoints.added`` answering ``/api/query``, and where
+   its tail runs. Prints ``phase 19: N s`` and an ``obs`` line;
+20. prints the run's wall time, the ``histogram``, ``rollup``,
+   ``streaming``, ``surfaces``, ``mesh``, ``ops``, ``lifecycle`` and
+   ``obs`` lines, one JSON line describing each kernel (its launches
+   are those of phases 3, 5, 8, 6, 15, 17, 19, 9, 10, 13, 14 and 18;
+   phases 11, 12 and 16 launch neither on their paths), the card line
+   and, last, ``{"ok": true, "device": {...}}``. Each phase's header
+   says how far into the run it starts.
 
 Phases 3-8, 11, 13, 14, 15, 16 and 18 run on the default store, the
 native one. Phases 3-5, 7, 9, 11, 12, 13, 14, 15, 16 and 18 run with the
@@ -400,7 +431,9 @@ JITTER_S = 10              # phase 7: whole seconds of jitter, 0-9
 # unblocked queries' warm call and stages costs 3.1-4.5 s each
 IRREGULAR_REPEATS = 1
 DROP = 0.02                # phase 7: share of points dropped
-CPU64_SHARE = 10           # phases 7, 11: 1 in 10 groups held to CPU float64
+# phases 7, 11: 1 in 20 groups held to CPU float64 (CUT from 1 in 10 for
+# the run's time when phase 19 came)
+CPU64_SHARE = 20
 FANOUT_REPEATS = 3         # repeats of each point-path fan-out reading
 REPRO_LAUNCHES = 20        # launches of each kernel's reproducibility reading
 # device memory rate by card name (NVIDIA data sheets), bytes/s
@@ -411,6 +444,12 @@ F32_PEAK = 67e12           # float32 FLOP/s outside the tensor cores
 F64_PEAK = 34e12
 TOL_REL, TOL_ABS = 1e-5, 1e-6
 REPEATS = 5                # warm repeats per timed stage
+# phase 3's end-to-end calls and stage timings per query, and phase 4's
+# cold calls and stage timings, CUT from REPEATS for the run's time
+# (phase 19 added: 892.2-893.8 s from a git archive on one H100;
+# ROADMAP's chip_smoke.py notes)
+MAIN_REPEATS = 2
+GRID_REPEATS = 3
 # phases 9 and 10 hold a quarter of the series: at config 3's full 1M
 # they took 400 of the run's 1200 s (PERF.md section 4)
 STORE_CUT = 4
@@ -830,7 +869,7 @@ def phase_grid(torch, tsdb, query, profile: bool) -> None:
     runs = {}
     for m, _ in QUERIES:
         cold_s = []
-        for i in range(REPEATS):
+        for i in range(GRID_REPEATS):
             tsdb.drop_caches()
             cold, secs = timed(lambda: tsdb.execute_query(query(m)), 1)
             cold_s += secs
@@ -842,10 +881,10 @@ def phase_grid(torch, tsdb, query, profile: bool) -> None:
         cache = tsdb.device_grid_cache
         hits = cache.hits
         warm, warm_s = timed(lambda: tsdb.execute_query(query(m)),
-                             REPEATS)
-        check(cache.hits == hits + REPEATS,
+                             GRID_REPEATS)
+        check(cache.hits == hits + GRID_REPEATS,
               f"warm grid calls made {cache.hits - hits} cache hits, "
-              f"not {REPEATS}")
+              f"not {GRID_REPEATS}")
         runs[m] = (cold, warm, cold_s, warm_s)
     launches = read_launches(fused)
     print(f"  grid-path launches: {launches}")
@@ -873,7 +912,7 @@ def phase_grid(torch, tsdb, query, profile: bool) -> None:
             sel, tag_mat = eng._apply_filters(metric_id, sub, sids)
             return (sel, tag_mat) + eng._group_ids(tag_mat, gb)
 
-        (sel, tag_mat, gids, g), plan_t = timed(plan, REPEATS)
+        (sel, tag_mat, gids, g), plan_t = timed(plan, GRID_REPEATS)
         bts = ds_mod.fixed_bucket_edges(tq.start_ms, tq.end_ms,
                                         ds.interval_ms)
         b = len(bts)
@@ -884,17 +923,17 @@ def phase_grid(torch, tsdb, query, profile: bool) -> None:
                     sel, tq.start_ms, tq.end_ms, int(bts[0]),
                     ds.interval_ms, b))
 
-        (grid64, present), red_t = timed(reduce, REPEATS)
+        (grid64, present), red_t = timed(reduce, GRID_REPEATS)
         (grid, has), up_t = timed(lambda: pipeline.put_grid(
-            grid64, present, torch.float32, "cuda"), REPEATS)
+            grid64, present, torch.float32, "cuda"), GRID_REPEATS)
         spec = PipelineSpec(num_series=len(sel), num_buckets=b,
                             num_groups=g, ds_function="avg",
                             agg_name=sub.agg.name, rate=sub.rate)
         (res, emit), tail_t = timed(lambda: pipeline.execute_grid(
-            grid, has, bts, gids, spec, sub.rate_options), REPEATS)
+            grid, has, bts, gids, spec, sub.rate_options), GRID_REPEATS)
         _, asm_t = timed(lambda: eng._build_results(
             tq, sub, metric_id, sel, tag_mat, gids, g, bts,
-            res.cpu().numpy(), emit.cpu().numpy()), REPEATS)
+            res.cpu().numpy(), emit.cpu().numpy()), GRID_REPEATS)
         check(res.is_cuda and emit.is_cuda, "results are not on cuda")
 
         # the same query through the port on the CPU in float64
@@ -932,7 +971,7 @@ def phase_grid(torch, tsdb, query, profile: bool) -> None:
               + f"; sum {sum(p50(v) for _, v in stages) * 1e3:.3f}")
         print(f"  {m} grid: end-to-end p50 cold {p50(cold_s) * 1e3:.3f} "
               f"ms, warm {p50(warm_s) * 1e3:.3f} ms; max_abs_err vs "
-              f"CPU float64 {err:.6g}; {REPEATS} cold calls and the "
+              f"CPU float64 {err:.6g}; {GRID_REPEATS} cold calls and the "
               "warm ones equal bit for bit; cached grid equals a fresh "
               "one bit for bit")
         prod_reading(torch, grid, gids, g)
@@ -1154,11 +1193,14 @@ def phase_serve(torch, tsdb, query, ref3: dict, last_tags: dict) -> dict:
 
 # phase 8: the front end (HTTP and telnet on one port)
 # phase 8's repeats and volumes, CUT for the run's time limit (from 5
-# HTTP and 3 direct calls, 8 clients and 1M points)
-FE_REPEATS = 5             # HTTP calls per query in (a), 1 POST + 4 GET
-FE_DIRECT = 3              # direct execute_query calls per query in (a)
+# HTTP and 3 direct calls, 8 clients and 1M points; then, with phase 19,
+# to 3 HTTP and 2 direct calls)
+FE_REPEATS = 3             # HTTP calls per query in (a), 1 POST + 2 GET
+FE_DIRECT = 2              # direct execute_query calls per query in (a)
 FE_CLIENTS = 8             # concurrent HTTP clients in (d)
-PUT_SERIES, PUT_STEPS = 1000, 1000       # (c): 1M points by /api/put
+# (c): 250k points by /api/put, CUT from 1M for the run's time (phase
+# 19 added; ROADMAP's chip_smoke.py notes)
+PUT_SERIES, PUT_STEPS = 1000, 250
 PUT_BODY_SERIES, PUT_BODY_STEPS = 100, 10  # 1000 points per body
 PUT_CONNS = 4
 # phase 10 (b): 100k points by /api/put with the WAL, CUT from 1M for
@@ -1392,7 +1434,7 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
 
         # (e) an unported endpoint and a bad aggregator
         conn = connect()
-        status, body, _ = _http(conn, "GET", "/api/health")
+        status, body, _ = _http(conn, "GET", "/api/cluster")
         check(status == 501 and b"not ported yet" in body,
               f"an unported endpoint answered {status}")
         status, body, _ = _http(conn, "GET", get_path(
@@ -1400,7 +1442,7 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
         check(status == 400 and b"No such aggregator" in body,
               f"a bad aggregator answered {status}")
         conn.close()
-        print("  (e) /api/health: 501 (not ported yet); a bad "
+        print("  (e) /api/cluster: 501 (not ported yet); a bad "
               "aggregator: 400")
 
         # (c) writes: /api/put over kept-alive connections, then telnet
@@ -1690,7 +1732,7 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
                   "default keys ran it unblocked on an H100 80GB HBM3); "
                   "equal bit for bit")
 
-        # the float64 reference on the CPU: a tenth of the groups
+        # the float64 reference on the CPU: a twentieth of the groups
         held = max(1, g // CPU64_SHARE)
         err, cpu_s = against_cpu64(torch, m, grid, spec, gids,
                                    sub.rate_options, res_np, emit_np,
@@ -2302,8 +2344,9 @@ def phase_long(torch, n_series: int, profile: bool) -> None:
         check(not any(launches.values()), f"{m}: launched {launches}")
         check(peak < whole_peak or not runs, f"{m}: the blocked peak "
               f"{peak} is not below the unblocked {whole_peak}")
-        # the float64 reference on the CPU: a tenth of the groups, as in
-        # phase 7 (CUT from all of them: 76 s of a 931 s run on one H100)
+        # the float64 reference on the CPU: a twentieth of the groups, as
+        # in phase 7 (CUT from all of them: 76 s of a 931 s run on one
+        # H100)
         err, cpu_s = against_cpu64(torch, m, grid, spec, gids,
                                    sub.rate_options, res_np, emit_np,
                                    max(1, g // CPU64_SHARE))
@@ -2342,9 +2385,10 @@ HIST_BUCKETS = 64
 # phase fits its 150 s (the per-series write path took 141 s for 2M
 # points on the card's host)
 HIST_POINTS = 1
-# phase 12 holds a quarter of config 4's 1M series: at 1M its ingest
-# took 116 s of a 1133 s run on one H100, past the run's 900 s
-HIST_CUT = 4
+# phase 12 holds an eighth of config 4's 1M series: at 1M its ingest
+# took 116 s of a 1133 s run on one H100, past the run's 900 s (CUT to a
+# quarter then, to an eighth when phase 19 came)
+HIST_CUT = 8
 HIST_BATCH = 25_000        # points per add_histogram_batch (bench_e2e.py)
 HIST_QS = (99.0, 99.9)
 HIST_WINDOW = (T0, T0 + 299)         # one 5-minute bucket
@@ -3387,7 +3431,7 @@ def rollup_front_end(keys: dict) -> None:
 LIVE_SERIES = 100_000      # bench_live's 5,000 raised to config 5's width
 LIVE_SPAN_S = 600          # 10 minutes at 1 s, CUT from bench_live's 30
 LIVE_CHUNK = 10_000        # series per append_grid
-LIVE_ROUNDS = 2            # CUT from 5, for the run's time limit
+LIVE_ROUNDS = 1            # CUT from 5, then 2, for the run's time limit
 LIVE_TICK_HOSTS = 500      # add_point per round (bench_live)
 LIVE_PUT_POINTS = 10_000   # /api/put per round, past buffer_points
 LIVE_PUT_BODY = 1_000
@@ -4208,8 +4252,9 @@ PX_POINTS = 3600
 PX_BUDGET = 300            # (d): pixels of the chart
 TSUID_SERIES = 100         # (e): tsuids of one sub-query
 # (c), (e): calls per p50 over config 3 (an /exp call runs two point-path
-# queries over 1M series, 4-5 s; REPEATS would take 35 s of the 60)
-SURF_REPEATS = 3
+# queries over 1M series, 4-5 s; REPEATS would take 35 s of the 60); CUT
+# from 3 for the run's time when phase 19 came
+SURF_REPEATS = 2
 DELETE_S = 600             # (e): the deleted range's seconds
 
 
@@ -5914,6 +5959,532 @@ def tsuid_of_db(tsdb, i: int) -> str:
          "rack": f"r{i % 2000}"}.items())).hex().upper()
 
 
+# phase 19: observability and the control plane on the card
+OBS_TAX_CALLS = 200        # (a): result-cache hits per tracing setting
+OBS_TAX_PUT_STEPS = 100    # (a): 1000 series x 100 = 100k /api/put points
+OBS_PROFILE_S = 5          # (b): the profile window read
+CTL_SERIES = 100_000       # (c): phase 14's LIVE_SERIES
+CTL_SPAN_S = 600           # (c): 10 minutes at 1 s
+CTL_CHUNK = 10_000         # (c): series per append_grid
+CTL_PULLS = 8              # (c): dashboard pulls before the tick
+CTL_REPEATS = 2            # (c): pulls and batch calls per p50
+QOS_NOISY = 16             # (d): clients of the noisy tenant
+QOS_SECONDS = 3.0          # (d): how long the tenants send
+CTL_QUERY = "sum:1m-sum:sys.cpu.user{dc=*}"
+CTL_NOISY_QUERY = "sum:1m-avg:sys.cpu.user{rack=*}"
+_OM_SAMPLE = (r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="'
+              r'([^"\\]|\\.)*"(,[a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*")*)?'
+              r'\})? (-?[0-9.e+-]+|\+Inf|-Inf|NaN)$')
+
+
+def openmetrics_samples(text: str) -> int:
+    """A strict read of an OpenMetrics body: every line a HELP or TYPE
+    comment or a valid sample, ``# EOF`` last; the sample count."""
+    import re
+    lines = text.split("\n")
+    check(lines[-1] == "" and lines[-2] == "# EOF",
+          "the /metrics body does not end with # EOF")
+    sample = re.compile(_OM_SAMPLE)
+    n = 0
+    for ln in lines[:-2]:
+        if ln.startswith(("# HELP ", "# TYPE ")):
+            continue
+        check(bool(sample.match(ln)), f"an invalid /metrics line: {ln!r}")
+        n += 1
+    return n
+
+
+def query_tree_ok(doc: dict, m: str, s: int, g: int,
+                  streaming: bool) -> None:
+    """A ``/api/query`` trace's tree as ``tests/test_torch_trace.py``
+    gives it for the same request on the CPU, plus the server's
+    ``query.admission``: one ``query.http`` root carrying the shape tags
+    and ``cache=miss``, and under it, each once, the admission, the
+    plan (``series``, ``groups``), the execution, the assembly and the
+    serialization; ids and durations aside."""
+    roots = doc["tree"]
+    check(len(roots) == 1 and roots[0]["name"] == "query.http",
+          f"{m}: the trace has roots {[r['name'] for r in roots]}")
+    root = roots[0]
+    tags = root["tags"]
+    metric = m.split(":")[-1].split("{")[0]
+    check(tags["metrics"] == metric and tags["subs"] == 1
+          and tags["aggregator"] == m.split(":")[0]
+          and tags["cache"] == "miss" and tags["pixels"] == 0
+          and tags["delete"] is False, f"{m}: root tags {tags}")
+    want = {"query.admission": {}, "query.plan": {"sub": 0, "series": s,
+                                                   "groups": g},
+            "query.execute": {"sub": 0, "metric": metric},
+            "query.assemble": {"sub": 0, "groups": g, "pixels": 0},
+            "query.serialize": {}}
+    if streaming:
+        want["query.streaming_lookup"] = {"sub": 0}
+    got = {c["name"]: c.get("tags", {}) for c in root["children"]}
+    check(len(root["children"]) == len(want) and got == want,
+          f"{m}: the stages {got}, expected {want}")
+    check(all(not c["children"] and c["parentId"] == root["spanId"]
+              for c in root["children"]), f"{m}: a stage is not a child "
+          "of the root")
+
+
+def grouped_values(rows: list, key: str, g: int):
+    """A JSON answer's rows as a [G, B] float64 tensor, row i the group
+    whose ``key`` tag ends in i."""
+    import torch
+    prefix = "dc" if key == "dc" else "r"
+    idx = [int(r["tags"][key][len(prefix):]) for r in rows]
+    check(sorted(idx) == list(range(g)), f"{len(idx)} groups, not {g}")
+    out = [None] * g
+    for i, r in zip(idx, rows):
+        out[i] = list(r["dps"].values())
+    return torch.tensor(out, dtype=torch.float64)
+
+
+def phase_obs(torch, tsdb, values, report: dict) -> dict:
+    """Phase 19 (a) and (b) on config 3's TSDB (phase 3's data and
+    keys): traced queries through the socket server, the tracing tax,
+    and the read surface while it serves. The window is phase 15's,
+    clear of phase 6's late write, so that the point path's rows are
+    regular and the kernels run. Returns the kernels' launches and the
+    readings for the ``obs`` line."""
+    import http.client
+    import urllib.parse
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+    cfg = tsdb.config
+    for key, value in ENGINE_KEYS.items():
+        cfg.override_config(key, value)
+    cfg.override_config("tsd.trace.sample", "1")
+    tracer = tsdb.tracer
+    tracer.sample_n = 1         # keep every root for the phase
+    st = serve_pinned(ServerThread, tsdb)
+    total = {"span_reduce": 0, "onehot_reduce": 0}
+    out: dict = {}
+    lo, hi = SURF_WINDOW
+    nb = (hi - lo + 1) // 300
+
+    def path_of(m: str) -> str:
+        return "/api/query?" + urllib.parse.urlencode(
+            {"start": lo, "end": hi, "m": m})
+
+    conn = http.client.HTTPConnection("127.0.0.1", st.port, timeout=600)
+    try:
+        # (a) the two kernel queries, traced
+        for m, kname in QUERIES:
+            other = next(k for _, k in QUERIES if k != kname)
+            reset_launches(fused)
+            body = json.dumps({"start": str(lo), "end": str(hi),
+                               "queries": [_sub_json(m)]}).encode()
+            conn.request("POST", "/api/query", body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            n = read_launches(fused)
+            check(resp.status == 200, f"{m}: HTTP {resp.status}")
+            check(n == {kname: 1, other: 0}, f"{m}: launched {n}")
+            total[kname] += 1
+            tid = resp.getheader("X-TSD-Trace-Id")
+            check(bool(tid), f"{m}: no X-TSD-Trace-Id")
+            status, tbody, _ = _http(conn, "GET", f"/api/trace/{tid}")
+            check(status == 200, f"{m}: /api/trace/{tid}: {status}")
+            doc = json.loads(tbody)
+            key = "dc" if "{dc=*}" in m else "rack"
+            wv, terms = (torch.from_numpy(x) for x in
+                         config3_window(values, "avg", key, nb))
+            g = wv.shape[0]
+            query_tree_ok(doc, m, len(tsdb.store.series_ids_for_metric(
+                tsdb.uids.metrics.get_id(METRIC))), g,
+                tsdb._streaming is not None)
+            err = compare(grouped_values(json.loads(data), key, g), wv,
+                          terms)
+            spans = {s["name"]: s["durationMs"] for s in doc["spans"]}
+            kernel_ms = report[kname]["ms"]
+            check(spans["query.execute"] >= kernel_ms,
+                  f"{m}: query.execute {spans['query.execute']} ms is "
+                  f"below the kernel's {kernel_ms} ms")
+            print(f"  (a) {m}: one {kname} launch inside trace {tid}; "
+                  "its tree is the tests' (query.http: admission, plan, "
+                  "execute, assemble, serialize); max |d| vs a float64 "
+                  f"numpy reference {err!r}; query.execute "
+                  f"{spans['query.execute']:.3f} ms >= the kernel's "
+                  f"{kernel_ms:.4f} ms (CUDA events, phase 3); root "
+                  f"{spans['query.http']:.3f} ms, admission "
+                  f"{spans['query.admission']:.3f}, plan "
+                  f"{spans['query.plan']:.3f}, assemble "
+                  f"{spans['query.assemble']:.3f}, serialize "
+                  f"{spans['query.serialize']:.3f}")
+            out[f"{kname}_execute_ms"] = spans["query.execute"]
+            out[f"{kname}_root_ms"] = spans["query.http"]
+        stages = tsdb.stats.latency_summary()["stages"]
+        print("  (a) stage p50s (ms, stage histograms, 1 ms buckets): "
+              + ", ".join(f"{k} {v['p50']:g} (n={v['count']})"
+                          for k, v in sorted(stages.items())))
+
+        # (a) the tax: result-cache hits and a 100k-point /api/put, the
+        # tracer on and off on this TSDB
+        cfg.override_config("tsd.query.cache.enable", "true")
+        m = QUERIES[0][0]
+        reset_launches(fused)
+        status, miss, _ = _http(conn, "GET", path_of(m))
+        check(status == 200, f"the cache's miss: HTTP {status}")
+        total["span_reduce"] += read_launches(fused)["span_reduce"]
+        hits = {True: [], False: []}
+        for block in range(4):
+            on = block % 2 == 0
+            tracer.enabled = on
+            for _ in range(OBS_TAX_CALLS // 2):
+                status, body, secs = _http(conn, "GET", path_of(m))
+                check(status == 200 and body == miss,
+                      "a result-cache hit differs from its miss")
+                hits[on].append(secs)
+        put_s = {}
+        for on in (True, False):
+            tracer.enabled = on
+            put_s[on] = put_points(st.port, f"sys.tax.{int(on)}",
+                                   steps=OBS_TAX_PUT_STEPS)
+        tracer.enabled = True
+        cfg.override_config("tsd.query.cache.enable", "false")
+        n_put = PUT_SERIES * OBS_TAX_PUT_STEPS
+        out.update({"hit_p50_traced_ms": p50(hits[True]) * 1e3,
+                    "hit_p50_untraced_ms": p50(hits[False]) * 1e3,
+                    "put_100k_traced_s": put_s[True],
+                    "put_100k_untraced_s": put_s[False]})
+        print(f"  (a) tracing tax: result-cache hit p50 "
+              f"{out['hit_p50_traced_ms']:.4f} ms traced vs "
+              f"{out['hit_p50_untraced_ms']:.4f} ms untraced "
+              f"({OBS_TAX_CALLS} HTTP calls each, alternating blocks of "
+              f"{OBS_TAX_CALLS // 2}); /api/put of {n_put} points "
+              f"{put_s[True]:.3f} s traced ({n_put / put_s[True]:,.0f} "
+              f"points/s) vs {put_s[False]:.3f} s untraced "
+              f"({n_put / put_s[False]:,.0f} points/s)")
+
+        # (b) the read surface while it serves
+        reads = {}
+        for path in ("/metrics", "/api/health", "/api/stats/raw",
+                     f"/api/profile?seconds={OBS_PROFILE_S}", "/logs"):
+            status, body, secs = _http(conn, "GET", path)
+            check(status == 200, f"{path}: HTTP {status}")
+            reads[path.split("?")[0]] = (body, secs)
+        first_ms = reads["/metrics"][1] * 1e3
+        metrics_s = []
+        for _ in range(REPEATS):
+            status, body, secs = _http(conn, "GET", "/metrics")
+            check(status == 200, f"/metrics: HTTP {status}")
+            metrics_s.append(secs)
+        secs = p50(metrics_s)
+        n_samples = openmetrics_samples(body.decode())
+        health = json.loads(reads["/api/health"][0])
+        raw = json.loads(reads["/api/stats/raw"][0])
+        prof = reads["/api/profile"][0].decode()
+        roles = sorted({ln.split(";", 1)[0] for ln in prof.splitlines()})
+        check("query" in roles, f"no query role in the profile: {roles}")
+        n_logs = len(reads["/logs"][0].splitlines())
+        out.update({"metrics_ms": secs * 1e3,
+                    "metrics_first_ms": first_ms,
+                    "metrics_bytes": len(body),
+                    "health_status": health["status"]})
+        print(f"  (b) /metrics: {secs * 1e3:.3f} ms p50 over {REPEATS} "
+              f"(the first {first_ms:.3f} ms), {len(body):,} bytes, "
+              f"{n_samples} samples, every line valid, # EOF last; "
+              f"/api/health: status {health['status']}, causes "
+              f"{health['causes']} ({reads['/api/health'][1] * 1e3:.3f} "
+              f"ms); /api/stats/raw: {len(raw['records'])} records, "
+              f"{len(raw['histograms'])} histograms "
+              f"({reads['/api/stats/raw'][1] * 1e3:.3f} ms); "
+              f"/api/profile?seconds={OBS_PROFILE_S}: roles {roles}, "
+              f"{len(prof.splitlines())} stacks; /logs: {n_logs} lines")
+    finally:
+        conn.close()
+        st.stop()
+    return total, out
+
+
+def phase_control(torch, n_series: int) -> tuple[dict, dict]:
+    """Phase 19 (c)-(e) on a TSDB of their own: the control plane at the
+    live dashboard's width, tenant QoS over sockets, and the
+    self-telemetry pump. Returns the kernels' launches and the readings
+    for the ``obs`` line."""
+    import http.client
+    import shutil
+    import tempfile
+    import urllib.parse
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.control.shapes import (auto_id, candidate_body,
+                                                   cq_candidate)
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.query.engine import host_tail_for_dims
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+    total = {"span_reduce": 0, "onehot_reduce": 0}
+    out: dict = {}
+    root = Path(tempfile.mkdtemp(prefix="tsd-control-"))
+    keys = {"tsd.torch.device": "cuda",
+            "tsd.core.auto_create_metrics": "true",
+            "tsd.query.cache.enable": "false", **HOST_TAIL_OFF,
+            "tsd.tpu.warmup": "false",
+            "tsd.storage.data_dir": str(root),
+            "tsd.storage.wal.enable": "false",
+            "tsd.trace.sample": "1",
+            "tsd.control.enable": "true",
+            # ticks by POST /api/control/tick only
+            "tsd.control.interval_s": "0",
+            "tsd.control.materialize.min_score": "0",
+            "tsd.control.qos.enable": "true",
+            "tsd.control.tenant.header": "x-tsd-tenant",
+            "tsd.query.admission.max_inflight": "4",
+            "tsd.stats.self_interval": "1"}
+    tsdb = TSDB(Config(**keys))
+    st = None
+    try:
+        # data: n series x 10 min at 1 s from seed 19, ending a minute
+        # before the current one, so that "15m-ago" holds it whole
+        m0 = int(time.time()) // 60 * 60 - 660
+        rng = np.random.default_rng(19)
+        ts_grid = m0 * 1000 + 1000 * np.arange(CTL_SPAN_S, dtype=np.int64)
+        mid = tsdb.uids.metrics.get_or_create_id(METRIC)
+        t = time.perf_counter()
+        for lo in range(0, n_series, CTL_CHUNK):
+            hi = min(lo + CTL_CHUNK, n_series)
+            vals = rng.normal(100.0, 10.0, (hi - lo, CTL_SPAN_S))
+            _, tag_ids = tsdb._resolve_uids(
+                METRIC, [live_tags(i) for i in range(lo, hi)])
+            sids = tsdb.store.get_or_create_series_bulk(mid, tag_ids)
+            tsdb.store.append_grid(sids, ts_grid, vals,
+                                   np.ones(vals.shape, dtype=bool))
+        ingest_s = time.perf_counter() - t
+        print(f"  (c) ingest: {n_series} series x {CTL_SPAN_S} points at "
+              f"1 s from {m0} (seed 19) by append_grid: {ingest_s:.3f} s")
+        st = serve_pinned(ServerThread, tsdb)
+        conn = http.client.HTTPConnection("127.0.0.1", st.port,
+                                          timeout=600)
+        pull_path = "/api/query?" + urllib.parse.urlencode(
+            {"start": "15m-ago", "m": CTL_QUERY})
+        hdr = {"X-TSD-Tenant": "victim"}
+
+        def pull(c, headers=None):
+            t = time.perf_counter()
+            c.request("GET", pull_path, headers=headers or {})
+            r = c.getresponse()
+            data = r.read()
+            return r.status, data, time.perf_counter() - t, \
+                r.getheader("X-TSD-Trace-Id")
+
+        # (c) the dashboard pulled CTL_PULLS times, then one tick
+        pulls = []
+        for _ in range(CTL_PULLS):
+            status, body, secs, _ = pull(conn)
+            check(status == 200, f"a dashboard pull: HTTP {status}")
+            pulls.append(secs)
+        cand = cq_candidate(TSQuery(start="15m-ago", queries=[
+            parse_uri_subquery(CTL_QUERY)]).validate())
+        cid = auto_id(cand)
+        t = time.perf_counter()
+        status, tick, _ = _http(conn, "POST", "/api/control/tick")
+        tick_s = time.perf_counter() - t
+        tick = json.loads(tick)
+        check(status == 200 and tick["errors"] == {}
+              and tick["materialize"]["registered"] == 1,
+              f"the tick: HTTP {status} {tick}")
+        reg = tsdb.streaming
+        check(reg.get(cid) is not None, f"no auto query {cid} registered")
+        hits0 = reg.serve_hits
+        status, auto_body, secs, tid = pull(conn)
+        check(status == 200 and reg.serve_hits == hits0 + 1,
+              "the pull after the tick was not served by the registry")
+        status, tbody, _ = _http(conn, "GET", f"/api/trace/{tid}")
+        names = {s["name"] for s in json.loads(tbody)["spans"]}
+        check("query.streaming_lookup" in names
+              and "query.execute" not in names,
+              f"the served pull's trace holds {sorted(names)}")
+        served = []
+        for _ in range(CTL_REPEATS):
+            status, body, secs, _ = pull(conn)
+            check(status == 200 and body == auto_body,
+                  "a served pull differs from the first")
+            served.append(secs)
+        # a hand-registered query of the same body, bootstrapped anew
+        reg.delete(cid)
+        reg.register(dict(candidate_body(cand), id="hand"))
+        hits0 = reg.serve_hits
+        status, hand_body, _, _ = pull(conn)
+        check(status == 200 and reg.serve_hits == hits0 + 1,
+              "the hand-registered query did not serve the pull")
+        check(hand_body == auto_body, "the auto continuous query's answer "
+              "differs from a hand-registered one's")
+        # the engine's batch answer: the whole data buckets, on the point
+        # path (K1), every cache off
+        for key, value in ENGINE_KEYS.items():
+            tsdb.config.override_config(key, value)
+        batch_q = {"start": m0, "end": m0 + CTL_SPAN_S - 1,
+                   "queries": [_sub_json(CTL_QUERY)]}
+        batch_s = []
+        for i in range(CTL_REPEATS):
+            reset_launches(fused)
+            status, bbody, secs = _http(conn, "POST", "/api/query",
+                                        json.dumps(batch_q).encode())
+            n = read_launches(fused)
+            check(status == 200 and n == {"span_reduce": 1,
+                                          "onehot_reduce": 0},
+                  f"the batch answer: HTTP {status}, launched {n}")
+            total["span_reduce"] += 1
+            batch_s.append(secs)
+        # back to the default engine keys (the grid path) for (d)
+        for key in ("tsd.query.grid_reduce", "tsd.query.device_cache_mb"):
+            tsdb.config.override_config(
+                key, engine_defaults().get_string(key))
+        got = {tuple(sorted(r["tags"].items())): r["dps"]
+               for r in json.loads(auto_body)}
+        want = {tuple(sorted(r["tags"].items())): r["dps"]
+                for r in json.loads(bbody)}
+        check(set(got) == set(want) and len(got) == 100,
+              "the served and batch answers hold other groups")
+        err = 0.0
+        for k, dps in want.items():
+            check(set(dps) <= set(got[k]), f"{k}: buckets differ")
+            for ts, v in dps.items():
+                d = abs(got[k][ts] - v)
+                check(d <= TOL_REL * abs(v) + TOL_ABS,
+                      f"{k} @{ts}: served {got[k][ts]} vs batch {v}")
+                err = max(err, d)
+        out.update({"tick_s": tick_s, "pull_before_p50_ms":
+                    p50(pulls) * 1e3, "served_pull_p50_ms":
+                    p50(served) * 1e3, "batch_p50_ms": p50(batch_s) * 1e3})
+        print(f"  (c) {CTL_PULLS} pulls of {CTL_QUERY} over 15m-ago "
+              f"(grid path, p50 {p50(pulls) * 1e3:.3f} ms), then POST "
+              f"/api/control/tick: {tick_s:.3f} s, {cid} registered "
+              f"({tick['materialize']}); the next pull served by the "
+              "registry (query.streaming_lookup in its trace, "
+              f"serve_hits +1), p50 {p50(served) * 1e3:.3f} ms over "
+              f"{CTL_REPEATS}; equal byte for byte to a hand-registered "
+              "query of the same body; the engine's batch answer over "
+              f"the data's 10 buckets (K1, one launch a call, caches off) "
+              f"p50 {p50(batch_s) * 1e3:.3f} ms, max |served - batch| "
+              f"{err!r}")
+        conn.close()
+
+        # (d) tenant QoS over sockets: QOS_NOISY noisy clients and one
+        # victim, max_inflight 4
+        noisy_path = "/api/query?" + urllib.parse.urlencode(
+            {"start": m0, "end": m0 + CTL_SPAN_S - 1,
+             "m": CTL_NOISY_QUERY})
+        warm = http.client.HTTPConnection("127.0.0.1", st.port, timeout=600)
+        check(pull(warm, hdr)[0] == 200, "the victim's first pull")
+        status, _, _ = _http(warm, "GET", noisy_path)
+        check(status == 200, "the noisy query's first call")
+        warm.close()
+        results = {"noisy": [], "victim": []}
+        lock = threading.Lock()
+        stop_at = time.monotonic() + QOS_SECONDS
+
+        def client(tenant: str, path: str) -> None:
+            c = http.client.HTTPConnection("127.0.0.1", st.port,
+                                           timeout=600)
+            try:
+                while time.monotonic() < stop_at:
+                    t = time.perf_counter()
+                    c.request("GET", path, headers={"X-TSD-Tenant": tenant})
+                    r = c.getresponse()
+                    data = r.read()
+                    rec = (r.status, r.getheader("Retry-After"), data,
+                           time.perf_counter() - t)
+                    with lock:
+                        results[tenant].append(rec)
+                    if r.getheader("Connection", "") == "close":
+                        c.close()
+                        c = http.client.HTTPConnection(
+                            "127.0.0.1", st.port, timeout=600)
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client,
+                                    args=("noisy", noisy_path))
+                   for _ in range(QOS_NOISY)]
+        threads.append(threading.Thread(target=client,
+                                        args=("victim", pull_path)))
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        noisy_sheds = [(ra, json.loads(b)["error"])
+                       for s, ra, b, _ in results["noisy"] if s == 503]
+        tenant_sheds = [(ra, e) for ra, e in noisy_sheds
+                        if "shed cause: tenant" in e["details"]]
+        check(tenant_sheds and all(ra == "1" for ra, _ in tenant_sheds),
+              f"the noisy tenant shed {len(tenant_sheds)} tenant 503s")
+        victim = results["victim"]
+        check(all(s == 200 for s, _, _, _ in victim),
+              "the victim was shed: "
+              f"{[s for s, _, _, _ in victim if s != 200]}")
+        lat = sorted(secs for _, _, _, secs in victim)
+        v99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+        conn = http.client.HTTPConnection("127.0.0.1", st.port, timeout=600)
+        status, tbody, _ = _http(conn, "GET", "/api/stats/tenants")
+        tenants = json.loads(tbody)
+        check(tenants["tenants"]["victim"]["shed"] == 0
+              and tenants["tenants"]["noisy"]["shed"]
+              == len(tenant_sheds), f"/api/stats/tenants: {tenants}")
+        out.update({"victim_p50_ms": p50(lat) * 1e3,
+                    "victim_p99_ms": v99 * 1e3,
+                    "noisy_tenant_sheds": len(tenant_sheds),
+                    "noisy_served": sum(1 for s, _, _, _ in
+                                        results["noisy"] if s == 200)})
+        print(f"  (d) {QOS_NOISY} noisy clients ({CTL_NOISY_QUERY}) and "
+              f"one victim (the served dashboard) for {QOS_SECONDS:g} s "
+              "at max_inflight 4: noisy "
+              f"{len(results['noisy'])} calls, {len(tenant_sheds)} "
+              "tenant 503s with Retry-After, "
+              f"{len(noisy_sheds) - len(tenant_sheds)} other 503s; victim "
+              f"{len(victim)} calls, none shed, p50 {p50(lat) * 1e3:.3f} "
+              f"ms, p99 {v99 * 1e3:.3f} ms; /api/stats/tenants "
+              + json.dumps({k: {f: v[f] for f in ("requests", "shed",
+                                                   "weight", "penalty")}
+                            for k, v in tenants["tenants"].items()}))
+
+        # (e) the self-telemetry pump (tsd.stats.self_interval=1)
+        deadline = time.monotonic() + 10
+        while tsdb.telemetry.pumps < 3:
+            check(time.monotonic() < deadline, "fewer than 3 pumps in 10 s")
+            time.sleep(0.1)
+        path = "/api/query?" + urllib.parse.urlencode(
+            {"start": "5m-ago", "m": "sum:tsd.datapoints.added"})
+        status, body, secs = _http(conn, "GET", path)
+        rows = json.loads(body) if status == 200 else []
+        check(status == 200 and len(rows) == 1
+              and len(rows[0]["dps"]) >= 3,
+              f"tsd.datapoints.added: HTTP {status}, {body[:200]!r}")
+        s_self = len(tsdb.store.series_ids_for_metric(
+            tsdb.uids.metrics.get_id("tsd.datapoints.added")))
+        b_self = len(rows[0]["dps"])
+        at_default = host_tail_for_dims(Config(), s_self, b_self, 1,
+                                        True, "sum")
+        as_run = host_tail_for_dims(tsdb.config, s_self, b_self, 1, True,
+                                    "sum")
+        conn.close()
+        print(f"  (e) {tsdb.telemetry.pumps} pumps "
+              f"({tsdb.telemetry.points_written} points); sum:tsd."
+              f"datapoints.added over 5m-ago answers {b_self} points in "
+              f"{secs * 1e3:.3f} ms; its tail [S={s_self}, B={b_self}]: "
+              f"{'host' if at_default is not None else 'card'} at the "
+              "default budgets, "
+              f"{'host' if as_run is not None else 'card'} as run (host "
+              "tail pinned off)")
+    finally:
+        # the data_dir holds the shape log only: the stop's flush would
+        # snapshot the phase's 60M points (~25 s on the card's host)
+        tsdb.data_dir = ""
+        if st is not None:
+            st.stop()
+        else:
+            tsdb.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    left = [th.name for th in threading.enumerate() if th.name.startswith(
+        ("tsd-control", "tsd-telemetry", "tsd-profiler", "tsd-query",
+         "tsd-http", "tsd-server"))]
+    check(not left, f"threads left after phase 19: {left}")
+    return total, out
+
+
 def p50(xs) -> float:
     return statistics.median(xs)
 
@@ -6034,7 +6605,7 @@ def main() -> int:
     answers = {}
     for m, _ in QUERIES:
         e2e[m] = []
-        for i in range(REPEATS + 1):
+        for i in range(MAIN_REPEATS + 1):
             torch.cuda.synchronize()
             t = time.perf_counter()
             answers[m] = tsdb.execute_query(query(m))
@@ -6063,9 +6634,9 @@ def main() -> int:
             sel, tag_mat = eng._apply_filters(metric_id, sub, sids)
             return (sel, tag_mat) + eng._group_ids(tag_mat, gb)
 
-        (sel, tag_mat, gids, g), plan_t = timed(plan, REPEATS)
+        (sel, tag_mat, gids, g), plan_t = timed(plan, MAIN_REPEATS)
         padded, mat_t = timed(lambda: store.materialize_padded(
-            sel, tq.start_ms, tq.end_ms), REPEATS)
+            sel, tq.start_ms, tq.end_ms), MAIN_REPEATS)
 
         def assign():
             bidx, bts = ds_mod.assign_buckets_padded(
@@ -6074,20 +6645,20 @@ def main() -> int:
             return bidx, bts, pipeline.detect_regular_padded(
                 padded.counts, bidx, len(bts))
 
-        (bidx, bts, k), assign_t = timed(assign, REPEATS)
+        (bidx, bts, k), assign_t = timed(assign, MAIN_REPEATS)
         b = len(bts)
         spec = PipelineSpec(num_series=len(sel), num_buckets=b,
                             num_groups=g, ds_function="avg",
                             agg_name="sum", rate=True)
         vals, up_t = timed(lambda: pipeline.upload(
-            padded.values2d, torch.float32, "cuda"), REPEATS)
+            padded.values2d, torch.float32, "cuda"), MAIN_REPEATS)
         batch, prep_t = timed(lambda: fused.prepare(vals, bts, gids, spec),
-                              REPEATS)
+                              MAIN_REPEATS)
         (res_t, emit_t), run_t = timed(lambda: fused.run(batch, spec, k),
-                                       REPEATS)
+                                       MAIN_REPEATS)
         _, asm_t = timed(lambda: eng._build_results(
             tq, sub, metric_id, sel, tag_mat, gids, g, bts,
-            res_t.cpu().numpy(), emit_t.cpu().numpy()), REPEATS)
+            res_t.cpu().numpy(), emit_t.cpu().numpy()), MAIN_REPEATS)
         ok = fused.supported(spec, vals.dtype, vals.device)
         layout = "span" if batch.spans is not None else "one-hot"
         print(f"  {m}: S={len(sel)} P={padded.values2d.shape[1]} B={b} "
@@ -6228,6 +6799,14 @@ def main() -> int:
     ops_launches, ops = phase_ops(torch, tsdb, values, tags, fused)
     for kname, n in ops_launches.items():
         launches[kname] += n
+    # phase 19 (a) and (b) run here too, on phase 3's TSDB while it serves
+    header(f"phase 19 (a)-(b): traced queries, the tracing tax and the "
+           f"read surface, {s} series")
+    t_obs = time.perf_counter()
+    obs_launches, obs = phase_obs(torch, tsdb, values, report)
+    obs_s = time.perf_counter() - t_obs
+    for kname, n in obs_launches.items():
+        launches[kname] += n
     tsdb.shutdown()
     del tsdb, tags, ts2d, values
     # the routers of phases 8-17 hold phase 3's TSDB in reference
@@ -6279,7 +6858,7 @@ def main() -> int:
     ln = min(LIVE_SERIES, s)
     header(f"phase 14: continuous queries and warmup, {ln} series x "
            f"{LIVE_SPAN_S} points at 1 s (CUT from 1800), {LIVE_ROUNDS} "
-           "rounds (CUT from 5)"
+           "round (CUT from 5, then 2)"
            + ("" if ln == LIVE_SERIES else " (series CUT from 100,000)")
            + f" (|got - want| <= {TOL_REL}*|want| + {TOL_ABS})")
     placement("a continuous query's tail by dc", ln, LIVE_SPAN_S // 60,
@@ -6301,6 +6880,19 @@ def main() -> int:
     lc_launches, lifecycle = phase_lifecycle(torch, fused, cn)
     for kname, n in lc_launches.items():
         launches[kname] += n
+    qn = min(CTL_SERIES, s)
+    header(f"phase 19 (c)-(e): the control plane, tenant QoS and "
+           f"self-telemetry, {qn} series x {CTL_SPAN_S} points at 1 s"
+           + ("" if qn == CTL_SERIES else " (series CUT from 100,000)")
+           + f" (|got - want| <= {TOL_REL}*|want| + {TOL_ABS})")
+    t_ctl = time.perf_counter()
+    ctl_launches, ctl = phase_control(torch, qn)
+    for kname, n in ctl_launches.items():
+        launches[kname] += n
+    obs.update(ctl)
+    obs_s += time.perf_counter() - t_ctl
+    obs["phase_s"] = obs_s
+    print(f"phase 19: {obs_s:.1f} s")
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),
@@ -6330,6 +6922,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"ops": ops}))
     print(json.dumps({"lifecycle": lifecycle}))
+    print(json.dumps({"obs": obs}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -322,6 +322,22 @@ class TimeSeriesStore:
         collector.record("storage.series.count", self._num_series)
         collector.record("storage.points.written", self.points_written)
 
+    def memory_info(self) -> dict:
+        """Series, points and column bytes for ``/api/health``'s
+        storage section (ref: ``memory_info``). The CSR columns hold no
+        slack and a purge replaces them at their new size, so live is
+        resident and nothing is dead; pending writes count as resident."""
+        with self._lock:
+            arrays = [self._offsets, self._ts, self._vals, self._ints]
+            for part in self._pending:
+                arrays.extend(part)
+            points = len(self._ts) + sum(len(p[1]) for p in self._pending)
+            series = self._num_series
+        resident = sum(a.nbytes for a in arrays)
+        return {"series": series, "points": points,
+                "resident_bytes": resident, "live_bytes": resident,
+                "dead_bytes": 0}
+
     # -- write path -------------------------------------------------------
 
     def get_or_create_series(self, metric_id: int,

@@ -39,6 +39,17 @@ use). Every raw write path offers its acknowledged points to that
 registry after the write (and its WAL sync) is done, under a
 :class:`TapGate` that a partial's re-seed holds alone.
 
+The TSDB owns the observability layer (``obs/``): the request tracer
+(:attr:`TSDB.tracer`, which feeds the per-stage latency histograms and
+writes the query-shape log under the data_dir), the self-telemetry pump
+(:attr:`TSDB.telemetry`), the sampling profiler (:attr:`TSDB.profiler`)
+and the SLO burn tracker (:attr:`TSDB.slo`); the server starts the pump
+and the profiler, :meth:`TSDB.shutdown` joins them. With
+``tsd.control.enable`` the control plane (:attr:`TSDB.control`,
+``control/``) is made at first use. The constructor warns of every
+configured ``tsd.*`` key the port does not read
+(:meth:`Config.warn_unknown_keys`).
+
 With ``tsd.query.mesh`` set, the TSDB builds its query mesh
 (:attr:`TSDB.query_mesh`, :mod:`opentsdb_tpu_torch.parallel`) from the
 device list the caller gives (``mesh_devices``); a shape the list
@@ -75,6 +86,10 @@ from opentsdb_tpu_torch.meta.meta_store import MetaStore
 from opentsdb_tpu_torch.native.store_backend import (IMPORT_ERRORS,
                                                      make_store,
                                                      parse_import_buffer)
+from opentsdb_tpu_torch.obs.profiler import SamplingProfiler
+from opentsdb_tpu_torch.obs.slo import SloTracker
+from opentsdb_tpu_torch.obs.telemetry import SelfTelemetry
+from opentsdb_tpu_torch.obs.trace import Tracer, trace_begin, trace_end
 from opentsdb_tpu_torch.parallel import distributed
 from opentsdb_tpu_torch.parallel.mesh import default_devices, mesh_from_spec
 from opentsdb_tpu_torch.query.device_cache import DeviceGridCache
@@ -234,6 +249,10 @@ class TSDB:
         or the CPU when ``tsd.torch.device`` is ``cpu``. It may name a
         device more than once (virtual shards on one device)."""
         self.config = config or Config()
+        # a typo'd or unported knob would be ignored silently: warn of
+        # every configured key the port does not read (ref:
+        # TSDB.__init__)
+        self.config.warn_unknown_keys()
         refuse_unported_keys(self.config)
         # the multi-process rendezvous comes before any device touch
         # (ref: TSDB.__init__ with tsd.mesh.coordinator)
@@ -334,6 +353,23 @@ class TSDB:
                 self.rollup_config, lambda: make_store(self.config),
                 fault_injector=self.faults)
         self.data_dir = self.config.get_string("tsd.storage.data_dir")
+        # observability (obs/): the tracer (tsd.trace.enable=false makes
+        # every trace site one thread-local read returning None), the
+        # self-telemetry pump and the sampling profiler (started by the
+        # server, joined by shutdown) and the SLO burn tracker
+        self.tracer = Tracer(self.config, data_dir=self.data_dir,
+                             stats=self.stats)
+        self.stats.register(self.tracer)
+        self.telemetry = SelfTelemetry(self)
+        self.stats.register(self.telemetry)
+        self.profiler = SamplingProfiler(self)
+        self.stats.register(self.profiler)
+        self.slo = SloTracker(self.config)
+        self.stats.register(self.slo)
+        # the control plane (control/), made at first use by the
+        # ``control`` property; the server's admission seam reads this
+        # attribute, one read per query while it is off
+        self._control = None
         self.wal: WriteAheadLog | None = None
         self._wal_applied_seq = 0
         # what the last start recovered: seconds of the snapshot load
@@ -541,6 +577,7 @@ class TSDB:
                 self._result_cache = QueryResultCache(
                     self._result_cache_mb << 20,
                     shards=self.config.get_int("tsd.query.cache.shards"))
+                self.stats.register(self._result_cache)
             return self._result_cache
 
     @property
@@ -593,6 +630,26 @@ class TSDB:
                     self.stats.register(lc)
                     self._lifecycle = lc
         return self._lifecycle
+
+    @property
+    def control(self):
+        """The control plane (:mod:`opentsdb_tpu_torch.control.plane`),
+        made at first use, or None while ``tsd.control.enable`` is false,
+        the default (ref: ``TSDB.control``). Getting it attaches the
+        tenant QoS's result-cache insert gate."""
+        if not self.config.get_bool("tsd.control.enable", False):
+            return None
+        if self._control is None:
+            with self._device_cache_lock:
+                if self._control is None:
+                    from opentsdb_tpu_torch.control.plane import \
+                        ControlPlane
+                    ctl = ControlPlane(self)
+                    self.stats.register(ctl)
+                    self._control = ctl
+        # outside the lock: wire() makes the result cache, which takes it
+        self._control.wire()
+        return self._control
 
     def purge_histograms_before(self, metric_id: int,
                                 cutoff_ms: int) -> int:
@@ -664,15 +721,19 @@ class TSDB:
             parts.append(self.rollup_store.version())
         return tuple(parts)
 
-    def memory_info(self) -> dict:
-        """Footprint by store (ref: ``TSDB.memory_info``): series,
-        points and bytes of the raw store and of each rollup store that
-        reports them (the native store does), and their totals."""
+    def _stores(self) -> list:
+        """(name, store) of the raw store and of each rollup store."""
         stores = [("raw", self.store)]
         if self.rollup_store is not None:
             stores.append(("rollup:preagg", self.rollup_store.preagg_store()))
             stores += [(f"rollup:{interval}:{agg}", store) for
                        (interval, agg), store in self.rollup_store.tiers()]
+        return stores
+
+    @staticmethod
+    def _footprint(stores) -> dict:
+        """Each store's ``memory_info`` that reports one, and their
+        totals."""
         out = {name: store.memory_info() for name, store in stores
                if hasattr(store, "memory_info")}
         totals = {"resident_bytes": 0, "live_bytes": 0, "dead_bytes": 0,
@@ -681,6 +742,28 @@ class TSDB:
             for k in totals:
                 totals[k] += info.get(k, 0)
         out["total"] = totals
+        return out
+
+    def memory_info(self) -> dict:
+        """Footprint by store (ref: ``TSDB.memory_info``): series,
+        points and bytes of the raw store and of each rollup store that
+        reports them (the native store does), and their totals."""
+        return self._footprint(self._stores())
+
+    def storage_memory_info(self) -> dict:
+        """Footprint by store for ``/api/health``'s storage section (ref:
+        ``TSDB.storage_memory_info``): :meth:`memory_info`'s stores and
+        the histogram index, with the cold tier's disk-resident segments
+        apart from RAM (``cold``, ``total.cold_bytes``)."""
+        stores = self._stores()
+        stores.insert(1, ("histogram", self.histogram_store))
+        lc = self._lifecycle
+        cold = lc.coldstore if lc is not None else None
+        if cold is not None:
+            stores.append(("cold", cold))
+        out = self._footprint(stores)
+        out["total"]["cold_bytes"] = out["cold"]["disk_bytes"] \
+            if cold is not None else 0
         return out
 
     def flush(self) -> None:
@@ -701,15 +784,21 @@ class TSDB:
             self.wal.truncate(wal_seq)
 
     def shutdown(self) -> None:
-        """Stop a running warmup and the lifecycle's sweeper, flush,
-        stop the continuous queries' fold workers and the fan-out pool
-        (waiting for their threads to end), close the WAL, then shut the
-        realtime publisher and the search plugin down (ref:
-        ``TSDB.shutdown``)."""
+        """Stop the control plane first (it steers the rest), the
+        self-telemetry pump, the profiler, a running warmup and the
+        lifecycle's sweeper, close the query-shape log, flush, stop the
+        continuous queries' fold workers and the fan-out pool (waiting
+        for every thread to end), close the WAL, then shut the realtime
+        publisher and the search plugin down (ref: ``TSDB.shutdown``)."""
+        if self._control is not None:
+            self._control.stop()
+        self.telemetry.stop()
+        self.profiler.stop()
         if self._warmup_stop is not None:
             self._warmup_stop.set()
         if self._lifecycle is not None:
             self._lifecycle.stop()
+        self.tracer.close()
         self.flush()
         if self._streaming is not None:
             self._streaming.shutdown()
@@ -1387,8 +1476,15 @@ class TSDB:
             raise RuntimeError("import_buffer parses with the native "
                                "store's library: it needs "
                                "tsd.storage.backend=native")
+        # the stages of a traced burst (ref: import_buffer's spans):
+        # decode is the parse and the series' resolution walk
+        h_dec = trace_begin("ingest.decode")
         parsed = parse_import_buffer(buf)
+        if h_dec is not None:
+            h_dec.tag(lines=int(parsed.num_lines),
+                      groups=int(parsed.num_groups))
         if self._point_hooks:
+            trace_end(h_dec)
             return self._import_hooked(parsed, on_error, durable)
         gids, errs = parsed.group_ids, parsed.errors
         ts_ms = np.where(parsed.ts >= (1 << 32), parsed.ts,
@@ -1465,7 +1561,10 @@ class TSDB:
                                   + i + 1).tolist():
                             heapq.heappush(stops, j)
                         fail(i, e)
+            trace_end(h_dec)
+            h_sc = trace_begin("store.scatter")
             land(len(gids))
+            trace_end(h_sc)
             if wal is not None and parsed.num_groups:
                 if logged < len(gids):
                     log(len(gids))
@@ -1474,6 +1573,7 @@ class TSDB:
         if self._streaming is not None and written:
             # the landed lines, by metric (a line of a failed series or
             # one the parser rejected has sid -1 and did not land)
+            h_tap = trace_begin("stream.tap")
             sids = line_sids(0, len(gids))
             landed = np.flatnonzero((sids >= 0) & (errs == 0))
             mids = gmid[gids[landed]]
@@ -1481,6 +1581,7 @@ class TSDB:
                 rows = landed[mids == mid]
                 self._tap_lines(mid, sids[rows], ts_ms[rows],
                                 parsed.values[rows])
+            trace_end(h_tap)
         if self.meta.track_ts and written:
             # each series' landed lines, counted once (ref: the bulk
             # path's meta hook)

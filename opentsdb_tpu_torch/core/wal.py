@@ -70,6 +70,7 @@ import zlib
 import numpy as np
 
 from opentsdb_tpu_torch.meta.annotation import Annotation
+from opentsdb_tpu_torch.obs.trace import trace_begin, trace_end
 from opentsdb_tpu_torch.utils.faults import call_with_retries
 
 log = logging.getLogger("wal")
@@ -478,6 +479,15 @@ class WriteAheadLog:
             target = self._seq if upto is None else min(upto, self._seq)
         if self._synced_seq >= target:
             return
+        # the group-commit wait a request pays, leader or piggyback: a
+        # ``wal.commit_wait`` span (one thread-local read untraced)
+        h = trace_begin("wal.commit_wait")
+        try:
+            self._sync_inner(target)
+        finally:
+            trace_end(h)
+
+    def _sync_inner(self, target: int) -> None:
         if self.degraded and time.monotonic() < self._degraded_until:
             # shed durability work until the next probe
             return

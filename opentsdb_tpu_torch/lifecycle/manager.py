@@ -44,8 +44,9 @@ under ``lifecycle.demote``, the sketch fold under ``sketch.fold``) and
 its own circuit breaker (``tsd.lifecycle.breaker.*``); a failing sweep
 is counted, logged and retried next interval, and never fails ingest or
 queries. ``POST /api/lifecycle/sweep`` runs one sweep synchronously.
-The reference also records each sweep as a trace span; the port has no
-tracer yet (ROADMAP Queue 1 item 1.6).
+Each sweep is a ``lifecycle.sweep`` background trace root with
+``coldstore.spill`` and ``sketch.fold`` stage spans, as in the
+reference.
 
 Demotion boundaries persist to ``<data_dir>/lifecycle.json`` (the
 reference's file), so a restarted TSD keeps stitching.
@@ -68,6 +69,8 @@ import numpy as np
 from opentsdb_tpu_torch.core.store import FIRST_TS_NONE
 from opentsdb_tpu_torch.lifecycle.policy import LifecyclePolicy, PolicySet
 from opentsdb_tpu_torch.lifecycle.stitch import StitchedStore
+from opentsdb_tpu_torch.obs import trace as trace_mod
+from opentsdb_tpu_torch.obs.trace import trace_span
 from opentsdb_tpu_torch.utils.faults import CircuitBreaker
 
 LOG = logging.getLogger("lifecycle")
@@ -315,19 +318,27 @@ class LifecycleManager:
             "spilled": 0, "histogramPurged": 0,
             "histogramSpilled": 0, "coldCompacted": 0,
         }
+        # every sweep is a background trace root (ref: the
+        # ``lifecycle.sweep`` root; the spill and the sketch fold record
+        # their own stage spans)
+        tracer = self.tsdb.tracer
+        tctx = tracer.start_background("lifecycle.sweep")
         try:
             if self.breaker is not None and not self.breaker.allow():
                 report["skipped"] = "breaker open"
                 return report
             try:
-                self._sweep_inner(
-                    int(now_ms if now_ms is not None
-                        else time.time() * 1000), report)
+                with trace_mod.use(tctx):
+                    self._sweep_inner(
+                        int(now_ms if now_ms is not None
+                            else time.time() * 1000), report)
             except Exception as exc:  # noqa: BLE001 - degrade loudly
                 self.sweep_errors += 1
                 self.last_error = f"{type(exc).__name__}: {exc}"
                 if self.breaker is not None:
                     self.breaker.record_failure()
+                if tctx is not None:
+                    tctx.set_error(exc)
                 LOG.warning("lifecycle sweep failed (%s); ingest and "
                             "queries are unaffected", self.last_error)
                 report["error"] = self.last_error
@@ -342,6 +353,15 @@ class LifecycleManager:
                 (time.monotonic() - t0) * 1e3
             report["durationMs"] = round(self.last_sweep_duration_ms,
                                          1)
+            if tctx is not None:
+                if report.get("skipped"):
+                    # a breaker-open no-op sweep would churn request
+                    # traces out of the ring
+                    tctx.sampled = False
+                tctx.tag(purged=report.get("purged", 0),
+                         demoted=report.get("demoted", 0),
+                         spilled=report.get("spilled", 0))
+                tracer.finish(tctx)
             self._sweep_lock.release()
 
     def _sweep_inner(self, now_ms: int, report: dict) -> None:
@@ -386,11 +406,12 @@ class LifecycleManager:
                 changed |= self._demote(mid, metric, sids, pol,
                                         now_ms, report)
             if pol.spill_after_ms:
-                if t.rollup_store is not None:
-                    changed |= self._spill(mid, metric, pol, now_ms,
-                                           report)
-                changed |= self._spill_histograms(mid, metric, pol,
-                                                  now_ms, report)
+                with trace_span("coldstore.spill", metric=metric):
+                    if t.rollup_store is not None:
+                        changed |= self._spill(mid, metric, pol, now_ms,
+                                               report)
+                    changed |= self._spill_histograms(mid, metric, pol,
+                                                      now_ms, report)
             # merge-compaction of accumulated per-sweep cold segments
             # (runs under coldstore.write via the store, so an armed
             # fault degrades it like a failed spill — loud, harmless)
@@ -540,8 +561,9 @@ class LifecycleManager:
         # failure. The sidecar save lands before the purge too
         # (durable-first, like the spill's manifest ordering).
         if self.sketches is not None:
-            self._fold_sketches(mid, metric, old_sids, tiers, start_ms,
-                                boundary, faults)
+            with trace_span("sketch.fold", metric=metric):
+                self._fold_sketches(mid, metric, old_sids, tiers,
+                                    start_ms, boundary, faults)
         # tiers hold the history now: move the boundary BEFORE the raw
         # purge so stitched reads clip raw to the tail (no double
         # count while the stale raw points still exist), THEN purge.
@@ -1103,6 +1125,16 @@ class LifecycleManager:
             doc["spillBoundaries"] = self.coldstore.spill_boundaries()
         if self.sketches is not None:
             doc["sketches"] = self.sketches.describe()
+        return doc
+
+    def health_info(self) -> dict[str, Any]:
+        """The ``lifecycle`` section of ``/api/health`` (ref:
+        ``health_info``)."""
+        doc = {"enabled": True, **self._counters()}
+        if self.breaker is not None:
+            doc["breaker"] = self.breaker.health_info()
+        if self.coldstore is not None:
+            doc["coldstore"] = self.coldstore.health_info()
         return doc
 
     def _counters(self) -> dict[str, Any]:

@@ -107,6 +107,8 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.core import store as store_mod
+from opentsdb_tpu_torch.obs import trace as trace_mod
+from opentsdb_tpu_torch.obs.trace import trace_begin, trace_end, trace_span
 from opentsdb_tpu_torch.ops import aggregators as aggs_mod
 from opentsdb_tpu_torch.ops import downsample as ds_mod
 from opentsdb_tpu_torch.ops import visual_downsample as vd
@@ -591,8 +593,10 @@ class QueryEngine:
         completion order. The first sub runs on the calling thread. On
         an error, the earliest failing sub (in sub order) wins after
         every sibling has been joined: a running future must not
-        outlive its TSQuery."""
-        futures = [pool.submit(self._run_sub_cached, tsq, sub)
+        outlive its TSQuery. The workers bind the request's trace
+        context, so their spans land in its trace."""
+        tctx = trace_mod.current()
+        futures = [pool.submit(self._run_sub_traced, tctx, tsq, sub)
                    for sub in subs[1:]]
         results: list[QueryResult] = []
         first_err: BaseException | None = None
@@ -613,6 +617,24 @@ class QueryEngine:
             raise first_err
         return results
 
+    def _run_sub_traced(self, tctx, tsq: TSQuery,
+                        sub: TSSubQuery) -> list[QueryResult]:
+        """A fan-out worker's entry: bind the request's trace context on
+        this thread (ref: ``_run_sub_traced``)."""
+        with trace_mod.use(tctx):
+            return self._run_sub_cached(tsq, sub)
+
+    def _run_sub_timed(self, tsq: TSQuery,
+                       sub: TSSubQuery) -> list[QueryResult]:
+        """One engine execution under the ``query.execute`` span (ref:
+        ``_run_sub_timed``): the scan, the pipeline and the assembly;
+        cache hits never get here. A CUDA launch returns before its
+        kernel runs, so this span holds the card's time: the pipeline's
+        first host read of a result waits for it."""
+        with trace_span("query.execute", sub=sub.index,
+                        metric=sub.metric or "<tsuid>"):
+            return self._run_sub(tsq, sub)
+
     def _run_sub_cached(self, tsq: TSQuery,
                         sub: TSSubQuery) -> list[QueryResult]:
         """One sub-query through the streaming lookup, then the result
@@ -628,24 +650,25 @@ class QueryEngine:
         failed one caches nothing."""
         streaming = self.tsdb._streaming
         if streaming is not None and not tsq.delete:
-            served = streaming.try_serve(tsq, sub, self)
+            with trace_span("query.streaming_lookup", sub=sub.index):
+                served = streaming.try_serve(tsq, sub, self)
             if served is not None:
                 if self._stats:
                     self._stats.add_stat(QueryStat.STREAMING_HIT, 1)
                 return served
         cache = self.tsdb.result_cache
         if cache is None:
-            return self._run_sub(tsq, sub)
+            return self._run_sub_timed(tsq, sub)
         plan = rc_mod.cache_plan(tsq, sub, self.tsdb.config)
         if plan is None:
             cache.count_bypass()
-            return self._run_sub(tsq, sub)
+            return self._run_sub_timed(tsq, sub)
         key, ttl_ms = plan
         # captured before the compute: a write landing mid-execution
         # leaves the entry already stale instead of wrongly fresh
         version = self._sub_version(sub)
         value, outcome = cache.get_or_compute(
-            key, version, lambda: self._run_sub(tsq, sub), ttl_ms)
+            key, version, lambda: self._run_sub_timed(tsq, sub), ttl_ms)
         stats = self._stats
         if stats and outcome != rc_mod.MISS:
             stats.add_stat(
@@ -832,6 +855,11 @@ class QueryEngine:
         if sub.percentiles:
             return self._run_percentiles(tsq, sub)
         uids = self.tsdb.uids
+        # the planning stage: store and tier selection, the filters and
+        # the groups (ref: the ``query.plan`` span, ended at every exit;
+        # on a raise it is not recorded and ``query.execute`` carries
+        # the error)
+        h_plan = trace_begin("query.plan", sub=sub.index)
         store, metric_id, sids, cnt_store, ds_function = \
             self._select_store(sub)
         if cnt_store is not None:
@@ -845,6 +873,7 @@ class QueryEngine:
                 if len(raw_sids):
                     store, sids, cnt_store = self.tsdb.store, raw_sids, None
         if len(sids) == 0:
+            trace_end(h_plan)
             return []
         if stats:
             stats.add_stat(QueryStat.ROWS_PRE_FILTER, len(sids))
@@ -852,6 +881,7 @@ class QueryEngine:
         # --- filters -> series mask (ref: findSpans post-scan filters)
         sids, tag_mat = self._apply_filters(metric_id, sub, sids, store)
         if len(sids) == 0:
+            trace_end(h_plan)
             return []
         if stats:
             stats.add_stat(QueryStat.STRING_TO_UID_TIME,
@@ -866,12 +896,16 @@ class QueryEngine:
             try:
                 gb_kids.append(uids.tag_names.get_id(k))
             except LookupError:
+                trace_end(h_plan)
                 return []
         group_ids, num_groups = self._group_ids(tag_mat, gb_kids)
         emit_raw = sub.agg.is_none
         if emit_raw:
             group_ids = np.arange(len(sids), dtype=np.int32)
             num_groups = len(sids)
+        if h_plan is not None:
+            h_plan.tag(series=len(sids), groups=num_groups)
+        trace_end(h_plan)
 
         # --- avg from the sum and count tiers (ref: _avg_rollup_pipeline)
         if cnt_store is not None:
@@ -1630,6 +1664,21 @@ class QueryEngine:
                        group_ids: np.ndarray, num_groups: int,
                        bucket_ts: np.ndarray, result: np.ndarray,
                        emit: np.ndarray) -> list[QueryResult]:
+        """The result rows, under the ``query.assemble`` span (ref:
+        ``_build_results``)."""
+        with trace_span("query.assemble", sub=sub.index,
+                        groups=num_groups,
+                        pixels=effective_pixels(tsq, sub)[0]):
+            return self._build_results_inner(
+                tsq, sub, metric_id, sids, tags, group_ids, num_groups,
+                bucket_ts, result, emit)
+
+    def _build_results_inner(self, tsq: TSQuery, sub: TSSubQuery,
+                             metric_id: int, sids: np.ndarray,
+                             tags: TagMatrix, group_ids: np.ndarray,
+                             num_groups: int, bucket_ts: np.ndarray,
+                             result: np.ndarray, emit: np.ndarray
+                             ) -> list[QueryResult]:
         uids = self.tsdb.uids
         out: list[QueryResult] = []
         emit = emit.astype(bool)

@@ -34,11 +34,12 @@ waiter that captured a newer version than the leader's recomputes
 Sharded LRU bounded by an estimated byte budget
 (``tsd.query.cache.mb``); knobs live under ``tsd.query.cache.*``.
 
-Left out, because the port has no such subsystem yet: the key's
-annotation flags (``no_annotations``, ``global_annotations``), its
-``sketch_partials`` flag and its cluster replica selection
-(``sel_cache_key``); the per-tenant ``insert_gate``; and
-``collect_stats``/``health_info``, which come with ``stats/``.
+The per-tenant ``insert_gate`` (set by the control plane's tenant
+QoS) is asked before an insert; a result it refuses still serves and
+is counted ``gated``. Left out, because the port has no such subsystem
+yet: the key's annotation flags (``no_annotations``,
+``global_annotations``), its ``sketch_partials`` flag and its cluster
+replica selection (``sel_cache_key``).
 """
 
 from __future__ import annotations
@@ -175,6 +176,11 @@ class QueryResultCache:
         self.coalesced = 0
         self.evicted = 0
         self.bypasses = 0
+        self.gated = 0
+        # the per-tenant insert gate (control/qos.py): called with the
+        # entry's byte size before an insert; False serves the result
+        # without keeping it. None keeps the hot path at one read.
+        self.insert_gate: Callable[[int], bool] | None = None
 
     # ------------------------------------------------------------------
 
@@ -236,6 +242,10 @@ class QueryResultCache:
         nbytes = results_nbytes(value)
         if nbytes > self._shard_budget:
             return  # bigger than a whole shard: don't thrash
+        gate = self.insert_gate
+        if gate is not None and not gate(nbytes):
+            self._count("gated")
+            return  # an over-budget tenant's result: served, not kept
         shard = self._shard(key)
         evicted = 0
         with shard.lock:
@@ -351,3 +361,30 @@ class QueryResultCache:
             with shard.lock:
                 shard.entries.clear()
                 shard.nbytes = 0
+
+    # ------------------------------------------------------------------
+
+    def collect_stats(self, collector) -> None:
+        collector.record("query.resultcache.bytes", self.total_bytes)
+        collector.record("query.resultcache.entries", self.total_entries)
+        collector.record("query.resultcache.hits", self.hits)
+        collector.record("query.resultcache.misses", self.misses)
+        collector.record("query.resultcache.coalesced", self.coalesced)
+        collector.record("query.resultcache.evicted", self.evicted)
+        collector.record("query.resultcache.bypasses", self.bypasses)
+        collector.record("query.resultcache.gated", self.gated)
+
+    def health_info(self) -> dict[str, Any]:
+        return {
+            "enabled": True,
+            "bytes": self.total_bytes,
+            "max_bytes": self.max_bytes,
+            "entries": self.total_entries,
+            "shards": len(self._shards),
+            "hits": self.hits,
+            "misses": self.misses,
+            "coalesced": self.coalesced,
+            "evicted": self.evicted,
+            "bypasses": self.bypasses,
+            "inflight": len(self._inflight),
+        }

@@ -116,6 +116,8 @@ class ContinuousQuery:
         # to a snapshot.
         self.history: list[tuple[int, bytes]] = []
         self.evicted_seq = 0
+        # the tenant that registered it under tenant QoS (control/qos.py)
+        self.tenant: str | None = None
 
     def fold_bytes(self) -> int:
         """Resident ring bytes this query's views hold (distinct
@@ -1126,12 +1128,58 @@ class ContinuousQueryRegistry:
         return t
 
     def fold_bytes(self) -> int:
-        """Actual resident fold memory across every shared partial.
-        (The reference's per-tenant budget and projected sizes belong
-        to its control plane: ROADMAP Queue 1, the rest.)"""
+        """Actual resident fold memory across every shared partial: what
+        the control plane's miner and the tenant fold budget account
+        against."""
         with self._lock:
             groups = list(self._partials)
         return sum(g.ring_bytes() for g in groups)
+
+    def tenant_fold_bytes(self, tenant: str) -> int:
+        """Resident fold memory of one tenant's registrations (a shared
+        partial counts once per query riding it, as in the reference)."""
+        return sum(cq.fold_bytes() for cq in self.list()
+                   if cq.tenant == tenant)
+
+    def projected_fold_bytes(self, obj: dict) -> int:
+        """Resident ring bytes registering ``obj`` would add (ref:
+        ``projected_fold_bytes``): per sub-query, the window count
+        registration would size (range, pipeline lead and lateness
+        columns) times a per-window row estimate, the row count of the
+        live partials of the same metric (one row for a cold metric).
+        0 for a body that cannot register, which fails its own 400 at
+        registration."""
+        try:
+            tsq = TSQuery.from_json(
+                {k: v for k, v in obj.items()
+                 if k not in ("id", "window", "watermark")})
+            tsq.validate()
+            policy = WatermarkPolicy.from_json(obj.get("watermark"))
+        except (BadRequestError, ValueError, TypeError, KeyError):
+            return 0
+        total = 0
+        for sub in tsq.queries:
+            spec = sub.ds_spec
+            if spec is None or spec.interval_ms <= 0:
+                continue
+            try:
+                window = WindowSpec.from_json(obj.get("window"),
+                                              spec.interval_ms)
+            except BadRequestError:
+                return 0
+            lat_b = policy.lateness_buckets(spec.interval_ms) \
+                if policy is not None else 0
+            windows = int((tsq.end_ms - tsq.start_ms)
+                          // spec.interval_ms) + 2 \
+                + window.lead_for(spec.interval_ms) + lat_b
+            rows = 1
+            with self._lock:
+                for g in self._partials:
+                    if g.metric == sub.metric:
+                        rows = max(rows, len(g._sids))
+            # 4 f8 channels and the shared win_ts row
+            total += windows * (rows * 32 + 8)
+        return total
 
     def collect_stats(self, collector) -> None:
         t = self._totals()

@@ -36,6 +36,8 @@ import collections
 import logging
 import threading
 
+from opentsdb_tpu_torch.obs import trace as trace_mod
+
 LOG = logging.getLogger("streaming.workers")
 
 # idle wake interval: a worker with an empty queue re-checks the
@@ -139,6 +141,7 @@ class FoldWorkerPool:
 
     def _loop(self) -> None:
         registry = self.registry
+        tracer = registry.tsdb.tracer
         while not self._stop.is_set():
             self._event.wait(timeout=_IDLE_WAKE_S)
             self._event.clear()
@@ -146,15 +149,26 @@ class FoldWorkerPool:
                 partial = self._take()
                 if partial is None:
                     break
+                # each off-path drain is a sampled background trace root
+                # (ref: the ``streaming.drain`` root), so fold-worker time
+                # shows at /api/trace and in its stage histogram
+                tctx = tracer.start_background("streaming.drain",
+                                               sample=True)
                 try:
-                    registry.worker_drain(partial)
+                    with trace_mod.use(tctx):
+                        registry.worker_drain(partial)
                     self.drains += 1
-                except Exception:  # noqa: BLE001 - a worker never dies
-                    # the drain already counted the error and marked
-                    # the partial for rebuild; the next serve re-seeds
+                except Exception as exc:  # noqa: BLE001 - a worker
+                    # never dies: the drain already counted the error
+                    # and marked the partial for rebuild; the next serve
+                    # re-seeds
                     self.errors += 1
+                    if tctx is not None:
+                        tctx.set_error(exc)
                     LOG.exception("fold worker drain failed; partial "
                                   "will rebuild on serve")
+                finally:
+                    tracer.finish(tctx)
             if self._publish_pending and not self._stop.is_set():
                 self._publish_pending = False
                 try:

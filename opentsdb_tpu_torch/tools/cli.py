@@ -73,10 +73,13 @@ def cmd_tsd(config: Config, args: list[str]) -> int:
     from opentsdb_tpu_torch.utils.plugin import load_plugin_instances
 
     # the server's log lines (the warmup's class count among them) go
-    # to stderr
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: "
-                        "%(message)s")
+    # to stderr; a handler of its own, since the /logs ring's handler is
+    # on the root logger already and basicConfig would then do nothing
+    stderr = logging.StreamHandler()
+    stderr.setFormatter(logging.Formatter(
+        "%(asctime)s %(levelname)s %(name)s: %(message)s"))
+    logging.getLogger().addHandler(stderr)
+    logging.getLogger().setLevel(logging.INFO)
     startup = load_plugin_instances(config, "tsd.startup", single=True)
     tsdb = TSDB(config)
     server = TSDServer(tsdb)

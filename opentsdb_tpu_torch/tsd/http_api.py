@@ -23,11 +23,21 @@ delete), ``/api/query/last``, ``/api/suggest``, ``/api/search``
 ``/api/dropcaches``, ``/api/lifecycle`` (+``/sweep``; the data
 lifecycle), ``/api/serializers``, ``/api/version``,
 ``/api/stats`` (+``/query``, ``/jvm``, ``/threads``,
-``/region_clients``), ``/diediedie``, and the legacy unversioned
-aliases. Every other endpoint of the reference's surface needs a
-subsystem the port does not have yet and answers a structured 501
-naming the ROADMAP item that ports it (:data:`UNPORTED`); a path the
-reference does not know answers 404.
+``/region_clients``, ``/raw``, ``/query_shapes``, ``/tenants``),
+the observability surface (``/api/health``, ``/api/trace``
+(+``/<id>``), ``/api/profile``, ``/metrics``, ``/logs``), the control
+plane (``/api/control`` (+``/materialized``, ``/plan``, ``/tick``)),
+``/diediedie``, and the legacy unversioned aliases. Every other
+endpoint of the reference's surface needs a subsystem the port does
+not have yet and answers a structured 501 naming the ROADMAP item that
+ports it (:data:`UNPORTED`); a path the reference does not know
+answers 404.
+
+``/api/put`` and ``/api/query`` are trace roots (``ingest.put``,
+``query.http``; :mod:`opentsdb_tpu_torch.obs.trace`): a retained
+trace's id rides the response as ``X-TSD-Trace-Id``. A request that
+did not come through the socket server (``received_at`` unset) feeds
+the SLO tracker here; the server feeds it for the rest.
 
 The wire format is the JSON serializer unless
 ``tsd.http.serializer.plugin`` names another class, which is
@@ -51,6 +61,7 @@ from __future__ import annotations
 
 import base64
 import json
+import os
 import platform
 import re
 import resource
@@ -65,11 +76,15 @@ import numpy as np
 
 from opentsdb_tpu_torch import __version__
 from opentsdb_tpu_torch.auth.simple import Permissions
+from opentsdb_tpu_torch.control.shapes import cq_candidate
 from opentsdb_tpu_torch.core import tags as tags_mod
 from opentsdb_tpu_torch.core.tags import parse_put_value
 from opentsdb_tpu_torch.core.uid import FailedToAssignUniqueIdError
 from opentsdb_tpu_torch.meta.annotation import Annotation
 from opentsdb_tpu_torch.meta.meta_store import MetaStore, UIDMeta
+from opentsdb_tpu_torch.obs import openmetrics
+from opentsdb_tpu_torch.obs import trace as trace_mod
+from opentsdb_tpu_torch.obs.trace import build_tree, trace_begin, trace_end
 from opentsdb_tpu_torch.ops import aggregators as aggs_mod
 from opentsdb_tpu_torch.query import filters as filters_mod
 from opentsdb_tpu_torch.query.limits import QueryLimitExceeded
@@ -82,6 +97,7 @@ from opentsdb_tpu_torch.stats.stats import QueryStat, QueryStats
 from opentsdb_tpu_torch.streaming.sse import sse_stream
 from opentsdb_tpu_torch.tsd.json_serializer import HttpJsonSerializer
 from opentsdb_tpu_torch.utils.faults import DegradedError
+from opentsdb_tpu_torch.utils.logring import ring_buffer
 from opentsdb_tpu_torch.utils.plugin import load_class, load_plugin_instances
 
 # the ROADMAP Queue 1 item that ports what is left
@@ -91,20 +107,26 @@ _REST = "the rest, with no device compute"
 # "stats/<name>" and "query/<name>" for sub-endpoints, or "/<name>" for
 # paths outside /api
 UNPORTED: dict[str, tuple[str, str]] = {
-    "health": (_REST, "obs/ (health)"),
-    "trace": (_REST, "obs/ (request tracing)"),
-    "profile": (_REST, "obs/ (sampling profiler)"),
     "cluster": (_REST, "cluster/"),
-    "control": (_REST, "control/"),
-    "stats/raw": (_REST, "obs/ (raw histogram snapshots)"),
     "stats/fleet": (_REST, "cluster/ (fleet stats)"),
-    "stats/query_shapes": (_REST, "obs/ (query-shape log)"),
-    "stats/tenants": (_REST, "control/ (tenant QoS)"),
     "/q": (_REST, "tsd/graph.py (graphs)"),
     "/s": (_REST, "static files"),
-    "/metrics": (_REST, "obs/ (OpenMetrics exposition)"),
-    "/logs": (_REST, "the /logs ring buffer"),
 }
+
+
+def api_endpoint(path: str) -> str:
+    """The path's first endpoint segment with the ``/api[/vN]`` prefix
+    stripped (agreeing with :meth:`HttpRpcRouter._dispatch`'s parse)."""
+    parts = [p for p in path.split("/") if p]
+    if parts and parts[0] == "api":
+        parts = parts[1:]
+        if parts and re.fullmatch(r"v[0-9]+", parts[0]):
+            parts = parts[1:]
+    return parts[0] if parts else ""
+
+
+# the endpoints the SLO tracker holds to objectives (ref: _slo_endpoint)
+_SLO_ENDPOINTS = {"query": "query", "q": "query", "put": "put"}
 
 
 def _not_ported(endpoint: str) -> NotImplementedError:
@@ -125,6 +147,12 @@ class HttpRequest:
     remote: str = ""
     serializer: Any = None  # set by the router (?serializer= choice)
     auth: Any = None  # the AuthState when authentication is on
+    # the socket server's receipt stamp (time.monotonic()): the query
+    # root's admission span starts here, and a request with it set has
+    # its SLO event recorded by the server, not by the router
+    received_at: float = 0.0
+    # a retained trace's id, stamped by the router's trace wrapper
+    trace_id_hint: str = ""
 
     def param(self, key: str, default: str | None = None) -> str | None:
         vals = self.params.get(key)
@@ -264,10 +292,14 @@ class HttpRpcRouter:
         self._routes.update({
             "aggregators": self._handle_aggregators,
             "config": self._handle_config,
+            "control": self._handle_control,
             "dropcaches": self._handle_dropcaches,
+            "health": self._handle_health,
             "lifecycle": self._handle_lifecycle,
+            "profile": self._handle_profile,
             "serializers": self._handle_serializers,
             "stats": self._handle_stats,
+            "trace": self._handle_trace,
             "version": self._handle_version,
         })
         for name in UNPORTED:
@@ -292,7 +324,24 @@ class HttpRpcRouter:
     # ------------------------------------------------------------------
 
     def handle(self, request: HttpRequest) -> HttpResponse:
-        return self._apply_jsonp(request, self._handle_inner(request))
+        t0 = time.monotonic()
+        resp = self._apply_jsonp(request, self._handle_inner(request))
+        # set here so that error responses, built after the trace
+        # wrapper unwound, carry the id too
+        if request.trace_id_hint:
+            resp.headers.setdefault("X-TSD-Trace-Id",
+                                    request.trace_id_hint)
+        # the SLO feed of a caller that is not the socket server (ref:
+        # ``handle``): a 5xx burns availability; the server records its
+        # own requests at response time, sheds and timeouts included
+        if not request.received_at and self.tsdb.slo.enabled:
+            endpoint = _SLO_ENDPOINTS.get(api_endpoint(request.path))
+            if endpoint is not None:
+                self.tsdb.slo.record(endpoint,
+                                     (time.monotonic() - t0) * 1000.0,
+                                     resp.status >= 500)
+        return resp
+
 
     def _handle_inner(self, request: HttpRequest) -> HttpResponse:
         # content negotiation: ?serializer=<shortname> picks a
@@ -391,6 +440,11 @@ class HttpRpcRouter:
             endpoint, rest = parts[0], parts[1:]
         elif f"/{parts[0]}" in UNPORTED:
             raise _not_ported(f"/{parts[0]}")
+        elif parts[0] == "metrics":
+            # OpenMetrics, outside /api where Prometheus scrapes
+            return self._handle_metrics(request)
+        elif parts[0] == "logs":
+            return self._handle_logs(request)
         elif parts[0] == "plugin":
             plugin = self.http_rpc_plugins.get("/".join(parts[1:]))
             if plugin is None:
@@ -423,6 +477,32 @@ class HttpRpcRouter:
                             "The requested endpoint was not found")
         return handler(request, rest)
 
+    # -- tracing -------------------------------------------------------
+
+    def _trace_request(self, name: str, request: HttpRequest,
+                       fn: Callable[[], HttpResponse]) -> HttpResponse:
+        """Root one traced request (``ingest.put`` or ``query.http``;
+        ref: ``_trace_request``): bind the context for the handler's
+        whole stack, mark an error, and stamp a retained trace's id for
+        the ``X-TSD-Trace-Id`` header."""
+        tracer = self.tsdb.tracer
+        ctx = tracer.start_request(name, request)
+        if ctx is None:
+            return fn()
+        error: BaseException | None = None
+        try:
+            with trace_mod.use(ctx):
+                return fn()
+        except BaseException as exc:
+            error = exc
+            raise
+        finally:
+            if error is not None:
+                ctx.set_error(error)
+            tracer.finish(ctx)
+            if ctx.committed:
+                request.trace_id_hint = ctx.trace_id
+
     # -- write path ----------------------------------------------------
 
     @staticmethod
@@ -453,12 +533,21 @@ class HttpRpcRouter:
         """(ref: PutDataPointRpc.java:272) Decode the body, validate and
         group it into per-series columns in one pass, then write the
         groups through ``TSDB.add_point_groups``: a bad point fails
-        alone and the good points of the body land."""
+        alone and the good points of the body land. Traced as an
+        ``ingest.put`` root: ``ingest.decode``, ``store.scatter`` and
+        the WAL's ``wal.commit_wait``."""
         self._check_permission(request, Permissions.HTTP_PUT)
         if request.method != "POST":
             raise HttpError(405, "Method not allowed",
                             "The HTTP method is not permitted")
+        return self._trace_request("ingest.put", request,
+                                   lambda: self._handle_put_run(request))
+
+    def _handle_put_run(self, request: HttpRequest) -> HttpResponse:
+        h = trace_begin("ingest.decode")
         points = request.serializer.parse_put(request.body)
+        if h is not None:
+            h.tag(points=len(points))
         details = request.flag("details")
         summary = request.flag("summary")
         errors: list[dict] = []
@@ -491,8 +580,11 @@ class HttpRpcRouter:
             except ValueError as e:
                 errors.append({"datapoint": dp, "error": str(e)})
 
+        trace_end(h)
+        h = trace_begin("store.scatter", groups=len(groups))
         success, _ = self.tsdb.add_point_groups(
             groups.values(), on_error=self._put_error_sink(errors))
+        trace_end(h)
         failed = len(errors)
         if not details and not summary:
             if failed:
@@ -596,6 +688,13 @@ class HttpRpcRouter:
                 handle_exp, handle_gexp)
             return (handle_exp if sub == "exp" else handle_gexp)(
                 self, request)
+        return self._trace_request("query.http", request,
+                                   lambda: self._handle_query_run(request))
+
+    def _handle_query_run(self, request: HttpRequest) -> HttpResponse:
+        """``/api/query`` under its ``query.http`` root: the root carries
+        the query-shape tags the shape log records (and the miner's
+        continuous-query candidate), then the cache outcome."""
         if request.method == "POST":
             obj = request.serializer.parse_query(request.body)
             tsq = TSQuery.from_json(obj)
@@ -620,6 +719,24 @@ class HttpRpcRouter:
         # downsamplePixels; 0 = full resolution)
         px = max((effective_pixels(tsq, s)[0] for s in tsq.queries),
                  default=0)
+        tctx = trace_mod.current()
+        if tctx is not None:
+            s0 = tsq.queries[0] if tsq.queries else None
+            tctx.tag(
+                metrics=",".join(sorted({s.metric or "<tsuid>"
+                                         for s in tsq.queries})),
+                subs=len(tsq.queries),
+                aggregator=s0.aggregator if s0 is not None else "",
+                downsample=(s0.downsample or "") if s0 is not None
+                else "",
+                filters=sum(len(s.filters) for s in tsq.queries),
+                pixels=px, start=tsq.start_ms, end=tsq.end_ms,
+                delete=bool(tsq.delete))
+            # the canonical continuous-query candidate the control
+            # plane's miner groups on (None: not materializable)
+            cand = cq_candidate(tsq)
+            if cand:
+                tctx.tag(cq=cand)
         show_summary = tsq.show_summary or request.flag("show_summary")
         show_stats = tsq.show_stats or request.flag("show_stats")
         as_arrays = request.flag("arrays")
@@ -628,6 +745,13 @@ class HttpRpcRouter:
             results = self.tsdb.new_query().run(tsq, stats)
             if px:
                 stats.add_stat(QueryStat.DOWNSAMPLE_PIXELS, px)
+            if tctx is not None:
+                st = stats.stats
+                tctx.tag(cache=(
+                    "streaming" if st.get("streamingHit")
+                    else "hit" if st.get("resultCacheHit")
+                    else "coalesced" if st.get("resultCacheCoalesced")
+                    else "miss"))
             t_ser = time.monotonic()
             total_dps = sum(r.num_dps for r in results)
             stats.add_stat(QueryStat.EMITTED_DPS, total_dps)
@@ -649,12 +773,14 @@ class HttpRpcRouter:
                     (time.monotonic_ns() - stats.start_ns) / 1e6)
                 streamed = True
                 return HttpResponse(200, b"", body_iter=self._stream_body(
-                    inner, stats, t_ser))
+                    inner, stats, t_ser, px))
+            h = trace_begin("query.serialize")
             body = request.serializer.format_query(
                 tsq, results, as_arrays=as_arrays,
                 show_summary=show_summary, show_stats=show_stats,
                 summary_extra=stats.stats)
-            self._record_serialization(stats, t_ser, len(body))
+            trace_end(h)
+            self._record_serialization(stats, t_ser, len(body), px)
             stats.add_stat(QueryStat.PROCESSING_PRE_WRITE_TIME,
                            (time.monotonic_ns() - stats.start_ns) / 1e6)
             stats.mark_serialization_successful()
@@ -683,16 +809,34 @@ class HttpRpcRouter:
           ``?last_event_id=``) resumes.
         - ``DELETE /api/query/continuous/<id>``: deregister.
 
-        The reference's tenant fold budget (its control plane) and its
-        router mode (its cluster) are not ported (ROADMAP Queue 1, the
-        rest, with no device compute)."""
+        Under tenant QoS a registration is held to its tenant's fold
+        budget (``tsd.control.qos.tenant_fold_mb``): past it, 400. The
+        reference's router mode (its cluster) is not ported (ROADMAP
+        Queue 1, the rest, with no device compute)."""
         registry = self.tsdb.streaming
         if registry is None:
             raise HttpError(400, "Continuous queries are disabled",
                             "set tsd.streaming.enable = true")
         if not rest:
             if request.method == "POST":
-                cq = registry.register(request.json_object())
+                obj = request.json_object()
+                ctl = self.tsdb._control
+                tenant = None
+                if ctl is not None and ctl.qos.enabled:
+                    # standing rings are the one resource a tenant
+                    # holds for good: the budget gates registration
+                    tenant = ctl.qos.tenant_of(request.headers)
+                    if not ctl.qos.fold_budget_allows(tenant, registry,
+                                                      body=obj):
+                        raise HttpError(
+                            400, "tenant fold-memory budget exhausted",
+                            f"tenant {tenant!r} already holds "
+                            "tsd.control.qos.tenant_fold_mb of standing "
+                            "continuous-query state; delete one or raise "
+                            "the budget")
+                cq = registry.register(obj)
+                if tenant is not None:
+                    cq.tenant = tenant
                 return HttpResponse(
                     200, json.dumps(cq.describe()).encode())
             if request.method == "GET":
@@ -778,13 +922,14 @@ class HttpRpcRouter:
                             request.serializer.format_last_points(points))
 
     def _record_serialization(self, stats: QueryStats, t_ser: float,
-                              nbytes: int) -> None:
+                              nbytes: int, pixels: int) -> None:
         ser_ms = (time.monotonic() - t_ser) * 1e3
         stats.add_stat(QueryStat.SERIALIZATION_TIME, ser_ms)
         stats.add_stat(QueryStat.PAYLOAD_BYTES, nbytes)
-        self.tsdb.payload_stats.record(nbytes, ser_ms)
+        self.tsdb.payload_stats.record(nbytes, ser_ms, pixels)
 
-    def _stream_body(self, inner, stats: QueryStats, t_ser: float):
+    def _stream_body(self, inner, stats: QueryStats, t_ser: float,
+                     pixels: int):
         """The streamed body: serialization time, success and
         completion are marked when the stream ends (or aborts), so
         ``/api/stats/query`` reports a streamed query's real total."""
@@ -793,7 +938,7 @@ class HttpRpcRouter:
             for chunk in inner:
                 nbytes += len(chunk)
                 yield chunk
-            self._record_serialization(stats, t_ser, nbytes)
+            self._record_serialization(stats, t_ser, nbytes, pixels)
             stats.mark_serialization_successful()
         finally:
             stats.mark_complete()
@@ -1236,13 +1381,37 @@ class HttpRpcRouter:
 
     def _handle_stats(self, request: HttpRequest, rest) -> HttpResponse:
         """(ref: StatsRpc.java; /api/stats + /query /jvm /threads
-        /region_clients)"""
+        /region_clients, and the reference's /raw, /query_shapes and
+        /tenants)"""
         sub = rest[0] if rest else ""
         if f"stats/{sub}" in UNPORTED:
             raise _not_ported(f"stats/{sub}")
         if sub == "query":
             return HttpResponse(200, request.serializer.format_query_stats(
                 QueryStats.running_and_completed()))
+        if sub == "raw":
+            # the records and the histograms at full resolution (a
+            # merge sums buckets; percentiles do not merge)
+            collector = self.tsdb.stats.collect(latency_percentiles=False)
+            self.tsdb.collect_stats(collector)
+            return HttpResponse(200, json.dumps({
+                "ts": int(time.time()),
+                "records": [{"metric": name, "value": value, "tags": tags}
+                            for name, value, tags in collector.records],
+                "histograms": [
+                    {"name": name, "labels": labels, **hist.snapshot()}
+                    for name, labels, hist
+                    in self.tsdb.stats.histograms()],
+            }).encode())
+        if sub == "query_shapes":
+            return self._handle_query_shapes(request)
+        if sub == "tenants":
+            # the raw attribute: a stats read must not build the plane
+            ctl = self.tsdb._control
+            doc = ctl.qos.describe() if ctl is not None else {
+                "enabled": self.tsdb.config.get_bool(
+                    "tsd.control.qos.enable", False)}
+            return HttpResponse(200, json.dumps(doc).encode())
         if sub == "jvm":
             return HttpResponse(200, json.dumps(
                 self._runtime_stats()).encode())
@@ -1262,9 +1431,296 @@ class HttpRpcRouter:
         return HttpResponse(200, request.serializer.format_stats(
             collector.as_json()))
 
+    # -- observability -------------------------------------------------
+
+    def _handle_metrics(self, request: HttpRequest) -> HttpResponse:
+        """``GET /metrics``: the OpenMetrics exposition of the whole
+        stats registry (ref: ``_handle_metrics``)."""
+        if request.method != "GET":
+            raise HttpError(405, "Method not allowed")
+        return HttpResponse(200, openmetrics.render(self.tsdb),
+                            content_type=openmetrics.CONTENT_TYPE)
+
+    def _handle_logs(self, request: HttpRequest) -> HttpResponse:
+        """``/logs``: the in-process log ring, newest first (ref:
+        LogsRpc; ``?json`` for a JSON array)."""
+        lines = ring_buffer.lines()
+        if request.flag("json"):
+            return HttpResponse(200, json.dumps(lines).encode())
+        return HttpResponse(200, "\n".join(lines).encode(),
+                            content_type="text/plain")
+
+    def _handle_profile(self, request: HttpRequest, rest) -> HttpResponse:
+        """``GET /api/profile?seconds=N``: the sampling profiler's
+        trailing window as collapsed stacks, or ``?format=json``;
+        ``?role=query`` keeps one thread role (ref: ``_handle_profile``)."""
+        if request.method != "GET":
+            raise HttpError(405, "Method not allowed")
+        profiler = self.tsdb.profiler
+        if not profiler.enabled or profiler.hz <= 0:
+            raise HttpError(400, "Profiling is disabled",
+                            "set tsd.profile.enable = true and "
+                            "tsd.profile.hz > 0")
+        seconds = as_int(request.param("seconds"), "seconds",
+                         profiler.ring_s)
+        role = request.param("role", "") or ""
+        fmt = request.param("format", "collapsed") or "collapsed"
+        if fmt == "json":
+            return HttpResponse(200, json.dumps({
+                "seconds": min(max(seconds, 1), profiler.ring_s),
+                "hz": profiler.hz,
+                "roles": profiler.report(seconds, role),
+                "profiler": profiler.health_info(),
+            }).encode())
+        if fmt != "collapsed":
+            raise HttpError(400, "format must be collapsed or json")
+        return HttpResponse(200, profiler.collapsed(seconds, role).encode(),
+                            content_type="text/plain; charset=UTF-8")
+
+    def _handle_query_shapes(self, request: HttpRequest) -> HttpResponse:
+        """``GET /api/stats/query_shapes``: a top-N summary of the
+        query-shape log (the current and one rotated generation) by
+        shape, with counts, the cache-outcome mix and p50/p95 of the
+        duration and of each stage (ref: ``_handle_query_shapes``)."""
+        if request.method != "GET":
+            raise HttpError(405, "Method not allowed")
+        path = self.tsdb.tracer.shape_path
+        if not path:
+            raise HttpError(
+                400, "Query-shape logging is disabled",
+                "needs tsd.trace.enable + tsd.trace.shapes.enable "
+                "and a tsd.storage.data_dir")
+        limit = as_int(request.param("limit"), "limit", 20)
+        shapes: dict[tuple, dict[str, Any]] = {}
+        lines_read = 0
+        for p in (path + ".1", path):
+            if not os.path.isfile(p):
+                continue
+            with open(p, "r", encoding="utf-8") as fh:
+                for line in fh:
+                    try:
+                        doc = json.loads(line)
+                    except ValueError:
+                        continue  # the torn tail of a rotation
+                    if not isinstance(doc, dict):
+                        continue
+                    lines_read += 1
+                    key = (doc.get("metrics", ""),
+                           doc.get("aggregator", ""),
+                           doc.get("downsample", ""),
+                           doc.get("filters", 0), doc.get("pixels", 0))
+                    s = shapes.get(key)
+                    if s is None:
+                        s = shapes[key] = {"count": 0, "cache": {},
+                                           "durations": [], "stages": {}}
+                    s["count"] += 1
+                    outcome = str(doc.get("cache", "unknown"))
+                    s["cache"][outcome] = s["cache"].get(outcome, 0) + 1
+                    s["durations"].append(float(doc.get("durationMs",
+                                                        0.0)))
+                    for stage, ms in (doc.get("stages") or {}).items():
+                        s["stages"].setdefault(stage, []).append(
+                            float(ms))
+
+        def pct(vals: list, q: float) -> float:
+            if not vals:
+                return 0.0
+            vs = sorted(vals)
+            return round(vs[min(int(len(vs) * q / 100.0), len(vs) - 1)],
+                         3)
+
+        top = sorted(shapes.items(), key=lambda kv:
+                     (-kv[1]["count"], kv[0]))[:max(limit, 1)]
+        out = []
+        for (metrics, agg, ds, nfilters, px), s in top:
+            out.append({
+                "metrics": metrics, "aggregator": agg,
+                "downsample": ds, "filters": nfilters, "pixels": px,
+                "count": s["count"], "cacheOutcomes": s["cache"],
+                "durationMs": {"p50": pct(s["durations"], 50),
+                               "p95": pct(s["durations"], 95)},
+                "stagesMs": {stage: {"p50": pct(vals, 50),
+                                     "p95": pct(vals, 95)}
+                             for stage, vals in sorted(s["stages"].items())},
+            })
+        return HttpResponse(200, json.dumps({
+            "shapes": out, "distinctShapes": len(shapes),
+            "linesRead": lines_read, "source": path}).encode())
+
+    def _handle_trace(self, request: HttpRequest, rest) -> HttpResponse:
+        """The trace surface (ref: ``_handle_trace``):
+
+        - ``GET /api/trace``: the retained roots, newest first;
+          ``?status=ok|error``, ``?min_duration_ms=N``, ``?slow=true``
+          (the slow ring only), ``?limit=N``;
+        - ``GET /api/trace/<id>``: one trace's spans and their tree."""
+        if request.method != "GET":
+            raise HttpError(405, "Method not allowed")
+        tracer = self.tsdb.tracer
+        if not tracer.enabled:
+            raise HttpError(400, "Tracing is disabled",
+                            "set tsd.trace.enable = true")
+        if not rest:
+            limit = as_int(request.param("limit"), "limit", 50)
+            min_ms = float(request.param("min_duration_ms", "0") or "0")
+            status = request.param("status", "") or ""
+            if status not in ("", "ok", "error"):
+                raise HttpError(400, "status must be ok or error")
+            return HttpResponse(200, json.dumps(tracer.recent(
+                status=status, min_duration_ms=min_ms,
+                slow_only=request.flag("slow"), limit=limit)).encode())
+        trace_id = rest[0]
+        data = tracer.get(trace_id)
+        if data is None:
+            raise HttpError(404, f"No trace with id {trace_id!r}",
+                            "evicted from the ring, or never "
+                            "retained (see tsd.trace.sample)")
+        spans = list(data.spans)
+        return HttpResponse(200, json.dumps({
+            "traceId": trace_id, "slow": data.slow,
+            "spanCount": len(spans),
+            "spans": [s.to_json() for s in spans],
+            "tree": build_tree(spans)}).encode())
+
+    def _handle_control(self, request: HttpRequest, rest) -> HttpResponse:
+        """The control plane (ref: ``_handle_control``):
+
+        - ``GET /api/control``: the loop and each actuator;
+        - ``GET /api/control/materialized``: the standing auto continuous
+          queries with their scores and mined bodies;
+        - ``GET /api/control/plan``: the placement assessment (none on a
+          TSD that is not a cluster router);
+        - ``POST /api/control/plan``: confirm a proposal (``{"planId":
+          ...}``): 400, no proposal stands here;
+        - ``POST /api/control/tick``: one tick now, with its report."""
+        ctl = self.tsdb.control
+        if ctl is None:
+            raise HttpError(400, "The control plane is disabled",
+                            "set tsd.control.enable = true")
+        sub = rest[0] if rest else ""
+        if sub == "materialized":
+            if request.method != "GET":
+                raise HttpError(405, "Method not allowed")
+            return HttpResponse(200, json.dumps(
+                ctl.materialized_info()).encode())
+        if sub == "plan":
+            if request.method == "GET":
+                return HttpResponse(200,
+                                    json.dumps(ctl.plan_info()).encode())
+            if request.method == "POST":
+                obj = request.json_object(default={})
+                return HttpResponse(200, json.dumps(ctl.apply_plan(
+                    str(obj.get("planId", "")))).encode())
+            raise HttpError(405, "Method not allowed")
+        if sub == "tick":
+            if request.method != "POST":
+                raise HttpError(405, "Method not allowed",
+                                "POST runs one control tick")
+            return HttpResponse(200, json.dumps(ctl.tick()).encode())
+        if rest:
+            raise HttpError(404, f"Endpoint not found: /api/control/{sub}")
+        if request.method != "GET":
+            raise HttpError(405, "Method not allowed")
+        return HttpResponse(200, json.dumps(ctl.describe()).encode())
+
+    def _handle_health(self, request: HttpRequest, rest) -> HttpResponse:
+        """``/api/health`` (ref: ``_handle_health``): the WAL, every
+        breaker, the caches, the continuous queries, the lifecycle, the
+        stores' footprint, the latency percentiles, SLO burn, the
+        profiler, the tracer, the telemetry pump and the control plane,
+        with the connections and admission when a server is attached.
+        Always 200: ``status`` carries the verdict and ``causes`` why.
+        Each lazy subsystem is read through its raw attribute, so health
+        never builds one to report it absent."""
+        t = self.tsdb
+        causes: list[str] = []
+        breakers: dict[str, Any] = {}
+
+        def breaker(b) -> None:
+            if b is not None:
+                breakers[b.name] = b.health_info()
+                if b.state != b.CLOSED:
+                    causes.append(f"breaker:{b.name}")
+
+        wal_info: dict[str, Any] = {"enabled": t.wal is not None}
+        if t.wal is not None:
+            wal_info.update(t.wal.health_info())
+            if wal_info.get("degraded"):
+                causes.append("wal_sync")
+            if wal_info.get("durability_hole"):
+                causes.append("wal_durability_hole")
+        breaker(t.device_breaker)
+        rcache = t._result_cache
+        if rcache is not None:
+            cache_info = rcache.health_info()
+            cache_info["enabled"] = t.config.get_bool(
+                "tsd.query.cache.enable", True)
+        else:
+            cache_info = {"enabled": t.config.get_bool(
+                "tsd.query.cache.enable", True)
+                and t.config.get_int("tsd.query.cache.mb", 256) > 0}
+        streaming = t._streaming
+        if streaming is not None:
+            streaming_info = streaming.health_info()
+            breaker(streaming.breaker)
+        else:
+            streaming_info = {"enabled": t.config.get_bool(
+                "tsd.streaming.enable", True), "queries": 0}
+        lifecycle = t._lifecycle
+        if lifecycle is not None:
+            lifecycle_info = lifecycle.health_info()
+            breaker(lifecycle.breaker)
+            if lifecycle.coldstore is not None:
+                breaker(lifecycle.coldstore.read_breaker)
+        else:
+            lifecycle_info = {"enabled": t.config.get_bool(
+                "tsd.lifecycle.enable", False)}
+        ctl = t._control
+        if ctl is not None:
+            control_info = ctl.describe()
+            breaker(ctl.breaker)
+        else:
+            control_info = {"enabled": t.config.get_bool(
+                "tsd.control.enable", False)}
+        doc: dict[str, Any] = {
+            "status": "degraded" if causes else "ok",
+            "degraded": bool(causes),
+            "causes": causes,
+            "uptime_seconds": int(time.time() - t.start_time),
+            "wal": wal_info,
+            "breakers": breakers,
+            "faults": t.faults.health_info(),
+            "query_cache": cache_info,
+            "streaming": streaming_info,
+            "lifecycle": lifecycle_info,
+            "storage": t.storage_memory_info(),
+            "query_payload": t.payload_stats.health_info(),
+            "latency": t.stats.latency_summary(),
+            "slo": t.slo.health_info(),
+            "profiler": t.profiler.health_info(),
+            "trace": t.tracer.health_info(),
+            "telemetry": t.telemetry.health_info(),
+            # the reference's block when it runs no cluster router
+            "cluster": {"role": "standalone"},
+            "control": control_info,
+            "hook_errors": dict(t.hook_errors),
+        }
+        server = self.server
+        if server is not None:
+            cm = server.connections
+            doc["connections"] = {
+                "open": cm.open_connections,
+                "total": cm.total_connections,
+                "refused": cm.rejected_connections,
+                "idle_closed": cm.idle_closed,
+                "limit": cm.max_connections,
+            }
+            doc["admission"] = server.admission.health_info(
+                server.query_queue_depth())
+        return HttpResponse(200, json.dumps(doc).encode())
+
     def _runtime_stats(self) -> dict[str, Any]:
         import gc
-        import os
         ru = resource.getrusage(resource.RUSAGE_SELF)
         return {
             "os": {"systemLoadAverage": os.getloadavg()[0]},

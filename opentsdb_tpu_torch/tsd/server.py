@@ -15,9 +15,20 @@ gzip and no buffering, chunked, and closes its connection; its frames
 are produced on the loop's default executor, and a client that goes
 away closes the stream's generator. :meth:`TSDServer.start` starts the
 continuous queries' fold workers, the warmup thread
-(:mod:`~opentsdb_tpu_torch.tsd.warmup`) and the lifecycle's sweeper; :meth:`TSDServer.stop` stops
-the warmup, ends the event streams, closes the listener, joins both
-pools and the warmup thread, and shuts the TSDB down.
+(:mod:`~opentsdb_tpu_torch.tsd.warmup`), the lifecycle's sweeper, the
+control plane (with ``tsd.control.enable``), the self-telemetry pump
+(with ``tsd.stats.self_interval``) and the sampling profiler;
+:meth:`TSDServer.stop` stops the warmup, ends the event streams, closes
+the listener, joins both pools and the warmup thread, and shuts the
+TSDB down, which joins the rest.
+
+Admission: past ``tsd.query.admission.max_inflight`` or ``max_queue``
+a query is shed with a structured 503 and ``Retry-After``; under tenant
+QoS (``tsd.control.qos.enable``, the tenant named by the
+``tsd.control.tenant.header`` header) a tenant at or past its weighted
+share of the in-flight budget is shed too, cause ``tenant``. Each query
+and put is recorded in the SLO tracker at response time, sheds and
+timeouts included, with the latency from the request's receipt.
 
 With authentication on (``TSDB.authentication``), the first exchange
 of a telnet connection must be ``auth <user> <password>``, answered
@@ -45,7 +56,7 @@ import zlib
 
 from opentsdb_tpu_torch.auth.simple import AuthStatus
 from opentsdb_tpu_torch.tsd.http_api import (HttpRequest, HttpResponse,
-                                             HttpRpcRouter)
+                                             HttpRpcRouter, api_endpoint)
 from opentsdb_tpu_torch.tsd.telnet import (TelnetCloseConnection,
                                            TelnetRouter,
                                            TelnetServerShutdown)
@@ -61,17 +72,6 @@ _REASONS = {200: "OK", 204: "No Content", 304: "Not Modified",
             413: "Request Entity Too Large",
             500: "Internal Server Error", 501: "Not Implemented",
             503: "Service Unavailable", 504: "Gateway Timeout"}
-
-
-def _api_endpoint(path: str) -> str:
-    """The path's first endpoint segment with the ``/api[/vN]`` prefix
-    stripped (agreeing with HttpRpcRouter._dispatch's parse)."""
-    parts = [p for p in path.split("/") if p]
-    if parts and parts[0] == "api":
-        parts = parts[1:]
-        if parts and re.fullmatch(r"v[0-9]+", parts[0]):
-            parts = parts[1:]
-    return parts[0] if parts else ""
 
 
 def _structured_error(status: int, message: str,
@@ -165,10 +165,25 @@ class AdmissionController:
         with self._lock:
             self.inflight -= 1
 
+    @property
+    def total_shed(self) -> int:
+        return sum(self.shed_counts.values())
+
     def collect_stats(self, collector) -> None:
         collector.record("admission.inflight", self.inflight)
         for cause, n in self.shed_counts.items():
             collector.record("admission.shed", n, cause=cause)
+
+    def health_info(self, queue_depth: int) -> dict:
+        return {
+            "inflight_queries": self.inflight,
+            "queue_depth": queue_depth,
+            "max_inflight": self.max_inflight,
+            "max_queue": self.max_queue,
+            "retry_after_s": self.retry_after_s,
+            "shed": dict(self.shed_counts),
+            "shed_total": self.total_shed,
+        }
 
 
 class TSDServer:
@@ -246,6 +261,14 @@ class TSDServer:
         lifecycle = self.tsdb.lifecycle
         if lifecycle is not None:
             lifecycle.start()
+        # the control plane's loop (tsd.control.enable), the telemetry
+        # pump (tsd.stats.self_interval > 0) and the profiler
+        # (tsd.profile.enable): TSDB.shutdown joins them
+        control = self.tsdb.control
+        if control is not None:
+            control.start()
+        self.tsdb.telemetry.start()
+        self.tsdb.profiler.start()
         LOG.info("Ready to serve on %s:%s", self.host, self.port)
 
     async def serve_forever(self) -> None:
@@ -547,7 +570,8 @@ class TSDServer:
                 params=urllib.parse.parse_qs(parsed.query,
                                              keep_blank_values=True),
                 headers=headers, body=body,
-                remote=f"{peer[0]}:{peer[1]}" if peer else "")
+                remote=f"{peer[0]}:{peer[1]}" if peer else "",
+                received_at=t0)
             response = await self._respond(request, t0)
             self._apply_cors(request, response)
             # an event stream is long-lived by design, and gzip would
@@ -581,25 +605,48 @@ class TSDServer:
                     headers={"WWW-Authenticate": 'Basic realm="opentsdb"'})
             request.auth = state
         loop = asyncio.get_running_loop()
-        endpoint = _api_endpoint(urllib.parse.unquote(request.path))
+        endpoint = api_endpoint(urllib.parse.unquote(request.path))
         is_query = endpoint in ("query", "q")
         if not is_query:
             response = await loop.run_in_executor(
                 self._http_pool, self.http_router.handle, request)
             if endpoint == "put":
-                self.tsdb.stats.latency_put.add(
-                    (time.monotonic() - t0) * 1000)
+                elapsed_ms = (time.monotonic() - t0) * 1000
+                self.tsdb.stats.latency_put.add(elapsed_ms)
+                self._record_slo("put", elapsed_ms, response)
             return response
+        # the tenant rides the admission seam: the raw attribute keeps a
+        # TSD without the control plane at one read per query
+        ctl = self.tsdb._control
+        governor = ctl.qos if ctl is not None else None
+        tenant = governor.tenant_of(request.headers) \
+            if governor is not None else None
         cause = self.admission.try_admit(self.query_queue_depth())
+        if cause is None and tenant is not None:
+            # a weighted fair share of the same in-flight budget
+            cause = governor.try_admit(tenant, self.admission.max_inflight)
+            if cause is not None:
+                self.admission.finished()
         if cause is not None:
             LOG.warning("shedding query %s (%s; %d in flight)",
                         request.path, cause, self.admission.inflight)
-            return self._overload_response(cause)
+            response = self._overload_response(cause)
+            self._record_query(t0, response, tenant, governor)
+            return response
+        if tenant is not None:
+            governor.started(tenant)
 
         def run() -> HttpResponse:
+            if tenant is not None:
+                # bound for the worker's run, so the result-cache insert
+                # gate bills the right tenant
+                governor.bind(tenant)
             try:
                 return self.http_router.handle(request)
             finally:
+                if tenant is not None:
+                    governor.unbind()
+                    governor.finished(tenant)
                 self.admission.finished()
 
         fut = loop.run_in_executor(self._query_pool, run)
@@ -615,13 +662,33 @@ class TSDServer:
                     f"({self.query_timeout_ms}ms)")
         else:
             response = await fut
-        self.tsdb.stats.latency_query.add((time.monotonic() - t0) * 1000)
+        self._record_query(t0, response, tenant, governor)
         return response
+
+    def _record_query(self, t0: float, response: HttpResponse,
+                      tenant: str | None, governor) -> None:
+        """A query's latency from its receipt into the histogram, the
+        SLO tracker and, under tenant QoS, its tenant's burn."""
+        elapsed_ms = (time.monotonic() - t0) * 1000
+        self.tsdb.stats.latency_query.add(elapsed_ms)
+        self._record_slo("query", elapsed_ms, response)
+        if tenant is not None:
+            governor.record(tenant, elapsed_ms, response.status >= 500)
+
+    def _record_slo(self, endpoint: str, elapsed_ms: float,
+                    response: HttpResponse) -> None:
+        """The SLO feed at response time (ref: the server's feed): a
+        shed or a timeout burns availability like any other 5xx."""
+        slo = self.tsdb.slo
+        if slo.enabled:
+            slo.record(endpoint, elapsed_ms, response.status >= 500)
 
     def _overload_response(self, cause: str) -> HttpResponse:
         """Structured load-shed answer (503 + Retry-After)."""
         message = {"inflight": "too many in-flight queries",
-                   "queue": "query queue is full"}[cause]
+                   "queue": "query queue is full",
+                   "tenant": "tenant is over its fair in-flight share",
+                   }[cause]
         return _structured_error(
             503, f"Service overloaded: {message}",
             f"shed cause: {cause}; retry after "

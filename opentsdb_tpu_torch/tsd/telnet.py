@@ -17,6 +17,8 @@ from typing import Callable
 
 from opentsdb_tpu_torch.auth.simple import Permissions
 from opentsdb_tpu_torch.core import tags as tags_mod
+from opentsdb_tpu_torch.obs import trace as trace_mod
+from opentsdb_tpu_torch.obs.trace import trace_begin, trace_end
 from opentsdb_tpu_torch.tsd.http_api import version_info
 
 
@@ -109,11 +111,30 @@ class TelnetRouter:
 
         With a WAL the whole burst, replayed lines included, commits as
         one WAL write and one group-committed fsync before the answers
-        go out. Without TELNET_PUT in ``auth`` every line is denied."""
+        go out. Without TELNET_PUT in ``auth`` every line is denied.
+
+        A burst of more than one line is one ``ingest.telnet`` trace root
+        (ref: ``put_lines``), whose stages the write records."""
         if auth is not None and \
                 not auth.has_permission(Permissions.TELNET_PUT):
             return ["put: permission denied (TELNET_PUT not granted)"] \
                 * len(lines)
+        tracer = self.tsdb.tracer
+        tctx = tracer.start_request("ingest.telnet") \
+            if len(lines) > 1 else None
+        if tctx is None:
+            return self._put_lines_run(lines)
+        tctx.tag(lines=len(lines))
+        try:
+            with trace_mod.use(tctx):
+                return self._put_lines_run(lines)
+        except Exception as exc:
+            tctx.set_error(exc)
+            raise
+        finally:
+            tracer.finish(tctx)
+
+    def _put_lines_run(self, lines: list[str]) -> list[str]:
         with self.tsdb._wal_scope():
             if len(lines) > 1 and self.tsdb.store.backend == "native":
                 return self._put_lines_native(lines)
@@ -121,7 +142,9 @@ class TelnetRouter:
 
     def _put_lines_scalar(self, lines: list[str]) -> list[str]:
         """Each line through the scalar parse, the good points grouped
-        by series into one ``add_point_groups``."""
+        by series into one ``add_point_groups``, under the stages the
+        native path records (``ingest.decode``, ``store.scatter``)."""
+        h_dec = trace_begin("ingest.decode")
         errors: dict[int, str] = {}     # line index -> error line
         groups: dict[tuple, tuple] = {}
         for i, line in enumerate(lines):
@@ -145,7 +168,12 @@ class TelnetRouter:
         def on_error(i: int, e: Exception) -> None:
             errors[i] = f"put: {type(e).__name__}: {e}"
 
+        if h_dec is not None:
+            h_dec.tag(lines=len(lines), groups=len(groups))
+        trace_end(h_dec)
+        h_sc = trace_begin("store.scatter")
         self.tsdb.add_point_groups(groups.values(), on_error=on_error)
+        trace_end(h_sc)
         return [errors[i] for i in sorted(errors)]
 
     def _put_lines_native(self, lines: list[str]) -> list[str]:

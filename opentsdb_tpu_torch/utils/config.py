@@ -4,11 +4,24 @@ A flat string->string property map with typed getters and defaults,
 holding only the keys the PyTorch port reads. Keys keep the
 reference's ``tsd.`` namespace; port-specific keys live under
 ``tsd.torch.*``.
+
+Every key the port reads is declared: in ``_DEFAULTS``, in
+``_DECLARED_EXTRA`` (a default at the call site), under a dynamic
+prefix, or under the prefix of a plugin slot the config enables.
+:meth:`Config.warn_unknown_keys`, called when a TSDB is built, logs one
+warning per configured ``tsd.*`` key nothing reads, as the reference's
+does (``opentsdb_tpu/utils/config.py``), so a typo'd or unported knob
+is not silently ignored.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any
+
+from opentsdb_tpu_torch.utils.plugin import PLUGIN_SLOTS
+
+log = logging.getLogger("config")
 
 _DEFAULTS: dict[str, str] = {
     "tsd.core.auto_create_metrics": "false",
@@ -165,7 +178,159 @@ _DEFAULTS: dict[str, str] = {
     "tsd.streaming.resume_events": "64",
     "tsd.streaming.workers.count": "2",
     "tsd.streaming.workers.max_pending_points": "262144",
+    # self-telemetry (obs/telemetry.py): every interval the TSD ingests
+    # its own counters, gauges and stage percentiles as tsd.* series
+    # through the normal write path (0 = off); self_tag is the host=
+    # tag of every record ("" = hostname-port)
+    "tsd.stats.self_interval": "0",
+    "tsd.stats.self_tag": "",
+    # request tracing (obs/trace.py): keep 1 in `sample` request roots
+    # (slow and failed ones always); ring/slow_ring bound the retained
+    # roots, max_spans one trace; the query-shape log is
+    # <data_dir>/query_shapes.jsonl, rotated past max_kb
+    "tsd.trace.enable": "true",
+    "tsd.trace.sample": "64",
+    "tsd.trace.ring": "256",
+    "tsd.trace.slow_ring": "64",
+    "tsd.trace.max_spans": "512",
+    "tsd.trace.shapes.enable": "true",
+    "tsd.trace.shapes.max_kb": "1024",
+    # a query root slower than this (ms) is kept whatever the sampling
+    # and logged with its trace id into /logs (0 = off)
+    "tsd.query.slowlog.threshold_ms": "0",
+    # the sampling profiler behind GET /api/profile (obs/profiler.py)
+    "tsd.profile.enable": "true",
+    "tsd.profile.hz": "4",
+    "tsd.profile.ring_s": "60",
+    "tsd.profile.max_depth": "48",
+    # SLO burn rates (obs/slo.py), per endpoint and window
+    "tsd.slo.enable": "true",
+    "tsd.slo.windows": "300,3600",
+    "tsd.slo.query.latency_ms": "1000",
+    "tsd.slo.query.latency_objective": "0.99",
+    "tsd.slo.query.availability_objective": "0.999",
+    "tsd.slo.put.latency_ms": "500",
+    "tsd.slo.put.latency_objective": "0.99",
+    "tsd.slo.put.availability_objective": "0.999",
 }
+
+# keys read with a default at the call site only (ref: the reference's
+# _DECLARED_EXTRA; these do not show in /api/config unless set)
+_DECLARED_EXTRA: frozenset[str] = frozenset({
+    # the cold tier (coldstore/)
+    "tsd.coldstore.breaker.failure_threshold",
+    "tsd.coldstore.breaker.reset_timeout_ms",
+    "tsd.coldstore.compact_segments",
+    "tsd.coldstore.dir",
+    "tsd.coldstore.enable",
+    # the control plane (control/)
+    "tsd.control.enable",
+    "tsd.control.interval_s",
+    "tsd.control.breaker.failure_threshold",
+    "tsd.control.breaker.reset_timeout_ms",
+    "tsd.control.materialize.enable",
+    "tsd.control.materialize.max",
+    "tsd.control.materialize.min_score",
+    "tsd.control.materialize.hysteresis",
+    "tsd.control.materialize.mem_penalty_mb",
+    "tsd.control.tenant.tag",
+    "tsd.control.tenant.header",
+    "tsd.control.qos.enable",
+    "tsd.control.qos.weights",
+    "tsd.control.qos.max_tenants",
+    "tsd.control.qos.burn_penalty",
+    "tsd.control.qos.tenant_cache_mb",
+    "tsd.control.qos.tenant_fold_mb",
+    "tsd.control.placement.enable",
+    "tsd.control.placement.auto",
+    "tsd.control.placement.hot_ratio",
+    # authentication, meta and trees, the server
+    "tsd.core.authentication.enable",
+    "tsd.core.authentication.roles",
+    "tsd.core.authentication.users",
+    "tsd.core.histograms.config",
+    "tsd.core.connections.limit",
+    "tsd.core.socket.timeout",
+    "tsd.core.meta.enable_realtime_ts",
+    "tsd.core.meta.enable_realtime_uid",
+    "tsd.core.meta.enable_tsuid_tracking",
+    "tsd.core.tree.enable_processing",
+    "tsd.core.uid.random_metrics",
+    "tsd.http.query.allow_delete",
+    "tsd.http.query.stream_threshold_dps",
+    "tsd.http.serializer.plugin",
+    "tsd.uidfilter.metric_patterns",
+    "tsd.uidfilter.tagk_patterns",
+    "tsd.uidfilter.tagv_patterns",
+    # the data lifecycle (lifecycle/)
+    "tsd.lifecycle.breaker.failure_threshold",
+    "tsd.lifecycle.breaker.reset_timeout_ms",
+    "tsd.lifecycle.demote_after",
+    "tsd.lifecycle.demote_tiers",
+    "tsd.lifecycle.enable",
+    "tsd.lifecycle.flush_after_sweep",
+    "tsd.lifecycle.interval_s",
+    "tsd.lifecycle.retention",
+    "tsd.lifecycle.spill_after",
+    # the query mesh and its rendezvous (parallel/)
+    "tsd.mesh.coordinator",
+    "tsd.mesh.init_timeout",
+    "tsd.mesh.num_processes",
+    "tsd.mesh.process_id",
+    "tsd.query.mesh",
+    # the query engine
+    "tsd.query.limits.overrides.config",
+    "tsd.query.limits.overrides.interval",
+    "tsd.query.workers",
+    "tsd.rollups.job.device",
+    # the sketch tier (sketch/)
+    "tsd.sketch.enable",
+    "tsd.sketch.alpha",
+    "tsd.sketch.max_buckets",
+    # the WAL and the snapshot flush
+    "tsd.storage.flush.retry.max_ms",
+    "tsd.storage.wal.retry.max_ms",
+    "tsd.storage.wal.enable",
+    "tsd.storage.wal.fsync",
+    "tsd.storage.wal.fsync_interval_ms",
+    "tsd.storage.wal.segment_mb",
+    # continuous queries (streaming/)
+    "tsd.streaming.breaker.failure_threshold",
+    "tsd.streaming.breaker.reset_timeout_ms",
+    "tsd.streaming.buffer_points",
+    "tsd.streaming.enable",
+    "tsd.streaming.heartbeat_s",
+    "tsd.streaming.max_queries",
+    "tsd.streaming.max_windows",
+    "tsd.streaming.publish_min_interval_ms",
+    "tsd.streaming.queue_events",
+    "tsd.streaming.serve",
+    "tsd.streaming.sse.max_lifetime_s",
+    # the warmup (tsd/warmup.py)
+    "tsd.tpu.warmup",
+    "tsd.tpu.warmup.buckets",
+    "tsd.tpu.warmup.budget_s",
+    "tsd.tpu.warmup.percentiles",
+    # refused by name when set (query/engine.py::refuse_unported_keys)
+    "tsd.cluster.role",
+})
+
+# key families with tails from the config itself: fault arming
+# (tsd.faults.<site>_<knob>, whose site utils/faults.py checks) and the
+# per-metric lifecycle policies
+DYNAMIC_KEY_PREFIXES: tuple[str, ...] = ("tsd.faults.",
+                                         "tsd.lifecycle.policy.")
+
+
+def is_declared_key(key: str) -> bool:
+    """Whether the port reads ``key``: a default, a call-site default,
+    a dynamic family or a plugin slot's enable and plugin keys."""
+    if key in _DEFAULTS or key in _DECLARED_EXTRA:
+        return True
+    if any(key.startswith(p) for p in DYNAMIC_KEY_PREFIXES):
+        return True
+    return any(key in (f"{slot}.enable", f"{slot}.plugin")
+               for slot in PLUGIN_SLOTS)
 
 
 class Config:
@@ -208,6 +373,30 @@ class Config:
     def __iter__(self):
         """(key, value) pairs of every property."""
         return iter(list(self._props.items()))
+
+    def unknown_keys(self) -> list[str]:
+        """Configured ``tsd.*`` keys nothing in the port reads (ref:
+        ``Config.unknown_keys``). Keys under an enabled plugin slot's
+        prefix are exempt: the plugin owns that namespace."""
+        owned = [f"{slot}." for slot in PLUGIN_SLOTS
+                 if self.get_bool(f"{slot}.enable", False)]
+        return sorted(
+            k for k in self._props
+            if k.startswith("tsd.") and not is_declared_key(k)
+            and not any(k.startswith(p) for p in owned))
+
+    def warn_unknown_keys(self, logger: logging.Logger | None = None
+                          ) -> list[str]:
+        """Log one warning per unknown ``tsd.*`` key instead of ignoring
+        it silently (ref: ``Config.warn_unknown_keys``); returns them."""
+        logger = logger or log
+        unknown = self.unknown_keys()
+        for key in unknown:
+            logger.warning(
+                "unknown config key %r is not read by anything and "
+                "will be IGNORED — check for a typo (see "
+                "utils/config.py declared-key registry)", key)
+        return unknown
 
     def override_config(self, key: str, value: Any) -> None:
         """Set one key at run time (ref: Config.java:317). The query

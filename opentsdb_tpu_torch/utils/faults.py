@@ -15,9 +15,11 @@ them.
   ``tree.store``), which the write path's hook guard counts without
   failing the write, and the data lifecycle's (``lifecycle.sweep``,
   ``lifecycle.demote``, ``lifecycle.histogram``, ``sketch.fold``,
-  ``coldstore.read``, ``coldstore.write``). A key that names a site of
-  the reference's cluster or control plane, which the port lacks,
-  raises NotImplementedError; a key that names no site at all warns.
+  ``coldstore.read``, ``coldstore.write``), and the control plane's
+  actuators (``control.materialize``, ``control.qos``,
+  ``control.placement``). A key that names a site of the reference's
+  cluster, which the port lacks, raises NotImplementedError; a key that
+  names no site at all warns.
   An error rate is a counted schedule (call ``i`` fails iff
   ``floor(i * r)`` advances), never a coin flip, so a failure
   reproduces.
@@ -35,8 +37,8 @@ them.
   of the cold segments answer 503 while open, where the reference
   serves the rest of the history.
 
-The reference's ``cluster.*`` and ``control.*`` sites belong to
-subsystems the port has not ported yet (ROADMAP Queue 1).
+The reference's ``cluster.*`` sites belong to ``cluster/``, which the
+port has not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -66,13 +68,15 @@ KNOWN_SITES: frozenset[str] = frozenset({
     "lifecycle.demote",   # lifecycle/manager.py demotion fold
     "lifecycle.histogram",  # lifecycle/manager.py histogram retention
     "sketch.fold",        # ops/sketch_fold.py demote-time sketch fold
+    "control.materialize",  # control/plane.py materialize actuator
+    "control.qos",        # control/plane.py tenant QoS actuator
+    "control.placement",  # control/plane.py placement actuator
 })
 
 # the reference's sites of subsystems the port has not ported yet: a
 # key that arms one is refused, since nothing here would check it
 UNPORTED_SITE_PREFIXES: dict[str, str] = {
     "cluster.": "cluster/",
-    "control.": "control/",
 }
 
 

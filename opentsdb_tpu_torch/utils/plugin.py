@@ -54,10 +54,8 @@ def load_plugin_instances(config, prefix: str, single: bool = False,
     runtime ABIs, the config for a startup plugin, which runs before
     the TSDB exists (ref: TSDMain.java:251); by default the config.
 
-    The reference also registers ``<prefix>.`` as a key prefix its
-    startup check must not warn of; the port warns of no unknown key
-    (ROADMAP Queue 1, the rest, with no device compute), so there is
-    nothing to register."""
+    The keys under an enabled slot's prefix belong to its plugin:
+    :meth:`Config.unknown_keys` does not warn of them."""
     if not config.get_bool(f"{prefix}.enable", False):
         return None if single else []
     spec = config.get_string(f"{prefix}.plugin", "")

@@ -3,9 +3,9 @@
 package: the cases of ``tests/test_faults.py`` (``TestStoreFaults``'
 read latency) and ``tests/test_result_cache.py`` (the degraded tier),
 run on both packages, on both stores. Also the configuration keys: a
-key for a site the port has not ported (``cluster.*``, ``control.*``)
-raises, one that names no site at all warns and arms nothing that is
-checked.
+key for a site the port has not ported (``cluster.*``) raises, one of
+the control plane's sites arms it, and one that names no site at all
+warns and arms nothing that is checked.
 """
 
 from __future__ import annotations
@@ -59,9 +59,13 @@ def dps(results):
 
 
 def test_reference_sites_are_ported_but_cluster_and_control():
+    """Every site of the reference but ``cluster.*`` (the control
+    plane's ``control.*`` came with ``control/``)."""
     from opentsdb_tpu.utils.faults import KNOWN_SITES as JSITES
     assert KNOWN_SITES == {s for s in JSITES
-                           if not s.startswith(("cluster.", "control."))}
+                           if not s.startswith("cluster.")}
+    assert {"control.materialize", "control.qos",
+            "control.placement"} <= KNOWN_SITES
 
 
 @pytest.mark.parametrize("backend", STORES)
@@ -155,10 +159,18 @@ def test_degraded_tier_fails_loudly_and_cache_unpoisoned(backend):
     "tsd.faults.control.qos_error_count",
     "tsd.faults.control.placement.error_once"])
 def test_unported_site_keys_raise(key):
-    """A key for a site of the cluster or the control plane names a
-    check the port does not have: it raises, naming the Queue 1 item,
-    rather than look armed. The reference takes the key."""
+    """A key for a site of the cluster names a check the port does not
+    have: it raises, naming the Queue 1 item, rather than look armed.
+    A key of the control plane's sites arms them, as in the reference,
+    which takes every key."""
     JTSDB(JConfig(**{"tsd.tpu.platform": "cpu", key: "1"}))
+    if key.startswith("tsd.faults.control."):
+        t = TSDB(Config(**{"tsd.torch.device": "cpu", key: "1"}))
+        site = next(s for s in KNOWN_SITES if key.startswith(
+            f"tsd.faults.{s}") and s.startswith("control."))
+        assert site in t.faults.health_info()["sites"]
+        t.shutdown()
+        return
     with pytest.raises(NotImplementedError,
                        match="not ported yet \\(ROADMAP Queue 1, the "
                        "rest, with no device compute\\)"):
