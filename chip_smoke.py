@@ -360,13 +360,40 @@
    with ``Retry-After``, none for the victim, its p50 and p99; (e) the
    pump's ``tsd.datapoints.added`` answering ``/api/query``, and where
    its tail runs. Prints ``phase 19: N s`` and an ``obs`` line;
-20. prints the run's wall time, the ``histogram``, ``rollup``,
-   ``streaming``, ``surfaces``, ``mesh``, ``ops``, ``lifecycle`` and
-   ``obs`` lines, one JSON line describing each kernel (its launches
-   are those of phases 3, 5, 8, 6, 15, 17, 19, 9, 10, 13, 14 and 18;
-   phases 11, 12 and 16 launch neither on their paths), the card line
-   and, last, ``{"ok": true, "device": {...}}``. Each phase's header
-   says how far into the run it starts.
+20. the cluster at one replica (run last, on TSDBs of its own): three
+   shard TSDs (``tsd.cluster.role=shard``, phase 3's keys, each a
+   ``TSDServer`` on 127.0.0.1) behind a router TSD
+   (``tsd.cluster.role=router``, the binary wire on, a spool dir under
+   ``$TMPDIR``). (a) Config 3's series of ``dc0``-``dc59`` (600k, CUT
+   from 1M: every ``{dc=*}`` and ``{rack=*}`` group of the cut is a
+   whole group of phase 3's answer, and each shard keeps 1200 racks, so
+   ``{rack=*}`` runs K2 there) from phase 3's values, placed by the
+   router's ring, each shard loading its own by ``add_series_points``;
+   the series on each shard against ``ring.distribution``. (b) Both
+   queries through the router over the wire and, from a second router
+   with ``tsd.cluster.wire.enable=false``, over JSON HTTP: the p50 of 2
+   calls after a warm-up, one K1 launch per shard per ``{dc=*}`` call
+   and one K2 launch per ``{rack=*}`` call, every merged group held to
+   phase 3's answer by phase 2's rule; ``avg`` (sum and count twins on
+   each shard) equal to the sum over the group's series count, ``max``
+   equal to the shards' own maxes exactly. (c) 100k points by
+   ``/api/put`` and 10k telnet lines to the router's socket (points/s),
+   read back through the router exactly. (d) ``s1``'s listener closed:
+   ``{dc=*}`` answers 200 with ``shardsDegraded: ["s1"]`` and the
+   result cache does not keep it; 10k points acknowledged into ``s1``'s
+   spool; ``s1`` back: the drain timed and every point read back. (e)
+   ``/api/cluster``, ``/api/cluster/status``, ``/api/stats/fleet``,
+   ``/api/health``, and ``/api/trace/<id>`` of a traced query with a
+   leg from each shard; with ``--profile``, the device's idle share of
+   a ``{dc=*}`` call through the router. Prints the card beside every
+   time, and ``phase 20: N s``;
+21. prints the run's wall time, the ``histogram``, ``rollup``,
+   ``streaming``, ``surfaces``, ``mesh``, ``ops``, ``lifecycle``,
+   ``obs`` and ``cluster`` lines, one JSON line describing each kernel
+   (its launches are those of phases 3, 5, 8, 6, 15, 17, 19, 9, 10, 13,
+   14, 18 and 20; phases 11, 12 and 16 launch neither on their paths),
+   the card line and, last, ``{"ok": true, "device": {...}}``. Each
+   phase's header says how far into the run it starts.
 
 Phases 3-8, 11, 13, 14, 15, 16 and 18 run on the default store, the
 native one. Phases 3-5, 7, 9, 11, 12, 13, 14, 15, 16 and 18 run with the
@@ -1434,7 +1461,7 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
 
         # (e) an unported endpoint and a bad aggregator
         conn = connect()
-        status, body, _ = _http(conn, "GET", "/api/cluster")
+        status, body, _ = _http(conn, "GET", "/q")
         check(status == 501 and b"not ported yet" in body,
               f"an unported endpoint answered {status}")
         status, body, _ = _http(conn, "GET", get_path(
@@ -1442,8 +1469,7 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
         check(status == 400 and b"No such aggregator" in body,
               f"a bad aggregator answered {status}")
         conn.close()
-        print("  (e) /api/cluster: 501 (not ported yet); a bad "
-              "aggregator: 400")
+        print("  (e) /q: 501 (not ported yet); a bad aggregator: 400")
 
         # (c) writes: /api/put over kept-alive connections, then telnet
         put_metric, tel_metric = "sys.fe.put", "sys.fe.tel"
@@ -6485,6 +6511,396 @@ def phase_control(torch, n_series: int) -> tuple[dict, dict]:
     return total, out
 
 
+# phase 20: the cluster at one replica on the card
+CLUSTER_SHARDS = 3
+# the series with dc0-dc51 (520k of 1M): every {dc=*} and {rack=*}
+# group of the cut is a whole group of phase 3's answer (rack = i %
+# 2000, dc = i % 100), and each shard keeps 1040 rack groups, past the
+# span layout's 1024, so {rack=*} runs the one-hot kernel there. A
+# quarter (dc0-dc24) would leave 500 racks and put {rack=*} on the span
+# kernel on every shard. CUT from 600k (dc0-dc59), at which phase 20
+# took 73.1 s on one H100 80GB HBM3 at 700 W (ROADMAP's chip_smoke.py
+# notes)
+CLUSTER_DCS = 52
+CLUSTER_REPEATS = 2        # (b): timed calls per p50, after a warm-up
+CLUSTER_AVG = "avg:5m-avg:rate:sys.cpu.user{dc=*}"
+CLUSTER_MAX = "max:5m-avg:rate:sys.cpu.user{dc=*}"
+CLUSTER_PUT_STEPS = 100    # (c): 1000 series x 100 = 100k /api/put points
+CLUSTER_TEL_LINES = 10_000  # (c): one telnet burst
+CLUSTER_OUTAGE_POINTS = 10_000  # (d): points put while s1 is down
+
+
+def _listener(st, up: bool, port: int = 0) -> None:
+    """Close (``up=False``) or reopen a ServerThread's listener on its
+    own loop: a closed listener is a shard that went away, its data
+    kept (the reference's LivePeer.kill and restart)."""
+    import asyncio
+    srv = st.server
+
+    async def close():
+        s = srv._server
+        if s is not None:
+            s.close()
+            await s.wait_closed()
+            srv._server = None
+
+    async def reopen():
+        srv._server = await asyncio.start_server(
+            srv._handle_connection, "127.0.0.1", port, reuse_address=True)
+
+    asyncio.run_coroutine_threadsafe(
+        close() if not up else reopen(), srv._loop).result(60)
+
+
+def _cluster_rows(handler, request_cls, m: str, start: str, end: str):
+    """(status, rows, degraded shards, trace id) of one router query."""
+    resp = handler.handle(request_cls(
+        method="GET", path="/api/query",
+        params={"start": [start], "end": [end], "m": [m]}))
+    doc = json.loads(resp.body)
+    degraded = []
+    if doc and isinstance(doc[-1], dict) and "shardsDegraded" in doc[-1]:
+        degraded = doc[-1]["shardsDegraded"]
+        doc = doc[:-1]
+    return resp.status, doc, degraded, resp.headers.get("X-TSD-Trace-Id")
+
+
+def _held_groups(torch, rows, key: str, want, terms, what: str) -> float:
+    """Hold each merged group (``<key>=<prefix><n>``) to row n of
+    phase 3's float64 answer by phase 2's rule; max |got - want|."""
+    import numpy as np
+    prefix = "dc" if key == "dc" else "r"
+    idx = [int(r["tags"][key][len(prefix):]) for r in rows]
+    got = torch.tensor([list(r["dps"].values()) for r in rows],
+                       dtype=torch.float64)
+    check(got.shape == (len(rows), want.shape[1]),
+          f"{what}: unexpected shape {tuple(got.shape)}")
+    sel = torch.tensor(idx)
+    return compare(got, want[sel], terms[sel])
+
+
+def phase_cluster(torch, n_series: int, ref3: dict, card: str,
+                  profile: bool) -> tuple[dict, dict]:
+    """Phase 20: a cluster router in front of three shard TSDs on one
+    card. Returns the kernel launches of (b) and the ``cluster`` line."""
+    import http.client
+    import socket
+    import tempfile
+
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.cluster.hashring import series_shard_key
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest, HttpRpcRouter
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card}
+    marks = [t_phase]
+    stage_s: dict = {}
+
+    def mark(name: str) -> None:
+        marks.append(time.perf_counter())
+        stage_s[name] = marks[-1] - marks[-2]
+
+    shard_keys = {"tsd.torch.device": "cuda",
+                  "tsd.core.auto_create_metrics": "true",
+                  "tsd.cluster.role": "shard", **ENGINE_KEYS}
+    shards = [TSDB(Config(**shard_keys)) for _ in range(CLUSTER_SHARDS)]
+    sts = [serve_pinned(ServerThread, t) for t in shards]
+    spec = ",".join(f"s{i}=127.0.0.1:{st.port}" for i, st in enumerate(sts))
+    spool = Path(tempfile.mkdtemp(prefix="chip_smoke_spool_"))
+    router_keys = {"tsd.torch.device": "cuda",
+                   "tsd.cluster.role": "router", "tsd.cluster.peers": spec,
+                   "tsd.cluster.spool.dir": str(spool),
+                   "tsd.cluster.spool.replay_interval_ms": "100",
+                   "tsd.cluster.breaker.reset_timeout_ms": "300",
+                   "tsd.trace.sample": "1"}
+    router = TSDB(Config(**router_keys))
+    rst = serve_pinned(ServerThread, router)
+    # the second router, over JSON HTTP, caches nothing: every call of
+    # (b) reaches the shards
+    plain = TSDB(Config(**{**router_keys,
+                           "tsd.cluster.spool.dir": str(spool / "http"),
+                           "tsd.cluster.wire.enable": "false",
+                           "tsd.query.cache.enable": "false"}))
+    wire_h, http_h = rst.server.http_router, HttpRpcRouter(plain)
+    start, end = str(T0), str(T0 + POINTS * 60 - 1)
+    mark("start")
+    try:
+        # (a) the data: config 3's series of dc0-dc51, placed by the
+        # router's ring, each shard loading its own
+        tags, ts2d, values = make_data(n_series)
+        keep = np.asarray([i for i in range(n_series)
+                           if i % 100 < CLUSTER_DCS], dtype=np.int64)
+        ring = router.cluster.ring
+        t = time.perf_counter()
+        keys = [series_shard_key(METRIC, tags[i]) for i in keep.tolist()]
+        owners = ring.shards_for_keys(keys)
+        place_s = time.perf_counter() - t
+        by_shard = {f"s{i}": [] for i in range(CLUSTER_SHARDS)}
+        for i, own in zip(keep.tolist(), owners):
+            by_shard[own[0]].append(i)
+        t = time.perf_counter()
+        for i, t_shard in enumerate(shards):
+            rows = np.asarray(by_shard[f"s{i}"], dtype=np.int64)
+            t_shard.add_series_points(METRIC, [tags[j] for j in rows],
+                                      ts2d[rows], values[rows])
+        load_s = time.perf_counter() - t
+        dist = ring.distribution(keys)
+        counts = {f"s{i}": int(t_shard.store.num_series())
+                  for i, t_shard in enumerate(shards)}
+        print(f"  (a) {len(keep)} series (dc0-dc{CLUSTER_DCS - 1}) x "
+              f"{POINTS} points: ring placement {place_s:.3f} s, shard "
+              f"loads {load_s:.3f} s; series per shard {counts} against "
+              f"ring.distribution {dist} (on {card})")
+        check(counts == dist, "a shard holds other series than the ring "
+              "places on it")
+        del tags, ts2d, values
+        out.update(series=int(len(keep)), per_shard=counts)
+        mark("a")
+
+        # (b) reads through the router: the wire and JSON HTTP
+        router.config.override_config("tsd.query.cache.enable", "false")
+        reset_launches(fused)
+        calls = {kname: 0 for _m, kname in QUERIES}
+        reads: dict = {}
+        wire_rows: dict = {}
+        for m, kname in QUERIES:
+            key = "dc" if "{dc=*}" in m else "rack"
+            want, terms = ref3[m]
+            for label, h in (("wire", wire_h), ("http", http_h)):
+                secs = []
+                for i in range(CLUSTER_REPEATS + 1):
+                    tq = time.perf_counter()
+                    status, rows, deg, _ = _cluster_rows(
+                        h, HttpRequest, m, start, end)
+                    secs.append(time.perf_counter() - tq)
+                    calls[kname] += 1
+                    check(status == 200 and not deg,
+                          f"{m} over {label}: {status}, degraded {deg}")
+                if label == "wire":
+                    wire_rows[m] = rows
+                err = _held_groups(torch, rows, key, want, terms,
+                                   f"{m} over {label}")
+                g = len(rows)
+                check(g == (CLUSTER_DCS if key == "dc"
+                            else 20 * CLUSTER_DCS),
+                      f"{m}: {g} merged groups")
+                reads[f"{key}_{label}_ms"] = p50(secs[1:]) * 1e3
+                reads[f"{key}_max_abs_err"] = err
+                print(f"  (b) {m} over {label}: p50 "
+                      f"{p50(secs[1:]) * 1e3:.1f} ms of {CLUSTER_REPEATS} "
+                      f"after a warm-up, {g} groups held to phase 3's "
+                      f"answer, max |d| {err!r} (on {card})")
+        got = read_launches(fused)
+        print(f"  (b) launches {got} over {calls} router calls "
+              f"x {CLUSTER_SHARDS} shards")
+        for kname, n in calls.items():
+            check(got[kname] == n * CLUSTER_SHARDS,
+                  f"{kname}: {got[kname]} launches, want one per shard "
+                  f"per call ({n * CLUSTER_SHARDS})")
+        launches = dict(got)
+        # an avg fans out as sum and count twins on each shard, both on
+        # the span kernel; max merges exactly
+        reset_launches(fused)
+        secs = []
+        for i in range(2):   # a warm-up and one timed call
+            tq = time.perf_counter()
+            status, avg_rows, deg, _ = _cluster_rows(
+                wire_h, HttpRequest, CLUSTER_AVG, start, end)
+            secs.append(time.perf_counter() - tq)
+            check(status == 200 and not deg, f"avg: {status} {deg}")
+        twins = read_launches(fused)
+        check(twins["span_reduce"] == 2 * CLUSTER_SHARDS * 2,
+              f"avg's twins launched {twins}")
+        launches["span_reduce"] += twins["span_reduce"]
+        launches["onehot_reduce"] += twins["onehot_reduce"]
+        sum_rows = {r["tags"]["dc"]: r for r in wire_rows[QUERIES[0][0]]}
+        # avg = sum / count over the same 10k series a group: the
+        # group's sum divided by 10k, each bucket
+        worst = 0.0
+        for r in avg_rows:
+            s_row = sum_rows[r["tags"]["dc"]]["dps"]
+            for ts, v in r["dps"].items():
+                want_v = s_row[ts] / (n_series // 100)
+                worst = max(worst, abs(v - want_v) / max(abs(want_v), 1e-9))
+        check(worst <= 1e-5, f"avg against sum / count: {worst!r}")
+        _s, max_rows, _d, _t = _cluster_rows(wire_h, HttpRequest,
+                                             CLUSTER_MAX, start, end)
+        per_shard = []
+        for t_shard in shards:
+            tq = TSQuery(start=start, end=end,
+                         queries=[parse_uri_subquery(CLUSTER_MAX)]
+                         ).validate()
+            per_shard.append({r.tags["dc"]: r.dps_arrays[1]
+                              for r in t_shard.execute_query(tq)})
+        for r in max_rows:
+            want_max = np.max(np.stack([p[r["tags"]["dc"]]
+                                        for p in per_shard]), axis=0)
+            check(np.array_equal(np.asarray(list(r["dps"].values())),
+                                 want_max),
+                  f"max over the shards is not exact for {r['tags']}")
+        reads["avg_wire_ms"] = secs[1] * 1e3
+        print(f"  (b) {CLUSTER_AVG} over wire: {secs[1] * 1e3:.1f} ms "
+              f"after a warm-up, {len(avg_rows)} groups = "
+              f"sum / count within {worst:.2e}; {CLUSTER_MAX}: the "
+              f"shards' maxes exactly (on {card})")
+        out["reads"] = reads
+        mark("b")
+
+        # (c) writes through the router: /api/put and a telnet burst
+        put_s = put_points(rst.port, "sys.cluster.put", CLUSTER_PUT_STEPS)
+        n_put = PUT_SERIES * CLUSTER_PUT_STEPS
+        lines = "".join(
+            f"put sys.cluster.tel {T0 + j} {j % 997} host=t{j % 100}\n"
+            for j in range(CLUSTER_TEL_LINES)).encode()
+        t = time.perf_counter()
+        with socket.create_connection(("127.0.0.1", rst.port), 600) as sk:
+            sk.sendall(lines + b"version\nexit\n")
+            buf = b""
+            while chunk := sk.recv(65536):
+                buf += chunk
+        tel_s = time.perf_counter() - t
+        check(buf.decode().startswith("opentsdb_tpu_torch version")
+              and buf.count(b"\n") == 1,
+              f"telnet answered more than the version: {buf[:300]!r}")
+        conn = http.client.HTTPConnection("127.0.0.1", rst.port,
+                                          timeout=600)
+        try:
+            status, body, _ = _http(
+                conn, "GET", f"/api/query?start={T0}&end={T0 + 7200}"
+                "&m=none:sys.cluster.put&arrays=true")
+            got_pts = sum(len(r["dps"]) for r in json.loads(body))
+            check(status == 200 and got_pts == n_put,
+                  f"/api/put read back {got_pts} of {n_put}")
+            for r in json.loads(body)[:50]:
+                i = int(r["tags"]["host"][1:])
+                for ts, v in r["dps"]:
+                    j = (ts - T0) // 60
+                    check(v == (i * 7 + j) % 100_000,
+                          f"put point {i},{j} reads back {v}")
+            status, body, _ = _http(
+                conn, "GET", f"/api/query?start={T0}&end={T0 + 20000}"
+                "&m=zimsum:sys.cluster.tel&arrays=true")
+            tel_rows = json.loads(body)
+            check(status == 200 and sum(len(r["dps"]) for r in tel_rows)
+                  == CLUSTER_TEL_LINES, "telnet burst read back short")
+            check(sum(v for r in tel_rows for _t, v in r["dps"]) ==
+                  sum(j % 997 for j in range(CLUSTER_TEL_LINES)),
+                  "telnet burst read back other values")
+        finally:
+            conn.close()
+        out["writes"] = {"put_points_per_s": n_put / put_s,
+                         "telnet_lines_per_s": CLUSTER_TEL_LINES / tel_s}
+        print(f"  (c) {n_put} points by /api/put through the router: "
+              f"{put_s:.3f} s ({n_put / put_s:,.0f} points/s); "
+              f"{CLUSTER_TEL_LINES} telnet lines {tel_s:.3f} s "
+              f"({CLUSTER_TEL_LINES / tel_s:,.0f} lines/s); both read "
+              f"back exactly (on {card})")
+        mark("c")
+
+        # (d) an outage: s1's listener closed
+        router.config.override_config("tsd.query.cache.enable", "true")
+        rc = router.cluster
+        stores0, skips0 = rc.cache_stores, rc.cache_degraded_skips
+        s1_port = sts[1].port
+        _listener(sts[1], up=False)
+        status, rows, deg, _ = _cluster_rows(wire_h, HttpRequest,
+                                             QUERIES[0][0], start, end)
+        check(status == 200 and deg == ["s1"],
+              f"outage: {status}, degraded {deg}")
+        check(rc.cache_stores == stores0
+              and rc.cache_degraded_skips == skips0 + 1,
+              "the result cache kept a degraded answer")
+        check(len(rows) == CLUSTER_DCS, "outage answer lost groups")
+        pts = [{"metric": "sys.cluster.outage", "timestamp": T0 + j,
+                "value": j, "tags": {"host": f"o{j % 1000}"}}
+               for j in range(CLUSTER_OUTAGE_POINTS)]
+        conn = http.client.HTTPConnection("127.0.0.1", rst.port,
+                                          timeout=600)
+        try:
+            status, body, _ = _http(conn, "POST",
+                                    "/api/put?summary=true",
+                                    json.dumps(pts).encode())
+            check(status == 200 and json.loads(body)["failed"] == 0,
+                  f"outage put: {status} {body[:200]!r}")
+            spooled = rc.peers["s1"].spool.pending_records
+            check(spooled > 0, "nothing was spooled for s1")
+            _listener(sts[1], up=True, port=s1_port)
+            t = time.perf_counter()
+            deadline = t + 120
+            while rc.peers["s1"].spool.pending_records and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.02)
+            drain_s = time.perf_counter() - t
+            check(rc.peers["s1"].spool.pending_records == 0,
+                  "s1's spool did not drain")
+            status, body, _ = _http(
+                conn, "GET", f"/api/query?start={T0}&end={T0 + 20000}"
+                "&m=zimsum:sys.cluster.outage&arrays=true")
+            got = sorted(v for r in json.loads(body) for _t, v in r["dps"])
+            check(got == list(range(CLUSTER_OUTAGE_POINTS)),
+                  f"outage points read back: {len(got)}")
+        finally:
+            conn.close()
+        out["outage"] = {"spooled_records": spooled, "drain_s": drain_s}
+        print(f"  (d) s1 down: {{dc=*}} 200 with shardsDegraded ['s1'], "
+              f"not cached; {CLUSTER_OUTAGE_POINTS} points acknowledged "
+              f"into {spooled} spool record(s); s1 back: drained in "
+              f"{drain_s:.3f} s, every point read back (on {card})")
+        mark("d")
+
+        # (e) the router's surface and a stitched trace
+        for path in ("/api/cluster", "/api/cluster/status",
+                     "/api/stats/fleet", "/api/health"):
+            resp = wire_h.handle(HttpRequest(method="GET", path=path))
+            check(resp.status == 200, f"{path}: {resp.status}")
+            doc = json.loads(resp.body)
+            if path == "/api/health":
+                fl = doc["cluster"]["fleet"]
+                check(doc["cluster"]["role"] == "router" and fl["ok"] ==
+                      CLUSTER_SHARDS, f"health: {fl}")
+            if path == "/api/stats/fleet":
+                check(doc["shardsDegraded"] == [], "fleet degraded")
+        router.config.override_config("tsd.query.cache.enable", "false")
+        status, _rows, _deg, tid = _cluster_rows(
+            wire_h, HttpRequest, QUERIES[0][0], start, end)
+        check(status == 200 and tid, "the traced query kept no trace")
+        resp = wire_h.handle(HttpRequest(method="GET",
+                                         path=f"/api/trace/{tid}"))
+        doc = json.loads(resp.body)
+        roots = [s for s in doc["spans"] if s["name"] == "query.http"]
+        legs = [s for s in doc["spans"] if s["name"] == "cluster.peer"]
+        check(resp.status == 200 and len(roots) == CLUSTER_SHARDS + 1
+              and len(legs) == CLUSTER_SHARDS
+              and not doc.get("stitchIncomplete"),
+              f"stitched trace: {len(roots)} roots, {len(legs)} legs")
+        print(f"  (e) /api/cluster, /status, /api/stats/fleet, /api/health "
+              f"200; /api/trace/{tid}: {doc['spanCount']} spans, a "
+              f"query.http leg from each of {CLUSTER_SHARDS} shards under "
+              f"its cluster.peer span")
+        if profile:
+            device_share(torch, lambda: _cluster_rows(
+                wire_h, HttpRequest, QUERIES[0][0], start, end),
+                "a {dc=*} call through the router")
+        mark("e")
+    finally:
+        plain.shutdown()
+        rst.stop()
+        for st in sts:
+            st.stop()
+        shutil.rmtree(spool, ignore_errors=True)
+    mark("stop")
+    out["stage_s"] = stage_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("  seconds by stage: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stage_s.items()))
+    print(f"phase 20: {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def p50(xs) -> float:
     return statistics.median(xs)
 
@@ -6893,6 +7309,14 @@ def main() -> int:
     obs_s += time.perf_counter() - t_ctl
     obs["phase_s"] = obs_s
     print(f"phase 19: {obs_s:.1f} s")
+    header(f"phase 20: the cluster at one replica, a router over "
+           f"{CLUSTER_SHARDS} shard TSDs on one card, config 3's series "
+           f"of dc0-dc{CLUSTER_DCS - 1} (CUT from 1,000,000 to "
+           f"{CLUSTER_DCS}%) (|got - want| <= {TOL_REL}*sum|terms| + "
+           f"{TOL_ABS})")
+    cl_launches, cluster = phase_cluster(torch, s, ref3, card, args.profile)
+    for kname, n in cl_launches.items():
+        launches[kname] += n
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),
@@ -6923,6 +7347,7 @@ def main() -> int:
     print(json.dumps({"ops": ops}))
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"obs": obs}))
+    print(json.dumps({"cluster": cluster}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,39 @@
+"""The sharded cluster tier at one replica (ref:
+``opentsdb_tpu/cluster/``).
+
+A **router** TSD (``tsd.cluster.role = router``) owns a consistent-hash
+series→shard map over ``tsd.cluster.peers`` shard TSDs
+(``tsd.cluster.role = shard``), so
+
+- writes forward as series-grouped columnar batches to the owning
+  shard (one client body stays one WAL write + one fsync per shard),
+  and an unreachable shard's batches land in a per-peer durable spool
+  that replays when the peer's breaker half-opens;
+- queries scatter to every shard, each answering through its own
+  query engine (its kernels run there), and the router merges the
+  per-shard group partials exactly (sum/count/min/max decompose,
+  ``avg`` = merged sum / merged count, percentiles through sketches).
+
+A dead, hanging or flapping peer never turns into a 5xx: a read gets a
+200 partial carrying a ``shardsDegraded`` marker that the result cache
+refuses to retain. The router talks to shards over the binary wire
+(:mod:`~opentsdb_tpu_torch.cluster.wire`) or, where a shard does not
+speak it, JSON HTTP.
+
+Every format that outlives a process is the reference's byte for
+byte: the ring's MD5 placement, the spool and its offset sidecar, the
+dirty tracker's and the reshard state's files, and the wire's frames.
+
+Replication, resharding, retirement, gossip and read repair from a
+replica (ROADMAP Queue 1, item 1.6d) and federated continuous queries
+(item 1.6e) are refused by name.
+"""
+
+from opentsdb_tpu_torch.cluster.hashring import HashRing, series_shard_key
+from opentsdb_tpu_torch.cluster.replica import DirtyTracker
+from opentsdb_tpu_torch.cluster.reshard import ReshardState
+from opentsdb_tpu_torch.cluster.router import ClusterRouter
+from opentsdb_tpu_torch.cluster.spool import PeerSpool
+
+__all__ = ["ClusterRouter", "DirtyTracker", "HashRing", "PeerSpool",
+           "ReshardState", "series_shard_key"]

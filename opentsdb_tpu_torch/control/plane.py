@@ -15,11 +15,13 @@ own circuit breaker, and runs three independent actuators:
   never runs here: a dead loop means stale penalties, not closed
   doors.
 * **placement** (fault site ``control.placement``) — on a cluster
-  router, rebuild the hot-shard assessment and proposed ring spec. The
-  port has no router yet (``cluster/``, ROADMAP Queue 1), so here, as
-  on the reference's TSDs that are not routers, it passes its fault
-  site and assesses nothing: ``GET /api/control/plan`` shows no
-  proposal and a confirm is refused.
+  router, rebuild the hot-shard assessment and proposed ring spec
+  (:mod:`~opentsdb_tpu_torch.control.placement`), shown by ``GET
+  /api/control/plan``. Applying a plan reshards the ring, which is not
+  ported (ROADMAP Queue 1, item 1.6d): a confirmed plan raises, and
+  ``tsd.control.placement.auto=true`` on a router is refused when the
+  TSDB is built. On a TSD that is not a router it passes its fault
+  site and assesses nothing.
 
 Failure semantics follow the lifecycle sweeper to the letter: an
 actuator that throws is counted, trips the shared breaker, tags the
@@ -40,6 +42,7 @@ from typing import Any
 
 from opentsdb_tpu_torch.control import shapes as shapes_mod
 from opentsdb_tpu_torch.control.miner import mine_shapes
+from opentsdb_tpu_torch.control.placement import build_plan
 from opentsdb_tpu_torch.control.qos import TenantGovernor
 from opentsdb_tpu_torch.obs import trace as trace_mod
 from opentsdb_tpu_torch.query.model import BadRequestError
@@ -88,6 +91,8 @@ class ControlPlane:
                                        False)
         self.hot_ratio = max(cfg.get_float(
             "tsd.control.placement.hot_ratio", 2.0), 1.0)
+        # the last assessment (a router's only)
+        self._plan: dict[str, Any] | None = None
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
         self._tick_lock = threading.Lock()
@@ -322,17 +327,38 @@ class ControlPlane:
     # ------------------------------------------------------------------
 
     def _placement_tick(self, now_ms: int, report: dict) -> None:
-        """The reference's actuator on a TSD that is not a cluster
-        router (``control/plane.py``'s ``router is None`` return): its
-        fault site, then nothing to assess. The router's side comes
-        with the port of ``cluster/``."""
+        """(ref: ``_placement_tick``) On a cluster router: assess the
+        shards' loads and keep the plan; elsewhere, the fault site
+        alone. The reference's auto-apply is refused when the TSDB is
+        built (``refuse_unported_keys``)."""
         self.tsdb.faults.check("control.placement")
+        if not self.place_enable:
+            return
+        router = self.tsdb.cluster
+        if router is None:
+            return
+        plan = build_plan(router, self.hot_ratio, now_ms=now_ms)
+        with self._lock:
+            self._plan = plan
+        report["placement"] = {"hotShards": plan["hotShards"],
+                               "proposal": bool(plan["proposal"])}
 
     def apply_plan(self, pid: str) -> dict[str, Any]:
-        """Confirm the standing reshard proposal (ref: ``apply_plan``).
-        No proposal stands on a TSD that is not a router, so this
-        refuses with the reference's 400 whatever ``pid`` is."""
-        raise BadRequestError("no reshard proposal is standing")
+        """Confirm the standing proposal (ref: ``apply_plan``): the
+        reference's 400s for no proposal or a stale ``planId``, then
+        the reshard the plan needs, which is not ported."""
+        with self._lock:
+            plan = self._plan
+        if plan is None or not plan.get("proposal"):
+            raise BadRequestError("no reshard proposal is standing")
+        if not pid or pid != plan.get("planId"):
+            raise BadRequestError(
+                "planId does not match the standing proposal "
+                "(re-read /api/control/plan and confirm that id)")
+        raise NotImplementedError(
+            "applying a placement plan reshards the ring, which is not "
+            "ported yet (ROADMAP Queue 1, item 1.6d, replication and "
+            "resharding)")
 
     # ------------------------------------------------------------------
     # exposition
@@ -358,10 +384,17 @@ class ControlPlane:
         return out
 
     def plan_info(self) -> dict[str, Any]:
-        """(ref: ``plan_info``) No assessment is made on a TSD that is
-        not a router."""
-        return {"reason": "no assessment yet", "proposal": None,
-                "auto": self.place_auto}
+        """(ref: ``plan_info``) The last assessment, a router's only."""
+        with self._lock:
+            plan = self._plan
+        if plan is None:
+            return {"reason": "no assessment yet", "proposal": None,
+                    "auto": self.place_auto}
+        doc = dict(plan)
+        doc["auto"] = self.place_auto
+        # no plan is ever applied on the port
+        doc["appliedPlanId"] = ""
+        return doc
 
     def describe(self) -> dict[str, Any]:
         with self._lock:

@@ -383,6 +383,10 @@ class TSDB:
         # the data lifecycle (lifecycle/), made at first use by the
         # ``lifecycle`` property when tsd.lifecycle.enable is true
         self._lifecycle = None
+        # the cluster router (cluster/), made at first use by the
+        # ``cluster`` property on a tsd.cluster.role=router TSD; the
+        # health endpoint reads this attribute so as not to make it
+        self._cluster = None
         self.tap_gate = TapGate()
         # errors of post-write hooks, by hook (``_run_hook``; the
         # streaming tap, ``_tap``): a hook never fails a write that
@@ -517,12 +521,17 @@ class TSDB:
                     "succeeded", name, n)
 
     def _wal_group_window_ms(self) -> int:
-        """``tsd.storage.wal.group_window_ms``; "" (the default) means 0
-        (ref: TSDB._wal_group_window_ms, whose 2 ms on a cluster shard
-        the port cannot reach: ``tsd.cluster.role`` is refused)."""
+        """``tsd.storage.wal.group_window_ms`` with the reference's
+        role-aware default (ref: ``TSDB._wal_group_window_ms``): ""
+        (unset) means 0 standalone but 2 ms on a cluster shard, where
+        every client of the router writes concurrently, so a commit
+        window amortizes fsyncs. An explicit value, 0 included, wins."""
         raw = self.config.get_string("tsd.storage.wal.group_window_ms",
                                      "").strip()
-        return int(raw) if raw else 0
+        if raw:
+            return int(raw)
+        role = self.config.get_string("tsd.cluster.role", "").strip()
+        return 2 if role == "shard" else 0
 
     @property
     def query_mesh(self):
@@ -630,6 +639,25 @@ class TSDB:
                     self.stats.register(lc)
                     self._lifecycle = lc
         return self._lifecycle
+
+    @property
+    def cluster(self):
+        """The cluster router (:mod:`opentsdb_tpu_torch.cluster.router`),
+        made at first use, or None unless this TSD runs as
+        ``tsd.cluster.role = router`` (ref: ``TSDB.cluster``). The HTTP
+        and telnet layers branch writes and reads through it; shards
+        and standalone TSDs serve locally."""
+        if self.config.get_string("tsd.cluster.role", "") != "router":
+            return None
+        if self._cluster is None:
+            with self._device_cache_lock:
+                if self._cluster is None:
+                    from opentsdb_tpu_torch.cluster.router import \
+                        ClusterRouter
+                    router = ClusterRouter(self)
+                    self.stats.register(router)
+                    self._cluster = router
+        return self._cluster
 
     @property
     def control(self):
@@ -785,8 +813,9 @@ class TSDB:
 
     def shutdown(self) -> None:
         """Stop the control plane first (it steers the rest), the
-        self-telemetry pump, the profiler, a running warmup and the
-        lifecycle's sweeper, close the query-shape log, flush, stop the
+        self-telemetry pump, the profiler, a running warmup, the
+        cluster router (its replay thread, wire links and fan-out pool)
+        and the lifecycle's sweeper, close the query-shape log, flush, stop the
         continuous queries' fold workers and the fan-out pool (waiting
         for every thread to end), close the WAL, then shut the realtime
         publisher and the search plugin down (ref: ``TSDB.shutdown``)."""
@@ -796,6 +825,8 @@ class TSDB:
         self.profiler.stop()
         if self._warmup_stop is not None:
             self._warmup_stop.set()
+        if self._cluster is not None:
+            self._cluster.stop()
         if self._lifecycle is not None:
             self._lifecycle.stop()
         self.tracer.close()

@@ -23,8 +23,10 @@
 Span names form a closed registry (:data:`KNOWN_SPANS`): starting an
 unregistered name raises. The ``X-TSD-Trace`` header
 (``trace_id:parent_span_id:sampled``) is honored only in the shard role
-of a cluster, which the port does not have (``tsd.cluster.role`` is
-refused), so here it is always ignored.
+of a cluster (``tsd.cluster.role = shard``): a router stamps it on each
+leg, so the shard roots its subtree under that leg's span, and a shard
+that serves several legs of one trace merges them into one retained
+trace, which the router stitches behind ``GET /api/trace/<id>``.
 
 The query-shape log: each committed ``query.http`` trace appends one
 JSONL line (metric, filters, downsample, pixel budget, cache outcome,
@@ -52,8 +54,9 @@ LOG = logging.getLogger("obs.trace")
 # Every span name started anywhere — roots and stages — must resolve
 # here: :meth:`TraceContext.begin` enforces it at run time, so a typo'd
 # stage name fails the first test that crosses it instead of silently
-# recording an orphan stage. The reference's ``cluster.*`` names come
-# with the port of ``cluster/``.
+# recording an orphan stage. The reference's ``cluster.*`` names of
+# resharding, retirement, gossip and federated continuous queries come
+# with those subsystems (ROADMAP Queue 1, items 1.6d-1.6e).
 
 KNOWN_SPANS: frozenset[str] = frozenset({
     # request roots
@@ -65,6 +68,9 @@ KNOWN_SPANS: frozenset[str] = frozenset({
     "streaming.drain",       # streaming/workers.py off-path fold drain
     "telemetry.pump",        # obs/telemetry.py self-stats ingest
     "control.loop",          # control/plane.py one control tick
+    "cluster.spool.replay",  # cluster/router.py spool catch-up drain
+    "cluster.replica.repair",  # cluster/router.py anti-entropy pass
+    "cluster.read_repair",   # cluster/router.py staged-hint drain
     # ingest stages
     "ingest.decode",         # body parse + validate + series grouping
     "store.scatter",         # columnar store appends (+ inline taps)
@@ -80,6 +86,14 @@ KNOWN_SPANS: frozenset[str] = frozenset({
                              # holds the wait on the card
     "query.assemble",        # result assembly incl. pixel reduce
     "query.serialize",       # response body serialization
+    # cluster stages
+    "cluster.scatter",       # router read fan-out (parent stage)
+    "cluster.peer",          # one shard's scatter leg (error = degraded)
+    "cluster.merge",         # cross-shard partial merge
+    "cluster.forward",       # one shard's write-forward leg
+    "cluster.spool.append",  # durable handoff of one write batch
+    "cluster.wire.connect",  # binary wire negotiation (cluster/wire.py)
+    # background stages
     "coldstore.spill",       # lifecycle sweep's disk spill phase
 })
 
@@ -601,16 +615,31 @@ class Tracer:
                 self.traces_committed += 1
                 if slow:
                     self.slow_traces += 1
-                # a trace id is fresh on a TSD that is not a shard: the
-                # reference's merge of several legs of one propagated
-                # trace comes with the shard role (cluster/)
-                ring = self._slow_ring if slow else self._ring
-                if len(ring) == ring.maxlen:
-                    evicted = ring[0]
-                    if self._index.get(evicted.trace_id) is evicted:
-                        del self._index[evicted.trace_id]
-                ring.append(data)
-                self._index[ctx.trace_id] = data
+                existing = self._index.get(ctx.trace_id)
+                if existing is not None:
+                    # a shard can serve SEVERAL legs of one trace
+                    # (per-sub retries, hedged duplicates): merge the
+                    # new leg's spans into the retained trace in place
+                    data = TraceData(ctx.trace_id, existing.root,
+                                     existing.spans + data.spans,
+                                     existing.slow or slow)
+                    self._index[ctx.trace_id] = data
+                    for ring in (self._ring, self._slow_ring):
+                        for i, d in enumerate(ring):
+                            if d is existing:
+                                ring[i] = data
+                                break
+                        else:
+                            continue
+                        break
+                else:
+                    ring = self._slow_ring if slow else self._ring
+                    if len(ring) == ring.maxlen:
+                        evicted = ring[0]
+                        if self._index.get(evicted.trace_id) is evicted:
+                            del self._index[evicted.trace_id]
+                    ring.append(data)
+                    self._index[ctx.trace_id] = data
         ctx.slow = slow
         ctx.committed = commit
         if slow:

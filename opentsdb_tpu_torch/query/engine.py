@@ -146,22 +146,39 @@ HOST_TAIL_DEFAULT_CELLS_LINEAR = 1 << 23
 # keys that turn on a subsystem the port has not ported, checked when a
 # TSDB is built (refuse_unported_keys): (config key, its default, the
 # subsystem, the ROADMAP Queue 1 item that ports it)
-_REST = "the rest, with no device compute"
+REPLICATION_ITEM = "item 1.6d, replication and resharding"
+FEDERATED_CQ_ITEM = "item 1.6e, federated continuous queries"
 _UNPORTED_SUBSYSTEM_KEYS = (
-    ("tsd.cluster.role", "", "the sharded cluster", _REST),
+    ("tsd.cluster.rf", "1", "replication", REPLICATION_ITEM),
+    ("tsd.cluster.routers", "", "the sibling routers' gossip",
+     REPLICATION_ITEM),
 )
 
 
 def refuse_unported_keys(config) -> None:
     """Raise NotImplementedError when a key turns on a subsystem the
-    port lacks, rather than serve as if it were off."""
+    port lacks, rather than serve as if it were off. A numeric key is
+    on above its default."""
     for key, default, what, item in _UNPORTED_SUBSYSTEM_KEYS:
         value = config.get_string(key, default).strip()
-        on = config.get_bool(key) if default == "false" else value != default
+        if default == "false":
+            on = config.get_bool(key)
+        elif default.isdigit():
+            on = int(value or default) > int(default)
+        else:
+            on = value != default
         if on:
             raise NotImplementedError(
                 f"{key}={value} turns on {what}, which is not ported yet "
                 f"(ROADMAP Queue 1, {item}); leave {key} at {default!r}")
+    if config.get_string("tsd.cluster.role", "") == "router" \
+            and config.get_bool("tsd.control.enable") \
+            and config.get_bool("tsd.control.placement.auto"):
+        raise NotImplementedError(
+            "tsd.control.placement.auto=true on a cluster router applies "
+            "placement plans by resharding the ring, which is not "
+            f"ported yet (ROADMAP Queue 1, {REPLICATION_ITEM}); leave "
+            "tsd.control.placement.auto at 'false'")
     # a typo raises ValueError here, as at the reference's boot
     parse_mesh_spec(config.get_string("tsd.query.mesh", ""))
 
@@ -303,7 +320,7 @@ class QueryResult:
 
     __slots__ = ("metric", "tags", "aggregated_tags", "tsuids",
                  "sub_query_index", "dps_arrays", "annotations",
-                 "global_annotations")
+                 "global_annotations", "sketches")
 
     def __init__(self, metric: str, tags: dict, aggregated_tags: list,
                  dps_arrays: tuple, tsuids: list | None = None,
@@ -318,6 +335,17 @@ class QueryResult:
         self.annotations = annotations if annotations is not None else []
         self.global_annotations = global_annotations \
             if global_annotations is not None else []
+        # a shard's sketch partials for a cluster router (ref): the
+        # [(bucket ts_ms, serialized DDSketch)] of one group, with
+        # empty dps
+        self.sketches: list | None = None
+
+    def _twin(self, index: int) -> "QueryResult":
+        twin = QueryResult(self.metric, self.tags, self.aggregated_tags,
+                           self.dps_arrays, self.tsuids, index,
+                           self.annotations, self.global_annotations)
+        twin.sketches = self.sketches
+        return twin
 
     @property
     def dps(self) -> list:
@@ -337,18 +365,13 @@ class QueryResult:
         leaves the index out)."""
         if self.sub_query_index == index:
             return self
-        return QueryResult(self.metric, self.tags, self.aggregated_tags,
-                           self.dps_arrays, self.tsuids, index,
-                           self.annotations, self.global_annotations)
+        return self._twin(index)
 
     def cache_copy(self) -> "QueryResult":
         """Detached twin for the result cache: shares the immutable
         columnar payload, so a consumer re-binding a field of its copy
         never changes the cached entry."""
-        return QueryResult(self.metric, self.tags, self.aggregated_tags,
-                           self.dps_arrays, self.tsuids,
-                           self.sub_query_index, self.annotations,
-                           self.global_annotations)
+        return self._twin(self.sub_query_index)
 
     def __repr__(self) -> str:
         return (f"QueryResult(metric={self.metric!r}, "
@@ -835,7 +858,18 @@ class QueryEngine:
             run_histogram_subquery
         from opentsdb_tpu_torch.sketch.query import (merge_pct_rows,
                                                      run_sketch_percentiles)
-        sk_rows = run_sketch_percentiles(self.tsdb, tsq, sub)
+        sk_rows = run_sketch_percentiles(self.tsdb, tsq, sub,
+                                         partials=tsq.sketch_partials)
+        if tsq.sketch_partials:
+            # a cluster router's scatter: the shard hands back mergeable
+            # sketch partials, never extracted quantiles. Sketches off
+            # 400 honestly: an empty partial would make the router's
+            # merged answer silently wrong (ref)
+            if sk_rows is None:
+                raise BadRequestError(
+                    "sketch partials requested but the sketch "
+                    "subsystem is disabled (tsd.sketch.enable)")
+            return sk_rows
         rows = run_histogram_subquery(self.tsdb, tsq, sub)
         if sk_rows is not None:
             rows = merge_pct_rows(rows, sk_rows)

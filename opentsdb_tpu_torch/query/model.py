@@ -5,9 +5,11 @@ Validation semantics follow ``TSQuery.validateAndSetQuery``: start time
 required, aggregator required per sub-query, one of metric|tsuids
 required, times normalized to ms, end defaulting to now. A pixel
 budget (``pixels``/``pixelFn``, the URI's ``downsample=<N>px``) rides
-beside each sub-query's identity (``effective_pixels``). The
-reference's ``sketchPartials`` (a cluster router's request) is not
-ported yet and raises NotImplementedError.
+beside each sub-query's identity (``effective_pixels``). A cluster
+router's ``sketchPartials`` asks a shard for mergeable sketch partials
+of its percentile sub-queries; its ``replicaSel`` (the replica read
+plan of ``tsd.cluster.rf`` > 1) is not ported and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -212,6 +214,10 @@ class TSQuery:
     # URI, ``pixels``/``pixelFn`` in JSON); a sub-query's own wins
     pixels: int = 0
     pixel_fn: str = ""
+    # cluster-internal (``sketchPartials``): a router asking a shard for
+    # mergeable quantile-sketch partials of its percentile sub-queries
+    # instead of extracted percentiles. Never set client-side.
+    sketch_partials: bool = False
     # populated during validation
     start_ms: int = 0
     end_ms: int = 0
@@ -262,9 +268,11 @@ class TSQuery:
     def from_json(cls, obj: dict[str, Any]) -> "TSQuery":
         if not isinstance(obj, dict):
             raise BadRequestError("query must be a JSON object")
-        if obj.get("sketchPartials"):
-            from opentsdb_tpu_torch.sketch.query import PARTIALS_NOT_PORTED
-            raise NotImplementedError(PARTIALS_NOT_PORTED)
+        if obj.get("replicaSel") is not None:
+            raise NotImplementedError(
+                "replicaSel (a replicated router's read plan, "
+                "tsd.cluster.rf > 1) is not ported yet (ROADMAP Queue 1, "
+                "item 1.6d, replication and resharding)")
         raw_queries = obj.get("queries") or []
         if not isinstance(raw_queries, list) or not all(
                 isinstance(q, dict) for q in raw_queries):
@@ -289,6 +297,7 @@ class TSQuery:
             use_calendar=bool(obj.get("useCalendar", False)),
             pixels=obj.get("pixels") or 0,
             pixel_fn=obj.get("pixelFn") or "",
+            sketch_partials=bool(obj.get("sketchPartials", False)),
         )
 
     def to_json(self) -> dict[str, Any]:

@@ -36,10 +36,10 @@ Sharded LRU bounded by an estimated byte budget
 
 The per-tenant ``insert_gate`` (set by the control plane's tenant
 QoS) is asked before an insert; a result it refuses still serves and
-is counted ``gated``. Left out, because the port has no such subsystem
-yet: the key's annotation flags (``no_annotations``,
-``global_annotations``), its ``sketch_partials`` flag and its cluster
-replica selection (``sel_cache_key``).
+is counted ``gated``. Left out of the key: the annotation flags
+(``no_annotations``, ``global_annotations``) and the cluster replica
+selection (``sel_cache_key``, which serves ``tsd.cluster.rf`` > 1, not
+ported).
 """
 
 from __future__ import annotations
@@ -105,8 +105,12 @@ def cache_plan(tsq, sub, config) -> tuple[tuple, float] | None:
     # the pixel budget shapes the result groups, so a full-resolution
     # entry never serves a pixel-budgeted request (ref)
     from opentsdb_tpu_torch.query.model import effective_pixels
+    # sketch_partials flips percentile subs between extracted rows and
+    # sketch partials: a shard serving both a router and direct clients
+    # must never cross them (ref)
     key = (window, tsq.timezone, tsq.use_calendar, tsq.ms_resolution,
-           tsq.show_tsuids, sub.identity_key(), effective_pixels(tsq, sub))
+           tsq.show_tsuids, tsq.sketch_partials, sub.identity_key(),
+           effective_pixels(tsq, sub))
     return key, ttl_ms
 
 

@@ -22,8 +22,13 @@ history (arena rows turned into sketches by the spill) comes back
 through the cold zone here, and the engine splices the two row sets
 (:func:`merge_pct_rows`). A cold zone that cannot be read raises
 DegradedError (a 503), where the reference serves the other zones.
-Partials for a cluster router (``sketchPartials``) raise
-NotImplementedError: the router is not ported yet.
+
+``partials=True`` (a cluster router's ``sketchPartials`` scatter) skips
+the quantile extraction and returns one row per group carrying its
+serialized per-bucket sketches, which the router merges exactly
+(canonical DDSketch state is merge-order independent). For a histogram
+metric the partials also carry the live arena rows, folded at their
+bucket midpoints (:func:`arena_sketch_items`).
 """
 
 from __future__ import annotations
@@ -34,11 +39,6 @@ from opentsdb_tpu_torch.ops import downsample as ds_mod
 from opentsdb_tpu_torch.ops import sketch_fold
 from opentsdb_tpu_torch.query.model import BadRequestError, TSQuery, TSSubQuery
 from opentsdb_tpu_torch.sketch.ddsketch import DDSketch, SketchError
-
-PARTIALS_NOT_PORTED = ("sketch partials (sketchPartials) serve a cluster "
-                       "router, which is not ported yet (ROADMAP Queue 1, "
-                       "the rest, with no device compute)")
-
 
 def _config_sketch(tsdb) -> tuple[bool, float, int]:
     cfg = tsdb.config
@@ -89,9 +89,7 @@ def run_sketch_percentiles(tsdb, tsq: TSQuery, sub: TSSubQuery,
     """Serve one percentile sub-query from sketches. None when the
     sketch path is off (``tsd.sketch.enable=false``: the caller keeps
     the behaviour from before sketches), else a possibly empty list of
-    QueryResults."""
-    if partials:
-        raise NotImplementedError(PARTIALS_NOT_PORTED)
+    QueryResults (with ``partials``, sketch-partial rows)."""
     enabled, alpha, max_buckets = _config_sketch(tsdb)
     if not enabled:
         return None
@@ -103,10 +101,11 @@ def run_sketch_percentiles(tsdb, tsq: TSQuery, sub: TSSubQuery,
     hist = bool(len(tsdb.histogram_store.series_ids_for_metric(mid)))
     store = tsdb.histogram_store if hist else tsdb.store
     return _run_over_store(tsdb, tsq, sub, store, mid, alpha, max_buckets,
-                           hist)
+                           hist, partials)
 
 
-def _run_over_store(tsdb, tsq, sub, store, mid, alpha, max_buckets, hist):
+def _run_over_store(tsdb, tsq, sub, store, mid, alpha, max_buckets, hist,
+                    partials=False):
     """Gather the zones' sketches per (group, output bucket), fold the
     raw tail in, and emit the percentiles."""
     from opentsdb_tpu_torch.lifecycle.stitch import sketch_zone_read
@@ -117,7 +116,8 @@ def _run_over_store(tsdb, tsq, sub, store, mid, alpha, max_buckets, hist):
     _mid, sids, tag_mat, group_ids, num_groups = plan
     gvec = np.asarray(group_ids, dtype=np.int64)
     if hist:
-        items, raw_rng = _hist_zones(tsdb, tsq, sub, mid), None
+        items, raw_rng = _hist_zones(tsdb, tsq, sub, mid, alpha,
+                                     max_buckets, partials), None
     else:
         items, raw_rng, _ = sketch_zone_read(tsdb, sub.metric, mid,
                                              tsq.start_ms, tsq.end_ms)
@@ -159,34 +159,88 @@ def _run_over_store(tsdb, tsq, sub, store, mid, alpha, max_buckets, hist):
                 fold_in(int(gid), int(slot), sk)
     if not acc:
         return []
-    return _emit(tsdb, tsq, sub, tag_mat, group_ids, num_groups, acc)
+    return _emit(tsdb, tsq, sub, tag_mat, group_ids, num_groups, acc,
+                 partials)
 
 
-def _hist_zones(tsdb, tsq, sub, mid) -> list:
-    """A histogram metric's sketch zone (ref: ``_hist_zones`` without
-    partials): the cold sketch rows the arena spill wrote, before the
-    spill boundary. The live arena rows are the arena engine's."""
+def _hist_zones(tsdb, tsq, sub, mid, alpha, max_buckets,
+                partials) -> list:
+    """A histogram metric's sketch zones (ref: ``_hist_zones``): the
+    cold sketch rows the arena spill wrote, before the spill boundary,
+    and, with ``partials`` only, the live arena rows after it
+    (:func:`arena_sketch_items`). A batch query serves the live arena
+    through the arena engine instead."""
     from opentsdb_tpu_torch.lifecycle.stitch import (_cold_failed,
                                                      guarded_sketch_rows)
     lc = tsdb.lifecycle
     cold = lc.coldstore if lc is not None else None
-    if cold is None:
-        return []
-    spill_b = cold.spill_boundary(sub.metric)
-    if not spill_b or tsq.start_ms >= spill_b:
-        return []
-    rows, _ = guarded_sketch_rows(cold, sub.metric, tsq.start_ms,
-                                  min(tsq.end_ms, spill_b - 1))
+    spill_b = cold.spill_boundary(sub.metric) if cold is not None else 0
     items = []
-    for tags, cts, blob in rows:
-        try:
-            items.append((tags, cts, DDSketch.from_bytes(blob)))
-        except (SketchError, ValueError) as exc:
-            raise _cold_failed(cold, exc, None) from exc
+    if spill_b and tsq.start_ms < spill_b:
+        rows, _ = guarded_sketch_rows(cold, sub.metric, tsq.start_ms,
+                                      min(tsq.end_ms, spill_b - 1))
+        for tags, cts, blob in rows:
+            try:
+                items.append((tags, cts, DDSketch.from_bytes(blob)))
+            except (SketchError, ValueError) as exc:
+                raise _cold_failed(cold, exc, None) from exc
+    if partials:
+        items.extend(arena_sketch_items(
+            tsdb, mid, max(tsq.start_ms, spill_b), tsq.end_ms, alpha,
+            max_buckets))
     return items
 
 
-def _emit(tsdb, tsq, sub, tag_mat, group_ids, num_groups, acc):
+def arena_sketch_items(tsdb, mid: int, start_ms: int, end_ms: int,
+                       alpha: float, max_buckets: int) -> list:
+    """Live histogram arena rows as ``(tag names, ts, DDSketch)`` (ref:
+    ``arena_sketch_items``): each row's bucket counts fold at the
+    bucket midpoints, the value ``percentiles_from_counts`` emits for
+    any rank landing in the bucket, so a sketch's quantile answers
+    within alpha of the arena engine's midpoint convention."""
+    if start_ms > end_ms:
+        return []
+    with tsdb._histogram_lock:
+        arena = tsdb._histogram_arenas.get(mid)
+        snaps = [(s.bounds, *s.snapshot())
+                 for s in arena.groups.values()] if arena else []
+    if not snaps:
+        return []
+    uids = tsdb.uids
+    store = tsdb.histogram_store
+    names_of: dict[int, tuple | None] = {}
+    out = []
+    for bounds, ts_a, sid_a, rows in snaps:
+        b = np.asarray(bounds, dtype=np.float64)
+        mids = (b[:-1] + b[1:]) / 2.0
+        m = (ts_a >= start_ms) & (ts_a <= end_ms)
+        if not m.any():
+            continue
+        for ts, sid, counts in zip(ts_a[m].tolist(), sid_a[m].tolist(),
+                                   np.asarray(rows)[m]):
+            if sid not in names_of:
+                try:
+                    rec = store.series(int(sid))
+                    names_of[sid] = tuple(sorted(
+                        (uids.tag_names.get_name(k),
+                         uids.tag_values.get_name(v))
+                        for k, v in rec.tags))
+                except LookupError:
+                    names_of[sid] = None
+            names = names_of[sid]
+            if names is None:
+                continue
+            sk = DDSketch(alpha)
+            sk.add_weighted(mids, counts)
+            if max_buckets:
+                sk.collapse(max_buckets)
+            if sk.count:
+                out.append((names, int(ts), sk))
+    return out
+
+
+def _emit(tsdb, tsq, sub, tag_mat, group_ids, num_groups, acc,
+          partials=False):
     from opentsdb_tpu_torch.query.engine import QueryResult, _common_tags
     uids = tsdb.uids
     order = np.argsort(group_ids, kind="stable")
@@ -207,6 +261,15 @@ def _emit(tsdb, tsq, sub, tag_mat, group_ids, num_groups, acc):
             continue
         slots.sort(key=lambda p: p[0])
         tags, agg_tags = _common_tags(tag_mat, members, uids)
+        if partials:
+            r = QueryResult(metric=sub.metric, tags=tags,
+                            aggregated_tags=agg_tags,
+                            dps_arrays=(np.empty(0, dtype=np.int64),
+                                        np.empty(0, dtype=np.float64)),
+                            sub_query_index=sub.index)
+            r.sketches = [(t, sk.to_bytes()) for t, sk in slots]
+            out.append(r)
+            continue
         ts_arr = np.asarray([t for t, _ in slots], dtype=np.int64)
         if not tsq.ms_resolution:
             ts_arr = (ts_arr // 1000) * 1000

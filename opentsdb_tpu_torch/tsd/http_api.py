@@ -27,11 +27,24 @@ lifecycle), ``/api/serializers``, ``/api/version``,
 the observability surface (``/api/health``, ``/api/trace``
 (+``/<id>``), ``/api/profile``, ``/metrics``, ``/logs``), the control
 plane (``/api/control`` (+``/materialized``, ``/plan``, ``/tick``)),
-``/diediedie``, and the legacy unversioned aliases. Every other
+the cluster surface (``/api/cluster`` (+``/status``, ``/reshard``),
+``/api/stats/fleet``), ``/diediedie``, and the legacy unversioned
+aliases. Every other
 endpoint of the reference's surface needs a subsystem the port does
 not have yet and answers a structured 501 naming the ROADMAP item that
 ports it (:data:`UNPORTED`); a path the reference does not know
 answers 404.
+
+On a cluster router (``tsd.cluster.role = router``,
+:mod:`opentsdb_tpu_torch.cluster.router`) the router owns no data:
+``/api/put`` forwards to the owning shards (spooling for an unreachable
+one), ``/api/query`` scatters and merges the shards' partials (a 200
+partial with ``shardsDegraded`` when a shard fails), ``/api/query/last``,
+``/api/suggest`` and ``/api/search/lookup`` scatter and union, and the
+endpoints that would read or write its empty local store answer 400.
+On a shard, a wire delivery (``request.wire_groups``) lands as one
+grouped write, and a wire read (``request.wire_sink``) streams each
+sub-query's partial grids as frames instead of a JSON body.
 
 ``/api/put`` and ``/api/query`` are trace roots (``ingest.put``,
 ``query.http``; :mod:`opentsdb_tpu_torch.obs.trace`): a retained
@@ -84,7 +97,8 @@ from opentsdb_tpu_torch.meta.annotation import Annotation
 from opentsdb_tpu_torch.meta.meta_store import MetaStore, UIDMeta
 from opentsdb_tpu_torch.obs import openmetrics
 from opentsdb_tpu_torch.obs import trace as trace_mod
-from opentsdb_tpu_torch.obs.trace import build_tree, trace_begin, trace_end
+from opentsdb_tpu_torch.obs.trace import (SpanRecord, build_tree,
+                                          trace_begin, trace_end)
 from opentsdb_tpu_torch.ops import aggregators as aggs_mod
 from opentsdb_tpu_torch.query import filters as filters_mod
 from opentsdb_tpu_torch.query.limits import QueryLimitExceeded
@@ -107,8 +121,6 @@ _REST = "the rest, with no device compute"
 # "stats/<name>" and "query/<name>" for sub-endpoints, or "/<name>" for
 # paths outside /api
 UNPORTED: dict[str, tuple[str, str]] = {
-    "cluster": (_REST, "cluster/"),
-    "stats/fleet": (_REST, "cluster/ (fleet stats)"),
     "/q": (_REST, "tsd/graph.py (graphs)"),
     "/s": (_REST, "static files"),
 }
@@ -124,6 +136,11 @@ def api_endpoint(path: str) -> str:
             parts = parts[1:]
     return parts[0] if parts else ""
 
+
+# endpoints a cluster router refuses with a 400: they would read or
+# write its empty local store (ref: ``_dispatch``)
+_ROUTER_REFUSED = ("uid", "annotation", "annotations", "tree", "rollup",
+                   "histogram")
 
 # the endpoints the SLO tracker holds to objectives (ref: _slo_endpoint)
 _SLO_ENDPOINTS = {"query": "query", "q": "query", "put": "put"}
@@ -153,6 +170,11 @@ class HttpRequest:
     received_at: float = 0.0
     # a retained trace's id, stamped by the router's trace wrapper
     trace_id_hint: str = ""
+    # a shard's binary cluster wire (cluster/wire.py): a delivered put
+    # batch as decoded (metric, tags, refs, ts, values) groups, and the
+    # read leg's sink of each sub-query's results (tsq, index, rows)
+    wire_groups: list | None = None
+    wire_sink: Callable | None = None
 
     def param(self, key: str, default: str | None = None) -> str | None:
         vals = self.params.get(key)
@@ -299,6 +321,7 @@ class HttpRpcRouter:
             "profile": self._handle_profile,
             "serializers": self._handle_serializers,
             "stats": self._handle_stats,
+            "cluster": self._handle_cluster,
             "trace": self._handle_trace,
             "version": self._handle_version,
         })
@@ -471,6 +494,14 @@ class HttpRpcRouter:
         else:
             raise HttpError(404, f"Endpoint not found: /{parts[0]}",
                             "The requested endpoint was not found")
+        if endpoint in _ROUTER_REFUSED and self.tsdb.cluster is not None:
+            # the router owns no data: these would serve from (or write
+            # into) its EMPTY local store, where no scattered read ever
+            # looks (ref)
+            raise HttpError(
+                400, f"/api/{endpoint} is not supported in router mode",
+                "point this request at a shard TSD, or use "
+                "/api/put and /api/query")
         handler = self._routes.get(endpoint)
         if handler is None:
             raise HttpError(404, f"Endpoint not found: /api/{endpoint}",
@@ -543,13 +574,62 @@ class HttpRpcRouter:
         return self._trace_request("ingest.put", request,
                                    lambda: self._handle_put_run(request))
 
+    def _put_answer(self, request: HttpRequest, success: int, failed: int,
+                    errors: list) -> HttpResponse:
+        """A put's answer: 204, or the 400 of a failed point, without
+        ``summary``/``details``; else the put summary."""
+        details = request.flag("details")
+        if not details and not request.flag("summary"):
+            if failed:
+                raise HttpError(
+                    400, "One or more data points had errors",
+                    f"{failed} error(s) storing datapoints")
+            return HttpResponse(204)
+        return HttpResponse(
+            400 if failed else 200,
+            request.serializer.format_put(success, failed, errors,
+                                          details))
+
+    def _handle_put_wire(self, request: HttpRequest,
+                         groups: list) -> HttpResponse:
+        """A columnar wire delivery (ref: ``_handle_put_wire``): the
+        batch arrives as decoded ``(metric, tags, refs, ts, values)``
+        groups and lands through ``add_point_groups``, one WAL write and
+        one group-committed fsync, with no JSON in between; the store
+        validates and reports each point as the JSON path does. A wire
+        delivery that reaches a router re-partitions and forwards."""
+        cluster = self.tsdb.cluster
+        if cluster is not None:
+            success, failed, errors = cluster.forward_writes(
+                [dp for g in groups for dp in g[2]])
+            return HttpResponse(
+                400 if failed else 200,
+                request.serializer.format_put(success, failed, errors,
+                                              request.flag("details")))
+        errors: list[dict] = []
+        h = trace_begin("store.scatter", groups=len(groups))
+        success, _ = self.tsdb.add_point_groups(
+            groups, on_error=self._put_error_sink(errors))
+        trace_end(h)
+        return self._put_answer(request, success, len(errors), errors)
+
     def _handle_put_run(self, request: HttpRequest) -> HttpResponse:
+        if request.wire_groups is not None:
+            return self._handle_put_wire(request, request.wire_groups)
         h = trace_begin("ingest.decode")
         points = request.serializer.parse_put(request.body)
         if h is not None:
             h.tag(points=len(points))
-        details = request.flag("details")
-        summary = request.flag("summary")
+        cluster = self.tsdb.cluster
+        if cluster is not None:
+            # router mode: partition by the consistent-hash series key
+            # and forward one series-grouped body per shard; an
+            # unreachable shard's batch is durably spooled and still
+            # acknowledged (forwarding re-validates on the shard, which
+            # records its own decode)
+            trace_end(h)
+            return self._put_answer(request,
+                                    *cluster.forward_writes(points))
         errors: list[dict] = []
         groups: dict[tuple, tuple] = {}
         for dp in points:
@@ -585,17 +665,7 @@ class HttpRpcRouter:
         success, _ = self.tsdb.add_point_groups(
             groups.values(), on_error=self._put_error_sink(errors))
         trace_end(h)
-        failed = len(errors)
-        if not details and not summary:
-            if failed:
-                raise HttpError(
-                    400, "One or more data points had errors",
-                    f"{failed} error(s) storing datapoints")
-            return HttpResponse(204)
-        return HttpResponse(
-            400 if failed else 200,
-            request.serializer.format_put(success, failed, errors,
-                                          details))
+        return self._put_answer(request, success, len(errors), errors)
 
     def _handle_rollup(self, request: HttpRequest, rest) -> HttpResponse:
         """(ref: RollupDataPointRpc.java:227; ``_handle_rollup``) A put
@@ -679,9 +749,21 @@ class HttpRpcRouter:
         HTTP_QUERY."""
         self._check_permission(request, Permissions.HTTP_QUERY)
         sub = rest[0] if rest else ""
+        if sub in ("exp", "gexp") and self.tsdb.cluster is not None:
+            # the router owns no data: these would run against its EMPTY
+            # local store (ref)
+            raise HttpError(
+                400, f"/api/query/{sub} is not supported in router mode",
+                "point this request at a shard TSD, or use /api/query")
         if sub == "last":
             return self._handle_query_last(request)
         if sub == "continuous":
+            if self.tsdb.cluster is not None:
+                raise NotImplementedError(
+                    "/api/query/continuous on a cluster router serves "
+                    "federated continuous queries, which are not ported "
+                    "yet (ROADMAP Queue 1, item 1.6e, federated "
+                    "continuous queries)")
             return self._handle_query_continuous(request, rest[1:])
         if sub in ("exp", "gexp"):
             from opentsdb_tpu_torch.query.expression.endpoint import (
@@ -741,8 +823,17 @@ class HttpRpcRouter:
         show_stats = tsq.show_stats or request.flag("show_stats")
         as_arrays = request.flag("arrays")
         streamed = False
+        cluster = self.tsdb.cluster
+        degraded: list[str] = []
         try:
-            results = self.tsdb.new_query().run(tsq, stats)
+            if cluster is not None:
+                # router mode: scatter to every shard and merge the
+                # group partials; a dead, hung or tripped shard gives a
+                # 200 PARTIAL with the shardsDegraded marker, never a
+                # 5xx, and is never retained by the result cache
+                results, degraded = cluster.run_cached(tsq)
+            else:
+                results = self.tsdb.new_query().run(tsq, stats)
             if px:
                 stats.add_stat(QueryStat.DOWNSAMPLE_PIXELS, px)
             if tctx is not None:
@@ -765,6 +856,7 @@ class HttpRpcRouter:
             stream_after = self.tsdb.config.get_int(
                 "tsd.http.query.stream_threshold_dps", 1_000_000)
             if stream_after and total_dps > stream_after \
+                    and cluster is None and request.wire_sink is None \
                     and not (show_summary or show_stats):
                 inner = request.serializer.stream_query(
                     tsq, results, as_arrays=as_arrays)
@@ -775,10 +867,20 @@ class HttpRpcRouter:
                 return HttpResponse(200, b"", body_iter=self._stream_body(
                     inner, stats, t_ser, px))
             h = trace_begin("query.serialize")
-            body = request.serializer.format_query(
-                tsq, results, as_arrays=as_arrays,
-                show_summary=show_summary, show_stats=show_stats,
-                summary_extra=stats.stats)
+            if request.wire_sink is not None:
+                # a shard's wire leg: each sub-query's grids go onto the
+                # socket as framed column blocks, no JSON at all
+                by_sub: dict[int, list] = {}
+                for r in results:
+                    by_sub.setdefault(r.sub_query_index, []).append(r)
+                for idx, rows in sorted(by_sub.items()):
+                    request.wire_sink(tsq, idx, rows)
+                body = b""
+            else:
+                body = request.serializer.format_query(
+                    tsq, results, as_arrays=as_arrays,
+                    show_summary=show_summary, show_stats=show_stats,
+                    summary_extra=stats.stats, degraded_shards=degraded)
             trace_end(h)
             self._record_serialization(stats, t_ser, len(body), px)
             stats.add_stat(QueryStat.PROCESSING_PRE_WRITE_TIME,
@@ -789,7 +891,8 @@ class HttpRpcRouter:
             # response completes inside its body iterator instead
             if not streamed:
                 stats.mark_complete()
-        return HttpResponse(200, body)
+        # the header twin of the body's marker, for load balancers
+        return self._with_degraded(HttpResponse(200, body), degraded)
 
     def _handle_query_continuous(self, request: HttpRequest,
                                  rest) -> HttpResponse:
@@ -893,9 +996,11 @@ class HttpRpcRouter:
 
     def _handle_query_last(self, request: HttpRequest) -> HttpResponse:
         """(ref: QueryRpc.java:346 /api/query/last via TSUIDQuery) The
-        last point of each series the specs name. The reference's
-        router-mode scatter has no counterpart: ``tsd.cluster.role`` is
-        refused when the TSDB is built."""
+        last point of each series the specs name. On a cluster router
+        the request scatters to every shard and the newest point per
+        series wins; tsuid specs are refused (UIDs are per shard), and
+        degraded shards ride a trailing body marker and the header, as
+        in ``/api/query``."""
         if request.method == "POST":
             obj = request.json_object(default={})
             specs = obj.get("queries", [])
@@ -917,9 +1022,31 @@ class HttpRpcRouter:
                 "timeseries", [])]
             back_scan = int(request.param("back_scan", "0"))
             resolve = request.flag("resolve")
+        cluster = self.tsdb.cluster
+        if cluster is not None:
+            if any(q.get("tsuids") for q in specs):
+                raise HttpError(
+                    400, "tsuid specs are not supported in router mode",
+                    "UIDs are assigned per shard — query by metric "
+                    "and tags instead")
+            points, degraded = cluster.scatter_last(specs, back_scan,
+                                                    resolve)
+            if degraded:
+                points = points + [{"shardsDegraded": degraded}]
+            return self._with_degraded(HttpResponse(
+                200, request.serializer.format_last_points(points)),
+                degraded)
         points = last_data_points(self.tsdb, specs, back_scan, resolve)
         return HttpResponse(200,
                             request.serializer.format_last_points(points))
+
+    @staticmethod
+    def _with_degraded(resp: HttpResponse,
+                       degraded: list[str]) -> HttpResponse:
+        """Name a router's degraded shards in the response's header."""
+        if degraded:
+            resp.headers["X-OpenTSDB-Shards-Degraded"] = ",".join(degraded)
+        return resp
 
     def _record_serialization(self, stats: QueryStats, t_ser: float,
                               nbytes: int, pixels: int) -> None:
@@ -944,7 +1071,9 @@ class HttpRpcRouter:
             stats.mark_complete()
 
     def _handle_suggest(self, request: HttpRequest, rest) -> HttpResponse:
-        """(ref: SuggestRpc.java:30)"""
+        """(ref: SuggestRpc.java:30) On a cluster router the suggest
+        scatters to every shard and the union answers; degraded shards
+        ride the header (a bare name array has no room for a marker)."""
         if request.method == "POST":
             obj = request.json_object(default={})
             stype = obj.get("type", "")
@@ -956,6 +1085,12 @@ class HttpRpcRouter:
             max_results = int(request.param("max", "25"))
         if stype not in ("metrics", "tagk", "tagv"):
             raise BadRequestError(f"Invalid 'type' parameter: {stype}")
+        cluster = self.tsdb.cluster
+        if cluster is not None:
+            names, degraded = cluster.scatter_suggest(stype, q,
+                                                      max_results)
+            return self._with_degraded(HttpResponse(
+                200, request.serializer.format_suggest(names)), degraded)
         if stype == "metrics":
             names = self.tsdb.suggest_metrics(q, max_results)
         elif stype == "tagk":
@@ -969,8 +1104,16 @@ class HttpRpcRouter:
     def _handle_search(self, request: HttpRequest, rest) -> HttpResponse:
         """(ref: SearchRpc.java) ``/api/search/lookup`` walks the store's
         tag index (TimeSeriesLookup.java:83); any other type goes to the
-        search plugin, a 400 without one."""
+        search plugin, a 400 without one. On a cluster router ``lookup``
+        scatters to every shard and the union dedupes on (metric, tags);
+        plugin search answers 400 there (the router has no index)."""
         sub = rest[0] if rest else ""
+        cluster = self.tsdb.cluster
+        if cluster is not None and sub != "lookup":
+            raise HttpError(
+                400, f"/api/search/{sub} is not supported in router mode",
+                "point this request at a shard TSD, or use "
+                "/api/search/lookup")
         if sub == "lookup":
             if request.method == "POST":
                 obj = request.json_object(default={})
@@ -993,6 +1136,12 @@ class HttpRpcRouter:
                 tags = list(tag_map.items())
                 limit = int(request.param("limit", "25"))
                 use_meta = request.flag("use_meta")
+            if cluster is not None:
+                results, degraded = cluster.scatter_lookup(
+                    metric, tags, limit, use_meta)
+                return self._with_degraded(HttpResponse(
+                    200, request.serializer.format_search(results)),
+                    degraded)
             results = time_series_lookup(self.tsdb, metric, tags, limit,
                                          use_meta)
             return HttpResponse(200,
@@ -1381,11 +1530,18 @@ class HttpRpcRouter:
 
     def _handle_stats(self, request: HttpRequest, rest) -> HttpResponse:
         """(ref: StatsRpc.java; /api/stats + /query /jvm /threads
-        /region_clients, and the reference's /raw, /query_shapes and
-        /tenants)"""
+        /region_clients, and the reference's /raw, /query_shapes,
+        /tenants and, on a cluster router, /fleet)"""
         sub = rest[0] if rest else ""
-        if f"stats/{sub}" in UNPORTED:
-            raise _not_ported(f"stats/{sub}")
+        if sub == "fleet":
+            # the router's fleet-wide merge of its shards' raw stats
+            cluster = self.tsdb.cluster
+            if cluster is None:
+                raise HttpError(
+                    400, "/api/stats/fleet requires tsd.cluster.role "
+                    "= router", "per-node stats live at /api/stats[/raw]")
+            return HttpResponse(200, json.dumps(
+                cluster.fleet_stats()).encode())
         if sub == "query":
             return HttpResponse(200, request.serializer.format_query_stats(
                 QueryStats.running_and_completed()))
@@ -1553,7 +1709,11 @@ class HttpRpcRouter:
         - ``GET /api/trace``: the retained roots, newest first;
           ``?status=ok|error``, ``?min_duration_ms=N``, ``?slow=true``
           (the slow ring only), ``?limit=N``;
-        - ``GET /api/trace/<id>``: one trace's spans and their tree."""
+        - ``GET /api/trace/<id>``: one trace's spans and their tree. On a
+          cluster router the shards' subtrees are fetched and stitched
+          under their ``cluster.peer`` spans, and shards that could not
+          answer are listed in ``stitchIncomplete``; ``?local=true``
+          skips the stitch (what the router sends a shard)."""
         if request.method != "GET":
             raise HttpError(405, "Method not allowed")
         tracer = self.tsdb.tracer
@@ -1571,16 +1731,74 @@ class HttpRpcRouter:
                 slow_only=request.flag("slow"), limit=limit)).encode())
         trace_id = rest[0]
         data = tracer.get(trace_id)
-        if data is None:
+        spans = list(data.spans) if data is not None else []
+        incomplete: list[str] = []
+        cluster = self.tsdb.cluster
+        if cluster is not None and not request.flag("local"):
+            # ask the shards even when the router's own copy was
+            # evicted: their subtrees may outlive it
+            extra, incomplete = cluster.fetch_peer_trace(trace_id)
+            spans.extend(SpanRecord.from_json(d) for d in extra)
+        if not spans:
             raise HttpError(404, f"No trace with id {trace_id!r}",
                             "evicted from the ring, or never "
                             "retained (see tsd.trace.sample)")
-        spans = list(data.spans)
-        return HttpResponse(200, json.dumps({
-            "traceId": trace_id, "slow": data.slow,
+        doc: dict[str, Any] = {
+            "traceId": trace_id,
+            "slow": bool(data is not None and data.slow),
             "spanCount": len(spans),
             "spans": [s.to_json() for s in spans],
-            "tree": build_tree(spans)}).encode())
+            "tree": build_tree(spans)}
+        if incomplete:
+            doc["stitchIncomplete"] = incomplete
+        return HttpResponse(200, json.dumps(doc).encode())
+
+    def _handle_cluster(self, request: HttpRequest, rest) -> HttpResponse:
+        """The cluster admin surface of a router (ref:
+        ``_handle_cluster``):
+
+        - ``GET /api/cluster``: the router's health document (ring,
+          peers, spools, counters);
+        - ``GET /api/cluster/status``: the operator progress document
+          (spool backlog and dirty debt per peer, with drain ETAs);
+        - ``GET /api/cluster/reshard``: the ring's epoch document.
+
+        ``POST /api/cluster/reshard`` (a new ring) and ``POST
+        /api/cluster/gossip`` (a sibling router's push) need
+        resharding and sibling routers (ROADMAP Queue 1, item 1.6d):
+        the first answers 501, the second the reference's 400, since
+        ``tsd.cluster.routers`` cannot be set."""
+        cluster = self.tsdb.cluster
+        if cluster is None:
+            raise HttpError(400, "/api/cluster requires tsd.cluster.role "
+                            "= router", "this TSD is not a cluster router")
+        sub = rest[0] if rest else ""
+        if sub == "status":
+            if request.method != "GET":
+                raise HttpError(405, "Method not allowed")
+            return HttpResponse(200, json.dumps(
+                cluster.cluster_status()).encode())
+        if sub == "gossip":
+            if request.method != "POST":
+                raise HttpError(405, "Method not allowed")
+            raise HttpError(400, "gossip is not configured on this router",
+                            "set tsd.cluster.routers to the sibling list")
+        if sub == "reshard":
+            if request.method == "POST":
+                raise NotImplementedError(
+                    "POST /api/cluster/reshard installs a new ring, "
+                    "which is not ported yet (ROADMAP Queue 1, item "
+                    "1.6d, replication and resharding)")
+            if request.method == "GET":
+                return HttpResponse(200, json.dumps(
+                    cluster.reshard_info()).encode())
+            raise HttpError(405, "Method not allowed")
+        if rest:
+            raise HttpError(404, f"Endpoint not found: /api/cluster/{sub}")
+        if request.method != "GET":
+            raise HttpError(405, "Method not allowed")
+        return HttpResponse(200, json.dumps(
+            cluster.health_info()).encode())
 
     def _handle_control(self, request: HttpRequest, rest) -> HttpResponse:
         """The control plane (ref: ``_handle_control``):
@@ -1627,8 +1845,10 @@ class HttpRpcRouter:
         """``/api/health`` (ref: ``_handle_health``): the WAL, every
         breaker, the caches, the continuous queries, the lifecycle, the
         stores' footprint, the latency percentiles, SLO burn, the
-        profiler, the tracer, the telemetry pump and the control plane,
-        with the connections and admission when a server is attached.
+        profiler, the tracer, the telemetry pump, the cluster tier (a
+        router's peers, spools and fleet rows, else the role) and the
+        control plane, with the connections and admission when a server
+        is attached.
         Always 200: ``status`` carries the verdict and ``causes`` why.
         Each lazy subsystem is read through its raw attribute, so health
         never builds one to report it absent."""
@@ -1675,6 +1895,29 @@ class HttpRpcRouter:
         else:
             lifecycle_info = {"enabled": t.config.get_bool(
                 "tsd.lifecycle.enable", False)}
+        clus = t._cluster
+        if clus is not None:
+            cluster_info = clus.health_info()
+            # one status row per shard (a scattered /api/health, breaker
+            # aware): an unreachable shard is a row, never a 5xx here
+            cluster_info["fleet"] = clus.fleet_health()
+            if cluster_info["fleet"]["degraded"]:
+                causes.append("fleet_shards_degraded")
+            dirty_age = cluster_info["replica_dirty"].get("oldest_age_s",
+                                                          0)
+            rr_age = cluster_info["read_repair"].get(
+                "oldest_pending_age_s", 0)
+            if dirty_age > 3600 or rr_age > 3600:
+                causes.append("replica_dirty_debt_stale")
+            for _name, peer in sorted(clus.peers.items()):
+                # a shard being served around (degraded partials and
+                # spooled writes), not failed
+                breaker(peer.breaker)
+            if cluster_info["spool_backlog_records"]:
+                causes.append("cluster_spool_backlog")
+        else:
+            cluster_info = {"role": t.config.get_string(
+                "tsd.cluster.role", "") or "standalone"}
         ctl = t._control
         if ctl is not None:
             control_info = ctl.describe()
@@ -1700,8 +1943,8 @@ class HttpRpcRouter:
             "profiler": t.profiler.health_info(),
             "trace": t.tracer.health_info(),
             "telemetry": t.telemetry.health_info(),
-            # the reference's block when it runs no cluster router
-            "cluster": {"role": "standalone"},
+            # the router's peers, spools and counters, or the role
+            "cluster": cluster_info,
             "control": control_info,
             "hook_errors": dict(t.hook_errors),
         }

@@ -24,6 +24,7 @@ for them), as the reference writes them.
 
 from __future__ import annotations
 
+import base64
 import json
 import math
 from typing import Any
@@ -169,7 +170,8 @@ class HttpJsonSerializer(HttpSerializer):
         """Everything before "dps", serialized; ends with ``b'}'``."""
         notes = not ts_query.no_annotations and r.annotations
         global_notes = ts_query.global_annotations and r.global_annotations
-        if not (ts_query.show_query or r.tsuids or notes or global_notes):
+        if not (ts_query.show_query or r.tsuids or notes or global_notes
+                or r.sketches):
             # the common head: metric and tag names pass
             # tags.validate_string, so no JSON escaping is needed and
             # one f-string beats json.dumps per group
@@ -196,6 +198,13 @@ class HttpJsonSerializer(HttpSerializer):
         if global_notes:
             obj["globalAnnotations"] = [a.to_json()
                                         for a in r.global_annotations]
+        if r.sketches:
+            # a shard's sketch partials for a cluster router: the
+            # serialized per-bucket sketches ride next to the (empty)
+            # dps, so the router merges them exactly (ref)
+            obj["sketchDps"] = [
+                [int(t), base64.b64encode(b).decode("ascii")]
+                for t, b in r.sketches]
         return self._dump(obj)
 
     def _bulk_columns(self, r, ms: bool, as_arrays: bool):
@@ -227,9 +236,13 @@ class HttpJsonSerializer(HttpSerializer):
                      as_arrays: bool = False,
                      show_summary: bool = False,
                      show_stats: bool = False,
-                     summary_extra: dict | None = None) -> bytes:
+                     summary_extra: dict | None = None,
+                     degraded_shards: list | None = None) -> bytes:
         """(ref: formatQueryAsyncV1) ``dps`` as {ts: value} maps, or
-        [[ts, value], ...] when the ``arrays`` query param is set."""
+        [[ts, value], ...] when the ``arrays`` query param is set.
+        ``degraded_shards`` names the cluster shards that could not
+        contribute: the 200 is a partial, marked by a trailing
+        ``{"shardsDegraded": [...]}`` row (ref)."""
         ms = ts_query.ms_resolution
         pieces = []
         # showStats: a per-result "stats" map (ref:
@@ -245,6 +258,9 @@ class HttpJsonSerializer(HttpSerializer):
             # formatQueryAsyncV1wStatsWoSummary has row stats, no tail)
             pieces.append(self._dump(
                 {"statsSummary": summary_extra or {}}))
+        if degraded_shards:
+            pieces.append(self._dump(
+                {"shardsDegraded": sorted(degraded_shards)}))
         return b"[" + b",".join(pieces) + b"]"
 
     def stream_query(self, ts_query, results: list,

@@ -5,7 +5,9 @@ One asyncio server on one port speaking both HTTP and the telnet line
 protocol, told apart by sniffing the first bytes of a connection as
 the reference's ``DetectHttpOrRpc`` does (PipelineFactory.java:134-171):
 a first token that looks like an HTTP method makes the connection HTTP
-(with keep-alive), otherwise each line is a telnet command.
+(with keep-alive), the ``TSDW`` preamble a cluster router's binary wire
+session (:func:`opentsdb_tpu_torch.cluster.wire.serve_wire`), and
+otherwise each line is a telnet command.
 
 The event loop never touches the device: queries run on a bounded
 ``tsd-query`` pool (``tsd.query.workers``), every other request and the
@@ -17,7 +19,8 @@ away closes the stream's generator. :meth:`TSDServer.start` starts the
 continuous queries' fold workers, the warmup thread
 (:mod:`~opentsdb_tpu_torch.tsd.warmup`), the lifecycle's sweeper, the
 control plane (with ``tsd.control.enable``), the self-telemetry pump
-(with ``tsd.stats.self_interval``) and the sampling profiler;
+(with ``tsd.stats.self_interval``), the sampling profiler and, on a
+cluster router, the router's spool replay thread;
 :meth:`TSDServer.stop` stops the warmup, ends the event streams, closes
 the listener, joins both pools and the warmup thread, and shuts the
 TSDB down, which joins the rest.
@@ -235,6 +238,8 @@ class TSDServer:
         self._shutdown = asyncio.Event()
         self._loop: asyncio.AbstractEventLoop | None = None
         self._warmup_thread: threading.Thread | None = None
+        # the cluster wire sessions a router opened to this shard
+        self._wire_sessions: set[asyncio.Task] = set()
 
     # -- life cycle ----------------------------------------------------
 
@@ -261,6 +266,13 @@ class TSDServer:
         lifecycle = self.tsdb.lifecycle
         if lifecycle is not None:
             lifecycle.start()
+        # a router's shard map (ref: the server's start): made here, so
+        # a bad tsd.cluster.peers fails the start, and its replay
+        # thread drains the spools with no traffic. TSDB.shutdown stops
+        # it.
+        cluster = self.tsdb.cluster
+        if cluster is not None:
+            cluster.start()
         # the control plane's loop (tsd.control.enable), the telemetry
         # pump (tsd.stats.self_interval > 0) and the profiler
         # (tsd.profile.enable): TSDB.shutdown joins them
@@ -295,6 +307,14 @@ class TSDServer:
                 LOG.warning("connections still open after 10s; "
                             "forcing shutdown")
             self._server = None
+        # wire sessions poll the listener and end on their own, but a
+        # caller that stops the loop right after this would abandon
+        # them mid-poll: cancel them here (ref)
+        sessions = list(self._wire_sessions)
+        for task in sessions:
+            task.cancel()
+        if sessions:
+            await asyncio.gather(*sessions, return_exceptions=True)
         # a timed-out query may still run: the join waits for it, so no
         # worker outlives the server
         self._query_pool.shutdown(wait=True, cancel_futures=True)
@@ -353,6 +373,8 @@ class TSDServer:
                 return
             if first in _HTTP_METHODS or first[:3] == b"GET":
                 await self._serve_http(first, reader, writer)
+            elif first == b"TSDW":
+                await self._serve_wire(reader, writer)
             else:
                 await self._serve_telnet(first, reader, writer)
         except (ConnectionError, asyncio.IncompleteReadError):
@@ -374,6 +396,23 @@ class TSDServer:
                 await writer.wait_closed()
             except ConnectionError:
                 pass  # the peer reset an already-closing connection
+
+    # -- cluster wire --------------------------------------------------
+
+    async def _serve_wire(self, reader, writer) -> None:
+        """One binary cluster wire session (a router sniffed in by the
+        ``TSDW`` magic; ref: ``_serve_wire``). Frames are read directly,
+        not through ``_on_client``: a persistent link is idle between
+        deliveries by design, and the session's listener watchdog and
+        :meth:`stop`'s cancel bound its life instead of the idle
+        reaper."""
+        from opentsdb_tpu_torch.cluster import wire as wire_mod
+        task = asyncio.current_task()
+        self._wire_sessions.add(task)
+        try:
+            await wire_mod.serve_wire(self, reader, writer)
+        finally:
+            self._wire_sessions.discard(task)
 
     # -- telnet --------------------------------------------------------
 

@@ -135,6 +135,8 @@ class TelnetRouter:
             tracer.finish(tctx)
 
     def _put_lines_run(self, lines: list[str]) -> list[str]:
+        if self.tsdb.cluster is not None:
+            return self._put_lines_cluster(lines)
         with self.tsdb._wal_scope():
             if len(lines) > 1 and self.tsdb.store.backend == "native":
                 return self._put_lines_native(lines)
@@ -199,28 +201,74 @@ class TelnetRouter:
             on_error=replay)
         return out
 
+    def _put_lines_cluster(self, lines: list[str]) -> list[str]:
+        """Router role (ref: ``_put_lines_cluster``): one parse pass
+        builds the burst's points, which forward through the
+        consistent-hash partition (one series-grouped body per shard)
+        and spool for an unreachable shard as HTTP puts do. A rejected
+        line answers through the scalar parse, so its text is a
+        standalone TSD's."""
+        out: list[str] = []
+        dps: list[dict] = []
+        for line in lines:
+            words = line.split()
+            if len(words) < 5:
+                out.append(self._cmd_put(words))
+                continue
+            try:
+                metric, ts, value, tags = self._parse_put_words(words)
+            except Exception as e:  # noqa: BLE001 - per-line report
+                out.append(f"put: {type(e).__name__}: {e}")
+                continue
+            dps.append({"metric": metric, "timestamp": ts,
+                        "value": value, "tags": tags})
+        if dps:
+            _ok, bad, errs = self.tsdb.cluster.forward_writes(dps)
+            if bad:
+                out.extend(f"put: {e.get('error', 'forward failed')}"
+                           for e in errs)
+        return out
+
     # ------------------------------------------------------------------
 
-    @staticmethod
-    def _parse_put_words(words: list[str]
+    def _parse_put_words(self, words: list[str]
                          ) -> tuple[str, int, int | float, dict]:
-        """The scalar parse of one ``put`` line."""
+        """The scalar parse of one ``put`` line. On a cluster router it
+        also runs the checks a shard's write would (ref:
+        ``_parse_put_words``), so a rejected line's text is the one a
+        standalone TSD answers."""
         metric = words[1]
         ts = int(words[2])
         # strict: int()/float() leniency (underscores, whitespace,
         # unicode digits) would store another number than was sent
         value = tags_mod.parse_put_value(words[3], allow_special=True)
         tags = dict(tags_mod.parse(w) for w in words[4:])
+        if self.tsdb.cluster is not None:
+            self.tsdb._check_timestamp(ts)
+            tags_mod.check_metric_and_tags(metric, tags)
         return metric, ts, value, tags
 
     def _cmd_put(self, words: list[str]) -> str:
         """``put <metric> <timestamp> <value> <tagk=tagv> [...]``
-        (ref: PutDataPointRpc.execute :129)"""
+        (ref: PutDataPointRpc.execute :129). On a cluster router the
+        point forwards to its owner."""
         if len(words) < 5:
             return ("put: illegal argument: not enough arguments "
                     f"(need least 4, got {len(words) - 1})")
         try:
             metric, ts, value, tags = self._parse_put_words(words)
+            cluster = self.tsdb.cluster
+            if cluster is not None:
+                # a router forwards the point to its owner (spooling
+                # like an HTTP put) and answers the same error text
+                _ok, bad, errs = cluster.forward_writes(
+                    [{"metric": metric, "timestamp": ts,
+                      "value": value, "tags": tags}])
+                if bad:
+                    detail = errs[0].get("error", "forward failed") \
+                        if errs else "forward failed"
+                    return f"put: {detail}"
+                return ""
             self.tsdb.add_point(metric, ts, value, tags)
             return ""  # silent on success
         except Exception as e:  # noqa: BLE001 - the error line is the answer

@@ -311,8 +311,40 @@ _DECLARED_EXTRA: frozenset[str] = frozenset({
     "tsd.tpu.warmup.buckets",
     "tsd.tpu.warmup.budget_s",
     "tsd.tpu.warmup.percentiles",
-    # refused by name when set (query/engine.py::refuse_unported_keys)
+    # the cluster tier at one replica (cluster/); tsd.cluster.rf above
+    # 1 and tsd.cluster.routers are refused by name
+    # (query/engine.py::refuse_unported_keys)
     "tsd.cluster.role",
+    "tsd.cluster.peers",
+    "tsd.cluster.vnodes",
+    "tsd.cluster.rf",
+    "tsd.cluster.routers",
+    "tsd.cluster.replica.repair",
+    "tsd.cluster.timeout_ms",
+    "tsd.cluster.hedge_after_ms",
+    "tsd.cluster.wire.enable",
+    "tsd.cluster.wire.max_inflight",
+    "tsd.cluster.wire.fallback_ttl_ms",
+    "tsd.cluster.wire.connect_timeout_ms",
+    "tsd.cluster.sub_retry.max_concurrent",
+    "tsd.cluster.sub_memo.ttl_ms",
+    "tsd.cluster.sub_memo.max_entries",
+    "tsd.cluster.metric_versions.max_entries",
+    "tsd.cluster.retry.attempts",
+    "tsd.cluster.retry.base_ms",
+    "tsd.cluster.retry.max_ms",
+    "tsd.cluster.retry.deadline_ms",
+    "tsd.cluster.breaker.failure_threshold",
+    "tsd.cluster.breaker.reset_timeout_ms",
+    "tsd.cluster.spool.dir",
+    "tsd.cluster.spool.max_mb",
+    "tsd.cluster.spool.compact_mb",
+    "tsd.cluster.spool.replay_interval_ms",
+    "tsd.cluster.spool.replay_batch",
+    "tsd.cluster.fanout_workers",
+    "tsd.cluster.fleet_health_ttl_ms",
+    "tsd.cluster.read_repair.enable",
+    "tsd.cluster.read_repair.max_pending",
 })
 
 # key families with tails from the config itself: fault arming

@@ -17,9 +17,13 @@ them.
   ``lifecycle.demote``, ``lifecycle.histogram``, ``sketch.fold``,
   ``coldstore.read``, ``coldstore.write``), and the control plane's
   actuators (``control.materialize``, ``control.qos``,
-  ``control.placement``). A key that names a site of the reference's
-  cluster, which the port lacks, raises NotImplementedError; a key that
-  names no site at all warns.
+  ``control.placement``), and the cluster router's (``cluster.peer``
+  and ``cluster.peer.<name>`` on every peer exchange, ``cluster.wire``
+  and ``cluster.wire.<name>`` on the binary wire, ``cluster.replica``
+  on a repair pass). A key that names a site of the reference's
+  replication, resharding, gossip or federated continuous queries,
+  which the port lacks, raises NotImplementedError naming its ROADMAP
+  item; a key that names no site at all warns.
   An error rate is a counted schedule (call ``i`` fails iff
   ``floor(i * r)`` advances), never a coin flip, so a failure
   reproduces.
@@ -37,8 +41,6 @@ them.
   of the cold segments answer 503 while open, where the reference
   serves the rest of the history.
 
-The reference's ``cluster.*`` sites belong to ``cluster/``, which the
-port has not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -71,13 +73,35 @@ KNOWN_SITES: frozenset[str] = frozenset({
     "control.materialize",  # control/plane.py materialize actuator
     "control.qos",        # control/plane.py tenant QoS actuator
     "control.placement",  # control/plane.py placement actuator
+    "cluster.peer",       # cluster/router.py any-peer exchange
+    "cluster.replica",    # cluster/router.py anti-entropy repair pass
+    "cluster.wire",       # cluster/wire.py router-side wire exchange
 })
 
-# the reference's sites of subsystems the port has not ported yet: a
-# key that arms one is refused, since nothing here would check it
-UNPORTED_SITE_PREFIXES: dict[str, str] = {
-    "cluster.": "cluster/",
+# site families with per-peer tails (ref: DYNAMIC_SITE_PREFIXES, less
+# the gossip's and the federated continuous queries')
+DYNAMIC_SITE_PREFIXES: tuple[str, ...] = ("cluster.peer.",
+                                          "cluster.wire.")
+
+# the reference's sites of subsystems the port has not ported yet:
+# site prefix -> (its module, the ROADMAP Queue 1 item that ports it);
+# a key that arms one is refused, since nothing here would check it
+UNPORTED_SITE_PREFIXES: dict[str, tuple[str, str]] = {
+    "cluster.reshard": ("cluster/reshard.py",
+                        "item 1.6d, replication and resharding"),
+    "cluster.retire": ("cluster/retire.py",
+                       "item 1.6d, replication and resharding"),
+    "cluster.gossip": ("cluster/gossip.py",
+                       "item 1.6d, replication and resharding"),
+    "cluster.cq": ("cluster/cq.py",
+                   "item 1.6e, federated continuous queries"),
 }
+
+
+def is_known_site(site: str) -> bool:
+    """A site of :data:`KNOWN_SITES`, or of a per-peer family."""
+    return site in KNOWN_SITES or \
+        any(site.startswith(p) for p in DYNAMIC_SITE_PREFIXES)
 
 
 class InjectedFault(OSError):
@@ -145,14 +169,13 @@ class FaultInjector:
                     break
             else:
                 continue
-            for prefix, what in UNPORTED_SITE_PREFIXES.items():
+            for prefix, (what, item) in UNPORTED_SITE_PREFIXES.items():
                 if site.startswith(prefix):
                     raise NotImplementedError(
                         f"config key {key!r} arms the fault site "
                         f"{site!r} of {what}, which is not ported yet "
-                        "(ROADMAP Queue 1, the rest, with no device "
-                        "compute); remove the key")
-            if site not in KNOWN_SITES:
+                        f"(ROADMAP Queue 1, {item}); remove the key")
+            if not is_known_site(site):
                 # a typo would arm nothing: say so, but come up
                 logging.getLogger("faults").warning(
                     "config key %r arms unknown fault site %r; known "
@@ -172,7 +195,7 @@ class FaultInjector:
             error_count: int = 0, latency_ms: float = 0.0) -> FaultPoint:
         """Arm ``site`` (tests); an unknown site raises, so a typo
         cannot test nothing."""
-        if site not in KNOWN_SITES:
+        if not is_known_site(site):
             raise ValueError(f"unknown fault site {site!r}; known sites: "
                              f"{', '.join(sorted(KNOWN_SITES))}")
         with self._lock:

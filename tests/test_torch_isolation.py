@@ -78,6 +78,22 @@ def test_default_device_is_cuda():
                        "tsd.torch.dtype": "float16"}))
 
 
+@pytest.mark.parametrize("role", ["shard", "router"])
+def test_cluster_roles_follow_the_device_key(role):
+    """A shard and a router TSD take ``tsd.torch.device`` as any TSD:
+    the card by default (refused without one), the CPU when asked."""
+    from opentsdb_tpu_torch import TSDB, Config
+    keys = {"tsd.cluster.role": role,
+            "tsd.cluster.peers": "s0=127.0.0.1:1"}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TSDB(Config(**keys))
+    t = TSDB(Config(**keys, **{"tsd.torch.device": "cpu"}))
+    assert t.device.type == "cpu"
+    assert (t.cluster is not None) == (role == "router")
+    t.shutdown()
+
+
 def test_tsd_refuses_cuda_without_a_card():
     """The TSD entry point asked for the card (its default, and
     explicitly) on a machine without one exits non-zero with the device

@@ -175,7 +175,8 @@ def test_every_key_the_port_reads_is_declared():
         keys |= set(re.findall(r'"(tsd\.[A-Za-z0-9_.]+)"',
                                path.read_text()))
     prefixes = {"tsd.server"} | set(PORT.config.PLUGIN_SLOTS) | {
-        "tsd.storage.wal.retry", "tsd.storage.flush.retry"}
+        "tsd.storage.wal.retry", "tsd.storage.flush.retry",
+        "tsd.cluster.retry"}
     undeclared = sorted(k for k in keys if not k.endswith(".")
                         and k not in prefixes
                         and not PORT.config.is_declared_key(k))

@@ -208,3 +208,125 @@ def test_random_metric_uids_in_the_stats():
 
     tt.uids.metrics.collect_stats(Rec())
     assert ("uid.random-id-collisions", 0, {"kind": "metric"}) in rows
+
+
+# -- the cluster tier: what stays refused (ROADMAP Queue 1, 1.6d-1.6e) --------
+
+ROUTER = {**CPU, "tsd.cluster.role": "router",
+          "tsd.cluster.peers": "s0=127.0.0.1:1,s1=127.0.0.1:2"}
+JROUTER = {**JCPU, "tsd.cluster.role": "router",
+           "tsd.cluster.peers": "s0=127.0.0.1:1,s1=127.0.0.1:2"}
+
+
+@pytest.mark.parametrize("key,value", [
+    ("tsd.cluster.rf", "2"), ("tsd.cluster.rf", "3"),
+    ("tsd.cluster.routers", "r1=127.0.0.1:9")])
+def test_replication_keys_refused(key, value):
+    """Replication and the sibling routers' gossip are item 1.6d: the
+    TSDB refuses to build, where the reference serves them."""
+    j = JTSDB(JConfig(**{**JROUTER, key: value}))
+    j.shutdown()
+    with pytest.raises(NotImplementedError,
+                       match=f"{key}={value} .*ROADMAP Queue 1, item 1.6d"):
+        TSDB(Config(**{**ROUTER, key: value}))
+    TSDB(Config(**{**ROUTER, key: "1" if key.endswith("rf") else ""})
+         ).shutdown()
+
+
+def test_placement_auto_refused_on_a_router():
+    keys = {"tsd.control.enable": "true",
+            "tsd.control.placement.auto": "true"}
+    with pytest.raises(NotImplementedError,
+                       match="placement.auto.*ROADMAP Queue 1, item 1.6d"):
+        TSDB(Config(**{**ROUTER, **keys}))
+    # not a router: the key applies nothing, as in the reference
+    TSDB(Config(**{**CPU, **keys})).shutdown()
+
+
+def _router_pair():
+    t = TSDB(Config(**ROUTER))
+    j = JTSDB(JConfig(**JROUTER))
+    return t, j
+
+
+def _call(router, request_cls, method, path, body=None):
+    import json
+    return router.handle(request_cls(
+        method=method, path=path,
+        body=json.dumps(body).encode() if body is not None else b""))
+
+
+@pytest.mark.parametrize("method,path,item", [
+    ("POST", "/api/cluster/reshard", "1.6d"),
+    ("POST", "/api/query/continuous", "1.6e"),
+    ("GET", "/api/query/continuous", "1.6e")])
+def test_router_endpoints_refused(method, path, item):
+    """Resharding (1.6d) and federated continuous queries (1.6e) answer
+    a structured 501 on the port's router, naming the item."""
+    import json
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest
+    t, j = _router_pair()
+    try:
+        resp = _call(HttpRpcRouter(t), HttpRequest, method, path,
+                     {"peers": "s0=127.0.0.1:1", "vnodes": 64})
+        assert resp.status == 501
+        msg = json.loads(resp.body)["error"]["message"]
+        assert f"ROADMAP Queue 1, item {item}" in msg
+    finally:
+        t.shutdown()
+        j.shutdown()
+
+
+def test_gossip_answers_the_reference_s_400():
+    """No sibling routers can be named, so ``POST /api/cluster/gossip``
+    answers the reference's 400 for a router without them."""
+    from opentsdb_tpu.tsd.http_api import HttpRequest as JRequest
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest
+    t, j = _router_pair()
+    try:
+        got = [_call(HttpRpcRouter(t), HttpRequest, "POST",
+                     "/api/cluster/gossip", {}),
+               _call(JRouter(j), JRequest, "POST", "/api/cluster/gossip",
+                     {})]
+        assert got[0].status == got[1].status == 400
+        assert got[0].body == got[1].body
+    finally:
+        t.shutdown()
+        j.shutdown()
+
+
+def test_a_confirmed_placement_plan_is_refused():
+    """A standing proposal confirmed by its planId would reshard the
+    ring (1.6d): the port's plane raises where the reference reshards;
+    the reference's 400s for no proposal and a stale id stay."""
+    from opentsdb_tpu_torch.query.model import BadRequestError
+    t = TSDB(Config(**{**ROUTER, "tsd.control.enable": "true",
+                       "tsd.control.placement.hot_ratio": "1.5"}))
+    try:
+        plane = t.control
+        with pytest.raises(BadRequestError, match="no reshard proposal"):
+            plane.apply_plan("x")
+        router = t.cluster
+        router.peers["s0"].forwarded_points = 1000
+        router.peers["s1"].forwarded_points = 10
+        plane._placement_tick(0, {})
+        plan = plane.plan_info()
+        assert plan["hotShards"] == ["s0"] and plan["planId"]
+        with pytest.raises(BadRequestError, match="planId does not match"):
+            plane.apply_plan("stale")
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1, item 1.6d"):
+            plane.apply_plan(plan["planId"])
+    finally:
+        t.shutdown()
+
+
+def test_replica_sel_refused_on_a_shard():
+    """A replicated router's read plan (``replicaSel``) is 1.6d: the
+    shard refuses it rather than read every series it owns."""
+    from opentsdb_tpu_torch.query.model import TSQuery
+    with pytest.raises(NotImplementedError,
+                       match="replicaSel.*ROADMAP Queue 1, item 1.6d"):
+        TSQuery.from_json({"start": "1h-ago", "queries": [
+            {"metric": "m", "aggregator": "sum"}],
+            "replicaSel": {"peers": ["s0"], "sets": [["s0"]]}})

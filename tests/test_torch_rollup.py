@@ -750,16 +750,37 @@ def test_rollup_usage_is_part_of_the_cache_key():
     ("tsd.lifecycle.enable", "true"),
     ("tsd.cluster.role", "shard"),
     ("tsd.cluster.role", "router"),
+    ("tsd.cluster.rf", "2"),
+    ("tsd.cluster.routers", "r1=127.0.0.1:1"),
     ("tsd.core.meta.enable_realtime_ts", "true"),
     ("tsd.core.meta.enable_realtime_uid", "true"),
     ("tsd.core.meta.enable_tsuid_incrementing", "true"),
     ("tsd.core.meta.enable_tsuid_tracking", "true"),
     ("tsd.core.tree.enable_processing", "true")])
 def test_unported_subsystem_keys_refused(key, value):
-    """Cluster keys still raise; the meta and tree keys (ported) start a
-    TSDB that tracks as the JAX package's does, and the lifecycle key
+    """Replication's cluster keys still raise, naming their Queue 1
+    item; the role (ported) builds a TSDB whose router, or its absence,
+    is the JAX package's; the meta and tree keys (ported) start a TSDB
+    that tracks as the JAX package's does, and the lifecycle key
     (ported) one whose lifecycle describes itself as the JAX package's
     does."""
+    if key == "tsd.cluster.role":
+        t = TSDB(Config(**{"tsd.torch.device": "cpu", key: value}))
+        j = JTSDB(JConfig(**{"tsd.tpu.platform": "cpu", key: value}))
+        if value == "shard":
+            assert t.cluster is None and j.cluster is None
+            assert t._wal_group_window_ms() == j._wal_group_window_ms()
+        else:
+            # a router needs its peers, in both packages
+            errors = []
+            for x in (t, j):
+                with pytest.raises(ValueError) as e:
+                    x.cluster
+                errors.append(str(e.value))
+            assert errors[0] == errors[1]
+        t.shutdown()
+        j.shutdown()
+        return
     if key == "tsd.lifecycle.enable":
         keys = {key: value, "tsd.core.auto_create_metrics": "true",
                 "tsd.rollups.enable": "true",
@@ -787,10 +808,10 @@ def test_unported_subsystem_keys_refused(key, value):
         return
     with pytest.raises(NotImplementedError,
                        match=f"{key}={value} .*not ported yet \\(ROADMAP "
-                       "Queue 1, the rest, with no device compute\\)"):
+                       "Queue 1, item 1.6d, replication and resharding\\)"):
         TSDB(Config(**{"tsd.torch.device": "cpu", key: value}))
     # the default, spelled out, is no refusal
-    off = "" if key == "tsd.cluster.role" else "false"
+    off = "1" if key == "tsd.cluster.rf" else ""
     TSDB(Config(**{"tsd.torch.device": "cpu", key: off}))
 
 

@@ -10,7 +10,8 @@ metrics against the JAX package's, on the CPU.
   float64), with group-by, filters, downsample and a partial window;
   each value lies within ``alpha`` of the exact order statistic; with
   ``tsd.sketch.enable=false`` both answer nothing. ``sketchPartials``
-  (a cluster router's request) raises NotImplementedError.
+  (a cluster router's request) gives each group's per-bucket sketches,
+  their bytes equal to the reference's.
 """
 
 import numpy as np
@@ -246,12 +247,18 @@ def test_unknown_metric_and_partials(pair):
     with pytest.raises(ValueError) as je:
         jt.execute_query(JQuery.from_json(body).validate())
     assert str(te.value) == str(je.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        TSQuery.from_json({**SCALAR_QUERIES["whole"],
-                           "sketchPartials": True})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tsq_mod.run_sketch_percentiles(
-            tt, TSQuery.from_json(SCALAR_QUERIES["whole"]).validate(),
-            TSQuery.from_json(SCALAR_QUERIES["whole"]).validate()
-            .queries[0], partials=True)
+    # a router's sketchPartials: one row per group with its per-bucket
+    # sketches, the reference's bytes
+    parts = []
+    for side, t, Q in (("port", tt, TSQuery), ("jax", jt, JQuery)):
+        tq = Q.from_json({**SCALAR_QUERIES["group-by"],
+                          "sketchPartials": True}).validate()
+        assert tq.sketch_partials
+        mod = tsq_mod if side == "port" else jsq
+        got = mod.run_sketch_percentiles(t, tq, tq.queries[0],
+                                         partials=True)
+        parts.append(sorted((r.metric, sorted(r.tags.items()),
+                             [(int(ts), bytes(b)) for ts, b in r.sketches])
+                            for r in got))
+    assert parts[0] == parts[1] and parts[0]
     assert tsq_mod._config_sketch(tt) == jsq._config_sketch(jt)

@@ -53,10 +53,14 @@ def _tracer(side, **over):
 
 
 def test_known_spans_are_the_reference_s_but_cluster():
-    """The closed registry: the reference's names less ``cluster.*``,
-    which come with ``cluster/``."""
-    assert PORT.trace.KNOWN_SPANS == {
-        n for n in JAX.trace.KNOWN_SPANS if not n.startswith("cluster.")}
+    """The closed registry: the reference's names less those of the
+    cluster's resharding, retirement, gossip and federated continuous
+    queries, which come with those subsystems (ROADMAP Queue 1, items
+    1.6d-1.6e); the router's came with ``cluster/``."""
+    unported = {"cluster.reshard.backfill", "cluster.retire",
+                "cluster.gossip.push", "cluster.cq", "cluster.cq.pump"}
+    assert unported <= JAX.trace.KNOWN_SPANS
+    assert PORT.trace.KNOWN_SPANS == JAX.trace.KNOWN_SPANS - unported
 
 
 def test_sampling_is_deterministic():
