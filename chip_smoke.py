@@ -47,9 +47,14 @@
    each point jittered by 0-9 s and 2% of them dropped (seed 0),
    queried as ``sum:5m-last:rate`` by ``dc`` (the padded layout),
    ``p99:5m-median`` by ``rack`` (the flat layout, rank downsample and
-   rank group stage), ``avg:15mc-max`` by ``dc`` in
-   ``America/New_York`` (calendar buckets) and ``sum`` by ``dc`` with
-   no downsample (a union grid of up to 600 timestamps, flat). Each
+   rank group stage) and ``avg:15mc-max`` by ``dc`` in
+   ``America/New_York`` (calendar buckets), and ``sum`` with no
+   downsample over ``dc0`` and ``dc1`` (a union grid of up to 600
+   timestamps; CUT from all of ``dc=*`` for the run's time, with
+   the cell budget cut alike, ``UNION_SHARE``), which streams in 9 time
+   blocks as the full width did: the blocked counters must move on
+   it alone, and its peak device memory must be below the staged,
+   unblocked run's. Each
    answer is checked against the same query through the port on the
    CPU in float64 over a twentieth of its groups (each with all of its
    series; ``CPU64_SHARE``, CUT from a tenth), two cold calls and the warm call (a prepared-batch hit;
@@ -57,10 +62,7 @@
    for the run's time) must give the same bits, and neither kernel may
    launch; prints
    the stage p50s, the peak device memory and, with ``--profile``, the
-   device's idle share. The union grid's S x B exceeds the cell budget
-   at full width: it streams in time blocks (no prepared batch, one
-   warm call, each stage timed once), and its staged unblocked run
-   must equal it bit for bit, both peaks printed;
+   device's idle share;
 8. the front end (run after phase 5, on phase 3's TSDB and keys,
    before phase 6 writes a point that makes one series irregular):
    the port's ``TSDServer`` in process on an ephemeral port, driven
@@ -106,11 +108,13 @@
    directory recovers (snapshot load and WAL replay timed apart),
    must read back every point, and answers ``{dc=*}`` and ``{rack=*}``
    with one K1 or K2 launch each, bit for bit as (a)'s TSDB that never
-   died; (d) ``flush()`` (seconds, snapshot bytes, segments truncated),
-   a restart from the snapshot alone with the same answers, then one
-   out-of-order point on series 0 by a killed child process, read back
-   after the restart and in the rewritten answer, equal to (a)'s TSDB
-   after the same write;
+   died; (d) ``flush()`` (seconds, snapshot bytes, segments truncated)
+   and a restart from the snapshot alone with the same answers; then
+   one out-of-order point on series 0, acknowledged and dropped
+   unflushed (by this process: the second killed writer was CUT for
+   the run's time), must replay from the WAL tail past the snapshot,
+   read back, and give ``{dc=*}`` (one K1 launch) bit for bit as (a)'s
+   TSDB after the same write;
 11. blocked long ranges: a fresh TSDB on the native store at the
    default keys but the result cache, holding config 3's 1M series
    over two hours (120 points a minute apart, 2% dropped, seed 0, no
@@ -118,9 +122,9 @@
    crosses the block edge) and ``avg:1m-avg`` by ``rack`` (LERP's prev
    and next carries, 2000 groups). S x B exceeds the cell budget, so
    the grid path declines and the point path streams 2 blocks: the
-   blocked counters must move and neither kernel launch, a cold call
-   and the staged run (a second blocked run) must give the same bits
-   (a second cold call was CUT for the run's time), the answer must
+   blocked counters must move and neither kernel launch (a second cold
+   call, and then the staged run, a second blocked run timed stage by
+   stage, were CUT for the run's time), the answer must
    equal the unblocked point path's
    (``tsd.query.max_device_cells=268435456``,
    ``grid_reduce=false``) bit for bit and the port on the CPU in
@@ -128,9 +132,9 @@
    with all of its series; CUT from all groups, then a tenth, for the
    run's time); prints
    both device peaks (the
-   blocked one must be the lower), the stage times (plan, materialize,
-   assign, flatten, the host split into blocks, pass 1, pass 2,
-   assemble) and, with ``--profile``, the device's idle share;
+   blocked one must be the lower), the host stages before the blocks
+   (plan, materialize, assign) and, with ``--profile``, the device's
+   idle share;
 12. histograms, BASELINE config 4 (``bench_e2e.py:253-282``), on a
    fresh TSDB at the default keys but the result cache: (a) 125k series
    (``HIST_CUT``: CUT from config 4's 1M, to 250k then 125k, for the
@@ -364,9 +368,9 @@
    shard TSDs (``tsd.cluster.role=shard``, phase 3's keys, each a
    ``TSDServer`` on 127.0.0.1) behind a router TSD
    (``tsd.cluster.role=router``, the binary wire on, a spool dir under
-   ``$TMPDIR``). (a) Config 3's series of ``dc0``-``dc59`` (600k, CUT
+   ``$TMPDIR``). (a) Config 3's series of ``dc0``-``dc51`` (520k, CUT
    from 1M: every ``{dc=*}`` and ``{rack=*}`` group of the cut is a
-   whole group of phase 3's answer, and each shard keeps 1200 racks, so
+   whole group of phase 3's answer, and each shard keeps 1040 racks, so
    ``{rack=*}`` runs K2 there) from phase 3's values, placed by the
    router's ring, each shard loading its own by ``add_series_points``;
    the series on each shard against ``ring.distribution``. (b) Both
@@ -387,13 +391,42 @@
    leg from each shard; with ``--profile``, the device's idle share of
    a ``{dc=*}`` call through the router. Prints the card beside every
    time, and ``phase 20: N s``;
-21. prints the run's wall time, the ``histogram``, ``rollup``,
+21. federated continuous queries and replication. (a) On phase 20's
+   cluster before it stops: ``sum:1m-sum:sys.cpu.user{dc=*}`` and
+   ``max:1m-max:sys.cpu.user{rack=*}`` registered through the router
+   over the data's hour (absolute windows: the data sits in 2013), 10k
+   points put through the router, each ``/result`` pull (p50) equal to
+   the router's batch ``/api/query`` of the same query and to a float64
+   numpy recompute of the cut's values and the put points; one pushed
+   ``windows`` frame of the ``/stream`` after a put (its latency); with
+   ``s1``'s listener closed the pull answers ``shardsDegraded: ["s1"]``
+   and ``complete: false``, with it back the pull is whole and equal to
+   the one before; a delete leaves every shard's registry empty. (b) A
+   new router over three new shards at ``tsd.cluster.rf=2`` (an
+   in-memory spool, no background replay): the same 520k series, each
+   on its two owners (about 1.04M series rows); ``{dc=*}`` (K1) and
+   ``{rack=*}`` (K2) through the router: the p50, the shards' replica
+   mask (its cold and warm seconds), every group equal to phase 20's
+   answer within phase 2's rule, two calls bit-equal, and exactly one
+   launch per reading shard per call. (c) ``s1`` down: both answers
+   still equal the all-up ones, with no ``shardsDegraded``; once
+   ``s1``'s breaker is open, 2 launches a call; the router's
+   ``read_fallbacks`` rose. (d) 10k points put in two bodies while
+   ``s1`` is down: acknowledged, spooled for ``s1`` and ``s1`` marked
+   dirty; the first spool record is lost (an in-memory spool); ``s1``
+   back: the spool drained (``s1`` then lacks exactly the lost points)
+   and ``repair_peer`` run (seconds, points copied), every point read
+   back from each of its two owners through a ``replicaSel`` that
+   assigns that owner. Prints ``phase 21: N s``
+   and a ``replication`` line;
+22. prints the run's wall time, the ``histogram``, ``rollup``,
    ``streaming``, ``surfaces``, ``mesh``, ``ops``, ``lifecycle``,
-   ``obs`` and ``cluster`` lines, one JSON line describing each kernel
-   (its launches are those of phases 3, 5, 8, 6, 15, 17, 19, 9, 10, 13,
-   14, 18 and 20; phases 11, 12 and 16 launch neither on their paths),
-   the card line and, last, ``{"ok": true, "device": {...}}``. Each
-   phase's header says how far into the run it starts.
+   ``obs``, ``cluster`` and ``replication`` lines, one JSON line
+   describing each kernel (its launches are those of phases 3, 5, 8,
+   6, 15, 17, 19, 9, 10, 13, 14, 18, 20 and 21; phases 11, 12 and 16
+   launch neither on their paths), the card line and, last,
+   ``{"ok": true, "device": {...}}``. Each phase's header says how far
+   into the run it starts.
 
 Phases 3-8, 11, 13, 14, 15, 16 and 18 run on the default store, the
 native one. Phases 3-5, 7, 9, 11, 12, 13, 14, 15, 16 and 18 run with the
@@ -451,7 +484,15 @@ IRREGULAR_QUERIES = (
     ("sum:5m-last:rate:sys.cpu.user{dc=*}", None, "padded"),
     ("p99:5m-median:sys.cpu.user{rack=*}", None, "flat"),
     ("avg:15mc-max:sys.cpu.user{dc=*}", "America/New_York", "padded"),
-    ("sum:sys.cpu.user{dc=*}", None, "flat"))
+    ("sum:sys.cpu.user{dc=dc0|dc1}", None, "padded"))
+# phase 7: the query with no downsample (a union grid of up to 600
+# timestamps) reads dc0 and dc1, a fiftieth of the series (CUT from
+# {dc=*} over all of them, 51-84 s of a run on one H100), at the default
+# cell budget cut alike, so it streams in the 9 time blocks of the full
+# width; its staged, unblocked run now fits the padded layout (flat at
+# full width)
+UNION_QUERY = IRREGULAR_QUERIES[3][0]
+UNION_SHARE = 50
 JITTER_S = 10              # phase 7: whole seconds of jitter, 0-9
 # phase 7: warm hits and repeats per stage, CUT from 3: a whole run
 # took 906.6 s on one H100 (phase 7 127.2 s), and a repeat of its three
@@ -514,7 +555,15 @@ def placement(label: str, s: int, b: int, g: int, agg: str = "sum",
 
 
 def check(cond: bool, what: str) -> None:
+    """Raise SmokeFailure(what) unless ``cond``; first print the port's
+    latest warnings and errors from its log ring (``/logs``), which
+    holds what a failing server or router logged."""
     if not cond:
+        logring = sys.modules.get("opentsdb_tpu_torch.utils.logring")
+        if logring is not None:
+            for line in reversed(logring.ring_buffer.lines()[:200]):
+                if " WARNING " in line or " ERROR " in line:
+                    print(f"  log: {line[:400]}", file=sys.stderr)
         raise SmokeFailure(what)
 
 
@@ -1628,6 +1677,21 @@ def against_cpu64(torch, m: str, grid, spec, gids, rate_options,
     return err, cpu_s
 
 
+def answer_grid(rows, bucket_ts, g: int):
+    """[G, B] float64 values and emit mask of an engine answer of ``g``
+    groups, row i group i (every group emitted, as the callers check)."""
+    import numpy as np
+    res = np.zeros((g, len(bucket_ts)))
+    emit = np.zeros((g, len(bucket_ts)), dtype=bool)
+    for i, r in enumerate(rows):
+        ts, vals = r.dps_arrays
+        j = np.searchsorted(bucket_ts, ts)
+        check(bool(np.array_equal(np.asarray(bucket_ts)[j], ts)),
+              "an answer's timestamps are not its buckets'")
+        res[i, j], emit[i, j] = vals, True
+    return res, emit
+
+
 def reset_blocked() -> None:
     from opentsdb_tpu_torch.ops.blocked import execute_blocked
     execute_blocked.runs = execute_blocked.blocks = 0
@@ -1644,7 +1708,8 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
     import numpy as np
     from opentsdb_tpu_torch import TSDB, Config
     from opentsdb_tpu_torch.ops import fused
-    from opentsdb_tpu_torch.ops.blocked import pick_block_buckets
+    from opentsdb_tpu_torch.ops.blocked import (DEFAULT_CELL_BUDGET,
+                                                pick_block_buckets)
     from opentsdb_tpu_torch.ops.pipeline import run_prepared
     from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
     tsdb = TSDB(Config(**{"tsd.torch.device": "cuda",
@@ -1673,18 +1738,24 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
 
     reset_launches(fused)
     for m, tz, layout in IRREGULAR_QUERIES:
+        tsdb.config.override_config(
+            "tsd.query.max_device_cells",
+            str(DEFAULT_CELL_BUDGET // UNION_SHARE) if m == UNION_QUERY
+            else "0")
         torch.cuda.synchronize()
         tsdb.drop_caches()
         torch.cuda.reset_peak_memory_stats()
         reset_blocked()
         cold, cold_s = timed(lambda: tsdb.execute_query(query(m, tz)), 1)
         peak = torch.cuda.max_memory_allocated()
-        # an S x B over the cell budget (the union grid at full width)
-        # streams in time blocks and makes no prepared batch: its warm
-        # calls run it again, once, and each staged stage runs once
+        # an S x B over the cell budget (the union grid) streams in time
+        # blocks and makes no prepared batch: its warm call runs it
+        # again
         runs, blocks = read_blocked()
+        check(bool(runs) == (m == UNION_QUERY),
+              f"{m}: {runs} blocked runs")
         hits = cache.hits
-        repeats = 1 if runs else IRREGULAR_REPEATS
+        repeats = IRREGULAR_REPEATS
         warm, warm_s = timed(lambda: tsdb.execute_query(query(m, tz)),
                              repeats)
         check(cache.hits == hits + (0 if runs else repeats),
@@ -1733,7 +1804,7 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
         torch.cuda.reset_peak_memory_stats()
         prep, up_t = timed(lambda: eng._prepare_points(grid, spec),
                            repeats)
-        # (a cut of the series can fit the union grid in the padded
+        # (a cut of the series can fit the flat query in the padded
         # layout's budget)
         check(prep.kind == layout or n_series < 1_000_000,
               f"{m}: the {prep.kind} layout, not {layout}")
@@ -1748,16 +1819,6 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
             res_np, emit_np), repeats)
         check(same_bits(rows, cold), f"{m}: the staged run differs from "
               "the engine's")
-        if runs:
-            check(peak < staged_peak, f"{m}: the blocked run's peak is "
-                  "not below the unblocked run's")
-            print(f"  {m}: blocked ({runs} run of {blocks} blocks of "
-                  f"{bb} buckets) peak device memory "
-                  f"{peak / 2**30:.3f} GiB; the staged unblocked run "
-                  f"{staged_peak / 2**30:.3f} GiB (35.284 GiB when the "
-                  "default keys ran it unblocked on an H100 80GB HBM3); "
-                  "equal bit for bit")
-
         # the float64 reference on the CPU: a twentieth of the groups
         held = max(1, g // CPU64_SHARE)
         err, cpu_s = against_cpu64(torch, m, grid, spec, gids,
@@ -1780,7 +1841,15 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
               f"float64 {err:.6g} over groups 0-{held - 1} of {g} "
               f"({cpu_s:.1f} s on the CPU); two cold "
               "calls and the warm calls equal bit for bit")
+        if runs:
+            check(peak < staged_peak, f"{m}: the blocked run's peak is "
+                  "not below the unblocked run's")
+            print(f"  {m}: blocked ({runs} run of {blocks} blocks of "
+                  f"{bb} buckets, budget {eng._budget} cells) peak device "
+                  f"memory {peak / 2**30:.3f} GiB; the staged unblocked "
+                  f"run {staged_peak / 2**30:.3f} GiB; equal bit for bit")
         del points, grid, prep, res, emit
+    tsdb.config.override_config("tsd.query.max_device_cells", "0")
     launches = read_launches(fused)
     print(f"  irregular-path launches: {launches}")
     check(not any(launches.values()),
@@ -1987,18 +2056,14 @@ WRITER_TIMEOUT_S = 600        # phase 10: a writer's wait for its ack
 # "acked" once every write is acknowledged, and waits to be killed
 WRITER = """
 import json, sys, time
-root, mode, n = sys.argv[1], sys.argv[2], int(sys.argv[3])
+root, n = sys.argv[1], int(sys.argv[2])
 sys.path.insert(0, root)
 import chip_smoke
 from opentsdb_tpu_torch import TSDB, Config
-t = TSDB(Config(**json.loads(sys.argv[4])))
+t = TSDB(Config(**json.loads(sys.argv[3])))
 tags, ts2d, values = chip_smoke.make_data(n)
-if mode == "config3":
-    t.add_series_points(chip_smoke.METRIC, tags, ts2d, values)
-    print("acked", n * chip_smoke.POINTS, flush=True)
-else:
-    t.add_point(chip_smoke.METRIC, chip_smoke.T0 + 600, 1000.0, tags[0])
-    print("acked 1", flush=True)
+t.add_series_points(chip_smoke.METRIC, tags, ts2d, values)
+print("acked", n * chip_smoke.POINTS, flush=True)
 time.sleep(3600)
 """
 
@@ -2018,16 +2083,16 @@ def filesystem(path: Path) -> str:
     return f"{fstype} mounted on {mount}"
 
 
-def kill_writer(mode: str, n: int, keys: dict, log: Path) -> float:
-    """Run WRITER in ``mode`` as a child process, wait for its
-    acknowledgement, then SIGKILL it (no flush, no shutdown). Returns
-    the seconds from its start to the acknowledgement."""
+def kill_writer(n: int, keys: dict, log: Path) -> float:
+    """Run WRITER (``n`` config-3 series) as a child process, wait for
+    its acknowledgement, then SIGKILL it (no flush, no shutdown).
+    Returns the seconds from its start to the acknowledgement."""
     import signal
     t = time.perf_counter()
     got: list = []
     with open(log, "w") as err:
         proc = subprocess.Popen(
-            [sys.executable, "-c", WRITER, str(ROOT), mode, str(n),
+            [sys.executable, "-c", WRITER, str(ROOT), str(n),
              json.dumps(keys)], stdout=subprocess.PIPE, stderr=err,
             cwd=ROOT)
         try:
@@ -2041,7 +2106,7 @@ def kill_writer(mode: str, n: int, keys: dict, log: Path) -> float:
             proc.wait()
             proc.stdout.close()
     line = got[0] if got else ""
-    check(line.startswith("acked"), f"the {mode} writer died before its "
+    check(line.startswith("acked"), f"the writer died before its "
           f"acknowledgement: {log.read_text()[-2000:]}")
     check(proc.returncode == -signal.SIGKILL,
           f"the writer ended with {proc.returncode}, not by SIGKILL")
@@ -2155,7 +2220,7 @@ def phase_durability(torch, n_series: int, query) -> dict:
         shutil.rmtree(root / "b")
 
         # (c) a child writes config 3 with the WAL, is killed, recovers
-        acked_s = kill_writer("config3", n_series, keys(root / "c"),
+        acked_s = kill_writer(n_series, keys(root / "c"),
                               root / "writer-c.log")
         print(f"  (c) writer process acknowledged {n_points} points after "
               f"{acked_s:.3f} s, then SIGKILL (no flush); WAL "
@@ -2206,11 +2271,14 @@ def phase_durability(torch, n_series: int, query) -> dict:
         for m, _ in QUERIES:
             check(same_bits(reload[m], before[m]),
                   f"{m}: the answer after the snapshot reload differs")
+        # one out-of-order point on series 0, acknowledged (fsync=always)
+        # and dropped unflushed: the restart loads the snapshot and
+        # replays the log's tail past it (the writer is this process;
+        # (c) covers a killed one)
+        snap_db.add_point(METRIC, T0 + 600, 1000.0, tags[0])
         crash(snap_db)
         del snap_db
         gc.collect()
-        acked_s = kill_writer("point", 1, keys(root / "c"),
-                              root / "writer-d.log")
         t = time.perf_counter()
         tail = durable(root / "c")
         tail_s = time.perf_counter() - t
@@ -2228,9 +2296,8 @@ def phase_durability(torch, n_series: int, query) -> dict:
               f"{m}: the rewritten answer differs from the never-killed "
               "TSDB's after the same write")
         check(not same_bits(rows, before[m]), "the rewrite changed nothing")
-        print(f"  (d) one out-of-order point on series 0 by a writer "
-              f"process (acknowledged after {acked_s:.3f} s), SIGKILL, "
-              f"restart {tail_s:.3f} s (load "
+        print(f"  (d) one out-of-order point on series 0, acknowledged, "
+              f"dropped unflushed; restart {tail_s:.3f} s (load "
               f"{tail.recovery['load_s']:.3f} s, replay "
               f"{tail.recovery['replay_s']:.3f} s): the point read back, "
               f"and {m} equals the never-killed TSDB's after the same "
@@ -2352,16 +2419,9 @@ def phase_long(torch, n_series: int, profile: bool) -> None:
         spec = eng._point_spec(sub, len(sel), g, False, grid.bucket_ts,
                                grid.ds_function, grid.fill_policy,
                                grid.fill_value, grid.complete)
-        stages: dict = {}
-        (res_np, emit_np), run_t = timed(lambda: eng._run_blocked(
-            grid, gids, spec, sub.rate_options, stages), 1)
-        rows3, asm_t = timed(lambda: eng._build_results(
-            tq, sub, metric_id, sel, tag_mat, gids, g, grid.bucket_ts,
-            res_np, emit_np), 1)
-        # the staged run is the second blocked run of the query: the
-        # two must give the same bits
-        check(same_bits(rows3, rows), f"{m}: the staged run differs from "
-              "the engine's")
+        # the engine's blocked answer as [G, B] grids (every group emits)
+        check(len(rows) == g, f"{m}: {len(rows)} groups of {g}")
+        res_np, emit_np = answer_grid(rows, grid.bucket_ts, g)
         check(runs == 1 and blocks == -(-b // bb) == 2
               and len(sel) * b > eng._budget
               or n_series < 1_000_000 and runs == blocks == 0,
@@ -2380,26 +2440,21 @@ def phase_long(torch, n_series: int, profile: bool) -> None:
         check(len(rows) == g and emitted > 0 and bool(np.isfinite(
             res_np[emit_np]).all()), f"{m}: {len(rows)} groups of {g}, "
               "or no finite value emitted")
-        flatten = run_t[0] - sum(stages.values())
         staged = (("plan", plan_t[0]), ("materialize", mat_t[0]),
-                  ("assign", grid_t[0]), ("flatten", flatten),
-                  ("host split", stages["split"]),
-                  ("pass 1", stages["pass1"]),
-                  ("pass 2", stages["pass2"]), ("assemble", asm_t[0]))
+                  ("assign", grid_t[0]))
         print(f"  {m} ({carry}): S={len(sel)} B={b} G={g}, {runs} blocked "
               f"run of {blocks} blocks of {bb} buckets (budget "
               f"{eng._budget} cells), {emitted} cells emitted; no kernel "
               "launched")
-        print(f"  {m}: stages ms: " + ", ".join(
-            f"{n} {v * 1e3:.3f}" for n, v in staged)
-            + f"; sum {sum(v for _, v in staged) * 1e3:.3f}")
+        print(f"  {m}: host stages before the blocks, ms: " + ", ".join(
+            f"{n} {v * 1e3:.3f}" for n, v in staged))
         print(f"  {m}: end-to-end cold {cold_s * 1e3:.3f} ms blocked, "
               f"{whole_s * 1e3:.3f} ms unblocked; peak device memory "
               f"{peak / 2**30:.3f} GiB blocked, {whole_peak / 2**30:.3f} "
-              "GiB unblocked; blocked equal to unblocked and to its staged "
-              "run bit for bit; max_abs_err "
-              f"vs CPU float64 {err:.6g} ({cpu_s:.1f} s on the CPU)")
-        del points, grid, res_np, emit_np, rows, rows3, whole
+              "GiB unblocked; blocked equal to unblocked bit for bit; "
+              f"max_abs_err vs CPU float64 {err:.6g} ({cpu_s:.1f} s on the "
+              "CPU)")
+        del points, grid, res_np, emit_np, rows, whole
     tsdb.shutdown()
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
@@ -6579,10 +6634,14 @@ def _held_groups(torch, rows, key: str, want, terms, what: str) -> float:
     return compare(got, want[sel], terms[sel])
 
 
-def phase_cluster(torch, n_series: int, ref3: dict, card: str,
-                  profile: bool) -> tuple[dict, dict]:
+def phase_cluster(torch, data, ref3: dict, card: str, profile: bool,
+                  header) -> tuple[dict, dict, dict]:
     """Phase 20: a cluster router in front of three shard TSDs on one
-    card. Returns the kernel launches of (b) and the ``cluster`` line."""
+    card (``data`` is :func:`make_data`'s), then phase 21 (a) on the
+    same cluster before it stops. Returns the kernel launches of (b),
+    the ``cluster`` line, and what phase 21 takes from here: the wire
+    answers of (b) (``rf1_rows``), 21 (a)'s launches (``fed_launches``)
+    and its readings (``fed``)."""
     import http.client
     import socket
     import tempfile
@@ -6616,7 +6675,10 @@ def phase_cluster(torch, n_series: int, ref3: dict, card: str,
                    "tsd.cluster.spool.dir": str(spool),
                    "tsd.cluster.spool.replay_interval_ms": "100",
                    "tsd.cluster.breaker.reset_timeout_ms": "300",
-                   "tsd.trace.sample": "1"}
+                   "tsd.trace.sample": "1",
+                   # phase 21 (a): the federated stream pumps the shards
+                   # every quarter second when no frame is queued
+                   "tsd.streaming.heartbeat_s": "0.25"}
     router = TSDB(Config(**router_keys))
     rst = serve_pinned(ServerThread, router)
     # the second router, over JSON HTTP, caches nothing: every call of
@@ -6631,7 +6693,8 @@ def phase_cluster(torch, n_series: int, ref3: dict, card: str,
     try:
         # (a) the data: config 3's series of dc0-dc51, placed by the
         # router's ring, each shard loading its own
-        tags, ts2d, values = make_data(n_series)
+        tags, ts2d, values = data
+        n_series = len(tags)
         keep = np.asarray([i for i in range(n_series)
                            if i % 100 < CLUSTER_DCS], dtype=np.int64)
         ring = router.cluster.ring
@@ -6657,7 +6720,6 @@ def phase_cluster(torch, n_series: int, ref3: dict, card: str,
               f"ring.distribution {dist} (on {card})")
         check(counts == dist, "a shard holds other series than the ring "
               "places on it")
-        del tags, ts2d, values
         out.update(series=int(len(keep)), per_shard=counts)
         mark("a")
 
@@ -6766,13 +6828,40 @@ def phase_cluster(torch, n_series: int, ref3: dict, card: str,
         check(buf.decode().startswith("opentsdb_tpu_torch version")
               and buf.count(b"\n") == 1,
               f"telnet answered more than the version: {buf[:300]!r}")
+        # an acknowledged write is on its shard or in its spool: read
+        # back once every spool has replayed (none is, as a rule)
+        spooled = {n: p.spooled_points
+                   for n, p in router.cluster.peers.items()}
+        # each shard's write legs that spooled, read legs that failed,
+        # and breaker failures and trips so far
+        def legs_now() -> dict:
+            return {n: {"spooled_batches": p.spooled_batches,
+                        "query_failures": p.query_failures,
+                        "breaker_failures": p.breaker.total_failures,
+                        "breaker_trips": p.breaker.trips}
+                    for n, p in router.cluster.peers.items()}
+
+        legs = legs_now()
+        print(f"  (c) legs after the writes: {legs}")
+        deadline = time.perf_counter() + 60
+        while any(p.spool.pending_records for p in
+                  router.cluster.peers.values()) \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        check(not any(p.spool.pending_records
+                      for p in router.cluster.peers.values()),
+              "a spool did not drain after (c)'s writes")
         conn = http.client.HTTPConnection("127.0.0.1", rst.port,
                                           timeout=600)
         try:
             status, body, _ = _http(
                 conn, "GET", f"/api/query?start={T0}&end={T0 + 7200}"
                 "&m=none:sys.cluster.put&arrays=true")
-            got_pts = sum(len(r["dps"]) for r in json.loads(body))
+            put_rows = json.loads(body)
+            marks_ = [r for r in put_rows if "dps" not in r]
+            check(status == 200 and not marks_, f"/api/put read back: "
+                  f"HTTP {status}, {marks_}; legs now {legs_now()}")
+            got_pts = sum(len(r["dps"]) for r in put_rows)
             check(status == 200 and got_pts == n_put,
                   f"/api/put read back {got_pts} of {n_put}")
             for r in json.loads(body)[:50]:
@@ -6785,7 +6874,10 @@ def phase_cluster(torch, n_series: int, ref3: dict, card: str,
                 conn, "GET", f"/api/query?start={T0}&end={T0 + 20000}"
                 "&m=zimsum:sys.cluster.tel&arrays=true")
             tel_rows = json.loads(body)
-            check(status == 200 and sum(len(r["dps"]) for r in tel_rows)
+            marks_ = [r for r in tel_rows if "dps" not in r]
+            check(status == 200 and not marks_, f"telnet burst read "
+                  f"back: HTTP {status}, {marks_}; legs now {legs_now()}")
+            check(sum(len(r["dps"]) for r in tel_rows)
                   == CLUSTER_TEL_LINES, "telnet burst read back short")
             check(sum(v for r in tel_rows for _t, v in r["dps"]) ==
                   sum(j % 997 for j in range(CLUSTER_TEL_LINES)),
@@ -6793,12 +6885,14 @@ def phase_cluster(torch, n_series: int, ref3: dict, card: str,
         finally:
             conn.close()
         out["writes"] = {"put_points_per_s": n_put / put_s,
-                         "telnet_lines_per_s": CLUSTER_TEL_LINES / tel_s}
+                         "telnet_lines_per_s": CLUSTER_TEL_LINES / tel_s,
+                         "spooled_points": spooled, "legs": legs}
         print(f"  (c) {n_put} points by /api/put through the router: "
               f"{put_s:.3f} s ({n_put / put_s:,.0f} points/s); "
               f"{CLUSTER_TEL_LINES} telnet lines {tel_s:.3f} s "
               f"({CLUSTER_TEL_LINES / tel_s:,.0f} lines/s); both read "
-              f"back exactly (on {card})")
+              f"back exactly; points spooled on the way {spooled} "
+              f"(on {card})")
         mark("c")
 
         # (d) an outage: s1's listener closed
@@ -6853,9 +6947,12 @@ def phase_cluster(torch, n_series: int, ref3: dict, card: str,
         mark("d")
 
         # (e) the router's surface and a stitched trace
+        surface_ms = {}
         for path in ("/api/cluster", "/api/cluster/status",
                      "/api/stats/fleet", "/api/health"):
+            tq = time.perf_counter()
             resp = wire_h.handle(HttpRequest(method="GET", path=path))
+            surface_ms[path] = (time.perf_counter() - tq) * 1e3
             check(resp.status == 200, f"{path}: {resp.status}")
             doc = json.loads(resp.body)
             if path == "/api/health":
@@ -6877,15 +6974,26 @@ def phase_cluster(torch, n_series: int, ref3: dict, card: str,
               and len(legs) == CLUSTER_SHARDS
               and not doc.get("stitchIncomplete"),
               f"stitched trace: {len(roots)} roots, {len(legs)} legs")
+        out["surface_ms"] = surface_ms
         print(f"  (e) /api/cluster, /status, /api/stats/fleet, /api/health "
-              f"200; /api/trace/{tid}: {doc['spanCount']} spans, a "
-              f"query.http leg from each of {CLUSTER_SHARDS} shards under "
-              f"its cluster.peer span")
+              f"200 in " + ", ".join(f"{v:.1f}" for v in surface_ms.values())
+              + f" ms, s1 just written by its spool; /api/trace/{tid}: "
+              f"{doc['spanCount']} spans, a query.http leg from each of "
+              f"{CLUSTER_SHARDS} shards under its cluster.peer span "
+              f"(on {card})")
         if profile:
             device_share(torch, lambda: _cluster_rows(
                 wire_h, HttpRequest, QUERIES[0][0], start, end),
                 "a {dc=*} call through the router")
         mark("e")
+        header(f"phase 21 (a): federated continuous queries through "
+               f"phase 20's router, {len(keep)} series on "
+               f"{CLUSTER_SHARDS} shards")
+        t_fed = time.perf_counter()
+        fed_launches, fed = phase_federated(
+            torch, router, rst, wire_h, shards, sts, data, keep, card)
+        fed["phase_s"] = time.perf_counter() - t_fed
+        marks.append(time.perf_counter())
     finally:
         plain.shutdown()
         rst.stop()
@@ -6894,10 +7002,634 @@ def phase_cluster(torch, n_series: int, ref3: dict, card: str,
         shutil.rmtree(spool, ignore_errors=True)
     mark("stop")
     out["stage_s"] = stage_s
-    out["phase_s"] = time.perf_counter() - t_phase
+    out["phase_s"] = time.perf_counter() - t_phase - fed["phase_s"]
     print("  seconds by stage: " + ", ".join(
         f"{k} {v:.1f}" for k, v in stage_s.items()))
-    print(f"phase 20: {out['phase_s']:.1f} s")
+    print(f"phase 20: {out['phase_s']:.1f} s (phase 21 (a): "
+          f"{fed['phase_s']:.1f} s)")
+    return launches, out, {"rf1_rows": wire_rows,
+                           "fed_launches": fed_launches, "fed": fed}
+
+
+# phase 21 (a): federated continuous queries on phase 20's cluster
+FED_QUERIES = (("fed-dc", "sum", "dc"), ("fed-rack", "max", "rack"))
+FED_PUT_POINTS = 10_000    # points put through the router
+FED_BODY = 1_000           # points per /api/put body
+FED_PULLS = 2              # /result pulls per p50
+FED_PUSH_S = 30.0          # the longest wait for a pushed frame
+CQ_PATH = "/api/query/continuous"
+
+
+def fed_body(cid: str, agg: str, key: str) -> dict:
+    """One federated registration over the data's hour: an absolute
+    window, since the data sits in 2013 (a relative window back to it
+    would hold millions of one-minute windows)."""
+    return {"id": cid, "start": T0 * 1000,
+            "end": (T0 + POINTS * 60 - 1) * 1000,
+            "queries": [{"metric": METRIC, "aggregator": agg,
+                         "downsample": f"1m-{agg}",
+                         "filters": [{"type": "wildcard", "tagk": key,
+                                      "filter": "*", "groupBy": True}]}]}
+
+
+def fed_grid(rows, key: str, g: int):
+    """[g, POINTS] float64 of a ``1m`` answer by ``key`` (rows' dps keyed
+    by ms or s), NaN where a group-minute is absent; and the rows'
+    trailing ``completeness`` marker, or None."""
+    import numpy as np
+    marker = None
+    if rows and "completeness" in rows[-1] and "metric" not in rows[-1]:
+        marker = rows[-1]["completeness"]
+        rows = rows[:-1]
+    out = np.full((g, POINTS), np.nan)
+    prefix = "dc" if key == "dc" else "r"
+    for r in rows:
+        i = int(r["tags"][key][len(prefix):])
+        for ts, v in r["dps"].items():
+            t = int(ts)
+            t = t // 1000 if t > 10 ** 11 else t
+            out[i, (t - T0) // 60] = v
+    return out, marker
+
+
+def fed_reference(values, keep, put_rows, put_j, put_v):
+    """Float64 numpy answers of both registrations over the cut's
+    values and the put points: ``{key: (want, terms)}`` with [g, POINTS]
+    arrays, rows the groups (dc i, rack i); the max's terms are
+    |want|."""
+    import numpy as np
+    vals = values[keep]
+    dc, rack = keep % 100, keep % 2000
+    s_want = np.stack([np.bincount(dc, vals[:, j], minlength=100)
+                       for j in range(POINTS)], axis=1)
+    s_terms = np.stack([np.bincount(dc, np.abs(vals[:, j]), minlength=100)
+                        for j in range(POINTS)], axis=1)
+    np.add.at(s_want, (put_rows % 100, put_j), put_v)
+    np.add.at(s_terms, (put_rows % 100, put_j), np.abs(put_v))
+    s_want[np.bincount(dc, minlength=100) == 0] = np.nan
+    order = np.argsort(rack, kind="stable")
+    starts = np.flatnonzero(np.r_[True, np.diff(rack[order]) != 0])
+    m_want = np.full((2000, POINTS), np.nan)
+    m_want[rack[order][starts]] = np.maximum.reduceat(vals[order], starts,
+                                                      axis=0)
+    np.fmax.at(m_want, (put_rows % 2000, put_j), put_v)
+    return {"dc": (s_want, s_terms), "rack": (m_want, np.abs(m_want))}
+
+
+def fed_held(got, want, terms, what: str) -> float:
+    """Max |got - want| over the groups ``want`` holds, by phase 2's
+    rule; raises past it or where the group-minutes differ."""
+    import numpy as np
+    rows = ~np.isnan(want).all(axis=1)
+    check(np.array_equal(np.isnan(got[rows]), np.isnan(want[rows]))
+          and np.isnan(got[~rows]).all(),
+          f"{what}: other group-minutes than the reference")
+    err = np.abs(got[rows] - want[rows])
+    bad = err > TOL_REL * terms[rows] + TOL_ABS
+    check(not bool(np.nan_to_num(bad).any()),
+          f"{what}: {int(np.nansum(bad))} cells past the tolerance, max "
+          f"|d| {float(np.nanmax(err))!r}")
+    return float(np.nanmax(err))
+
+
+def phase_federated(torch, router, rst, wire_h, shards, sts, data, keep,
+                    card: str) -> tuple[dict, dict]:
+    """Phase 21 (a) on phase 20's cluster. Returns the kernel launches of
+    its batch answers and its readings."""
+    import http.client
+    import queue as queue_mod
+
+    import numpy as np
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest
+
+    tags, _ts2d, values = data
+    out: dict = {"card": card}
+    rc = router.cluster
+    # the batch answers below must come from the engines, not from the
+    # shards' registries (a registered tumbling query serves /api/query)
+    for t_shard in shards:
+        t_shard.config.override_config("tsd.streaming.serve", "false")
+
+    def call(method: str, path: str, body=None):
+        resp = wire_h.handle(HttpRequest(
+            method=method, path=path,
+            body=json.dumps(body).encode() if body is not None else b""))
+        return resp.status, (json.loads(resp.body) if resp.body else None)
+
+    def pull(cid: str):
+        t = time.perf_counter()
+        status, doc = call("GET", f"{CQ_PATH}/{cid}/result")
+        check(status == 200, f"{cid} /result: HTTP {status} {doc}")
+        return doc, time.perf_counter() - t
+
+    reg_s = {}
+    for cid, agg, key in FED_QUERIES:
+        t = time.perf_counter()
+        status, doc = call("POST", CQ_PATH, fed_body(cid, agg, key))
+        reg_s[cid] = time.perf_counter() - t
+        check(status == 200 and doc["federated"] and doc["shards"] ==
+              [f"s{i}" for i in range(CLUSTER_SHARDS)],
+              f"register {cid}: HTTP {status} {doc}")
+    print(f"  (a) registered {[c for c, _a, _k in FED_QUERIES]} on "
+          f"{CLUSTER_SHARDS} shards: " + ", ".join(
+              f"{c} {s * 1e3:.1f} ms" for c, s in reg_s.items())
+          + f" (on {card})")
+
+    # the put: minute j of FED_PUT_POINTS cut series, at 30 s past it
+    pick = keep[np.linspace(0, len(keep) - 1, FED_PUT_POINTS).astype(
+        np.int64)]
+    put_j = np.arange(FED_PUT_POINTS) % POINTS
+    put_v = ((np.arange(FED_PUT_POINTS) * 37) % 1000) / 8.0
+    pts = [{"metric": METRIC, "timestamp": int(T0 + 60 * j + 30),
+            "value": float(v), "tags": tags[int(i)]}
+           for i, j, v in zip(pick, put_j, put_v)]
+    conn = http.client.HTTPConnection("127.0.0.1", rst.port, timeout=600)
+    try:
+        t = time.perf_counter()
+        for lo in range(0, len(pts), FED_BODY):
+            status, body, _ = _http(conn, "POST", "/api/put?summary=true",
+                                    json.dumps(pts[lo:lo + FED_BODY])
+                                    .encode())
+            check(status == 200 and json.loads(body)["failed"] == 0,
+                  f"the put: {status} {body[:200]!r}")
+        put_s = time.perf_counter() - t
+    finally:
+        conn.close()
+    ref = fed_reference(values, keep, pick, put_j, put_v)
+
+    reset_launches(fused)
+    pulls, answers = {}, {}
+    for cid, agg, key in FED_QUERIES:
+        g = 100 if key == "dc" else 2000
+        secs = []
+        for _ in range(FED_PULLS):
+            doc, sec = pull(cid)
+            secs.append(sec)
+        got, marker = fed_grid(doc, key, g)
+        check(marker is None, f"{cid}: a marker on a whole pull: {marker}")
+        want, terms = ref[key]
+        err = fed_held(got, want, terms, f"{cid} against float64")
+        # the router's batch answer of the same query, from the engines
+        body = dict(fed_body(cid, agg, key), msResolution=True)
+        body.pop("id")
+        t = time.perf_counter()
+        status, batch = call("POST", "/api/query", body)
+        batch_s = time.perf_counter() - t
+        check(status == 200, f"{cid} batch: HTTP {status}")
+        bgot, bmarker = fed_grid(batch, key, g)
+        check(bmarker is None and not any(
+            isinstance(r, dict) and "shardsDegraded" in r for r in batch),
+            f"{cid} batch degraded")
+        berr = fed_held(bgot, got, terms, f"{cid} against the batch")
+        pulls[cid] = p50(secs)
+        answers[cid] = got
+        out[f"{cid}_pull_ms"] = p50(secs) * 1e3
+        out[f"{cid}_batch_ms"] = batch_s * 1e3
+        out[f"{cid}_max_abs_err"] = max(err, berr)
+        print(f"  (a) {cid} ({agg}:1m-{agg} by {key}): /result p50 "
+              f"{p50(secs) * 1e3:.1f} ms of {FED_PULLS} against "
+              f"{batch_s * 1e3:.1f} ms for the batch /api/query; "
+              f"{int((~np.isnan(got).all(axis=1)).sum())} groups equal to "
+              f"float64 numpy within max |d| {err!r} and to the batch "
+              f"/api/query within {berr!r} (on {card})")
+    launches = read_launches(fused)
+    print(f"  (a) {FED_PUT_POINTS} points put through the router in "
+          f"{put_s:.3f} s; the batch answers launched {launches}")
+
+    # push: one windows frame after a put, through the stream endpoint;
+    # the shards' dirty windows of the put above are drained first, so
+    # that the first frame pushed is the late put's
+    rc.cqs.pump(rc.cqs.get("fed-dc"))
+    resp = wire_h.handle(HttpRequest(method="GET",
+                                     path=f"{CQ_PATH}/fed-dc/stream"))
+    check(resp.status == 200, f"/stream: HTTP {resp.status}")
+    frames: queue_mod.Queue = queue_mod.Queue()
+    go = threading.Event()
+
+    def reader() -> None:
+        it = iter(resp.body_iter)
+        try:
+            for chunk in it:
+                frames.put(chunk)
+                if chunk.startswith(b"event: snapshot") or \
+                        b"\nevent: snapshot" in chunk:
+                    go.set()
+                if b"event: windows" in chunk:
+                    return
+        finally:
+            it.close()
+
+    th = threading.Thread(target=reader, name="chip-smoke-sse")
+    th.start()
+    check(go.wait(FED_PUSH_S), "no snapshot frame on the stream")
+    late = [{"metric": METRIC, "timestamp": T0 + 60 * (POINTS - 1) + 45,
+             "value": 1.0, "tags": tags[int(keep[0])]}]
+    t = time.perf_counter()
+    status, _doc = call("POST", "/api/put", late)
+    check(status == 204, f"the late put: HTTP {status}")
+    frame = None
+    deadline = time.perf_counter() + FED_PUSH_S
+    while time.perf_counter() < deadline:
+        try:
+            chunk = frames.get(timeout=max(deadline - time.perf_counter(),
+                                           0.01))
+        except queue_mod.Empty:
+            break
+        if b"event: windows" in chunk:
+            frame = chunk
+            break
+    push_s = time.perf_counter() - t
+    th.join(FED_PUSH_S)
+    check(frame is not None and not th.is_alive(),
+          "no windows frame was pushed after the put")
+    doc = json.loads(frame.decode().split("data: ", 1)[1])
+    edge = str((T0 + 60 * (POINTS - 1)) * 1000)
+    check(any(edge in u["dps"] for u in doc["updates"]),
+          "the pushed frame does not hold the put's minute")
+    out["push_ms"] = push_s * 1e3
+    print(f"  (a) a put to the router reached the /stream as a windows "
+          f"frame in {push_s * 1e3:.1f} ms (the stream pumps every "
+          f"{rc.cqs.heartbeat_s} s when idle) (on {card})")
+
+    # s1 down, then back
+    whole, _ = pull("fed-dc")
+    s1_port = sts[1].port
+    _listener(sts[1], up=False)
+    # the shard's wire session ends once its watchdog (50 ms) sees the
+    # listener gone
+    time.sleep(0.2)
+    try:
+        doc, _ = pull("fed-dc")
+        got, marker = fed_grid(doc, "dc", 100)
+        check(marker is not None and marker.get("shardsDegraded") ==
+              ["s1"] and marker.get("complete") is False,
+              f"outage pull: marker {marker}")
+    finally:
+        _listener(sts[1], up=True, port=s1_port)
+    doc, _ = pull("fed-dc")
+    check(doc == whole, "the pull after s1 came back differs from the "
+          "pull before it went")
+    print("  (a) s1 down: the pull answers 200 with shardsDegraded "
+          "['s1'] and complete false; s1 back: the pull is whole again "
+          "and equal to the one before")
+
+    for cid, _agg, _key in FED_QUERIES:
+        status, _ = call("DELETE", f"{CQ_PATH}/{cid}")
+        check(status == 204, f"delete {cid}: HTTP {status}")
+    left = [[q.id for q in t_shard.streaming.list()] for t_shard in shards]
+    check(left == [[]] * CLUSTER_SHARDS, f"registries after delete: {left}")
+    for t_shard in shards:
+        t_shard.config.override_config("tsd.streaming.serve", "true")
+    out.update(register_ms={c: s * 1e3 for c, s in reg_s.items()},
+               put_s=put_s)
+    print("  (a) deleted: every shard's registry is empty")
+    return launches, out
+
+
+# phase 21 (b)-(d): replication on three new shards
+RF = 2
+RF_REPEATS = 2             # (b): timed calls per p50, after a warm-up
+RF_OUTAGE_POINTS = 10_000  # (d): points put while s1 is down
+RF_OUTAGE_METRIC = "sys.rf.outage"
+# (c): how long an opened breaker keeps s1 out of the read plan; (d)
+# waits it out before the drain
+RF_BREAKER_RESET_MS = 3000
+RF_TRIP_CALLS = 10         # (c): most calls that may go into opening it
+
+
+def router_groups(rows, key: str):
+    """{group index: [values]} of parsed router rows grouped by ``key``."""
+    prefix = "dc" if key == "dc" else "r"
+    return {int(r["tags"][key][len(prefix):]): list(r["dps"].values())
+            for r in rows}
+
+
+def held_rows(torch, got_rows, want_rows, key: str, terms, what: str
+              ) -> float:
+    """Max |got - want| of two router answers over the same groups, by
+    phase 2's rule with phase 3's terms."""
+    got, want = router_groups(got_rows, key), router_groups(want_rows, key)
+    check(sorted(got) == sorted(want),
+          f"{what}: {len(got)} groups against {len(want)}")
+    idx = sorted(got)
+    return compare(torch.tensor([got[i] for i in idx], dtype=torch.float64),
+                   torch.tensor([want[i] for i in idx],
+                                dtype=torch.float64), terms[idx])
+
+
+def phase_replicated(torch, data, keep, ref3: dict, rf1_rows: dict,
+                     card: str) -> tuple[dict, dict]:
+    """Phase 21 (b)-(d): a router at ``tsd.cluster.rf=2`` over three new
+    shard TSDs. Returns every kernel launch of (b) and (c), warm-ups
+    included, and the ``replication`` line."""
+    import http.client
+
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.cluster import replica as replica_mod
+    from opentsdb_tpu_torch.cluster.hashring import series_shard_key
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.query.model import TSQuery
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card, "rf": RF}
+    marks = [t_phase]
+    stage_s: dict = {}
+
+    def mark(name: str) -> None:
+        marks.append(time.perf_counter())
+        stage_s[name] = marks[-1] - marks[-2]
+
+    shard_keys = {"tsd.torch.device": "cuda",
+                  "tsd.core.auto_create_metrics": "true",
+                  "tsd.cluster.role": "shard", **ENGINE_KEYS}
+    shards = [TSDB(Config(**shard_keys)) for _ in range(CLUSTER_SHARDS)]
+    sts = [serve_pinned(ServerThread, t) for t in shards]
+    spec = ",".join(f"s{i}=127.0.0.1:{st.port}" for i, st in enumerate(sts))
+    # an in-memory spool (a write it takes for a dead shard marks the
+    # shard dirty) and no background replay: (d) drains and repairs by
+    # hand
+    router = TSDB(Config(**{
+        "tsd.torch.device": "cuda", "tsd.cluster.role": "router",
+        "tsd.cluster.peers": spec, "tsd.cluster.rf": str(RF),
+        "tsd.cluster.spool.replay_interval_ms": "3600000",
+        "tsd.cluster.breaker.reset_timeout_ms": str(RF_BREAKER_RESET_MS),
+        "tsd.query.cache.enable": "false"}))
+    rst = serve_pinned(ServerThread, router)
+    wire_h = rst.server.http_router
+    rc = router.cluster
+    start, end = str(T0), str(T0 + POINTS * 60 - 1)
+    launches = {"span_reduce": 0, "onehot_reduce": 0}
+
+    def take() -> dict:
+        """The launches since the last take (counted into the phase's),
+        the counts set to 0 again."""
+        got = read_launches(fused)
+        for k in launches:
+            launches[k] += got[k]
+        reset_launches(fused)
+        return got
+
+    mark("start")
+    try:
+        # the data: each cut series on both of its owners
+        tags, ts2d, values = data
+        t = time.perf_counter()
+        keys = [series_shard_key(METRIC, tags[i]) for i in keep.tolist()]
+        owners = rc.ring.shards_for_keys(keys, RF)
+        place_s = time.perf_counter() - t
+        by_shard = {f"s{i}": [] for i in range(CLUSTER_SHARDS)}
+        for i, own in zip(keep.tolist(), owners):
+            for name in own:
+                by_shard[name].append(i)
+        t = time.perf_counter()
+        for i, t_shard in enumerate(shards):
+            rows = np.asarray(by_shard[f"s{i}"], dtype=np.int64)
+            t_shard.add_series_points(METRIC, [tags[j] for j in rows],
+                                      ts2d[rows], values[rows])
+        load_s = time.perf_counter() - t
+        counts = {f"s{i}": int(t_shard.store.num_series())
+                  for i, t_shard in enumerate(shards)}
+        check(counts == {n: len(v) for n, v in by_shard.items()}
+              and sum(counts.values()) == RF * len(keep),
+              f"series per shard {counts}")
+        out.update(series=int(len(keep)), series_rows=sum(counts.values()),
+                   per_shard=counts)
+        print(f"  (b) {len(keep)} series on {RF} owners each: "
+              f"{sum(counts.values())} series rows {counts}; ring "
+              f"placement {place_s:.3f} s, shard loads {load_s:.3f} s "
+              f"(on {card})")
+        mark("load")
+
+        # (b) reads: a warm-up call of each query (the mask cold), then
+        # RF_REPEATS timed calls
+        mask = replica_mod.store_series_mask
+        mask.calls, mask.hashed, mask.seconds = 0, 0, 0.0
+        reset_launches(fused)
+        first_ms = []
+        for m, _kname in QUERIES:
+            t = time.perf_counter()
+            status, _rows, deg, _ = _cluster_rows(wire_h, HttpRequest, m,
+                                                  start, end)
+            first_ms.append((time.perf_counter() - t) * 1e3)
+            check(status == 200 and not deg, f"{m}: {status} {deg}")
+        cold = (mask.calls, mask.hashed, mask.seconds)
+        mask.calls, mask.hashed, mask.seconds = 0, 0, 0.0
+        take()
+        calls = {kname: 0 for _m, kname in QUERIES}
+        up_rows: dict = {}
+        reads: dict = {}
+        for m, kname in QUERIES:
+            key = "dc" if "{dc=*}" in m else "rack"
+            _want, terms = ref3[m]
+            secs, answers = [], []
+            for _ in range(RF_REPEATS):
+                t = time.perf_counter()
+                status, rows, deg, _ = _cluster_rows(wire_h, HttpRequest,
+                                                     m, start, end)
+                secs.append(time.perf_counter() - t)
+                calls[kname] += 1
+                check(status == 200 and not deg, f"{m}: {status} {deg}")
+                answers.append(rows)
+            check(answers[0] == answers[1],
+                  f"{m}: two calls at rf={RF} differ in their bits")
+            g = len(rows)
+            check(g == (CLUSTER_DCS if key == "dc" else 20 * CLUSTER_DCS),
+                  f"{m}: {g} merged groups")
+            err = _held_groups(torch, rows, key, _want, terms,
+                               f"{m} at rf={RF}")
+            err1 = held_rows(torch, rows, rf1_rows[m], key, terms,
+                             f"{m} at rf={RF} against rf=1")
+            up_rows[m] = rows
+            reads[f"{key}_ms"] = p50(secs) * 1e3
+            reads[f"{key}_max_abs_err"] = max(err, err1)
+            print(f"  (b) {m} at rf={RF}: p50 {p50(secs) * 1e3:.1f} ms of "
+                  f"{RF_REPEATS} after a warm-up, {g} groups held to phase "
+                  f"3's answer (max |d| {err!r}) and to phase 20's rf=1 "
+                  f"answer (max |d| {err1!r}), two calls bit-equal "
+                  f"(on {card})")
+        got = take()
+        for kname, n in calls.items():
+            check(got[kname] == n * CLUSTER_SHARDS,
+                  f"{kname}: {got[kname]} launches, want one per reading "
+                  f"shard per call ({n * CLUSTER_SHARDS})")
+        warm = (mask.calls, mask.hashed, mask.seconds)
+        out["mask"] = {"cold_calls": cold[0], "cold_hashed": cold[1],
+                       "cold_s": cold[2], "first_calls_ms": first_ms,
+                       "warm_calls": warm[0],
+                       "warm_hashed": warm[1],
+                       "warm_ms_per_call": warm[2] / max(warm[0], 1) * 1e3}
+        print(f"  (b) launches {got} over {calls} router calls x "
+              f"{CLUSTER_SHARDS} reading shards; the replica mask: cold "
+              f"{cold[0]} shard calls hashed {cold[1]} series in "
+              f"{cold[2]:.3f} s (summed over the shards; the router's "
+              f"warm-up calls {first_ms[0]:.1f} and {first_ms[1]:.1f} ms), "
+              f"warm {warm[0]} "
+              f"shard calls hashed {warm[1]}, "
+              f"{out['mask']['warm_ms_per_call']:.2f} ms a call (on {card})")
+        mark("b")
+
+        # (c) s1 down: its sets are read by their other owner
+        s1_port = sts[1].port
+        peer1 = rc.peers["s1"]
+        fb0 = rc.read_fallbacks
+        _listener(sts[1], up=False)
+        time.sleep(0.2)   # the wire session's watchdog (50 ms)
+        for m, kname in QUERIES:
+            key = "dc" if "{dc=*}" in m else "rack"
+            _want, terms = ref3[m]
+            # calls while s1's breaker is closed assign it its sets and
+            # re-read them from a sibling (a fallback round): open it
+            for _ in range(RF_TRIP_CALLS):
+                if peer1.breaker.blocking():
+                    break
+                status, rows, deg, _ = _cluster_rows(wire_h, HttpRequest,
+                                                     m, start, end)
+                check(status == 200 and not deg,
+                      f"{m} with s1 down: {status} {deg}")
+            check(peer1.breaker.blocking(), "s1's breaker did not open")
+            take()
+            t = time.perf_counter()
+            status, rows, deg, _ = _cluster_rows(wire_h, HttpRequest, m,
+                                                 start, end)
+            sec = time.perf_counter() - t
+            got = take()
+            check(status == 200 and not deg,
+                  f"{m} with s1 down: {status} {deg}")
+            check(got[kname] == CLUSTER_SHARDS - 1,
+                  f"{m} with s1 down launched {got}, want "
+                  f"{CLUSTER_SHARDS - 1} {kname}")
+            err = held_rows(torch, rows, up_rows[m], key, terms,
+                            f"{m} with s1 down")
+            reads[f"{key}_s1_down_ms"] = sec * 1e3
+            print(f"  (c) s1 down: {m} 200 with no shardsDegraded in "
+                  f"{sec * 1e3:.1f} ms, {got[kname]} {kname} launches, "
+                  f"held to the all-up answer (max |d| {err!r}) "
+                  f"(on {card})")
+        fallbacks = rc.read_fallbacks - fb0
+        check(fallbacks > 0, "no read fell back from s1")
+        out["reads"] = reads
+        out["read_fallbacks"] = fallbacks
+        print(f"  (c) read_fallbacks rose by {fallbacks}; the phase's "
+              f"launches so far, warm-ups and the calls that opened s1's "
+              f"breaker included: {launches}")
+        mark("c")
+
+        # (d) writes while s1 is down, in two bodies; s1's in-memory
+        # spool loses the first (as a router restart would lose it all),
+        # the drain replays the second, and the repair copies the rest
+        # from the surviving replicas
+        pts = [{"metric": RF_OUTAGE_METRIC, "timestamp": T0 + j,
+                "value": j, "tags": {"host": f"o{j % 1000}"}}
+               for j in range(RF_OUTAGE_POINTS)]
+        half = RF_OUTAGE_POINTS // 2
+        put_s = 0.0
+        conn = http.client.HTTPConnection("127.0.0.1", rst.port,
+                                          timeout=600)
+        try:
+            for body_pts in (pts[:half], pts[half:]):
+                status, body, secs = _http(conn, "POST",
+                                           "/api/put?summary=true",
+                                           json.dumps(body_pts).encode())
+                put_s += secs
+                check(status == 200 and json.loads(body)["failed"] == 0,
+                      f"outage put: {status} {body[:200]!r}")
+        finally:
+            conn.close()
+        spooled = peer1.spool.pending_records
+        dirty = rc.dirty.peek("s1")
+        check(spooled >= 2 and RF_OUTAGE_METRIC in dirty,
+              f"s1: {spooled} spooled records, dirty {dirty}")
+        check(not peer1.spool.durable, "s1's spool is on disk")
+        lost = peer1.spool._queue.popleft()
+        peer1.spool._mem_bytes -= len(lost)
+        lost_pts = len(json.loads(lost))
+        ring = rc.ring
+        sets = ring.replica_sets(RF)
+
+        def owner_points(name: str, t_shard) -> tuple[dict, dict]:
+            """(what ``name`` reads of the outage metric through a
+            replicaSel assigning it every set it is in, what those sets
+            hold)."""
+            sel = replica_mod.sel_doc(ring.names, ring.vnodes, RF,
+                                      [st_ for st_ in sets if name in st_])
+            tq = TSQuery.from_json({
+                "start": str(T0 - 1), "end": str(T0 + RF_OUTAGE_POINTS),
+                "replicaSel": sel, "queries": [
+                    {"metric": RF_OUTAGE_METRIC,
+                     "aggregator": "none"}]}).validate()
+            got_pts = {}
+            for r in t_shard.execute_query(tq):
+                ts_arr, vals = r.dps_arrays
+                for ts, v in zip(ts_arr.tolist(), vals.tolist()):
+                    got_pts[(r.tags["host"], ts // 1000)] = v
+            want_pts = {(dp["tags"]["host"], dp["timestamp"]):
+                        float(dp["value"]) for dp in pts
+                        if name in ring.shards_for(
+                            dp["metric"], dp["tags"], RF)}
+            return got_pts, want_pts
+
+        _listener(sts[1], up=True, port=s1_port)
+        t = time.perf_counter()
+        while peer1.breaker.blocking() and \
+                time.perf_counter() - t < RF_BREAKER_RESET_MS / 1e3 + 10:
+            time.sleep(0.02)
+        wait_s = time.perf_counter() - t
+        t = time.perf_counter()
+        rc.drain_spool(peer1)
+        drain_s = time.perf_counter() - t
+        check(peer1.spool.pending_records == 0, "s1's spool did not drain")
+        got1, want1 = owner_points("s1", shards[1])
+        check(set(got1) < set(want1)
+              and len(want1) - len(got1) == lost_pts,
+              f"s1 reads {len(got1)} of its {len(want1)} outage points "
+              f"after the drain, {lost_pts} of them lost with the spool")
+        rp0 = rc.repair_points
+        t = time.perf_counter()
+        repaired = rc.repair_peer(peer1)
+        repair_s = time.perf_counter() - t
+        copied = rc.repair_points - rp0
+        check(repaired and not rc.dirty.peek("s1") and copied >= lost_pts,
+              f"repair: {repaired}, dirty {rc.dirty.peek('s1')}, "
+              f"{copied} points copied, {lost_pts} lost")
+        seen: dict = {}
+        for i, t_shard in enumerate(shards):
+            name = f"s{i}"
+            got_pts, want_pts = owner_points(name, t_shard)
+            check(got_pts == want_pts,
+                  f"{name} reads {len(got_pts)} outage points through its "
+                  f"selector, its sets hold {len(want_pts)}")
+            for k in got_pts:
+                seen[k] = seen.get(k, 0) + 1
+        check(len(seen) == RF_OUTAGE_POINTS
+              and set(seen.values()) == {RF},
+              "not every outage point reads back from both owners")
+        out["outage"] = {"points": RF_OUTAGE_POINTS, "put_s": put_s,
+                         "spooled_records": spooled,
+                         "breaker_wait_s": wait_s, "drain_s": drain_s,
+                         "repair_s": repair_s, "repair_points": copied,
+                         "lost_points": lost_pts}
+        print(f"  (d) s1 down: {RF_OUTAGE_POINTS} points acknowledged in "
+              f"two bodies, {put_s:.3f} s, into {spooled} spool records, "
+              f"s1 dirty for {sorted(dirty)}; the first record lost "
+              f"({lost_pts} of s1's {len(want1)} points); s1 back: the "
+              f"breaker half-opened in {wait_s:.3f} s, the spool drained "
+              f"in {drain_s:.3f} s ({len(got1)} points on s1), "
+              f"repair_peer copied {copied} points in {repair_s:.3f} s; "
+              f"every point read back from each of its {RF} owners "
+              f"through a replicaSel assigning that owner (on {card})")
+        mark("d")
+    finally:
+        rst.stop()
+        for st in sts:
+            st.stop()
+    mark("stop")
+    out["stage_s"] = stage_s
+    print("  seconds by stage: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stage_s.items()))
     return launches, out
 
 
@@ -7233,6 +7965,9 @@ def main() -> int:
            + f" (|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
     for m, _tz, _kind in IRREGULAR_QUERIES:
         b_irr = 4 if "15mc" in m else (12 if "5m-" in m else POINTS * 10)
+        if m == UNION_QUERY:
+            placement(m, s // UNION_SHARE, b_irr, 2, m.split(":")[0])
+            continue
         placement(m, s, b_irr, min(s, 100 if "{dc=*}" in m else 2000),
                   m.split(":")[0])
     phase_irregular(torch, s, args.profile)
@@ -7314,9 +8049,30 @@ def main() -> int:
            f"of dc0-dc{CLUSTER_DCS - 1} (CUT from 1,000,000 to "
            f"{CLUSTER_DCS}%) (|got - want| <= {TOL_REL}*sum|terms| + "
            f"{TOL_ABS})")
-    cl_launches, cluster = phase_cluster(torch, s, ref3, card, args.profile)
+    data = make_data(s)
+    cl_launches, cluster, to21 = phase_cluster(torch, data, ref3, card,
+                                               args.profile, header)
     for kname, n in cl_launches.items():
         launches[kname] += n
+    for kname, n in to21["fed_launches"].items():
+        launches[kname] += n
+    gc.collect()   # phase 20's TSDBs, before three new shards load
+    header(f"phase 21 (b)-(d): replication at tsd.cluster.rf={RF}, a "
+           f"router over {CLUSTER_SHARDS} new shard TSDs, the same series "
+           f"on {RF} owners each (|got - want| <= {TOL_REL}*sum|terms| + "
+           f"{TOL_ABS})")
+    t_rf = time.perf_counter()
+    keep = np.asarray([i for i in range(s) if i % 100 < CLUSTER_DCS],
+                      dtype=np.int64)
+    rf_launches, replication = phase_replicated(
+        torch, data, keep, ref3, to21["rf1_rows"], card)
+    del data
+    for kname, n in rf_launches.items():
+        launches[kname] += n
+    replication["federated"] = to21["fed"]
+    replication["phase_s"] = to21["fed"]["phase_s"] \
+        + time.perf_counter() - t_rf
+    print(f"phase 21: {replication['phase_s']:.1f} s")
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),
@@ -7348,6 +8104,7 @@ def main() -> int:
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"obs": obs}))
     print(json.dumps({"cluster": cluster}))
+    print(json.dumps({"replication": replication}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,23 @@
-"""The sharded cluster tier at one replica (ref:
-``opentsdb_tpu/cluster/``).
+"""The sharded cluster tier (ref: ``opentsdb_tpu/cluster/``).
 
 A **router** TSD (``tsd.cluster.role = router``) owns a consistent-hash
 series→shard map over ``tsd.cluster.peers`` shard TSDs
 (``tsd.cluster.role = shard``), so
 
 - writes forward as series-grouped columnar batches to the owning
-  shard (one client body stays one WAL write + one fsync per shard),
-  and an unreachable shard's batches land in a per-peer durable spool
-  that replays when the peer's breaker half-opens;
+  shards (one client body stays one WAL write + one fsync per shard;
+  every replica owner at ``tsd.cluster.rf`` > 1), and an unreachable
+  shard's batches land in a per-peer durable spool that replays when
+  the peer's breaker half-opens;
 - queries scatter to every shard, each answering through its own
   query engine (its kernels run there), and the router merges the
   per-shard group partials exactly (sum/count/min/max decompose,
-  ``avg`` = merged sum / merged count, percentiles through sketches).
+  ``avg`` = merged sum / merged count, percentiles through sketches);
+  at rf > 1 each replica set is read by one member
+  (:mod:`~opentsdb_tpu_torch.cluster.replica`), the next one when it
+  fails, and an anti-entropy pass re-copies what a replica missed;
+- continuous queries registered at the router stand on every shard
+  and merge there (:mod:`~opentsdb_tpu_torch.cluster.cq`).
 
 A dead, hanging or flapping peer never turns into a 5xx: a read gets a
 200 partial carrying a ``shardsDegraded`` marker that the result cache
@@ -24,9 +29,8 @@ Every format that outlives a process is the reference's byte for
 byte: the ring's MD5 placement, the spool and its offset sidecar, the
 dirty tracker's and the reshard state's files, and the wire's frames.
 
-Replication, resharding, retirement, gossip and read repair from a
-replica (ROADMAP Queue 1, item 1.6d) and federated continuous queries
-(item 1.6e) are refused by name.
+Resharding and stale-copy retirement (ROADMAP Queue 1, item 1.6d(ii))
+and the sibling routers' gossip (item 1.6d(iii)) are refused by name.
 """
 
 from opentsdb_tpu_torch.cluster.hashring import HashRing, series_shard_key

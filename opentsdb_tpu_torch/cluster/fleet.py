@@ -29,19 +29,23 @@ Also here: the consolidated operator progress surface behind
 ``GET /api/cluster/status`` — the ring epoch, per-peer spool backlog
 and dirty-debt AGE, with coarse ETA estimates (the reference's backfill
 and gossip sections need resharding and sibling routers, ROADMAP
-Queue 1, item 1.6d, and never appear at epoch 0 with no siblings).
+Queue 1, items 1.6d(ii) and 1.6d(iii), and never appear at epoch 0
+with no siblings).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import json
+import logging
 import time
 from typing import Any
 
 from opentsdb_tpu_torch.stats.stats import (LATENCY_PCTS, is_gauge,
                                       merge_histogram_snapshots,
                                       percentiles_from_buckets)
+
+LOG = logging.getLogger("cluster.fleet")
 
 
 def _tag_suffix(tags: dict[str, Any]) -> str:
@@ -77,7 +81,11 @@ def scatter_json(router, path: str
             if not isinstance(doc, dict):
                 raise OSError(f"{path} body is not an object")
         except (OSError, ValueError,
-                concurrent.futures.TimeoutError):
+                concurrent.futures.TimeoutError) as exc:
+            # named in the log as a read scatter names a failed leg:
+            # the doc itself only lists the shard
+            LOG.warning("shard %s failed the %s scatter (%s: %s)", name,
+                        path, type(exc).__name__, exc)
             peer = router.peers.get(name)
             if peer is not None:
                 peer.query_failures += 1
@@ -237,7 +245,7 @@ def cluster_status(router) -> dict[str, Any]:
         "ts": now_ms // 1000,
     }
     # -- reshard window: idle at epoch 0 on the port (resharding and
-    # its backfill are ROADMAP Queue 1, item 1.6d)
+    # its backfill are ROADMAP Queue 1, item 1.6d(ii))
     doc["reshard"] = state.describe()
     doc["retire"] = router.retire_info()
     # -- per-peer spool backlog + divergence debt ----------------------

@@ -70,6 +70,9 @@ class HashRing:
         # (rf, vnode idx) -> replica tuple, same bound as _sets_cache
         # keyspace fixed at construction
         self._walk_cache: dict[tuple[int, int], tuple[str, ...]] = {}
+        # rf -> [vnode idx] position of its replica set in
+        # replica_sets(rf) (set_indices); one array per rf
+        self._seg_sets: dict[int, np.ndarray] = {}
 
     def _walk(self, idx: int, rf: int) -> tuple[str, ...]:
         """Ordered next-``rf``-distinct owners clockwise from vnode
@@ -105,13 +108,9 @@ class HashRing:
         rf = max(1, min(int(rf), len(self.names)))
         if not keys:
             return []
-        hs = np.fromiter((_hash64(k) for k in keys),
-                         dtype=np.uint64, count=len(keys))
-        idxs = np.searchsorted(self._points_arr, hs, side="right")
-        idxs[idxs == len(self._points)] = 0  # wrap: ring is circular
         out: list[tuple[str, ...]] = []
         cache = self._walk_cache
-        for idx in idxs.tolist():
+        for idx in self._segments(keys).tolist():
             ck = (rf, idx)
             owners = cache.get(ck)
             if owners is None:
@@ -119,6 +118,34 @@ class HashRing:
                 cache[ck] = owners
             out.append(owners)
         return out
+
+    def _segments(self, keys: list[bytes]) -> np.ndarray:
+        """Each key's successor vnode position: one ``searchsorted``
+        over the vnode array for the whole batch."""
+        # _hash64 of every key: each digest's first 8 bytes, big-endian
+        md5 = hashlib.md5
+        hs = np.frombuffer(b"".join([md5(k).digest() for k in keys]),
+                           dtype=">u8")[::2].astype(np.uint64)
+        idxs = np.searchsorted(self._points_arr, hs, side="right")
+        idxs[idxs == len(self._points)] = 0  # wrap: ring is circular
+        return idxs
+
+    def set_indices(self, keys: list[bytes], rf: int = 1) -> np.ndarray:
+        """Each key's replica set as its position in
+        :meth:`replica_sets` (int32): :meth:`shards_for_keys` with the
+        walk resolved per vnode segment once, for masks over many
+        series."""
+        rf = max(1, min(int(rf), len(self.names)))
+        seg = self._seg_sets.get(rf)
+        if seg is None:
+            pos = {t: i for i, t in enumerate(self.replica_sets(rf))}
+            seg = np.asarray([pos[self._walk(i, rf)]
+                              for i in range(len(self._points))],
+                             dtype=np.int32)
+            self._seg_sets[rf] = seg
+        if not keys:
+            return np.empty(0, dtype=np.int32)
+        return seg[self._segments(keys)]
 
     def shard_for_key(self, key: bytes) -> str:
         """Owning (primary) shard of one pre-computed series key."""

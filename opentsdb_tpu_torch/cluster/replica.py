@@ -1,21 +1,35 @@
-"""Anti-entropy bookkeeping of the cluster tier (ref:
-``opentsdb_tpu/cluster/replica.py``, its :class:`DirtyTracker` and
-:class:`ReadRepairQueue`).
+"""Replica selection and anti-entropy of the cluster tier (ref:
+``opentsdb_tpu/cluster/replica.py``).
 
-The durable spool replays every acked write to a returned peer — it IS
-the first line of anti-entropy. What it cannot cover is the window
-where the spool itself failed (a ``SpoolFull`` refusal, an in-memory
-spool lost to a router restart): the tracker records a per-(peer,
-metric) dirty-epoch (earliest wall-clock ms the divergence could have
-begun, persisted next to the spool as ``replica_dirty.json``, the reference's
-file), and the router's replay loop runs a repair pass for a peer
-with debt once its spool drains. At one replica (``tsd.cluster.rf=1``,
-the only factor the port serves) there is no second copy to repair
-from, so a pass clears the debt, as the reference's does.
+**Replica selection** (``replicaSel``). At ``tsd.cluster.rf`` > 1 a
+plain scatter would count every series rf times. The router assigns
+each distinct ordered replica set (:meth:`HashRing.replica_sets`) to
+exactly ONE member and sends that member the assignment in the query
+body::
 
-The reference's replica read plan (``replicaSel``: ``ring_for``,
-``sel_doc``, ``parse_sel``, ``sel_cache_key``, ``series_mask``) serves
-RF > 1 and comes with replication (ROADMAP Queue 1, item 1.6d).
+    "replicaSel": {"peers": [...], "vnodes": 64, "rf": 2,
+                   "sets": [["s0", "s1"], ["s2", "s0"]]}
+
+The shard rebuilds the same ring (``peers`` and ``vnodes`` pin it; MD5
+placement is the same in every process) and keeps a candidate series
+only when its replica set is among the assigned ones
+(:func:`series_mask`), so every series is read exactly once cluster
+wide. The engine reads the mask through :func:`store_series_mask`,
+which remembers each series' replica set per store and ring for the
+store's life, so a repeat query hashes no series again. The selector
+itself is parsed and keyed by ``query.model.parse_sel`` and
+``sel_cache_key``, beside the ``TSQuery`` field it fills.
+
+**Anti-entropy** (:class:`DirtyTracker`). The durable spool replays
+every acked write to a returned peer — it IS the first line of
+anti-entropy. What it cannot cover is the window where the spool
+itself failed (a ``SpoolFull`` refusal, an in-memory spool lost to a
+router restart, a point one replica refused while its sibling stored
+it): the tracker records a per-(peer, metric) dirty-epoch (earliest
+wall-clock ms the divergence could have begun, persisted next to the
+spool as ``replica_dirty.json``, the reference's file), and the
+router's replay loop re-copies the window from a surviving replica
+once the peer's spool drains (:meth:`ClusterRouter.repair_peer`).
 """
 
 from __future__ import annotations
@@ -25,9 +39,162 @@ import logging
 import os
 import threading
 import time
+import weakref
 from typing import Any, Iterable
 
+import numpy as np
+
+from opentsdb_tpu_torch.cluster.hashring import HashRing, series_shard_key
+from opentsdb_tpu_torch.query.model import parse_sel, sel_cache_key
+
 LOG = logging.getLogger("cluster.replica")
+
+# process-wide ring memo: shards rebuild the router's ring from the
+# replicaSel spec on every filtered query, and construction hashes
+# names x vnodes, so identical specs share one instance (ref)
+_ring_lock = threading.Lock()
+_ring_cache: dict[tuple, HashRing] = {}
+
+
+def ring_for(peers: Iterable[str], vnodes: int) -> HashRing:
+    key = (tuple(peers), int(vnodes))
+    with _ring_lock:
+        ring = _ring_cache.get(key)
+        if ring is None:
+            if len(_ring_cache) > 64:
+                _ring_cache.clear()  # retired specs: keep no dead rings
+            ring = _ring_cache[key] = HashRing(list(key[0]), key[1])
+        return ring
+
+
+def sel_doc(peers: list[str], vnodes: int, rf: int,
+            sets: Iterable[tuple[str, ...]],
+            invert: bool = False) -> dict[str, Any]:
+    """The wire form of one request's replica assignment. ``invert``
+    flips the mask: the shard keeps only series whose replica set is
+    NOT among ``sets`` (the reference's stale-copy retire pass)."""
+    out = {"peers": list(peers), "vnodes": int(vnodes),
+           "rf": int(rf), "sets": [list(t) for t in sets]}
+    if invert:
+        out["invert"] = True
+    return out
+
+
+def _wanted(sel: dict[str, Any], ring: HashRing) -> np.ndarray:
+    """[replica sets] bool: which of ``ring.replica_sets(rf)`` the
+    request keeps (inverted with ``invert``)."""
+    assigned = {tuple(t) for t in sel["sets"]}
+    hit = np.asarray([t in assigned for t in ring.replica_sets(sel["rf"])],
+                     dtype=bool)
+    return ~hit if sel.get("invert", False) else hit
+
+
+def series_mask(sel: dict[str, Any], metric: str, series_tags,
+                name_of_kid, name_of_vid) -> list[bool]:
+    """Shard-side filter: which of this store's candidate series this
+    request is assigned to read (ref: ``series_mask``). ``series_tags``
+    yields one ``[(kid, vid), ...]`` list per series; the resolvers map
+    tag UID ints to names (the ring hashes NAMES, the one spelling that
+    is the same on every shard; UID ints are per shard). The pairs are
+    laid out as a tag matrix and placed as :func:`store_series_mask`
+    places a store's series, with no memo."""
+    rows = [{int(k): int(v) for k, v in pairs} for pairs in series_tags]
+    kids = sorted({k for r in rows for k in r})
+    col = {k: j for j, k in enumerate(kids)}
+    vids = np.full((len(rows), len(kids)), -1, dtype=np.int64)
+    for i, r in enumerate(rows):
+        for k, v in r.items():
+            vids[i, col[k]] = v
+    ring = ring_for(sel["peers"], sel["vnodes"])
+    pos = ring.set_indices(_matrix_keys(
+        metric, np.asarray(kids), vids,
+        lambda ids: [name_of_kid(i) for i in ids],
+        lambda ids: [name_of_vid(i) for i in ids]), sel["rf"])
+    return _wanted(sel, ring)[pos].tolist()
+
+
+def _matrix_keys(metric: str, kids: np.ndarray, vids: np.ndarray,
+                 names_of_kids, names_of_vids) -> list[bytes]:
+    """:func:`series_shard_key` of every row of a tag matrix (``vids``
+    [S, K], -1 where a series lacks key ``kids[j]``), built a column at
+    a time in the tag names' order: each distinct (key, value) pair is
+    named (``names_of_*`` map a list of UID ints to their names) and
+    encoded once, and each key joined in one pass."""
+    head = metric.encode("utf-8", "surrogatepass")
+    names = names_of_kids([int(k) for k in kids])
+    cols = []
+    for j in sorted(range(len(kids)), key=names.__getitem__):
+        uniq, inv = np.unique(vids[:, j], return_inverse=True)
+        known = uniq[uniq >= 0].tolist()
+        pre = f"\x00{names[j]}="
+        piece = [b""] * (len(uniq) - len(known)) + [   # -1 sorts first
+            (pre + v).encode("utf-8", "surrogatepass")
+            for v in names_of_vids(known)]
+        cols.append([piece[i] for i in inv.reshape(-1).tolist()])
+    if not cols:
+        return [head] * len(vids)
+    return [head + b"".join(parts) for parts in zip(*cols)]
+
+
+class _SetMemo:
+    """One store's replica-set positions on one ring at one rf: ``pos``
+    indexed by series id, -1 where not yet computed. A store's series
+    ids are dense and never reused, and a series' tags never change,
+    so an entry stays true for the store's life."""
+
+    __slots__ = ("lock", "pos")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.pos = np.empty(0, dtype=np.int32)
+
+
+# store -> {(peers, vnodes, rf): _SetMemo}; a store's memos go with it
+_memo_lock = threading.Lock()
+_set_memos: "weakref.WeakKeyDictionary[Any, dict]" = \
+    weakref.WeakKeyDictionary()
+
+
+def store_series_mask(sel: dict[str, Any], store, metric: str,
+                      sids: np.ndarray, kids: np.ndarray, vids: np.ndarray,
+                      names_of_kids, names_of_vids) -> np.ndarray:
+    """:func:`series_mask` of the series ``sids`` of ``store`` (their
+    tags as a tag matrix; ``names_of_*`` map a list of UID ints to
+    their names, as ``UniqueId.get_names``), through a per-(ring, rf)
+    memo of each series' replica set that lives as long as the store:
+    only series not seen before are named and hashed. Counts its
+    calls, the series it hashed and its seconds in
+    ``store_series_mask.calls``, ``.hashed`` and ``.seconds`` (set
+    them to 0 to reset)."""
+    t0 = time.perf_counter()
+    ring = ring_for(sel["peers"], sel["vnodes"])
+    rf = sel["rf"]
+    key = (tuple(sel["peers"]), int(sel["vnodes"]), int(rf))
+    with _memo_lock:
+        memo = _set_memos.setdefault(store, {}).setdefault(key, _SetMemo())
+    sids = np.asarray(sids, dtype=np.int64)
+    with memo.lock:
+        if len(sids) and int(sids.max()) >= len(memo.pos):
+            grown = np.full(int(sids.max()) + 1, -1, dtype=np.int32)
+            grown[:len(memo.pos)] = memo.pos
+            memo.pos = grown
+        pos = memo.pos[sids]
+        todo = np.flatnonzero(pos < 0)
+        if len(todo):
+            keys = _matrix_keys(metric, kids, vids[todo], names_of_kids,
+                                names_of_vids)
+            pos[todo] = ring.set_indices(keys, rf)
+            memo.pos[sids[todo]] = pos[todo]
+    keep = _wanted(sel, ring)[pos]
+    store_series_mask.calls += 1
+    store_series_mask.hashed += len(todo)
+    store_series_mask.seconds += time.perf_counter() - t0
+    return keep
+
+
+store_series_mask.calls = 0
+store_series_mask.hashed = 0
+store_series_mask.seconds = 0.0
 
 
 class DirtyTracker:
@@ -263,4 +430,6 @@ class ReadRepairQueue:
         }
 
 
-__all__ = ["DirtyTracker", "ReadRepairQueue"]
+__all__ = ["DirtyTracker", "ReadRepairQueue", "parse_sel", "ring_for",
+           "sel_cache_key", "sel_doc", "series_mask",
+           "store_series_mask"]

@@ -6,7 +6,7 @@ persisted as ``reshard.json`` next to the spool. The port reads and
 writes that file in the reference's format, so a spool directory moves
 between the two packages' routers, and reports it in ``/api/cluster``.
 Resharding itself (``begin``, ``finish``, ``adopt``, the
-:class:`Backfiller`) is not ported (ROADMAP Queue 1, item 1.6d): the
+:class:`Backfiller`) is not ported (ROADMAP Queue 1, item 1.6d(ii)): the
 router refuses a directory whose state is past epoch 0 or holds an
 open cutover, so the port's state is always idle at epoch 0.
 """

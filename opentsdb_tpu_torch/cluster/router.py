@@ -1,5 +1,5 @@
 """The cluster router: consistent-hash writes, scatter-gather reads
-(ref: ``opentsdb_tpu/cluster/router.py``, at one replica).
+(ref: ``opentsdb_tpu/cluster/router.py``).
 
 ``tsd.cluster.role = router`` turns a TSDServer into a stateless
 serving tier in front of ``tsd.cluster.peers`` shard TSDs (the
@@ -26,11 +26,16 @@ fan-out of ``SaltScanner.java:70`` lifted to the network):
   partials are never retained by the result cache; a later complete
   answer repopulates the entry.
 
-The port serves one replica (``tsd.cluster.rf=1``) and one ring at
-epoch 0. Replication, resharding, stale-copy retirement, the sibling
-routers' gossip and read repair from a replica (ROADMAP Queue 1, item
-1.6d), and federated continuous queries (item 1.6e), are refused when
-the TSDB or the router is built.
+At ``tsd.cluster.rf`` > 1 every point is written to rf distinct shards
+(its replica set, a clockwise walk of the ring), a read assigns each
+replica set to one live member (``replicaSel``, so every series is
+read once) and falls back to the next member when a reader fails, and
+an anti-entropy pass re-copies a window one replica missed from a
+sibling. Federated continuous queries (:mod:`.cq`) stand on every
+shard and merge at the router. The port keeps one ring at epoch 0:
+resharding and stale-copy retirement (ROADMAP Queue 1, item 1.6d(ii))
+and the sibling routers' gossip (item 1.6d(iii)) are refused when the
+TSDB or the router is built.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from opentsdb_tpu_torch.cluster import wire as wire_mod
 from opentsdb_tpu_torch.cluster.client import (PeerClient, PeerError,
                                                parse_peer_spec)
 from opentsdb_tpu_torch.cluster.hashring import HashRing, series_shard_key
-from opentsdb_tpu_torch.cluster.reshard import ReshardState
+from opentsdb_tpu_torch.cluster.reshard import HORIZON_MS, ReshardState
 from opentsdb_tpu_torch.cluster.spool import PeerSpool, SpoolFull
 from opentsdb_tpu_torch.core.tags import (check_metric_and_tags,
                                           check_metric_and_tags_batch,
@@ -179,7 +184,7 @@ class ClusterRouter:
                 f"state at epoch {self.state.epoch}"
                 f"{' with an open cutover' if self.state.active else ''}"
                 ", which needs resharding, not ported yet (ROADMAP "
-                "Queue 1, item 1.6d, replication and resharding)")
+                "Queue 1, item 1.6d(ii), resharding and retirement)")
         specs = parse_peer_spec(config_spec)
         self.rf = max(config.get_int("tsd.cluster.rf", 1), 1)
         self.peers: dict[str, Peer] = {}
@@ -190,8 +195,12 @@ class ClusterRouter:
                              vnodes=config.get_int("tsd.cluster.vnodes",
                                                    64))
         # anti-entropy: per-(peer, metric) divergence windows the
-        # spool cannot replay (a refused or in-memory handoff)
+        # spool cannot replay (lost or refused records), repaired from
+        # a surviving replica when the peer returns
         self.dirty = replica_mod.DirtyTracker(spool_dir or None)
+        # points per repair delivery (the reference's backfill chunk)
+        self.backfill_batch = config.get_int(
+            "tsd.cluster.reshard.backfill_batch", 4000)
         self.repair_enabled = config.get_bool(
             "tsd.cluster.replica.repair", True)
         self._spool_dir = spool_dir or None
@@ -213,6 +222,10 @@ class ClusterRouter:
         # binary columnar wire transport (cluster/wire.py): persistent
         # framed links per peer, JSON HTTP as negotiated fallback
         self.wire = wire_mod.WireManager(self)
+        # federated continuous queries (cluster/cq.py): per-shard
+        # shared partials, the merge view held here
+        from opentsdb_tpu_torch.cluster.cq import FederatedCQRegistry
+        self.cqs = FederatedCQRegistry(self)
         # per-sub retry amplification bound: a multi-sub 400 re-asks
         # per rejected metric — cap how many of those singles run
         # concurrently against ONE peer so a wide dashboard query
@@ -230,6 +243,7 @@ class ClusterRouter:
         self.cache_degraded_skips = 0
         self.repairs = 0             # completed anti-entropy passes
         self.repair_points = 0       # points re-forwarded by repair
+        self.read_fallbacks = 0      # tuples re-read from a fallback
         self.scatter_name_queries = 0  # suggest/search fan-outs
         # per-(peer, metric) known/unknown memo: a shard that 400'd
         # "no such name" for a metric is not re-asked about it on
@@ -305,13 +319,15 @@ class ClusterRouter:
         t.start()
 
     def stop(self) -> None:
-        """Join the replay thread, close the wire links (which wakes
+        """Join the replay thread, drop the federated registrations
+        (the shards keep theirs), close the wire links (which wakes
         every leg waiting on one), join the fan-out pool and close the
         spools: no thread of the router outlives this call."""
         self._stop.set()
         t = self._replay_thread
         if t is not None and t.is_alive():
             t.join(timeout=5)
+        self.cqs.close()
         self.wire.close_all()
         self.pool.shutdown(wait=True, cancel_futures=True)
         for peer in self.peers.values():
@@ -396,7 +412,8 @@ class ClusterRouter:
     def fetch_guarded(self, peer: Peer, method: str, path: str,
                       body: bytes | None = None) -> tuple[int, bytes]:
         """One breaker-guarded exchange on an arbitrary path (the
-        suggest, lookup, last-point and fleet scatters): same failure
+        suggest, lookup, last-point and fleet scatters, the copy
+        scans): same failure
         accounting as a query leg — a refusal or transport failure
         raises."""
         if not peer.breaker.allow():
@@ -410,6 +427,58 @@ class ClusterRouter:
             raise
         peer.breaker.record_success()
         return status, data
+
+    def scan_series_pages(self, peer: Peer, metric: str,
+                          start_ms: int, end_ms: int,
+                          sel: dict | None = None,
+                          _depth: int = 0):
+        """Yield pages of raw per-series rows (aggregator ``none``,
+        ms resolution) of one metric's window on one peer — the
+        backfill/repair copy source, with the same breaker +
+        fault-site discipline as a scatter leg. A **413 scan-budget
+        refusal bisects the window**: a budgeted shard refuses a
+        whole history in one piece, and without paging the copy
+        would retry the identical over-budget query forever. A
+        generator so callers forward each slice as it arrives
+        instead of materializing the whole history (one page is
+        bounded by the shard's scan budget when one is configured).
+        Unknown metric yields nothing; any other failure raises
+        ``OSError`` (the caller retries the unit later)."""
+        obj = {
+            # explicit ms suffix: a bare sub-13-digit number parses
+            # as SECONDS (reference numeric heuristic), which would
+            # silently widen early bisect slices to contain all data
+            "start": f"{max(start_ms, 1)}ms", "end": f"{end_ms}ms",
+            "msResolution": True,
+            "queries": [{"metric": metric, "aggregator": "none"}],
+        }
+        if sel is not None:
+            obj["replicaSel"] = sel
+        status, data = self._query_peer(peer,
+                                        json.dumps(obj).encode())
+        if status == 400 and b"no such name" in data.lower():
+            return
+        # depth 48 halves any ms window down to ~1s slices — the
+        # copy scans start at epoch-begin, so ~25 levels are routine
+        if status == 413 and _depth < 48 \
+                and end_ms - max(start_ms, 1) > 1000:
+            mid = (max(start_ms, 1) + end_ms) // 2
+            yield from self.scan_series_pages(peer, metric, start_ms,
+                                              mid, sel, _depth + 1)
+            yield from self.scan_series_pages(peer, metric, mid + 1,
+                                              end_ms, sel,
+                                              _depth + 1)
+            return
+        if status != 200:
+            raise PeerUnavailable(
+                f"peer {peer.name} answered {status} to a "
+                f"{metric!r} copy scan")
+        try:
+            yield data if isinstance(data, list) else json.loads(data)
+        except ValueError as exc:
+            raise PeerUnavailable(
+                f"peer {peer.name} sent an unparseable copy-scan "
+                f"body") from exc
 
     # ------------------------------------------------------------------
     # per-(peer, metric) known/unknown memo (see __init__)
@@ -509,7 +578,7 @@ class ClusterRouter:
     def write_owners(self, metric: str, tags: dict[str, str]
                      ) -> tuple[str, ...]:
         """Every shard one point must reach: the ring's replica set
-        (the one owner at ``tsd.cluster.rf=1``)."""
+        (rf distinct owners, primary first)."""
         return self.ring.shards_for(metric, tags, self.rf)
 
     @staticmethod
@@ -527,9 +596,10 @@ class ClusterRouter:
     def partition_points(self, points: list[dict]
                          ) -> tuple[dict[str, list[dict]],
                                     list[dict], list[dict]]:
-        """Shard each datapoint by its series key onto its owner.
-        Returns (shard -> points, local error entries for unshardable
-        dps, valid dps in input order).
+        """Shard each datapoint by its series key onto EVERY replica
+        owner. Returns (shard -> points, local error entries for
+        unshardable dps, valid dps in input order): at RF > 1 the same
+        dp object appears in several shards' batches.
 
         The per-point validation mirrors the peer's write path BEFORE
         acking: a bad point bound for a dead shard would be acked into
@@ -678,17 +748,21 @@ class ClusterRouter:
 
     def forward_writes(self, points: list[dict]
                        ) -> tuple[int, int, list[dict]]:
-        """Partition + deliver one put body to the owning shards.
+        """Partition + deliver one put body to every replica owner.
         Returns (success, failed, error entries). Spooled points count
-        as success — they are durably accepted and will replay, so an
-        ack always implies eventual presence on the owner.
+        as success — they are durably accepted and will replay; a
+        point is acked only when EVERY owner accepted (forwarded or
+        spooled) its copy, so an ack always implies eventual presence
+        on the full replica set.
 
         At-least-once, never at-most-once: a delivery that outlives
         the ``fut.result`` cap below is reported failed even though
         the in-flight worker may still land (or spool) it — the safe
         direction, since a re-sent point dedupes last-write-wins on
         the shard, while the reverse (acking a loss) cannot be
-        repaired."""
+        repaired. The same rule covers a replica split (one owner
+        stored, another refused): reported failed, and the divergence
+        is marked dirty for anti-entropy."""
         batches, errors, valid = self.partition_points(points)
         tctx = trace_mod.current()
         futures = {
@@ -712,11 +786,24 @@ class ClusterRouter:
                 errs = [{"datapoint": dp, "error": str(exc)}
                         for dp in dps]
             attributed = 0
+            refused_dps: list[dict] = []
             for e in errs:
                 dp = e.get("datapoint")
                 if isinstance(dp, dict):
                     failed_entries.setdefault(self._dp_key(dp), e)
+                    refused_dps.append(dp)
                     attributed += 1
+            if refused_dps and self.rf > 1:
+                # a point one replica refused may have landed on its
+                # siblings (a replica SPLIT): mark the window dirty so
+                # anti-entropy re-levels it when the peer is willing;
+                # a refusal that was the same everywhere repairs to a
+                # no-op and clears (ref)
+                self.dirty.mark(
+                    name,
+                    {dp.get("metric") for dp in refused_dps
+                     if dp.get("metric")},
+                    self._min_ts_ms(refused_dps))
             # a peer that counted failures it did not echo (odd
             # summary body): charge them without attribution — the
             # over-report direction is the safe one
@@ -1114,19 +1201,20 @@ class ClusterRouter:
         once its spool is drained (replay covers everything the spool
         still holds — repair exists for what it lost). Gated by the
         peer's breaker like any dispatch: on a non-closed breaker the
-        pass IS the half-open probe, and at one replica, where the pass
-        voids the debt (:meth:`repair_peer`), it closes the breaker as
-        the reference's does. Returns True when the peer has no
-        remaining debt."""
+        repair IS the half-open probe. Returns True when the peer has
+        no remaining debt."""
         if not self.repair_enabled:
             return False
         if not self.dirty.peek(peer.name):
             return True
         if peer.spool.pending_records:
             return False  # replay first; repair covers the remainder
-        probe = peer.breaker.state != CircuitBreaker.CLOSED
-        if probe and not peer.breaker.allow():
-            return False
+        if peer.breaker.state != CircuitBreaker.CLOSED:
+            if not peer.breaker.allow():
+                return False
+            probe = True
+        else:
+            probe = False
         tracer = self.tsdb.tracer
         tctx = tracer.start_background("cluster.replica.repair",
                                        peer=peer.name) \
@@ -1134,6 +1222,24 @@ class ClusterRouter:
         try:
             with trace_mod.use(tctx):
                 done = self.repair_peer(peer)
+            if probe:
+                if done:
+                    peer.breaker.record_success()
+                else:
+                    # the remaining debt is SOURCE-side trouble (a
+                    # sibling was down or refused the scan) — the
+                    # peer under probe may be perfectly healthy, and
+                    # punishing it would quarantine it for as long as
+                    # the source stays down. Decide the probe by
+                    # touching the peer itself.
+                    try:
+                        self._check_faults(peer)
+                        self._fetch(peer, "GET", "/api/version",
+                                    None)
+                        peer.breaker.record_success()
+                    except OSError:
+                        peer.breaker.record_failure()
+            return done
         except OSError as exc:  # the cluster.replica fault site
             if tctx is not None:
                 tctx.set_error(exc)
@@ -1144,35 +1250,142 @@ class ClusterRouter:
         finally:
             if tctx is not None:
                 tracer.finish(tctx)
-        if probe:
-            peer.breaker.record_success()
-        return done
 
     def repair_peer(self, peer: Peer) -> bool:
-        """Settle a peer's dirty windows. The reference re-copies each
-        window from a surviving replica; at one replica
-        (``tsd.cluster.rf=1``) no second copy exists to repair FROM,
-        so the debt is void and clears, as the reference's does at
-        rf=1. Returns True (no debt remains)."""
+        """Re-copy every dirty (peer, metric) window from a surviving
+        replica: for each replica set containing the peer, ONE alive
+        sibling is asked for the window (``replicaSel``-filtered to
+        exactly those sets, so nothing is copied twice) and the rows
+        re-forward through the normal deliver path. Duplicates dedupe
+        last-write-wins on the shard — repair is idempotent. Returns
+        True when every dirty metric was repaired (False leaves the
+        remaining debt for the next pass)."""
         self.tsdb.faults.check("cluster.replica")
-        if self.dirty.peek(peer.name):
+        dirty = self.dirty.peek(peer.name)
+        if not dirty:
+            return True
+        ring = self.ring
+        rf = min(self.rf, len(ring.names))
+        sets_with = [t for t in ring.replica_sets(rf)
+                     if peer.name in t]
+        if rf <= 1 or not sets_with:
+            # no second copy exists (RF=1), or the peer no longer
+            # owns anything on this ring: there is nothing to repair
+            # FROM (or for) — the debt is void
             self.dirty.clear(peer.name)
             self.read_repair.drop_peer(peer.name)
-        return True
+            return True
+        now_ms = int(time.time() * 1000)
+        all_done = True
+        for metric, since_ms in sorted(dirty.items()):
+            per_source: dict[str, list[tuple]] = {}
+            uncovered = False
+            for t in sets_with:
+                src = next(
+                    (n for n in t if n != peer.name
+                     and not self.peers[n].breaker.blocking()), None)
+                if src is None:
+                    uncovered = True  # no alive sibling: retry later
+                else:
+                    per_source.setdefault(src, []).append(t)
+            copied = 0
+            metric_ok = not uncovered
+            for src, sets in per_source.items():
+                pages = self.scan_series_pages(
+                    self.peers[src], metric,
+                    max(since_ms - 1, 1), now_ms + HORIZON_MS,
+                    sel=replica_mod.sel_doc(
+                        ring.names, ring.vnodes, rf, sets))
+                while True:
+                    # SOURCE failures (advancing the scan) only keep
+                    # the metric dirty; PEER-side delivery failures
+                    # propagate out of repair_peer — the debt stays
+                    # (the data still lives on the source, so there
+                    # is no ack to protect) and maybe_repair's
+                    # breaker accounting sees a failure the peer
+                    # actually caused
+                    try:
+                        rows = next(pages)
+                    except StopIteration:
+                        break
+                    except OSError:
+                        metric_ok = False
+                        break
+                    dps: list[dict] = []
+                    for row in rows:
+                        tags = row.get("tags") or {}
+                        for ts, val in (row.get("dps") or ()):
+                            dps.append({"metric": metric,
+                                        "timestamp": int(ts),
+                                        "value": val, "tags": tags})
+                    for i in range(0, len(dps), self.backfill_batch):
+                        copied += self._repair_deliver(
+                            peer, dps[i:i + self.backfill_batch])
+            if metric_ok:
+                self.repair_points += copied
+                self.dirty.clear(peer.name, [metric])
+                self.read_repair.note_repaired(peer.name, [metric])
+            else:
+                all_done = False
+        if all_done:
+            self.repairs += 1
+            # repaired history just became readable on the peer: any
+            # cached complete answer over it is stale now
+            self._bump_global_version()
+            self.invalidate_sub_memo(peer.name)
+        return all_done
+
+    def _repair_deliver(self, peer: Peer, dps: list[dict]) -> int:
+        """One repair chunk, delivered DIRECTLY (the ``_replay_one``
+        shape): a repair pass often runs as the peer's half-open
+        probe, when ``_deliver`` would divert to the spool — which
+        would both defeat the probe (nothing touches the peer) and
+        turn repair data into spool backlog. Failure raises; the
+        dirty debt stays and the data still lives on the source
+        replica, so there is no ack to protect."""
+        self._check_faults(peer)
+        self.invalidate_sub_memo(peer.name,
+                                 {dp["metric"] for dp in dps})
+        status, data = self._fetch(
+            peer, "POST", "/api/put?summary=true&details=true",
+            json.dumps(dps).encode())
+        doc = self._put_summary_doc(data)
+        if doc is None and not 200 <= status < 300:
+            raise PeerUnavailable(
+                f"peer {peer.name} answered {status} without a put "
+                f"summary during repair")
+        if doc is not None and int(doc.get("failed", 0)):
+            raise PeerUnavailable(
+                f"peer {peer.name} rejected "
+                f"{doc.get('failed')} repair point(s)")
+        return len(dps)
 
     # ------------------------------------------------------------------
     # read path
     # ------------------------------------------------------------------
 
+    def _read_view(self) -> tuple[HashRing, list[str]]:
+        """The ring reads scatter over, and the peer names involved
+        (ref: ``_read_view``). The port keeps one ring at epoch 0, so
+        reads and deletes cover it alike; the reference's cutover view
+        (reads on the old ring, deletes on both) comes with resharding
+        (ROADMAP Queue 1, item 1.6d(ii))."""
+        return self.ring, list(self.ring.names)
+
     def execute_query(self, tsq) -> tuple[list, list[str]]:
         """Scatter one validated TSQuery, merge partials. Returns
         (results, degraded shard names). Raises ``BadRequestError``
         for non-decomposable aggregators; peer failures NEVER raise —
-        they degrade: at one replica a failed shard is named in the
-        ``shardsDegraded`` marker (the reference's replica-set read
-        plan, which re-reads a dead shard's series from a sibling at
-        RF > 1, comes with replication, ROADMAP Queue 1, item
-        1.6d)."""
+        they degrade.
+
+        At RF > 1 the scatter is a replica-set READ PLAN: every
+        distinct ordered replica set is assigned to one member (the
+        first whose breaker isn't blocking), the request carries the
+        assignment as a ``replicaSel`` series filter, and a failed
+        reader's sets re-assign to the next replica in further rounds
+        — so a single shard death yields a COMPLETE marker-less 200,
+        and the ``shardsDegraded`` marker appears only when an entire
+        replica set is down (ref)."""
         self.queries += 1
         for sub in tsq.queries:
             if sub.tsuids:
@@ -1234,12 +1447,29 @@ class ClusterRouter:
         # Deletes bypass the memo: a stale unknown entry must never
         # silently skip a purge.
         use_memo = not tsq.delete
-        ring_names = list(self.ring.names)
+        ring, ring_names = self._read_view()
+        rf = min(self.rf, len(ring.names))
+        # the replica filter is needed at RF > 1 (each series has RF
+        # live copies; the reference also needs it past epoch 0, which
+        # the port never leaves); deletes go unfiltered because they
+        # must reach every copy
+        use_sel = rf > 1 and not tsq.delete
+        # read assignment: replica tuple -> reader. sel=None means
+        # "everything you own" (one replica, and deletes)
+        if use_sel:
+            pending: dict[str, list[tuple] | None] = {}
+            for t in ring.replica_sets(rf):
+                reader = next((n for n in t
+                               if not self.peers[n].breaker.blocking()),
+                              t[0])
+                pending.setdefault(reader, []).append(t)
+        else:
+            pending = {name: None for name in ring_names}
         # trace the fan-out: one cluster.scatter stage, one
         # cluster.peer leg per shard (error-tagged when degraded)
         tctx = trace_mod.current()
         sp_scatter = trace_begin("cluster.scatter", ctx=tctx,
-                                 shards=len(ring_names))
+                                 shards=len(pending))
         scatter_id = sp_scatter.span_id if sp_scatter is not None \
             else None
         # expanded-sub index -> 4xx bodies, one per rejecting peer;
@@ -1249,6 +1479,11 @@ class ClusterRouter:
             {k: set() for k in range(len(peer_subs))}
         sub_unknown: dict[int, set] = \
             {k: set() for k in range(len(peer_subs))}
+        # unknown outcomes served from the memo (vs a FRESH 400 this
+        # scatter): the read-repair divergence hook ignores them, or
+        # every repeat query of a legitimately shard-unknown metric
+        # would re-stage the same no-op repair
+        sub_memo_unknown: dict[int, set] = {}
         # incremental merge: every COMPLETE leg folds the moment its
         # future resolves (wire legs additionally decode frame-by-
         # frame), instead of gathering all partials and merging last.
@@ -1258,12 +1493,10 @@ class ClusterRouter:
             tsq.queries, plans, slots,
             sketch_alpha=self.config.get_float(
                 "tsd.sketch.alpha", 0.01))
+        failed_peers: set[str] = set()
         degraded_set: set[str] = set()
 
-        def mark_trouble(name: str) -> None:
-            # one replica: a failed leg leaves its shard's series
-            # unread, so the answer is a degraded partial
-            degraded_set.add(name)
+        def mark_trouble() -> None:
             if tctx is not None:
                 # force retention the moment trouble is KNOWN —
                 # before later legs stamp their headers, so those
@@ -1273,111 +1506,168 @@ class ClusterRouter:
                 # cannot be retro-retained.
                 tctx.forced = True
 
-        futures = {}
-        sent_of: dict[str, list[int]] = {}
-        for name in sorted(ring_names):
-            peer = self.peers[name]
-            skip: dict[int, bytes] = {}
-            if use_memo:
-                for k, sj in enumerate(peer_subs):
-                    cached = self._memo_lookup(
-                        name, sj.get("metric") or "")
-                    if cached is not None:
-                        skip[k] = cached
-            sent = [k for k in range(len(peer_subs)) if k not in skip]
-            if skip:
-                self.sub_memo_skips += len(skip)
-                for k, cached in skip.items():
-                    sub_400.setdefault(k, []).append(cached)
-                    sub_unknown[k].add(name)
-                    sub_answered[k].add(name)
-            sent_of[name] = sent
-            if not sent:
-                continue  # nothing this shard knows
-            pbody = json.dumps(dict(
-                peer_obj,
-                queries=[peer_subs[k] for k in sent])).encode()
-            futures[name] = self.pool.submit(
-                self._query_peer_traced, tctx, scatter_id, peer, pbody)
-        for name, fut in futures.items():
-            peer = self.peers[name]
-            sent = sent_of[name]
-            try:
-                status, data = fut.result(timeout=self.timeout_s * 2 + 5)
-            except (OSError, concurrent.futures.TimeoutError) as exc:
-                peer.query_failures += 1
-                mark_trouble(name)
-                LOG.warning("shard %s failed this scatter (%s: %s)",
-                            name, type(exc).__name__, exc)
-                continue
-            if status == 200:
+        while pending:
+            futures = {}
+            round_req: dict[str, tuple] = {}
+            round_failed: list[str] = []
+            for name in sorted(pending):
+                sel = pending[name]
+                peer = self.peers[name]
+                req_obj = peer_obj if sel is None else dict(
+                    peer_obj, replicaSel=replica_mod.sel_doc(
+                        ring.names, ring.vnodes, rf, sel))
+                skip: dict[int, bytes] = {}
+                if use_memo:
+                    for k, sj in enumerate(peer_subs):
+                        cached = self._memo_lookup(
+                            name, sj.get("metric") or "")
+                        if cached is not None:
+                            skip[k] = cached
+                sent = [k for k in range(len(peer_subs))
+                        if k not in skip]
+                if skip:
+                    self.sub_memo_skips += len(skip)
+                    for k, cached in skip.items():
+                        sub_400.setdefault(k, []).append(cached)
+                        sub_unknown[k].add(name)
+                        sub_answered[k].add(name)
+                        sub_memo_unknown.setdefault(k, set()) \
+                            .add(name)
+                round_req[name] = (peer, sel, sent, req_obj)
+                if not sent:
+                    continue  # nothing this shard knows
+                pbody = json.dumps(dict(
+                    req_obj,
+                    queries=[peer_subs[k] for k in sent])).encode()
+                futures[name] = self.pool.submit(
+                    self._query_peer_traced, tctx, scatter_id, peer,
+                    pbody)
+            for name, fut in futures.items():
+                peer, sel, sent, req_obj = round_req[name]
                 try:
-                    # a wire leg arrives already decoded (list); an
-                    # HTTP leg is a JSON body
-                    rows = data if isinstance(data, list) \
-                        else json.loads(data)
-                except ValueError:
+                    status, data = fut.result(
+                        timeout=self.timeout_s * 2 + 5)
+                except (OSError,
+                        concurrent.futures.TimeoutError) as exc:
                     peer.query_failures += 1
-                    mark_trouble(name)
+                    round_failed.append(name)
+                    mark_trouble()
+                    LOG.warning("shard %s failed this scatter round "
+                                "(%s: %s)", name,
+                                type(exc).__name__, exc)
                     continue
-                if len(sent) != len(peer_subs):
-                    # trimmed request: peer-local sub indexes map
-                    # back to the expanded scatter's
-                    for r in rows:
-                        q = r.get("query")
-                        if isinstance(q, dict) and \
-                                isinstance(q.get("index"), int) \
-                                and 0 <= q["index"] < len(sent):
-                            q["index"] = sent[q["index"]]
-                merger.add_leg(rows)
-                for k in sent:
-                    sub_answered[k].add(name)
-                if use_memo:
-                    self._memo_known(
-                        name, {peer_subs[k].get("metric") for k in sent})
-                continue
-            if status != 400:
-                # 413 (scan budget), 404/405 (not a TSD query
-                # endpoint — proxy / auth wall / misroute), 5xx
-                # passed through: NOT the no-such-name empty
-                # partial. Treating it as one would silently blank
-                # this shard's series in a cacheable "complete"
-                # answer; fail the leg loudly instead (marker — never
-                # cached).
-                peer.query_failures += 1
-                mark_trouble(name)
-                LOG.warning("shard %s answered %d to the scatter; "
-                            "failing it for this query", name, status)
-                continue
-            # 400 from a HEALTHY peer: a shard that owns no series of
-            # the metric 400s with "no such name" — an empty partial,
-            # not peer damage and not a client error (other shards may
-            # own it). Kept for the all-shards-agree check below.
-            if len(sent) == 1:
-                sub_400.setdefault(sent[0], []).append(data)
-                sub_unknown[sent[0]].add(name)
-                sub_answered[sent[0]].add(name)
-                merger.add_leg([])
-                if use_memo:
-                    self._memo_unknown(
-                        name, peer_subs[sent[0]].get("metric") or "",
-                        data)
-                continue
-            # multi-sub scatter: the request-level 400 hides WHICH sub
-            # the peer rejected — and blanks subs it DOES own series
-            # for. Re-ask in metric-elimination rounds (one request
-            # per rejected metric, not one per sub) and memoize every
-            # definite outcome so the NEXT query scatters once.
-            rows, died = self._per_sub_retry(
-                peer, peer_obj, [(k, peer_subs[k]) for k in sent], data,
-                sub_400, sub_answered, sub_unknown, memoize=use_memo,
-                tctx=tctx, parent_id=scatter_id)
-            if died:
-                peer.query_failures += 1
-                mark_trouble(name)
-            else:
-                merger.add_leg(rows)
+                if status == 200:
+                    try:
+                        # a wire leg arrives already decoded (list);
+                        # an HTTP leg is a JSON body
+                        rows = data if isinstance(data, list) \
+                            else json.loads(data)
+                    except ValueError:
+                        peer.query_failures += 1
+                        round_failed.append(name)
+                        mark_trouble()
+                        continue
+                    if len(sent) != len(peer_subs):
+                        # trimmed request: peer-local sub indexes map
+                        # back to the expanded scatter's
+                        for r in rows:
+                            q = r.get("query")
+                            if isinstance(q, dict) and \
+                                    isinstance(q.get("index"), int) \
+                                    and 0 <= q["index"] < len(sent):
+                                q["index"] = sent[q["index"]]
+                    merger.add_leg(rows)
+                    for k in sent:
+                        sub_answered[k].add(name)
+                    if use_memo:
+                        self._memo_known(
+                            name, {peer_subs[k].get("metric")
+                                   for k in sent})
+                    continue
+                if status != 400:
+                    # 413 (scan budget), 404/405 (not a TSD query
+                    # endpoint — proxy / auth wall / misroute), 5xx
+                    # passed through: NOT the no-such-name empty
+                    # partial. Treating it as one would silently
+                    # blank this shard's series in a cacheable
+                    # "complete" answer; fail the leg loudly instead
+                    # (fallback, else marker — never cached).
+                    peer.query_failures += 1
+                    round_failed.append(name)
+                    mark_trouble()
+                    LOG.warning("shard %s answered %d to the "
+                                "scatter; failing it for this query",
+                                name, status)
+                    continue
+                # 400 from a HEALTHY peer: a shard that owns no
+                # series of the metric 400s with "no such name" — an
+                # empty partial, not peer damage and not a client
+                # error (other shards may own it). Kept for the
+                # all-shards-agree check below.
+                if len(sent) == 1:
+                    sub_400.setdefault(sent[0], []).append(data)
+                    sub_unknown[sent[0]].add(name)
+                    sub_answered[sent[0]].add(name)
+                    merger.add_leg([])
+                    if use_memo:
+                        self._memo_unknown(
+                            name,
+                            peer_subs[sent[0]].get("metric") or "",
+                            data)
+                    continue
+                # multi-sub scatter: the request-level 400 hides
+                # WHICH sub the peer rejected — and blanks subs it
+                # DOES own series for. Re-ask in metric-elimination
+                # rounds (one request per rejected metric, not one
+                # per sub) and memoize every definite outcome so the
+                # NEXT query scatters once.
+                rows, died = self._per_sub_retry(
+                    peer, req_obj,
+                    [(k, peer_subs[k]) for k in sent], data,
+                    sub_400, sub_answered, sub_unknown,
+                    memoize=use_memo, tctx=tctx,
+                    parent_id=scatter_id)
+                if died:
+                    peer.query_failures += 1
+                    round_failed.append(name)
+                    mark_trouble()
+                else:
+                    merger.add_leg(rows)
+            # re-assign a failed reader's replica sets to the next
+            # member that hasn't failed this query; a set with no
+            # member left is DOWN — the only case that degrades
+            next_pending: dict[str, list] = {}
+            for name in round_failed:
+                failed_peers.add(name)
+            for name in round_failed:
+                sel = pending[name]
+                if sel is None:
+                    degraded_set.add(name)  # no replica to fall to
+                    continue
+                for t in sel:
+                    cand = next((n for n in t
+                                 if n not in failed_peers), None)
+                    if cand is None:
+                        degraded_set.update(t)
+                    else:
+                        next_pending.setdefault(cand, []).append(t)
+            if next_pending:
+                self.read_fallbacks += sum(
+                    len(v) for v in next_pending.values())
+            pending = next_pending
         degraded = sorted(degraded_set)
+        if failed_peers and self.read_repair_enabled and rf > 1 \
+                and not tsq.delete:
+            # a reader that died mid-scatter may be missing writes in
+            # the window this read wanted (a fallback round covered
+            # its sets, but the replica itself stays suspect): stage
+            # the window for repair — idempotent, so a reader that
+            # merely timed out heals to a no-op
+            metrics = {s.metric for s in tsq.queries if s.metric}
+            since = max(int(tsq.start_ms), 1)
+            for name in sorted(failed_peers):
+                if metrics and name in self.peers:
+                    self.read_repair.enqueue(name, metrics, since)
         if tsq.delete:
             # the shards already purged whatever rows they own during
             # the scatter (and per-sub retries): any cached entry
@@ -1398,8 +1688,8 @@ class ClusterRouter:
                 unknown = sub_unknown[idx]
                 if unknown and unknown == sub_answered[idx]:
                     # every peer that definitively answered this sub
-                    # rejected it, and every shard was covered (no
-                    # degradation): surface the real client error
+                    # rejected it, and every replica set was covered
+                    # (no degradation): surface the real client error
                     # (single-node parity: an unknown metric in ANY
                     # sub fails the whole query)
                     errs = sub_400.get(idx) or [b""]
@@ -1409,6 +1699,26 @@ class ClusterRouter:
                     except Exception:  # noqa: BLE001
                         msg = errs[0].decode("utf-8", "replace")[:200]
                     raise BadRequestError(msg)
+        if self.read_repair_enabled and rf > 1 and not tsq.delete:
+            # replica-divergence detection: replicas DISAGREED about
+            # a metric's existence this scatter (some answered series,
+            # others freshly 400'd "no such name"). The unknown side
+            # may have lost the series' writes — or may legitimately
+            # be assigned none of them; staging is cheap and a clean
+            # window repairs to a no-op. Memo-served unknowns are
+            # excluded (nothing new was observed about them).
+            for idx, unknown in sub_unknown.items():
+                fresh = unknown - sub_memo_unknown.get(idx, set())
+                if not fresh or unknown == sub_answered[idx]:
+                    continue
+                metric = peer_subs[idx].get("metric") or ""
+                if not metric:
+                    continue
+                since = max(int(tsq.start_ms), 1)
+                for name in sorted(fresh):
+                    if name in self.peers:
+                        self.read_repair.enqueue(name, [metric],
+                                                 since)
         if degraded:
             self.degraded_queries += 1
             if tctx is not None:
@@ -1805,7 +2115,8 @@ class ClusterRouter:
         return results, degraded
 
     # ------------------------------------------------------------------
-    # the ring's epoch (always 0: resharding is ROADMAP Queue 1, 1.6d)
+    # the ring's epoch (always 0: resharding is ROADMAP Queue 1,
+    # item 1.6d(ii))
     # ------------------------------------------------------------------
 
     @property
@@ -1815,7 +2126,7 @@ class ClusterRouter:
     @property
     def resharding(self) -> bool:
         """Whether a reshard cutover is open: never on the port, whose
-        ring stays at epoch 0 (ROADMAP Queue 1, item 1.6d)."""
+        ring stays at epoch 0 (ROADMAP Queue 1, item 1.6d(ii))."""
         return False
 
     def reshard_info(self) -> dict[str, Any]:
@@ -1831,7 +2142,7 @@ class ClusterRouter:
         """The reference's stale-copy retire pass as it reports itself
         with no epoch to retire (its ``health_info`` at epoch 0): the
         pass needs resharding, not ported (ROADMAP Queue 1, item
-        1.6d)."""
+        1.6d(ii))."""
         return {"pending": False, "retired_series": 0,
                 "retire_queries": 0, "failed_steps": 0, "passes": 0}
 
@@ -1839,15 +2150,31 @@ class ClusterRouter:
     # suggest/search scatter (the router owns no names of its own)
     # ------------------------------------------------------------------
 
+    def _name_scatter_degraded(self, ring: HashRing,
+                               failed: set[str]) -> list[str]:
+        """A failed peer degrades a name scatter only when NO member
+        of some replica set survived: every name hangs off >= 1
+        series, and every series has a live replica otherwise."""
+        if not failed:
+            return []
+        rf = min(self.rf, len(ring.names))
+        if rf <= 1:
+            return sorted(failed)
+        degraded: set[str] = set()
+        for t in ring.replica_sets(rf):
+            if all(n in failed for n in t):
+                degraded.update(t)
+        return sorted(degraded)
+
     def scatter_suggest(self, stype: str, q: str, max_results: int
                         ) -> tuple[list[str], list[str]]:
         """Union one suggest over every shard (names live wherever
         their series landed, so the union IS the cluster's answer).
-        Returns (sorted names capped at ``max_results``, the shards
-        that could not answer)."""
+        Returns (sorted names capped at ``max_results``, degraded
+        shard names, per the replica-coverage rule)."""
         self.scatter_name_queries += 1
         import urllib.parse
-        names = list(self.ring.names)
+        ring, names = self._read_view()
         path = ("/api/suggest?type=" + urllib.parse.quote(stype)
                 + "&q=" + urllib.parse.quote(q or "")
                 + "&max=" + str(int(max_results)))
@@ -1876,19 +2203,20 @@ class ClusterRouter:
                 continue
             out.update(str(x) for x in doc)
         return (sorted(out)[:max(int(max_results), 0)],
-                sorted(failed))
+                self._name_scatter_degraded(ring, failed))
 
     def scatter_lookup(self, metric: str, tags: list[tuple],
                        limit: int, use_meta: bool
                        ) -> tuple[dict[str, Any], list[str]]:
         """Scatter ``/api/search/lookup`` and union the per-shard
-        results, deduplicated on (metric, tags): per-shard TSUIDs are
+        results, deduplicated on (metric, tags): at RF > 1 every
+        series answers from each replica, and per-shard TSUIDs are
         not cluster identities. ``totalResults`` counts the deduped
         union (shards cap their own lists at ``limit``, so it is a
         floor, exactly as the reference's scanner-capped counts
         are)."""
         self.scatter_name_queries += 1
-        names = list(self.ring.names)
+        ring, names = self._read_view()
         body = json.dumps({
             "metric": metric or "",
             "tags": [{"key": k, "value": v} for k, v in tags],
@@ -1930,7 +2258,7 @@ class ClusterRouter:
         doc = {"type": "LOOKUP", "metric": metric or "*",
                "limit": int(limit), "time": 0, "results": merged,
                "totalResults": len(rows)}
-        return doc, sorted(failed)
+        return doc, self._name_scatter_degraded(ring, failed)
 
     def scatter_last(self, specs: list[dict], back_scan: int,
                      resolve: bool
@@ -1941,10 +2269,10 @@ class ClusterRouter:
         always asked to resolve names — the merge key must be the one
         cluster-wide spelling, never the per-shard TSUID bytes — and
         metric/tags are stripped back out when the client didn't ask
-        for them. Returns (points, the shards that could not
-        answer)."""
+        for them. Returns (points, degraded shard names, per the
+        replica-coverage rule)."""
         self.scatter_name_queries += 1
-        names = list(self.ring.names)
+        ring, names = self._read_view()
         body = json.dumps({"queries": specs,
                            "backScan": int(back_scan),
                            "resolveNames": True}).encode()
@@ -2003,7 +2331,7 @@ class ClusterRouter:
             points = [{k: v for k, v in r.items()
                        if k not in ("metric", "tags")}
                       for r in points]
-        return points, sorted(failed)
+        return points, self._name_scatter_degraded(ring, failed)
 
     # ------------------------------------------------------------------
     # observability
@@ -2103,10 +2431,9 @@ class ClusterRouter:
             "reshard": self.reshard_info(),
             "replica_dirty": self.dirty.health_info(),
             "read_repair": self.read_repair.health_info(),
-            # no sibling routers and no replica to fall back to at
-            # rf=1 (ROADMAP Queue 1, item 1.6d)
+            # no sibling routers (ROADMAP Queue 1, item 1.6d(iii))
             "gossip": None,
-            "read_fallbacks": 0,
+            "read_fallbacks": self.read_fallbacks,
             "repairs": self.repairs,
             "repair_points": self.repair_points,
             "queries": self.queries,
@@ -2136,6 +2463,8 @@ class ClusterRouter:
                          self.degraded_queries)
         collector.record("cluster.epoch", self.state.epoch)
         collector.record("cluster.rf", self.rf)
+        collector.record("cluster.read_fallbacks",
+                         self.read_fallbacks)
         collector.record("cluster.replica.repairs", self.repairs)
         collector.record("cluster.replica.repair_points",
                          self.repair_points)
@@ -2191,3 +2520,4 @@ class ClusterRouter:
             collector.record("cluster.wire.backpressure_sheds",
                              p.wire_backpressure_sheds, peer=name)
             p.breaker.collect_stats(collector)
+        self.cqs.collect_stats(collector)

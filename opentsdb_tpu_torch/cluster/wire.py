@@ -895,6 +895,30 @@ class WireManager:
         finally:
             conn.end(seq)
 
+    def cq(self, peer, method: str, path: str, body: bytes = b"",
+           headers: dict[str, str] | None = None) -> tuple[int, bytes]:
+        """One continuous-query control exchange (register, delete,
+        pull, delta drain) over the persistent read connection (ref:
+        ``WireManager.cq``); returns the HTTP-shaped (status, body).
+        Raises :class:`WireUnsupported` when negotiation says HTTP and
+        ``OSError`` for transport failures: callers fall back to JSON
+        HTTP on the first and degrade the shard on the second."""
+        trace = (headers or {}).get(TRACE_HEADER, "")
+        payload = encode_cq(trace, method, path, body)
+        self._check_faults(peer)
+        conn = self._conn(peer, "r")
+        seq, q = conn.begin(T_CQ, payload)
+        try:
+            ftype, ack = conn.wait(q, self.router.timeout_s)
+        finally:
+            conn.end(seq)
+        if ftype != T_CQ_RES:
+            conn.close()
+            raise ConnectionError(
+                f"peer {peer.name} answered frame type {ftype} "
+                f"to a CQ op")
+        return decode_status(ack)
+
 
 # ---------------------------------------------------------------------------
 # shard side: the accept-loop session

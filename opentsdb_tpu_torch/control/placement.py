@@ -11,8 +11,9 @@ re-spreads the hot shard's hash ranges without moving the membership.
 The proposal is exactly that — a proposal. ``GET /api/control/plan``
 shows it (with a content-addressed ``planId``). The reference feeds a
 confirmed plan to ``POST /api/cluster/reshard``; resharding is not
-ported (ROADMAP Queue 1, item 1.6d), so on the port a confirmation, by
-POST or by ``tsd.control.placement.auto=true``, is refused.
+ported (ROADMAP Queue 1, item 1.6d(ii)), so on the port a
+confirmation, by POST or by ``tsd.control.placement.auto=true``, is
+refused.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ own circuit breaker, and runs three independent actuators:
   router, rebuild the hot-shard assessment and proposed ring spec
   (:mod:`~opentsdb_tpu_torch.control.placement`), shown by ``GET
   /api/control/plan``. Applying a plan reshards the ring, which is not
-  ported (ROADMAP Queue 1, item 1.6d): a confirmed plan raises, and
+  ported (ROADMAP Queue 1, item 1.6d(ii)): a confirmed plan raises, and
   ``tsd.control.placement.auto=true`` on a router is refused when the
   TSDB is built. On a TSD that is not a router it passes its fault
   site and assesses nothing.
@@ -357,8 +357,8 @@ class ControlPlane:
                 "(re-read /api/control/plan and confirm that id)")
         raise NotImplementedError(
             "applying a placement plan reshards the ring, which is not "
-            "ported yet (ROADMAP Queue 1, item 1.6d, replication and "
-            "resharding)")
+            "ported yet (ROADMAP Queue 1, item 1.6d(ii), resharding and "
+            "retirement)")
 
     # ------------------------------------------------------------------
     # exposition

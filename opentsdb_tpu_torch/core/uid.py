@@ -86,6 +86,17 @@ class UniqueId:
                                  if isinstance(uid, bytes) else uid)
         return name
 
+    def get_names(self, uids: list[int]) -> list[str]:
+        """The names of many int UIDs under one lock; an unknown one
+        raises as :meth:`get_name` does."""
+        with self._lock:
+            names = self._id_to_name
+            try:
+                return [names[i] for i in uids]
+            except KeyError as e:
+                missing = e.args[0]
+        raise NoSuchUniqueId(self.kind, missing)
+
     def has_name(self, name: str) -> bool:
         with self._lock:
             return name in self._name_to_id

@@ -306,13 +306,11 @@ class NativeTimeSeriesStore:
     def read_all(self) -> tuple[np.ndarray, np.ndarray, np.ndarray,
                                 np.ndarray]:
         """Every series' points, sorted, back to back in series order:
-        (counts int64 [S], ts int64, values float64, is_int uint8). Two
-        foreign calls per series and no array per series (the snapshot's
-        read)."""
+        (counts int64 [S], ts int64, values float64, is_int uint8). One
+        foreign call for the lengths, one per series for its points, and
+        no array per series (the snapshot's read)."""
         lib, h = self._lib, self._h
-        n = self._num_series
-        counts = np.fromiter((lib.tss_series_length(h, sid)
-                              for sid in range(n)), np.int64, n)
+        counts = self.series_lengths()
         total = int(counts.sum())
         ts = np.empty(total, dtype=np.int64)
         vals = np.empty(total, dtype=np.float64)
@@ -434,9 +432,16 @@ class NativeTimeSeriesStore:
             raise IndexError("invalid series id in bucket_reduce")
         return sums, cnts, mins, maxs
 
+    def series_lengths(self) -> np.ndarray:
+        """Points of every series, by series id, in one foreign call:
+        a call per series re-takes the GIL once for each, which stalls
+        a stats scrape for seconds on a busy process."""
+        i64 = np.iinfo(np.int64)
+        return self.count_range(np.arange(self._num_series, dtype=np.int64),
+                                int(i64.min), int(i64.max))
+
     def total_points(self) -> int:
-        return sum(int(self._lib.tss_series_length(self._h, sid))
-                   for sid in range(self._num_series))
+        return int(self.series_lengths().sum())
 
     def memory_info(self) -> dict:
         """Footprint for stats: the arena keeps no capacity per series,

@@ -55,8 +55,8 @@ LOG = logging.getLogger("obs.trace")
 # here: :meth:`TraceContext.begin` enforces it at run time, so a typo'd
 # stage name fails the first test that crosses it instead of silently
 # recording an orphan stage. The reference's ``cluster.*`` names of
-# resharding, retirement, gossip and federated continuous queries come
-# with those subsystems (ROADMAP Queue 1, items 1.6d-1.6e).
+# resharding, retirement and gossip come with those subsystems
+# (ROADMAP Queue 1, items 1.6d(ii) and 1.6d(iii)).
 
 KNOWN_SPANS: frozenset[str] = frozenset({
     # request roots
@@ -93,6 +93,8 @@ KNOWN_SPANS: frozenset[str] = frozenset({
     "cluster.forward",       # one shard's write-forward leg
     "cluster.spool.append",  # durable handoff of one write batch
     "cluster.wire.connect",  # binary wire negotiation (cluster/wire.py)
+    "cluster.cq",            # one federated-CQ shard exchange
+    "cluster.cq.pump",       # one merged cross-shard delta drain
     # background stages
     "coldstore.spill",       # lifecycle sweep's disk spill phase
 })

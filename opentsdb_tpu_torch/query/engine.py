@@ -146,12 +146,11 @@ HOST_TAIL_DEFAULT_CELLS_LINEAR = 1 << 23
 # keys that turn on a subsystem the port has not ported, checked when a
 # TSDB is built (refuse_unported_keys): (config key, its default, the
 # subsystem, the ROADMAP Queue 1 item that ports it)
-REPLICATION_ITEM = "item 1.6d, replication and resharding"
-FEDERATED_CQ_ITEM = "item 1.6e, federated continuous queries"
+RESHARD_ITEM = "item 1.6d(ii), resharding and retirement"
+SIBLINGS_ITEM = "item 1.6d(iii), sibling routers"
 _UNPORTED_SUBSYSTEM_KEYS = (
-    ("tsd.cluster.rf", "1", "replication", REPLICATION_ITEM),
     ("tsd.cluster.routers", "", "the sibling routers' gossip",
-     REPLICATION_ITEM),
+     SIBLINGS_ITEM),
 )
 
 
@@ -177,7 +176,7 @@ def refuse_unported_keys(config) -> None:
         raise NotImplementedError(
             "tsd.control.placement.auto=true on a cluster router applies "
             "placement plans by resharding the ring, which is not "
-            f"ported yet (ROADMAP Queue 1, {REPLICATION_ITEM}); leave "
+            f"ported yet (ROADMAP Queue 1, {RESHARD_ITEM}); leave "
             "tsd.control.placement.auto at 'false'")
     # a typo raises ValueError here, as at the reference's boot
     parse_mesh_spec(config.get_string("tsd.query.mesh", ""))
@@ -917,6 +916,21 @@ class QueryEngine:
         if len(sids) == 0:
             trace_end(h_plan)
             return []
+        if tsq.replica_sel is not None and sub.metric:
+            # a replicated router's scatter: keep only the series whose
+            # replica set this request was assigned, so each series is
+            # read by exactly one replica cluster wide (ref)
+            from opentsdb_tpu_torch.cluster import replica as replica_mod
+            keep = replica_mod.store_series_mask(
+                tsq.replica_sel, store, sub.metric, sids,
+                tag_mat.kids, tag_mat.vids, uids.tag_names.get_names,
+                uids.tag_values.get_names)
+            if not keep.all():
+                sids = sids[keep]
+                tag_mat = tag_mat.select(keep)
+            if len(sids) == 0:
+                trace_end(h_plan)
+                return []
         if stats:
             stats.add_stat(QueryStat.STRING_TO_UID_TIME,
                            (time.monotonic() - t0) * 1e3)

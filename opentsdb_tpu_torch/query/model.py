@@ -7,9 +7,9 @@ required, times normalized to ms, end defaulting to now. A pixel
 budget (``pixels``/``pixelFn``, the URI's ``downsample=<N>px``) rides
 beside each sub-query's identity (``effective_pixels``). A cluster
 router's ``sketchPartials`` asks a shard for mergeable sketch partials
-of its percentile sub-queries; its ``replicaSel`` (the replica read
-plan of ``tsd.cluster.rf`` > 1) is not ported and raises
-NotImplementedError.
+of its percentile sub-queries, and its ``replicaSel`` (the replica
+read plan of ``tsd.cluster.rf`` > 1, parsed by :func:`parse_sel`) the
+series a shard reads (:mod:`opentsdb_tpu_torch.cluster.replica`).
 """
 
 from __future__ import annotations
@@ -76,6 +76,54 @@ def effective_pixels(tsq, sub) -> tuple[int, str]:
     px = sub.pixels or tsq.pixels
     fn = sub.pixel_fn or tsq.pixel_fn or DEFAULT_PIXEL_FN
     return (px, fn) if px else (0, fn)
+
+
+def parse_sel(obj: Any) -> dict[str, Any] | None:
+    """Validate a ``replicaSel`` body value (the shard side of the
+    replica read plan). Returns the normalized dict, or raises
+    ``BadRequestError``: a malformed selector answers 400, not 500."""
+    if obj is None:
+        return None
+    if not isinstance(obj, dict):
+        raise BadRequestError("replicaSel must be an object")
+    peers = obj.get("peers")
+    sets = obj.get("sets")
+    if not isinstance(peers, list) or not peers or not all(
+            isinstance(p, str) and p for p in peers):
+        raise BadRequestError(
+            "replicaSel.peers must be a list of shard names")
+    if not isinstance(sets, list) or not all(
+            isinstance(t, list) and t and all(
+                isinstance(n, str) for n in t) for t in sets):
+        raise BadRequestError(
+            "replicaSel.sets must be a list of shard-name lists")
+    try:
+        vnodes = int(obj.get("vnodes", 64))
+        rf = int(obj.get("rf", 1))
+    except (TypeError, ValueError):
+        raise BadRequestError(
+            "replicaSel.vnodes/rf must be integers") from None
+    if rf < 1 or vnodes < 1:
+        raise BadRequestError("replicaSel.vnodes/rf must be >= 1")
+    unknown = {n for t in sets for n in t} - set(peers)
+    if unknown:
+        raise BadRequestError(
+            f"replicaSel.sets name shards not in peers: "
+            f"{sorted(unknown)}")
+    return {"peers": [str(p) for p in peers], "vnodes": vnodes,
+            "rf": rf, "sets": [tuple(t) for t in sets],
+            "invert": bool(obj.get("invert", False))}
+
+
+def sel_cache_key(sel: dict[str, Any] | None) -> tuple:
+    """Canonical tuple of one selector for result-cache keys: two
+    requests reading DIFFERENT replica assignments of the same query
+    return different partials and never share an entry."""
+    if not sel:
+        return ()
+    return (tuple(sel["peers"]), sel["vnodes"], sel["rf"],
+            bool(sel.get("invert")),
+            tuple(sorted(tuple(t) for t in sel["sets"])))
 
 
 @dataclass
@@ -218,6 +266,11 @@ class TSQuery:
     # mergeable quantile-sketch partials of its percentile sub-queries
     # instead of extracted percentiles. Never set client-side.
     sketch_partials: bool = False
+    # a replicated router's scatter assignment (``replicaSel``,
+    # normalized by cluster/replica.parse_sel): the engine keeps only
+    # the series whose replica set this request was assigned, so a read
+    # at rf > 1 counts no series twice. None on every client query.
+    replica_sel: dict | None = None
     # populated during validation
     start_ms: int = 0
     end_ms: int = 0
@@ -268,17 +321,13 @@ class TSQuery:
     def from_json(cls, obj: dict[str, Any]) -> "TSQuery":
         if not isinstance(obj, dict):
             raise BadRequestError("query must be a JSON object")
-        if obj.get("replicaSel") is not None:
-            raise NotImplementedError(
-                "replicaSel (a replicated router's read plan, "
-                "tsd.cluster.rf > 1) is not ported yet (ROADMAP Queue 1, "
-                "item 1.6d, replication and resharding)")
         raw_queries = obj.get("queries") or []
         if not isinstance(raw_queries, list) or not all(
                 isinstance(q, dict) for q in raw_queries):
             raise BadRequestError(
                 "queries must be an array of sub-query objects")
         return cls(
+            replica_sel=parse_sel(obj.get("replicaSel")),
             start=str(obj.get("start", "")),
             end=(str(obj["end"]) if obj.get("end") not in (None, "")
                  else None),
@@ -311,6 +360,14 @@ class TSQuery:
             "showTSUIDs": self.show_tsuids,
             **({"pixels": self.pixels} if self.pixels else {}),
             **({"pixelFn": self.pixel_fn} if self.pixel_fn else {}),
+            **({"replicaSel": {
+                "peers": list(self.replica_sel["peers"]),
+                "vnodes": self.replica_sel["vnodes"],
+                "rf": self.replica_sel["rf"],
+                "sets": [list(t) for t in self.replica_sel["sets"]],
+                **({"invert": True}
+                   if self.replica_sel.get("invert") else {})}}
+               if self.replica_sel else {}),
         }
 
 

@@ -37,9 +37,8 @@ Sharded LRU bounded by an estimated byte budget
 The per-tenant ``insert_gate`` (set by the control plane's tenant
 QoS) is asked before an insert; a result it refuses still serves and
 is counted ``gated``. Left out of the key: the annotation flags
-(``no_annotations``, ``global_annotations``) and the cluster replica
-selection (``sel_cache_key``, which serves ``tsd.cluster.rf`` > 1, not
-ported).
+(``no_annotations``, ``global_annotations``). In it: the replica
+selection of ``tsd.cluster.rf`` > 1 (``model.sel_cache_key``).
 """
 
 from __future__ import annotations
@@ -104,13 +103,15 @@ def cache_plan(tsq, sub, config) -> tuple[tuple, float] | None:
         window = (tsq.start_ms, tsq.end_ms)
     # the pixel budget shapes the result groups, so a full-resolution
     # entry never serves a pixel-budgeted request (ref)
-    from opentsdb_tpu_torch.query.model import effective_pixels
+    from opentsdb_tpu_torch.query.model import (effective_pixels,
+                                                sel_cache_key)
     # sketch_partials flips percentile subs between extracted rows and
     # sketch partials: a shard serving both a router and direct clients
-    # must never cross them (ref)
+    # must never cross them; the replica assignment picks the series a
+    # shard reads, so two assignments never share an entry (ref)
     key = (window, tsq.timezone, tsq.use_calendar, tsq.ms_resolution,
            tsq.show_tsuids, tsq.sketch_partials, sub.identity_key(),
-           effective_pixels(tsq, sub))
+           effective_pixels(tsq, sub), sel_cache_key(tsq.replica_sel))
     return key, ttl_ms
 
 

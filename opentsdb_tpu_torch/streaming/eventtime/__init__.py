@@ -26,9 +26,10 @@ the engine event-time correct, in three pieces:
   :func:`~opentsdb_tpu_torch.ops.stream_fold.combine_hopping`) as the
   generalization of the existing sliding view-time combine.
 
-The reference also federates all of the above across a cluster's
-shards (``cluster/cq.py``); the port has no cluster yet (ROADMAP
-Queue 1, the rest, with no device compute).
+A cluster router federates all of the above across its shards
+(:mod:`opentsdb_tpu_torch.cluster.cq`): each shard folds its own
+series, the router merges the pulls and the pushed frames, and the
+merged watermark is the least advanced shard's.
 """
 
 from opentsdb_tpu_torch.streaming.eventtime.sessions import \

@@ -1236,9 +1236,8 @@ class ContinuousQueryRegistry:
         collector.record("streaming.publishes", self.publishes)
 
     def health_info(self) -> dict[str, Any]:
-        """The reference's ``/api/health`` section (no endpoint in the
-        port until ``/api/health`` is ported: ROADMAP Queue 1, the
-        rest)."""
+        """The ``streaming`` section of ``/api/health`` (ref:
+        ``health_info``)."""
         t = self._totals()
         with self._lock:
             n = len(self._queries)

@@ -37,11 +37,14 @@ answers 404.
 
 On a cluster router (``tsd.cluster.role = router``,
 :mod:`opentsdb_tpu_torch.cluster.router`) the router owns no data:
-``/api/put`` forwards to the owning shards (spooling for an unreachable
-one), ``/api/query`` scatters and merges the shards' partials (a 200
-partial with ``shardsDegraded`` when a shard fails), ``/api/query/last``,
-``/api/suggest`` and ``/api/search/lookup`` scatter and union, and the
-endpoints that would read or write its empty local store answer 400.
+``/api/put`` forwards to the owning shards (every replica owner at
+``tsd.cluster.rf`` > 1, spooling for an unreachable one), ``/api/query``
+scatters and merges the shards' partials (a 200 partial with
+``shardsDegraded`` when a shard, or at rf > 1 a whole replica set,
+fails), ``/api/query/last``, ``/api/suggest`` and ``/api/search/lookup``
+scatter and union, ``/api/query/continuous`` serves federated
+continuous queries, and the endpoints that would read or write its
+empty local store answer 400.
 On a shard, a wire delivery (``request.wire_groups``) lands as one
 grouped write, and a wire read (``request.wire_sink``) streams each
 sub-query's partial grids as frames instead of a JSON body.
@@ -758,12 +761,6 @@ class HttpRpcRouter:
         if sub == "last":
             return self._handle_query_last(request)
         if sub == "continuous":
-            if self.tsdb.cluster is not None:
-                raise NotImplementedError(
-                    "/api/query/continuous on a cluster router serves "
-                    "federated continuous queries, which are not ported "
-                    "yet (ROADMAP Queue 1, item 1.6e, federated "
-                    "continuous queries)")
             return self._handle_query_continuous(request, rest[1:])
         if sub in ("exp", "gexp"):
             from opentsdb_tpu_torch.query.expression.endpoint import (
@@ -913,10 +910,17 @@ class HttpRpcRouter:
         - ``DELETE /api/query/continuous/<id>``: deregister.
 
         Under tenant QoS a registration is held to its tenant's fold
-        budget (``tsd.control.qos.tenant_fold_mb``): past it, 400. The
-        reference's router mode (its cluster) is not ported (ROADMAP
-        Queue 1, the rest, with no device compute)."""
-        registry = self.tsdb.streaming
+        budget (``tsd.control.qos.tenant_fold_mb``): past it, 400.
+
+        On a cluster router the same surface serves FEDERATED
+        continuous queries (:mod:`opentsdb_tpu_torch.cluster.cq`): a
+        registration stands on every shard, a pull merges the shards'
+        partials and the stream pushes merged frames; ``deltas`` is the
+        shards' drain, which the router consumes, so it answers 400
+        there (ref)."""
+        cluster = self.tsdb.cluster
+        registry = cluster.cqs if cluster is not None \
+            else self.tsdb.streaming
         if registry is None:
             raise HttpError(400, "Continuous queries are disabled",
                             "set tsd.streaming.enable = true")
@@ -961,6 +965,10 @@ class HttpRpcRouter:
             return HttpResponse(200, json.dumps(
                 registry.current_results(cq)).encode())
         if what == "deltas":
+            if cluster is not None:
+                raise HttpError(
+                    400, "deltas is a shard-local drain surface",
+                    "the router consumes it; use /stream or /result")
             return HttpResponse(200, json.dumps(
                 registry.delta_updates(cq)).encode())
         if what == "stream":
@@ -1765,8 +1773,9 @@ class HttpRpcRouter:
 
         ``POST /api/cluster/reshard`` (a new ring) and ``POST
         /api/cluster/gossip`` (a sibling router's push) need
-        resharding and sibling routers (ROADMAP Queue 1, item 1.6d):
-        the first answers 501, the second the reference's 400, since
+        resharding and sibling routers (ROADMAP Queue 1, items
+        1.6d(ii) and 1.6d(iii)): the first answers 501, the second the
+        reference's 400, since
         ``tsd.cluster.routers`` cannot be set."""
         cluster = self.tsdb.cluster
         if cluster is None:
@@ -1788,7 +1797,7 @@ class HttpRpcRouter:
                 raise NotImplementedError(
                     "POST /api/cluster/reshard installs a new ring, "
                     "which is not ported yet (ROADMAP Queue 1, item "
-                    "1.6d, replication and resharding)")
+                    "1.6d(ii), resharding and retirement)")
             if request.method == "GET":
                 return HttpResponse(200, json.dumps(
                     cluster.reshard_info()).encode())

@@ -225,8 +225,11 @@ class TSDServer:
         self.socket_timeout_s = config.get_int("tsd.core.socket.timeout",
                                                0)
         self.max_body = config.get_int("tsd.http.request.max_chunk") * 64
+        # the dotted spelling, or the reference's legacy underscore
+        # alias: either enables (ref: ``_serve_http``)
         self.enable_chunked = config.get_bool(
-            "tsd.http.request.enable_chunked")
+            "tsd.http.request.enable_chunked") or config.get_bool(
+            "tsd.http.request_enable_chunked")
         # queries run on their own bounded pool, so abandoned
         # (timed-out) query threads cannot starve puts and admin calls
         self._query_pool = concurrent.futures.ThreadPoolExecutor(

@@ -258,6 +258,9 @@ _DECLARED_EXTRA: frozenset[str] = frozenset({
     "tsd.core.uid.random_metrics",
     "tsd.http.query.allow_delete",
     "tsd.http.query.stream_threshold_dps",
+    # the reference's legacy alias of tsd.http.request.enable_chunked
+    # (either spelling enables chunked bodies)
+    "tsd.http.request_enable_chunked",
     "tsd.http.serializer.plugin",
     "tsd.uidfilter.metric_patterns",
     "tsd.uidfilter.tagk_patterns",
@@ -272,6 +275,11 @@ _DECLARED_EXTRA: frozenset[str] = frozenset({
     "tsd.lifecycle.interval_s",
     "tsd.lifecycle.retention",
     "tsd.lifecycle.spill_after",
+    # the reference's segment compaction and timestamp packing; the
+    # port's stores have nothing to compact or pack (ROADMAP recorded
+    # divergence 22), so these are declared and have no effect
+    "tsd.lifecycle.compact",
+    "tsd.lifecycle.pack_timestamps",
     # the query mesh and its rendezvous (parallel/)
     "tsd.mesh.coordinator",
     "tsd.mesh.init_timeout",
@@ -311,15 +319,15 @@ _DECLARED_EXTRA: frozenset[str] = frozenset({
     "tsd.tpu.warmup.buckets",
     "tsd.tpu.warmup.budget_s",
     "tsd.tpu.warmup.percentiles",
-    # the cluster tier at one replica (cluster/); tsd.cluster.rf above
-    # 1 and tsd.cluster.routers are refused by name
-    # (query/engine.py::refuse_unported_keys)
+    # the cluster tier (cluster/); tsd.cluster.routers is refused by
+    # name (query/engine.py::refuse_unported_keys)
     "tsd.cluster.role",
     "tsd.cluster.peers",
     "tsd.cluster.vnodes",
     "tsd.cluster.rf",
     "tsd.cluster.routers",
     "tsd.cluster.replica.repair",
+    "tsd.cluster.reshard.backfill_batch",
     "tsd.cluster.timeout_ms",
     "tsd.cluster.hedge_after_ms",
     "tsd.cluster.wire.enable",
@@ -352,6 +360,28 @@ _DECLARED_EXTRA: frozenset[str] = frozenset({
 # per-metric lifecycle policies
 DYNAMIC_KEY_PREFIXES: tuple[str, ...] = ("tsd.faults.",
                                          "tsd.lifecycle.policy.")
+
+
+# keys of parts the port has not ported yet: key (or family, ending in
+# ".") -> the ROADMAP Queue 1 item that reads it. An unknown-key
+# warning names the item instead of suggesting a typo.
+LATER_ITEM_KEYS: dict[str, str] = {
+    "tsd.cluster.gossip.": "item 1.6d(iii), sibling routers",
+    "tsd.cluster.retire.": "item 1.6d(ii), resharding and retirement",
+    "tsd.cluster.reshard.interval_ms":
+        "item 1.6d(ii), resharding and retirement",
+    "tsd.http.staticroot": "item 1.8, /q and /s",
+    "tsd.http.cachedir": "item 1.8, /q and /s",
+    "tsd.http.graph.auto_pixels": "item 1.8, /q and /s",
+}
+
+
+def later_item(key: str) -> str | None:
+    """The ROADMAP Queue 1 item that will read ``key``, or None."""
+    for k, item in LATER_ITEM_KEYS.items():
+        if key == k or (k.endswith(".") and key.startswith(k)):
+            return item
+    return None
 
 
 def is_declared_key(key: str) -> bool:
@@ -424,6 +454,13 @@ class Config:
         logger = logger or log
         unknown = self.unknown_keys()
         for key in unknown:
+            item = later_item(key)
+            if item is not None:
+                logger.warning(
+                    "config key %r is read by a part not ported yet "
+                    "(ROADMAP Queue 1, %s) and will be IGNORED until "
+                    "then", key, item)
+                continue
             logger.warning(
                 "unknown config key %r is not read by anything and "
                 "will be IGNORED — check for a typo (see "

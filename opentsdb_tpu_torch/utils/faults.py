@@ -76,25 +76,25 @@ KNOWN_SITES: frozenset[str] = frozenset({
     "cluster.peer",       # cluster/router.py any-peer exchange
     "cluster.replica",    # cluster/router.py anti-entropy repair pass
     "cluster.wire",       # cluster/wire.py router-side wire exchange
+    "cluster.cq",         # cluster/cq.py federated CQ shard exchange
 })
 
 # site families with per-peer tails (ref: DYNAMIC_SITE_PREFIXES, less
-# the gossip's and the federated continuous queries')
+# the gossip's)
 DYNAMIC_SITE_PREFIXES: tuple[str, ...] = ("cluster.peer.",
-                                          "cluster.wire.")
+                                          "cluster.wire.",
+                                          "cluster.cq.")
 
 # the reference's sites of subsystems the port has not ported yet:
 # site prefix -> (its module, the ROADMAP Queue 1 item that ports it);
 # a key that arms one is refused, since nothing here would check it
 UNPORTED_SITE_PREFIXES: dict[str, tuple[str, str]] = {
     "cluster.reshard": ("cluster/reshard.py",
-                        "item 1.6d, replication and resharding"),
+                        "item 1.6d(ii), resharding and retirement"),
     "cluster.retire": ("cluster/retire.py",
-                       "item 1.6d, replication and resharding"),
+                       "item 1.6d(ii), resharding and retirement"),
     "cluster.gossip": ("cluster/gossip.py",
-                       "item 1.6d, replication and resharding"),
-    "cluster.cq": ("cluster/cq.py",
-                   "item 1.6e, federated continuous queries"),
+                       "item 1.6d(iii), sibling routers"),
 }
 
 

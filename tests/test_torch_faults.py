@@ -4,8 +4,9 @@ package: the cases of ``tests/test_faults.py`` (``TestStoreFaults``'
 read latency) and ``tests/test_result_cache.py`` (the degraded tier),
 run on both packages, on both stores. Also the configuration keys: a
 key for a site the port has not ported (the cluster's resharding,
-retirement, gossip and federated continuous queries) raises, one of the
-control plane's or the router's sites arms it, and one that names no
+retirement and gossip) raises, one of the control plane's, the
+router's or the federated continuous queries' sites arms it, and one
+that names no
 site at all warns and arms nothing that is checked.
 """
 
@@ -61,20 +62,20 @@ def dps(results):
 
 def test_reference_sites_are_ported_but_cluster_and_control():
     """Every site of the reference but the cluster's resharding,
-    retirement, gossip and federated continuous queries (ROADMAP Queue
-    1, items 1.6d-1.6e), each refused by name; the control plane's
-    ``control.*`` came with ``control/``, the router's ``cluster.peer``,
-    ``cluster.wire`` and ``cluster.replica`` with ``cluster/``."""
+    retirement and gossip (ROADMAP Queue 1, items 1.6d(ii) and
+    1.6d(iii)), each refused by name; the control plane's ``control.*``
+    came with ``control/``, the router's ``cluster.peer``,
+    ``cluster.wire`` and ``cluster.replica`` with ``cluster/``, and
+    ``cluster.cq`` with the federated continuous queries."""
     from opentsdb_tpu.utils.faults import KNOWN_SITES as JSITES
     from opentsdb_tpu_torch.utils.faults import UNPORTED_SITE_PREFIXES
     assert KNOWN_SITES == {s for s in JSITES
                            if s not in UNPORTED_SITE_PREFIXES}
     assert set(UNPORTED_SITE_PREFIXES) == {
-        "cluster.reshard", "cluster.retire", "cluster.gossip",
-        "cluster.cq"}
+        "cluster.reshard", "cluster.retire", "cluster.gossip"}
     assert {"control.materialize", "control.qos", "control.placement",
             "cluster.peer", "cluster.wire",
-            "cluster.replica"} <= KNOWN_SITES
+            "cluster.replica", "cluster.cq"} <= KNOWN_SITES
 
 
 @pytest.mark.parametrize("backend", STORES)
@@ -166,18 +167,20 @@ def test_degraded_tier_fails_loudly_and_cache_unpoisoned(backend):
     ("tsd.faults.cluster.peer_error_rate", None),
     ("tsd.faults.cluster.peer.s1_error_count", None),
     ("tsd.faults.cluster.wire.s0.latency_ms", None),
-    ("tsd.faults.cluster.cq.x.latency_ms", "1.6e"),
+    ("tsd.faults.cluster.cq.x.latency_ms", None),
+    ("tsd.faults.cluster.cq_error_count", None),
     ("tsd.faults.cluster.reshard_error_count", "1.6d"),
     ("tsd.faults.cluster.retire_error_once", "1.6d"),
     ("tsd.faults.cluster.gossip.r1_error_rate", "1.6d"),
     ("tsd.faults.control.qos_error_count", None),
     ("tsd.faults.control.placement.error_once", None)])
 def test_unported_site_keys_raise(key, item):
-    """A key for a site of the cluster's resharding, retirement, gossip
-    or federated continuous queries names a check the port does not
-    have: it raises, naming its Queue 1 item, rather than look armed.
-    A key of the control plane's or the router's sites (per-peer ones
-    included) arms them, as in the reference, which takes every key."""
+    """A key for a site of the cluster's resharding, retirement or
+    gossip names a check the port does not have: it raises, naming its
+    Queue 1 item, rather than look armed. A key of the control plane's,
+    the router's or the federated continuous queries' sites (per-peer
+    ones included) arms them, as in the reference, which takes every
+    key."""
     JTSDB(JConfig(**{"tsd.tpu.platform": "cpu", key: "1"}))
     if item is None:
         t = TSDB(Config(**{"tsd.torch.device": "cpu", key: "1"}))

@@ -291,6 +291,21 @@ def test_memory_info_and_stats(pair):
     assert c.seen["storage.live_bytes"] == 17 * t.total_points()
 
 
+def test_series_lengths_after_deletes_and_late_points(pair):
+    """One foreign call counts each series' points as the reference's
+    buffers hold them, after a delete and a point that lands out of
+    order; the stats totals follow."""
+    j, t = pair
+    for st in (t, j):
+        st.delete_range([0, 3], MS + 10_000, MS + 20_000)
+        st.append(6, MS - 1000, 1.5, 0)
+    want = [len(j.series(sid).buffer.view_full()[0]) for sid in range(S)]
+    assert t.series_lengths().tolist() == want
+    assert t.total_points() == j.total_points() == sum(want)
+    assert t.memory_info() == j.memory_info()
+    assert t.read_all()[0].tolist() == want
+
+
 # -- the import parse --------------------------------------------------------
 
 IMPORT_LINES = [

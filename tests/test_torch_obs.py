@@ -177,8 +177,10 @@ def test_every_key_the_port_reads_is_declared():
     prefixes = {"tsd.server"} | set(PORT.config.PLUGIN_SLOTS) | {
         "tsd.storage.wal.retry", "tsd.storage.flush.retry",
         "tsd.cluster.retry"}
+    # the keys of parts not ported yet are named, not read
     undeclared = sorted(k for k in keys if not k.endswith(".")
                         and k not in prefixes
+                        and k not in PORT.config.LATER_ITEM_KEYS
                         and not PORT.config.is_declared_key(k))
     assert undeclared == []
 

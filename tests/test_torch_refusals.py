@@ -210,7 +210,7 @@ def test_random_metric_uids_in_the_stats():
     assert ("uid.random-id-collisions", 0, {"kind": "metric"}) in rows
 
 
-# -- the cluster tier: what stays refused (ROADMAP Queue 1, 1.6d-1.6e) --------
+# -- the cluster tier: what stays refused (ROADMAP Queue 1, 1.6d(ii)-(iii)) ---
 
 ROUTER = {**CPU, "tsd.cluster.role": "router",
           "tsd.cluster.peers": "s0=127.0.0.1:1,s1=127.0.0.1:2"}
@@ -219,25 +219,43 @@ JROUTER = {**JCPU, "tsd.cluster.role": "router",
 
 
 @pytest.mark.parametrize("key,value", [
-    ("tsd.cluster.rf", "2"), ("tsd.cluster.rf", "3"),
     ("tsd.cluster.routers", "r1=127.0.0.1:9")])
 def test_replication_keys_refused(key, value):
-    """Replication and the sibling routers' gossip are item 1.6d: the
-    TSDB refuses to build, where the reference serves them."""
+    """The sibling routers' gossip is item 1.6d(iii): the TSDB refuses
+    to build, where the reference serves it."""
     j = JTSDB(JConfig(**{**JROUTER, key: value}))
     j.shutdown()
     with pytest.raises(NotImplementedError,
-                       match=f"{key}={value} .*ROADMAP Queue 1, item 1.6d"):
+                       match=f"{key}={value} .*ROADMAP Queue 1, item "
+                       "1.6d\\(iii\\)"):
         TSDB(Config(**{**ROUTER, key: value}))
-    TSDB(Config(**{**ROUTER, key: "1" if key.endswith("rf") else ""})
-         ).shutdown()
+    TSDB(Config(**{**ROUTER, key: ""})).shutdown()
+
+
+@pytest.mark.parametrize("rf", ["2", "3"])
+def test_replication_factor_builds_a_router(rf):
+    """Replication is ported: a router at ``tsd.cluster.rf`` 2 or 3
+    builds in both packages, with the same factor, ring and replica
+    sets (rf is clamped to the ring's two shards in both)."""
+    t = TSDB(Config(**{**ROUTER, "tsd.cluster.rf": rf}))
+    j = JTSDB(JConfig(**{**JROUTER, "tsd.cluster.rf": rf}))
+    try:
+        assert t.cluster.rf == j.cluster.rf == int(rf)
+        assert t.cluster.ring.replica_sets(int(rf)) == \
+            j.cluster.ring.replica_sets(int(rf))
+        assert t.cluster.health_info()["rf"] == \
+            j.cluster.health_info()["rf"]
+    finally:
+        t.shutdown()
+        j.shutdown()
 
 
 def test_placement_auto_refused_on_a_router():
     keys = {"tsd.control.enable": "true",
             "tsd.control.placement.auto": "true"}
     with pytest.raises(NotImplementedError,
-                       match="placement.auto.*ROADMAP Queue 1, item 1.6d"):
+                       match="placement.auto.*ROADMAP Queue 1, item "
+                       "1.6d\\(ii\\)"):
         TSDB(Config(**{**ROUTER, **keys}))
     # not a router: the key applies nothing, as in the reference
     TSDB(Config(**{**CPU, **keys})).shutdown()
@@ -257,12 +275,10 @@ def _call(router, request_cls, method, path, body=None):
 
 
 @pytest.mark.parametrize("method,path,item", [
-    ("POST", "/api/cluster/reshard", "1.6d"),
-    ("POST", "/api/query/continuous", "1.6e"),
-    ("GET", "/api/query/continuous", "1.6e")])
+    ("POST", "/api/cluster/reshard", "1.6d(ii)")])
 def test_router_endpoints_refused(method, path, item):
-    """Resharding (1.6d) and federated continuous queries (1.6e) answer
-    a structured 501 on the port's router, naming the item."""
+    """Resharding (1.6d(ii)) answers a structured 501 on the port's
+    router, naming the item."""
     import json
     from opentsdb_tpu_torch.tsd.http_api import HttpRequest
     t, j = _router_pair()
@@ -321,12 +337,47 @@ def test_a_confirmed_placement_plan_is_refused():
         t.shutdown()
 
 
-def test_replica_sel_refused_on_a_shard():
-    """A replicated router's read plan (``replicaSel``) is 1.6d: the
-    shard refuses it rather than read every series it owns."""
-    from opentsdb_tpu_torch.query.model import TSQuery
-    with pytest.raises(NotImplementedError,
-                       match="replicaSel.*ROADMAP Queue 1, item 1.6d"):
-        TSQuery.from_json({"start": "1h-ago", "queries": [
-            {"metric": "m", "aggregator": "sum"}],
-            "replicaSel": {"peers": ["s0"], "sets": [["s0"]]}})
+@pytest.mark.parametrize("method,path", [
+    ("POST", "/api/query/continuous"), ("GET", "/api/query/continuous")])
+def test_router_continuous_queries_answer_as_the_reference(method, path):
+    """Federated continuous queries are ported: on a router whose shards
+    cannot be reached, a registration answers the reference's 503 (no
+    shard to hold it) and the list its empty 200, byte for byte."""
+    from opentsdb_tpu.tsd.http_api import HttpRequest as JRequest
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest
+    body = {"id": "c1", "start": "1h-ago", "queries": [
+        {"metric": "m", "aggregator": "sum", "downsample": "1m-sum"}]}
+    t, j = _router_pair()
+    try:
+        got = [_call(HttpRpcRouter(t), HttpRequest, method, path, body),
+               _call(JRouter(j), JRequest, method, path, body)]
+        assert got[0].status == got[1].status == \
+            (503 if method == "POST" else 200)
+        assert got[0].body == got[1].body
+    finally:
+        t.shutdown()
+        j.shutdown()
+
+
+def test_replica_sel_parses_as_the_reference():
+    """A replicated router's read plan (``replicaSel``) is ported: a
+    shard parses it, writes it back and keys its cache on it as the
+    reference does, and refuses a malformed one with the same 400."""
+    from opentsdb_tpu.query.model import BadRequestError as JBad
+    from opentsdb_tpu.query.model import TSQuery as JQuery
+    from opentsdb_tpu_torch.query.model import BadRequestError, TSQuery
+    doc = {"start": "1h-ago", "queries": [
+        {"metric": "m", "aggregator": "sum"}],
+        "replicaSel": {"peers": ["s0", "s1"], "vnodes": 8, "rf": 2,
+                       "sets": [["s0", "s1"]]}}
+    t, j = TSQuery.from_json(doc), JQuery.from_json(doc)
+    assert t.replica_sel == j.replica_sel
+    assert t.to_json()["replicaSel"] == j.to_json()["replicaSel"]
+    bad = dict(doc, replicaSel={"peers": ["s0"], "sets": [["s9"]]})
+    errors = []
+    for parse, err in ((TSQuery.from_json, BadRequestError),
+                       (JQuery.from_json, JBad)):
+        with pytest.raises(err) as e:
+            parse(bad)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]

@@ -758,9 +758,10 @@ def test_rollup_usage_is_part_of_the_cache_key():
     ("tsd.core.meta.enable_tsuid_tracking", "true"),
     ("tsd.core.tree.enable_processing", "true")])
 def test_unported_subsystem_keys_refused(key, value):
-    """Replication's cluster keys still raise, naming their Queue 1
-    item; the role (ported) builds a TSDB whose router, or its absence,
-    is the JAX package's; the meta and tree keys (ported) start a TSDB
+    """The sibling routers' key still raises, naming its Queue 1 item;
+    the role (ported) builds a TSDB whose router, or its absence, is the
+    JAX package's; the replication factor (ported) builds a TSDB in both
+    packages; the meta and tree keys (ported) start a TSDB
     that tracks as the JAX package's does, and the lifecycle key
     (ported) one whose lifecycle describes itself as the JAX package's
     does."""
@@ -778,6 +779,13 @@ def test_unported_subsystem_keys_refused(key, value):
                     x.cluster
                 errors.append(str(e.value))
             assert errors[0] == errors[1]
+        t.shutdown()
+        j.shutdown()
+        return
+    if key == "tsd.cluster.rf":
+        t = TSDB(Config(**{"tsd.torch.device": "cpu", key: value}))
+        j = JTSDB(JConfig(**{"tsd.tpu.platform": "cpu", key: value}))
+        assert t.cluster is None and j.cluster is None
         t.shutdown()
         j.shutdown()
         return
@@ -808,11 +816,10 @@ def test_unported_subsystem_keys_refused(key, value):
         return
     with pytest.raises(NotImplementedError,
                        match=f"{key}={value} .*not ported yet \\(ROADMAP "
-                       "Queue 1, item 1.6d, replication and resharding\\)"):
+                       "Queue 1, item 1.6d\\(iii\\), sibling routers\\)"):
         TSDB(Config(**{"tsd.torch.device": "cpu", key: value}))
     # the default, spelled out, is no refusal
-    off = "1" if key == "tsd.cluster.rf" else ""
-    TSDB(Config(**{"tsd.torch.device": "cpu", key: off}))
+    TSDB(Config(**{"tsd.torch.device": "cpu", key: ""}))
 
 
 def test_rollups_enable_is_ported():

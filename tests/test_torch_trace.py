@@ -54,11 +54,12 @@ def _tracer(side, **over):
 
 def test_known_spans_are_the_reference_s_but_cluster():
     """The closed registry: the reference's names less those of the
-    cluster's resharding, retirement, gossip and federated continuous
-    queries, which come with those subsystems (ROADMAP Queue 1, items
-    1.6d-1.6e); the router's came with ``cluster/``."""
+    cluster's resharding, retirement and gossip, which come with those
+    subsystems (ROADMAP Queue 1, items 1.6d(ii) and 1.6d(iii)); the
+    router's came with ``cluster/``, ``cluster.cq`` and
+    ``cluster.cq.pump`` with the federated continuous queries."""
     unported = {"cluster.reshard.backfill", "cluster.retire",
-                "cluster.gossip.push", "cluster.cq", "cluster.cq.pump"}
+                "cluster.gossip.push"}
     assert unported <= JAX.trace.KNOWN_SPANS
     assert PORT.trace.KNOWN_SPANS == JAX.trace.KNOWN_SPANS - unported
 
