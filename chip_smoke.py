@@ -71,7 +71,8 @@
    ``execute_query``'s through the port's serializer bit for bit and
    to phase 3's float64 reference; HTTP p50 beside the direct p50 and
    the serializer's time. (b) The same at the default keys: a miss,
-   then result-cache hits. (d) 8 concurrent clients of (a). (e) An
+   then result-cache hits. (d) 4 concurrent clients of (a) (CUT from
+   8). (e) An
    unported endpoint answers 501, a bad aggregator 400. (c) 250k points
    (CUT from 1M for the run's time, ``PUT_STEPS``)
    by ``/api/put`` in 1000-point bodies over 4 kept-alive connections
@@ -257,7 +258,8 @@
    bit-equal (one cold call by ``rack`` in (a) and (b)), and (c) the
    sharded blocked path (``tsd.query.max_device_cells=1000000``, the
    budget scaled by the 4 shards: 3 blocks; by ``dc`` on the first
-   shape, by ``rack`` on the second); each answer held to a float64
+   shape, by ``rack`` on the second over its first 8 buckets, 2
+   blocks, CUT from 11); each answer held to a float64
    numpy reference at phase 3's tolerance, its emit mask equal to the
    single-card path's (phase 3's TSDB on the same window), its stage
    times printed. (d) A ``p99`` by ``dc`` (the histogram estimator)
@@ -288,9 +290,10 @@
    two-level tree filed in realtime, a counting realtime publisher, a
    write filter, a UID whitelist: ``chip_smoke.CountingPublisher`` and
    ``SkipFilter`` by dotted path) against the same writes with none:
-   100k series x 1 point by ``add_series_points`` (per-series hooks)
-   and 1k of them x 60 points by one telnet burst (``import_buffer``,
-   each line one ``add_point`` with the hooks on), points/s of each; 100k TSMetas, 100k tree leaves
+   50k series x 1 point by ``add_series_points`` (per-series hooks)
+   and 500 of them x 60 points by one telnet burst (``import_buffer``,
+   each line one ``add_point`` with the hooks on; both CUT by half),
+   points/s of each; 50k TSMetas, 50k tree leaves
    and every point published; (d) a running ``TSDServer`` with
    ``tsd.core.authentication.enable``: 401 without credentials, 403 for
    a reader's ``/api/put``, 200 for a writer's, telnet ``auth_fail`` and
@@ -419,12 +422,36 @@
    back from each of its two owners through a ``replicaSel`` that
    assigns that owner. Prints ``phase 21: N s``
    and a ``replication`` line;
-22. prints the run's wall time, the ``histogram``, ``rollup``,
+22. online resharding and stale-copy retirement (run last, on TSDBs
+   of its own, rf=1 and the default 5 s peer timeout): four shard TSDs
+   (``tsd.http.query.allow_delete``) and a router over three of them
+   with a spool dir. (a) Config 3's series ``i < 34,000`` of
+   ``dc0``-``dc51`` (17,680, CUT from 1M: 17 series a rack, the fewest
+   at which every shard keeps more than 1024 racks on 3 and on 4
+   shards, so ``{rack=*}`` runs K2 on each), placed by the ring; each
+   shard's K1/K2 route for both queries from one direct call; both
+   queries through the router (p50 of 2 after a warm-up), held to
+   float64 numpy, one launch a shard a call. (b) ``POST
+   /api/cluster/reshard`` adds ``s3`` (epoch 1); 10,200 points of the
+   next 170 cut series put through the router; the reads stay on the
+   old ring and include them. (c) One backfill unit stepped by hand;
+   the router dropped and rebuilt over the same spool dir (epoch, both
+   rings, done-markers and fence back); its loop finishes the copy at
+   the default 250 ms and finalizes (seconds, series, points). (d) The
+   reads at epoch 1 through the selector on 4 shards, 4 launches a
+   call, every shard's route again, ``s3`` a fifth to three tenths of
+   the series. (e) A router restarted with
+   ``tsd.cluster.retire.interval_ms=50`` resumes the retire pass: each
+   former owner's series count drops by exactly the series it lost,
+   and the reads equal (d)'s. Prints ``phase 22: N s`` and a
+   ``reshard`` line;
+23. prints the run's wall time, the ``histogram``, ``rollup``,
    ``streaming``, ``surfaces``, ``mesh``, ``ops``, ``lifecycle``,
-   ``obs``, ``cluster`` and ``replication`` lines, one JSON line
-   describing each kernel (its launches are those of phases 3, 5, 8,
-   6, 15, 17, 19, 9, 10, 13, 14, 18, 20 and 21; phases 11, 12 and 16
-   launch neither on their paths), the card line and, last,
+   ``obs``, ``cluster``, ``replication`` and ``reshard`` lines, one
+   JSON line describing each kernel (its launches are those of phases
+   3, 5, 8, 6, 15, 17, 19, 9, 10, 13, 14, 18, 20, 21 and 22; phases
+   11, 12 and 16 launch neither on their paths), the card line and,
+   last,
    ``{"ok": true, "device": {...}}``. Each phase's header says how far
    into the run it starts.
 
@@ -1270,10 +1297,12 @@ def phase_serve(torch, tsdb, query, ref3: dict, last_tags: dict) -> dict:
 # phase 8: the front end (HTTP and telnet on one port)
 # phase 8's repeats and volumes, CUT for the run's time limit (from 5
 # HTTP and 3 direct calls, 8 clients and 1M points; then, with phase 19,
-# to 3 HTTP and 2 direct calls)
+# to 3 HTTP and 2 direct calls; with phase 22, to 4 clients)
 FE_REPEATS = 3             # HTTP calls per query in (a), 1 POST + 2 GET
 FE_DIRECT = 2              # direct execute_query calls per query in (a)
-FE_CLIENTS = 8             # concurrent HTTP clients in (d)
+FE_CLIENTS = 4             # concurrent HTTP clients in (d), CUT from 8
+#                            (12.3 s of wall at 8 on one H100 80GB HBM3
+#                            at 700 W, PERF.md §5)
 # (c): 250k points by /api/put, CUT from 1M for the run's time (phase
 # 19 added; ROADMAP's chip_smoke.py notes)
 PUT_SERIES, PUT_STEPS = 1000, 250
@@ -4733,6 +4762,10 @@ MESH_BUCKETS = 11
 # (d): at 1M series a 4-shard mesh scales the budget to 4M cells, so
 # blocks of 4 of the 11 buckets: 3 blocks
 MESH_BLOCK_CELLS = "1000000"
+# (c) on the second shape: the first 8 of the 11 buckets, 2 blocks of 4,
+# CUT from 11 (3 blocks; 8.4 s on one H100 80GB HBM3 at 700 W, PERF.md
+# §5) with phase 22
+MESH_BLOCKED_CUT_BUCKETS = 8
 MESH_FEW = 8               # (e): series of the multiply query
 MESH_CHILD_TIMEOUT_S = 300  # (f): each child's own limit
 MESH_CACHE_MB = "4096"     # (a)-(c): room for a cut 1M x 55-point batch
@@ -4969,22 +5002,36 @@ def phase_mesh(torch, tsdb, values, profile: bool = False) -> dict:
                   f"float64 {row['grid_err']!r}")
             shape_out[m] = row
             # (c) the blocked path: by dc on the first shape, by rack on
-            # the second
+            # the second over its first MESH_BLOCKED_CUT_BUCKETS buckets
             if ("{dc=*}" in m) != (shape == MESH_SHAPES[0]):
                 continue
+            nb = MESH_BUCKETS if shape == MESH_SHAPES[0] \
+                else MESH_BLOCKED_CUT_BUCKETS
+            btq = TSQuery(start=start, end=str(MESH_WINDOW[0] + nb * 300
+                                               - 1),
+                          queries=[parse_uri_subquery(m)]).validate()
+            bref = refs[m][:2] + config3_window(values, "avg", refs[m][0],
+                                                nb)
             b0 = sp.execute_blocked_sharded.blocks
-            rows, secs, st = _stats_run(blocked, tq)
+            rows, secs, st = _stats_run(blocked, btq)
             row["blocks"] = sp.execute_blocked_sharded.blocks - b0
             check(2 <= row["blocks"] <= 3,
                   f"(c) {shape} {m}: {row['blocks']} blocks, not 2-3")
-            row["blocked_err"] = held_to_reference(rows, refs[m])
-            check(emits_equal(rows, single[m]),
+            row["blocked_err"] = held_to_reference(rows, bref)
+            check(len(rows) == len(single[m]) and all(
+                      a.tags == b.tags and np.array_equal(
+                          a.dps_arrays[0], b.dps_arrays[0][:nb - 1])
+                      for a, b in zip(rows, single[m])),
                   f"(c) {shape} {m}: emit masks differ from one card's")
             row["blocked_s"] = secs
-            print(f"  {shape} (c) blocked {m}: {row['blocks']} blocks, "
+            same = len(rows) == len(point_rows) and all(
+                np.array_equal(a.dps_arrays[1], b.dps_arrays[1][:nb - 1])
+                for a, b in zip(rows, point_rows))
+            print(f"  {shape} (c) blocked {m} over {nb} buckets: "
+                  f"{row['blocks']} blocks, "
                   f"{_stage_line([secs], [st])} ms; max |d| vs float64 "
-                  f"{row['blocked_err']!r}; bit-equal to (a) "
-                  f"{same_bits(rows, point_rows)}")
+                  f"{row['blocked_err']!r}; bit-equal to (a) over those "
+                  f"buckets {same}")
         if profile:
             m = QUERIES[0][0]
             tq = query(m)
@@ -5090,11 +5137,14 @@ OPS_COLD = 2               # (a): cold calls per p50, each 2.2-2.7 s at
 #                            1M on one H100 (phase 17's budget is 45 s)
 OPS_READS = 5              # (b): calls per p50
 OPS_ASSIGN = 100           # (b): names per /api/uid/assign call
-OPS_HOOK_SERIES = 100_000  # (c): series x 1 point by add_series_points
-OPS_BURST_SERIES = 1_000   # (c): series x OPS_BURST_POINTS by telnet
-#                            (with hooks on each line is one add_point,
-#                            ~20k lines/s on the host: 10k series would
-#                            take ~30 s of the phase's 45)
+# (c): series x 1 point by add_series_points, CUT from 100,000 with
+# phase 22 (the hook run took 13.9 s at 100k on one H100 80GB HBM3 at
+# 700 W, PERF.md §5)
+OPS_HOOK_SERIES = 50_000
+OPS_BURST_SERIES = 500     # (c): series x OPS_BURST_POINTS by telnet,
+#                            CUT from 1,000 with phase 22 (with hooks on
+#                            each line is one add_point, ~13k lines/s on
+#                            the card's host at 1,000)
 OPS_BURST_POINTS = 60
 OPS_AUTH_CALLS = 20        # (d): calls per p50
 OPS_DUR_SERIES = 5_000     # (e): series per metric, per backend (5k
@@ -7633,6 +7683,363 @@ def phase_replicated(torch, data, keep, ref3: dict, rf1_rows: dict,
     return launches, out
 
 
+# phase 22: online resharding and stale-copy retirement
+# config 3's series i < RESHARD_SERIES with i % 100 < CLUSTER_DCS
+# (17,680): 17 series a rack, the fewest whole series a rack at which
+# every shard keeps more than 1024 racks before the grow (3 shards:
+# 1036-1039 racks) and after it (4 shards: 1027-1034), so {rack=*}
+# runs K2 on each; at 16 a rack (32,000) one shard of 4 keeps 1023 and
+# would run K1. CUT from 1,000,000 (the ring's placement, computed in
+# the phase, is what decides it)
+RESHARD_SERIES = 34_000
+RESHARD_WINDOW_SERIES = 170   # (b): the next 170 cut series x 60 points
+RESHARD_BODY = 1_020          # (b): points per /api/put body (17 series)
+RESHARD_REPEATS = 2           # timed calls per p50, after a warm-up
+RESHARD_RETIRE_MS = "50"      # (e): tsd.cluster.retire.interval_ms
+RESHARD_WAIT_S = 120          # the longest wait for a background loop
+
+
+def reshard_reference(values, idx) -> dict:
+    """``{m: (want, terms)}`` of both QUERIES over config 3's series
+    ``idx`` in float64 with numpy (as :func:`config3_reference`), row n
+    the group whose tag value ends in n."""
+    import numpy as np
+    import torch
+    vals = values[idx]
+    avg = vals.reshape(len(idx), POINTS // 5, 5).mean(axis=2)
+    per = (np.diff(avg, axis=1) / 300.0,
+           (np.abs(avg[:, 1:]) + np.abs(avg[:, :-1])) / 300.0)
+    out = {}
+    for m, _ in QUERIES:
+        mod = 100 if "{dc=*}" in m else 2000
+        gid = idx % mod
+        out[m] = tuple(torch.from_numpy(np.stack(
+            [np.bincount(gid, x[:, j], minlength=mod)
+             for j in range(x.shape[1])], axis=1)) for x in per)
+    return out
+
+
+def phase_reshard(torch, data, card: str) -> tuple[dict, dict]:
+    """Phase 22: a router over three shard TSDs grows the ring to four
+    online (``POST /api/cluster/reshard``), is killed mid-cutover,
+    resumes, finalizes and retires the stale copies. Returns every
+    kernel launch of its reads, warm-ups and route probes included, and
+    the ``reshard`` line."""
+    import tempfile
+
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.cluster import replica as replica_mod
+    from opentsdb_tpu_torch.cluster.hashring import HashRing, series_shard_key
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest, HttpRpcRouter
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card, "series_cut": RESHARD_SERIES}
+    marks = [t_phase]
+    stage_s: dict = {}
+
+    def mark(name: str) -> None:
+        marks.append(time.perf_counter())
+        stage_s[name] = marks[-1] - marks[-2]
+
+    tags, ts2d, values = data
+    keep = np.asarray([i for i in range(RESHARD_SERIES)
+                       if i % 100 < CLUSTER_DCS], dtype=np.int64)
+    win = np.asarray([i for i in range(RESHARD_SERIES, len(tags))
+                      if i % 100 < CLUSTER_DCS][:RESHARD_WINDOW_SERIES],
+                     dtype=np.int64)
+    every = np.concatenate([keep, win])
+    ref_a = reshard_reference(values, keep)
+    ref_b = reshard_reference(values, every)
+    shard_keys = {"tsd.torch.device": "cuda",
+                  "tsd.core.auto_create_metrics": "true",
+                  "tsd.cluster.role": "shard",
+                  # the retire pass deletes through the shards' gate
+                  "tsd.http.query.allow_delete": "true", **ENGINE_KEYS}
+    shards = [TSDB(Config(**shard_keys))
+              for _ in range(CLUSTER_SHARDS + 1)]
+    sts = [serve_pinned(ServerThread, t) for t in shards]
+    addrs = [f"s{i}=127.0.0.1:{st.port}" for i, st in enumerate(sts)]
+    spool = Path(tempfile.mkdtemp(prefix="chip_smoke_reshard_"))
+    router_keys = {"tsd.torch.device": "cuda",
+                   "tsd.cluster.role": "router",
+                   "tsd.cluster.peers": ",".join(addrs[:CLUSTER_SHARDS]),
+                   "tsd.cluster.spool.dir": str(spool),
+                   "tsd.query.cache.enable": "false"}
+    start, end = str(T0), str(T0 + POINTS * 60 - 1)
+    launches = {"span_reduce": 0, "onehot_reduce": 0}
+
+    def take() -> dict:
+        """The launches since the last take (counted into the phase's),
+        the counts set to 0 again."""
+        got = read_launches(fused)
+        for k in launches:
+            launches[k] += got[k]
+        reset_launches(fused)
+        return got
+
+    def router_for(**keys):
+        """A router TSDB over the spool dir, not yet started."""
+        t = TSDB(Config(**{**router_keys, **keys}))
+        return t, t.cluster, HttpRpcRouter(t)
+
+    def reads(h, label: str, ref: dict, n_shards: int) -> tuple:
+        """A warm-up and RESHARD_REPEATS timed calls of both queries
+        through ``h``: the p50s, each answer held to ``ref``, one launch
+        per reading shard per call."""
+        take()
+        got_ms, rows_of, calls = {}, {}, {k: 0 for _m, k in QUERIES}
+        for m, kname in QUERIES:
+            key = "dc" if "{dc=*}" in m else "rack"
+            want, terms = ref[m]
+            secs = []
+            for _ in range(RESHARD_REPEATS + 1):
+                t = time.perf_counter()
+                status, rows, deg, _ = _cluster_rows(h, HttpRequest, m,
+                                                     start, end)
+                secs.append(time.perf_counter() - t)
+                calls[kname] += 1
+                check(status == 200 and not deg,
+                      f"{m} {label}: {status}, degraded {deg}")
+            g = len(rows)
+            check(g == (CLUSTER_DCS if key == "dc" else 20 * CLUSTER_DCS),
+                  f"{m} {label}: {g} merged groups")
+            err = _held_groups(torch, rows, key, want, terms,
+                               f"{m} {label}")
+            got_ms[f"{key}_ms"] = p50(secs[1:]) * 1e3
+            got_ms[f"{key}_max_abs_err"] = err
+            rows_of[m] = rows
+            print(f"  {m} {label}: p50 {p50(secs[1:]) * 1e3:.1f} ms of "
+                  f"{RESHARD_REPEATS} after a warm-up, {g} groups held "
+                  f"to numpy (max |d| {err!r}) (on {card})")
+        got = take()
+        for kname, n in calls.items():
+            check(got[kname] == n * n_shards,
+                  f"{kname} {label}: {got[kname]} launches, want one per "
+                  f"reading shard per call ({n * n_shards})")
+        print(f"  launches {label}: {got} over {calls} router calls x "
+              f"{n_shards} reading shards")
+        return got_ms, rows_of
+
+    def routes(ring, sel: bool) -> dict:
+        """Each shard's kernel for each query: the launch of one direct
+        call on the shard, through a replicaSel assigning it its sets
+        on ``ring`` when ``sel``."""
+        got_routes = {}
+        for name in ring.names:
+            t_shard = shards[int(name[1:])]
+            per = {}
+            for m, kname in QUERIES:
+                doc = TSQuery(start=start, end=end,
+                              queries=[parse_uri_subquery(m)]).to_json()
+                if sel:
+                    doc["replicaSel"] = replica_mod.sel_doc(
+                        ring.names, ring.vnodes, 1,
+                        [t_ for t_ in ring.replica_sets(1) if name in t_])
+                take()
+                t_shard.execute_query(TSQuery.from_json(doc).validate())
+                got = take()
+                ran = [k for k, n in got.items() if n]
+                check(sum(got.values()) == 1 and ran == [kname],
+                      f"{name} ran {got} for {m}, want one {kname}")
+                per["dc" if "{dc=*}" in m else "rack"] = \
+                    "+".join(ran) or "none"
+            got_routes[name] = per
+        return got_routes
+
+    def held_series(t_shard) -> int:
+        """Series of the metric with points in the hour on one shard."""
+        return len(t_shard.execute_query(TSQuery(
+            start=start, end=end,
+            queries=[parse_uri_subquery(f"none:{METRIC}")]).validate()))
+
+    def wait_for(cond, what: str) -> float:
+        t = time.perf_counter()
+        while not cond():
+            check(time.perf_counter() - t < RESHARD_WAIT_S,
+                  f"{what} did not happen in {RESHARD_WAIT_S} s")
+            time.sleep(0.01)
+        return time.perf_counter() - t
+
+    router = None
+    mark("start")
+    try:
+        # (a) the cut on three shards, placed by the router's ring; the
+        # reads at epoch 0. The first router steps its backfill by hand
+        router, rc, h = router_for(**{
+            "tsd.cluster.reshard.interval_ms": "3600000"})
+        rc.start()
+        names = [f"s{i}" for i in range(CLUSTER_SHARDS + 1)]
+        keys = [series_shard_key(METRIC, tags[i]) for i in every.tolist()]
+        old_own = np.asarray([t_[0] for t_ in rc.ring.shards_for_keys(keys)])
+        new_own = np.asarray([t_[0] for t_ in HashRing(
+            names, vnodes=rc.ring.vnodes).shards_for_keys(keys)])
+        is_keep = np.arange(len(every)) < len(keep)
+        t = time.perf_counter()
+        for i, t_shard in enumerate(shards[:CLUSTER_SHARDS]):
+            rows = every[is_keep & (old_own == f"s{i}")]
+            t_shard.add_series_points(METRIC, [tags[j] for j in rows],
+                                      ts2d[rows], values[rows])
+        load_s = time.perf_counter() - t
+        counts = {n: held_series(shards[i])
+                  for i, n in enumerate(names[:CLUSTER_SHARDS])}
+        check(counts == {n: int((is_keep & (old_own == n)).sum())
+                         for n in counts}, f"series per shard {counts}")
+        print(f"  (a) {len(keep)} series (i < {RESHARD_SERIES}, dc0-dc"
+              f"{CLUSTER_DCS - 1}) x {POINTS} points on {CLUSTER_SHARDS} "
+              f"shards: {counts}, loaded in {load_s:.3f} s (on {card})")
+        r0 = routes(rc.ring, False)
+        print(f"  (a) routes at epoch 0: {r0}")
+        for n, per in r0.items():
+            check(per == {"dc": "span_reduce", "rack": "onehot_reduce"},
+                  f"{n} at epoch 0 routes {per}")
+        reads_a, _ = reads(h, "at epoch 0", ref_a, CLUSTER_SHARDS)
+        out.update(series=int(len(keep)), per_shard=counts, routes0=r0)
+        mark("a")
+
+        # (b) the install, and writes and reads in the window
+        resp = h.handle(HttpRequest(
+            method="POST", path="/api/cluster/reshard",
+            body=json.dumps({"peers": ",".join(addrs)}).encode()))
+        doc = json.loads(resp.body)
+        check(resp.status == 200 and doc["epoch"] == 1 and doc["active"],
+              f"reshard install: {resp.status} {resp.body[:300]!r}")
+        pts = [{"metric": METRIC, "timestamp": int(ts2d[i, j]),
+                "value": float(values[i, j]), "tags": tags[i]}
+               for i in win.tolist() for j in range(POINTS)]
+        t = time.perf_counter()
+        for k in range(0, len(pts), RESHARD_BODY):
+            resp = h.handle(HttpRequest(
+                method="POST", path="/api/put",
+                params={"summary": ["true"]},
+                body=json.dumps(pts[k:k + RESHARD_BODY]).encode()))
+            check(resp.status == 200
+                  and json.loads(resp.body)["failed"] == 0,
+                  f"window put: {resp.status} {resp.body[:300]!r}")
+        put_s = time.perf_counter() - t
+        print(f"  (b) installed at epoch {doc['epoch']} (s3 joins); "
+              f"{len(pts)} points of {len(win)} more cut series put "
+              f"through the router in the window in {put_s:.3f} s "
+              f"({len(pts) / put_s:,.0f} points/s), written to the old "
+              f"and the new owners (on {card})")
+        reads_b, _ = reads(h, "in the window (the old ring)", ref_b,
+                           CLUSTER_SHARDS)
+        before = {n: held_series(shards[i]) for i, n in enumerate(names)}
+        want_before = {n: int((old_own == n).sum()) for n in names}
+        want_before["s3"] = int(((new_own == "s3") & ~is_keep).sum())
+        check(before == want_before,
+              f"series per shard in the window {before}, want "
+              f"{want_before}")
+        mark("b")
+
+        # (c) one unit copied by hand, the router killed and rebuilt
+        # over the same spool dir, the rest copied by its loop at the
+        # default 250 ms interval
+        step = rc.backfill_step()
+        check(step.get("phase") == "copied", f"first unit: {step}")
+        first_points = rc.backfiller.backfilled_points
+
+        def state(r) -> tuple:
+            return (r.epoch, list(r.ring.names), list(r.old_ring.names),
+                    r.state.done, r.state.fence_ms)
+
+        left = state(rc)
+        router.shutdown()
+        router, rc, h = router_for(**{"tsd.cluster.retire.enable":
+                                      "false"})
+        back = state(rc)
+        check(back == left and rc.resharding,
+              f"the rebuilt router resumed {back}, the killed one left "
+              f"{left}")
+        print(f"  (c) {step['series']} series of {step['peer']} copied by "
+              f"hand; the router killed and rebuilt: epoch {back[0]}, "
+              f"ring {back[1]}, old ring {back[2]}, done {back[3]} back")
+        rc.start()
+        backfill_s = wait_for(lambda: not rc.resharding,
+                              "the backfill's finalize")
+        moved = int((old_own != new_own).sum())
+        bf_series = step["series"] + rc.backfiller.backfilled_series
+        bf_points = first_points + rc.backfiller.backfilled_points
+        check(bf_series == moved and bf_points == moved * POINTS,
+              f"backfilled {bf_series} series, {bf_points} points; "
+              f"{moved} series moved")
+        print(f"  (c) the loop finished the copy and finalized in "
+              f"{backfill_s:.3f} s: {bf_series} series, {bf_points} points "
+              f"moved in all ({bf_points / backfill_s:,.0f} points/s "
+              f"after the resume) (on {card})")
+        out["backfill"] = {"s": backfill_s, "series": bf_series,
+                           "points": bf_points, "window_put_s": put_s}
+        mark("c")
+
+        # (d) the reads at epoch 1, through the selector on 4 shards
+        reads_d, rows_d = reads(h, "at epoch 1", ref_b,
+                                CLUSTER_SHARDS + 1)
+        r1 = routes(rc.ring, True)
+        print(f"  (d) routes at epoch 1: {r1}")
+        for n, per in r1.items():
+            check(per == {"dc": "span_reduce", "rack": "onehot_reduce"},
+                  f"{n} at epoch 1 routes {per}")
+        s3_share = int((new_own == "s3").sum()) / len(every)
+        check(0.2 <= s3_share <= 0.3, f"s3 owns {s3_share:.3f}")
+        out["routes1"] = r1
+        mark("d")
+
+        # (e) the retire pass: a router restarted across the un-retired
+        # epoch resumes it
+        router.shutdown()
+        router, rc, h = router_for(**{"tsd.cluster.retire.interval_ms":
+                                      RESHARD_RETIRE_MS})
+        check(rc.retirer.pending(), "no retire pass pending")
+        rc.start()
+        retire_s = wait_for(lambda: rc.state.retired_epoch == 1,
+                            "the retire pass")
+        after = {n: held_series(shards[i]) for i, n in enumerate(names)}
+        lost = {n: int(((old_own == n) & (new_own != n)).sum())
+                for n in names}
+        want_after = {n: int((new_own == n).sum()) for n in names}
+        check(after == want_after and all(
+                  after[n] == before[n] - lost[n]
+                  for n in names[:CLUSTER_SHARDS]),
+              f"series per shard after the retire pass {after}, before "
+              f"{before}, lost {lost}")
+        check(rc.retirer.retired_series == sum(lost.values()),
+              f"retired {rc.retirer.retired_series}, lost {lost}")
+        print(f"  (e) the retire pass at {RESHARD_RETIRE_MS} ms: "
+              f"{retire_s:.3f} s, {rc.retirer.retire_queries} deletes; "
+              f"series per shard {before} -> {after} (each former "
+              f"owner less what it lost, {lost}) (on {card})")
+        reads_e, rows_e = reads(h, "after the retire pass", ref_b,
+                                CLUSTER_SHARDS + 1)
+        for m, _k in QUERIES:
+            key = "dc" if "{dc=*}" in m else "rack"
+            held_rows(torch, rows_e[m], rows_d[m], key, ref_b[m][1],
+                      f"{m} after the retire pass against (d)")
+        same = all(rows_e[m] == rows_d[m] for m, _k in QUERIES)
+        print(f"  (e) both answers equal (d)'s (bit-equal: {same})")
+        out["retire"] = {"s": retire_s, "lost": lost, "before": before,
+                         "after": after,
+                         "queries": rc.retirer.retire_queries}
+        out["reads"] = {"epoch0": reads_a, "window": reads_b,
+                        "epoch1": reads_d, "retired": reads_e}
+        mark("e")
+    finally:
+        if router is not None:
+            router.shutdown()
+        for st in sts:
+            st.stop()
+        shutil.rmtree(spool, ignore_errors=True)
+    mark("stop")
+    out["stage_s"] = stage_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("  seconds by stage: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stage_s.items()))
+    print(f"phase 22: {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def p50(xs) -> float:
     return statistics.median(xs)
 
@@ -8066,13 +8473,24 @@ def main() -> int:
                       dtype=np.int64)
     rf_launches, replication = phase_replicated(
         torch, data, keep, ref3, to21["rf1_rows"], card)
-    del data
     for kname, n in rf_launches.items():
         launches[kname] += n
     replication["federated"] = to21["fed"]
     replication["phase_s"] = to21["fed"]["phase_s"] \
         + time.perf_counter() - t_rf
     print(f"phase 21: {replication['phase_s']:.1f} s")
+    gc.collect()   # phase 21's TSDBs, before four new shards load
+    header(f"phase 22: online resharding, a router over "
+           f"{CLUSTER_SHARDS} shard TSDs grown to {CLUSTER_SHARDS + 1}, "
+           f"config 3's series i < {RESHARD_SERIES} of dc0-dc"
+           f"{CLUSTER_DCS - 1} (CUT from 1,000,000: 17 series a rack, "
+           f"the fewest at which every shard's {{rack=*}} runs K2 on 3 "
+           f"and on 4 shards) (|got - want| <= {TOL_REL}*sum|terms| + "
+           f"{TOL_ABS})")
+    rs_launches, reshard = phase_reshard(torch, data, card)
+    del data
+    for kname, n in rs_launches.items():
+        launches[kname] += n
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
                              "span_reduce_kernel"),
@@ -8105,6 +8523,7 @@ def main() -> int:
     print(json.dumps({"obs": obs}))
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"replication": replication}))
+    print(json.dumps({"reshard": reshard}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,8 +29,11 @@ Every format that outlives a process is the reference's byte for
 byte: the ring's MD5 placement, the spool and its offset sidecar, the
 dirty tracker's and the reshard state's files, and the wire's frames.
 
-Resharding and stale-copy retirement (ROADMAP Queue 1, item 1.6d(ii))
-and the sibling routers' gossip (item 1.6d(iii)) are refused by name.
+The ring grows or shrinks online behind a fenced epoch
+(:mod:`~opentsdb_tpu_torch.cluster.reshard`), and a retire pass deletes
+the stale copies a finalized reshard leaves
+(:mod:`~opentsdb_tpu_torch.cluster.retire`). The sibling routers'
+gossip (ROADMAP Queue 1, item 1.6d(iii)) is refused by name.
 """
 
 from opentsdb_tpu_torch.cluster.hashring import HashRing, series_shard_key

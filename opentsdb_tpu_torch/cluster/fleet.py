@@ -27,10 +27,9 @@ marked, never a 5xx) and merges:
 
 Also here: the consolidated operator progress surface behind
 ``GET /api/cluster/status`` — the ring epoch, per-peer spool backlog
-and dirty-debt AGE, with coarse ETA estimates (the reference's backfill
-and gossip sections need resharding and sibling routers, ROADMAP
-Queue 1, items 1.6d(ii) and 1.6d(iii), and never appear at epoch 0
-with no siblings).
+and dirty-debt AGE, and the backfill window, with coarse ETA estimates
+(the reference's gossip section needs sibling routers, ROADMAP Queue 1,
+item 1.6d(iii), and never appears with no siblings).
 """
 
 from __future__ import annotations
@@ -244,10 +243,24 @@ def cluster_status(router) -> dict[str, Any]:
                  "vnodes": router.ring.vnodes},
         "ts": now_ms // 1000,
     }
-    # -- reshard window: idle at epoch 0 on the port (resharding and
-    # its backfill are ROADMAP Queue 1, item 1.6d(ii))
-    doc["reshard"] = state.describe()
-    doc["retire"] = router.retire_info()
+    # -- reshard / backfill window -------------------------------------
+    reshard = state.describe()
+    doc["reshard"] = reshard
+    if reshard.get("active"):
+        bf = router.backfiller.health_info()
+        bf.update(router.backfiller.progress())
+        done = bf.get("done_units") or 0
+        total = bf.get("total_units") or 0
+        fence = reshard.get("fence_ms") or 0
+        if done and total and fence:
+            elapsed_s = max((now_ms - fence) / 1000.0, 0.001)
+            rate = done / elapsed_s
+            bf["eta_s"] = round((total - done) / rate, 1) \
+                if rate > 0 and total > done else 0.0
+        else:
+            bf["eta_s"] = None  # no progress yet: no honest estimate
+        doc["backfill"] = bf
+    doc["retire"] = router.retirer.health_info()
     # -- per-peer spool backlog + divergence debt ----------------------
     # drain floor: one replay batch per interval wake is the
     # guaranteed minimum (the catch-up drain usually clears faster),

@@ -32,10 +32,17 @@ replica set to one live member (``replicaSel``, so every series is
 read once) and falls back to the next member when a reader fails, and
 an anti-entropy pass re-copies a window one replica missed from a
 sibling. Federated continuous queries (:mod:`.cq`) stand on every
-shard and merge at the router. The port keeps one ring at epoch 0:
-resharding and stale-copy retirement (ROADMAP Queue 1, item 1.6d(ii))
-and the sibling routers' gossip (item 1.6d(iii)) are refused when the
-TSDB or the router is built.
+shard and merge at the router.
+
+``POST /api/cluster/reshard`` installs a new ring at a fenced epoch
+(:mod:`.reshard`): writes go to the old and the new owners while the
+window is open, reads stay on the old ring, a background backfill
+copies the moved series, and the window finalizes when every unit is
+copied. Past epoch 0 every read carries a ``replicaSel``, so each
+shard masks the stale copies it still holds before its kernels run,
+and the stale-copy retire pass (:mod:`.retire`) deletes them. The
+sibling routers' gossip (ROADMAP Queue 1, item 1.6d(iii)) is refused
+when the TSDB is built.
 """
 
 from __future__ import annotations
@@ -58,7 +65,8 @@ from opentsdb_tpu_torch.cluster import wire as wire_mod
 from opentsdb_tpu_torch.cluster.client import (PeerClient, PeerError,
                                                parse_peer_spec)
 from opentsdb_tpu_torch.cluster.hashring import HashRing, series_shard_key
-from opentsdb_tpu_torch.cluster.reshard import HORIZON_MS, ReshardState
+from opentsdb_tpu_torch.cluster.reshard import (HORIZON_MS, Backfiller,
+                                                ReshardState)
 from opentsdb_tpu_torch.cluster.spool import PeerSpool, SpoolFull
 from opentsdb_tpu_torch.core.tags import (check_metric_and_tags,
                                           check_metric_and_tags_batch,
@@ -174,35 +182,55 @@ class ClusterRouter:
         if not spool_dir and getattr(tsdb, "data_dir", ""):
             import os
             spool_dir = os.path.join(tsdb.data_dir, "cluster_spool")
-        # persisted topology (``reshard.json``): a directory a router
-        # left past epoch 0, or mid-cutover, needs the reshard
-        # machinery the port does not have
+        # persisted topology (``reshard.json``): after a finalized
+        # reshard the INSTALLED ring differs from config (which still
+        # names the boot ring); a mid-reshard kill also restores the
+        # old ring and the backfill's done-markers, so the cutover
+        # resumes where it stopped
         self.state = ReshardState(spool_dir or None)
-        if self.state.active or self.state.epoch > 0:
-            raise NotImplementedError(
-                f"the cluster spool dir {spool_dir!r} holds reshard "
-                f"state at epoch {self.state.epoch}"
-                f"{' with an open cutover' if self.state.active else ''}"
-                ", which needs resharding, not ported yet (ROADMAP "
-                "Queue 1, item 1.6d(ii), resharding and retirement)")
-        specs = parse_peer_spec(config_spec)
+        spec_str = self.state.peers_spec or config_spec
+        vnodes = self.state.vnodes \
+            or config.get_int("tsd.cluster.vnodes", 64)
+        specs = parse_peer_spec(spec_str)
         self.rf = max(config.get_int("tsd.cluster.rf", 1), 1)
         self.peers: dict[str, Peer] = {}
         for name, host, port in specs:
             self.peers[name] = Peer(name, host, port, config,
                                     spool_dir or None)
         self.ring = HashRing([name for name, _, _ in specs],
-                             vnodes=config.get_int("tsd.cluster.vnodes",
-                                                   64))
+                             vnodes=vnodes)
+        self.old_ring: HashRing | None = None
+        if self.state.active:
+            old_specs = parse_peer_spec(self.state.old_spec)
+            for name, host, port in old_specs:
+                if name not in self.peers:
+                    self.peers[name] = Peer(name, host, port, config,
+                                            spool_dir or None)
+            self.old_ring = HashRing(
+                [name for name, _, _ in old_specs],
+                vnodes=self.state.old_vnodes or vnodes)
         # anti-entropy: per-(peer, metric) divergence windows the
         # spool cannot replay (lost or refused records), repaired from
         # a surviving replica when the peer returns
         self.dirty = replica_mod.DirtyTracker(spool_dir or None)
-        # points per repair delivery (the reference's backfill chunk)
-        self.backfill_batch = config.get_int(
-            "tsd.cluster.reshard.backfill_batch", 4000)
         self.repair_enabled = config.get_bool(
             "tsd.cluster.replica.repair", True)
+        self.backfiller = Backfiller(self)
+        # points per backfill (and repair) delivery
+        self.backfill_batch = config.get_int(
+            "tsd.cluster.reshard.backfill_batch", 4000)
+        self.reshard_interval_s = config.get_float(
+            "tsd.cluster.reshard.interval_ms", 250.0) / 1000.0
+        # stale-copy retire pass (cluster/retire.py): after a
+        # finalized reshard, delete the moved series the backfill left
+        # on former owners (reads already hide them through
+        # replicaSel; this reclaims the bytes), one unit per wake
+        from opentsdb_tpu_torch.cluster.retire import StaleCopyRetirer
+        self.retirer = StaleCopyRetirer(self)
+        self.retire_enabled = config.get_bool(
+            "tsd.cluster.retire.enable", True)
+        self.retire_interval_s = config.get_float(
+            "tsd.cluster.retire.interval_ms", 1000.0) / 1000.0
         self._spool_dir = spool_dir or None
         workers = config.get_int("tsd.cluster.fanout_workers", 0) \
             or max(2 * len(self.peers), 4)
@@ -302,6 +330,9 @@ class ClusterRouter:
         self._fleet_health_cache: tuple = (None, 0.0)
         self._stop = threading.Event()
         self._replay_thread: threading.Thread | None = None
+        self._backfill_thread: threading.Thread | None = None
+        self._retire_thread: threading.Thread | None = None
+        self._reshard_lock = threading.Lock()  # begin/finalize fence
         self._started = False
 
     # ------------------------------------------------------------------
@@ -309,7 +340,8 @@ class ClusterRouter:
     # ------------------------------------------------------------------
 
     def start(self) -> None:
-        """Start the spool replay thread (idempotent)."""
+        """Start the spool replay thread, and resume a persisted
+        cutover's backfill or an unfinished retire pass (idempotent)."""
         if self._started:
             return
         self._started = True
@@ -317,16 +349,41 @@ class ClusterRouter:
                              name="cluster-replay", daemon=True)
         self._replay_thread = t
         t.start()
+        if self.state.active:
+            self._start_backfill()
+        elif self.retire_enabled and self.retirer.pending():
+            # a restart across an un-retired epoch resumes the pass
+            self._start_retire()
+
+    def _start_backfill(self) -> None:
+        t = self._backfill_thread
+        if t is not None and t.is_alive():
+            return
+        t = threading.Thread(target=self._backfill_loop,
+                             name="cluster-backfill", daemon=True)
+        self._backfill_thread = t
+        t.start()
+
+    def _start_retire(self) -> None:
+        t = self._retire_thread
+        if t is not None and t.is_alive():
+            return
+        t = threading.Thread(target=self._retire_loop,
+                             name="cluster-retire", daemon=True)
+        self._retire_thread = t
+        t.start()
 
     def stop(self) -> None:
-        """Join the replay thread, drop the federated registrations
-        (the shards keep theirs), close the wire links (which wakes
-        every leg waiting on one), join the fan-out pool and close the
-        spools: no thread of the router outlives this call."""
+        """Join the replay, backfill and retire threads, drop the
+        federated registrations (the shards keep theirs), close the
+        wire links (which wakes every leg waiting on one), join the
+        fan-out pool and close the spools: no thread of the router
+        outlives this call."""
         self._stop.set()
-        t = self._replay_thread
-        if t is not None and t.is_alive():
-            t.join(timeout=5)
+        for t in (self._replay_thread, self._backfill_thread,
+                  self._retire_thread):
+            if t is not None and t.is_alive():
+                t.join(timeout=5)
         self.cqs.close()
         self.wire.close_all()
         self.pool.shutdown(wait=True, cancel_futures=True)
@@ -480,6 +537,12 @@ class ClusterRouter:
                 f"peer {peer.name} sent an unparseable copy-scan "
                 f"body") from exc
 
+    def deliver_backfill(self, peer: Peer, dps: list[dict]) -> None:
+        """Forward one backfill batch through the normal deliver/spool
+        path: an unreachable new owner spools, and the moved keyspace
+        still lands, so a kill during a reshard loses nothing."""
+        self._deliver(peer, dps)
+
     # ------------------------------------------------------------------
     # per-(peer, metric) known/unknown memo (see __init__)
     # ------------------------------------------------------------------
@@ -577,9 +640,19 @@ class ClusterRouter:
 
     def write_owners(self, metric: str, tags: dict[str, str]
                      ) -> tuple[str, ...]:
-        """Every shard one point must reach: the ring's replica set
-        (rf distinct owners, primary first)."""
-        return self.ring.shards_for(metric, tags, self.rf)
+        """Every shard one point must reach: the current ring's
+        replica set (rf distinct owners, primary first), plus, while a
+        reshard cutover is open, the OLD ring's set (dual-write: reads
+        stay on the old ring during the window, so its owners must
+        keep seeing every accepted write; an unmoved series resolves
+        to the same set and pays nothing)."""
+        owners = list(self.ring.shards_for(metric, tags, self.rf))
+        old_ring = self.old_ring
+        if old_ring is not None:
+            for n in old_ring.shards_for(metric, tags, self.rf):
+                if n not in owners:
+                    owners.append(n)
+        return tuple(owners)
 
     @staticmethod
     def _dp_key(dp: dict) -> tuple:
@@ -598,8 +671,9 @@ class ClusterRouter:
                                     list[dict], list[dict]]:
         """Shard each datapoint by its series key onto EVERY replica
         owner. Returns (shard -> points, local error entries for
-        unshardable dps, valid dps in input order): at RF > 1 the same
-        dp object appears in several shards' batches.
+        unshardable dps, valid dps in input order): at RF > 1, or
+        during a reshard window, the same dp object appears in several
+        shards' batches.
 
         The per-point validation mirrors the peer's write path BEFORE
         acking: a bad point bound for a dead shard would be acked into
@@ -687,8 +761,15 @@ class ClusterRouter:
             ring_keys = [series_shard_key(pairs[j][0], pairs[j][1])
                          for j in ok_pos]
             new_sets = self.ring.shards_for_keys(ring_keys, self.rf)
+            old_ring = self.old_ring
+            old_sets = old_ring.shards_for_keys(ring_keys, self.rf) \
+                if old_ring is not None else None
             for slot, j in enumerate(ok_pos):
-                series_memo[skeys[j]] = ("ok", new_sets[slot])
+                owners = new_sets[slot]
+                if old_sets is not None:
+                    owners = tuple(owners) + tuple(
+                        nm for nm in old_sets[slot] if nm not in owners)
+                series_memo[skeys[j]] = ("ok", owners)
             for j, e in enumerate(verrs):
                 if e is not None:
                     series_memo[skeys[j]] = ("err", e)
@@ -765,10 +846,14 @@ class ClusterRouter:
         is marked dirty for anti-entropy."""
         batches, errors, valid = self.partition_points(points)
         tctx = trace_mod.current()
+        # .get: a reshard finalize may pop a departed old owner
+        # between partitioning and here; skipping its batch IS the
+        # post-finalize write plan (the union included the new owners,
+        # which still receive their copies)
         futures = {
-            self.pool.submit(self._deliver_traced, tctx,
-                             self.peers[name], dps): (name, dps)
-            for name, dps in batches.items()}
+            self.pool.submit(self._deliver_traced, tctx, peer, dps):
+            (name, dps) for name, dps in batches.items()
+            if (peer := self.peers.get(name)) is not None}
         # per-point outcomes merge across replica deliveries by
         # CONTENT key: the first error entry per failed point is
         # reported; a point missing from every delivery's error set
@@ -793,7 +878,8 @@ class ClusterRouter:
                     failed_entries.setdefault(self._dp_key(dp), e)
                     refused_dps.append(dp)
                     attributed += 1
-            if refused_dps and self.rf > 1:
+            if refused_dps and (self.rf > 1
+                                or self.old_ring is not None):
                 # a point one replica refused may have landed on its
                 # siblings (a replica SPLIT): mark the window dirty so
                 # anti-entropy re-levels it when the peer is willing;
@@ -1364,12 +1450,24 @@ class ClusterRouter:
     # read path
     # ------------------------------------------------------------------
 
-    def _read_view(self) -> tuple[HashRing, list[str]]:
-        """The ring reads scatter over, and the peer names involved
-        (ref: ``_read_view``). The port keeps one ring at epoch 0, so
-        reads and deletes cover it alike; the reference's cutover view
-        (reads on the old ring, deletes on both) comes with resharding
-        (ROADMAP Queue 1, item 1.6d(ii))."""
+    def _read_view(self, delete: bool = False
+                   ) -> tuple[HashRing, list[str]]:
+        """The ring reads scatter over, and the peer names involved.
+        During a reshard cutover reads stay on the OLD ring: its
+        owners hold the complete history AND (through dual-write)
+        every in-window write, so answers are complete without merging
+        across rings, the one shape where two copies of a moved series
+        could double-sum. Deletes must purge EVERY copy, so they cover
+        the union of both rings."""
+        old_ring = self.old_ring
+        if delete:
+            names = list(self.ring.names)
+            if old_ring is not None:
+                names += [n for n in old_ring.names
+                          if n not in names]
+            return self.ring, names
+        if old_ring is not None:
+            return old_ring, list(old_ring.names)
         return self.ring, list(self.ring.names)
 
     def execute_query(self, tsq) -> tuple[list, list[str]]:
@@ -1447,21 +1545,28 @@ class ClusterRouter:
         # Deletes bypass the memo: a stale unknown entry must never
         # silently skip a purge.
         use_memo = not tsq.delete
-        ring, ring_names = self._read_view()
+        ring, ring_names = self._read_view(tsq.delete)
         rf = min(self.rf, len(ring.names))
         # the replica filter is needed at RF > 1 (each series has RF
-        # live copies; the reference also needs it past epoch 0, which
-        # the port never leaves); deletes go unfiltered because they
-        # must reach every copy
-        use_sel = rf > 1 and not tsq.delete
+        # live copies) and on ANY resharded cluster (epoch > 0: moved
+        # series leave stale copies on their former owners, since the
+        # backfill copies and does not purge); deletes go unfiltered
+        # because they must reach every copy, stale ones included
+        use_sel = (rf > 1 or self.state.epoch > 0) and not tsq.delete
         # read assignment: replica tuple -> reader. sel=None means
-        # "everything you own" (one replica, and deletes)
+        # "everything you own" (one replica at epoch 0, and deletes)
         if use_sel:
+            def takes_reads(n: str) -> bool:
+                # .get: a reshard finalize may pop a departed peer
+                # between the ring snapshot and here; route around it
+                # like any unhealthy replica
+                peer = self.peers.get(n)
+                return peer is not None and \
+                    not peer.breaker.blocking()
+
             pending: dict[str, list[tuple] | None] = {}
             for t in ring.replica_sets(rf):
-                reader = next((n for n in t
-                               if not self.peers[n].breaker.blocking()),
-                              t[0])
+                reader = next((n for n in t if takes_reads(n)), t[0])
                 pending.setdefault(reader, []).append(t)
         else:
             pending = {name: None for name in ring_names}
@@ -1512,7 +1617,13 @@ class ClusterRouter:
             round_failed: list[str] = []
             for name in sorted(pending):
                 sel = pending[name]
-                peer = self.peers[name]
+                peer = self.peers.get(name)
+                if peer is None:
+                    # popped by a concurrent reshard finalize: fail
+                    # the leg so its sets fall back (or degrade)
+                    round_failed.append(name)
+                    mark_trouble()
+                    continue
                 req_obj = peer_obj if sel is None else dict(
                     peer_obj, replicaSel=replica_mod.sel_doc(
                         ring.names, ring.vnodes, rf, sel))
@@ -2115,8 +2226,7 @@ class ClusterRouter:
         return results, degraded
 
     # ------------------------------------------------------------------
-    # the ring's epoch (always 0: resharding is ROADMAP Queue 1,
-    # item 1.6d(ii))
+    # online resharding (ring-change epochs)
     # ------------------------------------------------------------------
 
     @property
@@ -2125,26 +2235,180 @@ class ClusterRouter:
 
     @property
     def resharding(self) -> bool:
-        """Whether a reshard cutover is open: never on the port, whose
-        ring stays at epoch 0 (ROADMAP Queue 1, item 1.6d(ii))."""
-        return False
+        return self.old_ring is not None
+
+    def begin_reshard(self, new_spec: str, vnodes: int = 0) -> dict:
+        """Install a new ring at a fenced epoch and open the cutover
+        window (``POST /api/cluster/reshard``): joining shards get
+        peers + spools, the epoch/rings persist for kill-during-
+        reshard recovery, every write starts dual-delivering to
+        old∪new owners, reads stay on the old ring, and the backfill
+        starts streaming moved keyspace. Raises ``BadRequestError``
+        on a bad spec or while a cutover is already open."""
+        specs = parse_peer_spec(new_spec)
+        if not specs:
+            raise BadRequestError(
+                "reshard needs a non-empty peers spec")
+        with self._reshard_lock:
+            if self.old_ring is not None:
+                raise BadRequestError(
+                    "a reshard is already in progress (epoch "
+                    f"{self.state.epoch}); wait for it to finalize")
+            for name, host, port in specs:
+                cur = self.peers.get(name)
+                if cur is not None and (cur.client.host != host or
+                                        cur.client.port != port):
+                    raise BadRequestError(
+                        f"shard {name!r} changes address in the new "
+                        f"ring ({cur.client.address} -> {host}:"
+                        f"{port}); rename it instead")
+            old_spec = ",".join(
+                f"{n}={self.peers[n].client.host}:"
+                f"{self.peers[n].client.port}"
+                for n in self.ring.names)
+            new_vnodes = int(vnodes) or self.ring.vnodes
+            for name, host, port in specs:
+                if name not in self.peers:
+                    self.peers[name] = Peer(name, host, port,
+                                            self.config,
+                                            self._spool_dir)
+            # order matters for racing writers (no lock on the write
+            # path): old_ring fills first, so the worst interleaving
+            # writes to the OLD owners only — which the backfill scan
+            # (running strictly later) still moves
+            prev = self.ring
+            self.old_ring = prev
+            self.ring = HashRing([n for n, _, _ in specs],
+                                 vnodes=new_vnodes)
+            epoch = self.state.begin(new_spec, new_vnodes, old_spec,
+                                     prev.vnodes)
+            self.backfiller.reset()
+            # the epoch leads every cache version: installing it
+            # atomically mismatches every cached entry
+            self._bump_global_version()
+        LOG.info("reshard installed at epoch %d: %s -> %s", epoch,
+                 old_spec, new_spec)
+        if self._started:
+            self._start_backfill()
+        return self.reshard_info()
+
+    def backfill_step(self) -> dict[str, Any]:
+        """Copy one backfill unit and finalize when the copy is
+        complete (the background loop drives this; tests/ops may call
+        it directly for deterministic cutovers)."""
+        if self.old_ring is None:
+            return {"phase": "idle"}
+        info = self.backfiller.step()
+        if info.get("phase") == "done":
+            self.finalize_reshard()
+        return info
+
+    def finalize_reshard(self) -> None:
+        """Close the cutover window: the new ring is the only ring.
+        Shards that left are dropped — dual-write already placed
+        everything they were owed on the new owners, so their
+        remaining spool backlog (if any) is void."""
+        with self._reshard_lock:
+            old_ring = self.old_ring
+            if old_ring is None:
+                return
+            self.old_ring = None
+            removed = [n for n in old_ring.names
+                       if n not in self.ring.names]
+            self.state.finish()
+            for n in removed:
+                peer = self.peers.pop(n, None)
+                if peer is not None:
+                    pending = peer.spool.pending_records
+                    if pending:
+                        LOG.warning(
+                            "dropping departed shard %s with %d "
+                            "spooled record(s): dual-write already "
+                            "delivered them to the new owners", n,
+                            pending)
+                    peer.spool.close()
+                self.dirty.drop_peer(n)
+                self.read_repair.drop_peer(n)
+                self.invalidate_sub_memo(n)
+            self._bump_global_version()
+            # the ownership map just changed: re-arm the stale-copy
+            # retire pass for this epoch (former owners still in the
+            # ring hold moved series replicaSel now hides)
+            self.retirer.reset()
+        LOG.info("reshard finalized at epoch %d; ring: %s",
+                 self.state.epoch, ",".join(self.ring.names))
+        if self._started and self.retire_enabled:
+            self._start_retire()
+
+    def _backfill_loop(self) -> None:
+        tracer = getattr(self.tsdb, "tracer", None)
+        while not self._stop.wait(self.reshard_interval_s):
+            if self.old_ring is None:
+                return
+            tctx = tracer.start_background(
+                "cluster.reshard.backfill") \
+                if tracer is not None and tracer.enabled else None
+            info: dict[str, Any] = {}
+            try:
+                with trace_mod.use(tctx):
+                    info = self.backfill_step()
+                if tctx is not None:
+                    tctx.tag(phase=str(info.get("phase", "")),
+                             metric=str(info.get("metric", "")))
+                    if info.get("phase") == "blocked":
+                        # an idle/blocked poll is not worth a
+                        # retained trace
+                        tctx.sampled = False
+            except Exception:  # noqa: BLE001 - keep the loop alive
+                LOG.exception("backfill step failed")
+            finally:
+                if tracer is not None and tctx is not None:
+                    tracer.finish(tctx)
+            if info.get("phase") in ("done", "idle"):
+                return
+
+    def _retire_loop(self) -> None:
+        tracer = getattr(self.tsdb, "tracer", None)
+        while not self._stop.wait(self.retire_interval_s):
+            if self.old_ring is not None:
+                return  # a NEW cutover opened: finalize re-arms us
+            tctx = tracer.start_background("cluster.retire") \
+                if tracer is not None and tracer.enabled else None
+            info: dict[str, Any] = {}
+            try:
+                with trace_mod.use(tctx):
+                    info = self.retirer.step()
+                if tctx is not None:
+                    tctx.tag(phase=str(info.get("phase", "")),
+                             metric=str(info.get("metric", "")))
+                    if info.get("phase") in ("blocked", "idle"):
+                        # an idle/blocked poll is not worth a
+                        # retained trace
+                        tctx.sampled = False
+            except Exception:  # noqa: BLE001 - keep the loop alive
+                LOG.exception("retire step failed")
+            finally:
+                if tracer is not None and tctx is not None:
+                    tracer.finish(tctx)
+            if info.get("phase") in ("done", "idle", "disabled"):
+                return
+
+    def retire_step(self) -> dict[str, Any]:
+        """One deterministic stale-copy retire unit (tests/ops; the
+        background loop drives the same step)."""
+        return self.retirer.step()
 
     def reshard_info(self) -> dict[str, Any]:
         out = self.state.describe()
         out["rf"] = self.rf
         out["ring"] = {"peers": list(self.ring.names),
                        "vnodes": self.ring.vnodes}
-        out["retire"] = self.retire_info()
+        if self.old_ring is not None:
+            out["old_ring"] = {"peers": list(self.old_ring.names),
+                               "vnodes": self.old_ring.vnodes}
+            out["backfill"] = self.backfiller.health_info()
+        out["retire"] = self.retirer.health_info()
         return out
-
-    @staticmethod
-    def retire_info() -> dict[str, Any]:
-        """The reference's stale-copy retire pass as it reports itself
-        with no epoch to retire (its ``health_info`` at epoch 0): the
-        pass needs resharding, not ported (ROADMAP Queue 1, item
-        1.6d(ii))."""
-        return {"pending": False, "retired_series": 0,
-                "retire_queries": 0, "failed_steps": 0, "passes": 0}
 
     # ------------------------------------------------------------------
     # suggest/search scatter (the router owns no names of its own)
@@ -2168,8 +2432,9 @@ class ClusterRouter:
 
     def scatter_suggest(self, stype: str, q: str, max_results: int
                         ) -> tuple[list[str], list[str]]:
-        """Union one suggest over every shard (names live wherever
-        their series landed, so the union IS the cluster's answer).
+        """Union one suggest over every read-ring shard (names live
+        wherever their series landed, so the union IS the cluster's
+        answer).
         Returns (sorted names capped at ``max_results``, degraded
         shard names, per the replica-coverage rule)."""
         self.scatter_name_queries += 1
@@ -2479,6 +2744,16 @@ class ClusterRouter:
                          rr["completed"])
         collector.record("cluster.name_scatters",
                          self.scatter_name_queries)
+        collector.record("cluster.reshard.backfilled_points",
+                         self.backfiller.backfilled_points)
+        collector.record("cluster.reshard.backfilled_series",
+                         self.backfiller.backfilled_series)
+        collector.record("cluster.retire.retired_series",
+                         self.retirer.retired_series)
+        collector.record("cluster.retire.queries",
+                         self.retirer.retire_queries)
+        collector.record("cluster.retire.failed_steps",
+                         self.retirer.failed_steps)
         collector.record("cluster.cache_degraded_skips",
                          self.cache_degraded_skips)
         collector.record("cluster.sub_memo.skips",

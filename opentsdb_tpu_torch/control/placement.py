@@ -1,5 +1,5 @@
 """Placement control: SLO-fed hot-shard detection and reshard plans
-(ref: ``opentsdb_tpu/control/placement.py``; the planner only).
+(ref: ``opentsdb_tpu/control/placement.py``).
 
 The planner reads the per-peer load counters the router already
 keeps (forwarded + spooled points — the write traffic each shard
@@ -9,11 +9,9 @@ spec: the same peer set with the vnode count stepped up, which
 re-spreads the hot shard's hash ranges without moving the membership.
 
 The proposal is exactly that — a proposal. ``GET /api/control/plan``
-shows it (with a content-addressed ``planId``). The reference feeds a
-confirmed plan to ``POST /api/cluster/reshard``; resharding is not
-ported (ROADMAP Queue 1, item 1.6d(ii)), so on the port a
-confirmation, by POST or by ``tsd.control.placement.auto=true``, is
-refused.
+shows it (with a content-addressed ``planId``). A confirmed plan, by
+``POST /api/control/plan`` or by ``tsd.control.placement.auto=true``,
+goes to the router's reshard, as ``POST /api/cluster/reshard`` does.
 """
 
 from __future__ import annotations

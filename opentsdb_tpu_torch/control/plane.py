@@ -17,11 +17,11 @@ own circuit breaker, and runs three independent actuators:
 * **placement** (fault site ``control.placement``) — on a cluster
   router, rebuild the hot-shard assessment and proposed ring spec
   (:mod:`~opentsdb_tpu_torch.control.placement`), shown by ``GET
-  /api/control/plan``. Applying a plan reshards the ring, which is not
-  ported (ROADMAP Queue 1, item 1.6d(ii)): a confirmed plan raises, and
-  ``tsd.control.placement.auto=true`` on a router is refused when the
-  TSDB is built. On a TSD that is not a router it passes its fault
-  site and assesses nothing.
+  /api/control/plan``. A confirmed plan (``POST /api/control/plan``)
+  reshards the ring through ``ClusterRouter.begin_reshard``; with
+  ``tsd.control.placement.auto=true`` the plane applies its own plan
+  when no cutover is open. On a TSD that is not a router it passes its
+  fault site and assesses nothing.
 
 Failure semantics follow the lifecycle sweeper to the letter: an
 actuator that throws is counted, trips the shared breaker, tags the
@@ -93,6 +93,7 @@ class ControlPlane:
             "tsd.control.placement.hot_ratio", 2.0), 1.0)
         # the last assessment (a router's only)
         self._plan: dict[str, Any] | None = None
+        self._applied_plan_id = ""
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
         self._tick_lock = threading.Lock()
@@ -328,9 +329,9 @@ class ControlPlane:
 
     def _placement_tick(self, now_ms: int, report: dict) -> None:
         """(ref: ``_placement_tick``) On a cluster router: assess the
-        shards' loads and keep the plan; elsewhere, the fault site
-        alone. The reference's auto-apply is refused when the TSDB is
-        built (``refuse_unported_keys``)."""
+        shards' loads, keep the plan, and with ``auto`` apply it unless
+        a cutover is open or it is the plan already applied; elsewhere,
+        the fault site alone."""
         self.tsdb.faults.check("control.placement")
         if not self.place_enable:
             return
@@ -342,11 +343,22 @@ class ControlPlane:
             self._plan = plan
         report["placement"] = {"hotShards": plan["hotShards"],
                                "proposal": bool(plan["proposal"])}
+        if not self.place_auto or not plan.get("proposal"):
+            return
+        if router.state.active:
+            report["placement"]["deferred"] = "reshard in progress"
+            return
+        pid = plan.get("planId", "")
+        if pid and pid == self._applied_plan_id:
+            return  # already cutting over to this exact proposal
+        result = self.apply_plan(pid)
+        report["placement"]["applied"] = result
 
     def apply_plan(self, pid: str) -> dict[str, Any]:
-        """Confirm the standing proposal (ref: ``apply_plan``): the
-        reference's 400s for no proposal or a stale ``planId``, then
-        the reshard the plan needs, which is not ported."""
+        """Execute the CURRENT proposal through the router's reshard
+        (ref: ``apply_plan``). ``pid`` must match the standing plan:
+        confirming a stale planId means the operator approved a
+        different world, and is rejected."""
         with self._lock:
             plan = self._plan
         if plan is None or not plan.get("proposal"):
@@ -355,10 +367,17 @@ class ControlPlane:
             raise BadRequestError(
                 "planId does not match the standing proposal "
                 "(re-read /api/control/plan and confirm that id)")
-        raise NotImplementedError(
-            "applying a placement plan reshards the ring, which is not "
-            "ported yet (ROADMAP Queue 1, item 1.6d(ii), resharding and "
-            "retirement)")
+        router = self.tsdb.cluster
+        if router is None:
+            raise BadRequestError("this TSD is not a cluster router")
+        proposal = plan["proposal"]
+        result = router.begin_reshard(proposal["peers"],
+                                      vnodes=proposal["vnodes"])
+        self._applied_plan_id = pid
+        self.plans_applied += 1
+        LOG.info("control: reshard plan %s applied (vnodes=%d)",
+                 pid, proposal["vnodes"])
+        return result
 
     # ------------------------------------------------------------------
     # exposition
@@ -392,8 +411,7 @@ class ControlPlane:
                     "auto": self.place_auto}
         doc = dict(plan)
         doc["auto"] = self.place_auto
-        # no plan is ever applied on the port
-        doc["appliedPlanId"] = ""
+        doc["appliedPlanId"] = self._applied_plan_id
         return doc
 
     def describe(self) -> dict[str, Any]:

@@ -54,9 +54,8 @@ LOG = logging.getLogger("obs.trace")
 # Every span name started anywhere — roots and stages — must resolve
 # here: :meth:`TraceContext.begin` enforces it at run time, so a typo'd
 # stage name fails the first test that crosses it instead of silently
-# recording an orphan stage. The reference's ``cluster.*`` names of
-# resharding, retirement and gossip come with those subsystems
-# (ROADMAP Queue 1, items 1.6d(ii) and 1.6d(iii)).
+# recording an orphan stage. The reference's ``cluster.gossip.push``
+# comes with the sibling routers (ROADMAP Queue 1, item 1.6d(iii)).
 
 KNOWN_SPANS: frozenset[str] = frozenset({
     # request roots
@@ -70,6 +69,8 @@ KNOWN_SPANS: frozenset[str] = frozenset({
     "control.loop",          # control/plane.py one control tick
     "cluster.spool.replay",  # cluster/router.py spool catch-up drain
     "cluster.replica.repair",  # cluster/router.py anti-entropy pass
+    "cluster.reshard.backfill",  # cluster/reshard.py moved-key copy
+    "cluster.retire",        # cluster/retire.py stale-copy delete
     "cluster.read_repair",   # cluster/router.py staged-hint drain
     # ingest stages
     "ingest.decode",         # body parse + validate + series grouping

@@ -146,11 +146,9 @@ HOST_TAIL_DEFAULT_CELLS_LINEAR = 1 << 23
 # keys that turn on a subsystem the port has not ported, checked when a
 # TSDB is built (refuse_unported_keys): (config key, its default, the
 # subsystem, the ROADMAP Queue 1 item that ports it)
-RESHARD_ITEM = "item 1.6d(ii), resharding and retirement"
-SIBLINGS_ITEM = "item 1.6d(iii), sibling routers"
 _UNPORTED_SUBSYSTEM_KEYS = (
     ("tsd.cluster.routers", "", "the sibling routers' gossip",
-     SIBLINGS_ITEM),
+     "item 1.6d(iii), sibling routers"),
 )
 
 
@@ -170,14 +168,6 @@ def refuse_unported_keys(config) -> None:
             raise NotImplementedError(
                 f"{key}={value} turns on {what}, which is not ported yet "
                 f"(ROADMAP Queue 1, {item}); leave {key} at {default!r}")
-    if config.get_string("tsd.cluster.role", "") == "router" \
-            and config.get_bool("tsd.control.enable") \
-            and config.get_bool("tsd.control.placement.auto"):
-        raise NotImplementedError(
-            "tsd.control.placement.auto=true on a cluster router applies "
-            "placement plans by resharding the ring, which is not "
-            f"ported yet (ROADMAP Queue 1, {RESHARD_ITEM}); leave "
-            "tsd.control.placement.auto at 'false'")
     # a typo raises ValueError here, as at the reference's boot
     parse_mesh_spec(config.get_string("tsd.query.mesh", ""))
 

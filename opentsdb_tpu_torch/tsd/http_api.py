@@ -1769,14 +1769,20 @@ class HttpRpcRouter:
           peers, spools, counters);
         - ``GET /api/cluster/status``: the operator progress document
           (spool backlog and dirty debt per peer, with drain ETAs);
-        - ``GET /api/cluster/reshard``: the ring's epoch document.
+        - ``POST /api/cluster/reshard``: install a new ring at a
+          fenced epoch (body: ``{"peers": "[name=]host:port,...",
+          "vnodes": 64}``). The cutover window writes to the old and
+          the new owners, keeps reads on the old ring and backfills
+          the moved series in the background; the epoch finalizes
+          itself when the copy completes. 400 on an empty spec, a
+          renamed address, or while another reshard is open;
+        - ``GET /api/cluster/reshard``: the same document (operators
+          poll it to watch the window close).
 
-        ``POST /api/cluster/reshard`` (a new ring) and ``POST
-        /api/cluster/gossip`` (a sibling router's push) need
-        resharding and sibling routers (ROADMAP Queue 1, items
-        1.6d(ii) and 1.6d(iii)): the first answers 501, the second the
-        reference's 400, since
-        ``tsd.cluster.routers`` cannot be set."""
+        ``POST /api/cluster/gossip`` (a sibling router's push) needs
+        sibling routers (ROADMAP Queue 1, item 1.6d(iii)) and answers
+        the reference's 400, since ``tsd.cluster.routers`` cannot be
+        set."""
         cluster = self.tsdb.cluster
         if cluster is None:
             raise HttpError(400, "/api/cluster requires tsd.cluster.role "
@@ -1794,10 +1800,14 @@ class HttpRpcRouter:
                             "set tsd.cluster.routers to the sibling list")
         if sub == "reshard":
             if request.method == "POST":
-                raise NotImplementedError(
-                    "POST /api/cluster/reshard installs a new ring, "
-                    "which is not ported yet (ROADMAP Queue 1, item "
-                    "1.6d(ii), resharding and retirement)")
+                obj = request.json_object(default={})
+                peers = obj.get("peers")
+                if not isinstance(peers, str) or not peers.strip():
+                    raise BadRequestError(
+                        "reshard body needs a peers spec string")
+                info = cluster.begin_reshard(
+                    peers, as_int(obj.get("vnodes"), "vnodes", 0))
+                return HttpResponse(200, json.dumps(info).encode())
             if request.method == "GET":
                 return HttpResponse(200, json.dumps(
                     cluster.reshard_info()).encode())

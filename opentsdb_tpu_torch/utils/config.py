@@ -328,6 +328,9 @@ _DECLARED_EXTRA: frozenset[str] = frozenset({
     "tsd.cluster.routers",
     "tsd.cluster.replica.repair",
     "tsd.cluster.reshard.backfill_batch",
+    "tsd.cluster.reshard.interval_ms",
+    "tsd.cluster.retire.enable",
+    "tsd.cluster.retire.interval_ms",
     "tsd.cluster.timeout_ms",
     "tsd.cluster.hedge_after_ms",
     "tsd.cluster.wire.enable",
@@ -367,9 +370,6 @@ DYNAMIC_KEY_PREFIXES: tuple[str, ...] = ("tsd.faults.",
 # warning names the item instead of suggesting a typo.
 LATER_ITEM_KEYS: dict[str, str] = {
     "tsd.cluster.gossip.": "item 1.6d(iii), sibling routers",
-    "tsd.cluster.retire.": "item 1.6d(ii), resharding and retirement",
-    "tsd.cluster.reshard.interval_ms":
-        "item 1.6d(ii), resharding and retirement",
     "tsd.http.staticroot": "item 1.8, /q and /s",
     "tsd.http.cachedir": "item 1.8, /q and /s",
     "tsd.http.graph.auto_pixels": "item 1.8, /q and /s",

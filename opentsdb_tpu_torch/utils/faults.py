@@ -20,10 +20,10 @@ them.
   ``control.placement``), and the cluster router's (``cluster.peer``
   and ``cluster.peer.<name>`` on every peer exchange, ``cluster.wire``
   and ``cluster.wire.<name>`` on the binary wire, ``cluster.replica``
-  on a repair pass). A key that names a site of the reference's
-  replication, resharding, gossip or federated continuous queries,
-  which the port lacks, raises NotImplementedError naming its ROADMAP
-  item; a key that names no site at all warns.
+  on a repair pass, ``cluster.reshard`` on a backfill step,
+  ``cluster.retire`` on a retire step). A key that names a site of the
+  reference's gossip, which the port lacks, raises NotImplementedError
+  naming its ROADMAP item; a key that names no site at all warns.
   An error rate is a counted schedule (call ``i`` fails iff
   ``floor(i * r)`` advances), never a coin flip, so a failure
   reproduces.
@@ -75,6 +75,8 @@ KNOWN_SITES: frozenset[str] = frozenset({
     "control.placement",  # control/plane.py placement actuator
     "cluster.peer",       # cluster/router.py any-peer exchange
     "cluster.replica",    # cluster/router.py anti-entropy repair pass
+    "cluster.reshard",    # cluster/reshard.py backfill step
+    "cluster.retire",     # cluster/retire.py stale-copy delete step
     "cluster.wire",       # cluster/wire.py router-side wire exchange
     "cluster.cq",         # cluster/cq.py federated CQ shard exchange
 })
@@ -89,10 +91,6 @@ DYNAMIC_SITE_PREFIXES: tuple[str, ...] = ("cluster.peer.",
 # site prefix -> (its module, the ROADMAP Queue 1 item that ports it);
 # a key that arms one is refused, since nothing here would check it
 UNPORTED_SITE_PREFIXES: dict[str, tuple[str, str]] = {
-    "cluster.reshard": ("cluster/reshard.py",
-                        "item 1.6d(ii), resharding and retirement"),
-    "cluster.retire": ("cluster/retire.py",
-                       "item 1.6d(ii), resharding and retirement"),
     "cluster.gossip": ("cluster/gossip.py",
                        "item 1.6d(iii), sibling routers"),
 }

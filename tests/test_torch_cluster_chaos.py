@@ -339,9 +339,11 @@ def test_interop(tmp_path, router_side, shard_side):
     wire, and :data:`QUERIES` answer as the reference's cluster over
     the same points (one JAX node holding them)."""
     # no failure is injected: the JAX shards' first queries compile,
-    # which a loaded run must not take for a dead shard
+    # which a loaded run must not take for a dead shard, nor for a
+    # dead wire handshake (the router would fall back to HTTP)
     c = LiveCluster(tmp_path, router_side, shard_side=shard_side,
-                    **{"tsd.cluster.timeout_ms": "30000"})
+                    **{"tsd.cluster.timeout_ms": "30000",
+                       "tsd.cluster.wire.connect_timeout_ms": "30000"})
     try:
         pts = mkpoints()
         resp = c.put(pts, summary="true")

@@ -21,8 +21,8 @@ run on both packages and compared; ``tests/torch_cluster_pair.py``):
   (``TestFederatedLifecycle``).
 
 Every cluster gets the 30 s peer timeout that clusters with no
-injected failure have in ``tests/test_torch_cluster.py``; the chaos
-ones the reference's 3 s.
+injected failure have in ``tests/test_torch_cluster.py``, and a wire
+handshake timeout to match; the chaos ones the reference's 3 s.
 """
 
 from __future__ import annotations
@@ -48,7 +48,11 @@ IV_MS = 60_000
 END_MS = BASE_MS + 1800 * 1000
 CQ = "/api/query/continuous"
 N_HOSTS = 12
-CALM = {"tsd.cluster.timeout_ms": "30000"}
+# no failure injected: a loaded run's first JAX compile must look like
+# neither a dead shard nor a dead wire handshake (which would send the
+# exchanges over HTTP)
+CALM = {"tsd.cluster.timeout_ms": "30000",
+        "tsd.cluster.wire.connect_timeout_ms": "30000"}
 CHAOS = {"tsd.cluster.timeout_ms": "3000",
          "tsd.cluster.breaker.reset_timeout_ms": "300"}
 # float-valued writes: the shards' partials fold in shard order on
@@ -566,39 +570,31 @@ class TestFederatedLifecycle:
         jax, port = both(tmp_path, run)
         assert port == jax
 
-    def test_register_refused_during_reshard(self, tmp_path, monkeypatch):
+    def test_register_refused_during_reshard(self, tmp_path):
         """A registration while a reshard cutover is open answers the
-        reference's 400. The reference opens one by ``POST
-        /api/cluster/reshard``; the port cannot (resharding is ROADMAP
-        Queue 1, item 1.6d(ii), a 501), so its router is made to report
-        an open cutover."""
-        jc = LiveCluster(tmp_path / "jax", JAX, durable=True, **{
-            **CALM, "tsd.cluster.reshard.interval_ms": "3600000",
-            "tsd.cluster.retire.interval_ms": "3600000"})
-        extra = LivePeer(JAX, "s3")
-        try:
-            spec = jc.cfg["tsd.cluster.peers"] + \
-                f",s3=127.0.0.1:{extra.port}"
-            resp = _call(jc, "POST", "/api/cluster/reshard",
-                         {"peers": spec})
-            assert resp.status == 200, resp.body
-            want = _call(jc, "POST", CQ, _cq_body("fed-rs"))
-        finally:
-            jc.close()
-            extra.stop()
-        pc = LiveCluster(tmp_path / "port", PORT, **CALM)
-        try:
-            resp = _call(pc, "POST", "/api/cluster/reshard",
-                         {"peers": pc.cfg["tsd.cluster.peers"]})
-            assert resp.status == 501
-            monkeypatch.setattr(type(pc.router), "resharding",
-                                property(lambda self: True))
-            got = _call(pc, "POST", CQ, _cq_body("fed-rs"))
-            monkeypatch.undo()
-        finally:
-            pc.close()
-        assert got.status == want.status == 400
-        assert got.body == want.body and b"reshard" in got.body
+        reference's 400: each package opens a real cutover by ``POST
+        /api/cluster/reshard`` (a fourth shard joins, the backfill is
+        left unstepped) and the two bodies are compared."""
+        got = []
+        for side in SIDES:
+            c = LiveCluster(tmp_path / side.name, side, durable=True, **{
+                **CALM, "tsd.cluster.reshard.interval_ms": "3600000",
+                "tsd.cluster.retire.interval_ms": "3600000"})
+            extra = LivePeer(side, "s3")
+            try:
+                spec = c.cfg["tsd.cluster.peers"] + \
+                    f",s3=127.0.0.1:{extra.port}"
+                resp = _call(c, "POST", "/api/cluster/reshard",
+                             {"peers": spec})
+                assert resp.status == 200, resp.body
+                assert c.router.resharding
+                got.append(_call(c, "POST", CQ, _cq_body("fed-rs")))
+            finally:
+                c.close()
+                extra.stop()
+        want, port = got
+        assert port.status == want.status == 400
+        assert port.body == want.body and b"reshard" in port.body
 
     def test_duplicate_id_refused(self, tmp_path):
         def run(c):

@@ -9,7 +9,8 @@ package's byte for byte (``opentsdb_tpu_torch/cluster/``):
   the same size, ``health_info``, and a spool directory written by one
   package's spool and replayed by the other's, both ways;
 - the router's sidecar files: the dirty tracker's ``replica_dirty.json``
-  and the topology's ``reshard.json``, read across packages, and a
+  and the topology's ``reshard.json``, read across packages, a router
+  of each package built from a ``reshard.json`` past epoch 0, and a
   router of each package over a spool directory the other's router left
   (the spooled points replay into a live shard).
 """
@@ -199,11 +200,8 @@ def test_dirty_and_reshard_files_cross_packages(tmp_path, writer,
         {"b.m": 1_356_998_400_000}
     st = writer.reshard.ReshardState(str(tmp_path))
     st.peers_spec, st.vnodes = "s0=h:1,s1=h:2", 32
-    if writer is JAX:
-        with st._lock:
-            st._save_locked()
-    else:
-        st.save()
+    with st._lock:
+        st._save_locked()
     back = reader.reshard.ReshardState(str(tmp_path))
     assert (back.epoch, back.peers_spec, back.vnodes, back.active) == \
         (0, "s0=h:1,s1=h:2", 32, False)
@@ -217,17 +215,28 @@ def test_dirty_and_reshard_files_cross_packages(tmp_path, writer,
                  "old_vnodes": 64, "fence_ms": 1, "done": {}}}],
     ids=["past-epoch-0", "open-cutover"])
 def test_router_refuses_a_resharded_spool_dir(tmp_path, state):
-    """Resharding is ROADMAP Queue 1 item 1.6d: a router over a spool
-    directory past epoch 0, or with an open cutover, refuses to build
-    rather than serve the boot ring."""
-    (tmp_path / "reshard.json").write_text(json.dumps(state))
-    t = PORT.TSDB(PORT.Config(**{
-        **PORT.keys, "tsd.cluster.role": "router",
-        "tsd.cluster.peers": "s0=127.0.0.1:1",
-        "tsd.cluster.spool.dir": str(tmp_path)}))
-    with pytest.raises(NotImplementedError, match="item 1.6d"):
-        t.cluster
-    t.shutdown()
+    """No longer refused: a router over a spool directory past epoch
+    0, or with an open cutover, builds the installed ring (and the old
+    ring of an open cutover) from ``reshard.json`` rather than the boot
+    ring of its config, as the reference's does."""
+    got = []
+    for side in SIDES:
+        d = tmp_path / side.name
+        d.mkdir()
+        (d / "reshard.json").write_text(json.dumps(state))
+        t = side.TSDB(side.Config(**{
+            **side.keys, "tsd.cluster.role": "router",
+            "tsd.cluster.peers": "s9=127.0.0.1:9",
+            "tsd.cluster.spool.dir": str(d)}))
+        try:
+            r = t.cluster
+            got.append((r.reshard_info(), sorted(r.peers),
+                        r.resharding))
+        finally:
+            t.shutdown()
+    assert got[0] == got[1]
+    assert got[1][0]["epoch"] == state["epoch"]
+    assert got[1][0]["ring"]["peers"] == ["s0"]
 
 
 @pytest.mark.parametrize("first,second", [(JAX, PORT), (PORT, JAX)],

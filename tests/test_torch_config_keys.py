@@ -9,7 +9,11 @@
   compact, ROADMAP recorded divergence 22);
 - keys of parts not ported yet, whose warning names the ROADMAP Queue 1
   item that will read them instead of suggesting a typo;
-- ``tsd.cluster.reshard.backfill_batch``, read by the router's repair.
+- ``tsd.cluster.reshard.backfill_batch``, read by the router's repair
+  and backfill, and the reshard and retire loops' keys
+  (``tsd.cluster.reshard.interval_ms``, ``tsd.cluster.retire.enable``,
+  ``tsd.cluster.retire.interval_ms``), read with the reference's
+  defaults.
 """
 
 from __future__ import annotations
@@ -108,9 +112,6 @@ def test_lifecycle_compaction_keys_are_declared():
 @pytest.mark.parametrize("key,item", [
     ("tsd.cluster.gossip.interval_ms", "1.6d(iii)"),
     ("tsd.cluster.gossip.fanout", "1.6d(iii)"),
-    ("tsd.cluster.retire.interval_ms", "1.6d(ii)"),
-    ("tsd.cluster.retire.enable", "1.6d(ii)"),
-    ("tsd.cluster.reshard.interval_ms", "1.6d(ii)"),
     ("tsd.http.staticroot", "1.8"),
     ("tsd.http.cachedir", "1.8"),
     ("tsd.http.graph.auto_pixels", "1.8")])
@@ -149,3 +150,32 @@ def test_backfill_batch_is_read_by_the_router():
     assert got == [4000, 4000, 7, 7]
     assert PORT.Config(**{"tsd.cluster.reshard.backfill_batch": "7"}
                        ).unknown_keys() == []
+
+
+@pytest.mark.parametrize("key,attr,value,default,set_to", [
+    ("tsd.cluster.reshard.interval_ms", "reshard_interval_s", "40",
+     0.25, 0.04),
+    ("tsd.cluster.retire.interval_ms", "retire_interval_s", "50",
+     1.0, 0.05),
+    ("tsd.cluster.retire.enable", "retire_enabled", "false", True,
+     False)])
+def test_reshard_and_retire_keys_are_read(key, attr, value, default,
+                                          set_to):
+    """The backfill and retire loops' keys are read by the router with
+    the reference's defaults (250 ms, 1000 ms, on), and the registry
+    declares them, so neither package warns about them."""
+    peers = "s0=127.0.0.1:1,s1=127.0.0.1:2"
+    got = []
+    for v in (None, value):
+        for side in SIDES:
+            keys = {**side.keys, "tsd.cluster.role": "router",
+                    "tsd.cluster.peers": peers}
+            if v is not None:
+                keys[key] = v
+            t = side.TSDB(side.Config(**keys))
+            try:
+                got.append(getattr(t.cluster, attr))
+            finally:
+                t.shutdown()
+    assert got == [default, default, set_to, set_to]
+    assert PORT.Config(**{key: value}).unknown_keys() == []

@@ -12,7 +12,9 @@ JAX package's (``opentsdb_tpu/control/``) on the CPU.
 - ``TenantGovernor``: the same decisions on the same call sequences;
   its result-cache insert gate and fold budget; the noisy-tenant battery
   over real sockets.
-- Placement on a TSD that is not a router.
+- Placement on a TSD that is not a router, and on a router: a
+  confirmed plan and ``tsd.control.placement.auto=true`` reshard the
+  ring as in the reference (``TestPlacement``'s twins).
 - Chaos: each ``control.*`` fault site parks the loop while the data
   plane serves; the breaker; a disabled plane does nothing.
 
@@ -546,6 +548,73 @@ def test_standalone_placement(made):
     assert answers[0] == answers[1]
     assert answers[0][0]["proposal"] is None
     assert answers[0][1][0] == 400
+
+
+def _router(made, side, tmp_path, **keys):
+    """A control-plane router over three unreachable shards, with a
+    spool dir (ref: ``_router_tsdb``)."""
+    t = mk(made, side, **{
+        "tsd.cluster.role": "router",
+        "tsd.cluster.peers": "p0=127.0.0.1:1,p1=127.0.0.1:2,p2=127.0.0.1:3",
+        "tsd.cluster.spool.dir": str(tmp_path / side.name / "spool"),
+        **keys})
+    t.cluster.peers["p0"].forwarded_points = 8000
+    t.cluster.peers["p1"].forwarded_points = 100
+    t.cluster.peers["p2"].forwarded_points = 100
+    return t
+
+
+def _reshard_doc(doc):
+    return {k: v for k, v in doc.items() if k != "fence_ms"}
+
+
+def test_confirm_executes_stale_id_rejected(made, tmp_path):
+    """(ref: ``TestPlacement.test_confirm_executes_stale_id_rejected``)
+    a stale planId answers 400 and opens nothing; the standing id runs
+    the router's reshard, at the plan's vnodes, on both packages."""
+    answers = []
+    for side in SIDES:
+        t = _router(made, side, tmp_path)
+        t.control.tick()
+        r = side.http.HttpRpcRouter(t)
+        stale = call(side, r, "POST", "/api/control/plan",
+                     {"planId": "deadbeef"})
+        active0 = t.cluster.state.active
+        plan = json.loads(call(side, r, "GET", "/api/control/plan").body)
+        resp = call(side, r, "POST", "/api/control/plan",
+                    {"planId": plan["planId"]})
+        answers.append((stale.status, stale.body, active0, resp.status,
+                        _reshard_doc(json.loads(resp.body)),
+                        t.cluster.state.active,
+                        t.cluster.ring.vnodes == plan["proposal"]["vnodes"],
+                        t.control.plan_info()["appliedPlanId"]
+                        == plan["planId"]))
+    assert answers[0] == answers[1]
+    assert answers[0][0] == 400 and answers[0][2] is False
+    assert answers[0][3] == 200 and answers[0][5] is True
+    assert answers[0][6] and answers[0][7]
+
+
+def test_auto_opt_in_applies_own_plan(made, tmp_path):
+    """(ref: ``TestPlacement.test_auto_opt_in_applies_own_plan``) with
+    ``tsd.control.placement.auto=true`` a tick applies the plane's own
+    plan, and a second tick stacks no reshard on the open window."""
+    answers = []
+    for side in SIDES:
+        t = _router(made, side, tmp_path,
+                    **{"tsd.control.placement.auto": "true"})
+        rep = t.control.tick()
+        applied = rep["placement"].get("applied")
+        rep2 = t.control.tick()
+        answers.append((rep["errors"], _reshard_doc(applied),
+                        t.cluster.state.active, rep2["errors"],
+                        rep2["placement"].get("deferred"),
+                        t.cluster.epoch, t.control.plans_applied))
+    assert answers[0] == answers[1]
+    assert answers[0][0] == {} and answers[0][2] is True
+    assert answers[0][3] == {}
+    assert answers[0][4] == "reshard in progress"
+    assert answers[0][5] == 1 and answers[0][6] == 1
 
 
 # -- chaos ------------------------------------------------------------------------

@@ -3,11 +3,10 @@
 package: the cases of ``tests/test_faults.py`` (``TestStoreFaults``'
 read latency) and ``tests/test_result_cache.py`` (the degraded tier),
 run on both packages, on both stores. Also the configuration keys: a
-key for a site the port has not ported (the cluster's resharding,
-retirement and gossip) raises, one of the control plane's, the
-router's or the federated continuous queries' sites arms it, and one
-that names no
-site at all warns and arms nothing that is checked.
+key for a site the port has not ported (the sibling routers' gossip)
+raises, one of the control plane's, the router's, the backfill's, the
+retire pass's or the federated continuous queries' sites arms it, and
+one that names no site at all warns and arms nothing that is checked.
 """
 
 from __future__ import annotations
@@ -61,21 +60,21 @@ def dps(results):
 
 
 def test_reference_sites_are_ported_but_cluster_and_control():
-    """Every site of the reference but the cluster's resharding,
-    retirement and gossip (ROADMAP Queue 1, items 1.6d(ii) and
-    1.6d(iii)), each refused by name; the control plane's ``control.*``
-    came with ``control/``, the router's ``cluster.peer``,
-    ``cluster.wire`` and ``cluster.replica`` with ``cluster/``, and
-    ``cluster.cq`` with the federated continuous queries."""
+    """Every site of the reference but the sibling routers' gossip
+    (ROADMAP Queue 1, item 1.6d(iii)), refused by name; the control
+    plane's ``control.*`` came with ``control/``, the router's
+    ``cluster.peer``, ``cluster.wire`` and ``cluster.replica`` with
+    ``cluster/``, ``cluster.cq`` with the federated continuous queries,
+    and ``cluster.reshard`` and ``cluster.retire`` with resharding."""
     from opentsdb_tpu.utils.faults import KNOWN_SITES as JSITES
     from opentsdb_tpu_torch.utils.faults import UNPORTED_SITE_PREFIXES
     assert KNOWN_SITES == {s for s in JSITES
                            if s not in UNPORTED_SITE_PREFIXES}
-    assert set(UNPORTED_SITE_PREFIXES) == {
-        "cluster.reshard", "cluster.retire", "cluster.gossip"}
+    assert set(UNPORTED_SITE_PREFIXES) == {"cluster.gossip"}
     assert {"control.materialize", "control.qos", "control.placement",
-            "cluster.peer", "cluster.wire",
-            "cluster.replica", "cluster.cq"} <= KNOWN_SITES
+            "cluster.peer", "cluster.wire", "cluster.replica",
+            "cluster.cq", "cluster.reshard", "cluster.retire"} \
+        <= KNOWN_SITES
 
 
 @pytest.mark.parametrize("backend", STORES)
@@ -169,18 +168,18 @@ def test_degraded_tier_fails_loudly_and_cache_unpoisoned(backend):
     ("tsd.faults.cluster.wire.s0.latency_ms", None),
     ("tsd.faults.cluster.cq.x.latency_ms", None),
     ("tsd.faults.cluster.cq_error_count", None),
-    ("tsd.faults.cluster.reshard_error_count", "1.6d"),
-    ("tsd.faults.cluster.retire_error_once", "1.6d"),
+    ("tsd.faults.cluster.reshard_error_count", None),
+    ("tsd.faults.cluster.retire_error_once", None),
     ("tsd.faults.cluster.gossip.r1_error_rate", "1.6d"),
     ("tsd.faults.control.qos_error_count", None),
     ("tsd.faults.control.placement.error_once", None)])
 def test_unported_site_keys_raise(key, item):
-    """A key for a site of the cluster's resharding, retirement or
-    gossip names a check the port does not have: it raises, naming its
-    Queue 1 item, rather than look armed. A key of the control plane's,
-    the router's or the federated continuous queries' sites (per-peer
-    ones included) arms them, as in the reference, which takes every
-    key."""
+    """A key for a site of the sibling routers' gossip names a check
+    the port does not have: it raises, naming its Queue 1 item, rather
+    than look armed. A key of the control plane's, the router's, the
+    backfill's, the retire pass's or the federated continuous queries'
+    sites (per-peer ones included) arms them, as in the reference,
+    which takes every key."""
     JTSDB(JConfig(**{"tsd.tpu.platform": "cpu", key: "1"}))
     if item is None:
         t = TSDB(Config(**{"tsd.torch.device": "cpu", key: "1"}))

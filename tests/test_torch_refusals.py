@@ -210,7 +210,8 @@ def test_random_metric_uids_in_the_stats():
     assert ("uid.random-id-collisions", 0, {"kind": "metric"}) in rows
 
 
-# -- the cluster tier: what stays refused (ROADMAP Queue 1, 1.6d(ii)-(iii)) ---
+# -- the cluster tier: what stays refused (ROADMAP Queue 1, 1.6d(iii)) and ---
+# -- what resharding (1.6d(ii)) brought -------------------------------------
 
 ROUTER = {**CPU, "tsd.cluster.role": "router",
           "tsd.cluster.peers": "s0=127.0.0.1:1,s1=127.0.0.1:2"}
@@ -250,13 +251,37 @@ def test_replication_factor_builds_a_router(rf):
         j.shutdown()
 
 
+def _volatile_free(doc):
+    """A reshard document without its wall-clock fence."""
+    return {k: v for k, v in doc.items() if k != "fence_ms"}
+
+
 def test_placement_auto_refused_on_a_router():
+    """No longer refused: with ``tsd.control.placement.auto=true`` a
+    router of either package builds, and a tick over a hot shard
+    applies the plane's own plan, opening the same cutover at epoch 1;
+    a second tick defers while the window is open."""
     keys = {"tsd.control.enable": "true",
-            "tsd.control.placement.auto": "true"}
-    with pytest.raises(NotImplementedError,
-                       match="placement.auto.*ROADMAP Queue 1, item "
-                       "1.6d\\(ii\\)"):
-        TSDB(Config(**{**ROUTER, **keys}))
+            "tsd.control.placement.auto": "true",
+            "tsd.control.placement.hot_ratio": "1.5"}
+    got = []
+    for tsdb in (JTSDB(JConfig(**{**JROUTER, **keys})),
+                 TSDB(Config(**{**ROUTER, **keys}))):
+        try:
+            tsdb.cluster.peers["s0"].forwarded_points = 1000
+            tsdb.cluster.peers["s1"].forwarded_points = 10
+            first, second = {}, {}
+            tsdb.control._placement_tick(0, first)
+            tsdb.control._placement_tick(0, second)
+            got.append((_volatile_free(first["placement"]["applied"]),
+                        second["placement"],
+                        tsdb.control.describe()["placement"],
+                        tsdb.cluster.resharding))
+        finally:
+            tsdb.shutdown()
+    assert got[0] == got[1]
+    assert got[1][0]["epoch"] == 1 and got[1][3] is True
+    assert got[1][1]["deferred"] == "reshard in progress"
     # not a router: the key applies nothing, as in the reference
     TSDB(Config(**{**CPU, **keys})).shutdown()
 
@@ -277,17 +302,27 @@ def _call(router, request_cls, method, path, body=None):
 @pytest.mark.parametrize("method,path,item", [
     ("POST", "/api/cluster/reshard", "1.6d(ii)")])
 def test_router_endpoints_refused(method, path, item):
-    """Resharding (1.6d(ii)) answers a structured 501 on the port's
-    router, naming the item."""
+    """No longer refused: resharding (1.6d(ii)) is ported, and ``POST
+    /api/cluster/reshard`` on the port's router answers the JAX
+    package's 200 with the same document (the cutover opened at epoch
+    1), then the same 400 to a second install while it is open."""
     import json
+    from opentsdb_tpu.tsd.http_api import HttpRequest as JRequest
     from opentsdb_tpu_torch.tsd.http_api import HttpRequest
     t, j = _router_pair()
+    body = {"peers": "s0=127.0.0.1:1", "vnodes": 64}
     try:
-        resp = _call(HttpRpcRouter(t), HttpRequest, method, path,
-                     {"peers": "s0=127.0.0.1:1", "vnodes": 64})
-        assert resp.status == 501
-        msg = json.loads(resp.body)["error"]["message"]
-        assert f"ROADMAP Queue 1, item {item}" in msg
+        got = []
+        for router, cls in ((JRouter(j), JRequest),
+                            (HttpRpcRouter(t), HttpRequest)):
+            first = _call(router, cls, method, path, body)
+            again = _call(router, cls, method, path, body)
+            got.append((first.status,
+                        _volatile_free(json.loads(first.body)),
+                        again.status, again.body))
+        assert got[0] == got[1]
+        assert got[1][0] == 200 and got[1][2] == 400
+        assert got[1][1]["epoch"] == 1 and got[1][1]["active"]
     finally:
         t.shutdown()
         j.shutdown()
@@ -312,29 +347,40 @@ def test_gossip_answers_the_reference_s_400():
 
 
 def test_a_confirmed_placement_plan_is_refused():
-    """A standing proposal confirmed by its planId would reshard the
-    ring (1.6d): the port's plane raises where the reference reshards;
-    the reference's 400s for no proposal and a stale id stay."""
+    """No longer refused: a standing proposal confirmed by its planId
+    reshards the ring on the port as in the reference (the same ring
+    at the plan's vnodes, epoch 1); the reference's 400s for no
+    proposal and a stale id stay."""
+    from opentsdb_tpu.query.model import BadRequestError as JBadRequest
     from opentsdb_tpu_torch.query.model import BadRequestError
-    t = TSDB(Config(**{**ROUTER, "tsd.control.enable": "true",
-                       "tsd.control.placement.hot_ratio": "1.5"}))
-    try:
-        plane = t.control
-        with pytest.raises(BadRequestError, match="no reshard proposal"):
-            plane.apply_plan("x")
-        router = t.cluster
-        router.peers["s0"].forwarded_points = 1000
-        router.peers["s1"].forwarded_points = 10
-        plane._placement_tick(0, {})
-        plan = plane.plan_info()
-        assert plan["hotShards"] == ["s0"] and plan["planId"]
-        with pytest.raises(BadRequestError, match="planId does not match"):
-            plane.apply_plan("stale")
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1, item 1.6d"):
-            plane.apply_plan(plan["planId"])
-    finally:
-        t.shutdown()
+    keys = {"tsd.control.enable": "true",
+            "tsd.control.placement.hot_ratio": "1.5"}
+    got = []
+    for tsdb, bad in ((JTSDB(JConfig(**{**JROUTER, **keys})), JBadRequest),
+                      (TSDB(Config(**{**ROUTER, **keys})),
+                       BadRequestError)):
+        try:
+            plane = tsdb.control
+            with pytest.raises(bad, match="no reshard proposal"):
+                plane.apply_plan("x")
+            router = tsdb.cluster
+            router.peers["s0"].forwarded_points = 1000
+            router.peers["s1"].forwarded_points = 10
+            plane._placement_tick(0, {})
+            plan = plane.plan_info()
+            assert plan["hotShards"] == ["s0"] and plan["planId"]
+            with pytest.raises(bad, match="planId does not match"):
+                plane.apply_plan("stale")
+            assert not router.resharding
+            done = plane.apply_plan(plan["planId"])
+            got.append((_volatile_free(done),
+                        plane.plan_info()["appliedPlanId"]
+                        == plan["planId"], router.ring.vnodes
+                        == plan["proposal"]["vnodes"]))
+        finally:
+            tsdb.shutdown()
+    assert got[0] == got[1]
+    assert got[1][0]["epoch"] == 1 and got[1][1] and got[1][2]
 
 
 @pytest.mark.parametrize("method,path", [

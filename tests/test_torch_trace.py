@@ -53,13 +53,13 @@ def _tracer(side, **over):
 
 
 def test_known_spans_are_the_reference_s_but_cluster():
-    """The closed registry: the reference's names less those of the
-    cluster's resharding, retirement and gossip, which come with those
-    subsystems (ROADMAP Queue 1, items 1.6d(ii) and 1.6d(iii)); the
-    router's came with ``cluster/``, ``cluster.cq`` and
-    ``cluster.cq.pump`` with the federated continuous queries."""
-    unported = {"cluster.reshard.backfill", "cluster.retire",
-                "cluster.gossip.push"}
+    """The closed registry: the reference's names less the sibling
+    routers' gossip, which comes with that subsystem (ROADMAP Queue 1,
+    item 1.6d(iii)); the router's came with ``cluster/``, ``cluster.cq``
+    and ``cluster.cq.pump`` with the federated continuous queries, and
+    ``cluster.reshard.backfill`` and ``cluster.retire`` with
+    resharding."""
+    unported = {"cluster.gossip.push"}
     assert unported <= JAX.trace.KNOWN_SPANS
     assert PORT.trace.KNOWN_SPANS == JAX.trace.KNOWN_SPANS - unported
 
