@@ -118,10 +118,10 @@
    TSDB after the same write;
 11. blocked long ranges: a fresh TSDB on the native store at the
    default keys but the result cache, holding config 3's 1M series
-   over two hours (120 points a minute apart, 2% dropped, seed 0, no
-   jitter), queried as ``sum:1m-avg:rate`` by ``dc`` (the rate carry
-   crosses the block edge) and ``avg:1m-avg`` by ``rack`` (LERP's prev
-   and next carries, 2000 groups). S x B exceeds the cell budget, so
+   over 80 minutes (80 points a minute apart, CUT from two hours; 2%
+   dropped, seed 0, no jitter), queried as ``sum:1m-avg:rate`` by
+   ``dc`` (the rate carry crosses the block edge) and ``avg:1m-avg`` by
+   ``rack`` (LERP's prev and next carries, 2000 groups). S x B exceeds the cell budget, so
    the grid path declines and the point path streams 2 blocks: the
    blocked counters must move and neither kernel launch (a second cold
    call, and then the staged run, a second blocked run timed stage by
@@ -253,9 +253,11 @@
    default keys but the result cache, over the first 11 buckets of 5 m
    (clear of phase 6's write). ``sum:5m-avg:rate`` by ``dc`` and by
    ``rack`` go through (a) the sharded point path
-   (``grid_reduce=false``): two cold calls and a prepared-batch hit,
-   (b) the sharded grid path: two cold calls and a grid-cache hit, all
-   bit-equal (one cold call by ``rack`` in (a) and (b)), and (c) the
+   (``grid_reduce=false``): cold calls and a prepared-batch hit,
+   (b) the sharded grid path: cold calls and a grid-cache hit, all
+   bit-equal (two cold calls by ``dc`` on the first shape, one
+   elsewhere: the second by ``dc`` on the second shape CUT with phase
+   23), and (c) the
    sharded blocked path (``tsd.query.max_device_cells=1000000``, the
    budget scaled by the 4 shards: 3 blocks; by ``dc`` on the first
    shape, by ``rack`` on the second over its first 8 buckets, 2
@@ -383,8 +385,9 @@
    and one K2 launch per ``{rack=*}`` call, every merged group held to
    phase 3's answer by phase 2's rule; ``avg`` (sum and count twins on
    each shard) equal to the sum over the group's series count, ``max``
-   equal to the shards' own maxes exactly. (c) 100k points by
-   ``/api/put`` and 10k telnet lines to the router's socket (points/s),
+   equal to the shards' own maxes exactly. (c) 50k points (CUT from
+   100k) by ``/api/put`` and 10k telnet lines to the router's socket
+   (points/s),
    read back through the router exactly. (d) ``s1``'s listener closed:
    ``{dc=*}`` answers 200 with ``shardsDegraded: ["s1"]`` and the
    result cache does not keep it; 10k points acknowledged into ``s1``'s
@@ -422,7 +425,7 @@
    back from each of its two owners through a ``replicaSel`` that
    assigns that owner. Prints ``phase 21: N s``
    and a ``replication`` line;
-22. online resharding and stale-copy retirement (run last, on TSDBs
+22. online resharding and stale-copy retirement (on TSDBs
    of its own, rf=1 and the default 5 s peer timeout): four shard TSDs
    (``tsd.http.query.allow_delete``) and a router over three of them
    with a spool dir. (a) Config 3's series ``i < 34,000`` of
@@ -445,13 +448,39 @@
    former owner's series count drops by exactly the series it lost,
    and the reads equal (d)'s. Prints ``phase 22: N s`` and a
    ``reshard`` line;
-23. prints the run's wall time, the ``histogram``, ``rollup``,
+23. sibling routers (run last, on TSDBs of its own): r0 and r1, each a
+   TSD server on its own socket naming the other in
+   ``tsd.cluster.routers``, the result cache on, over three new shard
+   TSDs and a spare holding phase 22's cut; both push loops stopped,
+   every push and backfill step by hand. (a) Both queries warmed in
+   r1's cache; 10,200 points of the next 170 cut series put through
+   r0; before any push r1 answers from its cache (the negative
+   control, no launch), after one push r0 -> r1 (its ms) r1's next
+   read of each query misses its cache (one launch a shard) and holds
+   the new data to float64 numpy; then both routers' p50s, one launch
+   a shard a call (each router's cache dropped before each call).
+   (b) A partition (the fault sites ``cluster.gossip.r0`` on r1 and
+   ``cluster.gossip.r1`` on r0) and r1's stale window cut to 500 ms:
+   another 10,200 points through r0; r1's ``/api/health`` names
+   ``cluster_gossip_degraded`` and every read through it bypasses the
+   cache, runs on every shard and is exact; r1's landed push clears
+   it; r1 then answers (a)'s cached rows (the negative control) until
+   r0's push carries the partition's writes, and its next reads miss,
+   on every shard, held to numpy.
+   (c) r0 begins the grow to 4 shards and copies one unit; one push
+   and r1 holds the open window (``topology_adoptions`` 1); r0's server
+   is stopped; 10,200 points put through r1; r1 copies every unit and
+   finalizes alone; r0 rebuilt over its spool dir comes back with the
+   window open and one push from r1 finalizes it; every shard's route
+   K1/K2 on 4 shards and both routers' reads held to numpy. Prints
+   ``phase 23: N s`` and a ``gossip`` line;
+24. prints the run's wall time, the ``histogram``, ``rollup``,
    ``streaming``, ``surfaces``, ``mesh``, ``ops``, ``lifecycle``,
-   ``obs``, ``cluster``, ``replication`` and ``reshard`` lines, one
-   JSON line describing each kernel (its launches are those of phases
-   3, 5, 8, 6, 15, 17, 19, 9, 10, 13, 14, 18, 20, 21 and 22; phases
-   11, 12 and 16 launch neither on their paths), the card line and,
-   last,
+   ``obs``, ``cluster``, ``replication``, ``reshard`` and ``gossip``
+   lines, one JSON line describing each kernel (its launches are those
+   of phases 3, 5, 8, 6, 15, 17, 19, 9, 10, 13, 14, 18, 20, 21, 22 and
+   23; phases 11, 12 and 16 launch neither on their paths), the card
+   line and, last,
    ``{"ok": true, "device": {...}}``. Each phase's header says how far
    into the run it starts.
 
@@ -529,7 +558,9 @@ DROP = 0.02                # phase 7: share of points dropped
 # phases 7, 11: 1 in 20 groups held to CPU float64 (CUT from 1 in 10 for
 # the run's time when phase 19 came)
 CPU64_SHARE = 20
-FANOUT_REPEATS = 3         # repeats of each point-path fan-out reading
+# repeats of each point-path fan-out reading, CUT from 3 for the run's
+# time with phase 23
+FANOUT_REPEATS = 2
 REPRO_LAUNCHES = 20        # launches of each kernel's reproducibility reading
 # device memory rate by card name (NVIDIA data sheets), bytes/s
 _MEM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
@@ -1297,9 +1328,10 @@ def phase_serve(torch, tsdb, query, ref3: dict, last_tags: dict) -> dict:
 # phase 8: the front end (HTTP and telnet on one port)
 # phase 8's repeats and volumes, CUT for the run's time limit (from 5
 # HTTP and 3 direct calls, 8 clients and 1M points; then, with phase 19,
-# to 3 HTTP and 2 direct calls; with phase 22, to 4 clients)
-FE_REPEATS = 3             # HTTP calls per query in (a), 1 POST + 2 GET
-FE_DIRECT = 2              # direct execute_query calls per query in (a)
+# to 3 HTTP and 2 direct calls; with phase 22, to 4 clients; with phase
+# 23, to 2 HTTP and 1 direct call)
+FE_REPEATS = 2             # HTTP calls per query in (a), 1 POST + 1 GET
+FE_DIRECT = 1              # direct execute_query calls per query in (a)
 FE_CLIENTS = 4             # concurrent HTTP clients in (d), CUT from 8
 #                            (12.3 s of wall at 8 on one H100 80GB HBM3
 #                            at 700 W, PERF.md §5)
@@ -2340,7 +2372,10 @@ def phase_durability(torch, n_series: int, query) -> dict:
     return launches
 
 
-LONG_POINTS = 120          # phase 11: two hours at one point a minute
+# phase 11: 80 minutes at one point a minute, CUT from two hours (120)
+# for the run's time with phase 23: S x B = 80M cells still passes the
+# 64M budget, so both queries still stream 2 blocks (67 + 13 buckets)
+LONG_POINTS = 80
 LONG_QUERIES = (
     ("sum:1m-avg:rate:sys.cpu.user{dc=*}", "the rate carry"),
     ("avg:1m-avg:sys.cpu.user{rack=*}", "LERP's prev and next carries"))
@@ -2348,7 +2383,7 @@ UNBLOCKED_CELLS = "268435456"   # phase 11: a budget past S x B
 
 
 def make_long(n_series: int):
-    """Config 3's series over two hours: slot j of series i is at
+    """Config 3's series over LONG_POINTS minutes: slot j of series i is at
     ``T0 + 60 j``, dropped with probability DROP; values
     ``normal(100, 15)``; seed 0. Returns (tags, ts2d, values2d,
     counts), each row's points packed left."""
@@ -4361,10 +4396,13 @@ PX_SERIES = 64             # (d): raw series of an hour at one point a second
 PX_POINTS = 3600
 PX_BUDGET = 300            # (d): pixels of the chart
 TSUID_SERIES = 100         # (e): tsuids of one sub-query
-# (c), (e): calls per p50 over config 3 (an /exp call runs two point-path
-# queries over 1M series, 4-5 s; REPEATS would take 35 s of the 60); CUT
-# from 3 for the run's time when phase 19 came
+# (e): calls per p50 over config 3; CUT from 3 for the run's time when
+# phase 19 came
 SURF_REPEATS = 2
+# (c): /exp and /gexp calls over config 3 (an /exp call runs two
+# point-path queries over 1M series, 4.8 s on one H100 80GB HBM3 at
+# 700.00 W); CUT from SURF_REPEATS (2) for the run's time with phase 23
+EXP_REPEATS = 1
 DELETE_S = 600             # (e): the deleted range's seconds
 
 
@@ -4600,14 +4638,14 @@ def phase_surfaces(torch, tsdb, values, query) -> dict:
     raw = json.dumps(body).encode()
     reset_launches(fused)
     exp_s = []
-    for _ in range(SURF_REPEATS):
+    for _ in range(EXP_REPEATS):
         t0 = time.perf_counter()
         resp = r3.handle(HttpRequest("POST", "/api/query/exp", body=raw))
         exp_s.append(time.perf_counter() - t0)
         check(resp.status == 200, f"(c) /exp answered {resp.status}: "
               f"{resp.body[:300]!r}")
     exp_launch = read_launches(fused)
-    check(exp_launch["span_reduce"] == 2 * SURF_REPEATS,
+    check(exp_launch["span_reduce"] == 2 * EXP_REPEATS,
           f"(c) /exp launched {exp_launch}, not K1 twice a call")
     o = json.loads(resp.body)["outputs"][0]
     cols = [int(mm["commonTags"]["dc"][2:]) for mm in o["meta"][1:]]
@@ -4627,13 +4665,13 @@ def phase_surfaces(torch, tsdb, values, query) -> dict:
     gq = {"exp": [f"scale(sum:5m-avg:rate:{METRIC}{{dc=*}},100)"],
           "start": [str(SURF_WINDOW[0])], "end": [str(SURF_WINDOW[1])]}
     gexp_s = []
-    for _ in range(SURF_REPEATS):
+    for _ in range(EXP_REPEATS):
         t0 = time.perf_counter()
         gresp = r3.handle(HttpRequest("GET", "/api/query/gexp", gq))
         gexp_s.append(time.perf_counter() - t0)
         check(gresp.status == 200, f"(c) /gexp answered {gresp.status}")
     gexp_launch = read_launches(fused)
-    check(gexp_launch["span_reduce"] == SURF_REPEATS,
+    check(gexp_launch["span_reduce"] == EXP_REPEATS,
           f"(c) /gexp launched {gexp_launch}")
     grows = json.loads(gresp.body)
     gidx = [int(r["tags"]["dc"][2:]) for r in grows]
@@ -4644,7 +4682,7 @@ def phase_surfaces(torch, tsdb, values, query) -> dict:
           f"(c) /gexp max |d| {gerr.max()!r}")
     print(f"  (c) /api/query/exp 'a / b * 100' (a sum:5m-avg:rate, b "
           f"sum:5m-max:rate, by dc, {nb} buckets): p50 "
-          f"{out['exp_p50_ms']:.3f} ms of {SURF_REPEATS}, K1 launched "
+          f"{out['exp_p50_ms']:.3f} ms of {EXP_REPEATS}, K1 launched "
           f"{exp_launch['span_reduce']} times, max |d| vs numpy float64 "
           f"{err.max()!r}; /gexp scale(...,100): p50 "
           f"{p50(gexp_s) * 1e3:.3f} ms, K1 {gexp_launch['span_reduce']}, "
@@ -4766,6 +4804,15 @@ MESH_BLOCK_CELLS = "1000000"
 # CUT from 11 (3 blocks; 8.4 s on one H100 80GB HBM3 at 700 W, PERF.md
 # §5) with phase 22
 MESH_BLOCKED_CUT_BUCKETS = 8
+# (a), (b): two cold calls by dc on the first shape (their bits held
+# equal: two fresh sharded computations, the prepare stage included), one
+# elsewhere; CUT from two by dc on each shape for the run's time with
+# phase 23 (5.2-5.9 s a point-path call on one H100 80GB HBM3 at 700.00
+# W on a slow host; each hit's bits still checked against its cold call)
+def mesh_cold_calls(shape: str, m: str) -> int:
+    return 2 if "{dc=*}" in m and shape == MESH_SHAPES[0] else 1
+
+
 MESH_FEW = 8               # (e): series of the multiply query
 MESH_CHILD_TIMEOUT_S = 300  # (f): each child's own limit
 MESH_CACHE_MB = "4096"     # (a)-(c): room for a cut 1M x 55-point batch
@@ -4949,10 +4996,10 @@ def phase_mesh(torch, tsdb, values, profile: bool = False) -> dict:
         for m, _ in QUERIES:
             tq = query(m)
             row: dict = {}
-            # (a) the point path: cold calls (two by dc), then the hit
+            # (a) the point path: the cold call(s), then the hit
             runs0 = sp.run_sharded_device.runs
             cold = []
-            for _ in range(2 if "{dc=*}" in m else 1):
+            for _ in range(mesh_cold_calls(shape, m)):
                 point.drop_caches()
                 cold.append(_stats_run(point, tq))
             hits0 = point.device_grid_cache.hits
@@ -4961,7 +5008,7 @@ def phase_mesh(torch, tsdb, values, profile: bool = False) -> dict:
                   f"(a) {shape} {m}: the repeat missed the device cache")
             check(sp.run_sharded_device.runs == runs0 + len(cold) + 1,
                   f"(a) {shape} {m}: the sharded point step did not run")
-            check(same_bits(cold[0][0], cold[-1][0]),
+            check(all(same_bits(cold[0][0], c[0]) for c in cold[1:]),
                   f"(a) {shape} {m}: two cold calls differ in their bits")
             check(same_bits(cold[0][0], warm[0]),
                   f"(a) {shape} {m}: the prepared-batch hit differs")
@@ -4977,19 +5024,19 @@ def phase_mesh(torch, tsdb, values, profile: bool = False) -> dict:
                   f"prepared hit {warm[1] * 1e3:.3f} ms; {len(cold)} cold "
                   f"call(s) and the hit bit-equal; max |d| vs float64 "
                   f"{row['point_err']!r}; emit masks = one card's")
-            # (b) the grid path: cold calls (two by dc), then the
+            # (b) the grid path: the cold call(s), then the
             # cached grid
             runs0 = sp.run_sharded_grid.runs
             cold = []
-            for _ in range(2 if "{dc=*}" in m else 1):
+            for _ in range(mesh_cold_calls(shape, m)):
                 grid.drop_caches()
                 cold.append(_stats_run(grid, tq))
             warm = _stats_run(grid, tq)
             check(sp.run_sharded_grid.runs == runs0 + len(cold) + 1,
                   f"(b) {shape} {m}: the sharded grid step did not run")
-            check(same_bits(cold[0][0], cold[-1][0])
+            check(all(same_bits(cold[0][0], c[0]) for c in cold[1:])
                   and same_bits(cold[0][0], warm[0]),
-                  f"(b) {shape} {m}: cold, cold and warm differ")
+                  f"(b) {shape} {m}: the cold calls and the warm differ")
             row["grid_err"] = held_to_reference(cold[0][0], refs[m])
             check(emits_equal(cold[0][0], single[m]),
                   f"(b) {shape} {m}: emit masks differ from one card's")
@@ -6630,7 +6677,9 @@ CLUSTER_DCS = 52
 CLUSTER_REPEATS = 2        # (b): timed calls per p50, after a warm-up
 CLUSTER_AVG = "avg:5m-avg:rate:sys.cpu.user{dc=*}"
 CLUSTER_MAX = "max:5m-avg:rate:sys.cpu.user{dc=*}"
-CLUSTER_PUT_STEPS = 100    # (c): 1000 series x 100 = 100k /api/put points
+# (c): 1000 series x 50 = 50k /api/put points, CUT from 100k for the
+# run's time with phase 23
+CLUSTER_PUT_STEPS = 50
 CLUSTER_TEL_LINES = 10_000  # (c): one telnet burst
 CLUSTER_OUTAGE_POINTS = 10_000  # (d): points put while s1 is down
 
@@ -7719,6 +7768,80 @@ def reshard_reference(values, idx) -> dict:
     return out
 
 
+def router_reads(torch, h, label: str, ref: dict, n_shards: int, take,
+                 card: str, before=None) -> tuple:
+    """A warm-up and RESHARD_REPEATS timed calls of both QUERIES over the
+    data's hour through the router handler ``h`` (``before()`` ahead of
+    each call, where given): the p50s, each answer held to ``ref``
+    (:func:`reshard_reference`), one launch per reading shard per call
+    (``take()`` returns the launches since its last call)."""
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest
+    start, end = str(T0), str(T0 + POINTS * 60 - 1)
+    take()
+    got_ms, rows_of, calls = {}, {}, {k: 0 for _m, k in QUERIES}
+    for m, kname in QUERIES:
+        key = "dc" if "{dc=*}" in m else "rack"
+        want, terms = ref[m]
+        secs = []
+        for _ in range(RESHARD_REPEATS + 1):
+            if before is not None:
+                before()
+            t = time.perf_counter()
+            status, rows, deg, _ = _cluster_rows(h, HttpRequest, m,
+                                                 start, end)
+            secs.append(time.perf_counter() - t)
+            calls[kname] += 1
+            check(status == 200 and not deg,
+                  f"{m} {label}: {status}, degraded {deg}")
+        g = len(rows)
+        check(g == (CLUSTER_DCS if key == "dc" else 20 * CLUSTER_DCS),
+              f"{m} {label}: {g} merged groups")
+        err = _held_groups(torch, rows, key, want, terms, f"{m} {label}")
+        got_ms[f"{key}_ms"] = p50(secs[1:]) * 1e3
+        got_ms[f"{key}_max_abs_err"] = err
+        rows_of[m] = rows
+        print(f"  {m} {label}: p50 {p50(secs[1:]) * 1e3:.1f} ms of "
+              f"{RESHARD_REPEATS} after a warm-up, {g} groups held "
+              f"to numpy (max |d| {err!r}) (on {card})")
+    got = take()
+    for kname, n in calls.items():
+        check(got[kname] == n * n_shards,
+              f"{kname} {label}: {got[kname]} launches, want one per "
+              f"reading shard per call ({n * n_shards})")
+    print(f"  launches {label}: {got} over {calls} router calls x "
+          f"{n_shards} reading shards")
+    return got_ms, rows_of
+
+
+def shard_routes(shards, ring, sel: bool, take) -> dict:
+    """Each shard's kernel for each query: the launch of one direct
+    call on the shard (``shards[i]`` is ``s<i>``), through a replicaSel
+    assigning it its sets on ``ring`` when ``sel``."""
+    from opentsdb_tpu_torch.cluster import replica as replica_mod
+    from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
+    start, end = str(T0), str(T0 + POINTS * 60 - 1)
+    got_routes = {}
+    for name in ring.names:
+        t_shard = shards[int(name[1:])]
+        per = {}
+        for m, kname in QUERIES:
+            doc = TSQuery(start=start, end=end,
+                          queries=[parse_uri_subquery(m)]).to_json()
+            if sel:
+                doc["replicaSel"] = replica_mod.sel_doc(
+                    ring.names, ring.vnodes, 1,
+                    [t_ for t_ in ring.replica_sets(1) if name in t_])
+            take()
+            t_shard.execute_query(TSQuery.from_json(doc).validate())
+            got = take()
+            ran = [k for k, n in got.items() if n]
+            check(sum(got.values()) == 1 and ran == [kname],
+                  f"{name} ran {got} for {m}, want one {kname}")
+            per["dc" if "{dc=*}" in m else "rack"] = "+".join(ran) or "none"
+        got_routes[name] = per
+    return got_routes
+
+
 def phase_reshard(torch, data, card: str) -> tuple[dict, dict]:
     """Phase 22: a router over three shard TSDs grows the ring to four
     online (``POST /api/cluster/reshard``), is killed mid-cutover,
@@ -7729,7 +7852,6 @@ def phase_reshard(torch, data, card: str) -> tuple[dict, dict]:
 
     import numpy as np
     from opentsdb_tpu_torch import TSDB, Config
-    from opentsdb_tpu_torch.cluster import replica as replica_mod
     from opentsdb_tpu_torch.cluster.hashring import HashRing, series_shard_key
     from opentsdb_tpu_torch.ops import fused
     from opentsdb_tpu_torch.query.model import TSQuery, parse_uri_subquery
@@ -7786,70 +7908,6 @@ def phase_reshard(torch, data, card: str) -> tuple[dict, dict]:
         t = TSDB(Config(**{**router_keys, **keys}))
         return t, t.cluster, HttpRpcRouter(t)
 
-    def reads(h, label: str, ref: dict, n_shards: int) -> tuple:
-        """A warm-up and RESHARD_REPEATS timed calls of both queries
-        through ``h``: the p50s, each answer held to ``ref``, one launch
-        per reading shard per call."""
-        take()
-        got_ms, rows_of, calls = {}, {}, {k: 0 for _m, k in QUERIES}
-        for m, kname in QUERIES:
-            key = "dc" if "{dc=*}" in m else "rack"
-            want, terms = ref[m]
-            secs = []
-            for _ in range(RESHARD_REPEATS + 1):
-                t = time.perf_counter()
-                status, rows, deg, _ = _cluster_rows(h, HttpRequest, m,
-                                                     start, end)
-                secs.append(time.perf_counter() - t)
-                calls[kname] += 1
-                check(status == 200 and not deg,
-                      f"{m} {label}: {status}, degraded {deg}")
-            g = len(rows)
-            check(g == (CLUSTER_DCS if key == "dc" else 20 * CLUSTER_DCS),
-                  f"{m} {label}: {g} merged groups")
-            err = _held_groups(torch, rows, key, want, terms,
-                               f"{m} {label}")
-            got_ms[f"{key}_ms"] = p50(secs[1:]) * 1e3
-            got_ms[f"{key}_max_abs_err"] = err
-            rows_of[m] = rows
-            print(f"  {m} {label}: p50 {p50(secs[1:]) * 1e3:.1f} ms of "
-                  f"{RESHARD_REPEATS} after a warm-up, {g} groups held "
-                  f"to numpy (max |d| {err!r}) (on {card})")
-        got = take()
-        for kname, n in calls.items():
-            check(got[kname] == n * n_shards,
-                  f"{kname} {label}: {got[kname]} launches, want one per "
-                  f"reading shard per call ({n * n_shards})")
-        print(f"  launches {label}: {got} over {calls} router calls x "
-              f"{n_shards} reading shards")
-        return got_ms, rows_of
-
-    def routes(ring, sel: bool) -> dict:
-        """Each shard's kernel for each query: the launch of one direct
-        call on the shard, through a replicaSel assigning it its sets
-        on ``ring`` when ``sel``."""
-        got_routes = {}
-        for name in ring.names:
-            t_shard = shards[int(name[1:])]
-            per = {}
-            for m, kname in QUERIES:
-                doc = TSQuery(start=start, end=end,
-                              queries=[parse_uri_subquery(m)]).to_json()
-                if sel:
-                    doc["replicaSel"] = replica_mod.sel_doc(
-                        ring.names, ring.vnodes, 1,
-                        [t_ for t_ in ring.replica_sets(1) if name in t_])
-                take()
-                t_shard.execute_query(TSQuery.from_json(doc).validate())
-                got = take()
-                ran = [k for k, n in got.items() if n]
-                check(sum(got.values()) == 1 and ran == [kname],
-                      f"{name} ran {got} for {m}, want one {kname}")
-                per["dc" if "{dc=*}" in m else "rack"] = \
-                    "+".join(ran) or "none"
-            got_routes[name] = per
-        return got_routes
-
     def held_series(t_shard) -> int:
         """Series of the metric with points in the hour on one shard."""
         return len(t_shard.execute_query(TSQuery(
@@ -7891,12 +7949,13 @@ def phase_reshard(torch, data, card: str) -> tuple[dict, dict]:
         print(f"  (a) {len(keep)} series (i < {RESHARD_SERIES}, dc0-dc"
               f"{CLUSTER_DCS - 1}) x {POINTS} points on {CLUSTER_SHARDS} "
               f"shards: {counts}, loaded in {load_s:.3f} s (on {card})")
-        r0 = routes(rc.ring, False)
+        r0 = shard_routes(shards, rc.ring, False, take)
         print(f"  (a) routes at epoch 0: {r0}")
         for n, per in r0.items():
             check(per == {"dc": "span_reduce", "rack": "onehot_reduce"},
                   f"{n} at epoch 0 routes {per}")
-        reads_a, _ = reads(h, "at epoch 0", ref_a, CLUSTER_SHARDS)
+        reads_a, _ = router_reads(torch, h, "at epoch 0", ref_a,
+                                  CLUSTER_SHARDS, take, card)
         out.update(series=int(len(keep)), per_shard=counts, routes0=r0)
         mark("a")
 
@@ -7925,8 +7984,8 @@ def phase_reshard(torch, data, card: str) -> tuple[dict, dict]:
               f"through the router in the window in {put_s:.3f} s "
               f"({len(pts) / put_s:,.0f} points/s), written to the old "
               f"and the new owners (on {card})")
-        reads_b, _ = reads(h, "in the window (the old ring)", ref_b,
-                           CLUSTER_SHARDS)
+        reads_b, _ = router_reads(torch, h, "in the window (the old ring)",
+                                  ref_b, CLUSTER_SHARDS, take, card)
         before = {n: held_series(shards[i]) for i, n in enumerate(names)}
         want_before = {n: int((old_own == n).sum()) for n in names}
         want_before["s3"] = int(((new_own == "s3") & ~is_keep).sum())
@@ -7975,9 +8034,9 @@ def phase_reshard(torch, data, card: str) -> tuple[dict, dict]:
         mark("c")
 
         # (d) the reads at epoch 1, through the selector on 4 shards
-        reads_d, rows_d = reads(h, "at epoch 1", ref_b,
-                                CLUSTER_SHARDS + 1)
-        r1 = routes(rc.ring, True)
+        reads_d, rows_d = router_reads(torch, h, "at epoch 1", ref_b,
+                                       CLUSTER_SHARDS + 1, take, card)
+        r1 = shard_routes(shards, rc.ring, True, take)
         print(f"  (d) routes at epoch 1: {r1}")
         for n, per in r1.items():
             check(per == {"dc": "span_reduce", "rack": "onehot_reduce"},
@@ -8011,8 +8070,9 @@ def phase_reshard(torch, data, card: str) -> tuple[dict, dict]:
               f"{retire_s:.3f} s, {rc.retirer.retire_queries} deletes; "
               f"series per shard {before} -> {after} (each former "
               f"owner less what it lost, {lost}) (on {card})")
-        reads_e, rows_e = reads(h, "after the retire pass", ref_b,
-                                CLUSTER_SHARDS + 1)
+        reads_e, rows_e = router_reads(torch, h, "after the retire pass",
+                                       ref_b, CLUSTER_SHARDS + 1, take,
+                                       card)
         for m, _k in QUERIES:
             key = "dc" if "{dc=*}" in m else "rack"
             held_rows(torch, rows_e[m], rows_d[m], key, ref_b[m][1],
@@ -8037,6 +8097,400 @@ def phase_reshard(torch, data, card: str) -> tuple[dict, dict]:
     print("  seconds by stage: " + ", ".join(
         f"{k} {v:.1f}" for k, v in stage_s.items()))
     print(f"phase 22: {out['phase_s']:.1f} s")
+    return launches, out
+
+
+# phase 23: sibling routers, the gossip bus
+# the data is phase 22's cut (RESHARD_SERIES: 17,680 series, the fewest
+# at which every shard keeps K1 for {dc=*} and K2 for {rack=*} on 3
+# shards and on 4), on three new shard TSDs and a spare; each stage
+# writes the next RESHARD_WINDOW_SERIES cut series through a router
+GOSSIP_STALE_MS = 500          # (b): r1's stale window in the partition
+GOSSIP_HAND_MS = "3600000"     # push loops stopped: every push by hand
+GOSSIP_PORTS = (20000, 32768)  # routers' ports, below the ephemeral range
+
+
+def reserve_port(taken: set) -> int:
+    """A port the routers can name before either binds it: below
+    Linux's ephemeral range, where the other router's outgoing
+    connections cannot take it meanwhile."""
+    import random
+    import socket
+    rng = random.Random(os.getpid() ^ time.time_ns())
+    while True:
+        port = rng.randrange(*GOSSIP_PORTS)
+        if port in taken:
+            continue
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        taken.add(port)
+        return port
+
+
+def phase_gossip(torch, data, card: str) -> tuple[dict, dict]:
+    """Phase 23: two sibling routers, each on its own socket and naming
+    the other in ``tsd.cluster.routers``, over three shard TSDs and a
+    spare: cache coherence over one push, a partition that degrades a
+    router to cache-bypassed reads, and a sibling that finishes the
+    reshard a dead router began. Returns every kernel launch of its
+    reads and route probes, and the ``gossip`` line."""
+    import tempfile
+
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.cluster.hashring import HashRing, series_shard_key
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.tsd.http_api import HttpRequest, HttpRpcRouter
+    from opentsdb_tpu_torch.tsd.server import ServerThread
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card, "series_cut": RESHARD_SERIES}
+    marks = [t_phase]
+    stage_s: dict = {}
+
+    def mark(name: str) -> None:
+        marks.append(time.perf_counter())
+        stage_s[name] = marks[-1] - marks[-2]
+
+    tags, ts2d, values = data
+    keep = np.asarray([i for i in range(RESHARD_SERIES)
+                       if i % 100 < CLUSTER_DCS], dtype=np.int64)
+    pool = [i for i in range(RESHARD_SERIES, len(tags))
+            if i % 100 < CLUSTER_DCS]
+    w = RESHARD_WINDOW_SERIES
+    wins = [np.asarray(pool[k * w:(k + 1) * w], dtype=np.int64)
+            for k in range(3)]
+    shard_keys = {"tsd.torch.device": "cuda",
+                  "tsd.core.auto_create_metrics": "true",
+                  "tsd.cluster.role": "shard",
+                  "tsd.http.query.allow_delete": "true", **ENGINE_KEYS}
+    shards = [TSDB(Config(**shard_keys))
+              for _ in range(CLUSTER_SHARDS + 1)]
+    sts = [serve_pinned(ServerThread, t) for t in shards]
+    addrs = [f"s{i}=127.0.0.1:{st.port}" for i, st in enumerate(sts)]
+    spools = [Path(tempfile.mkdtemp(prefix=f"chip_smoke_gossip_r{i}_"))
+              for i in (0, 1)]
+    taken: set = set()
+    ports = [reserve_port(taken), reserve_port(taken)]
+    launches = {"span_reduce": 0, "onehot_reduce": 0}
+
+    def take() -> dict:
+        got = read_launches(fused)
+        for k in launches:
+            launches[k] += got[k]
+        reset_launches(fused)
+        return got
+
+    def router_keys(i: int) -> dict:
+        """r<i>'s keys: the result cache on (the reference's default);
+        the push loops, the stale window and the backfill loop an hour
+        (every push and backfill step below is by hand); no retire pass
+        (phase 22's)."""
+        return {"tsd.torch.device": "cuda", "tsd.tpu.warmup": "false",
+                "tsd.cluster.role": "router",
+                "tsd.cluster.peers": ",".join(addrs[:CLUSTER_SHARDS]),
+                "tsd.cluster.routers":
+                    f"r{1 - i}=127.0.0.1:{ports[1 - i]}",
+                "tsd.cluster.spool.dir": str(spools[i]),
+                "tsd.cluster.gossip.interval_ms": GOSSIP_HAND_MS,
+                "tsd.cluster.gossip.stale_ms": GOSSIP_HAND_MS,
+                "tsd.cluster.reshard.interval_ms": GOSSIP_HAND_MS,
+                "tsd.cluster.retire.enable": "false"}
+
+    def start_router(i: int):
+        t = TSDB(Config(**router_keys(i)))
+        st = ServerThread(t, host="127.0.0.1", port=ports[i]).start()
+        t.cluster.gossip.stop()
+        return [t, t.cluster, HttpRpcRouter(t), st]
+
+    def put(h, idx, label: str) -> float:
+        pts = [{"metric": METRIC, "timestamp": int(ts2d[i, j]),
+                "value": float(values[i, j]), "tags": tags[i]}
+               for i in idx.tolist() for j in range(POINTS)]
+        t = time.perf_counter()
+        for k in range(0, len(pts), RESHARD_BODY):
+            resp = h.handle(HttpRequest(
+                method="POST", path="/api/put",
+                params={"summary": ["true"]},
+                body=json.dumps(pts[k:k + RESHARD_BODY]).encode()))
+            check(resp.status == 200
+                  and json.loads(resp.body)["failed"] == 0,
+                  f"{label} put: {resp.status} {resp.body[:300]!r}")
+        put_s = time.perf_counter() - t
+        print(f"  {label}: {len(pts)} points of {len(idx)} more cut series "
+              f"put through the router in {put_s:.3f} s "
+              f"({len(pts) / put_s:,.0f} points/s) (on {card})")
+        return put_s
+
+    def causes(h) -> list:
+        resp = h.handle(HttpRequest(method="GET", path="/api/health"))
+        check(resp.status == 200, f"/api/health answered {resp.status}")
+        return json.loads(resp.body)["causes"]
+
+    def one_push(bus, label: str) -> float:
+        t = time.perf_counter()
+        acked = bus.push_once()
+        ms = (time.perf_counter() - t) * 1e3
+        check(acked == 1, f"{label}: the push was acknowledged {acked} "
+              "times")
+        return ms
+
+    def through_r1(label: str) -> tuple[dict, dict, int]:
+        """Both queries once through r1, its cache as it stands: the
+        rows of each, the launches and r1's new cache hits."""
+        hits = rc1.cache_hits
+        take()
+        rows = {}
+        for m, _k in QUERIES:
+            status, rows[m], deg, _ = _cluster_rows(h1, HttpRequest, m,
+                                                    start, end)
+            check(status == 200 and not deg,
+                  f"{label} {m}: {status}, degraded {deg}")
+        return rows, take(), rc1.cache_hits - hits
+
+    def fresh_in_r1(label: str, ref: dict) -> None:
+        """Both queries through r1's cache after a push: each a miss
+        (the bumped version), one K1 or K2 on every shard, held to
+        ``ref`` by phase 2's rule."""
+        rows, got, hits = through_r1(label)
+        check(got == {"span_reduce": CLUSTER_SHARDS,
+                      "onehot_reduce": CLUSTER_SHARDS} and hits == 0,
+              f"{label}: {got} launches, {hits} cache hits; want a miss "
+              "a query on every shard")
+        for m, _k in QUERIES:
+            _held_groups(torch, rows[m], "dc" if "{dc=*}" in m else "rack",
+                         *ref[m], f"{label} {m}")
+
+    rs: list = [None, None]
+    try:
+        rs = [start_router(0), start_router(1)]
+        (_t0, rc0, h0, _s0), (_t1, rc1, h1, _s1) = rs
+        names = [f"s{i}" for i in range(CLUSTER_SHARDS + 1)]
+        keys = [series_shard_key(METRIC, tags[i]) for i in keep.tolist()]
+        own = np.asarray([t_[0] for t_ in rc0.ring.shards_for_keys(keys)])
+        t = time.perf_counter()
+        for i, t_shard in enumerate(shards[:CLUSTER_SHARDS]):
+            rows = keep[own == f"s{i}"]
+            t_shard.add_series_points(METRIC, [tags[j] for j in rows],
+                                      ts2d[rows], values[rows])
+        load_s = time.perf_counter() - t
+        # each router learns the other's nonce (a join each way)
+        hello_ms = [one_push(rc0.gossip, "r0's hello"),
+                    one_push(rc1.gossip, "r1's hello")]
+        print(f"  {len(keep)} series (i < {RESHARD_SERIES}, dc0-dc"
+              f"{CLUSTER_DCS - 1}) x {POINTS} points on {CLUSTER_SHARDS} "
+              f"shards, loaded in {load_s:.3f} s; routers r0 :{ports[0]} "
+              f"and r1 :{ports[1]}, each naming the other; the first "
+              f"pushes (joins) {hello_ms[0]:.1f} / {hello_ms[1]:.1f} ms "
+              f"(on {card})")
+        mark("start")
+
+        # (a) a write through r0 reaches r1's cache over one push
+        ref_0 = reshard_reference(values, keep)
+        every = np.concatenate([keep, wins[0]])
+        ref_a = reshard_reference(values, every)
+        start, end = str(T0), str(T0 + POINTS * 60 - 1)
+        cached = {}
+        take()
+        for m, _k in QUERIES:
+            key = "dc" if "{dc=*}" in m else "rack"
+            first = _cluster_rows(h1, HttpRequest, m, start, end)
+            again = _cluster_rows(h1, HttpRequest, m, start, end)
+            check(first[0] == again[0] == 200 and first[1] == again[1],
+                  f"(a) {m}: r1's repeat is not its first answer")
+            _held_groups(torch, first[1], key, *ref_0[m],
+                         f"(a) {m} warm in r1")
+            cached[m] = first[1]
+        got = take()
+        check(got == {"span_reduce": CLUSTER_SHARDS,
+                      "onehot_reduce": CLUSTER_SHARDS}
+              and rc1.cache_hits >= 2,
+              f"(a) warming r1: {got} launches, {rc1.cache_hits} hits; "
+              "want one miss a query on every shard, then a hit")
+        put_a = put(h0, wins[0], "(a) r0")
+        stale, got, hits = through_r1("(a) r1 before any push")
+        check(stale == cached and not any(got.values()) and hits == 2,
+              f"(a) before any push r1 answered anew: {got} launches, "
+              f"{hits} cache hits")
+        applied = rc1.gossip.deltas_applied
+        push_ms = one_push(rc0.gossip, "(a) r0 to r1")
+        applied = rc1.gossip.deltas_applied - applied
+        check(applied > 0, "(a) r1 applied no delta")
+        fresh_in_r1("(a) r1 after the push", ref_a)
+        print(f"  (a) negative control: before any push r1 answers both "
+              f"queries from its cache, the write not in them; one push "
+              f"r0 -> r1 in {push_ms:.1f} ms ({applied} delta(s) "
+              "applied), and r1's next reads miss its cache, one K1 or "
+              "K2 on every shard, and hold the write")
+
+        # the timed p50s: each call a miss (caches dropped ahead of it)
+        reads_a, rows_a = {}, {}
+        for i in (1, 0):
+            reads_a[f"r{i}"], rows_a[i] = router_reads(
+                torch, rs[i][2], f"(a) through r{i} after the push", ref_a,
+                CLUSTER_SHARDS, take, card, before=rs[i][0].drop_caches)
+        out["a"] = {"push_ms": push_ms, "hello_ms": hello_ms,
+                    "put_s": put_a, "reads": reads_a}
+        mark("a")
+
+        # (b) a partition: r1's pushes to r0 fail (the fault site
+        # cluster.gossip.r0 on r1, and cluster.gossip.r1 on r0). First
+        # r1's cache holds both queries again ((a)'s timed calls dropped
+        # it before each call: it kept the last query's alone)
+        warm_b, _got, _hits = through_r1("(b) r1 warmed")
+        check(warm_b == rows_a[1], "(b) r1's warm answers differ from "
+              "(a)'s timed ones")
+        rc1.gossip.stale_s = GOSSIP_STALE_MS / 1000.0
+        rs[1][0].faults.arm("cluster.gossip.r0", error_rate=1.0)
+        rs[0][0].faults.arm("cluster.gossip.r1", error_rate=1.0)
+        check(rc1.gossip.push_once() == 0 and rc0.gossip.push_once() == 0,
+              "(b) a push crossed the partition")
+        every = np.concatenate([every, wins[1]])
+        ref_b = reshard_reference(values, every)
+        put_b = put(h0, wins[1], "(b) r0, unseen by r1")
+        t = time.perf_counter()
+        while not rc1.gossip.degraded():
+            check(time.perf_counter() - t < 30, "(b) r1 never degraded")
+            time.sleep(0.01)
+        check("cluster_gossip_degraded" in causes(h1),
+              f"(b) r1's /api/health causes {causes(h1)}")
+        bypass0 = rc1.gossip.cache_bypasses
+        reads_b = {"r1": router_reads(
+            torch, h1, "(b) through r1, degraded", ref_b, CLUSTER_SHARDS,
+            take, card)[0]}
+        bypasses = rc1.gossip.cache_bypasses - bypass0
+        check(bypasses == 2 * (RESHARD_REPEATS + 1),
+              f"(b) {bypasses} cache bypasses through r1")
+        reads_b["r0"] = router_reads(
+            torch, h0, "(b) through r0", ref_b, CLUSTER_SHARDS, take, card,
+            before=rs[0][0].drop_caches)[0]
+        rs[1][0].faults.disarm("cluster.gossip.r0")
+        rs[0][0].faults.disarm("cluster.gossip.r1")
+        # r1's own push landing clears its degraded state; r0's deltas
+        # of the partition have not reached r1 yet
+        heal_ms = one_push(rc1.gossip, "(b) r1 to r0 after the partition")
+        check(not rc1.gossip.degraded()
+              and "cluster_gossip_degraded" not in causes(h1),
+              "(b) the landed push left r1 degraded")
+        rc1.gossip.stale_s = rc0.gossip.stale_s
+        # negative control: r1 answers from the entries it held before
+        # the partition, without the partition's writes
+        stale, got, hits = through_r1("(b) r1 before r0's push")
+        check(stale == warm_b and not any(got.values()) and hits == 2,
+              f"(b) before r0's push r1 answered anew: {got} launches, "
+              f"{hits} cache hits")
+        sync_ms = one_push(rc0.gossip, "(b) r0 to r1 after the partition")
+        fresh_in_r1("(b) r1 after r0's push", ref_b)
+        print(f"  (b) r1 degraded after its {GOSSIP_STALE_MS} ms stale "
+              f"window: cluster_gossip_degraded in /api/health, "
+              f"{bypasses} reads around the cache, each on every shard "
+              f"and exact; one landed push ({heal_ms:.1f} ms) cleared it; "
+              f"r1 then answered (a)'s cached rows until r0's push "
+              f"({sync_ms:.1f} ms) carried the partition's writes: the "
+              "next reads missed, on every shard, and held them")
+        out["b"] = {"stale_ms": GOSSIP_STALE_MS, "put_s": put_b,
+                    "cache_bypasses": bypasses, "heal_push_ms": heal_ms,
+                    "sync_push_ms": sync_ms,
+                    "reads": reads_b}
+        mark("b")
+
+        # (c) r0 begins 3 -> 4, r1 adopts the window over one push, r0
+        # is shut down mid-window; r1 finishes alone. The backfill moves
+        # every series whose owner changes, (c)'s own writes included
+        every = np.concatenate([every, wins[2]])
+        ref_c = reshard_reference(values, every)
+        keys = [series_shard_key(METRIC, tags[i]) for i in every.tolist()]
+        new_own = np.asarray([t_[0] for t_ in HashRing(
+            names, vnodes=rc0.ring.vnodes).shards_for_keys(keys)])
+        old_own = np.asarray([t_[0] for t_ in
+                              rc0.ring.shards_for_keys(keys)])
+        resp = h0.handle(HttpRequest(
+            method="POST", path="/api/cluster/reshard",
+            body=json.dumps({"peers": ",".join(addrs)}).encode()))
+        check(resp.status == 200 and json.loads(resp.body)["epoch"] == 1,
+              f"(c) reshard install: {resp.status} {resp.body[:300]!r}")
+        adopt_ms = one_push(rc0.gossip, "(c) r0 to r1 with the window")
+        # a unit copied by r0 before it goes (as phase 22 (c))
+        step = rc0.backfill_step()
+        check(step.get("phase") == "copied", f"(c) r0's unit: {step}")
+        check(rc1.gossip.topology_adoptions == 1 and rc1.epoch == 1
+              and rc1.resharding and rc1.ring.names == names,
+              f"(c) r1 adopted {rc1.gossip.topology_adoptions} times, "
+              f"epoch {rc1.epoch}, ring {rc1.ring.names}")
+        rs[0][3].stop()  # r0's server, its router and its TSDB
+        rs[0] = None
+        check(rc1.resharding, "(c) r1 finished before r0 went down")
+        put_c = put(h1, wins[2], "(c) r1, in the window, r0 down")
+        t = time.perf_counter()
+        steps = []
+        while rc1.resharding:
+            steps.append(rc1.backfill_step().get("phase"))
+            check(steps[-1] != "blocked" and len(steps) < 200,
+                  f"(c) r1's backfill steps {steps}")
+        backfill_s = time.perf_counter() - t
+        moved = int((old_own != new_own).sum())
+        bf = rc1.backfiller
+        check(bf.backfilled_series == moved
+              and bf.backfilled_points == moved * POINTS,
+              f"(c) r1 backfilled {bf.backfilled_series} series, "
+              f"{bf.backfilled_points} points; {moved} moved")
+        print(f"  (c) r0 began 3 -> 4; one push ({adopt_ms:.1f} ms) and r1 "
+              f"adopted the window (topology_adoptions 1, epoch 1); r0 shut "
+              f"down; r1 copied {bf.backfilled_series} series, "
+              f"{bf.backfilled_points} points in {len(steps)} steps by "
+              f"hand (r0's unit again, duplicates dedupe on the shards) "
+              f"and finalized alone in {backfill_s:.3f} s (on {card})")
+        rs[0] = start_router(0)
+        rc0 = rs[0][1]
+        check(rc0.epoch == 1 and rc0.resharding,
+              f"(c) the rebuilt r0 resumed epoch {rc0.epoch}, window "
+              f"{rc0.resharding}")
+        converge_ms = one_push(rc1.gossip, "(c) r1 to the rebuilt r0")
+        check(rc0.epoch == rc1.epoch == 1 and not rc0.resharding
+              and rc0.ring.names == rc1.ring.names == names
+              and rc0.gossip.topology_adoptions == 1,
+              f"(c) the rebuilt r0: epoch {rc0.epoch}, window "
+              f"{rc0.resharding}, ring {rc0.ring.names}")
+        print(f"  (c) r0 rebuilt over its spool dir at epoch 1 with the "
+              f"window open; one push from r1 ({converge_ms:.1f} ms) "
+              f"finalized it: both routers at epoch 1 on {names}")
+        routes = shard_routes(shards, rc1.ring, True, take)
+        print(f"  (c) routes at epoch 1: {routes}")
+        for n, per in routes.items():
+            check(per == {"dc": "span_reduce", "rack": "onehot_reduce"},
+                  f"(c) {n} at epoch 1 routes {per}")
+        reads_c = {f"r{i}": router_reads(
+            torch, rs[i][2], f"(c) through r{i} at epoch 1", ref_c,
+            CLUSTER_SHARDS + 1, take, card, before=rs[i][0].drop_caches)[0]
+            for i in (1, 0)}
+        out["c"] = {"adopt_push_ms": adopt_ms, "put_s": put_c,
+                    "backfill": {"s": backfill_s,
+                                 "series": bf.backfilled_series,
+                                 "points": bf.backfilled_points},
+                    "converge_push_ms": converge_ms, "routes": routes,
+                    "reads": reads_c}
+        out["topology_adoptions"] = {
+            "r0": rc0.gossip.topology_adoptions,
+            "r1": rc1.gossip.topology_adoptions}
+        mark("c")
+    finally:
+        for r in rs:
+            if r is not None:
+                r[3].stop()
+        for st in sts:
+            st.stop()
+        for sp in spools:
+            shutil.rmtree(sp, ignore_errors=True)
+    mark("stop")
+    out["launches"] = dict(launches)
+    out["stage_s"] = stage_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("  seconds by stage: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stage_s.items()))
+    print(f"phase 23: {out['phase_s']:.1f} s")
     return launches, out
 
 
@@ -8488,8 +8942,17 @@ def main() -> int:
            f"and on 4 shards) (|got - want| <= {TOL_REL}*sum|terms| + "
            f"{TOL_ABS})")
     rs_launches, reshard = phase_reshard(torch, data, card)
-    del data
     for kname, n in rs_launches.items():
+        launches[kname] += n
+    gc.collect()   # phase 22's TSDBs, before four new shards load
+    header(f"phase 23: sibling routers, r0 and r1 on their own sockets "
+           f"over {CLUSTER_SHARDS} shard TSDs and a spare, phase 22's cut "
+           f"of config 3 (i < {RESHARD_SERIES} of dc0-dc{CLUSTER_DCS - 1},"
+           f" CUT from 1,000,000) (|got - want| <= {TOL_REL}*sum|terms| + "
+           f"{TOL_ABS})")
+    gs_launches, gossip = phase_gossip(torch, data, card)
+    del data
+    for kname, n in gs_launches.items():
         launches[kname] += n
 
     lines = {"span_reduce": ("opentsdb_tpu/ops/pallas_fused.py:270",
@@ -8524,6 +8987,7 @@ def main() -> int:
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"replication": replication}))
     print(json.dumps({"reshard": reshard}))
+    print(json.dumps({"gossip": gossip}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,15 +32,17 @@ dirty tracker's and the reshard state's files, and the wire's frames.
 The ring grows or shrinks online behind a fenced epoch
 (:mod:`~opentsdb_tpu_torch.cluster.reshard`), and a retire pass deletes
 the stale copies a finalized reshard leaves
-(:mod:`~opentsdb_tpu_torch.cluster.retire`). The sibling routers'
-gossip (ROADMAP Queue 1, item 1.6d(iii)) is refused by name.
+(:mod:`~opentsdb_tpu_torch.cluster.retire`). Sibling routers behind one
+load balancer keep their result caches coherent and hand a reshard on
+over the gossip bus (:mod:`~opentsdb_tpu_torch.cluster.gossip`).
 """
 
+from opentsdb_tpu_torch.cluster.gossip import GossipBus, Sibling
 from opentsdb_tpu_torch.cluster.hashring import HashRing, series_shard_key
 from opentsdb_tpu_torch.cluster.replica import DirtyTracker
 from opentsdb_tpu_torch.cluster.reshard import ReshardState
 from opentsdb_tpu_torch.cluster.router import ClusterRouter
 from opentsdb_tpu_torch.cluster.spool import PeerSpool
 
-__all__ = ["ClusterRouter", "DirtyTracker", "HashRing", "PeerSpool",
-           "ReshardState", "series_shard_key"]
+__all__ = ["ClusterRouter", "DirtyTracker", "GossipBus", "HashRing",
+           "PeerSpool", "ReshardState", "Sibling", "series_shard_key"]

@@ -27,9 +27,8 @@ marked, never a 5xx) and merges:
 
 Also here: the consolidated operator progress surface behind
 ``GET /api/cluster/status`` — the ring epoch, per-peer spool backlog
-and dirty-debt AGE, and the backfill window, with coarse ETA estimates
-(the reference's gossip section needs sibling routers, ROADMAP Queue 1,
-item 1.6d(iii), and never appears with no siblings).
+and dirty-debt AGE, and the backfill window, with coarse ETA estimates,
+and on a router that names siblings its gossip bus.
 """
 
 from __future__ import annotations
@@ -291,6 +290,9 @@ def cluster_status(router) -> dict[str, Any]:
     # on behalf of reads — queue depth/shed/completions were
     # invisible here before) ------------------------------------------
     doc["read_repair"] = router.read_repair.health_info()
+    # -- sibling-router gossip bus -------------------------------------
+    if router.gossip is not None:
+        doc["gossip"] = router.gossip.health_info()
     return doc
 
 

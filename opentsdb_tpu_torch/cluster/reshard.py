@@ -34,7 +34,7 @@ epoch-qualified across restarts.
 a spool directory moves between the two packages' routers mid-cutover
 as well as at rest. :meth:`ReshardState.adopt` and
 :meth:`~ReshardState.adopt_final` are the sibling routers' hand-off;
-their caller, gossip, is ROADMAP Queue 1 item 1.6d(iii).
+their caller is the sibling routers' gossip (:mod:`.gossip`).
 """
 
 from __future__ import annotations

@@ -40,9 +40,15 @@ window is open, reads stay on the old ring, a background backfill
 copies the moved series, and the window finalizes when every unit is
 copied. Past epoch 0 every read carries a ``replicaSel``, so each
 shard masks the stale copies it still holds before its kernels run,
-and the stale-copy retire pass (:mod:`.retire`) deletes them. The
-sibling routers' gossip (ROADMAP Queue 1, item 1.6d(iii)) is refused
-when the TSDB is built.
+and the stale-copy retire pass (:mod:`.retire`) deletes them.
+
+Sibling routers behind one load balancer (``tsd.cluster.routers``)
+exchange their cache-version bumps and the reshard topology over the
+gossip bus (:mod:`.gossip`): a write forwarded by one router
+invalidates every sibling's result cache after one push, a router
+whose sibling went quiet past the stale window serves around its
+cache, and a sibling adopts a reshard another router began and
+finishes it if that router dies.
 """
 
 from __future__ import annotations
@@ -324,6 +330,15 @@ class ClusterRouter:
         self.read_repair = replica_mod.ReadRepairQueue(
             config.get_int("tsd.cluster.read_repair.max_pending",
                            1024))
+        # the sibling routers named by tsd.cluster.routers exchange
+        # write-version and reshard-epoch deltas (cluster/gossip.py), so
+        # every front door's result cache invalidates on writes any of
+        # them forwarded
+        self.gossip = None
+        routers_spec = config.get_string("tsd.cluster.routers", "")
+        if routers_spec.strip():
+            from opentsdb_tpu_torch.cluster.gossip import GossipBus
+            self.gossip = GossipBus(self, routers_spec)
         # TTL cache for the /api/health fleet section (see
         # fleet_health): (doc, monotonic stamp)
         self._fleet_health_lock = threading.Lock()
@@ -340,8 +355,9 @@ class ClusterRouter:
     # ------------------------------------------------------------------
 
     def start(self) -> None:
-        """Start the spool replay thread, and resume a persisted
-        cutover's backfill or an unfinished retire pass (idempotent)."""
+        """Start the spool replay thread and the gossip push loop, and
+        resume a persisted cutover's backfill or an unfinished retire
+        pass (idempotent)."""
         if self._started:
             return
         self._started = True
@@ -349,6 +365,8 @@ class ClusterRouter:
                              name="cluster-replay", daemon=True)
         self._replay_thread = t
         t.start()
+        if self.gossip is not None:
+            self.gossip.start()
         if self.state.active:
             self._start_backfill()
         elif self.retire_enabled and self.retirer.pending():
@@ -374,12 +392,14 @@ class ClusterRouter:
         t.start()
 
     def stop(self) -> None:
-        """Join the replay, backfill and retire threads, drop the
-        federated registrations (the shards keep theirs), close the
+        """Join the gossip, replay, backfill and retire threads, drop
+        the federated registrations (the shards keep theirs), close the
         wire links (which wakes every leg waiting on one), join the
         fan-out pool and close the spools: no thread of the router
         outlives this call."""
         self._stop.set()
+        if self.gossip is not None:
+            self.gossip.stop()
         for t in (self._replay_thread, self._backfill_thread,
                   self._retire_thread):
             if t is not None and t.is_alive():
@@ -2134,7 +2154,7 @@ class ClusterRouter:
     # result cache integration
     # ------------------------------------------------------------------
 
-    def _bump_versions(self, metrics) -> None:
+    def _bump_versions(self, metrics, announce: bool = True) -> None:
         names = set(metrics)
         with self._version_lock:
             for m in names:
@@ -2147,10 +2167,18 @@ class ClusterRouter:
                 # the map restarts bounded
                 self._metric_versions.clear()
                 self._global_version += 1
+        # to the bus only after the version lock is released (the bus
+        # has its own lock; never hold both). announce=False is the
+        # receive side applying a sibling's delta: logging it again
+        # would bounce the same invalidation between routers forever
+        if announce and names and self.gossip is not None:
+            self.gossip.record_writes(names)
 
-    def _bump_global_version(self) -> None:
+    def _bump_global_version(self, announce: bool = True) -> None:
         with self._version_lock:
             self._global_version += 1
+        if announce and self.gossip is not None:
+            self.gossip.record_global()
 
     def write_version(self, tsq=None) -> tuple:
         """Invalidation version of the router's view of the cluster
@@ -2163,13 +2191,12 @@ class ClusterRouter:
         that name no metric) the conservative whole-cluster version.
         Writes landing on shards directly (bypassing the router) are
         invisible — relative-window entries stay bounded by the same
-        TTL rule as single-node serving; absolute-window dashboards
-        behind a multi-router deployment should disable the router
-        cache (``tsd.query.cache.enable=false``).
+        TTL rule as single-node serving. Writes a sibling router
+        forwarded arrive as gossip deltas that bump these counters.
 
         Every version is EPOCH-QUALIFIED (the persisted ring-change
-        epoch of ``reshard.json`` leads the tuple, as in the
-        reference; 0 on the port)."""
+        epoch of ``reshard.json`` leads the tuple): a ring install
+        mismatches every cached entry at once."""
         epoch = self.state.epoch
         with self._version_lock:
             whole = (epoch, self._global_version,
@@ -2206,6 +2233,16 @@ class ClusterRouter:
         partial is NEVER retained (the marker must never outlive the
         outage it reports); a later complete answer repopulates."""
         cache = self.tsdb.result_cache
+        if self.gossip is not None and self.gossip.degraded():
+            # a partitioned sibling router may be forwarding writes
+            # whose invalidations this router cannot see: any hit could
+            # be stale and any store could cache around an unseen
+            # write. Bypass the cache (exact answers, the shards'
+            # kernels run on every call) until a push lands again.
+            self.gossip.cache_bypasses += 1
+            if cache is not None:
+                cache.count_bypass()
+            return self.execute_query(tsq)
         plan = self.cache_plan(tsq) if cache is not None else None
         if plan is None:
             if cache is not None:
@@ -2339,6 +2376,105 @@ class ClusterRouter:
                  self.state.epoch, ",".join(self.ring.names))
         if self._started and self.retire_enabled:
             self._start_retire()
+
+    def adopt_topology(self, doc: dict) -> bool:
+        """Adopt a sibling router's gossiped ring topology. Three
+        shapes: the remote epoch is BEHIND (or equal with the same
+        phase) — no-op; the remote FINALIZED the epoch this router
+        still holds open — finalize here; the remote epoch is AHEAD —
+        install its ring, and when its cutover window is still open,
+        adopt the dual-write window and run a local idempotent
+        backfill. The last shape lets a sibling resume a reshard whose
+        initiating router died mid-window: duplicated copy units dedupe
+        last-write-wins on the shards. Version bumps here are not
+        announced (the initiator announced the epoch change to every
+        sibling). Returns True when anything changed."""
+        try:
+            epoch = int(doc.get("epoch", 0))
+            spec = str(doc.get("peers", "") or "")
+            vnodes = int(doc.get("vnodes", 0) or 0)
+            active = bool(doc.get("active"))
+            old_spec = str(doc.get("old_peers", "") or "")
+            old_vnodes = int(doc.get("old_vnodes", 0) or 0)
+            fence_ms = int(doc.get("fence_ms", 0) or 0)
+        except (TypeError, ValueError):
+            return False
+        if epoch < self.state.epoch or not spec:
+            return False
+        if epoch == self.state.epoch:
+            if active or not self.state.active:
+                return False  # same epoch, same phase: in agreement
+            # the sibling finalized the window this router still holds
+            # open (its backfill finished first): finalize here,
+            # idempotent under _reshard_lock
+            self.finalize_reshard()
+            return True
+        specs = parse_peer_spec(spec)
+        if not specs:
+            return False
+        resumed = False
+        with self._reshard_lock:
+            if epoch <= self.state.epoch:
+                return False  # raced with another adoption
+            vn = int(vnodes) or self.ring.vnodes
+            for name, host, port in specs:
+                cur = self.peers.get(name)
+                if cur is not None and (cur.client.host != host or
+                                        cur.client.port != port):
+                    LOG.warning(
+                        "gossiped topology renames shard %s (%s -> "
+                        "%s:%d); refusing adoption", name,
+                        cur.client.address, host, port)
+                    return False
+                if cur is None:
+                    self.peers[name] = Peer(name, host, port,
+                                            self.config,
+                                            self._spool_dir)
+            if active and old_spec:
+                old_specs = parse_peer_spec(old_spec)
+                for name, host, port in old_specs:
+                    if name not in self.peers:
+                        self.peers[name] = Peer(name, host, port,
+                                                self.config,
+                                                self._spool_dir)
+                if not self.state.adopt(epoch, spec, vn, old_spec,
+                                        old_vnodes or vn, fence_ms):
+                    return False
+                # begin_reshard's order: old_ring fills first, so a
+                # racing writer's worst case is the old owners only,
+                # which the backfill still moves
+                self.old_ring = HashRing(
+                    [n for n, _, _ in old_specs],
+                    vnodes=old_vnodes or vn)
+                self.ring = HashRing([n for n, _, _ in specs],
+                                     vnodes=vn)
+                self.backfiller.reset()
+                resumed = True
+            else:
+                if not self.state.adopt_final(epoch, spec, vn):
+                    return False
+                self.old_ring = None
+                self.ring = HashRing([n for n, _, _ in specs],
+                                     vnodes=vn)
+                for n in [n for n in self.peers
+                          if n not in self.ring.names]:
+                    peer = self.peers.pop(n, None)
+                    if peer is not None:
+                        peer.spool.close()
+                    self.dirty.drop_peer(n)
+                    self.read_repair.drop_peer(n)
+                    self.invalidate_sub_memo(n)
+                self.retirer.reset()
+            self._bump_global_version(announce=False)
+        LOG.info("adopted gossiped topology at epoch %d (cutover %s); "
+                 "ring: %s", epoch, "open" if resumed else "final",
+                 ",".join(self.ring.names))
+        if self._started:
+            if resumed:
+                self._start_backfill()
+            elif self.retire_enabled and self.retirer.pending():
+                self._start_retire()
+        return True
 
     def _backfill_loop(self) -> None:
         tracer = getattr(self.tsdb, "tracer", None)
@@ -2696,8 +2832,8 @@ class ClusterRouter:
             "reshard": self.reshard_info(),
             "replica_dirty": self.dirty.health_info(),
             "read_repair": self.read_repair.health_info(),
-            # no sibling routers (ROADMAP Queue 1, item 1.6d(iii))
-            "gossip": None,
+            "gossip": self.gossip.health_info()
+            if self.gossip is not None else None,
             "read_fallbacks": self.read_fallbacks,
             "repairs": self.repairs,
             "repair_points": self.repair_points,
@@ -2742,6 +2878,8 @@ class ClusterRouter:
         collector.record("cluster.read_repair.shed", rr["shed"])
         collector.record("cluster.read_repair.completed",
                          rr["completed"])
+        if self.gossip is not None:
+            self.gossip.collect_stats(collector)
         collector.record("cluster.name_scatters",
                          self.scatter_name_queries)
         collector.record("cluster.reshard.backfilled_points",

@@ -91,9 +91,10 @@ from opentsdb_tpu_torch.obs.slo import SloTracker
 from opentsdb_tpu_torch.obs.telemetry import SelfTelemetry
 from opentsdb_tpu_torch.obs.trace import Tracer, trace_begin, trace_end
 from opentsdb_tpu_torch.parallel import distributed
-from opentsdb_tpu_torch.parallel.mesh import default_devices, mesh_from_spec
+from opentsdb_tpu_torch.parallel.mesh import (default_devices,
+                                              mesh_from_spec,
+                                              parse_mesh_spec)
 from opentsdb_tpu_torch.query.device_cache import DeviceGridCache
-from opentsdb_tpu_torch.query.engine import refuse_unported_keys
 from opentsdb_tpu_torch.query.limits import QueryLimitOverride
 from opentsdb_tpu_torch.query.result_cache import QueryResultCache
 from opentsdb_tpu_torch.rollup.config import RollupConfig
@@ -253,7 +254,9 @@ class TSDB:
         # every configured key the port does not read (ref:
         # TSDB.__init__)
         self.config.warn_unknown_keys()
-        refuse_unported_keys(self.config)
+        # a typo'd mesh spec raises ValueError here, as at the
+        # reference's boot
+        parse_mesh_spec(self.config.get_string("tsd.query.mesh", ""))
         # the multi-process rendezvous comes before any device touch
         # (ref: TSDB.__init__ with tsd.mesh.coordinator)
         distributed.initialize_from_config(self.config)

@@ -48,7 +48,8 @@ _ROLE_PREFIXES: tuple[tuple[str, str], ...] = (
     ("tsd-query", "query"),          # server query worker pool
     ("tsd-subq", "query"),           # sub-query fan-out pool
     ("tsd-cluster", "cluster"),      # router scatter/forward pool
-    ("cluster-", "cluster"),         # replay / backfill / retire loops
+    ("cluster-", "cluster"),         # replay / backfill / retire /
+    #                                  gossip loops
     ("tsd-stream-fold", "fold-worker"),
     ("asyncio", "ingest"),           # default-executor work: event
     #                                  stream frames

@@ -54,8 +54,7 @@ LOG = logging.getLogger("obs.trace")
 # Every span name started anywhere — roots and stages — must resolve
 # here: :meth:`TraceContext.begin` enforces it at run time, so a typo'd
 # stage name fails the first test that crosses it instead of silently
-# recording an orphan stage. The reference's ``cluster.gossip.push``
-# comes with the sibling routers (ROADMAP Queue 1, item 1.6d(iii)).
+# recording an orphan stage.
 
 KNOWN_SPANS: frozenset[str] = frozenset({
     # request roots
@@ -71,6 +70,7 @@ KNOWN_SPANS: frozenset[str] = frozenset({
     "cluster.replica.repair",  # cluster/router.py anti-entropy pass
     "cluster.reshard.backfill",  # cluster/reshard.py moved-key copy
     "cluster.retire",        # cluster/retire.py stale-copy delete
+    "cluster.gossip.push",   # cluster/gossip.py sibling push round
     "cluster.read_repair",   # cluster/router.py staged-hint drain
     # ingest stages
     "ingest.decode",         # body parse + validate + series grouping

@@ -125,7 +125,6 @@ from opentsdb_tpu_torch.ops.pipeline import (PipelineSpec,
                                              put_grid, run_prepared,
                                              upload)
 from opentsdb_tpu_torch.parallel import sharded_pipeline as sharded
-from opentsdb_tpu_torch.parallel.mesh import parse_mesh_spec
 from opentsdb_tpu_torch.query import filters as filters_mod
 from opentsdb_tpu_torch.query import result_cache as rc_mod
 from opentsdb_tpu_torch.query.device_cache import array_digest
@@ -143,33 +142,6 @@ HOST_TAIL_DEFAULT_CELLS = 1 << 20
 HOST_TAIL_DEFAULT_CELLGROUPS = 1 << 25
 # the linear aggregators' cells-only budget (segment reductions)
 HOST_TAIL_DEFAULT_CELLS_LINEAR = 1 << 23
-# keys that turn on a subsystem the port has not ported, checked when a
-# TSDB is built (refuse_unported_keys): (config key, its default, the
-# subsystem, the ROADMAP Queue 1 item that ports it)
-_UNPORTED_SUBSYSTEM_KEYS = (
-    ("tsd.cluster.routers", "", "the sibling routers' gossip",
-     "item 1.6d(iii), sibling routers"),
-)
-
-
-def refuse_unported_keys(config) -> None:
-    """Raise NotImplementedError when a key turns on a subsystem the
-    port lacks, rather than serve as if it were off. A numeric key is
-    on above its default."""
-    for key, default, what, item in _UNPORTED_SUBSYSTEM_KEYS:
-        value = config.get_string(key, default).strip()
-        if default == "false":
-            on = config.get_bool(key)
-        elif default.isdigit():
-            on = int(value or default) > int(default)
-        else:
-            on = value != default
-        if on:
-            raise NotImplementedError(
-                f"{key}={value} turns on {what}, which is not ported yet "
-                f"(ROADMAP Queue 1, {item}); leave {key} at {default!r}")
-    # a typo raises ValueError here, as at the reference's boot
-    parse_mesh_spec(config.get_string("tsd.query.mesh", ""))
 
 
 def _rank_class_agg(agg_name: str) -> bool:

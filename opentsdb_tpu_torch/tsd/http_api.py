@@ -1779,10 +1779,9 @@ class HttpRpcRouter:
         - ``GET /api/cluster/reshard``: the same document (operators
           poll it to watch the window close).
 
-        ``POST /api/cluster/gossip`` (a sibling router's push) needs
-        sibling routers (ROADMAP Queue 1, item 1.6d(iii)) and answers
-        the reference's 400, since ``tsd.cluster.routers`` cannot be
-        set."""
+        ``POST /api/cluster/gossip`` applies a sibling router's push
+        and answers the ack; a router that names no siblings
+        (``tsd.cluster.routers``) answers the reference's 400."""
         cluster = self.tsdb.cluster
         if cluster is None:
             raise HttpError(400, "/api/cluster requires tsd.cluster.role "
@@ -1796,8 +1795,16 @@ class HttpRpcRouter:
         if sub == "gossip":
             if request.method != "POST":
                 raise HttpError(405, "Method not allowed")
-            raise HttpError(400, "gossip is not configured on this router",
-                            "set tsd.cluster.routers to the sibling list")
+            if cluster.gossip is None:
+                raise HttpError(400,
+                                "gossip is not configured on this router",
+                                "set tsd.cluster.routers to the sibling "
+                                "list")
+            try:
+                ack = cluster.gossip.apply_remote(request.json_object())
+            except ValueError as exc:
+                raise BadRequestError(str(exc)) from None
+            return HttpResponse(200, json.dumps(ack).encode())
         if sub == "reshard":
             if request.method == "POST":
                 obj = request.json_object(default={})
@@ -1928,6 +1935,11 @@ class HttpRpcRouter:
                 "oldest_pending_age_s", 0)
             if dirty_age > 3600 or rr_age > 3600:
                 causes.append("replica_dirty_debt_stale")
+            gossip_info = cluster_info["gossip"]
+            if gossip_info and gossip_info["degraded"]:
+                # a sibling router is partitioned: this router serves
+                # around its cache until its pushes land again
+                causes.append("cluster_gossip_degraded")
             for _name, peer in sorted(clus.peers.items()):
                 # a shard being served around (degraded partials and
                 # spooled writes), not failed

@@ -319,13 +319,18 @@ _DECLARED_EXTRA: frozenset[str] = frozenset({
     "tsd.tpu.warmup.buckets",
     "tsd.tpu.warmup.budget_s",
     "tsd.tpu.warmup.percentiles",
-    # the cluster tier (cluster/); tsd.cluster.routers is refused by
-    # name (query/engine.py::refuse_unported_keys)
+    # the cluster tier (cluster/); the gossip keys take the
+    # reference's defaults at their call sites in cluster/gossip.py
+    # (interval_ms 250, stale_ms 5000, log_max 4096, timeout_ms 2000)
     "tsd.cluster.role",
     "tsd.cluster.peers",
     "tsd.cluster.vnodes",
     "tsd.cluster.rf",
     "tsd.cluster.routers",
+    "tsd.cluster.gossip.interval_ms",
+    "tsd.cluster.gossip.stale_ms",
+    "tsd.cluster.gossip.log_max",
+    "tsd.cluster.gossip.timeout_ms",
     "tsd.cluster.replica.repair",
     "tsd.cluster.reshard.backfill_batch",
     "tsd.cluster.reshard.interval_ms",
@@ -369,7 +374,6 @@ DYNAMIC_KEY_PREFIXES: tuple[str, ...] = ("tsd.faults.",
 # ".") -> the ROADMAP Queue 1 item that reads it. An unknown-key
 # warning names the item instead of suggesting a typo.
 LATER_ITEM_KEYS: dict[str, str] = {
-    "tsd.cluster.gossip.": "item 1.6d(iii), sibling routers",
     "tsd.http.staticroot": "item 1.8, /q and /s",
     "tsd.http.cachedir": "item 1.8, /q and /s",
     "tsd.http.graph.auto_pixels": "item 1.8, /q and /s",

@@ -21,9 +21,9 @@ them.
   and ``cluster.peer.<name>`` on every peer exchange, ``cluster.wire``
   and ``cluster.wire.<name>`` on the binary wire, ``cluster.replica``
   on a repair pass, ``cluster.reshard`` on a backfill step,
-  ``cluster.retire`` on a retire step). A key that names a site of the
-  reference's gossip, which the port lacks, raises NotImplementedError
-  naming its ROADMAP item; a key that names no site at all warns.
+  ``cluster.retire`` on a retire step, ``cluster.gossip`` and
+  ``cluster.gossip.<name>`` on every push to a sibling router). A key
+  that names no site at all warns.
   An error rate is a counted schedule (call ``i`` fails iff
   ``floor(i * r)`` advances), never a coin flip, so a failure
   reproduces.
@@ -79,21 +79,14 @@ KNOWN_SITES: frozenset[str] = frozenset({
     "cluster.retire",     # cluster/retire.py stale-copy delete step
     "cluster.wire",       # cluster/wire.py router-side wire exchange
     "cluster.cq",         # cluster/cq.py federated CQ shard exchange
+    "cluster.gossip",     # cluster/gossip.py sibling-router push
 })
 
-# site families with per-peer tails (ref: DYNAMIC_SITE_PREFIXES, less
-# the gossip's)
+# site families with per-peer tails (ref: DYNAMIC_SITE_PREFIXES)
 DYNAMIC_SITE_PREFIXES: tuple[str, ...] = ("cluster.peer.",
+                                          "cluster.gossip.",
                                           "cluster.wire.",
                                           "cluster.cq.")
-
-# the reference's sites of subsystems the port has not ported yet:
-# site prefix -> (its module, the ROADMAP Queue 1 item that ports it);
-# a key that arms one is refused, since nothing here would check it
-UNPORTED_SITE_PREFIXES: dict[str, tuple[str, str]] = {
-    "cluster.gossip": ("cluster/gossip.py",
-                       "item 1.6d(iii), sibling routers"),
-}
 
 
 def is_known_site(site: str) -> bool:
@@ -167,12 +160,6 @@ class FaultInjector:
                     break
             else:
                 continue
-            for prefix, (what, item) in UNPORTED_SITE_PREFIXES.items():
-                if site.startswith(prefix):
-                    raise NotImplementedError(
-                        f"config key {key!r} arms the fault site "
-                        f"{site!r} of {what}, which is not ported yet "
-                        f"(ROADMAP Queue 1, {item}); remove the key")
             if not is_known_site(site):
                 # a typo would arm nothing: say so, but come up
                 logging.getLogger("faults").warning(

@@ -11,7 +11,8 @@ the same writes (``tests/torch_cluster_pair.py``):
 - the router-mode 400s, the tsuid refusal and the non-decomposable
   aggregator's 400;
 - ``/api/cluster`` (+``/status``, ``/reshard``), ``/api/stats/fleet``
-  and ``/api/health``, equal apart from clocks and addresses;
+  and ``/api/health``, equal apart from clocks and addresses, and the
+  gossip block of a router that names a sibling;
 - a shard with the wire off: the router falls back to JSON HTTP;
 - percentile subs and aggregators through the router (sketch partials);
 - a trace's legs merged on a shard and stitched on the router;
@@ -22,6 +23,7 @@ the same writes (``tests/torch_cluster_pair.py``):
 from __future__ import annotations
 
 import json
+import time
 
 import pytest
 
@@ -277,6 +279,56 @@ def test_health_and_fleet_documents(clusters):
         {"metric": "tsd.connectionmgr.connections", "value": 3 * i,
          "tags": {"type": "open"}}], "histograms": []} for i in range(3)}
     assert PORT.fleet.merge_fleet(docs) == JAX.fleet.merge_fleet(docs)
+
+
+@pytest.mark.parametrize("stale_ms", ["60000", "1"])
+def test_health_shows_gossip_on_a_router_with_siblings(clusters,
+                                                       stale_ms):
+    """A router that names a sibling router carries its gossip bus in
+    ``/api/health``'s ``cluster`` block, ``/api/cluster/status`` and
+    ``/api/stats``, the same in both packages up to the nonce and the
+    clock. A sibling that has not acknowledged a push within the stale
+    window degrades the router: ``cluster_gossip_degraded`` is a
+    cause."""
+    cs, _ = clusters
+    got = []
+    for side in SIDES:
+        c = cs[side.name]
+        tsdb = side.TSDB(side.Config(**{
+            **c.cfg, "tsd.cluster.routers": "r1=127.0.0.1:9",
+            "tsd.cluster.gossip.stale_ms": stale_ms}))
+        try:
+            assert tsdb.cluster.gossip is not None  # builds the router
+            http = side.http.HttpRpcRouter(tsdb)
+            if stale_ms == "1":
+                time.sleep(0.01)
+            docs = []
+            for path in ("/api/health", "/api/cluster/status"):
+                resp = http.handle(req(side, "GET", path))
+                assert resp.status == 200, resp.body
+                docs.append(json.loads(resp.body))
+            health, status = docs
+            gossip = health["cluster"]["gossip"]
+            assert status["gossip"]["nonce"] == gossip["nonce"]
+            for doc in (gossip, status["gossip"]):
+                assert len(doc.pop("nonce")) == 16
+                for sib in doc["siblings"].values():
+                    sib.pop("last_ok_age_s")
+            resp = http.handle(req(side, "GET", "/api/stats", json="true"))
+            stats = sorted(
+                (r["metric"], r["value"])
+                for r in json.loads(resp.body)
+                if r["metric"].startswith("tsd.cluster.gossip."))
+            got.append((health["causes"], volatile_free(gossip),
+                        volatile_free(status["gossip"]), stats))
+        finally:
+            tsdb.shutdown()
+    assert got[0] == got[1]
+    causes, gossip, _status, stats = got[1]
+    assert gossip["degraded"] is (stale_ms == "1")
+    assert ("cluster_gossip_degraded" in causes) is (stale_ms == "1")
+    assert gossip["stale_siblings"] == (["r1"] if stale_ms == "1" else [])
+    assert ("tsd.cluster.gossip.degraded", int(stale_ms == "1")) in stats
 
 
 def test_a_shard_without_the_wire_answers_over_http(tmp_path):

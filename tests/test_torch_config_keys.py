@@ -9,6 +9,8 @@
   compact, ROADMAP recorded divergence 22);
 - keys of parts not ported yet, whose warning names the ROADMAP Queue 1
   item that will read them instead of suggesting a typo;
+- the sibling routers' gossip keys (``tsd.cluster.gossip.*``), read
+  with the reference's defaults;
 - ``tsd.cluster.reshard.backfill_batch``, read by the router's repair
   and backfill, and the reshard and retire loops' keys
   (``tsd.cluster.reshard.interval_ms``, ``tsd.cluster.retire.enable``,
@@ -25,6 +27,8 @@ import socket
 import pytest
 
 from torch_cluster_pair import BASE, JAX, PORT, SIDES, LivePeer
+
+from opentsdb_tpu_torch.utils.config import later_item
 
 CHUNK_KEYS = ("tsd.http.request_enable_chunked",
               "tsd.http.request.enable_chunked", None)
@@ -110,8 +114,6 @@ def test_lifecycle_compaction_keys_are_declared():
 
 
 @pytest.mark.parametrize("key,item", [
-    ("tsd.cluster.gossip.interval_ms", "1.6d(iii)"),
-    ("tsd.cluster.gossip.fanout", "1.6d(iii)"),
     ("tsd.http.staticroot", "1.8"),
     ("tsd.http.cachedir", "1.8"),
     ("tsd.http.graph.auto_pixels", "1.8")])
@@ -129,6 +131,42 @@ def test_a_later_item_key_warns_by_item(caplog, key, item):
     assert "typo" not in mine[0]
     bogus = [m for m in lines if "'tsd.bogus.key'" in m]
     assert len(bogus) == 1 and "typo" in bogus[0]
+
+
+@pytest.mark.parametrize("key,value", [
+    ("tsd.cluster.gossip.interval_ms", "100"),
+    ("tsd.cluster.gossip.stale_ms", "700"),
+    ("tsd.cluster.gossip.log_max", "64"),
+    ("tsd.cluster.gossip.timeout_ms", "900"),
+    ("tsd.cluster.gossip.fanout", None)])
+def test_the_reference_s_gossip_keys_are_read(key, value):
+    """The sibling routers' keys are the reference's and are read with
+    its defaults (interval 250 ms, stale 5000 ms, a log of 4096, a
+    2000 ms push deadline): the two packages' buses take the same
+    settings. A key of the family the reference does not have
+    (``.fanout``) warns as a typo in both, naming no item."""
+    peers = "s0=127.0.0.1:1,s1=127.0.0.1:2"
+    if value is None:
+        for side in SIDES:
+            assert side.Config(**{key: "1"}).unknown_keys() == [key]
+        assert later_item(key) is None
+        return
+    got = []
+    for over in ({}, {key: value}):
+        for side in SIDES:
+            tsdb = side.TSDB(side.Config(**{
+                **side.keys, "tsd.cluster.role": "router",
+                "tsd.cluster.peers": peers,
+                "tsd.cluster.routers": "r1=127.0.0.1:9", **over}))
+            try:
+                assert tsdb.config.unknown_keys() == []
+                bus = tsdb.cluster.gossip
+                got.append((bus.interval_s, bus.stale_s, bus.log_max,
+                            bus.siblings["r1"].client.timeout_s))
+            finally:
+                tsdb.shutdown()
+    assert got[0] == got[1] == (0.25, 5.0, 4096, 2.0)
+    assert got[2] == got[3] != got[0]
 
 
 def test_backfill_batch_is_read_by_the_router():

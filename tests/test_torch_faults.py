@@ -60,21 +60,22 @@ def dps(results):
 
 
 def test_reference_sites_are_ported_but_cluster_and_control():
-    """Every site of the reference but the sibling routers' gossip
-    (ROADMAP Queue 1, item 1.6d(iii)), refused by name; the control
+    """Every site of the reference, and none is refused: the control
     plane's ``control.*`` came with ``control/``, the router's
     ``cluster.peer``, ``cluster.wire`` and ``cluster.replica`` with
     ``cluster/``, ``cluster.cq`` with the federated continuous queries,
-    and ``cluster.reshard`` and ``cluster.retire`` with resharding."""
+    ``cluster.reshard`` and ``cluster.retire`` with resharding, and
+    ``cluster.gossip`` (and its per-sibling family) with the sibling
+    routers."""
+    from opentsdb_tpu.utils.faults import DYNAMIC_SITE_PREFIXES as JDYN
     from opentsdb_tpu.utils.faults import KNOWN_SITES as JSITES
-    from opentsdb_tpu_torch.utils.faults import UNPORTED_SITE_PREFIXES
-    assert KNOWN_SITES == {s for s in JSITES
-                           if s not in UNPORTED_SITE_PREFIXES}
-    assert set(UNPORTED_SITE_PREFIXES) == {"cluster.gossip"}
+    from opentsdb_tpu_torch.utils.faults import DYNAMIC_SITE_PREFIXES
+    assert KNOWN_SITES == JSITES
+    assert DYNAMIC_SITE_PREFIXES == JDYN
     assert {"control.materialize", "control.qos", "control.placement",
             "cluster.peer", "cluster.wire", "cluster.replica",
-            "cluster.cq", "cluster.reshard", "cluster.retire"} \
-        <= KNOWN_SITES
+            "cluster.cq", "cluster.reshard", "cluster.retire",
+            "cluster.gossip"} <= KNOWN_SITES
 
 
 @pytest.mark.parametrize("backend", STORES)
@@ -162,36 +163,32 @@ def test_degraded_tier_fails_loudly_and_cache_unpoisoned(backend):
     assert answers[0] == answers[1]
 
 
-@pytest.mark.parametrize("key,item", [
-    ("tsd.faults.cluster.peer_error_rate", None),
-    ("tsd.faults.cluster.peer.s1_error_count", None),
-    ("tsd.faults.cluster.wire.s0.latency_ms", None),
-    ("tsd.faults.cluster.cq.x.latency_ms", None),
-    ("tsd.faults.cluster.cq_error_count", None),
-    ("tsd.faults.cluster.reshard_error_count", None),
-    ("tsd.faults.cluster.retire_error_once", None),
-    ("tsd.faults.cluster.gossip.r1_error_rate", "1.6d"),
-    ("tsd.faults.control.qos_error_count", None),
-    ("tsd.faults.control.placement.error_once", None)])
-def test_unported_site_keys_raise(key, item):
-    """A key for a site of the sibling routers' gossip names a check
-    the port does not have: it raises, naming its Queue 1 item, rather
-    than look armed. A key of the control plane's, the router's, the
-    backfill's, the retire pass's or the federated continuous queries'
-    sites (per-peer ones included) arms them, as in the reference,
-    which takes every key."""
-    JTSDB(JConfig(**{"tsd.tpu.platform": "cpu", key: "1"}))
-    if item is None:
-        t = TSDB(Config(**{"tsd.torch.device": "cpu", key: "1"}))
+@pytest.mark.parametrize("key", [
+    "tsd.faults.cluster.peer_error_rate",
+    "tsd.faults.cluster.peer.s1_error_count",
+    "tsd.faults.cluster.wire.s0.latency_ms",
+    "tsd.faults.cluster.cq.x.latency_ms",
+    "tsd.faults.cluster.cq_error_count",
+    "tsd.faults.cluster.reshard_error_count",
+    "tsd.faults.cluster.retire_error_once",
+    "tsd.faults.cluster.gossip.r1_error_rate",
+    "tsd.faults.control.qos_error_count",
+    "tsd.faults.control.placement.error_once"])
+def test_unported_site_keys_raise(key):
+    """A key of the control plane's, the router's, the backfill's, the
+    retire pass's, the federated continuous queries' or the sibling
+    routers' gossip's sites (per-peer ones included) arms its one site,
+    as the reference does: none of them is refused any longer."""
+    j = JTSDB(JConfig(**{"tsd.tpu.platform": "cpu", key: "1"}))
+    t = TSDB(Config(**{"tsd.torch.device": "cpu", key: "1"}))
+    try:
         sites = t.faults.health_info()["sites"]
         assert len(sites) == 1 and key.startswith(
             f"tsd.faults.{next(iter(sites))}")
+        assert sites == j.faults.health_info()["sites"]
+    finally:
         t.shutdown()
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"not ported yet \\(ROADMAP Queue 1, item "
-                       f"{item}"):
-        TSDB(Config(**{"tsd.torch.device": "cpu", key: "1"}))
+        j.shutdown()
 
 
 def test_unknown_site_key_warns_on_both(caplog):

@@ -210,8 +210,8 @@ def test_random_metric_uids_in_the_stats():
     assert ("uid.random-id-collisions", 0, {"kind": "metric"}) in rows
 
 
-# -- the cluster tier: what stays refused (ROADMAP Queue 1, 1.6d(iii)) and ---
-# -- what resharding (1.6d(ii)) brought -------------------------------------
+# -- the cluster tier: what resharding (1.6d(ii)) and the sibling routers ----
+# -- (1.6d(iii)) brought -----------------------------------------------------
 
 ROUTER = {**CPU, "tsd.cluster.role": "router",
           "tsd.cluster.peers": "s0=127.0.0.1:1,s1=127.0.0.1:2"}
@@ -222,15 +222,31 @@ JROUTER = {**JCPU, "tsd.cluster.role": "router",
 @pytest.mark.parametrize("key,value", [
     ("tsd.cluster.routers", "r1=127.0.0.1:9")])
 def test_replication_keys_refused(key, value):
-    """The sibling routers' gossip is item 1.6d(iii): the TSDB refuses
-    to build, where the reference serves it."""
-    j = JTSDB(JConfig(**{**JROUTER, key: value}))
-    j.shutdown()
-    with pytest.raises(NotImplementedError,
-                       match=f"{key}={value} .*ROADMAP Queue 1, item "
-                       "1.6d\\(iii\\)"):
-        TSDB(Config(**{**ROUTER, key: value}))
-    TSDB(Config(**{**ROUTER, key: ""})).shutdown()
+    """No longer refused: the sibling routers' gossip (1.6d(iii)) is
+    ported. A router naming a sibling builds in both packages with a
+    bus of that one sibling, whose health document is the same up to
+    the nonce and the clock; with the key empty there is no bus."""
+    docs = []
+    for tsdb in (JTSDB(JConfig(**{**JROUTER, key: value})),
+                 TSDB(Config(**{**ROUTER, key: value}))):
+        try:
+            bus = tsdb.cluster.gossip
+            assert sorted(bus.siblings) == ["r1"]
+            doc = bus.health_info()
+            assert len(doc.pop("nonce")) == 16
+            for sib in doc["siblings"].values():
+                sib.pop("last_ok_age_s")
+            docs.append(doc)
+        finally:
+            tsdb.shutdown()
+    assert docs[0] == docs[1]
+    assert docs[1]["degraded"] is False
+    assert docs[1]["siblings"]["r1"]["address"] == "127.0.0.1:9"
+    t = TSDB(Config(**{**ROUTER, key: ""}))
+    try:
+        assert t.cluster.gossip is None
+    finally:
+        t.shutdown()
 
 
 @pytest.mark.parametrize("rf", ["2", "3"])
@@ -329,8 +345,8 @@ def test_router_endpoints_refused(method, path, item):
 
 
 def test_gossip_answers_the_reference_s_400():
-    """No sibling routers can be named, so ``POST /api/cluster/gossip``
-    answers the reference's 400 for a router without them."""
+    """A router that names no sibling routers answers ``POST
+    /api/cluster/gossip`` with the reference's 400."""
     from opentsdb_tpu.tsd.http_api import HttpRequest as JRequest
     from opentsdb_tpu_torch.tsd.http_api import HttpRequest
     t, j = _router_pair()

@@ -758,10 +758,12 @@ def test_rollup_usage_is_part_of_the_cache_key():
     ("tsd.core.meta.enable_tsuid_tracking", "true"),
     ("tsd.core.tree.enable_processing", "true")])
 def test_unported_subsystem_keys_refused(key, value):
-    """The sibling routers' key still raises, naming its Queue 1 item;
-    the role (ported) builds a TSDB whose router, or its absence, is the
-    JAX package's; the replication factor (ported) builds a TSDB in both
-    packages; the meta and tree keys (ported) start a TSDB
+    """No longer refused: the sibling routers' key (ported) builds no
+    router on a TSDB of another role and a router with its gossip bus on
+    a router, in both packages; the role (ported) builds a TSDB whose
+    router, or its absence, is the JAX package's; the replication factor
+    (ported) builds a TSDB in both packages; the meta and tree keys
+    (ported) start a TSDB
     that tracks as the JAX package's does, and the lifecycle key
     (ported) one whose lifecycle describes itself as the JAX package's
     does."""
@@ -814,12 +816,21 @@ def test_unported_subsystem_keys_refused(key, value):
             (j.meta.track_ts, j.meta.track_uid, len(j.meta.ts_meta),
              dict(j.meta.ts_counters))
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"{key}={value} .*not ported yet \\(ROADMAP "
-                       "Queue 1, item 1.6d\\(iii\\), sibling routers\\)"):
-        TSDB(Config(**{"tsd.torch.device": "cpu", key: value}))
-    # the default, spelled out, is no refusal
-    TSDB(Config(**{"tsd.torch.device": "cpu", key: ""}))
+    assert key == "tsd.cluster.routers"
+    for role in ({}, {"tsd.cluster.role": "router",
+                      "tsd.cluster.peers": "s0=127.0.0.1:2"}):
+        t = TSDB(Config(**{"tsd.torch.device": "cpu", key: value, **role}))
+        j = JTSDB(JConfig(**{"tsd.tpu.platform": "cpu", key: value,
+                             **role}))
+        try:
+            if role:
+                assert sorted(t.cluster.gossip.siblings) == \
+                    sorted(j.cluster.gossip.siblings) == ["r1"]
+            else:
+                assert t.cluster is None and j.cluster is None
+        finally:
+            t.shutdown()
+            j.shutdown()
 
 
 def test_rollups_enable_is_ported():

@@ -53,15 +53,13 @@ def _tracer(side, **over):
 
 
 def test_known_spans_are_the_reference_s_but_cluster():
-    """The closed registry: the reference's names less the sibling
-    routers' gossip, which comes with that subsystem (ROADMAP Queue 1,
-    item 1.6d(iii)); the router's came with ``cluster/``, ``cluster.cq``
-    and ``cluster.cq.pump`` with the federated continuous queries, and
-    ``cluster.reshard.backfill`` and ``cluster.retire`` with
-    resharding."""
-    unported = {"cluster.gossip.push"}
-    assert unported <= JAX.trace.KNOWN_SPANS
-    assert PORT.trace.KNOWN_SPANS == JAX.trace.KNOWN_SPANS - unported
+    """The closed registry is the reference's: the router's names came
+    with ``cluster/``, ``cluster.cq`` and ``cluster.cq.pump`` with the
+    federated continuous queries, ``cluster.reshard.backfill`` and
+    ``cluster.retire`` with resharding, and ``cluster.gossip.push``
+    with the sibling routers."""
+    assert "cluster.gossip.push" in PORT.trace.KNOWN_SPANS
+    assert PORT.trace.KNOWN_SPANS == JAX.trace.KNOWN_SPANS
 
 
 def test_sampling_is_deterministic():
