@@ -57,7 +57,9 @@
    unblocked run's. Each
    answer is checked against the same query through the port on the
    CPU in float64 over a twentieth of its groups (each with all of its
-   series; ``CPU64_SHARE``, CUT from a tenth), two cold calls and the warm call (a prepared-batch hit;
+   series; ``CPU64_SHARE``, CUT from a tenth), the cold call, its
+   staged run (and a second cold call of the union query alone,
+   ``SECOND_COLD_QUERIES``: CUT from all four) and the warm call (a prepared-batch hit;
    1 with each stage timed once, ``IRREGULAR_REPEATS``, CUT from 3
    for the run's time) must give the same bits, and neither kernel may
    launch; prints
@@ -72,8 +74,8 @@
    to phase 3's float64 reference; HTTP p50 beside the direct p50 and
    the serializer's time. (b) The same at the default keys: a miss,
    then result-cache hits. (d) 4 concurrent clients of (a) (CUT from
-   8). (e) An
-   unported endpoint answers 501, a bad aggregator 400. (c) 250k points
+   8). (e) ``/q`` with no query and a bad aggregator answer 400;
+   then phase 24 (d) runs on the same server. (c) 250k points
    (CUT from 1M for the run's time, ``PUT_STEPS``)
    by ``/api/put`` in 1000-point bodies over 4 kept-alive connections
    and 200k telnet ``put`` lines, points/s of each, and an exact
@@ -474,12 +476,42 @@
    window open and one push from r1 finalizes it; every shard's route
    K1/K2 on 4 shards and both routers' reads held to numpy. Prints
    ``phase 23: N s`` and a ``gossip`` line;
-24. prints the run's wall time, the ``histogram``, ``rollup``,
+24. the command line, its codec and the rest of the HTTP surface, in
+   two parts. (a)-(c) run after phase 10's (d), on its directory (a
+   quarter of config 3, ``STORE_CUT``: a snapshot and a one-point WAL
+   tail) before it goes, with the point path's keys: (a) ``python3 -m
+   opentsdb_tpu_torch.tools.cli query ... sum:5m-avg:rate:sys.cpu.user
+   dc=*`` in a fresh process on the card (its wall seconds), its lines
+   equal to the reference's ``tsdb query`` format of phase 10 (a)'s
+   in-process answer and that answer held to the float64 numpy
+   reference; then ``cli.main`` in this process for ``rack=*``, one K2
+   launch, held the same way. (b) ``scan --import`` of ``dc0``-``dc4``
+   (12.5k series x 60 points, 750k lines; ``TOOLS_DCS``, CUT from
+   ``dc0``-``dc9``), gzipped, then
+   ``import`` into a fresh directory with the WAL (points/s beside
+   phase 9 (e)'s ``import_buffer``); a restart from it reads every
+   point back exactly, and ``{dc=*}`` there (one K1 launch) holds its
+   5 groups to the reference's. (c) ``fsck`` over the directory: 0
+   errors over 15M points (its seconds); on (b)'s directory a NaN and
+   a timestamp past ``MAX_VALID_MS`` written through the store:
+   ``fsck`` finds both (exit 1), ``fsck --fix`` fixes both, ``fsck``
+   again is clean, and ``{dc=*}`` equals its answer before the faults
+   bit for bit. (d) runs inside phase 8's server window: ``/q`` ascii
+   by ``dc`` (one K1 launch, equal to phase 8 (a)'s ``execute_query``
+   answer in the ascii format), JSON by ``rack`` (one K2 launch, equal
+   to phase 8 (a)'s ``/api/query`` body byte for byte), a 1024x768 PNG
+   by ``dc`` (one
+   K1 launch, and a second call from the disk cache with none; on a
+   host without matplotlib the reference's 501, which it says),
+   ``/s/index.html``, ``/`` and a traversal (404), ``tsdb check`` on
+   ``dc0`` three times with exit codes 0, 1 and 2 (thresholds from the
+   numpy sums), and ``cleancache``. Prints the seconds of each part;
+25. prints the run's wall time, the ``histogram``, ``rollup``,
    ``streaming``, ``surfaces``, ``mesh``, ``ops``, ``lifecycle``,
    ``obs``, ``cluster``, ``replication``, ``reshard`` and ``gossip``
    lines, one JSON line describing each kernel (its launches are those
-   of phases 3, 5, 8, 6, 15, 17, 19, 9, 10, 13, 14, 18, 20, 21, 22 and
-   23; phases 11, 12 and 16 launch neither on their paths), the card
+   of phases 3, 5, 8, 6, 15, 17, 19, 9, 10, 13, 14, 18, 20, 21, 22, 23
+   and 24; phases 11, 12 and 16 launch neither on their paths), the card
    line and, last,
    ``{"ok": true, "device": {...}}``. Each phase's header says how far
    into the run it starts.
@@ -554,6 +586,12 @@ JITTER_S = 10              # phase 7: whole seconds of jitter, 0-9
 # took 906.6 s on one H100 (phase 7 127.2 s), and a repeat of its three
 # unblocked queries' warm call and stages costs 3.1-4.5 s each
 IRREGULAR_REPEATS = 1
+# phase 7: the queries whose second cold call is held bit-equal to the
+# first, CUT from all four for the run's time (phase 24 added; each
+# big query's second cold call took 2.7-3.2 s on one H100 80GB HBM3 at
+# 700 W): the other three are held bit-equal to their staged run, a
+# second computation from the store up on the same path
+SECOND_COLD_QUERIES = (UNION_QUERY,)
 DROP = 0.02                # phase 7: share of points dropped
 # phases 7, 11: 1 in 20 groups held to CPU float64 (CUT from 1 in 10 for
 # the run's time when phase 19 came)
@@ -1418,11 +1456,13 @@ def put_points(port: int, metric: str, steps: int = PUT_STEPS) -> float:
     return secs
 
 
-def phase_front_end(torch, tsdb, query, ref3: dict,
-                    profile: bool) -> dict:
+def phase_front_end(torch, tsdb, query, ref3: dict, profile: bool,
+                    tools=None) -> dict:
     """Phase 8: the port's TSD server in process on an ephemeral port
-    over phase 3's TSDB and keys, driven over real sockets. Returns the
-    kernel launches of its HTTP queries in (a) and (d)."""
+    over phase 3's TSDB and keys, driven over real sockets. ``tools``,
+    called after (e) with the server's port, (a)'s answers as parsed
+    JSON and its GET bodies, runs phase 24 (d) in the same window.
+    Returns the kernel launches of its HTTP queries in (a) and (d)."""
     import http.client
     import socket
     import threading
@@ -1461,7 +1501,7 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
 
     try:
         # (a) POST and GET of each query: one launch of its kernel each
-        expected = {}
+        expected, get_bodies = {}, {}
         conn = connect()
         for m, kname in QUERIES:
             other = next(k for _, k in QUERIES if k != kname)
@@ -1483,6 +1523,7 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
                                                post_body(m))
                 else:
                     status, body, secs = _http(conn, "GET", get_path(m))
+                    get_bodies[m] = body
                 n = read_launches(fused)
                 check(status == 200, f"{m}: HTTP {status}: {body[:300]!r}")
                 check(n == {kname: 1, other: 0},
@@ -1569,17 +1610,19 @@ def phase_front_end(torch, tsdb, query, ref3: dict,
               f"equal to (a)'s; p50 {p50(lat) * 1e3:.3f} ms, p99 "
               f"{p99 * 1e3:.3f} ms, wall {wall * 1e3:.3f} ms; launches {n}")
 
-        # (e) an unported endpoint and a bad aggregator
+        # (e) a bad aggregator; /q with no m= (phase 24 (d) drives /q)
         conn = connect()
         status, body, _ = _http(conn, "GET", "/q")
-        check(status == 501 and b"not ported yet" in body,
-              f"an unported endpoint answered {status}")
+        check(status == 400 and b"Missing 'm' parameter" in body,
+              f"/q with no query answered {status}")
         status, body, _ = _http(conn, "GET", get_path(
             f"nope:{METRIC}{{dc=*}}"))
         check(status == 400 and b"No such aggregator" in body,
               f"a bad aggregator answered {status}")
         conn.close()
-        print("  (e) /q: 501 (not ported yet); a bad aggregator: 400")
+        print("  (e) /q with no m=: 400; a bad aggregator: 400")
+        if tools is not None:
+            tools(st.port, expected, get_bodies)
 
         # (c) writes: /api/put over kept-alive connections, then telnet
         put_metric, tel_metric = "sys.fe.put", "sys.fe.tel"
@@ -1826,9 +1869,10 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
               f"{m}: the warm calls left the cold call's path")
         check(same_bits(warm, cold),
               f"{m}: a warm call differs from its cold call")
-        tsdb.drop_caches()
-        check(same_bits(tsdb.execute_query(query(m, tz)), cold),
-              f"{m}: two cold calls differ in their bits")
+        if m in SECOND_COLD_QUERIES:
+            tsdb.drop_caches()
+            check(same_bits(tsdb.execute_query(query(m, tz)), cold),
+                  f"{m}: two cold calls differ in their bits")
         if profile:
             tsdb.drop_caches()
             device_share(torch, lambda: tsdb.execute_query(query(m, tz)),
@@ -1900,8 +1944,10 @@ def phase_irregular(torch, n_series: int, profile: bool) -> None:
               f"p50 {p50(warm_s) * 1e3:.3f} ms; peak device memory "
               f"{peak / 2**30:.3f} GiB (cold call); max_abs_err vs CPU "
               f"float64 {err:.6g} over groups 0-{held - 1} of {g} "
-              f"({cpu_s:.1f} s on the CPU); two cold "
-              "calls and the warm calls equal bit for bit")
+              f"({cpu_s:.1f} s on the CPU); "
+              + ("two cold calls" if m in SECOND_COLD_QUERIES else
+                 "the cold call, the staged run")
+              + " and the warm calls equal bit for bit")
         if runs:
             check(peak < staged_peak, f"{m}: the blocked run's peak is "
                   "not below the unblocked run's")
@@ -2058,6 +2104,7 @@ def phase_backends(torch, n_series: int, query) -> dict:
             imp_s = time.perf_counter() - t
             check(written == len(imports) and not errors,
                   f"import_buffer wrote {written}: {errors[:3]}")
+            READINGS["import_lines_per_s"] = len(imports) / imp_s
             said = (f"import_buffer {len(imports)} lines {imp_s:.3f} s "
                     f"({len(imports) / imp_s:,.0f} lines/s); ")
         else:
@@ -2174,11 +2221,13 @@ def kill_writer(n: int, keys: dict, log: Path) -> float:
     return acked_s
 
 
-def phase_durability(torch, n_series: int, query) -> dict:
+def phase_durability(torch, n_series: int, query, then=None) -> dict:
     """Phase 10: durability at config 3 with tsd.storage.data_dir (the
     WAL at fsync=always, snapshots) on the native store, on the point
-    path with the result cache off. Returns the kernel launches of its
-    queries."""
+    path with the result cache off. ``then(d, ref, values)`` runs last,
+    before the directories go (phase 24 (a)-(c)): ``d`` is (c)'s and
+    (d)'s directory, released, ``ref`` (a)'s TSDB and ``values`` the
+    data both hold. Returns the kernel launches of its queries."""
     import gc
     import shutil
     import tempfile
@@ -2363,12 +2412,19 @@ def phase_durability(torch, n_series: int, query) -> dict:
               f"{tail.recovery['replay_s']:.3f} s): the point read back, "
               f"and {m} equals the never-killed TSDB's after the same "
               "write bit for bit")
+        print(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
+        if then is not None:
+            crash(tail)          # the directory's WAL closed, no flush
+            del tail
+            gc.collect()
+            written = values.copy()
+            written[0, 10] = 1000.0     # T0 + 600 on series 0
+            then(root / "c", ref, written)
     finally:
         for t in open_dbs:
             t.wal.close()
         open_dbs.clear()
         shutil.rmtree(root, ignore_errors=True)
-    print(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -8494,6 +8550,353 @@ def phase_gossip(torch, data, card: str) -> tuple[dict, dict]:
     return launches, out
 
 
+# phase 24: the command line, its codec and the rest of the HTTP surface.
+# (a)-(c) run on phase 10's data directory after its (d): a quarter of
+# config 3 (STORE_CUT, 250k series x 60 points, 15M points) as a
+# snapshot and a one-point WAL tail, read through the port's
+# ``tools.cli``; (d) runs inside phase 8's server window, on phase 3's
+# TSDB and keys.
+# (b): the dc groups dumped by scan --import and re-imported: dc0-dc4
+# (12.5k series x 60 points), CUT from dc0-dc9 for the run's time
+TOOLS_DCS = 5
+TOOLS_TIMEOUT_S = 300      # (a): the subprocess query's own limit
+CHECK_DC = "dc0"           # (d): the group `tsdb check` reads
+
+
+def cli_lines(rows) -> list[str]:
+    """The reference's ``tsdb query`` lines of an answer
+    (``opentsdb_tpu/tools/cli.py:188-192``): metric, seconds, the value
+    (an int when whole), the sorted tags."""
+    out = []
+    for r in rows:
+        tag_str = " ".join(f"{k}={v}" for k, v in sorted(r.tags.items()))
+        for ts, v in r.dps:
+            val = int(v) if float(v).is_integer() else v
+            out.append(f"{r.metric} {ts // 1000} {val} {tag_str}".rstrip())
+    return out
+
+
+def run_cli(argv) -> tuple[int, str, float]:
+    """``opentsdb_tpu_torch.tools.cli.main(argv)`` in this process:
+    (exit code, its stdout, wall seconds)."""
+    import contextlib
+    import io
+    from opentsdb_tpu_torch.tools import cli
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(list(argv))
+    return code, out.getvalue(), time.perf_counter() - t
+
+
+def cli_query_args(m: str) -> list[str]:
+    """A URI sub-query as ``tsdb query``'s words: ``sum:...:metric
+    tagk=v ...``."""
+    spec, _, tags = m.rstrip("}").partition("{")
+    return [spec] + (tags.split(",") if tags else [])
+
+
+def phase_tools(torch, d: Path, ref, values, query) -> dict:
+    """Phase 24 (a)-(c): ``tsdb query``, ``scan --import``, ``import`` and
+    ``fsck`` on phase 10's directory ``d``. ``ref`` is phase 10 (a)'s
+    TSDB, which never died and took the same writes, and ``values`` the
+    data those writes leave. Returns the kernel launches of its
+    queries."""
+    import gzip
+    import tempfile
+    import numpy as np
+    from opentsdb_tpu_torch import TSDB, Config
+    from opentsdb_tpu_torch.ops import fused
+    from opentsdb_tpu_torch.tools.fsck import MAX_VALID_MS
+    t_phase = time.perf_counter()
+    launches = {"span_reduce": 0, "onehot_reduce": 0}
+    (m_dc, k1), (m_rack, k2) = QUERIES
+    window = [str(T0), str(T0 + POINTS * 60 - 1)]
+    flags = [f"--{k}={v}" for k, v in ENGINE_KEYS.items()]
+    refs = config3_reference(values)
+
+    def counted(kname: str, what: str, fn):
+        other = k2 if kname == k1 else k1
+        reset_launches(fused)
+        out = fn()
+        n = read_launches(fused)
+        check(n == {kname: 1, other: 0}, f"{what} launched {n}, not one "
+              f"{kname}")
+        launches[kname] += 1
+        return out
+
+    # (a) the entry point in a fresh process on the card, then in this one
+    cmd = [sys.executable, "-m", "opentsdb_tpu_torch.tools.cli", "query",
+           f"--tsd.storage.data_dir={d}", *flags, *window,
+           *cli_query_args(m_dc)]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=TOOLS_TIMEOUT_S)
+    sub_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"tsdb query exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    want = ref.execute_query(query(m_dc))
+    got = proc.stdout.splitlines()
+    check(got == cli_lines(want), "tsdb query's lines differ from the "
+          "reference's format of the in-process answer")
+    err = held_to_reference(want, refs[m_dc])
+    print(f"  (a) `tsdb query {' '.join(cli_query_args(m_dc))}` in a fresh "
+          f"process on the card (snapshot and WAL tail, point-path keys): "
+          f"{sub_s:.3f} s wall; {len(got)} lines, each the reference's "
+          f"format of phase 10 (a)'s in-process answer; max |d| vs the "
+          f"float64 numpy reference {err!r}")
+    code, out, cli_s = counted(k2, f"tsdb query {m_rack}", lambda: run_cli(
+        ["query", f"--tsd.storage.data_dir={d}", *flags, *window,
+         *cli_query_args(m_rack)]))
+    want_rack = ref.execute_query(query(m_rack))
+    check(code == 0 and out.splitlines() == cli_lines(want_rack),
+          f"tsdb query {m_rack} in process: exit {code}, lines differ")
+    err = held_to_reference(want_rack, refs[m_rack])
+    print(f"  (a) the same command in process for {m_rack}: {cli_s:.3f} s "
+          f"(snapshot load and the query), one {k2} launch, "
+          f"{len(out.splitlines())} lines as the reference's format; max "
+          f"|d| {err!r}")
+
+    # (b) scan --import of dc0-dc9, gzip, import into a fresh directory
+    root = Path(tempfile.mkdtemp(prefix="tsd-tools-"))
+    try:
+        dcs = [f"dc{i}" for i in range(TOOLS_DCS)]
+        code, dump, scan_s = run_cli(
+            ["scan", f"--tsd.storage.data_dir={d}", *flags, "--import",
+             *window, METRIC, f"dc={'|'.join(dcs)}"])
+        rows_in = np.flatnonzero(np.arange(len(values)) % 100 < TOOLS_DCS)
+        n_lines = len(rows_in) * POINTS
+        check(code == 0 and dump.count("\n") == n_lines,
+              f"scan --import: exit {code}, {dump.count(chr(10))} lines, "
+              f"not {n_lines}")
+        gz = root / "dump.txt.gz"
+        t = time.perf_counter()
+        gz.write_bytes(gzip.compress(dump.encode(), compresslevel=1))
+        gz_s = time.perf_counter() - t
+        del dump
+        e = root / "imported"
+        code, out, imp_s = run_cli(
+            ["import", f"--tsd.storage.data_dir={e}",
+             "--tsd.core.auto_create_metrics=true", *flags, str(gz)])
+        check(code == 0 and f"imported {n_lines} data points" in out,
+              f"import: exit {code}: {out[-500:]}")
+        phase9 = READINGS.get("import_lines_per_s")
+        print(f"  (b) scan --import of {'-'.join(dcs[::len(dcs) - 1])}: "
+              f"{n_lines} lines in {scan_s:.3f} s (snapshot load, the "
+              f"none query, formatting); gzip {gz.stat().st_size} bytes "
+              f"in {gz_s:.3f} s; import with the WAL into a fresh "
+              f"directory {imp_s:.3f} s ({n_lines / imp_s:,.0f} points/s, "
+              "the snapshot at the end included"
+              + (f"; phase 9 (e)'s import_buffer {phase9:,.0f} lines/s)"
+                 if phase9 else ")"))
+        keys = {"tsd.torch.device": "cuda", **ENGINE_KEYS,
+                "tsd.storage.data_dir": str(e)}
+        t = time.perf_counter()
+        back = TSDB(Config(**keys))
+        open_s = time.perf_counter() - t
+        counts, ts, vals, _ = back.store.read_all()
+        hosts = {i: int(n[1:]) for n, i in back.uids.tag_values.items()
+                 if n.startswith("h")}
+        hk = back.uids.tag_names.get_id("host")
+        order = np.asarray([hosts[dict(tags)[hk]]
+                            for _, tags in back.store.series_identities()])
+        check(len(order) == len(rows_in) and bool((counts == POINTS).all())
+              and np.array_equal(np.sort(order), rows_in),
+              f"read back {len(order)} series, not {len(rows_in)}")
+        # the scan prints what the engine returns: at the default
+        # tsd.torch.dtype, D's values rounded to float32 (as the
+        # reference's scan on its float32 device)
+        want_ts = (T0 + 60 * np.arange(POINTS, dtype=np.int64)) * 1000
+        dumped = values[order].astype(np.float32).astype(np.float64)
+        check(np.array_equal(ts.reshape(-1, POINTS),
+                             np.broadcast_to(want_ts, (len(order), POINTS)))
+              and np.array_equal(vals.reshape(-1, POINTS).view(np.int64),
+                                 dumped.view(np.int64)),
+              "the imported points differ from the scanned ones")
+        before = counted(k1, f"{m_dc} on the imported data",
+                         lambda: back.execute_query(query(m_dc)))
+        key, prefix, wv, terms = refs[m_dc]
+        err = held_to_reference(before, (key, prefix, wv[:TOOLS_DCS],
+                                         terms[:TOOLS_DCS]))
+        back.shutdown(flush=False)
+        del back
+        print(f"  (b) restart from it: {open_s:.3f} s; {len(order)} series "
+              f"x {POINTS} points read back exactly as scanned (timestamps, "
+              f"and the value bits of D's points in float32, the engine's "
+              f"dtype); {m_dc} there: one {k1} launch, {len(before)} "
+              f"groups held to D's {len(before)} by phase 2's rule, max |d| "
+              f"{err!r}")
+
+        # (c) fsck over D, then two injected faults on (b)'s directory
+        code, out, fsck_s = run_cli(["fsck", f"--tsd.storage.data_dir={d}",
+                                     *flags])
+        check(code == 0 and out == "Total errors: 0\n",
+              f"fsck over D: exit {code}: {out[-500:]}")
+        print(f"  (c) fsck over D ({len(values) * POINTS} points, "
+              f"{len(values)} series): 0 errors, {fsck_s:.3f} s (snapshot "
+              "load and the scan)")
+        hurt = TSDB(Config(**keys))
+        sid = 0
+        hurt.store.append(sid, T0 * 1000 + 30_000, float("nan"))
+        hurt.store.append(sid, MAX_VALID_MS + 1000, 1.0)
+        hurt.shutdown()          # the snapshot holds both
+        del hurt
+        code, out, s1 = run_cli(["fsck", f"--tsd.storage.data_dir={e}",
+                                 *flags])
+        lines = out.splitlines()
+        check(code == 1 and lines[-1] == "Total errors: 2"
+              and any("1 non-finite value(s)" in ln for ln in lines)
+              and any("1 timestamp(s) out of range" in ln for ln in lines),
+              f"fsck after the injection: exit {code}: {out[-500:]}")
+        code, out, s2 = run_cli(["fsck", f"--tsd.storage.data_dir={e}",
+                                 *flags, "--fix"])
+        check(code == 0 and out.splitlines()[-1]
+              == "Total errors: 2  (fixed: 2)",
+              f"fsck --fix: exit {code}: {out[-500:]}")
+        code, out, s3 = run_cli(["fsck", f"--tsd.storage.data_dir={e}",
+                                 *flags])
+        check(code == 0 and out == "Total errors: 0\n",
+              f"fsck after --fix: exit {code}: {out[-500:]}")
+        fixed = TSDB(Config(**keys))
+        after = counted(k1, f"{m_dc} after the repair",
+                        lambda: fixed.execute_query(query(m_dc)))
+        fixed.shutdown(flush=False)
+        del fixed
+        check(same_bits(after, before), f"{m_dc} after the repair differs "
+              "from the answer before the injection")
+        print(f"  (c) on (b)'s directory, a NaN at T0+30 s and a point past "
+              f"MAX_VALID_MS on series 0: fsck found both ({s1:.3f} s, exit "
+              f"1), fsck --fix fixed both ({s2:.3f} s), fsck again clean "
+              f"({s3:.3f} s); {m_dc} after the repair equals the answer "
+              "before the injection bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 24 (a)-(c): {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_graph(torch, tsdb, port: int, query, ref3: dict, values,
+                answers: dict, get_bodies: dict) -> dict:
+    """Phase 24 (d), inside phase 8's server window (phase 3's TSDB and
+    keys, the point path): ``/q`` ascii, JSON and PNG, ``/s``, ``/``,
+    ``tsdb check`` and ``cleancache``. ``values`` is phase 3's data,
+    ``answers`` phase 8 (a)'s ``execute_query`` answers through the
+    serializer (parsed) and ``get_bodies`` its ``/api/query`` GET
+    bodies, on the same data and keys. Returns the kernel launches of
+    its queries."""
+    import http.client
+    import struct
+    import tempfile
+    import urllib.parse
+    import numpy as np
+    from opentsdb_tpu_torch.ops import fused
+    t_phase = time.perf_counter()
+    launches = {"span_reduce": 0, "onehot_reduce": 0}
+    (m_dc, k1), (m_rack, k2) = QUERIES
+    q0 = query(m_dc)
+    start, end = q0.start, q0.end
+    cache = Path(tempfile.mkdtemp(prefix="tsd-qcache-"))
+    tsdb.config.override_config("tsd.http.cachedir", str(cache))
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+
+    def path(endpoint: str, m: str, *flags: str) -> str:
+        return (f"{endpoint}?" + urllib.parse.urlencode(
+            {"start": start, "end": end, "m": m})
+            + "".join(f"&{f}" for f in flags))
+
+    def get(p: str, kname: str | None):
+        """GET ``p``; ``kname`` must launch once (None: no launch)."""
+        reset_launches(fused)
+        status, body, secs = _http(conn, "GET", p)
+        n = read_launches(fused)
+        want = {k: int(k == kname) for k in launches}
+        check(n == want, f"GET {p[:80]} launched {n}, not {want}")
+        if kname is not None:
+            launches[kname] += 1
+        return status, body, secs
+
+    try:
+        status, body, secs = get(path("/q", m_dc, "ascii"), k1)
+        # _render's ascii lines of execute_query's answer (its JSON
+        # carries each value's float64 repr, so the floats are exact)
+        want = "\n".join(
+            f"{r['metric']} {int(ts)} {v:g} "
+            f"{' '.join(f'{k}={x}' for k, x in sorted(r['tags'].items()))}"
+            .rstrip() for r in answers[m_dc]
+            for ts, v in r["dps"].items()).encode()
+        check(status == 200 and body == want,
+              f"/q ascii: HTTP {status}, body differs from execute_query's")
+        n_lines = len(body.splitlines())
+        print(f"  (d) /q {m_dc} ascii: {secs * 1e3:.3f} ms, one {k1} launch, "
+              f"{n_lines} lines equal to execute_query's answer in "
+              "_render's ascii format")
+        status, body, secs = get(path("/q", m_rack, "json"), k2)
+        check(status == 200 and body == get_bodies[m_rack],
+              "/q json differs from phase 8 (a)'s /api/query body")
+        wv, terms = ref3[m_rack]
+        err = compare(_fe_values(json.loads(body), wv.shape[0],
+                                 wv.shape[1] + 1), wv, terms)
+        print(f"  (d) /q {m_rack} json: {secs * 1e3:.3f} ms, one {k2} "
+              f"launch, {len(body)} bytes equal to phase 8 (a)'s "
+              f"/api/query GET body byte for byte; max |d| vs phase 3's "
+              f"reference {err!r}")
+        png = path("/q", m_dc, "wxh=1024x768")
+        status, body, secs = get(png, k1)
+        if status == 200:
+            w, h = struct.unpack(">II", body[16:24])
+            check(body[:8] == b"\x89PNG\r\n\x1a\n" and (w, h) == (1024, 768),
+                  f"/q png: {(w, h)}")
+            s2, again, secs2 = get(png, None)
+            check(s2 == 200 and again == body, "the cached PNG differs")
+            said = (f"200 image/png {w}x{h} in {secs * 1e3:.3f} ms (one "
+                    f"{k1} launch, the M4 budget of 1024 px after it); "
+                    f"again from the disk cache in {secs2 * 1e3:.3f} ms, "
+                    "no launch")
+        else:
+            check(status == 501 and b"Graphing requires matplotlib" in body,
+                  f"/q png: HTTP {status}: {body[:300]!r}")
+            said = (f"501 (no matplotlib on this host: the reference's "
+                    f"answer) after one {k1} launch, {secs * 1e3:.3f} ms")
+        print(f"  (d) /q {m_dc} wxh=1024x768: {said}")
+        for p, want_status in (("/s/index.html", 200), ("/", 200),
+                               ("/s/../../etc/passwd", 404)):
+            status, body, _ = get(p, None)
+            check(status == want_status, f"GET {p}: HTTP {status}")
+        print("  (d) /s/index.html 200, / 200 (the same page), "
+              "/s/../../etc/passwd 404")
+        # tsdb check over /q?...&ascii&nagios, thresholds from the
+        # reference's answer: the sum over dc0's series at each minute
+        dc0 = values[int(CHECK_DC[2:])::100]
+        top = float(dc0.sum(axis=0).max())
+        base = ["check", "-H", "127.0.0.1", "-p", str(port), "-m", METRIC,
+                "-t", f"dc={CHECK_DC}", "-d", str(POINTS * 60),
+                "-N", str(T0 + POINTS * 60)]
+        said = []
+        for thresholds, want_code in ((["-c", str(2 * top)], 0),
+                                      (["-w", str(top / 2), "-c",
+                                        str(2 * top)], 1),
+                                      (["-c", str(top / 2)], 2)):
+            code, out, secs = run_cli(base + thresholds)
+            check(code == want_code and f"{POINTS}" in out,
+                  f"tsdb check {thresholds}: exit {code}: {out!r}")
+            said.append(f"exit {code} {secs * 1e3:.1f} ms")
+        print(f"  (d) tsdb check -m {METRIC} -t dc={CHECK_DC} (the sum of "
+              f"{len(dc0)} series, {POINTS} points, max {top:.1f}) with "
+              "-c above it, -w below and -c above, -c below: "
+              + ", ".join(said))
+        code, out, _ = run_cli(["cleancache",
+                                f"--tsd.http.cachedir={cache}"])
+        check(code == 0 and out.startswith("removed ")
+              and not cache.exists(), f"cleancache: {out!r}")
+        print(f"  (d) cleancache: {out.strip()}")
+    finally:
+        conn.close()
+        shutil.rmtree(cache, ignore_errors=True)
+    print(f"  phase 24 (d): {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {launches}")
+    return launches
+
+
 def p50(xs) -> float:
     return statistics.median(xs)
 
@@ -8778,8 +9181,16 @@ def main() -> int:
     # that makes one series irregular (the kernels need regular rows)
     header("phase 8: the front end on the card (TSDServer, HTTP and "
            "telnet over sockets)")
+
+    def graphs(port: int, answers: dict, get_bodies: dict) -> None:
+        header("phase 24 (d): /q, /s, tsdb check and cleancache on phase "
+               f"8's server, {s} series, the point-path keys")
+        for kname, n in phase_graph(torch, tsdb, port, query, ref3,
+                                    values, answers, get_bodies).items():
+            launches[kname] += n
+
     for kname, n in phase_front_end(torch, tsdb, query, ref3,
-                                    args.profile).items():
+                                    args.profile, graphs).items():
         launches[kname] += n
     header("phase 6: the serve path at the default keys (result cache, "
            "tag-matrix cache, sub-query fan-out)")
@@ -8843,7 +9254,16 @@ def main() -> int:
         launches[kname] += n
     header(f"phase 10: durability, {cut} series x {POINTS} points (CUT "
            "from 1,000,000), tsd.storage.data_dir on the native store")
-    for kname, n in phase_durability(torch, cut, query).items():
+
+    def tools(d: Path, ref, written) -> None:
+        header(f"phase 24 (a)-(c): tsdb query, scan --import, import and "
+               f"fsck on phase 10's directory, {cut} series x {POINTS} "
+               "points (CUT from 1,000,000), the point-path keys "
+               f"(|got - want| <= {TOL_REL}*sum|terms| + {TOL_ABS})")
+        for kname, n in phase_tools(torch, d, ref, written, query).items():
+            launches[kname] += n
+
+    for kname, n in phase_durability(torch, cut, query, tools).items():
         launches[kname] += n
     header(f"phase 11: blocked long ranges, {s} series x {LONG_POINTS} "
            "points" + ("" if s == 1_000_000 else " (CUT from 1,000,000)")

@@ -501,6 +501,103 @@ class TimeSeriesStore:
             self.mutation_epoch += 1
             return total
 
+    def repair_series(self, series_id: int, min_ts: int, max_ts: int,
+                      drop_nonfinite: bool = True) -> int:
+        """fsck's in-place repair (ref: ``TimeSeriesStore.repair_series``,
+        Fsck.java:99-119): drop the series' points outside ``[min_ts,
+        max_ts]`` and, with ``drop_nonfinite``, its NaN and infinite
+        values. Returns the points removed. As ``delete_range``, the
+        columns are replaced and the mutation version bumps, so every
+        read-side cache sees the repair."""
+        with self._lock:
+            if not 0 <= series_id < self._num_series:
+                raise IndexError(f"no such series {series_id}")
+            self._fold_locked()
+            offsets, ts, vals = self._offsets, self._ts, self._vals
+            lo, hi = int(offsets[series_id]), int(offsets[series_id + 1])
+            ok = (ts[lo:hi] >= min_ts) & (ts[lo:hi] <= max_ts)
+            if drop_nonfinite:
+                ok &= np.isfinite(vals[lo:hi])
+            removed = (hi - lo) - int(ok.sum())
+            if removed == 0:
+                return 0
+            keep = np.ones(len(ts), dtype=bool)
+            keep[lo:hi] = ok
+            new_offsets = offsets.copy()
+            new_offsets[series_id + 1:] -= removed
+            self._offsets, self._ts, self._vals, self._ints = \
+                new_offsets, ts[keep], vals[keep], self._ints[keep]
+            self.mutation_epoch += 1
+            return removed
+
+    def patch_value(self, series_id: int, ts_ms: int, value: float,
+                    is_int: bool = False) -> None:
+        """fsck's in-place repair: overwrite the value at an exact
+        timestamp (ref: ``TimeSeriesStore.patch_value``; KeyError when
+        the series has no point there)."""
+        with self._lock:
+            if not 0 <= series_id < self._num_series:
+                raise IndexError(f"no such series {series_id}")
+            self._fold_locked()
+            lo, hi = (int(self._offsets[series_id]),
+                      int(self._offsets[series_id + 1]))
+            i = lo + int(np.searchsorted(self._ts[lo:hi], ts_ms))
+            if i >= hi or self._ts[i] != ts_ms:
+                raise KeyError(f"series {series_id} has no point at "
+                               f"{ts_ms}")
+            vals, ints = self._vals.copy(), self._ints.copy()
+            vals[i], ints[i] = value, is_int
+            self._vals, self._ints = vals, ints
+            self._may_hold_nan |= bool(np.isnan(value))
+            self.mutation_epoch += 1
+
+    def fold(self) -> None:
+        """Fold the pending writes into the sorted columns: the sort and
+        the last-write-wins dedupe ``fsck --fix`` forces (ref: the
+        reference buffer's ``view()``)."""
+        with self._lock:
+            self._fold_locked()
+
+    def fsck_columns(self) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                    np.ndarray, np.ndarray]:
+        """What fsck checks, without folding (ref: ``tools/fsck.py``'s
+        read of each series' buffer): (counts int64 [S], ts int64,
+        values float64, unsorted bool [S], distinct int64 [S]). The
+        points are grouped by series, each series' points in the order
+        they were written since the last fold, pending duplicates
+        included; a series is unsorted when one of its points is not
+        later than the one written before it, and ``distinct`` counts
+        its distinct timestamps."""
+        with self._lock:
+            offsets, ts, vals = self._offsets, self._ts, self._vals
+            parts = list(self._pending)
+            n_series = self._num_series
+        folded = np.diff(offsets)
+        if not parts:
+            counts = np.zeros(n_series, dtype=np.int64)
+            counts[:len(folded)] = folded
+            return (counts, ts, vals, np.zeros(n_series, dtype=bool),
+                    counts.copy())
+        sid = np.concatenate(
+            [np.repeat(np.arange(len(folded), dtype=np.int64), folded)]
+            + [p[0] for p in parts])
+        ts = np.concatenate([ts] + [p[1] for p in parts])
+        vals = np.concatenate([vals] + [p[2] for p in parts])
+        # stable: each series keeps its write order
+        order = np.argsort(sid, kind="stable")
+        sid, ts, vals = sid[order], ts[order], vals[order]
+        counts = np.bincount(sid, minlength=n_series).astype(np.int64)
+        step_back = (sid[1:] == sid[:-1]) & (ts[1:] <= ts[:-1])
+        unsorted = np.zeros(n_series, dtype=bool)
+        unsorted[sid[1:][step_back]] = True
+        by_ts = np.lexsort((ts, sid))
+        s2, t2 = sid[by_ts], ts[by_ts]
+        first = np.ones(len(s2), dtype=bool)
+        first[1:] = (s2[1:] != s2[:-1]) | (t2[1:] != t2[:-1])
+        distinct = np.bincount(s2[first], minlength=n_series) \
+            .astype(np.int64)
+        return counts, ts, vals, unsorted, distinct
+
     def _columns(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         with self._lock:
             self._fold_locked()

@@ -814,14 +814,17 @@ class TSDB:
         if self.wal is not None:
             self.wal.truncate(wal_seq)
 
-    def shutdown(self) -> None:
+    def shutdown(self, flush: bool = True) -> None:
         """Stop the control plane first (it steers the rest), the
         self-telemetry pump, the profiler, a running warmup, the
         cluster router (its replay thread, wire links and fan-out pool)
         and the lifecycle's sweeper, close the query-shape log, flush, stop the
         continuous queries' fold workers and the fan-out pool (waiting
         for every thread to end), close the WAL, then shut the realtime
-        publisher and the search plugin down (ref: ``TSDB.shutdown``)."""
+        publisher and the search plugin down (ref: ``TSDB.shutdown``).
+        ``flush=False`` leaves the snapshot as it is (the command line's
+        read-only commands, which the reference does not flush): what
+        was written since is in the WAL."""
         if self._control is not None:
             self._control.stop()
         self.telemetry.stop()
@@ -833,7 +836,8 @@ class TSDB:
         if self._lifecycle is not None:
             self._lifecycle.stop()
         self.tracer.close()
-        self.flush()
+        if flush:
+            self.flush()
         if self._streaming is not None:
             self._streaming.shutdown()
         with self._device_cache_lock:

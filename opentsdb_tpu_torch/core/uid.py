@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import bisect
 import random
+import re
 import threading
 from typing import Iterable
 
@@ -113,6 +114,24 @@ class UniqueId:
             self._name_to_id[new_name] = uid
             self._id_to_name[uid] = new_name
             self._sorted_names = None
+
+    def delete(self, name: str) -> None:
+        """Forget a name and its UID (ref: UniqueId.java deleteAsync;
+        ``tsdb uid delete``). The UID is not reused, and no WAL record
+        is written: the caller's flush makes it durable."""
+        with self._lock:
+            if name not in self._name_to_id:
+                raise NoSuchUniqueName(self.kind, name)
+            uid = self._name_to_id.pop(name)
+            self._id_to_name.pop(uid, None)
+            self._sorted_names = None
+
+    def grep(self, regex: str) -> list[str]:
+        """The names ``regex`` matches anywhere (``re.search``),
+        sorted (ref: UidManager grep; ``tsdb uid grep``)."""
+        pat = re.compile(regex)
+        with self._lock:
+            return sorted(n for n in self._name_to_id if pat.search(n))
 
     def get_or_create_id(self, name: str) -> int:
         """(ref: UniqueId.java:596-625, getOrCreateId :865)"""

@@ -258,6 +258,16 @@ class NativeTimeSeriesStore:
             raise KeyError(f"series {series_id} has no point at {ts_ms}")
         self.mutation_epoch += 1
 
+    def fsck_columns(self) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                    np.ndarray, np.ndarray]:
+        """What fsck checks (the memory store's ``fsck_columns``): each
+        series' canonical points, sorted and deduped as the store keeps
+        them, so no series is unsorted and every timestamp is
+        distinct."""
+        counts, ts, vals, _ = self.read_all()
+        return (counts, ts, vals, np.zeros(len(counts), dtype=bool),
+                counts.copy())
+
     # -- read path --------------------------------------------------------
 
     def metric_ids(self) -> list[int]:

@@ -28,12 +28,11 @@ the observability surface (``/api/health``, ``/api/trace``
 (+``/<id>``), ``/api/profile``, ``/metrics``, ``/logs``), the control
 plane (``/api/control`` (+``/materialized``, ``/plan``, ``/tick``)),
 the cluster surface (``/api/cluster`` (+``/status``, ``/reshard``),
-``/api/stats/fleet``), ``/diediedie``, and the legacy unversioned
-aliases. Every other
-endpoint of the reference's surface needs a subsystem the port does
-not have yet and answers a structured 501 naming the ROADMAP item that
-ports it (:data:`UNPORTED`); a path the reference does not know
-answers 404.
+``/api/stats/fleet``), ``/diediedie``, the legacy unversioned
+aliases, the ``/q`` graphs (:mod:`opentsdb_tpu_torch.tsd.graph`: ascii,
+JSON and PNG), the static files under ``/s`` (``tsd.http.staticroot``,
+by default the package's ``tsd/static``), ``/favicon.ico`` and the
+dashboard at ``/``. A path the reference does not know answers 404.
 
 On a cluster router (``tsd.cluster.role = router``,
 :mod:`opentsdb_tpu_torch.cluster.router`) the router owns no data:
@@ -117,18 +116,6 @@ from opentsdb_tpu_torch.utils.faults import DegradedError
 from opentsdb_tpu_torch.utils.logring import ring_buffer
 from opentsdb_tpu_torch.utils.plugin import load_class, load_plugin_instances
 
-# the ROADMAP Queue 1 item that ports what is left
-_REST = "the rest, with no device compute"
-
-# endpoint -> the ROADMAP Queue 1 item that ports it: /api/<name>, or
-# "stats/<name>" and "query/<name>" for sub-endpoints, or "/<name>" for
-# paths outside /api
-UNPORTED: dict[str, tuple[str, str]] = {
-    "/q": (_REST, "tsd/graph.py (graphs)"),
-    "/s": (_REST, "static files"),
-}
-
-
 def api_endpoint(path: str) -> str:
     """The path's first endpoint segment with the ``/api[/vN]`` prefix
     stripped (agreeing with :meth:`HttpRpcRouter._dispatch`'s parse)."""
@@ -147,14 +134,6 @@ _ROUTER_REFUSED = ("uid", "annotation", "annotations", "tree", "rollup",
 
 # the endpoints the SLO tracker holds to objectives (ref: _slo_endpoint)
 _SLO_ENDPOINTS = {"query": "query", "q": "query", "put": "put"}
-
-
-def _not_ported(endpoint: str) -> NotImplementedError:
-    item, what = UNPORTED[endpoint]
-    path = endpoint if endpoint.startswith("/") else f"/api/{endpoint}"
-    return NotImplementedError(
-        f"{path} is not ported yet: it needs {what} "
-        f"(ROADMAP Queue 1, {item})")
 
 
 @dataclass
@@ -328,9 +307,6 @@ class HttpRpcRouter:
             "trace": self._handle_trace,
             "version": self._handle_version,
         })
-        for name in UNPORTED:
-            if "/" not in name:
-                self._routes[name] = self._unported(name)
         # set by TSDServer so HTTP diediedie can request shutdown
         self.server = None
         # /plugin/<path> endpoints (ref: HttpRpcPlugin.java:40,
@@ -340,12 +316,6 @@ class HttpRpcRouter:
             for plugin in load_plugin_instances(
                 tsdb.config, "tsd.http.rpc", init_arg=tsdb)}
         self.start_time = time.time()
-
-    @staticmethod
-    def _unported(name: str) -> Callable:
-        def handler(request: HttpRequest, rest) -> HttpResponse:
-            raise _not_ported(name)
-        return handler
 
     # ------------------------------------------------------------------
 
@@ -449,7 +419,7 @@ class HttpRpcRouter:
         path = urllib.parse.unquote(request.path.split("?", 1)[0])
         parts = [p for p in path.split("/") if p]
         if not parts:
-            return self._homepage()
+            return self._homepage(request)
         # /api/[vN/]endpoint/...  (ref: HttpQuery.explodeAPIPath)
         if parts[0] == "api":
             parts = parts[1:]
@@ -464,8 +434,11 @@ class HttpRpcRouter:
             if not parts:
                 raise HttpError(400, "Missing API endpoint")
             endpoint, rest = parts[0], parts[1:]
-        elif f"/{parts[0]}" in UNPORTED:
-            raise _not_ported(f"/{parts[0]}")
+        elif parts[0] == "q":
+            from opentsdb_tpu_torch.tsd.graph import handle_graph
+            return handle_graph(self, request)
+        elif parts[0] == "s":
+            return self._handle_static(request, parts[1:])
         elif parts[0] == "metrics":
             # OpenMetrics, outside /api where Prometheus scrapes
             return self._handle_metrics(request)
@@ -478,8 +451,12 @@ class HttpRpcRouter:
                                 "The requested endpoint was not found")
             return plugin.execute(self.tsdb, request)
         elif parts[0] == "favicon.ico":
-            # (ref: the static favicon, else an empty 204)
-            return HttpResponse(204)
+            # (ref: RpcManager http.put("favicon.ico", staticfile), an
+            # empty 204 when the static root has none)
+            try:
+                return self._handle_static(request, ["favicon.ico"])
+            except HttpError:
+                return HttpResponse(204)
         elif parts[0] == "diediedie":
             # graceful shutdown over HTTP (ref: RpcManager DieDieDie)
             if self.server is not None:
@@ -2009,11 +1986,38 @@ class HttpRpcRouter:
         return HttpResponse(200, request.serializer.format_version(
             version_info()))
 
-    @staticmethod
-    def _homepage() -> HttpResponse:
-        """(ref: HomePage; the port serves no static dashboard yet)"""
+    def _homepage(self, request: HttpRequest) -> HttpResponse:
+        """The dashboard, ``index.html`` of the static root (ref:
+        HomePage serving the GWT QueryUi; ``_homepage``), or a short
+        page when the root has none."""
+        page = os.path.join(self._static_root(), "index.html")
+        if os.path.isfile(page):
+            with open(page, "rb") as fh:
+                return HttpResponse(200, fh.read(),
+                                    content_type="text/html; charset=UTF-8")
         body = (b"<html><head><title>opentsdb_tpu_torch</title></head>"
                 b"<body><h1>opentsdb_tpu_torch " + __version__.encode() +
                 b"</h1><p>See /api/version, /api/aggregators, /api/query"
                 b"</p></body></html>")
         return HttpResponse(200, body, content_type="text/html")
+
+    def _static_root(self) -> str:
+        return self.tsdb.config.get_string("tsd.http.staticroot", "") \
+            or os.path.join(os.path.dirname(__file__), "static")
+
+    def _handle_static(self, request: HttpRequest, rest) -> HttpResponse:
+        """A file under the static root (ref: StaticFileRpc.java:20).
+        The resolved path must be the root or lie under it, compared
+        with the separator, so neither ``..`` nor a sibling directory
+        sharing the root's name as a prefix gets out."""
+        import mimetypes
+        root = self._static_root()
+        root_real = os.path.realpath(root)
+        full = os.path.realpath(os.path.join(root, "/".join(rest)))
+        if (full != root_real
+                and not full.startswith(root_real + os.sep)) \
+                or not os.path.isfile(full):
+            raise HttpError(404, "File not found")
+        ctype = mimetypes.guess_type(full)[0] or "application/octet-stream"
+        with open(full, "rb") as fh:
+            return HttpResponse(200, fh.read(), content_type=ctype)

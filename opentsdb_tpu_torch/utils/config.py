@@ -17,6 +17,8 @@ is not silently ignored.
 from __future__ import annotations
 
 import logging
+import os
+import tempfile
 from typing import Any
 
 from opentsdb_tpu_torch.utils.plugin import PLUGIN_SLOTS
@@ -41,7 +43,16 @@ _DEFAULTS: dict[str, str] = {
         "Authorization, Content-Type, Accept, Origin, User-Agent, DNT, "
         "Cache-Control, X-Mx-ReqToken, Keep-Alive, X-Requested-With, "
         "If-Modified-Since"),
+    # the /q PNG cache (ref: "/tmp/opentsdb_tpu"; here under the
+    # process's temporary directory, apart from the JAX package's)
+    "tsd.http.cachedir": os.path.join(tempfile.gettempdir(),
+                                      "opentsdb_tpu_torch"),
+    # "" = the package's own tsd/static
+    "tsd.http.staticroot": "",
     "tsd.http.show_stack_trace": "false",
+    # /q PNG renders apply an M4 pixel budget equal to the chart width
+    # (opt out per request with downsample=0px)
+    "tsd.http.graph.auto_pixels": "true",
     # ms a query may take before the server answers 504; 0: no limit
     "tsd.query.timeout": "0",
     "tsd.query.allow_simultaneous_duplicates": "true",
@@ -370,24 +381,6 @@ DYNAMIC_KEY_PREFIXES: tuple[str, ...] = ("tsd.faults.",
                                          "tsd.lifecycle.policy.")
 
 
-# keys of parts the port has not ported yet: key (or family, ending in
-# ".") -> the ROADMAP Queue 1 item that reads it. An unknown-key
-# warning names the item instead of suggesting a typo.
-LATER_ITEM_KEYS: dict[str, str] = {
-    "tsd.http.staticroot": "item 1.8, /q and /s",
-    "tsd.http.cachedir": "item 1.8, /q and /s",
-    "tsd.http.graph.auto_pixels": "item 1.8, /q and /s",
-}
-
-
-def later_item(key: str) -> str | None:
-    """The ROADMAP Queue 1 item that will read ``key``, or None."""
-    for k, item in LATER_ITEM_KEYS.items():
-        if key == k or (k.endswith(".") and key.startswith(k)):
-            return item
-    return None
-
-
 def is_declared_key(key: str) -> bool:
     """Whether the port reads ``key``: a default, a call-site default,
     a dynamic family or a plugin slot's enable and plugin keys."""
@@ -399,13 +392,52 @@ def is_declared_key(key: str) -> bool:
                for slot in PLUGIN_SLOTS)
 
 
-class Config:
-    """(ref: src/utils/Config.java:52)"""
+# where a config is looked for when none is named (ref: Config.java's
+# search path, ``opentsdb_tpu/utils/config.py``)
+_SEARCH_PATHS = (
+    "./opentsdb.conf",
+    "/etc/opentsdb.conf",
+    "/etc/opentsdb/opentsdb.conf",
+    "/opt/opentsdb/opentsdb.conf",
+)
 
-    def __init__(self, **overrides: Any):
+
+class Config:
+    """(ref: src/utils/Config.java:52) The defaults, then a properties
+    file (``config_file``, or with ``auto_load`` the first file of the
+    search path that exists), then the keyword overrides."""
+
+    def __init__(self, config_file: str | None = None,
+                 auto_load: bool = False, **overrides: Any):
         self._props: dict[str, str] = dict(_DEFAULTS)
+        # the file loaded, if any (ref: Config.getConfigLocation)
+        self.config_location: str | None = None
+        if config_file:
+            self.load_file(config_file)
+        elif auto_load:
+            for path in _SEARCH_PATHS:
+                if os.path.isfile(path):
+                    self.load_file(path)
+                    break
         for key, val in overrides.items():
             self._props[key.replace("__", ".")] = str(val)
+
+    def load_file(self, path: str) -> None:
+        """Read a java-properties-style file: ``key = value`` (or
+        ``key: value``) lines; blank lines and ``#``/``!`` comments
+        skipped (ref: ``Config.load_file``)."""
+        with open(path, "r", encoding="utf-8") as fh:
+            for line in fh:
+                line = line.strip()
+                if not line or line.startswith(("#", "!")):
+                    continue
+                for sep in ("=", ":"):
+                    idx = line.find(sep)
+                    if idx > 0:
+                        self._props[line[:idx].strip()] = \
+                            line[idx + 1:].strip()
+                        break
+        self.config_location = path
 
     def get_string(self, key: str, default: str | None = None) -> str:
         if key in self._props:
@@ -458,13 +490,6 @@ class Config:
         logger = logger or log
         unknown = self.unknown_keys()
         for key in unknown:
-            item = later_item(key)
-            if item is not None:
-                logger.warning(
-                    "config key %r is read by a part not ported yet "
-                    "(ROADMAP Queue 1, %s) and will be IGNORED until "
-                    "then", key, item)
-                continue
             logger.warning(
                 "unknown config key %r is not read by anything and "
                 "will be IGNORED — check for a typo (see "

@@ -7,8 +7,9 @@
 - keys declared with no behaviour (``tsd.lifecycle.compact``,
   ``tsd.lifecycle.pack_timestamps``: the port's stores have nothing to
   compact, ROADMAP recorded divergence 22);
-- keys of parts not ported yet, whose warning names the ROADMAP Queue 1
-  item that will read them instead of suggesting a typo;
+- the keys of the ``/q`` graphs and the ``/s`` static files
+  (``tsd.http.staticroot``, ``tsd.http.cachedir``,
+  ``tsd.http.graph.auto_pixels``), read as the reference reads them;
 - the sibling routers' gossip keys (``tsd.cluster.gossip.*``), read
   with the reference's defaults;
 - ``tsd.cluster.reshard.backfill_batch``, read by the router's repair
@@ -27,8 +28,6 @@ import socket
 import pytest
 
 from torch_cluster_pair import BASE, JAX, PORT, SIDES, LivePeer
-
-from opentsdb_tpu_torch.utils.config import later_item
 
 CHUNK_KEYS = ("tsd.http.request_enable_chunked",
               "tsd.http.request.enable_chunked", None)
@@ -113,22 +112,23 @@ def test_lifecycle_compaction_keys_are_declared():
         side.TSDB(side.Config(**{**side.keys, **full})).shutdown()
 
 
-@pytest.mark.parametrize("key,item", [
-    ("tsd.http.staticroot", "1.8"),
-    ("tsd.http.cachedir", "1.8"),
-    ("tsd.http.graph.auto_pixels", "1.8")])
-def test_a_later_item_key_warns_by_item(caplog, key, item):
-    """A key a later Queue 1 item reads is still not read (the TSDB
-    lists it as unknown), and its warning names that item, not a
-    typo; a key nothing will read keeps the typo warning."""
-    cfg = PORT.Config(**{key: "1", "tsd.bogus.key": "1"})
+@pytest.mark.parametrize("key,value", [
+    ("tsd.http.staticroot", "/srv/tsd/static"),
+    ("tsd.http.cachedir", "/srv/tsd/cache"),
+    ("tsd.http.graph.auto_pixels", "false")])
+def test_the_graph_and_static_keys_are_read(caplog, key, value):
+    """The keys of ``/q`` and ``/s`` are read: neither package calls one
+    unknown, both give back the value set, and the port's warnings name
+    only the typo set beside it, as a typo."""
+    for side in SIDES:
+        cfg = side.Config(**{key: value, "tsd.bogus.key": "1"})
+        assert cfg.unknown_keys() == ["tsd.bogus.key"]
+        assert cfg.get_string(key) == value
+    cfg = PORT.Config(**{key: value, "tsd.bogus.key": "1"})
     with caplog.at_level(logging.WARNING, logger="config"):
-        assert cfg.warn_unknown_keys() == sorted([key, "tsd.bogus.key"])
+        assert cfg.warn_unknown_keys() == ["tsd.bogus.key"]
     lines = [r.getMessage() for r in caplog.records]
-    mine = [m for m in lines if repr(key) in m]
-    assert len(mine) == 1
-    assert f"ROADMAP Queue 1, item {item}" in mine[0]
-    assert "typo" not in mine[0]
+    assert not [m for m in lines if repr(key) in m]
     bogus = [m for m in lines if "'tsd.bogus.key'" in m]
     assert len(bogus) == 1 and "typo" in bogus[0]
 
@@ -144,12 +144,11 @@ def test_the_reference_s_gossip_keys_are_read(key, value):
     its defaults (interval 250 ms, stale 5000 ms, a log of 4096, a
     2000 ms push deadline): the two packages' buses take the same
     settings. A key of the family the reference does not have
-    (``.fanout``) warns as a typo in both, naming no item."""
+    (``.fanout``) is unknown to both."""
     peers = "s0=127.0.0.1:1,s1=127.0.0.1:2"
     if value is None:
         for side in SIDES:
             assert side.Config(**{key: "1"}).unknown_keys() == [key]
-        assert later_item(key) is None
         return
     got = []
     for over in ({}, {key: value}):

@@ -250,8 +250,15 @@ def test_gexp_several_and_errors(routers):
 
 
 def test_expression_endpoints_left_the_unported_table():
-    assert "query/exp" not in http_api.UNPORTED
-    assert "query/gexp" not in http_api.UNPORTED
+    """The router refuses no endpoint any more (its table of unported
+    ones went with the last of them): ``exp`` and ``gexp`` are routed
+    to their handlers."""
+    assert not hasattr(http_api, "UNPORTED")
+    tt = TSDB(Config(**{"tsd.torch.device": "cpu"}))
+    try:
+        assert "query" in http_api.HttpRpcRouter(tt)._routes
+    finally:
+        tt.shutdown()
 
 
 # -- the expression core ----------------------------------------------------

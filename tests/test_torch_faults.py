@@ -3,10 +3,10 @@
 package: the cases of ``tests/test_faults.py`` (``TestStoreFaults``'
 read latency) and ``tests/test_result_cache.py`` (the degraded tier),
 run on both packages, on both stores. Also the configuration keys: a
-key for a site the port has not ported (the sibling routers' gossip)
-raises, one of the control plane's, the router's, the backfill's, the
-retire pass's or the federated continuous queries' sites arms it, and
-one that names no site at all warns and arms nothing that is checked.
+key of the control plane's, the router's, the backfill's, the retire
+pass's, the federated continuous queries' or the sibling routers'
+gossip's sites arms it, and one that names no site at all warns and
+arms nothing that is checked.
 """
 
 from __future__ import annotations
@@ -174,7 +174,7 @@ def test_degraded_tier_fails_loudly_and_cache_unpoisoned(backend):
     "tsd.faults.cluster.gossip.r1_error_rate",
     "tsd.faults.control.qos_error_count",
     "tsd.faults.control.placement.error_once"])
-def test_unported_site_keys_raise(key):
+def test_cluster_and_control_site_keys_arm(key):
     """A key of the control plane's, the router's, the backfill's, the
     retire pass's, the federated continuous queries' or the sibling
     routers' gossip's sites (per-peer ones included) arms its one site,

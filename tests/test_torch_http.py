@@ -19,7 +19,6 @@ request is compared by its kind:
 The table runs once at ``ENGINE_KEYS`` (the point path, where the port
 runs the plain versions of K1 and K2) and once at ``GRID_ON``. Puts run
 on a fresh pair per request, and their data is read back through both.
-Every endpoint the port has not ported answers a structured 501.
 """
 
 import json
@@ -566,24 +565,17 @@ def test_rollup_put_is_one_wal_write(tmp_path):
     t.shutdown()
 
 
-# -- what is not ported -------------------------------------------------
+# -- what was not ported ------------------------------------------------
 
-# every endpoint that answered 501 before the observability layer and
-# the control plane were ported, by the id its case has always had; the
-# ported ones now answer as the JAX package does
+# every endpoint that answered 501 before the observability layer, the
+# control plane, the cluster surface and the graphs and static files
+# were ported, by the id its case has always had; each answers as the
+# JAX package does now
 ONCE_UNPORTED = ("/api/cluster", "/api/control", "/api/health",
                  "/api/profile", "/api/stats/fleet",
                  "/api/stats/query_shapes", "/api/stats/raw",
                  "/api/stats/tenants", "/api/trace", "/logs", "/metrics",
                  "/q", "/s/x")
-
-
-def _unported_paths():
-    for name in http_api.UNPORTED:
-        if name.startswith("/"):
-            yield f"{name}/x" if name == "/s" else name
-        else:
-            yield f"/api/{name}"
 
 
 @pytest.fixture(scope="module")
@@ -594,30 +586,22 @@ def port_router():
 
 
 def test_unported_list_is_what_is_left():
-    """What still refuses: graphs and static files (``cluster/``'s admin
-    surface and the fleet stats came with the cluster router; on a TSD
-    that is not a router they answer the JAX package's 400)."""
-    assert set(_unported_paths()) == {"/q", "/s/x"}
-    assert set(_unported_paths()) <= set(ONCE_UNPORTED)
+    """Nothing is left: the table of unported endpoints went with its
+    last entries (``/q`` and ``/s``), and no endpoint of the reference's
+    surface answers 501 or 404 for being missing."""
+    assert not hasattr(http_api, "UNPORTED")
+    assert not hasattr(http_api, "_not_ported")
 
 
 @pytest.mark.parametrize("path", ONCE_UNPORTED)
 def test_unported_endpoint_answers_501(port_router, path):
-    """Every endpoint of the reference's surface that the port lacks
-    answers a structured 501 naming the ROADMAP item, never a 404 or
-    an empty 200; one the port has ported since answers the status the
-    JAX package answers, never a 501."""
+    """Every endpoint that once answered a structured 501 answers the
+    status the JAX package answers, never a 501 (``/q`` with no ``m``
+    its 400, ``/s/x`` its 404)."""
     jr, pr = port_router
     resp = pr.handle(HttpRequest(method="GET", path=path))
-    if path not in set(_unported_paths()):
-        want = jr.handle(JRequest(method="GET", path=path))
-        assert resp.status == want.status != 501, resp.body
-        return
-    assert resp.status == 501
-    err = json.loads(resp.body)["error"]
-    assert err["code"] == 501
-    assert "not ported yet" in err["message"]
-    assert "ROADMAP Queue 1" in err["message"]
+    want = jr.handle(JRequest(method="GET", path=path))
+    assert resp.status == want.status != 501, resp.body
 
 
 @pytest.mark.parametrize("method,path", [

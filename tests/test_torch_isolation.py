@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``opentsdb_tpu_torch`` nor
 ``chip_smoke.py`` imports ``jax`` or the JAX package, the package
-imports with both made unimportable, its entry points (``TSDB`` and
+imports with both made unimportable (and with matplotlib made
+unimportable), its entry points (``TSDB`` and
 the TSD command line) refuse to fall back to the CPU when a card is
 asked for and absent, and the kernel
 build module imports without a CUDA toolchain."""
@@ -61,6 +62,25 @@ def test_package_imports_without_jax():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_package_imports_without_matplotlib():
+    """matplotlib is optional (the card's host has none): every module
+    of the port, ``tsd/graph.py`` and ``tools/cli.py`` among them,
+    imports with it made unimportable, and the graph module imports it
+    only to draw."""
+    mods = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PKG.rglob("*.py"))
+    code = ("import sys\n"
+            "sys.modules['matplotlib'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('ok')\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    assert "opentsdb_tpu_torch.tsd.graph" in mods
 
 
 def test_default_device_is_cuda():

@@ -221,9 +221,8 @@ JROUTER = {**JCPU, "tsd.cluster.role": "router",
 
 @pytest.mark.parametrize("key,value", [
     ("tsd.cluster.routers", "r1=127.0.0.1:9")])
-def test_replication_keys_refused(key, value):
-    """No longer refused: the sibling routers' gossip (1.6d(iii)) is
-    ported. A router naming a sibling builds in both packages with a
+def test_sibling_router_keys_build_a_bus(key, value):
+    """The sibling routers' gossip (1.6d(iii)) is ported. A router naming a sibling builds in both packages with a
     bus of that one sibling, whose health document is the same up to
     the nonce and the clock; with the key empty there is no bus."""
     docs = []

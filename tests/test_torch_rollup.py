@@ -744,7 +744,7 @@ def test_rollup_usage_is_part_of_the_cache_key():
     close(t)
 
 
-# -- keys that turn on what is not ported ----------------------------------
+# -- keys that turn on the other subsystems ---------------------------------
 
 @pytest.mark.parametrize("key,value", [
     ("tsd.lifecycle.enable", "true"),
@@ -757,8 +757,8 @@ def test_rollup_usage_is_part_of_the_cache_key():
     ("tsd.core.meta.enable_tsuid_incrementing", "true"),
     ("tsd.core.meta.enable_tsuid_tracking", "true"),
     ("tsd.core.tree.enable_processing", "true")])
-def test_unported_subsystem_keys_refused(key, value):
-    """No longer refused: the sibling routers' key (ported) builds no
+def test_subsystem_keys_build_as_the_reference(key, value):
+    """The sibling routers' key (ported) builds no
     router on a TSDB of another role and a router with its gossip bus on
     a router, in both packages; the role (ported) builds a TSDB whose
     router, or its absence, is the JAX package's; the replication factor

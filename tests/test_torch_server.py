@@ -378,9 +378,14 @@ def test_cli_tsd_serves_and_stops_on_sigterm(tmp_path):
 
 @pytest.mark.parametrize("command", ["query", "import", "nope"])
 def test_cli_other_commands_refused(command):
-    out = subprocess.run(
-        [sys.executable, "-m", "opentsdb_tpu_torch.tools.cli", command],
+    """``query`` and ``import`` with no argument print the reference's
+    usage and exit 2, and an unknown command says so and exits 2, in
+    both packages' command lines, with the same stderr."""
+    outs = [subprocess.run(
+        [sys.executable, "-m", f"{pkg}.tools.cli", command],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0
-    assert ("not ported yet" if command != "nope" else
-            "unknown command") in out.stderr
+        for pkg in ("opentsdb_tpu_torch", "opentsdb_tpu")]
+    assert outs[0].returncode == outs[1].returncode == 2
+    assert outs[0].stderr == outs[1].stderr
+    assert ("unknown command" if command == "nope" else
+            f"usage: tsdb {command}") in outs[0].stderr
